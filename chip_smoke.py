@@ -1,0 +1,534 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`igg_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `igg_torch/csrc` (one `nvcc` per
+source, all started together), then runs these phases; any failure raises
+and the script exits non-zero without printing a result:
+
+1. Kernel checks: each kernel against its plain PyTorch version on the card,
+   at small shapes in every halo mode, then at 256^3 f32 (the headline's
+   shape), where the kernel, its plain version and the bound are timed.
+2. Headline, periodic: 256^3 f32 on one block, `make_multi_step(100)`
+   through `run()`: heat conserved, the first 10 steps equal to the plain
+   path, ms/step.
+3. Headline, open: the same at 512^3 with open boundaries (the reference's
+   published configuration); ms/step.
+4. Recv mode: dims (2,2,1) at 64x64x128 per block, open and z-periodic, so
+   the fused step runs its `recv` and open-edge branches; held against the
+   plain path and against the same global problem on one block.
+5. Standalone `update_halo` on a 256^3 f32 periodic field and on an f64
+   one, against the plain version; us per call.
+
+Launch counters are set to 0 before phase 2 and read after phase 5: each
+kernel must have launched on that main path.  The last lines are the
+`{"kernels": [...]}` summary, the card's name and power limit, and
+`{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
+JAX and nothing of the `igg` package is imported.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# Published peaks of one H100 SXM (NVIDIA data sheet, at a 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# Floating-point operations of one interior cell of the 7-point update
+# (three pair sums, three scalings, two accumulations, the centre term and
+# its subtraction, the coefficient product and the final add).
+STENCIL_FLOPS = 12
+
+PERIODIC = dict(periodx=1, periody=1, periodz=1)
+SINGLE = dict(dimx=1, dimy=1, dimz=1)
+# Grids of the small-shape kernel checks: every halo mode of each kernel.
+SMALL_GRIDS = {
+    "wrap": dict(SINGLE, **PERIODIC),
+    "frozen": SINGLE,
+    "wrap_y_frozen_xz": dict(SINGLE, periody=1),
+    "wrap_xz_frozen_y": dict(SINGLE, periodx=1, periodz=1),
+    "recv_2x2x1_open": dict(dimx=2, dimy=2, dimz=1),
+    "recv_2x2x2_periodic": dict(dimx=2, dimy=2, dimz=2, **PERIODIC),
+    "recv_x_wrap_yz": dict(dimx=2, dimy=1, dimz=1, periody=1, periodz=1),
+    "recv_yz_open_x": dict(dimx=1, dimy=2, dimz=2, periody=1),
+}
+# Local shapes of those checks: odd z extents (the kernels' element path),
+# and 16-byte rows with block edges inside a vector (the vector path).
+SMALL_SHAPES = ((12, 10, 33), (10, 12, 10))
+
+KERNEL_INFO = {
+    "diffusion_step": dict(
+        source="igg_torch/csrc/diffusion_step.cu",
+        replaces="igg/ops/diffusion_pallas.py:337"),
+    # The K-step loop: the step kernel launched once per step on two
+    # ping-pong buffers, counted by its own wrapper.
+    "diffusion_mega_step": dict(
+        source="igg_torch/csrc/diffusion_step.cu",
+        replaces="igg/ops/diffusion_mega.py:414"),
+    "halo_write": dict(
+        source="igg_torch/csrc/halo_write.cu",
+        replaces="igg/ops/halo_write.py:276"),
+}
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def max_abs_err(got, want) -> float:
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise SmokeFailure(f"shape/dtype {tuple(got.shape)} {got.dtype} != "
+                           f"{tuple(want.shape)} {want.dtype}")
+    if not torch.is_floating_point(got):
+        return float((got != want).sum())
+    return float((got.double() - want.double()).abs().max())
+
+
+def check(what: str, got, want, tol: float) -> float:
+    err = max_abs_err(got, want)
+    if not err <= tol:
+        raise SmokeFailure(f"{what}: max abs err {err:.3e} > tolerance {tol:.1e}")
+    return err
+
+
+def event_ms(fn, n: int) -> float:
+    """Mean device ms of `fn()` over `n` back-to-back calls (CUDA events),
+    after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profiled_device_ms(fn, n: int, kernel: str):
+    """Mean device ms per launch of the CUDA kernel whose name contains
+    `kernel`, from a `torch.profiler` trace of `n` calls of `fn()`; None
+    when the trace holds no device time for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        if kernel in evt.key and evt.count:
+            total = getattr(evt, "device_time_total",
+                            getattr(evt, "cuda_time_total", 0.0))
+            if total:
+                return total / evt.count / 1e3
+    return None
+
+
+def device_ms_by_kernel(fn, n: int) -> dict:
+    """Device ms per call of `fn()` of each CUDA kernel it launches, by
+    kernel name, from a `torch.profiler` trace of `n` calls; {} when the
+    trace holds no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != DeviceType.CUDA:
+            continue
+        total = (getattr(evt, "self_device_time_total", 0)
+                 or getattr(evt, "self_cuda_time_total", 0))
+        if total:
+            out[evt.key[:80]] = total / n / 1e3
+    return out
+
+
+def kernel_time(fn, n: int, kernel: str) -> dict:
+    """A kernel's time: its device time from the profiler where the trace
+    has it, else the event time of `n` back-to-back calls (which, for a
+    kernel shorter than its launch, is the host's launch rate)."""
+    events = event_ms(fn, n)
+    device = profiled_device_ms(fn, n, kernel)
+    return dict(ms=events if device is None else device,
+                ms_from="events" if device is None else "profiler",
+                events_ms=events)
+
+
+def sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def bound_ms(nbytes: float, flops: float, flop_rate: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / flop_rate
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def uniform(shape, lo, hi, dtype, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return (torch.rand(shape, generator=g, dtype=torch.float64, device=dev)
+            * (hi - lo) + lo).to(dtype)
+
+
+class Smoke:
+    """State of one run: the device, the sizes, and what each phase found."""
+
+    def __init__(self, dev, *, n_head=256, n_open=512, recv_local=(64, 64, 128),
+                 small=SMALL_SHAPES, n_inner=100, nt=8, halo_calls=200,
+                 time_iters=50):
+        import igg_torch as it
+        from igg_torch import halo, ops
+        from igg_torch.models import diffusion3d as t3
+        from igg_torch.ops import diffusion_mega as dm
+        from igg_torch.ops import diffusion_pallas as dp
+        from igg_torch.ops import halo_write as hw
+
+        self.it, self.halo, self.ops, self.t3 = it, halo, ops, t3
+        self.dm, self.dp, self.hw = dm, dp, hw
+        self.dev = dev
+        self.n_head, self.n_open, self.recv_local = n_head, n_open, recv_local
+        self.small, self.n_inner, self.nt = small, n_inner, nt
+        self.halo_calls, self.time_iters = halo_calls, time_iters
+        self.err = {name: 0.0 for name in KERNEL_INFO}
+        self.perf = {}
+        self.launches = None
+
+    def grid(self, n, **kw):
+        if self.it.grid_is_initialized():
+            self.it.finalize_global_grid()
+        self.it.init_global_grid(*n, quiet=True, device=self.dev, **kw)
+        return self.it.get_global_grid()
+
+    def note(self, name, err):
+        self.err[name] = max(self.err[name], err)
+
+    # -- phase 1 ----------------------------------------------------------
+    def kernel_checks(self):
+        """Each kernel against its plain version; tolerance 0: the kernels
+        copy bits or, built with -fmad=false, round every operation like
+        the plain PyTorch version."""
+        dp, dm, hw, halo = self.dp, self.dm, self.hw, self.halo
+        sc = dp.scal(0.3, 0.4, 0.5)
+        for case, kw, local in ((c, kw, s) for c, kw in SMALL_GRIDS.items()
+                                for s in self.small):
+            g = self.grid(local, **kw)
+            shp = self.it.stacked_shape(g.nxyz)
+            for dtype in (torch.float32, torch.float64):
+                T = uniform(shp, -10, 10, dtype, self.dev, 1)
+                A = uniform(shp, 0.01, 0.1, dtype, self.dev, 2)
+                modes = dp.step_modes(g)
+                recv = dp.step_recv_planes(T, A, g, modes, sc)
+                ref = dp.step_plain(T, A, modes, recv, g.dims, sc)
+                out = dp.step_kernel(T, A, modes, recv, g.dims, sc)
+                self.note("diffusion_step",
+                          check(f"diffusion_step {case} {dtype}", out, ref, 0.0))
+                if g.dims == (1, 1, 1):
+                    dst = dm.mega_step_kernel(T, A, torch.empty_like(T), modes, sc)
+                    self.note("diffusion_mega_step",
+                              check(f"diffusion_mega_step {case} {dtype}",
+                                    dst, ref, 0.0))
+            lshapes = [g.nxyz, (g.nxyz[0] + 1,) + g.nxyz[1:],
+                       g.nxyz[:2] + (g.nxyz[2] + 1,)]
+            for lshape in lshapes:
+                for dtype in (torch.float16, torch.float32, torch.float64,
+                              torch.int64):
+                    A = uniform(self.it.stacked_shape(lshape), -100, 100,
+                                torch.float64, self.dev, 3).to(dtype)
+                    ref = A.clone()
+                    halo._update_field(ref, g, hw.halo_write_plain)
+                    halo._update_field(A, g, hw.halo_write)
+                    self.note("halo_write", check(
+                        f"halo_write {case} {lshape} {dtype}", A, ref, 0.0))
+        # Overlap 3 and a 2-D field through the writer.
+        for n, kw, lshape in (((8, 9, 12), dict(PERIODIC, overlapx=3, dimx=2,
+                                                dimy=1, dimz=1), (8, 9, 12)),
+                              ((8, 9, 1), dict(periodx=1, dimx=2, dimy=1),
+                               (8, 9))):
+            g = self.grid(n, **kw)
+            A = uniform(self.it.stacked_shape(lshape), -1, 1, torch.float32,
+                        self.dev, 4)
+            ref = A.clone()
+            halo._update_field(ref, g, hw.halo_write_plain)
+            halo._update_field(A, g, hw.halo_write)
+            self.note("halo_write", check(f"halo_write {kw} {lshape}", A, ref, 0.0))
+        log(f"[phase 1] small-shape kernel checks passed: max abs err "
+            f"{json.dumps(self.err)} (tolerance 0)")
+        self.kernel_checks_headline()
+
+    def kernel_checks_headline(self):
+        """One step of each kernel at the headline shape (256^3 f32,
+        periodic, one block): checked, then timed beside its plain version
+        and its bound."""
+        dp, dm, hw = self.dp, self.dm, self.hw
+        n = self.n_head
+        g = self.grid((n, n, n), **SINGLE, **PERIODIC)
+        sc = dp.scal(*self.t3.Params().spacing())
+        T = uniform((n, n, n), 0, 100, torch.float32, self.dev, 5)
+        A = uniform((n, n, n), 0.001, 0.02, torch.float32, self.dev, 6)
+        modes = dp.step_modes(g)
+        ref = dp.step_plain(T, A, modes, {}, g.dims, sc)
+        out = dp.step_kernel(T, A, modes, {}, g.dims, sc)
+        self.note("diffusion_step", check("diffusion_step 256^3", out, ref, 0.0))
+        dst = torch.empty_like(T)
+        dm.mega_step_kernel(T, A, dst, modes, sc)
+        self.note("diffusion_mega_step",
+                  check("diffusion_mega_step 256^3", dst, ref, 0.0))
+        del out, ref
+
+        cells = float(n) ** 3
+        interior = float(n - 2) ** 3
+        step_bound = bound_ms(3 * cells * 4, STENCIL_FLOPS * interior, F32_FLOPS)
+        k = self.time_iters
+        self.perf["diffusion_step"] = dict(
+            kernel_time(lambda: dp.step_kernel(T, A, modes, {}, g.dims, sc), k,
+                        "step_kernel"),
+            plain_ms=event_ms(lambda: dp.step_plain(T, A, modes, {}, g.dims, sc),
+                              max(k // 5, 2)),
+            bound=step_bound)
+        self.perf["diffusion_mega_step"] = dict(
+            kernel_time(lambda: dm.mega_step_kernel(T, A, dst, modes, sc), k,
+                        "step_kernel"),
+            plain_ms=event_ms(lambda: dm.mega_step_plain(T, A, dst, modes, sc),
+                              max(k // 5, 2)),
+            bound=step_bound)
+        # What the card streams in practice: one elementwise pass over the
+        # same three arrays (read T and A, write one).
+        self.perf["stream_3x256^3_add_ms"] = event_ms(
+            lambda: torch.add(T, A, out=dst), k)
+
+        specs = [(d, "wrap", 2) for d in range(3)]
+        F = T.clone()
+        ref = hw.halo_write_plain(F.clone(), specs, g.dims)
+        hw.halo_write(F, specs, g.dims)
+        self.note("halo_write", check("halo_write 256^3", F, ref, 0.0))
+        halo_cells = cells - interior      # each read once and written once
+        self.perf["halo_write"] = dict(
+            kernel_time(lambda: hw.halo_write(F, specs, g.dims), 10 * k,
+                        "halo_write_kernel"),
+            plain_ms=event_ms(lambda: hw.halo_write_plain(F, specs, g.dims), k),
+            bound=bound_ms(2 * halo_cells * 4, 0, F32_FLOPS))
+        for name in KERNEL_INFO:
+            p = self.perf[name]
+            log(f"[phase 1] {name} at {n}^3 f32: {p['ms']:.4f} ms device "
+                f"({p['ms_from']}), {p['events_ms']:.4f} ms per launch back to "
+                f"back (events), plain {p['plain_ms']:.4f} ms, bound "
+                f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
+        log(f"[phase 1] torch.add over three {n}^3 f32 arrays: "
+            f"{self.perf['stream_3x256^3_add_ms']:.4f} ms")
+        # The K-step kernel at the open headline's shape too.
+        m = self.n_open
+        g = self.grid((m, m, m), **SINGLE)
+        T = uniform((m, m, m), 0, 100, torch.float32, self.dev, 7)
+        A = uniform((m, m, m), 0.001, 0.02, torch.float32, self.dev, 8)
+        dst = torch.empty_like(T)
+        modes = ("frozen",) * 3
+        dm.mega_step_kernel(T, A, dst, modes, sc)
+        ref = dm.mega_step_plain(T, A, torch.empty_like(T), modes, sc)
+        self.note("diffusion_mega_step",
+                  check("diffusion_mega_step 512^3 open", dst, ref, 0.0))
+        del ref
+        ms = event_ms(lambda: dm.mega_step_kernel(T, A, dst, modes, sc), k)
+        b = bound_ms(3 * float(m) ** 3 * 4, STENCIL_FLOPS * float(m - 2) ** 3,
+                     F32_FLOPS)
+        self.perf["diffusion_mega_step_512_open"] = dict(ms=ms, bound=b)
+        log(f"[phase 1] diffusion_mega_step at {m}^3 f32 open: {ms:.4f} "
+            f"ms/launch, bound {b[0]:.4f} ms ({b[1]})")
+
+    # -- main path --------------------------------------------------------
+    def heat(self, T, Cp) -> float:
+        return float(np.sum(self.it.gather_interior(Cp.double() * T.double())))
+
+    def headline(self, n, periodic: bool):
+        """`run()` at n^3 f32 on one block: physics checks, ms/step."""
+        it, t3 = self.it, self.t3
+        tag = f"{n}^3 {'periodic' if periodic else 'open'}"
+        self.grid((n, n, n), **SINGLE, **(PERIODIC if periodic else {}))
+        p = t3.Params()
+        T, Cp = t3.init_fields(p)
+        T10 = t3.make_multi_step(10, p)(T, Cp)
+        T10_plain = t3.make_multi_step(10, p, use_kernels=False)(T, Cp)
+        err10 = check(f"{tag}: 10 steps vs plain path", T10, T10_plain, 0.0)
+        del T10, T10_plain
+        T1, sec = t3.run(self.nt, p, dtype=torch.float32, n_inner=self.n_inner)
+        n1 = max(1, self.nt // 4)     # the calls run() makes (warm-up 1)
+        steps = (1 + n1 + max(self.nt - n1, n1 + 1)) * self.n_inner
+        if not bool(torch.isfinite(T1).all()):
+            raise SmokeFailure(f"{tag}: non-finite temperature")
+        lo, hi = float(T.min()), float(T.max())
+        lo1, hi1 = float(T1.min()), float(T1.max())
+        # The explicit scheme is monotone at this time step: no new extrema.
+        if lo1 < lo - 1e-3 or hi1 > hi + 1e-3:
+            raise SmokeFailure(f"{tag}: range [{lo1}, {hi1}] left [{lo}, {hi}]")
+        drift = None
+        if periodic:
+            e0, e1 = self.heat(T, Cp), self.heat(T1, Cp)
+            drift = abs(e1 - e0) / abs(e0)
+            # Periodic: sum(Cp*T) is conserved up to float32 rounding.
+            if not drift < 1e-5:
+                raise SmokeFailure(f"{tag}: heat drift {drift:.3e} >= 1e-5")
+        one = t3.make_step(p)
+        _, sec1 = it.time_steps(lambda T, Cp: (one(T, Cp), Cp), (T, Cp),
+                                n1=10, n2=40, warmup=2)
+        # Where a make_step call's time goes: device time per call, by
+        # kernel, against the wall time per call above.
+        split = device_ms_by_kernel(lambda: one(T, Cp), 20)
+        device = sum(split.values())
+        log(f"[phase {2 if periodic else 3}] {tag} make_step split: wall "
+            f"{sec1 * 1e3:.4f} ms/call, device {device:.4f} ms/call "
+            f"{json.dumps(split)}")
+        log(f"[phase {2 if periodic else 3}] headline {tag}: {steps} steps, "
+            f"10-step max abs err vs plain {err10:.3e} (tolerance 0), heat "
+            f"drift {drift if drift is None else f'{drift:.3e}'}, range "
+            f"[{lo1:.4f}, {hi1:.4f}] within [{lo:.4f}, {hi:.4f}]; "
+            f"make_multi_step({self.n_inner}) {sec * 1e3:.4f} ms/step, "
+            f"make_step {sec1 * 1e3:.4f} ms/step")
+        self.perf[f"headline_{tag}"] = dict(ms_per_step=sec * 1e3,
+                                            make_step_ms=sec1 * 1e3,
+                                            make_step_device_ms=device)
+
+    def recv_mode(self):
+        """Multi-block grids through the fused per-step kernel, against the
+        plain path and against the same global problem on one block."""
+        it, t3 = self.it, self.t3
+        nx, ny, nz = self.recv_local
+        p = t3.Params()
+        for kw in (dict(), dict(periodz=1)):
+            self.grid((nx, ny, nz), dimx=2, dimy=2, dimz=1, **kw)
+            T, Cp = t3.init_fields(p)
+            Tk = t3.make_multi_step(10, p)(T, Cp)
+            Tp = t3.make_multi_step(10, p, use_kernels=False)(T, Cp)
+            err = check(f"recv {kw}: 10 steps vs plain path", Tk, Tp, 0.0)
+            multi = it.gather_interior(Tk)
+            # The same global grid on one block (open: 2*(n-2)+2 cells).
+            one = (2 * nx - 2, 2 * ny - 2, nz)
+            self.grid(one, **SINGLE, **kw)
+            T, Cp = t3.init_fields(p)
+            single = it.gather_interior(t3.make_multi_step(10, p)(T, Cp))
+            if multi.shape != single.shape:
+                raise SmokeFailure(f"recv {kw}: shapes {multi.shape} {single.shape}")
+            d = float(np.abs(multi.astype(np.float64) - single).max())
+            # float32, the tolerance of igg's own kernel tests.
+            if not np.allclose(multi, single, rtol=2e-6, atol=2e-5):
+                raise SmokeFailure(f"recv {kw}: 2x2x1 vs one block: {d:.3e}")
+            log(f"[phase 4] recv dims (2,2,1) {nx}x{ny}x{nz}/block {kw or 'open'}: "
+                f"vs plain {err:.3e} (tolerance 0), vs one block {d:.3e} "
+                f"(rtol 2e-6, atol 2e-5)")
+
+    def standalone_halo(self):
+        it = self.it
+        n = self.n_head
+        for dtype in (torch.float32, torch.float64):
+            self.grid((n, n, n), **SINGLE, **PERIODIC)
+            A = uniform((n, n, n), -1, 1, dtype, self.dev, 9)
+            ref = it.update_halo(A.clone(), plain=True)
+            it.update_halo(A)
+            err = check(f"update_halo {dtype}", A, ref, 0.0)
+            sync(self.dev)
+            t0 = time.perf_counter()
+            for _ in range(self.halo_calls):
+                it.update_halo(A)
+            sync(self.dev)
+            us = (time.perf_counter() - t0) / self.halo_calls * 1e6
+            self.perf[f"update_halo_{dtype}"] = dict(us_per_call=us)
+            log(f"[phase 5] update_halo {n}^3 {dtype} periodic: vs plain "
+                f"{err:.3e} (tolerance 0), {us:.2f} us/call (host clock)")
+
+    def main_path(self):
+        self.ops.reset_launch_counts()
+        self.headline(self.n_head, periodic=True)
+        self.headline(self.n_open, periodic=False)
+        self.recv_mode()
+        self.standalone_halo()
+        self.launches = self.ops.launch_counts()
+        log(f"[main path] launches {json.dumps(self.launches)}")
+        missing = [k for k, v in self.launches.items() if v <= 0]
+        if missing:
+            raise SmokeFailure(f"kernels not launched on the main path: {missing}")
+        if self.it.grid_is_initialized():
+            self.it.finalize_global_grid()
+
+    def summary(self):
+        out = []
+        for name, info in KERNEL_INFO.items():
+            p = self.perf[name]
+            out.append(dict(
+                name=name, route="cuda", source=info["source"],
+                replaces=info["replaces"], launches=int(self.launches[name]),
+                max_abs_err=self.err[name], ms=p["ms"], plain_ms=p["plain_ms"],
+                bound_ms=p["bound"][0], bound_by=p["bound"][1],
+                # No single PyTorch call computes any of these functions.
+                library_ms=None))
+        return {"kernels": out}
+
+
+def card_line() -> str:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60)
+    if r.returncode != 0:
+        raise SmokeFailure(f"nvidia-smi failed: {r.stderr.strip()}")
+    return r.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from igg_torch.ops import _build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    t0 = time.perf_counter()
+    reports = _build.build_all()
+    log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas {name}] {line.strip()}")
+
+    smoke = Smoke(torch.device("cuda"))
+    t0 = time.perf_counter()
+    smoke.kernel_checks()
+    log(f"[phase 1] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    smoke.main_path()
+    log(f"[main path] done in {time.perf_counter() - t0:.1f} s")
+    log(json.dumps({"perf": smoke.perf}))
+    log(json.dumps(smoke.summary()))
+    log(card)
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

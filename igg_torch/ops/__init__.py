@@ -1,0 +1,28 @@
+"""Kernels of the port and their plain PyTorch versions.
+
+Every kernel is CUDA C++ under `igg_torch/csrc`, built at first use
+(:mod:`igg_torch.ops._build`).  Each wrapper takes its plain version for a
+CPU tensor, launches its kernel for a CUDA tensor (or raises), and counts
+its launches in `<wrapper>.launches`.
+"""
+
+from . import diffusion_mega, diffusion_pallas, halo_write
+from .diffusion_mega import fused_diffusion_megasteps
+from .diffusion_pallas import diffusion_compute, fused_diffusion_step
+from .stencil import interior_add
+
+# name -> wrapper that launches the kernel
+KERNELS = {
+    "diffusion_step": diffusion_pallas.step_kernel,
+    "diffusion_mega_step": diffusion_mega.mega_step_kernel,
+    "halo_write": halo_write.halo_write,
+}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}

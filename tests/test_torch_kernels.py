@@ -1,0 +1,93 @@
+"""The port's CUDA kernels held against their plain PyTorch versions on a
+card: the fused diffusion step (wrap/recv/frozen halo modes), as a new
+tensor and, for the K-step loop (wrap/frozen), into a preallocated one, and the in-place halo writer (wrap/ext sources,
+2/4/8-byte elements).  Every test needs an NVIDIA card and skips without
+one; `chip_smoke.py` runs the same comparisons as its first phase."""
+
+import numpy as np
+import pytest
+import torch
+
+import igg_torch as it
+from igg_torch import halo
+from igg_torch.ops import diffusion_mega as dm
+from igg_torch.ops import diffusion_pallas as dp
+from igg_torch.ops import halo_write as hw
+
+pytestmark = pytest.mark.cuda
+
+GRIDS = {
+    "wrap": dict(dimx=1, dimy=1, dimz=1, periodx=1, periody=1, periodz=1),
+    "frozen": dict(dimx=1, dimy=1, dimz=1),
+    "wrap_y_frozen_xz": dict(dimx=1, dimy=1, dimz=1, periody=1),
+    "recv_2x2x1_open": dict(dimx=2, dimy=2, dimz=1),
+    "recv_2x2x2_periodic": dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
+                                periodz=1),
+    "recv_x_wrap_yz": dict(dimx=2, dimy=1, dimz=1, periody=1, periodz=1),
+    "recv_yz_wrap_x": dict(dimx=1, dimy=2, dimz=2, periodx=1),
+}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    yield torch.device("cuda")
+    if it.grid_is_initialized():
+        it.finalize_global_grid()
+
+
+def _random(shape, dtype, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(lo, hi, shape)).to(dtype)
+
+
+# (8, 9, 16): 16-byte rows, the vector path; (7, 6, 10): odd z extents and
+# block edges inside a vector, the element path and the per-lane z walk.
+@pytest.mark.parametrize("local", [(8, 9, 16), (7, 6, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(GRIDS))
+def test_step_kernel_matches_plain(card, case, dtype, local):
+    it.init_global_grid(*local, quiet=True, device=card, **GRIDS[case])
+    g = it.get_global_grid()
+    shp = it.stacked_shape(g.nxyz)
+    T = _random(shp, dtype, -10, 10, 0).to(card)
+    A = _random(shp, dtype, 0.01, 0.1, 1).to(card)
+    sc = dp.scal(0.3, 0.4, 0.5)
+    modes = dp.step_modes(g)
+    recv = dp.step_recv_planes(T, A, g, modes, sc)
+    out = dp.step_kernel(T, A, modes, recv, g.dims, sc)
+    torch.cuda.synchronize()
+    ref = dp.step_plain(T, A, modes, recv, g.dims, sc)
+    # built with -fmad=false: the same roundings as the plain version
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+    if g.dims == (1, 1, 1):
+        dst = torch.empty_like(T)
+        dm.mega_step_kernel(T, A, dst, tuple(m for m in modes), sc)
+        torch.testing.assert_close(dst, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64,
+                                   torch.int64])
+@pytest.mark.parametrize("case", sorted(GRIDS))
+def test_halo_writer_matches_plain(card, case, dtype):
+    it.init_global_grid(6, 7, 8, quiet=True, device=card, **GRIDS[case])
+    for lshape in ((6, 7, 8), (7, 7, 8)):
+        A = _random(it.stacked_shape(lshape), torch.float64, -100, 100, 2)
+        A = A.to(dtype).to(card)
+        ref = A.clone()
+        g = it.get_global_grid()
+        halo._update_field(ref, g, hw.halo_write_plain)
+        halo._update_field(A, g, hw.halo_write)
+        torch.testing.assert_close(A, ref, rtol=0, atol=0)
+
+
+def test_update_halo_on_card_matches_cpu(card):
+    it.init_global_grid(6, 6, 6, quiet=True, device=card, dimx=2, dimy=2,
+                        dimz=2, periodx=1)
+    A = _random(it.stacked_shape((6, 6, 6)), torch.float64, -1, 1, 3)
+    out = it.update_halo(A.to(card)).cpu()
+    before = hw.halo_write.launches
+    ref = it.update_halo(A.clone(), plain=True)
+    assert hw.halo_write.launches == before
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
