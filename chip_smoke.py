@@ -8,8 +8,10 @@ source, all started together), then runs these phases; any failure raises
 and the script exits non-zero without printing a result:
 
 1. Kernel checks: each kernel against its plain PyTorch version on the card,
-   at small shapes in every halo mode, then at 256^3 f32 (the headline's
-   shape), where the kernel, its plain version and the bound are timed.
+   at small shapes in every halo (or chunk window) mode, then at 256^3 f32
+   (the headline's shape), where the kernel, its plain version and the
+   bound are timed; the plane packer and the trapezoid chunk step at the
+   shape of the 510^3 headline (2x2x2 blocks of 256^3 f32, open).
 2. Headline, periodic: 256^3 f32 on one block, `make_multi_step(100)`
    through `run()`: heat conserved, the first 10 steps equal to the plain
    path, ms/step.
@@ -20,8 +22,16 @@ and the script exits non-zero without printing a result:
    plain path and against the same global problem on one block.
 5. Standalone `update_halo` on a 256^3 f32 periodic field and on an f64
    one, against the plain version; us per call.
+6. The reference's 510^3 headline on one card: `init_global_grid(256, 256,
+   256, dimx=2, dimy=2, dimz=2)`, open, the 8 blocks stacked in one
+   process; 17 steps (a warm-up step and two K=8 chunks) equal to the
+   per-step route and to the plain path bitwise; ms/step of the chunk route
+   through `run()` and of the per-step route, with each route's device
+   time split by kernel; peak device memory.
+7. Standalone `update_halo` on that 2x2x2 grid, f32 and f64 (the plane
+   packer and the halo writer), against the plain version; us per call.
 
-Launch counters are set to 0 before phase 2 and read after phase 5: each
+Launch counters are set to 0 before phase 2 and read after phase 7: each
 kernel must have launched on that main path.  The last lines are the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
@@ -78,7 +88,30 @@ KERNEL_INFO = {
     "halo_write": dict(
         source="igg_torch/csrc/halo_write.cu",
         replaces="igg/ops/halo_write.py:276"),
+    "pack_planes": dict(
+        source="igg_torch/csrc/pack_planes.cu",
+        replaces="igg/ops/pack.py:77"),
+    "diffusion_chunk_step": dict(
+        source="igg_torch/csrc/diffusion_chunk.cu",
+        replaces="igg/ops/diffusion_trapezoid.py:533"),
 }
+# Grids of the small-shape chunk checks: every window mode (ext, wrap, oext,
+# frozen), as (dims, periods).
+CHUNK_GRIDS = {
+    "ring_periodic": ((8, 1, 1), (1, 1, 1)),
+    "ring_open": ((8, 1, 1), (0, 0, 0)),
+    "4x2x1_periodic": ((4, 2, 1), (1, 1, 1)),
+    "2x2x2_periodic": ((2, 2, 2), (1, 1, 1)),
+    "4x1x2_periodic": ((4, 1, 2), (1, 1, 1)),
+    "2x2x2_periods010": ((2, 2, 2), (0, 1, 0)),
+    "2x2x2_periods101": ((2, 2, 2), (1, 0, 1)),
+    "1x2x2_open": ((1, 2, 2), (0, 0, 0)),
+    "2x1x1_wrap_y_frozen_z": ((2, 1, 1), (0, 1, 0)),
+}
+# Local shapes of the chunk checks: the vector path, and odd extents (the
+# element path).
+CHUNK_SHAPES = ((16, 16, 16), (16, 12, 13))
+K_CHUNK = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -141,10 +174,12 @@ def profiled_device_ms(fn, n: int, kernel: str):
     return None
 
 
-def device_ms_by_kernel(fn, n: int) -> dict:
+def device_ms_by_kernel(fn, n: int):
     """Device ms per call of `fn()` of each CUDA kernel it launches, by
-    kernel name, from a `torch.profiler` trace of `n` calls; {} when the
-    trace holds no device time."""
+    kernel name (cut to 80 characters; kernels whose cut names agree are
+    summed), from a `torch.profiler` trace of `n` calls, and the number of
+    kernel launches per call; ({}, 0) when the trace holds no device
+    time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -154,15 +189,17 @@ def device_ms_by_kernel(fn, n: int) -> dict:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, launches = {}, 0
     for evt in prof.key_averages():
         if getattr(evt, "device_type", None) != DeviceType.CUDA:
             continue
         total = (getattr(evt, "self_device_time_total", 0)
                  or getattr(evt, "self_cuda_time_total", 0))
         if total:
-            out[evt.key[:80]] = total / n / 1e3
-    return out
+            key = evt.key[:80]
+            out[key] = out.get(key, 0.0) + total / n / 1e3
+            launches += evt.count
+    return out, launches / n
 
 
 def kernel_time(fn, n: int, kernel: str) -> dict:
@@ -199,18 +236,26 @@ class Smoke:
 
     def __init__(self, dev, *, n_head=256, n_open=512, recv_local=(64, 64, 128),
                  small=SMALL_SHAPES, n_inner=100, nt=8, halo_calls=200,
-                 time_iters=50):
+                 time_iters=50, n_multi=256, steps_multi=17, nt_multi=32):
         import igg_torch as it
         from igg_torch import halo, ops
         from igg_torch.models import diffusion3d as t3
+        from igg_torch.ops import chunk_engine as ce
         from igg_torch.ops import diffusion_mega as dm
         from igg_torch.ops import diffusion_pallas as dp
+        from igg_torch.ops import diffusion_trapezoid as dtz
         from igg_torch.ops import halo_write as hw
+        from igg_torch.ops import pack as pk
 
         self.it, self.halo, self.ops, self.t3 = it, halo, ops, t3
         self.dm, self.dp, self.hw = dm, dp, hw
+        self.ce, self.dtz, self.pk = ce, dtz, pk
         self.dev = dev
         self.n_head, self.n_open, self.recv_local = n_head, n_open, recv_local
+        # The 510^3 headline: 2x2x2 blocks of n_multi^3, steps_multi steps
+        # per call, nt_multi timed calls (a slope over 16 calls at 32).
+        self.n_multi, self.steps_multi = n_multi, steps_multi
+        self.nt_multi = nt_multi
         self.small, self.n_inner, self.nt = small, n_inner, nt
         self.halo_calls, self.time_iters = halo_calls, time_iters
         self.err = {name: 0.0 for name in KERNEL_INFO}
@@ -275,9 +320,58 @@ class Smoke:
             halo._update_field(ref, g, hw.halo_write_plain)
             halo._update_field(A, g, hw.halo_write)
             self.note("halo_write", check(f"halo_write {kw} {lshape}", A, ref, 0.0))
+        self.chunk_and_pack_checks()
         log(f"[phase 1] small-shape kernel checks passed: max abs err "
             f"{json.dumps(self.err)} (tolerance 0)")
         self.kernel_checks_headline()
+        self.kernel_checks_multiblock()
+
+    def chunk_input(self, g, dtype, seed):
+        """Random T and A on grid `g`, extended for a K_CHUNK chunk."""
+        ce = self.ce
+        shp = self.it.stacked_shape(g.nxyz)
+        T = uniform(shp, -10, 10, dtype, self.dev, seed)
+        A = uniform(shp, 0.001, 0.1, dtype, self.dev, seed + 1)
+        modes = ce.dim_modes(g)
+        ols = ce.field_ols(g, [g.nxyz])
+        Text, A_ext = ce.extend_fields([T, A], ols * 2, K_CHUNK, g, modes)
+        return T, Text, A_ext, modes
+
+    def chunk_and_pack_checks(self):
+        """The chunk step in every window mode and the packer on y/z-split
+        grids, against their plain versions at small shapes."""
+        ce, dtz, pk = self.ce, self.dtz, self.pk
+        sc = self.dp.scal(0.3, 0.4, 0.5)
+        for (case, (dims, per)), local in ((c, s) for c in CHUNK_GRIDS.items()
+                                           for s in CHUNK_SHAPES):
+            kw = dict(dimx=dims[0], dimy=dims[1], dimz=dims[2],
+                      periodx=per[0], periody=per[1], periodz=per[2])
+            g = self.grid(local, **kw)
+            for dtype in (torch.float32, torch.float64):
+                why = dtz.trapezoid_refusal(g, g.nxyz, K_CHUNK, K_CHUNK, dtype)
+                if why is not None:
+                    raise SmokeFailure(f"chunk {case} {local}: refused: {why}")
+                T, Text, A_ext, modes = self.chunk_input(g, dtype, 11)
+                out = dtz.chunk_call(Text, A_ext, g.nxyz, K=K_CHUNK,
+                                     modes=modes, grid=g, sc=sc)
+                ref = ce.central_window(dtz.window_steps_plain(
+                    Text, A_ext, K=K_CHUNK, modes=modes, grid=g, sc=sc),
+                    g.nxyz, K_CHUNK, modes)
+                self.note("diffusion_chunk_step", check(
+                    f"diffusion_chunk_step {case} {local} {dtype}", out, ref,
+                    0.0))
+            reqs = [(d, p) for d in (1, 2)
+                    for p in (0, 1, local[d] - 2, local[d] - 1)]
+            for dtype in (torch.float16, torch.float32, torch.float64,
+                          torch.int64):
+                F = uniform(self.it.stacked_shape(local), -100, 100,
+                            torch.float64, self.dev, 12).to(dtype)
+                got = pk.pack_planes(F, reqs, g.dims)
+                for (d, p), a, b in zip(reqs, got,
+                                        pk.pack_planes_plain(F, reqs, g.dims)):
+                    self.note("pack_planes", check(
+                        f"pack_planes {case} {local} {dtype} {(d, p)}", a, b,
+                        0.0))
 
     def kernel_checks_headline(self):
         """One step of each kernel at the headline shape (256^3 f32,
@@ -331,7 +425,7 @@ class Smoke:
                         "halo_write_kernel"),
             plain_ms=event_ms(lambda: hw.halo_write_plain(F, specs, g.dims), k),
             bound=bound_ms(2 * halo_cells * 4, 0, F32_FLOPS))
-        for name in KERNEL_INFO:
+        for name in ("diffusion_step", "diffusion_mega_step", "halo_write"):
             p = self.perf[name]
             log(f"[phase 1] {name} at {n}^3 f32: {p['ms']:.4f} ms device "
                 f"({p['ms_from']}), {p['events_ms']:.4f} ms per launch back to "
@@ -357,6 +451,98 @@ class Smoke:
         self.perf["diffusion_mega_step_512_open"] = dict(ms=ms, bound=b)
         log(f"[phase 1] diffusion_mega_step at {m}^3 f32 open: {ms:.4f} "
             f"ms/launch, bound {b[0]:.4f} ms ({b[1]})")
+
+    def kernel_checks_multiblock(self):
+        """The packer and the chunk step at the 510^3 headline's shape (2x2x2
+        blocks of n_multi^3 f32, open): checked, then timed beside their
+        plain versions and their bounds."""
+        ce, dtz, pk, dp = self.ce, self.dtz, self.pk, self.dp
+        n, k = self.n_multi, self.time_iters
+        g = self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        sc = dp.scal(*self.t3.Params().spacing())
+        # The packer: the 8 y/z planes update_halo extracts on this grid.
+        T = uniform(self.it.stacked_shape(g.nxyz), 0, 100, torch.float32,
+                    self.dev, 13)
+        reqs = [(d, p) for d in (1, 2) for p in (1, n - 2, 0, n - 1)]
+        got = pk.pack_planes(T, reqs, g.dims)
+        for (d, p), a, b in zip(reqs, got, pk.pack_planes_plain(T, reqs, g.dims)):
+            self.note("pack_planes", check(f"pack_planes {n}^3 2x2x2 {(d, p)}",
+                                           a, b, 0.0))
+        cells = sum(o.numel() for o in got)
+        z_cells = sum(o.numel() for (d, _), o in zip(reqs, got) if d == 2)
+        idx = [(d, torch.arange(g.dims[d], device=self.dev) * n + p)
+               for d, p in reqs]
+        self.perf["pack_planes"] = dict(
+            kernel_time(lambda: pk.pack_planes(T, reqs, g.dims), 10 * k,
+                        "pack_kernel"),
+            plain_ms=event_ms(lambda: pk.pack_planes_plain(T, reqs, g.dims), k),
+            # The index_select calls alone (they are the plain version too).
+            library_ms=event_ms(lambda: [T.index_select(d, i) for d, i in idx],
+                                k),
+            # Each plane cell read once and written once, 4 bytes each.
+            bound=bound_ms(2 * cells * 4, 0, F32_FLOPS),
+            # The same with a 32-byte sector read for every z-plane cell.
+            sector_bound_ms=((2 * (cells - z_cells) + z_cells) * 4
+                             + z_cells * 32) / HBM_BYTES_PER_S * 1e3)
+        # The chunk: one K-step chunk of the extended 2x2x2 buffer.
+        T, Text, A_ext, modes = self.chunk_input(g, torch.float32, 14)
+        del T
+        run = lambda: dtz.chunk_call(Text, A_ext, g.nxyz, K=K_CHUNK,
+                                     modes=modes, grid=g, sc=sc)
+        ref = ce.central_window(dtz.window_steps_plain(
+            Text, A_ext, K=K_CHUNK, modes=modes, grid=g, sc=sc), g.nxyz,
+            K_CHUNK, modes)
+        self.note("diffusion_chunk_step", check(
+            f"diffusion_chunk_step {n}^3 2x2x2 open", run(), ref, 0.0))
+        del ref
+        self.perf["diffusion_chunk_step"] = dict(
+            kernel_time(run, max(k // 5, 4), "chunk_kernel"),
+            plain_ms=event_ms(lambda: dtz.window_step_plain(
+                Text, A_ext, Text, K=K_CHUNK, modes=modes, grid=g, sc=sc,
+                flags=ce.edge_flags(modes, g)), 3),
+            bound=self.chunk_bound(g, Text.shape, K_CHUNK, modes))
+        # kernel_time's event time is per chunk call: per launch here.
+        self.perf["diffusion_chunk_step"]["events_ms"] /= K_CHUNK
+        # The same stencil on the same extended buffer without the chunk's
+        # freeze and window mapping: the fused step kernel, frozen modes.
+        buf = torch.empty_like(Text)
+        self.perf["step_kernel_on_chunk_buffer_ms"] = event_ms(
+            lambda: dp.launch_step(Text, A_ext, ("frozen",) * 3, {}, g.dims,
+                                   sc, out=buf), k)
+        del buf
+        for name in ("pack_planes", "diffusion_chunk_step"):
+            p = self.perf[name]
+            log(f"[phase 1] {name} at 2x2x2 x {n}^3 f32 open: {p['ms']:.4f} ms "
+                f"device per launch ({p['ms_from']}), {p['events_ms']:.4f} ms "
+                f"per launch back to back (events), plain {p['plain_ms']:.4f} "
+                f"ms, bound {p['bound'][0]:.4f} ms ({p['bound'][1]})"
+                + (f", index_select calls {p['library_ms']:.4f} ms, bound with "
+                   f"32-byte z sectors {p['sector_bound_ms']:.4f} ms"
+                   if name == "pack_planes" else
+                   f", the step kernel on the same buffer (frozen modes) "
+                   f"{self.perf['step_kernel_on_chunk_buffer_ms']:.4f} ms"))
+
+    @staticmethod
+    def chunk_bound(g, ext_shape, K, modes):
+        """Least time per launch of one chunk (K launches): each launch but
+        the last reads the extended T and A and writes the extended T; the
+        last reads and writes the central windows; every launch reads the
+        chunk-entry values of the frozen cells."""
+        n = g.dims
+        ext_local = [ext_shape[d] // n[d] for d in range(3)]
+        ext_cells = float(np.prod(ext_shape))
+        out_cells = float(np.prod([n[d] * g.nxyz[d] for d in range(3)]))
+        kept = 1.0
+        for d in range(3):   # rows along d outside every freeze
+            rows = {"oext": 2 * (K + 1), "frozen": 2}.get(modes[d], 0)
+            kept *= ext_shape[d] - rows
+        frozen = ext_cells - kept
+        interior = lambda local: float(np.prod(n)) * float(
+            np.prod([s - 2 for s in local]))
+        nbytes = 4 * ((K - 1) * 3 * ext_cells + 3 * out_cells + K * frozen)
+        flops = STENCIL_FLOPS * ((K - 1) * interior(ext_local)
+                                 + interior(g.nxyz))
+        return bound_ms(nbytes / K, flops / K, F32_FLOPS)
 
     # -- main path --------------------------------------------------------
     def heat(self, T, Cp) -> float:
@@ -395,7 +581,7 @@ class Smoke:
                                 n1=10, n2=40, warmup=2)
         # Where a make_step call's time goes: device time per call, by
         # kernel, against the wall time per call above.
-        split = device_ms_by_kernel(lambda: one(T, Cp), 20)
+        split, _ = device_ms_by_kernel(lambda: one(T, Cp), 20)
         device = sum(split.values())
         log(f"[phase {2 if periodic else 3}] {tag} make_step split: wall "
             f"{sec1 * 1e3:.4f} ms/call, device {device:.4f} ms/call "
@@ -438,31 +624,114 @@ class Smoke:
                 f"vs plain {err:.3e} (tolerance 0), vs one block {d:.3e} "
                 f"(rtol 2e-6, atol 2e-5)")
 
-    def standalone_halo(self):
+    def standalone_halo(self, phase: int, local, **kw):
+        """`update_halo` on a field of `local` blocks, f32 and f64, against
+        the plain version; us per call (host clock)."""
         it = self.it
-        n = self.n_head
+        tag = f"{'x'.join(map(str, local))} {kw}"
         for dtype in (torch.float32, torch.float64):
-            self.grid((n, n, n), **SINGLE, **PERIODIC)
-            A = uniform((n, n, n), -1, 1, dtype, self.dev, 9)
+            g = self.grid(local, **kw)
+            A = uniform(it.stacked_shape(g.nxyz), -1, 1, dtype, self.dev, 9)
             ref = it.update_halo(A.clone(), plain=True)
             it.update_halo(A)
-            err = check(f"update_halo {dtype}", A, ref, 0.0)
+            err = check(f"update_halo {tag} {dtype}", A, ref, 0.0)
+            del ref
             sync(self.dev)
             t0 = time.perf_counter()
             for _ in range(self.halo_calls):
                 it.update_halo(A)
             sync(self.dev)
             us = (time.perf_counter() - t0) / self.halo_calls * 1e6
-            self.perf[f"update_halo_{dtype}"] = dict(us_per_call=us)
-            log(f"[phase 5] update_halo {n}^3 {dtype} periodic: vs plain "
+            key = "" if g.dims == (1, 1, 1) else "_" + "x".join(map(str, g.dims))
+            self.perf[f"update_halo{key}_{dtype}"] = dict(us_per_call=us)
+            log(f"[phase {phase}] update_halo {tag} {dtype}: vs plain "
                 f"{err:.3e} (tolerance 0), {us:.2f} us/call (host clock)")
+
+    def headline_510(self):
+        """The reference's 510^3 headline (2x2x2 blocks of 256^3, open) on
+        one card: the chunk route against the per-step route and the plain
+        path, then ms/step of both routes."""
+        it, t3, dp = self.it, self.t3, self.dp
+        n, steps = self.n_multi, self.steps_multi
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        size = (it.nx_g(), it.ny_g(), it.nz_g())
+        if size != (2 * (n - 2) + 2,) * 3:
+            raise SmokeFailure(f"global size {size}")
+        tag = f"{size[0]}^3 open (2x2x2 x {n}^3)"
+        p = t3.Params()
+        sc = dp.scal(*p.spacing())
+        T, Cp = t3.init_fields(p)
+        chunked = t3.make_multi_step(steps, p)
+        before = self.ops.launch_counts()["diffusion_chunk_step"]
+        sync(self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9     # T and Cp
+        Tc = chunked(T, Cp)
+        sync(self.dev)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        A = float(p.timestep() * p.lam) / Cp
+        launched = self.ops.launch_counts()["diffusion_chunk_step"] - before
+        if launched != (steps - 1) // K_CHUNK * K_CHUNK:
+            raise SmokeFailure(f"{tag}: {launched} chunk launches in {steps} steps")
+        Tp = T
+        for _ in range(steps):
+            Tp = dp.fused_diffusion_step(Tp, A, **sc)
+        err_route = check(f"{tag}: chunk route vs per-step route", Tc, Tp, 0.0)
+        del Tp
+        err_plain = check(f"{tag}: chunk route vs plain path", Tc,
+                          t3.make_multi_step(steps, p, use_kernels=False)(T, Cp),
+                          0.0)
+        if not bool(torch.isfinite(Tc).all()):
+            raise SmokeFailure(f"{tag}: non-finite temperature")
+        lo, hi = float(T.min()), float(T.max())
+        lo1, hi1 = float(Tc.min()), float(Tc.max())
+        if lo1 < lo - 1e-3 or hi1 > hi + 1e-3:
+            raise SmokeFailure(f"{tag}: range [{lo1}, {hi1}] left [{lo}, {hi}]")
+        e0, e1 = self.heat(T, Cp), self.heat(Tc, Cp)
+        del Tc
+        # Where a chunk-route call's time goes, by kernel.
+        split_chunk, n_chunk = device_ms_by_kernel(lambda: chunked(T, Cp), 3)
+        T1, sec = t3.run(self.nt_multi, p, dtype=torch.float32,
+                         n_inner=steps)
+        if not bool(torch.isfinite(T1).all()):
+            raise SmokeFailure(f"{tag}: run() gave non-finite values")
+        del T1
+        one = lambda T, A: (dp.fused_diffusion_step(T, A, **sc), A)
+        _, sec_ps = it.time_steps(one, (T, A), n1=10, n2=40, warmup=2)
+        split_ps, n_ps = device_ms_by_kernel(lambda: one(T, A), 10)
+        log(f"[phase 6] headline {tag}: {steps} steps, chunk route vs per-step "
+            f"route {err_route:.3e}, vs plain path {err_plain:.3e} (tolerance "
+            f"0), heat {e0:.6e} -> {e1:.6e}, range [{lo1:.4f}, {hi1:.4f}] "
+            f"within [{lo:.4f}, {hi:.4f}]; peak device memory of the chunk "
+            f"route {peak_gb:.3f} GB, of which {held_gb:.3f} GB held before "
+            f"the call (T, Cp)")
+        log(f"[phase 6] {tag}: chunk route make_multi_step({steps}) "
+            f"{sec * 1e3:.4f} ms/step; per-step route {sec_ps * 1e3:.4f} "
+            f"ms/step")
+        log(f"[phase 6] {tag}: chunk route, one call of {steps} steps: "
+            f"{n_chunk:.0f} launches, device {sum(split_chunk.values()):.4f} "
+            f"ms {json.dumps(split_chunk)}")
+        log(f"[phase 6] {tag}: per-step route, one step: {n_ps:.0f} launches, "
+            f"device {sum(split_ps.values()):.4f} ms {json.dumps(split_ps)}")
+        self.perf["headline_510^3_open_2x2x2"] = dict(
+            chunk_route_ms_per_step=sec * 1e3,
+            per_step_route_ms_per_step=sec_ps * 1e3,
+            chunk_route_device_ms_per_call=split_chunk,
+            chunk_route_launches_per_call=n_chunk,
+            per_step_route_device_ms_per_step=split_ps,
+            per_step_route_launches_per_step=n_ps,
+            peak_gb=peak_gb, held_gb=held_gb, heat=(e0, e1))
 
     def main_path(self):
         self.ops.reset_launch_counts()
         self.headline(self.n_head, periodic=True)
         self.headline(self.n_open, periodic=False)
         self.recv_mode()
-        self.standalone_halo()
+        n = self.n_head
+        self.standalone_halo(5, (n, n, n), **SINGLE, **PERIODIC)
+        self.headline_510()
+        n = self.n_multi
+        self.standalone_halo(7, (n, n, n), dimx=2, dimy=2, dimz=2)
         self.launches = self.ops.launch_counts()
         log(f"[main path] launches {json.dumps(self.launches)}")
         missing = [k for k, v in self.launches.items() if v <= 0]
@@ -480,8 +749,9 @@ class Smoke:
                 replaces=info["replaces"], launches=int(self.launches[name]),
                 max_abs_err=self.err[name], ms=p["ms"], plain_ms=p["plain_ms"],
                 bound_ms=p["bound"][0], bound_by=p["bound"][1],
-                # No single PyTorch call computes any of these functions.
-                library_ms=None))
+                # Only the packer's function is one PyTorch call (an
+                # index_select per plane); none computes the others.
+                library_ms=p.get("library_ms")))
         return {"kernels": out}
 
 

@@ -3,8 +3,9 @@
 The PyTorch/CUDA port of `igg`: the same five-verb API
 (`init_global_grid`, `update_halo`, `gather`, `select_device`,
 `finalize_global_grid`) and the 3-D diffusion solver, with hand-written
-CUDA kernels for the fused diffusion step, the K-step diffusion loop and
-the in-place halo writer.  Grid arrays are block-stacked tensors on one
+CUDA kernels for the fused diffusion step, the K-step diffusion loop, the
+in-place halo writer, the y/z plane packer and the step of a K-step
+trapezoid chunk on grids of several blocks.  Grid arrays are block-stacked tensors on one
 device; entry points use the card unless the caller passes
 `device="cpu"`.  Imports neither JAX nor `igg`.
 """

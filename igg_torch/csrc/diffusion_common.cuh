@@ -80,15 +80,12 @@ __device__ __forceinline__ int block_of(int g, int d, const Geo& geo) {
   return geo.n[d] == 1 ? 0 : g / geo.s[d];
 }
 
-// One step of the VEC cells (g0, g1, z0 .. z0+VEC-1) of `src` into `out`.
-// Needs G2 % VEC == 0 and every pointer aligned to VEC elements.
+// One step of the VEC cells (g0, g1, z0 .. z0+VEC-1) of `src`: their new
+// values.  Needs G2 % VEC == 0 and every pointer aligned to VEC elements.
 template <typename T, int VEC>
-__device__ __forceinline__ void step_cells(const T* __restrict__ src,
-                                           const T* __restrict__ A,
-                                           T* __restrict__ out, const Geo& geo,
-                                           const Planes<T>& pl,
-                                           const Coef<T>& k, int g0, int g1,
-                                           int z0) {
+__device__ __forceinline__ Vec<T, VEC> resolve_cells(
+    const T* __restrict__ src, const T* __restrict__ A, const Geo& geo,
+    const Planes<T>& pl, const Coef<T>& k, int g0, int g1, int z0) {
   using V = Vec<T, VEC>;
   const int G1 = geo.G[1], G2 = geo.G[2];
   const long long sx = (long long)G1 * G2;
@@ -169,8 +166,21 @@ __device__ __forceinline__ void step_cells(const T* __restrict__ src,
       res.v[v] = src[row + z];  // FROZEN: the cell's own stale value
     }
   }
-  *reinterpret_cast<V*>(out + (long long)g0 * sx + (long long)g1 * G2 + z0) =
-      res;
+  return res;
+}
+
+// One step of the VEC cells (g0, g1, z0 .. z0+VEC-1) of `src` into the same
+// cells of `out`.
+template <typename T, int VEC>
+__device__ __forceinline__ void step_cells(const T* __restrict__ src,
+                                           const T* __restrict__ A,
+                                           T* __restrict__ out, const Geo& geo,
+                                           const Planes<T>& pl,
+                                           const Coef<T>& k, int g0, int g1,
+                                           int z0) {
+  *reinterpret_cast<Vec<T, VEC>*>(out + ((long long)g0 * geo.G[1] + g1) *
+                                            geo.G[2] + z0) =
+      resolve_cells<T, VEC>(src, A, geo, pl, k, g0, g1, z0);
 }
 
 // Whether the VEC-wide path may serve these pointers: 16-byte aligned rows

@@ -12,11 +12,14 @@ Semantics of `igg.halo` (and of the reference's `update_halo!`):
 - periodic with one block along a dimension: the block wraps onto itself
   (the self-neighbor path), read from the block in the halo writer.
 
-Structure: :func:`exchange_all_dims` runs the dimension-sequential plane
-exchange with corner propagation (the pending planes of later dims are
-patched with what earlier dims received), moving planes through
-:func:`exchange_planes` — the one function that crosses blocks, which a
-`torch.distributed` backend replaces.  The received planes and the wrap
+Structure: :func:`send_planes` extracts the planes to send (the y/z ones
+of a 3-D field in one launch of the plane packer, `igg_torch.ops.pack`,
+where there are at least two); :func:`exchange_all_dims` runs the
+dimension-sequential plane exchange with corner propagation (the pending
+planes of later dims are patched with what earlier dims received), moving
+planes through :func:`exchange_planes` — the one function of the halo
+engine that crosses blocks, which a `torch.distributed` backend replaces.
+The received planes and the wrap
 dims then go to ONE launch of the in-place halo writer
 (:func:`igg_torch.ops.halo_write.halo_write`), which writes every
 participating dimension's two planes in dimension order.
@@ -109,7 +112,8 @@ def exchange_planes(left_send, right_send, stale_first, stale_last,
     block `disp` to its left, and into its last plane the left send plane
     of the block `disp` to its right.  Where an open boundary leaves no
     partner, the stale planes come back (the no-write semantics).  This is
-    the only function that moves data between blocks."""
+    the only function of the halo engine that moves data between blocks
+    (the K-step chunk's is `igg_torch.ops.chunk_engine.exchange_slabs`)."""
     if periodic and disp % n == 0:
         return right_send, left_send
     if not periodic and disp >= n:
@@ -186,20 +190,39 @@ def _sl(d: int, i: int):
     return (slice(None),) * d + (slice(i, i + 1),)
 
 
+def extract_planes(A, reqs: Dict, grid) -> Dict:
+    """`{key: (d, pos)}` -> `{key: every block's plane pos along d}`.
+    Where a 3-D field needs at least two y/z planes, they come from one
+    pass of the plane packer (`igg_torch.ops.pack`), the rule of
+    `igg/halo.py`; the others are `index_select` calls."""
+    from .ops.pack import pack_planes
+    minor = [k for k, (d, _) in reqs.items() if d >= 1 and A.ndim == 3]
+    out = {}
+    if len(minor) >= 2:
+        out.update(zip(minor, pack_planes(A, [reqs[k] for k in minor],
+                                          grid.dims)))
+    for k, (d, pos) in reqs.items():
+        if k not in out:
+            out[k] = planes(A, d, grid.dims[d], pos)
+    return out
+
+
 def send_planes(A, dims, grid, wraps=frozenset()):
     """The stacked send planes (`ol-1` / `s-ol`) and, for open dims, stale
     planes (`0` / `s-1`) of every exchanged dim of `A`."""
     s = grid.local_shape(A)
-    sends, stales = {}, {}
+    reqs = {}
     for d, ol in dims:
         if d in wraps:
             continue
-        n = grid.dims[d]
-        sends[(d, 0)] = planes(A, d, n, ol - 1)
-        sends[(d, 1)] = planes(A, d, n, s[d] - ol)
+        reqs[("send", d, 0)] = (d, ol - 1)
+        reqs[("send", d, 1)] = (d, s[d] - ol)
         if not grid.periods[d]:
-            stales[(d, 0)] = planes(A, d, n, 0)
-            stales[(d, 1)] = planes(A, d, n, s[d] - 1)
+            reqs[("stale", d, 0)] = (d, 0)
+            reqs[("stale", d, 1)] = (d, s[d] - 1)
+    got = extract_planes(A, reqs, grid)
+    sends = {k[1:]: P for k, P in got.items() if k[0] == "send"}
+    stales = {k[1:]: P for k, P in got.items() if k[0] == "stale"}
     return sends, stales
 
 

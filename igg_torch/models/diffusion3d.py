@@ -10,13 +10,18 @@ Dispatch of :func:`make_multi_step` (`use_kernels`):
 
 - ``False``: the plain composition `update_halo(compute_step(T))`, all in
   plain PyTorch (also on the card);
-- ``"auto"`` / ``True``: the kernels — the K-step loop kernel
-  (:mod:`igg_torch.ops.diffusion_mega`) for `n_inner >= 2` on a one-block
-  grid, else one fused per-step kernel launch per step
-  (:mod:`igg_torch.ops.diffusion_pallas`).  A CPU tensor runs the kernels'
-  plain versions.  Where the kernels cannot serve the field, a CUDA tensor
-  raises (never a quiet fallback); so does ``True`` on the CPU, while
-  ``"auto"`` on the CPU takes the plain composition.
+- ``"auto"`` / ``True``: the kernels, dispatched as igg dispatches them
+  (:func:`igg_torch.ops.diffusion_pallas.fused_diffusion_steps`): on a
+  one-block grid and `n_inner >= 2`, the K-step loop
+  (:mod:`igg_torch.ops.diffusion_mega`); on several blocks, where the
+  trapezoid chunk admits the shape (:mod:`igg_torch.ops.
+  diffusion_trapezoid`, depth K = 8 when 8 divides the block's x extent),
+  one per-step warm-up step, then K-step chunks, then the remainder as
+  per-step steps; otherwise one fused per-step kernel launch per step
+  (:mod:`igg_torch.ops.diffusion_pallas`).  A CPU tensor runs the
+  kernels' plain versions.  Where the kernels cannot serve the field, a
+  CUDA tensor raises (never a quiet fallback); so does ``True`` on the
+  CPU, while ``"auto"`` on the CPU takes the plain composition.
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ from typing import Tuple
 import torch
 
 from .. import fields, halo, shared, tools
-from ..ops import diffusion_mega, diffusion_pallas
+from ..ops import diffusion_pallas
 from ..shared import GridError
 from ..timing import time_steps
 
@@ -91,6 +96,15 @@ def make_step(params: Params = Params(), *, use_kernels="auto"):
     return make_multi_step(1, params, use_kernels=use_kernels)
 
 
+def _best_bx(S0: int) -> int:
+    """Chunk depth K of the trapezoid route: igg's choice for a block of
+    `S0` x rows (8 when it divides S0)."""
+    for b in (8, 16, 4, 2):
+        if S0 % b == 0:
+            return b
+    return 1
+
+
 def _kernel_path(use_kernels, T) -> bool:
     """Whether this call takes the kernels (module docstring)."""
     if use_kernels not in ("auto", True, False):
@@ -138,13 +152,8 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
                     diffusion_pallas.block_diffusion_compute(T, A, local, **sc),
                     plain=True)
             return T
-        if n_inner >= 2 and grid.dims == (1, 1, 1):
-            modes = tuple("wrap" if p else "frozen" for p in grid.periods)
-            return diffusion_mega.fused_diffusion_megasteps(
-                T, A, n_inner=n_inner, modes=modes, **sc)
-        for _ in range(n_inner):
-            T = diffusion_pallas.fused_diffusion_step(T, A, **sc)
-        return T
+        return diffusion_pallas.fused_diffusion_steps(
+            T, A, n_inner=n_inner, bx=_best_bx(grid.nxyz[0]), **sc)
 
     return step
 

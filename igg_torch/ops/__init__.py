@@ -6,9 +6,13 @@ CPU tensor, launches its kernel for a CUDA tensor (or raises), and counts
 its launches in `<wrapper>.launches`.
 """
 
-from . import diffusion_mega, diffusion_pallas, halo_write
+from . import (chunk_engine, diffusion_mega, diffusion_pallas,
+               diffusion_trapezoid, halo_write, pack)
 from .diffusion_mega import fused_diffusion_megasteps
-from .diffusion_pallas import diffusion_compute, fused_diffusion_step
+from .diffusion_pallas import (diffusion_compute, fused_diffusion_step,
+                               fused_diffusion_steps)
+from .diffusion_trapezoid import fused_diffusion_trapezoid_steps
+from .pack import pack_planes
 from .stencil import interior_add
 
 # name -> wrapper that launches the kernel
@@ -16,6 +20,8 @@ KERNELS = {
     "diffusion_step": diffusion_pallas.step_kernel,
     "diffusion_mega_step": diffusion_mega.mega_step_kernel,
     "halo_write": halo_write.halo_write,
+    "pack_planes": pack.pack_planes,
+    "diffusion_chunk_step": diffusion_trapezoid.chunk_call,
 }
 
 

@@ -38,6 +38,12 @@ SIGNATURES: Dict[str, tuple] = {
     "diffusion_step": ("igg_diffusion_step",
                        [_P, _P, _P, _I, ctypes.POINTER(_I), ctypes.POINTER(_P),
                         _D, _D, _D, _D, _P]),
+    "diffusion_chunk": ("igg_diffusion_chunk_step",
+                        [_P, _P, _P, _P, _I, ctypes.POINTER(_I),
+                         _D, _D, _D, _D, _P]),
+    "pack_planes": ("igg_pack_planes",
+                    [_P, _I, ctypes.POINTER(_I), _I, ctypes.POINTER(_I),
+                     ctypes.POINTER(_P), _P]),
 }
 
 _lock = threading.Lock()

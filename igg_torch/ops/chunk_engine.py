@@ -1,0 +1,250 @@
+"""The host pieces of the K-step chunk engine that diffusion needs
+(`igg/ops/chunk_engine.py`), on block-stacked tensors.
+
+A K-step chunk advances every block by K steps at once: each block is first
+extended by K rows beyond both ends of every extended dimension, with the
+neighbours' rows (:func:`extend_fields`); K steps then run on the extended
+blocks, each losing one row of validity per extended end and step, so that
+after K steps exactly the block itself holds the values the per-step path
+would produce; the central window is cut out (:func:`central_window`).
+
+Per-dimension window modes (:func:`dim_modes`): ``"ext"`` (periodic,
+extended), ``"wrap"`` (periodic, one block, y/z self-wrap in place),
+``"oext"`` (open, several blocks: extended, and the blocks on the global
+edges re-freeze their boundary rows from the chunk-entry buffer every
+step), ``"frozen"`` (open, one block: both boundary planes re-frozen).
+
+The one function that moves data between blocks is :func:`exchange_slabs`
+(as :func:`igg_torch.halo.exchange_planes` is for the halo engine): here
+the blocks are stacked in one tensor, so it is an index gather over the
+block axis, and a `torch.distributed` backend replaces it.
+
+Left out, because they exist only for the TPU: transposed z slabs, the
+sublane-tile and banded-geometry gates, the VMEM budget, and the resident,
+streaming and whole-window kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import torch
+
+EXTENDED = ("ext", "oext")
+
+
+def dim_modes(grid) -> Tuple[str, str, str]:
+    """Per-dimension window mode of the chunk (module docstring); x is
+    always extended when periodic, even on one block."""
+    modes = []
+    for d in range(3):
+        if grid.periods[d]:
+            modes.append("ext" if (d == 0 or grid.dims[d] > 1) else "wrap")
+        else:
+            modes.append("oext" if grid.dims[d] > 1 else "frozen")
+    return tuple(modes)
+
+
+def edge_flags(modes, grid) -> torch.Tensor:
+    """Per-block edge flags, shape `dims + (6,)` int32: two per dim, set
+    where the block's low / high boundary rows freeze.  A "frozen" dim
+    flags both sides (its one block is both global edges), an "oext" dim
+    flags the blocks on the global edges, periodic dims flag nothing.  The
+    stacked layout's `axis_index`: the flags come from block coordinates."""
+    n = grid.dims
+    flags = torch.zeros(tuple(n) + (6,), dtype=torch.int32, device=grid.device)
+    for d in range(3):
+        if modes[d] not in ("frozen", "oext"):
+            continue
+        c = torch.arange(n[d], device=grid.device)
+        view = [1, 1, 1]
+        view[d] = n[d]
+        flags[..., 2 * d] = (c == 0).to(torch.int32).view(view)
+        flags[..., 2 * d + 1] = (c == n[d] - 1).to(torch.int32).view(view)
+    return flags
+
+
+def field_ols(grid, shapes) -> List[Tuple[int, ...]]:
+    """Per-field per-dim staggered overlaps `ol(dim, A)`."""
+    return [tuple(grid.ol_of_local(d, s) for d in range(len(s)))
+            for s in shapes]
+
+
+def ext_shape(s, E, modes) -> Tuple[int, ...]:
+    """A block's extended shape: +2E along every extended dim."""
+    return tuple(s[d] + (2 * E if modes[d] in EXTENDED else 0)
+                 for d in range(len(s)))
+
+
+def wrap_edges(v, axis: int, size: int, ol: int):
+    """Periodic self-wrap, in place, of the outermost planes along `axis`
+    of a field with one block along it: edge 0 <- inner `size-ol`, then
+    edge `size-1` <- inner `ol-1`.  Returns `v`."""
+    v.select(axis, 0).copy_(v.select(axis, size - ol))
+    v.select(axis, size - 1).copy_(v.select(axis, ol - 1))
+    return v
+
+
+def freeze_open_dim(U, F, d: int, lo: int, hi: int, flags):
+    """Open-dim freeze of the window realization: on the blocks flagged by
+    `flags` (:func:`edge_flags`), rows `<= lo` (low edge) and `>= hi`
+    (high edge) along `d` take the chunk-entry values of `F` ("frozen":
+    lo = 0 and hi = S-1, the two boundary planes; "oext": the boundary row
+    and the shoulder beyond it).  Returns a new tensor."""
+    n = flags.shape[:3]
+    S = [U.shape[k] // n[k] for k in range(3)]
+    block = (n[0], 1, n[1], 1, n[2], 1)
+    i = torch.arange(S[d], device=U.device)
+    row = [1] * 6
+    row[2 * d + 1] = S[d]
+    mask = ((flags[..., 2 * d].view(block) == 1) & (i <= lo).view(row)) | \
+           ((flags[..., 2 * d + 1].view(block) == 1) & (i >= hi).view(row))
+    six = (n[0], S[0], n[1], S[1], n[2], S[2])
+    return torch.where(mask, F.view(six), U.view(six)).view(U.shape)
+
+
+# ---------------------------------------------------------------------------
+# The K-deep slab extension
+# ---------------------------------------------------------------------------
+
+def exchange_slabs(left, right, axis: int, periodic: bool):
+    """Slab-level neighbour shift over the block axis `axis` of `left` and
+    `right` (each block's slab to send rightward / leftward): returns
+    `(from_left, from_right)`, every block's slab received from its left
+    and from its right neighbour.  Where an open boundary leaves no
+    partner, the slab is zeros.  This is the only function of the chunk
+    engine that moves data between blocks."""
+    n = left.shape[axis]
+    c = torch.arange(n, device=left.device)
+    from_left = left.index_select(axis, (c - 1) % n)
+    from_right = right.index_select(axis, (c + 1) % n)
+    if not periodic:
+        from_left.select(axis, 0).zero_()
+        from_right.select(axis, n - 1).zero_()
+    return from_left, from_right
+
+
+def extend_dim_grouped(arrs, ols, E: int, grid, d: int, mode: str = "ext"):
+    """The `S + 2E` window along dim `d` of every block of each field in
+    `arrs` (per-field staggered overlaps `ols`): the `E+1` rows that the
+    left neighbour sends from `[S-ol-E, S-ol]`, the block's own rows
+    `1 .. S-2`, and the `E+1` rows the right neighbour sends from
+    `[ol-1, ol+E-1]`.  The block's own boundary rows are thus replaced by
+    the neighbours' send-position rows (a no-op on exchange-fresh halos).
+    Same-shaped slabs go through :func:`exchange_slabs` together.  On an
+    "oext" dim the global-edge blocks receive zeros beyond the domain and
+    get their own boundary row back at `E` / `Se-1-E` (no-write)."""
+    n = grid.dims[d]
+    views, sends = [], []
+    for A, ol in zip(arrs, ols):
+        v = A.unflatten(d, (n, A.shape[d] // n))
+        S = v.shape[d + 1]
+        views.append(v)
+        sends.append((v.narrow(d + 1, S - ol - E, E + 1),
+                      v.narrow(d + 1, ol - 1, E + 1)))
+    groups = {}
+    for j, (left, _) in enumerate(sends):
+        groups.setdefault((tuple(left.shape), left.dtype), []).append(j)
+    recv = [None] * len(arrs)
+    periodic = mode != "oext"
+    for members in groups.values():
+        if len(members) == 1:
+            j = members[0]
+            recv[j] = exchange_slabs(*sends[j], d, periodic)
+            continue
+        lefts, rights = exchange_slabs(
+            torch.stack([sends[j][0] for j in members]),
+            torch.stack([sends[j][1] for j in members]), d + 1, periodic)
+        for k, j in enumerate(members):
+            recv[j] = (lefts[k], rights[k])
+    out = []
+    for v, (from_left, from_right) in zip(views, recv):
+        S = v.shape[d + 1]
+        Se = S + 2 * E
+        shape = list(v.shape)
+        shape[d + 1] = Se
+        w = torch.empty(shape, dtype=v.dtype, device=v.device)
+        w.narrow(d + 1, 0, E + 1).copy_(from_left)
+        w.narrow(d + 1, E + 1, S - 2).copy_(v.narrow(d + 1, 1, S - 2))
+        w.narrow(d + 1, Se - E - 1, E + 1).copy_(from_right)
+        if mode == "oext":
+            w.select(d, 0).narrow(d, E, 1).copy_(
+                v.select(d, 0).narrow(d, 0, 1))
+            w.select(d, n - 1).narrow(d, Se - 1 - E, 1).copy_(
+                v.select(d, n - 1).narrow(d, S - 1, 1))
+        out.append(w.flatten(d, d + 1))
+    return out
+
+
+def extend_fields(arrs, ols, E: int, grid, modes):
+    """Dimension-sequential extension of a list of fields: x first, then y
+    of the x-extended buffers, then z of the x/y-extended ones, so corner
+    and edge regions arrive through the later neighbours' own earlier-dim
+    extensions.  wrap/frozen dims are not extended."""
+    out = list(arrs)
+    for d in range(arrs[0].ndim):
+        if modes[d] in EXTENDED:
+            out = extend_dim_grouped(out, [ol[d] for ol in ols], E, grid, d,
+                                     modes[d])
+    return out
+
+
+def central_window(F, shape, E: int, modes):
+    """Every block's central `shape` window of the extended stacked `F`
+    (rows `E .. E+s-1` of each extended dim), as a new contiguous tensor."""
+    for d in range(len(shape)):
+        if modes[d] in EXTENDED:
+            Se = shape[d] + 2 * E
+            F = F.unflatten(d, (F.shape[d] // Se, Se)).narrow(
+                d + 1, E, shape[d]).flatten(d, d + 1)
+    return F.contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Admission and the chunk loop
+# ---------------------------------------------------------------------------
+
+def admit_chunk_common(grid, K: int, n_inner: int) -> Optional[str]:
+    """The gates every chunk tier shares: at least one full K-chunk and
+    unit displacement.  Returns the refusal, or None."""
+    if K < 2 or n_inner < K:
+        return (f"n_inner={n_inner} holds no full K={K} chunk "
+                f"(needs n_inner >= K >= 2)")
+    if grid.disp != 1:
+        return f"grid disp {grid.disp} != 1 (the slab exchange shifts by 1)"
+    return None
+
+
+def admit_send_slabs(shapes, ols, E: int, modes, *, grid=None,
+                     min_ol: int = 2) -> Optional[str]:
+    """E-deep send slabs must lie inside every extended dimension's block
+    for every field, with overlap >= `min_ol`, and (given the grid) stay
+    out of the sender's shared region: `E <= nxyz - 2*overlap` per dim, or
+    the slab ships rows the sender merely mirrors.  Returns the refusal,
+    or None."""
+    for d in range(len(shapes[0])):
+        if modes[d] not in EXTENDED:
+            continue
+        if grid is not None:
+            nb, olb = grid.nxyz[d], grid.overlaps[d]
+            if E > nb - 2 * olb:
+                return (f"E={E} dim-{d} send slabs enter the sender's shared "
+                        f"region (base extent {nb}, ol {olb}: needs "
+                        f"E <= {nb - 2 * olb})")
+        for s, ol in zip(shapes, ols):
+            if ol[d] < min_ol:
+                return f"dim-{d} overlap {ol[d]} < {min_ol} (field shape {s})"
+            if s[d] - ol[d] - E < 0 or ol[d] + E > s[d]:
+                return (f"E={E} dim-{d} send slabs fall outside a field block "
+                        f"(shape {s}, ol {ol[d]})")
+    return None
+
+
+def run_chunks(fields: Sequence, *, n_inner: int, K: int,
+               one_chunk: Callable):
+    """`n_inner // K` full chunks; the K-remainder is the caller's.
+    Returns `(*fields, steps_done)`."""
+    fields = tuple(fields)
+    for _ in range(n_inner // K):
+        fields = tuple(one_chunk(*fields))
+    return (*fields, (n_inner // K) * K)

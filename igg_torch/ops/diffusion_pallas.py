@@ -28,7 +28,7 @@ from typing import Dict, Tuple
 import torch
 
 from .. import shared
-from ..halo import block_rows, exchange_all_dims
+from ..halo import block_rows, exchange_all_dims, extract_planes
 from ._build import library
 from .halo_write import halo_write_plain
 from .stencil import block_boundary_mask, interior_add
@@ -196,22 +196,22 @@ def _slab_planes(T, A, d, local, first_row, sc):
 def step_recv_planes(T, A, grid, modes, sc) -> Dict:
     """Received halo planes of the step for the `recv` dims: send planes
     recomputed on slabs of `T` (updated planes 1 and s-2), stale planes
-    for open edges, exchanged dimension-sequentially with corner
-    propagation (`igg_torch.halo.exchange_all_dims`)."""
+    for open edges (extracted as the halo engine does, two or more y/z
+    planes by the plane packer), exchanged dimension-sequentially with
+    corner propagation (`igg_torch.halo.exchange_all_dims`)."""
     s = grid.local_shape(T)
     dims = [(d, 2) for d in range(3) if modes[d] != "frozen"]
     wraps = frozenset(d for d in range(3) if modes[d] == "wrap")
-    sends, stales = {}, {}
+    sends, stale_reqs = {}, {}
     for d in range(3):
         if modes[d] != "recv":
             continue
-        n = grid.dims[d]
         sends[(d, 0)] = _slab_planes(T, A, d, s, 0, sc)
         sends[(d, 1)] = _slab_planes(T, A, d, s, s[d] - 3, sc)
         if not grid.periods[d]:
-            stales[(d, 0)] = T.index_select(d, block_rows(n, s[d], 0, T.device))
-            stales[(d, 1)] = T.index_select(d, block_rows(n, s[d], s[d] - 1,
-                                                          T.device))
+            stale_reqs[(d, 0)] = (d, 0)
+            stale_reqs[(d, 1)] = (d, s[d] - 1)
+    stales = extract_planes(T, stale_reqs, grid)
     return exchange_all_dims(sends, dims, grid, s, stales, wraps)
 
 
@@ -224,3 +224,35 @@ def fused_diffusion_step(T, A, *, rdx2, rdy2, rdz2):
     modes = step_modes(grid)
     recv = step_recv_planes(T, A, grid, modes, sc)
     return step_kernel(T, A, modes, recv, grid.dims, sc)
+
+
+def fused_diffusion_steps(T, A, *, n_inner: int, bx: int, rdx2, rdy2, rdz2):
+    """`n_inner` diffusion steps of the grid array `T` with coefficient
+    `A`; returns a new tensor.  The dispatch of
+    `igg/ops/diffusion_pallas.py:fused_diffusion_steps`:
+
+    - a one-block grid and `n_inner >= 2`: the K-step loop
+      (:mod:`igg_torch.ops.diffusion_mega`);
+    - several blocks, where the trapezoid chunk admits `n_inner - 1` steps
+      at `K = bx` (:func:`igg_torch.ops.diffusion_trapezoid.
+      trapezoid_refusal`): one per-step step (which makes the halos
+      exchange-fresh, the chunk's entry condition), then `(n_inner - 1) //
+      K` chunks, then the remainder as per-step steps;
+    - otherwise one per-step kernel step per step."""
+    from . import diffusion_mega, diffusion_trapezoid as dtz
+
+    grid = shared.global_grid()
+    sc = dict(rdx2=rdx2, rdy2=rdy2, rdz2=rdz2)
+    if grid.dims == (1, 1, 1) and n_inner >= 2:
+        modes = tuple("wrap" if p else "frozen" for p in grid.periods)
+        return diffusion_mega.fused_diffusion_megasteps(
+            T, A, n_inner=n_inner, modes=modes, **sc)
+    if dtz.trapezoid_refusal(grid, grid.local_shape(T), bx, n_inner - 1,
+                             T.dtype) is None:
+        T = fused_diffusion_step(T, A, **sc)
+        T, done = dtz.fused_diffusion_trapezoid_steps(
+            T, A, n_inner=n_inner - 1, bx=bx, grid=grid, **sc)
+        n_inner -= 1 + done
+    for _ in range(n_inner):
+        T = fused_diffusion_step(T, A, **sc)
+    return T

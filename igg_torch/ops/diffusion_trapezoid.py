@@ -1,0 +1,213 @@
+"""K-step trapezoid chunks of the diffusion step on grids of several
+blocks: kernel `igg_diffusion_chunk_step` (csrc/diffusion_chunk.cu).
+
+Once per chunk every block is extended by K rows beyond both ends of each
+extended dimension (`igg_torch.ops.chunk_engine.extend_fields`: one K-deep
+slab exchange per dimension instead of K plane exchanges), then K steps
+run on the extended blocks, each step one kernel launch that ping-pongs two
+buffers, and the last step writes each block's central window into the
+output.  Bit for bit what K per-step steps give from an exchange-fresh
+state (igg/ops/diffusion_trapezoid.py:30-70): every row that the central
+window depends on is updated with the stencil arithmetic its owner would
+apply, and open edges re-freeze from the chunk-entry buffer.
+
+Replaces `igg/ops/diffusion_trapezoid.py` (`_kernel`, `_chunk_call`,
+`fused_diffusion_trapezoid_steps`).  The plain version of a chunk,
+:func:`window_steps_plain`, is the port of `_window_steps_xla`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ._build import library
+from .chunk_engine import (EXTENDED, admit_chunk_common, admit_send_slabs,
+                           central_window, dim_modes, edge_flags,
+                           ext_shape, extend_fields, field_ols,
+                           freeze_open_dim, run_chunks, wrap_edges)
+from .diffusion_pallas import block_diffusion_compute
+
+_DTYPE = {torch.float32: 0, torch.float64: 1}
+
+
+def trapezoid_refusal(grid, shape, bx: int, n_inner: int,
+                      dtype) -> Optional[str]:
+    """Why the K=bx chunk cannot run `n_inner` steps of a field of local
+    `shape`, or None when it can: the gates of igg's `trapezoid_supported`
+    (with open dims admitted) without the Mosaic tile gates and the VMEM
+    budget, plus the shared-region gate of `admit_send_slabs`."""
+    why = admit_chunk_common(grid, bx, n_inner)
+    if why is not None:
+        return why
+    if dtype not in _DTYPE:
+        return f"dtype {dtype} is not float32/float64"
+    modes = dim_modes(grid)
+    K = bx
+    S0, S1, S2 = shape
+    olx = grid.ol_of_local(0, shape)
+    if olx < 2 or S0 % K != 0:
+        return (f"x extent {S0} (overlap {olx}) not chunkable at K={K} "
+                f"(needs ol >= 2, S0 % K == 0)")
+    if modes[0] != "frozen" and (S0 - olx - K < 0 or olx + K > S0):
+        return (f"K={K} x send slabs fall outside the local block "
+                f"(S0={S0}, ol={olx})")
+    if modes[0] == "frozen" and S0 // K < 2:
+        return f"frozen-x block needs >= 2 x bands (S0={S0}, K={K})"
+    if modes[1] in EXTENDED:
+        oly = grid.ol_of_local(1, shape)
+        if oly < 2 or K % 8 != 0:
+            return (f"y-extended chunk needs ol >= 2 and K % 8 == 0 "
+                    f"(ol={oly}, K={K})")
+        if S1 - oly - K < 0 or oly + K > S1:
+            return (f"K={K} y send slabs fall outside the local block "
+                f"(S1={S1}, ol={oly})")
+    if modes[2] in EXTENDED:
+        olz = grid.ol_of_local(2, shape)
+        if olz < 2:
+            return f"z-extended chunk needs overlap >= 2 (ol={olz})"
+        if S2 - olz - K < 0 or olz + K > S2:
+            return (f"K={K} z send slabs fall outside the local block "
+                f"(S2={S2}, ol={olz})")
+    shapes = [tuple(shape)]
+    return admit_send_slabs(shapes, field_ols(grid, shapes), K, modes,
+                            grid=grid)
+
+
+def _freeze_rows(modes, K, ext_local):
+    """Per dim `(lo, hi)` of the rows that re-freeze on edge blocks, or
+    None for a dim that does not freeze."""
+    out = []
+    for d in range(3):
+        if modes[d] == "oext":
+            out.append((K, ext_local[d] - 1 - K))
+        elif modes[d] == "frozen":
+            out.append((0, ext_local[d] - 1))
+        else:
+            out.append(None)
+    return out
+
+
+def window_step_plain(U, A_ext, F, *, K, modes, grid, sc, flags):
+    """One step of the window realization on the extended stacked buffer
+    `U` (chunk-entry buffer `F`, :func:`chunk_engine.edge_flags` `flags`):
+    the stencil on every extended block's interior, y/z self-wrap, then
+    the open-dim freezes, which win the cells they share with a wrap.
+    Returns a new tensor."""
+    ext_local = tuple(U.shape[d] // grid.dims[d] for d in range(3))
+    U = block_diffusion_compute(U, A_ext, ext_local, **sc)
+    for d in (1, 2):
+        if modes[d] == "wrap":
+            wrap_edges(U, d, U.shape[d], 2)
+    for d, rows in enumerate(_freeze_rows(modes, K, ext_local)):
+        if rows is not None:
+            U = freeze_open_dim(U, F, d, *rows, flags)
+    return U
+
+
+def window_steps_plain(Text, A_ext, *, K, modes, grid, sc):
+    """Plain PyTorch version of a chunk (the port of igg's
+    `_window_steps_xla`): K window steps of the extended buffer `Text`,
+    which is also the freeze source.  Returns the evolved extended
+    buffer; :func:`chunk_engine.central_window` cuts the result out."""
+    flags = edge_flags(modes, grid)
+    U = Text
+    for _ in range(K):
+        U = window_step_plain(U, A_ext, Text, K=K, modes=modes, grid=grid,
+                              sc=sc, flags=flags)
+    return U
+
+
+def _check(Text, A_ext, local, K, modes, grid):
+    if Text.ndim != 3 or tuple(A_ext.shape) != tuple(Text.shape):
+        raise ValueError(f"Text {tuple(Text.shape)} and A_ext "
+                         f"{tuple(A_ext.shape)} must be 3-D of one shape")
+    if Text.dtype not in _DTYPE or A_ext.dtype != Text.dtype:
+        raise ValueError(f"dtypes {Text.dtype}/{A_ext.dtype}: need one of "
+                         f"float32/float64")
+    if Text.device.type != "cuda" or A_ext.device != Text.device:
+        raise ValueError(f"chunk kernel: Text on {Text.device}, A_ext on "
+                         f"{A_ext.device}")
+    if not (Text.is_contiguous() and A_ext.is_contiguous()):
+        raise ValueError("chunk kernel: Text and A_ext must be contiguous")
+    ext_local = ext_shape(local, K, modes)
+    for d in range(3):
+        want = grid.dims[d] * ext_local[d]
+        if Text.shape[d] != want or local[d] < 3:
+            raise ValueError(f"dim {d}: extended extent {Text.shape[d]}, "
+                             f"expected {want} for local {local[d]} and K={K}")
+        if modes[d] == "wrap" and (d == 0 or grid.dims[d] != 1):
+            raise ValueError(f"wrap mode on dim {d} needs y/z and one block")
+
+
+def chunk_call(Text, A_ext, local, *, K, modes, grid, sc):
+    """Advance the extended stacked buffer `Text` by K steps and return
+    every block's central `local` window (a new tensor).  A CPU tensor
+    takes the plain version; a CUDA tensor launches the kernel K times,
+    ping-ponging two buffers, the last launch writing the output, or
+    raises."""
+    if Text.device.type == "cpu":
+        return central_window(window_steps_plain(
+            Text, A_ext, K=K, modes=modes, grid=grid, sc=sc), local, K, modes)
+    _check(Text, A_ext, local, K, modes, grid)
+    out = torch.empty([grid.dims[d] * local[d] for d in range(3)],
+                      dtype=Text.dtype, device=Text.device)
+    bufs = (torch.empty_like(Text), torch.empty_like(Text))
+    stream = torch.cuda.current_stream(Text.device).cuda_stream
+    src = Text
+    for k in range(K):
+        dst = out if k == K - 1 else bufs[k % 2]
+        _launch(src, A_ext, Text, dst, local, K, modes, grid, sc,
+                k == K - 1, stream)
+        chunk_call.launches += 1
+        src = dst
+    return out
+
+
+def _launch(src, A_ext, F, out, local, K, modes, grid, sc, last: bool,
+            stream: int) -> None:
+    """Launch `igg_diffusion_chunk_step` once on checked arguments."""
+    ext_local = [src.shape[d] // grid.dims[d] for d in range(3)]
+    rows = _freeze_rows(modes, K, ext_local)
+    cfg = (list(grid.dims) + ext_local
+           + [1 if m == "wrap" else 0 for m in modes]
+           + [0 if r is None else 1 for r in rows]
+           + [0 if r is None else r[0] for r in rows]
+           + [0 if r is None else r[1] for r in rows]
+           + [int(last)]
+           + [K if m in EXTENDED else 0 for m in modes]
+           + list(local))
+    rdx2, rdy2, rdz2 = sc["rdx2"], sc["rdy2"], sc["rdz2"]
+    err = library("diffusion_chunk").igg_diffusion_chunk_step(
+        src.data_ptr(), A_ext.data_ptr(), F.data_ptr(), out.data_ptr(),
+        _DTYPE[src.dtype], (ctypes.c_int * 25)(*cfg),
+        rdx2, rdy2, rdz2, 2.0 * (rdx2 + rdy2 + rdz2), stream)
+    if err:
+        raise RuntimeError(f"igg_diffusion_chunk_step launch failed: CUDA "
+                           f"error {err}")
+
+
+chunk_call.launches = 0
+
+
+def fused_diffusion_trapezoid_steps(T, A, *, n_inner: int, bx: int, grid,
+                                    rdx2, rdy2, rdz2):
+    """Advance the grid array `T` by the `n_inner // bx` full chunks of
+    K = bx steps; returns `(T, steps_done)` and leaves the remainder to
+    the caller.  `A` is extended once for all chunks."""
+    K = bx
+    sc = dict(rdx2=rdx2, rdy2=rdy2, rdz2=rdz2)
+    local = grid.local_shape(T)
+    modes = dim_modes(grid)
+    ols = field_ols(grid, [local])
+    A_ext = extend_fields([A], ols, K, grid, modes)[0]
+
+    def one(T):
+        Text = extend_fields([T], ols, K, grid, modes)[0]
+        return (chunk_call(Text, A_ext, local, K=K, modes=modes, grid=grid,
+                           sc=sc),)
+
+    T, done = run_chunks((T,), n_inner=n_inner, K=K, one_chunk=one)
+    return T, done

@@ -6,9 +6,10 @@ lives in ONE process on that device, laid out block-stacked (a grid array
 has shape `dims .* local_shape`, and block `(cx, cy, cz)` is the local
 array of grid coordinate `(cx, cy, cz)`), so block-to-block "sends" are
 plane copies between views of the stacked tensor.  This in-process group
-is what the halo engine's exchange function (`igg_torch.halo.
-exchange_planes`) moves planes across; a `torch.distributed` backend with
-one rank per GPU replaces that one function.
+is what two functions move data across: the halo engine's planes
+(`igg_torch.halo.exchange_planes`) and the K-step chunk's slabs
+(`igg_torch.ops.chunk_engine.exchange_slabs`); a `torch.distributed`
+backend with one rank per GPU replaces those two functions.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
 """The port's CUDA kernels held against their plain PyTorch versions on a
 card: the fused diffusion step (wrap/recv/frozen halo modes), as a new
-tensor and, for the K-step loop (wrap/frozen), into a preallocated one, and the in-place halo writer (wrap/ext sources,
-2/4/8-byte elements).  Every test needs an NVIDIA card and skips without
-one; `chip_smoke.py` runs the same comparisons as its first phase."""
+tensor and, for the K-step loop (wrap/frozen), into a preallocated one, the
+in-place halo writer (wrap/ext sources, 2/4/8-byte elements), the trapezoid
+chunk step (ext/wrap/oext/frozen window modes, f32/f64) and the plane
+packer (2/4/8-byte elements).  Tolerance 0 throughout.  Every test needs an
+NVIDIA card and skips without one; `chip_smoke.py` runs the same
+comparisons as its first phase."""
 
 import numpy as np
 import pytest
@@ -10,9 +13,12 @@ import torch
 
 import igg_torch as it
 from igg_torch import halo
+from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import diffusion_mega as dm
 from igg_torch.ops import diffusion_pallas as dp
+from igg_torch.ops import diffusion_trapezoid as dtz
 from igg_torch.ops import halo_write as hw
+from igg_torch.ops import pack as pk
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +86,65 @@ def test_halo_writer_matches_plain(card, case, dtype):
         halo._update_field(ref, g, hw.halo_write_plain)
         halo._update_field(A, g, hw.halo_write)
         torch.testing.assert_close(A, ref, rtol=0, atol=0)
+
+
+# Meshes of the trapezoid chunk: every window mode (ext, wrap, oext, frozen).
+CHUNK_GRIDS = {
+    "ring_periodic": dict(dimx=8, dimy=1, dimz=1, periodx=1, periody=1,
+                          periodz=1),
+    "ring_open": dict(dimx=8, dimy=1, dimz=1),
+    "4x2x1_periodic": dict(dimx=4, dimy=2, dimz=1, periodx=1, periody=1,
+                           periodz=1),
+    "2x2x2_periodic": dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
+                           periodz=1),
+    "4x1x2_periodic": dict(dimx=4, dimy=1, dimz=2, periodx=1, periody=1,
+                           periodz=1),
+    "2x2x2_periods010": dict(dimx=2, dimy=2, dimz=2, periody=1),
+    "2x2x2_periods101": dict(dimx=2, dimy=2, dimz=2, periodx=1, periodz=1),
+    "1x2x2_open": dict(dimx=1, dimy=2, dimz=2),
+    "2x1x1_wrap_y_frozen_z": dict(dimx=2, dimy=1, dimz=1, periody=1),
+}
+
+
+# (16, 16, 16): the vector path; (16, 12, 13): odd z, the element path.
+@pytest.mark.parametrize("local", [(16, 16, 16), (16, 12, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(CHUNK_GRIDS))
+def test_chunk_kernel_matches_plain(card, case, dtype, local):
+    it.init_global_grid(*local, quiet=True, device=card, **CHUNK_GRIDS[case])
+    g = it.get_global_grid()
+    K = 8
+    assert dtz.trapezoid_refusal(g, g.nxyz, K, K, dtype) is None
+    shp = it.stacked_shape(g.nxyz)
+    T = _random(shp, dtype, -10, 10, 4).to(card)
+    A = _random(shp, dtype, 0.01, 0.1, 5).to(card)
+    sc = dp.scal(0.3, 0.4, 0.5)
+    modes = ce.dim_modes(g)
+    ols = ce.field_ols(g, [g.nxyz])
+    Text, A_ext = ce.extend_fields([T, A], ols * 2, K, g, modes)
+    before = dtz.chunk_call.launches
+    out = dtz.chunk_call(Text, A_ext, g.nxyz, K=K, modes=modes, grid=g, sc=sc)
+    torch.cuda.synchronize()
+    assert dtz.chunk_call.launches == before + K
+    ref = ce.central_window(dtz.window_steps_plain(
+        Text, A_ext, K=K, modes=modes, grid=g, sc=sc), g.nxyz, K, modes)
+    torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64,
+                                   torch.int64])
+@pytest.mark.parametrize("case", ["2x2x2_periodic", "1x2x2_open",
+                                  "4x2x1_periodic"])
+def test_pack_kernel_matches_plain(card, case, dtype):
+    it.init_global_grid(6, 7, 9, quiet=True, device=card, **CHUNK_GRIDS[case])
+    g = it.get_global_grid()
+    A = _random(it.stacked_shape(g.nxyz), torch.float64, -100, 100, 6)
+    A = A.to(dtype).to(card)
+    reqs = [(d, p) for d in (1, 2) for p in (0, 1, g.nxyz[d] - 2, g.nxyz[d] - 1)]
+    out = pk.pack_planes(A, reqs, g.dims)
+    torch.cuda.synchronize()
+    for got, want in zip(out, pk.pack_planes_plain(A, reqs, g.dims)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_update_halo_on_card_matches_cpu(card):
