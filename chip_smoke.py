@@ -30,8 +30,21 @@ and the script exits non-zero without printing a result:
    time split by kernel; peak device memory.
 7. Standalone `update_halo` on that 2x2x2 grid, f32 and f64 (the plane
    packer and the halo writer), against the plain version; us per call.
+8. HM3D (BASELINE config 4), 256^3 f32 periodic on one block:
+   `make_multi_step(100)` through `run()` (the K-step loop), the first 10
+   steps equal to the plain path; ms/step, and `make_step`'s wall time
+   against its device time per call.
+9. HM3D on 2x2x2 blocks of 256^3, periodic (508^3), the blocks stacked on
+   the card: 17 steps (a warm-up step and two K=8 chunks) on the chunk
+   route equal to the per-step route and to the plain path bitwise;
+   ms/step of both routes, each route's device time split by kernel, peak
+   device memory.
 
-Launch counters are set to 0 before phase 2 and read after phase 7: each
+Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
+the one-block K-step loop, the chunk step) against their plain versions
+in every halo and window mode, f32 and f64, and times them at 256^3 and on
+the 508^3 grid.  Launch counters are set to 0 before phase 2 and read
+after phase 9: each
 kernel must have launched on that main path.  The last lines are the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
@@ -58,6 +71,14 @@ F32_FLOPS = 67e12
 # (three pair sums, three scalings, two accumulations, the centre term and
 # its subtraction, the coefficient product and the final add).
 STENCIL_FLOPS = 12
+# ... of one interior cell of the HM3D update at npow = 3, each face counted
+# once: the permeability (a division, two products), three faces (mean: an
+# add and a product; flux: a negation, a difference, a product and a
+# division), the divergence (three differences, three divisions, two
+# adds), Pe' (a product, a division, a negation, a difference, a product,
+# an add) and phi' (a negation, a difference, two products, a division, a
+# product, an add).
+HM3D_FLOPS = 3 + 3 * 6 + 8 + 6 + 7
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 SINGLE = dict(dimx=1, dimy=1, dimz=1)
@@ -94,6 +115,18 @@ KERNEL_INFO = {
     "diffusion_chunk_step": dict(
         source="igg_torch/csrc/diffusion_chunk.cu",
         replaces="igg/ops/diffusion_trapezoid.py:533"),
+    "hm3d_step": dict(
+        source="igg_torch/csrc/hm3d_step.cu",
+        replaces="igg/ops/hm3d_pallas.py:368"),
+    # The one-block K-step loop: the HM3D step kernel launched once per step
+    # on two ping-pong pairs, counted by its own wrapper.
+    "hm3d_mega_step": dict(
+        source="igg_torch/csrc/hm3d_step.cu",
+        replaces="igg/ops/hm3d_mega.py:249"),
+    # The HM3D instance of the resident banded K-step window.
+    "hm3d_chunk_step": dict(
+        source="igg_torch/csrc/hm3d_chunk.cu",
+        replaces="igg/ops/chunk_engine.py:985"),
 }
 # Grids of the small-shape chunk checks: every window mode (ext, wrap, oext,
 # frozen), as (dims, periods).
@@ -240,16 +273,21 @@ class Smoke:
         import igg_torch as it
         from igg_torch import halo, ops
         from igg_torch.models import diffusion3d as t3
+        from igg_torch.models import hm3d as h3
         from igg_torch.ops import chunk_engine as ce
         from igg_torch.ops import diffusion_mega as dm
         from igg_torch.ops import diffusion_pallas as dp
         from igg_torch.ops import diffusion_trapezoid as dtz
         from igg_torch.ops import halo_write as hw
+        from igg_torch.ops import hm3d_mega as hm
+        from igg_torch.ops import hm3d_pallas as hp
+        from igg_torch.ops import hm3d_trapezoid as htz
         from igg_torch.ops import pack as pk
 
         self.it, self.halo, self.ops, self.t3 = it, halo, ops, t3
         self.dm, self.dp, self.hw = dm, dp, hw
         self.ce, self.dtz, self.pk = ce, dtz, pk
+        self.h3, self.hp, self.hm, self.htz = h3, hp, hm, htz
         self.dev = dev
         self.n_head, self.n_open, self.recv_local = n_head, n_open, recv_local
         # The 510^3 headline: 2x2x2 blocks of n_multi^3, steps_multi steps
@@ -296,6 +334,7 @@ class Smoke:
                     self.note("diffusion_mega_step",
                               check(f"diffusion_mega_step {case} {dtype}",
                                     dst, ref, 0.0))
+                self.hm3d_step_check(g, modes, dtype, f"{case} {local}")
             lshapes = [g.nxyz, (g.nxyz[0] + 1,) + g.nxyz[1:],
                        g.nxyz[:2] + (g.nxyz[2] + 1,)]
             for lshape in lshapes:
@@ -325,6 +364,48 @@ class Smoke:
             f"{json.dumps(self.err)} (tolerance 0)")
         self.kernel_checks_headline()
         self.kernel_checks_multiblock()
+        self.hm3d_kernel_checks_headline()
+        self.hm3d_kernel_checks_multiblock()
+
+    def hm3d_input(self, shape, dtype, seed):
+        """Random Pe and phi in the ranges of the HM3D initial state."""
+        return (uniform(shape, -0.5, 0.0, dtype, self.dev, seed),
+                uniform(shape, 0.1, 0.2, dtype, self.dev, seed + 1))
+
+    def hm3d_step_check(self, g, modes, dtype, tag):
+        """The HM3D step (and, on one block, its K-step loop's launch)
+        against its plain version on grid `g`."""
+        hp, hm = self.hp, self.hm
+        kw = self.h3.Params().step_kwargs()
+        Pe, phi = self.hm3d_input(self.it.stacked_shape(g.nxyz), dtype, 31)
+        recv = hp.step_recv_planes(Pe, phi, g, modes, kw)
+        ref = hp.step_plain(Pe, phi, modes, recv, g.dims, kw)
+        out = hp.step_kernel(Pe, phi, modes, recv, g.dims, kw)
+        for f, name in enumerate(("Pe", "phi")):
+            self.note("hm3d_step", check(f"hm3d_step {name} {tag} {dtype}",
+                                         out[f], ref[f], 0.0))
+        if g.dims == (1, 1, 1):
+            dst = hm.mega_step_kernel(Pe, phi, (torch.empty_like(Pe),
+                                                torch.empty_like(phi)),
+                                      modes, kw)
+            for f, name in enumerate(("Pe", "phi")):
+                self.note("hm3d_mega_step", check(
+                    f"hm3d_mega_step {name} {tag} {dtype}", dst[f], ref[f],
+                    0.0))
+
+    def hm3d_chunk(self, g, Pe, phi, kw):
+        """The extended buffers of a K_CHUNK chunk of (Pe, phi), the kernel's
+        result and the plain version's."""
+        ce, htz = self.ce, self.htz
+        modes = ce.dim_modes(g)
+        exts = ce.extend_fields([Pe, phi], ce.field_ols(g, [g.nxyz] * 2),
+                                K_CHUNK, g, modes)
+        out = htz.chunk_call(exts, g.nxyz, K=K_CHUNK, modes=modes, grid=g,
+                             kw=kw)
+        ref = [ce.central_window(U, g.nxyz, K_CHUNK, modes) for U in
+               htz.window_steps_plain(*exts, K=K_CHUNK, modes=modes, grid=g,
+                                      kw=kw)]
+        return exts, modes, out, ref
 
     def chunk_input(self, g, dtype, seed):
         """Random T and A on grid `g`, extended for a K_CHUNK chunk."""
@@ -360,6 +441,19 @@ class Smoke:
                 self.note("diffusion_chunk_step", check(
                     f"diffusion_chunk_step {case} {local} {dtype}", out, ref,
                     0.0))
+                why = self.htz.hm3d_trapezoid_refusal(g, g.nxyz, K_CHUNK,
+                                                      K_CHUNK, dtype)
+                if why is not None:
+                    raise SmokeFailure(f"hm3d chunk {case} {local}: refused: "
+                                       f"{why}")
+                Pe, phi = self.hm3d_input(self.it.stacked_shape(g.nxyz),
+                                          dtype, 15)
+                _, _, out, ref = self.hm3d_chunk(
+                    g, Pe, phi, self.h3.Params().step_kwargs())
+                for f, name in enumerate(("Pe", "phi")):
+                    self.note("hm3d_chunk_step", check(
+                        f"hm3d_chunk_step {name} {case} {local} {dtype}",
+                        out[f], ref[f], 0.0))
             reqs = [(d, p) for d in (1, 2)
                     for p in (0, 1, local[d] - 2, local[d] - 1)]
             for dtype in (torch.float16, torch.float32, torch.float64,
@@ -497,9 +591,10 @@ class Smoke:
         del ref
         self.perf["diffusion_chunk_step"] = dict(
             kernel_time(run, max(k // 5, 4), "chunk_kernel"),
-            plain_ms=event_ms(lambda: dtz.window_step_plain(
-                Text, A_ext, Text, K=K_CHUNK, modes=modes, grid=g, sc=sc,
-                flags=ce.edge_flags(modes, g)), 3),
+            plain_ms=event_ms(lambda: ce.window_step_plain(
+                [Text], [Text], K=K_CHUNK, modes=modes, grid=g,
+                core=dtz.window_core(A_ext, g, sc),
+                flags=ce.edge_flags(modes, g), freeze_fields=(0,)), 3),
             bound=self.chunk_bound(g, Text.shape, K_CHUNK, modes))
         # kernel_time's event time is per chunk call: per launch here.
         self.perf["diffusion_chunk_step"]["events_ms"] /= K_CHUNK
@@ -522,12 +617,102 @@ class Smoke:
                    f", the step kernel on the same buffer (frozen modes) "
                    f"{self.perf['step_kernel_on_chunk_buffer_ms']:.4f} ms"))
 
+    def hm3d_kernel_checks_headline(self):
+        """One HM3D step and one K-step loop launch at 256^3 f32, periodic,
+        one block: checked, then timed beside the plain version and the
+        bound."""
+        hp, hm = self.hp, self.hm
+        n, k = self.n_head, self.time_iters
+        g = self.grid((n, n, n), **SINGLE, **PERIODIC)
+        kw = self.h3.Params().step_kwargs()
+        Pe, phi = self.hm3d_input((n, n, n), torch.float32, 23)
+        modes, none = self.dp.step_modes(g), ({}, {})
+        ref = hp.step_plain(Pe, phi, modes, none, g.dims, kw)
+        out = hp.step_kernel(Pe, phi, modes, none, g.dims, kw)
+        dst = (torch.empty_like(Pe), torch.empty_like(phi))
+        hm.mega_step_kernel(Pe, phi, dst, modes, kw)
+        for f, name in enumerate(("Pe", "phi")):
+            self.note("hm3d_step", check(f"hm3d_step {name} {n}^3", out[f],
+                                         ref[f], 0.0))
+            self.note("hm3d_mega_step", check(f"hm3d_mega_step {name} {n}^3",
+                                              dst[f], ref[f], 0.0))
+        del out, ref
+        cells, interior = float(n) ** 3, float(n - 2) ** 3
+        # Read Pe and phi, write both, 4 bytes each.
+        bound = bound_ms(4 * cells * 4, HM3D_FLOPS * interior, F32_FLOPS)
+        self.perf["hm3d_step"] = dict(
+            kernel_time(lambda: hp.step_kernel(Pe, phi, modes, none, g.dims,
+                                               kw), k, "Hm3d"),
+            plain_ms=event_ms(lambda: hp.step_plain(Pe, phi, modes, none,
+                                                    g.dims, kw),
+                              max(k // 5, 2)),
+            bound=bound)
+        self.perf["hm3d_mega_step"] = dict(
+            kernel_time(lambda: hm.mega_step_kernel(Pe, phi, dst, modes, kw),
+                        k, "Hm3d"),
+            plain_ms=event_ms(lambda: hm.mega_step_plain(Pe, phi, dst, modes,
+                                                         kw),
+                              max(k // 5, 2)),
+            bound=bound)
+        # What the card streams in practice: one elementwise pass reading
+        # two arrays and writing one, twice (the step's four arrays).
+        self.perf["stream_4x256^3_2add_ms"] = event_ms(
+            lambda: (torch.add(Pe, phi, out=dst[0]),
+                     torch.add(phi, Pe, out=dst[1])), k)
+        for name in ("hm3d_step", "hm3d_mega_step"):
+            p = self.perf[name]
+            log(f"[phase 1] {name} at {n}^3 f32: {p['ms']:.4f} ms device "
+                f"({p['ms_from']}), {p['events_ms']:.4f} ms per launch back to "
+                f"back (events), plain {p['plain_ms']:.4f} ms, bound "
+                f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
+        log(f"[phase 1] two torch.add over {n}^3 f32 arrays (read 4, write "
+            f"2): {self.perf['stream_4x256^3_2add_ms']:.4f} ms")
+
+    def hm3d_kernel_checks_multiblock(self):
+        """The HM3D chunk step on the 508^3 grid (2x2x2 blocks of n_multi^3
+        f32, periodic): one chunk checked, then timed beside one window
+        step of the plain version and the bound."""
+        ce, htz = self.ce, self.htz
+        n, k = self.n_multi, self.time_iters
+        g = self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **PERIODIC)
+        kw = self.h3.Params().step_kwargs()
+        Pe, phi = self.hm3d_input(self.it.stacked_shape(g.nxyz),
+                                  torch.float32, 25)
+        exts, modes, out, ref = self.hm3d_chunk(g, Pe, phi, kw)
+        del Pe, phi
+        for f, name in enumerate(("Pe", "phi")):
+            self.note("hm3d_chunk_step", check(
+                f"hm3d_chunk_step {name} {n}^3 2x2x2 periodic", out[f],
+                ref[f], 0.0))
+        del out, ref
+        run = lambda: htz.chunk_call(exts, g.nxyz, K=K_CHUNK, modes=modes,
+                                     grid=g, kw=kw)
+        self.perf["hm3d_chunk_step"] = dict(
+            kernel_time(run, max(k // 5, 4), "Hm3d"),
+            plain_ms=event_ms(lambda: ce.window_step_plain(
+                exts, exts, K=K_CHUNK, modes=modes, grid=g,
+                core=htz.window_core(exts[0].shape, g, kw),
+                flags=ce.edge_flags(modes, g), freeze_fields=(0, 1)), 3),
+            bound=self.chunk_bound(g, exts[0].shape, K_CHUNK, modes,
+                                   arrays=4, frozen_fields=2,
+                                   flops=HM3D_FLOPS))
+        self.perf["hm3d_chunk_step"]["events_ms"] /= K_CHUNK
+        p = self.perf["hm3d_chunk_step"]
+        log(f"[phase 1] hm3d_chunk_step at 2x2x2 x {n}^3 f32 periodic: "
+            f"{p['ms']:.4f} ms device per launch ({p['ms_from']}), "
+            f"{p['events_ms']:.4f} ms per launch back to back (events), plain "
+            f"{p['plain_ms']:.4f} ms (one window step), bound "
+            f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
+
     @staticmethod
-    def chunk_bound(g, ext_shape, K, modes):
-        """Least time per launch of one chunk (K launches): each launch but
-        the last reads the extended T and A and writes the extended T; the
-        last reads and writes the central windows; every launch reads the
-        chunk-entry values of the frozen cells."""
+    def chunk_bound(g, ext_shape, K, modes, arrays=3, frozen_fields=1,
+                    flops=STENCIL_FLOPS):
+        """Least time per launch of one chunk (K launches) of a kernel that
+        reads and writes `arrays` arrays per cell (diffusion: T and A read,
+        T written; HM3D: Pe and phi read and written): each launch but the
+        last moves them over the extended buffers, the last over the
+        central windows; every launch reads the chunk-entry values of the
+        frozen cells of `frozen_fields` fields."""
         n = g.dims
         ext_local = [ext_shape[d] // n[d] for d in range(3)]
         ext_cells = float(np.prod(ext_shape))
@@ -539,10 +724,10 @@ class Smoke:
         frozen = ext_cells - kept
         interior = lambda local: float(np.prod(n)) * float(
             np.prod([s - 2 for s in local]))
-        nbytes = 4 * ((K - 1) * 3 * ext_cells + 3 * out_cells + K * frozen)
-        flops = STENCIL_FLOPS * ((K - 1) * interior(ext_local)
-                                 + interior(g.nxyz))
-        return bound_ms(nbytes / K, flops / K, F32_FLOPS)
+        nbytes = 4 * ((K - 1) * arrays * ext_cells + arrays * out_cells
+                      + K * frozen_fields * frozen)
+        ops = flops * ((K - 1) * interior(ext_local) + interior(g.nxyz))
+        return bound_ms(nbytes / K, ops / K, F32_FLOPS)
 
     # -- main path --------------------------------------------------------
     def heat(self, T, Cp) -> float:
@@ -722,6 +907,123 @@ class Smoke:
             per_step_route_launches_per_step=n_ps,
             peak_gb=peak_gb, held_gb=held_gb, heat=(e0, e1))
 
+    def hm3d_state_check(self, tag, Pe, phi):
+        """HM3D state after a run: finite, the porosity inside (0, 1)."""
+        if not all(bool(torch.isfinite(F).all()) for F in (Pe, phi)):
+            raise SmokeFailure(f"{tag}: non-finite Pe or phi")
+        lo, hi = float(phi.min()), float(phi.max())
+        if not 0.0 < lo <= hi < 1.0:
+            raise SmokeFailure(f"{tag}: porosity range [{lo}, {hi}] leaves "
+                               f"(0, 1)")
+        return lo, hi
+
+    def hm3d_one_block(self):
+        """HM3D at n_head^3 f32, periodic, one block: the K-step loop
+        against the plain path, `run()`, and `make_step`'s wall and device
+        time per call."""
+        it, h3 = self.it, self.h3
+        n = self.n_head
+        tag = f"HM3D {n}^3 periodic"
+        self.grid((n, n, n), **SINGLE, **PERIODIC)
+        p = h3.Params()
+        Pe, phi = h3.init_fields(p)
+        k10 = h3.make_multi_step(10, p)(Pe, phi)
+        p10 = h3.make_multi_step(10, p, use_kernels=False)(Pe, phi)
+        err10 = max(check(f"{tag}: 10 steps vs plain path, {name}", a, b, 0.0)
+                    for name, a, b in zip(("Pe", "phi"), k10, p10))
+        del k10, p10
+        (Pe1, phi1), sec = h3.run(self.nt, p, dtype=torch.float32,
+                                  n_inner=self.n_inner)
+        n1 = max(1, self.nt // 4)     # the calls run() makes (warm-up 3)
+        steps = (3 + n1 + max(self.nt - n1, n1 + 1)) * self.n_inner
+        lo, hi = self.hm3d_state_check(tag, Pe1, phi1)
+        moved = float((Pe1 - Pe).abs().max())
+        if not moved > 0:
+            raise SmokeFailure(f"{tag}: Pe did not change in {steps} steps")
+        one = h3.make_step(p)
+        _, sec1 = it.time_steps(one, (Pe, phi), n1=10, n2=40, warmup=2)
+        split, _ = device_ms_by_kernel(lambda: one(Pe, phi), 20)
+        device = sum(split.values())
+        log(f"[phase 8] {tag} make_step split: wall {sec1 * 1e3:.4f} ms/call, "
+            f"device {device:.4f} ms/call {json.dumps(split)}")
+        log(f"[phase 8] {tag}: {steps} steps, 10-step max abs err vs plain "
+            f"{err10:.3e} (tolerance 0), porosity in [{lo:.6f}, {hi:.6f}], "
+            f"max |Pe change| {moved:.4e}; make_multi_step({self.n_inner}) "
+            f"{sec * 1e3:.4f} ms/step, make_step {sec1 * 1e3:.4f} ms/step")
+        self.perf[f"hm3d_{n}^3_periodic"] = dict(
+            ms_per_step=sec * 1e3, make_step_ms=sec1 * 1e3,
+            make_step_device_ms=device)
+
+    def hm3d_508(self):
+        """HM3D on 2x2x2 blocks of n_multi^3, periodic, on one card: the
+        chunk route against the per-step route and the plain path, then
+        ms/step of both routes."""
+        it, h3, hp = self.it, self.h3, self.hp
+        n, steps = self.n_multi, self.steps_multi
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **PERIODIC)
+        size = (it.nx_g(), it.ny_g(), it.nz_g())
+        if size != (2 * (n - 2),) * 3:
+            raise SmokeFailure(f"HM3D global size {size}")
+        tag = f"HM3D {size[0]}^3 periodic (2x2x2 x {n}^3)"
+        p = h3.Params()
+        kw = p.step_kwargs()
+        Pe, phi = h3.init_fields(p)
+        chunked = h3.make_multi_step(steps, p)
+        before = self.ops.launch_counts()["hm3d_chunk_step"]
+        sync(self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9     # Pe and phi
+        Sc = chunked(Pe, phi)
+        sync(self.dev)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = self.ops.launch_counts()["hm3d_chunk_step"] - before
+        if launched != (steps - 1) // K_CHUNK * K_CHUNK:
+            raise SmokeFailure(f"{tag}: {launched} chunk launches in {steps} "
+                               f"steps")
+        Sp = (Pe, phi)
+        for _ in range(steps):
+            Sp = hp.fused_hm3d_step(*Sp, **kw)
+        err_route = max(check(f"{tag}: chunk route vs per-step route, {name}",
+                              a, b, 0.0)
+                        for name, a, b in zip(("Pe", "phi"), Sc, Sp))
+        del Sp
+        plain = h3.make_multi_step(steps, p, use_kernels=False)(Pe, phi)
+        err_plain = max(check(f"{tag}: chunk route vs plain path, {name}",
+                              a, b, 0.0)
+                        for name, a, b in zip(("Pe", "phi"), Sc, plain))
+        del plain
+        lo, hi = self.hm3d_state_check(tag, *Sc)
+        del Sc
+        split_chunk, n_chunk = device_ms_by_kernel(lambda: chunked(Pe, phi), 3)
+        (P1, f1), sec = h3.run(self.nt_multi, p, dtype=torch.float32,
+                               n_inner=steps)
+        self.hm3d_state_check(f"{tag} run()", P1, f1)
+        del P1, f1
+        one = lambda Pe, phi: hp.fused_hm3d_step(Pe, phi, **kw)
+        _, sec_ps = it.time_steps(one, (Pe, phi), n1=10, n2=40, warmup=2)
+        split_ps, n_ps = device_ms_by_kernel(lambda: one(Pe, phi), 10)
+        log(f"[phase 9] {tag}: {steps} steps, chunk route vs per-step route "
+            f"{err_route:.3e}, vs plain path {err_plain:.3e} (tolerance 0), "
+            f"porosity in [{lo:.6f}, {hi:.6f}]; peak device memory of the "
+            f"chunk route {peak_gb:.3f} GB, of which {held_gb:.3f} GB held "
+            f"before the call (Pe, phi)")
+        log(f"[phase 9] {tag}: chunk route make_multi_step({steps}) "
+            f"{sec * 1e3:.4f} ms/step; per-step route {sec_ps * 1e3:.4f} "
+            f"ms/step")
+        log(f"[phase 9] {tag}: chunk route, one call of {steps} steps: "
+            f"{n_chunk:.0f} launches, device {sum(split_chunk.values()):.4f} "
+            f"ms {json.dumps(split_chunk)}")
+        log(f"[phase 9] {tag}: per-step route, one step: {n_ps:.0f} launches, "
+            f"device {sum(split_ps.values()):.4f} ms {json.dumps(split_ps)}")
+        self.perf["hm3d_508^3_periodic_2x2x2"] = dict(
+            chunk_route_ms_per_step=sec * 1e3,
+            per_step_route_ms_per_step=sec_ps * 1e3,
+            chunk_route_device_ms_per_call=split_chunk,
+            chunk_route_launches_per_call=n_chunk,
+            per_step_route_device_ms_per_step=split_ps,
+            per_step_route_launches_per_step=n_ps,
+            peak_gb=peak_gb, held_gb=held_gb)
+
     def main_path(self):
         self.ops.reset_launch_counts()
         self.headline(self.n_head, periodic=True)
@@ -732,6 +1034,8 @@ class Smoke:
         self.headline_510()
         n = self.n_multi
         self.standalone_halo(7, (n, n, n), dimx=2, dimy=2, dimz=2)
+        self.hm3d_one_block()
+        self.hm3d_508()
         self.launches = self.ops.launch_counts()
         log(f"[main path] launches {json.dumps(self.launches)}")
         missing = [k for k, v in self.launches.items() if v <= 0]
@@ -750,7 +1054,8 @@ class Smoke:
                 max_abs_err=self.err[name], ms=p["ms"], plain_ms=p["plain_ms"],
                 bound_ms=p["bound"][0], bound_by=p["bound"][1],
                 # Only the packer's function is one PyTorch call (an
-                # index_select per plane); none computes the others.
+                # index_select per plane); none computes the others (no
+                # PyTorch call computes a diffusion or an HM3D step).
                 library_ms=p.get("library_ms")))
         return {"kernels": out}
 

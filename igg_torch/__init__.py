@@ -2,12 +2,13 @@
 
 The PyTorch/CUDA port of `igg`: the same five-verb API
 (`init_global_grid`, `update_halo`, `gather`, `select_device`,
-`finalize_global_grid`) and the 3-D diffusion solver, with hand-written
-CUDA kernels for the fused diffusion step, the K-step diffusion loop, the
-in-place halo writer, the y/z plane packer and the step of a K-step
-trapezoid chunk on grids of several blocks.  Grid arrays are block-stacked tensors on one
-device; entry points use the card unless the caller passes
-`device="cpu"`.  Imports neither JAX nor `igg`.
+`finalize_global_grid`), the 3-D diffusion solver and the HM3D porous-flow
+solver (`igg_torch.models`), with hand-written CUDA kernels for the fused
+diffusion and HM3D steps (each also the K-step loop of a one-block grid),
+the in-place halo writer, the y/z plane packer and the diffusion and HM3D
+steps of a K-step chunk on grids of several blocks.  Grid arrays are
+block-stacked tensors on one device; entry points use the card unless the
+caller passes `device="cpu"`.  Imports neither JAX nor `igg`.
 """
 
 from .device import memory_stats, select_device

@@ -135,54 +135,101 @@ def exchange_all_dims(sends: Dict, dims: Sequence[Tuple[int, int]], grid,
                       local_shape, stales: Optional[Dict] = None,
                       wraps=frozenset()) -> Dict:
     """Dimension-sequential plane exchange of one field with corner/edge
-    propagation.  `sends[(d, side)]` are the stacked send planes of every
-    exchanged dim, `stales[(d, side)]` the open-boundary fallback planes of
-    its non-periodic ones; `wraps` are dims the caller assembles from the
-    block itself.  Returns `recv[d] = (new_first, new_last)`.
+    propagation: :func:`exchange_all_dims_grouped` for one field.  Returns
+    `recv[d] = (new_first, new_last)`."""
+    return exchange_all_dims_grouped([sends], [dims], grid, [local_shape],
+                                     [stales], [wraps])[0]
 
-    After dim `d` is exchanged, the pending send and stale planes of every
-    later dim get their edge rows along `d` overwritten with what `d`
-    received (wrap dims: with their own inner rows), which is what the
-    later dims would see after a sequential update of the whole block.
-    The caller writes the planes in dimension order."""
-    sends = dict(sends)
-    stales = dict(stales or {})
-    s = local_shape
-    recv: Dict = {}
-    for d, ol in dims:
-        n = grid.dims[d]
-        if d in wraps:
-            for d2, _ in dims:
-                if d2 <= d or d2 in wraps:
-                    continue
-                for store in (sends, stales):
-                    for side2 in (0, 1):
-                        P = store.get((d2, side2))
-                        if P is None:
-                            continue
-                        P[_sl(d, 0)] = P[_sl(d, s[d] - ol)]
-                        P[_sl(d, s[d] - 1)] = P[_sl(d, ol - 1)]
-            continue
-        periodic = bool(grid.periods[d])
-        first, last = exchange_planes(
-            sends[(d, 0)], sends[(d, 1)], stales.get((d, 0)),
-            stales.get((d, 1)), d, n, periodic, grid.disp)
-        recv[d] = (first, last)
-        for d2, ol2 in dims:
-            if d2 <= d or d2 in wraps:
+
+def exchange_all_dims_grouped(sends: Sequence[Dict], dims: Sequence, grid,
+                              local_shapes, stales: Optional[Sequence] = None,
+                              wraps: Optional[Sequence] = None) -> List[Dict]:
+    """Dimension-sequential plane exchange of several fields at once, with
+    corner/edge propagation (`igg.halo.exchange_all_dims_grouped`).  Per
+    field `i`: `sends[i][(d, side)]` are the stacked send planes of every
+    exchanged dim in `dims[i]` (`(d, ol)` pairs), `stales[i][(d, side)]`
+    the open-boundary fallback planes of its non-periodic ones, `wraps[i]`
+    the dims the caller assembles from the block itself.  Returns one
+    `recv[d] = (new_first, new_last)` dict per field.
+
+    Dimensions go in order; the planes of the fields that exchange a dim
+    and share a plane shape and dtype are stacked and moved by ONE
+    :func:`exchange_planes` call.  After dim `d` is exchanged, the pending
+    send and stale planes of every later dim get their edge rows along `d`
+    overwritten with what `d` received (wrap dims: with their own inner
+    rows), which is what the later dims would see after a sequential
+    update of the whole block.  The caller writes the planes in dimension
+    order."""
+    nf = len(sends)
+    sends = [dict(s) for s in sends]
+    stales = [dict(st) if st else {} for st in (stales or [None] * nf)]
+    wraps = wraps or [frozenset()] * nf
+    ols = [dict(ds) for ds in dims]
+    recvs: List[Dict] = [{} for _ in range(nf)]
+    for d in sorted(set().union(*ols)):
+        groups: Dict = {}
+        for i in range(nf):
+            if d not in ols[i]:
                 continue
-            n2 = grid.dims[d2]
-            for side2, p_send, p_stale in ((0, ol2 - 1, 0),
-                                           (1, s[d2] - ol2, s[d2] - 1)):
-                for store, pos in ((sends, p_send), (stales, p_stale)):
-                    P = store.get((d2, side2))
-                    if P is None:
-                        continue
-                    rows_first = block_rows(n, s[d], 0, P.device)
-                    rows_last = block_rows(n, s[d], s[d] - 1, P.device)
-                    P.index_copy_(d, rows_first, planes(first, d2, n2, pos))
-                    P.index_copy_(d, rows_last, planes(last, d2, n2, pos))
-    return recv
+            if d in wraps[i]:
+                _patch_wrapped(sends[i], stales[i], d, ols[i][d], dims[i],
+                               wraps[i], local_shapes[i])
+            else:
+                P = sends[i][(d, 0)]
+                groups.setdefault((tuple(P.shape), P.dtype), []).append(i)
+        for members in groups.values():
+            n, periodic = grid.dims[d], bool(grid.periods[d])
+            planes4 = [[store[i].get((d, side)) for i in members]
+                       for store in (sends, stales) for side in (0, 1)]
+            if len(members) == 1:
+                got = [exchange_planes(*[p[0] for p in planes4], d, n,
+                                       periodic, grid.disp)]
+            else:
+                stacked = [None if p[0] is None else torch.stack(p)
+                           for p in planes4]
+                first, last = exchange_planes(*stacked, d + 1, n, periodic,
+                                              grid.disp)
+                got = list(zip(first.unbind(0), last.unbind(0)))
+            for i, (first, last) in zip(members, got):
+                recvs[i][d] = (first, last)
+                _patch_received(sends[i], stales[i], d, n, first, last,
+                                dims[i], wraps[i], local_shapes[i], grid)
+    return recvs
+
+
+def _patch_wrapped(sends, stales, d, ol, dims, wraps, s) -> None:
+    """Wrap dim `d` (assembled by the caller): the later dims' pending
+    planes get the wrapped rows, aliases of their own inner rows."""
+    for d2, _ in dims:
+        if d2 <= d or d2 in wraps:
+            continue
+        for store in (sends, stales):
+            for side2 in (0, 1):
+                P = store.get((d2, side2))
+                if P is None:
+                    continue
+                P[_sl(d, 0)] = P[_sl(d, s[d] - ol)]
+                P[_sl(d, s[d] - 1)] = P[_sl(d, ol - 1)]
+
+
+def _patch_received(sends, stales, d, n, first, last, dims, wraps, s,
+                    grid) -> None:
+    """Exchanged dim `d`: the later dims' pending send and stale planes get
+    their edge rows along `d` from the received planes."""
+    for d2, ol2 in dims:
+        if d2 <= d or d2 in wraps:
+            continue
+        n2 = grid.dims[d2]
+        for side2, p_send, p_stale in ((0, ol2 - 1, 0),
+                                       (1, s[d2] - ol2, s[d2] - 1)):
+            for store, pos in ((sends, p_send), (stales, p_stale)):
+                P = store.get((d2, side2))
+                if P is None:
+                    continue
+                rows_first = block_rows(n, s[d], 0, P.device)
+                rows_last = block_rows(n, s[d], s[d] - 1, P.device)
+                P.index_copy_(d, rows_first, planes(first, d2, n2, pos))
+                P.index_copy_(d, rows_last, planes(last, d2, n2, pos))
 
 
 def _sl(d: int, i: int):

@@ -32,7 +32,7 @@ from typing import Tuple
 import torch
 
 from .. import fields, halo, shared, tools
-from ..ops import diffusion_pallas
+from ..ops import chunk_engine, diffusion_pallas
 from ..shared import GridError
 from ..timing import time_steps
 
@@ -96,15 +96,6 @@ def make_step(params: Params = Params(), *, use_kernels="auto"):
     return make_multi_step(1, params, use_kernels=use_kernels)
 
 
-def _best_bx(S0: int) -> int:
-    """Chunk depth K of the trapezoid route: igg's choice for a block of
-    `S0` x rows (8 when it divides S0)."""
-    for b in (8, 16, 4, 2):
-        if S0 % b == 0:
-            return b
-    return 1
-
-
 def _kernel_path(use_kernels, T) -> bool:
     """Whether this call takes the kernels (module docstring)."""
     if use_kernels not in ("auto", True, False):
@@ -153,7 +144,8 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
                     plain=True)
             return T
         return diffusion_pallas.fused_diffusion_steps(
-            T, A, n_inner=n_inner, bx=_best_bx(grid.nxyz[0]), **sc)
+            T, A, n_inner=n_inner,
+            bx=chunk_engine.default_K(grid.nxyz[0]), **sc)
 
     return step
 

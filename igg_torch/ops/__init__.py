@@ -7,11 +7,15 @@ its launches in `<wrapper>.launches`.
 """
 
 from . import (chunk_engine, diffusion_mega, diffusion_pallas,
-               diffusion_trapezoid, halo_write, pack)
+               diffusion_trapezoid, halo_write, hm3d_mega, hm3d_pallas,
+               hm3d_trapezoid, pack)
 from .diffusion_mega import fused_diffusion_megasteps
 from .diffusion_pallas import (diffusion_compute, fused_diffusion_step,
                                fused_diffusion_steps)
 from .diffusion_trapezoid import fused_diffusion_trapezoid_steps
+from .hm3d_mega import fused_hm3d_megasteps
+from .hm3d_pallas import fused_hm3d_step, fused_hm3d_steps
+from .hm3d_trapezoid import fused_hm3d_trapezoid_steps
 from .pack import pack_planes
 from .stencil import interior_add
 
@@ -22,6 +26,9 @@ KERNELS = {
     "halo_write": halo_write.halo_write,
     "pack_planes": pack.pack_planes,
     "diffusion_chunk_step": diffusion_trapezoid.chunk_call,
+    "hm3d_step": hm3d_pallas.step_kernel,
+    "hm3d_mega_step": hm3d_mega.mega_step_kernel,
+    "hm3d_chunk_step": hm3d_trapezoid.chunk_call,
 }
 
 

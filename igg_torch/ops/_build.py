@@ -44,6 +44,12 @@ SIGNATURES: Dict[str, tuple] = {
     "pack_planes": ("igg_pack_planes",
                     [_P, _I, ctypes.POINTER(_I), _I, ctypes.POINTER(_I),
                      ctypes.POINTER(_P), _P]),
+    "hm3d_step": ("igg_hm3d_step",
+                  [_P, _P, _P, _P, _I, ctypes.POINTER(_I), ctypes.POINTER(_P),
+                   ctypes.POINTER(_D), _I, _P]),
+    "hm3d_chunk": ("igg_hm3d_chunk_step",
+                   [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
+                    _I, ctypes.POINTER(_I), ctypes.POINTER(_D), _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,5 +1,5 @@
-"""The host pieces of the K-step chunk engine that diffusion needs
-(`igg/ops/chunk_engine.py`), on block-stacked tensors.
+"""The host pieces of the K-step chunk engine (`igg/ops/chunk_engine.py`),
+on block-stacked tensors, shared by the diffusion and HM3D chunk routes.
 
 A K-step chunk advances every block by K steps at once: each block is first
 extended by K rows beyond both ends of every extended dimension, with the
@@ -14,18 +14,25 @@ extended), ``"wrap"`` (periodic, one block, y/z self-wrap in place),
 edges re-freeze their boundary rows from the chunk-entry buffer every
 step), ``"frozen"`` (open, one block: both boundary planes re-frozen).
 
+The plain window realization (:func:`window_chunk_plain`, igg's
+`window_chunk_xla`) is the plain version of every family's chunk kernel
+(`csrc/chunk_walk.cuh`); :func:`chunk_cfg` gives those kernels the layout.
+
 The one function that moves data between blocks is :func:`exchange_slabs`
 (as :func:`igg_torch.halo.exchange_planes` is for the halo engine): here
 the blocks are stacked in one tensor, so it is an index gather over the
 block axis, and a `torch.distributed` backend replaces it.
 
 Left out, because they exist only for the TPU: transposed z slabs, the
-sublane-tile and banded-geometry gates, the VMEM budget, and the resident,
-streaming and whole-window kernels.
+sublane-tile and banded-geometry gates and the VMEM budget.  The TPU's
+resident kernel has its counterpart in the chunk kernels of
+`csrc/chunk_walk.cuh` (diffusion and HM3D); the streaming and whole-window
+kernels are later work.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -101,6 +108,67 @@ def freeze_open_dim(U, F, d: int, lo: int, hi: int, flags):
            ((flags[..., 2 * d + 1].view(block) == 1) & (i >= hi).view(row))
     six = (n[0], S[0], n[1], S[1], n[2], S[2])
     return torch.where(mask, F.view(six), U.view(six)).view(U.shape)
+
+
+def freeze_rows(modes, K: int, ext_local):
+    """Per dim `(lo, hi)` of the rows that re-freeze on edge blocks of an
+    extended block of shape `ext_local`, or None for a dim that does not
+    freeze."""
+    out = []
+    for d in range(3):
+        if modes[d] == "oext":
+            out.append((K, ext_local[d] - 1 - K))
+        elif modes[d] == "frozen":
+            out.append((0, ext_local[d] - 1))
+        else:
+            out.append(None)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The plain window realization (igg's `window_chunk_xla`)
+# ---------------------------------------------------------------------------
+
+def window_step_plain(fields, entry, *, K: int, modes, grid, core, flags,
+                      freeze_fields):
+    """One step of the window realization on the extended stacked buffers
+    `fields` (chunk-entry buffers `entry`, :func:`edge_flags` `flags`):
+    `core(*fields)` gives the family's updated fields (interior cells of
+    every extended block, stale outer rows); then the y/z self-wrap of
+    every field, then the open-dim freezes of the fields in
+    `freeze_fields`, which win the cells they share with a wrap.  Returns
+    new tensors.
+
+    igg's `window_chunk_xla` applies the wraps and freezes dim by dim
+    instead; from an exchange-fresh entry state (the chunk's entry
+    condition) a wrap and a freeze agree on the cells they share, so the
+    two orders give the same values.  The port's chunk kernels
+    (`csrc/chunk_walk.cuh`) take this order."""
+    U = list(core(*fields))
+    ext_local = tuple(U[0].shape[d] // grid.dims[d] for d in range(3))
+    for d in (1, 2):
+        if modes[d] == "wrap":
+            for u in U:
+                wrap_edges(u, d, u.shape[d], 2)
+    for d, rows in enumerate(freeze_rows(modes, K, ext_local)):
+        if rows is not None:
+            for f in freeze_fields:
+                U[f] = freeze_open_dim(U[f], entry[f], d, *rows, flags)
+    return U
+
+
+def window_chunk_plain(fields, *, K: int, modes, grid, core, freeze_fields):
+    """K window steps (:func:`window_step_plain`) of the extended buffers
+    `fields`, which are also the freeze source: the plain version of every
+    family's chunk kernel.  Returns the evolved extended buffers;
+    :func:`central_window` cuts the results out."""
+    flags = edge_flags(modes, grid)
+    U = list(fields)
+    for _ in range(K):
+        U = window_step_plain(U, fields, K=K, modes=modes, grid=grid,
+                              core=core, flags=flags,
+                              freeze_fields=freeze_fields)
+    return U
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +272,15 @@ def central_window(F, shape, E: int, modes):
 # Admission and the chunk loop
 # ---------------------------------------------------------------------------
 
+def default_K(S0: int) -> int:
+    """Chunk depth K of a model's chunk route for blocks of `S0` x rows:
+    igg's choice, 8 when it divides S0."""
+    for b in (8, 16, 4, 2):
+        if S0 % b == 0:
+            return b
+    return 1
+
+
 def admit_chunk_common(grid, K: int, n_inner: int) -> Optional[str]:
     """The gates every chunk tier shares: at least one full K-chunk and
     unit displacement.  Returns the refusal, or None."""
@@ -238,6 +315,54 @@ def admit_send_slabs(shapes, ols, E: int, modes, *, grid=None,
                 return (f"E={E} dim-{d} send slabs fall outside a field block "
                         f"(shape {s}, ol {ol[d]})")
     return None
+
+
+def check_chunk_buffers(exts, local, K: int, modes, grid, dtypes) -> None:
+    """Raise unless the extended stacked buffers `exts` suit a chunk
+    kernel: 3-D, one shape, one dtype among `dtypes`, contiguous, on one
+    CUDA device, each block `local` extended by K along the extended dims,
+    and wrap modes only on one-block y/z dims."""
+    T = exts[0]
+    for X in exts:
+        if X.ndim != 3 or tuple(X.shape) != tuple(T.shape):
+            raise ValueError(f"chunk buffers {[tuple(x.shape) for x in exts]} "
+                             f"must be 3-D of one shape")
+        if X.dtype not in dtypes or X.dtype != T.dtype:
+            raise ValueError(f"chunk buffer dtypes {[x.dtype for x in exts]}: "
+                             f"need one of {sorted(map(str, dtypes))}")
+        if X.device.type != "cuda" or X.device != T.device:
+            raise ValueError(f"chunk kernel: buffers on "
+                             f"{[str(x.device) for x in exts]}")
+        if not X.is_contiguous():
+            raise ValueError("chunk kernel: buffers must be contiguous")
+    ext_local = ext_shape(local, K, modes)
+    for d in range(3):
+        want = grid.dims[d] * ext_local[d]
+        if T.shape[d] != want or local[d] < 3:
+            raise ValueError(f"dim {d}: extended extent {T.shape[d]}, "
+                             f"expected {want} for local {local[d]} and K={K}")
+        if modes[d] == "wrap" and (d == 0 or grid.dims[d] != 1):
+            raise ValueError(f"wrap mode on dim {d} needs y/z and one block")
+
+
+def chunk_cfg(ext_stacked, local, K: int, modes, grid, last: bool):
+    """The chunk layout the chunk kernels take (`make_chunk` in
+    `csrc/chunk_walk.cuh`), as a ctypes int array: blocks, extended local
+    extents, modes, the freeze rows, `last`, the central window's offsets
+    and the output's local extents."""
+    import ctypes
+
+    ext_local = [ext_stacked[d] // grid.dims[d] for d in range(3)]
+    rows = freeze_rows(modes, K, ext_local)
+    cfg = (list(grid.dims) + ext_local
+           + [1 if m == "wrap" else 0 for m in modes]
+           + [0 if r is None else 1 for r in rows]
+           + [0 if r is None else r[0] for r in rows]
+           + [0 if r is None else r[1] for r in rows]
+           + [int(last)]
+           + [K if m in EXTENDED else 0 for m in modes]
+           + list(local))
+    return (ctypes.c_int * len(cfg))(*cfg)
 
 
 def run_chunks(fields: Sequence, *, n_inner: int, K: int,

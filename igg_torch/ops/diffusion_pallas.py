@@ -84,7 +84,10 @@ def kernel_refusal(grid, T):
     return None
 
 
-def _check(T, A, modes, recv, blocks):
+def check_step(T, A, modes, recv, blocks):
+    """Check the arguments of one step of `T` (with the like-shaped `A`) in
+    per-dim halo `modes` with received planes `recv` on `blocks` blocks;
+    returns the local block shape."""
     if T.ndim != 3 or tuple(A.shape) != tuple(T.shape):
         raise ValueError(f"T {tuple(T.shape)} and A {tuple(A.shape)} must be "
                          f"3-D of one shape")
@@ -110,16 +113,17 @@ def _check(T, A, modes, recv, blocks):
     return tuple(local)
 
 
-def _specs(modes, recv):
+def halo_specs(modes, recv):
+    """The halo writer's specs (`ops.halo_write`) of a step's halo modes."""
     return [(d, "wrap", 2) if m == "wrap" else (d, "ext", *recv[d])
             for d, m in enumerate(modes) if m != "frozen"]
 
 
 def step_plain(T, A, modes, recv, blocks, sc):
     """Plain PyTorch version of the kernel: one step into a new tensor."""
-    local = _check(T, A, modes, recv, blocks)
+    local = check_step(T, A, modes, recv, blocks)
     U = block_diffusion_compute(T, A, local, **sc)
-    return halo_write_plain(U, _specs(modes, recv), blocks)
+    return halo_write_plain(U, halo_specs(modes, recv), blocks)
 
 
 def step_kernel(T, A, modes, recv, blocks, sc, out=None):
@@ -138,7 +142,7 @@ def launch_step(T, A, modes, recv, blocks, sc, out=None):
     """Check the arguments of a CUDA `T` and launch the kernel once on the
     current stream, into `out` (allocated when None).  Counts nothing: each
     wrapper counts its own launches."""
-    local = _check(T, A, modes, recv, blocks)
+    local = check_step(T, A, modes, recv, blocks)
     if T.device.type != "cuda" or A.device != T.device:
         raise ValueError(f"step kernel: T on {T.device}, A on {A.device}")
     if not (T.is_contiguous() and A.is_contiguous()):

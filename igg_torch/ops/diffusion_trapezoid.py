@@ -18,16 +18,15 @@ Replaces `igg/ops/diffusion_trapezoid.py` (`_kernel`, `_chunk_call`,
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from ._build import library
 from .chunk_engine import (EXTENDED, admit_chunk_common, admit_send_slabs,
-                           central_window, dim_modes, edge_flags,
-                           ext_shape, extend_fields, field_ols,
-                           freeze_open_dim, run_chunks, wrap_edges)
+                           central_window, check_chunk_buffers, chunk_cfg,
+                           dim_modes, extend_fields, field_ols, run_chunks,
+                           window_chunk_plain)
 from .diffusion_pallas import block_diffusion_compute
 
 _DTYPE = {torch.float32: 0, torch.float64: 1}
@@ -76,70 +75,22 @@ def trapezoid_refusal(grid, shape, bx: int, n_inner: int,
                             grid=grid)
 
 
-def _freeze_rows(modes, K, ext_local):
-    """Per dim `(lo, hi)` of the rows that re-freeze on edge blocks, or
-    None for a dim that does not freeze."""
-    out = []
-    for d in range(3):
-        if modes[d] == "oext":
-            out.append((K, ext_local[d] - 1 - K))
-        elif modes[d] == "frozen":
-            out.append((0, ext_local[d] - 1))
-        else:
-            out.append(None)
-    return out
-
-
-def window_step_plain(U, A_ext, F, *, K, modes, grid, sc, flags):
-    """One step of the window realization on the extended stacked buffer
-    `U` (chunk-entry buffer `F`, :func:`chunk_engine.edge_flags` `flags`):
-    the stencil on every extended block's interior, y/z self-wrap, then
-    the open-dim freezes, which win the cells they share with a wrap.
-    Returns a new tensor."""
-    ext_local = tuple(U.shape[d] // grid.dims[d] for d in range(3))
-    U = block_diffusion_compute(U, A_ext, ext_local, **sc)
-    for d in (1, 2):
-        if modes[d] == "wrap":
-            wrap_edges(U, d, U.shape[d], 2)
-    for d, rows in enumerate(_freeze_rows(modes, K, ext_local)):
-        if rows is not None:
-            U = freeze_open_dim(U, F, d, *rows, flags)
-    return U
-
-
 def window_steps_plain(Text, A_ext, *, K, modes, grid, sc):
     """Plain PyTorch version of a chunk (the port of igg's
     `_window_steps_xla`): K window steps of the extended buffer `Text`,
-    which is also the freeze source.  Returns the evolved extended
-    buffer; :func:`chunk_engine.central_window` cuts the result out."""
-    flags = edge_flags(modes, grid)
-    U = Text
-    for _ in range(K):
-        U = window_step_plain(U, A_ext, Text, K=K, modes=modes, grid=grid,
-                              sc=sc, flags=flags)
-    return U
+    which is also the freeze source (:func:`chunk_engine.
+    window_chunk_plain` with the diffusion stencil).  Returns the evolved
+    extended buffer; :func:`chunk_engine.central_window` cuts the result
+    out."""
+    return window_chunk_plain([Text], K=K, modes=modes, grid=grid,
+                              core=window_core(A_ext, grid, sc),
+                              freeze_fields=(0,))[0]
 
 
-def _check(Text, A_ext, local, K, modes, grid):
-    if Text.ndim != 3 or tuple(A_ext.shape) != tuple(Text.shape):
-        raise ValueError(f"Text {tuple(Text.shape)} and A_ext "
-                         f"{tuple(A_ext.shape)} must be 3-D of one shape")
-    if Text.dtype not in _DTYPE or A_ext.dtype != Text.dtype:
-        raise ValueError(f"dtypes {Text.dtype}/{A_ext.dtype}: need one of "
-                         f"float32/float64")
-    if Text.device.type != "cuda" or A_ext.device != Text.device:
-        raise ValueError(f"chunk kernel: Text on {Text.device}, A_ext on "
-                         f"{A_ext.device}")
-    if not (Text.is_contiguous() and A_ext.is_contiguous()):
-        raise ValueError("chunk kernel: Text and A_ext must be contiguous")
-    ext_local = ext_shape(local, K, modes)
-    for d in range(3):
-        want = grid.dims[d] * ext_local[d]
-        if Text.shape[d] != want or local[d] < 3:
-            raise ValueError(f"dim {d}: extended extent {Text.shape[d]}, "
-                             f"expected {want} for local {local[d]} and K={K}")
-        if modes[d] == "wrap" and (d == 0 or grid.dims[d] != 1):
-            raise ValueError(f"wrap mode on dim {d} needs y/z and one block")
+def window_core(A_ext, grid, sc):
+    """The stencil of every extended block (interior cells)."""
+    ext_local = tuple(A_ext.shape[d] // grid.dims[d] for d in range(3))
+    return lambda U: (block_diffusion_compute(U, A_ext, ext_local, **sc),)
 
 
 def chunk_call(Text, A_ext, local, *, K, modes, grid, sc):
@@ -151,7 +102,7 @@ def chunk_call(Text, A_ext, local, *, K, modes, grid, sc):
     if Text.device.type == "cpu":
         return central_window(window_steps_plain(
             Text, A_ext, K=K, modes=modes, grid=grid, sc=sc), local, K, modes)
-    _check(Text, A_ext, local, K, modes, grid)
+    check_chunk_buffers([Text, A_ext], local, K, modes, grid, _DTYPE)
     out = torch.empty([grid.dims[d] * local[d] for d in range(3)],
                       dtype=Text.dtype, device=Text.device)
     bufs = (torch.empty_like(Text), torch.empty_like(Text))
@@ -169,20 +120,11 @@ def chunk_call(Text, A_ext, local, *, K, modes, grid, sc):
 def _launch(src, A_ext, F, out, local, K, modes, grid, sc, last: bool,
             stream: int) -> None:
     """Launch `igg_diffusion_chunk_step` once on checked arguments."""
-    ext_local = [src.shape[d] // grid.dims[d] for d in range(3)]
-    rows = _freeze_rows(modes, K, ext_local)
-    cfg = (list(grid.dims) + ext_local
-           + [1 if m == "wrap" else 0 for m in modes]
-           + [0 if r is None else 1 for r in rows]
-           + [0 if r is None else r[0] for r in rows]
-           + [0 if r is None else r[1] for r in rows]
-           + [int(last)]
-           + [K if m in EXTENDED else 0 for m in modes]
-           + list(local))
+    cfg = chunk_cfg(src.shape, local, K, modes, grid, last)
     rdx2, rdy2, rdz2 = sc["rdx2"], sc["rdy2"], sc["rdz2"]
     err = library("diffusion_chunk").igg_diffusion_chunk_step(
         src.data_ptr(), A_ext.data_ptr(), F.data_ptr(), out.data_ptr(),
-        _DTYPE[src.dtype], (ctypes.c_int * 25)(*cfg),
+        _DTYPE[src.dtype], cfg,
         rdx2, rdy2, rdz2, 2.0 * (rdx2 + rdy2 + rdz2), stream)
     if err:
         raise RuntimeError(f"igg_diffusion_chunk_step launch failed: CUDA "

@@ -1,0 +1,144 @@
+"""K-step trapezoid chunks of the HM3D step on grids of several blocks:
+kernel `igg_hm3d_chunk_step` (csrc/hm3d_chunk.cu).
+
+The coupled update is radius 1 in both fields (`dPe` reads Pe and phi at
++-1, `dphi` the new Pe at the same cell), so the validity front shrinks one
+row per extended side and step and the margin is `E = K`, the diffusion
+chunk's geometry.  Once per chunk both fields are extended by K rows beyond
+both ends of each extended dimension in one grouped slab exchange per
+dimension (`igg_torch.ops.chunk_engine.extend_fields`), then K coupled
+steps run on the extended blocks, each one kernel launch that ping-pongs
+two pairs of buffers, with open dims re-freezing BOTH fields from the
+chunk-entry buffers (igg's `freeze_fields=(0, 1)`), and the last launch
+writes each block's central windows.  Bit for bit what K per-step steps
+give from an exchange-fresh state.
+
+Replaces the HM3D instance of the TPU kernel of `igg/ops/chunk_engine.py`
+(`_resident_kernel`, `resident_chunk_call`) as `igg/ops/hm3d_trapezoid.py`
+(`_chunk_call`, `fused_hm3d_trapezoid_steps`) configures it.  The plain
+version of a chunk, :func:`window_steps_plain`, is the port of
+`_window_steps_xla`.  The streaming banded tier (`fused_hm3d_banded_steps`)
+exists on the TPU only where the resident kernel's VMEM bound refuses; the
+card has no such bound, so it is not ported here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from ..models import hm3d as model
+from ._build import library
+from .chunk_engine import (admit_chunk_common, admit_send_slabs,
+                           central_window, check_chunk_buffers, chunk_cfg,
+                           dim_modes, extend_fields, field_ols, run_chunks,
+                           window_chunk_plain)
+from .diffusion_pallas import _DTYPE
+from .hm3d_pallas import coef_args
+
+
+def hm3d_trapezoid_refusal(grid, shape, K: int, n_inner: int,
+                           dtype) -> Optional[str]:
+    """Why the depth-K chunk cannot run `n_inner` steps of fields of local
+    `shape`, or None when it can: the gates of igg's
+    `hm3d_trapezoid_supported` (a full chunk, unit displacement, an
+    overlap-2 grid, unstaggered fields, K-deep send slabs inside every
+    extended dimension's block and out of the sender's shared region)
+    without its Mosaic band/tile gates and its VMEM budget; f32 or f64."""
+    why = admit_chunk_common(grid, K, n_inner)
+    if why is not None:
+        return why
+    if grid.overlaps != (2, 2, 2):
+        return f"grid overlaps {grid.overlaps} != (2, 2, 2)"
+    if tuple(shape) != tuple(grid.nxyz) or min(shape) < 3:
+        return (f"local shape {tuple(shape)} is not the grid block "
+                f"{tuple(grid.nxyz)} of >= 3 cells per dim")
+    if dtype not in _DTYPE:
+        return f"dtype {dtype} is not float32/float64"
+    shapes = [tuple(shape)] * 2
+    return admit_send_slabs(shapes, field_ols(grid, shapes), K,
+                            dim_modes(grid), grid=grid)
+
+
+def window_core(ext_stacked, grid, kw):
+    """The coupled update of every extended block of the stacked shape
+    `ext_stacked` (interior cells): the port of igg's `_band_update` on
+    whole windows."""
+    ext_local = tuple(ext_stacked[d] // grid.dims[d] for d in range(3))
+    return lambda Pe, phi: model.block_compute(Pe, phi, ext_local, **kw)
+
+
+def window_steps_plain(Pee, phie, *, K, modes, grid, kw):
+    """Plain PyTorch version of a chunk (the port of igg's
+    `_window_steps_xla`): K window steps of the extended buffers `(Pee,
+    phie)`, which are also the freeze source of both fields.  Returns the
+    evolved extended buffers; :func:`chunk_engine.central_window` cuts the
+    results out."""
+    return tuple(window_chunk_plain(
+        [Pee, phie], K=K, modes=modes, grid=grid,
+        core=window_core(Pee.shape, grid, kw), freeze_fields=(0, 1)))
+
+
+def chunk_call(exts, local, *, K, modes, grid, kw):
+    """Advance the extended stacked buffers `exts = (Pee, phie)` by K steps
+    and return every block's central `local` windows (new tensors).  A CPU
+    tensor takes the plain version; a CUDA tensor launches the kernel K
+    times, ping-ponging two pairs of buffers, the last launch writing the
+    outputs, or raises."""
+    if exts[0].device.type == "cpu":
+        return tuple(central_window(U, local, K, modes)
+                     for U in window_steps_plain(*exts, K=K, modes=modes,
+                                                 grid=grid, kw=kw))
+    check_chunk_buffers(list(exts), local, K, modes, grid, _DTYPE)
+    shape = [grid.dims[d] * local[d] for d in range(3)]
+    out = tuple(torch.empty(shape, dtype=exts[0].dtype, device=exts[0].device)
+                for _ in range(2))
+    bufs = [tuple(torch.empty_like(X) for X in exts) for _ in range(2)]
+    stream = torch.cuda.current_stream(exts[0].device).cuda_stream
+    src = tuple(exts)
+    for k in range(K):
+        dst = out if k == K - 1 else bufs[k % 2]
+        _launch(src, exts, dst, local, K, modes, grid, kw, k == K - 1, stream)
+        chunk_call.launches += 1
+        src = dst
+    return out
+
+
+def _ptrs(tensors):
+    return (ctypes.c_void_p * 2)(*[t.data_ptr() for t in tensors])
+
+
+def _launch(src, F, out, local, K, modes, grid, kw, last: bool,
+            stream: int) -> None:
+    """Launch `igg_hm3d_chunk_step` once on checked arguments."""
+    coef, npow = coef_args(kw)
+    err = library("hm3d_chunk").igg_hm3d_chunk_step(
+        _ptrs(src), _ptrs(F), _ptrs(out), _DTYPE[src[0].dtype],
+        chunk_cfg(src[0].shape, local, K, modes, grid, last), coef, npow,
+        stream)
+    if err:
+        raise RuntimeError(f"igg_hm3d_chunk_step launch failed: CUDA error "
+                           f"{err}")
+
+
+chunk_call.launches = 0
+
+
+def fused_hm3d_trapezoid_steps(Pe, phi, *, n_inner: int, K: int, grid, dx,
+                               dy, dz, dt, phi0, npow, eta):
+    """Advance `(Pe, phi)` by the `n_inner // K` full chunks of depth K;
+    returns `(Pe, phi, steps_done)` and leaves the remainder to the
+    caller.  Entry contract: exchange-fresh halos (any state a step, an
+    `update_halo` or a previous chunk produced)."""
+    kw = dict(dx=dx, dy=dy, dz=dz, dt=dt, phi0=phi0, npow=npow, eta=eta)
+    local = grid.local_shape(Pe)
+    modes = dim_modes(grid)
+    ols = field_ols(grid, [local, local])
+
+    def one(Pe, phi):
+        exts = extend_fields([Pe, phi], ols, K, grid, modes)
+        return chunk_call(exts, local, K=K, modes=modes, grid=grid, kw=kw)
+
+    return run_chunks((Pe, phi), n_inner=n_inner, K=K, one_chunk=one)

@@ -1,0 +1,231 @@
+"""The port's step and chunk kernels' CUDA sources, run on the CPU.
+
+`igg_torch/csrc` is compiled here as C++ with g++ against a small header
+that stands in for the CUDA runtime (a launch becomes loops over every
+block and thread, run one after another; `-ffp-contract=off`, so no
+operation is fused and each rounds as in IEEE arithmetic, like the
+`-fmad=false` card build).  The wrappers' `_launch` functions then drive
+those libraries with CPU tensors, and every kernel is held against its
+plain PyTorch version, tolerance 0, in every halo and window mode, f32 and
+f64: the diffusion and HM3D step kernels (the K-step loops launch the
+same kernels) and the diffusion and HM3D chunk kernels.  This checks the
+kernels' indexing, walk and arithmetic, not their CUDA-specific parts
+(vector loads, alignment, the launch), which `tests/test_torch_kernels.py`
+checks on a card.  Skips without g++.
+"""
+
+import concurrent.futures
+import ctypes
+import os
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import igg_torch as it
+from igg_torch.ops import _build
+from igg_torch.ops import chunk_engine as ce
+from igg_torch.ops import diffusion_pallas as dp
+from igg_torch.ops import diffusion_trapezoid as dtz
+from igg_torch.ops import hm3d_pallas as hp
+from igg_torch.ops import hm3d_trapezoid as htz
+
+RUNTIME = r"""
+#pragma once
+#include <cstdint>
+#include <functional>
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(n)
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct uint3 { unsigned x, y, z; };
+inline uint3 blockIdx, threadIdx;
+inline dim3 blockDim, gridDim;
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorInvalidConfiguration = 9 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline void emu_launch(dim3 g, dim3 b, const std::function<void()>& body) {
+  gridDim = g;
+  blockDim = b;
+  for (unsigned bz = 0; bz < g.z; ++bz)
+    for (unsigned by = 0; by < g.y; ++by)
+      for (unsigned bx = 0; bx < g.x; ++bx)
+        for (unsigned tz = 0; tz < b.z; ++tz)
+          for (unsigned ty = 0; ty < b.y; ++ty)
+            for (unsigned tx = 0; tx < b.x; ++tx) {
+              blockIdx = {bx, by, bz};
+              threadIdx = {tx, ty, tz};
+              body();
+            }
+}
+"""
+LAUNCH = re.compile(r"([A-Za-z_]+<[^<>]*>)<<<([^>]*), 0, [a-z]+>>>\((.*)\);")
+LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk")
+
+
+@pytest.fixture(scope="module")
+def libs(tmp_path_factory):
+    """The four libraries, built with g++ from the repo's sources."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the kernels' sources for the CPU")
+    out = tmp_path_factory.mktemp("kernel_sources")
+    (out / "cuda_runtime.h").write_text(RUNTIME)
+    for f in os.listdir(_build.CSRC):
+        if f.endswith((".cu", ".cuh")):
+            text = open(os.path.join(_build.CSRC, f)).read()
+            (out / f).write_text(LAUNCH.sub(r"emu_launch(\2, [&]{ \1(\3); });",
+                                            text))
+
+    def build(name):
+        so = out / f"{name}.so"
+        proc = subprocess.run(
+            [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+             f"-I{out}", "-x", "c++", str(out / f"{name}.cu"), "-o", str(so)],
+            capture_output=True, text=True)
+        assert proc.returncode == 0, proc.stderr
+        lib = ctypes.CDLL(str(so))
+        fn_name, argtypes = _build.SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return name, lib
+
+    with concurrent.futures.ThreadPoolExecutor(len(LIBS)) as pool:
+        return dict(pool.map(build, LIBS))
+
+
+@pytest.fixture
+def emulated(libs, monkeypatch):
+    for module in (dp, dtz, hp, htz):
+        monkeypatch.setattr(module, "library", libs.__getitem__)
+    yield
+    if it.grid_is_initialized():
+        it.finalize_global_grid()
+
+
+def _random(shape, dtype, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.uniform(lo, hi, shape)).to(dtype)
+
+
+def same(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+SC = dp.scal(0.3, 0.4, 0.5)
+HM3D_KW = dict(dx=0.31, dy=0.27, dz=0.43, dt=5e-4, phi0=0.1, npow=3, eta=1.3)
+
+GRIDS = {
+    "wrap": dict(dimx=1, dimy=1, dimz=1, periodx=1, periody=1, periodz=1),
+    "frozen": dict(dimx=1, dimy=1, dimz=1),
+    "wrap_y_frozen_xz": dict(dimx=1, dimy=1, dimz=1, periody=1),
+    "recv_2x2x1_open": dict(dimx=2, dimy=2, dimz=1),
+    "recv_2x2x2_periodic": dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
+                                periodz=1),
+    "recv_x_wrap_yz": dict(dimx=2, dimy=1, dimz=1, periody=1, periodz=1),
+    "recv_yz_wrap_x": dict(dimx=1, dimy=2, dimz=2, periodx=1),
+}
+
+
+# (12, 10, 33): odd z extents, the element path; (10, 12, 8): whole 16-byte
+# vectors in every z row of f32 and f64, the vector path.
+@pytest.mark.parametrize("local", [(12, 10, 33), (10, 12, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(GRIDS))
+def test_step_kernels_match_plain(emulated, case, dtype, local):
+    it.init_global_grid(*local, quiet=True, device="cpu", **GRIDS[case])
+    g = it.get_global_grid()
+    shp = it.stacked_shape(g.nxyz)
+    modes = dp.step_modes(g)
+    T, A = _random(shp, dtype, -10, 10, 1), _random(shp, dtype, 0.01, 0.1, 2)
+    recv = dp.step_recv_planes(T, A, g, modes, SC)
+    out = torch.empty_like(T)
+    dp._launch(T, A, out, modes, recv, g.dims, g.nxyz, SC, 0)
+    same(out, dp.step_plain(T, A, modes, recv, g.dims, SC))
+    Pe, phi = (_random(shp, dtype, -0.5, 0, 3),
+               _random(shp, dtype, 0.05, 0.25, 4))
+    recv = hp.step_recv_planes(Pe, phi, g, modes, HM3D_KW)
+    out = (torch.empty_like(Pe), torch.empty_like(phi))
+    hp._launch(Pe, phi, out, modes, recv, g.dims, g.nxyz, HM3D_KW, 0)
+    for a, b in zip(out, hp.step_plain(Pe, phi, modes, recv, g.dims, HM3D_KW)):
+        same(a, b)
+
+
+@pytest.mark.parametrize("npow", [0, 1, 2, 5])
+def test_hm3d_step_kernel_any_npow(emulated, npow):
+    it.init_global_grid(8, 9, 12, quiet=True, device="cpu", **GRIDS["wrap"])
+    g = it.get_global_grid()
+    kw = dict(HM3D_KW, npow=npow)
+    Pe, phi = (_random((8, 9, 12), torch.float32, lo, hi, s)
+               for lo, hi, s in ((-0.5, 0, 5), (0.05, 0.25, 6)))
+    modes, none = dp.step_modes(g), ({}, {})
+    out = (torch.empty_like(Pe), torch.empty_like(phi))
+    hp._launch(Pe, phi, out, modes, none, g.dims, g.nxyz, kw, 0)
+    for a, b in zip(out, hp.step_plain(Pe, phi, modes, none, g.dims, kw)):
+        same(a, b)
+
+
+CHUNK_GRIDS = {
+    "ring_periodic": ((8, 1, 1), (1, 1, 1)),
+    "ring_open": ((8, 1, 1), (0, 0, 0)),
+    "2x2x2_periodic": ((2, 2, 2), (1, 1, 1)),
+    "2x2x2_periods010": ((2, 2, 2), (0, 1, 0)),
+    "2x2x2_periods101": ((2, 2, 2), (1, 0, 1)),
+    "1x2x2_open": ((1, 2, 2), (0, 0, 0)),
+    "2x1x1_wrap_y_frozen_z": ((2, 1, 1), (0, 1, 0)),
+    "1x1x1_open": ((1, 1, 1), (0, 0, 0)),
+}
+
+
+def _run_chunk(launch, exts, out, K):
+    """K launches ping-ponging two sets of buffers, as the wrappers do."""
+    bufs = [[torch.empty_like(X) for X in exts] for _ in range(2)]
+    src = list(exts)
+    for k in range(K):
+        dst = out if k == K - 1 else bufs[k % 2]
+        launch(src, dst, k == K - 1)
+        src = dst
+    return out
+
+
+# (16, 16, 16): whole vectors; (16, 12, 13): odd z, the element path.
+@pytest.mark.parametrize("local", [(16, 16, 16), (16, 12, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(CHUNK_GRIDS))
+def test_chunk_kernels_match_plain(emulated, case, dtype, local):
+    (dims, per), K = CHUNK_GRIDS[case], 8
+    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=dims[2], periodx=per[0],
+                        periody=per[1], periodz=per[2])
+    g = it.get_global_grid()
+    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
+    ols = ce.field_ols(g, [g.nxyz]) * 2
+
+    T, A = _random(shp, dtype, -10, 10, 7), _random(shp, dtype, 0.001, 0.1, 8)
+    Text, A_ext = ce.extend_fields([T, A], ols, K, g, modes)
+    got = _run_chunk(
+        lambda src, dst, last: dtz._launch(src[0], A_ext, Text, dst[0],
+                                           g.nxyz, K, modes, g, SC, last, 0),
+        [Text], [torch.empty_like(T)], K)[0]
+    same(got, ce.central_window(dtz.window_steps_plain(
+        Text, A_ext, K=K, modes=modes, grid=g, sc=SC), g.nxyz, K, modes))
+
+    Pe, phi = (_random(shp, dtype, -0.5, 0, 9),
+               _random(shp, dtype, 0.05, 0.25, 10))
+    exts = ce.extend_fields([Pe, phi], ols, K, g, modes)
+    got = _run_chunk(
+        lambda src, dst, last: htz._launch(src, exts, dst, g.nxyz, K, modes,
+                                           g, HM3D_KW, last, 0),
+        exts, [torch.empty_like(Pe), torch.empty_like(phi)], K)
+    for a, b in zip(got, htz.window_steps_plain(*exts, K=K, modes=modes,
+                                                grid=g, kw=HM3D_KW)):
+        same(a, ce.central_window(b, g.nxyz, K, modes))

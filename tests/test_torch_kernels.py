@@ -2,8 +2,10 @@
 card: the fused diffusion step (wrap/recv/frozen halo modes), as a new
 tensor and, for the K-step loop (wrap/frozen), into a preallocated one, the
 in-place halo writer (wrap/ext sources, 2/4/8-byte elements), the trapezoid
-chunk step (ext/wrap/oext/frozen window modes, f32/f64) and the plane
-packer (2/4/8-byte elements).  Tolerance 0 throughout.  Every test needs an
+chunk step (ext/wrap/oext/frozen window modes, f32/f64), the plane packer
+(2/4/8-byte elements), and the HM3D step (as a new pair and, for the
+K-step loop, into a preallocated one) and chunk step in the same modes.
+Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
 
@@ -18,6 +20,9 @@ from igg_torch.ops import diffusion_mega as dm
 from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import diffusion_trapezoid as dtz
 from igg_torch.ops import halo_write as hw
+from igg_torch.ops import hm3d_mega as hm
+from igg_torch.ops import hm3d_pallas as hp
+from igg_torch.ops import hm3d_trapezoid as htz
 from igg_torch.ops import pack as pk
 
 pytestmark = pytest.mark.cuda
@@ -71,6 +76,36 @@ def test_step_kernel_matches_plain(card, case, dtype, local):
         dst = torch.empty_like(T)
         dm.mega_step_kernel(T, A, dst, tuple(m for m in modes), sc)
         torch.testing.assert_close(dst, ref, rtol=0, atol=0)
+
+
+HM3D_KW = dict(dx=0.31, dy=0.27, dz=0.43, dt=5e-4, phi0=0.1, npow=3, eta=1.3)
+
+
+def _hm3d_state(shape, dtype, seed):
+    return (_random(shape, dtype, -0.5, 0.0, seed),
+            _random(shape, dtype, 0.05, 0.25, seed + 1))
+
+
+@pytest.mark.parametrize("local", [(8, 9, 16), (7, 6, 10)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(GRIDS))
+def test_hm3d_step_kernel_matches_plain(card, case, dtype, local):
+    it.init_global_grid(*local, quiet=True, device=card, **GRIDS[case])
+    g = it.get_global_grid()
+    Pe, phi = (F.to(card) for F in _hm3d_state(it.stacked_shape(g.nxyz),
+                                               dtype, 7))
+    modes = dp.step_modes(g)
+    recv = hp.step_recv_planes(Pe, phi, g, modes, HM3D_KW)
+    out = hp.step_kernel(Pe, phi, modes, recv, g.dims, HM3D_KW)
+    torch.cuda.synchronize()
+    ref = hp.step_plain(Pe, phi, modes, recv, g.dims, HM3D_KW)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if g.dims == (1, 1, 1):
+        dst = (torch.empty_like(Pe), torch.empty_like(phi))
+        hm.mega_step_kernel(Pe, phi, dst, modes, HM3D_KW)
+        for a, b in zip(dst, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64,
@@ -129,6 +164,29 @@ def test_chunk_kernel_matches_plain(card, case, dtype, local):
     ref = ce.central_window(dtz.window_steps_plain(
         Text, A_ext, K=K, modes=modes, grid=g, sc=sc), g.nxyz, K, modes)
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("local", [(16, 16, 16), (16, 12, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(CHUNK_GRIDS))
+def test_hm3d_chunk_kernel_matches_plain(card, case, dtype, local):
+    it.init_global_grid(*local, quiet=True, device=card, **CHUNK_GRIDS[case])
+    g = it.get_global_grid()
+    K = 8
+    assert htz.hm3d_trapezoid_refusal(g, g.nxyz, K, K, dtype) is None
+    Pe, phi = (F.to(card) for F in _hm3d_state(it.stacked_shape(g.nxyz),
+                                               dtype, 8))
+    modes = ce.dim_modes(g)
+    exts = ce.extend_fields([Pe, phi], ce.field_ols(g, [g.nxyz] * 2), K, g,
+                            modes)
+    before = htz.chunk_call.launches
+    out = htz.chunk_call(exts, g.nxyz, K=K, modes=modes, grid=g, kw=HM3D_KW)
+    torch.cuda.synchronize()
+    assert htz.chunk_call.launches == before + K
+    ref = htz.window_steps_plain(*exts, K=K, modes=modes, grid=g, kw=HM3D_KW)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, ce.central_window(b, g.nxyz, K, modes),
+                                   rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64,
