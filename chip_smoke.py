@@ -39,13 +39,23 @@ and the script exits non-zero without printing a result:
    route equal to the per-step route and to the plain path bitwise;
    ms/step of both routes, each route's device time split by kernel, peak
    device memory.
+10. wave2d (BASELINE config 3), 4096^2 f32 periodic on one block:
+   `make_multi_step(100)` through `run()` (the chunk route: x extended, y
+   wrapped in the kernel); the first 10 steps equal to the per-step route
+   and to the plain path bitwise; the discrete energy within igg's 25%
+   bound; ms/step of the chunk and per-step routes.
+11. wave2d on 8x1 blocks of 4096^2, periodic (32752 x 4094), stacked on the
+   card: 17 steps (a warm-up step and two K=8 chunks) on the chunk route
+   equal to the per-step route and to the plain path bitwise; ms/step of
+   both routes, each route's device time split by kernel, launches per
+   call, peak device memory.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
-the one-block K-step loop, the chunk step) against their plain versions
-in every halo and window mode, f32 and f64, and times them at 256^3 and on
-the 508^3 grid.  Launch counters are set to 0 before phase 2 and read
-after phase 9: each
-kernel must have launched on that main path.  The last lines are the
+the one-block K-step loop, the chunk step) and the wave2d kernels (the
+staggered leapfrog step, the chunk step) against their plain versions in
+every halo and window mode, f32 and f64, and times them at their main
+paths' shapes.  Launch counters are set to 0 before phase 2 and read
+after phase 11: each kernel must have launched on that main path.  The last lines are the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
 JAX and nothing of the `igg` package is imported.
@@ -79,6 +89,10 @@ STENCIL_FLOPS = 12
 # an add) and phi' (a negation, a difference, two products, a division, a
 # product, an add).
 HM3D_FLOPS = 3 + 3 * 6 + 8 + 6 + 7
+# ... of one cell of the wave2d update, each face counted once: a face of
+# Vx and one of Vy (a difference, a product, a division, an add each) and
+# P' (two differences, two divisions, an add, a product, a difference).
+WAVE2D_FLOPS = 2 * 4 + 7
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 SINGLE = dict(dimx=1, dimy=1, dimz=1)
@@ -127,7 +141,29 @@ KERNEL_INFO = {
     "hm3d_chunk_step": dict(
         source="igg_torch/csrc/hm3d_chunk.cu",
         replaces="igg/ops/chunk_engine.py:985"),
+    "wave2d_step": dict(
+        source="igg_torch/csrc/wave2d_step.cu",
+        replaces="igg/ops/wave2d_pallas.py:144"),
+    # The wave2d instance of the whole-window K-step chunk.
+    "wave2d_chunk_step": dict(
+        source="igg_torch/csrc/wave2d_chunk.cu",
+        replaces="igg/ops/chunk_engine.py:648"),
 }
+# Layouts of the small wave2d checks, as init_global_grid keywords.
+WAVE_GRIDS = {
+    "1x1_periodic": dict(dimx=1, dimy=1, periodx=1, periody=1),
+    "4x2_periodic": dict(dimx=4, dimy=2, periodx=1, periody=1),
+    "8x1_periodic": dict(dimx=8, dimy=1, periodx=1, periody=1),
+    "2x1_periodic": dict(dimx=2, dimy=1, periodx=1, periody=1),
+    "2x2_periodic": dict(dimx=2, dimy=2, periodx=1, periody=1),
+    "1x1_open": dict(dimx=1, dimy=1),
+    "4x2_open": dict(dimx=4, dimy=2),
+    "8x1_open": dict(dimx=8, dimy=1),
+    "2x1_open": dict(dimx=2, dimy=1),
+}
+# Local shapes of those checks and the chunk depths each admits: even and
+# odd y extents (Vy rows of 11, 14 and 22 elements).
+WAVE_SHAPES = (((12, 10), (2,)), ((16, 13), (2, 4)), ((24, 21), (2, 4, 8)))
 # Grids of the small-shape chunk checks: every window mode (ext, wrap, oext,
 # frozen), as (dims, periods).
 CHUNK_GRIDS = {
@@ -269,7 +305,8 @@ class Smoke:
 
     def __init__(self, dev, *, n_head=256, n_open=512, recv_local=(64, 64, 128),
                  small=SMALL_SHAPES, n_inner=100, nt=8, halo_calls=200,
-                 time_iters=50, n_multi=256, steps_multi=17, nt_multi=32):
+                 time_iters=50, n_multi=256, steps_multi=17, nt_multi=32,
+                 n_wave=4096, wave_blocks=8):
         import igg_torch as it
         from igg_torch import halo, ops
         from igg_torch.models import diffusion3d as t3
@@ -283,8 +320,14 @@ class Smoke:
         from igg_torch.ops import hm3d_pallas as hp
         from igg_torch.ops import hm3d_trapezoid as htz
         from igg_torch.ops import pack as pk
+        from igg_torch.models import wave2d as w2
+        from igg_torch.ops import wave2d_pallas as wp
+        from igg_torch.ops import wave2d_trapezoid as wtz
 
         self.it, self.halo, self.ops, self.t3 = it, halo, ops, t3
+        self.w2, self.wp, self.wtz = w2, wp, wtz
+        # wave2d: n_wave^2 blocks, one and wave_blocks x 1 of them.
+        self.n_wave, self.wave_blocks = n_wave, wave_blocks
         self.dm, self.dp, self.hw = dm, dp, hw
         self.ce, self.dtz, self.pk = ce, dtz, pk
         self.h3, self.hp, self.hm, self.htz = h3, hp, hm, htz
@@ -366,6 +409,8 @@ class Smoke:
         self.kernel_checks_multiblock()
         self.hm3d_kernel_checks_headline()
         self.hm3d_kernel_checks_multiblock()
+        self.wave2d_kernel_checks()
+        self.wave2d_kernel_checks_full()
 
     def hm3d_input(self, shape, dtype, seed):
         """Random Pe and phi in the ranges of the HM3D initial state."""
@@ -592,7 +637,7 @@ class Smoke:
         self.perf["diffusion_chunk_step"] = dict(
             kernel_time(run, max(k // 5, 4), "chunk_kernel"),
             plain_ms=event_ms(lambda: ce.window_step_plain(
-                [Text], [Text], K=K_CHUNK, modes=modes, grid=g,
+                [Text], [Text], E=K_CHUNK, modes=modes, grid=g,
                 core=dtz.window_core(A_ext, g, sc),
                 flags=ce.edge_flags(modes, g), freeze_fields=(0,)), 3),
             bound=self.chunk_bound(g, Text.shape, K_CHUNK, modes))
@@ -690,7 +735,7 @@ class Smoke:
         self.perf["hm3d_chunk_step"] = dict(
             kernel_time(run, max(k // 5, 4), "Hm3d"),
             plain_ms=event_ms(lambda: ce.window_step_plain(
-                exts, exts, K=K_CHUNK, modes=modes, grid=g,
+                exts, exts, E=K_CHUNK, modes=modes, grid=g,
                 core=htz.window_core(exts[0].shape, g, kw),
                 flags=ce.edge_flags(modes, g), freeze_fields=(0, 1)), 3),
             bound=self.chunk_bound(g, exts[0].shape, K_CHUNK, modes,
@@ -703,6 +748,126 @@ class Smoke:
             f"{p['events_ms']:.4f} ms per launch back to back (events), plain "
             f"{p['plain_ms']:.4f} ms (one window step), bound "
             f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
+
+    def wave_state(self, g, dtype, seed):
+        """Random (P, Vx, Vy) on the 2-D grid `g`."""
+        return [uniform(self.it.stacked_shape(s), -1, 1, dtype, self.dev,
+                        seed + f)
+                for f, s in enumerate(self.wp.field_shapes(g.nxyz[:2]))]
+
+    def wave_chunk(self, g, state, K, kw):
+        """The extended buffers of a depth-K chunk of the wave2d fields
+        `state`, the kernel's result and the plain version's."""
+        ce, wp, wtz = self.ce, self.wp, self.wtz
+        modes = ce.dim_modes(g)[:2]
+        shapes = wp.field_shapes(g.nxyz[:2])
+        ols = ce.field_ols(g, shapes)
+        exts = ce.extend_fields(list(state), ols, 2 * K, g, modes)
+        out = wtz.chunk_call(exts, shapes, K=K, modes=modes, grid=g, kw=kw,
+                             ols=ols)
+        ref = [ce.central_window(U, s, 2 * K, modes) for U, s in zip(
+            wtz.window_steps_plain(exts, K=K, modes=modes, grid=g, kw=kw,
+                                   ols=ols), shapes)]
+        return exts, modes, shapes, ols, out, ref
+
+    def wave2d_kernel_checks(self):
+        """The wave2d step on every layout, periodic and open, and its chunk
+        step on the periodic ones at every admitted depth, f32 and f64,
+        against their plain versions at small shapes."""
+        wp, wtz = self.wp, self.wtz
+        kw = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
+        for case, gkw in WAVE_GRIDS.items():
+            for local, Ks in WAVE_SHAPES:
+                g = self.grid(local + (1,), dimz=1, **gkw)
+                for dtype in (torch.float32, torch.float64):
+                    S = self.wave_state(g, dtype, 41)
+                    tag = f"{case} {local} {dtype}"
+                    if case != "2x2_periodic":
+                        out = wp.step_kernel(*S, g.dims[:2], kw)
+                        ref = wp.step_plain(*S, g.dims[:2], kw)
+                        for name, a, b in zip(("P", "Vx", "Vy"), out, ref):
+                            self.note("wave2d_step", check(
+                                f"wave2d_step {name} {tag}", a, b, 0.0))
+                    if not case.endswith("periodic"):
+                        continue
+                    for K in Ks:
+                        why = wtz.wave2d_chunk_refusal(g, local, K, K, dtype)
+                        if why is not None:
+                            raise SmokeFailure(f"wave2d chunk {tag} K={K}: "
+                                               f"refused: {why}")
+                        *_, out, ref = self.wave_chunk(g, S, K, kw)
+                        for name, a, b in zip(("P", "Vx", "Vy"), out, ref):
+                            self.note("wave2d_chunk_step", check(
+                                f"wave2d_chunk_step {name} {tag} K={K}", a, b,
+                                0.0))
+        log(f"[phase 1] wave2d small-shape kernel checks passed: max abs err "
+            f"step {self.err['wave2d_step']:.1e}, chunk "
+            f"{self.err['wave2d_chunk_step']:.1e} (tolerance 0)")
+
+    def wave2d_kernel_checks_full(self):
+        """Both wave2d kernels at full width, f32 periodic: one step and one
+        K=8 chunk on one n_wave^2 block and on wave_blocks x 1 of them,
+        checked, then timed beside their plain versions and bounds."""
+        ce, wp, wtz = self.ce, self.wp, self.wtz
+        n, k, K = self.n_wave, self.time_iters, K_CHUNK
+        for nb in (1, self.wave_blocks):
+            g = self.grid((n, n, 1), dimx=nb, dimy=1, dimz=1, periodx=1,
+                          periody=1)
+            kw = self.w2.Params().step_kwargs()
+            tag = f"{nb}x1 x {n}^2 f32 periodic"
+            S = self.wave_state(g, torch.float32, 43)
+            blocks = g.dims[:2]
+            out = wp.step_kernel(*S, blocks, kw)
+            for name, a, b in zip(("P", "Vx", "Vy"), out,
+                                  wp.step_plain(*S, blocks, kw)):
+                self.note("wave2d_step", check(f"wave2d_step {name} {tag}",
+                                               a, b, 0.0))
+            del out
+            cells = float(sum(A.numel() for A in S))
+            step = dict(
+                kernel_time(lambda: wp.step_kernel(*S, blocks, kw), k,
+                            "Wave2d"),
+                plain_ms=event_ms(lambda: wp.step_plain(*S, blocks, kw), 3),
+                # Read P, Vx, Vy once, write them once.
+                bound=bound_ms(2 * cells * 4, WAVE2D_FLOPS * cells / 3,
+                               F32_FLOPS))
+            exts, modes, shapes, ols, out, ref = self.wave_chunk(g, S, K, kw)
+            for name, a, b in zip(("P", "Vx", "Vy"), out, ref):
+                self.note("wave2d_chunk_step", check(
+                    f"wave2d_chunk_step {name} {tag} K={K}", a, b, 0.0))
+            del out, ref, S
+            ext_cells = float(sum(X.numel() for X in exts))
+            # Per launch of a K-launch chunk: K-1 launches read and write
+            # the extended buffers, the last reads them and writes the
+            # central windows.
+            nbytes = 4 * ((2 * K - 1) * ext_cells + cells) / K
+            chunk = dict(
+                kernel_time(lambda: wtz.chunk_call(
+                    exts, shapes, K=K, modes=modes, grid=g, kw=kw, ols=ols),
+                    max(k // 5, 4), "Wave2d"),
+                plain_ms=event_ms(lambda: ce.window_step_plain(
+                    exts, exts, E=2 * K, modes=modes, grid=g,
+                    core=wtz.window_core(g, kw), flags=ce.edge_flags(modes, g),
+                    freeze_fields=(), ols=ols), 3),
+                bound=bound_ms(nbytes, WAVE2D_FLOPS * ext_cells / 3,
+                               F32_FLOPS))
+            chunk["events_ms"] /= K
+            del exts
+            # The summary's rows: the step at one block, the chunk on the
+            # wave_blocks x 1 grid.
+            if nb == 1:
+                self.perf["wave2d_step"] = step
+            else:
+                self.perf["wave2d_chunk_step"] = chunk
+            self.perf[f"wave2d_step_{nb}x1"] = step
+            self.perf[f"wave2d_chunk_step_{nb}x1"] = chunk
+            for name, p in (("wave2d_step", step),
+                            ("wave2d_chunk_step K=8", chunk)):
+                log(f"[phase 1] {name} at {tag}: {p['ms']:.4f} ms device per "
+                    f"launch ({p['ms_from']}), {p['events_ms']:.4f} ms per "
+                    f"launch back to back (events), plain {p['plain_ms']:.4f} "
+                    f"ms{' (one window step)' if 'chunk' in name else ''}, "
+                    f"bound {p['bound'][0]:.4f} ms ({p['bound'][1]})")
 
     @staticmethod
     def chunk_bound(g, ext_shape, K, modes, arrays=3, frozen_fields=1,
@@ -1024,6 +1189,147 @@ class Smoke:
             per_step_route_launches_per_step=n_ps,
             peak_gb=peak_gb, held_gb=held_gb)
 
+    def wave_fresh(self, p):
+        """`init_fields` with its halos updated: an overlap-consistent state
+        (every duplicated cell equal), from which the chunk route equals
+        the per-step route bit for bit."""
+        return self.it.update_halo(*self.w2.init_fields(p))
+
+    def wave_routes(self, tag, S, steps, p):
+        """`steps` steps of the wave2d state `S` on the dispatch (the chunk
+        route), on the per-step route and on the plain path, held equal
+        bitwise; returns the chunk route's state, the chunk launches it
+        made and its peak device memory beyond what was held before."""
+        w2, wp = self.w2, self.wp
+        kw = p.step_kwargs()
+        before = self.ops.launch_counts()["wave2d_chunk_step"]
+        sync(self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        Sc = w2.make_multi_step(steps, p)(*S)
+        sync(self.dev)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = self.ops.launch_counts()["wave2d_chunk_step"] - before
+        if launched != (steps - 1) // K_CHUNK * K_CHUNK:
+            raise SmokeFailure(f"{tag}: {launched} chunk launches in {steps} "
+                               f"steps")
+        Sp = tuple(S)
+        for _ in range(steps):
+            Sp = wp.fused_wave2d_step(*Sp, **kw)
+        err_route = max(check(f"{tag}: chunk route vs per-step route, {name}",
+                              a, b, 0.0)
+                        for name, a, b in zip(("P", "Vx", "Vy"), Sc, Sp))
+        del Sp
+        plain = w2.make_multi_step(steps, p, use_kernels=False)(*S)
+        err_plain = max(check(f"{tag}: chunk route vs plain path, {name}",
+                              a, b, 0.0)
+                        for name, a, b in zip(("P", "Vx", "Vy"), Sc, plain))
+        del plain
+        if not all(bool(torch.isfinite(A).all()) for A in Sc):
+            raise SmokeFailure(f"{tag}: non-finite fields")
+        return Sc, err_route, err_plain, peak_gb, held_gb
+
+    def wave2d_one_block(self):
+        """wave2d at n_wave^2 f32, periodic, one block: the routes against
+        each other over 10 steps, `run()` (the chunk route), the energy
+        bound, ms/step of the chunk and per-step routes."""
+        it, w2, wp = self.it, self.w2, self.wp
+        n = self.n_wave
+        tag = f"wave2d {n}^2 periodic"
+        self.grid((n, n, 1), dimx=1, dimy=1, dimz=1, periodx=1, periody=1)
+        p = w2.Params()
+        S = self.wave_fresh(p)
+        _, err_route, err_plain, _, _ = self.wave_routes(tag, S, 10, p)
+        e0 = w2.energy(*w2.init_fields(p))
+        S1, sec = w2.run(self.nt, p, dtype=torch.float32, n_inner=self.n_inner)
+        n1 = max(1, self.nt // 4)     # the calls run() makes (warm-up 1)
+        steps = (1 + n1 + max(self.nt - n1, n1 + 1)) * self.n_inner
+        if not all(bool(torch.isfinite(A).all()) for A in S1):
+            raise SmokeFailure(f"{tag}: run() gave non-finite fields")
+        e1 = w2.energy(*S1)
+        drift = (e1 - e0) / e0
+        # igg's bounded wave_energy invariant (igg/models/wave2d.py:418).
+        if not abs(drift) <= 0.25:
+            raise SmokeFailure(f"{tag}: energy {e0:.6e} -> {e1:.6e}")
+        moved = float((S1[0] - S[0]).abs().max())
+        if not moved > 0:
+            raise SmokeFailure(f"{tag}: P did not change in {steps} steps")
+        del S1
+        kw = p.step_kwargs()
+        one = lambda *T: wp.fused_wave2d_step(*T, **kw)
+        _, sec_ps = it.time_steps(one, S, n1=10, n2=40, warmup=2)
+        split_ps, n_ps = device_ms_by_kernel(lambda: one(*S), 10)
+        chunked = w2.make_multi_step(self.n_inner, p)
+        split_chunk, n_chunk = device_ms_by_kernel(lambda: chunked(*S), 2)
+        log(f"[phase 10] {tag}: 10 steps, chunk route vs per-step route "
+            f"{err_route:.3e}, vs plain path {err_plain:.3e} (tolerance 0); "
+            f"run() {steps} steps, energy {e0:.6e} -> {e1:.6e} ({drift:+.3e}, "
+            f"bound 25%), max |P change| {moved:.4e}")
+        log(f"[phase 10] {tag}: chunk route make_multi_step({self.n_inner}) "
+            f"{sec * 1e3:.4f} ms/step; per-step route {sec_ps * 1e3:.4f} "
+            f"ms/step")
+        log(f"[phase 10] {tag}: chunk route, one call of {self.n_inner} "
+            f"steps: {n_chunk:.0f} launches, device "
+            f"{sum(split_chunk.values()):.4f} ms {json.dumps(split_chunk)}")
+        log(f"[phase 10] {tag}: per-step route, one step: {n_ps:.0f} "
+            f"launches, device {sum(split_ps.values()):.4f} ms "
+            f"{json.dumps(split_ps)}")
+        self.perf[f"wave2d_{n}^2_periodic"] = dict(
+            chunk_route_ms_per_step=sec * 1e3,
+            per_step_route_ms_per_step=sec_ps * 1e3,
+            chunk_route_device_ms_per_call=split_chunk,
+            chunk_route_launches_per_call=n_chunk,
+            per_step_route_device_ms_per_step=split_ps,
+            per_step_route_launches_per_step=n_ps, energy=(e0, e1))
+
+    def wave2d_multiblock(self):
+        """wave2d on wave_blocks x 1 blocks of n_wave^2, periodic, on one
+        card: the chunk route against the per-step route and the plain
+        path over 17 steps, then ms/step of both routes."""
+        it, w2, wp = self.it, self.w2, self.wp
+        n, nb, steps = self.n_wave, self.wave_blocks, self.steps_multi
+        self.grid((n, n, 1), dimx=nb, dimy=1, dimz=1, periodx=1, periody=1)
+        size = (it.nx_g(), it.ny_g())
+        if size != (nb * (n - 2), n - 2):
+            raise SmokeFailure(f"wave2d global size {size}")
+        tag = f"wave2d {size[0]}x{size[1]} periodic ({nb}x1 x {n}^2)"
+        p = w2.Params()
+        S = self.wave_fresh(p)
+        Sc, err_route, err_plain, peak_gb, held_gb = self.wave_routes(
+            tag, S, steps, p)
+        del Sc
+        chunked = w2.make_multi_step(steps, p)
+        split_chunk, n_chunk = device_ms_by_kernel(lambda: chunked(*S), 3)
+        S1, sec = w2.run(self.nt_multi, p, dtype=torch.float32, n_inner=steps)
+        if not all(bool(torch.isfinite(A).all()) for A in S1):
+            raise SmokeFailure(f"{tag}: run() gave non-finite fields")
+        del S1
+        kw = p.step_kwargs()
+        one = lambda *T: wp.fused_wave2d_step(*T, **kw)
+        _, sec_ps = it.time_steps(one, S, n1=10, n2=40, warmup=2)
+        split_ps, n_ps = device_ms_by_kernel(lambda: one(*S), 10)
+        log(f"[phase 11] {tag}: {steps} steps, chunk route vs per-step route "
+            f"{err_route:.3e}, vs plain path {err_plain:.3e} (tolerance 0); "
+            f"peak device memory of the chunk route {peak_gb:.3f} GB, of "
+            f"which {held_gb:.3f} GB held before the call (P, Vx, Vy)")
+        log(f"[phase 11] {tag}: chunk route make_multi_step({steps}) "
+            f"{sec * 1e3:.4f} ms/step; per-step route {sec_ps * 1e3:.4f} "
+            f"ms/step")
+        log(f"[phase 11] {tag}: chunk route, one call of {steps} steps: "
+            f"{n_chunk:.0f} launches, device {sum(split_chunk.values()):.4f} "
+            f"ms {json.dumps(split_chunk)}")
+        log(f"[phase 11] {tag}: per-step route, one step: {n_ps:.0f} "
+            f"launches, device {sum(split_ps.values()):.4f} ms "
+            f"{json.dumps(split_ps)}")
+        self.perf[f"wave2d_{size[0]}x{size[1]}_periodic_{nb}x1"] = dict(
+            chunk_route_ms_per_step=sec * 1e3,
+            per_step_route_ms_per_step=sec_ps * 1e3,
+            chunk_route_device_ms_per_call=split_chunk,
+            chunk_route_launches_per_call=n_chunk,
+            per_step_route_device_ms_per_step=split_ps,
+            per_step_route_launches_per_step=n_ps,
+            peak_gb=peak_gb, held_gb=held_gb)
+
     def main_path(self):
         self.ops.reset_launch_counts()
         self.headline(self.n_head, periodic=True)
@@ -1036,6 +1342,8 @@ class Smoke:
         self.standalone_halo(7, (n, n, n), dimx=2, dimy=2, dimz=2)
         self.hm3d_one_block()
         self.hm3d_508()
+        self.wave2d_one_block()
+        self.wave2d_multiblock()
         self.launches = self.ops.launch_counts()
         log(f"[main path] launches {json.dumps(self.launches)}")
         missing = [k for k, v in self.launches.items() if v <= 0]
@@ -1055,7 +1363,8 @@ class Smoke:
                 bound_ms=p["bound"][0], bound_by=p["bound"][1],
                 # Only the packer's function is one PyTorch call (an
                 # index_select per plane); none computes the others (no
-                # PyTorch call computes a diffusion or an HM3D step).
+                # PyTorch call computes a diffusion, an HM3D or a leapfrog
+                # step).
                 library_ms=p.get("library_ms")))
         return {"kernels": out}
 

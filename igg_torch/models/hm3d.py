@@ -35,13 +35,12 @@ Dispatch of :func:`make_multi_step` (`use_kernels`), the idiom of
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Tuple
 
 import torch
 
 from .. import fields, halo, shared, tools
-from ..ops.stencil import block_boundary_mask, interior_add
+from ..ops.stencil import block_boundary_mask, divisor, interior_add
 from ..shared import GridError
 from ..timing import time_steps
 
@@ -86,17 +85,6 @@ def init_fields(params: Params = Params(), dtype=torch.float32):
     phi = params.phi0 * (1.0 + 1.0 * torch.exp(-r2)) + 0 * Pe0
     Pe = -0.5 * torch.exp(-r2) + 0 * Pe0
     return Pe, phi
-
-
-@functools.lru_cache(maxsize=64)
-def _scalar(value: float, dtype, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=dtype, device=device)
-
-
-def divisor(value: float, like) -> torch.Tensor:
-    """`value` as a 0-dim tensor of `like`'s dtype on its device, for a true
-    division (module docstring)."""
-    return _scalar(float(value), like.dtype, like.device)
 
 
 def int_pow(x, n: int):

@@ -8,7 +8,7 @@ its launches in `<wrapper>.launches`.
 
 from . import (chunk_engine, diffusion_mega, diffusion_pallas,
                diffusion_trapezoid, halo_write, hm3d_mega, hm3d_pallas,
-               hm3d_trapezoid, pack)
+               hm3d_trapezoid, pack, wave2d_pallas, wave2d_trapezoid)
 from .diffusion_mega import fused_diffusion_megasteps
 from .diffusion_pallas import (diffusion_compute, fused_diffusion_step,
                                fused_diffusion_steps)
@@ -18,6 +18,8 @@ from .hm3d_pallas import fused_hm3d_step, fused_hm3d_steps
 from .hm3d_trapezoid import fused_hm3d_trapezoid_steps
 from .pack import pack_planes
 from .stencil import interior_add
+from .wave2d_pallas import fused_wave2d_step, fused_wave2d_steps
+from .wave2d_trapezoid import fused_wave2d_chunk_steps
 
 # name -> wrapper that launches the kernel
 KERNELS = {
@@ -29,6 +31,8 @@ KERNELS = {
     "hm3d_step": hm3d_pallas.step_kernel,
     "hm3d_mega_step": hm3d_mega.mega_step_kernel,
     "hm3d_chunk_step": hm3d_trapezoid.chunk_call,
+    "wave2d_step": wave2d_pallas.step_kernel,
+    "wave2d_chunk_step": wave2d_trapezoid.chunk_call,
 }
 
 

@@ -50,6 +50,12 @@ SIGNATURES: Dict[str, tuple] = {
     "hm3d_chunk": ("igg_hm3d_chunk_step",
                    [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
                     _I, ctypes.POINTER(_I), ctypes.POINTER(_D), _I, _P]),
+    "wave2d_step": ("igg_wave2d_step",
+                    [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
+                     ctypes.POINTER(_I), ctypes.POINTER(_D), _P]),
+    "wave2d_chunk": ("igg_wave2d_chunk_step",
+                     [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
+                      ctypes.POINTER(_I), ctypes.POINTER(_D), _P]),
 }
 
 _lock = threading.Lock()

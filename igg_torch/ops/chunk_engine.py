@@ -1,12 +1,16 @@
 """The host pieces of the K-step chunk engine (`igg/ops/chunk_engine.py`),
-on block-stacked tensors, shared by the diffusion and HM3D chunk routes.
+on block-stacked tensors, shared by the diffusion, HM3D and wave2d chunk
+routes.
 
 A K-step chunk advances every block by K steps at once: each block is first
-extended by K rows beyond both ends of every extended dimension, with the
+extended by E rows beyond both ends of every extended dimension, with the
 neighbours' rows (:func:`extend_fields`); K steps then run on the extended
-blocks, each losing one row of validity per extended end and step, so that
-after K steps exactly the block itself holds the values the per-step path
-would produce; the central window is cut out (:func:`central_window`).
+blocks, each losing E/K rows of validity per extended end and step (one for
+diffusion and HM3D, E = K; two for wave2d's coupled leapfrog, E = 2K), so
+that after K steps exactly the block itself holds the values the per-step
+path would produce; the central window is cut out (:func:`central_window`).
+Fields may be staggered (their own block shapes and overlaps) and of rank 2
+or 3.
 
 Per-dimension window modes (:func:`dim_modes`): ``"ext"`` (periodic,
 extended), ``"wrap"`` (periodic, one block, y/z self-wrap in place),
@@ -16,7 +20,8 @@ step), ``"frozen"`` (open, one block: both boundary planes re-frozen).
 
 The plain window realization (:func:`window_chunk_plain`, igg's
 `window_chunk_xla`) is the plain version of every family's chunk kernel
-(`csrc/chunk_walk.cuh`); :func:`chunk_cfg` gives those kernels the layout.
+(`csrc/chunk_walk.cuh` for diffusion and HM3D, `csrc/stagger_walk.cuh` for
+wave2d); :func:`chunk_cfg` gives the 3-D walk's kernels the layout.
 
 The one function that moves data between blocks is :func:`exchange_slabs`
 (as :func:`igg_torch.halo.exchange_planes` is for the halo engine): here
@@ -26,8 +31,9 @@ block axis, and a `torch.distributed` backend replaces it.
 Left out, because they exist only for the TPU: transposed z slabs, the
 sublane-tile and banded-geometry gates and the VMEM budget.  The TPU's
 resident kernel has its counterpart in the chunk kernels of
-`csrc/chunk_walk.cuh` (diffusion and HM3D); the streaming and whole-window
-kernels are later work.
+`csrc/chunk_walk.cuh` (diffusion and HM3D), and the whole-window kernel its
+wave2d instance in `csrc/wave2d_chunk.cu`; the streaming kernel is later
+work.
 """
 
 from __future__ import annotations
@@ -56,11 +62,12 @@ def edge_flags(modes, grid) -> torch.Tensor:
     """Per-block edge flags, shape `dims + (6,)` int32: two per dim, set
     where the block's low / high boundary rows freeze.  A "frozen" dim
     flags both sides (its one block is both global edges), an "oext" dim
-    flags the blocks on the global edges, periodic dims flag nothing.  The
-    stacked layout's `axis_index`: the flags come from block coordinates."""
+    flags the blocks on the global edges, periodic dims and dims beyond
+    `modes` (of a 2-D field) flag nothing.  The stacked layout's
+    `axis_index`: the flags come from block coordinates."""
     n = grid.dims
     flags = torch.zeros(tuple(n) + (6,), dtype=torch.int32, device=grid.device)
-    for d in range(3):
+    for d in range(len(modes)):
         if modes[d] not in ("frozen", "oext"):
             continue
         c = torch.arange(n[d], device=grid.device)
@@ -97,27 +104,30 @@ def freeze_open_dim(U, F, d: int, lo: int, hi: int, flags):
     `flags` (:func:`edge_flags`), rows `<= lo` (low edge) and `>= hi`
     (high edge) along `d` take the chunk-entry values of `F` ("frozen":
     lo = 0 and hi = S-1, the two boundary planes; "oext": the boundary row
-    and the shoulder beyond it).  Returns a new tensor."""
-    n = flags.shape[:3]
-    S = [U.shape[k] // n[k] for k in range(3)]
-    block = (n[0], 1, n[1], 1, n[2], 1)
+    and the shoulder beyond it).  Any rank up to 3 (the grid's trailing
+    dims then hold one block).  Returns a new tensor."""
+    nd = U.ndim
+    n = flags.shape[:nd]
+    fl = flags.reshape(tuple(n) + (6,))
+    S = [U.shape[k] // n[k] for k in range(nd)]
+    block = sum(((n[k], 1) for k in range(nd)), ())
     i = torch.arange(S[d], device=U.device)
-    row = [1] * 6
+    row = [1] * (2 * nd)
     row[2 * d + 1] = S[d]
-    mask = ((flags[..., 2 * d].view(block) == 1) & (i <= lo).view(row)) | \
-           ((flags[..., 2 * d + 1].view(block) == 1) & (i >= hi).view(row))
-    six = (n[0], S[0], n[1], S[1], n[2], S[2])
-    return torch.where(mask, F.view(six), U.view(six)).view(U.shape)
+    mask = ((fl[..., 2 * d].view(block) == 1) & (i <= lo).view(row)) | \
+           ((fl[..., 2 * d + 1].view(block) == 1) & (i >= hi).view(row))
+    split = sum(((n[k], S[k]) for k in range(nd)), ())
+    return torch.where(mask, F.view(split), U.view(split)).view(U.shape)
 
 
-def freeze_rows(modes, K: int, ext_local):
+def freeze_rows(modes, E: int, ext_local):
     """Per dim `(lo, hi)` of the rows that re-freeze on edge blocks of an
-    extended block of shape `ext_local`, or None for a dim that does not
-    freeze."""
+    extended block of shape `ext_local` (margin `E`), or None for a dim
+    that does not freeze."""
     out = []
-    for d in range(3):
+    for d in range(len(ext_local)):
         if modes[d] == "oext":
-            out.append((K, ext_local[d] - 1 - K))
+            out.append((E, ext_local[d] - 1 - E))
         elif modes[d] == "frozen":
             out.append((0, ext_local[d] - 1))
         else:
@@ -129,15 +139,17 @@ def freeze_rows(modes, K: int, ext_local):
 # The plain window realization (igg's `window_chunk_xla`)
 # ---------------------------------------------------------------------------
 
-def window_step_plain(fields, entry, *, K: int, modes, grid, core, flags,
-                      freeze_fields):
+def window_step_plain(fields, entry, *, E: int, modes, grid, core, flags,
+                      freeze_fields, ols=None):
     """One step of the window realization on the extended stacked buffers
-    `fields` (chunk-entry buffers `entry`, :func:`edge_flags` `flags`):
-    `core(*fields)` gives the family's updated fields (interior cells of
-    every extended block, stale outer rows); then the y/z self-wrap of
-    every field, then the open-dim freezes of the fields in
-    `freeze_fields`, which win the cells they share with a wrap.  Returns
-    new tensors.
+    `fields` (chunk-entry buffers `entry`, margin `E`, :func:`edge_flags`
+    `flags`): `core(*fields)` gives the family's updated fields (every
+    extended block's updated cells, stale outer cells); then the y/z
+    self-wrap of every field, with its own overlap `ols[f][d]` (2 when
+    `ols` is None), then the open-dim freezes of the fields in
+    `freeze_fields`, which win the cells they share with a wrap.  Fields
+    may differ in shape (staggered) and be of rank 2 or 3.  Returns new
+    tensors.
 
     igg's `window_chunk_xla` applies the wraps and freezes dim by dim
     instead; from an exchange-fresh entry state (the chunk's entry
@@ -145,29 +157,31 @@ def window_step_plain(fields, entry, *, K: int, modes, grid, core, flags,
     two orders give the same values.  The port's chunk kernels
     (`csrc/chunk_walk.cuh`) take this order."""
     U = list(core(*fields))
-    ext_local = tuple(U[0].shape[d] // grid.dims[d] for d in range(3))
-    for d in (1, 2):
+    for d in range(1, U[0].ndim):
         if modes[d] == "wrap":
-            for u in U:
-                wrap_edges(u, d, u.shape[d], 2)
-    for d, rows in enumerate(freeze_rows(modes, K, ext_local)):
-        if rows is not None:
-            for f in freeze_fields:
+            for f, u in enumerate(U):
+                wrap_edges(u, d, u.shape[d], 2 if ols is None else ols[f][d])
+    for f in freeze_fields:
+        ext_local = tuple(U[f].shape[d] // grid.dims[d]
+                          for d in range(U[f].ndim))
+        for d, rows in enumerate(freeze_rows(modes, E, ext_local)):
+            if rows is not None:
                 U[f] = freeze_open_dim(U[f], entry[f], d, *rows, flags)
     return U
 
 
-def window_chunk_plain(fields, *, K: int, modes, grid, core, freeze_fields):
-    """K window steps (:func:`window_step_plain`) of the extended buffers
-    `fields`, which are also the freeze source: the plain version of every
-    family's chunk kernel.  Returns the evolved extended buffers;
-    :func:`central_window` cuts the results out."""
+def window_chunk_plain(fields, *, K: int, modes, grid, core, freeze_fields,
+                       E: Optional[int] = None, ols=None):
+    """K window steps (:func:`window_step_plain`, margin `E`, K when None)
+    of the extended buffers `fields`, which are also the freeze source:
+    the plain version of every family's chunk kernel.  Returns the evolved
+    extended buffers; :func:`central_window` cuts the results out."""
     flags = edge_flags(modes, grid)
     U = list(fields)
     for _ in range(K):
-        U = window_step_plain(U, fields, K=K, modes=modes, grid=grid,
-                              core=core, flags=flags,
-                              freeze_fields=freeze_fields)
+        U = window_step_plain(U, fields, E=K if E is None else E, modes=modes,
+                              grid=grid, core=core, flags=flags,
+                              freeze_fields=freeze_fields, ols=ols)
     return U
 
 
@@ -317,16 +331,16 @@ def admit_send_slabs(shapes, ols, E: int, modes, *, grid=None,
     return None
 
 
-def check_chunk_buffers(exts, local, K: int, modes, grid, dtypes) -> None:
+def check_chunk_buffers(exts, shapes, E: int, modes, grid, dtypes) -> None:
     """Raise unless the extended stacked buffers `exts` suit a chunk
-    kernel: 3-D, one shape, one dtype among `dtypes`, contiguous, on one
-    CUDA device, each block `local` extended by K along the extended dims,
-    and wrap modes only on one-block y/z dims."""
+    kernel: of one rank and one dtype among `dtypes`, contiguous, on one
+    CUDA device, field f's blocks `shapes[f]` extended by E along the
+    extended dims, and wrap modes only on one-block y/z dims."""
     T = exts[0]
-    for X in exts:
-        if X.ndim != 3 or tuple(X.shape) != tuple(T.shape):
+    for X, s in zip(exts, shapes):
+        if X.ndim != T.ndim or len(s) != X.ndim:
             raise ValueError(f"chunk buffers {[tuple(x.shape) for x in exts]} "
-                             f"must be 3-D of one shape")
+                             f"must share one rank with their blocks {shapes}")
         if X.dtype not in dtypes or X.dtype != T.dtype:
             raise ValueError(f"chunk buffer dtypes {[x.dtype for x in exts]}: "
                              f"need one of {sorted(map(str, dtypes))}")
@@ -335,32 +349,29 @@ def check_chunk_buffers(exts, local, K: int, modes, grid, dtypes) -> None:
                              f"{[str(x.device) for x in exts]}")
         if not X.is_contiguous():
             raise ValueError("chunk kernel: buffers must be contiguous")
-    ext_local = ext_shape(local, K, modes)
-    for d in range(3):
-        want = grid.dims[d] * ext_local[d]
-        if T.shape[d] != want or local[d] < 3:
-            raise ValueError(f"dim {d}: extended extent {T.shape[d]}, "
-                             f"expected {want} for local {local[d]} and K={K}")
+        want = [grid.dims[d] * e for d, e in enumerate(ext_shape(s, E, modes))]
+        if list(X.shape) != want or min(s) < 3:
+            raise ValueError(f"chunk buffer {tuple(X.shape)}: expected {want} "
+                             f"for blocks {tuple(s)} and E={E}")
+    for d in range(T.ndim):
         if modes[d] == "wrap" and (d == 0 or grid.dims[d] != 1):
             raise ValueError(f"wrap mode on dim {d} needs y/z and one block")
 
 
-def chunk_cfg(ext_stacked, local, K: int, modes, grid, last: bool):
-    """The chunk layout the chunk kernels take (`make_chunk` in
+def chunk_cfg(ext_stacked, local, E: int, modes, grid, last: bool):
+    """The chunk layout the 3-D walk's chunk kernels take (`make_chunk` in
     `csrc/chunk_walk.cuh`), as a ctypes int array: blocks, extended local
-    extents, modes, the freeze rows, `last`, the central window's offsets
-    and the output's local extents."""
-    import ctypes
-
+    extents, modes, the freeze rows (margin `E`), `last`, the central
+    window's offsets and the output's local extents."""
     ext_local = [ext_stacked[d] // grid.dims[d] for d in range(3)]
-    rows = freeze_rows(modes, K, ext_local)
+    rows = freeze_rows(modes, E, ext_local)
     cfg = (list(grid.dims) + ext_local
            + [1 if m == "wrap" else 0 for m in modes]
            + [0 if r is None else 1 for r in rows]
            + [0 if r is None else r[0] for r in rows]
            + [0 if r is None else r[1] for r in rows]
            + [int(last)]
-           + [K if m in EXTENDED else 0 for m in modes]
+           + [E if m in EXTENDED else 0 for m in modes]
            + list(local))
     return (ctypes.c_int * len(cfg))(*cfg)
 

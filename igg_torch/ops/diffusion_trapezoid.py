@@ -102,7 +102,7 @@ def chunk_call(Text, A_ext, local, *, K, modes, grid, sc):
     if Text.device.type == "cpu":
         return central_window(window_steps_plain(
             Text, A_ext, K=K, modes=modes, grid=grid, sc=sc), local, K, modes)
-    check_chunk_buffers([Text, A_ext], local, K, modes, grid, _DTYPE)
+    check_chunk_buffers([Text, A_ext], [local] * 2, K, modes, grid, _DTYPE)
     out = torch.empty([grid.dims[d] * local[d] for d in range(3)],
                       dtype=Text.dtype, device=Text.device)
     bufs = (torch.empty_like(Text), torch.empty_like(Text))

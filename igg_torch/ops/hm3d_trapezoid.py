@@ -91,7 +91,7 @@ def chunk_call(exts, local, *, K, modes, grid, kw):
         return tuple(central_window(U, local, K, modes)
                      for U in window_steps_plain(*exts, K=K, modes=modes,
                                                  grid=grid, kw=kw))
-    check_chunk_buffers(list(exts), local, K, modes, grid, _DTYPE)
+    check_chunk_buffers(list(exts), [local] * 2, K, modes, grid, _DTYPE)
     shape = [grid.dims[d] * local[d] for d in range(3)]
     out = tuple(torch.empty(shape, dtype=exts[0].dtype, device=exts[0].device)
                 for _ in range(2))

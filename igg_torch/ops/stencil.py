@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -29,3 +31,16 @@ def block_boundary_mask(shape, local, device) -> torch.Tensor:
         view[d] = S
         mask |= edge.view(view)
     return mask
+
+
+@functools.lru_cache(maxsize=64)
+def _scalar(value: float, dtype, device) -> torch.Tensor:
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def divisor(value: float, like) -> torch.Tensor:
+    """`value` rounded once to a 0-dim tensor of `like`'s dtype on its
+    device.  Dividing by it is an IEEE division, as in the kernels: on a
+    CUDA tensor PyTorch turns `x / float` into `x * (1/float)`, which rounds
+    differently."""
+    return _scalar(float(value), like.dtype, like.device)

@@ -12,10 +12,11 @@ variants are the design choices the sources record:
 
 - `as_built`: the sources as they are;
 - `ldg_loads`: the walk's loads through the read-only path (`__ldg`);
-- `vec_8B`: 8-byte vectors per thread instead of 16-byte ones;
+- `vec_8B`: 8-byte vectors per thread instead of 16-byte ones (the 3-D
+  walk's kernels; the wave2d kernels keep theirs);
 - `approx_div`: `-prec-div=false`.  Not bitwise equal to the plain
   versions, so never shipped: it measures what the IEEE divisions of the
-  HM3D kernels cost.
+  HM3D and wave2d kernels cost.
 
 Prints one JSON line per variant (milliseconds per launch, each a list of
 the two runs), then the card's name and power limit.  Needs
@@ -73,7 +74,8 @@ VARIANTS = {
     "vec_8B": (vec_8b, []),
     "approx_div": (lambda name, text: text, ["-prec-div=false"]),
 }
-LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk")
+LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
+        "wave2d_step", "wave2d_chunk")
 
 
 def build(variant):
@@ -130,6 +132,9 @@ def cases(dev):
     from igg_torch.ops import diffusion_trapezoid as dtz
     from igg_torch.ops import hm3d_pallas as hp
     from igg_torch.ops import hm3d_trapezoid as htz
+    from igg_torch.models import wave2d as w2
+    from igg_torch.ops import wave2d_pallas as wp
+    from igg_torch.ops import wave2d_trapezoid as wtz
 
     n, K = 256, 8
     sc = dp.scal(0.04, 0.04, 0.04)
@@ -183,11 +188,38 @@ def cases(dev):
         return lambda: htz.chunk_call(exts, g.nxyz, K=K, modes=modes, grid=g,
                                       kw=kw), K
 
+    def wave2d(blocks, chunk):
+        """The wave2d step or K-step chunk on `blocks` x 1 blocks of
+        4096^2, periodic, random fields."""
+        def setup():
+            if it.grid_is_initialized():
+                it.finalize_global_grid()
+            it.init_global_grid(4096, 4096, 1, quiet=True, device=dev,
+                                dimx=blocks, dimy=1, dimz=1, periodx=1,
+                                periody=1)
+            g = it.get_global_grid()
+            kw = w2.Params().step_kwargs()
+            shapes = wp.field_shapes(g.nxyz[:2])
+            S = [2 * torch.rand(it.stacked_shape(s), device=dev) - 1
+                 for s in shapes]
+            if not chunk:
+                out = [torch.empty_like(A) for A in S]
+                return lambda: wp.launch_step(*S, g.dims[:2], kw, out=out), 1
+            modes = ce.dim_modes(g)[:2]
+            ols = ce.field_ols(g, shapes)
+            exts = ce.extend_fields(S, ols, 2 * K, g, modes)
+            return lambda: wtz.chunk_call(exts, shapes, K=K, modes=modes,
+                                          grid=g, kw=kw, ols=ols), K
+        return setup
+
     return [("diffusion_step_256", diffusion_step),
             ("diffusion_chunk_2x2x2_256_open", diffusion_chunk),
             ("hm3d_step_256_random", hm3d_step("random")),
             ("hm3d_step_256_init_fields", hm3d_step("init_fields")),
-            ("hm3d_chunk_2x2x2_256_periodic", hm3d_chunk)]
+            ("hm3d_chunk_2x2x2_256_periodic", hm3d_chunk),
+            ("wave2d_step_4096", wave2d(1, False)),
+            ("wave2d_step_8x1_4096", wave2d(8, False)),
+            ("wave2d_chunk_8x1_4096_periodic", wave2d(8, True))]
 
 
 def main() -> int:
@@ -197,10 +229,11 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from igg_torch.ops import (diffusion_pallas, diffusion_trapezoid,
-                               hm3d_pallas, hm3d_trapezoid)
+                               hm3d_pallas, hm3d_trapezoid, wave2d_pallas,
+                               wave2d_trapezoid)
 
     wrappers = (diffusion_pallas, diffusion_trapezoid, hm3d_pallas,
-                hm3d_trapezoid)
+                hm3d_trapezoid, wave2d_pallas, wave2d_trapezoid)
     built = {v: build(v) for v in VARIANTS}
     order = list(VARIANTS) + list(VARIANTS)[::-1]
     times = {v: {} for v in VARIANTS}

@@ -66,6 +66,15 @@ ORACLE_CASES = {
     "no_halo_dims": ((6, 6, 6), PERIODIC, (6, 5, 5)),
     "2d_periodic": ((6, 6, 1), dict(periodx=1, periody=1), (6, 6)),
     "2d_open": ((6, 6, 1), {}, (6, 6)),
+    # wave2d's staggered velocities: Vx (x overlap 3), Vy (y overlap 3).
+    "2d_staggered_x_periodic": ((6, 6, 1), dict(periodx=1, periody=1), (7, 6)),
+    "2d_staggered_y_periodic": ((6, 6, 1), dict(periodx=1, periody=1), (6, 7)),
+    "2d_staggered_x_open": ((6, 6, 1), {}, (7, 6)),
+    "2d_staggered_y_open": ((6, 6, 1), {}, (6, 7)),
+    "2d_staggered_x_1block": ((6, 6, 1), dict(SINGLE, periodx=1, periody=1),
+                              (7, 6)),
+    "2d_staggered_y_1block": ((6, 6, 1), dict(SINGLE, periodx=1, periody=1),
+                              (6, 7)),
     "1d_periodic": ((6, 1, 1), dict(periodx=1), (6,)),
     "1d_open": ((6, 1, 1), {}, (6,)),
 }
@@ -110,6 +119,27 @@ def test_two_fields_grouped(kw):
     out = port_update(A, B)
     for o, r in zip(out, ref):
         np.testing.assert_array_equal(o, r)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("kw", [dict(periodx=1, periody=1), {},
+                                dict(SINGLE, periodx=1, periody=1)],
+                         ids=["periodic", "open", "periodic_1block"])
+def test_wave2d_fields_grouped_oracle(kw, dtype):
+    """wave2d's three fields P (6,6), Vx (7,6) and Vy (6,7) in ONE grouped
+    call on a 2-D grid: the coordinate-encoded oracle, bitwise against
+    igg."""
+    init_both((6, 6, 1), kw)
+    lshapes = [(6, 6), (7, 6), (6, 7)]
+    fields = [np.asarray(encoded_field(s, dtype=dtype)) for s in lshapes]
+    zeroed = [zero_halo_blocks(f, s).astype(dtype)
+              for f, s in zip(fields, lshapes)]
+    ref = igg_update(*zeroed)
+    out = port_update(*zeroed)
+    for o, r, f, z, s in zip(out, ref, fields, zeroed, lshapes):
+        np.testing.assert_array_equal(o, r)
+        np.testing.assert_array_equal(
+            o, expected_after_update(f, z, s).astype(dtype))
 
 
 def test_returns_the_updated_tensor_in_place():

@@ -7,9 +7,10 @@ operation is fused and each rounds as in IEEE arithmetic, like the
 `-fmad=false` card build).  The wrappers' `_launch` functions then drive
 those libraries with CPU tensors, and every kernel is held against its
 plain PyTorch version, tolerance 0, in every halo and window mode, f32 and
-f64: the diffusion and HM3D step kernels (the K-step loops launch the
-same kernels) and the diffusion and HM3D chunk kernels.  This checks the
-kernels' indexing, walk and arithmetic, not their CUDA-specific parts
+f64: the diffusion, HM3D and wave2d step kernels (the K-step loops launch
+the same kernels) and the diffusion, HM3D and wave2d chunk kernels.  This
+checks the
+kernels' indexing, walks and arithmetic, not their CUDA-specific parts
 (vector loads, alignment, the launch), which `tests/test_torch_kernels.py`
 checks on a card.  Skips without g++.
 """
@@ -32,6 +33,8 @@ from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import diffusion_trapezoid as dtz
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
+from igg_torch.ops import wave2d_pallas as wp
+from igg_torch.ops import wave2d_trapezoid as wtz
 
 RUNTIME = r"""
 #pragma once
@@ -69,12 +72,13 @@ inline void emu_launch(dim3 g, dim3 b, const std::function<void()>& body) {
 }
 """
 LAUNCH = re.compile(r"([A-Za-z_]+<[^<>]*>)<<<([^>]*), 0, [a-z]+>>>\((.*)\);")
-LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk")
+LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
+        "wave2d_step", "wave2d_chunk")
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """The four libraries, built with g++ from the repo's sources."""
+    """The six libraries, built with g++ from the repo's sources."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernels' sources for the CPU")
@@ -105,7 +109,7 @@ def libs(tmp_path_factory):
 
 @pytest.fixture
 def emulated(libs, monkeypatch):
-    for module in (dp, dtz, hp, htz):
+    for module in (dp, dtz, hp, htz, wp, wtz):
         monkeypatch.setattr(module, "library", libs.__getitem__)
     yield
     if it.grid_is_initialized():
@@ -229,3 +233,70 @@ def test_chunk_kernels_match_plain(emulated, case, dtype, local):
     for a, b in zip(got, htz.window_steps_plain(*exts, K=K, modes=modes,
                                                 grid=g, kw=HM3D_KW)):
         same(a, ce.central_window(b, g.nxyz, K, modes))
+
+
+WAVE_KW = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
+# Layouts of the wave2d checks, as (dims, periods).
+WAVE_GRIDS = {
+    "1x1_periodic": ((1, 1), (1, 1)),
+    "4x2_periodic": ((4, 2), (1, 1)),
+    "8x1_periodic": ((8, 1), (1, 1)),
+    "2x1_periodic": ((2, 1), (1, 1)),
+    "2x2_periodic": ((2, 2), (1, 1)),
+    "1x1_open": ((1, 1), (0, 0)),
+    "4x2_open": ((4, 2), (0, 0)),
+    "8x1_open": ((8, 1), (0, 0)),
+    "2x1_open": ((2, 1), (0, 0)),
+}
+
+
+def _wave_grid(case, local):
+    (dims, per) = WAVE_GRIDS[case]
+    it.init_global_grid(*local, 1, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=1, periodx=per[0], periody=per[1])
+    return it.get_global_grid()
+
+
+def _wave_state(g, dtype, seed):
+    return [_random(it.stacked_shape(s), dtype, -1, 1, seed + f)
+            for f, s in enumerate(wp.field_shapes(g.nxyz[:2]))]
+
+
+@pytest.mark.parametrize("local", [(12, 10), (16, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(c for c in WAVE_GRIDS
+                                        if c != "2x2_periodic"))
+def test_wave2d_step_kernel_matches_plain(emulated, case, dtype, local):
+    g = _wave_grid(case, local)
+    srcs = _wave_state(g, dtype, 11)
+    out = [torch.empty_like(A) for A in srcs]
+    wp._launch(srcs, out, g.dims[:2], g.nxyz[:2], WAVE_KW, 0)
+    for a, b in zip(out, wp.step_plain(*srcs, g.dims[:2], WAVE_KW)):
+        same(a, b)
+
+
+# (16, 13): K = 2 and 4; (24, 21): K = 2, 4 and 8 (odd y extents: Vy rows
+# of 14 and 22 elements).
+@pytest.mark.parametrize("local,Ks", [((16, 13), (2, 4)), ((24, 21), (2, 8))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(c for c in WAVE_GRIDS
+                                        if c.endswith("periodic")))
+def test_wave2d_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
+    g = _wave_grid(case, local)
+    modes = ce.dim_modes(g)[:2]
+    shapes = wp.field_shapes(g.nxyz[:2])
+    ols = ce.field_ols(g, shapes)
+    for K in Ks:
+        assert wtz.wave2d_chunk_refusal(g, g.nxyz[:2], K, K, dtype) is None
+        exts = ce.extend_fields(_wave_state(g, dtype, 21), ols, 2 * K, g,
+                                modes)
+        got = _run_chunk(
+            lambda src, dst, last: wtz._launch(
+                src, dst, wtz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, last),
+                WAVE_KW, 0),
+            exts, [torch.empty(it.stacked_shape(s), dtype=dtype)
+                   for s in shapes], K)
+        want = wtz.window_steps_plain(exts, K=K, modes=modes, grid=g,
+                                      kw=WAVE_KW, ols=ols)
+        for a, b, s in zip(got, want, shapes):
+            same(a, ce.central_window(b, s, 2 * K, modes))

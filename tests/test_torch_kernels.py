@@ -3,8 +3,10 @@ card: the fused diffusion step (wrap/recv/frozen halo modes), as a new
 tensor and, for the K-step loop (wrap/frozen), into a preallocated one, the
 in-place halo writer (wrap/ext sources, 2/4/8-byte elements), the trapezoid
 chunk step (ext/wrap/oext/frozen window modes, f32/f64), the plane packer
-(2/4/8-byte elements), and the HM3D step (as a new pair and, for the
-K-step loop, into a preallocated one) and chunk step in the same modes.
+(2/4/8-byte elements), the HM3D step (as a new pair and, for the
+K-step loop, into a preallocated one) and chunk step in the same modes,
+and the wave2d step (1x1, 4x2, 8x1, 2x1 blocks, periodic and open) and
+chunk step (periodic 1x1, 8x1, 4x2, 2x2 and 2x1 blocks, K = 2, 4, 8).
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -24,6 +26,8 @@ from igg_torch.ops import hm3d_mega as hm
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
 from igg_torch.ops import pack as pk
+from igg_torch.ops import wave2d_pallas as wp
+from igg_torch.ops import wave2d_trapezoid as wtz
 
 pytestmark = pytest.mark.cuda
 
@@ -214,3 +218,67 @@ def test_update_halo_on_card_matches_cpu(card):
     ref = it.update_halo(A.clone(), plain=True)
     assert hw.halo_write.launches == before
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+WAVE_KW = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
+WAVE_GRIDS = {
+    "1x1_periodic": dict(dimx=1, dimy=1, periodx=1, periody=1),
+    "4x2_periodic": dict(dimx=4, dimy=2, periodx=1, periody=1),
+    "8x1_periodic": dict(dimx=8, dimy=1, periodx=1, periody=1),
+    "2x1_periodic": dict(dimx=2, dimy=1, periodx=1, periody=1),
+    "2x2_periodic": dict(dimx=2, dimy=2, periodx=1, periody=1),
+    "1x1_open": dict(dimx=1, dimy=1),
+    "4x2_open": dict(dimx=4, dimy=2),
+    "8x1_open": dict(dimx=8, dimy=1),
+    "2x1_open": dict(dimx=2, dimy=1),
+}
+
+
+def _wave_state(g, dtype, seed, dev):
+    return [_random(it.stacked_shape(s), dtype, -1, 1, seed + f).to(dev)
+            for f, s in enumerate(wp.field_shapes(g.nxyz[:2]))]
+
+
+# (12, 10): even extents; (16, 13): an odd y extent (Vy rows of 14).
+@pytest.mark.parametrize("local", [(12, 10), (16, 13)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(c for c in WAVE_GRIDS
+                                        if c != "2x2_periodic"))
+def test_wave2d_step_kernel_matches_plain(card, case, dtype, local):
+    it.init_global_grid(*local, 1, quiet=True, device=card, dimz=1,
+                        **WAVE_GRIDS[case])
+    g = it.get_global_grid()
+    srcs = _wave_state(g, dtype, 11, card)
+    before = wp.step_kernel.launches
+    out = wp.step_kernel(*srcs, g.dims[:2], WAVE_KW)
+    torch.cuda.synchronize()
+    assert wp.step_kernel.launches == before + 1
+    for a, b in zip(out, wp.step_plain(*srcs, g.dims[:2], WAVE_KW)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("local,Ks", [((16, 13), (2, 4)), ((24, 21), (2, 8))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(c for c in WAVE_GRIDS
+                                        if c.endswith("periodic")))
+def test_wave2d_chunk_kernel_matches_plain(card, case, dtype, local, Ks):
+    it.init_global_grid(*local, 1, quiet=True, device=card, dimz=1,
+                        **WAVE_GRIDS[case])
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)[:2]
+    shapes = wp.field_shapes(g.nxyz[:2])
+    ols = ce.field_ols(g, shapes)
+    for K in Ks:
+        assert wtz.wave2d_chunk_refusal(g, g.nxyz[:2], K, K, dtype) is None
+        exts = ce.extend_fields(_wave_state(g, dtype, 21, card), ols, 2 * K,
+                                g, modes)
+        before = wtz.chunk_call.launches
+        out = wtz.chunk_call(exts, shapes, K=K, modes=modes, grid=g,
+                             kw=WAVE_KW, ols=ols)
+        torch.cuda.synchronize()
+        assert wtz.chunk_call.launches == before + K
+        want = wtz.window_steps_plain(exts, K=K, modes=modes, grid=g,
+                                      kw=WAVE_KW, ols=ols)
+        for a, b, s in zip(out, want, shapes):
+            torch.testing.assert_close(
+                a, ce.central_window(b, s, 2 * K, modes), rtol=0, atol=0)
