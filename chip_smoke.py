@@ -49,13 +49,26 @@ and the script exits non-zero without printing a result:
    equal to the per-step route and to the plain path bitwise; ms/step of
    both routes, each route's device time split by kernel, launches per
    call, peak device memory.
+12. stokes3d (BASELINE config 5), 256^3 f32 fully periodic on one block
+   (overlap 3): 10 iterations on the chunk route (x extended, y and z
+   wrapped in the kernel) equal to the per-iteration route and to the
+   plain path bitwise; `make_iteration(n_inner=100)` through `run()`, and
+   the per-iteration route over the same iterations from the same state;
+   ms/iteration of both routes, each one's launches and device time split
+   by kernel.
+13. stokes3d on 2x2x2 blocks of 256^3, open (509^3), stacked on the card:
+   17 iterations (a warm-up iteration and two K=8 chunks, the velocities
+   re-frozen on the open edges) on the chunk route equal to the
+   per-iteration route and to the plain path bitwise, peak device memory;
+   both routes timed as in phase 12 (`make_iteration(n_inner=17)`).
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step) and the wave2d kernels (the
-staggered leapfrog step, the chunk step) against their plain versions in
-every halo and window mode, f32 and f64, and times them at their main
-paths' shapes.  Launch counters are set to 0 before phase 2 and read
-after phase 11: each kernel must have launched on that main path.  The last lines are the
+staggered leapfrog step, the chunk step) and the Stokes kernels (the fused
+iteration, the chunk step) against their plain versions in every halo and
+window mode, f32 and f64, and times them at their main paths' shapes.
+Launch counters are set to 0 before phase 2 and read after phase 13: each
+of the twelve kernels must have launched on that main path.  The last lines are the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
 JAX and nothing of the `igg` package is imported.
@@ -93,6 +106,14 @@ HM3D_FLOPS = 3 + 3 * 6 + 8 + 6 + 7
 # Vx and one of Vy (a difference, a product, a division, an add each) and
 # P' (two differences, two divisions, an add, a product, a difference).
 WAVE2D_FLOPS = 2 * 4 + 7
+# ... of one cell of the Stokes iteration, each quotient, stress and face
+# counted once: the divergence (three differences, three divisions, two
+# adds), P' (a product, a difference), divV/3 (a division), three normal
+# stresses (a difference, a product each), three shear stresses (two
+# differences, two divisions, an add, a product each), three residuals
+# (four differences, four divisions, three adds each), the buoyancy (two
+# adds, a product) and three velocity updates (a product, an add each).
+STOKES_FLOPS = 8 + 2 + 1 + 3 * 2 + 3 * 6 + 3 * 11 + 3 + 3 * 2
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 SINGLE = dict(dimx=1, dimy=1, dimz=1)
@@ -148,6 +169,13 @@ KERNEL_INFO = {
     "wave2d_chunk_step": dict(
         source="igg_torch/csrc/wave2d_chunk.cu",
         replaces="igg/ops/chunk_engine.py:648"),
+    "stokes_step": dict(
+        source="igg_torch/csrc/stokes_step.cu",
+        replaces="igg/ops/stokes_pallas.py:445"),
+    # The Stokes instance of the resident banded K-step window.
+    "stokes_chunk_step": dict(
+        source="igg_torch/csrc/stokes_chunk.cu",
+        replaces="igg/ops/chunk_engine.py:985"),
 }
 # Layouts of the small wave2d checks, as init_global_grid keywords.
 WAVE_GRIDS = {
@@ -181,6 +209,25 @@ CHUNK_GRIDS = {
 # element path).
 CHUNK_SHAPES = ((16, 16, 16), (16, 12, 13))
 K_CHUNK = 8
+OL3 = dict(overlapx=3, overlapy=3, overlapz=3)
+# Layouts of the small Stokes checks (overlap 3): igg's trapezoid matrix
+# (every window mode: ext, wrap, oext, frozen) and one-block grids.
+STOKES_GRIDS = {
+    "ring_periodic": dict(dimx=8, dimy=1, dimz=1, **PERIODIC),
+    "ring_open": dict(dimx=8, dimy=1, dimz=1),
+    "2x2x2_periodic": dict(dimx=2, dimy=2, dimz=2, **PERIODIC),
+    "2x2x2_open": dict(dimx=2, dimy=2, dimz=2),
+    "2x2x2_periods010": dict(dimx=2, dimy=2, dimz=2, periody=1),
+    "4x2x1_periods101": dict(dimx=4, dimy=2, dimz=1, periodx=1, periodz=1),
+    "1x1x1_periodic": dict(SINGLE, **PERIODIC),
+    "1x1x1_open": SINGLE,
+    "1x1x1_periods101": dict(SINGLE, periodx=1, periodz=1),
+}
+# Local shapes of those checks and the chunk depths each admits: 16-byte P
+# rows (the vector path), odd extents (the element path).
+STOKES_SHAPES = (((16, 16, 16), (2,)), ((15, 14, 17), (2, 3)),
+                 ((24, 24, 24), (2, 4)))
+STOKES_NAMES = ("P", "Vx", "Vy", "Vz")
 
 
 class SmokeFailure(RuntimeError):
@@ -306,7 +353,7 @@ class Smoke:
     def __init__(self, dev, *, n_head=256, n_open=512, recv_local=(64, 64, 128),
                  small=SMALL_SHAPES, n_inner=100, nt=8, halo_calls=200,
                  time_iters=50, n_multi=256, steps_multi=17, nt_multi=32,
-                 n_wave=4096, wave_blocks=8):
+                 n_wave=4096, wave_blocks=8, n_stokes=256):
         import igg_torch as it
         from igg_torch import halo, ops
         from igg_torch.models import diffusion3d as t3
@@ -323,11 +370,17 @@ class Smoke:
         from igg_torch.models import wave2d as w2
         from igg_torch.ops import wave2d_pallas as wp
         from igg_torch.ops import wave2d_trapezoid as wtz
+        from igg_torch.models import stokes3d as st3
+        from igg_torch.ops import stokes_pallas as sp
+        from igg_torch.ops import stokes_trapezoid as stz
 
         self.it, self.halo, self.ops, self.t3 = it, halo, ops, t3
         self.w2, self.wp, self.wtz = w2, wp, wtz
         # wave2d: n_wave^2 blocks, one and wave_blocks x 1 of them.
         self.n_wave, self.wave_blocks = n_wave, wave_blocks
+        # stokes3d: n_stokes^3 blocks, one and 2x2x2 of them.
+        self.st3, self.sp, self.stz = st3, sp, stz
+        self.n_stokes = n_stokes
         self.dm, self.dp, self.hw = dm, dp, hw
         self.ce, self.dtz, self.pk = ce, dtz, pk
         self.h3, self.hp, self.hm, self.htz = h3, hp, hm, htz
@@ -411,6 +464,8 @@ class Smoke:
         self.hm3d_kernel_checks_multiblock()
         self.wave2d_kernel_checks()
         self.wave2d_kernel_checks_full()
+        self.stokes_kernel_checks()
+        self.stokes_kernel_checks_full()
 
     def hm3d_input(self, shape, dtype, seed):
         """Random Pe and phi in the ranges of the HM3D initial state."""
@@ -1330,6 +1385,290 @@ class Smoke:
             per_step_route_launches_per_step=n_ps,
             peak_gb=peak_gb, held_gb=held_gb)
 
+    # -- stokes3d ----------------------------------------------------------
+    def stokes_state(self, g, dtype, seed):
+        """Random (P, Vx, Vy, Vz, Rho) on the grid `g`."""
+        return [uniform(self.it.stacked_shape(s), -1, 1, dtype, self.dev,
+                        seed + f)
+                for f, s in enumerate(self.sp.field_shapes(g.nxyz))]
+
+    def stokes_chunk(self, g, state, Rho, K, kw):
+        """The extended buffers of a depth-K chunk of the Stokes fields
+        `state` (and `Rho`), the kernel's result and the plain version's."""
+        ce, sp, stz = self.ce, self.sp, self.stz
+        modes = ce.dim_modes(g)
+        shapes = sp.field_shapes(g.nxyz)
+        ols = ce.field_ols(g, shapes)
+        exts = ce.extend_fields(list(state), ols[:4], 2 * K, g, modes)
+        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        out = stz.chunk_call(exts, Rho_ext, shapes, K=K, modes=modes, grid=g,
+                             kw=kw, ols=ols)
+        ref = [ce.central_window(U, s, 2 * K, modes) for U, s in zip(
+            stz.window_iters_plain(exts, Rho_ext, K=K, modes=modes, grid=g,
+                                   kw=kw, ols=ols), shapes)]
+        return exts, Rho_ext, modes, shapes, ols, out, ref
+
+    def stokes_kernel_checks(self):
+        """The Stokes iteration on every layout and its chunk step at every
+        admitted depth, f32 and f64, against their plain versions at small
+        shapes."""
+        sp, stz = self.sp, self.stz
+        kw = dict(dx=0.31, dy=0.27, dz=0.43, mu=1.3, dtP=0.07, dtV=0.011)
+        for case, gkw in STOKES_GRIDS.items():
+            for local, Ks in STOKES_SHAPES:
+                g = self.grid(local, **OL3, **gkw)
+                for dtype in (torch.float32, torch.float64):
+                    *S, Rho = self.stokes_state(g, dtype, 51)
+                    tag = f"{case} {local} {dtype}"
+                    out = sp.step_kernel(*S, Rho, g.dims, kw)
+                    ref = sp.step_plain(*S, Rho, g.dims, kw)
+                    for name, a, b in zip(STOKES_NAMES, out, ref):
+                        self.note("stokes_step", check(
+                            f"stokes_step {name} {tag}", a, b, 0.0))
+                    for K in Ks:
+                        why = stz.stokes_chunk_refusal(g, local, K, K, dtype)
+                        if why is not None:
+                            raise SmokeFailure(f"Stokes chunk {tag} K={K}: "
+                                               f"refused: {why}")
+                        *_, out, ref = self.stokes_chunk(g, S, Rho, K, kw)
+                        for name, a, b in zip(STOKES_NAMES, out, ref):
+                            self.note("stokes_chunk_step", check(
+                                f"stokes_chunk_step {name} {tag} K={K}", a,
+                                b, 0.0))
+        log(f"[phase 1] Stokes small-shape kernel checks passed: max abs err "
+            f"step {self.err['stokes_step']:.1e}, chunk "
+            f"{self.err['stokes_chunk_step']:.1e} (tolerance 0)")
+
+    def stokes_kernel_checks_full(self):
+        """Both Stokes kernels at full width, f32: one iteration on one
+        n_stokes^3 block, periodic, and one K=8 chunk on 2x2x2 of them,
+        open (the main path's shapes), checked, then timed beside their
+        plain versions and bounds."""
+        ce, sp, stz = self.ce, self.sp, self.stz
+        n, k, K = self.n_stokes, self.time_iters, K_CHUNK
+        g = self.grid((n, n, n), **SINGLE, **PERIODIC, **OL3)
+        kw = self.st3._pseudo_steps(self.st3.Params())
+        *S, Rho = self.stokes_state(g, torch.float32, 53)
+        out = sp.step_kernel(*S, Rho, g.dims, kw)
+        for name, a, b in zip(STOKES_NAMES, out,
+                              sp.step_plain(*S, Rho, g.dims, kw)):
+            self.note("stokes_step", check(f"stokes_step {name} {n}^3", a, b,
+                                           0.0))
+        del out
+        cells = float(n) ** 3
+        rd = float(sum(A.numel() for A in S + [Rho]))
+        wr = float(sum(A.numel() for A in S))
+        self.perf["stokes_step"] = dict(
+            kernel_time(lambda: sp.step_kernel(*S, Rho, g.dims, kw), k,
+                        "Stokes"),
+            plain_ms=event_ms(lambda: sp.step_plain(*S, Rho, g.dims, kw), 3),
+            # Read P, Vx, Vy, Vz and Rho once, write the four once.
+            bound=bound_ms(4 * (rd + wr), STOKES_FLOPS * cells, F32_FLOPS))
+        del S, Rho
+        m = self.n_multi
+        g = self.grid((m, m, m), dimx=2, dimy=2, dimz=2, **OL3)
+        kw = self.st3._pseudo_steps(self.st3.Params())
+        *S, Rho = self.stokes_state(g, torch.float32, 55)
+        exts, Rho_ext, modes, shapes, ols, out, ref = self.stokes_chunk(
+            g, S, Rho, K, kw)
+        for name, a, b in zip(STOKES_NAMES, out, ref):
+            self.note("stokes_chunk_step", check(
+                f"stokes_chunk_step {name} 2x2x2 x {m}^3 open K={K}", a, b,
+                0.0))
+        del out, ref, S, Rho
+        self.perf["stokes_chunk_step"] = dict(
+            kernel_time(lambda: stz.chunk_call(
+                exts, Rho_ext, shapes, K=K, modes=modes, grid=g, kw=kw,
+                ols=ols), max(k // 10, 2), "Stokes"),
+            plain_ms=event_ms(lambda: ce.window_step_plain(
+                exts, exts, E=2 * K, modes=modes, grid=g,
+                core=stz.window_core(g, Rho_ext, kw),
+                flags=ce.edge_flags(modes, g),
+                freeze_fields=stz.FREEZE_FIELDS, ols=ols), 2),
+            bound=self.stokes_chunk_bound(g, exts, Rho_ext, shapes, K, modes))
+        self.perf["stokes_chunk_step"]["events_ms"] /= K
+        # The step kernel on the same extended buffers (every extended block
+        # a block): what the chunk's freezes and window cost beyond it.
+        outs = [torch.empty_like(X) for X in exts]
+        self.perf["stokes_step_on_chunk_buffer_ms"] = event_ms(
+            lambda: sp.launch_step(*exts, Rho_ext, g.dims, kw, out=outs), 3)
+        del exts, Rho_ext, outs
+        for name, p, tag in (
+                ("stokes_step", self.perf["stokes_step"],
+                 f"{n}^3 f32 periodic"),
+                ("stokes_chunk_step K=8", self.perf["stokes_chunk_step"],
+                 f"2x2x2 x {m}^3 f32 open")):
+            log(f"[phase 1] {name} at {tag}: {p['ms']:.4f} ms device per "
+                f"launch ({p['ms_from']}), {p['events_ms']:.4f} ms per launch "
+                f"back to back (events), plain {p['plain_ms']:.4f} ms"
+                f"{' (one window step)' if 'chunk' in name else ''}, bound "
+                f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
+        log(f"[phase 1] stokes_step on the chunk's extended buffers (events): "
+            f"{self.perf['stokes_step_on_chunk_buffer_ms']:.4f} ms")
+
+    @staticmethod
+    def stokes_chunk_bound(g, exts, Rho_ext, shapes, K, modes):
+        """Least time per launch of one Stokes chunk (K launches), from the
+        real tensor sizes: each launch reads the five extended fields, all
+        but the last write the four extended ones, the last the central
+        windows; every launch reads the chunk-entry values of the three
+        velocities' frozen cells."""
+        E = 2 * K
+        rd = float(sum(X.numel() for X in exts) + Rho_ext.numel())
+        wr_ext = float(sum(X.numel() for X in exts))
+        wr_out = float(sum(np.prod([g.dims[d] * s[d] for d in range(3)])
+                           for s in shapes[:4]))
+        frozen = 0.0
+        for X in exts[1:]:
+            kept = 1.0
+            for d in range(3):   # rows along d outside every freeze
+                rows = {"oext": 2 * (E + 1), "frozen": 2}.get(modes[d], 0)
+                kept *= X.shape[d] - rows
+            frozen += X.numel() - kept
+        nbytes = 4 * (K * rd + (K - 1) * wr_ext + wr_out + K * frozen)
+        out_cells = float(np.prod([g.dims[d] * shapes[0][d]
+                                   for d in range(3)]))
+        ops = STOKES_FLOPS * ((K - 1) * exts[0].numel() + out_cells)
+        return bound_ms(nbytes / K, ops / K, F32_FLOPS)
+
+    def stokes_routes(self, tag, S, steps, p):
+        """`steps` iterations of the Stokes state `S = (P, Vx, Vy, Vz, Rho)`
+        on the dispatch (the chunk route), on the per-iteration route and on
+        the plain path, held equal bitwise; returns the chunk route's state,
+        both errors, and its peak device memory beyond what was held
+        before."""
+        st3, sp = self.st3, self.sp
+        kw = st3._pseudo_steps(p)
+        *V, Rho = S
+        before = self.ops.launch_counts()["stokes_chunk_step"]
+        sync(self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        Sc = st3.make_iteration(p, n_inner=steps)(*V, Rho)
+        sync(self.dev)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = self.ops.launch_counts()["stokes_chunk_step"] - before
+        if launched != (steps - 1) // K_CHUNK * K_CHUNK:
+            raise SmokeFailure(f"{tag}: {launched} chunk launches in {steps} "
+                               f"iterations")
+        Sp = tuple(V)
+        for _ in range(steps):
+            Sp = sp.fused_stokes_iteration(*Sp, Rho, **kw)
+        err_route = max(check(f"{tag}: chunk route vs per-iteration route, "
+                              f"{name}", a, b, 0.0)
+                        for name, a, b in zip(STOKES_NAMES, Sc, Sp))
+        del Sp
+        plain = st3.make_iteration(p, n_inner=steps, use_kernels=False)(
+            *V, Rho)
+        err_plain = max(check(f"{tag}: chunk route vs plain path, {name}",
+                              a, b, 0.0)
+                        for name, a, b in zip(STOKES_NAMES, Sc, plain))
+        del plain
+        self.stokes_state_check(tag, Sc)
+        return Sc, err_route, err_plain, peak_gb, held_gb
+
+    def stokes_state_check(self, tag, S):
+        """Finite fields, and buoyancy that has set the fluid moving."""
+        if not all(bool(torch.isfinite(A).all()) for A in S):
+            raise SmokeFailure(f"{tag}: non-finite fields")
+        if not float(S[3].abs().max()) > 0:
+            raise SmokeFailure(f"{tag}: Vz did not move")
+
+    def stokes_timed(self, phase, tag, p, n_inner, nt):
+        """Both Stokes routes slope-timed over the same trajectory: the
+        chunk route through `run()` (`make_iteration(n_inner)`, `nt` timed
+        calls from `init_fields`), the per-iteration route through the same
+        calls and counts of `n_inner` fused iterations from the same state
+        (the IEEE divisions' cost depends on the data: a zero dividend takes
+        their slow path); then each route's device time split by kernel on
+        the state `run()` reached."""
+        it, st3, sp = self.it, self.st3, self.sp
+        kw = st3._pseudo_steps(p)
+        S1, sec = st3.run(nt, p, dtype=torch.float32, n_inner=n_inner)
+        self.stokes_state_check(f"{tag} run()", S1[:4])
+
+        def per_iteration(P, Vx, Vy, Vz, Rho):
+            S = (P, Vx, Vy, Vz)
+            for _ in range(n_inner):
+                S = sp.fused_stokes_iteration(*S, Rho, **kw)
+            return S + (Rho,)
+
+        n1 = max(1, nt // 4)     # the calls run() makes (warm-up 3)
+        S2, sec_ps = it.time_steps(per_iteration, st3.init_fields(p), n1=n1,
+                                   n2=max(nt - n1, n1 + 1))
+        self.stokes_state_check(f"{tag} per-iteration route", S2[:4])
+        del S2
+        chunked = st3.make_iteration(p, n_inner=n_inner)
+        split_chunk, n_chunk = device_ms_by_kernel(lambda: chunked(*S1), 2)
+        split_ps, n_ps = device_ms_by_kernel(
+            lambda: sp.fused_stokes_iteration(*S1, **kw), 10)
+        iters = (3 + n1 + max(nt - n1, n1 + 1)) * n_inner
+        vz = float(S1[3].abs().max())
+        log(f"[phase {phase}] {tag}: chunk route make_iteration(n_inner="
+            f"{n_inner}) through "
+            f"run(): {sec * 1e3:.4f} ms/iteration; per-iteration route over "
+            f"the same {iters} iterations {sec_ps / n_inner * 1e3:.4f} "
+            f"ms/iteration; max |Vz| {vz:.4e}")
+        log(f"[phase {phase}] {tag}: chunk route, one call of {n_inner} "
+            f"iterations: "
+            f"{n_chunk:.0f} launches, device {sum(split_chunk.values()):.4f} "
+            f"ms {json.dumps(split_chunk)}")
+        log(f"[phase {phase}] {tag}: per-iteration route, one iteration: "
+            f"{n_ps:.0f} "
+            f"launches, device {sum(split_ps.values()):.4f} ms "
+            f"{json.dumps(split_ps)}")
+        return dict(
+            chunk_route_ms_per_iteration=sec * 1e3,
+            per_iteration_route_ms_per_iteration=sec_ps / n_inner * 1e3,
+            iterations_timed=iters,
+            chunk_route_device_ms_per_call=split_chunk,
+            chunk_route_launches_per_call=n_chunk,
+            per_iteration_route_device_ms_per_iteration=split_ps,
+            per_iteration_route_launches_per_iteration=n_ps)
+
+    def stokes_one_block(self):
+        """stokes3d at n_stokes^3 f32, fully periodic, one block: the routes
+        against each other over 10 iterations, then both routes timed
+        (:meth:`stokes_timed`, the chunk route through `run()`)."""
+        st3 = self.st3
+        n = self.n_stokes
+        tag = f"Stokes {n}^3 periodic"
+        self.grid((n, n, n), **SINGLE, **PERIODIC, **OL3)
+        p = st3.Params()
+        S = self.it.update_halo(*st3.init_fields(p))
+        _, err_route, err_plain, _, _ = self.stokes_routes(tag, S, 10, p)
+        del S
+        log(f"[phase 12] {tag}: 10 iterations, chunk route vs per-iteration "
+            f"route {err_route:.3e}, vs plain path {err_plain:.3e} "
+            f"(tolerance 0)")
+        self.perf[f"stokes_{n}^3_periodic"] = self.stokes_timed(
+            12, tag, p, self.n_inner, self.nt)
+
+    def stokes_509(self):
+        """stokes3d on 2x2x2 blocks of n_multi^3, open, on one card: the
+        chunk route against the per-iteration route and the plain path over
+        17 iterations, then both routes timed (:meth:`stokes_timed`)."""
+        it, st3 = self.it, self.st3
+        n, steps = self.n_multi, self.steps_multi
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **OL3)
+        size = (it.nx_g(), it.ny_g(), it.nz_g())
+        if size != (2 * (n - 3) + 3,) * 3:
+            raise SmokeFailure(f"Stokes global size {size}")
+        tag = f"Stokes {size[0]}^3 open (2x2x2 x {n}^3)"
+        p = st3.Params()
+        S = it.update_halo(*st3.init_fields(p))
+        Sc, err_route, err_plain, peak_gb, held_gb = self.stokes_routes(
+            tag, S, steps, p)
+        del Sc, S
+        log(f"[phase 13] {tag}: {steps} iterations, chunk route vs "
+            f"per-iteration route {err_route:.3e}, vs plain path "
+            f"{err_plain:.3e} (tolerance 0); peak device memory of the chunk "
+            f"route {peak_gb:.3f} GB, of which {held_gb:.3f} GB held before "
+            f"the call (P, Vx, Vy, Vz, Rho)")
+        perf = self.stokes_timed(13, tag, p, steps, self.nt_multi)
+        self.perf[f"stokes_{size[0]}^3_open_2x2x2"] = dict(
+            perf, peak_gb=peak_gb, held_gb=held_gb)
+
     def main_path(self):
         self.ops.reset_launch_counts()
         self.headline(self.n_head, periodic=True)
@@ -1344,6 +1683,8 @@ class Smoke:
         self.hm3d_508()
         self.wave2d_one_block()
         self.wave2d_multiblock()
+        self.stokes_one_block()
+        self.stokes_509()
         self.launches = self.ops.launch_counts()
         log(f"[main path] launches {json.dumps(self.launches)}")
         missing = [k for k, v in self.launches.items() if v <= 0]
@@ -1364,7 +1705,7 @@ class Smoke:
                 # Only the packer's function is one PyTorch call (an
                 # index_select per plane); none computes the others (no
                 # PyTorch call computes a diffusion, an HM3D or a leapfrog
-                # step).
+                # step, or a Stokes iteration).
                 library_ms=p.get("library_ms")))
         return {"kernels": out}
 

@@ -3,11 +3,12 @@
 The PyTorch/CUDA port of `igg`: the same five-verb API
 (`init_global_grid`, `update_halo`, `gather`, `select_device`,
 `finalize_global_grid`), the 3-D diffusion solver, the HM3D porous-flow
-solver and the 2-D staggered acoustic wave (`igg_torch.models`), with
-hand-written CUDA kernels for the fused diffusion, HM3D and wave2d steps
-(the first two also the K-step loop of a one-block grid), the in-place
-halo writer, the y/z plane packer and the diffusion, HM3D and wave2d steps
-of a K-step chunk.  Grid arrays are
+solver, the 2-D staggered acoustic wave and the 3-D staggered Stokes
+solver (`igg_torch.models`), with hand-written CUDA kernels for the fused
+diffusion, HM3D and wave2d steps and Stokes iteration (the first two also
+the K-step loop of a one-block grid), the in-place halo writer, the y/z
+plane packer and the diffusion, HM3D, wave2d and Stokes steps of a K-step
+chunk.  Grid arrays are
 block-stacked tensors on one device; entry points use the card unless the
 caller passes `device="cpu"`.  Imports neither JAX nor `igg`.
 """

@@ -1,3 +1,4 @@
 """Models of the port: `diffusion3d` (3-D heat diffusion, the reference's
-headline), `hm3d` (hydro-mechanical porous flow, BASELINE config 4) and
-`wave2d` (the 2-D staggered acoustic wave, BASELINE config 3)."""
+headline), `hm3d` (hydro-mechanical porous flow, BASELINE config 4),
+`wave2d` (the 2-D staggered acoustic wave, BASELINE config 3) and
+`stokes3d` (the 3-D staggered Stokes solver, BASELINE config 5)."""

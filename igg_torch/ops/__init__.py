@@ -8,7 +8,8 @@ its launches in `<wrapper>.launches`.
 
 from . import (chunk_engine, diffusion_mega, diffusion_pallas,
                diffusion_trapezoid, halo_write, hm3d_mega, hm3d_pallas,
-               hm3d_trapezoid, pack, wave2d_pallas, wave2d_trapezoid)
+               hm3d_trapezoid, pack, stokes_pallas, stokes_trapezoid,
+               wave2d_pallas, wave2d_trapezoid)
 from .diffusion_mega import fused_diffusion_megasteps
 from .diffusion_pallas import (diffusion_compute, fused_diffusion_step,
                                fused_diffusion_steps)
@@ -18,6 +19,8 @@ from .hm3d_pallas import fused_hm3d_step, fused_hm3d_steps
 from .hm3d_trapezoid import fused_hm3d_trapezoid_steps
 from .pack import pack_planes
 from .stencil import interior_add
+from .stokes_pallas import fused_stokes_iteration, fused_stokes_iterations
+from .stokes_trapezoid import fused_stokes_trapezoid_iters
 from .wave2d_pallas import fused_wave2d_step, fused_wave2d_steps
 from .wave2d_trapezoid import fused_wave2d_chunk_steps
 
@@ -33,6 +36,8 @@ KERNELS = {
     "hm3d_chunk_step": hm3d_trapezoid.chunk_call,
     "wave2d_step": wave2d_pallas.step_kernel,
     "wave2d_chunk_step": wave2d_trapezoid.chunk_call,
+    "stokes_step": stokes_pallas.step_kernel,
+    "stokes_chunk_step": stokes_trapezoid.chunk_call,
 }
 
 

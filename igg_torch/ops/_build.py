@@ -56,6 +56,13 @@ SIGNATURES: Dict[str, tuple] = {
     "wave2d_chunk": ("igg_wave2d_chunk_step",
                      [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
                       ctypes.POINTER(_I), ctypes.POINTER(_D), _P]),
+    "stokes_step": ("igg_stokes_step",
+                    [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), _I,
+                     ctypes.POINTER(_I), ctypes.POINTER(_D), _P]),
+    "stokes_chunk": ("igg_stokes_chunk_step",
+                     [ctypes.POINTER(_P), ctypes.POINTER(_P), _P,
+                      ctypes.POINTER(_P), _I, ctypes.POINTER(_I),
+                      ctypes.POINTER(_D), _P]),
 }
 
 _lock = threading.Lock()

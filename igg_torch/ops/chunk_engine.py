@@ -1,16 +1,19 @@
 """The host pieces of the K-step chunk engine (`igg/ops/chunk_engine.py`),
-on block-stacked tensors, shared by the diffusion, HM3D and wave2d chunk
-routes.
+on block-stacked tensors, shared by the diffusion, HM3D, wave2d and Stokes
+chunk routes.
 
 A K-step chunk advances every block by K steps at once: each block is first
 extended by E rows beyond both ends of every extended dimension, with the
 neighbours' rows (:func:`extend_fields`); K steps then run on the extended
 blocks, each losing E/K rows of validity per extended end and step (one for
-diffusion and HM3D, E = K; two for wave2d's coupled leapfrog, E = 2K), so
-that after K steps exactly the block itself holds the values the per-step
-path would produce; the central window is cut out (:func:`central_window`).
+diffusion and HM3D, E = K; two for wave2d's coupled leapfrog and the
+Stokes Gauss-Seidel chain, E = 2K), so that after K steps exactly the
+block itself holds the values the per-step path would produce; the
+central window is cut out (:func:`central_window`).
 Fields may be staggered (their own block shapes and overlaps) and of rank 2
-or 3.
+or 3; a family may re-freeze only some of them (Stokes: the velocities),
+and a field that never changes (Stokes' `Rho`) is extended once and read
+by the family's core.
 
 Per-dimension window modes (:func:`dim_modes`): ``"ext"`` (periodic,
 extended), ``"wrap"`` (periodic, one block, y/z self-wrap in place),
@@ -21,7 +24,8 @@ step), ``"frozen"`` (open, one block: both boundary planes re-frozen).
 The plain window realization (:func:`window_chunk_plain`, igg's
 `window_chunk_xla`) is the plain version of every family's chunk kernel
 (`csrc/chunk_walk.cuh` for diffusion and HM3D, `csrc/stagger_walk.cuh` for
-wave2d); :func:`chunk_cfg` gives the 3-D walk's kernels the layout.
+wave2d, `csrc/stagger_walk3.cuh` for Stokes); :func:`chunk_cfg` gives the
+3-D walk's kernels the layout.
 
 The one function that moves data between blocks is :func:`exchange_slabs`
 (as :func:`igg_torch.halo.exchange_planes` is for the halo engine): here
@@ -31,9 +35,9 @@ block axis, and a `torch.distributed` backend replaces it.
 Left out, because they exist only for the TPU: transposed z slabs, the
 sublane-tile and banded-geometry gates and the VMEM budget.  The TPU's
 resident kernel has its counterpart in the chunk kernels of
-`csrc/chunk_walk.cuh` (diffusion and HM3D), and the whole-window kernel its
-wave2d instance in `csrc/wave2d_chunk.cu`; the streaming kernel is later
-work.
+`csrc/chunk_walk.cuh` (diffusion and HM3D) and `csrc/stokes_chunk.cu`, the
+whole-window kernel its wave2d instance in `csrc/wave2d_chunk.cu`; the
+streaming kernel is later work.
 """
 
 from __future__ import annotations

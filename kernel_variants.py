@@ -16,7 +16,18 @@ variants are the design choices the sources record:
   walk's kernels; the wave2d kernels keep theirs);
 - `approx_div`: `-prec-div=false`.  Not bitwise equal to the plain
   versions, so never shipped: it measures what the IEEE divisions of the
-  HM3D and wave2d kernels cost.
+  HM3D, wave2d and Stokes kernels cost;
+- `stokes_vec_16B`: the 3-D staggered walk's kernel (the Stokes kernels)
+  with runs of 16 bytes per thread (4 cells in f32) instead of 8, the
+  first design;
+- `stokes_bounds_3`: the Stokes kernels bounded to 85 registers a thread
+  (`__launch_bounds__(256, 3)`), so three thread blocks fit on an SM;
+- `stokes_zero_quot`: the Stokes divisions skipped where the dividend is
+  zero (`0 / d` is that zero for a positive d, bitwise), which the IEEE
+  division's checks otherwise send down its slow path;
+- `stokes_x_fastest`: the Stokes kernels' thread blocks ordered x row
+  first (gridDim.x over the x rows, gridDim.z over the z tiles), so the
+  blocks in flight together share their neighbour rows along x.
 
 Prints one JSON line per variant (milliseconds per launch, each a list of
 the two runs), then the card's name and power limit.  Needs
@@ -68,14 +79,57 @@ def vec_8b(name, text):
                         "constexpr int VEC = 8 / sizeof(typename P::T);")
 
 
+BOUNDS = "__launch_bounds__(256)\n"
+VEC8 = "P, 8 / sizeof(typename P::T)>"
+QUOT = "{ return x / d; }"
+
+
+def stokes_edit(*edits):
+    """Edits `(file, old, new)` of the Stokes kernels' sources
+    (stagger_walk3.cuh, stokes.cuh)."""
+    def edit(name, text):
+        for f, old, new in edits:
+            if name != f:
+                continue
+            if text.count(old) != 1:
+                raise RuntimeError(f"{f} no longer has {old!r}")
+            text = text.replace(old, new)
+        return text
+    return edit
+
+
+def walk(old, new):
+    return ("stagger_walk3.cuh", old, new)
+
+
 VARIANTS = {
     "as_built": (lambda name, text: text, []),
     "ldg_loads": (ldg_loads, []),
     "vec_8B": (vec_8b, []),
     "approx_div": (lambda name, text: text, ["-prec-div=false"]),
+    "stokes_vec_16B": (stokes_edit(
+        walk(VEC8, "P, 16 / sizeof(typename P::T)>")), []),
+    "stokes_bounds_3": (stokes_edit(
+        walk(BOUNDS, "__launch_bounds__(256, 3)\n")), []),
+    "stokes_zero_quot": (stokes_edit(
+        ("stokes.cuh", QUOT, "{ return x == T(0) ? x : x / d; }")), []),
+    "stokes_x_fastest": (stokes_edit(
+        walk("{(int)blockIdx.z / h0, (int)blockIdx.y / ty,\n"
+             "                    (int)blockIdx.x / tz}",
+             "{(int)blockIdx.x / h0, (int)blockIdx.y / ty,\n"
+             "                    (int)blockIdx.z / tz}"),
+        walk("const int i = blockIdx.z - b[0] * h0;",
+             "const int i = blockIdx.x - b[0] * h0;"),
+        walk("const int k0 = (blockIdx.x - b[2] * tz)",
+             "const int k0 = (blockIdx.z - b[2] * tz)"),
+        walk("if (gx > 0x7fffffffLL || gy > 65535 || gz > 65535)",
+             "if (gz > 0x7fffffffLL || gy > 65535 || gx > 65535)"),
+        walk("const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);",
+             "const dim3 grid((unsigned)gz, (unsigned)gy, (unsigned)gx);")),
+        []),
 }
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
-        "wave2d_step", "wave2d_chunk")
+        "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk")
 
 
 def build(variant):
@@ -135,6 +189,9 @@ def cases(dev):
     from igg_torch.models import wave2d as w2
     from igg_torch.ops import wave2d_pallas as wp
     from igg_torch.ops import wave2d_trapezoid as wtz
+    from igg_torch.models import stokes3d as st3
+    from igg_torch.ops import stokes_pallas as sp
+    from igg_torch.ops import stokes_trapezoid as stz
 
     n, K = 256, 8
     sc = dp.scal(0.04, 0.04, 0.04)
@@ -212,6 +269,39 @@ def cases(dev):
                                           grid=g, kw=kw, ols=ols), K
         return setup
 
+    def stokes(chunk, state="random", blocks=1, nx=n):
+        """The Stokes iteration, or a K-step chunk, on `blocks`^3 blocks of
+        nx x 256 x 256 (open on several blocks, periodic on one); random
+        fields or `init_fields` (at rest: zero pressure and velocities)."""
+        def setup():
+            ol3 = dict(overlapx=3, overlapy=3, overlapz=3)
+            if it.grid_is_initialized():
+                it.finalize_global_grid()
+            layout = (dict(dimx=2, dimy=2, dimz=2) if blocks == 2
+                      else one_block)
+            it.init_global_grid(nx, n, n, quiet=True, device=dev, **layout,
+                                **ol3)
+            g = it.get_global_grid()
+            kw = st3._pseudo_steps(st3.Params())
+            shapes = sp.field_shapes(g.nxyz)
+            if state == "random":
+                *S, Rho = [2 * torch.rand(it.stacked_shape(s), device=dev) - 1
+                           for s in shapes]
+            else:
+                *S, Rho = st3.init_fields(st3.Params())
+            if not chunk:
+                out = [torch.empty_like(A) for A in S]
+                return lambda: sp.launch_step(*S, Rho, g.dims, kw,
+                                              out=out), 1
+            modes = ce.dim_modes(g)
+            ols = ce.field_ols(g, shapes)
+            exts = ce.extend_fields(S, ols[:4], 2 * K, g, modes)
+            Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+            return lambda: stz.chunk_call(exts, Rho_ext, shapes, K=K,
+                                          modes=modes, grid=g, kw=kw,
+                                          ols=ols), K
+        return setup
+
     return [("diffusion_step_256", diffusion_step),
             ("diffusion_chunk_2x2x2_256_open", diffusion_chunk),
             ("hm3d_step_256_random", hm3d_step("random")),
@@ -219,7 +309,13 @@ def cases(dev):
             ("hm3d_chunk_2x2x2_256_periodic", hm3d_chunk),
             ("wave2d_step_4096", wave2d(1, False)),
             ("wave2d_step_8x1_4096", wave2d(8, False)),
-            ("wave2d_chunk_8x1_4096_periodic", wave2d(8, True))]
+            ("wave2d_chunk_8x1_4096_periodic", wave2d(8, True)),
+            ("stokes_step_256_periodic", stokes(False)),
+            ("stokes_step_256_periodic_init_fields",
+             stokes(False, "init_fields")),
+            ("stokes_step_288x256x256_periodic", stokes(False, nx=288)),
+            ("stokes_chunk_256_periodic", stokes(True)),
+            ("stokes_chunk_2x2x2_256_open", stokes(True, blocks=2))]
 
 
 def main() -> int:
@@ -229,11 +325,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from igg_torch.ops import (diffusion_pallas, diffusion_trapezoid,
-                               hm3d_pallas, hm3d_trapezoid, wave2d_pallas,
+                               hm3d_pallas, hm3d_trapezoid, stokes_pallas,
+                               stokes_trapezoid, wave2d_pallas,
                                wave2d_trapezoid)
 
     wrappers = (diffusion_pallas, diffusion_trapezoid, hm3d_pallas,
-                hm3d_trapezoid, wave2d_pallas, wave2d_trapezoid)
+                hm3d_trapezoid, wave2d_pallas, wave2d_trapezoid,
+                stokes_pallas, stokes_trapezoid)
     built = {v: build(v) for v in VARIANTS}
     order = list(VARIANTS) + list(VARIANTS)[::-1]
     times = {v: {} for v in VARIANTS}

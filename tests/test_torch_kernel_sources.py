@@ -7,8 +7,9 @@ operation is fused and each rounds as in IEEE arithmetic, like the
 `-fmad=false` card build).  The wrappers' `_launch` functions then drive
 those libraries with CPU tensors, and every kernel is held against its
 plain PyTorch version, tolerance 0, in every halo and window mode, f32 and
-f64: the diffusion, HM3D and wave2d step kernels (the K-step loops launch
-the same kernels) and the diffusion, HM3D and wave2d chunk kernels.  This
+f64: the diffusion, HM3D and wave2d step kernels and the Stokes iteration
+(the K-step loops launch the same kernels) and the diffusion, HM3D, wave2d
+and Stokes chunk kernels.  This
 checks the
 kernels' indexing, walks and arithmetic, not their CUDA-specific parts
 (vector loads, alignment, the launch), which `tests/test_torch_kernels.py`
@@ -33,6 +34,8 @@ from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import diffusion_trapezoid as dtz
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
+from igg_torch.ops import stokes_pallas as sp
+from igg_torch.ops import stokes_trapezoid as stz
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.ops import wave2d_trapezoid as wtz
 
@@ -73,12 +76,12 @@ inline void emu_launch(dim3 g, dim3 b, const std::function<void()>& body) {
 """
 LAUNCH = re.compile(r"([A-Za-z_]+<[^<>]*>)<<<([^>]*), 0, [a-z]+>>>\((.*)\);")
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
-        "wave2d_step", "wave2d_chunk")
+        "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk")
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
-    """The six libraries, built with g++ from the repo's sources."""
+    """The eight libraries, built with g++ from the repo's sources."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to compile the kernels' sources for the CPU")
@@ -109,7 +112,7 @@ def libs(tmp_path_factory):
 
 @pytest.fixture
 def emulated(libs, monkeypatch):
-    for module in (dp, dtz, hp, htz, wp, wtz):
+    for module in (dp, dtz, hp, htz, wp, wtz, sp, stz):
         monkeypatch.setattr(module, "library", libs.__getitem__)
     yield
     if it.grid_is_initialized():
@@ -298,5 +301,80 @@ def test_wave2d_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
                    for s in shapes], K)
         want = wtz.window_steps_plain(exts, K=K, modes=modes, grid=g,
                                       kw=WAVE_KW, ols=ols)
+        for a, b, s in zip(got, want, shapes):
+            same(a, ce.central_window(b, s, 2 * K, modes))
+
+
+STOKES_KW = dict(dx=0.31, dy=0.27, dz=0.43, mu=1.3, dtP=0.07, dtV=0.011)
+# Layouts of the Stokes checks (overlap 3), as (dims, periods): igg's
+# trapezoid matrix (tests/test_stokes_trapezoid.py) plus one-block grids.
+STOKES_GRIDS = {
+    "ring_periodic": ((8, 1, 1), (1, 1, 1)),
+    "ring_open": ((8, 1, 1), (0, 0, 0)),
+    "2x2x2_periodic": ((2, 2, 2), (1, 1, 1)),
+    "2x2x2_open": ((2, 2, 2), (0, 0, 0)),
+    "2x2x2_periods010": ((2, 2, 2), (0, 1, 0)),
+    "4x2x1_periods101": ((4, 2, 1), (1, 0, 1)),
+    "1x1x1_periodic": ((1, 1, 1), (1, 1, 1)),
+    "1x1x1_open": ((1, 1, 1), (0, 0, 0)),
+    "1x1x1_periods101": ((1, 1, 1), (1, 0, 1)),
+}
+
+
+def _stokes_grid(case, local):
+    dims, per = STOKES_GRIDS[case]
+    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=dims[2], periodx=per[0],
+                        periody=per[1], periodz=per[2], overlapx=3,
+                        overlapy=3, overlapz=3)
+    return it.get_global_grid()
+
+
+def _stokes_state(g, dtype, seed):
+    """Random (P, Vx, Vy, Vz, Rho) on the grid `g`."""
+    return [_random(it.stacked_shape(s), dtype, -1, 1, seed + f)
+            for f, s in enumerate(sp.field_shapes(g.nxyz))]
+
+
+# (8, 9, 12): 16-byte P, Vx and Vy rows (the vector path; Vz's rows of 13
+# are scalar); (7, 6, 11): odd z extents, the element path.
+@pytest.mark.parametrize("local", [(8, 9, 12), (7, 6, 11)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["ring_periodic", "2x2x2_open",
+                                  "4x2x1_periods101", "1x1x1_periodic"])
+def test_stokes_step_kernel_matches_plain(emulated, case, dtype, local):
+    g = _stokes_grid(case, local)
+    *srcs, Rho = _stokes_state(g, dtype, 31)
+    out = [torch.empty_like(A) for A in srcs]
+    sp._launch(srcs, Rho, out, g.dims, g.nxyz, STOKES_KW, 0)
+    for a, b in zip(out, sp.step_plain(*srcs, Rho, g.dims, STOKES_KW)):
+        same(a, b)
+
+
+# (12, 12, 12): K = 2 (E = 4), the vector path; (13, 12, 15): odd
+# extents, K = 2 and 3.
+@pytest.mark.parametrize("local,Ks", [((12, 12, 12), (2,)),
+                                      ((13, 12, 15), (2, 3))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
+def test_stokes_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
+    g = _stokes_grid(case, local)
+    modes = ce.dim_modes(g)
+    shapes = sp.field_shapes(g.nxyz)
+    ols = ce.field_ols(g, shapes)
+    *state, Rho = _stokes_state(g, dtype, 41)
+    for K in Ks:
+        assert stz.stokes_chunk_refusal(g, g.nxyz, K, K, dtype) is None
+        exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
+        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        got = _run_chunk(
+            lambda src, dst, last: stz._launch(
+                src, exts, Rho_ext, dst,
+                stz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, last),
+                STOKES_KW, 0),
+            exts, [torch.empty(it.stacked_shape(s), dtype=dtype)
+                   for s in shapes[:4]], K)
+        want = stz.window_iters_plain(exts, Rho_ext, K=K, modes=modes,
+                                      grid=g, kw=STOKES_KW, ols=ols)
         for a, b, s in zip(got, want, shapes):
             same(a, ce.central_window(b, s, 2 * K, modes))

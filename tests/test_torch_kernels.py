@@ -5,8 +5,11 @@ in-place halo writer (wrap/ext sources, 2/4/8-byte elements), the trapezoid
 chunk step (ext/wrap/oext/frozen window modes, f32/f64), the plane packer
 (2/4/8-byte elements), the HM3D step (as a new pair and, for the
 K-step loop, into a preallocated one) and chunk step in the same modes,
-and the wave2d step (1x1, 4x2, 8x1, 2x1 blocks, periodic and open) and
-chunk step (periodic 1x1, 8x1, 4x2, 2x2 and 2x1 blocks, K = 2, 4, 8).
+the wave2d step (1x1, 4x2, 8x1, 2x1 blocks, periodic and open) and
+chunk step (periodic 1x1, 8x1, 4x2, 2x2 and 2x1 blocks, K = 2, 4, 8), and
+the Stokes iteration (overlap-3 grids of 1, 8 blocks, periodic, open and
+mixed) and chunk step (igg's trapezoid matrix: ext, wrap, oext and frozen
+windows, the velocities' freezes, K = 2, 3, 4).
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -26,6 +29,8 @@ from igg_torch.ops import hm3d_mega as hm
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
 from igg_torch.ops import pack as pk
+from igg_torch.ops import stokes_pallas as sp
+from igg_torch.ops import stokes_trapezoid as stz
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.ops import wave2d_trapezoid as wtz
 
@@ -279,6 +284,79 @@ def test_wave2d_chunk_kernel_matches_plain(card, case, dtype, local, Ks):
         assert wtz.chunk_call.launches == before + K
         want = wtz.window_steps_plain(exts, K=K, modes=modes, grid=g,
                                       kw=WAVE_KW, ols=ols)
+        for a, b, s in zip(out, want, shapes):
+            torch.testing.assert_close(
+                a, ce.central_window(b, s, 2 * K, modes), rtol=0, atol=0)
+
+
+STOKES_KW = dict(dx=0.31, dy=0.27, dz=0.43, mu=1.3, dtP=0.07, dtV=0.011)
+# Layouts of the Stokes checks (overlap 3), as init_global_grid keywords:
+# igg's trapezoid matrix plus one-block grids.
+STOKES_GRIDS = {
+    "ring_periodic": dict(dimx=8, dimy=1, dimz=1, periodx=1, periody=1,
+                          periodz=1),
+    "ring_open": dict(dimx=8, dimy=1, dimz=1),
+    "2x2x2_periodic": dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
+                           periodz=1),
+    "2x2x2_open": dict(dimx=2, dimy=2, dimz=2),
+    "2x2x2_periods010": dict(dimx=2, dimy=2, dimz=2, periody=1),
+    "4x2x1_periods101": dict(dimx=4, dimy=2, dimz=1, periodx=1, periodz=1),
+    "1x1x1_periodic": dict(dimx=1, dimy=1, dimz=1, periodx=1, periody=1,
+                           periodz=1),
+    "1x1x1_open": dict(dimx=1, dimy=1, dimz=1),
+    "1x1x1_periods101": dict(dimx=1, dimy=1, dimz=1, periodx=1, periodz=1),
+}
+
+
+def _stokes_state(g, dtype, seed, dev):
+    return [_random(it.stacked_shape(s), dtype, -1, 1, seed + f).to(dev)
+            for f, s in enumerate(sp.field_shapes(g.nxyz))]
+
+
+# (8, 9, 16): 16-byte P, Vx and Vy rows (Vz's rows of 17 are scalar);
+# (7, 6, 11): odd z extents, the element path.
+@pytest.mark.parametrize("local", [(8, 9, 16), (7, 6, 11)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
+def test_stokes_step_kernel_matches_plain(card, case, dtype, local):
+    it.init_global_grid(*local, quiet=True, device=card, overlapx=3,
+                        overlapy=3, overlapz=3, **STOKES_GRIDS[case])
+    g = it.get_global_grid()
+    *srcs, Rho = _stokes_state(g, dtype, 31, card)
+    before = sp.step_kernel.launches
+    out = sp.step_kernel(*srcs, Rho, g.dims, STOKES_KW)
+    torch.cuda.synchronize()
+    assert sp.step_kernel.launches == before + 1
+    for a, b in zip(out, sp.step_plain(*srcs, Rho, g.dims, STOKES_KW)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# (16, 16, 16): K = 2 (E = 4), the vector path; (15, 14, 17): odd extents,
+# K = 2 and 3; (24, 24, 24): K = 2 and 4.
+@pytest.mark.parametrize("local,Ks", [((16, 16, 16), (2,)),
+                                      ((15, 14, 17), (2, 3)),
+                                      ((24, 24, 24), (2, 4))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
+def test_stokes_chunk_kernel_matches_plain(card, case, dtype, local, Ks):
+    it.init_global_grid(*local, quiet=True, device=card, overlapx=3,
+                        overlapy=3, overlapz=3, **STOKES_GRIDS[case])
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    shapes = sp.field_shapes(g.nxyz)
+    ols = ce.field_ols(g, shapes)
+    *state, Rho = _stokes_state(g, dtype, 41, card)
+    for K in Ks:
+        assert stz.stokes_chunk_refusal(g, g.nxyz, K, K, dtype) is None
+        exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
+        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        before = stz.chunk_call.launches
+        out = stz.chunk_call(exts, Rho_ext, shapes, K=K, modes=modes, grid=g,
+                             kw=STOKES_KW, ols=ols)
+        torch.cuda.synchronize()
+        assert stz.chunk_call.launches == before + K
+        want = stz.window_iters_plain(exts, Rho_ext, K=K, modes=modes,
+                                      grid=g, kw=STOKES_KW, ols=ols)
         for a, b, s in zip(out, want, shapes):
             torch.testing.assert_close(
                 a, ce.central_window(b, s, 2 * K, modes), rtol=0, atol=0)
