@@ -3,9 +3,11 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `igg_torch/csrc` (one `nvcc` per
-source, all started together), then runs these phases; any failure raises
-and the script exits non-zero without printing a result:
+Builds the port's CUDA kernels from `igg_torch/csrc` and the sources the
+generator (`igg_torch/stencil/cuda.py`) writes for the specs of
+`tests/torch_spec_cases.py` (one `nvcc` per source, all started together,
+ptxas registers logged), then runs these phases; any failure raises and
+the script exits non-zero without printing a result:
 
 1. Kernel checks: each kernel against its plain PyTorch version on the card,
    at small shapes in every halo (or chunk window) mode, then at 256^3 f32
@@ -61,14 +63,29 @@ and the script exits non-zero without printing a result:
    re-frozen on the open edges) on the chunk route equal to the
    per-iteration route and to the plain path bitwise, peak device memory;
    both routes timed as in phase 12 (`make_iteration(n_inner=17)`).
+14. shallow water (BASELINE config 3, kernels generated from its
+   `igg_torch.stencil` spec), 4096^2 f32 periodic on one block:
+   `make_step(n_inner=100)` through `run()` (the chunk route: x extended by
+   E = margin_after(8) = 8, y wrapped in the kernel); the first 10 steps
+   equal to the per-step route, to the plain path and to the chunk route
+   on the kernels' plain versions, bitwise; total mass conserved within
+   1e-6; ms/step of both routes and launches per call.
+15. shallow water on 8x1 blocks of 4096^2, x periodic and y open (config
+   3's 1-D periodic halo; the chunk re-freezes hv's y planes): 17 steps on
+   the chunk route equal to the chunk route on the plain versions bitwise
+   and to the per-step route within 2e-5 (igg's bound for open spec
+   chunks; the log says whether bitwise); ms/step of both routes, device
+   time split by kernel, launches per call, peak device memory.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step) and the wave2d kernels (the
 staggered leapfrog step, the chunk step) and the Stokes kernels (the fused
-iteration, the chunk step) against their plain versions in every halo and
-window mode, f32 and f64, and times them at their main paths' shapes.
-Launch counters are set to 0 before phase 2 and read after phase 13: each
-of the twelve kernels must have launched on that main path.  The last lines are the
+iteration, the chunk step) and the generated spec step and chunk step (five
+specs; spec-wave2d also against the hand wave2d kernels) against their
+plain versions in every halo and window mode, f32 and f64, and times them
+at their main paths' shapes.  Launch counters are set to 0 before phase 2
+and read after phase 15: each of the fourteen kernels must have launched
+on that main path.  The last lines are the run's seconds, the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
 JAX and nothing of the `igg` package is imported.
@@ -176,6 +193,15 @@ KERNEL_INFO = {
     "stokes_chunk_step": dict(
         source="igg_torch/csrc/stokes_chunk.cu",
         replaces="igg/ops/chunk_engine.py:985"),
+    # The kernels generated from the shallow-water spec: the per-step kernel
+    # and the spec instance of the whole-window K-step chunk, counted by the
+    # generated kernels' wrappers (every spec's launches).
+    "spec_step[shallow_water]": dict(
+        source="igg_torch/stencil/cuda.py", counter="spec_step",
+        replaces="igg/stencil/lower.py:234"),
+    "spec_chunk_step[shallow_water]": dict(
+        source="igg_torch/stencil/cuda.py", counter="spec_chunk_step",
+        replaces="igg/ops/chunk_engine.py:648"),
 }
 # Layouts of the small wave2d checks, as init_global_grid keywords.
 WAVE_GRIDS = {
@@ -228,6 +254,18 @@ STOKES_GRIDS = {
 STOKES_SHAPES = (((16, 16, 16), (2,)), ((15, 14, 17), (2, 3)),
                  ((24, 24, 24), (2, 4)))
 STOKES_NAMES = ("P", "Vx", "Vy", "Vz")
+
+
+# The generated-kernel checks take their specs, layouts and local shapes
+# from tests/torch_spec_cases.py (shallow water with and without friction,
+# spec-wave2d, a `pow`/`where`/scalar-division spec, the rank-3 relax3d; every
+# window mode and config 3's x-periodic, y-open ring), imported in main().
+# Floating-point operations of one cell of the shallow-water update: those
+# of wave2d (the same chain without friction).
+SW_FLOPS = WAVE2D_FLOPS
+# ... of one interior cell of relax3d: five adds of the six neighbours, the
+# centre's product and subtraction, the coefficient's product, the add.
+RELAX3D_FLOPS = 9
 
 
 class SmokeFailure(RuntimeError):
@@ -373,6 +411,9 @@ class Smoke:
         from igg_torch.models import stokes3d as st3
         from igg_torch.ops import stokes_pallas as sp
         from igg_torch.ops import stokes_trapezoid as stz
+        from igg_torch.models import shallow_water as sw
+        from igg_torch.stencil import cuda
+        from igg_torch.stencil import lower as sl
 
         self.it, self.halo, self.ops, self.t3 = it, halo, ops, t3
         self.w2, self.wp, self.wtz = w2, wp, wtz
@@ -381,6 +422,10 @@ class Smoke:
         # stokes3d: n_stokes^3 blocks, one and 2x2x2 of them.
         self.st3, self.sp, self.stz = st3, sp, stz
         self.n_stokes = n_stokes
+        # Stencil specs: the generator, the lowering, shallow water.
+        self.cuda, self.sl, self.sw = cuda, sl, sw
+        import torch_spec_cases
+        self.cases = torch_spec_cases
         self.dm, self.dp, self.hw = dm, dp, hw
         self.ce, self.dtz, self.pk = ce, dtz, pk
         self.h3, self.hp, self.hm, self.htz = h3, hp, hm, htz
@@ -466,6 +511,8 @@ class Smoke:
         self.wave2d_kernel_checks_full()
         self.stokes_kernel_checks()
         self.stokes_kernel_checks_full()
+        self.spec_kernel_checks()
+        self.spec_kernel_checks_full()
 
     def hm3d_input(self, shape, dtype, seed):
         """Random Pe and phi in the ranges of the HM3D initial state."""
@@ -1669,6 +1716,374 @@ class Smoke:
         self.perf[f"stokes_{size[0]}^3_open_2x2x2"] = dict(
             perf, peak_gb=peak_gb, held_gb=held_gb)
 
+    # -- kernels generated from stencil specs -------------------------------
+    def spec_gen(self, name):
+        """The generated kernels of the spec case `name`."""
+        return self.cases.kernels(name)
+
+    def spec_grid(self, name, case, local):
+        if self.it.grid_is_initialized():
+            self.it.finalize_global_grid()
+        return self.cases.init(self.it, name, case, local, self.dev)
+
+    def spec_state(self, gen, g, dtype, seed):
+        """Random fields in (-1, 1) of the spec on grid `g`."""
+        nd = gen.spec.ndim
+        return [uniform(self.it.stacked_shape(s), -1, 1, dtype, self.dev,
+                        seed + f)
+                for f, s in enumerate(self.sl.field_shapes(
+                    gen.spec, g.nxyz[:nd]))]
+
+    def spec_chunk(self, gen, g, S, K):
+        """The extended buffers of a depth-K chunk of the spec's fields `S`
+        (E = the analyzer's margin_after(K)), the kernel's result and the
+        plain version's; None where the chunk refuses the layout."""
+        ce, sl = self.ce, self.sl
+        nd = gen.spec.ndim
+        shapes = sl.field_shapes(gen.spec, g.nxyz[:nd])
+        if sl.chunk_refusal(gen.spec, gen.analysis, g, shapes[0], K, K,
+                            S[0].dtype) is not None:
+            return None
+        E = gen.analysis.margin_after(K)
+        modes = ce.dim_modes(g)[:nd]
+        ols = ce.field_ols(g, shapes)
+        exts = ce.extend_fields(list(S), ols, E, g, modes)
+        out = sl.chunk_call(gen, exts, shapes, K=K, E=E, modes=modes, grid=g,
+                            ols=ols)
+        ref = [ce.central_window(U, s, E, modes) for U, s in zip(
+            sl.chunk_plain(gen, exts, K=K, E=E, modes=modes, grid=g,
+                           ols=ols), shapes)]
+        return exts, modes, shapes, ols, out, ref
+
+    def spec_kernel_checks(self):
+        """The generated step and chunk step of every spec of tests/torch_spec_cases.py on
+        every layout (every window mode), f32 and f64, against their plain
+        versions; spec-wave2d against the hand wave2d kernels (the step
+        always, the chunk on periodic grids), tolerance 0."""
+        sl, wp, wtz, ce = self.sl, self.wp, self.wtz, self.ce
+        kw = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
+        cases = self.cases
+        for name in cases.SPECS:
+            gen = self.spec_gen(name)
+            nd = gen.spec.ndim
+            step_key = ("spec_step[shallow_water]" if "shallow" in name
+                        else None)
+            for case, local in ((c, s) for c in cases.grids(name)
+                                for s in cases.locals_of(name)):
+                g = self.spec_grid(name, case, local)
+                for dtype in (torch.float32, torch.float64):
+                    tag = f"{name} {case} {local} {dtype}"
+                    S = self.spec_state(gen, g, dtype, 81)
+                    out = sl.step_kernel(gen, S, g.dims[:nd])
+                    ref = sl.step_plain(gen, S, g.dims[:nd])
+                    for f, a, b in zip(gen.spec.fields, out, ref):
+                        err = check(f"spec_step {f.name} {tag}", a, b, 0.0)
+                        if step_key:
+                            self.note(step_key, err)
+                    ran = 0
+                    for K in (2, 3):
+                        got = self.spec_chunk(gen, g, S, K)
+                        if got is None:
+                            continue
+                        *_, out, ref = got
+                        for f, a, b in zip(gen.spec.fields, out, ref):
+                            err = check(f"spec_chunk_step {f.name} {tag} "
+                                        f"K={K}", a, b, 0.0)
+                            if step_key:
+                                self.note("spec_chunk_step[shallow_water]",
+                                          err)
+                        ran += 1
+                    if not ran and name != "mixed":
+                        raise SmokeFailure(f"spec chunk {tag}: refused")
+                    if name != "wave2d_spec" or dtype != torch.float32:
+                        continue
+                    hand = wp.step_kernel(*S, g.dims[:2], kw)
+                    spec = sl.step_kernel(gen, S, g.dims[:2])
+                    for f, a, b in zip(gen.spec.fields, spec, hand):
+                        check(f"spec-wave2d step vs wave2d_step {f.name} "
+                              f"{tag}", a, b, 0.0)
+                    modes = ce.dim_modes(g)[:2]
+                    if any(m not in ("ext", "wrap") for m in modes):
+                        continue
+                    _, modes, shapes, ols, out, _ = self.spec_chunk(gen, g,
+                                                                    S, 2)
+                    hand = wtz.chunk_call(
+                        ce.extend_fields(list(S), ols, 4, g, modes), shapes,
+                        K=2, modes=modes, grid=g, kw=kw, ols=ols)
+                    for f, a, b in zip(gen.spec.fields, out, hand):
+                        check(f"spec-wave2d chunk vs wave2d_chunk_step "
+                              f"{f.name} {tag}", a, b, 0.0)
+        divs = {n: [self.cuda.divisions_per_cell(self.spec_gen(n).spec, r)
+                    for r in (1, 4)] for n in cases.SPECS}
+        log(f"[phase 1] generated spec kernels (specs {list(cases.SPECS)}, "
+            f"{len(cases.GRIDS_2D)} 2-D and {len(cases.GRIDS_3D)} 3-D layouts, "
+            f"f32 and f64): step and chunk step equal their plain versions, "
+            f"spec-wave2d equals the hand wave2d kernels (tolerance 0); "
+            f"divisions a cell (per-cell path, 4-cell run): "
+            f"{json.dumps(divs)}")
+
+    def spec_kernel_checks_full(self):
+        """The generated kernels at full width, f32, checked against their
+        plain versions, then timed beside their bounds and their hand
+        counterparts: the shallow-water step on one n_wave^2 periodic block,
+        its K=8 chunk step on wave_blocks x 1 blocks of n_wave^2 (config 3:
+        x periodic, y open), and the relax3d step on one n_stokes^3
+        periodic block."""
+        ce, sl = self.ce, self.sl
+        n, k, K = self.n_wave, self.time_iters, K_CHUNK
+        gen = self.spec_gen("shallow_water")
+        g = self.grid((n, n, 1), dimx=1, dimy=1, dimz=1, periodx=1,
+                      periody=1)
+        S = self.spec_state(gen, g, torch.float32, 91)
+        out = sl.step_kernel(gen, S, g.dims[:2])
+        for f, a, b in zip(gen.spec.fields, out,
+                           sl.step_plain(gen, S, g.dims[:2])):
+            self.note("spec_step[shallow_water]", check(
+                f"spec_step[shallow_water] {f.name} {n}^2", a, b, 0.0))
+        del out
+        cells = float(sum(A.numel() for A in S))
+        self.perf["spec_step[shallow_water]"] = dict(
+            kernel_time(lambda: sl.step_kernel(gen, S, g.dims[:2]), k,
+                        "Spec_shallow_water"),
+            plain_ms=event_ms(lambda: sl.step_plain(gen, S, g.dims[:2]), 3),
+            # Read h, hu, hv once, write them once.
+            bound=bound_ms(2 * cells * 4, SW_FLOPS * cells / 3, F32_FLOPS))
+        del S
+        nb = self.wave_blocks
+        g = self.grid((n, n, 1), dimx=nb, dimy=1, dimz=1, periodx=1)
+        S = self.spec_state(gen, g, torch.float32, 93)
+        exts, modes, shapes, ols, out, ref = self.spec_chunk(gen, g, S, K)
+        for f, a, b in zip(gen.spec.fields, out, ref):
+            self.note("spec_chunk_step[shallow_water]", check(
+                f"spec_chunk_step[shallow_water] {f.name} {nb}x1 K={K}", a,
+                b, 0.0))
+        del out, ref
+        E = gen.analysis.margin_after(K)
+        ext_cells = float(sum(X.numel() for X in exts))
+        out_cells = float(sum(A.numel() for A in S))
+        # hv's frozen y planes (rows 0 and S1 of every extended block), read
+        # from the chunk-entry buffer on every launch.
+        frozen = 2.0 * exts[2].shape[0]
+        nbytes = 4 * ((K - 1) * 2 * ext_cells + ext_cells + out_cells
+                      + K * frozen) / K
+        flags = ce.edge_flags(modes, g)
+        chunk = dict(
+            kernel_time(lambda: sl.chunk_call(
+                gen, exts, shapes, K=K, E=E, modes=modes, grid=g, ols=ols),
+                max(k // 5, 4), "Spec_shallow_water"),
+            plain_ms=event_ms(lambda: ce.window_step_plain(
+                exts, exts, E=E, modes=modes, grid=g,
+                core=sl.window_core(gen, g), flags=flags,
+                freeze_fields=gen.analysis.freeze, ols=ols), 3),
+            bound=bound_ms(nbytes, SW_FLOPS * ext_cells / 3, F32_FLOPS))
+        chunk["events_ms"] /= K
+        self.perf["spec_chunk_step[shallow_water]"] = chunk
+        del exts, S
+        m = self.n_stokes
+        gen3 = self.spec_gen("relax3d")
+        g = self.grid((m, m, m), **SINGLE, **PERIODIC)
+        S = self.spec_state(gen3, g, torch.float32, 95)
+        check(f"spec_step[relax3d] {m}^3", sl.step_kernel(gen3, S, g.dims)[0],
+              sl.step_plain(gen3, S, g.dims)[0], 0.0)
+        cells = float(S[0].numel())
+        relax = dict(
+            kernel_time(lambda: sl.step_kernel(gen3, S, g.dims), k,
+                        "Spec_relax3d"),
+            plain_ms=event_ms(lambda: sl.step_plain(gen3, S, g.dims), 3),
+            bound=bound_ms(2 * cells * 4, RELAX3D_FLOPS * cells, F32_FLOPS))
+        self.perf["spec_step[relax3d]"] = relax
+        del S
+        for name, p, beside in (
+                ("spec_step[shallow_water]", self.perf[
+                    "spec_step[shallow_water]"], "wave2d_step"),
+                ("spec_chunk_step[shallow_water] K=8 (E=8)", chunk,
+                 "wave2d_chunk_step"),
+                ("spec_step[relax3d]", relax, "diffusion_step")):
+            log(f"[phase 1] {name}: {p['ms']:.4f} ms device per launch "
+                f"({p['ms_from']}), {p['events_ms']:.4f} ms per launch back "
+                f"to back (events), plain {p['plain_ms']:.4f} ms"
+                f"{' (one window step)' if 'chunk' in name else ''}, bound "
+                f"{p['bound'][0]:.4f} ms ({p['bound'][1]}); hand {beside} "
+                f"{self.perf[beside]['ms']:.4f} ms")
+
+    def spec_plain_route(self, gen, S, steps, K):
+        """The chunk route of the spec's dispatch on the kernels' plain
+        versions: a warm-up step, the K-step chunks, the remainder."""
+        it, ce, sl = self.it, self.ce, self.sl
+        g = it.get_global_grid()
+        nd = gen.spec.ndim
+
+        def step(T):
+            return it.update_halo(*sl.step_plain(gen, T, g.dims[:nd]),
+                                  plain=True)
+
+        S = step(S)
+        modes = ce.dim_modes(g)[:nd]
+        shapes = sl.field_shapes(gen.spec, g.nxyz[:nd])
+        ols = ce.field_ols(g, shapes)
+        E = gen.analysis.margin_after(K)
+        for _ in range((steps - 1) // K):
+            exts = ce.extend_fields(list(S), ols, E, g, modes)
+            S = tuple(ce.central_window(U, s, E, modes) for U, s in zip(
+                sl.chunk_plain(gen, exts, K=K, E=E, modes=modes, grid=g,
+                               ols=ols), shapes))
+        for _ in range((steps - 1) % K):
+            S = step(S)
+        return tuple(S)
+
+    def sw_routes(self, tag, S, steps, p, exact):
+        """`steps` shallow-water steps of `S` on the dispatch (the chunk
+        route), on the per-step route, on the plain chunk route and on the
+        plain path.  The chunk route equals the plain chunk route bitwise,
+        and the per-step route the plain path; the two routes agree within
+        2e-5 of each field's scale, bitwise where `exact`.  Returns the
+        chunk route's state, its error against the per-step route, the
+        chunk launches it made and its peak device memory beyond what was
+        held before."""
+        sw, sl, ops = self.sw, self.sl, self.ops
+        gen = self.cuda.kernels_for(sw.spec(p), p.coeffs())
+        before = ops.launch_counts()["spec_chunk_step"]
+        sync(self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        Sc = sw.make_step(p, n_inner=steps)(*S)
+        sync(self.dev)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = ops.launch_counts()["spec_chunk_step"] - before
+        if launched != (steps - 1) // K_CHUNK * K_CHUNK:
+            raise SmokeFailure(f"{tag}: {launched} chunk launches in {steps} "
+                               f"steps")
+        Sp = sl.fused_spec_steps(gen, S, n_inner=steps, chunk=False)
+        plain = sw.make_step(p, n_inner=steps, use_kernels=False)(*S)
+        for name, a, b in zip(("h", "hu", "hv"), Sp, plain):
+            check(f"{tag}: per-step route vs plain path, {name}", a, b, 0.0)
+        del plain
+        pc = self.spec_plain_route(gen, S, steps, K_CHUNK)
+        for name, a, b in zip(("h", "hu", "hv"), Sc, pc):
+            check(f"{tag}: chunk route vs plain chunk route, {name}", a, b,
+                  0.0)
+        del pc
+        err = 0.0
+        for name, a, b in zip(("h", "hu", "hv"), Sc, Sp):
+            scale = float(b.abs().max())
+            e = check(f"{tag}: chunk route vs per-step route, {name}", a, b,
+                      0.0 if exact else 2e-5 * scale)
+            err = max(err, e / (scale + 1e-30))
+        if not all(bool(torch.isfinite(A).all()) for A in Sc):
+            raise SmokeFailure(f"{tag}: non-finite fields")
+        return Sc, err, peak_gb, held_gb
+
+    def sw_fresh(self, p):
+        """`init_fields` with its halos updated: an overlap-consistent
+        state."""
+        return self.it.update_halo(*self.sw.init_fields(p))
+
+    def shallow_water_one_block(self):
+        """Phase 14: shallow water at n_wave^2 f32, periodic, one block:
+        the routes against each other over 10 steps, `run()` (the chunk
+        route: x extended, y wrapped in the kernel), mass conservation,
+        ms/step of both routes and launches per call."""
+        it, sw, sl = self.it, self.sw, self.sl
+        n = self.n_wave
+        tag = f"shallow_water {n}^2 periodic"
+        self.grid((n, n, 1), dimx=1, dimy=1, dimz=1, periodx=1, periody=1)
+        p = sw.Params()
+        S = self.sw_fresh(p)
+        _, err, _, _ = self.sw_routes(tag, S, 10, p, exact=True)
+        m0 = sw.mass(sw.init_fields(p)[0])
+        S1, sec = sw.run(self.nt, p, dtype=torch.float32, n_inner=self.n_inner)
+        n1 = max(1, self.nt // 4)
+        steps = (1 + n1 + max(self.nt - n1, n1 + 1)) * self.n_inner
+        if not all(bool(torch.isfinite(A).all()) for A in S1):
+            raise SmokeFailure(f"{tag}: run() gave non-finite fields")
+        m1 = sw.mass(S1[0])
+        drift = abs(m1 - m0) / abs(m0)
+        # igg's periodic continuity bound (tests/test_stencil.py).
+        if not drift < 1e-6:
+            raise SmokeFailure(f"{tag}: mass {m0:.9e} -> {m1:.9e}")
+        moved = float((S1[0] - S[0]).abs().max())
+        if not moved > 0:
+            raise SmokeFailure(f"{tag}: h did not change in {steps} steps")
+        del S1
+        gen = self.cuda.kernels_for(sw.spec(p), p.coeffs())
+        one = lambda *T: sl.fused_spec_step(gen, T)
+        _, sec_ps = it.time_steps(one, S, n1=10, n2=40, warmup=2)
+        split_ps, n_ps = device_ms_by_kernel(lambda: one(*S), 10)
+        chunked = sw.make_step(p, n_inner=self.n_inner)
+        split_chunk, n_chunk = device_ms_by_kernel(lambda: chunked(*S), 2)
+        log(f"[phase 14] {tag}: 10 steps, chunk route vs per-step route, "
+            f"per-step route vs plain path, chunk route vs plain chunk route: "
+            f"bitwise; run() {steps} steps, mass {m0:.9e} -> {m1:.9e} "
+            f"(drift {drift:.3e}, bound 1e-6), max |h change| {moved:.4e}")
+        log(f"[phase 14] {tag}: chunk route make_step(n_inner="
+            f"{self.n_inner}) {sec * 1e3:.4f} ms/step; per-step route "
+            f"{sec_ps * 1e3:.4f} ms/step")
+        log(f"[phase 14] {tag}: chunk route, one call of {self.n_inner} "
+            f"steps: {n_chunk:.0f} launches, device "
+            f"{sum(split_chunk.values()):.4f} ms {json.dumps(split_chunk)}")
+        log(f"[phase 14] {tag}: per-step route, one step: {n_ps:.0f} "
+            f"launches, device {sum(split_ps.values()):.4f} ms "
+            f"{json.dumps(split_ps)}")
+        self.perf[f"shallow_water_{n}^2_periodic"] = dict(
+            chunk_route_ms_per_step=sec * 1e3,
+            per_step_route_ms_per_step=sec_ps * 1e3,
+            chunk_route_device_ms_per_call=split_chunk,
+            chunk_route_launches_per_call=n_chunk,
+            per_step_route_device_ms_per_step=split_ps,
+            per_step_route_launches_per_step=n_ps, mass=(m0, m1))
+
+    def shallow_water_config3(self):
+        """Phase 15: shallow water on wave_blocks x 1 blocks of n_wave^2,
+        x periodic and y open (config 3's 1-D periodic halo; the chunk
+        re-freezes hv's y planes in "frozen" mode), stacked on one card: 17
+        steps on both routes, ms/step, device time split by kernel,
+        launches per call, peak device memory."""
+        it, sw, sl = self.it, self.sw, self.sl
+        n, nb, steps = self.n_wave, self.wave_blocks, self.steps_multi
+        self.grid((n, n, 1), dimx=nb, dimy=1, dimz=1, periodx=1)
+        size = (it.nx_g(), it.ny_g())
+        tag = (f"shallow_water {size[0]}x{size[1]} x-periodic y-open "
+               f"({nb}x1 x {n}^2)")
+        p = sw.Params()
+        S = self.sw_fresh(p)
+        Sc, err, peak_gb, held_gb = self.sw_routes(tag, S, steps, p,
+                                                   exact=False)
+        del Sc
+        chunked = sw.make_step(p, n_inner=steps)
+        split_chunk, n_chunk = device_ms_by_kernel(lambda: chunked(*S), 3)
+        S1, sec = sw.run(self.nt_multi, p, dtype=torch.float32, n_inner=steps)
+        if not all(bool(torch.isfinite(A).all()) for A in S1):
+            raise SmokeFailure(f"{tag}: run() gave non-finite fields")
+        del S1
+        gen = self.cuda.kernels_for(sw.spec(p), p.coeffs())
+        one = lambda *T: sl.fused_spec_step(gen, T)
+        _, sec_ps = it.time_steps(one, S, n1=10, n2=40, warmup=2)
+        split_ps, n_ps = device_ms_by_kernel(lambda: one(*S), 10)
+        log(f"[phase 15] {tag}: {steps} steps, chunk route vs plain chunk "
+            f"route and per-step route vs plain path bitwise; chunk route vs "
+            f"per-step route {err:.3e} of each field's scale (bound 2e-5"
+            f"{', bitwise' if err == 0 else ''}); peak device memory of the "
+            f"chunk route {peak_gb:.3f} GB, of which {held_gb:.3f} GB held "
+            f"before the call (h, hu, hv)")
+        log(f"[phase 15] {tag}: chunk route make_step(n_inner={steps}) "
+            f"{sec * 1e3:.4f} ms/step; per-step route {sec_ps * 1e3:.4f} "
+            f"ms/step")
+        log(f"[phase 15] {tag}: chunk route, one call of {steps} steps: "
+            f"{n_chunk:.0f} launches, device {sum(split_chunk.values()):.4f} "
+            f"ms {json.dumps(split_chunk)}")
+        log(f"[phase 15] {tag}: per-step route, one step: {n_ps:.0f} "
+            f"launches, device {sum(split_ps.values()):.4f} ms "
+            f"{json.dumps(split_ps)}")
+        self.perf[f"shallow_water_{size[0]}x{size[1]}_config3_{nb}x1"] = dict(
+            chunk_route_ms_per_step=sec * 1e3,
+            per_step_route_ms_per_step=sec_ps * 1e3,
+            chunk_vs_per_step_rel_err=err,
+            chunk_route_device_ms_per_call=split_chunk,
+            chunk_route_launches_per_call=n_chunk,
+            per_step_route_device_ms_per_step=split_ps,
+            per_step_route_launches_per_step=n_ps,
+            peak_gb=peak_gb, held_gb=held_gb)
+
     def main_path(self):
         self.ops.reset_launch_counts()
         self.headline(self.n_head, periodic=True)
@@ -1685,6 +2100,8 @@ class Smoke:
         self.wave2d_multiblock()
         self.stokes_one_block()
         self.stokes_509()
+        self.shallow_water_one_block()
+        self.shallow_water_config3()
         self.launches = self.ops.launch_counts()
         log(f"[main path] launches {json.dumps(self.launches)}")
         missing = [k for k, v in self.launches.items() if v <= 0]
@@ -1699,13 +2116,14 @@ class Smoke:
             p = self.perf[name]
             out.append(dict(
                 name=name, route="cuda", source=info["source"],
-                replaces=info["replaces"], launches=int(self.launches[name]),
+                replaces=info["replaces"],
+                launches=int(self.launches[info.get("counter", name)]),
                 max_abs_err=self.err[name], ms=p["ms"], plain_ms=p["plain_ms"],
                 bound_ms=p["bound"][0], bound_by=p["bound"][1],
                 # Only the packer's function is one PyTorch call (an
                 # index_select per plane); none computes the others (no
                 # PyTorch call computes a diffusion, an HM3D or a leapfrog
-                # step, or a Stokes iteration).
+                # step, a Stokes iteration or a spec's step).
                 library_ms=p.get("library_ms")))
         return {"kernels": out}
 
@@ -1729,10 +2147,18 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
     card = card_line()
     log(f"[setup] torch {torch.__version__} cuda {torch.version.cuda} on {card}")
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_spec_cases as cases
+
     t0 = time.perf_counter()
-    reports = _build.build_all()
+    # The kernels' sources and the sources generated from the specs of the
+    # checks, one nvcc each, all started together.
+    generated = [cases.kernels(name) for name in cases.SPECS]
+    reports = _build.build_all(generated=[(g.source, g.tag)
+                                          for g in generated])
     log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -1746,6 +2172,7 @@ def main() -> int:
     t0 = time.perf_counter()
     smoke.main_path()
     log(f"[main path] done in {time.perf_counter() - t0:.1f} s")
+    log(f"[run] {time.perf_counter() - start:.1f} s")
     log(json.dumps({"perf": smoke.perf}))
     log(json.dumps(smoke.summary()))
     log(card)

@@ -1,17 +1,18 @@
 // The walk of a step over STAGGERED 3-D fields of a block-stacked grid,
-// shared by the stokes3d kernels (stokes_step.cu, stokes_chunk.cu): one
-// launch writes every cell of every field of a policy P from the source
-// tensors alone, into targets that are the whole blocks (a step, or a chunk
-// step on extended buffers) or a window of each block (the last step of a
-// chunk).  The 3-D sibling of stagger_walk.cuh, which the 2-D wave2d kernels
-// keep: it adds a third dim, wraps on y and z, and the open-dim freezes of
-// a chunk.
+// shared by the stokes3d kernels (stokes_step.cu, stokes_chunk.cu) and the
+// rank-3 kernels generated from an igg_torch.stencil spec: one launch
+// writes every cell of every field of a policy P from the source tensors
+// alone, into targets that are the whole blocks (a step, or a chunk step on
+// extended buffers) or a window of each block (the last step of a chunk).
+// The 3-D sibling of stagger_walk.cuh: it adds a third dim and wraps on y
+// and z.
 //
-// The policy (stokes.cuh) provides:
-//   - `using T`, `static constexpr int NF` (<= 4): element type, fields;
+// The policy (stokes.cuh, or generated) provides:
+//   - `using T`, `static constexpr int NF` (<= MAXF): element type, fields;
 //   - `st(f, d)` (constexpr): 1 where field f is one cell longer along d
 //     than the base (unstaggered) block, else 0;
-//   - `freezes(f)` (constexpr): whether field f re-freezes on open dims;
+//   - `freezes(f, d)` (constexpr): whether field f re-freezes on dim d
+//     where a chunk's open dim freezes;
 //   - `const T* src[NF]`: the source fields;
 //   - `cells<VEC>(g, i, j, k, at, sx, sy, out)`: the updated values of every
 //     field at the VEC cells (i, j, k .. k+VEC-1) of a source block, all of
@@ -34,7 +35,7 @@
 //     self-wrap of chunk_engine.wrap_edges, y then z): fields whose aliases
 //     agree are computed together, the others on their own;
 //   - where a dim freezes (`frz`, a chunk's open dims), the fields that
-//     freeze take the chunk-entry values F on the blocks of the global
+//     freeze on it take the chunk-entry values F on the blocks of the global
 //     edges: rows <= lo on the first block, rows >= hi + st(f, d) on the
 //     last (each field's own staggered high plane).  The freeze wins the
 //     cells it shares with a wrap (chunk_engine.window_step_plain).
@@ -47,8 +48,6 @@
 
 namespace igg {
 
-constexpr int MAXF3 = 4;
-
 struct Stag3 {
   int n[3];          // blocks per dim
   int s[3];          // base block extents of the sources
@@ -58,10 +57,10 @@ struct Stag3 {
   int frz[3];        // 1: the dim re-freezes from the chunk-entry buffers
   int lo[3];         // freeze rows <= lo on the first block
   int hi[3];         // freeze rows >= hi + st(f, d) on the last block
-  int ol[MAXF3][3];  // per-field overlap per dim (the wraps' aliases)
+  int ol[MAXF][3];   // per-field overlap per dim (the wraps' aliases)
 };
 
-// cfg = n[3] s[3] wrap[3] off[3] o[3] frz[3] lo[3] hi[3] ol[4][3].  Returns
+// cfg = n[3] s[3] wrap[3] off[3] o[3] frz[3] lo[3] hi[3] ol[MAXF][3].  Returns
 // false on a layout the walk cannot take: an empty grid, a block under 3
 // cells, a target window outside the source block, a wrap on x, on several
 // blocks, on an offset window or with an overlap outside the field, or
@@ -85,7 +84,7 @@ inline bool make_stag3(const int* cfg, Stag3& g) {
                       g.o[d] != g.s[d]))
       return false;
   }
-  for (int f = 0; f < MAXF3; ++f)
+  for (int f = 0; f < MAXF; ++f)
     for (int d = 0; d < 3; ++d) {
       g.ol[f][d] = cfg[24 + 3 * f + d];
       if (g.wrap[d] && (g.ol[f][d] < 2 || g.ol[f][d] > g.s[d])) return false;
@@ -111,8 +110,9 @@ __device__ __forceinline__ bool frozen3(const Stag3& g, int f, const int* b,
                                         const int* c) {
 #pragma unroll
   for (int d = 0; d < 3; ++d)
-    if (g.frz[d] && ((b[d] == 0 && c[d] <= g.lo[d]) ||
-                     (b[d] == g.n[d] - 1 && c[d] >= g.hi[d] + P::st(f, d))))
+    if (P::freezes(f, d) && g.frz[d] &&
+        ((b[d] == 0 && c[d] <= g.lo[d]) ||
+         (b[d] == g.n[d] - 1 && c[d] >= g.hi[d] + P::st(f, d))))
       return true;
   return false;
 }
@@ -186,7 +186,7 @@ __device__ __forceinline__ void walk_cell3(
 #pragma unroll
   for (int f = 0; f < NF; ++f) {
     if (!want[f]) continue;
-    if (P::freezes(f) && frozen3<P>(g, f, b, c)) v[f] = ld(F.p[f] + at[f]);
+    if (frozen3<P>(g, f, b, c)) v[f] = ld(F.p[f] + at[f]);
     out.p[f][at3(g.o, g.n, P::st(f, 0), P::st(f, 1), P::st(f, 2), b[0], i,
                  b[1], j, b[2], k)] = v[f];
   }
@@ -227,12 +227,10 @@ __global__ void __launch_bounds__(256)
     ph.template cells<VEC>(g, c[0], c[1], c[2], at, sx, sy, v);
 #pragma unroll
     for (int f = 0; f < NF; ++f) {
-      if (P::freezes(f)) {
 #pragma unroll
-        for (int m = 0; m < VEC; ++m) {
-          const int cm[3] = {c[0], c[1], c[2] + m};
-          if (frozen3<P>(g, f, b, cm)) v[f][m] = ld(F.p[f] + at[f] + m);
-        }
+      for (int m = 0; m < VEC; ++m) {
+        const int cm[3] = {c[0], c[1], c[2] + m};
+        if (frozen3<P>(g, f, b, cm)) v[f][m] = ld(F.p[f] + at[f] + m);
       }
       store_run<T, VEC>(out.p[f] + at3(g.o, g.n, P::st(f, 0), P::st(f, 1),
                                        P::st(f, 2), b[0], i, b[1], j, b[2],
@@ -270,6 +268,7 @@ int launch_stagger3(const P& ph, const Stag3& g,
                     const Fields<const typename P::T, P::NF>& F,
                     const Fields<typename P::T, P::NF>& out,
                     cudaStream_t stream) {
+  static_assert(P::NF <= MAXF, "more fields than the walk takes");
   return launch_stagger3_vec<P, 8 / sizeof(typename P::T)>(ph, g, F, out,
                                                            stream);
 }

@@ -45,7 +45,9 @@ struct Stokes {
     return f == d + 1 ? 1 : 0;
   }
   // On open dims the velocities freeze; the pressure does not.
-  __host__ __device__ static constexpr bool freezes(int f) { return f >= 1; }
+  __host__ __device__ static constexpr bool freezes(int f, int) {
+    return f >= 1;
+  }
 
   // x / d, an IEEE division: every division of the update is by a spacing
   // or by 3.

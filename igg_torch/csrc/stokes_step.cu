@@ -42,9 +42,10 @@
 extern "C" int igg_stokes_step(void* const* src, const void* rho,
                                void* const* out, int dtype, const int* cfg,
                                const double* coef, void* stream) {
-  int full[36] = {cfg[0], cfg[1], cfg[2], cfg[3], cfg[4], cfg[5],
-                  0,      0,      0,      0,      0,      0,
-                  cfg[3], cfg[4], cfg[5]};
+  // make_stag3's layout: whole blocks, no wrap, no freeze.
+  int full[24 + 3 * igg::MAXF] = {cfg[0], cfg[1], cfg[2], cfg[3], cfg[4],
+                                  cfg[5], 0,      0,      0,      0,
+                                  0,      0,      cfg[3], cfg[4], cfg[5]};
   igg::Stag3 g;
   if (!igg::make_stag3(full, g)) return (int)cudaErrorInvalidValue;
   return igg::launch_stokes(src, rho, nullptr, out, dtype, g, coef, stream);

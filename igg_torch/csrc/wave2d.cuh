@@ -30,6 +30,8 @@ struct Wave2d {
   __host__ __device__ static constexpr int st(int f, int d) {
     return f == d + 1 ? 1 : 0;
   }
+  // Periodic grids only: nothing re-freezes.
+  __host__ __device__ static constexpr bool freezes(int, int) { return false; }
 
   // Vx' at face i (source-local) whose Vx offset is ax, with the P cell
   // (i, j) at offset ap and P's row stride sp.
@@ -116,7 +118,8 @@ int launch_wave2d_as(void* const* src, void* const* out, const Stag& g,
                       static_cast<const T*>(src[1]),
                       static_cast<const T*>(src[2])},
                      (T)coef[0], (T)coef[1], (T)coef[2], (T)coef[3]};
-  return launch_stagger(ph, g,
+  return launch_stagger(ph, g, Fields<const T, 3>{{ph.src[0], ph.src[1],
+                                                   ph.src[2]}},
                         Fields<T, 3>{{static_cast<T*>(out[0]),
                                       static_cast<T*>(out[1]),
                                       static_cast<T*>(out[2])}},

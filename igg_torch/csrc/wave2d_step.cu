@@ -30,8 +30,9 @@
 extern "C" int igg_wave2d_step(void* const* src, void* const* out, int dtype,
                                const int* cfg, const double* coef,
                                void* stream) {
-  const int full[12] = {cfg[0], cfg[1], cfg[2], cfg[3], 0, 2, 2, 2,
-                        0,      0,      cfg[2], cfg[3]};
+  // make_stag's layout: whole blocks, no wrap, no freeze.
+  const int full[15 + igg::MAXF] = {cfg[0], cfg[1], cfg[2], cfg[3], 0, 0, 0,
+                                    cfg[2], cfg[3]};
   igg::Stag g;
   if (!igg::make_stag(full, g)) return (int)cudaErrorInvalidValue;
   return igg::launch_wave2d(src, out, dtype, g, coef, stream);

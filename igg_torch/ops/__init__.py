@@ -1,6 +1,7 @@
 """Kernels of the port and their plain PyTorch versions.
 
-Every kernel is CUDA C++ under `igg_torch/csrc`, built at first use
+Every kernel is CUDA C++ under `igg_torch/csrc`, or generated from a
+stencil spec by `igg_torch.stencil.cuda`, built at first use
 (:mod:`igg_torch.ops._build`).  Each wrapper takes its plain version for a
 CPU tensor, launches its kernel for a CUDA tensor (or raises), and counts
 its launches in `<wrapper>.launches`.
@@ -41,10 +42,20 @@ KERNELS = {
 }
 
 
+def all_kernels() -> dict:
+    """`KERNELS` and the wrappers of the kernels generated from a stencil
+    spec (`igg_torch.stencil.lower`: the per-step kernel and the chunk
+    step, each counting the launches of every spec)."""
+    from ..stencil import lower
+
+    return dict(KERNELS, spec_step=lower.step_kernel,
+                spec_chunk_step=lower.chunk_call)
+
+
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
+    for fn in all_kernels().values():
         fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    return {name: fn.launches for name, fn in all_kernels().items()}

@@ -3,9 +3,16 @@
 Each `igg_torch/csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a
 shared library with a plain C interface, `igg_torch/_build/<name>-<hash>.so`
 (the hash covers the sources and flags, so an edited kernel rebuilds), and
-loaded with `ctypes`.  Nothing is built when a module is imported: the
-first call that needs a library builds it; :func:`build_all` builds every
-library at once, one `nvcc` process per source, all started together.
+loaded with `ctypes`.  A source generated from a stencil spec
+(`igg_torch/stencil/cuda.py`) goes the same way through
+:func:`generated_library`: its text is written to
+`igg_torch/_build/gen/<tag>-<hash>.cu`, where the hash covers the text,
+every `csrc/*.cuh` header and the flags (two specs of the same text share
+one build; an edited walk rebuilds every generated library).  Nothing is
+built when a module is imported: the first call that needs a library
+builds it; :func:`build_all` builds every library at once (and any
+generated sources it is given), one `nvcc` process per source, all started
+together.
 """
 
 from __future__ import annotations
@@ -67,6 +74,7 @@ SIGNATURES: Dict[str, tuple] = {
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_generated: Dict[str, ctypes.CDLL] = {}   # generated source -> library
 
 
 def nvcc() -> str:
@@ -76,34 +84,61 @@ def nvcc() -> str:
     return path
 
 
-def _sources(name: str) -> List[str]:
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    return [os.path.join(CSRC, f"{name}.cu")] + [os.path.join(CSRC, h)
-                                                  for h in headers]
+def _headers() -> List[str]:
+    return [os.path.join(CSRC, h)
+            for h in sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))]
+
+
+def _key(texts) -> str:
+    h = hashlib.sha1(" ".join(FLAGS).encode())
+    for text in texts:
+        h.update(text)
+    return h.hexdigest()[:12]
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
 
 
 def lib_path(name: str) -> str:
-    h = hashlib.sha1(" ".join(FLAGS).encode())
-    for src in _sources(name):
-        with open(src, "rb") as f:
-            h.update(f.read())
-    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
+    srcs = [os.path.join(CSRC, f"{name}.cu")] + _headers()
+    return os.path.join(BUILD_DIR, f"{name}-{_key(map(_read, srcs))}.so")
 
 
-def _start(name: str):
-    """Start one nvcc for `name` into a temporary file; returns
-    (process, tmp, final) or None when the library is already built."""
-    out = lib_path(name)
+def generated_path(source: str, tag: str) -> str:
+    """Where the library of a generated source goes (module docstring)."""
+    key = _key([source.encode()] + [_read(h) for h in _headers()])
+    return os.path.join(BUILD_DIR, "gen", f"{tag}-{key}.so")
+
+
+def _start_nvcc(src: str, out: str):
+    """Start one nvcc of `src` into a temporary file beside `out`; returns
+    (process, tmp, out) or None when `out` is already built."""
     if os.path.exists(out):
         return None
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(out))
     os.close(fd)
-    cmd = [nvcc(), *FLAGS, "-Xptxas", "-v", "-o", tmp,
-           os.path.join(CSRC, f"{name}.cu")]
+    cmd = [nvcc(), *FLAGS, "-Xptxas", "-v", f"-I{CSRC}", "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
+
+
+def _start(name: str):
+    return _start_nvcc(os.path.join(CSRC, f"{name}.cu"), lib_path(name))
+
+
+def _start_generated(source: str, tag: str):
+    out = generated_path(source, tag)
+    if os.path.exists(out):
+        return None
+    src = out[:-len(".so")] + ".cu"
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    with open(src, "w") as f:
+        f.write(source)
+    return _start_nvcc(src, out)
 
 
 def _finish(name: str, job) -> str:
@@ -114,16 +149,19 @@ def _finish(name: str, job) -> str:
     log, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        raise RuntimeError(f"nvcc failed for {name}:\n{log}")
     os.replace(tmp, out)
     return log
 
 
-def build_all() -> Dict[str, str]:
-    """Build every kernel library in parallel; returns nvcc's report per
-    library ('' for one already built)."""
+def build_all(generated=()) -> Dict[str, str]:
+    """Build every kernel library, and the generated sources `generated`
+    (pairs of source text and tag), in parallel; returns nvcc's report per
+    library ('' for one already built), generated ones under their tag."""
     with _lock:
         jobs = {name: _start(name) for name in SIGNATURES}
+        for source, tag in generated:
+            jobs[tag] = _start_generated(source, tag)
         return {name: _finish(name, job) for name, job in jobs.items()}
 
 
@@ -142,3 +180,25 @@ def library(name: str) -> ctypes.CDLL:
             fn.restype = ctypes.c_int
             _loaded[name] = lib
         return _loaded[name]
+
+
+def generated_library(source: str, tag: str) -> ctypes.CDLL:
+    """The loaded library of a generated source (its entry point
+    `igg_spec_step` typed), built first if needed; a failed build raises
+    with nvcc's log."""
+    from ..stencil.cuda import ARGTYPES, ENTRY
+
+    # Keyed by the text itself: hashing it and reading the headers on every
+    # launch would cost more host time than the launch.
+    lib = _generated.get(source)
+    if lib is not None:
+        return lib
+    with _lock:
+        if source not in _generated:
+            _finish(tag, _start_generated(source, tag))
+            lib = ctypes.CDLL(generated_path(source, tag))
+            fn = getattr(lib, ENTRY)
+            fn.argtypes = ARGTYPES
+            fn.restype = ctypes.c_int
+            _generated[source] = lib
+        return _generated[source]

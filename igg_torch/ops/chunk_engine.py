@@ -11,9 +11,10 @@ Stokes Gauss-Seidel chain, E = 2K), so that after K steps exactly the
 block itself holds the values the per-step path would produce; the
 central window is cut out (:func:`central_window`).
 Fields may be staggered (their own block shapes and overlaps) and of rank 2
-or 3; a family may re-freeze only some of them (Stokes: the velocities),
-and a field that never changes (Stokes' `Rho`) is extended once and read
-by the family's core.
+or 3; a family may re-freeze only some of them (Stokes: the velocities on
+every open dim; a stencil spec: per dim, the fields its analyzer names,
+:func:`normalize_freeze`), and a field that never changes (Stokes' `Rho`)
+is extended once and read by the family's core.
 
 Per-dimension window modes (:func:`dim_modes`): ``"ext"`` (periodic,
 extended), ``"wrap"`` (periodic, one block, y/z self-wrap in place),
@@ -24,8 +25,9 @@ step), ``"frozen"`` (open, one block: both boundary planes re-frozen).
 The plain window realization (:func:`window_chunk_plain`, igg's
 `window_chunk_xla`) is the plain version of every family's chunk kernel
 (`csrc/chunk_walk.cuh` for diffusion and HM3D, `csrc/stagger_walk.cuh` for
-wave2d, `csrc/stagger_walk3.cuh` for Stokes); :func:`chunk_cfg` gives the
-3-D walk's kernels the layout.
+wave2d and rank-2 specs, `csrc/stagger_walk3.cuh` for Stokes and rank-3
+specs); :func:`chunk_cfg` and :func:`stagger_cfg` give the walks' kernels
+the layout.
 
 The one function that moves data between blocks is :func:`exchange_slabs`
 (as :func:`igg_torch.halo.exchange_planes` is for the halo engine): here
@@ -48,6 +50,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 EXTENDED = ("ext", "oext")
+# Fields the staggered walks take at most (`MAXF` in csrc/stagger_walk.cuh).
+MAXF = 8
 
 
 def dim_modes(grid) -> Tuple[str, str, str]:
@@ -143,6 +147,16 @@ def freeze_rows(modes, E: int, ext_local):
 # The plain window realization (igg's `window_chunk_xla`)
 # ---------------------------------------------------------------------------
 
+def normalize_freeze(freeze_fields, nd: int):
+    """Per-dim freeze sets (igg's `normalize_freeze`): a plain sequence of
+    field indices freezes on every dim (the Stokes velocities); a dict
+    `{dim: field indices}` freezes per dim (a spec's face field is no-write
+    only along its staggered dim, `igg_torch.stencil.analyze`)."""
+    if isinstance(freeze_fields, dict):
+        return {d: tuple(freeze_fields.get(d, ())) for d in range(nd)}
+    return {d: tuple(freeze_fields) for d in range(nd)}
+
+
 def window_step_plain(fields, entry, *, E: int, modes, grid, core, flags,
                       freeze_fields, ols=None):
     """One step of the window realization on the extended stacked buffers
@@ -150,10 +164,10 @@ def window_step_plain(fields, entry, *, E: int, modes, grid, core, flags,
     `flags`): `core(*fields)` gives the family's updated fields (every
     extended block's updated cells, stale outer cells); then the y/z
     self-wrap of every field, with its own overlap `ols[f][d]` (2 when
-    `ols` is None), then the open-dim freezes of the fields in
-    `freeze_fields`, which win the cells they share with a wrap.  Fields
-    may differ in shape (staggered) and be of rank 2 or 3.  Returns new
-    tensors.
+    `ols` is None), then the open-dim freezes of `freeze_fields` (a
+    sequence or a per-dim dict, :func:`normalize_freeze`), which win the
+    cells they share with a wrap.  Fields may differ in shape (staggered)
+    and be of rank 2 or 3.  Returns new tensors.
 
     igg's `window_chunk_xla` applies the wraps and freezes dim by dim
     instead; from an exchange-fresh entry state (the chunk's entry
@@ -165,11 +179,12 @@ def window_step_plain(fields, entry, *, E: int, modes, grid, core, flags,
         if modes[d] == "wrap":
             for f, u in enumerate(U):
                 wrap_edges(u, d, u.shape[d], 2 if ols is None else ols[f][d])
-    for f in freeze_fields:
+    freeze = normalize_freeze(freeze_fields, U[0].ndim)
+    for f in range(len(U)):
         ext_local = tuple(U[f].shape[d] // grid.dims[d]
                           for d in range(U[f].ndim))
         for d, rows in enumerate(freeze_rows(modes, E, ext_local)):
-            if rows is not None:
+            if rows is not None and f in freeze[d]:
                 U[f] = freeze_open_dim(U[f], entry[f], d, *rows, flags)
     return U
 
@@ -377,6 +392,35 @@ def chunk_cfg(ext_stacked, local, E: int, modes, grid, last: bool):
            + [int(last)]
            + [E if m in EXTENDED else 0 for m in modes]
            + list(local))
+    return (ctypes.c_int * len(cfg))(*cfg)
+
+
+def stagger_cfg(shape, E: int, modes, dims, ols, last: bool):
+    """The layout the staggered walks' chunk kernels take, as a ctypes int
+    array: `make_stag` (`csrc/stagger_walk.cuh`) for a base block `shape`
+    of rank 2, `make_stag3` (`csrc/stagger_walk3.cuh`) for rank 3.  Blocks
+    (`dims`),
+    the extended base block (margin `E`), the y (and z) wraps, the target's
+    offset in an extended block and its base block (the central window on
+    the last step, else the whole extended block), the freezing dims and
+    their rows (the base block's; a staggered field's high row is one
+    further along its own dim), and the fields' overlaps `ols` (y only for
+    rank 2), padded to `MAXF` fields."""
+    nd = len(shape)
+    if len(ols) > MAXF:
+        raise ValueError(f"{len(ols)} fields: the staggered walks take at most "
+                         f"{MAXF}")
+    ext = ext_shape(shape, E, modes)
+    rows = freeze_rows(modes, E, ext)
+    off = [E if last and modes[d] in EXTENDED else 0 for d in range(nd)]
+    wraps = [int(modes[d] == "wrap") for d in range(1, nd)]
+    ols = [tuple(ol) for ol in ols] + [(2,) * nd] * (MAXF - len(ols))
+    cfg = (list(dims[:nd]) + list(ext) + ([0] if nd == 3 else [])
+           + wraps + off + list(shape if last else ext)
+           + [int(r is not None) for r in rows]
+           + [0 if r is None else r[0] for r in rows]
+           + [0 if r is None else r[1] for r in rows]
+           + [o for ol in ols for o in (ol[1:] if nd == 2 else ol)])
     return (ctypes.c_int * len(cfg))(*cfg)
 
 

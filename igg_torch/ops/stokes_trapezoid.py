@@ -38,10 +38,10 @@ import torch
 
 from ..models import stokes3d as model
 from ._build import library
-from .chunk_engine import (EXTENDED, admit_chunk_common, admit_send_slabs,
+from .chunk_engine import (admit_chunk_common, admit_send_slabs,
                            central_window, check_chunk_buffers, dim_modes,
-                           ext_shape, extend_fields, field_ols, freeze_rows,
-                           run_chunks, window_chunk_plain)
+                           extend_fields, field_ols, run_chunks, stagger_cfg,
+                           window_chunk_plain)
 from .diffusion_pallas import _DTYPE
 from .stokes_pallas import coef_args, field_shapes
 
@@ -137,23 +137,9 @@ def chunk_call(exts, Rho_ext, shapes, *, K, modes, grid, kw, ols):
 
 def chunk_cfg(shape, E: int, modes, grid, ols, last: bool):
     """The layout `igg_stokes_chunk_step` takes (`Stag3` in
-    `csrc/stagger_walk3.cuh`), as a ctypes int array: blocks, the extended
-    pressure block, the y/z wraps, the target's offset in an extended block
-    and its pressure block (the central window on the last iteration, else
-    the whole extended block), the freezing dims and their rows (the
-    pressure's; a staggered field's high row is one further along its own
-    dim), and the four fields' overlaps."""
-    ext = ext_shape(shape, E, modes)
-    rows = freeze_rows(modes, E, ext)
-    off = [E if last and modes[d] in EXTENDED else 0 for d in range(3)]
-    cfg = (list(grid.dims) + list(ext)
-           + [int(modes[d] == "wrap") for d in range(3)] + off
-           + list(shape if last else ext)
-           + [int(r is not None) for r in rows]
-           + [0 if r is None else r[0] for r in rows]
-           + [0 if r is None else r[1] for r in rows]
-           + [o for ol in ols[:4] for o in ol])
-    return (ctypes.c_int * len(cfg))(*cfg)
+    `csrc/stagger_walk3.cuh`, :func:`chunk_engine.stagger_cfg`) for the
+    four updated fields."""
+    return stagger_cfg(shape, E, modes, grid.dims, ols[:4], last)
 
 
 def _ptrs(tensors):

@@ -34,9 +34,9 @@ import torch
 
 from ..models import wave2d as model
 from ._build import library
-from .chunk_engine import (EXTENDED, admit_chunk_common, admit_send_slabs,
+from .chunk_engine import (admit_chunk_common, admit_send_slabs,
                            central_window, check_chunk_buffers, dim_modes,
-                           ext_shape, extend_fields, field_ols, run_chunks,
+                           extend_fields, field_ols, run_chunks, stagger_cfg,
                            window_chunk_plain)
 from .diffusion_pallas import _DTYPE
 from .wave2d_pallas import coef_args, field_shapes
@@ -136,16 +136,8 @@ def chunk_call(exts, shapes, *, K, modes, grid, kw, ols):
 
 def chunk_cfg(shape, E: int, modes, grid, ols, last: bool):
     """The layout `igg_wave2d_chunk_step` takes (`Stag` in
-    `csrc/stagger_walk.cuh`), as a ctypes int array: blocks, the extended
-    pressure block, the y wrap and the three fields' y overlaps, the
-    target's offset in an extended block and its pressure block (the
-    central window on the last step, else the whole extended block)."""
-    ext = ext_shape(shape, E, modes)
-    off = [E if last and modes[d] in EXTENDED else 0 for d in range(2)]
-    cfg = (list(grid.dims[:2]) + list(ext) + [int(modes[1] == "wrap")]
-           + [ol[1] for ol in ols] + off
-           + list(shape if last else ext))
-    return (ctypes.c_int * len(cfg))(*cfg)
+    `csrc/stagger_walk.cuh`, :func:`chunk_engine.stagger_cfg`)."""
+    return stagger_cfg(shape, E, modes, grid.dims, ols, last)
 
 
 def _ptrs(tensors):

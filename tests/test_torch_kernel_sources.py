@@ -8,12 +8,15 @@ operation is fused and each rounds as in IEEE arithmetic, like the
 those libraries with CPU tensors, and every kernel is held against its
 plain PyTorch version, tolerance 0, in every halo and window mode, f32 and
 f64: the diffusion, HM3D and wave2d step kernels and the Stokes iteration
-(the K-step loops launch the same kernels) and the diffusion, HM3D, wave2d
-and Stokes chunk kernels.  This
-checks the
-kernels' indexing, walks and arithmetic, not their CUDA-specific parts
-(vector loads, alignment, the launch), which `tests/test_torch_kernels.py`
-checks on a card.  Skips without g++.
+(the K-step loops launch the same kernels), the diffusion, HM3D, wave2d
+and Stokes chunk kernels, and the kernels generated from stencil specs
+(`igg_torch/stencil/cuda.py`: the step and the chunk step of shallow water
+with and without friction, spec-wave2d, a spec of `pow`, `where` and
+scalar divisions, and the rank-3 `relax3d`), spec-wave2d also against the
+hand-written wave2d kernels.  This checks the kernels' indexing, walks
+and arithmetic, not their CUDA-specific parts (vector loads, alignment,
+the launch), which `tests/test_torch_kernels.py` checks on a card.  Skips
+without g++.
 """
 
 import concurrent.futures
@@ -28,6 +31,7 @@ import pytest
 import torch
 
 import igg_torch as it
+import torch_spec_cases as cases
 from igg_torch.ops import _build
 from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import diffusion_pallas as dp
@@ -38,6 +42,8 @@ from igg_torch.ops import stokes_pallas as sp
 from igg_torch.ops import stokes_trapezoid as stz
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.ops import wave2d_trapezoid as wtz
+from igg_torch.stencil import cuda
+from igg_torch.stencil import lower
 
 RUNTIME = r"""
 #pragma once
@@ -79,28 +85,40 @@ LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
         "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk")
 
 
+def _rewrite(text):
+    return LAUNCH.sub(r"emu_launch(\2, [&]{ \1(\3); });", text)
+
+
+def _gxx(out, src, so):
+    proc = subprocess.run(
+        [shutil.which("g++"), "-std=c++17", "-O1", "-ffp-contract=off",
+         "-fPIC", "-shared", f"-I{out}", "-x", "c++", str(src), "-o",
+         str(so)], capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr
+    return ctypes.CDLL(str(so))
+
+
 @pytest.fixture(scope="module")
-def libs(tmp_path_factory):
-    """The eight libraries, built with g++ from the repo's sources."""
-    gxx = shutil.which("g++")
-    if gxx is None:
+def csrc(tmp_path_factory):
+    """The repo's kernel sources, launches rewritten, and the stand-in
+    runtime, in one directory."""
+    if shutil.which("g++") is None:
         pytest.skip("needs g++ to compile the kernels' sources for the CPU")
     out = tmp_path_factory.mktemp("kernel_sources")
     (out / "cuda_runtime.h").write_text(RUNTIME)
     for f in os.listdir(_build.CSRC):
         if f.endswith((".cu", ".cuh")):
-            text = open(os.path.join(_build.CSRC, f)).read()
-            (out / f).write_text(LAUNCH.sub(r"emu_launch(\2, [&]{ \1(\3); });",
-                                            text))
+            (out / f).write_text(
+                _rewrite(open(os.path.join(_build.CSRC, f)).read()))
+    return out
+
+
+@pytest.fixture(scope="module")
+def libs(csrc):
+    """The eight libraries, built with g++ from the repo's sources."""
 
     def build(name):
-        so = out / f"{name}.so"
-        proc = subprocess.run(
-            [gxx, "-std=c++17", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-             f"-I{out}", "-x", "c++", str(out / f"{name}.cu"), "-o", str(so)],
-            capture_output=True, text=True)
-        assert proc.returncode == 0, proc.stderr
-        lib = ctypes.CDLL(str(so))
+        lib = _gxx(csrc, csrc / f"{name}.cu", csrc / f"{name}.so")
         fn_name, argtypes = _build.SIGNATURES[name]
         fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -110,10 +128,30 @@ def libs(tmp_path_factory):
         return dict(pool.map(build, LIBS))
 
 
+@pytest.fixture(scope="module")
+def generated(csrc):
+    """`generated_library` through g++: each generated source (launches
+    rewritten) built once, beside the rewritten headers."""
+    built = {}
+
+    def library(source, tag):
+        if source not in built:
+            src = csrc / f"gen_{tag}_{len(built)}.cu"
+            src.write_text(_rewrite(source))
+            lib = _gxx(csrc, src, src.with_suffix(".so"))
+            fn = getattr(lib, cuda.ENTRY)
+            fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
+            built[source] = lib
+        return built[source]
+
+    return library
+
+
 @pytest.fixture
-def emulated(libs, monkeypatch):
+def emulated(libs, generated, monkeypatch):
     for module in (dp, dtz, hp, htz, wp, wtz, sp, stz):
         monkeypatch.setattr(module, "library", libs.__getitem__)
+    monkeypatch.setattr(lower, "generated_library", generated)
     yield
     if it.grid_is_initialized():
         it.finalize_global_grid()
@@ -378,3 +416,93 @@ def test_stokes_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
                                       grid=g, kw=STOKES_KW, ols=ols)
         for a, b, s in zip(got, want, shapes):
             same(a, ce.central_window(b, s, 2 * K, modes))
+
+
+# -- kernels generated from stencil specs ------------------------------------
+
+def _spec_params():
+    return [(name, case, local) for name in sorted(cases.SPECS)
+            for case in sorted(cases.grids(name))
+            for local in cases.locals_of(name)]
+
+
+def _step_cfg(g, nd):
+    return ce.stagger_cfg(g.nxyz[:nd], 0, ("ext",) * nd, g.dims, [], False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,case,local", _spec_params())
+def test_spec_step_kernel_matches_plain(emulated, name, case, local, dtype):
+    g = cases.init(it, name, case, local, "cpu")
+    gen = cases.kernels(name)
+    nd = gen.spec.ndim
+    S = cases.state(it, gen, g, dtype, 51)
+    out = [torch.empty_like(A) for A in S]
+    lower._launch(gen, S, S, out, _step_cfg(g, nd), 0)
+    for a, b in zip(out, lower.step_plain(gen, S, g.dims[:nd])):
+        same(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,case,local", _spec_params())
+def test_spec_chunk_kernel_matches_plain(emulated, name, case, local, dtype):
+    g = cases.init(it, name, case, local, "cpu")
+    gen = cases.kernels(name)
+    S = cases.state(it, gen, g, dtype, 61)
+    ran = 0
+    for K in (2, 3):
+        setup = cases.chunk_setup(gen, g, S, K)
+        if setup is None:
+            continue
+        E, modes, shapes, ols, exts = setup
+        got = _run_chunk(
+            lambda src, dst, last: lower._launch(
+                gen, src, exts, dst,
+                ce.stagger_cfg(g.nxyz[:len(shapes[0])], E, modes, g.dims, ols,
+                               last), 0),
+            exts, [torch.empty(it.stacked_shape(s), dtype=dtype)
+                   for s in shapes], K)
+        want = lower.chunk_plain(gen, exts, K=K, E=E, modes=modes, grid=g,
+                                 ols=ols)
+        for a, b, s in zip(got, want, shapes):
+            same(a, ce.central_window(b, s, E, modes))
+        ran += 1
+    # The chunk refuses only `mixed` on open dims (its analyzer's
+    # boundary-validity recurrence).
+    assert ran or name == "mixed", (name, case)
+
+
+@pytest.mark.parametrize("local", cases.LOCALS_2D)
+@pytest.mark.parametrize("case", sorted(cases.GRIDS_2D))
+def test_spec_wave2d_matches_hand_kernels(emulated, case, local):
+    """The generated spec-wave2d step equals the hand-written wave2d step
+    kernel bitwise; its chunk step (E = K) the hand chunk (E = 2K) on
+    periodic grids, on the central windows."""
+    g = cases.init(it, "wave2d_spec", case, local, "cpu")
+    gen = cases.kernels("wave2d_spec")
+    kw = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
+    S = cases.state(it, gen, g, torch.float32, 71)
+    hand = [torch.empty_like(A) for A in S]
+    wp._launch(S, hand, g.dims[:2], g.nxyz[:2], kw, 0)
+    out = [torch.empty_like(A) for A in S]
+    lower._launch(gen, S, S, out, _step_cfg(g, 2), 0)
+    for a, b in zip(out, hand):
+        same(a, b)
+    modes = ce.dim_modes(g)[:2]
+    if any(m not in ("ext", "wrap") for m in modes):
+        return
+    K = 2
+    E, modes, shapes, ols, exts = cases.chunk_setup(gen, g, S, K)
+    got = _run_chunk(
+        lambda src, dst, last: lower._launch(
+            gen, src, exts, dst,
+            ce.stagger_cfg(g.nxyz[:2], E, modes, g.dims, ols, last), 0),
+        exts, [torch.empty_like(A) for A in S], K)
+    wexts = ce.extend_fields(S, ols, 2 * K, g, modes)
+    want = _run_chunk(
+        lambda src, dst, last: wtz._launch(
+            src, dst, wtz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, last),
+            kw, 0),
+        wexts, [torch.empty_like(A) for A in S], K)
+    for a, b in zip(got, want):
+        same(a, b)

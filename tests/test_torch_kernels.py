@@ -9,7 +9,11 @@ the wave2d step (1x1, 4x2, 8x1, 2x1 blocks, periodic and open) and
 chunk step (periodic 1x1, 8x1, 4x2, 2x2 and 2x1 blocks, K = 2, 4, 8), and
 the Stokes iteration (overlap-3 grids of 1, 8 blocks, periodic, open and
 mixed) and chunk step (igg's trapezoid matrix: ext, wrap, oext and frozen
-windows, the velocities' freezes, K = 2, 3, 4).
+windows, the velocities' freezes, K = 2, 3, 4), and the kernels generated
+from stencil specs (tests/torch_spec_cases.py: shallow water with and
+without friction, spec-wave2d, a spec of `pow`, `where` and scalar
+divisions, the rank-3 `relax3d`; step and chunk step in every window mode,
+spec-wave2d also against the hand wave2d kernels).
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -19,6 +23,7 @@ import pytest
 import torch
 
 import igg_torch as it
+import torch_spec_cases as cases
 from igg_torch import halo
 from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import diffusion_mega as dm
@@ -33,6 +38,7 @@ from igg_torch.ops import stokes_pallas as sp
 from igg_torch.ops import stokes_trapezoid as stz
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.ops import wave2d_trapezoid as wtz
+from igg_torch.stencil import lower
 
 pytestmark = pytest.mark.cuda
 
@@ -360,3 +366,76 @@ def test_stokes_chunk_kernel_matches_plain(card, case, dtype, local, Ks):
         for a, b, s in zip(out, want, shapes):
             torch.testing.assert_close(
                 a, ce.central_window(b, s, 2 * K, modes), rtol=0, atol=0)
+
+
+# -- kernels generated from stencil specs ------------------------------------
+
+def _spec_params():
+    return [(name, case, local) for name in sorted(cases.SPECS)
+            for case in sorted(cases.grids(name))
+            for local in cases.locals_of(name)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,case,local", _spec_params())
+def test_spec_step_kernel_matches_plain(card, name, case, local, dtype):
+    g = cases.init(it, name, case, local, card)
+    gen = cases.kernels(name)
+    nd = gen.spec.ndim
+    S = cases.state(it, gen, g, dtype, 51, card)
+    before = lower.step_kernel.launches
+    out = lower.step_kernel(gen, S, g.dims[:nd])
+    torch.cuda.synchronize()
+    assert lower.step_kernel.launches == before + 1
+    for a, b in zip(out, lower.step_plain(gen, S, g.dims[:nd])):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,case,local", _spec_params())
+def test_spec_chunk_kernel_matches_plain(card, name, case, local, dtype):
+    g = cases.init(it, name, case, local, card)
+    gen = cases.kernels(name)
+    S = cases.state(it, gen, g, dtype, 61, card)
+    ran = 0
+    for K in (2, 3):
+        setup = cases.chunk_setup(gen, g, S, K)
+        if setup is None:
+            continue
+        E, modes, shapes, ols, exts = setup
+        before = lower.chunk_call.launches
+        out = lower.chunk_call(gen, exts, shapes, K=K, E=E, modes=modes,
+                               grid=g, ols=ols)
+        torch.cuda.synchronize()
+        assert lower.chunk_call.launches == before + K
+        want = lower.chunk_plain(gen, exts, K=K, E=E, modes=modes, grid=g,
+                                 ols=ols)
+        for a, b, s in zip(out, want, shapes):
+            torch.testing.assert_close(
+                a, ce.central_window(b, s, E, modes), rtol=0, atol=0)
+        ran += 1
+    assert ran or name == "mixed", (name, case)
+
+
+@pytest.mark.parametrize("local", cases.LOCALS_2D)
+@pytest.mark.parametrize("case", sorted(cases.GRIDS_2D))
+def test_spec_wave2d_matches_hand_kernels(card, case, local):
+    g = cases.init(it, "wave2d_spec", case, local, card)
+    gen = cases.kernels("wave2d_spec")
+    S = cases.state(it, gen, g, torch.float32, 71, card)
+    out = lower.step_kernel(gen, S, g.dims[:2])
+    hand = wp.step_kernel(*S, g.dims[:2], WAVE_KW)
+    for a, b in zip(out, hand):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    modes = ce.dim_modes(g)[:2]
+    if any(m not in ("ext", "wrap") for m in modes):
+        return
+    K = 2
+    E, modes, shapes, ols, exts = cases.chunk_setup(gen, g, S, K)
+    got = lower.chunk_call(gen, exts, shapes, K=K, E=E, modes=modes, grid=g,
+                           ols=ols)
+    wexts = ce.extend_fields(S, ols, 2 * K, g, modes)
+    want = wtz.chunk_call(wexts, shapes, K=K, modes=modes, grid=g,
+                          kw=WAVE_KW, ols=ols)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
