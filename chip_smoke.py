@@ -76,6 +76,16 @@ the script exits non-zero without printing a result:
    and to the per-step route within 2e-5 (igg's bound for open spec
    chunks; the log says whether bitwise); ms/step of both routes, device
    time split by kernel, launches per call, peak device memory.
+16. diffusion on the banded tier (`make_multi_step(17, banded=True, K=8,
+   band=8)`: a warm-up step, two chunks of K launches of the band kernel):
+   256^3 f32 periodic on one block, bitwise the K-step loop, and the 510^3
+   headline (2x2x2 blocks of 256^3, open), bitwise the trapezoid chunk
+   route, each from `update_halo(*init_fields())`; ms/step through
+   `run()`, launches per call, device time split by kernel, peak device
+   memory.
+17. HM3D on the banded tier: 256^3 periodic on one block (bitwise the
+   K-step loop) and 508^3 periodic on 2x2x2 blocks of 256^3 (bitwise the
+   chunk route); the same numbers.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step) and the wave2d kernels (the
@@ -83,9 +93,13 @@ staggered leapfrog step, the chunk step) and the Stokes kernels (the fused
 iteration, the chunk step) and the generated spec step and chunk step (five
 specs; spec-wave2d also against the hand wave2d kernels) against their
 plain versions in every halo and window mode, f32 and f64, and times them
-at their main paths' shapes.  Launch counters are set to 0 before phase 2
-and read after phase 15: each of the fourteen kernels must have launched
-on that main path.  The last lines are the run's seconds, the
+at their main paths' shapes, and the diffusion and HM3D band kernels
+against their plain version (`banded_window_plain`) in every window mode,
+f32 and f64, B = 8 and 16 with two and three bands, on the whole evolved
+buffers and the central windows, then times them at 2x2x2 blocks of 256^3
+(K = 8, B = 8).  Launch counters are set to 0 before each main-path phase
+(2 to 17) and read after it; each of the sixteen kernels must have
+launched on that main path.  The last lines are the run's seconds, the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
 JAX and nothing of the `igg` package is imported.
@@ -202,6 +216,14 @@ KERNEL_INFO = {
     "spec_chunk_step[shallow_water]": dict(
         source="igg_torch/stencil/cuda.py", counter="spec_chunk_step",
         replaces="igg/ops/chunk_engine.py:648"),
+    # The diffusion and HM3D instances of the streaming banded K-step
+    # window: one launch per iteration.
+    "diffusion_band_step": dict(
+        source="igg_torch/csrc/diffusion_band.cu",
+        replaces="igg/ops/chunk_engine.py:1455"),
+    "hm3d_band_step": dict(
+        source="igg_torch/csrc/hm3d_band.cu",
+        replaces="igg/ops/chunk_engine.py:1455"),
 }
 # Layouts of the small wave2d checks, as init_global_grid keywords.
 WAVE_GRIDS = {
@@ -513,6 +535,8 @@ class Smoke:
         self.stokes_kernel_checks_full()
         self.spec_kernel_checks()
         self.spec_kernel_checks_full()
+        self.band_kernel_checks()
+        self.band_kernel_checks_full()
 
     def hm3d_input(self, shape, dtype, seed):
         """Random Pe and phi in the ranges of the HM3D initial state."""
@@ -995,6 +1019,150 @@ class Smoke:
                       + K * frozen_fields * frozen)
         ops = flops * ((K - 1) * interior(ext_local) + interior(g.nxyz))
         return bound_ms(nbytes / K, ops / K, F32_FLOPS)
+
+    def band_fields(self, g, dtype, K, seed):
+        """Random diffusion and HM3D fields on grid `g`, extended for a
+        depth-K chunk: (Text, A_ext), (Pee, phie) and the window modes."""
+        ce = self.ce
+        shp = self.it.stacked_shape(g.nxyz)
+        modes = ce.dim_modes(g)
+        ols = ce.field_ols(g, [g.nxyz]) * 2
+        T = uniform(shp, -10, 10, dtype, self.dev, seed)
+        A = uniform(shp, 0.001, 0.1, dtype, self.dev, seed + 1)
+        diff = ce.extend_fields([T, A], ols, K, g, modes)
+        del T, A
+        hm = ce.extend_fields(list(self.hm3d_input(shp, dtype, seed + 2)),
+                              ols, K, g, modes)
+        return diff, hm, modes, ols
+
+    def band_plain(self, g, exts, K, B, modes, ols, family, sc, kw, iters=None):
+        """The band kernels' plain version on the extended buffers `exts`:
+        `iters` (K when None) banded iterations, whole evolved buffers."""
+        from functools import partial
+
+        ce, dtz, htz = self.ce, self.dtz, self.htz
+        core = (partial(dtz.banded_update, **sc) if family == "diffusion"
+                else partial(htz.band_update, kw=kw))
+        n_up = 1 if family == "diffusion" else 2
+        return ce.banded_window_plain(
+            list(exts), K=K if iters is None else iters, B=B, lo=1,
+            modes=modes, grid=g, ols=ols, shapes=[g.nxyz] * 2, E=K,
+            band_update=core, extras=(1, 1), n_up=n_up,
+            freeze_fields=tuple(range(n_up)))[:n_up]
+
+    def band_check(self, g, exts, K, B, modes, ols, family, tag, sc, kw):
+        """One band kernel against its plain version: the whole evolved
+        buffers and the central windows, tolerance 0."""
+        ce, dtz, htz = self.ce, self.dtz, self.htz
+        name = f"{family}_band_step"
+        want = self.band_plain(g, exts, K, B, modes, ols, family, sc, kw)
+        for central in (False, True):
+            if family == "diffusion":
+                got = [dtz.band_call(exts[0], exts[1], g.nxyz, K=K, B=B,
+                                     modes=modes, grid=g, sc=sc,
+                                     central=central)]
+            else:
+                got = htz.band_call(exts, g.nxyz, K=K, B=B, modes=modes,
+                                    grid=g, kw=kw, central=central)
+            for f, (a, b) in enumerate(zip(got, want)):
+                if central:
+                    b = ce.central_window(b, g.nxyz, K, modes)
+                self.note(name, check(
+                    f"{name} {tag} field {f} "
+                    f"{'central' if central else 'whole buffer'}", a, b, 0.0))
+
+    def band_kernel_checks(self):
+        """Both band kernels in every window mode (the chunk grids and one
+        periodic block), f32 and f64, B = 8 and 16 with two and three bands
+        (the block's x extent set so that its extended span is 2B or 3B),
+        tolerance 0."""
+        sc = self.dp.scal(0.3, 0.4, 0.5)
+        K = 4
+        grids = dict(CHUNK_GRIDS, one_block_periodic=((1, 1, 1), (1, 1, 1)))
+        for case, (dims, per) in grids.items():
+            for B, bands in ((8, 2), (8, 3), (16, 2), (16, 3)):
+                ext = dims[0] > 1 or per[0]
+                local = (B * bands - (2 * K if ext else 0), 12, 13)
+                g = self.grid(local, dimx=dims[0], dimy=dims[1],
+                              dimz=dims[2], periodx=per[0], periody=per[1],
+                              periodz=per[2])
+                kw = self.h3.Params().step_kwargs()
+                for dtype in (torch.float32, torch.float64):
+                    why = self.dtz.banded_refusal(g, local, K, K, dtype, B=B)
+                    if why is not None:
+                        raise SmokeFailure(f"band {case} {local}: {why}")
+                    diff, hm, modes, ols = self.band_fields(g, dtype, K, 41)
+                    tag = f"{case} {local} B={B} {dtype}"
+                    self.band_check(g, diff, K, B, modes, ols, "diffusion",
+                                    tag, sc, kw)
+                    self.band_check(g, hm, K, B, modes, ols, "hm3d", tag, sc,
+                                    kw)
+        log(f"[phase 1] band kernels in every window mode: max abs err "
+            f"{self.err['diffusion_band_step']:.3e} (diffusion), "
+            f"{self.err['hm3d_band_step']:.3e} (HM3D) (tolerance 0)")
+
+    def band_kernel_checks_full(self):
+        """Both band kernels at 2x2x2 blocks of n_multi^3 f32 (diffusion
+        open, HM3D periodic), K = 8, B = 8: checked against the plain
+        version, then timed beside one plain iteration and two bounds of
+        compulsory bytes: a pass (read src and the constant, write dst) and
+        the whole chunk (read each extended field once, write each central
+        block once; the table's bound is the chunk's divided by K)."""
+        n, k, K, B = self.n_multi, self.time_iters, K_CHUNK, 8
+        for family, per, flops in (("diffusion", {}, STENCIL_FLOPS),
+                                   ("hm3d", PERIODIC, HM3D_FLOPS)):
+            name = f"{family}_band_step"
+            g = self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **per)
+            kw = self.h3.Params().step_kwargs()
+            sc = self.dp.scal(*self.t3.Params().spacing())
+            diff, hm, modes, ols = self.band_fields(g, torch.float32, K, 51)
+            exts = diff if family == "diffusion" else hm
+            del diff, hm
+            tag = (f"2x2x2 x {n}^3 f32 "
+                   f"{'open' if family == 'diffusion' else 'periodic'}")
+            if family == "diffusion":
+                run = lambda: self.dtz.band_call(exts[0], exts[1], g.nxyz,
+                                                 K=K, B=B, modes=modes,
+                                                 grid=g, sc=sc)
+            else:
+                run = lambda: self.htz.band_call(exts, g.nxyz, K=K, B=B,
+                                                 modes=modes, grid=g, kw=kw)
+            got = run()
+            got = [got] if family == "diffusion" else got
+            want = self.band_plain(g, exts, K, B, modes, ols, family, sc, kw)
+            for f, (a, b) in enumerate(zip(got, want)):
+                self.note(name, check(f"{name} {tag} field {f}", a,
+                                      self.ce.central_window(b, g.nxyz, K,
+                                                             modes), 0.0))
+            del got, want
+            ext_cells = float(exts[0].numel())
+            out_cells = float(n) ** 3 * 8
+            n_up = 1 if family == "diffusion" else 2
+            interior = 8 * float(n - 2) ** 3
+            # A pass: every staged array read once, every field written.
+            pass_bytes = 4 * ext_cells * (len(exts) + n_up)
+            # The chunk: each extended array read once, each central block
+            # written once, over the K launches.
+            chunk_bytes = 4 * (len(exts) * ext_cells + n_up * out_cells)
+            self.perf[name] = dict(
+                kernel_time(run, max(k // 10, 3), "band_kernel"),
+                plain_ms=event_ms(lambda: self.band_plain(
+                    g, exts, K, B, modes, ols, family, sc, kw, iters=1), 1),
+                bound=bound_ms(chunk_bytes / K, flops * interior, F32_FLOPS),
+                pass_bound=bound_ms(pass_bytes, flops * interior, F32_FLOPS),
+                chunk_bound=bound_ms(chunk_bytes, flops * K * interior,
+                                     F32_FLOPS))
+            # kernel_time's event time is per chunk call: per launch here.
+            self.perf[name]["events_ms"] /= K
+            p = self.perf[name]
+            log(f"[phase 1] {name} at {tag}, K={K}, B={B}: {p['ms']:.4f} ms "
+                f"device per launch ({p['ms_from']}), {p['events_ms']:.4f} "
+                f"ms per launch back to back (events), plain "
+                f"{p['plain_ms']:.4f} ms (one iteration); bounds: a pass "
+                f"{p['pass_bound'][0]:.4f} ms, the whole chunk "
+                f"{p['chunk_bound'][0]:.4f} ms ({p['bound'][0]:.4f} ms a "
+                f"launch, {p['bound'][1]})")
+            del exts
 
     # -- main path --------------------------------------------------------
     def heat(self, T, Cp) -> float:
@@ -2084,25 +2252,105 @@ class Smoke:
             per_step_route_launches_per_step=n_ps,
             peak_gb=peak_gb, held_gb=held_gb)
 
+    def banded_route(self, phase, family, one_block: bool):
+        """The banded tier of `family` through `make_multi_step(steps,
+        banded=True, K=8, band=8)` against the route the dispatch takes
+        without it (the K-step loop on one block, the chunk route on 2x2x2
+        blocks), bitwise, from `update_halo(*init_fields())`; then ms/step
+        through `run()`, launches and device time per call, peak device
+        memory."""
+        it = self.it
+        n, steps, K, B = self.n_multi, self.steps_multi, K_CHUNK, 8
+        model = self.t3 if family == "diffusion" else self.h3
+        per = PERIODIC if (one_block or family == "hm3d") else {}
+        if one_block:
+            self.grid((n, n, n), **SINGLE, **per)
+            tag = f"{family} {n}^3 periodic one block"
+        else:
+            self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **per)
+            size = it.nx_g()
+            tag = (f"{family} {size}^3 {'periodic' if per else 'open'} "
+                   f"(2x2x2 x {n}^3)")
+        p = model.Params()
+        state = it.update_halo(*model.init_fields(p))
+        banded = model.make_multi_step(steps, p, banded=True, K=K, band=B)
+        fields = ((lambda out: (out,)) if family == "diffusion"
+                  else (lambda out: out))
+        name = f"{family}_band_step"
+        before = self.ops.launch_counts()[name]
+        sync(self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        got = fields(banded(*state))
+        sync(self.dev)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = self.ops.launch_counts()[name] - before
+        if launched != (steps - 1) // K * K:
+            raise SmokeFailure(f"{tag}: {launched} band launches in {steps} "
+                               f"steps")
+        want = fields(model.make_multi_step(steps, p)(*state))
+        route = "K-step loop" if one_block else "chunk route"
+        err = max(check(f"{tag}: banded route vs {route}, field {f}", a, b,
+                        0.0) for f, (a, b) in enumerate(zip(got, want)))
+        if not all(bool(torch.isfinite(a).all()) for a in got):
+            raise SmokeFailure(f"{tag}: non-finite values")
+        del got, want
+        split, n_call = device_ms_by_kernel(lambda: banded(*state), 3)
+        out, sec = model.run(self.nt_multi, p, dtype=torch.float32,
+                             n_inner=steps, banded=True, K=K, band=B)
+        if not all(bool(torch.isfinite(a).all()) for a in fields(out)):
+            raise SmokeFailure(f"{tag}: run() gave non-finite values")
+        del out
+        log(f"[phase {phase}] {tag}: {steps} steps on the banded route "
+            f"(K={K}, B={B}) vs the {route} {err:.3e} (tolerance 0); peak "
+            f"device memory {peak_gb:.3f} GB, of which {held_gb:.3f} GB held "
+            f"before the call")
+        log(f"[phase {phase}] {tag}: banded route make_multi_step({steps}) "
+            f"{sec * 1e3:.4f} ms/step; one call: {n_call:.0f} launches, "
+            f"device {sum(split.values()):.4f} ms {json.dumps(split)}")
+        self.perf[f"banded_{tag}"] = dict(
+            ms_per_step=sec * 1e3, device_ms_per_call=split,
+            launches_per_call=n_call, peak_gb=peak_gb, held_gb=held_gb)
+
+    def diffusion_banded(self):
+        """Phase 16: the diffusion banded tier, one block and 510^3."""
+        self.banded_route(16, "diffusion", one_block=True)
+        self.banded_route(16, "diffusion", one_block=False)
+
+    def hm3d_banded(self):
+        """Phase 17: the HM3D banded tier, one block and 508^3."""
+        self.banded_route(17, "hm3d", one_block=True)
+        self.banded_route(17, "hm3d", one_block=False)
+
     def main_path(self):
-        self.ops.reset_launch_counts()
-        self.headline(self.n_head, periodic=True)
-        self.headline(self.n_open, periodic=False)
-        self.recv_mode()
-        n = self.n_head
-        self.standalone_halo(5, (n, n, n), **SINGLE, **PERIODIC)
-        self.headline_510()
-        n = self.n_multi
-        self.standalone_halo(7, (n, n, n), dimx=2, dimy=2, dimz=2)
-        self.hm3d_one_block()
-        self.hm3d_508()
-        self.wave2d_one_block()
-        self.wave2d_multiblock()
-        self.stokes_one_block()
-        self.stokes_509()
-        self.shallow_water_one_block()
-        self.shallow_water_config3()
-        self.launches = self.ops.launch_counts()
+        """Phases 2 to 17, each with the launch counters set to 0 just
+        before it and read just after it; the counts add up over the
+        phases."""
+        n, m = self.n_head, self.n_multi
+        phases = [
+            ("2", lambda: self.headline(n, periodic=True)),
+            ("3", lambda: self.headline(self.n_open, periodic=False)),
+            ("4", self.recv_mode),
+            ("5", lambda: self.standalone_halo(5, (n, n, n), **SINGLE,
+                                               **PERIODIC)),
+            ("6", self.headline_510),
+            ("7", lambda: self.standalone_halo(7, (m, m, m), dimx=2, dimy=2,
+                                               dimz=2)),
+            ("8", self.hm3d_one_block), ("9", self.hm3d_508),
+            ("10", self.wave2d_one_block), ("11", self.wave2d_multiblock),
+            ("12", self.stokes_one_block), ("13", self.stokes_509),
+            ("14", self.shallow_water_one_block),
+            ("15", self.shallow_water_config3),
+            ("16", self.diffusion_banded), ("17", self.hm3d_banded)]
+        self.launches = {}
+        for phase, run in phases:
+            self.ops.reset_launch_counts()
+            run()
+            counts = self.ops.launch_counts()
+            for name, v in counts.items():
+                self.launches[name] = self.launches.get(name, 0) + v
+            log(f"[main path] phase {phase} launches "
+                f"{json.dumps({k: v for k, v in counts.items() if v})}")
         log(f"[main path] launches {json.dumps(self.launches)}")
         missing = [k for k, v in self.launches.items() if v <= 0]
         if missing:
@@ -2123,7 +2371,8 @@ class Smoke:
                 # Only the packer's function is one PyTorch call (an
                 # index_select per plane); none computes the others (no
                 # PyTorch call computes a diffusion, an HM3D or a leapfrog
-                # step, a Stokes iteration or a spec's step).
+                # step, a Stokes iteration, a spec's step or a banded
+                # iteration).
                 library_ms=p.get("library_ms")))
         return {"kernels": out}
 

@@ -22,6 +22,19 @@ Dispatch of :func:`make_multi_step` (`use_kernels`):
   kernels' plain versions.  Where the kernels cannot serve the field, a
   CUDA tensor raises (never a quiet fallback); so does ``True`` on the
   CPU, while ``"auto"`` on the CPU takes the plain composition.
+
+The streaming banded tier (`banded`, igg's `diffusion3d.banded`) rides the
+kernel path: one per-step warm-up step, `(n_inner-1)//K` chunks whose
+iterations sweep x-row bands of depth B
+(:func:`igg_torch.ops.diffusion_trapezoid.fused_diffusion_banded_steps`),
+then the remainder as per-step steps.  ``"auto"`` takes it only where the
+K-step loop (one block, `n_inner >= 2`) and the trapezoid chunk both
+refuse and some `(K, B)` is admissible; ``True`` requires it and raises a
+`GridError` where no `(K, B)` is admissible or with `use_kernels=False`;
+``False`` never takes it.  `K` and `band` pin the chunk and band depths
+(:func:`igg_torch.models._dispatch.resolve_band`): a pinned pair that is
+inadmissible is never refitted (``True`` raises, ``"auto"`` leaves the
+tier to the other routes), as in igg.
 """
 
 from __future__ import annotations
@@ -33,8 +46,17 @@ import torch
 
 from .. import fields, halo, shared, tools
 from ..ops import chunk_engine, diffusion_pallas
+from ..ops import diffusion_trapezoid as dtz
 from ..shared import GridError
 from ..timing import time_steps
+from ._dispatch import band_config
+
+_BANDED_REQ = ("banded=True needs the fused kernels (use_kernels 'auto' or "
+               "True, on a grid they serve) and an admissible banded config "
+               "(K, B): n_inner >= K + 1 >= 3, an extended x span of >= 2 "
+               "bands of B, K-deep send slabs inside every extended "
+               "dimension's block (igg_torch.ops.diffusion_trapezoid."
+               "banded_refusal)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,13 +134,19 @@ def _kernel_path(use_kernels, T) -> bool:
 
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
-                    use_kernels="auto"):
+                    use_kernels="auto", banded="auto", K: int = None,
+                    band: int = None):
     """`(T, Cp) -> T` advancing `n_inner` steps; returns a new tensor and
-    leaves `T` as it was.  `use_kernels` picks the path (module
-    docstring).  The returned function keeps `A = dt*lam/Cp` of the last
-    `Cp` it was given."""
+    leaves `T` as it was.  `use_kernels` picks the path, `banded`, `K` and
+    `band` the banded tier (module docstring).  The returned function
+    keeps `A = dt*lam/Cp` of the last `Cp` it was given."""
     if n_inner < 1:
         raise GridError(f"n_inner must be >= 1, got {n_inner}")
+    if banded not in ("auto", True, False):
+        raise GridError(f"banded={banded!r}: expected 'auto', True or False")
+    if banded is True and use_kernels is False:
+        raise GridError(f"{_BANDED_REQ}; use_kernels=False pins the plain "
+                        f"composition")
     dx, dy, dz = params.spacing()
     dt = params.timestep()
     lam = params.lam
@@ -136,27 +164,49 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     def step(T, Cp):
         grid = shared.global_grid()
         A = coefficient(Cp)
+        local = grid.local_shape(T)
         if not _kernel_path(use_kernels, T):
-            local = grid.local_shape(T)
+            if banded is True:
+                raise GridError(f"{_BANDED_REQ}; the plain composition "
+                                f"serves this field")
             for _ in range(n_inner):
                 T = halo.update_halo(
                     diffusion_pallas.block_diffusion_compute(T, A, local, **sc),
                     plain=True)
             return T
-        return diffusion_pallas.fused_diffusion_steps(
-            T, A, n_inner=n_inner,
-            bx=chunk_engine.default_K(grid.nxyz[0]), **sc)
+        bx = chunk_engine.default_K(grid.nxyz[0])
+        kb = band_config(
+            banded, K, band, n_inner, requirement=_BANDED_REQ,
+            resident=lambda: (grid.dims == (1, 1, 1) and n_inner >= 2) or
+            dtz.trapezoid_refusal(grid, local, bx, n_inner - 1,
+                                  T.dtype) is None,
+            supported=lambda k, b: dtz.banded_refusal(
+                grid, local, k, n_inner - 1, T.dtype, B=b) is None,
+            fit=lambda bands: dtz.fit_diffusion_band(
+                grid, local, n_inner - 1, T.dtype, bands=bands))
+        if kb is None:
+            return diffusion_pallas.fused_diffusion_steps(
+                T, A, n_inner=n_inner, bx=bx, **sc)
+        T = diffusion_pallas.fused_diffusion_step(T, A, **sc)
+        T, done = dtz.fused_diffusion_banded_steps(
+            T, A, n_inner=n_inner - 1, K=kb[0], B=kb[1], grid=grid, **sc)
+        for _ in range(n_inner - 1 - done):
+            T = diffusion_pallas.fused_diffusion_step(T, A, **sc)
+        return T
 
     return step
 
 
 def run(nt: int, params: Params = Params(), dtype=torch.float32,
-        warmup: int = 1, n_inner: int = 1, use_kernels="auto"):
+        warmup: int = 1, n_inner: int = 1, use_kernels="auto",
+        banded="auto", K: int = None, band: int = None):
     """Slope-timed run (:func:`igg_torch.time_steps`): `nt` timed calls in
     batches of ~nt/4 and ~3nt/4 after `warmup` untimed ones, each call
-    advancing `n_inner` steps.  Returns `(T, seconds_per_step)`."""
+    advancing `n_inner` steps (`make_multi_step`'s route arguments).
+    Returns `(T, seconds_per_step)`."""
     T, Cp = init_fields(params, dtype=dtype)
-    step = make_multi_step(n_inner, params, use_kernels=use_kernels)
+    step = make_multi_step(n_inner, params, use_kernels=use_kernels,
+                           banded=banded, K=K, band=band)
     n1 = max(1, nt // 4)
     (T, Cp), sec = time_steps(lambda T, Cp: (step(T, Cp), Cp), (T, Cp),
                               n1=n1, n2=max(nt - n1, n1 + 1),

@@ -30,6 +30,17 @@ Dispatch of :func:`make_multi_step` (`use_kernels`), the idiom of
   versions.  Where the kernels cannot serve the fields, a CUDA tensor
   raises (never a quiet fallback); so does ``True`` on the CPU, while
   ``"auto"`` on the CPU takes the plain composition.
+
+The streaming banded tier (`banded`, igg's `hm3d.banded`) rides the kernel
+path as in :mod:`igg_torch.models.diffusion3d`: one per-step warm-up step,
+`(n_inner-1)//K` chunks whose iterations sweep x-row bands of depth B
+(:func:`igg_torch.ops.hm3d_trapezoid.fused_hm3d_banded_steps`), then the
+remainder per step.  ``"auto"`` takes it only where the K-step loop and
+the chunk route both refuse and some `(K, B)` is admissible; ``True``
+requires it (a `GridError` where none is admissible or with
+`use_kernels=False`); ``False`` never takes it.  `K` pins the depth of
+whichever chunk route runs, `band` the band depth; a pinned pair the tier
+refuses is never refitted.
 """
 
 from __future__ import annotations
@@ -43,6 +54,14 @@ from .. import fields, halo, shared, tools
 from ..ops.stencil import block_boundary_mask, divisor, interior_add
 from ..shared import GridError
 from ..timing import time_steps
+from ._dispatch import band_config
+
+_BANDED_REQ = ("banded=True needs the fused kernels (use_kernels 'auto' or "
+               "True, on a grid they serve) and an admissible banded config "
+               "(K, B): n_inner >= K + 1 >= 3, an overlap-2 grid, an "
+               "extended x span of >= 2 bands of B, K-deep send slabs inside "
+               "every extended dimension's block (igg_torch.ops."
+               "hm3d_trapezoid.hm3d_banded_refusal)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -180,45 +199,75 @@ def _kernel_path(use_kernels, Pe, phi) -> bool:
 
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
-                    use_kernels="auto", K: int = None):
+                    use_kernels="auto", K: int = None, banded="auto",
+                    band: int = None):
     """`(Pe, phi) -> (Pe, phi)` advancing `n_inner` steps; returns new
     tensors and leaves its inputs as they were.  `use_kernels` picks the
-    path (module docstring); `K` is the chunk depth of the chunk route
-    (default: 8 where it divides the block's x extent,
-    :func:`igg_torch.ops.chunk_engine.default_K`)."""
+    path, `banded` and `band` the banded tier (module docstring); `K` is
+    the chunk depth of the chunk route or the banded tier (default: 8
+    where it divides the block's x extent,
+    :func:`igg_torch.ops.chunk_engine.default_K`, and the banded tier's
+    fit)."""
     from ..ops import chunk_engine
 
     if n_inner < 1:
         raise GridError(f"n_inner must be >= 1, got {n_inner}")
     if not isinstance(params.npow, int) or params.npow < 0:
         raise GridError(f"npow must be an int >= 0, got {params.npow!r}")
+    if banded not in ("auto", True, False):
+        raise GridError(f"banded={banded!r}: expected 'auto', True or False")
+    if banded is True and use_kernels is False:
+        raise GridError(f"{_BANDED_REQ}; use_kernels=False pins the plain "
+                        f"composition")
     kw = params.step_kwargs()
 
     def step(Pe, phi):
-        from ..ops import hm3d_pallas
+        from ..ops import hm3d_pallas, hm3d_trapezoid as htz
 
         grid = shared.global_grid()
+        local = grid.local_shape(Pe)
         if not _kernel_path(use_kernels, Pe, phi):
-            local = grid.local_shape(Pe)
+            if banded is True:
+                raise GridError(f"{_BANDED_REQ}; the plain composition "
+                                f"serves these fields")
             for _ in range(n_inner):
                 Pe, phi = block_compute(Pe, phi, local, **kw)
                 halo.update_halo(Pe, phi, plain=True)
             return Pe, phi
-        return hm3d_pallas.fused_hm3d_steps(
-            Pe, phi, n_inner=n_inner,
-            K=K or chunk_engine.default_K(grid.nxyz[0]), **kw)
+        Kc = K or chunk_engine.default_K(grid.nxyz[0])
+        kb = band_config(
+            banded, K, band, n_inner, requirement=_BANDED_REQ,
+            resident=lambda: (grid.dims == (1, 1, 1) and n_inner >= 2) or
+            htz.hm3d_trapezoid_refusal(grid, local, Kc, n_inner - 1,
+                                       Pe.dtype) is None,
+            supported=lambda k, b: htz.hm3d_banded_refusal(
+                grid, local, k, n_inner - 1, Pe.dtype, B=b) is None,
+            fit=lambda bands: htz.fit_hm3d_band(
+                grid, local, n_inner - 1, Pe.dtype, bands=bands))
+        if kb is None:
+            return hm3d_pallas.fused_hm3d_steps(Pe, phi, n_inner=n_inner,
+                                                K=Kc, **kw)
+        Pe, phi = hm3d_pallas.fused_hm3d_step(Pe, phi, **kw)
+        Pe, phi, done = htz.fused_hm3d_banded_steps(
+            Pe, phi, n_inner=n_inner - 1, K=kb[0], B=kb[1], grid=grid, **kw)
+        for _ in range(n_inner - 1 - done):
+            Pe, phi = hm3d_pallas.fused_hm3d_step(Pe, phi, **kw)
+        return Pe, phi
 
     return step
 
 
 def run(nt: int, params: Params = Params(), dtype=torch.float32,
-        n_inner: int = 1, use_kernels="auto"):
+        n_inner: int = 1, use_kernels="auto", banded="auto", K: int = None,
+        band: int = None):
     """Slope-timed run (:func:`igg_torch.time_steps`, igg's `hm3d.run`):
     `nt` timed calls in batches of ~nt/4 and ~3nt/4 after the default
-    three untimed ones, each call advancing `n_inner` steps.  Returns
-    `((Pe, phi), seconds_per_step)`."""
+    three untimed ones, each call advancing `n_inner` steps
+    (`make_multi_step`'s route arguments).  Returns `((Pe, phi),
+    seconds_per_step)`."""
     Pe, phi = init_fields(params, dtype=dtype)
-    step = make_multi_step(n_inner, params, use_kernels=use_kernels)
+    step = make_multi_step(n_inner, params, use_kernels=use_kernels,
+                           banded=banded, K=K, band=band)
     n1 = max(1, nt // 4)
     state, sec = time_steps(step, (Pe, phi), n1=n1, n2=max(nt - n1, n1 + 1))
     return state, sec / n_inner

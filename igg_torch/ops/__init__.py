@@ -14,10 +14,12 @@ from . import (chunk_engine, diffusion_mega, diffusion_pallas,
 from .diffusion_mega import fused_diffusion_megasteps
 from .diffusion_pallas import (diffusion_compute, fused_diffusion_step,
                                fused_diffusion_steps)
-from .diffusion_trapezoid import fused_diffusion_trapezoid_steps
+from .diffusion_trapezoid import (fused_diffusion_banded_steps,
+                                  fused_diffusion_trapezoid_steps)
 from .hm3d_mega import fused_hm3d_megasteps
 from .hm3d_pallas import fused_hm3d_step, fused_hm3d_steps
-from .hm3d_trapezoid import fused_hm3d_trapezoid_steps
+from .hm3d_trapezoid import (fused_hm3d_banded_steps,
+                             fused_hm3d_trapezoid_steps)
 from .pack import pack_planes
 from .stencil import interior_add
 from .stokes_pallas import fused_stokes_iteration, fused_stokes_iterations
@@ -35,6 +37,8 @@ KERNELS = {
     "hm3d_step": hm3d_pallas.step_kernel,
     "hm3d_mega_step": hm3d_mega.mega_step_kernel,
     "hm3d_chunk_step": hm3d_trapezoid.chunk_call,
+    "diffusion_band_step": diffusion_trapezoid.band_call,
+    "hm3d_band_step": hm3d_trapezoid.band_call,
     "wave2d_step": wave2d_pallas.step_kernel,
     "wave2d_chunk_step": wave2d_trapezoid.chunk_call,
     "stokes_step": stokes_pallas.step_kernel,

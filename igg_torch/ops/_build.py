@@ -48,6 +48,9 @@ SIGNATURES: Dict[str, tuple] = {
     "diffusion_chunk": ("igg_diffusion_chunk_step",
                         [_P, _P, _P, _P, _I, ctypes.POINTER(_I),
                          _D, _D, _D, _D, _P]),
+    "diffusion_band": ("igg_diffusion_band_step",
+                       [_P, _P, _P, _P, _I, ctypes.POINTER(_I),
+                        _D, _D, _D, _D, _P]),
     "pack_planes": ("igg_pack_planes",
                     [_P, _I, ctypes.POINTER(_I), _I, ctypes.POINTER(_I),
                      ctypes.POINTER(_P), _P]),
@@ -57,6 +60,9 @@ SIGNATURES: Dict[str, tuple] = {
     "hm3d_chunk": ("igg_hm3d_chunk_step",
                    [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
                     _I, ctypes.POINTER(_I), ctypes.POINTER(_D), _I, _P]),
+    "hm3d_band": ("igg_hm3d_band_step",
+                  [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
+                   _I, ctypes.POINTER(_I), ctypes.POINTER(_D), _I, _P]),
     "wave2d_step": ("igg_wave2d_step",
                     [ctypes.POINTER(_P), ctypes.POINTER(_P), _I,
                      ctypes.POINTER(_I), ctypes.POINTER(_D), _P]),

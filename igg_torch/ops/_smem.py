@@ -1,0 +1,55 @@
+"""The shared-memory budget of the band kernels (`igg/ops/_vmem.py` on the
+card).
+
+igg's budget authority models the VMEM footprint of each TPU kernel against
+a scoped-VMEM cap.  On the H100 only the band kernels
+(`csrc/band_walk.cuh`) stage a working set on chip, and the one limit that
+binds is the shared memory a thread block may use: 232,448 bytes (227 KB,
+opted into with `cudaFuncAttributeMaxDynamicSharedMemorySize` above the
+default 48 KB).  :func:`banded_smem` is the bytes one thread block stages;
+:func:`fit_banded` keeps igg's `(K, B)` search.  No override or autotune
+hook: those come with the perf ledger and the autotuner.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Sequence, Tuple
+
+# Shared memory one thread block may use on the H100 (opt-in maximum).
+SMEM_PER_BLOCK = 232_448
+# The y and z cells of a band kernel's thread-block tile (`BAND_TY`,
+# `BAND_TZ` in csrc/band_walk.cuh).
+BAND_TILE = (8, 32)
+
+
+def chunk_budget() -> int:
+    """The band kernels' per-block shared-memory budget."""
+    return SMEM_PER_BLOCK
+
+
+def banded_smem(B: int, extras: Sequence[int], *, lo: int = 1,
+                itemsize: int = 4) -> int:
+    """Bytes one thread block of a band kernel stages: for each array (the
+    updated fields, then the constant ones; `extras[f]` the rows it reads
+    above a band), rows `lo + B + extras[f]` over the y/z tile plus the
+    stencil's radius of 1.  The freeze values are read from the
+    chunk-entry buffers in device memory, as the chunk kernels read them,
+    and take no shared memory."""
+    ty, tz = BAND_TILE
+    plane = (ty + 2) * (tz + 2)
+    return int(sum((lo + B + e) * plane for e in extras) * itemsize)
+
+
+def fit_banded(admissible: Callable[[int, int], bool], kmax: int, *,
+               bands: Sequence[int] = (8, 16),
+               min_k: int = 2) -> Optional[Tuple[int, int]]:
+    """Largest admissible `(K, B)` of a band tier (igg's `fit_banded`): K
+    by halving from `kmax`, bands in preference order; None when none
+    applies.  `admissible(K, B)` is the family's whole gate."""
+    K = int(kmax)
+    while K >= min_k:
+        for B in bands:
+            if admissible(K, B):
+                return K, B
+        K //= 2
+    return None

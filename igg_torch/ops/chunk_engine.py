@@ -34,20 +34,40 @@ The one function that moves data between blocks is :func:`exchange_slabs`
 the blocks are stacked in one tensor, so it is an index gather over the
 block axis, and a `torch.distributed` backend replaces it.
 
+The streaming banded realization (igg's `banded_window_xla` and
+`_streaming_kernel`): K iterations, each sweeping every extended block in
+x-row bands of depth B that read the previous iteration's values through a
+window of rows `[a - lo, a + B + extras[f])`, clamped to duplicates of the
+block's first and last rows, with the per-band halo handling of
+:func:`band_halo`.  Its shoulders differ from the window realization's
+(clamped rows, exact-row freezes), its central windows do not.
+:func:`banded_window_plain` is the plain version of the band kernels
+(`csrc/band_walk.cuh`: diffusion and HM3D), :func:`streaming_chunk_call`
+their launcher, :func:`banded_refusal` and :func:`admit_banded_geometry`
+their gates and `igg_torch.ops._smem` their shared-memory budget.
+
 Left out, because they exist only for the TPU: transposed z slabs, the
-sublane-tile and banded-geometry gates and the VMEM budget.  The TPU's
-resident kernel has its counterpart in the chunk kernels of
-`csrc/chunk_walk.cuh` (diffusion and HM3D) and `csrc/stokes_chunk.cu`, the
-whole-window kernel its wave2d instance in `csrc/wave2d_chunk.cu`; the
-streaming kernel is later work.
+sublane-tile gates (`admit_sublane_extension`, the band depth's `B % 8`,
+"compiled is 3-D only") and the VMEM budget; the streaming kernel's
+(8, 128) padding, DMA slots and semaphores have no counterpart (a launch
+per iteration ping-pongs two device buffers).  The TPU's resident kernel
+has its counterpart in the chunk kernels of `csrc/chunk_walk.cuh`
+(diffusion and HM3D) and `csrc/stokes_chunk.cu`, the whole-window kernel
+its wave2d instance in `csrc/wave2d_chunk.cu`, the streaming kernel its
+diffusion and HM3D instances in `csrc/band_walk.cuh`; its wave2d, Stokes
+and spec instances (staggered fields) are later work.
 """
 
 from __future__ import annotations
 
 import ctypes
+import itertools
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
+
+from ..shared import GridError
+from ._smem import banded_smem, chunk_budget
 
 EXTENDED = ("ext", "oext")
 # Fields the staggered walks take at most (`MAXF` in csrc/stagger_walk.cuh).
@@ -432,3 +452,258 @@ def run_chunks(fields: Sequence, *, n_inner: int, K: int,
     for _ in range(n_inner // K):
         fields = tuple(one_chunk(*fields))
     return (*fields, (n_inner // K) * K)
+
+
+# ---------------------------------------------------------------------------
+# The streaming banded realization (igg's `banded_window_xla`,
+# `streaming_chunk_call`)
+# ---------------------------------------------------------------------------
+
+def admit_banded_geometry(shapes, E: int, modes, *, B: int, extras,
+                          lo: int = 1) -> Optional[str]:
+    """Structural gates of the banded realization (igg's
+    `admit_banded_geometry` without its Mosaic gates: `B % 8`, 3-D only
+    and the sublane extension): an extended x span that B divides into at
+    least two bands, and read margins inside one band.  Returns the
+    refusal, or None."""
+    base = min(ext_shape(s, E, modes)[0] for s in shapes)
+    if B < 1 or base % B != 0:
+        return f"extended x span {base} not band-divisible by B={B}"
+    if base // B < 2:
+        return f"extended x span {base} holds fewer than 2 bands of B={B}"
+    if max(extras) + lo > B:
+        return (f"read margins lo={lo}/extras={tuple(extras)} exceed one "
+                f"band of B={B}")
+    return None
+
+
+def banded_refusal(grid, shape, K: int, n_inner: int, dtype, *, B: int,
+                   extras=(1, 1)) -> Optional[str]:
+    """Why the band kernels cannot run `n_inner` steps of unstaggered
+    fields of local `shape` (one per entry of `extras`, each read
+    `extras[f]` rows above a band) at depth K and band B, or None: the
+    gates igg's `*_banded_supported` share (a full chunk, unit
+    displacement, the grid's block, K-deep send slabs, the band geometry,
+    the window budget), float32 or float64, the budget being a thread
+    block's shared memory (`igg_torch.ops._smem`)."""
+    why = admit_chunk_common(grid, K, n_inner)
+    if why is not None:
+        return why
+    if tuple(shape) != tuple(grid.nxyz):
+        return (f"local shape {tuple(shape)} != grid block "
+                f"{tuple(grid.nxyz)}")
+    if dtype not in (torch.float32, torch.float64):
+        return f"dtype {dtype} is not float32/float64"
+    modes = dim_modes(grid)
+    shapes = [tuple(shape)] * len(extras)
+    why = (admit_send_slabs(shapes, field_ols(grid, shapes), K, modes,
+                            grid=grid)
+           or admit_banded_geometry(shapes, K, modes, B=B, extras=extras))
+    if why is not None:
+        return why
+    need = banded_smem(B, extras, itemsize=torch.finfo(dtype).bits // 8)
+    if need > chunk_budget():
+        return (f"band window {need} bytes exceeds the shared-memory budget "
+                f"{chunk_budget()} of a thread block")
+    return None
+
+
+def band_halo(news, a: int, bx: int, flags, frx, fryz, cfg):
+    """Per-band halo handling of the updated fields' new band values
+    `news` (rows `[a, a+bx)` of one extended block), in place, in
+    dimension order (later dims win shared cells): the x freeze rows of
+    open dims, then the y wrap or freeze, then z (a 2-D field stops at y).
+    `flags` are the block's six edge flags (:func:`edge_flags`) as ints;
+    `frx[(f, side)]` the whole x freeze planes of field f and
+    `fryz[(f, d, side)]` its y/z freeze planes cut to the band's rows, all
+    chunk-entry values.  Only the rows `lo`/`hi` themselves freeze, not the
+    shoulders beyond them.  `cfg` holds `modes`, `ols`, `ext_shapes`,
+    `shapes`, `E` and `freeze_fields` (:func:`normalize_freeze`).  Returns
+    `news`."""
+    modes, ols, ext_shapes, E = (cfg["modes"], cfg["ols"],
+                                 cfg["ext_shapes"], cfg["E"])
+    nd = news[0].ndim
+    freeze = normalize_freeze(cfg["freeze_fields"], nd)
+    if modes[0] in ("oext", "frozen"):
+        lo = E if modes[0] == "oext" else 0
+        for f in freeze[0]:
+            hi = lo + cfg["shapes"][f][0] - 1
+            for side, row in ((0, lo), (1, hi)):
+                if flags[side] and a <= row < a + bx:
+                    news[f][row - a].copy_(frx[(f, side)])
+    for d in range(1, nd):
+        if modes[d] == "wrap":
+            for f, u in enumerate(news):
+                wrap_edges(u, d, ext_shapes[f][d], ols[f][d])
+        elif modes[d] in ("oext", "frozen"):
+            lo = E if modes[d] == "oext" else 0
+            for f in freeze[d]:
+                hi = lo + cfg["shapes"][f][d] - 1
+                for side, idx in ((0, lo), (1, hi)):
+                    if flags[2 * d + side]:
+                        news[f].select(d, idx).copy_(fryz[(f, d, side)])
+    return news
+
+
+def band_core_from_window(core, lo: int, n_up: Optional[int] = None):
+    """A `band_update(*windows, bx=)` derived from a family's full-window
+    `core(*fields)`: the core applied to the band windows (rows
+    `[a-lo, a+bx+extras)` of each field), the central `bx` rows kept.
+    `lo` must be the per-iteration margin loss, so that those rows are at
+    full validity distance from both window edges; `n_up` keeps the
+    updated fields of a core that returns constant fields too."""
+    def band_update(*Ws, bx):
+        outs = core(*Ws)
+        if n_up is not None:
+            outs = outs[:n_up]
+        return tuple(o[lo:lo + bx] for o in outs)
+
+    return band_update
+
+
+def _banded_block(entry, *, K, B, lo, modes, ols, shapes, E, band_update,
+                  extras, n_up, flags, freeze_fields):
+    """K banded iterations of one extended block (igg's
+    `banded_window_xla` on one device's buffers): each band reads the
+    previous iteration's values, padded at the block's x ends with
+    duplicates of its first and last rows."""
+    nd = entry[0].ndim
+    ext_shapes = [tuple(F.shape) for F in entry]
+    base = min(s[0] for s in ext_shapes)
+    freeze = normalize_freeze(freeze_fields, nd)
+    frx, fryz_full = {}, {}
+    for d in range(nd):
+        if modes[d] not in ("oext", "frozen"):
+            continue
+        fr = E if modes[d] == "oext" else 0
+        for f in freeze[d]:
+            for side, idx in ((0, fr), (1, fr + shapes[f][d] - 1)):
+                p = entry[f].select(d, idx)
+                if d == 0:
+                    frx[(f, side)] = p
+                else:
+                    fryz_full[(f, d, side)] = p
+    cfg = dict(modes=tuple(modes), ols=tuple(ols), E=E,
+               ext_shapes=tuple(ext_shapes), shapes=tuple(shapes),
+               freeze_fields=freeze_fields)
+    S = list(entry)
+    for _ in range(K):
+        padded = []
+        for f, F in enumerate(S):
+            top = extras[f] - (ext_shapes[f][0] - base)
+            parts = [F[:1]] * lo + [F] + [F[-1:]] * max(top, 0)
+            padded.append(torch.cat(parts) if len(parts) > 1 else F)
+        D = [F.clone() for F in S[:n_up]]
+        for i in range(base // B):
+            a = i * B
+            Ws = [P.narrow(0, a, lo + B + extras[f])
+                  for f, P in enumerate(padded)]
+            fryz = {key: p.narrow(0, a, B) for key, p in fryz_full.items()}
+            news = band_halo(list(band_update(*Ws, bx=B)), a, B, flags, frx,
+                             fryz, cfg)
+            for f in range(n_up):
+                D[f][a:a + B] = news[f]
+        S = D + S[n_up:]
+    return S
+
+
+def banded_window_plain(fields, *, K: int, B: int, lo: int, modes, grid, ols,
+                        shapes, E: int, band_update, extras, n_up: int,
+                        freeze_fields):
+    """K iterations of the banded realization on the extended stacked
+    buffers `fields` (the `n_up` updated fields, then constant ones), the
+    plain version of the band kernels (igg's `banded_window_xla`, run on
+    each block's buffers as igg runs it on each device's): every band's
+    window reads the previous iteration's values (ping-pong), clamped to
+    duplicates of the BLOCK's first and last rows, and :func:`band_halo`
+    handles the band's halo.  `band_update(*windows, bx=)` is the family's
+    band core.  Returns the evolved extended buffers (updated fields first,
+    constant ones passed through); :func:`central_window` cuts the results
+    out."""
+    nd = fields[0].ndim
+    n = grid.dims[:nd]
+    flags = edge_flags(tuple(modes) + ("wrap",) * (3 - nd), grid)
+    out = [F.clone() for F in fields[:n_up]]
+    for c in itertools.product(*[range(k) for k in n]):
+        def block(F):
+            for d in range(nd):
+                s = F.shape[d] // n[d]
+                F = F.narrow(d, c[d] * s, s)
+            return F
+
+        fl = flags[tuple(c) + (0,) * (3 - nd)].tolist()
+        evolved = _banded_block(
+            [block(F) for F in fields], K=K, B=B, lo=lo, modes=modes,
+            ols=ols, shapes=shapes, E=E, band_update=band_update,
+            extras=extras, n_up=n_up, flags=fl, freeze_fields=freeze_fields)
+        for f in range(n_up):
+            block(out[f]).copy_(evolved[f])
+    return out + list(fields[n_up:])
+
+
+def band_cfg(ext_stacked, local, E: int, modes, grid, last: bool, *, B: int,
+             lo: int, extra: int, ols):
+    """The layout the band kernels take (`make_band` in
+    `csrc/band_walk.cuh`), as a ctypes int array: :func:`chunk_cfg`, then
+    the band depth, the read margins below and above a band, and the wrap
+    overlaps of y and z (`ols` of one field)."""
+    cfg = list(chunk_cfg(ext_stacked, local, E, modes, grid, last))
+    cfg += [B, lo, extra, ols[1], ols[2]]
+    return (ctypes.c_int * len(cfg))(*cfg)
+
+
+def streaming_chunk_call(exts, const_exts, *, K: int, B: int, modes, grid,
+                         ols, shapes, E: int, band_update, extras,
+                         freeze_fields, lo: int = 1, launch=None,
+                         central: bool = True):
+    """K banded iterations of the extended stacked buffers `exts` (updated,
+    never written) with the constant `const_exts`; returns the updated
+    fields' central windows (`central`) or their whole evolved extended
+    buffers.  A CPU tensor takes the plain version
+    (:func:`banded_window_plain`).  A CUDA tensor runs the family's band
+    kernel: `launch(src, dst, cfg)` launches one iteration of the buffers
+    `src` into `dst` with the layout `cfg` (:func:`band_cfg`) and counts
+    it; K launches ping-pong two sets of buffers, the last writing the
+    central windows when `central`.  A shape, dtype or window the kernels
+    cannot take raises a GridError."""
+    fields = list(exts) + list(const_exts)
+    n_up = len(exts)
+    if exts[0].device.type == "cpu":
+        out = banded_window_plain(
+            fields, K=K, B=B, lo=lo, modes=modes, grid=grid, ols=ols,
+            shapes=shapes, E=E, band_update=band_update, extras=extras,
+            n_up=n_up, freeze_fields=freeze_fields)[:n_up]
+        if not central:
+            return tuple(out)
+        return tuple(central_window(F, shapes[f], E, modes)
+                     for f, F in enumerate(out))
+    if launch is None:
+        raise GridError("streaming_chunk_call: no band kernel for these "
+                        "fields on the card")
+    if (exts[0].ndim != 3 or len({tuple(s) for s in shapes}) != 1
+            or len(set(extras)) != 1
+            or len({tuple(o) for o in ols}) != 1):
+        raise GridError(f"the band kernels take 3-D unstaggered fields of "
+                        f"one read margin (shapes {shapes}, extras "
+                        f"{tuple(extras)})")
+    why = admit_banded_geometry(shapes, E, modes, B=B, extras=extras, lo=lo)
+    need = banded_smem(B, extras, lo=lo, itemsize=exts[0].element_size())
+    if why is None and need > chunk_budget():
+        why = (f"band window {need} bytes exceeds the shared-memory budget "
+               f"{chunk_budget()} of a thread block")
+    if why is not None:
+        raise GridError(f"band kernel: {why}")
+    check_chunk_buffers(fields, shapes, E, modes, grid,
+                        (torch.float32, torch.float64))
+    local = tuple(shapes[0])
+    bufs = [tuple(torch.empty_like(X) for X in exts) for _ in range(2)]
+    out_shape = [grid.dims[d] * local[d] for d in range(3)]
+    src = tuple(exts)
+    for k in range(K):
+        last = central and k == K - 1
+        dst = (tuple(torch.empty(out_shape, dtype=X.dtype, device=X.device)
+                     for X in exts) if last else bufs[k % 2])
+        launch(src, dst, band_cfg(exts[0].shape, local, E, modes, grid, last,
+                                  B=B, lo=lo, extra=extras[0], ols=ols[0]))
+        src = dst
+    return src

@@ -17,24 +17,35 @@ Replaces the HM3D instance of the TPU kernel of `igg/ops/chunk_engine.py`
 (`_resident_kernel`, `resident_chunk_call`) as `igg/ops/hm3d_trapezoid.py`
 (`_chunk_call`, `fused_hm3d_trapezoid_steps`) configures it.  The plain
 version of a chunk, :func:`window_steps_plain`, is the port of
-`_window_steps_xla`.  The streaming banded tier (`fused_hm3d_banded_steps`)
-exists on the TPU only where the resident kernel's VMEM bound refuses; the
-card has no such bound, so it is not ported here.
+`_window_steps_xla`.
+
+The streaming banded tier (igg's `hm3d.banded`, the HM3D instance of
+`_streaming_kernel`): the same K-step chunks, each iteration swept in
+x-row bands of depth B (kernel `igg_hm3d_band_step`, csrc/hm3d_band.cu,
+one launch per iteration; plain version `chunk_engine.
+banded_window_plain` with :func:`band_update`).  igg needed it where VMEM
+refused the resident window; the card has no such limit, so the model
+takes it only where the resident routes refuse, or when asked
+(:func:`hm3d_banded_refusal`, :func:`fit_hm3d_band`,
+:func:`fused_hm3d_banded_steps`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Optional
 
 import torch
 
 from ..models import hm3d as model
 from ._build import library
+from ._smem import fit_banded
 from .chunk_engine import (admit_chunk_common, admit_send_slabs,
-                           central_window, check_chunk_buffers, chunk_cfg,
-                           dim_modes, extend_fields, field_ols, run_chunks,
-                           window_chunk_plain)
+                           banded_refusal, central_window,
+                           check_chunk_buffers, chunk_cfg, dim_modes,
+                           extend_fields, field_ols, run_chunks,
+                           streaming_chunk_call, window_chunk_plain)
 from .diffusion_pallas import _DTYPE
 from .hm3d_pallas import coef_args
 
@@ -140,5 +151,100 @@ def fused_hm3d_trapezoid_steps(Pe, phi, *, n_inner: int, K: int, grid, dx,
     def one(Pe, phi):
         exts = extend_fields([Pe, phi], ols, K, grid, modes)
         return chunk_call(exts, local, K=K, modes=modes, grid=grid, kw=kw)
+
+    return run_chunks((Pe, phi), n_inner=n_inner, K=K, one_chunk=one)
+
+
+# ---------------------------------------------------------------------------
+# The streaming banded tier (igg's `hm3d.banded`)
+# ---------------------------------------------------------------------------
+
+def band_update(Wpe, Wphi, *, bx, kw):
+    """New band values of both fields (rows `[a, a+bx)`, window row offset
+    1) from their margin-1 windows (igg's `_band_update`): interior cells
+    take the increments of :func:`~igg_torch.models.hm3d.step_core`, y/z
+    edge rows keep their old values (the band halo owns them)."""
+    dPe, dphi = model.step_core(Wpe, Wphi, **kw)
+    outs = []
+    for W, dF in ((Wpe, dPe), (Wphi, dphi)):
+        o = W[1:1 + bx]
+        inner = o[:, 1:-1, 1:-1] + dF[0:bx]
+        mid = torch.cat([o[:, 1:-1, :1], inner, o[:, 1:-1, -1:]], dim=2)
+        outs.append(torch.cat([o[:, :1], mid, o[:, -1:]], dim=1))
+    return tuple(outs)
+
+
+def hm3d_banded_refusal(grid, shape, K: int, n_inner: int, dtype,
+                        B: int = 8) -> Optional[str]:
+    """Why the banded tier cannot run `n_inner` steps of fields of local
+    `shape` at depth K and band B, or None when it can: igg's
+    `hm3d_banded_supported` with its Mosaic gates dropped and float64
+    admitted, an overlap-2 grid and `chunk_engine.banded_refusal` for Pe
+    and phi."""
+    if grid.overlaps != (2, 2, 2):
+        return f"grid overlaps {grid.overlaps} != (2, 2, 2)"
+    return banded_refusal(grid, shape, K, n_inner, dtype, B=B)
+
+
+def fit_hm3d_band(grid, shape, n_inner: int, dtype, kmax: int = 8,
+                  bands=(8, 16)):
+    """Largest admissible `(K, B)` of the banded tier (`_smem.fit_banded`);
+    None when none applies."""
+    return fit_banded(
+        lambda K, B: hm3d_banded_refusal(grid, shape, K, n_inner, dtype,
+                                         B=B) is None,
+        kmax, bands=bands)
+
+
+def band_call(exts, local, *, K, B, modes, grid, kw, central: bool = True):
+    """K banded iterations of the extended stacked buffers `exts = (Pee,
+    phie)`: every block's central `local` windows (`central`), or the
+    whole evolved extended buffers.  A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel K times (`chunk_engine.
+    streaming_chunk_call`), or raises."""
+    shapes = [tuple(local)] * 2
+
+    def launch(src, dst, cfg):
+        _band_launch(src, exts, dst, cfg, kw,
+                     torch.cuda.current_stream(exts[0].device).cuda_stream)
+        band_call.launches += 1
+
+    return streaming_chunk_call(
+        list(exts), [], K=K, B=B, modes=modes, grid=grid,
+        ols=field_ols(grid, shapes), shapes=shapes, E=K,
+        band_update=partial(band_update, kw=kw), extras=(1, 1),
+        freeze_fields=(0, 1), launch=launch, central=central)
+
+
+def _band_launch(src, F, out, cfg, kw, stream: int) -> None:
+    """Launch `igg_hm3d_band_step` once (layout `cfg`,
+    `chunk_engine.band_cfg`) on checked arguments."""
+    coef, npow = coef_args(kw)
+    err = library("hm3d_band").igg_hm3d_band_step(
+        _ptrs(src), _ptrs(F), _ptrs(out), _DTYPE[src[0].dtype], cfg, coef,
+        npow, stream)
+    if err:
+        raise RuntimeError(f"igg_hm3d_band_step launch failed: CUDA error "
+                           f"{err}")
+
+
+band_call.launches = 0
+
+
+def fused_hm3d_banded_steps(Pe, phi, *, n_inner: int, K: int, B: int, grid,
+                            dx, dy, dz, dt, phi0, npow, eta):
+    """Advance `(Pe, phi)` by the `n_inner // K` full chunks of depth K
+    through the banded tier (band depth B); returns `(Pe, phi,
+    steps_done)`.  Same entry contract as
+    :func:`fused_hm3d_trapezoid_steps`."""
+    kw = dict(dx=dx, dy=dy, dz=dz, dt=dt, phi0=phi0, npow=npow, eta=eta)
+    local = grid.local_shape(Pe)
+    modes = dim_modes(grid)
+    ols = field_ols(grid, [local, local])
+
+    def one(Pe, phi):
+        exts = extend_fields([Pe, phi], ols, K, grid, modes)
+        return band_call(exts, local, K=K, B=B, modes=modes, grid=grid,
+                         kw=kw)
 
     return run_chunks((Pe, phi), n_inner=n_inner, K=K, one_chunk=one)

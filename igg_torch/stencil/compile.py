@@ -18,8 +18,10 @@ Dispatch (`use_kernels`, the idiom of :mod:`igg_torch.models.wave2d`):
 
 Not ported: igg's tier ladder (`verify=`, quarantine), `tune=`, the
 overlapped composition (`overlap=`), the streaming banded tier
-(`banded=`/`band=`) and the family registration with perf, autotune and
-integrity (`_register_family`).
+(`banded=`/`band=`: the next slice of the port brings it, with the
+staggered instances of the band kernel; diffusion and HM3D have theirs)
+and the family registration with perf, autotune and integrity
+(`_register_family`).
 """
 
 from __future__ import annotations

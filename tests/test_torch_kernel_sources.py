@@ -13,10 +13,13 @@ and Stokes chunk kernels, and the kernels generated from stencil specs
 (`igg_torch/stencil/cuda.py`: the step and the chunk step of shallow water
 with and without friction, spec-wave2d, a spec of `pow`, `where` and
 scalar divisions, and the rank-3 `relax3d`), spec-wave2d also against the
-hand-written wave2d kernels.  This checks the kernels' indexing, walks
-and arithmetic, not their CUDA-specific parts (vector loads, alignment,
-the launch), which `tests/test_torch_kernels.py` checks on a card.  Skips
-without g++.
+hand-written wave2d kernels, and the diffusion and HM3D band kernels
+(`csrc/band_walk.cuh`, whose threads share a staged window: each thread
+block's threads run as fibers that switch at `__syncthreads`) in every
+window mode, on their whole evolved buffers.  This checks the kernels'
+indexing, walks and arithmetic, not their CUDA-specific parts (vector
+loads, alignment, the launch), which `tests/test_torch_kernels.py` checks
+on a card.  Skips without g++.
 """
 
 import concurrent.futures
@@ -47,8 +50,11 @@ from igg_torch.stencil import lower
 
 RUNTIME = r"""
 #pragma once
+#include <ucontext.h>
+#include <cstddef>
 #include <cstdint>
 #include <functional>
+#include <vector>
 #define __global__
 #define __device__
 #define __host__
@@ -79,14 +85,77 @@ inline void emu_launch(dim3 g, dim3 b, const std::function<void()>& body) {
               body();
             }
 }
+// Kernels with dynamic shared memory and __syncthreads: the threads of a
+// block run as fibers (ucontext), each up to its next barrier in turn, so
+// every thread's writes before a barrier precede every read after it.
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline unsigned char* emu_smem;
+inline ucontext_t emu_main;
+inline std::vector<ucontext_t> emu_ctx;
+inline std::vector<int> emu_done;
+inline unsigned emu_cur;
+inline const std::function<void()>* emu_body;
+inline void __syncthreads() { swapcontext(&emu_ctx[emu_cur], &emu_main); }
+inline void emu_fiber() {
+  (*emu_body)();
+  emu_done[emu_cur] = 1;
+}
+inline void emu_launch_sync(dim3 g, dim3 b, size_t smem,
+                            const std::function<void()>& body) {
+  gridDim = g;
+  blockDim = b;
+  const unsigned n = b.x * b.y * b.z;
+  std::vector<double> mem(smem / sizeof(double) + 1);
+  emu_smem = reinterpret_cast<unsigned char*>(mem.data());
+  std::vector<std::vector<char>> stacks(n, std::vector<char>(1 << 16));
+  emu_ctx.assign(n, ucontext_t{});
+  emu_done.assign(n, 0);
+  emu_body = &body;
+  for (unsigned bz = 0; bz < g.z; ++bz)
+    for (unsigned by = 0; by < g.y; ++by)
+      for (unsigned bx = 0; bx < g.x; ++bx) {
+        blockIdx = {bx, by, bz};
+        for (unsigned t = 0; t < n; ++t) {
+          getcontext(&emu_ctx[t]);
+          emu_ctx[t].uc_stack.ss_sp = stacks[t].data();
+          emu_ctx[t].uc_stack.ss_size = stacks[t].size();
+          emu_ctx[t].uc_link = &emu_main;
+          makecontext(&emu_ctx[t], emu_fiber, 0);
+          emu_done[t] = 0;
+        }
+        for (bool left = true; left;) {
+          left = false;
+          for (unsigned t = 0; t < n; ++t) {
+            if (emu_done[t]) continue;
+            emu_cur = t;
+            threadIdx = {t % b.x, (t / b.x) % b.y, t / (b.x * b.y)};
+            swapcontext(&emu_main, &emu_ctx[t]);
+            left = left || !emu_done[t];
+          }
+        }
+      }
+}
 """
 LAUNCH = re.compile(r"([A-Za-z_]+<[^<>]*>)<<<([^>]*), 0, [a-z]+>>>\((.*)\);")
+# A launch with dynamic shared memory, `k<...><<<grid, block, bytes, s>>>`.
+LAUNCH_SMEM = re.compile(
+    r"([A-Za-z_]+<[^<>]*>)<<<([^,>]*), ([^,>]*), ([a-z_]+), [a-z]+>>>"
+    r"\((.*)\);")
+SHARED = re.compile(r"extern __shared__ [^;]*?(\w+)\[\];")
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
-        "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk")
+        "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
+        "diffusion_band", "hm3d_band")
 
 
 def _rewrite(text):
-    return LAUNCH.sub(r"emu_launch(\2, [&]{ \1(\3); });", text)
+    text = LAUNCH.sub(r"emu_launch(\2, [&]{ \1(\3); });", text)
+    text = LAUNCH_SMEM.sub(r"emu_launch_sync(\2, \3, \4, [&]{ \1(\5); });",
+                           text)
+    return SHARED.sub(r"unsigned char* \1 = emu_smem;", text)
 
 
 def _gxx(out, src, so):
@@ -274,6 +343,64 @@ def test_chunk_kernels_match_plain(emulated, case, dtype, local):
     for a, b in zip(got, htz.window_steps_plain(*exts, K=K, modes=modes,
                                                 grid=g, kw=HM3D_KW)):
         same(a, ce.central_window(b, g.nxyz, K, modes))
+
+
+# The band kernels' layouts: the chunk matrix and one periodic block (x
+# extended, y and z wrapped).
+BAND_GRIDS = dict(CHUNK_GRIDS, **{"1x1x1_periodic": ((1, 1, 1), (1, 1, 1))})
+
+
+def _run_band(launch, exts, local, K, B, modes, g, central):
+    """K launches of a band kernel ping-ponging two sets of buffers, as
+    `chunk_engine.streaming_chunk_call` runs them; the last one writes the
+    central windows when `central`."""
+    bufs = [[torch.empty_like(X) for X in exts] for _ in range(2)]
+    src = list(exts)
+    for k in range(K):
+        last = central and k == K - 1
+        dst = ([torch.empty(it.stacked_shape(local), dtype=X.dtype)
+                for X in exts] if last else bufs[k % 2])
+        launch(src, dst, ce.band_cfg(exts[0].shape, local, K, modes, g, last,
+                                     B=B, lo=1, extra=1, ols=(2, 2, 2)))
+        src = dst
+    return src
+
+
+# Blocks of 18x10x40 and K = 3: an extended x span of 24 rows (18 on a
+# frozen x), cut into 2 or 3 bands; two y tiles (8 + 2 rows) and two z tiles
+# (32 + the rest), so wraps and tiles cross.
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(BAND_GRIDS))
+def test_band_kernels_match_plain(emulated, case, dtype, bands):
+    """The band kernels against `banded_window_plain` in every window mode:
+    the whole evolved extended buffers (the shoulders show the clamp taken
+    per block) and the central windows of the last launch."""
+    (dims, per), K, local = BAND_GRIDS[case], 3, (18, 10, 40)
+    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=dims[2], periodx=per[0],
+                        periody=per[1], periodz=per[2])
+    g = it.get_global_grid()
+    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
+    ols = ce.field_ols(g, [g.nxyz]) * 2
+    B = ce.ext_shape(local, K, modes)[0] // bands
+    T, A = _random(shp, dtype, -10, 10, 17), _random(shp, dtype, 0.001, 0.1, 18)
+    Text, A_ext = ce.extend_fields([T, A], ols, K, g, modes)
+    Pe, phi = (_random(shp, dtype, -0.5, 0, 19),
+               _random(shp, dtype, 0.05, 0.25, 20))
+    exts = ce.extend_fields([Pe, phi], ols, K, g, modes)
+    for central in (False, True):
+        run = dict(local=local, K=K, B=B, modes=modes, g=g, central=central)
+        got = _run_band(lambda src, dst, cfg: dtz._band_launch(
+            src[0], A_ext, Text, dst[0], cfg, SC, 0), [Text], **run)[0]
+        same(got, dtz.band_call(Text, A_ext, local, K=K, B=B, modes=modes,
+                                grid=g, sc=SC, central=central))
+        got = _run_band(lambda src, dst, cfg: htz._band_launch(
+            src, exts, dst, cfg, HM3D_KW, 0), exts, **run)
+        for a, b in zip(got, htz.band_call(exts, local, K=K, B=B, modes=modes,
+                                           grid=g, kw=HM3D_KW,
+                                           central=central)):
+            same(a, b)
 
 
 WAVE_KW = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)

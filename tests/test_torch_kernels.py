@@ -13,10 +13,15 @@ windows, the velocities' freezes, K = 2, 3, 4), and the kernels generated
 from stencil specs (tests/torch_spec_cases.py: shallow water with and
 without friction, spec-wave2d, a spec of `pow`, `where` and scalar
 divisions, the rank-3 `relax3d`; step and chunk step in every window mode,
-spec-wave2d also against the hand wave2d kernels).
+spec-wave2d also against the hand wave2d kernels), and the diffusion and
+HM3D band kernels (every window mode, two and three bands, whole evolved
+buffers and central windows; a window beyond the shared-memory budget
+raises).
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -229,6 +234,81 @@ def test_update_halo_on_card_matches_cpu(card):
     ref = it.update_halo(A.clone(), plain=True)
     assert hw.halo_write.launches == before
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
+
+
+# The band kernels' layouts: the chunk meshes and one periodic block (x
+# extended, y and z wrapped).
+BAND_GRIDS = dict(CHUNK_GRIDS, one_block_periodic=dict(
+    dimx=1, dimy=1, dimz=1, periodx=1, periody=1, periodz=1))
+
+
+# Blocks of 18x10x40, K = 3: an extended x span of 24 rows (18 on a frozen
+# x) in 2 or 3 bands (B = 12 in float64 stages 76,160 bytes a thread block,
+# above the 48 KB that needs the attribute); y and z tiles that cross.
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(BAND_GRIDS))
+def test_band_kernels_match_plain(card, case, dtype, bands):
+    """Both band kernels against `banded_window_plain`: the whole evolved
+    extended buffers and the central windows of the last launch."""
+    K, local = 3, (18, 10, 40)
+    it.init_global_grid(*local, quiet=True, device=card, **BAND_GRIDS[case])
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    B = ce.ext_shape(local, K, modes)[0] // bands
+    assert dtz.banded_refusal(g, local, K, K, dtype, B=B) is None
+    shp = it.stacked_shape(g.nxyz)
+    ols = ce.field_ols(g, [g.nxyz]) * 2
+    T = _random(shp, dtype, -10, 10, 6).to(card)
+    A = _random(shp, dtype, 0.01, 0.1, 7).to(card)
+    Text, A_ext = ce.extend_fields([T, A], ols, K, g, modes)
+    exts = ce.extend_fields([F.to(card) for F in _hm3d_state(shp, dtype, 9)],
+                            ols, K, g, modes)
+    sc = dp.scal(0.3, 0.4, 0.5)
+    plain = dict(K=K, B=B, lo=1, modes=modes, grid=g, ols=ols,
+                 shapes=[local] * 2, E=K, extras=(1, 1))
+    want_t = ce.banded_window_plain(
+        [Text, A_ext], band_update=partial(dtz.banded_update, **sc), n_up=1,
+        freeze_fields=(0,), **plain)[0]
+    want_h = ce.banded_window_plain(
+        list(exts), band_update=partial(htz.band_update, kw=HM3D_KW), n_up=2,
+        freeze_fields=(0, 1), **plain)
+    for central in (False, True):
+        cut = ((lambda F: ce.central_window(F, local, K, modes)) if central
+               else (lambda F: F))
+        before = dtz.band_call.launches, htz.band_call.launches
+        got = dtz.band_call(Text, A_ext, local, K=K, B=B, modes=modes, grid=g,
+                            sc=sc, central=central)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, cut(want_t), rtol=0, atol=0)
+        got = htz.band_call(exts, local, K=K, B=B, modes=modes, grid=g,
+                            kw=HM3D_KW, central=central)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want_h):
+            torch.testing.assert_close(a, cut(b), rtol=0, atol=0)
+        assert (dtz.band_call.launches, htz.band_call.launches) == (
+            before[0] + K, before[1] + K)
+
+
+def test_band_kernel_refuses_what_smem_refuses(card):
+    """A band whose window exceeds a thread block's shared memory (B = 48
+    in float64: 272,000 bytes) raises in the wrapper, and the library
+    refuses the launch itself."""
+    it.init_global_grid(96, 16, 16, quiet=True, device=card)
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    T = _random((96, 16, 16), torch.float64, -1, 1, 3).to(card)
+    A = _random((96, 16, 16), torch.float64, 0.01, 0.1, 4).to(card)
+    sc = dp.scal(0.3, 0.4, 0.5)
+    before = dtz.band_call.launches
+    with pytest.raises(it.GridError, match="shared-memory budget"):
+        dtz.band_call(T, A, g.nxyz, K=4, B=48, modes=modes, grid=g, sc=sc)
+    assert dtz.band_call.launches == before
+    cfg = ce.band_cfg(T.shape, g.nxyz, 4, modes, g, False, B=48, lo=1,
+                      extra=1, ols=(2, 2, 2))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        dtz._band_launch(T, A, T, torch.empty_like(T), cfg, sc,
+                         torch.cuda.current_stream().cuda_stream)
 
 
 WAVE_KW = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
