@@ -86,6 +86,18 @@ the script exits non-zero without printing a result:
 17. HM3D on the banded tier: 256^3 periodic on one block (bitwise the
    K-step loop) and 508^3 periodic on 2x2x2 blocks of 256^3 (bitwise the
    chunk route); the same numbers.
+18. stokes3d on the banded tier (`make_iteration(n_inner=17, banded=True,
+   K=8, band=8)`: a warm-up iteration, two chunks of K launches of the
+   Stokes band kernel), 256^3 periodic on one block (overlap 3), bitwise
+   the chunk route from `update_halo(*init_fields())` evolved by 17
+   iterations; ms/iteration of both routes through `run()` over one
+   trajectory, launches and device time per call, peak device memory.
+19. The same at 509^3 open on 2x2x2 blocks of 256^3 (config 5 at 8
+   blocks).
+20. relax3d (a rank-3 spec) on the banded route, 256^3 periodic on one
+   block, `igg_torch.stencil.compile(n_inner=17, banded=True, K=8,
+   band=8)` bitwise the spec chunk route; ms/step of both, launches and
+   device time per call.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step) and the wave2d kernels (the
@@ -97,9 +109,12 @@ at their main paths' shapes, and the diffusion and HM3D band kernels
 against their plain version (`banded_window_plain`) in every window mode,
 f32 and f64, B = 8 and 16 with two and three bands, on the whole evolved
 buffers and the central windows, then times them at 2x2x2 blocks of 256^3
-(K = 8, B = 8).  Launch counters are set to 0 before each main-path phase
-(2 to 17) and read after it; each of the sixteen kernels must have
-launched on that main path.  The last lines are the run's seconds, the
+(K = 8, B = 8); and the staggered band kernels (the Stokes band step, the
+generated band entry of the rank-3 specs relax3d and acoustic3d) the same
+way, then the Stokes one at 2x2x2 blocks of 256^3 open and relax3d's at
+one 256^3 periodic block (K = 8, B = 8).  Launch counters are set to 0
+before each main-path phase (2 to 20) and read after it; each of the
+eighteen kernels must have launched on that main path.  The last lines are the run's seconds, the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
 JAX and nothing of the `igg` package is imported.
@@ -223,6 +238,15 @@ KERNEL_INFO = {
         replaces="igg/ops/chunk_engine.py:1455"),
     "hm3d_band_step": dict(
         source="igg_torch/csrc/hm3d_band.cu",
+        replaces="igg/ops/chunk_engine.py:1455"),
+    # Its Stokes instance and the rank-3 spec instances (generated, counted
+    # by the generated band entry's wrapper: every spec's launches), on the
+    # staggered band walk csrc/stagger_band_walk3.cuh.
+    "stokes_band_step": dict(
+        source="igg_torch/csrc/stokes_band.cu",
+        replaces="igg/ops/chunk_engine.py:1455"),
+    "spec_band_step[relax3d]": dict(
+        source="igg_torch/stencil/cuda.py", counter="spec_band_step",
         replaces="igg/ops/chunk_engine.py:1455"),
 }
 # Layouts of the small wave2d checks, as init_global_grid keywords.
@@ -537,6 +561,8 @@ class Smoke:
         self.spec_kernel_checks_full()
         self.band_kernel_checks()
         self.band_kernel_checks_full()
+        self.stagger_band_checks()
+        self.stagger_band_checks_full()
 
     def hm3d_input(self, shape, dtype, seed):
         """Random Pe and phi in the ranges of the HM3D initial state."""
@@ -1163,6 +1189,215 @@ class Smoke:
                 f"{p['chunk_bound'][0]:.4f} ms ({p['bound'][0]:.4f} ms a "
                 f"launch, {p['bound'][1]})")
             del exts
+
+    # -- the staggered band kernels (row 6's Stokes and rank-3 instances) --
+    def stokes_band_plain(self, g, exts, Rho_ext, K, B, modes, ols, shapes,
+                          kw, iters=None):
+        """The Stokes band kernel's plain version: `iters` (K when None)
+        banded iterations of the extended buffers, whole evolved
+        buffers."""
+        from functools import partial
+
+        ce, stz = self.ce, self.stz
+        return ce.banded_window_plain(
+            list(exts) + [Rho_ext], K=K if iters is None else iters, B=B,
+            lo=1, modes=modes, grid=g, ols=ols, shapes=shapes, E=2 * K,
+            band_update=partial(stz.band_update, kw=kw), extras=stz.EXTRAS,
+            n_up=4, freeze_fields=stz.FREEZE_FIELDS)[:4]
+
+    def spec_band_plain(self, gen, g, exts, K, B, E, modes, ols, shapes,
+                        iters=None):
+        """The generated band entry's plain version (the band core derived
+        from the spec's evaluator), whole evolved buffers."""
+        ce, sl = self.ce, self.sl
+        lo, extras = sl.band_margins(gen.spec, gen.analysis)
+        return ce.banded_window_plain(
+            list(exts), K=K if iters is None else iters, B=B, lo=lo,
+            modes=modes, grid=g, ols=ols, shapes=shapes, E=E,
+            band_update=sl.band_core(gen), extras=extras, n_up=len(exts),
+            freeze_fields=gen.analysis.freeze)
+
+    def band_compare(self, name, tag, call, counter, want, shapes, E, modes,
+                     K, note=None):
+        """`call(central)` against the whole evolved buffers `want` (and
+        their central windows), tolerance 0, each call launching K
+        times."""
+        for central in (False, True):
+            before = counter.launches
+            got = call(central)
+            sync(self.dev)
+            if counter.launches != before + K:
+                raise SmokeFailure(f"{name} {tag}: {counter.launches - before}"
+                                   f" launches, expected {K}")
+            for f, (a, b, s) in enumerate(zip(got, want, shapes)):
+                if central:
+                    b = self.ce.central_window(b, s, E, modes)
+                err = check(f"{name} {tag} field {f} "
+                            f"{'central' if central else 'whole buffer'}",
+                            a, b, 0.0)
+                if note:
+                    self.note(note, err)
+
+    def stagger_band_checks(self):
+        """The staggered band kernels against their plain version in every
+        window mode, two and three bands, f32 and f64, on the whole evolved
+        buffers (the x-staggered tail rows and the shoulders) and the
+        central windows, with each call's launches counted: Stokes on the
+        layouts of the small Stokes checks (blocks of 12x12x36, K = 3), the
+        generated band entry of the rank-3 specs (relax3d, the staggered
+        acoustic3d) on the 3-D spec layouts (blocks of 18x12x36, K = 3);
+        tolerance 0."""
+        ce, sp, stz, sl = self.ce, self.sp, self.stz, self.sl
+        kw = dict(dx=0.31, dy=0.27, dz=0.43, mu=1.3, dtP=0.07, dtV=0.011)
+        K, local = 3, (12, 12, 36)
+        for case, gkw in STOKES_GRIDS.items():
+            g = self.grid(local, **OL3, **gkw)
+            modes = ce.dim_modes(g)
+            shapes = sp.field_shapes(g.nxyz)
+            ols = ce.field_ols(g, shapes)
+            for dtype in (torch.float32, torch.float64):
+                *S, Rho = self.stokes_state(g, dtype, 57)
+                exts = ce.extend_fields(S, ols[:4], 2 * K, g, modes)
+                Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g,
+                                           modes)[0]
+                for bands in (2, 3):
+                    B = ce.ext_shape(local, 2 * K, modes)[0] // bands
+                    tag = f"{case} {local} B={B} {dtype}"
+                    why = stz.stokes_banded_refusal(g, local, K, K, dtype,
+                                                    B=B)
+                    if why is not None:
+                        raise SmokeFailure(f"Stokes band {tag}: {why}")
+                    want = self.stokes_band_plain(g, exts, Rho_ext, K, B,
+                                                  modes, ols, shapes, kw)
+                    self.band_compare(
+                        "stokes_band_step", tag,
+                        lambda central: stz.band_call(
+                            exts, Rho_ext, shapes, K=K, B=B, modes=modes,
+                            grid=g, kw=kw, ols=ols, central=central),
+                        stz.band_call, want, shapes, 2 * K, modes, K,
+                        note="stokes_band_step")
+        K, local = 3, (18, 12, 36)
+        for name in self.cases.SPECS_3D:
+            gen = self.spec_gen(name)
+            for case in self.cases.GRIDS_3D:
+                g = self.spec_grid(name, case, local)
+                shapes = sl.field_shapes(gen.spec, g.nxyz)
+                E = gen.analysis.margin_after(K)
+                modes = ce.dim_modes(g)
+                ols = ce.field_ols(g, shapes)
+                for dtype in (torch.float32, torch.float64):
+                    exts = ce.extend_fields(
+                        self.spec_state(gen, g, dtype, 85), ols, E, g, modes)
+                    for bands in (2, 3):
+                        B = ce.ext_shape(local, E, modes)[0] // bands
+                        tag = f"{name} {case} {local} B={B} {dtype}"
+                        why = sl.banded_refusal(gen.spec, gen.analysis, g,
+                                                shapes[0], K, K, dtype, B=B)
+                        if why is not None:
+                            raise SmokeFailure(f"spec band {tag}: {why}")
+                        want = self.spec_band_plain(gen, g, exts, K, B, E,
+                                                    modes, ols, shapes)
+                        self.band_compare(
+                            "spec_band_step", tag,
+                            lambda central: sl.band_call(
+                                gen, exts, shapes, K=K, B=B, E=E,
+                                modes=modes, grid=g, ols=ols,
+                                central=central),
+                            sl.band_call, want, shapes, E, modes, K,
+                            note=("spec_band_step[relax3d]"
+                                  if name == "relax3d" else None))
+        log(f"[phase 1] staggered band kernels in every window mode: max abs "
+            f"err {self.err['stokes_band_step']:.3e} (Stokes), "
+            f"{self.err['spec_band_step[relax3d]']:.3e} (relax3d; acoustic3d "
+            f"checked alike) (tolerance 0)")
+
+    def stagger_band_checks_full(self):
+        """Both staggered band kernels at their main paths' shapes, f32,
+        K = 8, B = 8: the Stokes band step at 2x2x2 blocks of n_multi^3,
+        open (config 5's 509^3: 8 extended blocks of 288^3), and relax3d's
+        generated band step on one n_stokes^3 periodic block (272 x 256 x
+        256 extended); checked against their plain version, then timed
+        beside one plain iteration and two bounds of compulsory bytes: a
+        pass (every staged array read once, every field written once) and
+        the whole chunk (each extended array read once, each central block
+        written once; the table's bound is the chunk's divided by K)."""
+        ce, sp, stz, sl = self.ce, self.sp, self.stz, self.sl
+        m, k, K, B = self.n_multi, self.time_iters, K_CHUNK, 8
+        g = self.grid((m, m, m), dimx=2, dimy=2, dimz=2, **OL3)
+        kw = self.st3._pseudo_steps(self.st3.Params())
+        modes = ce.dim_modes(g)
+        shapes = sp.field_shapes(g.nxyz)
+        ols = ce.field_ols(g, shapes)
+        *S, Rho = self.stokes_state(g, torch.float32, 59)
+        exts = ce.extend_fields(S, ols[:4], 2 * K, g, modes)
+        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        del S, Rho
+        tag = f"2x2x2 x {m}^3 f32 open"
+        run = lambda: stz.band_call(exts, Rho_ext, shapes, K=K, B=B,
+                                    modes=modes, grid=g, kw=kw, ols=ols)
+        got = run()
+        want = self.stokes_band_plain(g, exts, Rho_ext, K, B, modes, ols,
+                                      shapes, kw)
+        for name, a, b, s in zip(STOKES_NAMES, got, want, shapes):
+            self.note("stokes_band_step", check(
+                f"stokes_band_step {name} {tag}", a,
+                ce.central_window(b, s, 2 * K, modes), 0.0))
+        del got, want
+        rd = float(sum(X.numel() for X in exts) + Rho_ext.numel())
+        wr = float(sum(X.numel() for X in exts))
+        out_cells = float(sum(np.prod([g.dims[d] * s[d] for d in range(3)])
+                              for s in shapes[:4]))
+        cells = float(Rho_ext.numel())
+        self.perf["stokes_band_step"] = dict(
+            kernel_time(run, max(k // 10, 2), "stag_band_kernel"),
+            plain_ms=event_ms(lambda: self.stokes_band_plain(
+                g, exts, Rho_ext, K, B, modes, ols, shapes, kw, iters=1), 1),
+            bound=bound_ms(4 * (rd + out_cells) / K,
+                           STOKES_FLOPS * cells, F32_FLOPS),
+            pass_bound=bound_ms(4 * (rd + wr), STOKES_FLOPS * cells,
+                                F32_FLOPS),
+            chunk_bound=bound_ms(4 * (rd + out_cells),
+                                 STOKES_FLOPS * cells * K, F32_FLOPS))
+        self.perf["stokes_band_step"]["events_ms"] /= K
+        del exts, Rho_ext
+        n = self.n_stokes
+        gen = self.spec_gen("relax3d")
+        g = self.spec_grid("relax3d", "1x1x1_periodic", (n, n, n))
+        shapes = sl.field_shapes(gen.spec, g.nxyz)
+        E = gen.analysis.margin_after(K)
+        modes = ce.dim_modes(g)
+        ols = ce.field_ols(g, shapes)
+        exts = ce.extend_fields(self.spec_state(gen, g, torch.float32, 99),
+                                ols, E, g, modes)
+        run3 = lambda: sl.band_call(gen, exts, shapes, K=K, B=B, E=E,
+                                    modes=modes, grid=g, ols=ols)
+        check(f"spec_band_step[relax3d] {n}^3", run3()[0],
+              ce.central_window(self.spec_band_plain(
+                  gen, g, exts, K, B, E, modes, ols, shapes)[0], shapes[0],
+                  E, modes), 0.0)
+        ext_cells, out_cells = float(exts[0].numel()), float(n) ** 3
+        self.perf["spec_band_step[relax3d]"] = dict(
+            kernel_time(run3, max(k // 5, 4), "stag_band_kernel"),
+            plain_ms=event_ms(lambda: self.spec_band_plain(
+                gen, g, exts, K, B, E, modes, ols, shapes, iters=1), 1),
+            bound=bound_ms(4 * (ext_cells + out_cells) / K,
+                           RELAX3D_FLOPS * ext_cells, F32_FLOPS),
+            pass_bound=bound_ms(4 * 2 * ext_cells, RELAX3D_FLOPS * ext_cells,
+                                F32_FLOPS),
+            chunk_bound=bound_ms(4 * (ext_cells + out_cells),
+                                 RELAX3D_FLOPS * ext_cells * K, F32_FLOPS))
+        self.perf["spec_band_step[relax3d]"]["events_ms"] /= K
+        del exts
+        for name, tag in (("stokes_band_step", f"2x2x2 x {m}^3 f32 open"),
+                          ("spec_band_step[relax3d]", f"{n}^3 f32 periodic")):
+            p = self.perf[name]
+            log(f"[phase 1] {name} at {tag}, K={K}, B={B}: {p['ms']:.4f} ms "
+                f"device per launch ({p['ms_from']}), {p['events_ms']:.4f} "
+                f"ms per launch back to back (events), plain "
+                f"{p['plain_ms']:.4f} ms (one iteration); bounds: a pass "
+                f"{p['pass_bound'][0]:.4f} ms, the whole chunk "
+                f"{p['chunk_bound'][0]:.4f} ms ({p['bound'][0]:.4f} ms a "
+                f"launch, {p['bound'][1]})")
 
     # -- main path --------------------------------------------------------
     def heat(self, T, Cp) -> float:
@@ -2322,8 +2557,117 @@ class Smoke:
         self.banded_route(17, "hm3d", one_block=True)
         self.banded_route(17, "hm3d", one_block=False)
 
+    def stokes_banded(self, phase, one_block: bool):
+        """stokes3d on the banded tier: `make_iteration(n_inner=steps,
+        banded=True, K=8, band=8)` (a warm-up iteration, two chunks of 8
+        band launches) against the chunk route, bitwise, from
+        `update_halo(*init_fields())` evolved by `steps` iterations of the
+        chunk route (the fluid moving, not at rest); then both routes
+        through `run()` over one trajectory (`steps` iterations a call,
+        `nt_multi` timed calls from `init_fields`; zero dividends take the
+        division's slow path), launches and device time per call split by
+        kernel, peak device memory."""
+        it, st3 = self.it, self.st3
+        n, steps, K, B = self.n_multi, self.steps_multi, K_CHUNK, 8
+        if one_block:
+            self.grid((n, n, n), **SINGLE, **PERIODIC, **OL3)
+            tag = f"Stokes {n}^3 periodic one block"
+        else:
+            self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **OL3)
+            tag = f"Stokes {it.nx_g()}^3 open (2x2x2 x {n}^3)"
+        p = st3.Params()
+        *V, Rho = it.update_halo(*st3.init_fields(p))
+        chunk = st3.make_iteration(p, n_inner=steps)
+        V = chunk(*V, Rho)
+        banded = st3.make_iteration(p, n_inner=steps, banded=True, K=K,
+                                    band=B)
+        before = self.ops.launch_counts()["stokes_band_step"]
+        sync(self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        got = banded(*V, Rho)
+        sync(self.dev)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launched = self.ops.launch_counts()["stokes_band_step"] - before
+        if launched != (steps - 1) // K * K:
+            raise SmokeFailure(f"{tag}: {launched} band launches in {steps} "
+                               f"iterations")
+        err = max(check(f"{tag}: banded route vs chunk route, {name}", a, b,
+                        0.0)
+                  for name, a, b in zip(STOKES_NAMES, got, chunk(*V, Rho)))
+        self.stokes_state_check(tag, got)
+        del got
+        split, n_call = device_ms_by_kernel(lambda: banded(*V, Rho), 3)
+        del V, Rho
+        # run() gives seconds per iteration.
+        S1, sec = st3.run(self.nt_multi, p, n_inner=steps, banded=True, K=K,
+                          band=B)
+        self.stokes_state_check(f"{tag} run(banded=True)", S1[:4])
+        S2, sec_c = st3.run(self.nt_multi, p, n_inner=steps)
+        same = all(torch.equal(a, b) for a, b in zip(S1, S2))
+        del S1, S2
+        iters = (3 + self.nt_multi) * steps
+        log(f"[phase {phase}] {tag}: {steps} iterations on the banded route "
+            f"(K={K}, B={B}) vs the chunk route {err:.3e} (tolerance 0); peak "
+            f"device memory {peak_gb:.3f} GB, of which {held_gb:.3f} GB held "
+            f"before the call (P, Vx, Vy, Vz, Rho)")
+        log(f"[phase {phase}] {tag}: through run() over the same {iters} "
+            f"iterations: banded route {sec * 1e3:.4f} ms/iteration, "
+            f"chunk route {sec_c * 1e3:.4f} ms/iteration (end states "
+            f"{'equal' if same else 'differ'}); banded route, one call: "
+            f"{n_call:.0f} launches, device {sum(split.values()):.4f} ms "
+            f"{json.dumps(split)}")
+        self.perf[f"banded_{tag}"] = dict(
+            ms_per_iteration=sec * 1e3,
+            chunk_route_ms_per_iteration=sec_c * 1e3,
+            iterations_timed=iters, device_ms_per_call=split,
+            launches_per_call=n_call, peak_gb=peak_gb, held_gb=held_gb)
+
+    def relax3d_banded(self):
+        """Phase 20: relax3d on one n_stokes^3 periodic block through
+        `compile(n_inner=steps, banded=True, K=8, band=8)` against the
+        spec chunk route (`compile(n_inner=steps)`), bitwise, from random
+        fields whose halos are updated; then both slope-timed over the same
+        calls, launches and device time per call."""
+        it, sl = self.it, self.sl
+        n, steps, K, B = self.n_stokes, self.steps_multi, K_CHUNK, 8
+        gen = self.spec_gen("relax3d")
+        g = self.spec_grid("relax3d", "1x1x1_periodic", (n, n, n))
+        tag = f"relax3d {n}^3 periodic one block"
+        S = (it.update_halo(self.spec_state(gen, g, torch.float32, 97)[0]),)
+        banded = it.stencil.compile(gen.spec, coeffs=gen.coeffs,
+                                    n_inner=steps, banded=True, K=K, band=B)
+        chunk = it.stencil.compile(gen.spec, coeffs=gen.coeffs,
+                                   n_inner=steps)
+        before = self.ops.launch_counts()["spec_band_step"]
+        got = banded(*S)
+        sync(self.dev)
+        launched = self.ops.launch_counts()["spec_band_step"] - before
+        if launched != (steps - 1) // K * K:
+            raise SmokeFailure(f"{tag}: {launched} band launches in {steps} "
+                               f"steps")
+        err = check(f"{tag}: banded route vs chunk route", got[0],
+                    chunk(*S)[0], 0.0)
+        if not bool(torch.isfinite(got[0]).all()):
+            raise SmokeFailure(f"{tag}: non-finite values")
+        del got
+        split, n_call = device_ms_by_kernel(lambda: banded(*S), 3)
+        n1 = max(1, self.nt_multi // 4)
+        _, sec = it.time_steps(banded, S, n1=n1, n2=self.nt_multi - n1)
+        _, sec_c = it.time_steps(chunk, S, n1=n1, n2=self.nt_multi - n1)
+        log(f"[phase 20] {tag}: {steps} steps on the banded route (K={K}, "
+            f"B={B}) vs the chunk route {err:.3e} (tolerance 0); banded "
+            f"route {sec / steps * 1e3:.4f} ms/step, chunk route "
+            f"{sec_c / steps * 1e3:.4f} ms/step; banded route, one call: "
+            f"{n_call:.0f} launches, device {sum(split.values()):.4f} ms "
+            f"{json.dumps(split)}")
+        self.perf[f"banded_{tag}"] = dict(
+            ms_per_step=sec / steps * 1e3,
+            chunk_route_ms_per_step=sec_c / steps * 1e3,
+            device_ms_per_call=split, launches_per_call=n_call)
+
     def main_path(self):
-        """Phases 2 to 17, each with the launch counters set to 0 just
+        """Phases 2 to 20, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -2341,7 +2685,10 @@ class Smoke:
             ("12", self.stokes_one_block), ("13", self.stokes_509),
             ("14", self.shallow_water_one_block),
             ("15", self.shallow_water_config3),
-            ("16", self.diffusion_banded), ("17", self.hm3d_banded)]
+            ("16", self.diffusion_banded), ("17", self.hm3d_banded),
+            ("18", lambda: self.stokes_banded(18, one_block=True)),
+            ("19", lambda: self.stokes_banded(19, one_block=False)),
+            ("20", self.relax3d_banded)]
         self.launches = {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

@@ -49,6 +49,21 @@ struct Stokes {
     return f >= 1;
   }
 
+  // The arrays the band walk stages (stagger_band_walk3.cuh): P, Vx, Vy,
+  // Vz, then Rho (laid out like P); every value `cells` reads lies within
+  // one cell of its cell along each dim.
+  static constexpr int NS = 5;
+  static constexpr int RADIUS = 1;
+  __device__ __forceinline__ const T* staged(int k) const {
+    return k < 4 ? src[k] : rho;
+  }
+  __device__ __forceinline__ void restage(int k, const T* p) {
+    if (k < 4)
+      src[k] = p;
+    else
+      rho = p;
+  }
+
   // x / d, an IEEE division: every division of the update is by a spacing
   // or by 3.
   __device__ __forceinline__ T quot(T x, T d) const { return x / d; }
@@ -222,29 +237,41 @@ struct Stokes {
 // constant rho into out, with the chunk-entry buffers F (none for a step);
 // coef: dx dy dz mu 2*mu dtP dtV, each rounded once to T; dtype: 0 float32,
 // 1 float64.
+// The policy on src (P, Vx, Vy, Vz) and rho; coef: dx dy dz mu 2*mu dtP
+// dtV, each rounded once to T.
+template <typename T>
+Stokes<T> make_stokes(void* const* src, const void* rho, const double* coef) {
+  return Stokes<T>{{static_cast<const T*>(src[0]),
+                    static_cast<const T*>(src[1]),
+                    static_cast<const T*>(src[2]),
+                    static_cast<const T*>(src[3])},
+                   static_cast<const T*>(rho),
+                   (T)coef[0], (T)coef[1], (T)coef[2], (T)coef[3],
+                   (T)coef[4], (T)coef[5], (T)coef[6]};
+}
+
+// The four fields' pointers, read-only (the chunk-entry buffers; none when
+// F is null) or written (the targets).
+template <typename T>
+Fields<const T, 4> stokes_entry(void* const* F) {
+  if (F == nullptr) return Fields<const T, 4>{};
+  return Fields<const T, 4>{{static_cast<const T*>(F[0]),
+                             static_cast<const T*>(F[1]),
+                             static_cast<const T*>(F[2]),
+                             static_cast<const T*>(F[3])}};
+}
+template <typename T>
+Fields<T, 4> stokes_out(void* const* out) {
+  return Fields<T, 4>{{static_cast<T*>(out[0]), static_cast<T*>(out[1]),
+                       static_cast<T*>(out[2]), static_cast<T*>(out[3])}};
+}
+
 template <typename T>
 int launch_stokes_as(void* const* src, const void* rho, void* const* F,
                      void* const* out, const Stag3& g, const double* coef,
                      cudaStream_t stream) {
-  const Stokes<T> ph{{static_cast<const T*>(src[0]),
-                      static_cast<const T*>(src[1]),
-                      static_cast<const T*>(src[2]),
-                      static_cast<const T*>(src[3])},
-                     static_cast<const T*>(rho),
-                     (T)coef[0], (T)coef[1], (T)coef[2], (T)coef[3],
-                     (T)coef[4], (T)coef[5], (T)coef[6]};
-  Fields<const T, 4> fr{};
-  if (F != nullptr)
-    fr = Fields<const T, 4>{{static_cast<const T*>(F[0]),
-                             static_cast<const T*>(F[1]),
-                             static_cast<const T*>(F[2]),
-                             static_cast<const T*>(F[3])}};
-  return launch_stagger3(ph, g, fr,
-                         Fields<T, 4>{{static_cast<T*>(out[0]),
-                                       static_cast<T*>(out[1]),
-                                       static_cast<T*>(out[2]),
-                                       static_cast<T*>(out[3])}},
-                         stream);
+  return launch_stagger3(make_stokes<T>(src, rho, coef), g,
+                         stokes_entry<T>(F), stokes_out<T>(out), stream);
 }
 
 inline int launch_stokes(void* const* src, const void* rho, void* const* F,

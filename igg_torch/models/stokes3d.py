@@ -52,9 +52,17 @@ Dispatch of :func:`make_iteration` (`use_kernels`), the idiom of
   does ``True`` on the CPU, while ``"auto"`` on the CPU takes the plain
   composition.
 
-Not ported here: `local_iteration(overlap=True)` (`igg.hide_communication`),
-the streaming banded tier (`stokes3d.banded`) and the tier ladder's
-`verify=`/`tune=` arguments.
+The streaming banded tier (igg's `stokes3d.banded`): `banded="auto"`,
+True or False with `band=` (its depth B) and `K=`: a warm-up iteration,
+then K-iteration chunks of x-row bands of depth B, each iteration one
+launch of the band kernel (:mod:`igg_torch.ops.stokes_trapezoid`), then the
+remainder per iteration; "auto" takes it only where the chunk route
+refuses, True takes it or raises a GridError naming "banded" (also with
+`use_kernels=False` or where the plain composition serves).  On the CPU
+the band kernel's plain version runs.
+
+Not ported here: `local_iteration(overlap=True)` (`igg.hide_communication`)
+and the tier ladder's `verify=`/`tune=` arguments.
 """
 
 from __future__ import annotations
@@ -212,20 +220,32 @@ def _kernel_path(use_kernels, P, Vx, Vy, Vz, Rho) -> bool:
 
 
 def make_iteration(params: Params = Params(), *, n_inner: int = 1,
-                   use_kernels="auto", K: int = None):
+                   use_kernels="auto", K: int = None, banded="auto",
+                   band: int = None):
     """`(P, Vx, Vy, Vz, Rho) -> (P, Vx, Vy, Vz)` advancing `n_inner`
     iterations; returns new tensors and leaves its inputs as they were.
     `use_kernels` picks the path (module docstring); `K` is the chunk depth
     of the chunk route, which serves only where the chunk admits it
-    (default: the largest of 8, 4, 2 it admits, igg's `fit_stokes_K`)."""
+    (default: the largest of 8, 4, 2 it admits, igg's `fit_stokes_K`);
+    `banded` and `band` the banded tier (module docstring)."""
+    from ..ops.stokes_pallas import BANDED_REQ
+
     if n_inner < 1:
         raise GridError(f"n_inner must be >= 1, got {n_inner}")
+    if banded not in ("auto", True, False):
+        raise GridError(f"banded={banded!r}: expected 'auto', True or False")
+    if banded is True and use_kernels is False:
+        raise GridError(f"{BANDED_REQ}; use_kernels=False pins the plain "
+                        f"composition")
     kw = _pseudo_steps(params)
 
     def iterate(P, Vx, Vy, Vz, Rho):
         from ..ops import stokes_pallas
 
         if not _kernel_path(use_kernels, P, Vx, Vy, Vz, Rho):
+            if banded is True:
+                raise GridError(f"{BANDED_REQ}; the plain composition "
+                                f"serves these fields")
             blocks = shared.global_grid().dims
             for _ in range(n_inner):
                 P, Vx, Vy, Vz = block_compute(P, Vx, Vy, Vz, Rho, blocks,
@@ -233,20 +253,23 @@ def make_iteration(params: Params = Params(), *, n_inner: int = 1,
                 halo.update_halo(P, Vx, Vy, Vz, plain=True)
             return P, Vx, Vy, Vz
         return stokes_pallas.fused_stokes_iterations(
-            P, Vx, Vy, Vz, Rho, n_inner=n_inner, K=K, **kw)
+            P, Vx, Vy, Vz, Rho, n_inner=n_inner, K=K, banded=banded,
+            band=band, **kw)
 
     return iterate
 
 
 def run(n_iters: int, params: Params = Params(), dtype=torch.float32,
-        n_inner: int = 1, use_kernels="auto"):
+        n_inner: int = 1, use_kernels="auto", K: int = None, banded="auto",
+        band: int = None):
     """Slope-timed relaxation (:func:`igg_torch.time_steps`, igg's
     `stokes3d.run`): `n_iters` timed calls in batches of ~n_iters/4 and
     ~3n_iters/4 after the default three untimed ones, each call advancing
-    `n_inner` iterations.  Returns `((P, Vx, Vy, Vz, Rho),
-    seconds_per_iteration)`."""
+    `n_inner` iterations (`make_iteration`'s route arguments).  Returns
+    `((P, Vx, Vy, Vz, Rho), seconds_per_iteration)`."""
     P, Vx, Vy, Vz, Rho = init_fields(params, dtype=dtype)
-    it = make_iteration(params, n_inner=n_inner, use_kernels=use_kernels)
+    it = make_iteration(params, n_inner=n_inner, use_kernels=use_kernels,
+                        K=K, banded=banded, band=band)
     n1 = max(1, n_iters // 4)
     state, sec = time_steps(
         lambda P, Vx, Vy, Vz, Rho: it(P, Vx, Vy, Vz, Rho) + (Rho,),

@@ -34,6 +34,13 @@ Dispatch of :func:`make_multi_step` (`use_kernels`), the idiom of
   CUDA tensor raises (never a quiet fallback); so does ``True`` on the
   CPU, while ``"auto"`` on the CPU takes the plain composition.
 
+The streaming banded tier (igg's `wave2d.banded`): `banded="auto"`, True
+or False with `band=` and `K=`.  igg compiles its streaming kernel for
+3-D fields only, and so does the port: on CPU tensors the tier runs its
+plain realization (a warm-up step, K-step chunks of x-row bands of depth
+B, the remainder per step; :mod:`igg_torch.ops.wave2d_trapezoid`), on the
+card `banded=True` raises igg's refusal and "auto" never takes it.
+
 Not ported here: `local_step(overlap=True)` (`igg.hide_communication`) and
 the integrity invariant's registration.
 """
@@ -156,27 +163,39 @@ def _kernel_path(use_kernels, P, Vx, Vy) -> bool:
 
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
-                    use_kernels="auto", K: int = None):
+                    use_kernels="auto", K: int = None, banded="auto",
+                    band: int = None):
     """`(P, Vx, Vy) -> (P, Vx, Vy)` advancing `n_inner` steps; returns new
     tensors and leaves its inputs as they were.  `use_kernels` picks the
     path (module docstring); `K` is the chunk depth of the chunk route,
     which serves only where the chunk admits it (default: the largest of 8,
-    4, 2 it admits, igg's `fit_wave2d_K`)."""
+    4, 2 it admits, igg's `fit_wave2d_K`); `banded` and `band` the banded
+    tier (module docstring)."""
+    from ..ops.wave2d_pallas import BANDED_REQ
+
     if n_inner < 1:
         raise GridError(f"n_inner must be >= 1, got {n_inner}")
+    if banded not in ("auto", True, False):
+        raise GridError(f"banded={banded!r}: expected 'auto', True or False")
+    if banded is True and use_kernels is False:
+        raise GridError(f"{BANDED_REQ}; use_kernels=False pins the plain "
+                        f"composition")
     kw = params.step_kwargs()
 
     def step(P, Vx, Vy):
         from ..ops import wave2d_pallas
 
         if not _kernel_path(use_kernels, P, Vx, Vy):
+            if banded is True:
+                raise GridError(f"{BANDED_REQ}; the plain composition "
+                                f"serves these fields")
             blocks = shared.global_grid().dims[:2]
             for _ in range(n_inner):
                 P, Vx, Vy = block_compute(P, Vx, Vy, blocks, **kw)
                 halo.update_halo(P, Vx, Vy, plain=True)
             return P, Vx, Vy
-        return wave2d_pallas.fused_wave2d_steps(P, Vx, Vy, n_inner=n_inner,
-                                                K=K, **kw)
+        return wave2d_pallas.fused_wave2d_steps(
+            P, Vx, Vy, n_inner=n_inner, K=K, banded=banded, band=band, **kw)
 
     return step
 

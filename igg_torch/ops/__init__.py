@@ -23,7 +23,8 @@ from .hm3d_trapezoid import (fused_hm3d_banded_steps,
 from .pack import pack_planes
 from .stencil import interior_add
 from .stokes_pallas import fused_stokes_iteration, fused_stokes_iterations
-from .stokes_trapezoid import fused_stokes_trapezoid_iters
+from .stokes_trapezoid import (fused_stokes_banded_iters,
+                               fused_stokes_trapezoid_iters)
 from .wave2d_pallas import fused_wave2d_step, fused_wave2d_steps
 from .wave2d_trapezoid import fused_wave2d_chunk_steps
 
@@ -43,17 +44,19 @@ KERNELS = {
     "wave2d_chunk_step": wave2d_trapezoid.chunk_call,
     "stokes_step": stokes_pallas.step_kernel,
     "stokes_chunk_step": stokes_trapezoid.chunk_call,
+    "stokes_band_step": stokes_trapezoid.band_call,
 }
 
 
 def all_kernels() -> dict:
     """`KERNELS` and the wrappers of the kernels generated from a stencil
-    spec (`igg_torch.stencil.lower`: the per-step kernel and the chunk
-    step, each counting the launches of every spec)."""
+    spec (`igg_torch.stencil.lower`: the per-step kernel, the chunk step
+    and the band step, each counting the launches of every spec)."""
     from ..stencil import lower
 
     return dict(KERNELS, spec_step=lower.step_kernel,
-                spec_chunk_step=lower.chunk_call)
+                spec_chunk_step=lower.chunk_call,
+                spec_band_step=lower.band_call)
 
 
 def reset_launch_counts() -> None:

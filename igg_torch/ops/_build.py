@@ -4,11 +4,12 @@ Each `igg_torch/csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a
 shared library with a plain C interface, `igg_torch/_build/<name>-<hash>.so`
 (the hash covers the sources and flags, so an edited kernel rebuilds), and
 loaded with `ctypes`.  A source generated from a stencil spec
-(`igg_torch/stencil/cuda.py`) goes the same way through
-:func:`generated_library`: its text is written to
-`igg_torch/_build/gen/<tag>-<hash>.cu`, where the hash covers the text,
-every `csrc/*.cuh` header and the flags (two specs of the same text share
-one build; an edited walk rebuilds every generated library).  Nothing is
+(`igg_torch/stencil/cuda.py`, one per spec: its step, chunk step and, at
+rank 3, band step) goes the same way through :func:`generated_library`:
+its text is written to `igg_torch/_build/gen/<tag>-<hash>.cu`, where the
+hash covers the text, every `csrc/*.cuh` header and the flags (two specs
+of the same text share one build; an edited walk rebuilds every generated
+library).  Nothing is
 built when a module is imported: the first call that needs a library
 builds it; :func:`build_all` builds every library at once (and any
 generated sources it is given), one `nvcc` process per source, all started
@@ -76,6 +77,10 @@ SIGNATURES: Dict[str, tuple] = {
                      [ctypes.POINTER(_P), ctypes.POINTER(_P), _P,
                       ctypes.POINTER(_P), _I, ctypes.POINTER(_I),
                       ctypes.POINTER(_D), _P]),
+    "stokes_band": ("igg_stokes_band_step",
+                    [ctypes.POINTER(_P), ctypes.POINTER(_P), _P,
+                     ctypes.POINTER(_P), _I, ctypes.POINTER(_I),
+                     ctypes.POINTER(_D), _P]),
 }
 
 _lock = threading.Lock()
@@ -189,10 +194,10 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def generated_library(source: str, tag: str) -> ctypes.CDLL:
-    """The loaded library of a generated source (its entry point
-    `igg_spec_step` typed), built first if needed; a failed build raises
-    with nvcc's log."""
-    from ..stencil.cuda import ARGTYPES, ENTRY
+    """The loaded library of a generated source (its entry points
+    `igg_spec_step` and, at rank 3, `igg_spec_band_step` typed), built
+    first if needed; a failed build raises with nvcc's log."""
+    from ..stencil.cuda import ARGTYPES, BAND_ENTRY, ENTRY
 
     # Keyed by the text itself: hashing it and reading the headers on every
     # launch would cost more host time than the launch.
@@ -203,8 +208,10 @@ def generated_library(source: str, tag: str) -> ctypes.CDLL:
         if source not in _generated:
             _finish(tag, _start_generated(source, tag))
             lib = ctypes.CDLL(generated_path(source, tag))
-            fn = getattr(lib, ENTRY)
-            fn.argtypes = ARGTYPES
-            fn.restype = ctypes.c_int
+            for name in (ENTRY, BAND_ENTRY):
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes = ARGTYPES
+                    fn.restype = ctypes.c_int
             _generated[source] = lib
         return _generated[source]

@@ -3,7 +3,8 @@ card).
 
 igg's budget authority models the VMEM footprint of each TPU kernel against
 a scoped-VMEM cap.  On the H100 only the band kernels
-(`csrc/band_walk.cuh`) stage a working set on chip, and the one limit that
+(`csrc/band_walk.cuh`, `csrc/stagger_band_walk3.cuh`) stage a working set
+on chip, and the one limit that
 binds is the shared memory a thread block may use: 232,448 bytes (227 KB,
 opted into with `cudaFuncAttributeMaxDynamicSharedMemorySize` above the
 default 48 KB).  :func:`banded_smem` is the bytes one thread block stages;
@@ -18,7 +19,7 @@ from typing import Callable, Optional, Sequence, Tuple
 # Shared memory one thread block may use on the H100 (opt-in maximum).
 SMEM_PER_BLOCK = 232_448
 # The y and z cells of a band kernel's thread-block tile (`BAND_TY`,
-# `BAND_TZ` in csrc/band_walk.cuh).
+# `BAND_TZ` in csrc/band_walk.cuh, shared by csrc/stagger_band_walk3.cuh).
 BAND_TILE = (8, 32)
 
 
@@ -28,16 +29,21 @@ def chunk_budget() -> int:
 
 
 def banded_smem(B: int, extras: Sequence[int], *, lo: int = 1,
-                itemsize: int = 4) -> int:
+                itemsize: int = 4, stags: Optional[Sequence] = None,
+                radius: int = 1) -> int:
     """Bytes one thread block of a band kernel stages: for each array (the
     updated fields, then the constant ones; `extras[f]` the rows it reads
     above a band), rows `lo + B + extras[f]` over the y/z tile plus the
-    stencil's radius of 1.  The freeze values are read from the
+    stencil's `radius` on both sides plus the array's own stagger along y
+    and z (`stags[f] = (st_y, st_z)`, none when `stags` is None: the
+    unstaggered band walk).  The freeze values are read from the
     chunk-entry buffers in device memory, as the chunk kernels read them,
     and take no shared memory."""
     ty, tz = BAND_TILE
-    plane = (ty + 2) * (tz + 2)
-    return int(sum((lo + B + e) * plane for e in extras) * itemsize)
+    stags = stags or [(0, 0)] * len(extras)
+    return int(sum((lo + B + e) * (ty + 2 * radius + sy)
+                   * (tz + 2 * radius + sz)
+                   for e, (sy, sz) in zip(extras, stags)) * itemsize)
 
 
 def fit_banded(admissible: Callable[[int, int], bool], kmax: int, *,

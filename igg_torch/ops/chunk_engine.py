@@ -38,24 +38,31 @@ The streaming banded realization (igg's `banded_window_xla` and
 `_streaming_kernel`): K iterations, each sweeping every extended block in
 x-row bands of depth B that read the previous iteration's values through a
 window of rows `[a - lo, a + B + extras[f])`, clamped to duplicates of the
-block's first and last rows, with the per-band halo handling of
-:func:`band_halo`.  Its shoulders differ from the window realization's
+block's first and last rows of each field, with the per-band halo handling
+of :func:`band_halo`.  Its shoulders differ from the window realization's
 (clamped rows, exact-row freezes), its central windows do not.
-:func:`banded_window_plain` is the plain version of the band kernels
-(`csrc/band_walk.cuh`: diffusion and HM3D), :func:`streaming_chunk_call`
-their launcher, :func:`banded_refusal` and :func:`admit_banded_geometry`
-their gates and `igg_torch.ops._smem` their shared-memory budget.
+:func:`banded_window_plain` is the plain version of the band kernels, of
+any rank; :func:`streaming_chunk_call` their launcher, which on the card
+takes 3-D fields only, as igg's compiled streaming kernel does
+(`csrc/band_walk.cuh`: diffusion and HM3D, layout :func:`band_cfg`;
+`csrc/stagger_band_walk3.cuh`: Stokes and rank-3 specs, staggered fields,
+layout :func:`stagger_band_cfg`); :func:`banded_refusal` and
+:func:`admit_banded_geometry` their gates and `igg_torch.ops._smem` their
+shared-memory budget.
 
 Left out, because they exist only for the TPU: transposed z slabs, the
-sublane-tile gates (`admit_sublane_extension`, the band depth's `B % 8`,
-"compiled is 3-D only") and the VMEM budget; the streaming kernel's
-(8, 128) padding, DMA slots and semaphores have no counterpart (a launch
-per iteration ping-pongs two device buffers).  The TPU's resident kernel
-has its counterpart in the chunk kernels of `csrc/chunk_walk.cuh`
-(diffusion and HM3D) and `csrc/stokes_chunk.cu`, the whole-window kernel
-its wave2d instance in `csrc/wave2d_chunk.cu`, the streaming kernel its
-diffusion and HM3D instances in `csrc/band_walk.cuh`; its wave2d, Stokes
-and spec instances (staggered fields) are later work.
+sublane-tile gates (`admit_sublane_extension`, the band depth's `B % 8`)
+and the VMEM budget; the streaming kernel's (8, 128) padding, DMA slots
+and semaphores have no counterpart (a launch per iteration ping-pongs two
+device buffers).  igg compiles its streaming kernel for 3-D fields only
+(wave2d's and rank-2 specs' banded tiers run its interpret mode), and so
+does the port: on the card a 2-D field gets igg's refusal.  The TPU's
+resident kernel has its counterpart in the chunk kernels of
+`csrc/chunk_walk.cuh` (diffusion and HM3D) and `csrc/stokes_chunk.cu`, the
+whole-window kernel its wave2d instance in `csrc/wave2d_chunk.cu` and its
+spec instances generated by `igg_torch.stencil.cuda`, the streaming kernel
+its diffusion and HM3D instances in `csrc/band_walk.cuh` and its Stokes
+and rank-3 spec instances in `csrc/stagger_band_walk3.cuh`.
 """
 
 from __future__ import annotations
@@ -652,20 +659,43 @@ def band_cfg(ext_stacked, local, E: int, modes, grid, last: bool, *, B: int,
     return (ctypes.c_int * len(cfg))(*cfg)
 
 
+def stagger_band_cfg(shape, E: int, modes, dims, ols, last: bool, *,
+                     B: int, lo: int, extras):
+    """The layout the staggered band kernels take (`make_stag_band` in
+    `csrc/stagger_band_walk3.cuh`), as a ctypes int array: the
+    `make_stag3` layout of :func:`stagger_cfg` (base block `shape`, margin
+    `E`, the updated fields' overlaps `ols`), then the band depth, the read
+    margin below a band and each staged array's margin above it, padded to
+    `MAXF` arrays."""
+    if len(extras) > MAXF:
+        raise ValueError(f"{len(extras)} staged arrays: the band walk takes "
+                         f"at most {MAXF}")
+    cfg = list(stagger_cfg(shape, E, modes, dims, ols, last))
+    cfg += [B, lo] + list(extras) + [lo + 1] * (MAXF - len(extras))
+    return (ctypes.c_int * len(cfg))(*cfg)
+
+
 def streaming_chunk_call(exts, const_exts, *, K: int, B: int, modes, grid,
                          ols, shapes, E: int, band_update, extras,
                          freeze_fields, lo: int = 1, launch=None,
-                         central: bool = True):
+                         central: bool = True, staggered: bool = False,
+                         radius: int = 1):
     """K banded iterations of the extended stacked buffers `exts` (updated,
     never written) with the constant `const_exts`; returns the updated
     fields' central windows (`central`) or their whole evolved extended
     buffers.  A CPU tensor takes the plain version
-    (:func:`banded_window_plain`).  A CUDA tensor runs the family's band
-    kernel: `launch(src, dst, cfg)` launches one iteration of the buffers
-    `src` into `dst` with the layout `cfg` (:func:`band_cfg`) and counts
-    it; K launches ping-pong two sets of buffers, the last writing the
-    central windows when `central`.  A shape, dtype or window the kernels
-    cannot take raises a GridError."""
+    (:func:`banded_window_plain`), of any rank.  A CUDA tensor runs the
+    family's band kernel: `launch(src, dst, cfg)` launches one iteration
+    of the buffers `src` into `dst` with the layout `cfg` and counts it;
+    K launches ping-pong two sets of buffers, the last writing the central
+    windows when `central`.  The layout is :func:`band_cfg` for the
+    unstaggered walk (`csrc/band_walk.cuh`: fields of one shape and one
+    read margin) and :func:`stagger_band_cfg` for the staggered one
+    (`staggered`: `csrc/stagger_band_walk3.cuh`, fields of the grid's
+    block staggered by 0 or 1 per dim, their y/z read `radius`), whose
+    every launch writes every cell of its targets, an x-staggered field's
+    last row from the source.  The band kernels are 3-D only; a rank, shape,
+    dtype or window they cannot take raises a GridError."""
     fields = list(exts) + list(const_exts)
     n_up = len(exts)
     if exts[0].device.type == "cpu":
@@ -677,17 +707,29 @@ def streaming_chunk_call(exts, const_exts, *, K: int, B: int, modes, grid,
             return tuple(out)
         return tuple(central_window(F, shapes[f], E, modes)
                      for f, F in enumerate(out))
+    if exts[0].ndim != 3:
+        raise GridError(f"the streaming band kernels are 3-D only "
+                        f"({exts[0].ndim}-D fields; banded_window_plain "
+                        f"serves them on the CPU)")
     if launch is None:
         raise GridError("streaming_chunk_call: no band kernel for these "
                         "fields on the card")
-    if (exts[0].ndim != 3 or len({tuple(s) for s in shapes}) != 1
-            or len(set(extras)) != 1
-            or len({tuple(o) for o in ols}) != 1):
-        raise GridError(f"the band kernels take 3-D unstaggered fields of "
-                        f"one read margin (shapes {shapes}, extras "
-                        f"{tuple(extras)})")
+    local = tuple(grid.nxyz)
+    if staggered:
+        stags = [tuple(s[d] - local[d] for d in range(3)) for s in shapes]
+        if any(t not in (0, 1) for st in stags for t in st):
+            raise GridError(f"band kernel: field blocks {shapes} are not the "
+                            f"base block {local} staggered by 0 or 1")
+    elif (len({tuple(s) for s in shapes}) != 1 or len(set(extras)) != 1
+          or len({tuple(o) for o in ols}) != 1):
+        raise GridError(f"the unstaggered band kernels take fields of one "
+                        f"shape and one read margin (shapes {shapes}, "
+                        f"extras {tuple(extras)})")
+    else:
+        local, stags = tuple(shapes[0]), None
     why = admit_banded_geometry(shapes, E, modes, B=B, extras=extras, lo=lo)
-    need = banded_smem(B, extras, lo=lo, itemsize=exts[0].element_size())
+    need = banded_smem(B, extras, lo=lo, itemsize=exts[0].element_size(),
+                       stags=stags and [s[1:] for s in stags], radius=radius)
     if why is None and need > chunk_budget():
         why = (f"band window {need} bytes exceeds the shared-memory budget "
                f"{chunk_budget()} of a thread block")
@@ -695,15 +737,22 @@ def streaming_chunk_call(exts, const_exts, *, K: int, B: int, modes, grid,
         raise GridError(f"band kernel: {why}")
     check_chunk_buffers(fields, shapes, E, modes, grid,
                         (torch.float32, torch.float64))
-    local = tuple(shapes[0])
+
+    def cfg(last):
+        if staggered:
+            return stagger_band_cfg(local, E, modes, grid.dims, ols[:n_up],
+                                    last, B=B, lo=lo, extras=extras)
+        return band_cfg(exts[0].shape, local, E, modes, grid, last, B=B,
+                        lo=lo, extra=extras[0], ols=ols[0])
+
     bufs = [tuple(torch.empty_like(X) for X in exts) for _ in range(2)]
-    out_shape = [grid.dims[d] * local[d] for d in range(3)]
     src = tuple(exts)
     for k in range(K):
         last = central and k == K - 1
-        dst = (tuple(torch.empty(out_shape, dtype=X.dtype, device=X.device)
-                     for X in exts) if last else bufs[k % 2])
-        launch(src, dst, band_cfg(exts[0].shape, local, E, modes, grid, last,
-                                  B=B, lo=lo, extra=extras[0], ols=ols[0]))
+        dst = (tuple(torch.empty([grid.dims[d] * s[d] for d in range(3)],
+                                 dtype=X.dtype, device=X.device)
+                     for X, s in zip(exts, shapes)) if last
+               else bufs[k % 2])
+        launch(src, dst, cfg(last))
         src = dst
     return src

@@ -178,30 +178,60 @@ def fused_stokes_iteration(P, Vx, Vy, Vz, Rho, *, dx, dy, dz, mu, dtP, dtV):
     return tuple(halo.update_halo_local(*out))
 
 
+BANDED_REQ = ("banded=True needs the Stokes kernels (use_kernels 'auto' or "
+              "True, on fields they serve) and an admissible banded config "
+              "(K, B): n_inner >= K + 1 >= 3, an overlap-3 grid, an extended "
+              "x span of >= 2 bands of B, 2K-deep send slabs inside every "
+              "extended dimension's block, a band window within a thread "
+              "block's shared memory (igg_torch.ops.stokes_trapezoid."
+              "stokes_banded_refusal)")
+
+
 def fused_stokes_iterations(P, Vx, Vy, Vz, Rho, *, n_inner: int,
-                            K: Optional[int] = None, dx, dy, dz, mu, dtP,
+                            K: Optional[int] = None, banded="auto",
+                            band: Optional[int] = None, dx, dy, dz, mu, dtP,
                             dtV):
     """`n_inner` Stokes iterations of `(P, Vx, Vy, Vz)`; returns new tensors.
     The dispatch of `igg/models/stokes3d.py:make_iteration`:
 
-    - where `n_inner >= 3` and the chunk admits `n_inner - 1` iterations at
-      a depth K (`K`, or the largest of 8, 4, 2 it admits:
-      :func:`igg_torch.ops.stokes_trapezoid.fit_stokes_K`): one per-iteration
-      warm-up (which makes the state exchange-fresh, the chunk's entry
-      condition), then `(n_inner - 1) // K` chunks, then the remainder per
-      iteration;
+    - where `n_inner >= 3`, `banded` is not True and the chunk admits
+      `n_inner - 1` iterations at a depth K (`K`, or the largest of 8, 4, 2
+      it admits: :func:`igg_torch.ops.stokes_trapezoid.fit_stokes_K`): one
+      per-iteration warm-up (which makes the state exchange-fresh, the
+      chunk's entry condition), then `(n_inner - 1) // K` chunks, then the
+      remainder per iteration;
+    - where the banded tier takes the call (`banded=True`, or "auto" where
+      the chunk refuses; `(K, B)` from `K` and `band` or
+      :func:`~igg_torch.ops.stokes_trapezoid.fit_stokes_band`,
+      `models._dispatch.band_config`): the warm-up, the banded chunks
+      (:func:`~igg_torch.ops.stokes_trapezoid.fused_stokes_banded_iters`),
+      the remainder; `banded=True` raises a GridError where no `(K, B)`
+      admits;
     - otherwise one fused iteration per iteration."""
+    from ..models._dispatch import band_config
     from . import stokes_trapezoid as stz
 
     grid = shared.global_grid()
     kw = dict(dx=dx, dy=dy, dz=dz, mu=mu, dtP=dtP, dtV=dtV)
     S = (P, Vx, Vy, Vz)
-    Kf = (stz.fit_stokes_K(grid, grid.local_shape(P), n_inner - 1, P.dtype,
-                           K=K) if n_inner >= 3 else 0)
-    if Kf:
+    shape = grid.local_shape(P)
+    Kf = (stz.fit_stokes_K(grid, shape, n_inner - 1, P.dtype, K=K)
+          if n_inner >= 3 and banded is not True else 0)
+    kb = band_config(
+        banded, K, band, n_inner, requirement=BANDED_REQ,
+        resident=lambda: bool(Kf),
+        supported=lambda k, b: stz.stokes_banded_refusal(
+            grid, shape, k, n_inner - 1, P.dtype, B=b) is None,
+        fit=lambda bands: stz.fit_stokes_band(grid, shape, n_inner - 1,
+                                              P.dtype, bands=bands))
+    if kb or Kf:
         S = fused_stokes_iteration(*S, Rho, **kw)
-        *S, done = stz.fused_stokes_trapezoid_iters(
-            *S, Rho, n_inner=n_inner - 1, K=Kf, **kw)
+        if kb:
+            *S, done = stz.fused_stokes_banded_iters(
+                *S, Rho, n_inner=n_inner - 1, K=kb[0], B=kb[1], **kw)
+        else:
+            *S, done = stz.fused_stokes_trapezoid_iters(
+                *S, Rho, n_inner=n_inner - 1, K=Kf, **kw)
         n_inner -= 1 + done
     for _ in range(n_inner):
         S = fused_stokes_iteration(*S, Rho, **kw)

@@ -27,25 +27,42 @@ igg's kernel keeps the five extended fields in VMEM for the K iterations;
 an extended 288^3 block is 96 MB a field, so the port goes through device
 memory once an iteration.  igg's Mosaic band, tile and sublane gates and
 its VMEM budget have no counterpart; the port admits float64.
+
+The streaming banded tier (igg's `stokes3d.banded`,
+`fused_stokes_banded_iters`): the same extension, then K iterations of
+x-row bands of depth B, each band's window read from the previous
+iteration (`chunk_engine.streaming_chunk_call`), one launch of
+`igg_stokes_band_step` (csrc/stokes_band.cu, on
+csrc/stagger_band_walk3.cuh) an iteration.  Its plain version is
+`chunk_engine.banded_window_plain` with :func:`band_update`, the port of
+igg's `_band_update`; its gates are igg's `stokes_banded_supported`
+without the Mosaic and float32 gates, with the shared-memory budget of
+`igg_torch.ops._smem` (:func:`stokes_banded_refusal`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Optional
 
 import torch
 
 from ..models import stokes3d as model
 from ._build import library
-from .chunk_engine import (admit_chunk_common, admit_send_slabs,
-                           central_window, check_chunk_buffers, dim_modes,
-                           extend_fields, field_ols, run_chunks, stagger_cfg,
-                           window_chunk_plain)
+from ._smem import banded_smem, chunk_budget, fit_banded
+from .chunk_engine import (admit_banded_geometry, admit_chunk_common,
+                           admit_send_slabs, central_window,
+                           check_chunk_buffers, dim_modes, extend_fields,
+                           field_ols, run_chunks, stagger_cfg,
+                           streaming_chunk_call, window_chunk_plain)
 from .diffusion_pallas import _DTYPE
 from .stokes_pallas import coef_args, field_shapes
 
 FREEZE_FIELDS = (1, 2, 3)
+# Rows each array of the banded tier's window reads above a band (P, Vx, Vy,
+# Vz, Rho; Vx is one row longer in x); one row below.
+EXTRAS = (1, 2, 1, 1, 1)
 
 
 def stokes_chunk_refusal(grid, shape, K: int, n_inner: int,
@@ -181,5 +198,132 @@ def fused_stokes_trapezoid_iters(P, Vx, Vy, Vz, Rho, *, n_inner: int, K: int,
         exts = extend_fields([P, Vx, Vy, Vz], ols[:4], E, grid, modes)
         return chunk_call(exts, Rho_ext, shapes, K=K, modes=modes, grid=grid,
                           kw=kw, ols=ols)
+
+    return run_chunks((P, Vx, Vy, Vz), n_inner=n_inner, K=K, one_chunk=one)
+
+
+# ---------------------------------------------------------------------------
+# The streaming banded tier (igg's `stokes3d.banded`)
+# ---------------------------------------------------------------------------
+
+def band_update(Wp, Wvx, Wvy, Wvz, Wrho, *, bx, kw):
+    """New band values (rows `[a, a+bx)`, window row offset 1) from the
+    margin-1 windows (igg's `_band_update`): P, Vy, Vz and Rho window rows
+    `[a-1, a+bx+1)`, the x-staggered Vx `[a-1, a+bx+2)`; the pressure on
+    every cell, each velocity incremented on its interior y/z faces and
+    kept on its y/z edge faces (the band halo owns them)."""
+    Pn, dVx, dVy, dVz = model.iteration_core(Wp, Wvx, Wvy, Wvz, Wrho, **kw)
+    outs = [Pn[1:1 + bx]]
+    for W, dV in ((Wvx, dVx), (Wvy, dVy), (Wvz, dVz)):
+        o = W[1:1 + bx]
+        inner = o[:, 1:-1, 1:-1] + dV[0:bx]
+        mid = torch.cat([o[:, 1:-1, :1], inner, o[:, 1:-1, -1:]], dim=2)
+        outs.append(torch.cat([o[:, :1], mid, o[:, -1:]], dim=1))
+    return tuple(outs)
+
+
+def stokes_banded_refusal(grid, shape, K: int, n_inner: int, dtype, *,
+                          B: int = 8) -> Optional[str]:
+    """Why the banded tier cannot run `n_inner` iterations of fields whose
+    pressure blocks are `shape` at depth K and band B, or None when it can:
+    the gates of igg's `stokes_banded_supported` (a full chunk, unit
+    displacement, an overlap-3 grid, the pressure on the grid block,
+    2K-deep send slabs, the band geometry of the five arrays' margins
+    `EXTRAS`) without its Mosaic gates (`B % 8`, 3-D only, the sublane
+    extension) and its float32 gate; float32 or float64, and the band
+    window within a thread block's shared memory (`igg_torch.ops._smem`)
+    instead of VMEM."""
+    why = admit_chunk_common(grid, K, n_inner)
+    if why is not None:
+        return why
+    if grid.overlaps != (3, 3, 3):
+        return f"grid overlaps {grid.overlaps} != (3, 3, 3)"
+    if tuple(shape) != tuple(grid.nxyz):
+        return (f"local shape {tuple(shape)} != grid block "
+                f"{tuple(grid.nxyz)}")
+    if dtype not in _DTYPE:
+        return f"dtype {dtype} is not float32/float64"
+    modes = dim_modes(grid)
+    shapes = field_shapes(shape)
+    why = (admit_send_slabs(shapes, field_ols(grid, shapes), 2 * K, modes,
+                            grid=grid)
+           or admit_banded_geometry(shapes, 2 * K, modes, B=B,
+                                    extras=EXTRAS))
+    if why is not None:
+        return why
+    need = banded_smem(B, EXTRAS, itemsize=torch.finfo(dtype).bits // 8,
+                       stags=[(s[1] - shape[1], s[2] - shape[2])
+                              for s in shapes])
+    if need > chunk_budget():
+        return (f"band window {need} bytes exceeds the shared-memory budget "
+                f"{chunk_budget()} of a thread block")
+    return None
+
+
+def fit_stokes_band(grid, shape, n_inner: int, dtype, kmax: int = 8,
+                    bands=(8, 16)):
+    """Largest admissible `(K, B)` of the banded tier (igg's
+    `fit_stokes_band`, `_smem.fit_banded`); None when none applies."""
+    return fit_banded(
+        lambda K, B: stokes_banded_refusal(grid, shape, K, n_inner, dtype,
+                                           B=B) is None,
+        kmax, bands=bands)
+
+
+def band_call(exts, Rho_ext, shapes, *, K, B, modes, grid, kw, ols,
+              central: bool = True):
+    """K banded iterations of the extended stacked buffers `exts = (Pe,
+    Vxe, Vye, Vze)` (blocks `shapes` extended by 2K) with the extended
+    constant `Rho_ext`: every block's central windows (`central`), or the
+    whole evolved extended buffers.  A CPU tensor takes the plain version;
+    a CUDA tensor launches the kernel K times
+    (`chunk_engine.streaming_chunk_call`), or raises."""
+    def launch(src, dst, cfg):
+        _band_launch(src, exts, Rho_ext, dst, cfg, kw,
+                     torch.cuda.current_stream(exts[0].device).cuda_stream)
+        band_call.launches += 1
+
+    return streaming_chunk_call(
+        list(exts), [Rho_ext], K=K, B=B, modes=modes, grid=grid, ols=ols,
+        shapes=list(shapes), E=2 * K, band_update=partial(band_update, kw=kw),
+        extras=EXTRAS, freeze_fields=FREEZE_FIELDS, launch=launch,
+        central=central, staggered=True)
+
+
+def _band_launch(src, F, Rho_ext, out, cfg, kw, stream: int) -> None:
+    """Launch `igg_stokes_band_step` once (layout `cfg`,
+    `chunk_engine.stagger_band_cfg`) on checked arguments."""
+    err = library("stokes_band").igg_stokes_band_step(
+        _ptrs(src), _ptrs(F), Rho_ext.data_ptr(), _ptrs(out),
+        _DTYPE[src[0].dtype], cfg, coef_args(kw), stream)
+    if err:
+        raise RuntimeError(f"igg_stokes_band_step launch failed: CUDA error "
+                           f"{err}")
+
+
+band_call.launches = 0
+
+
+def fused_stokes_banded_iters(P, Vx, Vy, Vz, Rho, *, n_inner: int, K: int,
+                              B: int, dx, dy, dz, mu, dtP, dtV):
+    """Advance `(P, Vx, Vy, Vz)` by the `n_inner // K` full chunks of depth
+    K through the banded tier (band depth B); returns `(P, Vx, Vy, Vz,
+    iterations_done)` and leaves the warm-up iteration before and the
+    remainder after to the caller.  Rho is extended once per call.  Entry
+    contract: that of :func:`fused_stokes_trapezoid_iters`."""
+    from .. import shared
+
+    grid = shared.global_grid()
+    kw = dict(dx=dx, dy=dy, dz=dz, mu=mu, dtP=dtP, dtV=dtV)
+    modes = dim_modes(grid)
+    shapes = field_shapes(grid.local_shape(P))
+    ols = field_ols(grid, shapes)
+    E = 2 * K
+    Rho_ext = extend_fields([Rho], [ols[4]], E, grid, modes)[0]
+
+    def one(P, Vx, Vy, Vz):
+        exts = extend_fields([P, Vx, Vy, Vz], ols[:4], E, grid, modes)
+        return band_call(exts, Rho_ext, shapes, K=K, B=B, modes=modes,
+                         grid=grid, kw=kw, ols=ols)
 
     return run_chunks((P, Vx, Vy, Vz), n_inner=n_inner, K=K, one_chunk=one)

@@ -26,6 +26,7 @@ import torch
 
 from .. import halo, shared
 from ..models import wave2d as model
+from ..shared import GridError
 from ._build import library
 from .diffusion_pallas import _DTYPE
 
@@ -167,29 +168,65 @@ def fused_wave2d_step(P, Vx, Vy, *, dx, dy, dt, rho, bulk):
     return tuple(halo.update_halo_local(*out))
 
 
+BANDED_REQ = ("banded=True needs the wave2d kernels' plain versions (CPU "
+              "tensors; igg's streaming kernel is 3-D only) and an "
+              "admissible banded config (K, B): n_inner >= K + 1 >= 3, a "
+              "periodic overlap-2 2-D grid, an extended x span of >= 2 "
+              "bands of B, 2K-deep send slabs inside every extended "
+              "dimension's block (igg_torch.ops.wave2d_trapezoid."
+              "wave2d_banded_refusal)")
+
+
 def fused_wave2d_steps(P, Vx, Vy, *, n_inner: int, K: Optional[int] = None,
-                       dx, dy, dt, rho, bulk):
+                       banded="auto", band: Optional[int] = None, dx, dy,
+                       dt, rho, bulk):
     """`n_inner` wave2d steps of `(P, Vx, Vy)`; returns new tensors.  The
     dispatch of `igg/models/wave2d.py:make_step`:
 
-    - where `n_inner >= 3` and the chunk admits `n_inner - 1` steps at a
-      depth K (`K`, or the largest of 8, 4, 2 it admits:
-      :func:`igg_torch.ops.wave2d_trapezoid.fit_wave2d_K`): one per-step
-      step (which makes the state exchange-fresh, the chunk's entry
-      condition), then `(n_inner - 1) // K` chunks, then the remainder as
-      per-step steps;
+    - where `n_inner >= 3`, `banded` is not True and the chunk admits
+      `n_inner - 1` steps at a depth K (`K`, or the largest of 8, 4, 2 it
+      admits: :func:`igg_torch.ops.wave2d_trapezoid.fit_wave2d_K`): one
+      per-step step (which makes the state exchange-fresh, the chunk's
+      entry condition), then `(n_inner - 1) // K` chunks, then the
+      remainder as per-step steps;
+    - on CPU tensors, where the banded tier takes the call (`banded=True`,
+      or "auto" where the chunk refuses; `models._dispatch.band_config`):
+      the warm-up step, the banded chunks
+      (:func:`~igg_torch.ops.wave2d_trapezoid.fused_wave2d_banded_steps`),
+      the remainder; on the card `banded=True` raises igg's refusal (its
+      streaming kernel is 3-D only) and "auto" never takes the tier;
     - otherwise one per-step step per step."""
+    from ..models._dispatch import band_config
     from . import wave2d_trapezoid as wtz
 
     grid = shared.global_grid()
     kw = dict(dx=dx, dy=dy, dt=dt, rho=rho, bulk=bulk)
     S = (P, Vx, Vy)
-    Kf = (wtz.fit_wave2d_K(grid, grid.local_shape(P), n_inner - 1, P.dtype,
-                           K=K) if n_inner >= 3 else 0)
-    if Kf:
+    shape = grid.local_shape(P)
+    Kf = (wtz.fit_wave2d_K(grid, shape, n_inner - 1, P.dtype, K=K)
+          if n_inner >= 3 and banded is not True else 0)
+    kb = None
+    if P.device.type != "cpu":
+        if banded is True:
+            raise GridError(f"{BANDED_REQ}: the streaming band kernel is 3-D "
+                            f"only (2-D x-row bands; banded_window_plain "
+                            f"serves them on the CPU)")
+    else:
+        kb = band_config(
+            banded, K, band, n_inner, requirement=BANDED_REQ,
+            resident=lambda: bool(Kf),
+            supported=lambda k, b: wtz.wave2d_banded_refusal(
+                grid, shape, k, n_inner - 1, P.dtype, B=b) is None,
+            fit=lambda bands: wtz.fit_wave2d_band(grid, shape, n_inner - 1,
+                                                  P.dtype, bands=bands))
+    if kb or Kf:
         S = fused_wave2d_step(*S, **kw)
-        *S, done = wtz.fused_wave2d_chunk_steps(*S, n_inner=n_inner - 1,
-                                                K=Kf, **kw)
+        if kb:
+            *S, done = wtz.fused_wave2d_banded_steps(
+                *S, n_inner=n_inner - 1, K=kb[0], B=kb[1], **kw)
+        else:
+            *S, done = wtz.fused_wave2d_chunk_steps(*S, n_inner=n_inner - 1,
+                                                    K=Kf, **kw)
         n_inner -= 1 + done
     for _ in range(n_inner):
         S = fused_wave2d_step(*S, **kw)

@@ -23,6 +23,16 @@ the port of `_window_steps_xla`.  igg's kernel keeps all three extended
 fields in VMEM for the K steps; a 4096^2 window (67 MB a field) does not fit
 in an SM's shared memory, so the port goes through device memory once a
 step.
+
+The streaming banded tier (igg's `wave2d.banded`,
+`fused_wave2d_banded_steps`): the same extension, then K steps of x-row
+bands of depth B whose windows read the previous step, the band core
+derived from the coupled update on one block's windows
+(`chunk_engine.band_core_from_window`, margin 2).  igg compiles its
+streaming kernel for 3-D fields only, so this 2-D tier runs its plain
+realization (`chunk_engine.banded_window_plain`) on the CPU, and on the
+card `banded=True` gets igg's refusal and "auto" never takes it: there is
+no band kernel for it, as igg has none on its accelerator.
 """
 
 from __future__ import annotations
@@ -34,10 +44,12 @@ import torch
 
 from ..models import wave2d as model
 from ._build import library
-from .chunk_engine import (admit_chunk_common, admit_send_slabs,
+from ._smem import fit_banded
+from .chunk_engine import (admit_banded_geometry, admit_chunk_common,
+                           admit_send_slabs, band_core_from_window,
                            central_window, check_chunk_buffers, dim_modes,
                            extend_fields, field_ols, run_chunks, stagger_cfg,
-                           window_chunk_plain)
+                           streaming_chunk_call, window_chunk_plain)
 from .diffusion_pallas import _DTYPE
 from .wave2d_pallas import coef_args, field_shapes
 
@@ -175,5 +187,79 @@ def fused_wave2d_chunk_steps(P, Vx, Vy, *, n_inner: int, K: int, dx, dy, dt,
         exts = extend_fields([P, Vx, Vy], ols, 2 * K, grid, modes)
         return chunk_call(exts, shapes, K=K, modes=modes, grid=grid, kw=kw,
                           ols=ols)
+
+    return run_chunks((P, Vx, Vy), n_inner=n_inner, K=K, one_chunk=one)
+
+
+# ---------------------------------------------------------------------------
+# The streaming banded tier (igg's `wave2d.banded`), plain only
+# ---------------------------------------------------------------------------
+
+# The coupled chain loses 2 rows of validity per side and step, so the band
+# core's low margin is 2 and the per-field high margins are 2 plus the
+# x-stagger: (P, Vx, Vy) -> (2, 3, 2).
+BAND_LO = 2
+BAND_EXTRAS = (2, 3, 2)
+
+
+def wave2d_banded_refusal(grid, shape, K: int, n_inner: int, dtype, *,
+                          B: int = 8) -> Optional[str]:
+    """Why the banded tier cannot run `n_inner` steps of fields whose
+    pressure blocks are `shape` at depth K and band B, or None when it can:
+    the gates of igg's `wave2d_banded_supported` (the chunk's structural
+    gates, :func:`wave2d_chunk_refusal`, then the band geometry at the
+    margins `BAND_LO`, `BAND_EXTRAS`) without its Mosaic gates, its VMEM
+    budget and its float32 gate."""
+    why = wave2d_chunk_refusal(grid, shape, K, n_inner, dtype)
+    if why is not None:
+        return why
+    return admit_banded_geometry(field_shapes(shape), 2 * K,
+                                 dim_modes(grid)[:2], B=B,
+                                 extras=BAND_EXTRAS, lo=BAND_LO)
+
+
+def fit_wave2d_band(grid, shape, n_inner: int, dtype, kmax: int = 8,
+                    bands=(8, 16)):
+    """Largest admissible `(K, B)` of the banded tier (igg's
+    `fit_wave2d_band`); None when none applies."""
+    return fit_banded(
+        lambda K, B: wave2d_banded_refusal(grid, shape, K, n_inner, dtype,
+                                           B=B) is None, kmax, bands=bands)
+
+
+def band_call(exts, shapes, *, K, B, modes, grid, kw, ols,
+              central: bool = True):
+    """K banded steps of the extended stacked buffers `exts = (Pe, Vxe,
+    Vye)` (blocks `shapes` extended by 2K): every block's central windows
+    (`central`), or the whole evolved extended buffers.  A CPU tensor takes
+    the plain realization; a CUDA tensor raises igg's refusal (the
+    streaming kernel is 3-D only)."""
+    band_update = band_core_from_window(
+        lambda P, Vx, Vy: model.block_compute(P, Vx, Vy, (1, 1), **kw),
+        BAND_LO)
+    return streaming_chunk_call(
+        list(exts), [], K=K, B=B, modes=modes, grid=grid, ols=ols,
+        shapes=list(shapes), E=2 * K, band_update=band_update,
+        extras=BAND_EXTRAS, freeze_fields=(), lo=BAND_LO, central=central)
+
+
+def fused_wave2d_banded_steps(P, Vx, Vy, *, n_inner: int, K: int, B: int,
+                              dx, dy, dt, rho, bulk):
+    """Advance `(P, Vx, Vy)` by the `n_inner // K` full chunks of depth K
+    through the banded tier (band depth B, CPU tensors); returns `(P, Vx,
+    Vy, steps_done)` and leaves the warm-up step before and the remainder
+    after to the caller, as :func:`fused_wave2d_chunk_steps` does."""
+    from .. import shared
+
+    grid = shared.global_grid()
+    kw = dict(dx=dx, dy=dy, dt=dt, rho=rho, bulk=bulk)
+    modes = dim_modes(grid)[:2]
+    shapes = field_shapes(grid.local_shape(P))
+    ols = field_ols(grid, shapes)
+
+    def one(P, Vx, Vy):
+        exts = extend_fields([P, Vx, Vy], ols, 2 * K, grid, modes)
+        return band_call(exts, shapes, K=K, B=B, modes=modes, grid=grid,
+                         kw=kw, ols=ols)
 
     return run_chunks((P, Vx, Vy), n_inner=n_inner, K=K, one_chunk=one)

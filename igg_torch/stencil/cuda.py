@@ -8,8 +8,13 @@ for rank 3) and one extern "C" entry point, `igg_spec_step`, which both
 the per-step kernel (table row 13, igg's `_step_kernel`) and the chunk
 step (row 12's spec instances, igg's `_whole_window_kernel`) launch: the
 walk's layout says whether the targets are whole blocks or a chunk's
-windows, and which dims wrap or freeze.  It is the counterpart of the body
-that Pallas traces from `apply_updates`.
+windows, and which dims wrap or freeze.  At rank 3 the same policy also
+runs on the staggered band walk (`csrc/stagger_band_walk3.cuh`) through a
+second entry point, `igg_spec_band_step`: one iteration of the streaming
+banded chunk (row 6's spec instance, igg's `_streaming_kernel`), the
+policy computing on a band's shared-memory window; rank 2 gets none, as
+igg compiles its streaming kernel for 3-D fields only.  It is the
+counterpart of the body that Pallas traces from `apply_updates`.
 
 The policy computes, at one cell, the value every field takes after the
 whole chain, exactly as :func:`igg_torch.stencil.lower.apply_updates`
@@ -61,11 +66,13 @@ from .spec import (BinOp, Const, Expr, ParamRef, Read, StencilSpec, UnOp,
                    Where, collect_reads)
 
 __all__ = ["SpecKernels", "generate", "generator_refusal",
-           "divisions_per_cell", "ENTRY", "ARGTYPES"]
+           "divisions_per_cell", "band_radius", "ENTRY", "BAND_ENTRY",
+           "ARGTYPES"]
 
-# The entry point of every generated library and its C signature:
-# (src, entry, out, dtype, cfg, coef, stream).
+# The entry point of every generated library, the band entry of a rank-3
+# one, and their C signature: (src, entry, out, dtype, cfg, coef, stream).
 ENTRY = "igg_spec_step"
+BAND_ENTRY = "igg_spec_band_step"
 _P = ctypes.c_void_p
 ARGTYPES = [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -412,17 +419,23 @@ class _Emitter:
                       "(int)cudaErrorInvalidValue;\n")
             walk, launcher = "stagger_walk3.cuh", "launch_stagger3"
         name = f"Spec_{tag}"
+        radius = band_radius(spec)
+        band = "" if nd == 2 else _BAND_SOURCE.format(name=name, nf=nf,
+                                                       nc=nc, entry=BAND_ENTRY)
+        walks = walk if nd == 2 else f"{walk} and stagger_band_walk3.cuh"
         return f"""\
 // Generated by igg_torch/stencil/cuda.py from the spec {spec.name!r}: its
-// update chain as a policy of {walk} (fields {[f.name for f in spec.fields]},
-// staggers {st}).  One launch computes every field's value after the whole
+// update chain as a policy of {walks}
+// (fields {[f.name for f in spec.fields]}, staggers {st}).  One launch computes every field's value after the whole
 // chain at every cell of the walk's targets: on a run of cells inside every
 // update's write region each update's value at each offset cell the run
 // needs is formed once; elsewhere reads of fields an earlier update rewrote
 // are inline calls of that update at the offset cell.  Replaces the
 // generated TPU kernels of igg/stencil/lower.py (_step_kernel) and
-// igg/ops/chunk_engine.py (_whole_window_kernel, the spec instances).
+// igg/ops/chunk_engine.py (_whole_window_kernel and, at rank 3,
+// _streaming_kernel: the spec instances).
 #include "{walk}"
+{"" if nd == 2 else '#include "stagger_band_walk3.cuh"'}
 
 namespace igg {{
 
@@ -445,6 +458,13 @@ struct {name} {{
     constexpr int t[NF][{nd}] = {{{fz_table}}};
     return t[f][d] != 0;
   }}
+
+  // The arrays the band walk stages (every field), and the largest index
+  // offset of any value `cells` reads.
+  static constexpr int NS = NF;
+  static constexpr int RADIUS = {radius};
+  __device__ __forceinline__ const T* staged(int k) const {{ return src[k]; }}
+  __device__ __forceinline__ void restage(int k, const T* p) {{ src[k] = p; }}
 
 {shift}
 {fns}
@@ -481,7 +501,63 @@ extern "C" int {ENTRY}(void* const* src, void* const* entry,
     return igg::launch_generated<double>(src, entry, out, cfg, coef, s);
   return (int)cudaErrorInvalidValue;
 }}
+{band}"""
+
+
+# The band entry of a rank-3 library (one iteration of the streaming banded
+# chunk on csrc/stagger_band_walk3.cuh), with the policy of the same source.
+_BAND_SOURCE = """
+namespace igg {{
+
+template <typename T>
+int launch_generated_band(void* const* src, void* const* entry,
+                          void* const* out, const int* cfg,
+                          const double* coef, cudaStream_t s) {{
+  StagBand b;
+  if (!make_stag_band<{name}<T>>(cfg, b)) return (int)cudaErrorInvalidValue;
+  {name}<T> ph;
+  Fields<const T, {nf}> fr;
+  Fields<T, {nf}> o;
+  for (int f = 0; f < {nf}; ++f) {{
+    ph.src[f] = static_cast<const T*>(src[f]);
+    fr.p[f] = static_cast<const T*>(entry[f]);
+    o.p[f] = static_cast<T*>(out[f]);
+  }}
+  for (int k = 0; k < {nc}; ++k) ph.c[k] = (T)coef[k];
+  return launch_stag_band(ph, b, fr, o, s);
+}}
+
+}}  // namespace igg
+
+// One banded iteration: src, entry, out as above (entry: the chunk-entry
+// buffers), cfg: the layout of igg::make_stag_band
+// (igg_torch.ops.chunk_engine.stagger_band_cfg).
+extern "C" int {entry}(void* const* src, void* const* entry,
+                              void* const* out, int dtype, const int* cfg,
+                              const double* coef, void* stream) {{
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return igg::launch_generated_band<float>(src, entry, out, cfg, coef, s);
+  if (dtype == 1)
+    return igg::launch_generated_band<double>(src, entry, out, cfg, coef, s);
+  return (int)cudaErrorInvalidValue;
+}}
 """
+
+
+def band_radius(spec: StencilSpec) -> int:
+    """The largest index offset, along any dim, of a value the generated
+    `cells<1>` reads at a cell: each update's reads at every offset cell
+    where the cell's chain evaluates it (:func:`run_needs`), at least 1.
+    The band walk stages each tile with this radius."""
+    need = run_needs(spec, 1)
+    r = 1
+    for k, u in enumerate(spec.updates):
+        reads = collect_reads(u.expr) + [(u.field, (0,) * spec.ndim)]
+        for t in need[k]:
+            for _, off in reads:
+                r = max(r, max(abs(a + o) for a, o in zip(t, off)))
+    return r
 
 
 def _tag(spec: StencilSpec) -> str:

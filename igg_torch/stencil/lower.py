@@ -21,6 +21,14 @@ truth of every route and the plain version of both generated kernels:
   `_whole_window_kernel`, spec instances).  Open dims are admitted only
   where the analyzer's boundary-validity recurrence proves the freeze
   scheme bit-exact (`Analysis.open_chunk_ok`).
+- **The streaming banded route** (:func:`spec_banded_steps`, igg's
+  `<spec>.banded` rung): the same extension, then K iterations of x-row
+  bands of depth B whose windows read the previous iteration
+  (`chunk_engine.streaming_chunk_call`), the band core derived from the
+  evaluator by `chunk_engine.band_core_from_window` at the analyzer's
+  one-iteration margin (:func:`band_margins`); on the card one launch of
+  the generated band entry an iteration (rank 3 only, as igg compiles its
+  streaming kernel; a rank-2 spec runs the plain realization on the CPU).
 
 Scalar subtrees evaluate in host floats (Python's double precision) and
 meet a tensor as a 0-dim tensor of its dtype, so every operation between a
@@ -44,10 +52,13 @@ import torch
 
 from .. import halo, shared
 from ..ops._build import generated_library
-from ..ops.chunk_engine import (admit_chunk_common, admit_send_slabs,
+from ..ops._smem import banded_smem, chunk_budget, fit_banded
+from ..ops.chunk_engine import (admit_banded_geometry, admit_chunk_common,
+                                admit_send_slabs, band_core_from_window,
                                 central_window, check_chunk_buffers,
                                 dim_modes, extend_fields, field_ols,
-                                run_chunks, stagger_cfg, window_chunk_plain)
+                                run_chunks, stagger_cfg, streaming_chunk_call,
+                                window_chunk_plain)
 from ..ops.diffusion_pallas import _DTYPE
 from ..ops.stencil import divisor
 from ..shared import GridError
@@ -57,7 +68,9 @@ from .spec import BinOp, Const, Expr, ParamRef, Read, StencilSpec, UnOp, Where
 __all__ = ["apply_updates", "local_step_fn", "kernel_refusal",
            "step_plain", "step_kernel", "fused_spec_step", "fused_spec_steps",
            "chunk_refusal", "fit_spec_K", "window_core", "chunk_plain",
-           "chunk_call", "spec_chunk_steps", "field_shapes"]
+           "chunk_call", "spec_chunk_steps", "field_shapes", "band_margins",
+           "banded_refusal", "fit_spec_band", "band_core", "band_call",
+           "spec_banded_steps"]
 
 _OPS = {
     "add": lambda a, b: a + b,
@@ -319,34 +332,80 @@ def fused_spec_step(gen, fields):
     return new if isinstance(new, tuple) else (new,)
 
 
+def banded_requirement(spec: StencilSpec) -> str:
+    """What `banded=True` needs (the start of its GridError)."""
+    return (f"banded=True: the streaming banded {spec.name!r} spec route "
+            f"needs the generated kernels (use_kernels 'auto' or True), "
+            f"n_inner >= K + 1 >= 3, analyzer-admitted boundary conditions, "
+            f"an extended x span of >= 2 bands of B, E-deep send slabs "
+            f"inside every extended dimension's block, a band window within "
+            f"a thread block's shared memory "
+            f"(igg_torch.stencil.lower.banded_refusal), and on the card 3-D "
+            f"fields")
+
+
 def fused_spec_steps(gen, fields, *, n_inner: int, K: Optional[int] = None,
-                     chunk="auto"):
+                     chunk="auto", banded="auto", band: Optional[int] = None):
     """`n_inner` steps of `fields` on the generated kernels; returns new
-    tensors.  The dispatch of igg's `compile`: where `chunk` is not False,
-    `n_inner >= 3` and the chunk admits `n_inner - 1` steps at a depth K
-    (`K`, or the largest of 8, 4, 2 it admits: :func:`fit_spec_K`), one
-    per-step warm-up step (which makes the state exchange-fresh, the
-    chunk's entry condition), then `(n_inner - 1) // K` chunks, then the
-    remainder per step; otherwise one per-step step per step.
-    `chunk=True` raises where no chunk is admitted."""
+    tensors.  The dispatch of igg's `compile` (its tiers `<spec>.chunk`,
+    `<spec>.banded`, the per-step kernel):
+
+    - where `chunk` is not False, `banded` is not True, `n_inner >= 3` and
+      the chunk admits `n_inner - 1` steps at a depth K (`K`, or the
+      largest of 8, 4, 2 it admits: :func:`fit_spec_K`), one per-step
+      warm-up step (which makes the state exchange-fresh, the chunk's entry
+      condition), then `(n_inner - 1) // K` chunks, then the remainder per
+      step; `chunk=True` raises where no chunk is admitted;
+    - where the banded route takes the call (`banded=True`, or "auto"
+      where the chunk refuses and `chunk` is not False; `(K, B)` from `K`
+      and `band` or :func:`fit_spec_band`, `models._dispatch.band_config`):
+      the warm-up, the banded chunks (:func:`spec_banded_steps`), the
+      remainder; `banded=True` raises where no `(K, B)` admits, and on the
+      card for a rank-2 spec (igg's refusal: the streaming kernel is 3-D
+      only), where "auto" skips the route;
+    - otherwise one per-step step per step."""
+    from ..models._dispatch import band_config
+
     spec = gen.spec
     grid = shared.global_grid()
     S = tuple(fields)
+    shape = grid.local_shape(S[0])
     Kf = 0
-    if chunk is not False and n_inner >= 3:
-        Kf = fit_spec_K(spec, gen.analysis, grid,
-                        grid.local_shape(S[0]), n_inner - 1, S[0].dtype,
-                        K=K)
+    if chunk is not False and banded is not True and n_inner >= 3:
+        Kf = fit_spec_K(spec, gen.analysis, grid, shape, n_inner - 1,
+                        S[0].dtype, K=K)
     if chunk is True and not Kf:
         why = ("n_inner < 3: no warm-up step plus a full chunk" if n_inner < 3
-               else chunk_refusal(spec, gen.analysis, grid,
-                                  grid.local_shape(S[0]), K or 2,
+               else chunk_refusal(spec, gen.analysis, grid, shape, K or 2,
                                   n_inner - 1, S[0].dtype))
         raise GridError(f"chunk=True: the K-step {spec.name!r} spec chunk "
                         f"route cannot serve n_inner={n_inner}: {why}")
-    if Kf:
+    kb = None
+    if not Kf and banded is not False:
+        if S[0].device.type != "cpu" and spec.ndim != 3:
+            if banded is True:
+                raise GridError(
+                    f"{banded_requirement(spec)}: the streaming band kernel "
+                    f"is 3-D only ({spec.ndim}-D x-row bands; "
+                    f"banded_window_plain serves them on the CPU)")
+        else:
+            kb = band_config(
+                banded, K, band, n_inner,
+                requirement=banded_requirement(spec),
+                resident=lambda: chunk is False,
+                supported=lambda k, b: banded_refusal(
+                    spec, gen.analysis, grid, shape, k, n_inner - 1,
+                    S[0].dtype, B=b) is None,
+                fit=lambda bands: fit_spec_band(
+                    spec, gen.analysis, grid, shape, n_inner - 1, S[0].dtype,
+                    bands=bands))
+    if Kf or kb:
         S = fused_spec_step(gen, S)
-        *S, done = spec_chunk_steps(gen, S, n_inner=n_inner - 1, K=Kf)
+        if kb:
+            *S, done = spec_banded_steps(gen, S, n_inner=n_inner - 1,
+                                         K=kb[0], B=kb[1])
+        else:
+            *S, done = spec_chunk_steps(gen, S, n_inner=n_inner - 1, K=Kf)
         n_inner -= 1 + done
     for _ in range(n_inner):
         S = fused_spec_step(gen, S)
@@ -474,5 +533,134 @@ def spec_chunk_steps(gen, fields, *, n_inner: int, K: int):
         exts = extend_fields(list(S), ols, E, grid, modes)
         return chunk_call(gen, exts, shapes, K=K, E=E, modes=modes,
                           grid=grid, ols=ols)
+
+    return run_chunks(tuple(fields), n_inner=n_inner, K=K, one_chunk=one)
+
+
+# ---------------------------------------------------------------------------
+# The streaming banded route (igg's `<spec>.banded` rung)
+# ---------------------------------------------------------------------------
+
+def band_margins(spec: StencilSpec, analysis: Analysis):
+    """The banded scheme's read margins (igg's `_band_margins`): the low
+    margin is the analyzer's one-iteration validity loss (so
+    `band_core_from_window` keeps rows at full validity distance from both
+    window edges), the per-field high margins add the x-stagger."""
+    lo = analysis.margin_after(1)
+    return lo, tuple(lo + f.stagger[0] for f in spec.fields)
+
+
+def banded_refusal(spec: StencilSpec, analysis: Analysis, grid, shape,
+                   K: int, n_inner: int, dtype, *,
+                   B: int = 8) -> Optional[str]:
+    """Why the banded route cannot run `n_inner` steps of fields whose
+    field-0 blocks are `shape` at depth K and band B, or None when it can:
+    the gates of igg's `banded_supported_fn` (the chunk route's structural
+    gates, :func:`chunk_refusal`, then the band geometry at the margins of
+    :func:`band_margins`) without its Mosaic gates (`B % 8`, 3-D only, the
+    sublane extension), its VMEM budget and its float32 gate; at rank 3,
+    the band kernel's window within a thread block's shared memory and a
+    read radius within the band's low margin.  float32 or float64."""
+    why = chunk_refusal(spec, analysis, grid, shape, K, n_inner, dtype)
+    if why is not None:
+        return why
+    from .cuda import band_radius
+
+    nd = spec.ndim
+    modes = dim_modes(grid)[:nd]
+    shapes = field_shapes(spec, grid.nxyz[:nd])
+    lo, extras = band_margins(spec, analysis)
+    why = admit_banded_geometry(shapes, analysis.margin_after(K), modes, B=B,
+                                extras=extras, lo=lo)
+    if why is not None or nd != 3:
+        return why
+    radius = band_radius(spec)
+    if radius > lo:
+        return (f"read radius {radius} exceeds the band's low margin {lo} "
+                f"(the band kernel's window)")
+    need = banded_smem(B, extras, lo=lo,
+                       itemsize=torch.finfo(dtype).bits // 8,
+                       stags=[f.stagger[1:] for f in spec.fields],
+                       radius=radius)
+    if need > chunk_budget():
+        return (f"band window {need} bytes exceeds the shared-memory budget "
+                f"{chunk_budget()} of a thread block")
+    return None
+
+
+def fit_spec_band(spec: StencilSpec, analysis: Analysis, grid, shape,
+                  n_inner: int, dtype, kmax: int = 8, bands=(8, 16)):
+    """Largest admissible `(K, B)` of the banded route (igg's
+    `fit_spec_band`, `_smem.fit_banded`); None when none applies."""
+    return fit_banded(
+        lambda K, B: banded_refusal(spec, analysis, grid, shape, K, n_inner,
+                                    dtype, B=B) is None, kmax, bands=bands)
+
+
+def band_core(gen):
+    """The band core of the plain version: the evaluator on one block's band
+    windows, its central rows kept (`chunk_engine.band_core_from_window` at
+    the low margin of :func:`band_margins`)."""
+    nd = gen.spec.ndim
+    lo, _ = band_margins(gen.spec, gen.analysis)
+    return band_core_from_window(
+        lambda *W: apply_updates(gen.spec, W, gen.coeffs, (1,) * nd), lo)
+
+
+def band_call(gen, exts, shapes, *, K, B, E, modes, grid, ols,
+              central: bool = True):
+    """K banded iterations of the extended stacked buffers `exts` (blocks
+    `shapes` extended by E): every block's central windows (`central`),
+    or the whole evolved extended buffers.  A CPU tensor takes the plain
+    version (any rank); a CUDA tensor launches the generated band entry K
+    times (`chunk_engine.streaming_chunk_call`, rank 3 only), or
+    raises."""
+    from .cuda import band_radius
+
+    lo, extras = band_margins(gen.spec, gen.analysis)
+
+    def launch(src, dst, cfg):
+        _band_launch(gen, src, exts, dst, cfg,
+                     torch.cuda.current_stream(exts[0].device).cuda_stream)
+        band_call.launches += 1
+
+    return streaming_chunk_call(
+        list(exts), [], K=K, B=B, modes=modes, grid=grid, ols=ols,
+        shapes=list(shapes), E=E, band_update=band_core(gen), extras=extras,
+        freeze_fields=gen.analysis.freeze, lo=lo, launch=launch,
+        central=central, staggered=True, radius=band_radius(gen.spec))
+
+
+def _band_launch(gen, src, entry, out, cfg, stream: int) -> None:
+    """Launch the generated `igg_spec_band_step` once (layout `cfg`,
+    `chunk_engine.stagger_band_cfg`) on checked arguments."""
+    lib = generated_library(gen.source, gen.tag)
+    err = lib.igg_spec_band_step(_ptrs(src), _ptrs(entry), _ptrs(out),
+                                 _DTYPE[src[0].dtype], cfg, gen.coef, stream)
+    if err:
+        raise RuntimeError(f"igg_spec_band_step ({gen.spec.name}) launch "
+                           f"failed: CUDA error {err}")
+
+
+band_call.launches = 0
+
+
+def spec_banded_steps(gen, fields, *, n_inner: int, K: int, B: int):
+    """Advance `fields` by the `n_inner // K` full chunks of depth K through
+    the banded route (band depth B); returns `(*fields, steps_done)` and
+    leaves the warm-up step before and the remainder after to the caller.
+    Entry contract: that of :func:`spec_chunk_steps`."""
+    spec = gen.spec
+    grid = shared.global_grid()
+    nd = spec.ndim
+    modes = dim_modes(grid)[:nd]
+    E = gen.analysis.margin_after(K)
+    shapes = field_shapes(spec, grid.nxyz[:nd])
+    ols = field_ols(grid, shapes)
+
+    def one(*S):
+        exts = extend_fields(list(S), ols, E, grid, modes)
+        return band_call(gen, exts, shapes, K=K, B=B, E=E, modes=modes,
+                         grid=grid, ols=ols)
 
     return run_chunks(tuple(fields), n_inner=n_inner, K=K, one_chunk=one)

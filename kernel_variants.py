@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA sources side by side on one NVIDIA card.
 
-    python3 kernel_variants.py
+    python3 kernel_variants.py [VARIANT ...] [case:SUBSTRING ...]
 
-Each variant is the sources of `igg_torch/csrc` with one text edit or one
-extra `nvcc` flag, built into a directory of its own under `_build`.  The
-wrappers of `igg_torch.ops` are pointed at each variant's libraries in turn
-and the kernels are timed with CUDA events at the main path's shapes; the
-variants run in the order A B .. B A, so drift on the card shows.  The
+Each variant is the sources of `igg_torch/csrc` (and the source generated
+for the rank-3 spec `relax3d`) with one text edit or one extra `nvcc`
+flag, built into a directory of its own under `_build`.  The wrappers of
+`igg_torch.ops` and `igg_torch.stencil.lower` are pointed at each
+variant's libraries in turn and the kernels are timed with CUDA events at
+the main path's shapes; the variants run in the order A B .. B A, so drift
+on the card shows.  Named variants run beside `as_built` only; a
+`case:SUBSTRING` argument keeps the cases whose name contains it.  The
 variants are the design choices the sources record:
 
 - `as_built`: the sources as they are;
@@ -27,7 +30,15 @@ variants are the design choices the sources record:
   division's checks otherwise send down its slow path;
 - `stokes_x_fastest`: the Stokes kernels' thread blocks ordered x row
   first (gridDim.x over the x rows, gridDim.z over the z tiles), so the
-  blocks in flight together share their neighbour rows along x.
+  blocks in flight together share their neighbour rows along x;
+- `band_row_staging`: the staggered band walk staging its windows a warp
+  per (x, y) row of a window, the row's offset formed once, its lanes
+  along z, instead of one element a thread with two integer divisions and
+  a 64-bit offset per element;
+- `band_bounds_1`: the staggered band kernels without their float32
+  register bound (`__launch_bounds__(256)` instead of `(256, 2)`): the
+  first design, one thread block an SM (the Stokes one takes 156
+  registers a thread).
 
 Prints one JSON line per variant (milliseconds per launch, each a list of
 the two runs), then the card's name and power limit.  Needs
@@ -102,6 +113,30 @@ def walk(old, new):
     return ("stagger_walk3.cuh", old, new)
 
 
+FLAT_STAGING = """    for (int e = tid; e < n; e += BAND_TY * BAND_TZ) {
+      const int j = e / plane, q = e - j * plane;
+      win[k][e] = ld(src + band_src_at<P>(
+                               g, k, p.b, clampi(p.a - bd.lo + j, 0, e0),
+                               clampi(p.y0 - R + q / wz, 0, e1),
+                               clampi(p.z0 - R + q % wz, 0, e2)));
+    }"""
+ROW_STAGING = """    for (int q = threadIdx.y; q < n / wz; q += BAND_TY) {
+      const int j = q / wy;
+      const T* row = src + band_src_at<P>(g, k, p.b,
+                                          clampi(p.a - bd.lo + j, 0, e0),
+                                          clampi(p.y0 - R + q - j * wy, 0, e1),
+                                          0);
+      for (int w = threadIdx.x; w < wz; w += BAND_TZ)
+        win[k][q * wz + w] = ld(row + clampi(p.z0 - R + w, 0, e2));
+    }"""
+BAND_BOUNDS = ("__launch_bounds__(BAND_TY * BAND_TZ,\n"
+               "                                  8 / sizeof(typename P::T))")
+
+
+def band(old, new):
+    return ("stagger_band_walk3.cuh", old, new)
+
+
 VARIANTS = {
     "as_built": (lambda name, text: text, []),
     "ldg_loads": (ldg_loads, []),
@@ -127,9 +162,22 @@ VARIANTS = {
         walk("const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);",
              "const dim3 grid((unsigned)gz, (unsigned)gy, (unsigned)gx);")),
         []),
+    "band_row_staging": (stokes_edit(band(FLAT_STAGING, ROW_STAGING)), []),
+    "band_bounds_1": (stokes_edit(band(
+        BAND_BOUNDS, "__launch_bounds__(BAND_TY * BAND_TZ)")), []),
 }
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
-        "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk")
+        "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
+        "stokes_band")
+# The generated library of this spec case is built per variant too.
+GENERATED = "relax3d"
+
+
+def relax3d_kernels():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_spec_cases
+
+    return torch_spec_cases.kernels(GENERATED)
 
 
 def build(variant):
@@ -146,20 +194,28 @@ def build(variant):
                 text = edit(f, src.read())
             with open(os.path.join(out, f), "w") as dst:
                 dst.write(text)
+    gen = relax3d_kernels()
+    with open(os.path.join(out, f"gen_{gen.tag}.cu"), "w") as dst:
+        dst.write(gen.source)
     procs = {lib: subprocess.Popen(
         [_build.nvcc(), *_build.FLAGS, *flags, "-o",
          os.path.join(out, f"{lib}.so"), os.path.join(out, f"{lib}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for lib in LIBS}
+        for lib in LIBS + (f"gen_{gen.tag}",)}
     libs = {}
     for lib, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {variant}/{lib}:\n{log}")
         libs[lib] = ctypes.CDLL(os.path.join(out, f"{lib}.so"))
-        fn_name, argtypes = _build.SIGNATURES[lib]
-        fn = getattr(libs[lib], fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        if lib.startswith("gen_"):
+            from igg_torch.stencil.cuda import ARGTYPES, BAND_ENTRY, ENTRY
+            names = [(n, ARGTYPES) for n in (ENTRY, BAND_ENTRY)]
+        else:
+            names = [_build.SIGNATURES[lib]]
+        for fn_name, argtypes in names:
+            fn = getattr(libs[lib], fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return libs
 
 
@@ -302,6 +358,39 @@ def cases(dev):
                                           ols=ols), K
         return setup
 
+    def stokes_band():
+        """One K = 8 banded chunk (B = 8) of the Stokes band kernel on 2x2x2
+        open blocks of 256^3 (8 extended blocks of 288^3), random
+        fields."""
+        g = grid(dimx=2, dimy=2, dimz=2, overlapx=3, overlapy=3, overlapz=3)
+        kw = st3._pseudo_steps(st3.Params())
+        shapes = sp.field_shapes(g.nxyz)
+        *S, Rho = [2 * torch.rand(it.stacked_shape(s), device=dev) - 1
+                   for s in shapes]
+        modes = ce.dim_modes(g)
+        ols = ce.field_ols(g, shapes)
+        exts = ce.extend_fields(S, ols[:4], 2 * K, g, modes)
+        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        return lambda: stz.band_call(exts, Rho_ext, shapes, K=K, B=8,
+                                     modes=modes, grid=g, kw=kw,
+                                     ols=ols), K
+
+    def relax3d_band():
+        """One K = 8 banded chunk (B = 8) of relax3d's generated band kernel
+        on one periodic block of 256^3 (272 x 256 x 256 extended)."""
+        from igg_torch.stencil import lower
+
+        g = grid(**one_block)
+        gen = relax3d_kernels()
+        shapes = lower.field_shapes(gen.spec, g.nxyz)
+        E = gen.analysis.margin_after(K)
+        modes = ce.dim_modes(g)
+        ols = ce.field_ols(g, shapes)
+        exts = ce.extend_fields([2 * torch.rand((n,) * 3, device=dev) - 1],
+                                ols, E, g, modes)
+        return lambda: lower.band_call(gen, exts, shapes, K=K, B=8, E=E,
+                                       modes=modes, grid=g, ols=ols), K
+
     return [("diffusion_step_256", diffusion_step),
             ("diffusion_chunk_2x2x2_256_open", diffusion_chunk),
             ("hm3d_step_256_random", hm3d_step("random")),
@@ -315,7 +404,9 @@ def cases(dev):
              stokes(False, "init_fields")),
             ("stokes_step_288x256x256_periodic", stokes(False, nx=288)),
             ("stokes_chunk_256_periodic", stokes(True)),
-            ("stokes_chunk_2x2x2_256_open", stokes(True, blocks=2))]
+            ("stokes_chunk_2x2x2_256_open", stokes(True, blocks=2)),
+            ("stokes_band_2x2x2_256_open", stokes_band),
+            ("relax3d_band_256_periodic", relax3d_band)]
 
 
 def main() -> int:
@@ -328,22 +419,34 @@ def main() -> int:
                                hm3d_pallas, hm3d_trapezoid, stokes_pallas,
                                stokes_trapezoid, wave2d_pallas,
                                wave2d_trapezoid)
+    from igg_torch.stencil import lower
 
     wrappers = (diffusion_pallas, diffusion_trapezoid, hm3d_pallas,
                 hm3d_trapezoid, wave2d_pallas, wave2d_trapezoid,
                 stokes_pallas, stokes_trapezoid)
-    built = {v: build(v) for v in VARIANTS}
-    order = list(VARIANTS) + list(VARIANTS)[::-1]
-    times = {v: {} for v in VARIANTS}
+    named = [a for a in sys.argv[1:] if not a.startswith("case:")]
+    keep = [a[len("case:"):] for a in sys.argv[1:] if a.startswith("case:")]
+    for v in named:
+        if v not in VARIANTS:
+            raise SystemExit(f"unknown variant {v!r}: {sorted(VARIANTS)}")
+    variants = ["as_built"] + named if named else list(VARIANTS)
+    built = {v: build(v) for v in variants}
+    order = variants + variants[::-1]
+    times = {v: {} for v in variants}
+    tag = relax3d_kernels().tag
     for name, setup in cases(torch.device("cuda")):
+        if keep and not any(k in name for k in keep):
+            continue
         run, launches = setup()
         for v in order:
             for m in wrappers:
                 m.library = built[v].__getitem__
+            lower.generated_library = (
+                lambda source, t, v=v: built[v][f"gen_{tag}"])
             times[v].setdefault(name, []).append(
                 event_ms(run, max(2, 40 // launches)) / launches)
         del run
-    for v in VARIANTS:
+    for v in variants:
         print(json.dumps({"variant": v, "ms_per_launch": times[v]}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -13,10 +13,13 @@ and Stokes chunk kernels, and the kernels generated from stencil specs
 (`igg_torch/stencil/cuda.py`: the step and the chunk step of shallow water
 with and without friction, spec-wave2d, a spec of `pow`, `where` and
 scalar divisions, and the rank-3 `relax3d`), spec-wave2d also against the
-hand-written wave2d kernels, and the diffusion and HM3D band kernels
+hand-written wave2d kernels, the diffusion and HM3D band kernels
 (`csrc/band_walk.cuh`, whose threads share a staged window: each thread
-block's threads run as fibers that switch at `__syncthreads`) in every
-window mode, on their whole evolved buffers.  This checks the kernels'
+block's threads run as fibers that switch at `__syncthreads`) and the
+Stokes and rank-3 spec band kernels (`csrc/stagger_band_walk3.cuh`:
+`csrc/stokes_band.cu` and the generated band entry of `relax3d` and the
+staggered `acoustic3d`) in every window mode, on their whole evolved
+buffers.  This checks the kernels'
 indexing, walks and arithmetic, not their CUDA-specific parts (vector
 loads, alignment, the launch), which `tests/test_torch_kernels.py` checks
 on a card.  Skips without g++.
@@ -59,7 +62,8 @@ RUNTIME = r"""
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __noinline__ __attribute__((noinline))
+#define __launch_bounds__(...)
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -148,7 +152,7 @@ LAUNCH_SMEM = re.compile(
 SHARED = re.compile(r"extern __shared__ [^;]*?(\w+)\[\];")
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
         "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
-        "diffusion_band", "hm3d_band")
+        "diffusion_band", "hm3d_band", "stokes_band")
 
 
 def _rewrite(text):
@@ -208,8 +212,10 @@ def generated(csrc):
             src = csrc / f"gen_{tag}_{len(built)}.cu"
             src.write_text(_rewrite(source))
             lib = _gxx(csrc, src, src.with_suffix(".so"))
-            fn = getattr(lib, cuda.ENTRY)
-            fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
+            for name in (cuda.ENTRY, cuda.BAND_ENTRY):
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
             built[source] = lib
         return built[source]
 
@@ -545,6 +551,58 @@ def test_stokes_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
             same(a, ce.central_window(b, s, 2 * K, modes))
 
 
+def _run_stag_band(launch, exts, shapes, local, E, K, B, lo, extras, modes, g,
+                   ols, central):
+    """K launches of a staggered band kernel ping-ponging two sets of
+    buffers (NaN-filled, so a cell a launch leaves unwritten shows), as
+    `chunk_engine.streaming_chunk_call` runs them; the last one writes the
+    central windows when `central`."""
+    bufs = [[torch.full_like(X, float("nan")) for X in exts]
+            for _ in range(2)]
+    src = list(exts)
+    for k in range(K):
+        last = central and k == K - 1
+        dst = ([torch.full(it.stacked_shape(s), float("nan"), dtype=X.dtype)
+                for X, s in zip(exts, shapes)] if last else bufs[k % 2])
+        launch(src, dst, ce.stagger_band_cfg(
+            local, E, modes, g.dims, ols[:len(exts)], last, B=B, lo=lo,
+            extras=extras))
+        src = dst
+    return src
+
+
+# Blocks of 12x12x36 at K = 3 (E = 6): an extended x span of 24 rows (12 on a
+# frozen x) cut into 2 or 3 bands; y in 2 or 3 tiles and z in 2 (the face
+# rows of Vy and Vz in the last tile), so wraps, freezes and tiles cross.
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
+def test_stokes_band_kernel_matches_plain(emulated, case, dtype, bands):
+    """The Stokes band kernel against `banded_window_plain` with the port
+    of igg's `_band_update`: the whole evolved extended buffers (tail rows
+    and shoulders included) and the central windows of the last launch."""
+    K, local = 3, (12, 12, 36)
+    g = _stokes_grid(case, local)
+    modes = ce.dim_modes(g)
+    shapes = sp.field_shapes(g.nxyz)
+    ols = ce.field_ols(g, shapes)
+    B = ce.ext_shape(local, 2 * K, modes)[0] // bands
+    assert stz.stokes_banded_refusal(g, local, K, K, dtype, B=B) is None
+    *state, Rho = _stokes_state(g, dtype, 43)
+    exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
+    Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+    for central in (False, True):
+        got = _run_stag_band(
+            lambda src, dst, cfg: stz._band_launch(src, exts, Rho_ext, dst,
+                                                   cfg, STOKES_KW, 0),
+            exts, shapes, local, 2 * K, K, B, 1, stz.EXTRAS, modes, g, ols,
+            central)
+        want = stz.band_call(exts, Rho_ext, shapes, K=K, B=B, modes=modes,
+                             grid=g, kw=STOKES_KW, ols=ols, central=central)
+        for a, b in zip(got, want):
+            same(a, b)
+
+
 # -- kernels generated from stencil specs ------------------------------------
 
 def _spec_params():
@@ -633,3 +691,36 @@ def test_spec_wave2d_matches_hand_kernels(emulated, case, local):
         wexts, [torch.empty_like(A) for A in S], K)
     for a, b in zip(got, want):
         same(a, b)
+
+
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,case", [(n, c) for n in cases.SPECS_3D
+                                       for c in sorted(cases.GRIDS_3D)])
+def test_spec_band_kernel_matches_plain(emulated, name, case, dtype, bands):
+    """The generated band entry of the rank-3 specs against
+    `banded_window_plain` with the band core derived from the evaluator:
+    whole evolved buffers and central windows, blocks of 18x12x36, K = 3,
+    an extended x span of 24 rows (18 on a frozen x) in 2 or 3 bands."""
+    K, local = 3, (18, 12, 36)
+    g = cases.init(it, name, case, local, "cpu")
+    gen = cases.kernels(name)
+    shapes = lower.field_shapes(gen.spec, g.nxyz)
+    E = gen.analysis.margin_after(K)
+    modes = ce.dim_modes(g)
+    ols = ce.field_ols(g, shapes)
+    B = ce.ext_shape(local, E, modes)[0] // bands
+    assert lower.banded_refusal(gen.spec, gen.analysis, g, shapes[0], K, K,
+                                dtype, B=B) is None
+    lo, extras = lower.band_margins(gen.spec, gen.analysis)
+    exts = ce.extend_fields(cases.state(it, gen, g, dtype, 65), ols, E, g,
+                            modes)
+    for central in (False, True):
+        got = _run_stag_band(
+            lambda src, dst, cfg: lower._band_launch(gen, src, exts, dst, cfg,
+                                                     0),
+            exts, shapes, local, E, K, B, lo, extras, modes, g, ols, central)
+        want = lower.band_call(gen, exts, shapes, K=K, B=B, E=E, modes=modes,
+                               grid=g, ols=ols, central=central)
+        for a, b in zip(got, want):
+            same(a, b)

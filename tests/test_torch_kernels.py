@@ -16,7 +16,10 @@ divisions, the rank-3 `relax3d`; step and chunk step in every window mode,
 spec-wave2d also against the hand wave2d kernels), and the diffusion and
 HM3D band kernels (every window mode, two and three bands, whole evolved
 buffers and central windows; a window beyond the shared-memory budget
-raises).
+raises), and the staggered band kernels: Stokes (igg's trapezoid matrix
+and one-block grids) and the generated band entry of the rank-3 specs
+(`relax3d`, the staggered `acoustic3d`), the same way; a window beyond the
+budget, a 2-D spec and wave2d with `banded=True` raise on the card.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -448,6 +451,73 @@ def test_stokes_chunk_kernel_matches_plain(card, case, dtype, local, Ks):
                 a, ce.central_window(b, s, 2 * K, modes), rtol=0, atol=0)
 
 
+# Blocks of 12x12x36, K = 3 (E = 6): an extended x span of 24 rows (12 on a
+# frozen x) in 2 or 3 bands (B = 12 in float64 stages 198,048 bytes a
+# thread block); y and z tiles that cross, the face rows of Vy and Vz.
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
+def test_stokes_band_kernel_matches_plain(card, case, dtype, bands):
+    """The Stokes band kernel against `banded_window_plain` with the port of
+    igg's `_band_update`: the whole evolved extended buffers (the
+    x-staggered Vx's tail row and the shoulders included) and the central
+    windows of the last launch."""
+    K, local = 3, (12, 12, 36)
+    it.init_global_grid(*local, quiet=True, device=card, overlapx=3,
+                        overlapy=3, overlapz=3, **STOKES_GRIDS[case])
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    shapes = sp.field_shapes(g.nxyz)
+    ols = ce.field_ols(g, shapes)
+    B = ce.ext_shape(local, 2 * K, modes)[0] // bands
+    assert stz.stokes_banded_refusal(g, local, K, K, dtype, B=B) is None
+    *state, Rho = _stokes_state(g, dtype, 43, card)
+    exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
+    Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+    want = ce.banded_window_plain(
+        list(exts) + [Rho_ext], K=K, B=B, lo=1, modes=modes, grid=g, ols=ols,
+        shapes=shapes, E=2 * K,
+        band_update=partial(stz.band_update, kw=STOKES_KW),
+        extras=stz.EXTRAS, n_up=4, freeze_fields=stz.FREEZE_FIELDS)[:4]
+    for central in (False, True):
+        before = stz.band_call.launches
+        got = stz.band_call(exts, Rho_ext, shapes, K=K, B=B, modes=modes,
+                            grid=g, kw=STOKES_KW, ols=ols, central=central)
+        torch.cuda.synchronize()
+        assert stz.band_call.launches == before + K
+        for a, b, s in zip(got, want, shapes):
+            b = ce.central_window(b, s, 2 * K, modes) if central else b
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_stokes_band_kernel_refuses_what_smem_refuses(card):
+    """B = 16 in float64 stages 253,856 bytes a thread block: the gate and
+    the wrapper refuse it, and the library refuses the launch itself."""
+    local = (32, 12, 12)
+    it.init_global_grid(*local, quiet=True, device=card, overlapx=3,
+                        overlapy=3, overlapz=3)
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    shapes = sp.field_shapes(g.nxyz)
+    ols = ce.field_ols(g, shapes)
+    assert "shared-memory budget" in stz.stokes_banded_refusal(
+        g, local, 2, 2, torch.float64, B=16)
+    *state, Rho = _stokes_state(g, torch.float64, 47, card)
+    exts = ce.extend_fields(state, ols[:4], 4, g, modes)
+    Rho_ext = ce.extend_fields([Rho], [ols[4]], 4, g, modes)[0]
+    before = stz.band_call.launches
+    with pytest.raises(it.GridError, match="shared-memory budget"):
+        stz.band_call(exts, Rho_ext, shapes, K=2, B=16, modes=modes, grid=g,
+                      kw=STOKES_KW, ols=ols)
+    assert stz.band_call.launches == before
+    cfg = ce.stagger_band_cfg(local, 4, modes, g.dims, ols[:4], False, B=16,
+                              lo=1, extras=stz.EXTRAS)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        stz._band_launch(exts, exts, Rho_ext,
+                         [torch.empty_like(X) for X in exts], cfg, STOKES_KW,
+                         torch.cuda.current_stream().cuda_stream)
+
+
 # -- kernels generated from stencil specs ------------------------------------
 
 def _spec_params():
@@ -518,4 +588,68 @@ def test_spec_wave2d_matches_hand_kernels(card, case, local):
     want = wtz.chunk_call(wexts, shapes, K=K, modes=modes, grid=g,
                           kw=WAVE_KW, ols=ols)
     for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,case", [(n, c) for n in cases.SPECS_3D
+                                       for c in sorted(cases.GRIDS_3D)])
+def test_spec_band_kernel_matches_plain(card, name, case, dtype, bands):
+    """The generated band entry of the rank-3 specs against
+    `banded_window_plain` with the band core derived from the evaluator:
+    whole evolved buffers and central windows, blocks of 18x12x36, K = 3,
+    an extended x span of 24 rows (18 on a frozen x) in 2 or 3 bands."""
+    K, local = 3, (18, 12, 36)
+    g = cases.init(it, name, case, local, card)
+    gen = cases.kernels(name)
+    shapes = lower.field_shapes(gen.spec, g.nxyz)
+    E = gen.analysis.margin_after(K)
+    modes = ce.dim_modes(g)
+    ols = ce.field_ols(g, shapes)
+    B = ce.ext_shape(local, E, modes)[0] // bands
+    assert lower.banded_refusal(gen.spec, gen.analysis, g, shapes[0], K, K,
+                                dtype, B=B) is None
+    lo, extras = lower.band_margins(gen.spec, gen.analysis)
+    exts = ce.extend_fields(cases.state(it, gen, g, dtype, 65, card), ols, E,
+                            g, modes)
+    want = ce.banded_window_plain(
+        list(exts), K=K, B=B, lo=lo, modes=modes, grid=g, ols=ols,
+        shapes=shapes, E=E, band_update=lower.band_core(gen), extras=extras,
+        n_up=len(exts), freeze_fields=gen.analysis.freeze)
+    for central in (False, True):
+        before = lower.band_call.launches
+        got = lower.band_call(gen, exts, shapes, K=K, B=B, E=E, modes=modes,
+                              grid=g, ols=ols, central=central)
+        torch.cuda.synchronize()
+        assert lower.band_call.launches == before + K
+        for a, b, s in zip(got, want, shapes):
+            b = ce.central_window(b, s, E, modes) if central else b
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_banded_rank2_raises_on_the_card(card):
+    """igg compiles its streaming kernel for 3-D fields only: on the card a
+    rank-2 spec and wave2d with `banded=True` raise a GridError naming
+    "3-D only", and "auto" takes another route."""
+    from igg_torch import stencil
+    from igg_torch.models import wave2d as w2
+
+    it.init_global_grid(16, 16, 1, dimx=4, dimy=2, periodx=1, periody=1,
+                        quiet=True, device=card)
+    p = w2.Params()
+    S = it.update_halo(*w2.init_fields(p))
+    with pytest.raises(it.GridError, match="3-D only"):
+        w2.make_multi_step(5, p, banded=True, K=4, band=8)(*S)
+    spec = stencil.wave2d_spec()
+    cf = stencil.wave2d_coeffs(p)
+    with pytest.raises(it.GridError, match="3-D only"):
+        stencil.compile(spec, coeffs=cf, n_inner=5, banded=True, K=4,
+                        band=8)(*S)
+    before = lower.band_call.launches
+    out = stencil.compile(spec, coeffs=cf, n_inner=5, chunk=False)(*S)
+    assert lower.band_call.launches == before
+    want = stencil.compile(spec, coeffs=cf, n_inner=5, chunk=False,
+                           banded=False)(*S)
+    for a, b in zip(out, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)

@@ -3,11 +3,14 @@
 CPU through g++, tests/test_torch_kernels.py on a card).
 
 Specs: shallow water without and with friction (a self-read in an `add`
-update), spec-wave2d, the rank-3 `relax3d` of tests/test_stencil.py, and
+update), spec-wave2d, the rank-3 `relax3d` of tests/test_stencil.py, the
+rank-3 staggered `acoustic3d` (wave2d's leapfrog carried to three dims: a
+pressure and three face velocities, each frozen on its own dim), and
 `mixed`: `pow` with the exponents 2 and 3, `where` on a comparison,
 `Const / Read` and `Read / Const`, and a constant staggered field.
 Coefficients are fixed numbers, so the checks need no grid-derived
-spacing."""
+spacing.  The rank-3 specs also drive the generated band entry
+(tests/test_torch_banded_stagger.py, the kernel tests, chip_smoke.py)."""
 
 import numpy as np
 import torch
@@ -28,6 +31,31 @@ def relax3d_spec():
            + T[0, 0, -1] + T[0, 0, 1] - 6.0 * T[0, 0, 0])
     return StencilSpec("relax3d", fields=[T], params=[r],
                        updates=[Update(T, r * lap, pad=((1, 1),) * 3)])
+
+
+def acoustic3d_spec(m=stencil):
+    """A 3-D acoustic leapfrog (the spec module `m`: igg_torch.stencil, or
+    igg.stencil in the tests that hold the two against each other): face
+    velocities from the pressure gradient on their no-write interiors,
+    then the pressure full-shape from the fresh velocity divergence."""
+    P = m.Field("P", stagger=(0, 0, 0))
+    Vx = m.Field("Vx", stagger=(1, 0, 0))
+    Vy = m.Field("Vy", stagger=(0, 1, 0))
+    Vz = m.Field("Vz", stagger=(0, 0, 1))
+    dt, dx, dy, dz = m.Param("dt"), m.Param("dx"), m.Param("dy"), m.Param("dz")
+    rho, bulk = m.Param("rho"), m.Param("K")
+    return m.StencilSpec(
+        "acoustic3d", fields=[P, Vx, Vy, Vz],
+        params=[dt, dx, dy, dz, rho, bulk],
+        updates=[
+            m.Update(Vx, -dt / rho * (P[0, 0, 0] - P[-1, 0, 0]) / dx),
+            m.Update(Vy, -dt / rho * (P[0, 0, 0] - P[0, -1, 0]) / dy),
+            m.Update(Vz, -dt / rho * (P[0, 0, 0] - P[0, 0, -1]) / dz),
+            m.Update(P, P - dt * bulk * ((Vx[1, 0, 0] - Vx[0, 0, 0]) / dx
+                                         + (Vy[0, 1, 0] - Vy[0, 0, 0]) / dy
+                                         + (Vz[0, 0, 1] - Vz[0, 0, 0]) / dz),
+                     mode="assign"),
+        ])
 
 
 def mixed_spec():
@@ -54,8 +82,11 @@ SPECS = {
                     dict(dt=0.05, dx=0.31, dy=0.27, rho=1.3, K=0.7)),
     "mixed": (mixed_spec, dict(a=0.05)),
     "relax3d": (relax3d_spec, dict(r=0.1)),
+    "acoustic3d": (acoustic3d_spec, dict(dt=0.05, dx=0.31, dy=0.27, dz=0.43,
+                                         rho=1.3, K=0.7)),
 }
-SPECS_2D = sorted(n for n in SPECS if n != "relax3d")
+SPECS_3D = ("relax3d", "acoustic3d")
+SPECS_2D = sorted(n for n in SPECS if n not in SPECS_3D)
 
 # Layouts as init_global_grid keywords: every window mode (ext, wrap, oext,
 # frozen) and BASELINE config 3's x-periodic, y-open ring.
@@ -81,16 +112,16 @@ LOCALS_3D = [(12, 10, 9), (10, 9, 8)]
 
 
 def grids(spec_name):
-    return GRIDS_3D if spec_name == "relax3d" else GRIDS_2D
+    return GRIDS_3D if spec_name in SPECS_3D else GRIDS_2D
 
 
 def locals_of(spec_name):
-    return LOCALS_3D if spec_name == "relax3d" else LOCALS_2D
+    return LOCALS_3D if spec_name in SPECS_3D else LOCALS_2D
 
 
 def init(it, spec_name, case, local, device):
     kw = dict(grids(spec_name)[case])
-    if spec_name != "relax3d":
+    if spec_name not in SPECS_3D:
         local, kw["dimz"] = tuple(local) + (1,), 1
     it.init_global_grid(*local, quiet=True, device=device, **kw)
     return it.get_global_grid()
