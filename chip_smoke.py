@@ -12,8 +12,9 @@ the script exits non-zero without printing a result:
 1. Kernel checks: each kernel against its plain PyTorch version on the card,
    at small shapes in every halo (or chunk window) mode, then at 256^3 f32
    (the headline's shape), where the kernel, its plain version and the
-   bound are timed; the plane packer and the trapezoid chunk step at the
-   shape of the 510^3 headline (2x2x2 blocks of 256^3 f32, open).
+   bound are timed; the plane packer (f32 and f64, beside the
+   `index_select` calls and its sector bound) and the trapezoid chunk step
+   at the shape of the 510^3 headline (2x2x2 blocks of 256^3 f32, open).
 2. Headline, periodic: 256^3 f32 on one block, `make_multi_step(100)`
    through `run()`: heat conserved, the first 10 steps equal to the plain
    path, ms/step.
@@ -102,7 +103,10 @@ the script exits non-zero without printing a result:
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step) and the wave2d kernels (the
 staggered leapfrog step, the chunk step) and the Stokes kernels (the fused
-iteration, the chunk step) and the generated spec step and chunk step (five
+iteration, the chunk step, whose float32 division is also held to `x / d`
+over all 2^32 dividends for every divisor of the Stokes phases, and which
+is timed at 2x2x2 blocks of 256^3 open in f32 and f64 and at one 256^3
+periodic block) and the generated spec step and chunk step (five
 specs; spec-wave2d also against the hand wave2d kernels) against their
 plain versions in every halo and window mode, f32 and f64, and times them
 at their main paths' shapes, and the diffusion and HM3D band kernels
@@ -296,9 +300,10 @@ STOKES_GRIDS = {
     "1x1x1_periods101": dict(SINGLE, periodx=1, periodz=1),
 }
 # Local shapes of those checks and the chunk depths each admits: 16-byte P
-# rows (the vector path), odd extents (the element path).
+# rows, odd extents, and z extents that cross the chunk kernel's 32-cell
+# tiles and end in a ragged one.
 STOKES_SHAPES = (((16, 16, 16), (2,)), ((15, 14, 17), (2, 3)),
-                 ((24, 24, 24), (2, 4)))
+                 ((24, 24, 24), (2, 4)), ((13, 13, 33), (2, 3)))
 STOKES_NAMES = ("P", "Vx", "Vy", "Vz")
 
 
@@ -422,6 +427,23 @@ def bound_ms(nbytes: float, flops: float, flop_rate: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / flop_rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def pack_sector_bytes(shape, dims, reqs, esize) -> float:
+    """Compulsory bytes of one plane-packer launch on the card: each y-plane
+    cell read and written once, each z-plane cell written once, and the
+    distinct 32-byte sectors that hold the z planes' cells read once (a
+    sector that serves two requests counts once)."""
+    G0, G1, G2 = shape
+    s2 = G2 // dims[2]
+    y_cells = sum(G0 * dims[1] * G2 for d, _ in reqs if d == 1)
+    z_cells = sum(G0 * G1 * dims[2] for d, _ in reqs if d == 2)
+    cols = np.array(sorted({c * s2 + p for d, p in reqs if d == 2
+                            for c in range(dims[2])}), dtype=np.int64)
+    rows = np.arange(G0 * G1, dtype=np.int64) * G2
+    sectors = np.unique((rows[:, None] + cols[None, :]) * esize // 32).size \
+        if cols.size else 0
+    return float((2 * y_cells + z_cells) * esize + 32 * sectors)
 
 
 def uniform(shape, lo, hi, dtype, dev, seed):
@@ -653,16 +675,20 @@ class Smoke:
                         out[f], ref[f], 0.0))
             reqs = [(d, p) for d in (1, 2)
                     for p in (0, 1, local[d] - 2, local[d] - 1)]
+            shp = self.it.stacked_shape(local)
             for dtype in (torch.float16, torch.float32, torch.float64,
                           torch.int64):
-                F = uniform(self.it.stacked_shape(local), -100, 100,
-                            torch.float64, self.dev, 12).to(dtype)
-                got = pk.pack_planes(F, reqs, g.dims)
-                for (d, p), a, b in zip(reqs, got,
-                                        pk.pack_planes_plain(F, reqs, g.dims)):
-                    self.note("pack_planes", check(
-                        f"pack_planes {case} {local} {dtype} {(d, p)}", a, b,
-                        0.0))
+                # At offset 1 of its storage: rows not 16-byte aligned.
+                for off in (0, 1):
+                    F = uniform((int(np.prod(shp)) + off,), -100, 100,
+                                torch.float64, self.dev, 12).to(dtype)
+                    F = F[off:].view(shp)
+                    got = pk.pack_planes(F, reqs, g.dims)
+                    for (d, p), a, b in zip(
+                            reqs, got, pk.pack_planes_plain(F, reqs, g.dims)):
+                        self.note("pack_planes", check(
+                            f"pack_planes {case} {local} {dtype} offset "
+                            f"{off} {(d, p)}", a, b, 0.0))
 
     def kernel_checks_headline(self):
         """One step of each kernel at the headline shape (256^3 f32,
@@ -751,30 +777,40 @@ class Smoke:
         n, k = self.n_multi, self.time_iters
         g = self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
         sc = dp.scal(*self.t3.Params().spacing())
-        # The packer: the 8 y/z planes update_halo extracts on this grid.
-        T = uniform(self.it.stacked_shape(g.nxyz), 0, 100, torch.float32,
-                    self.dev, 13)
+        # The packer: the 8 y/z planes update_halo extracts on this grid, in
+        # f32 (the main path's) and f64.
         reqs = [(d, p) for d in (1, 2) for p in (1, n - 2, 0, n - 1)]
-        got = pk.pack_planes(T, reqs, g.dims)
-        for (d, p), a, b in zip(reqs, got, pk.pack_planes_plain(T, reqs, g.dims)):
-            self.note("pack_planes", check(f"pack_planes {n}^3 2x2x2 {(d, p)}",
-                                           a, b, 0.0))
-        cells = sum(o.numel() for o in got)
-        z_cells = sum(o.numel() for (d, _), o in zip(reqs, got) if d == 2)
-        idx = [(d, torch.arange(g.dims[d], device=self.dev) * n + p)
-               for d, p in reqs]
-        self.perf["pack_planes"] = dict(
-            kernel_time(lambda: pk.pack_planes(T, reqs, g.dims), 10 * k,
-                        "pack_kernel"),
-            plain_ms=event_ms(lambda: pk.pack_planes_plain(T, reqs, g.dims), k),
-            # The index_select calls alone (they are the plain version too).
-            library_ms=event_ms(lambda: [T.index_select(d, i) for d, i in idx],
-                                k),
-            # Each plane cell read once and written once, 4 bytes each.
-            bound=bound_ms(2 * cells * 4, 0, F32_FLOPS),
-            # The same with a 32-byte sector read for every z-plane cell.
-            sector_bound_ms=((2 * (cells - z_cells) + z_cells) * 4
-                             + z_cells * 32) / HBM_BYTES_PER_S * 1e3)
+        for dtype, key in ((torch.float32, "pack_planes"),
+                           (torch.float64, "pack_planes_f64")):
+            T = uniform(self.it.stacked_shape(g.nxyz), 0, 100, dtype,
+                        self.dev, 13)
+            got = pk.pack_planes(T, reqs, g.dims)
+            for (d, p), a, b in zip(reqs, got,
+                                    pk.pack_planes_plain(T, reqs, g.dims)):
+                self.note("pack_planes", check(
+                    f"pack_planes {n}^3 2x2x2 {dtype} {(d, p)}", a, b, 0.0))
+            cells = sum(o.numel() for o in got)
+            del got
+            idx = [(d, torch.arange(g.dims[d], device=self.dev) * n + p)
+                   for d, p in reqs]
+            esize = T.element_size()
+            self.perf[key] = dict(
+                kernel_time(lambda: pk.pack_planes(T, reqs, g.dims), 10 * k,
+                            "pack_kernel"),
+                plain_ms=event_ms(lambda: pk.pack_planes_plain(T, reqs,
+                                                               g.dims), k),
+                # The index_select calls alone (they are the plain version
+                # too).
+                library_ms=event_ms(
+                    lambda: [T.index_select(d, i) for d, i in idx], k),
+                # Each plane cell read once and written once.
+                bound=bound_ms(2 * cells * esize, 0, F32_FLOPS),
+                # The same with the z planes' cells read as the 32-byte
+                # sectors that hold them, each sector once.
+                sector_bound_ms=pack_sector_bytes(T.shape, g.dims, reqs,
+                                                  esize)
+                / HBM_BYTES_PER_S * 1e3)
+            del T
         # The chunk: one K-step chunk of the extended 2x2x2 buffer.
         T, Text, A_ext, modes = self.chunk_input(g, torch.float32, 14)
         del T
@@ -802,15 +838,16 @@ class Smoke:
             lambda: dp.launch_step(Text, A_ext, ("frozen",) * 3, {}, g.dims,
                                    sc, out=buf), k)
         del buf
-        for name in ("pack_planes", "diffusion_chunk_step"):
+        for name in ("pack_planes", "pack_planes_f64", "diffusion_chunk_step"):
             p = self.perf[name]
-            log(f"[phase 1] {name} at 2x2x2 x {n}^3 f32 open: {p['ms']:.4f} ms "
+            dt = "f64" if name.endswith("f64") else "f32"
+            log(f"[phase 1] {name} at 2x2x2 x {n}^3 {dt} open: {p['ms']:.4f} ms "
                 f"device per launch ({p['ms_from']}), {p['events_ms']:.4f} ms "
                 f"per launch back to back (events), plain {p['plain_ms']:.4f} "
                 f"ms, bound {p['bound'][0]:.4f} ms ({p['bound'][1]})"
                 + (f", index_select calls {p['library_ms']:.4f} ms, bound with "
                    f"32-byte z sectors {p['sector_bound_ms']:.4f} ms"
-                   if name == "pack_planes" else
+                   if name.startswith("pack_planes") else
                    f", the step kernel on the same buffer (frozen modes) "
                    f"{self.perf['step_kernel_on_chunk_buffer_ms']:.4f} ms"))
 
@@ -1916,45 +1953,87 @@ class Smoke:
             bound=bound_ms(4 * (rd + wr), STOKES_FLOPS * cells, F32_FLOPS))
         del S, Rho
         m = self.n_multi
-        g = self.grid((m, m, m), dimx=2, dimy=2, dimz=2, **OL3)
-        kw = self.st3._pseudo_steps(self.st3.Params())
-        *S, Rho = self.stokes_state(g, torch.float32, 55)
-        exts, Rho_ext, modes, shapes, ols, out, ref = self.stokes_chunk(
-            g, S, Rho, K, kw)
-        for name, a, b in zip(STOKES_NAMES, out, ref):
-            self.note("stokes_chunk_step", check(
-                f"stokes_chunk_step {name} 2x2x2 x {m}^3 open K={K}", a, b,
-                0.0))
-        del out, ref, S, Rho
-        self.perf["stokes_chunk_step"] = dict(
-            kernel_time(lambda: stz.chunk_call(
-                exts, Rho_ext, shapes, K=K, modes=modes, grid=g, kw=kw,
-                ols=ols), max(k // 10, 2), "Stokes"),
-            plain_ms=event_ms(lambda: ce.window_step_plain(
-                exts, exts, E=2 * K, modes=modes, grid=g,
-                core=stz.window_core(g, Rho_ext, kw),
-                flags=ce.edge_flags(modes, g),
-                freeze_fields=stz.FREEZE_FIELDS, ols=ols), 2),
-            bound=self.stokes_chunk_bound(g, exts, Rho_ext, shapes, K, modes))
-        self.perf["stokes_chunk_step"]["events_ms"] /= K
-        # The step kernel on the same extended buffers (every extended block
-        # a block): what the chunk's freezes and window cost beyond it.
-        outs = [torch.empty_like(X) for X in exts]
-        self.perf["stokes_step_on_chunk_buffer_ms"] = event_ms(
-            lambda: sp.launch_step(*exts, Rho_ext, g.dims, kw, out=outs), 3)
-        del exts, Rho_ext, outs
-        for name, p, tag in (
-                ("stokes_step", self.perf["stokes_step"],
-                 f"{n}^3 f32 periodic"),
-                ("stokes_chunk_step K=8", self.perf["stokes_chunk_step"],
-                 f"2x2x2 x {m}^3 f32 open")):
-            log(f"[phase 1] {name} at {tag}: {p['ms']:.4f} ms device per "
-                f"launch ({p['ms_from']}), {p['events_ms']:.4f} ms per launch "
-                f"back to back (events), plain {p['plain_ms']:.4f} ms"
+        # The chunk: 2x2x2 blocks of m^3, open (8 extended blocks of
+        # (m + 32)^3, config 5 at 509^3) in f32, the main path's, and f64;
+        # one n^3 periodic block (x extended, y and z wrapped: phase 12's).
+        for key, dtype, layout, tag in (
+                ("stokes_chunk_step", torch.float32,
+                 dict(dimx=2, dimy=2, dimz=2), f"2x2x2 x {m}^3 f32 open"),
+                ("stokes_chunk_step_f64", torch.float64,
+                 dict(dimx=2, dimy=2, dimz=2), f"2x2x2 x {m}^3 f64 open"),
+                ("stokes_chunk_step_one_block", torch.float32,
+                 dict(SINGLE, **PERIODIC), f"{n}^3 f32 periodic")):
+            g = self.grid((m, m, m) if layout.get("dimx") == 2 else
+                          (n, n, n), **layout, **OL3)
+            kw = self.st3._pseudo_steps(self.st3.Params())
+            *S, Rho = self.stokes_state(g, dtype, 55)
+            exts, Rho_ext, modes, shapes, ols, out, ref = self.stokes_chunk(
+                g, S, Rho, K, kw)
+            for name, a, b in zip(STOKES_NAMES, out, ref):
+                self.note("stokes_chunk_step", check(
+                    f"stokes_chunk_step {name} {tag} K={K}", a, b, 0.0))
+            del out, ref, S, Rho
+            self.perf[key] = dict(
+                kernel_time(lambda: stz.chunk_call(
+                    exts, Rho_ext, shapes, K=K, modes=modes, grid=g, kw=kw,
+                    ols=ols), max(k // 10, 2), "stokes_march_kernel"),
+                plain_ms=event_ms(lambda: ce.window_step_plain(
+                    exts, exts, E=2 * K, modes=modes, grid=g,
+                    core=stz.window_core(g, Rho_ext, kw),
+                    flags=ce.edge_flags(modes, g),
+                    freeze_fields=stz.FREEZE_FIELDS, ols=ols), 2),
+                bound=self.stokes_chunk_bound(g, exts, Rho_ext, shapes, K,
+                                              modes),
+                shape=tag)
+            self.perf[key]["events_ms"] /= K
+            if key == "stokes_chunk_step":
+                # The step kernel on the same extended buffers (every
+                # extended block a block): what the chunk's freezes and
+                # window cost beyond it.
+                outs = [torch.empty_like(X) for X in exts]
+                self.perf["stokes_step_on_chunk_buffer_ms"] = event_ms(
+                    lambda: sp.launch_step(*exts, Rho_ext, g.dims, kw,
+                                           out=outs), 3)
+                del outs
+            del exts, Rho_ext
+        for name, p in (
+                ("stokes_step", dict(self.perf["stokes_step"],
+                                     shape=f"{n}^3 f32 periodic")),
+                ("stokes_chunk_step K=8", self.perf["stokes_chunk_step"]),
+                ("stokes_chunk_step K=8", self.perf["stokes_chunk_step_f64"]),
+                ("stokes_chunk_step K=8",
+                 self.perf["stokes_chunk_step_one_block"])):
+            log(f"[phase 1] {name} at {p['shape']}: {p['ms']:.4f} ms device "
+                f"per launch ({p['ms_from']}), {p['events_ms']:.4f} ms per "
+                f"launch back to back (events), plain {p['plain_ms']:.4f} ms"
                 f"{' (one window step)' if 'chunk' in name else ''}, bound "
                 f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
         log(f"[phase 1] stokes_step on the chunk's extended buffers (events): "
             f"{self.perf['stokes_step_on_chunk_buffer_ms']:.4f} ms")
+        self.stokes_division_check()
+
+    def stokes_division_check(self):
+        """The chunk kernel's float32 division (csrc/const_div.cuh) bitwise
+        `x / d` over all 2^32 float32 dividends, for every divisor of the
+        Stokes checks and phases: 3, the small checks' spacings and the
+        spacings of config 5 on each grid the phases use."""
+        st3, stz = self.st3, self.stz
+        divisors = {3.0, 0.31, 0.27, 0.43}
+        for local, layout in (((self.n_stokes,) * 3, dict(SINGLE, **PERIODIC)),
+                              ((self.n_multi,) * 3, dict(dimx=2, dimy=2,
+                                                         dimz=2))):
+            self.grid(local, **layout, **OL3)
+            kw = st3._pseudo_steps(st3.Params())
+            divisors |= {kw["dx"], kw["dy"], kw["dz"]}
+        t0 = time.perf_counter()
+        for d in sorted(divisors):
+            bad = stz.division_mismatches(d, device=self.dev)
+            if bad:
+                raise SmokeFailure(f"stokes division by {d!r}: {bad} of 2^32 "
+                                   f"float32 dividends differ from x / d")
+        log(f"[phase 1] stokes division: bitwise x / d over all 2^32 float32 "
+            f"dividends for the {len(divisors)} divisors "
+            f"{sorted(divisors)} ({time.perf_counter() - t0:.1f} s)")
 
     @staticmethod
     def stokes_chunk_bound(g, exts, Rho_ext, shapes, K, modes):
@@ -1975,7 +2054,8 @@ class Smoke:
                 rows = {"oext": 2 * (E + 1), "frozen": 2}.get(modes[d], 0)
                 kept *= X.shape[d] - rows
             frozen += X.numel() - kept
-        nbytes = 4 * (K * rd + (K - 1) * wr_ext + wr_out + K * frozen)
+        nbytes = exts[0].element_size() * (K * rd + (K - 1) * wr_ext + wr_out
+                                           + K * frozen)
         out_cells = float(np.prod([g.dims[d] * shapes[0][d]
                                    for d in range(3)]))
         ops = STOKES_FLOPS * ((K - 1) * exts[0].numel() + out_cells)

@@ -29,16 +29,74 @@
 // What bounds it on the H100: by the roofline, bytes.  Per launch it reads
 // the five extended fields once and writes the four updated ones once: at 8
 // blocks of 256^3 extended by E = 16 (288^3, K = 8) that is 6.9 GB, 2.05 ms
-// at 3.35 TB/s; the last launch writes only the central windows.  As for
-// the step kernel, its IEEE divisions set its time; on open grids the
-// zeros beyond the domain in the edge blocks' shoulders take their slow
-// path.
+// at 3.35 TB/s; the last launch writes only the central windows.  Its
+// first design (stokes.cuh's 2-cell runs on stagger_walk3.cuh) was
+// issue-bound instead: 42 IEEE divisions a cell, whose slow path the
+// zeros of an open extension's shoulders take, and 7.9x the bound.
 //
-// What the design does about it: the step kernel's walk and policy
-// (stagger_walk3.cuh, stokes.cuh), the freeze and the wrap aliases
-// resolved per run; the x rows of the blocks along x ride gridDim.z (8
-// extended blocks of 288^3: 578 rows), the y tiles gridDim.y.
-#include "stokes.cuh"
+// What the design does about it: the x-march of stokes_march.cuh (each
+// quotient formed once in shared memory, 22 divisions a cell; the planes
+// staged by cp.async while the previous one is computed; wraps and face
+// rows inside the tile) with the division of const_div.cuh (float32 by the
+// launch's reciprocals and FMA corrections, bitwise `x / d`; zero
+// dividends off the slow path).
+#include "stokes_march.cuh"
+
+namespace {
+
+template <typename T>
+int launch(void* const* src, void* const* F, const void* rho,
+           void* const* out, const igg::Stag3& g, const double* coef,
+           cudaStream_t stream) {
+  igg::MarchArgs<T> m;
+  for (int f = 0; f < 4; ++f) {
+    m.src[f] = static_cast<const T*>(src[f]);
+    m.F[f] = static_cast<const T*>(F[f]);
+    m.out[f] = static_cast<T*>(out[f]);
+  }
+  m.rho = static_cast<const T*>(rho);
+  m.qx = igg::make_div((T)coef[0]);
+  m.qy = igg::make_div((T)coef[1]);
+  m.qz = igg::make_div((T)coef[2]);
+  m.q3 = igg::make_div(T(3));
+  m.mu = (T)coef[3];
+  m.c2mu = (T)coef[4];
+  m.dtP = (T)coef[5];
+  m.dtV = (T)coef[6];
+  m.g = g;
+  return igg::launch_march(m, stream);
+}
+
+__device__ __forceinline__ float from_bits(unsigned u) {
+  return __uint_as_float(u);
+}
+__device__ __forceinline__ double from_bits(unsigned long long u) {
+  return __longlong_as_double(static_cast<long long>(u));
+}
+__device__ __forceinline__ unsigned to_bits(float x) {
+  return __float_as_uint(x);
+}
+__device__ __forceinline__ unsigned long long to_bits(double x) {
+  return static_cast<unsigned long long>(__double_as_longlong(x));
+}
+
+// Counts the dividends x = bits lo + i * step (i < n, modulo 2^32 or 2^64)
+// whose quotient by d through igg::cdiv differs in any bit from `x / d`.
+template <typename T, typename U>
+__global__ void div_check_kernel(igg::ConstDiv<T> q, U lo, U step,
+                                 unsigned long long n,
+                                 unsigned long long* bad) {
+  unsigned long long mine = 0;
+  for (unsigned long long i = (unsigned long long)blockIdx.x * blockDim.x +
+                              threadIdx.x;
+       i < n; i += (unsigned long long)gridDim.x * blockDim.x) {
+    const T x = from_bits(static_cast<U>(lo + static_cast<U>(i) * step));
+    if (to_bits(igg::cdiv(x, q)) != to_bits(x / q.d)) ++mine;
+  }
+  if (mine) atomicAdd(bad, mine);
+}
+
+}  // namespace
 
 // src, F, out: (P, Vx, Vy, Vz) pointers of the step's source buffers, the
 // chunk-entry buffers (laid out like src) and the targets (extended like
@@ -51,5 +109,32 @@ extern "C" int igg_stokes_chunk_step(void* const* src, void* const* F,
                                      const double* coef, void* stream) {
   igg::Stag3 g;
   if (!igg::make_stag3(cfg, g)) return (int)cudaErrorInvalidValue;
-  return igg::launch_stokes(src, rho, F, out, dtype, g, coef, stream);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(src, F, rho, out, g, coef, st);
+  if (dtype == 1) return launch<double>(src, F, rho, out, g, coef, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The check of the division against `x / d`: adds to *bad (device memory)
+// the dividends of the n it tries that differ; dtype 0 float32 (the low 32
+// bits of lo and step), 1 float64.
+extern "C" int igg_stokes_div_check(double d, int dtype, unsigned long long lo,
+                                    unsigned long long step,
+                                    unsigned long long n, void* bad,
+                                    void* stream) {
+  unsigned long long* out = static_cast<unsigned long long*>(bad);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long want = (long long)((n + 255) / 256);
+  const unsigned blocks = (unsigned)(want < 4096 ? (want > 0 ? want : 1) : 4096);
+  if (dtype == 0) {
+    const igg::ConstDiv<float> q = igg::make_div((float)d);
+    const unsigned lo32 = (unsigned)lo, step32 = (unsigned)step;
+    div_check_kernel<float, unsigned><<<blocks, 256, 0, st>>>(q, lo32, step32, n, out);
+  } else if (dtype == 1) {
+    const igg::ConstDiv<double> q = igg::make_div(d);
+    div_check_kernel<double, unsigned long long><<<blocks, 256, 0, st>>>(q, lo, step, n, out);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

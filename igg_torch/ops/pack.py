@@ -73,17 +73,23 @@ def pack_planes(A, reqs: Sequence[Tuple[int, int]], blocks) -> List:
                          f"not in (2, 4, 8)")
     outs = [torch.empty(_out_shape(A, d, blocks), dtype=A.dtype,
                         device=A.device) for d, _ in reqs]
+    _launch(A, reqs, blocks, local, outs,
+            torch.cuda.current_stream(A.device).cuda_stream)
+    pack_planes.launches += 1
+    return outs
+
+
+def _launch(A, reqs, blocks, local, outs, stream: int) -> None:
+    """Launch `igg_pack_planes` once on checked arguments."""
     flat = [v for req in reqs for v in req]
     err = library("pack_planes").igg_pack_planes(
         A.data_ptr(), A.element_size(),
         (ctypes.c_int * 6)(*blocks, *local), len(reqs),
         (ctypes.c_int * len(flat))(*flat),
         (ctypes.c_void_p * len(outs))(*[o.data_ptr() for o in outs]),
-        torch.cuda.current_stream(A.device).cuda_stream)
+        stream)
     if err:
         raise RuntimeError(f"igg_pack_planes launch failed: CUDA error {err}")
-    pack_planes.launches += 1
-    return outs
 
 
 pack_planes.launches = 0

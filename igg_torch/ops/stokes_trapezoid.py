@@ -176,6 +176,32 @@ def _launch(src, F, Rho_ext, out, cfg, kw, stream: int) -> None:
 chunk_call.launches = 0
 
 
+def division_mismatches(d: float, *, dtype=torch.float32, lo: int = 0,
+                        n: int = 1 << 32, step: int = 1,
+                        device="cuda") -> int:
+    """How many of the dividends with bits `lo + i * step` (i < n, modulo
+    2^32 in float32, 2^64 in float64) the chunk kernel's division by `d`
+    (csrc/const_div.cuh) does not round bitwise as `x / d`: the check of
+    its reciprocal path (`igg_stokes_div_check`).  Runs the library's check
+    kernel on `device` (the CPU only where the library is a host build of
+    the source)."""
+    bits = 32 if dtype == torch.float32 else 64
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    fn = library("stokes_chunk").igg_stokes_div_check
+    fn.argtypes = [ctypes.c_double, ctypes.c_int, ctypes.c_ulonglong,
+                   ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_void_p,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = (torch.cuda.current_stream(bad.device).cuda_stream
+              if bad.is_cuda else 0)
+    err = fn(float(d), _DTYPE[dtype], lo % (1 << bits), step % (1 << bits), n,
+             bad.data_ptr(), stream)
+    if err:
+        raise RuntimeError(f"igg_stokes_div_check launch failed: CUDA error "
+                           f"{err}")
+    return int(bad.item())
+
+
 def fused_stokes_trapezoid_iters(P, Vx, Vy, Vz, Rho, *, n_inner: int, K: int,
                                  dx, dy, dz, mu, dtP, dtV):
     """Advance `(P, Vx, Vy, Vz)` by the `n_inner // K` full chunks of depth

@@ -19,18 +19,47 @@ variants are the design choices the sources record:
   walk's kernels; the wave2d kernels keep theirs);
 - `approx_div`: `-prec-div=false`.  Not bitwise equal to the plain
   versions, so never shipped: it measures what the IEEE divisions of the
-  HM3D, wave2d and Stokes kernels cost;
-- `stokes_vec_16B`: the 3-D staggered walk's kernel (the Stokes kernels)
-  with runs of 16 bytes per thread (4 cells in f32) instead of 8, the
-  first design;
-- `stokes_bounds_3`: the Stokes kernels bounded to 85 registers a thread
-  (`__launch_bounds__(256, 3)`), so three thread blocks fit on an SM;
-- `stokes_zero_quot`: the Stokes divisions skipped where the dividend is
-  zero (`0 / d` is that zero for a positive d, bitwise), which the IEEE
-  division's checks otherwise send down its slow path;
-- `stokes_x_fastest`: the Stokes kernels' thread blocks ordered x row
-  first (gridDim.x over the x rows, gridDim.z over the z tiles), so the
-  blocks in flight together share their neighbour rows along x;
+  HM3D, wave2d and Stokes kernels cost (in the Stokes chunk kernel only
+  its float64 divisions and the float32 ones outside the reciprocal
+  path's range remain IEEE divisions);
+- `stokes_vec_16B`: the 3-D staggered walk's kernel (the Stokes step
+  kernel; the chunk kernel left that walk in its redesign) with runs of
+  16 bytes per thread (4 cells in f32) instead of 8, the first design;
+- `stokes_bounds_3`: the Stokes step kernel bounded to 85 registers a
+  thread (`__launch_bounds__(256, 3)`), so three thread blocks fit on an
+  SM;
+- `stokes_zero_quot`: the divisions of `stokes.cuh` (the Stokes step and
+  band kernels) skipped where the dividend is zero (`0 / d` is that zero
+  for a positive d, bitwise), which the IEEE division's checks otherwise
+  send down its slow path;
+- `stokes_x_fastest`: the Stokes step kernel's thread blocks ordered x
+  row first (gridDim.x over the x rows, gridDim.z over the z tiles), so
+  the blocks in flight together share their neighbour rows along x;
+- the Stokes chunk kernel's x-march (`stokes_march.cuh`,
+  `const_div.cuh`):
+  - `march_div_ieee` divides by `x / d` throughout, `march_div_vote` by
+    a warp-uniform test (`x / d` unless a lane divides a zero, which then
+    takes its signed zero) instead of the reciprocal path,
+    `march_div_mul` by the reciprocal alone (not bitwise, never shipped:
+    what the corrections cost);
+  - `march_sync_staging` stages its planes with plain loads and stores
+    instead of `cp.async` (TMA is no option: a tensor map needs row
+    strides of whole 16 bytes, and Vz's rows are s2 + 1 cells);
+    `march_ahead_2` stages each plane a step earlier (rings one plane
+    deeper);
+  - `march_tile_8x64`, `march_tile_16x32` and `march_tile_4x64`: (y, z)
+    tiles other than 8 x 32;
+  - `march_bounds_f32_2`, `_f32_4`, `_f64_1` and `_f64_3`: registers
+    bounded for 2 or 4 thread blocks an SM in float32 (3 as built), 1 or
+    3 in float64 (2 as built);
+  - `march_no_segments` never cuts x into segments (a thread block marches
+    a tile's whole x extent), `march_blocks_2048` and `march_blocks_32768`
+    cut it until a launch has that many thread blocks (8192 as built);
+- `pack_threads_128`: the plane packer in thread blocks of 128 threads
+  (128 (x, y) rows a z block) instead of 256;
+- `first_designs`: the Stokes chunk step and the plane packer as they were
+  before their redesign (the Stokes walk's 2-cell runs, a request per
+  blockIdx.y), rebuilt from the text kept here;
 - `band_row_staging`: the staggered band walk staging its windows a warp
   per (x, y) row of a window, the row's offset formed once, its lanes
   along z, instead of one element a thread with two integer divisions and
@@ -41,7 +70,8 @@ variants are the design choices the sources record:
   registers a thread).
 
 Prints one JSON line per variant (milliseconds per launch, each a list of
-the two runs), then the card's name and power limit.  Needs
+the two runs; CUDA events, or for the packer the profiler's device time),
+then the card's name and power limit.  Needs
 `torch.cuda.is_available()`; imports nothing of JAX.
 """
 
@@ -137,6 +167,156 @@ def band(old, new):
     return ("stagger_band_walk3.cuh", old, new)
 
 
+# The first designs of the kernels redesigned since, rebuilt for side-by-side
+# timing: the Stokes chunk step on the 3-D staggered walk with stokes.cuh's
+# 2-cell runs, and the plane packer with a request per blockIdx.y and
+# 64-bit index arithmetic per element.
+CHUNK_FIRST = """#include "stokes.cuh"
+extern "C" int igg_stokes_chunk_step(void* const* src, void* const* F,
+                                     const void* rho, void* const* out,
+                                     int dtype, const int* cfg,
+                                     const double* coef, void* stream) {
+  igg::Stag3 g;
+  if (!igg::make_stag3(cfg, g)) return (int)cudaErrorInvalidValue;
+  return igg::launch_stokes(src, rho, F, out, dtype, g, coef, stream);
+}
+"""
+PACK_FIRST = """#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kMaxPlanes = 8;
+
+struct Req {
+  int n[3], s[3], G[3];
+  int nreq;
+  int dim[kMaxPlanes];  // 1 or 2
+  int pos[kMaxPlanes];  // local row of the plane along dim
+  long long count[kMaxPlanes];
+};
+
+template <typename E>
+struct Outs {
+  E* p[kMaxPlanes];
+};
+
+template <typename E>
+__global__ void __launch_bounds__(256)
+    pack_kernel(const E* __restrict__ A, Req r, Outs<E> outs) {
+  const int j = blockIdx.y;
+  const long long total = r.count[j];
+  E* __restrict__ out = outs.p[j];
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < total; i += (long long)gridDim.x * blockDim.x) {
+    long long src;
+    if (r.dim[j] == 1) {  // out (G0, n1, G2): i = (g0 * n1 + c1) * G2 + g2
+      const long long g2 = i % r.G[2];
+      const long long t = i / r.G[2];
+      const long long c1 = t % r.n[1], g0 = t / r.n[1];
+      src = (g0 * r.G[1] + c1 * r.s[1] + r.pos[j]) * r.G[2] + g2;
+    } else {  // out (G0, G1, n2): i = (g0 * G1 + g1) * n2 + c2
+      const long long c2 = i % r.n[2];
+      const long long t = i / r.n[2];
+      src = t * r.G[2] + c2 * r.s[2] + r.pos[j];
+    }
+    out[i] = A[src];
+  }
+}
+
+template <typename E>
+int launch(const void* A, const Req& r, void* const* outs, cudaStream_t st) {
+  Outs<E> o{};
+  long long most = 0;
+  for (int j = 0; j < r.nreq; ++j) {
+    o.p[j] = static_cast<E*>(outs[j]);
+    if (r.count[j] > most) most = r.count[j];
+  }
+  if (most == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  long long blocks = (most + threads - 1) / threads;
+  if (blocks > 8192) blocks = 8192;  // grid-stride beyond that
+  const dim3 grid((unsigned)blocks, r.nreq);
+  pack_kernel<E><<<grid, threads, 0, st>>>(static_cast<const E*>(A), r, o);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// cfg: n0 n1 n2 s0 s1 s2; reqs: nreq (dim, pos) pairs, dim 1 or 2; outs: one
+// dense plane tensor per request, in request order.
+extern "C" int igg_pack_planes(const void* A, int elem_size, const int* cfg,
+                               int nreq, const int* reqs, void* const* outs,
+                               void* stream) {
+  if (nreq < 1 || nreq > kMaxPlanes) return (int)cudaErrorInvalidValue;
+  Req r;
+  for (int d = 0; d < 3; ++d) {
+    r.n[d] = cfg[d];
+    r.s[d] = cfg[3 + d];
+    r.G[d] = cfg[d] * cfg[3 + d];
+  }
+  r.nreq = nreq;
+  for (int j = 0; j < nreq; ++j) {
+    const int d = reqs[2 * j], p = reqs[2 * j + 1];
+    if ((d != 1 && d != 2) || p < 0 || p >= r.s[d])
+      return (int)cudaErrorInvalidValue;
+    r.dim[j] = d;
+    r.pos[j] = p;
+    r.count[j] = (long long)r.G[0] * (d == 1 ? (long long)r.n[1] * r.G[2]
+                                             : (long long)r.G[1] * r.n[2]);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (elem_size) {
+    case 2: return launch<uint16_t>(A, r, outs, st);
+    case 4: return launch<uint32_t>(A, r, outs, st);
+    case 8: return launch<uint64_t>(A, r, outs, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+"""
+
+
+def first_design(name, text):
+    return {"stokes_chunk.cu": CHUNK_FIRST,
+            "pack_planes.cu": PACK_FIRST}.get(name, text)
+
+
+def march(old, new):
+    return ("stokes_march.cuh", old, new)
+
+
+def march_tile(ty, tz):
+    return stokes_edit(
+        march("constexpr int MARCH_TY = 8; ", f"constexpr int MARCH_TY = {ty}; "),
+        march("constexpr int MARCH_TZ = 32; ",
+              f"constexpr int MARCH_TZ = {tz}; "))
+
+
+MARCH_CDIV = """  if (div_admits(x, q)) return div_fast(x, q);
+  return q.fast && x == T(0) ? x * q.r : x / q.d;"""
+MARCH_BATCH = """    ok = ok & div_admits(x, q);
+    return div_fast(x, q);"""
+
+
+def march_div(cdiv_body):
+    """The march's divisions all by `cdiv_body` (the batches take it too)."""
+    return stokes_edit(("const_div.cuh", MARCH_CDIV, cdiv_body),
+                       ("const_div.cuh", MARCH_BATCH,
+                        "    return cdiv(x, q);"))
+
+
+def march_plain_staging(name, text):
+    """The march's staging with plain loads and stores: the cp.async
+    helpers take their CPU form."""
+    if name != "stokes_march.cuh":
+        return text
+    guard = "#if defined(__CUDA_ARCH__)\n"
+    if text.count(guard) != 3:
+        raise RuntimeError("stokes_march.cuh no longer has its three "
+                           "cp.async guards")
+    return text.replace(guard, "#if 0\n")
+
+
 VARIANTS = {
     "as_built": (lambda name, text: text, []),
     "ldg_loads": (ldg_loads, []),
@@ -165,10 +345,48 @@ VARIANTS = {
     "band_row_staging": (stokes_edit(band(FLAT_STAGING, ROW_STAGING)), []),
     "band_bounds_1": (stokes_edit(band(
         BAND_BOUNDS, "__launch_bounds__(BAND_TY * BAND_TZ)")), []),
+    "march_div_ieee": (march_div("  return x / q.d;"), []),
+    "march_div_vote": (march_div(
+        "  const bool nz = x != T(0);\n"
+        "  if (__all_sync(__activemask(), nz)) return x / q.d;\n"
+        "  return nz ? x / q.d : x * q.r;"), []),
+    "march_div_mul": (stokes_edit((
+        "const_div.cuh",
+        "  const T y = div_fma(x, q.r, x * q.rl);\n"
+        "  return div_fma(div_fma(-y, q.d, x), q.r, y);",
+        "  return x * q.r;")), []),
+    "march_sync_staging": (march_plain_staging, []),
+    "march_ahead_2": (stokes_edit(march("constexpr int MARCH_AHEAD = 1; ",
+                                        "constexpr int MARCH_AHEAD = 2; ")),
+                      []),
+    "march_blocks_2048": (stokes_edit(march(
+        "constexpr int MARCH_BLOCKS = 8192; ",
+        "constexpr int MARCH_BLOCKS = 2048; ")), []),
+    "march_blocks_32768": (stokes_edit(march(
+        "constexpr int MARCH_BLOCKS = 8192; ",
+        "constexpr int MARCH_BLOCKS = 32768; ")), []),
+    "march_tile_8x64": (march_tile(8, 64), []),
+    "march_tile_16x32": (march_tile(16, 32), []),
+    "march_tile_4x64": (march_tile(4, 64), []),
+    "march_bounds_f32_2": (stokes_edit(march(
+        "MARCH_MIN_BLOCKS_F32 = 3;", "MARCH_MIN_BLOCKS_F32 = 2;")), []),
+    "march_bounds_f32_4": (stokes_edit(march(
+        "MARCH_MIN_BLOCKS_F32 = 3;", "MARCH_MIN_BLOCKS_F32 = 4;")), []),
+    "march_bounds_f64_1": (stokes_edit(march(
+        "MARCH_MIN_BLOCKS_F64 = 2;", "MARCH_MIN_BLOCKS_F64 = 1;")), []),
+    "march_bounds_f64_3": (stokes_edit(march(
+        "MARCH_MIN_BLOCKS_F64 = 2;", "MARCH_MIN_BLOCKS_F64 = 3;")), []),
+    "first_designs": (first_design, []),
+    "march_no_segments": (stokes_edit(march(
+        "constexpr int MARCH_BLOCKS = 8192; ",
+        "constexpr int MARCH_BLOCKS = 1; ")), []),
+    "pack_threads_128": (stokes_edit((
+        "pack_planes.cu", "constexpr int kThreads = 256;",
+        "constexpr int kThreads = 128;")), []),
 }
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
         "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
-        "stokes_band")
+        "stokes_band", "pack_planes")
 # The generated library of this spec case is built per variant too.
 GENERATED = "relax3d"
 
@@ -230,6 +448,26 @@ def event_ms(fn, n):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / n
+
+
+def profiled_ms(fn, n, kernel):
+    """Mean device ms per launch of the kernel whose name contains `kernel`
+    over `n` calls of `fn()` (`torch.profiler`): for kernels shorter than
+    the host's time to launch them, where events would time the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    for evt in prof.key_averages():
+        if kernel in evt.key and evt.count:
+            total = getattr(evt, "device_time_total",
+                            getattr(evt, "cuda_time_total", 0.0))
+            return total / evt.count / 1e3
+    raise RuntimeError(f"no device time for {kernel} in the trace")
 
 
 def cases(dev):
@@ -325,7 +563,19 @@ def cases(dev):
                                           grid=g, kw=kw, ols=ols), K
         return setup
 
-    def stokes(chunk, state="random", blocks=1, nx=n):
+    def pack(dtype, dims=(1, 2)):
+        """The plane packer: the 8 y/z planes `update_halo` extracts from a
+        field of 2x2x2 blocks of 256^3 (those along `dims`)."""
+        def setup():
+            from igg_torch.ops import pack as pk
+
+            g = grid(dimx=2, dimy=2, dimz=2)
+            T = torch.rand(it.stacked_shape(g.nxyz), device=dev).to(dtype)
+            reqs = [(d, p) for d in dims for p in (1, n - 2, 0, n - 1)]
+            return lambda: pk.pack_planes(T, reqs, g.dims), 1
+        return setup
+
+    def stokes(chunk, state="random", blocks=1, nx=n, dtype=torch.float32):
         """The Stokes iteration, or a K-step chunk, on `blocks`^3 blocks of
         nx x 256 x 256 (open on several blocks, periodic on one); random
         fields or `init_fields` (at rest: zero pressure and velocities)."""
@@ -341,10 +591,10 @@ def cases(dev):
             kw = st3._pseudo_steps(st3.Params())
             shapes = sp.field_shapes(g.nxyz)
             if state == "random":
-                *S, Rho = [2 * torch.rand(it.stacked_shape(s), device=dev) - 1
-                           for s in shapes]
+                *S, Rho = [(2 * torch.rand(it.stacked_shape(s), device=dev)
+                            - 1).to(dtype) for s in shapes]
             else:
-                *S, Rho = st3.init_fields(st3.Params())
+                *S, Rho = st3.init_fields(st3.Params(), dtype=dtype)
             if not chunk:
                 out = [torch.empty_like(A) for A in S]
                 return lambda: sp.launch_step(*S, Rho, g.dims, kw,
@@ -405,6 +655,14 @@ def cases(dev):
             ("stokes_step_288x256x256_periodic", stokes(False, nx=288)),
             ("stokes_chunk_256_periodic", stokes(True)),
             ("stokes_chunk_2x2x2_256_open", stokes(True, blocks=2)),
+            ("stokes_chunk_2x2x2_256_open_init_fields",
+             stokes(True, "init_fields", blocks=2)),
+            ("stokes_chunk_2x2x2_256_open_f64",
+             stokes(True, blocks=2, dtype=torch.float64)),
+            ("pack_planes_2x2x2_256_f32", pack(torch.float32)),
+            ("pack_planes_2x2x2_256_f64", pack(torch.float64)),
+            ("pack_planes_2x2x2_256_f32_y_only", pack(torch.float32, (1,))),
+            ("pack_planes_2x2x2_256_f32_z_only", pack(torch.float32, (2,))),
             ("stokes_band_2x2x2_256_open", stokes_band),
             ("relax3d_band_256_periodic", relax3d_band)]
 
@@ -416,14 +674,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from igg_torch.ops import (diffusion_pallas, diffusion_trapezoid,
-                               hm3d_pallas, hm3d_trapezoid, stokes_pallas,
-                               stokes_trapezoid, wave2d_pallas,
+                               hm3d_pallas, hm3d_trapezoid, pack,
+                               stokes_pallas, stokes_trapezoid, wave2d_pallas,
                                wave2d_trapezoid)
     from igg_torch.stencil import lower
 
     wrappers = (diffusion_pallas, diffusion_trapezoid, hm3d_pallas,
                 hm3d_trapezoid, wave2d_pallas, wave2d_trapezoid,
-                stokes_pallas, stokes_trapezoid)
+                stokes_pallas, stokes_trapezoid, pack)
     named = [a for a in sys.argv[1:] if not a.startswith("case:")]
     keep = [a[len("case:"):] for a in sys.argv[1:] if a.startswith("case:")]
     for v in named:
@@ -444,6 +702,8 @@ def main() -> int:
             lower.generated_library = (
                 lambda source, t, v=v: built[v][f"gen_{tag}"])
             times[v].setdefault(name, []).append(
+                profiled_ms(run, 200, "pack_kernel")
+                if name.startswith("pack") else
                 event_ms(run, max(2, 40 // launches)) / launches)
         del run
     for v in variants:

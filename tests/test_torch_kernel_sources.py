@@ -13,7 +13,13 @@ and Stokes chunk kernels, and the kernels generated from stencil specs
 (`igg_torch/stencil/cuda.py`: the step and the chunk step of shallow water
 with and without friction, spec-wave2d, a spec of `pow`, `where` and
 scalar divisions, and the rank-3 `relax3d`), spec-wave2d also against the
-hand-written wave2d kernels, the diffusion and HM3D band kernels
+hand-written wave2d kernels, the plane packer (2-, 4- and 8-byte
+elements, rows not 16-byte aligned), the Stokes chunk kernel's x-march
+(`csrc/stokes_march.cuh`: a thread block's threads as fibers, its
+`cp.async` staging as plain copies; whole extended buffers across several
+tiles) and its division (`csrc/const_div.cuh`, float32 and float64,
+against `x / d` over samples of all bit patterns), the diffusion and HM3D
+band kernels
 (`csrc/band_walk.cuh`, whose threads share a staged window: each thread
 block's threads run as fibers that switch at `__syncthreads`) and the
 Stokes and rank-3 spec band kernels (`csrc/stagger_band_walk3.cuh`:
@@ -44,6 +50,7 @@ from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import diffusion_trapezoid as dtz
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
+from igg_torch.ops import pack as pk
 from igg_torch.ops import stokes_pallas as sp
 from igg_torch.ops import stokes_trapezoid as stz
 from igg_torch.ops import wave2d_pallas as wp
@@ -54,7 +61,9 @@ from igg_torch.stencil import lower
 RUNTIME = r"""
 #pragma once
 #include <ucontext.h>
+#include <cmath>
 #include <cstddef>
+#include <cstring>
 #include <cstdint>
 #include <functional>
 #include <vector>
@@ -69,6 +78,35 @@ struct dim3 {
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
 };
 struct uint3 { unsigned x, y, z; };
+struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+inline long long __double_as_longlong(double x) {
+  long long u;
+  std::memcpy(&u, &x, sizeof u);
+  return u;
+}
+inline double __longlong_as_double(long long u) {
+  double x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
+}
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof u);
+  return u;
+}
+inline unsigned long long atomicAdd(unsigned long long* p,
+                                    unsigned long long v) {
+  const unsigned long long old = *p;
+  *p += v;
+  return old;
+}
 inline uint3 blockIdx, threadIdx;
 inline dim3 blockDim, gridDim;
 typedef void* cudaStream_t;
@@ -152,7 +190,7 @@ LAUNCH_SMEM = re.compile(
 SHARED = re.compile(r"extern __shared__ [^;]*?(\w+)\[\];")
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
         "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
-        "diffusion_band", "hm3d_band", "stokes_band")
+        "diffusion_band", "hm3d_band", "stokes_band", "pack_planes")
 
 
 def _rewrite(text):
@@ -224,7 +262,7 @@ def generated(csrc):
 
 @pytest.fixture
 def emulated(libs, generated, monkeypatch):
-    for module in (dp, dtz, hp, htz, wp, wtz, sp, stz):
+    for module in (dp, dtz, hp, htz, wp, wtz, sp, stz, pk):
         monkeypatch.setattr(module, "library", libs.__getitem__)
     monkeypatch.setattr(lower, "generated_library", generated)
     yield
@@ -292,6 +330,30 @@ def test_hm3d_step_kernel_any_npow(emulated, npow):
     hp._launch(Pe, phi, out, modes, none, g.dims, g.nxyz, kw, 0)
     for a, b in zip(out, hp.step_plain(Pe, phi, modes, none, g.dims, kw)):
         same(a, b)
+
+
+# Odd extents on grids of 2 and 3 blocks along y and z; the requests out of
+# order, z rows adjacent (0 and 1, s-2 and s-1) and apart (3), the y rows
+# likewise.  `offset` elements before the field: a source whose rows are
+# not 16-byte aligned (the packer's element and head/tail paths).
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32,
+                                   torch.float64, torch.int64])
+@pytest.mark.parametrize("dims,local", [((2, 3, 2), (5, 7, 9)),
+                                        ((1, 2, 3), (3, 9, 13))])
+def test_pack_kernel_matches_plain(emulated, dims, local, dtype, offset):
+    shape = [n * s for n, s in zip(dims, local)]
+    n = int(np.prod(shape))
+    flat = _random((n + offset,), torch.float64, -100, 100, 23).to(dtype)
+    A = flat[offset:].view(shape)
+    reqs = [(2, local[2] - 1), (1, 0), (2, 0), (2, 3), (1, local[1] - 2),
+            (2, 1), (1, 3), (2, local[2] - 2)]
+    for some in (reqs, reqs[:1], [(1, 1), (1, 2)]):
+        outs = [torch.full(pk._out_shape(A, d, dims), 7, dtype=dtype)
+                for d, _ in some]
+        pk._launch(A, some, dims, local, outs, 0)
+        for got, want in zip(outs, pk.pack_planes_plain(A, some, dims)):
+            same(got, want)
 
 
 CHUNK_GRIDS = {
@@ -522,13 +584,19 @@ def test_stokes_step_kernel_matches_plain(emulated, case, dtype, local):
         same(a, b)
 
 
-# (12, 12, 12): K = 2 (E = 4), the vector path; (13, 12, 15): odd
-# extents, K = 2 and 3.
-@pytest.mark.parametrize("local,Ks", [((12, 12, 12), (2,)),
-                                      ((13, 12, 15), (2, 3))])
+# Extents that cross the march's (y, z) tiles (8 x 32 cells) and end in a
+# ragged one, extended (E = 2K) or not: y 12 and 13 (13 to 26 rows with
+# the face row: 2 to 4 tiles), z 33 (34 to 46: 2 tiles), x 12 and 13 (two
+# segments of x rows); K = 2 and 3.
+@pytest.mark.parametrize("local,Ks", [((12, 12, 33), (2,)),
+                                      ((13, 13, 33), (2, 3))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
 def test_stokes_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
+    """The chunk step against `window_iters_plain`: K launches into whole
+    extended buffers (NaN-filled, so a cell left unwritten shows) against
+    the plain version's evolved buffers, and the chain whose last launch
+    writes the central windows against their windows."""
     g = _stokes_grid(case, local)
     modes = ce.dim_modes(g)
     shapes = sp.field_shapes(g.nxyz)
@@ -538,17 +606,55 @@ def test_stokes_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
         assert stz.stokes_chunk_refusal(g, g.nxyz, K, K, dtype) is None
         exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
         Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        want = stz.window_iters_plain(exts, Rho_ext, K=K, modes=modes,
+                                      grid=g, kw=STOKES_KW, ols=ols)
+        src = list(exts)
+        for _ in range(K):
+            dst = [torch.full_like(X, float("nan")) for X in exts]
+            stz._launch(src, exts, Rho_ext, dst,
+                        stz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, False),
+                        STOKES_KW, 0)
+            src = dst
+        for a, b in zip(src, want):
+            same(a, b)
         got = _run_chunk(
             lambda src, dst, last: stz._launch(
                 src, exts, Rho_ext, dst,
                 stz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, last),
                 STOKES_KW, 0),
-            exts, [torch.empty(it.stacked_shape(s), dtype=dtype)
+            exts, [torch.full(it.stacked_shape(s), float("nan"), dtype=dtype)
                    for s in shapes[:4]], K)
-        want = stz.window_iters_plain(exts, Rho_ext, K=K, modes=modes,
-                                      grid=g, kw=STOKES_KW, ols=ols)
         for a, b, s in zip(got, want, shapes):
             same(a, ce.central_window(b, s, 2 * K, modes))
+
+
+# The spacings of the Stokes checks and of config 5 at 256^3 and 509^3, 3,
+# and divisors at the ends of the reciprocal path's range and beyond it.
+@pytest.mark.parametrize("d", [0.31, 0.27, 0.43, 3.0, 10 / 255, 10 / 508,
+                               2.0 ** -20, 2.0 ** 20, 2.0 ** -21, 1e30,
+                               -0.27])
+def test_stokes_division_matches_ieee(emulated, d):
+    """The chunk walk's division (`const_div.cuh`) bitwise `x / d`: float32
+    over 2^20 dividends spread over all 2^32 bit patterns (every exponent,
+    both signs, zeros, subnormals, infinities and NaNs among them) and
+    around the ends of its dividend range and zero, float64 over 2^18
+    patterns spread over all 2^64 and around its range's ends; the card
+    checks all 2^32 float32 dividends for the phases' divisors
+    (chip_smoke.py)."""
+    f32, f64 = torch.float32, torch.float64
+    assert stz.division_mismatches(d, dtype=f32, n=1 << 20, step=4093,
+                                   device="cpu") == 0
+    for lo in (0x0d800000 - 512, 0x71800000 - 512, 0x80000000 - 512,
+               0xffffff00):
+        assert stz.division_mismatches(d, dtype=f32, lo=lo, n=1024, step=1,
+                                       device="cpu") == 0
+    assert stz.division_mismatches(d, dtype=f64, n=1 << 18,
+                                   step=0x9E3779B97F4A7C15,
+                                   device="cpu") == 0
+    for lo in (63 << 52, 1983 << 52, 1 << 63):
+        for sign in (0, 1 << 63):
+            assert stz.division_mismatches(d, dtype=f64, lo=(lo ^ sign) - 512,
+                                           n=1024, step=1, device="cpu") == 0
 
 
 def _run_stag_band(launch, exts, shapes, local, E, K, B, lo, extras, modes, g,

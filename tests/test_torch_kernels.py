@@ -3,13 +3,16 @@ card: the fused diffusion step (wrap/recv/frozen halo modes), as a new
 tensor and, for the K-step loop (wrap/frozen), into a preallocated one, the
 in-place halo writer (wrap/ext sources, 2/4/8-byte elements), the trapezoid
 chunk step (ext/wrap/oext/frozen window modes, f32/f64), the plane packer
-(2/4/8-byte elements), the HM3D step (as a new pair and, for the
+(2/4/8-byte elements, rows that are not 16-byte aligned, z requests
+adjacent and apart), the HM3D step (as a new pair and, for the
 K-step loop, into a preallocated one) and chunk step in the same modes,
 the wave2d step (1x1, 4x2, 8x1, 2x1 blocks, periodic and open) and
 chunk step (periodic 1x1, 8x1, 4x2, 2x2 and 2x1 blocks, K = 2, 4, 8), and
 the Stokes iteration (overlap-3 grids of 1, 8 blocks, periodic, open and
 mixed) and chunk step (igg's trapezoid matrix: ext, wrap, oext and frozen
-windows, the velocities' freezes, K = 2, 3, 4), and the kernels generated
+windows, the velocities' freezes, K = 2, 3, 4, extents across several of
+its tiles; central windows and whole extended buffers) and its float32
+division (against `x / d` over a sample of dividends), and the kernels generated
 from stencil specs (tests/torch_spec_cases.py: shallow water with and
 without friction, spec-wave2d, a spec of `pow`, `where` and scalar
 divisions, the rank-3 `relax3d`; step and chunk step in every window mode,
@@ -228,6 +231,30 @@ def test_pack_kernel_matches_plain(card, case, dtype):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+# Odd extents, 2 and 3 blocks along y and z, the requests out of order: z
+# rows adjacent (0 and 1, s-2 and s-1) and apart (3).  `offset` elements
+# before the field: rows that are not 16-byte aligned (the element and
+# head/tail paths of the y copy).
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32,
+                                   torch.float64, torch.int64])
+@pytest.mark.parametrize("dims,local", [((2, 3, 2), (5, 7, 9)),
+                                        ((1, 2, 3), (3, 9, 13)),
+                                        ((2, 2, 2), (4, 6, 64))])
+def test_pack_kernel_unaligned_rows(card, dims, local, dtype, offset):
+    shape = [n * s for n, s in zip(dims, local)]
+    flat = _random((int(np.prod(shape)) + offset,), torch.float64, -100, 100,
+                   24).to(dtype).to(card)
+    A = flat[offset:].view(shape)
+    reqs = [(2, local[2] - 1), (1, 0), (2, 0), (2, 3), (1, local[1] - 2),
+            (2, 1), (1, 3), (2, local[2] - 2)]
+    for some in (reqs, reqs[:1], [(1, 1), (1, 2)]):
+        out = pk.pack_planes(A, some, dims)
+        torch.cuda.synchronize()
+        for got, want in zip(out, pk.pack_planes_plain(A, some, dims)):
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def test_update_halo_on_card_matches_cpu(card):
     it.init_global_grid(6, 6, 6, quiet=True, device=card, dimx=2, dimy=2,
                         dimz=2, periodx=1)
@@ -420,11 +447,15 @@ def test_stokes_step_kernel_matches_plain(card, case, dtype, local):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-# (16, 16, 16): K = 2 (E = 4), the vector path; (15, 14, 17): odd extents,
-# K = 2 and 3; (24, 24, 24): K = 2 and 4.
+# (16, 16, 16): K = 2 (E = 4); (15, 14, 17): odd extents, K = 2 and 3;
+# (24, 24, 24): K = 2 and 4; (13, 13, 33) and (12, 20, 70): extended y and
+# z extents across 2 to 4 of the kernel's 8 x 32 (y, z) tiles, the last
+# ragged, with the wraps' edge and alias rows inside tiles.
 @pytest.mark.parametrize("local,Ks", [((16, 16, 16), (2,)),
                                       ((15, 14, 17), (2, 3)),
-                                      ((24, 24, 24), (2, 4))])
+                                      ((24, 24, 24), (2, 4)),
+                                      ((13, 13, 33), (2, 3)),
+                                      ((12, 20, 70), (2,))])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
 def test_stokes_chunk_kernel_matches_plain(card, case, dtype, local, Ks):
@@ -449,6 +480,44 @@ def test_stokes_chunk_kernel_matches_plain(card, case, dtype, local, Ks):
         for a, b, s in zip(out, want, shapes):
             torch.testing.assert_close(
                 a, ce.central_window(b, s, 2 * K, modes), rtol=0, atol=0)
+        # The whole extended buffers of K launches (NaN-filled targets, so a
+        # cell left unwritten shows).
+        src = list(exts)
+        for _ in range(K):
+            dst = [torch.full_like(X, float("nan")) for X in exts]
+            stz._launch(src, exts, Rho_ext, dst,
+                        stz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, False),
+                        STOKES_KW, torch.cuda.current_stream().cuda_stream)
+            src = dst
+        torch.cuda.synchronize()
+        for a, b in zip(src, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# The spacings of the checks above and of config 5 at 256^3 and 509^3, 3,
+# and divisors at and beyond the ends of the reciprocal path's range.
+@pytest.mark.parametrize("d", [0.31, 0.27, 0.43, 3.0, 10 / 255, 10 / 508,
+                               2.0 ** -20, 2.0 ** 20, 2.0 ** -21, 1e30,
+                               -0.27])
+def test_stokes_division_matches_ieee(card, d):
+    """The chunk kernel's division bitwise `x / d` on the card: float32
+    over 2^28 dividends spread over all bit patterns and around the ends
+    of its dividend range and zero (chip_smoke.py checks all 2^32 for the
+    phases' divisors), float64 over 2^28 patterns spread over all 2^64 and
+    around its range's ends."""
+    f32, f64 = torch.float32, torch.float64
+    assert stz.division_mismatches(d, dtype=f32, n=1 << 28, step=15,
+                                   device=card) == 0
+    for lo in (0x0d800000 - 4096, 0x71800000 - 4096, 0x80000000 - 4096,
+               0xfffff000):
+        assert stz.division_mismatches(d, dtype=f32, lo=lo, n=8192, step=1,
+                                       device=card) == 0
+    assert stz.division_mismatches(d, dtype=f64, n=1 << 28,
+                                   step=0x9E3779B97F4A7C15, device=card) == 0
+    for lo in (63 << 52, 1983 << 52, 1 << 63):
+        for sign in (0, 1 << 63):
+            assert stz.division_mismatches(d, dtype=f64, lo=(lo ^ sign) - 4096,
+                                           n=8192, step=1, device=card) == 0
 
 
 # Blocks of 12x12x36, K = 3 (E = 6): an extended x span of 24 rows (12 on a
