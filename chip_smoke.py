@@ -113,10 +113,15 @@ at their main paths' shapes, and the diffusion and HM3D band kernels
 against their plain version (`banded_window_plain`) in every window mode,
 f32 and f64, B = 8 and 16 with two and three bands, on the whole evolved
 buffers and the central windows, then times them at 2x2x2 blocks of 256^3
-(K = 8, B = 8); and the staggered band kernels (the Stokes band step, the
-generated band entry of the rank-3 specs relax3d and acoustic3d) the same
-way, then the Stokes one at 2x2x2 blocks of 256^3 open and relax3d's at
-one 256^3 periodic block (K = 8, B = 8).  Launch counters are set to 0
+(K = 8, B = 8), the HM3D one also in f64; and the staggered band kernels
+(the Stokes band step, the generated band entry of the rank-3 specs
+relax3d and acoustic3d) the same way, then the Stokes one at 2x2x2 blocks
+of 256^3 open (f32 and f64) and relax3d's at one 256^3 periodic block
+(K = 8, B = 8).  The Stokes and HM3D band kernels are timed in f32 beside
+their first designs too (kernel_variants.py: FIRST_DESIGNS, built with
+the sources), each by the profiler's device time of the kernel it names,
+and the march division (const_div.cuh) is held to `x / d` over all 2^32
+float32 dividends for the Stokes and HM3D divisors.  Launch counters are set to 0
 before each main-path phase (2 to 20) and read after it; each of the
 eighteen kernels must have launched on that main path.  The last lines are the run's seconds, the
 `{"kernels": [...]}` summary, the card's name and power limit, and
@@ -126,8 +131,10 @@ JAX and nothing of the `igg` package is imported.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +147,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # Published peaks of one H100 SXM (NVIDIA data sheet, at a 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+F64_FLOPS = 34e12
 # Floating-point operations of one interior cell of the 7-point update
 # (three pair sums, three scalings, two accumulations, the centre term and
 # its subtraction, the coefficient product and the final add).
@@ -243,9 +251,10 @@ KERNEL_INFO = {
     "hm3d_band_step": dict(
         source="igg_torch/csrc/hm3d_band.cu",
         replaces="igg/ops/chunk_engine.py:1455"),
-    # Its Stokes instance and the rank-3 spec instances (generated, counted
-    # by the generated band entry's wrapper: every spec's launches), on the
-    # staggered band walk csrc/stagger_band_walk3.cuh.
+    # Its Stokes instance (the Stokes march's band mode) and the rank-3
+    # spec instances (generated, counted by the generated band entry's
+    # wrapper: every spec's launches, on the staggered band walk
+    # csrc/stagger_band_walk3.cuh).
     "stokes_band_step": dict(
         source="igg_torch/csrc/stokes_band.cu",
         replaces="igg/ops/chunk_engine.py:1455"),
@@ -358,18 +367,38 @@ def event_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def profiled_device_ms(fn, n: int, kernel: str):
+def profiled_device_ms(fn, n: int, kernel: str, launches=None):
     """Mean device ms per launch of the CUDA kernel whose name contains
     `kernel`, from a `torch.profiler` trace of `n` calls of `fn()`; None
-    when the trace holds no device time for it."""
+    when the trace holds no device time for it.  Given `launches` (a
+    call's launches of the kernel), `kernel` is the kernel's own name
+    (template arguments included where it is a template), the trace holds
+    one more call first (the profiler drops the first launch it sees now
+    and then), and it must hold from n * launches to (n + 1) * launches
+    launches of that kernel, or the timing raises."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
+        for _ in range(n if launches is None else n + 1):
             fn()
         torch.cuda.synchronize()
+    if launches is not None:
+        own = re.compile(rf"(?<![A-Za-z0-9_]){re.escape(kernel)}"
+                         rf"(?![A-Za-z0-9_])")
+        count, total = 0, 0.0
+        for evt in prof.key_averages():
+            if own.search(evt.key) and evt.count:
+                count += evt.count
+                total += getattr(evt, "device_time_total",
+                                 getattr(evt, "cuda_time_total", 0.0))
+        if not n * launches <= count <= (n + 1) * launches or not total:
+            raise SmokeFailure(
+                f"the trace of {n + 1} calls holds {count} launches of "
+                f"{kernel} ({total:.1f} us of device time), expected "
+                f"{n * launches} to {(n + 1) * launches}")
+        return total / count / 1e3
     for evt in prof.key_averages():
         if kernel in evt.key and evt.count:
             total = getattr(evt, "device_time_total",
@@ -407,12 +436,13 @@ def device_ms_by_kernel(fn, n: int):
     return out, launches / n
 
 
-def kernel_time(fn, n: int, kernel: str) -> dict:
+def kernel_time(fn, n: int, kernel: str, launches=None) -> dict:
     """A kernel's time: its device time from the profiler where the trace
     has it, else the event time of `n` back-to-back calls (which, for a
-    kernel shorter than its launch, is the host's launch rate)."""
+    kernel shorter than its launch, is the host's launch rate); with
+    `launches`, as profiled_device_ms takes it."""
     events = event_ms(fn, n)
-    device = profiled_device_ms(fn, n, kernel)
+    device = profiled_device_ms(fn, n, kernel, launches)
     return dict(ms=events if device is None else device,
                 ms_from="events" if device is None else "profiler",
                 events_ms=events)
@@ -507,6 +537,8 @@ class Smoke:
         self.halo_calls, self.time_iters = halo_calls, time_iters
         self.err = {name: 0.0 for name in KERNEL_INFO}
         self.perf = {}
+        # The redesigned kernels' first designs, {library: CDLL} (main()).
+        self.first = {}
         self.launches = None
 
     def grid(self, n, **kw):
@@ -1164,24 +1196,49 @@ class Smoke:
             f"{self.err['diffusion_band_step']:.3e} (diffusion), "
             f"{self.err['hm3d_band_step']:.3e} (HM3D) (tolerance 0)")
 
+    def first_design_time(self, module, lib, run, n, kernel, K, want, cut):
+        """The time of `run()` on the first design of library `lib` (built
+        from kernel_variants.py's FIRST_DESIGNS text beside the sources),
+        its result held against `want` (cut by `cut`) first; the wrapper
+        module's library is restored after."""
+        real = module.library
+        module.library = (lambda name: self.first[lib] if name == lib
+                          else real(name))
+        try:
+            got = run()
+            got = [got] if torch.is_tensor(got) else got
+            for f, (a, b) in enumerate(zip(got, want)):
+                check(f"{lib} first design field {f}", a, cut(b, f), 0.0)
+            del got
+            return kernel_time(run, n, kernel, launches=K)
+        finally:
+            module.library = real
+
     def band_kernel_checks_full(self):
         """Both band kernels at 2x2x2 blocks of n_multi^3 f32 (diffusion
         open, HM3D periodic), K = 8, B = 8: checked against the plain
         version, then timed beside one plain iteration and two bounds of
         compulsory bytes: a pass (read src and the constant, write dst) and
         the whole chunk (read each extended field once, write each central
-        block once; the table's bound is the chunk's divided by K)."""
+        block once; the table's bound is the chunk's divided by K).  The
+        HM3D one is also checked and timed in f64 and, in f32, beside its
+        first design (band_walk.cuh)."""
         n, k, K, B = self.n_multi, self.time_iters, K_CHUNK, 8
-        for family, per, flops in (("diffusion", {}, STENCIL_FLOPS),
-                                   ("hm3d", PERIODIC, HM3D_FLOPS)):
+        for family, per, flops, dtype in (
+                ("diffusion", {}, STENCIL_FLOPS, torch.float32),
+                ("hm3d", PERIODIC, HM3D_FLOPS, torch.float32),
+                ("hm3d", PERIODIC, HM3D_FLOPS, torch.float64)):
+            f64 = dtype == torch.float64
             name = f"{family}_band_step"
+            key = f"{name}_f64" if f64 else name
+            kernel = "band_kernel" if family == "diffusion" else "hm_march_kernel"
             g = self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **per)
             kw = self.h3.Params().step_kwargs()
             sc = self.dp.scal(*self.t3.Params().spacing())
-            diff, hm, modes, ols = self.band_fields(g, torch.float32, K, 51)
+            diff, hm, modes, ols = self.band_fields(g, dtype, K, 51)
             exts = diff if family == "diffusion" else hm
             del diff, hm
-            tag = (f"2x2x2 x {n}^3 f32 "
+            tag = (f"2x2x2 x {n}^3 {'f64' if f64 else 'f32'} "
                    f"{'open' if family == 'diffusion' else 'periodic'}")
             if family == "diffusion":
                 run = lambda: self.dtz.band_call(exts[0], exts[1], g.nxyz,
@@ -1193,31 +1250,38 @@ class Smoke:
             got = run()
             got = [got] if family == "diffusion" else got
             want = self.band_plain(g, exts, K, B, modes, ols, family, sc, kw)
+            cut = (lambda b, f: self.ce.central_window(b, g.nxyz, K, modes))
             for f, (a, b) in enumerate(zip(got, want)):
                 self.note(name, check(f"{name} {tag} field {f}", a,
-                                      self.ce.central_window(b, g.nxyz, K,
-                                                             modes), 0.0))
-            del got, want
+                                      cut(b, f), 0.0))
+            del got
             ext_cells = float(exts[0].numel())
             out_cells = float(n) ** 3 * 8
             n_up = 1 if family == "diffusion" else 2
             interior = 8 * float(n - 2) ** 3
+            size = 8 if f64 else 4
+            rate = F64_FLOPS if f64 else F32_FLOPS
             # A pass: every staged array read once, every field written.
-            pass_bytes = 4 * ext_cells * (len(exts) + n_up)
+            pass_bytes = size * ext_cells * (len(exts) + n_up)
             # The chunk: each extended array read once, each central block
             # written once, over the K launches.
-            chunk_bytes = 4 * (len(exts) * ext_cells + n_up * out_cells)
-            self.perf[name] = dict(
-                kernel_time(run, max(k // 10, 3), "band_kernel"),
+            chunk_bytes = size * (len(exts) * ext_cells + n_up * out_cells)
+            self.perf[key] = dict(
+                kernel_time(run, max(k // 10, 3), kernel, launches=K),
                 plain_ms=event_ms(lambda: self.band_plain(
                     g, exts, K, B, modes, ols, family, sc, kw, iters=1), 1),
-                bound=bound_ms(chunk_bytes / K, flops * interior, F32_FLOPS),
-                pass_bound=bound_ms(pass_bytes, flops * interior, F32_FLOPS),
+                bound=bound_ms(chunk_bytes / K, flops * interior, rate),
+                pass_bound=bound_ms(pass_bytes, flops * interior, rate),
                 chunk_bound=bound_ms(chunk_bytes, flops * K * interior,
-                                     F32_FLOPS))
+                                     rate))
             # kernel_time's event time is per chunk call: per launch here.
-            self.perf[name]["events_ms"] /= K
-            p = self.perf[name]
+            self.perf[key]["events_ms"] /= K
+            if family == "hm3d" and not f64:
+                self.perf[f"{name}_first_design"] = self.first_design_time(
+                    self.htz, "hm3d_band", run, max(k // 10, 3),
+                    "band_kernel", K, want, cut)
+            del want
+            p = self.perf[key]
             log(f"[phase 1] {name} at {tag}, K={K}, B={B}: {p['ms']:.4f} ms "
                 f"device per launch ({p['ms_from']}), {p['events_ms']:.4f} "
                 f"ms per launch back to back (events), plain "
@@ -1225,6 +1289,12 @@ class Smoke:
                 f"{p['pass_bound'][0]:.4f} ms, the whole chunk "
                 f"{p['chunk_bound'][0]:.4f} ms ({p['bound'][0]:.4f} ms a "
                 f"launch, {p['bound'][1]})")
+            if f"{key}_first_design" in self.perf:
+                q = self.perf[f"{key}_first_design"]
+                log(f"[phase 1] {name} at {tag}: its first design "
+                    f"(band_walk.cuh) {q['ms']:.4f} ms device per launch in "
+                    f"the same run, {q['ms'] / p['ms']:.2f} times the "
+                    f"march's")
             del exts
 
     # -- the staggered band kernels (row 6's Stokes and rank-3 instances) --
@@ -1287,7 +1357,11 @@ class Smoke:
         ce, sp, stz, sl = self.ce, self.sp, self.stz, self.sl
         kw = dict(dx=0.31, dy=0.27, dz=0.43, mu=1.3, dtP=0.07, dtV=0.011)
         K, local = 3, (12, 12, 36)
-        for case, gkw in STOKES_GRIDS.items():
+        # y one periodic block over an open x: an x freeze row's value comes
+        # from the source's row of a y wrap.
+        grids = dict(STOKES_GRIDS, **{"2x1x1_wrap_y_open_xz": dict(
+            dimx=2, dimy=1, dimz=1, periody=1)})
+        for case, gkw in grids.items():
             g = self.grid(local, **OL3, **gkw)
             modes = ce.dim_modes(g)
             shapes = sp.field_shapes(g.nxyz)
@@ -1351,52 +1425,18 @@ class Smoke:
     def stagger_band_checks_full(self):
         """Both staggered band kernels at their main paths' shapes, f32,
         K = 8, B = 8: the Stokes band step at 2x2x2 blocks of n_multi^3,
-        open (config 5's 509^3: 8 extended blocks of 288^3), and relax3d's
-        generated band step on one n_stokes^3 periodic block (272 x 256 x
-        256 extended); checked against their plain version, then timed
-        beside one plain iteration and two bounds of compulsory bytes: a
-        pass (every staged array read once, every field written once) and
-        the whole chunk (each extended array read once, each central block
-        written once; the table's bound is the chunk's divided by K)."""
+        open (config 5's 509^3: 8 extended blocks of 288^3; also in f64,
+        and in f32 its first design), and relax3d's generated band step on
+        one n_stokes^3 periodic block (272 x 256 x 256 extended); checked
+        against their plain version, then timed beside one plain iteration
+        and two bounds of compulsory bytes: a pass (every staged array read
+        once, every field written once) and the whole chunk (each extended
+        array read once, each central block written once; the table's
+        bound is the chunk's divided by K)."""
         ce, sp, stz, sl = self.ce, self.sp, self.stz, self.sl
         m, k, K, B = self.n_multi, self.time_iters, K_CHUNK, 8
-        g = self.grid((m, m, m), dimx=2, dimy=2, dimz=2, **OL3)
-        kw = self.st3._pseudo_steps(self.st3.Params())
-        modes = ce.dim_modes(g)
-        shapes = sp.field_shapes(g.nxyz)
-        ols = ce.field_ols(g, shapes)
-        *S, Rho = self.stokes_state(g, torch.float32, 59)
-        exts = ce.extend_fields(S, ols[:4], 2 * K, g, modes)
-        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
-        del S, Rho
-        tag = f"2x2x2 x {m}^3 f32 open"
-        run = lambda: stz.band_call(exts, Rho_ext, shapes, K=K, B=B,
-                                    modes=modes, grid=g, kw=kw, ols=ols)
-        got = run()
-        want = self.stokes_band_plain(g, exts, Rho_ext, K, B, modes, ols,
-                                      shapes, kw)
-        for name, a, b, s in zip(STOKES_NAMES, got, want, shapes):
-            self.note("stokes_band_step", check(
-                f"stokes_band_step {name} {tag}", a,
-                ce.central_window(b, s, 2 * K, modes), 0.0))
-        del got, want
-        rd = float(sum(X.numel() for X in exts) + Rho_ext.numel())
-        wr = float(sum(X.numel() for X in exts))
-        out_cells = float(sum(np.prod([g.dims[d] * s[d] for d in range(3)])
-                              for s in shapes[:4]))
-        cells = float(Rho_ext.numel())
-        self.perf["stokes_band_step"] = dict(
-            kernel_time(run, max(k // 10, 2), "stag_band_kernel"),
-            plain_ms=event_ms(lambda: self.stokes_band_plain(
-                g, exts, Rho_ext, K, B, modes, ols, shapes, kw, iters=1), 1),
-            bound=bound_ms(4 * (rd + out_cells) / K,
-                           STOKES_FLOPS * cells, F32_FLOPS),
-            pass_bound=bound_ms(4 * (rd + wr), STOKES_FLOPS * cells,
-                                F32_FLOPS),
-            chunk_bound=bound_ms(4 * (rd + out_cells),
-                                 STOKES_FLOPS * cells * K, F32_FLOPS))
-        self.perf["stokes_band_step"]["events_ms"] /= K
-        del exts, Rho_ext
+        for dtype in (torch.float32, torch.float64):
+            self.stokes_band_full(m, k, K, B, dtype)
         n = self.n_stokes
         gen = self.spec_gen("relax3d")
         g = self.spec_grid("relax3d", "1x1x1_periodic", (n, n, n))
@@ -1414,7 +1454,8 @@ class Smoke:
                   E, modes), 0.0)
         ext_cells, out_cells = float(exts[0].numel()), float(n) ** 3
         self.perf["spec_band_step[relax3d]"] = dict(
-            kernel_time(run3, max(k // 5, 4), "stag_band_kernel"),
+            kernel_time(run3, max(k // 5, 4), "stag_band_kernel",
+                        launches=K),
             plain_ms=event_ms(lambda: self.spec_band_plain(
                 gen, g, exts, K, B, E, modes, ols, shapes, iters=1), 1),
             bound=bound_ms(4 * (ext_cells + out_cells) / K,
@@ -1426,6 +1467,7 @@ class Smoke:
         self.perf["spec_band_step[relax3d]"]["events_ms"] /= K
         del exts
         for name, tag in (("stokes_band_step", f"2x2x2 x {m}^3 f32 open"),
+                          ("stokes_band_step_f64", f"2x2x2 x {m}^3 f64 open"),
                           ("spec_band_step[relax3d]", f"{n}^3 f32 periodic")):
             p = self.perf[name]
             log(f"[phase 1] {name} at {tag}, K={K}, B={B}: {p['ms']:.4f} ms "
@@ -1435,6 +1477,65 @@ class Smoke:
                 f"{p['pass_bound'][0]:.4f} ms, the whole chunk "
                 f"{p['chunk_bound'][0]:.4f} ms ({p['bound'][0]:.4f} ms a "
                 f"launch, {p['bound'][1]})")
+
+    def stokes_band_full(self, m, k, K, B, dtype):
+        """The Stokes band step at 2x2x2 blocks of m^3, open (config 5's
+        509^3: 8 extended blocks of 288^3), K and B, in `dtype`: checked
+        against its plain version and timed (stagger_band_checks_full); in
+        float32 also its first design (stagger_band_walk3.cuh) in the same
+        run."""
+        ce, sp, stz = self.ce, self.sp, self.stz
+        f64 = dtype == torch.float64
+        key = "stokes_band_step_f64" if f64 else "stokes_band_step"
+        g = self.grid((m, m, m), dimx=2, dimy=2, dimz=2, **OL3)
+        kw = self.st3._pseudo_steps(self.st3.Params())
+        modes = ce.dim_modes(g)
+        shapes = sp.field_shapes(g.nxyz)
+        ols = ce.field_ols(g, shapes)
+        *S, Rho = self.stokes_state(g, dtype, 59)
+        exts = ce.extend_fields(S, ols[:4], 2 * K, g, modes)
+        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        del S, Rho
+        tag = f"2x2x2 x {m}^3 {'f64' if f64 else 'f32'} open"
+        run = lambda: stz.band_call(exts, Rho_ext, shapes, K=K, B=B,
+                                    modes=modes, grid=g, kw=kw, ols=ols)
+        got = run()
+        want = self.stokes_band_plain(g, exts, Rho_ext, K, B, modes, ols,
+                                      shapes, kw)
+        cut = (lambda b, f: ce.central_window(b, shapes[f], 2 * K, modes))
+        for f, (name, a, b) in enumerate(zip(STOKES_NAMES, got, want)):
+            self.note("stokes_band_step", check(
+                f"stokes_band_step {name} {tag}", a, cut(b, f), 0.0))
+        del got
+        size = 8 if f64 else 4
+        rate = F64_FLOPS if f64 else F32_FLOPS
+        rd = float(sum(X.numel() for X in exts) + Rho_ext.numel())
+        wr = float(sum(X.numel() for X in exts))
+        out_cells = float(sum(np.prod([g.dims[d] * s[d] for d in range(3)])
+                              for s in shapes[:4]))
+        cells = float(Rho_ext.numel())
+        self.perf[key] = dict(
+            kernel_time(run, max(k // 10, 2),
+                        f"stokes_march_kernel<{'double' if f64 else 'float'}, "
+                        f"true>", launches=K),
+            plain_ms=event_ms(lambda: self.stokes_band_plain(
+                g, exts, Rho_ext, K, B, modes, ols, shapes, kw, iters=1), 1),
+            bound=bound_ms(size * (rd + out_cells) / K,
+                           STOKES_FLOPS * cells, rate),
+            pass_bound=bound_ms(size * (rd + wr), STOKES_FLOPS * cells, rate),
+            chunk_bound=bound_ms(size * (rd + out_cells),
+                                 STOKES_FLOPS * cells * K, rate))
+        self.perf[key]["events_ms"] /= K
+        if not f64:
+            q = self.perf["stokes_band_step_first_design"] = \
+                self.first_design_time(stz, "stokes_band", run,
+                                       max(k // 10, 2), "stag_band_kernel",
+                                       K, want, cut)
+            log(f"[phase 1] stokes_band_step at {tag}: its first design "
+                f"(stagger_band_walk3.cuh) {q['ms']:.4f} ms device per "
+                f"launch in the same run, "
+                f"{q['ms'] / self.perf[key]['ms']:.2f} times the march's")
+        del want, exts, Rho_ext
 
     # -- main path --------------------------------------------------------
     def heat(self, T, Cp) -> float:
@@ -2013,25 +2114,33 @@ class Smoke:
         self.stokes_division_check()
 
     def stokes_division_check(self):
-        """The chunk kernel's float32 division (csrc/const_div.cuh) bitwise
-        `x / d` over all 2^32 float32 dividends, for every divisor of the
-        Stokes checks and phases: 3, the small checks' spacings and the
-        spacings of config 5 on each grid the phases use."""
-        st3, stz = self.st3, self.stz
-        divisors = {3.0, 0.31, 0.27, 0.43}
+        """The marches' float32 division (csrc/const_div.cuh) bitwise `x /
+        d` over all 2^32 float32 dividends, for every divisor of the Stokes
+        and HM3D band checks and phases: 3, the small checks' spacings and
+        HM3D's 1.3, phi0 and eta, and the spacings of config 5 and of HM3D
+        on each grid their phases use."""
+        st3, stz, h3 = self.st3, self.stz, self.h3
+        hp = h3.Params()
+        divisors = {3.0, 0.31, 0.27, 0.43, 1.3, hp.phi0, hp.eta}
         for local, layout in (((self.n_stokes,) * 3, dict(SINGLE, **PERIODIC)),
                               ((self.n_multi,) * 3, dict(dimx=2, dimy=2,
                                                          dimz=2))):
             self.grid(local, **layout, **OL3)
             kw = st3._pseudo_steps(st3.Params())
             divisors |= {kw["dx"], kw["dy"], kw["dz"]}
+        for local, layout in (((self.n_head,) * 3, dict(SINGLE, **PERIODIC)),
+                              ((self.n_multi,) * 3, dict(dimx=2, dimy=2,
+                                                         dimz=2,
+                                                         **PERIODIC))):
+            self.grid(local, **layout)
+            divisors |= set(hp.spacing())
         t0 = time.perf_counter()
         for d in sorted(divisors):
             bad = stz.division_mismatches(d, device=self.dev)
             if bad:
                 raise SmokeFailure(f"stokes division by {d!r}: {bad} of 2^32 "
                                    f"float32 dividends differ from x / d")
-        log(f"[phase 1] stokes division: bitwise x / d over all 2^32 float32 "
+        log(f"[phase 1] march division: bitwise x / d over all 2^32 float32 "
             f"dividends for the {len(divisors)} divisors "
             f"{sorted(divisors)} ({time.perf_counter() - t0:.1f} s)")
 
@@ -2804,6 +2913,47 @@ class Smoke:
         return {"kernels": out}
 
 
+# The redesigned kernels whose first designs (kernel_variants.py:
+# FIRST_DESIGNS) phase 1 times beside them in the same run.
+FIRST_DESIGN_LIBS = ("stokes_band", "hm3d_band")
+
+
+def start_first_designs():
+    """Start one nvcc for each first design of FIRST_DESIGN_LIBS, its text
+    written under igg_torch/_build/first/ (keyed by the text and the
+    headers); returns the jobs."""
+    import kernel_variants
+    from igg_torch.ops import _build
+
+    jobs = {}
+    for lib in FIRST_DESIGN_LIBS:
+        text = kernel_variants.FIRST_DESIGNS[f"{lib}.cu"]
+        key = _build._key([text.encode()] +
+                          [_build._read(h) for h in _build._headers()])
+        src = os.path.join(_build.BUILD_DIR, "first", f"{lib}-{key}.cu")
+        os.makedirs(os.path.dirname(src), exist_ok=True)
+        with open(src, "w") as f:
+            f.write(text)
+        so = src[:-len(".cu")] + ".so"
+        jobs[lib] = (_build._start_nvcc(src, so), so)
+    return jobs
+
+
+def finish_first_designs(jobs):
+    """Wait for the first designs' builds; returns {library name: CDLL}
+    with the entry point typed as the library's own."""
+    from igg_torch.ops import _build
+
+    libs = {}
+    for lib, (job, so) in jobs.items():
+        _build._finish(f"{lib} (first design)", job)
+        libs[lib] = ctypes.CDLL(so)
+        fn_name, argtypes = _build.SIGNATURES[lib]
+        fn = getattr(libs[lib], fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return libs
+
+
 def card_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2833,15 +2983,19 @@ def main() -> int:
     # The kernels' sources and the sources generated from the specs of the
     # checks, one nvcc each, all started together.
     generated = [cases.kernels(name) for name in cases.SPECS]
+    first = start_first_designs()
     reports = _build.build_all(generated=[(g.source, g.tag)
                                           for g in generated])
-    log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s")
+    first = finish_first_designs(first)
+    log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s "
+        f"(and the first designs of {sorted(first)})")
     for name, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[ptxas {name}] {line.strip()}")
 
     smoke = Smoke(torch.device("cuda"))
+    smoke.first = first
     t0 = time.perf_counter()
     smoke.kernel_checks()
     log(f"[phase 1] done in {time.perf_counter() - t0:.1f} s")

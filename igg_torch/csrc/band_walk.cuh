@@ -1,10 +1,11 @@
-// One iteration of the streaming banded K-step chunk, shared by every
-// family's band kernel (diffusion_band.cu, hm3d_band.cu): one launch
-// advances every extended block of a block-stacked EXTENDED buffer by one
-// iteration of all NF fields of the policy P, sweeping each block in x-row
-// bands of depth B (the function of igg/ops/chunk_engine.py:
-// _streaming_kernel and of its plain version, igg_torch/ops/chunk_engine.py:
-// banded_window_plain).
+// One iteration of the streaming banded K-step chunk, the walk of the
+// diffusion band kernel (diffusion_band.cu; the HM3D band kernel left it for
+// its own x-march, hm3d_march.cuh, and its first design here is kept as
+// text in kernel_variants.py): one launch advances every extended block of
+// a block-stacked EXTENDED buffer by one iteration of all NF fields of the
+// policy P, sweeping each block in x-row bands of depth B (the function of
+// igg/ops/chunk_engine.py: _streaming_kernel and of its plain version,
+// igg_torch/ops/chunk_engine.py: banded_window_plain).
 //
 // A thread block takes one band (rows [a, a+B) of one extended block) over a
 // BAND_TY x BAND_TZ tile of y/z cells of that block.  It stages, in shared

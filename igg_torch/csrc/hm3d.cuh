@@ -29,11 +29,6 @@ struct Hm3d {
     return igg::aligned(src[0], bytes) && igg::aligned(src[1], bytes);
   }
 
-  // The arrays the band walk stages (band_walk.cuh): Pe, phi.
-  static constexpr int NS = 2;
-  __device__ __forceinline__ const T* staged(int k) const { return src[k]; }
-  __device__ __forceinline__ void restage(int k, const T* p) { src[k] = p; }
-
   // (phi/phi0)^npow by repeated squaring, the order of XLA's integer_pow:
   // acc takes x at each set bit of npow from the lowest, x squares between.
   __device__ __forceinline__ T perm(T phi) const {

@@ -1,8 +1,8 @@
 // One iteration of the streaming banded K-step HM3D chunk: one launch
 // advances both fields (Pe, phi) of every block of the block-stacked
-// EXTENDED buffers by one coupled step, swept in x-row bands of depth B
-// through a shared-memory window (the walk of band_walk.cuh, with the HM3D
-// policy of hm3d.cuh; both fields re-freeze on open dims, igg's
+// EXTENDED buffers by one coupled step with the rules of the banded
+// realization (igg_torch/ops/chunk_engine.py: banded_window_plain with
+// hm3d_trapezoid.band_update; both fields re-freeze on open dims, igg's
 // `freeze_fields=(0, 1)`).
 //
 // Replaces the HM3D instance of the TPU kernel of igg/ops/chunk_engine.py
@@ -13,31 +13,49 @@
 // that ping-pong two buffer pairs, the last writing the central windows;
 // temporal blocking in shared memory is later work.
 //
-// What bounds it on the H100: bytes, and in practice the IEEE divisions of
-// the HM3D update (hm3d.cuh).  Per launch it reads both extended fields
-// once and writes them once: at 8 blocks of 272^3 f32 (the 508^3 grid's
-// 256^3 blocks extended by K = 8) 2.58 GB, 0.77 ms at 3.35 TB/s; a whole
-// K = 8 chunk needs to read each extended field once and write each
-// central block once (0.70 ms).
+// The bands are the TPU's VMEM at work, not part of the function: a band
+// reads the previous iteration's values of its block, padded only at the
+// block's x ends, so every band depth B gives the same buffers
+// (tests/test_torch_banded.py holds that).  So the kernel walks x in
+// segments of its own choosing; B is a parameter of the layout and of the
+// gates only, and the kernel's shared memory does not depend on it.
 //
-// What the design does about it: a thread block stages its band's rows
-// and its tile's radius once, and every cell reads its neighbours from
-// shared memory; the divisions are the policy's, in its order.
-#include "band_walk.cuh"
-#include "hm3d.cuh"
+// What bounds it on the H100: by the roofline, bytes.  Per launch it reads
+// both extended fields once and writes them once: at 8 blocks of 272^3 f32
+// (the 508^3 grid's 256^3 blocks extended by K = 8) 2.58 GB, 0.77 ms at
+// 3.35 TB/s.  Its first design (band_walk.cuh: a thread block per band and
+// tile, hm3d.cuh's one-cell update on the staged window, 18 IEEE divisions
+// a cell, each face's flux formed from both sides) ran at 4.9 times that.
+//
+// What the design does about it: the x-march of hm3d_march.cuh: each
+// cell's permeability and each face's flux formed once (9 divisions a cell
+// by const_div.cuh, bitwise `x / d`), the planes staged by cp.async and
+// clamped at the block's x ends, wraps resolved by writing each computed
+// cell to every target that aliases it, the band halo's freezes taken at
+// those writes.
+#include "hm3d_march.cuh"
 
 namespace {
 
 template <typename T>
 int launch(void* const* src, void* const* F, void* const* out,
-           const igg::Band& b, const double* coef, int npow,
+           const int* cfg, const double* coef, int npow,
            cudaStream_t stream) {
-  return igg::launch_band(
-      igg::make_hm3d<T>(src[0], src[1], coef, npow), b,
-      igg::Fields<const T, 2>{
-          {static_cast<const T*>(F[0]), static_cast<const T*>(F[1])}},
-      igg::Fields<T, 2>{{static_cast<T*>(out[0]), static_cast<T*>(out[1])}},
-      stream);
+  igg::HmArgs<T> m;
+  if (!igg::make_hm_march(cfg, m)) return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < 2; ++f) {
+    m.src[f] = static_cast<const T*>(src[f]);
+    m.F[f] = static_cast<const T*>(F[f]);
+    m.out[f] = static_cast<T*>(out[f]);
+  }
+  m.qx = igg::make_div((T)coef[0]);
+  m.qy = igg::make_div((T)coef[1]);
+  m.qz = igg::make_div((T)coef[2]);
+  m.dt = (T)coef[3];
+  m.q0 = igg::make_div((T)coef[4]);
+  m.qe = igg::make_div((T)coef[5]);
+  m.npow = npow;
+  return igg::launch_hm_march(m, stream);
 }
 
 }  // namespace
@@ -45,15 +63,14 @@ int launch(void* const* src, void* const* F, void* const* out,
 // src, F, out: (Pe, phi) pointers of the iteration's source buffers, the
 // chunk-entry buffers (laid out like src) and the targets (extended like
 // src, or, when `last`, the unextended outputs); cfg: the band layout of
-// igg::make_band (band_walk.cuh); coef: dx dy dz dt phi0 eta; npow >= 0;
-// dtype: 0 float32, 1 float64.
+// chunk_engine.band_cfg (igg::make_hm_march, hm3d_march.cuh); coef: dx dy
+// dz dt phi0 eta; npow >= 0; dtype: 0 float32, 1 float64.
 extern "C" int igg_hm3d_band_step(void* const* src, void* const* F,
                                   void* const* out, int dtype, const int* cfg,
                                   const double* coef, int npow, void* stream) {
-  igg::Band b;
-  if (!igg::make_band(cfg, b) || npow < 0) return (int)cudaErrorInvalidValue;
+  if (npow < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(src, F, out, b, coef, npow, st);
-  if (dtype == 1) return launch<double>(src, F, out, b, coef, npow, st);
+  if (dtype == 0) return launch<float>(src, F, out, cfg, coef, npow, st);
+  if (dtype == 1) return launch<double>(src, F, out, cfg, coef, npow, st);
   return (int)cudaErrorInvalidValue;
 }

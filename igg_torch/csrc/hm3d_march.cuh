@@ -1,0 +1,523 @@
+// The x-march of the HM3D band kernel (hm3d_band.cu): each thread block
+// walks x over a (y, z) tile of one extended block, the planes it needs
+// staged in shared memory, every quotient of the update formed once.
+//
+// Fields and semantics: HM3D's two collocated fields, the effective
+// pressure Pe and the porosity phi (hm3d.cuh), advanced by one coupled
+// step with the rules of the banded realization (band_walk.cuh's header,
+// igg_torch/ops/chunk_engine.py: banded_window_plain with
+// hm3d_trapezoid.band_update), on the layout of chunk_walk.cuh's Chunk
+// (chunk_engine.band_cfg):
+//   - every row x of an extended block is updated, its x neighbours
+//     clamped to the block's first and last rows (per block, not per
+//     tensor); rows on a block's y/z outer planes keep their source values;
+//   - where y or z is one periodic block (wrap), a field's edge cells take
+//     the updated values at the inner cells they alias (0 <- s-ol,
+//     s-1 <- ol-1);
+//   - on open dims both fields take the chunk-entry values F on exactly the
+//     freeze rows lo and hi of the edge blocks, resolved in band_halo's
+//     order, z, then y, then x (later dims win): a target on a z freeze row
+//     takes F there, on a y or x freeze row F at the source's z (a z wrap
+//     having moved the value along z first), on an x freeze row F at the
+//     source cell;
+//   - the last launch of a chunk writes only each block's central window,
+//     straight into the unextended outputs.
+// The arithmetic is that of hm3d.cuh's `perm`, `flux` and `cell` in their
+// association, each operation rounded as the plain version rounds it
+// (-fmad=false), every division through const_div.cuh (bitwise `x / d`):
+//   k = (phi / phi0)^npow, once a cell;
+//   q = (-(0.5 (k_hi + k_lo)) (Pe_hi - Pe_lo)) / d, once a face: hm3d.cuh
+//       forms a face's flux from both cells beside it with the same
+//       operands in the same order, so one quotient serves both;
+//   divq = ((dqx / dx + dqy / dy) + dqz / dz), Pe' and phi' by eta.
+// Divisions a cell: 1 (k) + 3 (faces) + 5 (divq, two by eta) = 9 against
+// hm3d.cuh's 18; with the tile's halo 9.4.
+//
+// The march.  A thread block owns the tile of source rows [y0, y0 + TY) x
+// [z0, z0 + TZ) of one block (16 x 16 cells, one a thread; HM_CPT cells of
+// a column where a tile holds more) and walks x over a segment [xa, xb).
+// At step u (plane t = xa - 1 + u) each thread
+//   1. forms k of plane t + 1 over the tile and the halo cells the faces
+//      read (one row above and below, one column left and right) into a
+//      shared-memory ring, keeping its own cell's in a register; the x-face
+//      flux between planes t and t + 1 of its own cell, in a register; the
+//      y- and z-face fluxes of plane t (TY + 1 rows of y faces, TZ + 1
+//      columns of z faces) into shared planes, from k of plane t formed the
+//      step before;
+//   2. waits for its own asynchronous copies and meets the block at its
+//      one barrier a step;
+//   3. starts the copies (cp.async) of Pe and phi at plane t + 3 into the
+//      slots of plane t - 1;
+//   4. updates its own cell of plane t from the fluxes of its six faces
+//      and writes it to each of its targets.
+// A thread that leaves step 4 early forms plane t + 1's k and fluxes while
+// others still read plane t's: the flux planes and the k planes are rings
+// of 2, the staged planes rings of 4, so that no slot a step writes before
+// the barrier is one the step before reads after it.  The halo items go to
+// warps that hold no other extra item (k: threads 0-63; y faces: 64-79;
+// z faces: 96-111).
+//
+// Shared memory a thread block holds (elements): 8 staged planes and 2 k
+// planes of (TY + 2)(TZ + 2) = 324, 2 y-face planes of (TY + 1) TZ = 272 and
+// 2 z-face planes of TY (TZ + 1) = 272: 4,328 elements, 17,312 bytes in
+// float32 and 34,624 in float64, whatever the band depth B.  The 16 x 16
+// tile divides the extended blocks (272 = 17 x 16): on an H100 80GB HBM3
+// at 700 W it ran 7% faster than 8 x 32, whose last z tile of 272 is half
+// empty, and than two cells a thread (kernel_variants.py: hm_tile_*).
+//
+// Wraps without a second pass.  Every cell is computed once, at its source
+// position, and written to each target that takes it: along a wrapped dim,
+// row c goes to target c (1 <= c <= s-2), to 0 (c == s-ol) and to s-1
+// (c == ol-1).  A thread resolves its cell's targets once for the whole
+// march; only threads on a wrap's edge or alias rows resolve them per
+// plane.
+//
+// Segments.  Where the tiles of a launch give fewer than HM_BLOCKS thread
+// blocks, x is cut into segments of at least HM_MIN_SEG rows, one a thread
+// block; a segment starts one plane early (step 0: k and the x-face flux
+// of its first face).  The segments are the kernel's own choice: the
+// banded function does not depend on the band depth.
+//
+// The band walk's edge rules sit in HmEdges; a chunk kernel (chunk_walk.cuh's
+// rules: the outermost rows keep their values, the freeze takes every row
+// beyond lo and hi, F at the target) would give the march another.
+#pragma once
+
+#include "async_copy.cuh"
+#include "chunk_walk.cuh"
+#include "const_div.cuh"
+
+namespace igg {
+
+constexpr int HM_TY = 16;         // y rows of a tile
+constexpr int HM_TZ = 16;         // z cells of a tile row
+constexpr int HM_NT = 256;        // threads of a thread block
+constexpr int HM_CPT = HM_TY * HM_TZ / HM_NT;  // own cells a thread
+constexpr int HM_BLOCKS = 8192;   // thread blocks below which x is cut
+constexpr int HM_MIN_SEG = 8;     // fewest x rows of a segment
+constexpr int HM_AHEAD = 1;       // planes staged beyond the next two
+// Thread blocks an SM holds at least (the register bound).
+constexpr int HM_MIN_BLOCKS_F32 = 4;
+constexpr int HM_MIN_BLOCKS_F64 = 3;
+// The staging ring: planes t - 1 .. t + 2 + AHEAD (the march's note).
+constexpr int HM_RING = HM_AHEAD + 3;
+
+constexpr int HM_IY = HM_TY + 2, HM_IZ = HM_TZ + 2;
+constexpr int HM_IN = HM_IY * HM_IZ;        // a staged or k plane
+constexpr int HM_QY = (HM_TY + 1) * HM_TZ;  // a y-face plane
+constexpr int HM_QZ = HM_TY * (HM_TZ + 1);  // a z-face plane
+constexpr int HM_SPT = (HM_IN + HM_NT - 1) / HM_NT;  // staged elements
+constexpr int HM_HALO = 2 * HM_TZ + 2 * HM_TY;       // k's halo cells
+constexpr int HM_ELEMS =
+    (2 * HM_RING + 2) * HM_IN + 2 * HM_QY + 2 * HM_QZ;
+// The warps of the halo items (module note).
+constexpr int HM_QY0 = (HM_HALO + 31) / 32 * 32;
+constexpr int HM_QZ0 = HM_QY0 + (HM_TZ + 31) / 32 * 32;
+static_assert(HM_HALO <= HM_NT && HM_QY0 + HM_TZ <= HM_NT &&
+                  HM_QZ0 + HM_TY <= HM_NT,
+              "a thread takes at most one item beyond its own of each kind");
+static_assert(HM_CPT >= 1 && HM_CPT * HM_NT == HM_TY * HM_TZ &&
+                  HM_NT % HM_TZ == 0,
+              "a thread takes whole cells of one column");
+
+template <typename T>
+struct HmArgs {
+  const T* src[2];  // Pe, phi
+  const T* F[2];    // the chunk-entry buffers (read where a dim freezes)
+  T* out[2];        // the targets
+  T dt;
+  ConstDiv<T> qx, qy, qz, q0, qe;  // dx, dy, dz, phi0, eta
+  int npow;         // >= 0
+  Chunk c;          // extended blocks, wraps, freeze rows, central window
+  int ol[3];        // wrap overlap along y and z
+  int first[3];     // first source row with a target (a target block's
+                    // row 0), per dim
+  int rows[3];      // source rows with a target (a target block's extent)
+  int ty, tz;       // tiles of a block along y and z
+  int nseg, seg;    // x segments of a block, rows of a segment
+};
+
+// cfg: chunk_engine.band_cfg (make_chunk's 25 ints, then B lo extra ol_y
+// ol_z).  Returns false where the layout does not suit the kernel: that of
+// make_band (band_walk.cuh), B dividing the extended x span.
+template <typename T>
+inline bool make_hm_march(const int* cfg, HmArgs<T>& m) {
+  if (!make_chunk(cfg, m.c)) return false;
+  const int B = cfg[25], lo = cfg[26], extra = cfg[27];
+  const Geo& g = m.c.geo;
+  if (B < 1 || g.s[0] % B != 0 || lo < 1 || extra < 1) return false;
+  m.ol[0] = 0;
+  m.ol[1] = cfg[28];
+  m.ol[2] = cfg[29];
+  for (int d = 0; d < 3; ++d) {
+    if (g.s[d] < 3) return false;
+    if (g.mode[d] == WRAP &&
+        (d == 0 || g.n[d] != 1 || m.ol[d] < 2 || m.ol[d] > g.s[d]))
+      return false;
+    m.first[d] = m.c.last ? m.c.off[d] : 0;
+    m.rows[d] = m.c.last ? m.c.os[d] : g.s[d];
+    if (m.first[d] < 0 || m.first[d] + m.rows[d] > g.s[d]) return false;
+  }
+  return true;
+}
+
+// The band walk's edge rules (module note).
+struct HmEdges {
+  // The staged plane of source plane p: the block's x ends clamp.
+  __device__ __forceinline__ static int plane(int p, int s0) {
+    return march_clamp(p, 0, s0 - 1);
+  }
+  // Whether row r of block bl along d is a freeze row there.
+  __device__ __forceinline__ static bool frozen(const Chunk& c, int d, int bl,
+                                                int r) {
+    return c.frz[d] && ((bl == 0 && r == c.lo[d]) ||
+                        (bl == c.geo.n[d] - 1 && r == c.hi[d]));
+  }
+};
+
+// The march's divisions, one at a time and in batches (const_div.cuh;
+// kernel_variants.py's hm_div_ieee makes them `x / d`).
+template <typename T>
+__device__ __forceinline__ T hm_div(T x, const ConstDiv<T>& q) {
+  return cdiv(x, q);
+}
+template <typename T>
+using HmBatch = DivBatch<T>;
+
+// (phi/phi0)^npow: hm3d.cuh's perm with its division by phi0.
+template <typename T>
+__device__ __forceinline__ T hm_perm(T phi, const HmArgs<T>& m) {
+  T x = hm_div(phi, m.q0);
+  if (m.npow == 0) return T(1);
+  T acc = x;
+  bool have = false;
+  for (int y = m.npow; y > 0;) {
+    if (y & 1) {
+      acc = have ? acc * x : x;
+      have = true;
+    }
+    y >>= 1;
+    if (y > 0) x = x * x;
+  }
+  return acc;
+}
+
+// hm3d.cuh's flux before its division: -kf * (p_hi - p_lo).
+template <typename T>
+__device__ __forceinline__ T hm_flow(T klo, T khi, T plo, T phi_) {
+  const T kf = T(0.5) * (khi + klo);
+  return -kf * (phi_ - plo);
+}
+
+// The targets of source row c along a dim (wrap: hm3d's aliases; else the
+// row itself where a target holds it), as target rows.
+__device__ __forceinline__ int hm_targets(int c, bool wrap, int toff, int tos,
+                                          int s, int ol, int* tg) {
+  int n = 0;
+  if (!wrap) {
+    const int t = c - toff;
+    if (t >= 0 && t < tos) tg[n++] = t;
+    return n;
+  }
+  if (c >= 1 && c <= s - 2) tg[n++] = c;
+  if (c == s - ol) tg[n++] = 0;
+  if (c == ol - 1) tg[n++] = s - 1;
+  return n;
+}
+
+// Offset of cell (i, j, k) of block b on blocks of extents e stacked into
+// a tensor of extents G.
+__device__ __forceinline__ long long hm_at(const int* e, const int* G,
+                                           const int* b, int i, int j, int k) {
+  return ((long long)(b[0] * e[0] + i) * G[1] + b[1] * e[1] + j) *
+             (long long)G[2] +
+         b[2] * e[2] + k;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
+                                                        : HM_MIN_BLOCKS_F64)
+    hm_march_kernel(HmArgs<T> m) {
+  extern __shared__ __align__(16) unsigned char hm_smem[];
+  constexpr int TY = HM_TY, TZ = HM_TZ, NT = HM_NT, IZ = HM_IZ, IN = HM_IN;
+  constexpr int R = HM_RING, AH = HM_AHEAD;
+  const Chunk& c = m.c;
+  const Geo& g = c.geo;
+  const int tid = threadIdx.x;
+  const int b[3] = {(int)blockIdx.z / m.nseg, (int)blockIdx.y / m.ty,
+                    (int)blockIdx.x / m.tz};
+  const int seg = blockIdx.z - b[0] * m.nseg;
+  const int y0 = m.first[1] + (blockIdx.y - b[1] * m.ty) * TY;
+  const int z0 = m.first[2] + (blockIdx.x - b[2] * m.tz) * TZ;
+  const int xa = m.first[0] + seg * m.seg;
+  const int xend = m.first[0] + m.rows[0];
+  const int xb = xa + m.seg < xend ? xa + m.seg : xend;
+  const int s0 = g.s[0], s1 = g.s[1], s2 = g.s[2];
+
+  T* const sm = reinterpret_cast<T*>(hm_smem);
+  T* const pring = sm;                 // Pe [R][IN]
+  T* const fring = sm + R * IN;        // phi [R][IN]
+  T* const kring = sm + 2 * R * IN;    // k [2][IN] (planes t, t + 1)
+  T* const qyq = kring + 2 * IN;       // y faces [2][HM_QY]
+  T* const qzq = qyq + 2 * HM_QY;      // z faces [2][HM_QZ]
+
+  // What the thread stages: its elements of a plane, their in-plane
+  // offsets (an x-plane of the stacked field holds fewer than 2^31
+  // elements: launch_hm_march) and whether they lie inside the block.
+  int soff[HM_SPT];
+  unsigned sok = 0;
+#pragma unroll
+  for (int q = 0; q < HM_SPT; ++q) {
+    const int e = tid + q * NT;
+    const int j = y0 - 1 + e / IZ, k = z0 - 1 + e % IZ;
+    soff[q] = (b[1] * s1 + j) * g.G[2] + b[2] * s2 + k;
+    if (e < IN && j >= 0 && j < s1 && k >= 0 && k < s2) sok |= 1u << q;
+  }
+  const long long psize = (long long)g.G[1] * g.G[2];
+  auto stage = [&](int i) {
+    const int p = HmEdges::plane(xa - 1 + i, s0), slot = i % R;
+    const long long base = ((long long)b[0] * s0 + p) * psize;
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      T* const dst = (f == 0 ? pring : fring) + slot * IN;
+      const T* const src = m.src[f];
+#pragma unroll
+      for (int q = 0; q < HM_SPT; ++q) {
+        const int e = tid + q * NT;
+        if (e >= IN) break;
+        const bool in = sok >> q & 1u;
+        march_copy(dst + e, in ? src + base + soff[q] : src, in);
+      }
+    }
+  };
+
+  // The thread's own cells (rows oa + n NR of column oc), its halo k cell
+  // and its extra faces.
+  constexpr int CPT = HM_CPT, NR = NT / TZ;
+  const int oc = tid % TZ;
+  int io[CPT], ins[CPT], j[CPT];
+  long long ino[CPT];
+  bool mine[CPT], inner[CPT], simple[CPT], fyz[CPT];
+  const int k = z0 + oc;
+  const bool wy = g.mode[1] == WRAP, wz = g.mode[2] == WRAP;
+  const bool zspecial = wz && (k == 0 || k == s2 - 1 || k == s2 - m.ol[2] ||
+                               k == m.ol[2] - 1);
+  const int tb[3] = {b[0], b[1], b[2]};
+  const int OG[3] = {c.geo.n[0] * m.rows[0], c.geo.n[1] * m.rows[1],
+                     c.geo.n[2] * m.rows[2]};
+  const long long opsize = (long long)OG[1] * OG[2];
+#pragma unroll
+  for (int n = 0; n < CPT; ++n) {
+    const int oa = tid / TZ + n * NR;
+    j[n] = y0 + oa;
+    io[n] = (oa + 1) * IZ + oc + 1;
+    mine[n] = j[n] < m.first[1] + m.rows[1] && k < m.first[2] + m.rows[2];
+    inner[n] = j[n] >= 1 && j[n] <= s1 - 2 && k >= 1 && k <= s2 - 2;
+    simple[n] = !(wy && (j[n] == 0 || j[n] == s1 - 1 ||
+                         j[n] == s1 - m.ol[1] || j[n] == m.ol[1] - 1)) &&
+                !zspecial;
+    // A simple cell's target is its own position, frozen by y or z alike
+    // in every plane.
+    fyz[n] = HmEdges::frozen(c, 1, b[1], j[n]) ||
+             HmEdges::frozen(c, 2, b[2], k);
+    ins[n] = (b[1] * s1 + j[n]) * g.G[2] + b[2] * s2 + k;
+    ino[n] = hm_at(m.rows, OG, tb, 0, j[n] - m.first[1], k - m.first[2]) -
+             (long long)b[0] * m.rows[0] * opsize;
+  }
+  int ih = -1;
+  if (tid < HM_HALO) {
+    const int h = tid;
+    ih = h < TZ ? h + 1
+         : h < 2 * TZ ? (TY + 1) * IZ + h - TZ + 1
+         : h < 2 * TZ + TY ? (h - 2 * TZ + 1) * IZ
+                           : (h - 2 * TZ - TY + 1) * IZ + TZ + 1;
+  }
+  const bool qy_extra = tid >= HM_QY0 && tid < HM_QY0 + TZ;
+  const bool qz_extra = tid >= HM_QZ0 && tid < HM_QZ0 + TY;
+
+  // Plane xa - 1 + i lives in slot i % R.  Step u forms k of plane u + 1
+  // and the fluxes of plane u, waits for its own copies and meets the
+  // others at the barrier, then stages plane u + 2 + AH into the slot of
+  // plane u - 1 (read last before this barrier) and updates plane u.
+  const int steps = xb - xa + 1;
+#pragma unroll
+  for (int i = 0; i <= AH + 1; ++i) stage(i);
+  march_commit();
+  march_wait<0>();
+  __syncthreads();
+
+  T kown[CPT], qlo[CPT];  // k of the own cells at plane t, their x-face
+                          // fluxes below plane t
+#pragma unroll
+  for (int n = 0; n < CPT; ++n) {
+    kown[n] = hm_perm(fring[io[n]], m);
+    qlo[n] = T(0);
+  }
+  for (int u = 0, t = xa - 1; t < xb; ++u, ++t) {
+    const T* pe0 = pring + (u % R) * IN;
+    const T* pe1 = pring + ((u + 1) % R) * IN;
+    const T* ph0 = fring + (u % R) * IN;
+    const T* ph1 = fring + ((u + 1) % R) * IN;
+    const T* k0 = kring + (u & 1) * IN;
+    T* const k1 = kring + ((u + 1) & 1) * IN;
+    T* const qy = qyq + (u & 1) * HM_QY;
+    T* const qz = qzq + (u & 1) * HM_QZ;
+
+    // k of plane t + 1, the x-face fluxes between t and t + 1, and (from
+    // plane xa on) the y- and z-face fluxes of plane t.
+    T qhi[CPT];
+#pragma unroll
+    for (int n = 0; n < CPT; ++n) {
+      const int i = io[n];
+      const T knext = hm_perm(ph1[i], m);
+      k1[i] = knext;
+      const T fx = hm_flow(kown[n], knext, pe0[i], pe1[i]);
+      kown[n] = knext;
+      if (t >= xa) {
+        const T fy = hm_flow(k0[i - IZ], k0[i], pe0[i - IZ], pe0[i]);
+        const T fz = hm_flow(k0[i - 1], k0[i], pe0[i - 1], pe0[i]);
+        HmBatch<T> D;
+        T a = D(fx, m.qx), ay = D(fy, m.qy), az = D(fz, m.qz);
+        if (!D.ok) {
+          a = hm_div(fx, m.qx);
+          ay = hm_div(fy, m.qy);
+          az = hm_div(fz, m.qz);
+        }
+        qhi[n] = a;
+        const int oa = tid / TZ + n * NR;
+        qy[oa * TZ + oc] = ay;
+        qz[oa * (TZ + 1) + oc] = az;
+      } else {
+        qhi[n] = hm_div(fx, m.qx);
+      }
+    }
+    if (ih >= 0) k1[ih] = hm_perm(ph1[ih], m);
+    if (t >= xa) {
+      if (qy_extra) {  // the y faces above the tile's last row
+        const int e = tid - HM_QY0, i = TY * IZ + e + 1;
+        qy[TY * TZ + e] =
+            hm_div(hm_flow(k0[i], k0[i + IZ], pe0[i], pe0[i + IZ]), m.qy);
+      }
+      if (qz_extra) {  // the z faces right of the tile's last column
+        const int e = tid - HM_QZ0, i = (e + 1) * IZ + TZ;
+        qz[e * (TZ + 1) + TZ] =
+            hm_div(hm_flow(k0[i], k0[i + 1], pe0[i], pe0[i + 1]), m.qz);
+      }
+    }
+    march_wait<AH - 1>();
+    __syncthreads();
+    if (u + 2 + AH <= steps) stage(u + 2 + AH);
+    march_commit();
+    T qxl[CPT];
+#pragma unroll
+    for (int n = 0; n < CPT; ++n) {
+      qxl[n] = qlo[n];
+      qlo[n] = qhi[n];
+    }
+    if (t < xa) continue;
+
+    // The update of the own cells of plane t (hm3d.cuh's cell), their
+    // targets, the band halo.
+    const bool fx0 = HmEdges::frozen(c, 0, b[0], t);
+    const long long op = (long long)(b[0] * m.rows[0] + t - m.first[0]) *
+                         opsize;
+    const long long sp = ((long long)b[0] * s0 + t) * psize;
+#pragma unroll
+    for (int n = 0; n < CPT; ++n) {
+      if (!mine[n]) continue;
+      const int i = io[n], oa = tid / TZ + n * NR;
+      const T pe = pe0[i], ph = ph0[i];
+      T pn = pe, fn = ph;
+      if (inner[n]) {
+        const T dqx = qhi[n] - qxl[n];
+        const T dqy = qy[(oa + 1) * TZ + oc] - qy[oa * TZ + oc];
+        const T dqz = qz[oa * (TZ + 1) + oc + 1] - qz[oa * (TZ + 1) + oc];
+        const T pp = pe * ph;
+        HmBatch<T> D;
+        T a = D(dqx, m.qx), ay = D(dqy, m.qy), az = D(dqz, m.qz),
+          ae = D(pp, m.qe);
+        if (!D.ok) {
+          a = hm_div(dqx, m.qx);
+          ay = hm_div(dqy, m.qy);
+          az = hm_div(dqz, m.qz);
+          ae = hm_div(pp, m.qe);
+        }
+        T divq = a;
+        divq = divq + ay;
+        divq = divq + az;
+        const T dpe = m.dt * (-divq - ae);
+        pn = pe + dpe;
+        const T dph = m.dt * hm_div((-ph * (T(1) - ph)) * pn, m.qe);
+        fn = ph + dph;
+      }
+      if (simple[n]) {
+        const bool fr = fx0 || fyz[n];
+        m.out[0][op + ino[n]] = fr ? ld(m.F[0] + sp + ins[n]) : pn;
+        m.out[1][op + ino[n]] = fr ? ld(m.F[1] + sp + ins[n]) : fn;
+        continue;
+      }
+      int tgy[3], tgz[3];
+      const int ny =
+          hm_targets(j[n], wy, m.first[1], m.rows[1], s1, m.ol[1], tgy);
+      const int nz = hm_targets(k, wz, m.first[2], m.rows[2], s2, m.ol[2], tgz);
+#pragma unroll 1
+      for (int a = 0; a < ny * nz; ++a) {
+        const int yt = tgy[a / nz], zt = tgz[a % nz];
+        const int ya = yt + m.first[1];
+        const bool fz = HmEdges::frozen(c, 2, b[2], zt + m.first[2]);
+        const long long o = op + hm_at(m.rows, OG, tb, 0, yt, zt) -
+                            (long long)b[0] * m.rows[0] * opsize;
+        if (fz || HmEdges::frozen(c, 1, b[1], ya) || fx0) {
+          const long long q = sp +
+                              (b[1] * s1 + (fz ? ya : j[n])) *
+                                  (long long)g.G[2] +
+                              b[2] * s2 + k;
+          m.out[0][o] = ld(m.F[0] + q);
+          m.out[1][o] = ld(m.F[1] + q);
+        } else {
+          m.out[0][o] = pn;
+          m.out[1][o] = fn;
+        }
+      }
+    }
+  }
+}
+
+template <typename T>
+size_t hm_march_smem_bytes() {
+  return sizeof(T) * (size_t)HM_ELEMS;
+}
+
+// Launch one banded iteration: thread blocks of HM_NT threads over (z
+// tiles, y tiles, x segments) of every block.
+template <typename T>
+int launch_hm_march(HmArgs<T> m, cudaStream_t stream) {
+  const Geo& g = m.c.geo;
+  m.ty = (m.rows[1] + HM_TY - 1) / HM_TY;
+  m.tz = (m.rows[2] + HM_TZ - 1) / HM_TZ;
+  const int rows = m.rows[0];
+  const long long tiles = (long long)m.ty * m.tz * g.n[0] * g.n[1] * g.n[2];
+  long long nseg = (HM_BLOCKS + tiles - 1) / tiles;
+  const long long most = rows / HM_MIN_SEG > 1 ? rows / HM_MIN_SEG : 1;
+  if (nseg > most) nseg = most;
+  m.seg = (int)((rows + nseg - 1) / nseg);
+  m.nseg = (rows + m.seg - 1) / m.seg;
+  const long long gx = (long long)m.tz * g.n[2], gy = (long long)m.ty * g.n[1];
+  const long long gz = (long long)m.nseg * g.n[0];
+  if (gx > 0x7fffffffLL || gy > 65535 || gz > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  if ((long long)g.G[1] * g.G[2] > 0x7fffffffLL)  // 32-bit in-plane offsets
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = hm_march_smem_bytes<T>();
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        hm_march_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);
+  hm_march_kernel<T><<<grid, HM_NT, bytes, stream>>>(m);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace igg

@@ -1,12 +1,14 @@
 // One iteration of the streaming banded K-step chunk over STAGGERED 3-D
-// fields, shared by the Stokes band kernel (stokes_band.cu) and the band
-// entry generated for a rank-3 igg_torch.stencil spec: one launch advances
-// every extended block of block-stacked EXTENDED buffers by one iteration of
-// every field of a policy P of the 3-D staggered walk (stagger_walk3.cuh),
-// sweeping each block in x-row bands of depth B (the function of igg/ops/
-// chunk_engine.py: _streaming_kernel and of its plain version, igg_torch/
-// ops/chunk_engine.py: banded_window_plain).  band_walk.cuh's design
-// carried to fields of their own shapes.
+// fields, the walk of the band entry generated for a rank-3
+// igg_torch.stencil spec (relax3d and the others; the Stokes band kernel
+// left it for the Stokes march's band mode, stokes_march.cuh, and its
+// first design here is kept as text in kernel_variants.py): one launch
+// advances every extended block of block-stacked EXTENDED buffers by one
+// iteration of every field of a policy P of the 3-D staggered walk
+// (stagger_walk3.cuh), sweeping each block in x-row bands of depth B (the
+// function of igg/ops/chunk_engine.py: _streaming_kernel and of its plain
+// version, igg_torch/ops/chunk_engine.py: banded_window_plain).
+// band_walk.cuh's design carried to fields of their own shapes.
 //
 // The policy adds to the staggered walk's interface:
 //   - `NS`, `staged(k)`, `restage(k, p)`: the arrays the walk stages (the

@@ -49,21 +49,6 @@ struct Stokes {
     return f >= 1;
   }
 
-  // The arrays the band walk stages (stagger_band_walk3.cuh): P, Vx, Vy,
-  // Vz, then Rho (laid out like P); every value `cells` reads lies within
-  // one cell of its cell along each dim.
-  static constexpr int NS = 5;
-  static constexpr int RADIUS = 1;
-  __device__ __forceinline__ const T* staged(int k) const {
-    return k < 4 ? src[k] : rho;
-  }
-  __device__ __forceinline__ void restage(int k, const T* p) {
-    if (k < 4)
-      src[k] = p;
-    else
-      rho = p;
-  }
-
   // x / d, an IEEE division: every division of the update is by a spacing
   // or by 3.
   __device__ __forceinline__ T quot(T x, T d) const { return x / d; }

@@ -64,7 +64,7 @@ int launch(void* const* src, void* const* F, const void* rho,
   m.dtP = (T)coef[5];
   m.dtV = (T)coef[6];
   m.g = g;
-  return igg::launch_march(m, stream);
+  return igg::launch_march<false>(m, stream);
 }
 
 __device__ __forceinline__ float from_bits(unsigned u) {

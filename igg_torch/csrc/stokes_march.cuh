@@ -1,4 +1,5 @@
-// The walk of the Stokes chunk step (stokes_chunk.cu): an x-march of each
+// The walk of the Stokes chunk step (stokes_chunk.cu) and, in its band
+// mode, of the Stokes band step (stokes_band.cu): an x-march of each
 // thread block over a (y, z) tile of one extended block, the planes it
 // needs staged in shared memory, every quotient of the update formed once.
 //
@@ -11,8 +12,23 @@
 // each operation rounded as the plain version rounds it (-fmad=false; the
 // divisions of const_div.cuh, bitwise `x / d`).  Of stokes.cuh it takes
 // only the fields' staggers and freezes (`Stokes::st`, `freezes`): the
-// step and band kernels keep its `cells` and its IEEE divisions, so that
-// their code and timing stay as they are.
+// step kernel keeps its `cells` and its IEEE divisions, so that its code
+// and timing stay as they are.
+//
+// The band mode (BAND; chunk_engine.banded_window_plain with
+// stokes_trapezoid.band_update, whose bands do not change the function):
+//   - each staged plane index is clamped to its field's own first and last
+//     rows of the block (Vx has s0 + 1), the band walk's rolling window,
+//     and every row of the block is updated (its clamped neighbours make
+//     each row interior along x);
+//   - the velocities freeze on exactly the freeze rows lo and hi + st(f, d)
+//     of open dims, resolved in band_halo's order (z, then y, then x):
+//     march_put_wrapped takes F at the source's row of a y wrap, not the
+//     target's, where a y or x freeze row takes the value;
+//   - Vx's tail row (x = s0, which no band covers) keeps its source value,
+//     unresolved, so every launch writes every cell of its targets;
+//   - faces outside the base block along y and z take their source value
+//     + 0, as in the chunk.
 //
 // The march.  A thread block owns the tile of source rows [y0, y0 + TY) x
 // [z0, z0 + TZ) of one block (TY x TZ = 8 x 32 cells, one a thread) and
@@ -66,6 +82,7 @@
 // one plane early to form the quantities of plane xa - 1 and x-face xa.
 #pragma once
 
+#include "async_copy.cuh"
 #include "const_div.cuh"
 #include "stokes.cuh"
 
@@ -124,36 +141,6 @@ struct MarchArgs {
   int ty, tz;       // tiles of a block along y and z
   int nseg, seg;    // x segments of a block, rows of a segment
 };
-
-// An asynchronous 4- or 8-byte copy into shared memory (cp.async, sm_80+)
-// of *src, or of a zero where `valid` is false (src is then not read, but
-// is an address inside the field); a plain copy where the source is
-// compiled for the CPU.
-template <typename T>
-__device__ __forceinline__ void march_copy(T* dst, const T* src, bool valid) {
-#if defined(__CUDA_ARCH__)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-               "l"(src), "n"(int(sizeof(T))),
-               "r"(valid ? int(sizeof(T)) : 0));
-#else
-  *dst = valid ? *src : T(0);
-#endif
-}
-
-__device__ __forceinline__ void march_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::);
-#endif
-}
-
-// Wait until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void march_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
 
 // Layout of field f (4: Rho) in y and z: 0 like P, 1 Vy's, 2 Vz's.
 __host__ __device__ constexpr int march_lay(int f) {
@@ -264,6 +251,17 @@ __device__ __forceinline__ long long march_inplane(const int* e, const int* n,
          (long long)b2 * w2 + k;
 }
 
+// Whether row c of block bl along d is one of field f's freeze rows of
+// the band walk: exactly lo and hi + st(f, d) (the chunk's are every row
+// from them outward: frozen3).
+__device__ __forceinline__ bool march_band_row(const Stag3& g, int f, int d,
+                                               int bl, int c) {
+  return f >= 1 && g.frz[d] &&
+         ((bl == 0 && c == g.lo[d]) ||
+          (bl == g.n[d] - 1 && c == g.hi[d] + MarchLayout::st(f, d)));
+}
+
+template <bool BAND>
 __device__ __forceinline__ MarchOwn march_own(const Stag3& g, const int* b,
                                               int j, int k) {
   MarchOwn w;
@@ -293,15 +291,19 @@ __device__ __forceinline__ MarchOwn march_own(const Stag3& g, const int* b,
     const bool okz = g.wrap[2] ? k >= 1 && k <= g.s[2] + sz - 2
                                : tz[L] >= 0 && tz[L] < g.o[2] + sz;
     if (oky && okz) w.has |= 1u << f;
-    // The y and z terms of frozen3 (x is taken per plane).
+    // The y and z terms of frozen3 (x is taken per plane; the band walk's
+    // exact rows in band mode).
     const int c[3] = {0, j, k};
     bool fr = false;
 #pragma unroll
     for (int d = 1; d < 3; ++d)
-      fr = fr || (f >= 1 && g.frz[d] &&
-                  ((b[d] == 0 && c[d] <= g.lo[d]) ||
-                   (b[d] == g.n[d] - 1 &&
-                    c[d] >= g.hi[d] + MarchLayout::st(f, d))));
+      if constexpr (BAND)
+        fr = fr || march_band_row(g, f, d, b[d], c[d]);
+      else
+        fr = fr || (f >= 1 && g.frz[d] &&
+                    ((b[d] == 0 && c[d] <= g.lo[d]) ||
+                     (b[d] == g.n[d] - 1 &&
+                      c[d] >= g.hi[d] + MarchLayout::st(f, d))));
     if (fr) w.fyz |= 1u << f;
   }
   return w;
@@ -323,7 +325,7 @@ struct MarchPlane {
   unsigned fx;  // bit f: field f's plane t re-freezes on x
 };
 
-template <typename T>
+template <bool BAND, typename T>
 __device__ __forceinline__ MarchPlane<T> march_plane(const MarchArgs<T>& m,
                                                      const int* b, int t) {
   const Stag3& g = m.g;
@@ -338,10 +340,13 @@ __device__ __forceinline__ MarchPlane<T> march_plane(const MarchArgs<T>& m,
                    : nullptr;
     p.F[f] = m.F[f] + ((long long)b[0] * (g.s[0] + sx) + t) *
                           march_plane_size(g.s, g.n, L);
-    if (f >= 1 && g.frz[0] &&
-        ((b[0] == 0 && t <= g.lo[0]) ||
-         (b[0] == g.n[0] - 1 && t >= g.hi[0] + sx)))
+    if constexpr (BAND) {
+      if (march_band_row(g, f, 0, b[0], t)) p.fx |= 1u << f;
+    } else if (f >= 1 && g.frz[0] &&
+               ((b[0] == 0 && t <= g.lo[0]) ||
+                (b[0] == g.n[0] - 1 && t >= g.hi[0] + sx))) {
       p.fx |= 1u << f;
+    }
   }
   return p;
 }
@@ -360,8 +365,12 @@ __device__ __forceinline__ A march_pick(const A* a, int f) {
 // The four fields' values v at source plane t of a cell (j, k) on a wrap's
 // edge or alias rows, to each of their targets.  Few threads take it: one
 // loop over the fields, not unrolled, keeps its code small in the march's
-// loop.
-template <typename T>
+// loop.  The chunk freezes a target where frozen3 takes it, from F at the
+// target; the band walk (BAND) resolves z, then y, then x (band_halo's
+// order, later dims winning): a target on a z freeze row takes F there, on
+// a y or x freeze row F at the source's z (the z wrap having moved the
+// value along z first), on an x freeze row F at the source cell.
+template <bool BAND, typename T>
 __device__ __forceinline__ void march_put_wrapped(const MarchArgs<T>& m,
                                                   const int* b,
                                                   const MarchOwn& w,
@@ -390,9 +399,16 @@ __device__ __forceinline__ void march_put_wrapped(const MarchArgs<T>& m,
       const int yt = ty[a / nz], zt = tz[a % nz];
       const int at[3] = {t, yt + g.off[1], zt + g.off[2]};
       T u = val;
-      if (frozen3<MarchLayout>(g, f, b, at))
+      if constexpr (BAND) {
+        const bool fz = march_band_row(g, f, 2, b[2], at[2]);
+        if (fz || march_band_row(g, f, 1, b[1], at[1]) ||
+            march_band_row(g, f, 0, b[0], t))
+          u = ld(F + at3(g.s, g.n, sx, sy, sz, b[0], t, b[1],
+                         fz ? at[1] : w.j, b[2], w.k));
+      } else if (frozen3<MarchLayout>(g, f, b, at)) {
         u = ld(F + at3(g.s, g.n, sx, sy, sz, b[0], at[0], b[1], at[1], b[2],
                        at[2]));
+      }
       base[at3(g.o, g.n, sx, sy, sz, b[0], t - g.off[0], b[1], yt, b[2],
                zt)] = u;
     }
@@ -410,7 +426,10 @@ __device__ __forceinline__ void march_put(const MarchOwn& w,
   p.out[f][w.out[march_lay(f)]] = v;
 }
 
-template <typename T>
+// The march of one thread block: the chunk step, or one banded iteration
+// (BAND: the module note's band mode; the profiler names it
+// stokes_march_kernel<T, true>).
+template <typename T, bool BAND>
 __global__ void __launch_bounds__(MARCH_NT, sizeof(T) == 4
                                                 ? MARCH_MIN_BLOCKS_F32
                                                 : MARCH_MIN_BLOCKS_F64)
@@ -463,16 +482,27 @@ __global__ void __launch_bounds__(MARCH_NT, sizeof(T) == 4
 #pragma unroll
   for (int n = 0; n < MARCH_CPT; ++n) {
     const int e = tid + n * NT;
-    own[n] = march_own(g, b, y0 + e / TZ, z0 + e % TZ);
+    own[n] = march_own<BAND>(g, b, y0 + e / TZ, z0 + e % TZ);
   }
 
   // Plane p of a field of layout L and x extent e0 of the thread block's
-  // block (a plane outside the field is staged as zeros).
+  // block (a plane outside the field is staged as zeros by the chunk, as
+  // the block's first or last plane of that field by the band walk).
   auto plane_of = [&](const T* f, int L, int e0, int p) {
     return f + ((long long)b[0] * e0 + p) * march_plane_size(g.s, g.n, L);
   };
   auto stage_v = [&](int i) {
     const int p = xa - 1 + i, slot = i % VR;
+    if constexpr (BAND) {
+      const int px = march_clamp(p, 0, s0), pc = march_clamp(p, 0, s0 - 1);
+      st.template stage<0>(m.src[1], plane_of(m.src[1], 0, s0 + 1, px),
+                           true, vring + (0 * VR + slot) * IN);
+      st.template stage<1>(m.src[2], plane_of(m.src[2], 1, s0, pc), true,
+                           vring + (1 * VR + slot) * IN);
+      st.template stage<2>(m.src[3], plane_of(m.src[3], 2, s0, pc), true,
+                           vring + (2 * VR + slot) * IN);
+      return;
+    }
     const bool in = p >= 0 && p < s0;
     st.template stage<0>(m.src[1], plane_of(m.src[1], 0, s0 + 1, p),
                          p >= 0 && p <= s0, vring + (0 * VR + slot) * IN);
@@ -482,8 +512,9 @@ __global__ void __launch_bounds__(MARCH_NT, sizeof(T) == 4
                          vring + (2 * VR + slot) * IN);
   };
   auto stage_p = [&](int i) {
-    const int p = xa - 1 + i, slot = i % PR;
-    const bool in = p >= 0 && p < s0;
+    const int q = xa - 1 + i, slot = i % PR;
+    const int p = BAND ? march_clamp(q, 0, s0 - 1) : q;
+    const bool in = BAND || (p >= 0 && p < s0);
     st.template stage<0>(m.src[0], plane_of(m.src[0], 0, s0, p), in,
                          pring + slot * IN);
     st.template stage<0>(m.rho, plane_of(m.rho, 0, s0, p), in,
@@ -596,7 +627,7 @@ __global__ void __launch_bounds__(MARCH_NT, sizeof(T) == 4
     if (u + 1 + AH < steps) stage_p(u + 1 + AH);
     march_commit();
     if (t < xa) continue;
-    const MarchPlane<T> pl = march_plane(m, b, t);
+    const MarchPlane<T> pl = march_plane<BAND>(m, b, t);
 
     // The face residuals and every field's cells of plane t.
     const T* pn = pnw;
@@ -610,6 +641,16 @@ __global__ void __launch_bounds__(MARCH_NT, sizeof(T) == 4
       const MarchOwn& w = own[n];
       const int cc = (a + 1) * CZ + c + 1, ec = a * CZ + c;
       const int ic = (a + 1) * IZ + c + 1;
+      if constexpr (BAND) {
+        if (t == s0) {  // Vx's tail row: its source value, as it stands
+          const int ty = g.wrap[1] ? w.j : w.j - g.off[1];
+          const int tz = g.wrap[2] ? w.k : w.k - g.off[2];
+          if (pl.out[1] != nullptr && ty >= 0 && ty < g.o[1] && tz >= 0 &&
+              tz < g.o[2])
+            pl.out[1][w.out[0]] = vx0[ic];
+          continue;
+        }
+      }
       const T pc = pn[cc];
       // The twelve quotients of the three residuals, in batches of four
       // (at a face that is not interior they are formed and not used).
@@ -620,12 +661,14 @@ __global__ void __launch_bounds__(MARCH_NT, sizeof(T) == 4
                   m.qx, tyzw[ec + 1] - tyzw[ec], m.qz, pc - pn[cc - CZ], m.qy);
       march_quot4(r + 8, tzzw[cc] - tzzw[cc - 1], m.qz, txzw[ec] - txz[ec],
                   m.qx, tyzw[ec + CZ] - tyzw[ec], m.qy, pc - pn[cc - 1], m.qz);
+      // Faces interior along x: the chunk's, or every row of the band walk
+      // (its windows' clamped rows make each row interior).
       T vx = vx0[ic] + T(0), vy = vy0[ic] + T(0), vz = vz0[ic] + T(0);
-      if (t >= 1 && t <= s0 - 1 && (w.inner >> 0 & 1u))
+      if ((BAND || (t >= 1 && t <= s0 - 1)) && (w.inner >> 0 & 1u))
         vx = vx0[ic] + m.dtV * (((r[0] + r[1]) + r[2]) - r[3]);
-      if (t >= 1 && t <= s0 - 2 && (w.inner >> 1 & 1u))
+      if ((BAND || (t >= 1 && t <= s0 - 2)) && (w.inner >> 1 & 1u))
         vy = vy0[ic] + m.dtV * (((r[4] + r[5]) + r[6]) - r[7]);
-      if (t >= 1 && t <= s0 - 2 && (w.inner >> 2 & 1u)) {
+      if ((BAND || (t >= 1 && t <= s0 - 2)) && (w.inner >> 2 & 1u)) {
         const T rz = (((r[8] + r[9]) + r[10]) - r[11]) +
                      T(0.5) * (rr[ic] + rr[ic - 1]);
         vz = vz0[ic] + m.dtV * rz;
@@ -637,7 +680,7 @@ __global__ void __launch_bounds__(MARCH_NT, sizeof(T) == 4
         march_put(w, pl, 3, vz);
       } else {
         const T v[4] = {pc, vx, vy, vz};
-        march_put_wrapped(m, b, w, pl, t, v);
+        march_put_wrapped<BAND>(m, b, w, pl, t, v);
       }
     }
   }
@@ -648,10 +691,10 @@ size_t march_smem_bytes() {
   return sizeof(T) * (size_t)MARCH_ELEMS;
 }
 
-// Launch one chunk iteration: thread blocks of MARCH_NT threads over (z
-// tiles, y tiles, x segments) of every block; above 48 KB of shared memory
-// (float64) the kernel opts in first.
-template <typename T>
+// Launch one chunk iteration (BAND: one banded iteration): thread blocks
+// of MARCH_NT threads over (z tiles, y tiles, x segments) of every block;
+// above 48 KB of shared memory (float64) the kernel opts in first.
+template <bool BAND, typename T>
 int launch_march(MarchArgs<T> m, cudaStream_t stream) {
   const Stag3& g = m.g;
   m.ty = (g.o[1] + 1 + MARCH_TY - 1) / MARCH_TY;
@@ -677,12 +720,12 @@ int launch_march(MarchArgs<T> m, cudaStream_t stream) {
   const size_t bytes = march_smem_bytes<T>();
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        stokes_march_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
+        stokes_march_kernel<T, BAND>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
   const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);
-  stokes_march_kernel<T><<<grid, MARCH_NT, bytes, stream>>>(m);
+  stokes_march_kernel<T, BAND><<<grid, MARCH_NT, bytes, stream>>>(m);
   return (int)cudaGetLastError();
 }
 

@@ -44,11 +44,14 @@ of :func:`band_halo`.  Its shoulders differ from the window realization's
 :func:`banded_window_plain` is the plain version of the band kernels, of
 any rank; :func:`streaming_chunk_call` their launcher, which on the card
 takes 3-D fields only, as igg's compiled streaming kernel does
-(`csrc/band_walk.cuh`: diffusion and HM3D, layout :func:`band_cfg`;
-`csrc/stagger_band_walk3.cuh`: Stokes and rank-3 specs, staggered fields,
-layout :func:`stagger_band_cfg`); :func:`banded_refusal` and
+(layout :func:`band_cfg`: diffusion on `csrc/band_walk.cuh`, HM3D on its
+x-march `csrc/hm3d_march.cuh`; layout :func:`stagger_band_cfg`: Stokes on
+the Stokes march's band mode `csrc/stokes_march.cuh`, rank-3 specs on
+`csrc/stagger_band_walk3.cuh`); :func:`banded_refusal` and
 :func:`admit_banded_geometry` their gates and `igg_torch.ops._smem` their
-shared-memory budget.
+shared-memory budget (igg's gates, kept as they are: the marches walk x in
+segments of their own, so their shared memory does not depend on B, and
+the budget binds only the walks that stage a band's window).
 
 Left out, because they exist only for the TPU: transposed z slabs, the
 sublane-tile gates (`admit_sublane_extension`, the band depth's `B % 8`)
@@ -61,8 +64,9 @@ resident kernel has its counterpart in the chunk kernels of
 `csrc/chunk_walk.cuh` (diffusion and HM3D) and `csrc/stokes_chunk.cu`, the
 whole-window kernel its wave2d instance in `csrc/wave2d_chunk.cu` and its
 spec instances generated by `igg_torch.stencil.cuda`, the streaming kernel
-its diffusion and HM3D instances in `csrc/band_walk.cuh` and its Stokes
-and rank-3 spec instances in `csrc/stagger_band_walk3.cuh`.
+its diffusion instance in `csrc/band_walk.cuh`, its HM3D and Stokes
+instances in the x-marches `csrc/hm3d_march.cuh` and `csrc/stokes_march.cuh`
+and its rank-3 spec instances in `csrc/stagger_band_walk3.cuh`.
 """
 
 from __future__ import annotations
@@ -650,8 +654,9 @@ def banded_window_plain(fields, *, K: int, B: int, lo: int, modes, grid, ols,
 
 def band_cfg(ext_stacked, local, E: int, modes, grid, last: bool, *, B: int,
              lo: int, extra: int, ols):
-    """The layout the band kernels take (`make_band` in
-    `csrc/band_walk.cuh`), as a ctypes int array: :func:`chunk_cfg`, then
+    """The layout the unstaggered band kernels take (`make_band` in
+    `csrc/band_walk.cuh`, `make_hm_march` in `csrc/hm3d_march.cuh`), as a
+    ctypes int array: :func:`chunk_cfg`, then
     the band depth, the read margins below and above a band, and the wrap
     overlaps of y and z (`ols` of one field)."""
     cfg = list(chunk_cfg(ext_stacked, local, E, modes, grid, last))
@@ -662,7 +667,8 @@ def band_cfg(ext_stacked, local, E: int, modes, grid, last: bool, *, B: int,
 def stagger_band_cfg(shape, E: int, modes, dims, ols, last: bool, *,
                      B: int, lo: int, extras):
     """The layout the staggered band kernels take (`make_stag_band` in
-    `csrc/stagger_band_walk3.cuh`), as a ctypes int array: the
+    `csrc/stagger_band_walk3.cuh`, `band_layout` in `csrc/stokes_band.cu`),
+    as a ctypes int array: the
     `make_stag3` layout of :func:`stagger_cfg` (base block `shape`, margin
     `E`, the updated fields' overlaps `ols`), then the band depth, the read
     margin below a band and each staged array's margin above it, padded to
@@ -688,13 +694,14 @@ def streaming_chunk_call(exts, const_exts, *, K: int, B: int, modes, grid,
     family's band kernel: `launch(src, dst, cfg)` launches one iteration
     of the buffers `src` into `dst` with the layout `cfg` and counts it;
     K launches ping-pong two sets of buffers, the last writing the central
-    windows when `central`.  The layout is :func:`band_cfg` for the
-    unstaggered walk (`csrc/band_walk.cuh`: fields of one shape and one
-    read margin) and :func:`stagger_band_cfg` for the staggered one
-    (`staggered`: `csrc/stagger_band_walk3.cuh`, fields of the grid's
-    block staggered by 0 or 1 per dim, their y/z read `radius`), whose
-    every launch writes every cell of its targets, an x-staggered field's
-    last row from the source.  The band kernels are 3-D only; a rank, shape,
+    windows when `central`.  The layout is :func:`band_cfg` for unstaggered
+    fields (fields of one shape and one read margin) and
+    :func:`stagger_band_cfg` for staggered ones (`staggered`: fields of the
+    grid's block staggered by 0 or 1 per dim, their y/z read `radius`),
+    whose every launch writes every cell of its targets, an x-staggered
+    field's last row from the source.  The window budget checked here is
+    igg's gate (`_smem.banded_smem`), kept for every kernel, those whose
+    shared memory does not depend on B included.  The band kernels are 3-D only; a rank, shape,
     dtype or window they cannot take raises a GridError."""
     fields = list(exts) + list(const_exts)
     n_up = len(exts)

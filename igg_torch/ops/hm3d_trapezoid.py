@@ -22,8 +22,9 @@ version of a chunk, :func:`window_steps_plain`, is the port of
 The streaming banded tier (igg's `hm3d.banded`, the HM3D instance of
 `_streaming_kernel`): the same K-step chunks, each iteration swept in
 x-row bands of depth B (kernel `igg_hm3d_band_step`, csrc/hm3d_band.cu,
-one launch per iteration; plain version `chunk_engine.
-banded_window_plain` with :func:`band_update`).  igg needed it where VMEM
+one launch per iteration: the x-march of csrc/hm3d_march.cuh, x walked in
+segments of its own, since the bands do not change the function; plain
+version `chunk_engine.banded_window_plain` with :func:`band_update`).  igg needed it where VMEM
 refused the resident window; the card has no such limit, so the model
 takes it only where the resident routes refuse, or when asked
 (:func:`hm3d_banded_refusal`, :func:`fit_hm3d_band`,
@@ -180,7 +181,10 @@ def hm3d_banded_refusal(grid, shape, K: int, n_inner: int, dtype,
     `shape` at depth K and band B, or None when it can: igg's
     `hm3d_banded_supported` with its Mosaic gates dropped and float64
     admitted, an overlap-2 grid and `chunk_engine.banded_refusal` for Pe
-    and phi."""
+    and phi.  Its window budget is that of the band walk igg's kernel
+    stages; the port's kernel (the HM3D x-march) holds the same shared
+    memory at every B, and the gate stays igg's, so the tier admits what
+    igg's admits."""
     if grid.overlaps != (2, 2, 2):
         return f"grid overlaps {grid.overlaps} != (2, 2, 2)"
     return banded_refusal(grid, shape, K, n_inner, dtype, B=B)

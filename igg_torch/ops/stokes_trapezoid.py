@@ -32,12 +32,14 @@ The streaming banded tier (igg's `stokes3d.banded`,
 `fused_stokes_banded_iters`): the same extension, then K iterations of
 x-row bands of depth B, each band's window read from the previous
 iteration (`chunk_engine.streaming_chunk_call`), one launch of
-`igg_stokes_band_step` (csrc/stokes_band.cu, on
-csrc/stagger_band_walk3.cuh) an iteration.  Its plain version is
-`chunk_engine.banded_window_plain` with :func:`band_update`, the port of
-igg's `_band_update`; its gates are igg's `stokes_banded_supported`
-without the Mosaic and float32 gates, with the shared-memory budget of
-`igg_torch.ops._smem` (:func:`stokes_banded_refusal`).
+`igg_stokes_band_step` (csrc/stokes_band.cu: the Stokes march of
+csrc/stokes_march.cuh in its band mode, x walked in segments of its own,
+since the bands do not change the function) an iteration.  Its plain
+version is `chunk_engine.banded_window_plain` with :func:`band_update`,
+the port of igg's `_band_update`; its gates are igg's
+`stokes_banded_supported` without the Mosaic and float32 gates, with the
+shared-memory budget of `igg_torch.ops._smem` in place of VMEM
+(:func:`stokes_banded_refusal`).
 """
 
 from __future__ import annotations
@@ -258,7 +260,10 @@ def stokes_banded_refusal(grid, shape, K: int, n_inner: int, dtype, *,
     `EXTRAS`) without its Mosaic gates (`B % 8`, 3-D only, the sublane
     extension) and its float32 gate; float32 or float64, and the band
     window within a thread block's shared memory (`igg_torch.ops._smem`)
-    instead of VMEM."""
+    instead of VMEM.  The window is that of the band walk igg's kernel
+    stages; the port's kernel (the Stokes march in band mode) holds the
+    same shared memory at every B, and the gate stays igg's, so the tier
+    admits what igg's admits."""
     why = admit_chunk_common(grid, K, n_inner)
     if why is not None:
         return why

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Time variants of the port's CUDA sources side by side on one NVIDIA card.
 
-    python3 kernel_variants.py [VARIANT ...] [case:SUBSTRING ...]
+    python3 kernel_variants.py [VARIANT ...] [sources:DIR ...]
+                               [case:SUBSTRING ...]
 
 Each variant is the sources of `igg_torch/csrc` (and the source generated
 for the rank-3 spec `relax3d`) with one text edit or one extra `nvcc`
@@ -9,9 +10,14 @@ flag, built into a directory of its own under `_build`.  The wrappers of
 `igg_torch.ops` and `igg_torch.stencil.lower` are pointed at each
 variant's libraries in turn and the kernels are timed with CUDA events at
 the main path's shapes; the variants run in the order A B .. B A, so drift
-on the card shows.  Named variants run beside `as_built` only; a
-`case:SUBSTRING` argument keeps the cases whose name contains it.  The
-variants are the design choices the sources record:
+on the card shows.  Named variants run beside `as_built` only, each on
+the cases whose library its edit changes (its source or a header it
+includes): a variant is never timed on sources it leaves as they are,
+and an edit that matches no source raises.  `sources:DIR` is a variant
+too: the `igg_torch/csrc` of another checkout at DIR (say, the parent
+commit's, unpacked with `git archive`) as it stands, every library built
+and timed.  A `case:SUBSTRING` argument keeps the cases whose name
+contains it.  The variants are the design choices the sources record:
 
 - `as_built`: the sources as they are;
 - `ldg_loads`: the walk's loads through the read-only path (`__ldg`);
@@ -28,23 +34,24 @@ variants are the design choices the sources record:
 - `stokes_bounds_3`: the Stokes step kernel bounded to 85 registers a
   thread (`__launch_bounds__(256, 3)`), so three thread blocks fit on an
   SM;
-- `stokes_zero_quot`: the divisions of `stokes.cuh` (the Stokes step and
-  band kernels) skipped where the dividend is zero (`0 / d` is that zero
+- `stokes_zero_quot`: the divisions of `stokes.cuh` (the Stokes step
+  kernel) skipped where the dividend is zero (`0 / d` is that zero
   for a positive d, bitwise), which the IEEE division's checks otherwise
   send down its slow path;
 - `stokes_x_fastest`: the Stokes step kernel's thread blocks ordered x
   row first (gridDim.x over the x rows, gridDim.z over the z tiles), so
   the blocks in flight together share their neighbour rows along x;
-- the Stokes chunk kernel's x-march (`stokes_march.cuh`,
-  `const_div.cuh`):
+- the Stokes chunk and band kernels' x-march (`stokes_march.cuh`,
+  `const_div.cuh`; the division variants reach the HM3D band march too):
   - `march_div_ieee` divides by `x / d` throughout, `march_div_vote` by
     a warp-uniform test (`x / d` unless a lane divides a zero, which then
     takes its signed zero) instead of the reciprocal path,
     `march_div_mul` by the reciprocal alone (not bitwise, never shipped:
     what the corrections cost);
-  - `march_sync_staging` stages its planes with plain loads and stores
-    instead of `cp.async` (TMA is no option: a tensor map needs row
-    strides of whole 16 bytes, and Vz's rows are s2 + 1 cells);
+  - `march_sync_staging` stages the marches' planes (Stokes and HM3D,
+    `async_copy.cuh`) with plain loads and stores instead of `cp.async`
+    (TMA is no option: a tensor map needs row strides of whole 16 bytes,
+    and Vz's rows are s2 + 1 cells);
     `march_ahead_2` stages each plane a step earlier (rings one plane
     deeper);
   - `march_tile_8x64`, `march_tile_16x32` and `march_tile_4x64`: (y, z)
@@ -57,17 +64,32 @@ variants are the design choices the sources record:
     cut it until a launch has that many thread blocks (8192 as built);
 - `pack_threads_128`: the plane packer in thread blocks of 128 threads
   (128 (x, y) rows a z block) instead of 256;
-- `first_designs`: the Stokes chunk step and the plane packer as they were
-  before their redesign (the Stokes walk's 2-cell runs, a request per
-  blockIdx.y), rebuilt from the text kept here;
-- `band_row_staging`: the staggered band walk staging its windows a warp
+- the HM3D band kernel's x-march (`hm3d_march.cuh`): `hm_div_ieee`
+  divides by `x / d` throughout; `hm_ahead_2` and `hm_ahead_3` stage each
+  plane one or two steps earlier (rings as much deeper), and
+  `hm_ahead_2_bounds_f32_6` also bounds float32 registers for 6 thread
+  blocks an SM; `hm_tile_8x32`, `hm_tile_4x64` (a cell a thread),
+  `hm_tile_16x32`, `hm_tile_32x16` and `hm_tile_8x64` (two cells a
+  thread, along y): (y, z) tiles other than 16 x 16; `hm_blocks_2048`,
+  `hm_blocks_32768` and `hm_no_segments`: segments cut until a launch has
+  that many thread blocks (8192 as built) or none; `hm_bounds_f32_3`,
+  `_f32_6`, `_f64_2` and `_f64_4`: registers bounded for other numbers of
+  thread blocks an SM (4 in float32 and 3 in float64 as built);
+- `first_designs`: the kernels redesigned since as they were before:
+  the Stokes chunk step (the Stokes walk's 2-cell runs), the plane packer
+  (a request per blockIdx.y), the Stokes band step (a thread block per
+  band and tile on `stagger_band_walk3.cuh`, stokes.cuh's one-cell
+  update) and the HM3D band step (the same on `band_walk.cuh` with
+  hm3d.cuh's), rebuilt from the text kept here (`FIRST_DESIGNS`);
+- `band_row_staging`: the staggered band walk (now the generated rank-3
+  band entries' only) staging its windows a warp
   per (x, y) row of a window, the row's offset formed once, its lanes
   along z, instead of one element a thread with two integer divisions and
   a 64-bit offset per element;
-- `band_bounds_1`: the staggered band kernels without their float32
-  register bound (`__launch_bounds__(256)` instead of `(256, 2)`): the
-  first design, one thread block an SM (the Stokes one takes 156
-  registers a thread).
+- `band_bounds_1`: the staggered band walk without its float32 register
+  bound (`__launch_bounds__(256)` instead of `(256, 2)`): one thread
+  block an SM (the Stokes band kernel's first design took 156 registers a
+  thread on it).
 
 Prints one JSON line per variant (milliseconds per launch, each a list of
 the two runs; CUDA events, or for the packer the profiler's device time),
@@ -80,6 +102,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -125,18 +148,26 @@ VEC8 = "P, 8 / sizeof(typename P::T)>"
 QUOT = "{ return x / d; }"
 
 
-def stokes_edit(*edits):
-    """Edits `(file, old, new)` of the Stokes kernels' sources
-    (stagger_walk3.cuh, stokes.cuh)."""
-    def edit(name, text):
-        for f, old, new in edits:
+class stokes_edit:
+    """Edits `(file, old, new)` of the kernels' sources, each of which must
+    match its file's text exactly once (`build` raises for an edit whose
+    file is missing: a stale edit fails, it never times the sources as
+    they are under its name)."""
+
+    def __init__(self, *edits):
+        self.edits = edits
+
+    def __call__(self, name, text):
+        for f, old, new in self.edits:
             if name != f:
                 continue
             if text.count(old) != 1:
                 raise RuntimeError(f"{f} no longer has {old!r}")
             text = text.replace(old, new)
         return text
-    return edit
+
+    def files(self):
+        return {f for f, _, _ in self.edits}
 
 
 def walk(old, new):
@@ -276,9 +307,96 @@ extern "C" int igg_pack_planes(const void* A, int elem_size, const int* cfg,
 """
 
 
+# The band kernels' first designs: a thread block per band and (y, z) tile
+# staging each array's window of the band's rows, the policy's one-cell
+# update run on it (the Stokes band step on stagger_band_walk3.cuh with
+# stokes.cuh, the HM3D one on band_walk.cuh with hm3d.cuh), each policy
+# given here the arrays the walk stages.
+STOKES_BAND_FIRST = """#include "stagger_band_walk3.cuh"
+#include "stokes.cuh"
+namespace {
+// The arrays the band walk stages: P, Vx, Vy, Vz, then Rho (laid out like
+// P); every value `cells` reads lies within one cell of its cell.
+template <typename T>
+struct StokesBand : igg::Stokes<T> {
+  static constexpr int NS = 5;
+  static constexpr int RADIUS = 1;
+  __device__ __forceinline__ const T* staged(int k) const {
+    return k < 4 ? this->src[k] : this->rho;
+  }
+  __device__ __forceinline__ void restage(int k, const T* p) {
+    if (k < 4)
+      this->src[k] = p;
+    else
+      this->rho = p;
+  }
+};
+template <typename T>
+int launch(void* const* src, void* const* F, const void* rho,
+           void* const* out, const int* cfg, const double* coef,
+           cudaStream_t stream) {
+  igg::StagBand b;
+  if (!igg::make_stag_band<StokesBand<T>>(cfg, b))
+    return (int)cudaErrorInvalidValue;
+  return igg::launch_stag_band(
+      StokesBand<T>{igg::make_stokes<T>(src, rho, coef)}, b,
+      igg::stokes_entry<T>(F), igg::stokes_out<T>(out), stream);
+}
+}  // namespace
+extern "C" int igg_stokes_band_step(void* const* src, void* const* F,
+                                    const void* rho, void* const* out,
+                                    int dtype, const int* cfg,
+                                    const double* coef, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(src, F, rho, out, cfg, coef, st);
+  if (dtype == 1) return launch<double>(src, F, rho, out, cfg, coef, st);
+  return (int)cudaErrorInvalidValue;
+}
+"""
+HM3D_BAND_FIRST = """#include "band_walk.cuh"
+#include "hm3d.cuh"
+namespace {
+// The arrays the band walk stages: Pe, phi.
+template <typename T>
+struct Hm3dBand : igg::Hm3d<T> {
+  static constexpr int NS = 2;
+  __device__ __forceinline__ const T* staged(int k) const {
+    return this->src[k];
+  }
+  __device__ __forceinline__ void restage(int k, const T* p) {
+    this->src[k] = p;
+  }
+};
+template <typename T>
+int launch(void* const* src, void* const* F, void* const* out,
+           const igg::Band& b, const double* coef, int npow,
+           cudaStream_t stream) {
+  return igg::launch_band(
+      Hm3dBand<T>{igg::make_hm3d<T>(src[0], src[1], coef, npow)}, b,
+      igg::Fields<const T, 2>{
+          {static_cast<const T*>(F[0]), static_cast<const T*>(F[1])}},
+      igg::Fields<T, 2>{{static_cast<T*>(out[0]), static_cast<T*>(out[1])}},
+      stream);
+}
+}  // namespace
+extern "C" int igg_hm3d_band_step(void* const* src, void* const* F,
+                                  void* const* out, int dtype, const int* cfg,
+                                  const double* coef, int npow, void* stream) {
+  igg::Band b;
+  if (!igg::make_band(cfg, b) || npow < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(src, F, out, b, coef, npow, st);
+  if (dtype == 1) return launch<double>(src, F, out, b, coef, npow, st);
+  return (int)cudaErrorInvalidValue;
+}
+"""
+FIRST_DESIGNS = {"stokes_chunk.cu": CHUNK_FIRST, "pack_planes.cu": PACK_FIRST,
+                 "stokes_band.cu": STOKES_BAND_FIRST,
+                 "hm3d_band.cu": HM3D_BAND_FIRST}
+
+
 def first_design(name, text):
-    return {"stokes_chunk.cu": CHUNK_FIRST,
-            "pack_planes.cu": PACK_FIRST}.get(name, text)
+    return FIRST_DESIGNS.get(name, text)
 
 
 def march(old, new):
@@ -306,15 +424,39 @@ def march_div(cdiv_body):
 
 
 def march_plain_staging(name, text):
-    """The march's staging with plain loads and stores: the cp.async
+    """The marches' staging with plain loads and stores: the cp.async
     helpers take their CPU form."""
-    if name != "stokes_march.cuh":
+    if name != "async_copy.cuh":
         return text
     guard = "#if defined(__CUDA_ARCH__)\n"
     if text.count(guard) != 3:
-        raise RuntimeError("stokes_march.cuh no longer has its three "
+        raise RuntimeError("async_copy.cuh no longer has its three "
                            "cp.async guards")
     return text.replace(guard, "#if 0\n")
+
+
+def hm(old, new):
+    return ("hm3d_march.cuh", old, new)
+
+
+def hm_tile(ty, tz):
+    return stokes_edit(
+        hm("constexpr int HM_TY = 16; ", f"constexpr int HM_TY = {ty}; "),
+        hm("constexpr int HM_TZ = 16; ", f"constexpr int HM_TZ = {tz}; "))
+
+
+def hm_const(name, old, new):
+    return stokes_edit(hm(f"constexpr int {name} = {old};",
+                          f"constexpr int {name} = {new};"))
+
+
+# The HM3D march's divisions by `x / d` (its own, not the Stokes ones').
+HM_DIV_IEEE = stokes_edit(
+    hm("  return cdiv(x, q);\n}", "  return x / q.d;\n}"),
+    hm("using HmBatch = DivBatch<T>;",
+       "struct HmBatch {\n  bool ok = true;\n"
+       "  __device__ __forceinline__ T operator()(T x, const ConstDiv<T>& q) "
+       "{\n    return x / q.d;\n  }\n};"))
 
 
 VARIANTS = {
@@ -377,6 +519,25 @@ VARIANTS = {
     "march_bounds_f64_3": (stokes_edit(march(
         "MARCH_MIN_BLOCKS_F64 = 2;", "MARCH_MIN_BLOCKS_F64 = 3;")), []),
     "first_designs": (first_design, []),
+    "hm_div_ieee": (HM_DIV_IEEE, []),
+    "hm_ahead_2": (hm_const("HM_AHEAD", 1, 2), []),
+    "hm_ahead_3": (hm_const("HM_AHEAD", 1, 3), []),
+    "hm_ahead_2_bounds_f32_6": (stokes_edit(
+        hm("constexpr int HM_AHEAD = 1;", "constexpr int HM_AHEAD = 2;"),
+        hm("constexpr int HM_MIN_BLOCKS_F32 = 4;",
+           "constexpr int HM_MIN_BLOCKS_F32 = 6;")), []),
+    "hm_tile_8x32": (hm_tile(8, 32), []),
+    "hm_tile_4x64": (hm_tile(4, 64), []),
+    "hm_tile_16x32": (hm_tile(16, 32), []),
+    "hm_tile_32x16": (hm_tile(32, 16), []),
+    "hm_tile_8x64": (hm_tile(8, 64), []),
+    "hm_blocks_2048": (hm_const("HM_BLOCKS", 8192, 2048), []),
+    "hm_blocks_32768": (hm_const("HM_BLOCKS", 8192, 32768), []),
+    "hm_no_segments": (hm_const("HM_BLOCKS", 8192, 1), []),
+    "hm_bounds_f32_3": (hm_const("HM_MIN_BLOCKS_F32", 4, 3), []),
+    "hm_bounds_f32_6": (hm_const("HM_MIN_BLOCKS_F32", 4, 6), []),
+    "hm_bounds_f64_2": (hm_const("HM_MIN_BLOCKS_F64", 3, 2), []),
+    "hm_bounds_f64_4": (hm_const("HM_MIN_BLOCKS_F64", 3, 4), []),
     "march_no_segments": (stokes_edit(march(
         "constexpr int MARCH_BLOCKS = 8192; ",
         "constexpr int MARCH_BLOCKS = 1; ")), []),
@@ -384,9 +545,25 @@ VARIANTS = {
         "pack_planes.cu", "constexpr int kThreads = 256;",
         "constexpr int kThreads = 128;")), []),
 }
+# The libraries a variant means to change, where the headers its edit
+# touches reach more of them than its kernels (`RELAX3D`: the generated
+# library of relax3d); the others change every library whose sources
+# include an edited file.  `build` raises where a named library's sources
+# do not.
+RELAX3D = "relax3d"
+MARCH = ("stokes_chunk", "stokes_band")
+TARGETS = {v: MARCH for v in VARIANTS if v.startswith("march_")}
+TARGETS.update(
+    {v: ("stokes_step",) for v in ("stokes_vec_16B", "stokes_bounds_3",
+                                   "stokes_zero_quot", "stokes_x_fastest")},
+    vec_8B=("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk"),
+    band_row_staging=(RELAX3D,), band_bounds_1=(RELAX3D,),
+    **{v: MARCH + ("hm3d_band",) for v in ("march_div_ieee", "march_div_vote",
+                                           "march_div_mul",
+                                           "march_sync_staging")})
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
         "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
-        "stokes_band", "pack_planes")
+        "stokes_band", "pack_planes", "diffusion_band", "hm3d_band")
 # The generated library of this spec case is built per variant too.
 GENERATED = "relax3d"
 
@@ -398,28 +575,85 @@ def relax3d_kernels():
     return torch_spec_cases.kernels(GENERATED)
 
 
-def build(variant):
-    """Build the variant's libraries; returns {library name: CDLL}."""
+INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
+
+
+def affected(texts, changed):
+    """The libraries (names of the `.cu` sources in `texts`) whose source
+    or headers, followed through their `#include "..."` lines, are among
+    the file names `changed`."""
+    def reach(f, seen):
+        if f in seen or f not in texts:
+            return seen
+        seen.add(f)
+        for h in INCLUDE.findall(texts[f]):
+            reach(h, seen)
+        return seen
+
+    return {f[:-len(".cu")] for f in texts if f.endswith(".cu")
+            and reach(f, set()) & changed}
+
+
+def variant_sources(variant):
+    """The variant's edit and flags, and the directory its sources come
+    from: `sources:DIR` takes the `igg_torch/csrc` of another checkout at
+    DIR (say, the parent commit's) as it stands."""
     from igg_torch.ops import _build
 
+    if variant.startswith("sources:"):
+        return ((lambda name, text: text), [],
+                os.path.join(variant[len("sources:"):], "igg_torch", "csrc"))
     edit, flags = VARIANTS[variant]
-    out = os.path.join(_build.BUILD_DIR, f"variant_{variant}")
+    return edit, flags, _build.CSRC
+
+
+def build(variant):
+    """Build the variant's libraries; returns ({library name: CDLL}, the
+    libraries its edit or flags change).  An edit that matches no source,
+    or one of whose files is missing, raises."""
+    from igg_torch.ops import _build
+
+    edit, flags, csrc = variant_sources(variant)
+    out = os.path.join(_build.BUILD_DIR,
+                       f"variant_{variant.replace(os.sep, '_').replace(':', '_')}")
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
-    for f in os.listdir(_build.CSRC):
+    texts, changed = {}, set()
+    for f in os.listdir(csrc):
         if f.endswith((".cu", ".cuh")):
-            with open(os.path.join(_build.CSRC, f)) as src:
-                text = edit(f, src.read())
+            with open(os.path.join(csrc, f)) as src:
+                before = src.read()
+            texts[f] = edit(f, before)
+            if texts[f] != before:
+                changed.add(f)
             with open(os.path.join(out, f), "w") as dst:
-                dst.write(text)
+                dst.write(texts[f])
+    missing = sorted(getattr(edit, "files", set)() - changed)
+    if missing:
+        raise RuntimeError(f"variant {variant}: its edits of {missing} "
+                           f"match no source")
+    if variant != "as_built" and not changed and not flags and \
+            not variant.startswith("sources:"):
+        raise RuntimeError(f"variant {variant} changes no source")
     gen = relax3d_kernels()
+    texts[f"gen_{gen.tag}.cu"] = gen.source
     with open(os.path.join(out, f"gen_{gen.tag}.cu"), "w") as dst:
         dst.write(gen.source)
+    touched = (set(LIBS) | {f"gen_{gen.tag}"}
+               if flags or variant.startswith("sources:")
+               or variant == "as_built" else affected(texts, changed))
+    if variant in TARGETS:
+        named = {f"gen_{gen.tag}" if lib == RELAX3D else lib
+                 for lib in TARGETS[variant]}
+        if named - touched:
+            raise RuntimeError(f"variant {variant}: its edit no longer "
+                               f"reaches {sorted(named - touched)}")
+        touched = named
     procs = {lib: subprocess.Popen(
         [_build.nvcc(), *_build.FLAGS, *flags, "-o",
          os.path.join(out, f"{lib}.so"), os.path.join(out, f"{lib}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for lib in LIBS + (f"gen_{gen.tag}",)}
+        for lib in LIBS + (f"gen_{gen.tag}",) if lib in touched}
     libs = {}
     for lib, proc in procs.items():
         log, _ = proc.communicate()
@@ -434,7 +668,7 @@ def build(variant):
         for fn_name, argtypes in names:
             fn = getattr(libs[lib], fn_name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return libs
+    return libs, touched
 
 
 def event_ms(fn, n):
@@ -608,15 +842,24 @@ def cases(dev):
                                           ols=ols), K
         return setup
 
-    def stokes_band():
+    def stokes_band(state="random", dtype=torch.float32):
         """One K = 8 banded chunk (B = 8) of the Stokes band kernel on 2x2x2
-        open blocks of 256^3 (8 extended blocks of 288^3), random
-        fields."""
-        g = grid(dimx=2, dimy=2, dimz=2, overlapx=3, overlapy=3, overlapz=3)
-        kw = st3._pseudo_steps(st3.Params())
-        shapes = sp.field_shapes(g.nxyz)
-        *S, Rho = [2 * torch.rand(it.stacked_shape(s), device=dev) - 1
-                   for s in shapes]
+        open blocks of 256^3 (8 extended blocks of 288^3), random fields or
+        `init_fields`."""
+        def setup():
+            g = grid(dimx=2, dimy=2, dimz=2, overlapx=3, overlapy=3,
+                     overlapz=3)
+            kw = st3._pseudo_steps(st3.Params())
+            shapes = sp.field_shapes(g.nxyz)
+            if state == "random":
+                *S, Rho = [(2 * torch.rand(it.stacked_shape(s), device=dev)
+                            - 1).to(dtype) for s in shapes]
+            else:
+                *S, Rho = st3.init_fields(st3.Params(), dtype=dtype)
+            return band_of(g, kw, shapes, S, Rho)
+        return setup
+
+    def band_of(g, kw, shapes, S, Rho):
         modes = ce.dim_modes(g)
         ols = ce.field_ols(g, shapes)
         exts = ce.extend_fields(S, ols[:4], 2 * K, g, modes)
@@ -624,6 +867,39 @@ def cases(dev):
         return lambda: stz.band_call(exts, Rho_ext, shapes, K=K, B=8,
                                      modes=modes, grid=g, kw=kw,
                                      ols=ols), K
+
+    def hm3d_band(state="random", dtype=torch.float32):
+        """One K = 8 banded chunk (B = 8) of the HM3D band kernel on 2x2x2
+        periodic blocks of 256^3 (8 extended blocks of 272^3), random
+        fields or `init_fields`."""
+        def setup():
+            g = grid(dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
+            modes = ce.dim_modes(g)
+            p = h3.Params()
+            if state == "random":
+                Pe = -0.5 * torch.rand(it.stacked_shape(g.nxyz), device=dev,
+                                       dtype=dtype)
+                phi = 0.1 + 0.1 * torch.rand_like(Pe)
+            else:
+                Pe, phi = h3.init_fields(p, dtype=dtype)
+            exts = ce.extend_fields([Pe, phi], ce.field_ols(g, [g.nxyz]) * 2,
+                                    K, g, modes)
+            kw = p.step_kwargs()
+            return lambda: htz.band_call(exts, g.nxyz, K=K, B=8, modes=modes,
+                                         grid=g, kw=kw), K
+        return setup
+
+    def diffusion_band():
+        """One K = 8 banded chunk (B = 8) of the diffusion band kernel on
+        2x2x2 open blocks of 256^3."""
+        g = grid(dimx=2, dimy=2, dimz=2)
+        modes = ce.dim_modes(g)
+        T = torch.rand(it.stacked_shape(g.nxyz), device=dev)
+        Text, A_ext = ce.extend_fields([T, 0.01 * torch.rand_like(T)],
+                                       ce.field_ols(g, [g.nxyz]) * 2, K, g,
+                                       modes)
+        return lambda: dtz.band_call(Text, A_ext, g.nxyz, K=K, B=8,
+                                     modes=modes, grid=g, sc=sc), K
 
     def relax3d_band():
         """One K = 8 banded chunk (B = 8) of relax3d's generated band kernel
@@ -641,30 +917,52 @@ def cases(dev):
         return lambda: lower.band_call(gen, exts, shapes, K=K, B=8, E=E,
                                        modes=modes, grid=g, ols=ols), K
 
-    return [("diffusion_step_256", diffusion_step),
-            ("diffusion_chunk_2x2x2_256_open", diffusion_chunk),
-            ("hm3d_step_256_random", hm3d_step("random")),
-            ("hm3d_step_256_init_fields", hm3d_step("init_fields")),
-            ("hm3d_chunk_2x2x2_256_periodic", hm3d_chunk),
-            ("wave2d_step_4096", wave2d(1, False)),
-            ("wave2d_step_8x1_4096", wave2d(8, False)),
-            ("wave2d_chunk_8x1_4096_periodic", wave2d(8, True)),
-            ("stokes_step_256_periodic", stokes(False)),
+    gen = f"gen_{relax3d_kernels().tag}"
+    f64 = torch.float64
+    # (name, setup, the library whose kernel it times)
+    return [("diffusion_step_256", diffusion_step, "diffusion_step"),
+            ("diffusion_chunk_2x2x2_256_open", diffusion_chunk,
+             "diffusion_chunk"),
+            ("hm3d_step_256_random", hm3d_step("random"), "hm3d_step"),
+            ("hm3d_step_256_init_fields", hm3d_step("init_fields"),
+             "hm3d_step"),
+            ("hm3d_chunk_2x2x2_256_periodic", hm3d_chunk, "hm3d_chunk"),
+            ("wave2d_step_4096", wave2d(1, False), "wave2d_step"),
+            ("wave2d_step_8x1_4096", wave2d(8, False), "wave2d_step"),
+            ("wave2d_chunk_8x1_4096_periodic", wave2d(8, True),
+             "wave2d_chunk"),
+            ("stokes_step_256_periodic", stokes(False), "stokes_step"),
             ("stokes_step_256_periodic_init_fields",
-             stokes(False, "init_fields")),
-            ("stokes_step_288x256x256_periodic", stokes(False, nx=288)),
-            ("stokes_chunk_256_periodic", stokes(True)),
-            ("stokes_chunk_2x2x2_256_open", stokes(True, blocks=2)),
+             stokes(False, "init_fields"), "stokes_step"),
+            ("stokes_step_288x256x256_periodic", stokes(False, nx=288),
+             "stokes_step"),
+            ("stokes_chunk_256_periodic", stokes(True), "stokes_chunk"),
+            ("stokes_chunk_2x2x2_256_open", stokes(True, blocks=2),
+             "stokes_chunk"),
             ("stokes_chunk_2x2x2_256_open_init_fields",
-             stokes(True, "init_fields", blocks=2)),
+             stokes(True, "init_fields", blocks=2), "stokes_chunk"),
             ("stokes_chunk_2x2x2_256_open_f64",
-             stokes(True, blocks=2, dtype=torch.float64)),
-            ("pack_planes_2x2x2_256_f32", pack(torch.float32)),
-            ("pack_planes_2x2x2_256_f64", pack(torch.float64)),
-            ("pack_planes_2x2x2_256_f32_y_only", pack(torch.float32, (1,))),
-            ("pack_planes_2x2x2_256_f32_z_only", pack(torch.float32, (2,))),
-            ("stokes_band_2x2x2_256_open", stokes_band),
-            ("relax3d_band_256_periodic", relax3d_band)]
+             stokes(True, blocks=2, dtype=f64), "stokes_chunk"),
+            ("pack_planes_2x2x2_256_f32", pack(torch.float32),
+             "pack_planes"),
+            ("pack_planes_2x2x2_256_f64", pack(f64), "pack_planes"),
+            ("pack_planes_2x2x2_256_f32_y_only", pack(torch.float32, (1,)),
+             "pack_planes"),
+            ("pack_planes_2x2x2_256_f32_z_only", pack(torch.float32, (2,)),
+             "pack_planes"),
+            ("diffusion_band_2x2x2_256_open", diffusion_band,
+             "diffusion_band"),
+            ("hm3d_band_2x2x2_256_periodic", hm3d_band(), "hm3d_band"),
+            ("hm3d_band_2x2x2_256_periodic_init_fields",
+             hm3d_band("init_fields"), "hm3d_band"),
+            ("hm3d_band_2x2x2_256_periodic_f64", hm3d_band(dtype=f64),
+             "hm3d_band"),
+            ("stokes_band_2x2x2_256_open", stokes_band(), "stokes_band"),
+            ("stokes_band_2x2x2_256_open_init_fields",
+             stokes_band("init_fields"), "stokes_band"),
+            ("stokes_band_2x2x2_256_open_f64", stokes_band(dtype=f64),
+             "stokes_band"),
+            ("relax3d_band_256_periodic", relax3d_band, gen)]
 
 
 def main() -> int:
@@ -685,18 +983,24 @@ def main() -> int:
     named = [a for a in sys.argv[1:] if not a.startswith("case:")]
     keep = [a[len("case:"):] for a in sys.argv[1:] if a.startswith("case:")]
     for v in named:
-        if v not in VARIANTS:
+        if v not in VARIANTS and not v.startswith("sources:"):
             raise SystemExit(f"unknown variant {v!r}: {sorted(VARIANTS)}")
     variants = ["as_built"] + named if named else list(VARIANTS)
-    built = {v: build(v) for v in variants}
-    order = variants + variants[::-1]
+    built, touched = {}, {}
+    for v in variants:
+        built[v], touched[v] = build(v)
     times = {v: {} for v in variants}
     tag = relax3d_kernels().tag
-    for name, setup in cases(torch.device("cuda")):
+    for name, setup, lib in cases(torch.device("cuda")):
         if keep and not any(k in name for k in keep):
             continue
+        # A variant that leaves this case's library as built is not timed
+        # on it: its time would be the sources' as they are.
+        mine = [v for v in variants if lib in touched[v]]
+        if mine == ["as_built"]:
+            continue
         run, launches = setup()
-        for v in order:
+        for v in mine + mine[::-1]:
             for m in wrappers:
                 m.library = built[v].__getitem__
             lower.generated_library = (
@@ -707,7 +1011,8 @@ def main() -> int:
                 event_ms(run, max(2, 40 // launches)) / launches)
         del run
     for v in variants:
-        print(json.dumps({"variant": v, "ms_per_launch": times[v]}))
+        print(json.dumps({"variant": v, "ms_per_launch": times[v],
+                          "libraries": sorted(touched[v])}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())

@@ -435,6 +435,56 @@ def test_auto_takes_the_tier_where_resident_routes_refuse(monkeypatch):
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
 
+# The layouts of the band kernels' checks, as (dims, periods): the chunk
+# matrix and one periodic block (tests/test_torch_kernel_sources.py:
+# BAND_GRIDS).
+BAND_GRIDS = {
+    "ring_periodic": ((8, 1, 1), (1, 1, 1)),
+    "ring_open": ((8, 1, 1), (0, 0, 0)),
+    "2x2x2_periodic": ((2, 2, 2), (1, 1, 1)),
+    "2x2x2_periods010": ((2, 2, 2), (0, 1, 0)),
+    "2x2x2_periods101": ((2, 2, 2), (1, 0, 1)),
+    "1x2x2_open": ((1, 2, 2), (0, 0, 0)),
+    "2x1x1_wrap_y_frozen_z": ((2, 1, 1), (0, 1, 0)),
+    "1x1x1_open": ((1, 1, 1), (0, 0, 0)),
+    "1x1x1_periodic": ((1, 1, 1), (1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(BAND_GRIDS))
+def test_hm3d_banded_function_does_not_depend_on_B(case, dtype):
+    """HM3D's banded realization gives the same whole evolved buffers for
+    every band depth B dividing the extended x span (2, 4, half of it, all
+    of it): a band reads the previous iteration's values of its block,
+    padded only at the block's x ends, so the HM3D band kernel walks x in
+    segments of its own choosing."""
+    (dims, per), K, local = BAND_GRIDS[case], 2, (16, 10, 12)
+    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=dims[2], periodx=per[0],
+                        periody=per[1], periodz=per[2])
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    ols = ce.field_ols(g, [g.nxyz] * 2)
+    fields = random_fields(g, FAMILIES["hm3d"][0], 65, dtype)
+    exts = ce.extend_fields(fields, ols, K, g, modes)
+    span = ce.ext_shape(local, K, modes)[0]
+    Bs = [B for B in (2, 4, span // 2, span) if span % B == 0]
+    assert len(set(Bs)) == 4
+
+    def banded(B):
+        return ce.banded_window_plain(
+            list(exts), K=K, B=B, lo=1, modes=modes, grid=g, ols=ols,
+            shapes=[local] * 2, E=K, band_update=partial(htz.band_update,
+                                                         kw=KW),
+            extras=(1, 1), n_up=2, freeze_fields=(0, 1))
+
+    want = banded(Bs[0])
+    for B in Bs[1:]:
+        for a, b in zip(banded(B), want):
+            assert torch.equal(a, b), B
+
+
 def test_new_modules_import_neither_jax_nor_igg():
     """The banded tier's modules and `chip_smoke.py` import neither JAX
     nor anything of igg."""

@@ -511,6 +511,114 @@ def test_stagger_band_cfg_layout():
     assert len(base) == 24 + 3 * ce.MAXF
 
 
+# The layouts of the Stokes kernel checks (overlap 3), as (dims, periods):
+# igg's trapezoid matrix plus one-block grids (tests/test_torch_kernel_
+# sources.py: STOKES_GRIDS).
+STOKES_GRIDS = {
+    "ring_periodic": ((8, 1, 1), (1, 1, 1)),
+    "ring_open": ((8, 1, 1), (0, 0, 0)),
+    "2x2x2_periodic": ((2, 2, 2), (1, 1, 1)),
+    "2x2x2_open": ((2, 2, 2), (0, 0, 0)),
+    "2x2x2_periods010": ((2, 2, 2), (0, 1, 0)),
+    "4x2x1_periods101": ((4, 2, 1), (1, 0, 1)),
+    "1x1x1_periodic": ((1, 1, 1), (1, 1, 1)),
+    "1x1x1_open": ((1, 1, 1), (0, 0, 0)),
+    "1x1x1_periods101": ((1, 1, 1), (1, 0, 1)),
+}
+
+
+def stokes_port_state(case, local, dtype, seed, K):
+    """Random Stokes fields on the port's grid of layout `case`, made
+    overlap-consistent by one `update_halo` (the chunk's entry state), and
+    extended by 2K; returns the grid, the extended fields, Rho and the
+    layout."""
+    (dims, per) = STOKES_GRIDS[case]
+    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=dims[2], periodx=per[0],
+                        periody=per[1], periodz=per[2], **OL3)
+    g = it.get_global_grid()
+    rng = np.random.default_rng(seed)
+    shapes = sp.field_shapes(g.nxyz)
+    fields = it.update_halo(*[torch.from_numpy(
+        rng.uniform(-1, 1, it.stacked_shape(s))).to(dtype) for s in shapes])
+    modes = ce.dim_modes(g)
+    ols = ce.field_ols(g, shapes)
+    exts = ce.extend_fields(list(fields[:4]), ols[:4], 2 * K, g, modes)
+    Rho_ext = ce.extend_fields([fields[4]], [ols[4]], 2 * K, g, modes)[0]
+    return g, exts, Rho_ext, dict(modes=modes, ols=ols, shapes=shapes)
+
+
+def stokes_banded(g, exts, Rho_ext, lay, K, B, E):
+    """K banded iterations of the plain version on buffers extended by E,
+    whole evolved buffers."""
+    return ce.banded_window_plain(
+        list(exts) + [Rho_ext], K=K, B=B, lo=1, grid=g,
+        band_update=partial(stz.band_update, kw=KW), extras=stz.EXTRAS,
+        n_up=4, freeze_fields=stz.FREEZE_FIELDS, E=E,
+        modes=lay["modes"], ols=lay["ols"], shapes=lay["shapes"])[:4]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
+def test_stokes_banded_function_does_not_depend_on_B(case, dtype):
+    """The banded realization's whole evolved buffers are the same bits for
+    every band depth B dividing the extended x span (2, 4, half of it, all
+    of it): a band reads the previous iteration's values of its block,
+    padded only at the block's x ends, so the bands are the TPU's VMEM at
+    work and not part of the function.  The band kernel walks x in
+    segments of its own choosing on that ground."""
+    K, local = 2, (16, 10, 12)
+    g, exts, Rho_ext, lay = stokes_port_state(case, local, dtype, 61, K)
+    span = ce.ext_shape(local, 2 * K, lay["modes"])[0]
+    Bs = [B for B in (2, 4, span // 2, span) if span % B == 0]
+    assert len(set(Bs)) == 4
+    want = stokes_banded(g, exts, Rho_ext, lay, K, Bs[0], 2 * K)
+    for B in Bs[1:]:
+        same(stokes_banded(g, exts, Rho_ext, lay, K, B, 2 * K), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
+def test_stokes_band_iteration_equals_chunk_iteration_inside(case, dtype):
+    """From an overlap-consistent state, one banded iteration equals one
+    window (chunk-step) iteration on the same extended buffers everywhere
+    but at an extended block's outermost cells: P everywhere; the
+    velocities except on each block's first and last x rows (the band walk
+    clamps their neighbours to the block's rows, the chunk keeps them) and,
+    on open dims, the shoulder rows beyond the freeze rows of the edge
+    blocks (the chunk freezes every row from lo and hi outward, the band
+    walk only lo and hi).  So the band kernel is the chunk kernel's x-march
+    with those edge rules."""
+    K, local = 3, (12, 12, 36)
+    g, exts, Rho_ext, lay = stokes_port_state(case, local, dtype, 63, K)
+    modes, shapes = lay["modes"], lay["shapes"]
+    band = stokes_banded(g, exts, Rho_ext, lay, 1,
+                         ce.ext_shape(local, 2 * K, modes)[0] // 2, 2 * K)
+    win = ce.window_chunk_plain(
+        list(exts), K=1, E=2 * K, modes=modes, grid=g,
+        core=stz.window_core(g, Rho_ext, KW),
+        freeze_fields=stz.FREEZE_FIELDS, ols=lay["ols"])
+    assert torch.equal(band[0], win[0])
+    for f in (1, 2, 3):
+        a, b = band[f], win[f]
+        ext = [a.shape[d] // g.dims[d] for d in range(3)]
+        rows = ce.freeze_rows(modes, 2 * K, ext)
+        keep = torch.ones(a.shape, dtype=torch.bool)
+        for d in range(3):
+            r = torch.arange(a.shape[d]) % ext[d]
+            blk = torch.arange(a.shape[d]) // ext[d]
+            edge = torch.zeros(a.shape[d], dtype=torch.bool)
+            if d == 0:
+                edge |= (r == 0) | (r == ext[d] - 1)
+            if rows is not None and rows[d] is not None:
+                edge |= ((blk == 0) & (r < rows[d][0])) | (
+                    (blk == g.dims[d] - 1) & (r > rows[d][1]))
+            view = [1, 1, 1]
+            view[d] = -1
+            keep &= ~edge.view(view)
+        assert torch.equal(a[keep], b[keep]), f
+
+
 def test_new_modules_import_neither_jax_nor_igg():
     """The staggered banded tier's modules and `chip_smoke.py` import
     neither JAX nor anything of igg."""

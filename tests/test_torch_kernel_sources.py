@@ -18,17 +18,21 @@ elements, rows not 16-byte aligned), the Stokes chunk kernel's x-march
 (`csrc/stokes_march.cuh`: a thread block's threads as fibers, its
 `cp.async` staging as plain copies; whole extended buffers across several
 tiles) and its division (`csrc/const_div.cuh`, float32 and float64,
-against `x / d` over samples of all bit patterns), the diffusion and HM3D
-band kernels
-(`csrc/band_walk.cuh`, whose threads share a staged window: each thread
-block's threads run as fibers that switch at `__syncthreads`) and the
-Stokes and rank-3 spec band kernels (`csrc/stagger_band_walk3.cuh`:
-`csrc/stokes_band.cu` and the generated band entry of `relax3d` and the
-staggered `acoustic3d`) in every window mode, on their whole evolved
-buffers.  This checks the kernels'
-indexing, walks and arithmetic, not their CUDA-specific parts (vector
-loads, alignment, the launch), which `tests/test_torch_kernels.py` checks
-on a card.  Skips without g++.
+against `x / d` over samples of all bit patterns, for the Stokes and the
+HM3D divisors), the diffusion band kernel (`csrc/band_walk.cuh`, whose
+threads share a staged window: each thread block's threads run as fibers
+that switch at `__syncthreads`), the HM3D band kernel (its x-march,
+`csrc/hm3d_march.cuh`), the Stokes band kernel (the Stokes march's band
+mode) and the generated band entry of `relax3d` and the staggered
+`acoustic3d` (`csrc/stagger_band_walk3.cuh`) in every window mode, on
+their whole evolved buffers; the two band marches also in their edge
+cases: segments that cross the bands (built with shorter segments), tiles
+that cross the blocks' last y and z rows, and fields at rest; and the
+redesigned kernels' first designs, kept as text in kernel_variants.py to
+be timed beside them, against the plain versions too.  This
+checks the kernels' indexing, walks and arithmetic, not their
+CUDA-specific parts (vector loads, alignment, the launch), which
+`tests/test_torch_kernels.py` checks on a card.  Skips without g++.
 """
 
 import concurrent.futures
@@ -554,8 +558,15 @@ STOKES_GRIDS = {
 }
 
 
+# y one periodic block over an open x, which only the band marches' edge
+# cases take: an x freeze row's value then comes from the source's row of a
+# y wrap, not the target's.
+STOKES_EDGE_GRIDS = dict(STOKES_GRIDS, **{
+    "2x1x1_wrap_y_open_xz": ((2, 1, 1), (0, 1, 0))})
+
+
 def _stokes_grid(case, local):
-    dims, per = STOKES_GRIDS[case]
+    dims, per = STOKES_EDGE_GRIDS[case]
     it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
                         dimy=dims[1], dimz=dims[2], periodx=per[0],
                         periody=per[1], periodz=per[2], overlapx=3,
@@ -707,6 +718,245 @@ def test_stokes_band_kernel_matches_plain(emulated, case, dtype, bands):
                              grid=g, kw=STOKES_KW, ols=ols, central=central)
         for a, b in zip(got, want):
             same(a, b)
+
+
+# The band marches with segments of at least 3 x rows instead of 8, so that
+# the small blocks here are cut into segments that cross the bands.
+SHORT_SEGMENTS = (("stokes_march.cuh", "constexpr int MARCH_MIN_SEG = 8;",
+                   "constexpr int MARCH_MIN_SEG = 3;"),
+                  ("hm3d_march.cuh", "constexpr int HM_MIN_SEG = 8;",
+                   "constexpr int HM_MIN_SEG = 3;"))
+
+
+@pytest.fixture(scope="module")
+def short_segments(csrc):
+    """The Stokes and HM3D band libraries built with SHORT_SEGMENTS."""
+    out = csrc / "short_segments"
+    out.mkdir()
+    for f in os.listdir(csrc):
+        if f.endswith((".cu", ".cuh", ".h")):
+            text = (csrc / f).read_text()
+            for name, old, new in SHORT_SEGMENTS:
+                if f == name:
+                    assert text.count(old) == 1, (f, old)
+                    text = text.replace(old, new)
+            (out / f).write_text(text)
+
+    def build(name):
+        lib = _gxx(out, out / f"{name}.cu", out / f"{name}.so")
+        fn_name, argtypes = _build.SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return name, lib
+
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        return dict(pool.map(build, ("stokes_band", "hm3d_band")))
+
+
+# The band marches' edge cases, each beside the plain version: segments
+# that do not line up with the bands (SHORT_SEGMENTS), tiles that cross the
+# blocks' last y and z rows (y 13 and z 35 or 37: 19 to 26 rows with the
+# extension and the face row, tiles of 8 x 32 ending in 2 to 16 of them),
+# and fields at rest (`init_fields`: zero velocities and pressures, the
+# zero dividends that const_div.cuh sends to `x * r`).
+BAND_EDGE_CASES = ("short_segments", "ragged_tiles", "at_rest")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
+@pytest.mark.parametrize("case", ["1x1x1_periodic", "2x2x2_open",
+                                  "4x2x1_periods101", "2x1x1_wrap_y_open_xz"])
+def test_stokes_band_march_edge_cases(emulated, short_segments, case, kind,
+                                      dtype, monkeypatch):
+    """The Stokes band kernel against `banded_window_plain` in the march's
+    edge cases: the whole evolved extended buffers and the central
+    windows, two bands."""
+    from igg_torch.models import stokes3d as st3
+
+    K = 3
+    local = (12, 13, 35) if kind == "ragged_tiles" else (12, 12, 36)
+    if kind == "short_segments":
+        monkeypatch.setattr(stz, "library", short_segments.__getitem__)
+    g = _stokes_grid(case, local)
+    modes = ce.dim_modes(g)
+    shapes = sp.field_shapes(g.nxyz)
+    ols = ce.field_ols(g, shapes)
+    B = ce.ext_shape(local, 2 * K, modes)[0] // 2
+    assert stz.stokes_banded_refusal(g, local, K, K, dtype, B=B) is None
+    if kind == "at_rest":
+        *state, Rho = st3.init_fields(st3.Params(), dtype=dtype)
+    else:
+        *state, Rho = _stokes_state(g, dtype, 45)
+    exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
+    Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+    for central in (False, True):
+        got = _run_stag_band(
+            lambda src, dst, cfg: stz._band_launch(src, exts, Rho_ext, dst,
+                                                   cfg, STOKES_KW, 0),
+            exts, shapes, local, 2 * K, K, B, 1, stz.EXTRAS, modes, g, ols,
+            central)
+        want = stz.band_call(exts, Rho_ext, shapes, K=K, B=B, modes=modes,
+                             grid=g, kw=STOKES_KW, ols=ols, central=central)
+        for a, b in zip(got, want):
+            same(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
+@pytest.mark.parametrize("case", ["1x1x1_periodic", "2x2x2_periods010",
+                                  "1x2x2_open"])
+def test_hm3d_band_march_edge_cases(emulated, short_segments, case, kind,
+                                    dtype, monkeypatch):
+    """The HM3D band kernel against `banded_window_plain` in the march's
+    edge cases: the whole evolved extended buffers and the central
+    windows, two bands."""
+    from igg_torch.models import hm3d as h3
+
+    (dims, per), K = BAND_GRIDS[case], 3
+    local = (18, 13, 37) if kind == "ragged_tiles" else (18, 10, 40)
+    if kind == "short_segments":
+        monkeypatch.setattr(htz, "library", short_segments.__getitem__)
+    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=dims[2], periodx=per[0],
+                        periody=per[1], periodz=per[2])
+    g = it.get_global_grid()
+    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
+    ols = ce.field_ols(g, [g.nxyz]) * 2
+    B = ce.ext_shape(local, K, modes)[0] // 2
+    if kind == "at_rest":
+        state = h3.init_fields(h3.Params(), dtype=dtype)
+    else:
+        state = (_random(shp, dtype, -0.5, 0, 21),
+                 _random(shp, dtype, 0.05, 0.25, 22))
+    exts = ce.extend_fields(list(state), ols, K, g, modes)
+    for central in (False, True):
+        got = _run_band(lambda src, dst, cfg: htz._band_launch(
+            src, exts, dst, cfg, HM3D_KW, 0), exts, local=local, K=K, B=B,
+            modes=modes, g=g, central=central)
+        for a, b in zip(got, htz.band_call(exts, local, K=K, B=B, modes=modes,
+                                           grid=g, kw=HM3D_KW,
+                                           central=central)):
+            same(a, b)
+
+
+# HM3D's divisors: phi0 and eta of its parameters, the checks' 1.3, and the
+# spacings 10 / (n_g - 1) of its phases (n_g 254 on one periodic 256^3
+# block, 508 on 2x2x2 periodic blocks of 256^3, 510 on open ones) and of
+# their neighbours.
+@pytest.mark.parametrize("d", [0.1, 1.0, 1.3, 10 / 252, 10 / 253, 10 / 254,
+                               10 / 507, 10 / 508, 10 / 509])
+def test_hm3d_band_divisors_divide_as_ieee(emulated, d):
+    """The HM3D band kernel's division (`const_div.cuh`) by its divisors
+    bitwise `x / d`: float32 over 2^20 dividends spread over all 2^32 bit
+    patterns and around its range's ends and zero, float64 over 2^18
+    patterns spread over all 2^64; the card checks all 2^32 float32
+    dividends (chip_smoke.py)."""
+    f32, f64 = torch.float32, torch.float64
+    assert stz.division_mismatches(d, dtype=f32, n=1 << 20, step=4093,
+                                   device="cpu") == 0
+    for lo in (0x0d800000 - 512, 0x71800000 - 512, 0x80000000 - 512):
+        assert stz.division_mismatches(d, dtype=f32, lo=lo, n=1024, step=1,
+                                       device="cpu") == 0
+    assert stz.division_mismatches(d, dtype=f64, n=1 << 18,
+                                   step=0x9E3779B97F4A7C15,
+                                   device="cpu") == 0
+
+
+@pytest.fixture(scope="module")
+def first_designs(csrc):
+    """The first designs of the redesigned kernels (kernel_variants.py:
+    FIRST_DESIGNS), built with g++ beside the rewritten headers, as the
+    card's timing runs build them with nvcc."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(_build._ROOT))
+    import kernel_variants
+
+    def build(name):
+        src = csrc / f"first_{name}"
+        src.write_text(_rewrite(kernel_variants.FIRST_DESIGNS[name]))
+        lib = _gxx(csrc, src, csrc / f"first_{name}.so")
+        fn_name, argtypes = _build.SIGNATURES[name[:-len(".cu")]]
+        fn = getattr(lib, fn_name)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        return name[:-len(".cu")], lib
+
+    names = sorted(kernel_variants.FIRST_DESIGNS)
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        return dict(pool.map(build, names))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["hm3d_band", "pack_planes", "stokes_band",
+                                  "stokes_chunk"])
+def test_first_designs_match_plain(emulated, first_designs, name, dtype,
+                                   monkeypatch):
+    """The redesigned kernels' first designs, kept as text to be timed
+    beside them, still build against the headers and equal the plain
+    versions: the band kernels on 2x2x2 blocks (HM3D periodic in y, Stokes
+    open), the Stokes chunk step on one periodic block, the packer on
+    2x2x2 blocks."""
+    for module in (htz, stz, pk):
+        monkeypatch.setattr(module, "library", first_designs.__getitem__)
+    if name == "hm3d_band":
+        it.init_global_grid(18, 10, 40, quiet=True, device="cpu", dimx=2,
+                            dimy=2, dimz=2, periody=1)
+        g = it.get_global_grid()
+        shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
+        ols = ce.field_ols(g, [g.nxyz]) * 2
+        exts = ce.extend_fields([_random(shp, dtype, -0.5, 0, 23),
+                                 _random(shp, dtype, 0.05, 0.25, 24)], ols,
+                                3, g, modes)
+        got = _run_band(lambda src, dst, cfg: htz._band_launch(
+            src, exts, dst, cfg, HM3D_KW, 0), exts, local=g.nxyz, K=3, B=12,
+            modes=modes, g=g, central=False)
+        want = htz.band_call(exts, g.nxyz, K=3, B=12, modes=modes, grid=g,
+                             kw=HM3D_KW, central=False)
+    elif name == "stokes_band":
+        K, local = 3, (12, 12, 36)
+        g = _stokes_grid("2x2x2_open", local)
+        modes = ce.dim_modes(g)
+        shapes = sp.field_shapes(g.nxyz)
+        ols = ce.field_ols(g, shapes)
+        *state, Rho = _stokes_state(g, dtype, 47)
+        exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
+        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        got = _run_stag_band(
+            lambda src, dst, cfg: stz._band_launch(src, exts, Rho_ext, dst,
+                                                   cfg, STOKES_KW, 0),
+            exts, shapes, local, 2 * K, K, 12, 1, stz.EXTRAS, modes, g, ols,
+            True)
+        want = stz.band_call(exts, Rho_ext, shapes, K=K, B=12, modes=modes,
+                             grid=g, kw=STOKES_KW, ols=ols)
+    elif name == "stokes_chunk":
+        K = 2
+        g = _stokes_grid("1x1x1_periodic", (12, 12, 33))
+        modes = ce.dim_modes(g)
+        shapes = sp.field_shapes(g.nxyz)
+        ols = ce.field_ols(g, shapes)
+        *state, Rho = _stokes_state(g, dtype, 49)
+        exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
+        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+        got = _run_chunk(
+            lambda src, dst, last: stz._launch(
+                src, exts, Rho_ext, dst,
+                stz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, last),
+                STOKES_KW, 0),
+            exts, [torch.empty(it.stacked_shape(s), dtype=dtype)
+                   for s in shapes[:4]], K)
+        want = stz.chunk_call(exts, Rho_ext, shapes, K=K, modes=modes,
+                              grid=g, kw=STOKES_KW, ols=ols)
+    else:
+        dims, local = (2, 2, 2), (5, 7, 9)
+        A = _random([n * s for n, s in zip(dims, local)], torch.float64, -1,
+                    1, 5).to(dtype)
+        reqs = [(1, 1), (1, 5), (2, 0), (2, 8), (2, 1)]
+        got = [torch.full(pk._out_shape(A, d, dims), 7, dtype=dtype)
+               for d, _ in reqs]
+        pk._launch(A, reqs, dims, local, got, 0)
+        want = pk.pack_planes_plain(A, reqs, dims)
+    for a, b in zip(got, want):
+        same(a, b)
 
 
 # -- kernels generated from stencil specs ------------------------------------

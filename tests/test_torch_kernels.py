@@ -19,10 +19,15 @@ divisions, the rank-3 `relax3d`; step and chunk step in every window mode,
 spec-wave2d also against the hand wave2d kernels), and the diffusion and
 HM3D band kernels (every window mode, two and three bands, whole evolved
 buffers and central windows; a window beyond the shared-memory budget
-raises), and the staggered band kernels: Stokes (igg's trapezoid matrix
-and one-block grids) and the generated band entry of the rank-3 specs
-(`relax3d`, the staggered `acoustic3d`), the same way; a window beyond the
-budget, a 2-D spec and wave2d with `banded=True` raise on the card.
+raises for the diffusion one), and the staggered band kernels: Stokes
+(igg's trapezoid matrix and one-block grids) and the generated band entry
+of the rank-3 specs (`relax3d`, the staggered `acoustic3d`), the same way;
+the HM3D and Stokes band marches in their edge cases (segments across the
+bands, tiles across the blocks' last y and z rows, fields at rest, y one
+periodic block over an open x) and HM3D's divisors against `x / d`; the
+Stokes gate refuses a window beyond the budget, which the march (its
+shared memory independent of B) still computes; a 2-D spec and wave2d
+with `banded=True` raise on the card.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -560,8 +565,11 @@ def test_stokes_band_kernel_matches_plain(card, case, dtype, bands):
 
 
 def test_stokes_band_kernel_refuses_what_smem_refuses(card):
-    """B = 16 in float64 stages 253,856 bytes a thread block: the gate and
-    the wrapper refuse it, and the library refuses the launch itself."""
+    """B = 16 in float64 staged 253,856 bytes a thread block in the band
+    kernel's first design: the gate and the wrapper refuse it (igg's gate,
+    kept as it is).  The library's march holds the same shared memory at
+    every B, so it takes the launch, and its result equals the plain
+    version's."""
     local = (32, 12, 12)
     it.init_global_grid(*local, quiet=True, device=card, overlapx=3,
                         overlapy=3, overlapz=3)
@@ -581,10 +589,137 @@ def test_stokes_band_kernel_refuses_what_smem_refuses(card):
     assert stz.band_call.launches == before
     cfg = ce.stagger_band_cfg(local, 4, modes, g.dims, ols[:4], False, B=16,
                               lo=1, extras=stz.EXTRAS)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        stz._band_launch(exts, exts, Rho_ext,
-                         [torch.empty_like(X) for X in exts], cfg, STOKES_KW,
-                         torch.cuda.current_stream().cuda_stream)
+    out = [torch.empty_like(X) for X in exts]
+    stz._band_launch(exts, exts, Rho_ext, out, cfg, STOKES_KW,
+                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    want = ce.banded_window_plain(
+        list(exts) + [Rho_ext], K=1, B=16, lo=1, modes=modes, grid=g,
+        ols=ols, shapes=shapes, E=4,
+        band_update=partial(stz.band_update, kw=STOKES_KW),
+        extras=stz.EXTRAS, n_up=4, freeze_fields=stz.FREEZE_FIELDS)[:4]
+    for a, b in zip(out, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# The band marches' edge cases on the card, two and three bands: HM3D
+# blocks whose extended x span (42 or 36 rows) the march cuts into
+# segments of 9 rows that cross the bands ("long_x"; the Stokes march's
+# bounding box of 25 rows already gives segments of 9 at the other
+# shapes: a longer x would need bands above float64's window budget),
+# tiles that cross the blocks' last y and z rows ("ragged_tiles": y 13 and
+# z 35 or 37), and fields at rest ("at_rest": `init_fields`, whose zero
+# dividends const_div.cuh sends to `x * r`); Stokes also with y one
+# periodic block over an open x.  (HM3D's local shape, Stokes' or None.)
+BAND_EDGE_LOCALS = {"long_x": ((36, 10, 40), None),
+                    "ragged_tiles": ((18, 13, 37), (12, 13, 35)),
+                    "at_rest": ((18, 10, 40), (12, 12, 36))}
+
+
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", sorted(BAND_EDGE_LOCALS))
+@pytest.mark.parametrize("case", ["one_block_periodic", "2x2x2_periods010",
+                                  "1x2x2_open"])
+def test_hm3d_band_march_edge_cases(card, case, kind, dtype, bands):
+    """The HM3D band kernel against `banded_window_plain` in the march's
+    edge cases: whole evolved buffers and central windows, K launches a
+    call."""
+    from igg_torch.models import hm3d as h3
+
+    K, local = 3, BAND_EDGE_LOCALS[kind][0]
+    it.init_global_grid(*local, quiet=True, device=card, **BAND_GRIDS[case])
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    span = ce.ext_shape(local, K, modes)[0]
+    assert span % bands == 0
+    B = span // bands
+    assert htz.hm3d_banded_refusal(g, local, K, K, dtype, B=B) is None
+    ols = ce.field_ols(g, [g.nxyz]) * 2
+    state = (h3.init_fields(h3.Params(), dtype=dtype) if kind == "at_rest"
+             else [F.to(card) for F in _hm3d_state(
+                 it.stacked_shape(g.nxyz), dtype, 23)])
+    exts = ce.extend_fields(list(state), ols, K, g, modes)
+    want = ce.banded_window_plain(
+        list(exts), K=K, B=B, lo=1, modes=modes, grid=g, ols=ols,
+        shapes=[local] * 2, E=K,
+        band_update=partial(htz.band_update, kw=HM3D_KW), extras=(1, 1),
+        n_up=2, freeze_fields=(0, 1))
+    for central in (False, True):
+        before = htz.band_call.launches
+        got = htz.band_call(exts, local, K=K, B=B, modes=modes, grid=g,
+                            kw=HM3D_KW, central=central)
+        torch.cuda.synchronize()
+        assert htz.band_call.launches == before + K
+        for a, b in zip(got, want):
+            b = ce.central_window(b, local, K, modes) if central else b
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", sorted(k for k, v in BAND_EDGE_LOCALS.items()
+                                         if v[1] is not None))
+@pytest.mark.parametrize("case", ["1x1x1_periodic", "2x2x2_open",
+                                  "4x2x1_periods101", "2x1x1_wrap_y_open_xz"])
+def test_stokes_band_march_edge_cases(card, case, kind, dtype, bands):
+    """The Stokes band kernel against `banded_window_plain` in the march's
+    edge cases: whole evolved buffers and central windows, K launches a
+    call."""
+    from igg_torch.models import stokes3d as st3
+
+    K, local = 3, BAND_EDGE_LOCALS[kind][1]
+    layout = dict(STOKES_GRIDS, **{"2x1x1_wrap_y_open_xz": dict(
+        dimx=2, dimy=1, dimz=1, periody=1)})[case]
+    it.init_global_grid(*local, quiet=True, device=card, overlapx=3,
+                        overlapy=3, overlapz=3, **layout)
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    shapes = sp.field_shapes(g.nxyz)
+    ols = ce.field_ols(g, shapes)
+    span = ce.ext_shape(local, 2 * K, modes)[0]
+    assert span % bands == 0
+    B = span // bands
+    assert stz.stokes_banded_refusal(g, local, K, K, dtype, B=B) is None
+    if kind == "at_rest":
+        *state, Rho = st3.init_fields(st3.Params(), dtype=dtype)
+    else:
+        *state, Rho = _stokes_state(g, dtype, 49, card)
+    exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
+    Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
+    want = ce.banded_window_plain(
+        list(exts) + [Rho_ext], K=K, B=B, lo=1, modes=modes, grid=g, ols=ols,
+        shapes=shapes, E=2 * K,
+        band_update=partial(stz.band_update, kw=STOKES_KW),
+        extras=stz.EXTRAS, n_up=4, freeze_fields=stz.FREEZE_FIELDS)[:4]
+    for central in (False, True):
+        before = stz.band_call.launches
+        got = stz.band_call(exts, Rho_ext, shapes, K=K, B=B, modes=modes,
+                            grid=g, kw=STOKES_KW, ols=ols, central=central)
+        torch.cuda.synchronize()
+        assert stz.band_call.launches == before + K
+        for a, b, s in zip(got, want, shapes):
+            b = ce.central_window(b, s, 2 * K, modes) if central else b
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# HM3D's divisors: phi0, eta, the checks' 1.3 and the spacings of its
+# phases (10/253 on one periodic 256^3 block, 10/507 on 2x2x2 periodic
+# blocks of 256^3).
+@pytest.mark.parametrize("d", [0.1, 1.0, 1.3, 10 / 253, 10 / 507])
+def test_hm3d_band_divisors_divide_as_ieee(card, d):
+    """The HM3D band kernel's division (const_div.cuh, the Stokes chunk
+    library's check kernel) bitwise `x / d` on the card: float32 over 2^28
+    dividends spread over all bit patterns and around its range's ends and
+    zero, float64 over 2^28 patterns spread over all 2^64."""
+    f32, f64 = torch.float32, torch.float64
+    assert stz.division_mismatches(d, dtype=f32, n=1 << 28, step=15,
+                                   device=card) == 0
+    for lo in (0x0d800000 - 4096, 0x71800000 - 4096, 0x80000000 - 4096):
+        assert stz.division_mismatches(d, dtype=f32, lo=lo, n=8192, step=1,
+                                       device=card) == 0
+    assert stz.division_mismatches(d, dtype=f64, n=1 << 28,
+                                   step=0x9E3779B97F4A7C15, device=card) == 0
 
 
 # -- kernels generated from stencil specs ------------------------------------
