@@ -101,7 +101,8 @@ the script exits non-zero without printing a result:
    device time per call.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
-the one-block K-step loop, the chunk step) and the wave2d kernels (the
+the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
+256^3 periodic in f32 and f64) and the wave2d kernels (the
 staggered leapfrog step, the chunk step) and the Stokes kernels (the fused
 iteration, the chunk step, whose float32 division is also held to `x / d`
 over all 2^32 dividends for every divisor of the Stokes phases, and which
@@ -113,15 +114,16 @@ at their main paths' shapes, and the diffusion and HM3D band kernels
 against their plain version (`banded_window_plain`) in every window mode,
 f32 and f64, B = 8 and 16 with two and three bands, on the whole evolved
 buffers and the central windows, then times them at 2x2x2 blocks of 256^3
-(K = 8, B = 8), the HM3D one also in f64; and the staggered band kernels
+(K = 8, B = 8), in f32 and f64; and the staggered band kernels
 (the Stokes band step, the generated band entry of the rank-3 specs
 relax3d and acoustic3d) the same way, then the Stokes one at 2x2x2 blocks
 of 256^3 open (f32 and f64) and relax3d's at one 256^3 periodic block
-(K = 8, B = 8).  The Stokes and HM3D band kernels are timed in f32 beside
-their first designs too (kernel_variants.py: FIRST_DESIGNS, built with
-the sources), each by the profiler's device time of the kernel it names,
-and the march division (const_div.cuh) is held to `x / d` over all 2^32
-float32 dividends for the Stokes and HM3D divisors.  Launch counters are set to 0
+(K = 8, B = 8).  The redesigned kernels are timed beside their first
+designs too (kernel_variants.py: FIRST_DESIGNS, built with the sources),
+each by the profiler's device time of the kernel it names: the Stokes and
+HM3D band kernels in f32, the HM3D chunk and diffusion band kernels in
+f32 and f64; and the march division (const_div.cuh) is held to `x / d`
+over all 2^32 float32 dividends for the Stokes and HM3D divisors.  Launch counters are set to 0
 before each main-path phase (2 to 20) and read after it; each of the
 eighteen kernels must have launched on that main path.  The last lines are the run's seconds, the
 `{"kernels": [...]}` summary, the card's name and power limit, and
@@ -935,40 +937,62 @@ class Smoke:
             f"2): {self.perf['stream_4x256^3_2add_ms']:.4f} ms")
 
     def hm3d_kernel_checks_multiblock(self):
-        """The HM3D chunk step on the 508^3 grid (2x2x2 blocks of n_multi^3
-        f32, periodic): one chunk checked, then timed beside one window
-        step of the plain version and the bound."""
+        """The HM3D chunk step on the 508^3 grid (2x2x2 blocks of n_multi^3,
+        periodic), f32 and f64: one chunk checked, then timed beside one
+        window step of the plain version, two bounds of compulsory bytes (a
+        launch's, about a pass: read Pe and phi, write both, the last
+        launch only the central windows; and the whole chunk's over K:
+        each extended field read once, each central block written once)
+        and its first design (chunk_walk.cuh) in the same run."""
         ce, htz = self.ce, self.htz
         n, k = self.n_multi, self.time_iters
         g = self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **PERIODIC)
         kw = self.h3.Params().step_kwargs()
-        Pe, phi = self.hm3d_input(self.it.stacked_shape(g.nxyz),
-                                  torch.float32, 25)
-        exts, modes, out, ref = self.hm3d_chunk(g, Pe, phi, kw)
-        del Pe, phi
-        for f, name in enumerate(("Pe", "phi")):
-            self.note("hm3d_chunk_step", check(
-                f"hm3d_chunk_step {name} {n}^3 2x2x2 periodic", out[f],
-                ref[f], 0.0))
-        del out, ref
-        run = lambda: htz.chunk_call(exts, g.nxyz, K=K_CHUNK, modes=modes,
-                                     grid=g, kw=kw)
-        self.perf["hm3d_chunk_step"] = dict(
-            kernel_time(run, max(k // 5, 4), "Hm3d"),
-            plain_ms=event_ms(lambda: ce.window_step_plain(
-                exts, exts, E=K_CHUNK, modes=modes, grid=g,
-                core=htz.window_core(exts[0].shape, g, kw),
-                flags=ce.edge_flags(modes, g), freeze_fields=(0, 1)), 3),
-            bound=self.chunk_bound(g, exts[0].shape, K_CHUNK, modes,
-                                   arrays=4, frozen_fields=2,
-                                   flops=HM3D_FLOPS))
-        self.perf["hm3d_chunk_step"]["events_ms"] /= K_CHUNK
-        p = self.perf["hm3d_chunk_step"]
-        log(f"[phase 1] hm3d_chunk_step at 2x2x2 x {n}^3 f32 periodic: "
-            f"{p['ms']:.4f} ms device per launch ({p['ms_from']}), "
-            f"{p['events_ms']:.4f} ms per launch back to back (events), plain "
-            f"{p['plain_ms']:.4f} ms (one window step), bound "
-            f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
+        for dtype in (torch.float32, torch.float64):
+            f64 = dtype == torch.float64
+            key = "hm3d_chunk_step_f64" if f64 else "hm3d_chunk_step"
+            tag = f"2x2x2 x {n}^3 {'f64' if f64 else 'f32'} periodic"
+            Pe, phi = self.hm3d_input(self.it.stacked_shape(g.nxyz), dtype,
+                                      25)
+            exts, modes, out, ref = self.hm3d_chunk(g, Pe, phi, kw)
+            del Pe, phi
+            for f, name in enumerate(("Pe", "phi")):
+                self.note("hm3d_chunk_step", check(
+                    f"hm3d_chunk_step {name} {tag}", out[f], ref[f], 0.0))
+            del out
+            run = lambda: htz.chunk_call(exts, g.nxyz, K=K_CHUNK,
+                                         modes=modes, grid=g, kw=kw)
+            size, rate = (8, F64_FLOPS) if f64 else (4, F32_FLOPS)
+            interior = 8 * float(n - 2) ** 3
+            self.perf[key] = dict(
+                kernel_time(run, max(k // 5, 4), "hm_march_kernel",
+                            launches=K_CHUNK),
+                plain_ms=event_ms(lambda: ce.window_step_plain(
+                    exts, exts, E=K_CHUNK, modes=modes, grid=g,
+                    core=htz.window_core(exts[0].shape, g, kw),
+                    flags=ce.edge_flags(modes, g), freeze_fields=(0, 1)), 3),
+                bound=self.chunk_bound(g, exts[0].shape, K_CHUNK, modes,
+                                       arrays=4, frozen_fields=2,
+                                       flops=HM3D_FLOPS, size=size,
+                                       flop_rate=rate),
+                chunk_over_k=bound_ms(
+                    size * 2 * (float(exts[0].numel()) + 8 * float(n) ** 3)
+                    / K_CHUNK, HM3D_FLOPS * interior, rate))
+            self.perf[key]["events_ms"] /= K_CHUNK
+            self.perf[f"{key}_first_design"] = self.first_design_time(
+                htz, "hm3d_chunk", run, max(k // 5, 4), "chunk_kernel",
+                K_CHUNK, ref, lambda b, f: b)
+            del ref
+            p, q = self.perf[key], self.perf[f"{key}_first_design"]
+            log(f"[phase 1] hm3d_chunk_step at {tag}: {p['ms']:.4f} ms "
+                f"device per launch ({p['ms_from']}), {p['events_ms']:.4f} "
+                f"ms per launch back to back (events), plain "
+                f"{p['plain_ms']:.4f} ms (one window step), bound "
+                f"{p['bound'][0]:.4f} ms ({p['bound'][1]}), the whole chunk "
+                f"over K {p['chunk_over_k'][0]:.4f} ms; its first design "
+                f"(chunk_walk.cuh) {q['ms']:.4f} ms in the same run, "
+                f"{q['ms'] / p['ms']:.2f} times the march's")
+            del exts
 
     def wave_state(self, g, dtype, seed):
         """Random (P, Vx, Vy) on the 2-D grid `g`."""
@@ -1092,7 +1116,7 @@ class Smoke:
 
     @staticmethod
     def chunk_bound(g, ext_shape, K, modes, arrays=3, frozen_fields=1,
-                    flops=STENCIL_FLOPS):
+                    flops=STENCIL_FLOPS, size=4, flop_rate=F32_FLOPS):
         """Least time per launch of one chunk (K launches) of a kernel that
         reads and writes `arrays` arrays per cell (diffusion: T and A read,
         T written; HM3D: Pe and phi read and written): each launch but the
@@ -1110,10 +1134,10 @@ class Smoke:
         frozen = ext_cells - kept
         interior = lambda local: float(np.prod(n)) * float(
             np.prod([s - 2 for s in local]))
-        nbytes = 4 * ((K - 1) * arrays * ext_cells + arrays * out_cells
-                      + K * frozen_fields * frozen)
+        nbytes = size * ((K - 1) * arrays * ext_cells + arrays * out_cells
+                         + K * frozen_fields * frozen)
         ops = flops * ((K - 1) * interior(ext_local) + interior(g.nxyz))
-        return bound_ms(nbytes / K, ops / K, F32_FLOPS)
+        return bound_ms(nbytes / K, ops / K, flop_rate)
 
     def band_fields(self, g, dtype, K, seed):
         """Random diffusion and HM3D fields on grid `g`, extended for a
@@ -1220,18 +1244,21 @@ class Smoke:
         version, then timed beside one plain iteration and two bounds of
         compulsory bytes: a pass (read src and the constant, write dst) and
         the whole chunk (read each extended field once, write each central
-        block once; the table's bound is the chunk's divided by K).  The
-        HM3D one is also checked and timed in f64 and, in f32, beside its
-        first design (band_walk.cuh)."""
+        block once; the table's bound is the chunk's divided by K).  Both
+        are also checked and timed in f64, beside their first designs
+        (band_walk.cuh) in the same run: the diffusion one in f32 and f64,
+        the HM3D one in f32."""
         n, k, K, B = self.n_multi, self.time_iters, K_CHUNK, 8
         for family, per, flops, dtype in (
                 ("diffusion", {}, STENCIL_FLOPS, torch.float32),
+                ("diffusion", {}, STENCIL_FLOPS, torch.float64),
                 ("hm3d", PERIODIC, HM3D_FLOPS, torch.float32),
                 ("hm3d", PERIODIC, HM3D_FLOPS, torch.float64)):
             f64 = dtype == torch.float64
             name = f"{family}_band_step"
             key = f"{name}_f64" if f64 else name
-            kernel = "band_kernel" if family == "diffusion" else "hm_march_kernel"
+            kernel = ("dm_march_kernel" if family == "diffusion"
+                      else "hm_march_kernel")
             g = self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **per)
             kw = self.h3.Params().step_kwargs()
             sc = self.dp.scal(*self.t3.Params().spacing())
@@ -1276,10 +1303,11 @@ class Smoke:
                                      rate))
             # kernel_time's event time is per chunk call: per launch here.
             self.perf[key]["events_ms"] /= K
-            if family == "hm3d" and not f64:
-                self.perf[f"{name}_first_design"] = self.first_design_time(
-                    self.htz, "hm3d_band", run, max(k // 10, 3),
-                    "band_kernel", K, want, cut)
+            if family == "diffusion" or not f64:
+                self.perf[f"{key}_first_design"] = self.first_design_time(
+                    self.dtz if family == "diffusion" else self.htz,
+                    f"{family}_band", run, max(k // 10, 3), "band_kernel", K,
+                    want, cut)
             del want
             p = self.perf[key]
             log(f"[phase 1] {name} at {tag}, K={K}, B={B}: {p['ms']:.4f} ms "
@@ -2116,9 +2144,10 @@ class Smoke:
     def stokes_division_check(self):
         """The marches' float32 division (csrc/const_div.cuh) bitwise `x /
         d` over all 2^32 float32 dividends, for every divisor of the Stokes
-        and HM3D band checks and phases: 3, the small checks' spacings and
-        HM3D's 1.3, phi0 and eta, and the spacings of config 5 and of HM3D
-        on each grid their phases use."""
+        and HM3D band and chunk checks and phases: 3, the small checks'
+        spacings and HM3D's 1.3, phi0 and eta, the spacings of config 5 and
+        of HM3D on each grid their phases use and on the HM3D chunk
+        checks' small grids."""
         st3, stz, h3 = self.st3, self.stz, self.h3
         hp = h3.Params()
         divisors = {3.0, 0.31, 0.27, 0.43, 1.3, hp.phi0, hp.eta}
@@ -2133,6 +2162,12 @@ class Smoke:
                                                          dimz=2,
                                                          **PERIODIC))):
             self.grid(local, **layout)
+            divisors |= set(hp.spacing())
+        # The HM3D chunk checks' spacings (chunk_and_pack_checks).
+        for (dims, per), local in ((c, s) for c in CHUNK_GRIDS.values()
+                                   for s in CHUNK_SHAPES):
+            self.grid(local, dimx=dims[0], dimy=dims[1], dimz=dims[2],
+                      periodx=per[0], periody=per[1], periodz=per[2])
             divisors |= set(hp.spacing())
         t0 = time.perf_counter()
         for d in sorted(divisors):
@@ -2915,7 +2950,8 @@ class Smoke:
 
 # The redesigned kernels whose first designs (kernel_variants.py:
 # FIRST_DESIGNS) phase 1 times beside them in the same run.
-FIRST_DESIGN_LIBS = ("stokes_band", "hm3d_band")
+FIRST_DESIGN_LIBS = ("stokes_band", "hm3d_band", "hm3d_chunk",
+                     "diffusion_band")
 
 
 def start_first_designs():

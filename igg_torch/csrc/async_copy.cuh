@@ -1,5 +1,6 @@
 // Asynchronous copies from device memory into shared memory (cp.async,
-// sm_80+), the staging of the x-marches (stokes_march.cuh, hm3d_march.cuh).
+// sm_80+), the staging of the x-marches (stokes_march.cuh, hm3d_march.cuh,
+// diffusion_march.cuh).
 // Compiled for the CPU (the rehearsal of tests/test_torch_kernel_sources.py)
 // they are plain copies, complete when issued.
 #pragma once

@@ -1,7 +1,8 @@
 // One iteration of the streaming banded K-step chunk, the walk of the
-// diffusion band kernel (diffusion_band.cu; the HM3D band kernel left it for
-// its own x-march, hm3d_march.cuh, and its first design here is kept as
-// text in kernel_variants.py): one launch advances every extended block of
+// diffusion and HM3D band kernels' first designs (both kernels left it for
+// x-marches of their own, diffusion_march.cuh and hm3d_march.cuh; the first
+// designs are kept as text in kernel_variants.py, to be timed beside them):
+// one launch advances every extended block of
 // a block-stacked EXTENDED buffer by one iteration of all NF fields of the
 // policy P, sweeping each block in x-row bands of depth B (the function of
 // igg/ops/chunk_engine.py: _streaming_kernel and of its plain version,

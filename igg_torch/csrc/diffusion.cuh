@@ -38,18 +38,6 @@ struct Diffusion {
     return igg::aligned(src[0], bytes) && igg::aligned(A, bytes);
   }
 
-  // The arrays the band walk stages (band_walk.cuh): T, then A.
-  static constexpr int NS = 2;
-  __device__ __forceinline__ const T* staged(int k) const {
-    return k == 0 ? src[0] : A;
-  }
-  __device__ __forceinline__ void restage(int k, const T* p) {
-    if (k == 0)
-      src[0] = p;
-    else
-      A = p;
-  }
-
   template <int VEC>
   __device__ __forceinline__ void update(long long row, int z0, long long sx,
                                          int G2, Cells<T, 1, VEC>& out) const {

@@ -35,42 +35,20 @@
 // those writes.
 #include "hm3d_march.cuh"
 
-namespace {
-
-template <typename T>
-int launch(void* const* src, void* const* F, void* const* out,
-           const int* cfg, const double* coef, int npow,
-           cudaStream_t stream) {
-  igg::HmArgs<T> m;
-  if (!igg::make_hm_march(cfg, m)) return (int)cudaErrorInvalidValue;
-  for (int f = 0; f < 2; ++f) {
-    m.src[f] = static_cast<const T*>(src[f]);
-    m.F[f] = static_cast<const T*>(F[f]);
-    m.out[f] = static_cast<T*>(out[f]);
-  }
-  m.qx = igg::make_div((T)coef[0]);
-  m.qy = igg::make_div((T)coef[1]);
-  m.qz = igg::make_div((T)coef[2]);
-  m.dt = (T)coef[3];
-  m.q0 = igg::make_div((T)coef[4]);
-  m.qe = igg::make_div((T)coef[5]);
-  m.npow = npow;
-  return igg::launch_hm_march(m, stream);
-}
-
-}  // namespace
-
 // src, F, out: (Pe, phi) pointers of the iteration's source buffers, the
 // chunk-entry buffers (laid out like src) and the targets (extended like
 // src, or, when `last`, the unextended outputs); cfg: the band layout of
-// chunk_engine.band_cfg (igg::make_hm_march, hm3d_march.cuh); coef: dx dy
-// dz dt phi0 eta; npow >= 0; dtype: 0 float32, 1 float64.
+// chunk_engine.band_cfg (igg::march_band_layout, march_layout.cuh); coef:
+// dx dy dz dt phi0 eta; npow >= 0; dtype: 0 float32, 1 float64.
 extern "C" int igg_hm3d_band_step(void* const* src, void* const* F,
                                   void* const* out, int dtype, const int* cfg,
                                   const double* coef, int npow, void* stream) {
-  if (npow < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(src, F, out, cfg, coef, npow, st);
-  if (dtype == 1) return launch<double>(src, F, out, cfg, coef, npow, st);
+  if (dtype == 0)
+    return igg::run_hm_march<float, igg::BandEdges>(src, F, out, cfg, coef,
+                                                    npow, st);
+  if (dtype == 1)
+    return igg::run_hm_march<double, igg::BandEdges>(src, F, out, cfg, coef,
+                                                     npow, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -1,27 +1,27 @@
-// The x-march of the HM3D band kernel (hm3d_band.cu): each thread block
-// walks x over a (y, z) tile of one extended block, the planes it needs
-// staged in shared memory, every quotient of the update formed once.
+// The x-march of the HM3D band and chunk kernels (hm3d_band.cu,
+// hm3d_chunk.cu): each thread block walks x over a (y, z) tile of one
+// extended block, the planes it needs staged in shared memory, every
+// quotient of the update formed once.
 //
 // Fields and semantics: HM3D's two collocated fields, the effective
 // pressure Pe and the porosity phi (hm3d.cuh), advanced by one coupled
-// step with the rules of the banded realization (band_walk.cuh's header,
-// igg_torch/ops/chunk_engine.py: banded_window_plain with
-// hm3d_trapezoid.band_update), on the layout of chunk_walk.cuh's Chunk
-// (chunk_engine.band_cfg):
-//   - every row x of an extended block is updated, its x neighbours
-//     clamped to the block's first and last rows (per block, not per
-//     tensor); rows on a block's y/z outer planes keep their source values;
-//   - where y or z is one periodic block (wrap), a field's edge cells take
-//     the updated values at the inner cells they alias (0 <- s-ol,
-//     s-1 <- ol-1);
-//   - on open dims both fields take the chunk-entry values F on exactly the
-//     freeze rows lo and hi of the edge blocks, resolved in band_halo's
-//     order, z, then y, then x (later dims win): a target on a z freeze row
-//     takes F there, on a y or x freeze row F at the source's z (a z wrap
-//     having moved the value along z first), on an x freeze row F at the
-//     source cell;
-//   - the last launch of a chunk writes only each block's central window,
-//     straight into the unextended outputs.
+// step on the layout of chunk_walk.cuh's Chunk, both fields re-frozen on
+// open dims from the chunk-entry buffers F, with the edge rules of one of
+// two realizations (march_layout.cuh), a template parameter E of the
+// kernel:
+//   - BandEdges, the banded realization (the band kernel; layout
+//     chunk_engine.band_cfg; plain version banded_window_plain with
+//     hm3d_trapezoid.band_update): every x row updated, its x neighbours
+//     clamped to the block's first and last rows, F on exactly the freeze
+//     rows lo and hi in band_halo's order;
+//   - ChunkEdges, the K-step chunk (the chunk kernel; layout
+//     chunk_engine.chunk_cfg; plain version window_step_plain with
+//     hm3d_trapezoid.window_core): a block's outermost x rows keep their
+//     values, F on every row <= lo / >= hi at the target cell.
+// Rows on a block's y/z outer planes keep their source values, a wrapped
+// dim's edge cells take the updated values at the inner cells they alias,
+// and the last launch of a chunk writes only each block's central window,
+// straight into the unextended outputs.
 // The arithmetic is that of hm3d.cuh's `perm`, `flux` and `cell` in their
 // association, each operation rounded as the plain version rounds it
 // (-fmad=false), every division through const_div.cuh (bitwise `x / d`):
@@ -75,17 +75,12 @@
 // Segments.  Where the tiles of a launch give fewer than HM_BLOCKS thread
 // blocks, x is cut into segments of at least HM_MIN_SEG rows, one a thread
 // block; a segment starts one plane early (step 0: k and the x-face flux
-// of its first face).  The segments are the kernel's own choice: the
-// banded function does not depend on the band depth.
-//
-// The band walk's edge rules sit in HmEdges; a chunk kernel (chunk_walk.cuh's
-// rules: the outermost rows keep their values, the freeze takes every row
-// beyond lo and hi, F at the target) would give the march another.
+// of its first face).  The segments are the kernel's own choice: neither
+// function depends on them (nor the banded one on the band depth).
 #pragma once
 
-#include "async_copy.cuh"
-#include "chunk_walk.cuh"
 #include "const_div.cuh"
+#include "march_layout.cuh"
 
 namespace igg {
 
@@ -137,57 +132,37 @@ struct HmArgs {
   int nseg, seg;    // x segments of a block, rows of a segment
 };
 
-// cfg: chunk_engine.band_cfg (make_chunk's 25 ints, then B lo extra ol_y
-// ol_z).  Returns false where the layout does not suit the kernel: that of
-// make_band (band_walk.cuh), B dividing the extended x span.
-template <typename T>
-inline bool make_hm_march(const int* cfg, HmArgs<T>& m) {
-  if (!make_chunk(cfg, m.c)) return false;
-  const int B = cfg[25], lo = cfg[26], extra = cfg[27];
-  const Geo& g = m.c.geo;
-  if (B < 1 || g.s[0] % B != 0 || lo < 1 || extra < 1) return false;
-  m.ol[0] = 0;
-  m.ol[1] = cfg[28];
-  m.ol[2] = cfg[29];
-  for (int d = 0; d < 3; ++d) {
-    if (g.s[d] < 3) return false;
-    if (g.mode[d] == WRAP &&
-        (d == 0 || g.n[d] != 1 || m.ol[d] < 2 || m.ol[d] > g.s[d]))
-      return false;
-    m.first[d] = m.c.last ? m.c.off[d] : 0;
-    m.rows[d] = m.c.last ? m.c.os[d] : g.s[d];
-    if (m.first[d] < 0 || m.first[d] + m.rows[d] > g.s[d]) return false;
-  }
-  return true;
-}
+// Whether the march with the edge rules E divides by IEEE `x / d` rather
+// than by const_div.cuh: the chunk kernel in float32, where `x / d` ran 1%
+// faster on random fields and 4% at rest on an H100 80GB HBM3 at 700 W
+// (kernel_variants.py: hm_div_ieee_f32); in float64 `x / d` ran 10%
+// slower.  The band kernel keeps const_div.cuh (kernel_variants.py's
+// hm_div_ieee and hm_div_ieee_f32 edit this choice).
+template <typename T, class E>
+constexpr bool hm_ieee = E::CHUNK && sizeof(T) == 4;
 
-// The band walk's edge rules (module note).
-struct HmEdges {
-  // The staged plane of source plane p: the block's x ends clamp.
-  __device__ __forceinline__ static int plane(int p, int s0) {
-    return march_clamp(p, 0, s0 - 1);
-  }
-  // Whether row r of block bl along d is a freeze row there.
-  __device__ __forceinline__ static bool frozen(const Chunk& c, int d, int bl,
-                                                int r) {
-    return c.frz[d] && ((bl == 0 && r == c.lo[d]) ||
-                        (bl == c.geo.n[d] - 1 && r == c.hi[d]));
+// The march's divisions, one at a time and in batches.
+template <bool IEEE, typename T>
+__device__ __forceinline__ T hm_div(T x, const ConstDiv<T>& q) {
+  if constexpr (IEEE)
+    return x / q.d;
+  else
+    return cdiv(x, q);
+}
+template <typename T, bool IEEE>
+struct HmBatch {
+  bool ok = true;
+  __device__ __forceinline__ T operator()(T x, const ConstDiv<T>& q) {
+    if constexpr (IEEE) return x / q.d;
+    ok = ok & div_admits(x, q);
+    return div_fast(x, q);
   }
 };
 
-// The march's divisions, one at a time and in batches (const_div.cuh;
-// kernel_variants.py's hm_div_ieee makes them `x / d`).
-template <typename T>
-__device__ __forceinline__ T hm_div(T x, const ConstDiv<T>& q) {
-  return cdiv(x, q);
-}
-template <typename T>
-using HmBatch = DivBatch<T>;
-
 // (phi/phi0)^npow: hm3d.cuh's perm with its division by phi0.
-template <typename T>
+template <bool IEEE, typename T>
 __device__ __forceinline__ T hm_perm(T phi, const HmArgs<T>& m) {
-  T x = hm_div(phi, m.q0);
+  T x = hm_div<IEEE>(phi, m.q0);
   if (m.npow == 0) return T(1);
   T acc = x;
   bool have = false;
@@ -209,38 +184,16 @@ __device__ __forceinline__ T hm_flow(T klo, T khi, T plo, T phi_) {
   return -kf * (phi_ - plo);
 }
 
-// The targets of source row c along a dim (wrap: hm3d's aliases; else the
-// row itself where a target holds it), as target rows.
-__device__ __forceinline__ int hm_targets(int c, bool wrap, int toff, int tos,
-                                          int s, int ol, int* tg) {
-  int n = 0;
-  if (!wrap) {
-    const int t = c - toff;
-    if (t >= 0 && t < tos) tg[n++] = t;
-    return n;
-  }
-  if (c >= 1 && c <= s - 2) tg[n++] = c;
-  if (c == s - ol) tg[n++] = 0;
-  if (c == ol - 1) tg[n++] = s - 1;
-  return n;
-}
-
-// Offset of cell (i, j, k) of block b on blocks of extents e stacked into
-// a tensor of extents G.
-__device__ __forceinline__ long long hm_at(const int* e, const int* G,
-                                           const int* b, int i, int j, int k) {
-  return ((long long)(b[0] * e[0] + i) * G[1] + b[1] * e[1] + j) *
-             (long long)G[2] +
-         b[2] * e[2] + k;
-}
-
-template <typename T>
+// E: the edge rules, BandEdges (the band kernel) or ChunkEdges (the chunk
+// kernel), march_layout.cuh.
+template <typename T, class E>
 __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
                                                         : HM_MIN_BLOCKS_F64)
     hm_march_kernel(HmArgs<T> m) {
   extern __shared__ __align__(16) unsigned char hm_smem[];
   constexpr int TY = HM_TY, TZ = HM_TZ, NT = HM_NT, IZ = HM_IZ, IN = HM_IN;
   constexpr int R = HM_RING, AH = HM_AHEAD;
+  constexpr bool IEEE = hm_ieee<T, E>;
   const Chunk& c = m.c;
   const Geo& g = c.geo;
   const int tid = threadIdx.x;
@@ -275,7 +228,7 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
   }
   const long long psize = (long long)g.G[1] * g.G[2];
   auto stage = [&](int i) {
-    const int p = HmEdges::plane(xa - 1 + i, s0), slot = i % R;
+    const int p = E::plane(xa - 1 + i, s0), slot = i % R;
     const long long base = ((long long)b[0] * s0 + p) * psize;
 #pragma unroll
     for (int f = 0; f < 2; ++f) {
@@ -318,11 +271,11 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
                 !zspecial;
     // A simple cell's target is its own position, frozen by y or z alike
     // in every plane.
-    fyz[n] = HmEdges::frozen(c, 1, b[1], j[n]) ||
-             HmEdges::frozen(c, 2, b[2], k);
+    fyz[n] = E::frozen(c, 1, b[1], j[n]) || E::frozen(c, 2, b[2], k);
     ins[n] = (b[1] * s1 + j[n]) * g.G[2] + b[2] * s2 + k;
-    ino[n] = hm_at(m.rows, OG, tb, 0, j[n] - m.first[1], k - m.first[2]) -
-             (long long)b[0] * m.rows[0] * opsize;
+    ino[n] =
+        march_at(m.rows, OG, tb, 0, j[n] - m.first[1], k - m.first[2]) -
+        (long long)b[0] * m.rows[0] * opsize;
   }
   int ih = -1;
   if (tid < HM_HALO) {
@@ -350,7 +303,7 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
                           // fluxes below plane t
 #pragma unroll
   for (int n = 0; n < CPT; ++n) {
-    kown[n] = hm_perm(fring[io[n]], m);
+    kown[n] = hm_perm<IEEE>(fring[io[n]], m);
     qlo[n] = T(0);
   }
   for (int u = 0, t = xa - 1; t < xb; ++u, ++t) {
@@ -369,39 +322,39 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
 #pragma unroll
     for (int n = 0; n < CPT; ++n) {
       const int i = io[n];
-      const T knext = hm_perm(ph1[i], m);
+      const T knext = hm_perm<IEEE>(ph1[i], m);
       k1[i] = knext;
       const T fx = hm_flow(kown[n], knext, pe0[i], pe1[i]);
       kown[n] = knext;
       if (t >= xa) {
         const T fy = hm_flow(k0[i - IZ], k0[i], pe0[i - IZ], pe0[i]);
         const T fz = hm_flow(k0[i - 1], k0[i], pe0[i - 1], pe0[i]);
-        HmBatch<T> D;
+        HmBatch<T, IEEE> D;
         T a = D(fx, m.qx), ay = D(fy, m.qy), az = D(fz, m.qz);
         if (!D.ok) {
-          a = hm_div(fx, m.qx);
-          ay = hm_div(fy, m.qy);
-          az = hm_div(fz, m.qz);
+          a = hm_div<IEEE>(fx, m.qx);
+          ay = hm_div<IEEE>(fy, m.qy);
+          az = hm_div<IEEE>(fz, m.qz);
         }
         qhi[n] = a;
         const int oa = tid / TZ + n * NR;
         qy[oa * TZ + oc] = ay;
         qz[oa * (TZ + 1) + oc] = az;
       } else {
-        qhi[n] = hm_div(fx, m.qx);
+        qhi[n] = hm_div<IEEE>(fx, m.qx);
       }
     }
-    if (ih >= 0) k1[ih] = hm_perm(ph1[ih], m);
+    if (ih >= 0) k1[ih] = hm_perm<IEEE>(ph1[ih], m);
     if (t >= xa) {
       if (qy_extra) {  // the y faces above the tile's last row
         const int e = tid - HM_QY0, i = TY * IZ + e + 1;
-        qy[TY * TZ + e] =
-            hm_div(hm_flow(k0[i], k0[i + IZ], pe0[i], pe0[i + IZ]), m.qy);
+        qy[TY * TZ + e] = hm_div<IEEE>(
+            hm_flow(k0[i], k0[i + IZ], pe0[i], pe0[i + IZ]), m.qy);
       }
       if (qz_extra) {  // the z faces right of the tile's last column
         const int e = tid - HM_QZ0, i = (e + 1) * IZ + TZ;
-        qz[e * (TZ + 1) + TZ] =
-            hm_div(hm_flow(k0[i], k0[i + 1], pe0[i], pe0[i + 1]), m.qz);
+        qz[e * (TZ + 1) + TZ] = hm_div<IEEE>(
+            hm_flow(k0[i], k0[i + 1], pe0[i], pe0[i + 1]), m.qz);
       }
     }
     march_wait<AH - 1>();
@@ -417,8 +370,9 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
     if (t < xa) continue;
 
     // The update of the own cells of plane t (hm3d.cuh's cell), their
-    // targets, the band halo.
-    const bool fx0 = HmEdges::frozen(c, 0, b[0], t);
+    // targets, the freezes.  A chunk keeps a block's outermost x rows.
+    const bool fx0 = E::frozen(c, 0, b[0], t);
+    const bool xin = !E::CHUNK || (t >= 1 && t <= s0 - 2);
     const long long op = (long long)(b[0] * m.rows[0] + t - m.first[0]) *
                          opsize;
     const long long sp = ((long long)b[0] * s0 + t) * psize;
@@ -428,26 +382,26 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
       const int i = io[n], oa = tid / TZ + n * NR;
       const T pe = pe0[i], ph = ph0[i];
       T pn = pe, fn = ph;
-      if (inner[n]) {
+      if (inner[n] && xin) {
         const T dqx = qhi[n] - qxl[n];
         const T dqy = qy[(oa + 1) * TZ + oc] - qy[oa * TZ + oc];
         const T dqz = qz[oa * (TZ + 1) + oc + 1] - qz[oa * (TZ + 1) + oc];
         const T pp = pe * ph;
-        HmBatch<T> D;
+        HmBatch<T, IEEE> D;
         T a = D(dqx, m.qx), ay = D(dqy, m.qy), az = D(dqz, m.qz),
           ae = D(pp, m.qe);
         if (!D.ok) {
-          a = hm_div(dqx, m.qx);
-          ay = hm_div(dqy, m.qy);
-          az = hm_div(dqz, m.qz);
-          ae = hm_div(pp, m.qe);
+          a = hm_div<IEEE>(dqx, m.qx);
+          ay = hm_div<IEEE>(dqy, m.qy);
+          az = hm_div<IEEE>(dqz, m.qz);
+          ae = hm_div<IEEE>(pp, m.qe);
         }
         T divq = a;
         divq = divq + ay;
         divq = divq + az;
         const T dpe = m.dt * (-divq - ae);
         pn = pe + dpe;
-        const T dph = m.dt * hm_div((-ph * (T(1) - ph)) * pn, m.qe);
+        const T dph = m.dt * hm_div<IEEE>((-ph * (T(1) - ph)) * pn, m.qe);
         fn = ph + dph;
       }
       if (simple[n]) {
@@ -458,20 +412,23 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
       }
       int tgy[3], tgz[3];
       const int ny =
-          hm_targets(j[n], wy, m.first[1], m.rows[1], s1, m.ol[1], tgy);
-      const int nz = hm_targets(k, wz, m.first[2], m.rows[2], s2, m.ol[2], tgz);
+          march_targets(j[n], wy, m.first[1], m.rows[1], s1, m.ol[1], tgy);
+      const int nz =
+          march_targets(k, wz, m.first[2], m.rows[2], s2, m.ol[2], tgz);
 #pragma unroll 1
       for (int a = 0; a < ny * nz; ++a) {
         const int yt = tgy[a / nz], zt = tgz[a % nz];
         const int ya = yt + m.first[1];
-        const bool fz = HmEdges::frozen(c, 2, b[2], zt + m.first[2]);
-        const long long o = op + hm_at(m.rows, OG, tb, 0, yt, zt) -
+        const bool fz = E::frozen(c, 2, b[2], zt + m.first[2]);
+        const long long o = op + march_at(m.rows, OG, tb, 0, yt, zt) -
                             (long long)b[0] * m.rows[0] * opsize;
-        if (fz || HmEdges::frozen(c, 1, b[1], ya) || fx0) {
+        if (fz || E::frozen(c, 1, b[1], ya) || fx0) {
+          // The band takes F at the source's z (band_halo's order), the
+          // chunk at the target cell.
           const long long q = sp +
-                              (b[1] * s1 + (fz ? ya : j[n])) *
+                              (b[1] * s1 + (fz || E::CHUNK ? ya : j[n])) *
                                   (long long)g.G[2] +
-                              b[2] * s2 + k;
+                              b[2] * s2 + (E::CHUNK ? zt + m.first[2] : k);
           m.out[0][o] = ld(m.F[0] + q);
           m.out[1][o] = ld(m.F[1] + q);
         } else {
@@ -488,36 +445,50 @@ size_t hm_march_smem_bytes() {
   return sizeof(T) * (size_t)HM_ELEMS;
 }
 
-// Launch one banded iteration: thread blocks of HM_NT threads over (z
-// tiles, y tiles, x segments) of every block.
-template <typename T>
+// Launch one banded iteration or chunk step (E: the edge rules): thread
+// blocks of HM_NT threads over (z tiles, y tiles, x segments) of every
+// block.
+template <typename T, class E>
 int launch_hm_march(HmArgs<T> m, cudaStream_t stream) {
-  const Geo& g = m.c.geo;
-  m.ty = (m.rows[1] + HM_TY - 1) / HM_TY;
-  m.tz = (m.rows[2] + HM_TZ - 1) / HM_TZ;
-  const int rows = m.rows[0];
-  const long long tiles = (long long)m.ty * m.tz * g.n[0] * g.n[1] * g.n[2];
-  long long nseg = (HM_BLOCKS + tiles - 1) / tiles;
-  const long long most = rows / HM_MIN_SEG > 1 ? rows / HM_MIN_SEG : 1;
-  if (nseg > most) nseg = most;
-  m.seg = (int)((rows + nseg - 1) / nseg);
-  m.nseg = (rows + m.seg - 1) / m.seg;
-  const long long gx = (long long)m.tz * g.n[2], gy = (long long)m.ty * g.n[1];
-  const long long gz = (long long)m.nseg * g.n[0];
-  if (gx > 0x7fffffffLL || gy > 65535 || gz > 65535)
-    return (int)cudaErrorInvalidConfiguration;
-  if ((long long)g.G[1] * g.G[2] > 0x7fffffffLL)  // 32-bit in-plane offsets
-    return (int)cudaErrorInvalidValue;
+  dim3 grid;
+  const int err = march_grid(m, HM_TY, HM_TZ, HM_BLOCKS, HM_MIN_SEG, grid);
+  if (err) return err;
   const size_t bytes = hm_march_smem_bytes<T>();
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        hm_march_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        hm_march_kernel<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);
-  hm_march_kernel<T><<<grid, HM_NT, bytes, stream>>>(m);
+  hm_march_kernel<T, E><<<grid, HM_NT, bytes, stream>>>(m);
   return (int)cudaGetLastError();
+}
+
+// One launch of the march with the edge rules E on the layout `cfg`
+// (chunk_engine.band_cfg for BandEdges, chunk_cfg for ChunkEdges): src, F,
+// out the (Pe, phi) pointers of the sources, the chunk-entry buffers and
+// the targets; coef dx dy dz dt phi0 eta, each rounded once to T.
+template <typename T, class E>
+int run_hm_march(void* const* src, void* const* F, void* const* out,
+                 const int* cfg, const double* coef, int npow,
+                 cudaStream_t stream) {
+  HmArgs<T> m;
+  const bool ok = E::CHUNK ? march_chunk_layout(cfg, m)
+                           : march_band_layout(cfg, m);
+  if (!ok || npow < 0) return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < 2; ++f) {
+    m.src[f] = static_cast<const T*>(src[f]);
+    m.F[f] = static_cast<const T*>(F[f]);
+    m.out[f] = static_cast<T*>(out[f]);
+  }
+  m.qx = make_div((T)coef[0]);
+  m.qy = make_div((T)coef[1]);
+  m.qz = make_div((T)coef[2]);
+  m.dt = (T)coef[3];
+  m.q0 = make_div((T)coef[4]);
+  m.qe = make_div((T)coef[5]);
+  m.npow = npow;
+  return launch_hm_march<T, E>(m, stream);
 }
 
 }  // namespace igg

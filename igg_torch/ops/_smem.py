@@ -7,11 +7,13 @@ a scoped-VMEM cap.  On the H100 the band walks (`csrc/band_walk.cuh`,
 limit that binds is the shared memory a thread block may use: 232,448
 bytes (227 KB, opted into with `cudaFuncAttributeMaxDynamicSharedMemorySize`
 above the default 48 KB).  :func:`banded_smem` is the bytes one thread
-block of those walks stages, igg's gate for every band kernel: the HM3D
-and Stokes band kernels march x in segments of their own
-(`csrc/hm3d_march.cuh`, `csrc/stokes_march.cuh`), hold the same shared
-memory at every band depth, and are held to the gate all the same, so
-that the tier admits what igg's admits.  :func:`fit_banded` keeps igg's
+block of those walks stages, igg's gate for every band kernel: the
+diffusion, HM3D and Stokes band kernels march x in segments of their own
+(`csrc/diffusion_march.cuh`, `csrc/hm3d_march.cuh`,
+`csrc/stokes_march.cuh`), hold the same shared memory at every band
+depth, and are held to the gate all the same, so that the tier admits
+what igg's admits; only the generated rank-3 band entries stage a band's
+window.  :func:`fit_banded` keeps igg's
 `(K, B)` search.  No override or autotune hook: those come with the perf
 ledger and the autotuner.
 """

@@ -24,7 +24,8 @@ step), ``"frozen"`` (open, one block: both boundary planes re-frozen).
 
 The plain window realization (:func:`window_chunk_plain`, igg's
 `window_chunk_xla`) is the plain version of every family's chunk kernel
-(`csrc/chunk_walk.cuh` for diffusion and HM3D, `csrc/stagger_walk.cuh` for
+(`csrc/chunk_walk.cuh` for diffusion, the HM3D x-march
+`csrc/hm3d_march.cuh` with the chunk's edge rules, `csrc/stagger_walk.cuh` for
 wave2d and rank-2 specs, `csrc/stagger_walk3.cuh` for Stokes and rank-3
 specs); :func:`chunk_cfg` and :func:`stagger_cfg` give the walks' kernels
 the layout.
@@ -44,8 +45,9 @@ of :func:`band_halo`.  Its shoulders differ from the window realization's
 :func:`banded_window_plain` is the plain version of the band kernels, of
 any rank; :func:`streaming_chunk_call` their launcher, which on the card
 takes 3-D fields only, as igg's compiled streaming kernel does
-(layout :func:`band_cfg`: diffusion on `csrc/band_walk.cuh`, HM3D on its
-x-march `csrc/hm3d_march.cuh`; layout :func:`stagger_band_cfg`: Stokes on
+(layout :func:`band_cfg`: diffusion and HM3D on their x-marches
+`csrc/diffusion_march.cuh` and `csrc/hm3d_march.cuh`; layout
+:func:`stagger_band_cfg`: Stokes on
 the Stokes march's band mode `csrc/stokes_march.cuh`, rank-3 specs on
 `csrc/stagger_band_walk3.cuh`); :func:`banded_refusal` and
 :func:`admit_banded_geometry` their gates and `igg_torch.ops._smem` their
@@ -61,12 +63,13 @@ device buffers).  igg compiles its streaming kernel for 3-D fields only
 (wave2d's and rank-2 specs' banded tiers run its interpret mode), and so
 does the port: on the card a 2-D field gets igg's refusal.  The TPU's
 resident kernel has its counterpart in the chunk kernels of
-`csrc/chunk_walk.cuh` (diffusion and HM3D) and `csrc/stokes_chunk.cu`, the
-whole-window kernel its wave2d instance in `csrc/wave2d_chunk.cu` and its
-spec instances generated by `igg_torch.stencil.cuda`, the streaming kernel
-its diffusion instance in `csrc/band_walk.cuh`, its HM3D and Stokes
-instances in the x-marches `csrc/hm3d_march.cuh` and `csrc/stokes_march.cuh`
-and its rank-3 spec instances in `csrc/stagger_band_walk3.cuh`.
+`csrc/chunk_walk.cuh` (diffusion), `csrc/hm3d_march.cuh` (HM3D) and
+`csrc/stokes_chunk.cu`, the whole-window kernel its wave2d instance in
+`csrc/wave2d_chunk.cu` and its spec instances generated by
+`igg_torch.stencil.cuda`, the streaming kernel its diffusion, HM3D and
+Stokes instances in the x-marches `csrc/diffusion_march.cuh`,
+`csrc/hm3d_march.cuh` and `csrc/stokes_march.cuh` and its rank-3 spec
+instances in `csrc/stagger_band_walk3.cuh`.
 """
 
 from __future__ import annotations
@@ -410,7 +413,9 @@ def check_chunk_buffers(exts, shapes, E: int, modes, grid, dtypes) -> None:
 
 def chunk_cfg(ext_stacked, local, E: int, modes, grid, last: bool):
     """The chunk layout the 3-D walk's chunk kernels take (`make_chunk` in
-    `csrc/chunk_walk.cuh`), as a ctypes int array: blocks, extended local
+    `csrc/chunk_walk.cuh`; the HM3D chunk march's `march_chunk_layout` in
+    `csrc/march_layout.cuh`, its wraps of overlap 2), as a ctypes int
+    array: blocks, extended local
     extents, modes, the freeze rows (margin `E`), `last`, the central
     window's offsets and the output's local extents."""
     ext_local = [ext_stacked[d] // grid.dims[d] for d in range(3)]
@@ -654,9 +659,9 @@ def banded_window_plain(fields, *, K: int, B: int, lo: int, modes, grid, ols,
 
 def band_cfg(ext_stacked, local, E: int, modes, grid, last: bool, *, B: int,
              lo: int, extra: int, ols):
-    """The layout the unstaggered band kernels take (`make_band` in
-    `csrc/band_walk.cuh`, `make_hm_march` in `csrc/hm3d_march.cuh`), as a
-    ctypes int array: :func:`chunk_cfg`, then
+    """The layout the unstaggered band kernels take (`march_band_layout`
+    in `csrc/march_layout.cuh`, and `make_band` in `csrc/band_walk.cuh` of
+    their first designs), as a ctypes int array: :func:`chunk_cfg`, then
     the band depth, the read margins below and above a band, and the wrap
     overlaps of y and z (`ols` of one field)."""
     cfg = list(chunk_cfg(ext_stacked, local, E, modes, grid, last))

@@ -18,7 +18,9 @@ Replaces `igg/ops/diffusion_trapezoid.py` (`_kernel`, `_chunk_call`,
 The streaming banded tier (igg's `diffusion3d.banded`): the same K-step
 chunks, each iteration swept in x-row bands of depth B (kernel
 `igg_diffusion_band_step`, csrc/diffusion_band.cu, one launch per
-iteration; plain version `chunk_engine.banded_window_plain` with
+iteration: the x-march of csrc/diffusion_march.cuh, x walked in segments
+of its own, since the bands do not change the function; plain version
+`chunk_engine.banded_window_plain` with
 :func:`banded_update`).  igg needed it where VMEM refused the resident
 window; the card has no such limit, so the models take it only where the
 resident routes refuse, or when asked (:func:`banded_refusal`,

@@ -1,5 +1,6 @@
 """K-step trapezoid chunks of the HM3D step on grids of several blocks:
-kernel `igg_hm3d_chunk_step` (csrc/hm3d_chunk.cu).
+kernel `igg_hm3d_chunk_step` (csrc/hm3d_chunk.cu: the x-march of
+csrc/hm3d_march.cuh with the chunk's edge rules).
 
 The coupled update is radius 1 in both fields (`dPe` reads Pe and phi at
 +-1, `dphi` the new Pe at the same cell), so the validity front shrinks one

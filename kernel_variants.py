@@ -42,14 +42,15 @@ contains it.  The variants are the design choices the sources record:
   row first (gridDim.x over the x rows, gridDim.z over the z tiles), so
   the blocks in flight together share their neighbour rows along x;
 - the Stokes chunk and band kernels' x-march (`stokes_march.cuh`,
-  `const_div.cuh`; the division variants reach the HM3D band march too):
+  `const_div.cuh`; the division variants reach the HM3D marches too):
   - `march_div_ieee` divides by `x / d` throughout, `march_div_vote` by
     a warp-uniform test (`x / d` unless a lane divides a zero, which then
     takes its signed zero) instead of the reciprocal path,
     `march_div_mul` by the reciprocal alone (not bitwise, never shipped:
     what the corrections cost);
-  - `march_sync_staging` stages the marches' planes (Stokes and HM3D,
-    `async_copy.cuh`) with plain loads and stores instead of `cp.async`
+  - `march_sync_staging` stages the marches' planes (Stokes, HM3D and
+    diffusion, `async_copy.cuh`) with plain loads and stores instead of
+    `cp.async`
     (TMA is no option: a tensor map needs row strides of whole 16 bytes,
     and Vz's rows are s2 + 1 cells);
     `march_ahead_2` stages each plane a step earlier (rings one plane
@@ -64,8 +65,11 @@ contains it.  The variants are the design choices the sources record:
     cut it until a launch has that many thread blocks (8192 as built);
 - `pack_threads_128`: the plane packer in thread blocks of 128 threads
   (128 (x, y) rows a z block) instead of 256;
-- the HM3D band kernel's x-march (`hm3d_march.cuh`): `hm_div_ieee`
-  divides by `x / d` throughout; `hm_ahead_2` and `hm_ahead_3` stage each
+- the HM3D band and chunk kernels' x-march (`hm3d_march.cuh`; each
+  variant times both): `hm_div_ieee` divides by `x / d` throughout,
+  `hm_div_ieee_f32` in float32 only (as built: the chunk kernel in
+  float32), `hm_div_const` by `const_div.cuh` throughout;
+  `hm_ahead_2` and `hm_ahead_3` stage each
   plane one or two steps earlier (rings as much deeper), and
   `hm_ahead_2_bounds_f32_6` also bounds float32 registers for 6 thread
   blocks an SM; `hm_tile_8x32`, `hm_tile_4x64` (a cell a thread),
@@ -75,12 +79,28 @@ contains it.  The variants are the design choices the sources record:
   that many thread blocks (8192 as built) or none; `hm_bounds_f32_3`,
   `_f32_6`, `_f64_2` and `_f64_4`: registers bounded for other numbers of
   thread blocks an SM (4 in float32 and 3 in float64 as built);
+- the diffusion band kernel's x-march (`diffusion_march.cuh`):
+  `dm_tile_8x32`, `dm_tile_16x32` and `dm_tile_32x16` (the last two two
+  cells a thread): (y, z) tiles other than 16 x 16; `dm_ahead_0` and
+  `dm_ahead_2`: T's ring one plane shallower or deeper (planes in flight
+  while a plane is updated); `dm_blocks_2048`, `dm_blocks_32768` and
+  `dm_no_segments`: segments cut until a launch has that many thread
+  blocks (8192 as built) or none, `dm_min_seg_16` and `dm_min_seg_32`
+  segments of at least 16 or 32 rows (8 as built); `dm_bounds_f32_4`,
+  `_f32_5`, `_f32_8`, `_f64_5` and `_f64_8`: registers bounded for other
+  numbers of
+  thread blocks an SM (6 in float32 and 3 in float64 as built);
+  `dm_no_wrap_writes` writes every cell to its own position only (not
+  bitwise where y or z wraps, never shipped: what the wraps' targets
+  cost);
 - `first_designs`: the kernels redesigned since as they were before:
   the Stokes chunk step (the Stokes walk's 2-cell runs), the plane packer
   (a request per blockIdx.y), the Stokes band step (a thread block per
   band and tile on `stagger_band_walk3.cuh`, stokes.cuh's one-cell
-  update) and the HM3D band step (the same on `band_walk.cuh` with
-  hm3d.cuh's), rebuilt from the text kept here (`FIRST_DESIGNS`);
+  update), the HM3D and diffusion band steps (the same on `band_walk.cuh`
+  with hm3d.cuh's and diffusion.cuh's) and the HM3D chunk step (the chunk
+  walk, `chunk_walk.cuh`, with hm3d.cuh's), rebuilt from the text kept
+  here (`FIRST_DESIGNS`);
 - `band_row_staging`: the staggered band walk (now the generated rank-3
   band entries' only) staging its windows a warp
   per (x, y) row of a window, the row's offset formed once, its lanes
@@ -390,9 +410,90 @@ extern "C" int igg_hm3d_band_step(void* const* src, void* const* F,
   return (int)cudaErrorInvalidValue;
 }
 """
+# The HM3D chunk step's first design: the unstaggered chunk walk
+# (chunk_walk.cuh, a thread per 16 bytes of a z row) with hm3d.cuh's
+# update; the diffusion band step's: the band walk (band_walk.cuh) with
+# diffusion.cuh's, the policy given the arrays the walk stages.
+HM3D_CHUNK_FIRST = """#include "chunk_walk.cuh"
+#include "hm3d.cuh"
+
+namespace {
+
+template <typename T>
+int launch(void* const* src, void* const* F, void* const* out,
+           const igg::Chunk& c, const double* coef, int npow,
+           cudaStream_t stream) {
+  return igg::launch_chunk(
+      igg::make_hm3d<T>(src[0], src[1], coef, npow), c,
+      igg::Fields<const T, 2>{
+          {static_cast<const T*>(F[0]), static_cast<const T*>(F[1])}},
+      igg::Fields<T, 2>{{static_cast<T*>(out[0]), static_cast<T*>(out[1])}},
+      stream);
+}
+
+}  // namespace
+
+extern "C" int igg_hm3d_chunk_step(void* const* src, void* const* F,
+                                   void* const* out, int dtype, const int* cfg,
+                                   const double* coef, int npow,
+                                   void* stream) {
+  igg::Chunk c;
+  if (!igg::make_chunk(cfg, c) || npow < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(src, F, out, c, coef, npow, st);
+  if (dtype == 1) return launch<double>(src, F, out, c, coef, npow, st);
+  return (int)cudaErrorInvalidValue;
+}
+"""
+DIFFUSION_BAND_FIRST = """#include "band_walk.cuh"
+#include "diffusion.cuh"
+
+namespace {
+// The arrays the band walk stages: T, then A.
+template <typename T>
+struct DiffusionBand : igg::Diffusion<T> {
+  static constexpr int NS = 2;
+  __device__ __forceinline__ const T* staged(int k) const {
+    return k == 0 ? this->src[0] : this->A;
+  }
+  __device__ __forceinline__ void restage(int k, const T* p) {
+    if (k == 0)
+      this->src[0] = p;
+    else
+      this->A = p;
+  }
+};
+
+template <typename T>
+int launch(const void* src, const void* A, const void* F, void* out,
+           const igg::Band& b, double cx, double cy, double cz, double cc,
+           cudaStream_t stream) {
+  return igg::launch_band(
+      DiffusionBand<T>{igg::make_diffusion<T>(src, A, cx, cy, cz, cc)}, b,
+                          igg::Fields<const T, 1>{{static_cast<const T*>(F)}},
+                          igg::Fields<T, 1>{{static_cast<T*>(out)}}, stream);
+}
+
+}  // namespace
+
+extern "C" int igg_diffusion_band_step(const void* src, const void* A,
+                                       const void* F, void* out, int dtype,
+                                       const int* cfg, double cx, double cy,
+                                       double cz, double cc, void* stream) {
+  igg::Band b;
+  if (!igg::make_band(cfg, b)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(src, A, F, out, b, cx, cy, cz, cc, st);
+  if (dtype == 1)
+    return launch<double>(src, A, F, out, b, cx, cy, cz, cc, st);
+  return (int)cudaErrorInvalidValue;
+}
+"""
 FIRST_DESIGNS = {"stokes_chunk.cu": CHUNK_FIRST, "pack_planes.cu": PACK_FIRST,
                  "stokes_band.cu": STOKES_BAND_FIRST,
-                 "hm3d_band.cu": HM3D_BAND_FIRST}
+                 "hm3d_band.cu": HM3D_BAND_FIRST,
+                 "hm3d_chunk.cu": HM3D_CHUNK_FIRST,
+                 "diffusion_band.cu": DIFFUSION_BAND_FIRST}
 
 
 def first_design(name, text):
@@ -450,13 +551,28 @@ def hm_const(name, old, new):
                           f"constexpr int {name} = {new};"))
 
 
-# The HM3D march's divisions by `x / d` (its own, not the Stokes ones').
-HM_DIV_IEEE = stokes_edit(
-    hm("  return cdiv(x, q);\n}", "  return x / q.d;\n}"),
-    hm("using HmBatch = DivBatch<T>;",
-       "struct HmBatch {\n  bool ok = true;\n"
-       "  __device__ __forceinline__ T operator()(T x, const ConstDiv<T>& q) "
-       "{\n    return x / q.d;\n  }\n};"))
+# The HM3D march's divisions by `x / d` (its own, not the Stokes ones'):
+# in both types and both instances, in float32 only, or nowhere.
+HM_IEEE = "constexpr bool hm_ieee = E::CHUNK && sizeof(T) == 4;"
+HM_DIV_IEEE = stokes_edit(hm(HM_IEEE, "constexpr bool hm_ieee = true;"))
+HM_DIV_IEEE_F32 = stokes_edit(hm(HM_IEEE,
+                                 "constexpr bool hm_ieee = sizeof(T) == 4;"))
+HM_DIV_CONST = stokes_edit(hm(HM_IEEE, "constexpr bool hm_ieee = false;"))
+
+
+def dm(old, new):
+    return ("diffusion_march.cuh", old, new)
+
+
+def dm_tile(ty, tz):
+    return stokes_edit(
+        dm("constexpr int DM_TY = 16; ", f"constexpr int DM_TY = {ty}; "),
+        dm("constexpr int DM_TZ = 16; ", f"constexpr int DM_TZ = {tz}; "))
+
+
+def dm_const(name, old, new):
+    return stokes_edit(dm(f"constexpr int {name} = {old};",
+                          f"constexpr int {name} = {new};"))
 
 
 VARIANTS = {
@@ -538,6 +654,26 @@ VARIANTS = {
     "hm_bounds_f32_6": (hm_const("HM_MIN_BLOCKS_F32", 4, 6), []),
     "hm_bounds_f64_2": (hm_const("HM_MIN_BLOCKS_F64", 3, 2), []),
     "hm_bounds_f64_4": (hm_const("HM_MIN_BLOCKS_F64", 3, 4), []),
+    "hm_div_ieee_f32": (HM_DIV_IEEE_F32, []),
+    "hm_div_const": (HM_DIV_CONST, []),
+    "dm_tile_8x32": (dm_tile(8, 32), []),
+    "dm_tile_16x32": (dm_tile(16, 32), []),
+    "dm_tile_32x16": (dm_tile(32, 16), []),
+    "dm_ahead_0": (dm_const("DM_AHEAD", 1, 0), []),
+    "dm_ahead_2": (dm_const("DM_AHEAD", 1, 2), []),
+    "dm_blocks_2048": (dm_const("DM_BLOCKS", 8192, 2048), []),
+    "dm_blocks_32768": (dm_const("DM_BLOCKS", 8192, 32768), []),
+    "dm_no_segments": (dm_const("DM_BLOCKS", 8192, 1), []),
+    "dm_no_wrap_writes": (stokes_edit(dm(
+        "      if (!WRAPS || (tb[n] & 63) == 9) {", "      if (true) {")), []),
+    "dm_min_seg_16": (dm_const("DM_MIN_SEG", 8, 16), []),
+    "dm_min_seg_32": (dm_const("DM_MIN_SEG", 8, 32), []),
+
+    "dm_bounds_f32_4": (dm_const("DM_MIN_BLOCKS_F32", 6, 4), []),
+    "dm_bounds_f32_5": (dm_const("DM_MIN_BLOCKS_F32", 6, 5), []),
+    "dm_bounds_f32_8": (dm_const("DM_MIN_BLOCKS_F32", 6, 8), []),
+    "dm_bounds_f64_5": (dm_const("DM_MIN_BLOCKS_F64", 3, 5), []),
+    "dm_bounds_f64_8": (dm_const("DM_MIN_BLOCKS_F64", 3, 8), []),
     "march_no_segments": (stokes_edit(march(
         "constexpr int MARCH_BLOCKS = 8192; ",
         "constexpr int MARCH_BLOCKS = 1; ")), []),
@@ -556,11 +692,11 @@ TARGETS = {v: MARCH for v in VARIANTS if v.startswith("march_")}
 TARGETS.update(
     {v: ("stokes_step",) for v in ("stokes_vec_16B", "stokes_bounds_3",
                                    "stokes_zero_quot", "stokes_x_fastest")},
-    vec_8B=("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk"),
+    vec_8B=("diffusion_step", "diffusion_chunk", "hm3d_step"),
     band_row_staging=(RELAX3D,), band_bounds_1=(RELAX3D,),
-    **{v: MARCH + ("hm3d_band",) for v in ("march_div_ieee", "march_div_vote",
-                                           "march_div_mul",
-                                           "march_sync_staging")})
+    march_sync_staging=MARCH + ("hm3d_band", "hm3d_chunk", "diffusion_band"),
+    **{v: MARCH + ("hm3d_band", "hm3d_chunk")
+       for v in ("march_div_ieee", "march_div_vote", "march_div_mul")})
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
         "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
         "stokes_band", "pack_planes", "diffusion_band", "hm3d_band")
@@ -763,15 +899,27 @@ def cases(dev):
                                           g.dims, p.step_kwargs(), out=out), 1
         return setup
 
-    def hm3d_chunk():
-        g = grid(dimx=2, dimy=2, dimz=2, periodx=1, periody=1, periodz=1)
-        modes = ce.dim_modes(g)
-        Pe = -0.5 * torch.rand(it.stacked_shape(g.nxyz), device=dev)
-        exts = ce.extend_fields([Pe, 0.1 + 0.1 * torch.rand_like(Pe)],
-                                ce.field_ols(g, [g.nxyz]) * 2, K, g, modes)
-        kw = h3.Params().step_kwargs()
-        return lambda: htz.chunk_call(exts, g.nxyz, K=K, modes=modes, grid=g,
-                                      kw=kw), K
+    def hm3d_chunk(state="random", dtype=torch.float32):
+        """One K = 8 chunk of the HM3D chunk kernel on 2x2x2 periodic
+        blocks of 256^3 (8 extended blocks of 272^3), random fields or
+        `init_fields`."""
+        def setup():
+            g = grid(dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
+                     periodz=1)
+            modes = ce.dim_modes(g)
+            p = h3.Params()
+            if state == "random":
+                Pe = -0.5 * torch.rand(it.stacked_shape(g.nxyz), device=dev,
+                                       dtype=dtype)
+                phi = 0.1 + 0.1 * torch.rand_like(Pe)
+            else:
+                Pe, phi = h3.init_fields(p, dtype=dtype)
+            exts = ce.extend_fields([Pe, phi], ce.field_ols(g, [g.nxyz]) * 2,
+                                    K, g, modes)
+            kw = p.step_kwargs()
+            return lambda: htz.chunk_call(exts, g.nxyz, K=K, modes=modes,
+                                          grid=g, kw=kw), K
+        return setup
 
     def wave2d(blocks, chunk):
         """The wave2d step or K-step chunk on `blocks` x 1 blocks of
@@ -889,17 +1037,21 @@ def cases(dev):
                                          grid=g, kw=kw), K
         return setup
 
-    def diffusion_band():
+    def diffusion_band(dtype=torch.float32, blocks=2):
         """One K = 8 banded chunk (B = 8) of the diffusion band kernel on
-        2x2x2 open blocks of 256^3."""
-        g = grid(dimx=2, dimy=2, dimz=2)
-        modes = ce.dim_modes(g)
-        T = torch.rand(it.stacked_shape(g.nxyz), device=dev)
-        Text, A_ext = ce.extend_fields([T, 0.01 * torch.rand_like(T)],
-                                       ce.field_ols(g, [g.nxyz]) * 2, K, g,
-                                       modes)
-        return lambda: dtz.band_call(Text, A_ext, g.nxyz, K=K, B=8,
-                                     modes=modes, grid=g, sc=sc), K
+        2x2x2 open blocks of 256^3, or on one periodic block (phase 16's
+        shapes)."""
+        def setup():
+            g = grid(**(dict(dimx=2, dimy=2, dimz=2) if blocks == 2
+                        else one_block))
+            modes = ce.dim_modes(g)
+            T = torch.rand(it.stacked_shape(g.nxyz), device=dev, dtype=dtype)
+            Text, A_ext = ce.extend_fields([T, 0.01 * torch.rand_like(T)],
+                                           ce.field_ols(g, [g.nxyz]) * 2, K,
+                                           g, modes)
+            return lambda: dtz.band_call(Text, A_ext, g.nxyz, K=K, B=8,
+                                         modes=modes, grid=g, sc=sc), K
+        return setup
 
     def relax3d_band():
         """One K = 8 banded chunk (B = 8) of relax3d's generated band kernel
@@ -926,7 +1078,11 @@ def cases(dev):
             ("hm3d_step_256_random", hm3d_step("random"), "hm3d_step"),
             ("hm3d_step_256_init_fields", hm3d_step("init_fields"),
              "hm3d_step"),
-            ("hm3d_chunk_2x2x2_256_periodic", hm3d_chunk, "hm3d_chunk"),
+            ("hm3d_chunk_2x2x2_256_periodic", hm3d_chunk(), "hm3d_chunk"),
+            ("hm3d_chunk_2x2x2_256_periodic_init_fields",
+             hm3d_chunk("init_fields"), "hm3d_chunk"),
+            ("hm3d_chunk_2x2x2_256_periodic_f64", hm3d_chunk(dtype=f64),
+             "hm3d_chunk"),
             ("wave2d_step_4096", wave2d(1, False), "wave2d_step"),
             ("wave2d_step_8x1_4096", wave2d(8, False), "wave2d_step"),
             ("wave2d_chunk_8x1_4096_periodic", wave2d(8, True),
@@ -950,7 +1106,11 @@ def cases(dev):
              "pack_planes"),
             ("pack_planes_2x2x2_256_f32_z_only", pack(torch.float32, (2,)),
              "pack_planes"),
-            ("diffusion_band_2x2x2_256_open", diffusion_band,
+            ("diffusion_band_2x2x2_256_open", diffusion_band(),
+             "diffusion_band"),
+            ("diffusion_band_2x2x2_256_open_f64", diffusion_band(f64),
+             "diffusion_band"),
+            ("diffusion_band_256_periodic", diffusion_band(blocks=1),
              "diffusion_band"),
             ("hm3d_band_2x2x2_256_periodic", hm3d_band(), "hm3d_band"),
             ("hm3d_band_2x2x2_256_periodic_init_fields",

@@ -19,17 +19,21 @@ elements, rows not 16-byte aligned), the Stokes chunk kernel's x-march
 `cp.async` staging as plain copies; whole extended buffers across several
 tiles) and its division (`csrc/const_div.cuh`, float32 and float64,
 against `x / d` over samples of all bit patterns, for the Stokes and the
-HM3D divisors), the diffusion band kernel (`csrc/band_walk.cuh`, whose
-threads share a staged window: each thread block's threads run as fibers
-that switch at `__syncthreads`), the HM3D band kernel (its x-march,
-`csrc/hm3d_march.cuh`), the Stokes band kernel (the Stokes march's band
+HM3D divisors, the HM3D chunk kernel's among them), the diffusion band
+kernel (its x-march, `csrc/diffusion_march.cuh`, whose threads share
+staged planes: each thread block's threads run as fibers that switch at
+`__syncthreads`), the HM3D band and chunk kernels (the x-march of
+`csrc/hm3d_march.cuh` with the band's and the chunk's edge rules,
+`csrc/march_layout.cuh`), the Stokes band kernel (the Stokes march's band
 mode) and the generated band entry of `relax3d` and the staggered
 `acoustic3d` (`csrc/stagger_band_walk3.cuh`) in every window mode, on
-their whole evolved buffers; the two band marches also in their edge
-cases: segments that cross the bands (built with shorter segments), tiles
-that cross the blocks' last y and z rows, and fields at rest; and the
-redesigned kernels' first designs, kept as text in kernel_variants.py to
-be timed beside them, against the plain versions too.  This
+their whole evolved buffers; the four marches also in their edge cases:
+segments that cross the bands (built with shorter segments), tiles that
+cross the blocks' last y and z rows, and fields at rest (the HM3D chunk
+and diffusion band marches in every layout of the chunk and band
+meshes); and the redesigned kernels' first designs, kept as text in
+kernel_variants.py to be timed beside them, against the plain versions
+too.  This
 checks the kernels' indexing, walks and arithmetic, not their
 CUDA-specific parts (vector loads, alignment, the launch), which
 `tests/test_torch_kernels.py` checks on a card.  Skips without g++.
@@ -83,6 +87,7 @@ struct dim3 {
 };
 struct uint3 { unsigned x, y, z; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
+inline int __ffs(int x) { return __builtin_ffs(x); }
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 inline long long __double_as_longlong(double x) {
@@ -720,17 +725,21 @@ def test_stokes_band_kernel_matches_plain(emulated, case, dtype, bands):
             same(a, b)
 
 
-# The band marches with segments of at least 3 x rows instead of 8, so that
+# The marches with segments of at least 3 x rows instead of 8, so that
 # the small blocks here are cut into segments that cross the bands.
 SHORT_SEGMENTS = (("stokes_march.cuh", "constexpr int MARCH_MIN_SEG = 8;",
                    "constexpr int MARCH_MIN_SEG = 3;"),
                   ("hm3d_march.cuh", "constexpr int HM_MIN_SEG = 8;",
-                   "constexpr int HM_MIN_SEG = 3;"))
+                   "constexpr int HM_MIN_SEG = 3;"),
+                  ("diffusion_march.cuh", "constexpr int DM_MIN_SEG = 8;",
+                   "constexpr int DM_MIN_SEG = 3;"))
+SHORT_SEGMENT_LIBS = ("stokes_band", "hm3d_band", "hm3d_chunk",
+                      "diffusion_band")
 
 
 @pytest.fixture(scope="module")
 def short_segments(csrc):
-    """The Stokes and HM3D band libraries built with SHORT_SEGMENTS."""
+    """The marches' libraries built with SHORT_SEGMENTS."""
     out = csrc / "short_segments"
     out.mkdir()
     for f in os.listdir(csrc):
@@ -749,11 +758,11 @@ def short_segments(csrc):
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         return name, lib
 
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        return dict(pool.map(build, ("stokes_band", "hm3d_band")))
+    with concurrent.futures.ThreadPoolExecutor(len(SHORT_SEGMENT_LIBS)) as pool:
+        return dict(pool.map(build, SHORT_SEGMENT_LIBS))
 
 
-# The band marches' edge cases, each beside the plain version: segments
+# The marches' edge cases, each beside the plain version: segments
 # that do not line up with the bands (SHORT_SEGMENTS), tiles that cross the
 # blocks' last y and z rows (y 13 and z 35 or 37: 19 to 26 rows with the
 # extension and the face row, tiles of 8 x 32 ending in 2 to 16 of them),
@@ -839,14 +848,104 @@ def test_hm3d_band_march_edge_cases(emulated, short_segments, case, kind,
             same(a, b)
 
 
+# The chunk meshes and z one periodic block over an open x and y, where
+# a wrapped z row takes F at its target's z, not at its source's.
+CHUNK_EDGE_GRIDS = dict(CHUNK_GRIDS, **{
+    "2x1x1_wrap_z_open_xy": ((2, 1, 1), (0, 0, 1))})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
+@pytest.mark.parametrize("case", sorted(CHUNK_EDGE_GRIDS))
+def test_hm3d_chunk_march_edge_cases(emulated, short_segments, case, kind,
+                                     dtype, monkeypatch):
+    """The HM3D chunk kernel (the HM3D march with the chunk's edge rules)
+    against `window_steps_plain` in the march's edge cases, every layout
+    of the chunk meshes: the whole evolved extended buffers of K = 3
+    launches (the shoulders show the freeze rows beyond lo and hi and the
+    outermost rows kept) and the central windows of a K = 3 chunk."""
+    from igg_torch.models import hm3d as h3
+
+    (dims, per), K = CHUNK_EDGE_GRIDS[case], 3
+    local = (18, 13, 37) if kind == "ragged_tiles" else (18, 10, 40)
+    if kind == "short_segments":
+        monkeypatch.setattr(htz, "library", short_segments.__getitem__)
+    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=dims[2], periodx=per[0],
+                        periody=per[1], periodz=per[2])
+    g = it.get_global_grid()
+    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
+    if kind == "at_rest":
+        state = h3.init_fields(h3.Params(), dtype=dtype)
+    else:
+        state = (_random(shp, dtype, -0.5, 0, 29),
+                 _random(shp, dtype, 0.05, 0.25, 30))
+    exts = ce.extend_fields(list(state), ce.field_ols(g, [g.nxyz]) * 2, K, g,
+                            modes)
+    want = htz.window_steps_plain(*exts, K=K, modes=modes, grid=g,
+                                  kw=HM3D_KW)
+    whole = _run_chunk(lambda src, dst, last: htz._launch(
+        src, exts, dst, g.nxyz, K, modes, g, HM3D_KW, False, 0), exts,
+        [torch.empty_like(X) for X in exts], K)
+    got = _run_chunk(lambda src, dst, last: htz._launch(
+        src, exts, dst, g.nxyz, K, modes, g, HM3D_KW, last, 0), exts,
+        [torch.empty(shp, dtype=dtype) for _ in range(2)], K)
+    for a, w, b in zip(got, whole, want):
+        same(w, b)
+        same(a, ce.central_window(b, g.nxyz, K, modes))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
+@pytest.mark.parametrize("case", sorted(BAND_GRIDS))
+def test_diffusion_band_march_edge_cases(emulated, short_segments, case, kind,
+                                         dtype, monkeypatch):
+    """The diffusion band kernel against `banded_window_plain` in the
+    march's edge cases, every layout of the band meshes: the whole evolved
+    extended buffer and the central window, two bands.  Its at-rest state
+    is the diffusion model's `init_fields` (T's anomalies in a field at
+    rest, A = 0.05 / Cp)."""
+    from igg_torch.models import diffusion3d as d3
+
+    (dims, per), K = BAND_GRIDS[case], 3
+    local = (18, 13, 37) if kind == "ragged_tiles" else (18, 10, 40)
+    if kind == "short_segments":
+        monkeypatch.setattr(dtz, "library", short_segments.__getitem__)
+    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
+                        dimy=dims[1], dimz=dims[2], periodx=per[0],
+                        periody=per[1], periodz=per[2])
+    g = it.get_global_grid()
+    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
+    if kind == "at_rest":
+        T, Cp = d3.init_fields(d3.Params(), dtype=dtype)
+        A = 0.05 / Cp
+    else:
+        T, A = (_random(shp, dtype, -10, 10, 31),
+                _random(shp, dtype, 0.001, 0.1, 32))
+    Text, A_ext = ce.extend_fields([T, A], ce.field_ols(g, [g.nxyz]) * 2, K,
+                                   g, modes)
+    B = ce.ext_shape(local, K, modes)[0] // 2
+    for central in (False, True):
+        got = _run_band(lambda src, dst, cfg: dtz._band_launch(
+            src[0], A_ext, Text, dst[0], cfg, SC, 0), [Text], local=local,
+            K=K, B=B, modes=modes, g=g, central=central)[0]
+        same(got, dtz.band_call(Text, A_ext, local, K=K, B=B, modes=modes,
+                                grid=g, sc=SC, central=central))
+
+
 # HM3D's divisors: phi0 and eta of its parameters, the checks' 1.3, and the
 # spacings 10 / (n_g - 1) of its phases (n_g 254 on one periodic 256^3
 # block, 508 on 2x2x2 periodic blocks of 256^3, 510 on open ones) and of
-# their neighbours.
+# their neighbours; and those of the chunk kernel's checks: HM3D_KW's
+# spacings and 10 / (n_g - 1) on the chunk meshes at 16^3 and 16 x 12 x 13
+# (chip_smoke.py), n_g from 10 to 114.
 @pytest.mark.parametrize("d", [0.1, 1.0, 1.3, 10 / 252, 10 / 253, 10 / 254,
-                               10 / 507, 10 / 508, 10 / 509])
+                               10 / 507, 10 / 508, 10 / 509, 0.31, 0.27,
+                               0.43] + [10 / (n - 1) for n in (
+                                   10, 11, 12, 13, 14, 16, 20, 22, 24, 28,
+                                   30, 56, 112, 114)])
 def test_hm3d_band_divisors_divide_as_ieee(emulated, d):
-    """The HM3D band kernel's division (`const_div.cuh`) by its divisors
+    """The HM3D marches' division (`const_div.cuh`) by their divisors
     bitwise `x / d`: float32 over 2^20 dividends spread over all 2^32 bit
     patterns and around its range's ends and zero, float64 over 2^18
     patterns spread over all 2^64; the card checks all 2^32 float32
@@ -887,18 +986,47 @@ def first_designs(csrc):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", ["hm3d_band", "pack_planes", "stokes_band",
+@pytest.mark.parametrize("name", ["diffusion_band", "hm3d_band", "hm3d_chunk",
+                                  "pack_planes", "stokes_band",
                                   "stokes_chunk"])
 def test_first_designs_match_plain(emulated, first_designs, name, dtype,
                                    monkeypatch):
     """The redesigned kernels' first designs, kept as text to be timed
     beside them, still build against the headers and equal the plain
-    versions: the band kernels on 2x2x2 blocks (HM3D periodic in y, Stokes
-    open), the Stokes chunk step on one periodic block, the packer on
-    2x2x2 blocks."""
-    for module in (htz, stz, pk):
+    versions: the band kernels on 2x2x2 blocks (diffusion periodic in z,
+    HM3D periodic in y, Stokes open), the Stokes chunk step on one periodic
+    block, the HM3D chunk step on 2x2x1 blocks (y and z periodic), the
+    packer on 2x2x2 blocks."""
+    for module in (dtz, htz, stz, pk):
         monkeypatch.setattr(module, "library", first_designs.__getitem__)
-    if name == "hm3d_band":
+    if name == "diffusion_band":
+        it.init_global_grid(18, 10, 40, quiet=True, device="cpu", dimx=2,
+                            dimy=2, dimz=2, periodz=1)
+        g = it.get_global_grid()
+        shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
+        ols = ce.field_ols(g, [g.nxyz]) * 2
+        Text, A_ext = ce.extend_fields([_random(shp, dtype, -10, 10, 25),
+                                        _random(shp, dtype, 0.001, 0.1, 26)],
+                                       ols, 3, g, modes)
+        got = _run_band(lambda src, dst, cfg: dtz._band_launch(
+            src[0], A_ext, Text, dst[0], cfg, SC, 0), [Text], local=g.nxyz,
+            K=3, B=12, modes=modes, g=g, central=True)
+        want = [dtz.band_call(Text, A_ext, g.nxyz, K=3, B=12, modes=modes,
+                              grid=g, sc=SC)]
+    elif name == "hm3d_chunk":
+        it.init_global_grid(16, 12, 13, quiet=True, device="cpu", dimx=2,
+                            dimy=2, dimz=1, periody=1, periodz=1)
+        g = it.get_global_grid()
+        shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
+        exts = ce.extend_fields([_random(shp, dtype, -0.5, 0, 27),
+                                 _random(shp, dtype, 0.05, 0.25, 28)],
+                                ce.field_ols(g, [g.nxyz]) * 2, 3, g, modes)
+        got = _run_chunk(lambda src, dst, last: htz._launch(
+            src, exts, dst, g.nxyz, 3, modes, g, HM3D_KW, last, 0), exts,
+            [torch.empty(shp, dtype=dtype) for _ in range(2)], 3)
+        want = htz.chunk_call(exts, g.nxyz, K=3, modes=modes, grid=g,
+                              kw=HM3D_KW)
+    elif name == "hm3d_band":
         it.init_global_grid(18, 10, 40, quiet=True, device="cpu", dimx=2,
                             dimy=2, dimz=2, periody=1)
         g = it.get_global_grid()

@@ -18,15 +18,16 @@ without friction, spec-wave2d, a spec of `pow`, `where` and scalar
 divisions, the rank-3 `relax3d`; step and chunk step in every window mode,
 spec-wave2d also against the hand wave2d kernels), and the diffusion and
 HM3D band kernels (every window mode, two and three bands, whole evolved
-buffers and central windows; a window beyond the shared-memory budget
-raises for the diffusion one), and the staggered band kernels: Stokes
+buffers and central windows), and the staggered band kernels: Stokes
 (igg's trapezoid matrix and one-block grids) and the generated band entry
 of the rank-3 specs (`relax3d`, the staggered `acoustic3d`), the same way;
-the HM3D and Stokes band marches in their edge cases (segments across the
-bands, tiles across the blocks' last y and z rows, fields at rest, y one
-periodic block over an open x) and HM3D's divisors against `x / d`; the
-Stokes gate refuses a window beyond the budget, which the march (its
-shared memory independent of B) still computes; a 2-D spec and wave2d
+the HM3D and Stokes band marches, the HM3D chunk march and the diffusion
+band march in their edge cases (segments across the bands, tiles across
+the blocks' last y and z rows, fields at rest, y one periodic block over
+an open x; the last two marches in every layout of the chunk and band
+meshes) and the HM3D marches' divisors against `x / d`; the diffusion and
+Stokes gates refuse a window beyond the budget, which the marches (their
+shared memory independent of B) still compute; a 2-D spec and wave2d
 with `banded=True` raise on the card.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
@@ -326,24 +327,34 @@ def test_band_kernels_match_plain(card, case, dtype, bands):
 
 
 def test_band_kernel_refuses_what_smem_refuses(card):
-    """A band whose window exceeds a thread block's shared memory (B = 48
-    in float64: 272,000 bytes) raises in the wrapper, and the library
-    refuses the launch itself."""
+    """A band whose window exceeds a thread block's shared memory in the
+    diffusion band kernel's first design (B = 48 in float64: 272,000
+    bytes) raises in the wrapper (igg's gate, kept as it is).  The
+    library's march holds the same shared memory at every B, so it takes
+    the launch, and its result equals the plain version's."""
     it.init_global_grid(96, 16, 16, quiet=True, device=card)
     g = it.get_global_grid()
     modes = ce.dim_modes(g)
     T = _random((96, 16, 16), torch.float64, -1, 1, 3).to(card)
     A = _random((96, 16, 16), torch.float64, 0.01, 0.1, 4).to(card)
     sc = dp.scal(0.3, 0.4, 0.5)
+    assert "shared-memory budget" in dtz.banded_refusal(
+        g, g.nxyz, 4, 4, torch.float64, B=48)
     before = dtz.band_call.launches
     with pytest.raises(it.GridError, match="shared-memory budget"):
         dtz.band_call(T, A, g.nxyz, K=4, B=48, modes=modes, grid=g, sc=sc)
     assert dtz.band_call.launches == before
     cfg = ce.band_cfg(T.shape, g.nxyz, 4, modes, g, False, B=48, lo=1,
                       extra=1, ols=(2, 2, 2))
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        dtz._band_launch(T, A, T, torch.empty_like(T), cfg, sc,
-                         torch.cuda.current_stream().cuda_stream)
+    out = torch.empty_like(T)
+    dtz._band_launch(T, A, T, out, cfg, sc,
+                     torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    want = ce.banded_window_plain(
+        [T, A], K=1, B=48, lo=1, modes=modes, grid=g, ols=[(2, 2, 2)] * 2,
+        shapes=[g.nxyz] * 2, E=4, band_update=partial(dtz.banded_update, **sc),
+        extras=(1, 1), n_up=1, freeze_fields=(0,))[0]
+    torch.testing.assert_close(out, want, rtol=0, atol=0)
 
 
 WAVE_KW = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
@@ -703,12 +714,108 @@ def test_stokes_band_march_edge_cases(card, case, kind, dtype, bands):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# The HM3D chunk march's edge cases on the card, every layout of the chunk
+# meshes: blocks whose extended x span (36 + 2K rows where x extends) the
+# march cuts into segments of 9 rows ("long_x"), tiles that cross the
+# blocks' last y and z rows ("ragged_tiles": 18 x 13 x 37), and fields at
+# rest ("at_rest"); z wraps cross the 16-cell tiles at every shape, and
+# one wraps over an open x and y (a wrapped z row takes F at its target).
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", sorted(BAND_EDGE_LOCALS))
+@pytest.mark.parametrize("case", sorted(CHUNK_GRIDS) + ["wrap_z_open_xy"])
+def test_hm3d_chunk_march_edge_cases(card, case, kind, dtype):
+    """The HM3D chunk kernel (the HM3D march with the chunk's edge rules)
+    against `window_steps_plain` in the march's edge cases: central
+    windows of a K = 3 chunk, K launches a call, and the whole evolved
+    extended buffers of K launches that write them (shoulders included)."""
+    from igg_torch.models import hm3d as h3
+
+    K, local = 3, BAND_EDGE_LOCALS[kind][0]
+    layout = dict(CHUNK_GRIDS, wrap_z_open_xy=dict(dimx=2, dimy=1, dimz=1,
+                                                   periodz=1))[case]
+    it.init_global_grid(*local, quiet=True, device=card, **layout)
+    g = it.get_global_grid()
+    assert htz.hm3d_trapezoid_refusal(g, g.nxyz, K, K, dtype) is None
+    modes = ce.dim_modes(g)
+    state = (h3.init_fields(h3.Params(), dtype=dtype) if kind == "at_rest"
+             else [F.to(card) for F in _hm3d_state(
+                 it.stacked_shape(g.nxyz), dtype, 25)])
+    exts = ce.extend_fields(list(state), ce.field_ols(g, [g.nxyz] * 2), K,
+                            g, modes)
+    before = htz.chunk_call.launches
+    out = htz.chunk_call(exts, g.nxyz, K=K, modes=modes, grid=g, kw=HM3D_KW)
+    torch.cuda.synchronize()
+    assert htz.chunk_call.launches == before + K
+    ref = htz.window_steps_plain(*exts, K=K, modes=modes, grid=g, kw=HM3D_KW)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, ce.central_window(b, g.nxyz, K, modes),
+                                   rtol=0, atol=0)
+    src = exts
+    for k in range(K):
+        dst = [torch.empty_like(X) for X in exts]
+        htz._launch(src, exts, dst, g.nxyz, K, modes, g, HM3D_KW, False,
+                    torch.cuda.current_stream().cuda_stream)
+        src = dst
+    torch.cuda.synchronize()
+    for a, b in zip(src, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# The diffusion band march's edge cases on the card, every layout of the
+# band meshes, two and three bands: the shapes of the HM3D band march's
+# ("long_x", "ragged_tiles"), and "at_rest": the diffusion model's
+# `init_fields` (T's anomalies in a field at rest, A = 0.05 / Cp).
+@pytest.mark.parametrize("bands", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", sorted(BAND_EDGE_LOCALS))
+@pytest.mark.parametrize("case", sorted(BAND_GRIDS))
+def test_diffusion_band_march_edge_cases(card, case, kind, dtype, bands):
+    """The diffusion band kernel against `banded_window_plain` in the
+    march's edge cases: whole evolved buffers and central windows, K
+    launches a call."""
+    from igg_torch.models import diffusion3d as d3
+
+    K, local = 3, BAND_EDGE_LOCALS[kind][0]
+    it.init_global_grid(*local, quiet=True, device=card, **BAND_GRIDS[case])
+    g = it.get_global_grid()
+    modes = ce.dim_modes(g)
+    span = ce.ext_shape(local, K, modes)[0]
+    assert span % bands == 0
+    B = span // bands
+    assert dtz.banded_refusal(g, local, K, K, dtype, B=B) is None
+    shp = it.stacked_shape(g.nxyz)
+    if kind == "at_rest":
+        T, Cp = d3.init_fields(d3.Params(), dtype=dtype)
+        A = 0.05 / Cp
+    else:
+        T = _random(shp, dtype, -10, 10, 27).to(card)
+        A = _random(shp, dtype, 0.01, 0.1, 28).to(card)
+    ols = ce.field_ols(g, [g.nxyz]) * 2
+    Text, A_ext = ce.extend_fields([T, A], ols, K, g, modes)
+    sc = dp.scal(0.3, 0.4, 0.5)
+    want = ce.banded_window_plain(
+        [Text, A_ext], K=K, B=B, lo=1, modes=modes, grid=g, ols=ols,
+        shapes=[local] * 2, E=K, band_update=partial(dtz.banded_update, **sc),
+        extras=(1, 1), n_up=1, freeze_fields=(0,))[0]
+    for central in (False, True):
+        before = dtz.band_call.launches
+        got = dtz.band_call(Text, A_ext, local, K=K, B=B, modes=modes, grid=g,
+                            sc=sc, central=central)
+        torch.cuda.synchronize()
+        assert dtz.band_call.launches == before + K
+        b = ce.central_window(want, local, K, modes) if central else want
+        torch.testing.assert_close(got, b, rtol=0, atol=0)
+
+
 # HM3D's divisors: phi0, eta, the checks' 1.3 and the spacings of its
 # phases (10/253 on one periodic 256^3 block, 10/507 on 2x2x2 periodic
-# blocks of 256^3).
-@pytest.mark.parametrize("d", [0.1, 1.0, 1.3, 10 / 253, 10 / 507])
+# blocks of 256^3), and the chunk checks' spacings (10/9 to 10/113 on the
+# chunk meshes at 16^3 and 16 x 12 x 13, HM3D_KW's 0.31, 0.27 and 0.43).
+@pytest.mark.parametrize("d", [0.1, 1.0, 1.3, 10 / 253, 10 / 507, 0.31,
+                               0.27, 0.43, 10 / 9, 10 / 13, 10 / 27,
+                               10 / 55, 10 / 113])
 def test_hm3d_band_divisors_divide_as_ieee(card, d):
-    """The HM3D band kernel's division (const_div.cuh, the Stokes chunk
+    """The HM3D marches' division (const_div.cuh, the Stokes chunk
     library's check kernel) bitwise `x / d` on the card: float32 over 2^28
     dividends spread over all bit patterns and around its range's ends and
     zero, float64 over 2^28 patterns spread over all 2^64."""
