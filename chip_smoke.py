@@ -316,6 +316,11 @@ STOKES_GRIDS = {
 STOKES_SHAPES = (((16, 16, 16), (2,)), ((15, 14, 17), (2, 3)),
                  ((24, 24, 24), (2, 4)), ((13, 13, 33), (2, 3)))
 STOKES_NAMES = ("P", "Vx", "Vy", "Vz")
+# The step kernels' names in a profiler trace: the HM3D march with the
+# fused step's edge rules (its K-step loop launches it too) and the Stokes
+# step's own march.
+HM3D_STEP_KERNEL = "StepEdges"
+STOKES_STEP_KERNEL = "stokes_step_kernel"
 
 
 # The generated-kernel checks take their specs, layouts and local shapes
@@ -904,20 +909,23 @@ class Smoke:
                                          ref[f], 0.0))
             self.note("hm3d_mega_step", check(f"hm3d_mega_step {name} {n}^3",
                                               dst[f], ref[f], 0.0))
-        del out, ref
+        del out
         cells, interior = float(n) ** 3, float(n - 2) ** 3
         # Read Pe and phi, write both, 4 bytes each.
         bound = bound_ms(4 * cells * 4, HM3D_FLOPS * interior, F32_FLOPS)
+        run = lambda: hp.step_kernel(Pe, phi, modes, none, g.dims, kw)
         self.perf["hm3d_step"] = dict(
-            kernel_time(lambda: hp.step_kernel(Pe, phi, modes, none, g.dims,
-                                               kw), k, "Hm3d"),
+            kernel_time(run, k, HM3D_STEP_KERNEL),
             plain_ms=event_ms(lambda: hp.step_plain(Pe, phi, modes, none,
                                                     g.dims, kw),
                               max(k // 5, 2)),
             bound=bound)
+        self.perf["hm3d_step_first_design"] = self.first_design_time(
+            hp, "hm3d_step", run, k, "Hm3d", None, ref, lambda b, f: b)
+        del ref
         self.perf["hm3d_mega_step"] = dict(
             kernel_time(lambda: hm.mega_step_kernel(Pe, phi, dst, modes, kw),
-                        k, "Hm3d"),
+                        k, HM3D_STEP_KERNEL),
             plain_ms=event_ms(lambda: hm.mega_step_plain(Pe, phi, dst, modes,
                                                          kw),
                               max(k // 5, 2)),
@@ -935,6 +943,58 @@ class Smoke:
                 f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
         log(f"[phase 1] two torch.add over {n}^3 f32 arrays (read 4, write "
             f"2): {self.perf['stream_4x256^3_2add_ms']:.4f} ms")
+        q = self.perf["hm3d_step_first_design"]
+        log(f"[phase 1] hm3d_step's first design (step_walk.cuh) at {n}^3 "
+            f"f32: {q['ms']:.4f} ms in the same run, "
+            f"{q['ms'] / self.perf['hm3d_step']['ms']:.2f} times the "
+            f"march's")
+        self.hm3d_step_shapes()
+
+    def hm3d_step_shapes(self):
+        """The HM3D step kernel at the main path's other shapes: one
+        periodic n_head^3 block in f64 (phase 8's layout) and 2x2x2
+        periodic blocks of n_multi^3 (every dim received, phase 9's) in f32
+        and f64, each checked, then timed beside its plain version, its
+        bound and its first design (step_walk.cuh) in the same run."""
+        hp, k = self.hp, self.time_iters
+        kw = self.h3.Params().step_kwargs()
+        for key, dtype, blocks in (
+                ("hm3d_step_f64", torch.float64, 1),
+                ("hm3d_step_2x2x2", torch.float32, 2),
+                ("hm3d_step_2x2x2_f64", torch.float64, 2)):
+            f64 = dtype == torch.float64
+            n = self.n_head if blocks == 1 else self.n_multi
+            layout = SINGLE if blocks == 1 else dict(dimx=2, dimy=2, dimz=2)
+            g = self.grid((n, n, n), **layout, **PERIODIC)
+            tag = (f"{'2x2x2 x ' if blocks == 2 else ''}{n}^3 "
+                   f"{'f64' if f64 else 'f32'} periodic")
+            Pe, phi = self.hm3d_input(self.it.stacked_shape(g.nxyz), dtype,
+                                      27)
+            modes = self.dp.step_modes(g)
+            recv = hp.step_recv_planes(Pe, phi, g, modes, kw)
+            ref = hp.step_plain(Pe, phi, modes, recv, g.dims, kw)
+            run = lambda: hp.step_kernel(Pe, phi, modes, recv, g.dims, kw)
+            for f, name in enumerate(("Pe", "phi")):
+                self.note("hm3d_step", check(f"hm3d_step {name} {tag}",
+                                             run()[f], ref[f], 0.0))
+            size, rate = (8, F64_FLOPS) if f64 else (4, F32_FLOPS)
+            cells = float(Pe.numel())
+            interior = blocks ** 3 * float(n - 2) ** 3
+            self.perf[key] = dict(
+                kernel_time(run, k, HM3D_STEP_KERNEL),
+                plain_ms=event_ms(lambda: hp.step_plain(Pe, phi, modes, recv,
+                                                        g.dims, kw), 3),
+                bound=bound_ms(size * cells * 4, HM3D_FLOPS * interior,
+                               rate), shape=tag)
+            self.perf[f"{key}_first_design"] = self.first_design_time(
+                hp, "hm3d_step", run, k, "Hm3d", None, ref, lambda b, f: b)
+            del Pe, phi, recv, ref
+            p, q = self.perf[key], self.perf[f"{key}_first_design"]
+            log(f"[phase 1] hm3d_step at {tag}: {p['ms']:.4f} ms device "
+                f"({p['ms_from']}), plain {p['plain_ms']:.4f} ms, bound "
+                f"{p['bound'][0]:.4f} ms ({p['bound'][1]}); its first design "
+                f"(step_walk.cuh) {q['ms']:.4f} ms in the same run, "
+                f"{q['ms'] / p['ms']:.2f} times the march's")
 
     def hm3d_kernel_checks_multiblock(self):
         """The HM3D chunk step on the 508^3 grid (2x2x2 blocks of n_multi^3,
@@ -1224,7 +1284,11 @@ class Smoke:
         """The time of `run()` on the first design of library `lib` (built
         from kernel_variants.py's FIRST_DESIGNS text beside the sources),
         its result held against `want` (cut by `cut`) first; the wrapper
-        module's library is restored after."""
+        module's library is restored after.  K: the launches of `kernel`
+        a call makes, counted in the trace (kernel_time); None for the
+        step kernels, whose first designs' names (`Hm3d`, `Stokes`) no
+        other kernel of the call shares: the mean over the launches the
+        trace holds."""
         real = module.library
         module.library = (lambda name: self.first[lib] if name == lib
                           else real(name))
@@ -2076,11 +2140,12 @@ class Smoke:
         wr = float(sum(A.numel() for A in S))
         self.perf["stokes_step"] = dict(
             kernel_time(lambda: sp.step_kernel(*S, Rho, g.dims, kw), k,
-                        "Stokes"),
+                        STOKES_STEP_KERNEL),
             plain_ms=event_ms(lambda: sp.step_plain(*S, Rho, g.dims, kw), 3),
             # Read P, Vx, Vy, Vz and Rho once, write the four once.
             bound=bound_ms(4 * (rd + wr), STOKES_FLOPS * cells, F32_FLOPS))
         del S, Rho
+        self.stokes_step_shapes()
         m = self.n_multi
         # The chunk: 2x2x2 blocks of m^3, open (8 extended blocks of
         # (m + 32)^3, config 5 at 509^3) in f32, the main path's, and f64;
@@ -2140,6 +2205,55 @@ class Smoke:
         log(f"[phase 1] stokes_step on the chunk's extended buffers (events): "
             f"{self.perf['stokes_step_on_chunk_buffer_ms']:.4f} ms")
         self.stokes_division_check()
+
+    def stokes_step_shapes(self):
+        """The Stokes step kernel beside its first design (stokes.cuh's
+        2-cell runs on stagger_walk3.cuh) in the same run, at the main
+        path's shapes: one periodic n_stokes^3 block (phase 12's) and 2x2x2
+        open blocks of n_multi^3 (phase 13's), f32 and f64; the shapes
+        other than the first also timed beside their plain versions and
+        bounds."""
+        sp, k = self.sp, self.time_iters
+        kw = self.st3._pseudo_steps(self.st3.Params())
+        for key, dtype, blocks in (
+                ("stokes_step", torch.float32, 1),
+                ("stokes_step_f64", torch.float64, 1),
+                ("stokes_step_2x2x2", torch.float32, 2),
+                ("stokes_step_2x2x2_f64", torch.float64, 2)):
+            f64 = dtype == torch.float64
+            n = self.n_stokes if blocks == 1 else self.n_multi
+            layout = (dict(SINGLE, **PERIODIC) if blocks == 1
+                      else dict(dimx=2, dimy=2, dimz=2))
+            g = self.grid((n, n, n), **layout, **OL3)
+            tag = (f"{'2x2x2 x ' if blocks == 2 else ''}{n}^3 "
+                   f"{'f64' if f64 else 'f32'} "
+                   f"{'periodic' if blocks == 1 else 'open'}")
+            *S, Rho = self.stokes_state(g, dtype, 57)
+            ref = sp.step_plain(*S, Rho, g.dims, kw)
+            run = lambda: sp.step_kernel(*S, Rho, g.dims, kw)
+            for name, a, b in zip(STOKES_NAMES, run(), ref):
+                self.note("stokes_step", check(f"stokes_step {name} {tag}", a,
+                                               b, 0.0))
+            if key != "stokes_step":
+                size, rate = (8, F64_FLOPS) if f64 else (4, F32_FLOPS)
+                rd = float(sum(A.numel() for A in S + [Rho]))
+                wr = float(sum(A.numel() for A in S))
+                self.perf[key] = dict(
+                    kernel_time(run, k, STOKES_STEP_KERNEL),
+                    plain_ms=event_ms(lambda: sp.step_plain(*S, Rho, g.dims,
+                                                            kw), 2),
+                    bound=bound_ms(size * (rd + wr),
+                                   STOKES_FLOPS * float(S[0].numel()), rate),
+                    shape=tag)
+            self.perf[f"{key}_first_design"] = self.first_design_time(
+                sp, "stokes_step", run, k, "Stokes", None, ref, lambda b, f: b)
+            del S, Rho, ref
+            p, q = self.perf[key], self.perf[f"{key}_first_design"]
+            log(f"[phase 1] stokes_step at {tag}: {p['ms']:.4f} ms device "
+                f"({p['ms_from']}), plain {p['plain_ms']:.4f} ms, bound "
+                f"{p['bound'][0]:.4f} ms ({p['bound'][1]}); its first design "
+                f"(stagger_walk3.cuh) {q['ms']:.4f} ms in the same run, "
+                f"{q['ms'] / p['ms']:.2f} times the march's")
 
     def stokes_division_check(self):
         """The marches' float32 division (csrc/const_div.cuh) bitwise `x /
@@ -2951,23 +3065,31 @@ class Smoke:
 # The redesigned kernels whose first designs (kernel_variants.py:
 # FIRST_DESIGNS) phase 1 times beside them in the same run.
 FIRST_DESIGN_LIBS = ("stokes_band", "hm3d_band", "hm3d_chunk",
-                     "diffusion_band")
+                     "diffusion_band", "stokes_step", "hm3d_step")
 
 
 def start_first_designs():
     """Start one nvcc for each first design of FIRST_DESIGN_LIBS, its text
-    written under igg_torch/_build/first/ (keyed by the text and the
-    headers); returns the jobs."""
+    written beside the first designs' policies (kernel_variants.py:
+    FIRST_HEADERS, which the sources' quoted includes find before the
+    kernels' headers) under igg_torch/_build/first/<key>/, keyed by the
+    texts and the headers; returns the jobs."""
     import kernel_variants
     from igg_torch.ops import _build
 
+    heads = [_build._read(h) for h in _build._headers()]
+    key = _build._key([t.encode() for t in
+                       kernel_variants.FIRST_HEADERS.values()] + heads)
+    where = os.path.join(_build.BUILD_DIR, "first", key)
+    os.makedirs(where, exist_ok=True)
+    for name, text in kernel_variants.FIRST_HEADERS.items():
+        with open(os.path.join(where, name), "w") as f:
+            f.write(text)
     jobs = {}
     for lib in FIRST_DESIGN_LIBS:
         text = kernel_variants.FIRST_DESIGNS[f"{lib}.cu"]
-        key = _build._key([text.encode()] +
-                          [_build._read(h) for h in _build._headers()])
-        src = os.path.join(_build.BUILD_DIR, "first", f"{lib}-{key}.cu")
-        os.makedirs(os.path.dirname(src), exist_ok=True)
+        src = os.path.join(where,
+                           f"{lib}-{_build._key([text.encode()] + heads)}.cu")
         with open(src, "w") as f:
             f.write(text)
         so = src[:-len(".cu")] + ".so"

@@ -1,14 +1,14 @@
-// The x-march of the HM3D band and chunk kernels (hm3d_band.cu,
-// hm3d_chunk.cu): each thread block walks x over a (y, z) tile of one
-// extended block, the planes it needs staged in shared memory, every
-// quotient of the update formed once.
+// The x-march of the HM3D band, chunk and step kernels (hm3d_band.cu,
+// hm3d_chunk.cu, hm3d_step.cu): each thread block walks x over a (y, z)
+// tile of one extended block, the planes it needs staged in shared memory,
+// every quotient of the update formed once.
 //
 // Fields and semantics: HM3D's two collocated fields, the effective
-// pressure Pe and the porosity phi (hm3d.cuh), advanced by one coupled
-// step on the layout of chunk_walk.cuh's Chunk, both fields re-frozen on
-// open dims from the chunk-entry buffers F, with the edge rules of one of
-// two realizations (march_layout.cuh), a template parameter E of the
-// kernel:
+// pressure Pe and the porosity phi (the first designs' hm3d.cuh, kept in
+// kernel_variants.py), advanced by one coupled step on the layout of
+// chunk_walk.cuh's Chunk, both fields re-frozen on open dims from the
+// chunk-entry buffers F, with the edge rules of one of three realizations
+// (march_layout.cuh), a template parameter E of the kernel:
 //   - BandEdges, the banded realization (the band kernel; layout
 //     chunk_engine.band_cfg; plain version banded_window_plain with
 //     hm3d_trapezoid.band_update): every x row updated, its x neighbours
@@ -17,14 +17,18 @@
 //   - ChunkEdges, the K-step chunk (the chunk kernel; layout
 //     chunk_engine.chunk_cfg; plain version window_step_plain with
 //     hm3d_trapezoid.window_core): a block's outermost x rows keep their
-//     values, F on every row <= lo / >= hi at the target cell.
+//     values, F on every row <= lo / >= hi at the target cell;
+//   - StepEdges, the fused step (the step kernel; layout make_geo's, whole
+//     blocks, no F; plain version hm3d_pallas.step_plain): step_walk.cuh's
+//     halo modes, x wraps and received planes included (hm_step_put).
 // Rows on a block's y/z outer planes keep their source values, a wrapped
 // dim's edge cells take the updated values at the inner cells they alias,
 // and the last launch of a chunk writes only each block's central window,
 // straight into the unextended outputs.
 // The arithmetic is that of hm3d.cuh's `perm`, `flux` and `cell` in their
 // association, each operation rounded as the plain version rounds it
-// (-fmad=false), every division through const_div.cuh (bitwise `x / d`):
+// (-fmad=false), every division bitwise `x / d` (IEEE or const_div.cuh,
+// as hm_ieee chooses):
 //   k = (phi / phi0)^npow, once a cell;
 //   q = (-(0.5 (k_hi + k_lo)) (Pe_hi - Pe_lo)) / d, once a face: hm3d.cuh
 //       forms a face's flux from both cells beside it with the same
@@ -70,14 +74,28 @@
 // row c goes to target c (1 <= c <= s-2), to 0 (c == s-ol) and to s-1
 // (c == ol-1).  A thread resolves its cell's targets once for the whole
 // march; only threads on a wrap's edge or alias rows resolve them per
-// plane.
+// plane.  The fused step (StepEdges) wraps x too: plane t's targets are
+// resolved once a plane for the thread block (hm_step_plane), a z wrap's
+// alias is one more store of the cell (hm_step_put), and only cells on a y
+// wrap's rows or on a received y or z halo row take the slower path
+// (hm_step_put_special): their writes, divergent in their warps, take 8%
+// of the step's time at one periodic 256^3 block and 14% at 2x2x2 blocks
+// whose dims all receive (kernel_variants.py: hm_step_no_special_writes,
+// not bitwise, on an H100 80GB HBM3 at 700 W).
 //
 // Segments.  Where the tiles of a launch give fewer than HM_BLOCKS thread
 // blocks, x is cut into segments of at least HM_MIN_SEG rows, one a thread
 // block; a segment starts one plane early (step 0: k and the x-face flux
 // of its first face).  The segments are the kernel's own choice: neither
-// function depends on them (nor the banded one on the band depth).
+// function depends on them (nor the banded one on the band depth).  The
+// fused step cuts until HM_STEP_BLOCKS thread blocks, segments of at least
+// HM_STEP_MIN_SEG = 16 rows: on one periodic 256^3 block (256 tiles, 16
+// segments) 8 rows ran 5% slower on random fields and 32 rows 10% slower
+// at rest; on 2x2x2 blocks (2048 tiles, 4 segments) one segment ran 11%
+// slower (kernel_variants.py: hm_step_min_seg_*, hm_step_blocks_2048).
 #pragma once
+
+#include <type_traits>
 
 #include "const_div.cuh"
 #include "march_layout.cuh"
@@ -89,11 +107,18 @@ constexpr int HM_TZ = 16;         // z cells of a tile row
 constexpr int HM_NT = 256;        // threads of a thread block
 constexpr int HM_CPT = HM_TY * HM_TZ / HM_NT;  // own cells a thread
 constexpr int HM_BLOCKS = 8192;   // thread blocks below which x is cut
+constexpr int HM_STEP_BLOCKS = 8192;  // the same for the fused step
+constexpr int HM_STEP_MIN_SEG = 16;   // and its fewest x rows of a segment
 constexpr int HM_MIN_SEG = 8;     // fewest x rows of a segment
 constexpr int HM_AHEAD = 1;       // planes staged beyond the next two
 // Thread blocks an SM holds at least (the register bound).
 constexpr int HM_MIN_BLOCKS_F32 = 4;
 constexpr int HM_MIN_BLOCKS_F64 = 3;
+// The same for the fused step: 4 in float64 too, where the step spilled 48
+// bytes at 3 and ran 27% slower at one 256^3 block on an H100 80GB HBM3 at
+// 700 W (kernel_variants.py: hm_step_bounds_f64_3; at 4 it spills 12).
+constexpr int HM_STEP_MIN_BLOCKS_F32 = 4;
+constexpr int HM_STEP_MIN_BLOCKS_F64 = 4;
 // The staging ring: planes t - 1 .. t + 2 + AHEAD (the march's note).
 constexpr int HM_RING = HM_AHEAD + 3;
 
@@ -132,12 +157,25 @@ struct HmArgs {
   int nseg, seg;    // x segments of a block, rows of a segment
 };
 
+// The fused step's arguments (StepEdges): the received planes too.
+template <typename T>
+struct HmStepArgs : HmArgs<T> {
+  const T* pl[2][6];  // (field, dim, side) as step_walk.cuh's Planes; null
+                      // for dims not in RECV mode
+};
+
+// The kernel's arguments under the edge rules E.
+template <typename T, class E>
+using HmParams = std::conditional_t<E::STEP, HmStepArgs<T>, HmArgs<T>>;
+
 // Whether the march with the edge rules E divides by IEEE `x / d` rather
 // than by const_div.cuh: the chunk kernel in float32, where `x / d` ran 1%
 // faster on random fields and 4% at rest on an H100 80GB HBM3 at 700 W
 // (kernel_variants.py: hm_div_ieee_f32); in float64 `x / d` ran 10%
-// slower.  The band kernel keeps const_div.cuh (kernel_variants.py's
-// hm_div_ieee and hm_div_ieee_f32 edit this choice).
+// slower.  The step kernel (StepEdges, CHUNK) divides as the chunk kernel
+// does (kernel_variants.py: hm_step_div_const, hm_step_div_ieee); the band
+// kernel keeps const_div.cuh (hm_div_ieee and hm_div_ieee_f32 edit this
+// choice).
 template <typename T, class E>
 constexpr bool hm_ieee = E::CHUNK && sizeof(T) == 4;
 
@@ -184,12 +222,138 @@ __device__ __forceinline__ T hm_flow(T klo, T khi, T plo, T phi_) {
   return -kf * (phi_ - plo);
 }
 
-// E: the edge rules, BandEdges (the band kernel) or ChunkEdges (the chunk
-// kernel), march_layout.cuh.
+// Where source plane t of the thread block's block b0 goes in the fused
+// step (StepEdges): its x targets (the plane itself, and along a wrapped x
+// also plane 0 from s0-2 and plane s0-1 from 1; planes 0 and s0-1 of a
+// wrap none), as offsets of target planes, and on a received x halo plane
+// the received planes of both fields at the block (xp; null elsewhere).
+template <typename T>
+struct HmStepPlane {
+  long long own, first, last;  // offsets of planes t, 0 and s0-1
+  int t;
+  bool to_own, to_first, to_last;
+  const T* xp[2];
+};
+struct HmNoPlane {};  // the band's and the chunk's (no step targets)
+
+template <typename T>
+__device__ __forceinline__ HmStepPlane<T> hm_step_plane(const HmStepArgs<T>& m,
+                                                        int b0, int t) {
+  const Geo& g = m.c.geo;
+  const int s0 = g.s[0];
+  const long long psize = (long long)g.G[1] * g.G[2];
+  const bool wx = g.mode[0] == WRAP;
+  HmStepPlane<T> x;
+  x.first = (long long)b0 * s0 * psize;
+  x.own = x.first + (long long)t * psize;
+  x.last = x.first + (long long)(s0 - 1) * psize;
+  x.t = t;
+  x.to_own = !wx || (t >= 1 && t <= s0 - 2);
+  x.to_first = wx && t == s0 - 2;
+  x.to_last = wx && t == 1;
+  x.xp[0] = x.xp[1] = nullptr;
+  if (g.mode[0] == RECV && (t == 0 || t == s0 - 1)) {
+    x.xp[0] = (t == 0 ? m.pl[0][0] : m.pl[0][1]) + b0 * psize;
+    x.xp[1] = (t == 0 ? m.pl[1][0] : m.pl[1][1]) + b0 * psize;
+  }
+  return x;
+}
+
+// hm_step_put's cells on a wrap's edge or alias rows or on a received y or
+// z halo row, to each of their targets.
+template <typename T>
+__device__ __forceinline__ void hm_step_put_special(const HmStepArgs<T>& m,
+                                                    const int* b, int j,
+                                                    int k, int ins,
+                                                    const HmStepPlane<T>& x,
+                                                    T pn, T fn) {
+  const Geo& g = m.c.geo;
+  const int s0 = g.s[0], s1 = g.s[1], s2 = g.s[2];
+  int ty[3], tz[3];
+  const int ny = march_targets(j, g.mode[1] == WRAP, 0, s1, s1, 2, ty);
+  const int nz = march_targets(k, g.mode[2] == WRAP, 0, s2, s2, 2, tz);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    if (!(c == 0 ? x.to_own : c == 1 ? x.to_first : x.to_last)) continue;
+    const long long xo = c == 0 ? x.own : c == 1 ? x.first : x.last;
+    // The target's row of the stacked grid along x.
+    const long long X =
+        (long long)b[0] * s0 + (c == 0 ? x.t : c == 1 ? 0 : s0 - 1);
+#pragma unroll 1
+    for (int a = 0; a < ny * nz; ++a) {
+      const int y = ty[a >= nz ? (a >= 2 * nz ? 2 : 1) : 0];
+      const int z = tz[a - (a >= nz ? (a >= 2 * nz ? 2 : 1) : 0) * nz];
+      const long long Y = (long long)b[1] * s1 + y;
+      const long long o = xo + Y * g.G[2] + (long long)b[2] * s2 + z;
+      T u0 = pn, u1 = fn;
+      if (g.mode[2] == RECV && (z == 0 || z == s2 - 1)) {
+        const long long q = (X * g.G[1] + Y) * g.n[2] + b[2];
+        u0 = ld((z == 0 ? m.pl[0][4] : m.pl[0][5]) + q);
+        u1 = ld((z == 0 ? m.pl[1][4] : m.pl[1][5]) + q);
+      } else if (g.mode[1] == RECV && (y == 0 || y == s1 - 1)) {
+        const long long q =
+            (X * g.n[1] + b[1]) * g.G[2] + (long long)b[2] * s2 + k;
+        u0 = ld((y == 0 ? m.pl[0][2] : m.pl[0][3]) + q);
+        u1 = ld((y == 0 ? m.pl[1][2] : m.pl[1][3]) + q);
+      } else if (x.xp[0] != nullptr) {
+        u0 = ld(x.xp[0] + ins);
+        u1 = ld(x.xp[1] + ins);
+      }
+      m.out[0][o] = u0;
+      m.out[1][o] = u1;
+    }
+  }
+}
+
+// The fused step's writes (StepEdges) of the cell (j, k) of the thread
+// block's block at the source plane that `x` describes, whose updated
+// values (its source values where it is not updated) are pn and fn: to
+// each of its targets, the product of its x targets and its y and z
+// targets (a simple cell: its own row, and its own column and a z wrap's
+// alias (zown, zd), on no received halo row; the others
+// hm_step_put_special's), each target resolved z, then y,
+// then x, as step_walk.cuh's resolve_cells resolves it.  A target on a
+// received z halo row takes the z plane at the target's x and y; else on a
+// received y halo row the y plane at the target's x and the source's z;
+// else on a received x halo plane the x plane at the source's y and z;
+// else the cell's values.  `ins`: the cell's in-plane offset.
+template <typename T>
+__device__ __forceinline__ void hm_step_put(const HmStepArgs<T>& m, const int* b,
+                                            int j, int k, int ins,
+                                            bool simple, bool zown, int zd,
+                                            const HmStepPlane<T>& x, T pn,
+                                            T fn) {
+  if (simple) {
+    if (x.xp[0] != nullptr) {  // a received x halo plane
+      pn = ld(x.xp[0] + ins);
+      fn = ld(x.xp[1] + ins);
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (!(c == 0 ? x.to_own : c == 1 ? x.to_first : x.to_last)) continue;
+      const long long o = (c == 0 ? x.own : c == 1 ? x.first : x.last) + ins;
+      if (zown) {
+        m.out[0][o] = pn;
+        m.out[1][o] = fn;
+      }
+      if (zd != 0) {  // a z wrap's alias
+        m.out[0][o + zd] = pn;
+        m.out[1][o + zd] = fn;
+      }
+    }
+    return;
+  }
+  hm_step_put_special(m, b, j, k, ins, x, pn, fn);
+}
+
+// E: the edge rules, BandEdges (the band kernel), ChunkEdges (the chunk
+// kernel) or StepEdges (the fused step), march_layout.cuh.
 template <typename T, class E>
-__global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
-                                                        : HM_MIN_BLOCKS_F64)
-    hm_march_kernel(HmArgs<T> m) {
+__global__ void __launch_bounds__(
+    HM_NT, E::STEP ? (sizeof(T) == 4 ? HM_STEP_MIN_BLOCKS_F32
+                                     : HM_STEP_MIN_BLOCKS_F64)
+                   : (sizeof(T) == 4 ? HM_MIN_BLOCKS_F32 : HM_MIN_BLOCKS_F64))
+    hm_march_kernel(HmParams<T, E> m) {
   extern __shared__ __align__(16) unsigned char hm_smem[];
   constexpr int TY = HM_TY, TZ = HM_TZ, NT = HM_NT, IZ = HM_IZ, IN = HM_IN;
   constexpr int R = HM_RING, AH = HM_AHEAD;
@@ -276,6 +440,24 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
     ino[n] =
         march_at(m.rows, OG, tb, 0, j[n] - m.first[1], k - m.first[2]) -
         (long long)b[0] * m.rows[0] * opsize;
+  }
+  // StepEdges: received y and z halo rows are not simple, and a z wrap over
+  // at least 4 rows is resolved in the simple path (zown: the cell's own z
+  // target; zd: its alias's z offset).
+  bool zown = true;
+  int zd = 0;
+  if constexpr (E::STEP) {
+    const bool zs4 = wz && s2 >= 4;
+    zown = !(zs4 && (k == 0 || k == s2 - 1));
+    zd = zs4 ? (k == 1 ? s2 - 2 : k == s2 - 2 ? 2 - s2 : 0) : 0;
+    const bool kr = g.mode[2] == RECV && (k == 0 || k == s2 - 1);
+#pragma unroll
+    for (int n = 0; n < CPT; ++n) {
+      const bool jw = wy && (j[n] == 0 || j[n] == s1 - 1 || j[n] == s1 - 2 ||
+                             j[n] == 1);
+      const bool jr = g.mode[1] == RECV && (j[n] == 0 || j[n] == s1 - 1);
+      simple[n] = !jw && !jr && !kr && !(wz && !zs4 && zspecial);
+    }
   }
   int ih = -1;
   if (tid < HM_HALO) {
@@ -376,6 +558,8 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
     const long long op = (long long)(b[0] * m.rows[0] + t - m.first[0]) *
                          opsize;
     const long long sp = ((long long)b[0] * s0 + t) * psize;
+    std::conditional_t<E::STEP, HmStepPlane<T>, HmNoPlane> xs;
+    if constexpr (E::STEP) xs = hm_step_plane(m, b[0], t);
 #pragma unroll
     for (int n = 0; n < CPT; ++n) {
       if (!mine[n]) continue;
@@ -403,6 +587,10 @@ __global__ void __launch_bounds__(HM_NT, sizeof(T) == 4 ? HM_MIN_BLOCKS_F32
         pn = pe + dpe;
         const T dph = m.dt * hm_div<IEEE>((-ph * (T(1) - ph)) * pn, m.qe);
         fn = ph + dph;
+      }
+      if constexpr (E::STEP) {
+        hm_step_put(m, b, j[n], k, ins[n], simple[n], zown, zd, xs, pn, fn);
+        continue;
       }
       if (simple[n]) {
         const bool fr = fx0 || fyz[n];
@@ -445,13 +633,15 @@ size_t hm_march_smem_bytes() {
   return sizeof(T) * (size_t)HM_ELEMS;
 }
 
-// Launch one banded iteration or chunk step (E: the edge rules): thread
+// Launch one banded iteration, chunk step or fused step (E: the edge rules): thread
 // blocks of HM_NT threads over (z tiles, y tiles, x segments) of every
 // block.
 template <typename T, class E>
-int launch_hm_march(HmArgs<T> m, cudaStream_t stream) {
+int launch_hm_march(HmParams<T, E> m, cudaStream_t stream) {
   dim3 grid;
-  const int err = march_grid(m, HM_TY, HM_TZ, HM_BLOCKS, HM_MIN_SEG, grid);
+  const int err = march_grid(m, HM_TY, HM_TZ,
+                             E::STEP ? HM_STEP_BLOCKS : HM_BLOCKS,
+                             E::STEP ? HM_STEP_MIN_SEG : HM_MIN_SEG, grid);
   if (err) return err;
   const size_t bytes = hm_march_smem_bytes<T>();
   if (bytes > 48 * 1024) {
@@ -489,6 +679,34 @@ int run_hm_march(void* const* src, void* const* F, void* const* out,
   m.qe = make_div((T)coef[5]);
   m.npow = npow;
   return launch_hm_march<T, E>(m, stream);
+}
+
+// One fused step (StepEdges) of (Pe, phi) on the layout `cfg` (n[3] s[3]
+// mode[3], march_step_layout): src and out the fields' pointers, planes the
+// 12 received planes ((field, dim, side), null for dims not RECV); coef as
+// run_hm_march's.
+template <typename T>
+int run_hm_step(void* const* src, void* const* out, const int* cfg,
+                void* const* planes, const double* coef, int npow,
+                cudaStream_t stream) {
+  HmStepArgs<T> m;
+  if (!march_step_layout(cfg, m) || npow < 0)
+    return (int)cudaErrorInvalidValue;
+  for (int f = 0; f < 2; ++f) {
+    m.src[f] = static_cast<const T*>(src[f]);
+    m.F[f] = nullptr;
+    m.out[f] = static_cast<T*>(out[f]);
+    for (int j = 0; j < 6; ++j)
+      m.pl[f][j] = static_cast<const T*>(planes[6 * f + j]);
+  }
+  m.qx = make_div((T)coef[0]);
+  m.qy = make_div((T)coef[1]);
+  m.qz = make_div((T)coef[2]);
+  m.dt = (T)coef[3];
+  m.q0 = make_div((T)coef[4]);
+  m.qe = make_div((T)coef[5]);
+  m.npow = npow;
+  return launch_hm_march<T, StepEdges>(m, stream);
 }
 
 }  // namespace igg

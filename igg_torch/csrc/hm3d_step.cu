@@ -9,43 +9,31 @@
 // What bounds it on the H100: by the roofline, bytes.  Per cell it reads Pe
 // and phi once and writes them once (16 bytes in f32): at 256^3 f32 that is
 // 268 MB, 80 us at 3.35 TB/s, while 42 operations a cell take 11 us at the
-// f32 peak.  In practice the issued instructions bound it: step_core's 9
-// IEEE divisions a cell (each a reciprocal, a Newton step, a check and a
-// guarded slow path) become about 16 here, because a thread forms the
-// permeability at the 7 points its cells read and the x/y face fluxes of
-// its own cells; built with approximate division (a measurement only, not
-// bitwise) the kernel is 30% faster (kernel_variants.py, PERF.md).
-// Sharing those across threads through shared memory is later work.
+// f32 peak.  In practice the issued instructions bound it.  Its first
+// design (step_walk.cuh's thread per 16 bytes of a z row with hm3d.cuh's
+// update, kept in kernel_variants.py) formed the permeability at the 7
+// points each cell reads and the x/y face fluxes per cell: about 16 IEEE
+// divisions a cell against step_core's 9, and 0.394 ms at one periodic
+// 256^3 block, 4.9 times the bound (NVIDIA H100 80GB HBM3, 700 W; PERF.md).
 //
-// What the design does about it: the shared walk of step_walk.cuh with the
-// HM3D policy of hm3d.cuh.  A thread computes 16 bytes of one z row of both
-// fields with vector loads and stores, so every access is coalesced and the
-// neighbour rows come from L1/L2; along z it forms the permeability once
-// per cell and each face's flux once for the two cells beside it.  Halo
-// cells are resolved in the same pass by the walk, both fields of a cell
-// together: a wrap halo recomputes the updated inner cell (Pe' and then
-// phi' from it), received planes are read where they land.  The TPU
-// kernel's x-slabs, slab carry and transposed z slabs existed for its
-// (8,128) tiling and VMEM; none is needed here.
-#include "hm3d.cuh"
-
-namespace {
-
-template <typename T>
-int launch(const void* Pe, const void* phi, void* Pe_out, void* phi_out,
-           const igg::Geo& geo, void* const* planes, const double* coef,
-           int npow, cudaStream_t stream) {
-  igg::Planes<T, 2> pl;
-  for (int f = 0; f < 2; ++f)
-    for (int j = 0; j < 6; ++j)
-      pl.p[f][j] = static_cast<const T*>(planes[6 * f + j]);
-  return igg::launch_step(
-      igg::make_hm3d<T>(Pe, phi, coef, npow), geo, pl,
-      igg::Fields<T, 2>{{static_cast<T*>(Pe_out), static_cast<T*>(phi_out)}},
-      stream);
-}
-
-}  // namespace
+// What the design does about it: the HM3D x-march of hm3d_march.cuh (16 x
+// 16 (y, z) tiles, Pe and phi staged by cp.async in shared-memory rings, k
+// formed once a cell and each face's flux once, 9 divisions a cell) with
+// the fused step's edge rules, StepEdges (march_layout.cuh): whole blocks,
+// every cell computed once at its source position and written to each
+// target that takes it; a WRAP dim (x included) writes plane s-2 also to 0
+// and plane 1 also to s-1, a RECV dim's halo cells take the received plane,
+// a FROZEN dim's outer cells their source values, each target resolved z,
+// then y, then x, as the walk resolves it.  At one periodic 256^3 block it
+// takes 0.297 ms in float32, 1.34 times faster than its first design in
+// the same call, and 0.362 ms in float64 (2.11 times); 2x2x2 blocks, every
+// dim received, 1.13 and 1.86 times (kernel_variants.py on an H100 80GB
+// HBM3 at 700 W, PERF.md).  What still bounds it: the march's per-plane
+// fixed work (staging, the tile's halo k and fluxes, a barrier a plane)
+// and the cells on a y wrap's rows or a received y or z halo row, whose
+// writes take a slower, divergent path (8% of its time at one block, 14%
+// at 2x2x2: kernel_variants.py's hm_step_no_special_writes).
+#include "hm3d_march.cuh"
 
 // cfg: n0 n1 n2 s0 s1 s2 mode0 mode1 mode2; planes: 12 pointers, (field,
 // dim, side) with Pe's six first, null for dims not in RECV mode; coef: dx
@@ -54,14 +42,12 @@ extern "C" int igg_hm3d_step(const void* Pe, const void* phi, void* Pe_out,
                              void* phi_out, int dtype, const int* cfg,
                              void* const* planes, const double* coef,
                              int npow, void* stream) {
-  const igg::Geo geo = igg::make_geo(cfg);
+  void* src[2] = {const_cast<void*>(Pe), const_cast<void*>(phi)};
+  void* out[2] = {Pe_out, phi_out};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (npow < 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(Pe, phi, Pe_out, phi_out, geo, planes, coef, npow,
-                         st);
+    return igg::run_hm_step<float>(src, out, cfg, planes, coef, npow, st);
   if (dtype == 1)
-    return launch<double>(Pe, phi, Pe_out, phi_out, geo, planes, coef, npow,
-                          st);
+    return igg::run_hm_step<double>(src, out, cfg, planes, coef, npow, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -26,6 +26,15 @@
 // alias (0 <- s-ol, s-1 <- ol-1; the chunk's overlap is 2, the fused
 // step's aliases), and the last launch of a chunk writes only each block's
 // central window, straight into the unextended outputs.
+//
+// A third policy, StepEdges, is the fused step's (step_walk.cuh's modes on
+// whole blocks, the targets laid out like the sources, halo cells written
+// by the same launch): per dim WRAP (one periodic block, x included: the
+// updated cell s-2 is also written to 0, cell 1 also to s-1), RECV (a
+// block's halo cells take the received plane's value) or FROZEN (a block's
+// outer cells keep their source values); a cell's value is resolved z, then
+// y, then x, as step_walk.cuh's resolve_cells resolves it (the march's
+// note says how).
 #pragma once
 
 #include "async_copy.cuh"
@@ -36,6 +45,7 @@ namespace igg {
 // The band walk's edge rules (module note).
 struct BandEdges {
   static constexpr bool CHUNK = false;
+  static constexpr bool STEP = false;
   // The staged plane of source plane p: the block's x ends clamp.
   __device__ __forceinline__ static int plane(int p, int s0) {
     return march_clamp(p, 0, s0 - 1);
@@ -52,6 +62,7 @@ struct BandEdges {
 // updated, so the clamped planes beyond them are never used.
 struct ChunkEdges {
   static constexpr bool CHUNK = true;
+  static constexpr bool STEP = false;
   __device__ __forceinline__ static int plane(int p, int s0) {
     return march_clamp(p, 0, s0 - 1);
   }
@@ -59,6 +70,20 @@ struct ChunkEdges {
                                                 int r) {
     return c.frz[d] && ((bl == 0 && r <= c.lo[d]) ||
                         (bl == c.geo.n[d] - 1 && r >= c.hi[d]));
+  }
+};
+
+// The fused step's edge rules (module note): no freeze; a block's outer x
+// rows are never updated, as the chunk's (CHUNK), so the clamped planes
+// beyond them are never used.
+struct StepEdges {
+  static constexpr bool CHUNK = true;
+  static constexpr bool STEP = true;
+  __device__ __forceinline__ static int plane(int p, int s0) {
+    return march_clamp(p, 0, s0 - 1);
+  }
+  __device__ __forceinline__ static bool frozen(const Chunk&, int, int, int) {
+    return false;
   }
 };
 
@@ -101,6 +126,28 @@ inline bool march_band_layout(const int* cfg, M& m) {
 template <class M>
 inline bool march_chunk_layout(const int* cfg, M& m) {
   return make_chunk(cfg, m.c) && march_rows(m, 2, 2);
+}
+
+// cfg: n[3] s[3] mode[3] (make_geo's, the fused step's): whole blocks of at
+// least 3 cells, the targets laid out like the sources, wraps (on any dim,
+// one block) of overlap 2.  Returns false where the layout does not suit a
+// march.
+template <class M>
+inline bool march_step_layout(const int* cfg, M& m) {
+  Chunk& c = m.c;
+  c.geo = make_geo(cfg);
+  c.last = 0;
+  for (int d = 0; d < 3; ++d) {
+    const Geo& g = c.geo;
+    if (g.s[d] < 3 || (g.mode[d] == WRAP && g.n[d] != 1)) return false;
+    c.frz[d] = c.lo[d] = c.hi[d] = c.off[d] = 0;
+    c.os[d] = g.s[d];
+    c.OG[d] = g.G[d];
+    m.ol[d] = 2;
+    m.first[d] = 0;
+    m.rows[d] = g.s[d];
+  }
+  return true;
 }
 
 // The targets of source row c along a dim (wrap: the aliases; else the row

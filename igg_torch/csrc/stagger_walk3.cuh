@@ -7,7 +7,8 @@
 // The 3-D sibling of stagger_walk.cuh: it adds a third dim and wraps on y
 // and z.
 //
-// The policy (stokes.cuh, or generated) provides:
+// The policy (generated, or the first designs' stokes.cuh, kept in
+// kernel_variants.py) provides:
 //   - `using T`, `static constexpr int NF` (<= MAXF): element type, fields;
 //   - `st(f, d)` (constexpr): 1 where field f is one cell longer along d
 //     than the base (unstaggered) block, else 0;

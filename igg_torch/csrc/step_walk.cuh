@@ -1,7 +1,8 @@
 // The walk shared by every step and chunk kernel of the port: one step of
 // NF fields of a block-stacked grid, halo cells included, each output cell
 // computed from the source tensors alone.  The physics is a policy type P
-// (diffusion.cuh, hm3d.cuh) that the walk is a template over:
+// (diffusion.cuh; the first designs' hm3d.cuh) that the walk is a
+// template over:
 //   - `using T`, `static constexpr int NF`: element type, updated fields;
 //   - `const T* src[NF]`: the source fields (constant fields are the
 //     policy's own members);

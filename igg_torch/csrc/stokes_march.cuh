@@ -11,9 +11,9 @@
 // that of igg_torch.models.stokes3d.iteration_core in its association,
 // each operation rounded as the plain version rounds it (-fmad=false; the
 // divisions of const_div.cuh, bitwise `x / d`).  Of stokes.cuh it takes
-// only the fields' staggers and freezes (`Stokes::st`, `freezes`): the
-// step kernel keeps its `cells` and its IEEE divisions, so that its code
-// and timing stay as they are.
+// the fields' staggers and freezes (`Stokes::st`, `freezes`).  The step
+// kernel (stokes_step.cu) runs a march of its own: it has none of this
+// one's wraps, freezes, F buffers, central windows or per-plane targets.
 //
 // The band mode (BAND; chunk_engine.banded_window_plain with
 // stokes_trapezoid.band_update, whose bands do not change the function):

@@ -10,7 +10,7 @@ on the state.  Steps run on the block-stacked grid arrays of
 
 :func:`step_core` is the arithmetic truth of every path: the plain
 composition, the send planes the kernel route recomputes on slabs, and the
-plain versions the kernels (`csrc/hm3d.cuh`) are held to.  Divisions are
+plain versions the kernels (`csrc/hm3d_march.cuh`) are held to.  Divisions are
 by 0-dim tensors of the field's dtype, not by Python floats: on a CUDA
 tensor PyTorch turns `x / float` into `x * (1/float)`, which rounds
 differently from the kernels' IEEE division.

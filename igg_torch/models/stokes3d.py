@@ -14,7 +14,7 @@ arrays of :mod:`igg_torch.fields`.
 
 :func:`iteration_core` is the arithmetic truth of every path: the plain
 composition, the window core of the chunk route, and the plain versions
-the kernels (`csrc/stokes.cuh`) are held to.  It keeps igg's association
+the kernels (`csrc/stokes_step.cu`, `csrc/stokes_march.cuh`) are held to.  It keeps igg's association
 order exactly, which the kernels follow to be bitwise:
 
 - `divV = ((dVx/dx + dVy/dy) + dVz/dz)`, the sum of three quotients;

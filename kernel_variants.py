@@ -25,22 +25,39 @@ contains it.  The variants are the design choices the sources record:
   walk's kernels; the wave2d kernels keep theirs);
 - `approx_div`: `-prec-div=false`.  Not bitwise equal to the plain
   versions, so never shipped: it measures what the IEEE divisions of the
-  HM3D, wave2d and Stokes kernels cost (in the Stokes chunk kernel only
-  its float64 divisions and the float32 ones outside the reciprocal
-  path's range remain IEEE divisions);
-- `stokes_vec_16B`: the 3-D staggered walk's kernel (the Stokes step
-  kernel; the chunk kernel left that walk in its redesign) with runs of
-  16 bytes per thread (4 cells in f32) instead of 8, the first design;
-- `stokes_bounds_3`: the Stokes step kernel bounded to 85 registers a
-  thread (`__launch_bounds__(256, 3)`), so three thread blocks fit on an
-  SM;
-- `stokes_zero_quot`: the divisions of `stokes.cuh` (the Stokes step
-  kernel) skipped where the dividend is zero (`0 / d` is that zero
-  for a positive d, bitwise), which the IEEE division's checks otherwise
-  send down its slow path;
-- `stokes_x_fastest`: the Stokes step kernel's thread blocks ordered x
-  row first (gridDim.x over the x rows, gridDim.z over the z tiles), so
-  the blocks in flight together share their neighbour rows along x;
+  HM3D, wave2d and Stokes kernels cost (in the marches only their IEEE
+  divisions and those outside the reciprocal path's range remain IEEE
+  divisions);
+- the Stokes step kernel's x-march (`stokes_step.cu`; each variant times
+  it alone): `ss_c_f32_1`, `ss_c_f32_4`, `ss_c_f64_1` and `ss_c_f64_4`:
+  other cells a lane's column holds along y (2 as built); `ss_w_2` and
+  `ss_w_8`: 2 or 8 warps a thread block (4 as built; the tile's rows are
+  warps times cells); `ss_div_ieee` and `ss_div_ieee_f32`: IEEE `x / d`
+  in both types or in float32 only instead of `const_div.cuh`; `ss_zero`:
+  zero dividends kept on the reciprocal path (their signed zero set from
+  the operands' signs) where a zero otherwise sends its batch of
+  divisions to `cdiv`; `ss_wide`: a float32 batch outside the reciprocal
+  path's range formed again on the float64 one before `cdiv`;
+  `ss_ahead_2`: the staging rings a plane deeper; `ss_blocks_1024`,
+  `_2048`, `_8192`, `_16384` and `ss_no_segments`: x cut into segments
+  until a launch has that many thread blocks (4096 as built) or not at
+  all; `ss_bounds_f32_2`, `_f32_4`, `_f64_2` and `_f64_4`: registers
+  bounded for other numbers of thread blocks an SM (3 as built);
+- the HM3D step's edge rules on the HM3D march (`StepEdges`; each
+  variant times the step kernel alone): `hm_step_blocks_512`, `_1024`,
+  `_2048`, `_16384`, `_32768` and `hm_step_no_segments`: the step's
+  segments cut until a launch has that many thread blocks (8192 as built)
+  or none; `hm_step_min_seg_4`, `_8` and `_32`: segments of at least 4
+  (cut until 16384 thread blocks), 8 or 32 rows (16 as built); `hm_step_noinline_special`: the writes
+  of the cells on a wrap's edge or alias rows or a received y or z halo
+  row (`hm_step_put_special`) as a called function, not inlined;
+  `hm_step_no_special_writes`: those cells not written at all (not
+  bitwise, never shipped: what their writes cost); `hm_step_bounds_f32_3`,
+  `_f64_2` and `_f64_3`: the step's registers bounded for other numbers of
+  thread blocks an SM (4 as built);
+  `hm_step_div_const` and `hm_step_div_ieee`: the step's division by
+  `const_div.cuh` in float32 too, or by `x / d` in float64 too (as built
+  `x / d` in float32, `const_div.cuh` in float64);
 - the Stokes chunk and band kernels' x-march (`stokes_march.cuh`,
   `const_div.cuh`; the division variants reach the HM3D marches too):
   - `march_div_ieee` divides by `x / d` throughout, `march_div_vote` by
@@ -67,8 +84,8 @@ contains it.  The variants are the design choices the sources record:
   (128 (x, y) rows a z block) instead of 256;
 - the HM3D band and chunk kernels' x-march (`hm3d_march.cuh`; each
   variant times both): `hm_div_ieee` divides by `x / d` throughout,
-  `hm_div_ieee_f32` in float32 only (as built: the chunk kernel in
-  float32), `hm_div_const` by `const_div.cuh` throughout;
+  `hm_div_ieee_f32` in float32 only (as built: the chunk and step
+  kernels in float32), `hm_div_const` by `const_div.cuh` throughout;
   `hm_ahead_2` and `hm_ahead_3` stage each
   plane one or two steps earlier (rings as much deeper), and
   `hm_ahead_2_bounds_f32_6` also bounds float32 registers for 6 thread
@@ -98,9 +115,12 @@ contains it.  The variants are the design choices the sources record:
   (a request per blockIdx.y), the Stokes band step (a thread block per
   band and tile on `stagger_band_walk3.cuh`, stokes.cuh's one-cell
   update), the HM3D and diffusion band steps (the same on `band_walk.cuh`
-  with hm3d.cuh's and diffusion.cuh's) and the HM3D chunk step (the chunk
-  walk, `chunk_walk.cuh`, with hm3d.cuh's), rebuilt from the text kept
-  here (`FIRST_DESIGNS`);
+  with hm3d.cuh's and diffusion.cuh's), the HM3D chunk step (the chunk
+  walk, `chunk_walk.cuh`, with hm3d.cuh's), the Stokes step (the 2-cell
+  runs on `stagger_walk3.cuh`) and the HM3D step (`step_walk.cuh` with
+  hm3d.cuh's), rebuilt from the text kept here (`FIRST_DESIGNS`, with the
+  policies only they use, `FIRST_HEADERS`: stokes.cuh's `cells` and
+  hm3d.cuh);
 - `band_row_staging`: the staggered band walk (now the generated rank-3
   band entries' only) staging its windows a warp
   per (x, y) row of a window, the row's offset formed once, its lanes
@@ -112,13 +132,15 @@ contains it.  The variants are the design choices the sources record:
   thread on it).
 
 Prints one JSON line per variant (milliseconds per launch, each a list of
-the two runs; CUDA events, or for the packer the profiler's device time),
-then the card's name and power limit.  Needs
+the two runs; CUDA events, or for the packer the profiler's device time;
+and ptxas's registers, stack and spills of each kernel it built), then
+the card's name and power limit.  The variants build side by side.  Needs
 `torch.cuda.is_available()`; imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import json
 import os
@@ -163,9 +185,6 @@ def vec_8b(name, text):
                         "constexpr int VEC = 8 / sizeof(typename P::T);")
 
 
-BOUNDS = "__launch_bounds__(256)\n"
-VEC8 = "P, 8 / sizeof(typename P::T)>"
-QUOT = "{ return x / d; }"
 
 
 class stokes_edit:
@@ -188,10 +207,6 @@ class stokes_edit:
 
     def files(self):
         return {f for f, _, _ in self.edits}
-
-
-def walk(old, new):
-    return ("stagger_walk3.cuh", old, new)
 
 
 FLAT_STAGING = """    for (int e = tid; e < n; e += BAND_TY * BAND_TZ) {
@@ -489,15 +504,485 @@ extern "C" int igg_diffusion_band_step(const void* src, const void* A,
   return (int)cudaErrorInvalidValue;
 }
 """
+# The step kernels' first designs: the Stokes iteration on the 3-D
+# staggered walk (stagger_walk3.cuh) with stokes.cuh's 2-cell runs, and the
+# HM3D step on the walk of the halo modes (step_walk.cuh) with hm3d.cuh's
+# update.
+STOKES_STEP_FIRST = """#include "stokes.cuh"
+
+// src, out: (P, Vx, Vy, Vz) pointers of the sources and of the targets (laid
+// out like the sources, none aliasing another); rho: Rho, laid out like P;
+// cfg: n0 n1 n2 s0 s1 s2 (blocks and P's block extents); coef: dx dy dz mu
+// 2*mu dtP dtV; dtype: 0 float32, 1 float64.
+extern "C" int igg_stokes_step(void* const* src, const void* rho,
+                               void* const* out, int dtype, const int* cfg,
+                               const double* coef, void* stream) {
+  // make_stag3's layout: whole blocks, no wrap, no freeze.
+  int full[24 + 3 * igg::MAXF] = {cfg[0], cfg[1], cfg[2], cfg[3], cfg[4],
+                                  cfg[5], 0,      0,      0,      0,
+                                  0,      0,      cfg[3], cfg[4], cfg[5]};
+  igg::Stag3 g;
+  if (!igg::make_stag3(full, g)) return (int)cudaErrorInvalidValue;
+  return igg::launch_stokes(src, rho, nullptr, out, dtype, g, coef, stream);
+}
+"""
+HM3D_STEP_FIRST = """#include "hm3d.cuh"
+
+namespace {
+
+template <typename T>
+int launch(const void* Pe, const void* phi, void* Pe_out, void* phi_out,
+           const igg::Geo& geo, void* const* planes, const double* coef,
+           int npow, cudaStream_t stream) {
+  igg::Planes<T, 2> pl;
+  for (int f = 0; f < 2; ++f)
+    for (int j = 0; j < 6; ++j)
+      pl.p[f][j] = static_cast<const T*>(planes[6 * f + j]);
+  return igg::launch_step(
+      igg::make_hm3d<T>(Pe, phi, coef, npow), geo, pl,
+      igg::Fields<T, 2>{{static_cast<T*>(Pe_out), static_cast<T*>(phi_out)}},
+      stream);
+}
+
+}  // namespace
+
+// cfg: n0 n1 n2 s0 s1 s2 mode0 mode1 mode2; planes: 12 pointers, (field,
+// dim, side) with Pe's six first, null for dims not in RECV mode; coef: dx
+// dy dz dt phi0 eta; npow >= 0; dtype: 0 float32, 1 float64.
+extern "C" int igg_hm3d_step(const void* Pe, const void* phi, void* Pe_out,
+                             void* phi_out, int dtype, const int* cfg,
+                             void* const* planes, const double* coef,
+                             int npow, void* stream) {
+  const igg::Geo geo = igg::make_geo(cfg);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (npow < 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch<float>(Pe, phi, Pe_out, phi_out, geo, planes, coef, npow,
+                         st);
+  if (dtype == 1)
+    return launch<double>(Pe, phi, Pe_out, phi_out, geo, planes, coef, npow,
+                          st);
+  return (int)cudaErrorInvalidValue;
+}
+"""
 FIRST_DESIGNS = {"stokes_chunk.cu": CHUNK_FIRST, "pack_planes.cu": PACK_FIRST,
                  "stokes_band.cu": STOKES_BAND_FIRST,
                  "hm3d_band.cu": HM3D_BAND_FIRST,
                  "hm3d_chunk.cu": HM3D_CHUNK_FIRST,
-                 "diffusion_band.cu": DIFFUSION_BAND_FIRST}
+                 "diffusion_band.cu": DIFFUSION_BAND_FIRST,
+                 "stokes_step.cu": STOKES_STEP_FIRST,
+                 "hm3d_step.cu": HM3D_STEP_FIRST}
+# The policies only the first designs use: stokes.cuh with its update of a
+# run of cells on the staggered walks (`cells`, the kernels' as-built
+# stokes.cuh keeps the fields' layout alone), and hm3d.cuh, the HM3D update
+# of the unstaggered walks (step_walk.cuh, chunk_walk.cuh, band_walk.cuh).
+STOKES_POLICY_FIRST = """// The stokes3d physics of the 3-D staggered walk (stagger_walk3.cuh): the
+// pressure P (field 0) and the face velocities Vx (field 1, one cell longer
+// in x), Vy (field 2, in y) and Vz (field 3, in z), with the constant
+// buoyancy Rho laid out like P, updated as
+// igg_torch.models.stokes3d.iteration_core updates every block:
+//   gx = (Vx[i+1] - Vx[i]) / dx, gy, gz alike      at every cell
+//   divV = ((gx + gy) + gz),  P' = P - dtP*divV     at every cell
+//   txx = c2mu * (gx - divV/3), tyy, tzz alike      (c2mu = 2.0*mu)
+//   txy = mu * ((Vx[J] - Vx[J-1])/dy + (Vy[I] - Vy[I-1])/dx)  interior edges
+//   txz = mu * ((Vx[K] - Vx[K-1])/dz + (Vz[I] - Vz[I-1])/dx)
+//   tyz = mu * ((Vy[K] - Vy[K-1])/dz + (Vz[J] - Vz[J-1])/dy)
+//   rx = (((txx[I] - txx[I-1])/dx + (txy[J+1] - txy[J])/dy)
+//         + (txz[K+1] - txz[K])/dz) - (P'[I] - P'[I-1])/dx,  ry, rz alike,
+//   rz = rz + 0.5*(Rho[K] + Rho[K-1])
+//   V' = V + dtV*r on each velocity's interior faces, V + 0 elsewhere.
+// Each coefficient is rounded once to T; every operation is written out in
+// the order of the plain version, built with -fmad=false and without fast
+// math, so each one rounds like the plain PyTorch version (divisions IEEE).
+// A quotient the plain version forms twice from the same operands (gx in
+// divV and in txx) is formed once: the same operands give the same bits.
+//
+// `cells` computes a run of VEC cells along z: the VEC+1 cells k-1 .. k+VEC-1
+// of its own row, the VEC cells of the rows at x-1 and y-1 (whose normal
+// stresses and pressures the face residuals read), the shear stresses of
+// its edges, each of them once: 38*VEC + 8 divisions a run.  Loads outside
+// the block are skipped (their values are zeros, used by no interior face),
+// so every read stays inside the block; all divisions are by the spacings
+// or by 3, so the zeros are harmless.
+#pragma once
+
+#include "stagger_walk3.cuh"
+
+namespace igg {
+
+template <typename Real>
+struct Stokes {
+  using T = Real;
+  static constexpr int NF = 4;
+  const T* src[4];  // P, Vx, Vy, Vz
+  const T* rho;     // Rho, laid out like P
+  T dx, dy, dz, mu, c2mu, dtP, dtV;
+
+  // Vx is staggered along dim 0, Vy along 1, Vz along 2.
+  __host__ __device__ static constexpr int st(int f, int d) {
+    return f == d + 1 ? 1 : 0;
+  }
+  // On open dims the velocities freeze; the pressure does not.
+  __host__ __device__ static constexpr bool freezes(int f, int) {
+    return f >= 1;
+  }
+
+  // x / d, an IEEE division: every division of the update is by a spacing
+  // or by 3.
+  __device__ __forceinline__ T quot(T x, T d) const { return x / d; }
+
+  // (a - b) / d, the difference quotient, each operation rounded.
+  __device__ __forceinline__ T dq(T a, T b, T d) const {
+    return quot(a - b, d);
+  }
+
+  // p[0 .. N-1] from the N elements at q, VEC of them from q + lead (one
+  // vector load where aligned), the others one by one; elements whose flag
+  // is off are zero.
+  template <int VEC, int N>
+  __device__ __forceinline__ static void span(const T* q, int lead, bool lo,
+                                              bool hi, T* p) {
+#pragma unroll
+    for (int m = 0; m < N; ++m) p[m] = T(0);
+    load_run<T, VEC>(q + lead, p + lead);
+    if (lead == 1 && lo) p[0] = ld(q);
+    if (N > lead + VEC && hi) p[N - 1] = ld(q + N - 1);
+  }
+
+  template <int VEC>
+  __device__ __forceinline__ void cells(const Stag3& g, int i, int j, int k,
+                                        const long long* at,
+                                        const long long* sx,
+                                        const long long* sy,
+                                        T (*out)[VEC]) const {
+    constexpr int W = VEC + 1;  // cells k-1 .. k+VEC-1, index m+1 <-> k+m
+    const int s0 = g.s[0], s1 = g.s[1], s2 = g.s[2];
+    const bool rvx = i >= 1 && i <= s0 - 1 && j >= 1 && j <= s1 - 2;
+    const bool rvy = i >= 1 && i <= s0 - 2 && j >= 1 && j <= s1 - 1;
+    const bool rvz = i >= 1 && i <= s0 - 2 && j >= 1 && j <= s1 - 2;
+    const bool zlo = k >= 1, zhi = k + VEC <= s2 - 1;
+    const T* P = src[0] + at[0];
+    const T* X = src[1] + at[1];
+    const T* Y = src[2] + at[2];
+    const T* Z = src[3] + at[3];
+    const T* R = rho + at[0];
+    const long long px = sx[0], py = sy[0], xx = sx[1], xy = sy[1];
+    const long long yx = sx[2], yy = sy[2], zx = sx[3], zy = sy[3];
+
+    // The cells k-1 .. k+VEC-1 of the row (i, j): pressure, quotients,
+    // divergence, new pressure and normal stresses.
+    T vx[W + 1], vx1[W], vy[W + 1], vy1[W], vz[W + 1], p[W], r[W];
+    span<VEC, W + 1>(X - 1, 1, zlo, zhi, vx);
+    span<VEC, W>(X + xx - 1, 1, zlo, false, vx1);
+    span<VEC, W + 1>(Y - 1, 1, zlo, zhi, vy);
+    span<VEC, W>(Y + yy - 1, 1, zlo, false, vy1);
+    span<VEC, W + 1>(Z - 1, 1, zlo, true, vz);
+    span<VEC, W>(P - 1, 1, zlo, false, p);
+    span<VEC, W>(R - 1, 1, zlo, false, r);
+    T gx[W], gy[W], d3[W], pn[W], tzz[W];
+#pragma unroll
+    for (int m = 0; m < W; ++m) {
+      gx[m] = dq(vx1[m], vx[m], dx);
+      gy[m] = dq(vy1[m], vy[m], dy);
+      const T gz = dq(vz[m + 1], vz[m], dz);
+      const T div = (gx[m] + gy[m]) + gz;
+      pn[m] = p[m] - dtP * div;
+      d3[m] = quot(div, T(3));
+      tzz[m] = c2mu * (gz - d3[m]);
+    }
+#pragma unroll
+    for (int m = 0; m < VEC; ++m) {
+      out[0][m] = pn[m + 1];
+      out[1][m] = vx[m + 1] + T(0);
+      out[2][m] = vy[m + 1] + T(0);
+      out[3][m] = vz[m + 1] + T(0);
+    }
+    if (!(rvx || rvy || rvz)) return;
+
+    // The cells of the rows (i-1, j) and (i, j-1): their pressures and the
+    // normal stress across the shared face.
+    T xm[VEC], ym1[VEC], ym0[VEC], zm[VEC + 1], pxm[VEC];
+    T xym[VEC], x1ym[VEC], yym[VEC], zym[VEC + 1], pym[VEC];
+    load_run<T, VEC>(X - xx, xm);
+    load_run<T, VEC>(Y - yx, ym0);
+    load_run<T, VEC>(Y - yx + yy, ym1);
+    span<VEC, VEC + 1>(Z - zx, 0, false, true, zm);
+    load_run<T, VEC>(P - px, pxm);
+    load_run<T, VEC>(X - xy, xym);
+    load_run<T, VEC>(X + xx - xy, x1ym);
+    load_run<T, VEC>(Y - yy, yym);
+    span<VEC, VEC + 1>(Z - zy, 0, false, true, zym);
+    load_run<T, VEC>(P - py, pym);
+    T txx[VEC], txxm[VEC], tyy[VEC], tyym[VEC], pnxm[VEC], pnym[VEC];
+#pragma unroll
+    for (int m = 0; m < VEC; ++m) {
+      txx[m] = c2mu * (gx[m + 1] - d3[m + 1]);
+      tyy[m] = c2mu * (gy[m + 1] - d3[m + 1]);
+      {  // cell (i-1, j, k+m)
+        const T ax = dq(vx[m + 1], xm[m], dx);
+        const T ay = dq(ym1[m], ym0[m], dy);
+        const T az = dq(zm[m + 1], zm[m], dz);
+        const T d = (ax + ay) + az;
+        pnxm[m] = pxm[m] - dtP * d;
+        txxm[m] = c2mu * (ax - quot(d, T(3)));
+      }
+      {  // cell (i, j-1, k+m)
+        const T ax = dq(x1ym[m], xym[m], dx);
+        const T ay = dq(vy[m + 1], yym[m], dy);
+        const T az = dq(zym[m + 1], zym[m], dz);
+        const T d = (ax + ay) + az;
+        pnym[m] = pym[m] - dtP * d;
+        tyym[m] = c2mu * (ay - quot(d, T(3)));
+      }
+    }
+
+    // Shear stresses: txy at (i, j), txz at (i, j, k .. k+VEC), tyz alike.
+    T txy[VEC], txz[W], tyz[W];
+#pragma unroll
+    for (int m = 0; m < VEC; ++m)
+      txy[m] = mu * (dq(vx[m + 1], xym[m], dy) + dq(vy[m + 1], ym0[m], dx));
+#pragma unroll
+    for (int m = 0; m < W; ++m) {
+      txz[m] = mu * (dq(vx[m + 1], vx[m], dz) + dq(vz[m + 1], zm[m], dx));
+      tyz[m] = mu * (dq(vy[m + 1], vy[m], dz) + dq(vz[m + 1], zym[m], dy));
+    }
+
+    if (rvx) {  // Vx at face (i, j, k+m): also txy at (i, j+1)
+      T xyp[VEC];
+      load_run<T, VEC>(X + xy, xyp);
+#pragma unroll
+      for (int m = 0; m < VEC; ++m) {
+        if (k + m < 1 || k + m > s2 - 2) continue;
+        const T txyp =
+            mu * (dq(xyp[m], vx[m + 1], dy) + dq(vy1[m + 1], ym1[m], dx));
+        const T rx = ((dq(txx[m], txxm[m], dx) + dq(txyp, txy[m], dy)) +
+                      dq(txz[m + 1], txz[m], dz)) -
+                     dq(pn[m + 1], pnxm[m], dx);
+        out[1][m] = vx[m + 1] + dtV * rx;
+      }
+    }
+    if (rvy) {  // Vy at face (i, j, k+m): also txy at (i+1, j)
+      T yxp[VEC];
+      load_run<T, VEC>(Y + yx, yxp);
+#pragma unroll
+      for (int m = 0; m < VEC; ++m) {
+        if (k + m < 1 || k + m > s2 - 2) continue;
+        const T txyp =
+            mu * (dq(vx1[m + 1], x1ym[m], dy) + dq(yxp[m], vy[m + 1], dx));
+        const T ry = ((dq(tyy[m], tyym[m], dy) + dq(txyp, txy[m], dx)) +
+                      dq(tyz[m + 1], tyz[m], dz)) -
+                     dq(pn[m + 1], pnym[m], dy);
+        out[2][m] = vy[m + 1] + dtV * ry;
+      }
+    }
+    if (rvz) {  // Vz at face (i, j, k+m): txz at (i+1, j), tyz at (i, j+1)
+      T zxp[VEC], zyp[VEC];
+      load_run<T, VEC>(Z + zx, zxp);
+      load_run<T, VEC>(Z + zy, zyp);
+#pragma unroll
+      for (int m = 0; m < VEC; ++m) {
+        if (k + m < 1 || k + m > s2 - 1) continue;
+        const T txzp =
+            mu * (dq(vx1[m + 1], vx1[m], dz) + dq(zxp[m], vz[m + 1], dx));
+        const T tyzp =
+            mu * (dq(vy1[m + 1], vy1[m], dz) + dq(zyp[m], vz[m + 1], dy));
+        T rz = ((dq(tzz[m + 1], tzz[m], dz) + dq(txzp, txz[m], dx)) +
+                dq(tyzp, tyz[m], dy)) -
+               dq(pn[m + 1], pn[m], dz);
+        rz = rz + T(0.5) * (r[m + 1] + r[m]);
+        out[3][m] = vz[m + 1] + dtV * rz;
+      }
+    }
+  }
+};
+
+// Launch the walk with the Stokes policy on src (P, Vx, Vy, Vz) and the
+// constant rho into out, with the chunk-entry buffers F (none for a step);
+// coef: dx dy dz mu 2*mu dtP dtV, each rounded once to T; dtype: 0 float32,
+// 1 float64.
+// The policy on src (P, Vx, Vy, Vz) and rho; coef: dx dy dz mu 2*mu dtP
+// dtV, each rounded once to T.
+template <typename T>
+Stokes<T> make_stokes(void* const* src, const void* rho, const double* coef) {
+  return Stokes<T>{{static_cast<const T*>(src[0]),
+                    static_cast<const T*>(src[1]),
+                    static_cast<const T*>(src[2]),
+                    static_cast<const T*>(src[3])},
+                   static_cast<const T*>(rho),
+                   (T)coef[0], (T)coef[1], (T)coef[2], (T)coef[3],
+                   (T)coef[4], (T)coef[5], (T)coef[6]};
+}
+
+// The four fields' pointers, read-only (the chunk-entry buffers; none when
+// F is null) or written (the targets).
+template <typename T>
+Fields<const T, 4> stokes_entry(void* const* F) {
+  if (F == nullptr) return Fields<const T, 4>{};
+  return Fields<const T, 4>{{static_cast<const T*>(F[0]),
+                             static_cast<const T*>(F[1]),
+                             static_cast<const T*>(F[2]),
+                             static_cast<const T*>(F[3])}};
+}
+template <typename T>
+Fields<T, 4> stokes_out(void* const* out) {
+  return Fields<T, 4>{{static_cast<T*>(out[0]), static_cast<T*>(out[1]),
+                       static_cast<T*>(out[2]), static_cast<T*>(out[3])}};
+}
+
+template <typename T>
+int launch_stokes_as(void* const* src, const void* rho, void* const* F,
+                     void* const* out, const Stag3& g, const double* coef,
+                     cudaStream_t stream) {
+  return launch_stagger3(make_stokes<T>(src, rho, coef), g,
+                         stokes_entry<T>(F), stokes_out<T>(out), stream);
+}
+
+inline int launch_stokes(void* const* src, const void* rho, void* const* F,
+                         void* const* out, int dtype, const Stag3& g,
+                         const double* coef, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_stokes_as<float>(src, rho, F, out, g, coef, st);
+  if (dtype == 1)
+    return launch_stokes_as<double>(src, rho, F, out, g, coef, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace igg
+"""
+HM3D_POLICY_FIRST = """// The HM3D physics of the step walk (step_walk.cuh): two fields, the
+// effective pressure Pe (field 0) and the porosity phi (field 1), updated
+// as igg.models.hm3d.step_core updates them:
+//   k    = (phi/phi0)^npow                 (repeated multiplication)
+//   kf   = 0.5*(k_hi + k_lo)               on each face
+//   q    = (-kf * (Pe_hi - Pe_lo)) / d     Darcy flux
+//   divq = ((dqx/dx + dqy/dy) + dqz/dz)
+//   Pe'  = Pe + dt*(-divq - (Pe*phi)/eta)
+//   phi' = phi + dt*(((-phi*(1 - phi))*Pe')/eta)
+// Pe' is rounded before phi's update uses it (the Gauss-Seidel coupling).
+// Every operation is written out in the order of step_core and of the
+// port's plain version; built with -fmad=false and without fast math, so
+// each one rounds like the plain PyTorch version (divisions IEEE).
+#pragma once
+
+#include "step_walk.cuh"
+
+namespace igg {
+
+template <typename Real>
+struct Hm3d {
+  using T = Real;
+  static constexpr int NF = 2;
+  const T* src[2];  // Pe, phi
+  T dx, dy, dz, dt, phi0, eta;
+  int npow;         // >= 0
+
+  bool aligned(uintptr_t bytes) const {
+    return igg::aligned(src[0], bytes) && igg::aligned(src[1], bytes);
+  }
+
+  // (phi/phi0)^npow by repeated squaring, the order of XLA's integer_pow:
+  // acc takes x at each set bit of npow from the lowest, x squares between.
+  __device__ __forceinline__ T perm(T phi) const {
+    T x = phi / phi0;
+    if (npow == 0) return T(1);
+    T acc = x;
+    bool have = false;
+    for (int y = npow; y > 0;) {
+      if (y & 1) {
+        acc = have ? acc * x : x;
+        have = true;
+      }
+      y >>= 1;
+      if (y > 0) x = x * x;
+    }
+    return acc;
+  }
+
+  // Darcy flux through the face between cells lo and hi along a dim of
+  // spacing d.
+  __device__ __forceinline__ T flux(T klo, T khi, T plo, T phi_, T d) const {
+    const T kf = T(0.5) * (khi + klo);
+    return (-kf * (phi_ - plo)) / d;
+  }
+
+  // Pe' and phi' of one cell from its centre values and six face fluxes.
+  __device__ __forceinline__ void cell(T pe, T ph, T qxl, T qxh, T qyl, T qyh,
+                                       T qzl, T qzh, T& pe_out,
+                                       T& ph_out) const {
+    T divq = (qxh - qxl) / dx;
+    divq = divq + (qyh - qyl) / dy;
+    divq = divq + (qzh - qzl) / dz;
+    const T dpe = dt * (-divq - (pe * ph) / eta);
+    const T pe_new = pe + dpe;
+    const T dph = dt * (((-ph * (T(1) - ph)) * pe_new) / eta);
+    pe_out = pe_new;
+    ph_out = ph + dph;
+  }
+
+  template <int VEC>
+  __device__ __forceinline__ void update(long long row, int z0, long long sx,
+                                         int G2, Cells<T, 2, VEC>& out) const {
+    using V = Vec<T, VEC>;
+    const T* P = src[0] + row;
+    const T* F = src[1] + row;
+    const V pc = load<T, VEC>(P + z0), fc = load<T, VEC>(F + z0);
+    const V pxm = load<T, VEC>(P - sx + z0), fxm = load<T, VEC>(F - sx + z0);
+    const V pxp = load<T, VEC>(P + sx + z0), fxp = load<T, VEC>(F + sx + z0);
+    const V pym = load<T, VEC>(P - G2 + z0), fym = load<T, VEC>(F - G2 + z0);
+    const V pyp = load<T, VEC>(P + G2 + z0), fyp = load<T, VEC>(F + G2 + z0);
+    // The z line of the vector and its two neighbours, and its VEC + 1 z
+    // faces (each face's flux serves the two cells beside it, as one
+    // element of step_core's qz serves two cells).
+    T pz[VEC + 2], kz[VEC + 2];
+    pz[0] = z0 > 0 ? ld(P + z0 - 1) : T(0);
+    kz[0] = perm(z0 > 0 ? ld(F + z0 - 1) : T(0));
+    pz[VEC + 1] = z0 + VEC < G2 ? ld(P + z0 + VEC) : T(0);
+    kz[VEC + 1] = perm(z0 + VEC < G2 ? ld(F + z0 + VEC) : T(0));
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      pz[v + 1] = pc.v[v];
+      kz[v + 1] = perm(fc.v[v]);
+    }
+    T qz[VEC + 1];
+#pragma unroll
+    for (int i = 0; i <= VEC; ++i)
+      qz[i] = flux(kz[i], kz[i + 1], pz[i], pz[i + 1], dz);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      const T kc = kz[v + 1], p = pc.v[v];
+      cell(p, fc.v[v], flux(perm(fxm.v[v]), kc, pxm.v[v], p, dx),
+           flux(kc, perm(fxp.v[v]), p, pxp.v[v], dx),
+           flux(perm(fym.v[v]), kc, pym.v[v], p, dy),
+           flux(kc, perm(fyp.v[v]), p, pyp.v[v], dy), qz[v], qz[v + 1],
+           out.f[0].v[v], out.f[1].v[v]);
+    }
+  }
+};
+
+// coef: dx dy dz dt phi0 eta, each rounded once to T.
+template <typename T>
+Hm3d<T> make_hm3d(const void* Pe, const void* phi, const double* coef,
+                  int npow) {
+  return Hm3d<T>{{static_cast<const T*>(Pe), static_cast<const T*>(phi)},
+                 (T)coef[0], (T)coef[1], (T)coef[2], (T)coef[3],
+                 (T)coef[4], (T)coef[5], npow};
+}
+
+}  // namespace igg
+"""
+FIRST_HEADERS = {"stokes.cuh": STOKES_POLICY_FIRST,
+                 "hm3d.cuh": HM3D_POLICY_FIRST}
 
 
-def first_design(name, text):
-    return FIRST_DESIGNS.get(name, text)
+class first_design:
+    """The first designs' sources in place of the kernels' (FIRST_DESIGNS)
+    and their policies' headers (FIRST_HEADERS: `stokes.cuh` in place of
+    the layout alone, `hm3d.cuh` added)."""
+
+    added = FIRST_HEADERS
+
+    def __call__(self, name, text):
+        return FIRST_DESIGNS.get(name, FIRST_HEADERS.get(name, text))
 
 
 def march(old, new):
@@ -558,6 +1043,62 @@ HM_DIV_IEEE = stokes_edit(hm(HM_IEEE, "constexpr bool hm_ieee = true;"))
 HM_DIV_IEEE_F32 = stokes_edit(hm(HM_IEEE,
                                  "constexpr bool hm_ieee = sizeof(T) == 4;"))
 HM_DIV_CONST = stokes_edit(hm(HM_IEEE, "constexpr bool hm_ieee = false;"))
+# The fused step's own: const_div.cuh in float32 too, or `x / d` in float64
+# too (the band and chunk kernels as built).
+HM_STEP_DIV_CONST = stokes_edit(hm(
+    HM_IEEE, "constexpr bool hm_ieee = E::CHUNK && !E::STEP && "
+             "sizeof(T) == 4;"))
+HM_STEP_DIV_IEEE = stokes_edit(hm(
+    HM_IEEE, "constexpr bool hm_ieee = E::STEP || (E::CHUNK && "
+             "sizeof(T) == 4);"))
+
+
+def ss(old, new):
+    return ("stokes_step.cu", old, new)
+
+
+def ss_const(name, old, new):
+    return stokes_edit(ss(f"constexpr int {name} = {old};",
+                          f"constexpr int {name} = {new};"))
+
+
+SS_IEEE = "constexpr bool ss_ieee = false;"
+# ss_zero: a zero dividend of an admitted divisor stays in its batch on the
+# reciprocal path, its quotient given the sign of x / d (bitwise the zero
+# `x / d` gives; an admitted x's quotient has that sign already).
+SS_BATCH = """    ok = ok & div_admits(x, q);
+    return div_fast(x, q);"""
+SS_BATCH_ZERO = """    ok = ok & (div_admits(x, q) | (q.fast != 0 && x == T(0)));
+    const T r = div_fast(x, q);
+    if constexpr (sizeof(T) == 4) {
+      return __uint_as_float((__float_as_uint(r) & 0x7fffffffu) |
+                             ((__float_as_uint(x) ^ __float_as_uint(q.d)) &
+                              0x80000000u));
+    } else {
+      const long long s = (__double_as_longlong(x) ^
+                           __double_as_longlong(q.d)) &
+                          (long long)0x8000000000000000ull;
+      return __longlong_as_double((__double_as_longlong(r) &
+                                   0x7fffffffffffffffll) | s);
+    }"""
+# ss_wide: a float32 dividend of a batch that left the range on the
+# float64 reciprocal path (its divisor formed as make_div forms it), which
+# admits every finite nonzero float32 x: RN64(x / d) rounded to float32 is
+# RN32(x / d), a double rounding of a quotient being exact where
+# 53 >= 2 * 24 + 2.
+SS_CDIV = """  else
+    return cdiv(x, q);"""
+SS_CDIV_WIDE = """  else {
+    if constexpr (sizeof(T) == 4) {
+      const double d = q.d, r = 1.0 / d;
+      const ConstDiv<double> w{
+          d, r, __fma_rn(-r, d, 1.0) * r, DivBits<double>::lo,
+          q.fast ? DivBits<double>::hi - DivBits<double>::lo : 0, q.fast};
+      const double xd = x;
+      if (div_admits(xd, w)) return (T)div_fast(xd, w);
+    }
+    return cdiv(x, q);
+  }"""
 
 
 def dm(old, new):
@@ -580,26 +1121,6 @@ VARIANTS = {
     "ldg_loads": (ldg_loads, []),
     "vec_8B": (vec_8b, []),
     "approx_div": (lambda name, text: text, ["-prec-div=false"]),
-    "stokes_vec_16B": (stokes_edit(
-        walk(VEC8, "P, 16 / sizeof(typename P::T)>")), []),
-    "stokes_bounds_3": (stokes_edit(
-        walk(BOUNDS, "__launch_bounds__(256, 3)\n")), []),
-    "stokes_zero_quot": (stokes_edit(
-        ("stokes.cuh", QUOT, "{ return x == T(0) ? x : x / d; }")), []),
-    "stokes_x_fastest": (stokes_edit(
-        walk("{(int)blockIdx.z / h0, (int)blockIdx.y / ty,\n"
-             "                    (int)blockIdx.x / tz}",
-             "{(int)blockIdx.x / h0, (int)blockIdx.y / ty,\n"
-             "                    (int)blockIdx.z / tz}"),
-        walk("const int i = blockIdx.z - b[0] * h0;",
-             "const int i = blockIdx.x - b[0] * h0;"),
-        walk("const int k0 = (blockIdx.x - b[2] * tz)",
-             "const int k0 = (blockIdx.z - b[2] * tz)"),
-        walk("if (gx > 0x7fffffffLL || gy > 65535 || gz > 65535)",
-             "if (gz > 0x7fffffffLL || gy > 65535 || gx > 65535)"),
-        walk("const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);",
-             "const dim3 grid((unsigned)gz, (unsigned)gy, (unsigned)gx);")),
-        []),
     "band_row_staging": (stokes_edit(band(FLAT_STAGING, ROW_STAGING)), []),
     "band_bounds_1": (stokes_edit(band(
         BAND_BOUNDS, "__launch_bounds__(BAND_TY * BAND_TZ)")), []),
@@ -634,7 +1155,7 @@ VARIANTS = {
         "MARCH_MIN_BLOCKS_F64 = 2;", "MARCH_MIN_BLOCKS_F64 = 1;")), []),
     "march_bounds_f64_3": (stokes_edit(march(
         "MARCH_MIN_BLOCKS_F64 = 2;", "MARCH_MIN_BLOCKS_F64 = 3;")), []),
-    "first_designs": (first_design, []),
+    "first_designs": (first_design(), []),
     "hm_div_ieee": (HM_DIV_IEEE, []),
     "hm_ahead_2": (hm_const("HM_AHEAD", 1, 2), []),
     "hm_ahead_3": (hm_const("HM_AHEAD", 1, 3), []),
@@ -674,6 +1195,52 @@ VARIANTS = {
     "dm_bounds_f32_8": (dm_const("DM_MIN_BLOCKS_F32", 6, 8), []),
     "dm_bounds_f64_5": (dm_const("DM_MIN_BLOCKS_F64", 3, 5), []),
     "dm_bounds_f64_8": (dm_const("DM_MIN_BLOCKS_F64", 3, 8), []),
+    "ss_c_f32_1": (ss_const("SS_C_F32", 2, 1), []),
+    "ss_c_f32_4": (ss_const("SS_C_F32", 2, 4), []),
+    "ss_c_f64_1": (ss_const("SS_C_F64", 2, 1), []),
+    "ss_c_f64_4": (ss_const("SS_C_F64", 2, 4), []),
+    "ss_w_2": (ss_const("SS_W", 4, 2), []),
+    "ss_w_8": (ss_const("SS_W", 4, 8), []),
+    "ss_div_ieee": (stokes_edit(ss(SS_IEEE, "constexpr bool ss_ieee = true;")),
+                    []),
+    "ss_div_ieee_f32": (stokes_edit(ss(
+        SS_IEEE, "constexpr bool ss_ieee = sizeof(T) == 4;")), []),
+    "ss_ahead_2": (ss_const("SS_AHEAD", 1, 2), []),
+    "ss_zero": (stokes_edit(ss(SS_BATCH, SS_BATCH_ZERO)), []),
+    "ss_wide": (stokes_edit(ss(SS_CDIV, SS_CDIV_WIDE)), []),
+    "ss_blocks_1024": (ss_const("SS_BLOCKS", 4096, 1024), []),
+    "ss_blocks_2048": (ss_const("SS_BLOCKS", 4096, 2048), []),
+    "ss_blocks_8192": (ss_const("SS_BLOCKS", 4096, 8192), []),
+    "ss_blocks_16384": (ss_const("SS_BLOCKS", 4096, 16384), []),
+    "ss_no_segments": (ss_const("SS_BLOCKS", 4096, 1), []),
+    "ss_bounds_f32_2": (ss_const("SS_MIN_BLOCKS_F32", 3, 2), []),
+    "ss_bounds_f32_4": (ss_const("SS_MIN_BLOCKS_F32", 3, 4), []),
+    "ss_bounds_f64_2": (ss_const("SS_MIN_BLOCKS_F64", 3, 2), []),
+    "ss_bounds_f64_4": (ss_const("SS_MIN_BLOCKS_F64", 3, 4), []),
+    "hm_step_blocks_512": (hm_const("HM_STEP_BLOCKS", 8192, 512), []),
+    "hm_step_blocks_1024": (hm_const("HM_STEP_BLOCKS", 8192, 1024), []),
+    "hm_step_blocks_2048": (hm_const("HM_STEP_BLOCKS", 8192, 2048), []),
+    "hm_step_blocks_16384": (hm_const("HM_STEP_BLOCKS", 8192, 16384), []),
+    "hm_step_min_seg_8": (hm_const("HM_STEP_MIN_SEG", 16, 8), []),
+    "hm_step_min_seg_32": (hm_const("HM_STEP_MIN_SEG", 16, 32), []),
+    "hm_step_min_seg_4": (stokes_edit(
+        hm("constexpr int HM_STEP_BLOCKS = 8192;",
+           "constexpr int HM_STEP_BLOCKS = 16384;"),
+        hm("constexpr int HM_STEP_MIN_SEG = 16;",
+           "constexpr int HM_STEP_MIN_SEG = 4;")), []),
+    "hm_step_blocks_32768": (hm_const("HM_STEP_BLOCKS", 8192, 32768), []),
+    "hm_step_no_segments": (hm_const("HM_STEP_BLOCKS", 8192, 1), []),
+    "hm_step_div_const": (HM_STEP_DIV_CONST, []),
+    "hm_step_bounds_f32_3": (hm_const("HM_STEP_MIN_BLOCKS_F32", 4, 3), []),
+    "hm_step_bounds_f64_2": (hm_const("HM_STEP_MIN_BLOCKS_F64", 4, 2), []),
+    "hm_step_bounds_f64_3": (hm_const("HM_STEP_MIN_BLOCKS_F64", 4, 3), []),
+    "hm_step_noinline_special": (stokes_edit(hm(
+        "__device__ __forceinline__ void hm_step_put_special(",
+        "__device__ __noinline__ void hm_step_put_special(")), []),
+    "hm_step_no_special_writes": (stokes_edit(hm(
+        "  hm_step_put_special(m, b, j, k, ins, x, pn, fn);\n}",
+        "}")), []),
+    "hm_step_div_ieee": (HM_STEP_DIV_IEEE, []),
     "march_no_segments": (stokes_edit(march(
         "constexpr int MARCH_BLOCKS = 8192; ",
         "constexpr int MARCH_BLOCKS = 1; ")), []),
@@ -690,11 +1257,12 @@ RELAX3D = "relax3d"
 MARCH = ("stokes_chunk", "stokes_band")
 TARGETS = {v: MARCH for v in VARIANTS if v.startswith("march_")}
 TARGETS.update(
-    {v: ("stokes_step",) for v in ("stokes_vec_16B", "stokes_bounds_3",
-                                   "stokes_zero_quot", "stokes_x_fastest")},
-    vec_8B=("diffusion_step", "diffusion_chunk", "hm3d_step"),
+    {v: ("stokes_step",) for v in VARIANTS if v.startswith("ss_")},
+    **{v: ("hm3d_step",) for v in VARIANTS if v.startswith("hm_step_")},
+    vec_8B=("diffusion_step", "diffusion_chunk"),
     band_row_staging=(RELAX3D,), band_bounds_1=(RELAX3D,),
-    march_sync_staging=MARCH + ("hm3d_band", "hm3d_chunk", "diffusion_band"),
+    march_sync_staging=MARCH + ("hm3d_band", "hm3d_chunk", "diffusion_band",
+                                "hm3d_step", "stokes_step"),
     **{v: MARCH + ("hm3d_band", "hm3d_chunk")
        for v in ("march_div_ieee", "march_div_vote", "march_div_mul")})
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
@@ -755,10 +1323,13 @@ def build(variant):
     shutil.rmtree(out, ignore_errors=True)
     os.makedirs(out)
     texts, changed = {}, set()
-    for f in os.listdir(csrc):
+    added = getattr(edit, "added", {})
+    for f in sorted(set(os.listdir(csrc)) | set(added)):
         if f.endswith((".cu", ".cuh")):
-            with open(os.path.join(csrc, f)) as src:
-                before = src.read()
+            before = ""
+            if os.path.exists(os.path.join(csrc, f)):
+                with open(os.path.join(csrc, f)) as src:
+                    before = src.read()
             texts[f] = edit(f, before)
             if texts[f] != before:
                 changed.add(f)
@@ -786,7 +1357,7 @@ def build(variant):
                                f"reaches {sorted(named - touched)}")
         touched = named
     procs = {lib: subprocess.Popen(
-        [_build.nvcc(), *_build.FLAGS, *flags, "-o",
+        [_build.nvcc(), *_build.FLAGS, *flags, "-Xptxas", "-v", "-o",
          os.path.join(out, f"{lib}.so"), os.path.join(out, f"{lib}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for lib in LIBS + (f"gen_{gen.tag}",) if lib in touched}
@@ -795,6 +1366,7 @@ def build(variant):
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {variant}/{lib}:\n{log}")
+        PTXAS[variant, lib] = ptxas_report(log)
         libs[lib] = ctypes.CDLL(os.path.join(out, f"{lib}.so"))
         if lib.startswith("gen_"):
             from igg_torch.stencil.cuda import ARGTYPES, BAND_ENTRY, ENTRY
@@ -805,6 +1377,36 @@ def build(variant):
             fn = getattr(libs[lib], fn_name)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return libs, touched
+
+
+# (variant, library) -> ptxas's report of each kernel of the library.
+PTXAS = {}
+ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+USED = re.compile(r"Used (\d+) registers")
+FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                   r"(\d+) bytes spill loads")
+
+
+def ptxas_report(log):
+    """{kernel (mangled): "R registers, S stack, spills st/ld"} from
+    `nvcc -Xptxas -v`'s log (a kernel's lines follow its "Compiling entry
+    function" line)."""
+    out, name, frame = {}, None, ""
+    for line in log.splitlines():
+        m = ENTRY.search(line)
+        if m:
+            name, frame = m.group(1), ""
+            continue
+        m = FRAME.search(line)
+        if m and name:
+            frame = (f"{m.group(1)} stack, spills {m.group(2)}/"
+                     f"{m.group(3)}")
+            continue
+        m = USED.search(line)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, {frame}"
+            name = None
+    return out
 
 
 def event_ms(fn, n):
@@ -885,18 +1487,25 @@ def cases(dev):
         return lambda: dtz.chunk_call(Text, A_ext, g.nxyz, K=K, modes=modes,
                                       grid=g, sc=sc), K
 
-    def hm3d_step(state):
+    def hm3d_step(state, dtype=torch.float32, blocks=1):
+        """The HM3D step on one periodic 256^3 block or on 2x2x2 periodic
+        blocks of 256^3 (every dim received), random fields or
+        `init_fields`."""
         def setup():
-            g = grid(**one_block)
+            g = grid(**(dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
+                             periodz=1) if blocks == 2 else one_block))
             p = h3.Params()
             if state == "random":
-                Pe = -0.5 * torch.rand((n,) * 3, device=dev)
+                Pe = -0.5 * torch.rand(it.stacked_shape(g.nxyz), device=dev,
+                                       dtype=dtype)
                 phi = 0.1 + 0.1 * torch.rand_like(Pe)
             else:
-                Pe, phi = h3.init_fields(p)
+                Pe, phi = h3.init_fields(p, dtype=dtype)
+            kw, modes = p.step_kwargs(), hp.step_modes(g)
+            recv = hp.step_recv_planes(Pe, phi, g, modes, kw)
             out = (torch.empty_like(Pe), torch.empty_like(phi))
-            return lambda: hp.launch_step(Pe, phi, hp.step_modes(g), ({}, {}),
-                                          g.dims, p.step_kwargs(), out=out), 1
+            return lambda: hp.launch_step(Pe, phi, modes, recv, g.dims, kw,
+                                          out=out), 1
         return setup
 
     def hm3d_chunk(state="random", dtype=torch.float32):
@@ -977,6 +1586,10 @@ def cases(dev):
                             - 1).to(dtype) for s in shapes]
             else:
                 *S, Rho = st3.init_fields(st3.Params(), dtype=dtype)
+            if state == "evolved":  # phase 12's state: 10 iterations on
+                *S, Rho = it.update_halo(*S, Rho)
+                for _ in range(10):
+                    S = list(sp.fused_stokes_iteration(*S, Rho, **kw))
             if not chunk:
                 out = [torch.empty_like(A) for A in S]
                 return lambda: sp.launch_step(*S, Rho, g.dims, kw,
@@ -1078,6 +1691,12 @@ def cases(dev):
             ("hm3d_step_256_random", hm3d_step("random"), "hm3d_step"),
             ("hm3d_step_256_init_fields", hm3d_step("init_fields"),
              "hm3d_step"),
+            ("hm3d_step_256_random_f64", hm3d_step("random", f64),
+             "hm3d_step"),
+            ("hm3d_step_2x2x2_256_periodic", hm3d_step("random", blocks=2),
+             "hm3d_step"),
+            ("hm3d_step_2x2x2_256_periodic_f64",
+             hm3d_step("random", f64, blocks=2), "hm3d_step"),
             ("hm3d_chunk_2x2x2_256_periodic", hm3d_chunk(), "hm3d_chunk"),
             ("hm3d_chunk_2x2x2_256_periodic_init_fields",
              hm3d_chunk("init_fields"), "hm3d_chunk"),
@@ -1090,8 +1709,16 @@ def cases(dev):
             ("stokes_step_256_periodic", stokes(False), "stokes_step"),
             ("stokes_step_256_periodic_init_fields",
              stokes(False, "init_fields"), "stokes_step"),
+            ("stokes_step_256_periodic_evolved", stokes(False, "evolved"),
+             "stokes_step"),
             ("stokes_step_288x256x256_periodic", stokes(False, nx=288),
              "stokes_step"),
+            ("stokes_step_256_periodic_f64", stokes(False, dtype=f64),
+             "stokes_step"),
+            ("stokes_step_2x2x2_256_open", stokes(False, blocks=2),
+             "stokes_step"),
+            ("stokes_step_2x2x2_256_open_f64",
+             stokes(False, blocks=2, dtype=f64), "stokes_step"),
             ("stokes_chunk_256_periodic", stokes(True), "stokes_chunk"),
             ("stokes_chunk_2x2x2_256_open", stokes(True, blocks=2),
              "stokes_chunk"),
@@ -1146,9 +1773,11 @@ def main() -> int:
         if v not in VARIANTS and not v.startswith("sources:"):
             raise SystemExit(f"unknown variant {v!r}: {sorted(VARIANTS)}")
     variants = ["as_built"] + named if named else list(VARIANTS)
-    built, touched = {}, {}
-    for v in variants:
-        built[v], touched[v] = build(v)
+    # The variants' builds run side by side (each one nvcc per library).
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        done = dict(zip(variants, pool.map(build, variants)))
+    built = {v: done[v][0] for v in variants}
+    touched = {v: done[v][1] for v in variants}
     times = {v: {} for v in variants}
     tag = relax3d_kernels().tag
     for name, setup, lib in cases(torch.device("cuda")):
@@ -1172,7 +1801,9 @@ def main() -> int:
         del run
     for v in variants:
         print(json.dumps({"variant": v, "ms_per_launch": times[v],
-                          "libraries": sorted(touched[v])}))
+                          "libraries": sorted(touched[v]),
+                          "ptxas": {lib: rep for (w, lib), rep in
+                                    PTXAS.items() if w == v}}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip())

@@ -209,10 +209,13 @@ def _rewrite(text):
     return SHARED.sub(r"unsigned char* \1 = emu_smem;", text)
 
 
-def _gxx(out, src, so):
+def _gxx(out, src, so, first=None):
+    """Build `src` into `so` against the headers in `out` (those in `first`,
+    where given, found before them)."""
+    inc = ([f"-I{first}"] if first else []) + [f"-I{out}"]
     proc = subprocess.run(
         [shutil.which("g++"), "-std=c++17", "-O1", "-ffp-contract=off",
-         "-fPIC", "-shared", f"-I{out}", "-x", "c++", str(src), "-o",
+         "-fPIC", "-shared", *inc, "-x", "c++", str(src), "-o",
          str(so)], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
@@ -732,9 +735,13 @@ SHORT_SEGMENTS = (("stokes_march.cuh", "constexpr int MARCH_MIN_SEG = 8;",
                   ("hm3d_march.cuh", "constexpr int HM_MIN_SEG = 8;",
                    "constexpr int HM_MIN_SEG = 3;"),
                   ("diffusion_march.cuh", "constexpr int DM_MIN_SEG = 8;",
-                   "constexpr int DM_MIN_SEG = 3;"))
+                   "constexpr int DM_MIN_SEG = 3;"),
+                  ("stokes_step.cu", "constexpr int SS_MIN_SEG = 8;",
+                   "constexpr int SS_MIN_SEG = 3;"),
+                  ("hm3d_march.cuh", "constexpr int HM_STEP_MIN_SEG = 16;",
+                   "constexpr int HM_STEP_MIN_SEG = 3;"))
 SHORT_SEGMENT_LIBS = ("stokes_band", "hm3d_band", "hm3d_chunk",
-                      "diffusion_band")
+                      "diffusion_band", "hm3d_step", "stokes_step")
 
 
 @pytest.fixture(scope="module")
@@ -933,6 +940,75 @@ def test_diffusion_band_march_edge_cases(emulated, short_segments, case, kind,
                                 grid=g, sc=SC, central=central))
 
 
+# The step marches' layouts: GRIDS (every halo mode, x wraps among them)
+# and y received over a wrapped x and z, where a received y halo cell takes
+# the y plane at its wrap source's z, not its own.
+STEP_GRIDS = dict(GRIDS, recv_y_wrap_xz=dict(dimx=1, dimy=2, dimz=1,
+                                             periodx=1, periodz=1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
+@pytest.mark.parametrize("case", sorted(STEP_GRIDS))
+def test_hm3d_step_march_edge_cases(emulated, short_segments, case, kind,
+                                    dtype, monkeypatch):
+    """The HM3D step kernel (the HM3D march with the fused step's edge
+    rules) against `step_plain` in the march's edge cases, npow 0, 1, 2 and
+    5: x segments of 3 rows (SHORT_SEGMENTS; 13 rows: 4 segments), extents
+    that cross its 16 x 16 tiles and end in a ragged one (y 18, z 35), and
+    fields at rest."""
+    from igg_torch.models import hm3d as h3
+
+    local = (19, 18, 35) if kind == "ragged_tiles" else (13, 10, 12)
+    if kind == "short_segments":
+        monkeypatch.setattr(hp, "library", short_segments.__getitem__)
+    it.init_global_grid(*local, quiet=True, device="cpu", **STEP_GRIDS[case])
+    g = it.get_global_grid()
+    shp, modes = it.stacked_shape(g.nxyz), dp.step_modes(g)
+    if kind == "at_rest":
+        Pe, phi = h3.init_fields(h3.Params(), dtype=dtype)
+    else:
+        Pe, phi = (_random(shp, dtype, -0.5, 0, 41),
+                   _random(shp, dtype, 0.05, 0.25, 42))
+    for npow in (0, 1, 2, 5):
+        kw = dict(HM3D_KW, npow=npow)
+        recv = hp.step_recv_planes(Pe, phi, g, modes, kw)
+        out = (torch.empty_like(Pe), torch.empty_like(phi))
+        hp._launch(Pe, phi, out, modes, recv, g.dims, g.nxyz, kw, 0)
+        for a, b in zip(out, hp.step_plain(Pe, phi, modes, recv, g.dims, kw)):
+            same(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", BAND_EDGE_CASES + ("tiny",))
+@pytest.mark.parametrize("case", ["ring_periodic", "2x2x2_open",
+                                  "4x2x1_periods101", "1x1x1_periodic"])
+def test_stokes_step_march_edge_cases(emulated, short_segments, case, kind,
+                                      dtype, monkeypatch):
+    """The Stokes step kernel's x-march against `step_plain` in its edge
+    cases: x segments of 3 rows (SHORT_SEGMENTS; 13 rows: 4 segments),
+    extents that cross its tiles (8 rows by 32 columns) and end in a
+    ragged one (y 19, z 35; x 17: 2 segments), fields at rest, and tiny
+    fields (about 1e-37: dividends below the reciprocal path's range,
+    subnormal ones among them in float32)."""
+    from igg_torch.models import stokes3d as st3
+
+    local = (17, 19, 35) if kind == "ragged_tiles" else (13, 9, 12)
+    if kind == "short_segments":
+        monkeypatch.setattr(sp, "library", short_segments.__getitem__)
+    g = _stokes_grid(case, local)
+    if kind == "at_rest":
+        *srcs, Rho = st3.init_fields(st3.Params(), dtype=dtype)
+    else:
+        *srcs, Rho = _stokes_state(g, dtype, 51)
+    if kind == "tiny":
+        srcs, Rho = [A * 1e-37 for A in srcs], Rho * 1e-37
+    out = [torch.empty_like(A) for A in srcs]
+    sp._launch(srcs, Rho, out, g.dims, g.nxyz, STOKES_KW, 0)
+    for a, b in zip(out, sp.step_plain(*srcs, Rho, g.dims, STOKES_KW)):
+        same(a, b)
+
+
 # HM3D's divisors: phi0 and eta of its parameters, the checks' 1.3, and the
 # spacings 10 / (n_g - 1) of its phases (n_g 254 on one periodic 256^3
 # block, 508 on 2x2x2 periodic blocks of 256^3, 510 on open ones) and of
@@ -964,17 +1040,23 @@ def test_hm3d_band_divisors_divide_as_ieee(emulated, d):
 @pytest.fixture(scope="module")
 def first_designs(csrc):
     """The first designs of the redesigned kernels (kernel_variants.py:
-    FIRST_DESIGNS), built with g++ beside the rewritten headers, as the
-    card's timing runs build them with nvcc."""
+    FIRST_DESIGNS), built with g++ beside the rewritten headers and the
+    first designs' policies (FIRST_HEADERS, found first), as the card's
+    timing runs build them with nvcc."""
     import sys
 
     sys.path.insert(0, os.path.dirname(_build._ROOT))
     import kernel_variants
 
+    first = csrc / "first"
+    first.mkdir()
+    for name, text in kernel_variants.FIRST_HEADERS.items():
+        (first / name).write_text(_rewrite(text))
+
     def build(name):
-        src = csrc / f"first_{name}"
+        src = first / f"first_{name}"
         src.write_text(_rewrite(kernel_variants.FIRST_DESIGNS[name]))
-        lib = _gxx(csrc, src, csrc / f"first_{name}.so")
+        lib = _gxx(csrc, src, first / f"first_{name}.so", first)
         fn_name, argtypes = _build.SIGNATURES[name[:-len(".cu")]]
         fn = getattr(lib, fn_name)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
@@ -987,8 +1069,8 @@ def first_designs(csrc):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name", ["diffusion_band", "hm3d_band", "hm3d_chunk",
-                                  "pack_planes", "stokes_band",
-                                  "stokes_chunk"])
+                                  "hm3d_step", "pack_planes", "stokes_band",
+                                  "stokes_chunk", "stokes_step"])
 def test_first_designs_match_plain(emulated, first_designs, name, dtype,
                                    monkeypatch):
     """The redesigned kernels' first designs, kept as text to be timed
@@ -996,8 +1078,9 @@ def test_first_designs_match_plain(emulated, first_designs, name, dtype,
     versions: the band kernels on 2x2x2 blocks (diffusion periodic in z,
     HM3D periodic in y, Stokes open), the Stokes chunk step on one periodic
     block, the HM3D chunk step on 2x2x1 blocks (y and z periodic), the
-    packer on 2x2x2 blocks."""
-    for module in (dtz, htz, stz, pk):
+    packer on 2x2x2 blocks, the HM3D step on 1x2x2 blocks (x periodic: a
+    wrap and received planes) and the Stokes step on 2x2x2 open blocks."""
+    for module in (dtz, htz, stz, pk, hp, sp):
         monkeypatch.setattr(module, "library", first_designs.__getitem__)
     if name == "diffusion_band":
         it.init_global_grid(18, 10, 40, quiet=True, device="cpu", dimx=2,
@@ -1026,6 +1109,23 @@ def test_first_designs_match_plain(emulated, first_designs, name, dtype,
             [torch.empty(shp, dtype=dtype) for _ in range(2)], 3)
         want = htz.chunk_call(exts, g.nxyz, K=3, modes=modes, grid=g,
                               kw=HM3D_KW)
+    elif name == "hm3d_step":
+        it.init_global_grid(12, 10, 12, quiet=True, device="cpu",
+                            **GRIDS["recv_yz_wrap_x"])
+        g = it.get_global_grid()
+        shp, modes = it.stacked_shape(g.nxyz), dp.step_modes(g)
+        Pe, phi = (_random(shp, dtype, -0.5, 0, 33),
+                   _random(shp, dtype, 0.05, 0.25, 34))
+        recv = hp.step_recv_planes(Pe, phi, g, modes, HM3D_KW)
+        got = (torch.empty_like(Pe), torch.empty_like(phi))
+        hp._launch(Pe, phi, got, modes, recv, g.dims, g.nxyz, HM3D_KW, 0)
+        want = hp.step_plain(Pe, phi, modes, recv, g.dims, HM3D_KW)
+    elif name == "stokes_step":
+        g = _stokes_grid("2x2x2_open", (7, 6, 11))
+        *srcs, Rho = _stokes_state(g, dtype, 53)
+        got = [torch.empty_like(A) for A in srcs]
+        sp._launch(srcs, Rho, got, g.dims, g.nxyz, STOKES_KW, 0)
+        want = sp.step_plain(*srcs, Rho, g.dims, STOKES_KW)
     elif name == "hm3d_band":
         it.init_global_grid(18, 10, 40, quiet=True, device="cpu", dimx=2,
                             dimy=2, dimz=2, periody=1)

@@ -118,11 +118,19 @@ def _hm3d_state(shape, dtype, seed):
             _random(shape, dtype, 0.05, 0.25, seed + 1))
 
 
-@pytest.mark.parametrize("local", [(8, 9, 16), (7, 6, 10)])
+# The HM3D step's layouts: GRIDS and y received over a wrapped x and z.
+STEP_GRIDS = dict(GRIDS, recv_y_wrap_xz=dict(dimx=1, dimy=2, dimz=1,
+                                             periodx=1, periodz=1))
+
+
+# (19, 18, 35) and (40, 40, 70): extents across the march's 16 x 16 (y, z)
+# tiles, the last ragged, and its x segments (1 and 2).
+@pytest.mark.parametrize("local", [(8, 9, 16), (7, 6, 10), (19, 18, 35),
+                                   (40, 40, 70)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", sorted(GRIDS))
+@pytest.mark.parametrize("case", sorted(STEP_GRIDS))
 def test_hm3d_step_kernel_matches_plain(card, case, dtype, local):
-    it.init_global_grid(*local, quiet=True, device=card, **GRIDS[case])
+    it.init_global_grid(*local, quiet=True, device=card, **STEP_GRIDS[case])
     g = it.get_global_grid()
     Pe, phi = (F.to(card) for F in _hm3d_state(it.stacked_shape(g.nxyz),
                                                dtype, 7))
@@ -445,9 +453,11 @@ def _stokes_state(g, dtype, seed, dev):
             for f, s in enumerate(sp.field_shapes(g.nxyz))]
 
 
-# (8, 9, 16): 16-byte P, Vx and Vy rows (Vz's rows of 17 are scalar);
-# (7, 6, 11): odd z extents, the element path.
-@pytest.mark.parametrize("local", [(8, 9, 16), (7, 6, 11)])
+# (8, 9, 16) and (7, 6, 11): one tile; (17, 19, 35) and (40, 40, 70):
+# extents across the march's (y, z) tiles (16 or 8 rows by 32 columns),
+# the last ragged, and its x segments (2 and 5).
+@pytest.mark.parametrize("local", [(8, 9, 16), (7, 6, 11), (17, 19, 35),
+                                   (40, 40, 70)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
 def test_stokes_step_kernel_matches_plain(card, case, dtype, local):
@@ -460,6 +470,40 @@ def test_stokes_step_kernel_matches_plain(card, case, dtype, local):
     torch.cuda.synchronize()
     assert sp.step_kernel.launches == before + 1
     for a, b in zip(out, sp.step_plain(*srcs, Rho, g.dims, STOKES_KW)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("blocks", [1, 2])
+@pytest.mark.parametrize("kernel", ["hm3d", "stokes"])
+def test_step_kernels_at_main_path_shapes(card, kernel, blocks, dtype):
+    """The HM3D and Stokes step kernels at the main path's shapes: one
+    periodic block of 256^3 (phases 8 and 12) and 2x2x2 blocks of 256^3,
+    HM3D periodic (every dim received, phase 9) and Stokes open (phase
+    13)."""
+    layout = (dict(dimx=1, dimy=1, dimz=1, periodx=1, periody=1, periodz=1)
+              if blocks == 1 or kernel == "hm3d" else {})
+    if blocks == 2:
+        layout.update(dimx=2, dimy=2, dimz=2)
+    if kernel == "hm3d":
+        it.init_global_grid(256, 256, 256, quiet=True, device=card, **layout)
+        g = it.get_global_grid()
+        Pe, phi = (F.to(card) for F in _hm3d_state(
+            it.stacked_shape(g.nxyz), dtype, 61))
+        modes = dp.step_modes(g)
+        recv = hp.step_recv_planes(Pe, phi, g, modes, HM3D_KW)
+        out = hp.step_kernel(Pe, phi, modes, recv, g.dims, HM3D_KW)
+        torch.cuda.synchronize()
+        ref = hp.step_plain(Pe, phi, modes, recv, g.dims, HM3D_KW)
+    else:
+        it.init_global_grid(256, 256, 256, quiet=True, device=card,
+                            overlapx=3, overlapy=3, overlapz=3, **layout)
+        g = it.get_global_grid()
+        *srcs, Rho = _stokes_state(g, dtype, 63, card)
+        out = sp.step_kernel(*srcs, Rho, g.dims, STOKES_KW)
+        torch.cuda.synchronize()
+        ref = sp.step_plain(*srcs, Rho, g.dims, STOKES_KW)
+    for a, b in zip(out, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
