@@ -117,15 +117,21 @@ buffers and the central windows, then times them at 2x2x2 blocks of 256^3
 (K = 8, B = 8), in f32 and f64; and the staggered band kernels
 (the Stokes band step, the generated band entry of the rank-3 specs
 relax3d and acoustic3d) the same way, then the Stokes one at 2x2x2 blocks
-of 256^3 open (f32 and f64) and relax3d's at one 256^3 periodic block
-(K = 8, B = 8).  The redesigned kernels are timed beside their first
-designs too (kernel_variants.py: FIRST_DESIGNS, built with the sources),
-each by the profiler's device time of the kernel it names: the Stokes and
-HM3D band kernels in f32, the HM3D chunk and diffusion band kernels in
-f32 and f64; and the march division (const_div.cuh) is held to `x / d`
-over all 2^32 float32 dividends for the Stokes and HM3D divisors.  Launch counters are set to 0
-before each main-path phase (2 to 20) and read after it; each of the
-eighteen kernels must have launched on that main path.  The last lines are the run's seconds, the
+of 256^3 open (f32 and f64) and the generated band entry of relax3d and
+acoustic3d at one 256^3 periodic block (K = 8, B = 8), f32 and f64.  The
+redesigned kernels are timed beside their first designs too
+(kernel_variants.py: FIRST_DESIGNS and spec_band_first_source, built with
+the sources), each by the profiler's device time of the kernel it names:
+the Stokes and HM3D band kernels in f32, the HM3D chunk and diffusion
+band kernels, the generated band entries and the halo writer (at 256^3
+periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
+bound and its event time a launch) in f32 and f64; and the march division
+(const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
+Stokes and HM3D divisors.  Launch counters are set to 0 before each
+main-path phase (2 to 20) and read after it; each of the twenty kernels
+must have launched on that main path (the generated relax3d step and
+chunk step are phase 20's launches of the spec counters, shallow water's
+the others').  The last lines are the run's seconds, the
 `{"kernels": [...]}` summary, the card's name and power limit, and
 `{"ok": true, "device": {...}}`.  Needs `torch.cuda.is_available()`; no
 JAX and nothing of the `igg` package is imported.
@@ -239,12 +245,22 @@ KERNEL_INFO = {
     # The kernels generated from the shallow-water spec: the per-step kernel
     # and the spec instance of the whole-window K-step chunk, counted by the
     # generated kernels' wrappers (every spec's launches).
+    # `phases`: the launches of the main path's phases counted for an
+    # instance (phase 20 drives relax3d, the others shallow water).
     "spec_step[shallow_water]": dict(
         source="igg_torch/stencil/cuda.py", counter="spec_step",
-        replaces="igg/stencil/lower.py:234"),
+        phases="not 20", replaces="igg/stencil/lower.py:234"),
     "spec_chunk_step[shallow_water]": dict(
         source="igg_torch/stencil/cuda.py", counter="spec_chunk_step",
-        replaces="igg/ops/chunk_engine.py:648"),
+        phases="not 20", replaces="igg/ops/chunk_engine.py:648"),
+    # The generated rank-3 step and chunk step of relax3d (both launch the
+    # one entry of csrc/stagger_walk3.cuh), phase 20's.
+    "spec_step[relax3d]": dict(
+        source="igg_torch/stencil/cuda.py", counter="spec_step",
+        phases="20", replaces="igg/stencil/lower.py:234"),
+    "spec_chunk_step[relax3d]": dict(
+        source="igg_torch/stencil/cuda.py", counter="spec_chunk_step",
+        phases="20", replaces="igg/ops/chunk_engine.py:648"),
     # The diffusion and HM3D instances of the streaming banded K-step
     # window: one launch per iteration.
     "diffusion_band_step": dict(
@@ -255,8 +271,8 @@ KERNEL_INFO = {
         replaces="igg/ops/chunk_engine.py:1455"),
     # Its Stokes instance (the Stokes march's band mode) and the rank-3
     # spec instances (generated, counted by the generated band entry's
-    # wrapper: every spec's launches, on the staggered band walk
-    # csrc/stagger_band_walk3.cuh).
+    # wrapper: every spec's launches, on the x-march
+    # csrc/stagger_band_march3.cuh).
     "stokes_band_step": dict(
         source="igg_torch/csrc/stokes_band.cu",
         replaces="igg/ops/chunk_engine.py:1455"),
@@ -333,6 +349,10 @@ SW_FLOPS = WAVE2D_FLOPS
 # ... of one interior cell of relax3d: five adds of the six neighbours, the
 # centre's product and subtraction, the coefficient's product, the add.
 RELAX3D_FLOPS = 9
+# ... of one cell of acoustic3d: three face velocities (a difference, a
+# product, a division, an add each) and the pressure (three differences,
+# three divisions, two adds, a product, a difference).
+SPEC_FLOPS = {"relax3d": RELAX3D_FLOPS, "acoustic3d": 3 * 4 + 10}
 
 
 class SmokeFailure(RuntimeError):
@@ -374,7 +394,23 @@ def event_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def profiled_device_ms(fn, n: int, kernel: str, launches=None):
+def profiled_device_ms(fn, n: int, kernel: str, launches=None, tries=3):
+    """profiled_device_ms_once, its trace taken again (up to `tries` times)
+    where it holds no device time for the kernel: the profiler now and
+    then loses a whole trace."""
+    for left in range(tries - 1, -1, -1):
+        try:
+            ms = profiled_device_ms_once(fn, n, kernel, launches)
+        except SmokeFailure:
+            if not left:
+                raise
+            continue
+        if ms is not None or not left:
+            return ms
+    return None
+
+
+def profiled_device_ms_once(fn, n: int, kernel: str, launches=None):
     """Mean device ms per launch of the CUDA kernel whose name contains
     `kernel`, from a `torch.profiler` trace of `n` calls of `fn()`; None
     when the trace holds no device time for it.  Given `launches` (a
@@ -483,6 +519,39 @@ def pack_sector_bytes(shape, dims, reqs, esize) -> float:
     return float((2 * y_cells + z_cells) * esize + 32 * sectors)
 
 
+def halo_sector_bytes(shape, dims, specs, esize) -> float:
+    """Compulsory bytes of one halo-writer launch on the card: each x- and
+    y-plane cell read once (from the field or its EXT plane) and written
+    once, the z planes' cells by the 32-byte sectors they lie in: the
+    distinct sectors of each (x, y) row that hold its z halo cells
+    (written) and their WRAP sources (read; a sector read and written
+    counts twice), their EXT values read once each."""
+    G0, G1, G2 = shape
+    n0, n1, n2 = dims
+    cells = 0
+    z = None
+    for sp in specs:
+        d = sp[0]
+        if d < 2:
+            cells += 2 * dims[d] * G0 * G1 * G2 // shape[d]
+        else:
+            z = sp
+    total = 2.0 * cells * esize
+    if z is not None:
+        s2 = G2 // n2
+        tgt = [b * s2 + r for b in range(n2) for r in (0, s2 - 1)]
+        rows = np.arange(G0 * G1, dtype=np.int64) * G2
+        sectors = lambda cols: np.unique(
+            (rows[:, None] + np.array(cols, dtype=np.int64)[None, :])
+            * esize // 32).size
+        total += 32.0 * sectors(tgt)
+        if z[1] == "wrap":
+            total += 32.0 * sectors([s2 - z[2], z[2] - 1])
+        else:
+            total += float(len(tgt) * G0 * G1 * esize)
+    return total
+
+
 def uniform(shape, lo, hi, dtype, dev, seed):
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
@@ -544,8 +613,10 @@ class Smoke:
         self.halo_calls, self.time_iters = halo_calls, time_iters
         self.err = {name: 0.0 for name in KERNEL_INFO}
         self.perf = {}
-        # The redesigned kernels' first designs, {library: CDLL} (main()).
-        self.first = {}
+        # The redesigned kernels' first designs, {library: CDLL}, and the
+        # generated rank-3 libraries' with the band entry's first design,
+        # {spec name: CDLL} (main()).
+        self.first, self.first_gen = {}, {}
         self.launches = None
 
     def grid(self, n, **kw):
@@ -770,17 +841,7 @@ class Smoke:
         self.perf["stream_3x256^3_add_ms"] = event_ms(
             lambda: torch.add(T, A, out=dst), k)
 
-        specs = [(d, "wrap", 2) for d in range(3)]
-        F = T.clone()
-        ref = hw.halo_write_plain(F.clone(), specs, g.dims)
-        hw.halo_write(F, specs, g.dims)
-        self.note("halo_write", check("halo_write 256^3", F, ref, 0.0))
-        halo_cells = cells - interior      # each read once and written once
-        self.perf["halo_write"] = dict(
-            kernel_time(lambda: hw.halo_write(F, specs, g.dims), 10 * k,
-                        "halo_write_kernel"),
-            plain_ms=event_ms(lambda: hw.halo_write_plain(F, specs, g.dims), k),
-            bound=bound_ms(2 * halo_cells * 4, 0, F32_FLOPS))
+        self.halo_write_full(T, g, 10 * k)
         for name in ("diffusion_step", "diffusion_mega_step", "halo_write"):
             p = self.perf[name]
             log(f"[phase 1] {name} at {n}^3 f32: {p['ms']:.4f} ms device "
@@ -807,6 +868,70 @@ class Smoke:
         self.perf["diffusion_mega_step_512_open"] = dict(ms=ms, bound=b)
         log(f"[phase 1] diffusion_mega_step at {m}^3 f32 open: {ms:.4f} "
             f"ms/launch, bound {b[0]:.4f} ms ({b[1]})")
+
+    def halo_write_full(self, T, g, n):
+        """The halo writer at the main path's two shapes, f32 and f64: one
+        256^3 periodic block (every dim WRAP, phases 1 and 5; `T` on the
+        grid `g`) and 2x2x2 blocks of 256^3 (every dim EXT, phase 7's
+        writes), each checked, then timed (device time a launch and the
+        event time a launch back to back) beside its first design in the
+        same run, its plain version and two bounds: the halo cells read
+        once and written once, and the 32-byte sectors its cells and
+        sources lie in (halo_sector_bytes)."""
+        hw = self.hw
+        m = self.n_multi
+        for key, shape in (("", "256^3 periodic"),
+                           ("_2x2x2", f"2x2x2 x {m}^3 EXT")):
+            if key:
+                g = self.grid((m, m, m), dimx=2, dimy=2, dimz=2)
+                T = uniform(self.it.stacked_shape(g.nxyz), -1, 1,
+                            torch.float32, self.dev, 41)
+            for dtype in (torch.float32, torch.float64):
+                F = T.to(dtype, copy=True)
+                if key:
+                    specs = []
+                    for d in range(3):
+                        plane = list(F.shape)
+                        plane[d] = g.dims[d]
+                        specs.append((d, "ext") + tuple(
+                            uniform(plane, -1, 1, dtype, self.dev, 43 + side)
+                            for side in (0, 1)))
+                else:
+                    specs = [(d, "wrap", 2) for d in range(3)]
+                ref = hw.halo_write_plain(F.clone(), specs, g.dims)
+                hw.halo_write(F, specs, g.dims)
+                self.note("halo_write", check(
+                    f"halo_write {shape} {dtype}", F, ref, 0.0))
+                size = F.element_size()
+                cells = float(F.numel())
+                interior = float(np.prod([s - 2 * n_ for s, n_ in zip(
+                    F.shape, g.dims)]))
+                run = lambda: hw.halo_write(F, specs, g.dims)
+                name = f"halo_write{key}{'_f64' if size == 8 else ''}"
+                self.perf[name] = dict(
+                    kernel_time(run, n, "halo_write_kernel"),
+                    plain_ms=event_ms(lambda: hw.halo_write_plain(
+                        F, specs, g.dims), 20),
+                    # The halo cells, each read once and written once.
+                    bound=bound_ms(2 * (cells - interior) * size, 0,
+                                   F32_FLOPS),
+                    sector_bound=bound_ms(halo_sector_bytes(
+                        F.shape, g.dims, specs, size), 0, F32_FLOPS))
+                q = self.first_design_time(hw, "halo_write", run, n,
+                                           "halo_write_kernel", 1, [ref],
+                                           lambda b, f: b)
+                self.perf[f"{name}_first_design"] = q
+                p = self.perf[name]
+                log(f"[phase 1] halo_write at {shape} "
+                    f"{'f64' if size == 8 else 'f32'}: {p['ms']:.4f} ms device "
+                    f"({p['ms_from']}), {p['events_ms']:.4f} ms per launch "
+                    f"back to back (events); its first design {q['ms']:.4f} "
+                    f"ms device, {q['events_ms']:.4f} ms events in the same "
+                    f"run ({q['ms'] / p['ms']:.2f} times); plain "
+                    f"{p['plain_ms']:.4f} ms; bounds: the halo cells "
+                    f"{p['bound'][0]:.5f} ms, their 32-byte sectors "
+                    f"{p['sector_bound'][0]:.5f} ms (bytes)")
+                del ref, F
 
     def kernel_checks_multiblock(self):
         """The packer and the chunk step at the 510^3 headline's shape (2x2x2
@@ -1518,46 +1643,22 @@ class Smoke:
         """Both staggered band kernels at their main paths' shapes, f32,
         K = 8, B = 8: the Stokes band step at 2x2x2 blocks of n_multi^3,
         open (config 5's 509^3: 8 extended blocks of 288^3; also in f64,
-        and in f32 its first design), and relax3d's generated band step on
-        one n_stokes^3 periodic block (272 x 256 x 256 extended); checked
-        against their plain version, then timed beside one plain iteration
-        and two bounds of compulsory bytes: a pass (every staged array read
-        once, every field written once) and the whole chunk (each extended
-        array read once, each central block written once; the table's
-        bound is the chunk's divided by K)."""
+        and in f32 its first design), and the generated band entry of
+        relax3d and acoustic3d on one n_stokes^3 periodic block (relax3d:
+        272 x 256 x 256 extended), f32 and f64, each beside its first design
+        (spec_band_full); checked against their plain version, then timed
+        beside one plain iteration and two bounds of compulsory bytes: a
+        pass (every staged array read once, every field written once) and
+        the whole chunk (each extended array read once, each central block
+        written once; the table's bound is the chunk's divided by K)."""
         ce, sp, stz, sl = self.ce, self.sp, self.stz, self.sl
         m, k, K, B = self.n_multi, self.time_iters, K_CHUNK, 8
         for dtype in (torch.float32, torch.float64):
             self.stokes_band_full(m, k, K, B, dtype)
         n = self.n_stokes
-        gen = self.spec_gen("relax3d")
-        g = self.spec_grid("relax3d", "1x1x1_periodic", (n, n, n))
-        shapes = sl.field_shapes(gen.spec, g.nxyz)
-        E = gen.analysis.margin_after(K)
-        modes = ce.dim_modes(g)
-        ols = ce.field_ols(g, shapes)
-        exts = ce.extend_fields(self.spec_state(gen, g, torch.float32, 99),
-                                ols, E, g, modes)
-        run3 = lambda: sl.band_call(gen, exts, shapes, K=K, B=B, E=E,
-                                    modes=modes, grid=g, ols=ols)
-        check(f"spec_band_step[relax3d] {n}^3", run3()[0],
-              ce.central_window(self.spec_band_plain(
-                  gen, g, exts, K, B, E, modes, ols, shapes)[0], shapes[0],
-                  E, modes), 0.0)
-        ext_cells, out_cells = float(exts[0].numel()), float(n) ** 3
-        self.perf["spec_band_step[relax3d]"] = dict(
-            kernel_time(run3, max(k // 5, 4), "stag_band_kernel",
-                        launches=K),
-            plain_ms=event_ms(lambda: self.spec_band_plain(
-                gen, g, exts, K, B, E, modes, ols, shapes, iters=1), 1),
-            bound=bound_ms(4 * (ext_cells + out_cells) / K,
-                           RELAX3D_FLOPS * ext_cells, F32_FLOPS),
-            pass_bound=bound_ms(4 * 2 * ext_cells, RELAX3D_FLOPS * ext_cells,
-                                F32_FLOPS),
-            chunk_bound=bound_ms(4 * (ext_cells + out_cells),
-                                 RELAX3D_FLOPS * ext_cells * K, F32_FLOPS))
-        self.perf["spec_band_step[relax3d]"]["events_ms"] /= K
-        del exts
+        for name in ("relax3d", "acoustic3d"):
+            for dtype in (torch.float32, torch.float64):
+                self.spec_band_full(name, dtype, n, k, K, B)
         for name, tag in (("stokes_band_step", f"2x2x2 x {m}^3 f32 open"),
                           ("stokes_band_step_f64", f"2x2x2 x {m}^3 f64 open"),
                           ("spec_band_step[relax3d]", f"{n}^3 f32 periodic")):
@@ -1569,6 +1670,70 @@ class Smoke:
                 f"{p['pass_bound'][0]:.4f} ms, the whole chunk "
                 f"{p['chunk_bound'][0]:.4f} ms ({p['bound'][0]:.4f} ms a "
                 f"launch, {p['bound'][1]})")
+
+    def spec_band_full(self, name, dtype, n, k, K, B):
+        """The generated band entry of spec `name` on one n^3 periodic block
+        (relax3d: 272 x 256 x 256 extended), K and B, in `dtype`: checked
+        against its plain version, then timed beside one plain iteration,
+        two bounds (a pass: every field read and written once; the whole
+        chunk over K) and its first design in the same run (the band walk,
+        kernel_variants.py: spec_band_first_source)."""
+        ce, sl = self.ce, self.sl
+        f64 = dtype == torch.float64
+        key = f"spec_band_step[{name}]{'_f64' if f64 else ''}"
+        gen = self.spec_gen(name)
+        g = self.spec_grid(name, "1x1x1_periodic", (n, n, n))
+        shapes = sl.field_shapes(gen.spec, g.nxyz)
+        E = gen.analysis.margin_after(K)
+        modes = ce.dim_modes(g)
+        ols = ce.field_ols(g, shapes)
+        exts = ce.extend_fields(self.spec_state(gen, g, dtype, 99), ols, E,
+                                g, modes)
+        run = lambda: sl.band_call(gen, exts, shapes, K=K, B=B, E=E,
+                                   modes=modes, grid=g, ols=ols)
+        want = self.spec_band_plain(gen, g, exts, K, B, E, modes, ols, shapes)
+        cut = (lambda b, f: ce.central_window(b, shapes[f], E, modes))
+        tag = f"{n}^3 {'f64' if f64 else 'f32'} periodic"
+        for f, (a, b) in enumerate(zip(run(), want)):
+            err = check(f"{key} {tag} field {f}", a, cut(b, f), 0.0)
+            if name == "relax3d":
+                self.note("spec_band_step[relax3d]", err)
+        size = 8 if f64 else 4
+        rate = F64_FLOPS if f64 else F32_FLOPS
+        flops = SPEC_FLOPS[name] * float(exts[0].numel())
+        ext_cells = float(sum(X.numel() for X in exts))
+        out_cells = float(sum(np.prod(s) for s in shapes))
+        self.perf[key] = dict(
+            kernel_time(run, max(k // 5, 4), "stag_march_kernel",
+                        launches=K),
+            plain_ms=event_ms(lambda: self.spec_band_plain(
+                gen, g, exts, K, B, E, modes, ols, shapes, iters=1), 1),
+            bound=bound_ms(size * (ext_cells + out_cells) / K, flops, rate),
+            pass_bound=bound_ms(size * 2 * ext_cells, flops, rate),
+            chunk_bound=bound_ms(size * (ext_cells + out_cells), flops * K,
+                                 rate))
+        self.perf[key]["events_ms"] /= K
+        real = sl.generated_library
+        sl.generated_library = lambda source, t: self.first_gen[name]
+        try:
+            for f, (a, b) in enumerate(zip(run(), want)):
+                check(f"{key} first design {tag} field {f}", a, cut(b, f),
+                      0.0)
+            q = self.perf[f"{key}_first_design"] = kernel_time(
+                run, max(k // 5, 4), "stag_band_kernel", launches=K)
+        finally:
+            sl.generated_library = real
+        q["events_ms"] /= K
+        p = self.perf[key]
+        log(f"[phase 1] {key} at {tag}, K={K}, B={B}: {p['ms']:.4f} ms "
+            f"device per launch ({p['ms_from']}), {p['events_ms']:.4f} ms per "
+            f"launch back to back (events); its first design (the band "
+            f"walk) {q['ms']:.4f} ms device in the same run, "
+            f"{q['ms'] / p['ms']:.2f} times the march's; plain "
+            f"{p['plain_ms']:.4f} ms (one iteration); bounds: a pass "
+            f"{p['pass_bound'][0]:.4f} ms, the whole chunk over K "
+            f"{p['bound'][0]:.4f} ms ({p['bound'][1]})")
+        del exts, want
 
     def stokes_band_full(self, m, k, K, B, dtype):
         """The Stokes band step at 2x2x2 blocks of m^3, open (config 5's
@@ -2624,8 +2789,9 @@ class Smoke:
         gen3 = self.spec_gen("relax3d")
         g = self.grid((m, m, m), **SINGLE, **PERIODIC)
         S = self.spec_state(gen3, g, torch.float32, 95)
-        check(f"spec_step[relax3d] {m}^3", sl.step_kernel(gen3, S, g.dims)[0],
-              sl.step_plain(gen3, S, g.dims)[0], 0.0)
+        self.note("spec_step[relax3d]", check(
+            f"spec_step[relax3d] {m}^3", sl.step_kernel(gen3, S, g.dims)[0],
+            sl.step_plain(gen3, S, g.dims)[0], 0.0))
         cells = float(S[0].numel())
         relax = dict(
             kernel_time(lambda: sl.step_kernel(gen3, S, g.dims), k,
@@ -2633,13 +2799,37 @@ class Smoke:
             plain_ms=event_ms(lambda: sl.step_plain(gen3, S, g.dims), 3),
             bound=bound_ms(2 * cells * 4, RELAX3D_FLOPS * cells, F32_FLOPS))
         self.perf["spec_step[relax3d]"] = relax
-        del S
+        # Its K=8 chunk step on the same block (phase 20's chunk route:
+        # 272 x 256 x 256 extended), timed a launch beside a pass's bound.
+        exts, modes, shapes, ols, out, ref = self.spec_chunk(gen3, g, S, K)
+        self.note("spec_chunk_step[relax3d]", check(
+            f"spec_chunk_step[relax3d] {m}^3 K={K}", out[0], ref[0], 0.0))
+        del out, ref
+        E = gen3.analysis.margin_after(K)
+        ext_cells = float(exts[0].numel())
+        flags = ce.edge_flags(modes, g)
+        relax_chunk = dict(
+            kernel_time(lambda: sl.chunk_call(
+                gen3, exts, shapes, K=K, E=E, modes=modes, grid=g, ols=ols),
+                max(k // 5, 4), "Spec_relax3d"),
+            plain_ms=event_ms(lambda: ce.window_step_plain(
+                exts, exts, E=E, modes=modes, grid=g,
+                core=sl.window_core(gen3, g), flags=flags,
+                freeze_fields=gen3.analysis.freeze, ols=ols), 3),
+            # A pass: the extended block read once and written once.
+            bound=bound_ms(2 * ext_cells * 4, RELAX3D_FLOPS * ext_cells,
+                           F32_FLOPS))
+        relax_chunk["events_ms"] /= K
+        self.perf["spec_chunk_step[relax3d]"] = relax_chunk
+        del S, exts
         for name, p, beside in (
                 ("spec_step[shallow_water]", self.perf[
                     "spec_step[shallow_water]"], "wave2d_step"),
                 ("spec_chunk_step[shallow_water] K=8 (E=8)", chunk,
                  "wave2d_chunk_step"),
-                ("spec_step[relax3d]", relax, "diffusion_step")):
+                ("spec_step[relax3d]", relax, "diffusion_step"),
+                (f"spec_chunk_step[relax3d] K={K} (E={E})", relax_chunk,
+                 "diffusion_chunk_step")):
             log(f"[phase 1] {name}: {p['ms']:.4f} ms device per launch "
                 f"({p['ms_from']}), {p['events_ms']:.4f} ms per launch back "
                 f"to back (events), plain {p['plain_ms']:.4f} ms"
@@ -3027,21 +3217,35 @@ class Smoke:
             ("18", lambda: self.stokes_banded(18, one_block=True)),
             ("19", lambda: self.stokes_banded(19, one_block=False)),
             ("20", self.relax3d_banded)]
-        self.launches = {}
+        self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()
             run()
-            counts = self.ops.launch_counts()
+            counts = self.phase_launches[phase] = self.ops.launch_counts()
             for name, v in counts.items():
                 self.launches[name] = self.launches.get(name, 0) + v
             log(f"[main path] phase {phase} launches "
                 f"{json.dumps({k: v for k, v in counts.items() if v})}")
         log(f"[main path] launches {json.dumps(self.launches)}")
         missing = [k for k, v in self.launches.items() if v <= 0]
+        missing += [k for k in KERNEL_INFO if self.instance_launches(k) <= 0]
         if missing:
             raise SmokeFailure(f"kernels not launched on the main path: {missing}")
         if self.it.grid_is_initialized():
             self.it.finalize_global_grid()
+
+    def instance_launches(self, name) -> int:
+        """The main path's launches of kernel `name` (KERNEL_INFO): its
+        counter's, over the phases its `phases` names ("20", or "not 20")
+        or all of them."""
+        info = KERNEL_INFO[name]
+        counter = info.get("counter", name)
+        only = info.get("phases")
+        if only is None:
+            return int(self.launches[counter])
+        own = int(self.phase_launches[only.split()[-1]].get(counter, 0))
+        return int(self.launches[counter]) - own if only.startswith("not") \
+            else own
 
     def summary(self):
         out = []
@@ -3050,7 +3254,7 @@ class Smoke:
             out.append(dict(
                 name=name, route="cuda", source=info["source"],
                 replaces=info["replaces"],
-                launches=int(self.launches[info.get("counter", name)]),
+                launches=self.instance_launches(name),
                 max_abs_err=self.err[name], ms=p["ms"], plain_ms=p["plain_ms"],
                 bound_ms=p["bound"][0], bound_by=p["bound"][1],
                 # Only the packer's function is one PyTorch call (an
@@ -3065,12 +3269,15 @@ class Smoke:
 # The redesigned kernels whose first designs (kernel_variants.py:
 # FIRST_DESIGNS) phase 1 times beside them in the same run.
 FIRST_DESIGN_LIBS = ("stokes_band", "hm3d_band", "hm3d_chunk",
-                     "diffusion_band", "stokes_step", "hm3d_step")
+                     "diffusion_band", "stokes_step", "hm3d_step",
+                     "halo_write")
 
 
-def start_first_designs():
-    """Start one nvcc for each first design of FIRST_DESIGN_LIBS, its text
-    written beside the first designs' policies (kernel_variants.py:
+def start_first_designs(gens=()):
+    """Start one nvcc for each first design of FIRST_DESIGN_LIBS and for the
+    band entry's first design of each generated rank-3 library in `gens`
+    (kernel_variants.py: spec_band_first_source, keyed `gen:<tag>`), its
+    text written beside the first designs' policies (kernel_variants.py:
     FIRST_HEADERS, which the sources' quoted includes find before the
     kernels' headers) under igg_torch/_build/first/<key>/, keyed by the
     texts and the headers; returns the jobs."""
@@ -3085,11 +3292,14 @@ def start_first_designs():
     for name, text in kernel_variants.FIRST_HEADERS.items():
         with open(os.path.join(where, name), "w") as f:
             f.write(text)
+    texts = {lib: kernel_variants.FIRST_DESIGNS[f"{lib}.cu"]
+             for lib in FIRST_DESIGN_LIBS}
+    texts.update({f"gen:{g.tag}": kernel_variants.spec_band_first_source(g)
+                  for g in gens})
     jobs = {}
-    for lib in FIRST_DESIGN_LIBS:
-        text = kernel_variants.FIRST_DESIGNS[f"{lib}.cu"]
-        src = os.path.join(where,
-                           f"{lib}-{_build._key([text.encode()] + heads)}.cu")
+    for lib, text in texts.items():
+        src = os.path.join(where, f"{lib.replace(':', '_')}-"
+                                  f"{_build._key([text.encode()] + heads)}.cu")
         with open(src, "w") as f:
             f.write(text)
         so = src[:-len(".cu")] + ".so"
@@ -3102,13 +3312,20 @@ def finish_first_designs(jobs):
     with the entry point typed as the library's own."""
     from igg_torch.ops import _build
 
+    from igg_torch.stencil import cuda
+
     libs = {}
     for lib, (job, so) in jobs.items():
-        _build._finish(f"{lib} (first design)", job)
+        report = _build._finish(f"{lib} (first design)", job)
+        for line in report.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[ptxas {lib} first design] {line.strip()}")
         libs[lib] = ctypes.CDLL(so)
-        fn_name, argtypes = _build.SIGNATURES[lib]
-        fn = getattr(libs[lib], fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        names = ([(n, cuda.ARGTYPES) for n in (cuda.ENTRY, cuda.BAND_ENTRY)]
+                 if lib.startswith("gen:") else [_build.SIGNATURES[lib]])
+        for fn_name, argtypes in names:
+            fn = getattr(libs[lib], fn_name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return libs
 
 
@@ -3141,7 +3358,7 @@ def main() -> int:
     # The kernels' sources and the sources generated from the specs of the
     # checks, one nvcc each, all started together.
     generated = [cases.kernels(name) for name in cases.SPECS]
-    first = start_first_designs()
+    first = start_first_designs([cases.kernels(n) for n in cases.SPECS_3D])
     reports = _build.build_all(generated=[(g.source, g.tag)
                                           for g in generated])
     first = finish_first_designs(first)
@@ -3154,6 +3371,8 @@ def main() -> int:
 
     smoke = Smoke(torch.device("cuda"))
     smoke.first = first
+    smoke.first_gen = {n: first[f"gen:{cases.kernels(n).tag}"]
+                       for n in cases.SPECS_3D}
     t0 = time.perf_counter()
     smoke.kernel_checks()
     log(f"[phase 1] done in {time.perf_counter() - t0:.1f} s")

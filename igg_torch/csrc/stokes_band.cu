@@ -50,7 +50,7 @@ namespace {
 // ints), then B, lo and the staged arrays' margins above a band (P, Vx,
 // Vy, Vz, Rho).  Whether it suits the band walk's layout: B divides the
 // extended x span, and the margins hold the rows one cell's update reads
-// (those of make_stag_band in stagger_band_walk3.cuh).
+// (those of make_sb_layout in stagger_band_march3.cuh).
 bool band_layout(const int* cfg, igg::Stag3& g) {
   if (!igg::make_stag3(cfg, g)) return false;
   constexpr int at = 24 + 3 * igg::MAXF;

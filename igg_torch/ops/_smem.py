@@ -2,18 +2,19 @@
 card).
 
 igg's budget authority models the VMEM footprint of each TPU kernel against
-a scoped-VMEM cap.  On the H100 the band walks (`csrc/band_walk.cuh`,
-`csrc/stagger_band_walk3.cuh`) stage a band's window on chip, and the one
-limit that binds is the shared memory a thread block may use: 232,448
-bytes (227 KB, opted into with `cudaFuncAttributeMaxDynamicSharedMemorySize`
-above the default 48 KB).  :func:`banded_smem` is the bytes one thread
-block of those walks stages, igg's gate for every band kernel: the
-diffusion, HM3D and Stokes band kernels march x in segments of their own
-(`csrc/diffusion_march.cuh`, `csrc/hm3d_march.cuh`,
-`csrc/stokes_march.cuh`), hold the same shared memory at every band
-depth, and are held to the gate all the same, so that the tier admits
-what igg's admits; only the generated rank-3 band entries stage a band's
-window.  :func:`fit_banded` keeps igg's
+a scoped-VMEM cap.  On the H100 the band walks of the band kernels'
+first designs (`csrc/band_walk.cuh` and the staggered walk kept in
+kernel_variants.py) staged a band's window on chip, and the one limit that
+binds is the shared memory a thread block may use: 232,448 bytes (227 KB,
+opted into with `cudaFuncAttributeMaxDynamicSharedMemorySize` above the
+default 48 KB).  :func:`banded_smem` is the bytes one thread block of
+those walks stages, igg's gate for every band kernel: the band kernels
+march x in segments of their own (`csrc/diffusion_march.cuh`,
+`csrc/hm3d_march.cuh`, `csrc/stokes_march.cuh` and the generated rank-3
+band entries' `csrc/stagger_band_march3.cuh`), hold the same shared
+memory at every band depth, within what the gate admits, and are held to
+the gate all the same, so that the tier admits what igg's admits.
+:func:`fit_banded` keeps igg's
 `(K, B)` search.  No override or autotune hook: those come with the perf
 ledger and the autotuner.
 """
@@ -25,7 +26,7 @@ from typing import Callable, Optional, Sequence, Tuple
 # Shared memory one thread block may use on the H100 (opt-in maximum).
 SMEM_PER_BLOCK = 232_448
 # The y and z cells of a band walk's thread-block tile (`BAND_TY`,
-# `BAND_TZ` in csrc/band_walk.cuh, shared by csrc/stagger_band_walk3.cuh).
+# `BAND_TZ` in csrc/band_walk.cuh, shared by the staggered walk).
 BAND_TILE = (8, 32)
 
 

@@ -49,11 +49,11 @@ takes 3-D fields only, as igg's compiled streaming kernel does
 `csrc/diffusion_march.cuh` and `csrc/hm3d_march.cuh`; layout
 :func:`stagger_band_cfg`: Stokes on
 the Stokes march's band mode `csrc/stokes_march.cuh`, rank-3 specs on
-`csrc/stagger_band_walk3.cuh`); :func:`banded_refusal` and
-:func:`admit_banded_geometry` their gates and `igg_torch.ops._smem` their
-shared-memory budget (igg's gates, kept as they are: the marches walk x in
-segments of their own, so their shared memory does not depend on B, and
-the budget binds only the walks that stage a band's window).
+their own x-march `csrc/stagger_band_march3.cuh`); :func:`banded_refusal`
+and :func:`admit_banded_geometry` their gates and `igg_torch.ops._smem`
+their shared-memory budget (igg's gates, kept as they are: the marches
+walk x in segments of their own, so their shared memory does not depend
+on B; the budget prices the band walks of their first designs).
 
 Left out, because they exist only for the TPU: transposed z slabs, the
 sublane-tile gates (`admit_sublane_extension`, the band depth's `B % 8`)
@@ -69,7 +69,7 @@ resident kernel has its counterpart in the chunk kernels of
 `igg_torch.stencil.cuda`, the streaming kernel its diffusion, HM3D and
 Stokes instances in the x-marches `csrc/diffusion_march.cuh`,
 `csrc/hm3d_march.cuh` and `csrc/stokes_march.cuh` and its rank-3 spec
-instances in `csrc/stagger_band_walk3.cuh`.
+instances in the x-march `csrc/stagger_band_march3.cuh`.
 """
 
 from __future__ import annotations
@@ -671,8 +671,8 @@ def band_cfg(ext_stacked, local, E: int, modes, grid, last: bool, *, B: int,
 
 def stagger_band_cfg(shape, E: int, modes, dims, ols, last: bool, *,
                      B: int, lo: int, extras):
-    """The layout the staggered band kernels take (`make_stag_band` in
-    `csrc/stagger_band_walk3.cuh`, `band_layout` in `csrc/stokes_band.cu`),
+    """The layout the staggered band kernels take (`make_sb_layout` in
+    `csrc/stagger_band_march3.cuh`, `band_layout` in `csrc/stokes_band.cu`),
     as a ctypes int array: the
     `make_stag3` layout of :func:`stagger_cfg` (base block `shape`, margin
     `E`, the updated fields' overlaps `ols`), then the band depth, the read

@@ -90,43 +90,85 @@ def halo_write(A, specs: Sequence[Tuple], blocks):
     launches the kernel (one launch for all dims) or raises."""
     if A.device.type == "cpu":
         return halo_write_plain(A, specs, blocks)
-    blocks, local = _check(A, specs, blocks)
     if A.device.type != "cuda":
         raise ValueError(f"halo_write: unsupported device {A.device}")
     if not A.is_contiguous():
         raise ValueError("halo_write: the field must be contiguous")
-    if A.element_size() not in (2, 4, 8):
-        raise ValueError(f"halo_write: element size {A.element_size()} "
-                         f"not in (2, 4, 8)")
-    _launch(A, specs, blocks, local,
-            torch.cuda.current_stream(A.device).cuda_stream)
+    esize = A.element_size()
+    if esize not in (2, 4, 8):
+        raise ValueError(f"halo_write: element size {esize} not in (2, 4, 8)")
+    stream = _stream(A.device)
+    if all(sp[1] == "wrap" for sp in specs):
+        # Without EXT planes the layout is a function of the shape, the
+        # specs and the blocks alone: checked and built once.
+        key = (A.shape, tuple(specs), tuple(blocks))
+        cfg = _WRAP_CFGS.get(key)
+        if cfg is None:
+            b3, local = _check(A, specs, blocks)
+            if len(_WRAP_CFGS) >= 64:
+                _WRAP_CFGS.clear()
+            cfg = _WRAP_CFGS[key] = _CFG(*_cfg(specs, b3, local))
+        _call(A, esize, cfg, _NO_PLANES, stream)
+    else:
+        _launch(A, specs, *_check(A, specs, blocks), stream)
     halo_write.launches += 1
     return A
 
 
+def _stream(device) -> int:
+    """The current CUDA stream of `device` as an int (PyTorch's raw-stream
+    query where it has one: the writer's host path bounds it, and
+    `torch.cuda.current_stream` builds a Stream object)."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index if device.index is not None
+                   else torch.cuda.current_device())
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+_CFG = ctypes.c_int * 12
+_PTRS = ctypes.c_void_p * 6
+_NO_PLANES = _PTRS()
+# The layouts of wrap-only calls, keyed by (shape, specs, blocks).
+_WRAP_CFGS: dict = {}
+# The library and its typed entry point, looked up once per library.
+_entry = [None, None]
+
+
+def _cfg(specs, blocks, local):
+    """The kernel's 12-int layout: n, s, ol and mode per dim."""
+    cfg = [blocks[0], blocks[1], blocks[2], local[0], local[1], local[2],
+           2, 2, 2, 0, 0, 0]
+    for sp in specs:
+        d = sp[0]
+        cfg[9 + d] = _MODE[sp[1]]
+        if sp[1] == "wrap":
+            cfg[6 + d] = sp[2]
+    return cfg
+
+
+def _call(A, esize, cfg, ptrs, stream) -> None:
+    lib = library("halo_write")
+    if _entry[0] is not lib:
+        _entry[:] = [lib, lib.igg_halo_write]
+    err = _entry[1](A.data_ptr(), esize, cfg, ptrs, stream)
+    if err:
+        raise RuntimeError(f"igg_halo_write launch failed: CUDA error {err}")
+
+
 def _launch(A, specs, blocks, local, stream: int) -> None:
     """Launch `igg_halo_write` on checked arguments."""
-    cfg = [0] * 12
     ptrs = [None] * 6
     keep = []
     for sp in specs:
-        d, mode = sp[0], sp[1]
-        cfg[9 + d] = _MODE[mode]
-        cfg[6 + d] = sp[2] if mode == "wrap" else 2
-        if mode == "ext":
+        if sp[1] == "ext":
+            d = sp[0]
             for side in (0, 1):
                 P = sp[2 + side].contiguous()
                 keep.append(P)
                 ptrs[2 * d + side] = P.data_ptr()
-    for d in range(3):
-        cfg[d] = blocks[d]
-        cfg[3 + d] = local[d]
-    lib = library("halo_write")
-    err = lib.igg_halo_write(
-        ctypes.c_void_p(A.data_ptr()), ctypes.c_int(A.element_size()),
-        (ctypes.c_int * 12)(*cfg), (ctypes.c_void_p * 6)(*ptrs), stream)
-    if err:
-        raise RuntimeError(f"igg_halo_write launch failed: CUDA error {err}")
+    _call(A, A.element_size(), _CFG(*_cfg(specs, blocks, local)),
+          _PTRS(*ptrs), stream)
 
 
 halo_write.launches = 0

@@ -9,12 +9,14 @@ the per-step kernel (table row 13, igg's `_step_kernel`) and the chunk
 step (row 12's spec instances, igg's `_whole_window_kernel`) launch: the
 walk's layout says whether the targets are whole blocks or a chunk's
 windows, and which dims wrap or freeze.  At rank 3 the same policy also
-runs on the staggered band walk (`csrc/stagger_band_walk3.cuh`) through a
-second entry point, `igg_spec_band_step`: one iteration of the streaming
-banded chunk (row 6's spec instance, igg's `_streaming_kernel`), the
-policy computing on a band's shared-memory window; rank 2 gets none, as
-igg compiles its streaming kernel for 3-D fields only.  It is the
-counterpart of the body that Pallas traces from `apply_updates`.
+runs on the x-march of the staggered band (`csrc/stagger_band_march3.cuh`)
+through a second entry point, `igg_spec_band_step`: one iteration of the
+streaming banded chunk (row 6's spec instance, igg's `_streaming_kernel`),
+the policy's `mcells` computing on the planes the march stages in shared
+memory (its first design, a band walk, is kept as text in
+kernel_variants.py); rank 2 gets none, as igg compiles its streaming
+kernel for 3-D fields only.  It is the counterpart of the body that
+Pallas traces from `apply_updates`.
 
 The policy computes, at one cell, the value every field takes after the
 whole chain, exactly as :func:`igg_torch.stencil.lower.apply_updates`
@@ -49,7 +51,10 @@ once and loads each source element once, a run of VEC cells as one
 16-byte load where aligned, as `wave2d.cuh`'s run design does; the cells
 of a block's edges and wrap aliases go through per-cell functions that
 re-evaluate earlier updates inline (:func:`divisions_per_cell` counts
-what either costs).
+what either costs).  The band march's `mcells` and `mu<k>` are the same
+two paths over its staged planes (one cell at a time, the x offset of a
+read a template argument), emitted after the others, so the step and
+chunk entries compile as before.
 """
 
 from __future__ import annotations
@@ -73,6 +78,8 @@ __all__ = ["SpecKernels", "generate", "generator_refusal",
 # one, and their C signature: (src, entry, out, dtype, cfg, coef, stream).
 ENTRY = "igg_spec_step"
 BAND_ENTRY = "igg_spec_band_step"
+# The header of the band entry's x-march.
+BAND_MARCH = "stagger_band_march3.cuh"
 _P = ctypes.c_void_p
 ARGTYPES = [ctypes.POINTER(_P), ctypes.POINTER(_P), ctypes.POINTER(_P),
             ctypes.c_int, ctypes.POINTER(ctypes.c_int),
@@ -267,19 +274,103 @@ class _Emitter:
             return f"ld(src[{f}] + at[{f}])"
         return f"u{k}({self.args()})"
 
-    def run_block(self, n: int) -> str:
+    # -- the band march's view (csrc/stagger_band_march3.cuh) ---------------
+    # The march stages each array's x planes in a ring in shared memory, so
+    # no linear x stride reaches a neighbour: its reads go through a
+    # position `m` (`SbAt`) that holds the ring offsets of the planes
+    # t - R .. t + R, the x offset a template argument X, the in-plane
+    # offset `q` moved by the window's row width `M::WZ`.  The same
+    # expressions in the same association as the functions above.
+    @staticmethod
+    def march_q(off) -> str:
+        q = "q"
+        if off[1]:
+            q += f" + ({off[1]}) * M::WZ"
+        if off[2]:
+            q += f" + ({off[2]})"
+        return q
+
+    def march_at(self, f: int, off, x: str = "") -> str:
+        """Staged array f at offset `off` from the cell of plane X (from the
+        march's cell itself where `x` is empty)."""
+        xo = (f"{x} + ({off[0]})" if off[0] else x) if x else f"{off[0]}"
+        return f"m.template at<{xo}>({f}, {self.march_q(off)})"
+
+    def march_read(self, name: str, off, k: int) -> str:
+        """A read inside the march function of update `k`: an inline call
+        of an earlier update at the offset cell, else a staged element."""
+        if self.pos.get(name, len(self.spec.updates)) < k:
+            cs = ", ".join(f"{_XYZ[d]} + ({off[d]})" if off[d] else _XYZ[d]
+                           for d in range(3))
+            xo = f"X + ({off[0]})" if off[0] else "X"
+            return (f"this->template mu{self.pos[name]}<{xo}>(g, {cs}, m, "
+                    f"{self.march_q(off)})")
+        return self.march_at(self.index[name], off, "X")
+
+    def march_update_fn(self, k: int) -> str:
+        u = self.spec.updates[k]
+        f = self.index[u.field.name]
+        body = self.value(u.expr, k, self.march_read)
+        sig = (f"  // {u.field.name}' at the march's cell of plane X.\n"
+               f"  template <int X, class M>\n"
+               f"  __device__ __forceinline__ T mu{k}(const Stag3& g, int i, "
+               f"int j, int k, const M& m,\n"
+               f"                                     int q) const {{\n")
+        if u.mode == "assign":
+            return sig + f"    return {body};\n  }}\n"
+        conds = []
+        for d, (lo, hi) in enumerate(u.pad):
+            c = _XYZ[d]
+            top = u.field.stagger[d] - hi
+            conds.append(f"{c} >= {lo} && {c} < g.s[{d}] + ({top})")
+        return (sig + f"    const T old = {self.march_at(f, (0, 0, 0), 'X')};\n"
+                f"    if (!({' && '.join(conds)})) return old + T(0);\n"
+                f"    return old + {body};\n  }}\n")
+
+    def march_cells(self) -> str:
+        """`mcells`: every field's value after the chain at the march's cell
+        (the run block where every evaluation lies in its write region,
+        else the per-update functions)."""
+        nf = len(self.spec.fields)
+        fns = "\n".join(self.march_update_fn(k)
+                        for k in range(len(self.spec.updates)))
+
+        def value(f):
+            k = self.pos.get(self.spec.fields[f].name)
+            if k is None:
+                return self.march_at(f, (0, 0, 0))
+            return f"this->template mu{k}<0>(g, i, j, k, m, q)"
+
+        return (
+            f"{fns}\n"
+            "  // Every field at the march's cell (i, j, k): plane 0 of the "
+            "position m, in-plane\n"
+            "  // offset q (csrc/stagger_band_march3.cuh).\n"
+            "  template <class M>\n"
+            "  __device__ __forceinline__ void mcells(const Stag3& g, int i, "
+            "int j, int k,\n"
+            "                                         const M& m, int q, "
+            "T* out) const {\n"
+            + self.run_block(1, march=True)
+            + "".join(f"    out[{f}] = {value(f)};\n" for f in range(nf))
+            + "  }\n")
+
+    def run_block(self, n: int, march: bool = False) -> str:
         """The straight-line body of `cells<n>` for a run of n cells along
         the last dim whose every evaluation lies inside its update's write
         region: each update's value at each offset cell the run needs is
         formed once, each source element is loaded once (a run of n cells
         as one `load_run`), and the reads of earlier updates take those
         values.  The same operations in the same order as the per-cell
-        functions, so the two agree bitwise."""
+        functions, so the two agree bitwise.  `march`: the body of the
+        band march's `mcells` (n = 1, the elements read from its staged
+        planes, :meth:`march_at`)."""
         spec, nd = self.spec, self.nd
         ups = spec.updates
         run0 = tuple(0 for _ in range(nd - 1))
         need = run_needs(spec, n)
-        coords = ["i", "j0"] if nd == 2 else ["i", "j", "k0"]
+        coords = (["i", "j", "k"] if march else
+                  ["i", "j0"] if nd == 2 else ["i", "j", "k0"])
         conds = []
         for k, u in enumerate(ups):
             for d in range(nd):
@@ -316,10 +407,17 @@ class _Emitter:
             k = self.pos.get(fld.name)
             for m in range(n):
                 t = run0 + (m,)
-                outs.append(f"out[{f}][{m}] = "
+                outs.append(f"out[{f}]{'' if march else f'[{m}]'} = "
                             + (stale(f, t) if k is None
                                else f"v{k}_{code(t)}") + ";")
         decl = []
+        if march:
+            decl = [f"const T L{f}_{code(t)} = {self.march_at(f, t)};"
+                    for f, t in sorted(loads)]
+            pad = "    "
+            cond = (" &&\n" + pad + "    ").join(conds)
+            body = "\n".join(pad + "  " + x for x in decl + lines + outs)
+            return f"{pad}if ({cond}) {{\n{body}\n{pad}  return;\n{pad}}}\n"
         by_row: Dict[Tuple, List[int]] = {}
         for f, t in sorted(loads):
             by_row.setdefault((f, t[:-1]), []).append(t[-1])
@@ -422,7 +520,8 @@ class _Emitter:
         radius = band_radius(spec)
         band = "" if nd == 2 else _BAND_SOURCE.format(name=name, nf=nf,
                                                        nc=nc, entry=BAND_ENTRY)
-        walks = walk if nd == 2 else f"{walk} and stagger_band_walk3.cuh"
+        march = "" if nd == 2 else "\n" + self.march_cells()
+        walks = walk if nd == 2 else f"{walk} and {BAND_MARCH}"
         return f"""\
 // Generated by igg_torch/stencil/cuda.py from the spec {spec.name!r}: its
 // update chain as a policy of {walks}
@@ -435,7 +534,7 @@ class _Emitter:
 // igg/ops/chunk_engine.py (_whole_window_kernel and, at rank 3,
 // _streaming_kernel: the spec instances).
 #include "{walk}"
-{"" if nd == 2 else '#include "stagger_band_walk3.cuh"'}
+{"" if nd == 2 else f'#include "{BAND_MARCH}"'}
 
 namespace igg {{
 
@@ -468,7 +567,7 @@ struct {name} {{
 
 {shift}
 {fns}
-{cell}}};
+{cell}{march}}};
 
 template <typename T>
 int launch_generated(void* const* src, void* const* entry, void* const* out,
@@ -505,7 +604,8 @@ extern "C" int {ENTRY}(void* const* src, void* const* entry,
 
 
 # The band entry of a rank-3 library (one iteration of the streaming banded
-# chunk on csrc/stagger_band_walk3.cuh), with the policy of the same source.
+# chunk on the x-march of csrc/stagger_band_march3.cuh), with the policy of
+# the same source.
 _BAND_SOURCE = """
 namespace igg {{
 
@@ -513,8 +613,8 @@ template <typename T>
 int launch_generated_band(void* const* src, void* const* entry,
                           void* const* out, const int* cfg,
                           const double* coef, cudaStream_t s) {{
-  StagBand b;
-  if (!make_stag_band<{name}<T>>(cfg, b)) return (int)cudaErrorInvalidValue;
+  SbLayout b;
+  if (!make_sb_layout<{name}<T>>(cfg, b)) return (int)cudaErrorInvalidValue;
   {name}<T> ph;
   Fields<const T, {nf}> fr;
   Fields<T, {nf}> o;
@@ -524,13 +624,13 @@ int launch_generated_band(void* const* src, void* const* entry,
     o.p[f] = static_cast<T*>(out[f]);
   }}
   for (int k = 0; k < {nc}; ++k) ph.c[k] = (T)coef[k];
-  return launch_stag_band(ph, b, fr, o, s);
+  return launch_stag_march(ph, b, fr, o, s);
 }}
 
 }}  // namespace igg
 
 // One banded iteration: src, entry, out as above (entry: the chunk-entry
-// buffers), cfg: the layout of igg::make_stag_band
+// buffers), cfg: the layout of igg::make_sb_layout
 // (igg_torch.ops.chunk_engine.stagger_band_cfg).
 extern "C" int {entry}(void* const* src, void* const* entry,
                               void* const* out, int dtype, const int* cfg,

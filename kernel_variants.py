@@ -4,9 +4,9 @@
     python3 kernel_variants.py [VARIANT ...] [sources:DIR ...]
                                [case:SUBSTRING ...]
 
-Each variant is the sources of `igg_torch/csrc` (and the source generated
-for the rank-3 spec `relax3d`) with one text edit or one extra `nvcc`
-flag, built into a directory of its own under `_build`.  The wrappers of
+Each variant is the sources of `igg_torch/csrc` (and the sources generated
+for the rank-3 specs `relax3d` and `acoustic3d`) with one text edit or one
+extra `nvcc` flag, built into a directory of its own under `_build`.  The wrappers of
 `igg_torch.ops` and `igg_torch.stencil.lower` are pointed at each
 variant's libraries in turn and the kernels are timed with CUDA events at
 the main path's shapes; the variants run in the order A B .. B A, so drift
@@ -16,7 +16,8 @@ includes): a variant is never timed on sources it leaves as they are,
 and an edit that matches no source raises.  `sources:DIR` is a variant
 too: the `igg_torch/csrc` of another checkout at DIR (say, the parent
 commit's, unpacked with `git archive`) as it stands, every library built
-and timed.  A `case:SUBSTRING` argument keeps the cases whose name
+and timed, the spec sources written by that checkout's own generator.  A
+`case:SUBSTRING` argument keeps the cases whose name
 contains it.  The variants are the design choices the sources record:
 
 - `as_built`: the sources as they are;
@@ -118,21 +119,36 @@ contains it.  The variants are the design choices the sources record:
   with hm3d.cuh's and diffusion.cuh's), the HM3D chunk step (the chunk
   walk, `chunk_walk.cuh`, with hm3d.cuh's), the Stokes step (the 2-cell
   runs on `stagger_walk3.cuh`) and the HM3D step (`step_walk.cuh` with
-  hm3d.cuh's), rebuilt from the text kept here (`FIRST_DESIGNS`, with the
-  policies only they use, `FIRST_HEADERS`: stokes.cuh's `cells` and
-  hm3d.cuh);
-- `band_row_staging`: the staggered band walk (now the generated rank-3
-  band entries' only) staging its windows a warp
-  per (x, y) row of a window, the row's offset formed once, its lanes
-  along z, instead of one element a thread with two integer divisions and
-  a 64-bit offset per element;
-- `band_bounds_1`: the staggered band walk without its float32 register
-  bound (`__launch_bounds__(256)` instead of `(256, 2)`): one thread
-  block an SM (the Stokes band kernel's first design took 156 registers a
-  thread on it).
+  hm3d.cuh's), the halo writer (a thread a halo cell, its plane's cells
+  found by divisions) and the generated rank-3 band entries (the band
+  walk, `stagger_band_walk3.cuh`: a thread block per band and tile, wrap
+  aliases recomputed), rebuilt from the text kept here (`FIRST_DESIGNS`,
+  with the policies and the walk only they use, `FIRST_HEADERS`:
+  stokes.cuh's `cells`, hm3d.cuh and the staggered band walk; the band
+  entries' source by `spec_band_first_source`);
+- the generated rank-3 band entries' x-march
+  (`stagger_band_march3.cuh`; each variant times relax3d's and
+  acoustic3d's, f32 and f64): `sb_cpt_one_1` and `sb_cpt_one_4`: one or
+  four cells a thread where the policy stages one array (two as built),
+  `sb_cpt_many_2` and `sb_cpt_many_2_bounds_3_2`: two where it stages
+  more (one as built; the latter with registers bounded for 3 thread
+  blocks an SM in float32 and 2 in float64); `sb_tz_32` and `sb_tz_64`:
+  tile rows of 32 or 64 z cells (16 as built);
+  `sb_ahead_0` and `sb_ahead_2`: the rings a plane shallower or deeper;
+  `sb_blocks_2048`, `sb_blocks_32768` and `sb_no_segments`: segments cut
+  until a launch has that many thread blocks (8192 as built) or none,
+  `sb_min_seg_16` and `sb_min_seg_32` segments of at least 16 or 32 rows
+  (8 as built); `sb_bounds_f32_2`, `_f32_3`, `_f32_6`, `_f32_8`,
+  `_f64_2`, `_f64_4` and `_f64_6`: registers bounded for other numbers of
+  thread blocks an SM (4 in float32 and 3 in float64 as built);
+- the halo writer (`halo_write.cu`; timed at 256^3 periodic and 2x2x2
+  blocks of 256^3 EXT, f32 and f64): `hw_rows_2` and `hw_rows_8`: thread
+  blocks of 2 or 8 rows (4 as built); `hw_zjoint`: a thread both sides of
+  a row's z halo (a lane a side as built).
 
 Prints one JSON line per variant (milliseconds per launch, each a list of
-the two runs; CUDA events, or for the packer the profiler's device time;
+the two runs; CUDA events, or for the packer and the halo writer the
+profiler's device time;
 and ptxas's registers, stack and spills of each kernel it built), then
 the card's name and power limit.  The variants build side by side.  Needs
 `torch.cuda.is_available()`; imports nothing of JAX.
@@ -209,28 +225,13 @@ class stokes_edit:
         return {f for f, _, _ in self.edits}
 
 
-FLAT_STAGING = """    for (int e = tid; e < n; e += BAND_TY * BAND_TZ) {
-      const int j = e / plane, q = e - j * plane;
-      win[k][e] = ld(src + band_src_at<P>(
-                               g, k, p.b, clampi(p.a - bd.lo + j, 0, e0),
-                               clampi(p.y0 - R + q / wz, 0, e1),
-                               clampi(p.z0 - R + q % wz, 0, e2)));
-    }"""
-ROW_STAGING = """    for (int q = threadIdx.y; q < n / wz; q += BAND_TY) {
-      const int j = q / wy;
-      const T* row = src + band_src_at<P>(g, k, p.b,
-                                          clampi(p.a - bd.lo + j, 0, e0),
-                                          clampi(p.y0 - R + q - j * wy, 0, e1),
-                                          0);
-      for (int w = threadIdx.x; w < wz; w += BAND_TZ)
-        win[k][q * wz + w] = ld(row + clampi(p.z0 - R + w, 0, e2));
-    }"""
-BAND_BOUNDS = ("__launch_bounds__(BAND_TY * BAND_TZ,\n"
-               "                                  8 / sizeof(typename P::T))")
+def sb(old, new):
+    return ("stagger_band_march3.cuh", old, new)
 
 
-def band(old, new):
-    return ("stagger_band_walk3.cuh", old, new)
+def sb_const(name, old, new):
+    return stokes_edit(sb(f"constexpr int {name} = {old};",
+                          f"constexpr int {name} = {new};"))
 
 
 # The first designs of the kernels redesigned since, rebuilt for side-by-side
@@ -565,13 +566,181 @@ extern "C" int igg_hm3d_step(const void* Pe, const void* phi, void* Pe_out,
   return (int)cudaErrorInvalidValue;
 }
 """
+# The halo writer's first design: a thread a halo cell of one grid for all
+# six planes, its plane's cells found by divisions of the thread's index.
+HALO_WRITE_FIRST = """// In-place halo writer: one launch writes the two halo planes of every
+// participating dimension of a block-stacked grid array, in dimension order
+// (later dims own the shared corner and edge cells).  Per dim the source is
+// WRAP (the block's own inner plane s-ol / ol-1, one block along the dim)
+// or EXT (dense received planes, stacked over the blocks).
+//
+// Replaces the TPU writers of igg/ops/halo_write.py (_inplace_call,
+// _write_dim0/1/2, _halo_write_raw; entries halo_write, halo_write_slabs,
+// write_lane_active).
+//
+// What bounds it on the H100: launch latency.  It moves only the planes:
+// at 256^3 f32 six planes of 256^2 cells read and written, about 3.1 MB, or
+// about 1 us at 3.35 TB/s, below the few microseconds a launch costs.  The
+// TPU's minor-dim read-modify-write of whole tiles has no counterpart: the
+// card writes single elements.  The z planes (dim 2) are the strided ones
+// of a C-ordered (x, y, z) tensor: each of their cells is a sector of its
+// own.
+//
+// (The first design of the halo writer, kept to be timed beside it.)
+//
+// What the design does about it: one launch for all dims, one thread per
+// halo cell and nothing else touched.  blockIdx.y picks the (dim, side) of
+// the plane, and each dim has its own compiled path (write_plane<D>), so
+// all index arithmetic stays in registers.  Threads run along the
+// contiguous axis of each plane (z for the x and y planes; y for the z
+// planes, along which the EXT plane is contiguous).  A cell whose later dim
+// also writes it is left to that dim's thread.  Each written cell's value
+// is resolved by walking the dims down from its own, exactly as the
+// sequential per-dim writes would have left it: a WRAP dim maps the index
+// to its source plane, an EXT dim returns the received plane's value, and
+// the walk ends in the block itself at a cell that is not a halo cell of
+// any participating dim, so no thread reads a cell another thread writes.
+// Element-size generic (2, 4, 8 bytes): it copies bits.
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+enum Mode { NONE = 0, WRAP = 1, EXT = 2 };
+
+struct Cfg {
+  int n[3], s[3], G[3], ol[3], mode[3];
+};
+
+template <typename E>
+struct Src {
+  const E* p[6];
+};
+
+__device__ __forceinline__ int block_of(int g, int n, int s) {
+  return n == 1 ? 0 : g / s;
+}
+
+// Writes plane `side` of dim D: its cells (a, b, w) with w the fastest,
+// a over the blocks along D, (b, w) over the other two dims.
+template <typename E, int D>
+__device__ __forceinline__ void write_plane(E* __restrict__ A, const Cfg& cfg,
+                                            const Src<E>& src, int side) {
+  constexpr int DB = D == 0 ? 1 : 0;
+  constexpr int DW = D == 2 ? 1 : 2;
+  const int nb = cfg.G[DB], nw = cfg.G[DW];
+  const int total = cfg.n[D] * nb * nw;
+  for (int t = blockIdx.x * blockDim.x + threadIdx.x; t < total;
+       t += gridDim.x * blockDim.x) {
+    int g[3];
+    g[DW] = t % nw;
+    const int r = t / nw;
+    g[DB] = r % nb;
+    g[D] = (r / nb) * cfg.s[D] + (side ? cfg.s[D] - 1 : 0);
+    bool owned = true;
+#pragma unroll
+    for (int e = D + 1; e < 3; ++e) {
+      const int i = g[e] - block_of(g[e], cfg.n[e], cfg.s[e]) * cfg.s[e];
+      if (cfg.mode[e] != NONE && (i == 0 || i == cfg.s[e] - 1)) owned = false;
+    }
+    if (!owned) continue;
+    const long long out =
+        ((long long)g[0] * cfg.G[1] + g[1]) * cfg.G[2] + g[2];
+    E v;
+    bool done = false;
+#pragma unroll
+    for (int e = D; e >= 0; --e) {
+      if (done || cfg.mode[e] == NONE) continue;
+      const int c = block_of(g[e], cfg.n[e], cfg.s[e]);
+      const int i = g[e] - c * cfg.s[e];
+      if (i != 0 && i != cfg.s[e] - 1) continue;
+      if (cfg.mode[e] == EXT) {
+        // The received plane of dim e has extent n[e] along e.
+        int p[3] = {g[0], g[1], g[2]};
+        p[e] = c;
+        const int P1 = e == 1 ? cfg.n[1] : cfg.G[1];
+        const int P2 = e == 2 ? cfg.n[2] : cfg.G[2];
+        const E* plane = i == 0 ? src.p[2 * e] : src.p[2 * e + 1];
+        v = plane[((long long)p[0] * P1 + p[1]) * P2 + p[2]];
+        done = true;
+      } else {  // WRAP: one block along e, so g[e] is the local index
+        g[e] = i == 0 ? cfg.s[e] - cfg.ol[e] : cfg.ol[e] - 1;
+      }
+    }
+    if (!done) v = A[((long long)g[0] * cfg.G[1] + g[1]) * cfg.G[2] + g[2]];
+    A[out] = v;
+  }
+}
+
+template <typename E>
+__global__ void __launch_bounds__(256)
+    halo_write_kernel(E* A, Cfg cfg, Src<E> src) {
+  const int side = blockIdx.y & 1;
+  switch (blockIdx.y >> 1) {
+    case 0:
+      if (cfg.mode[0] != NONE) write_plane<E, 0>(A, cfg, src, side);
+      break;
+    case 1:
+      if (cfg.mode[1] != NONE) write_plane<E, 1>(A, cfg, src, side);
+      break;
+    default:
+      if (cfg.mode[2] != NONE) write_plane<E, 2>(A, cfg, src, side);
+  }
+}
+
+template <typename E>
+int launch(void* A, const Cfg& cfg, void* const* planes, cudaStream_t st) {
+  Src<E> src;
+  for (int j = 0; j < 6; ++j) src.p[j] = static_cast<const E*>(planes[j]);
+  long long most = 0;
+  for (int d = 0; d < 3; ++d) {
+    if (cfg.mode[d] == NONE) continue;
+    const long long cells = (long long)cfg.G[0] * cfg.G[1] * cfg.G[2] /
+                            cfg.G[d] * cfg.n[d];
+    if (cells > INT_MAX) return (int)cudaErrorInvalidValue;
+    if (cells > most) most = cells;
+  }
+  if (most == 0) return (int)cudaSuccess;
+  const int threads = 256;
+  long long blocks = (most + threads - 1) / threads;
+  if (blocks > 4096) blocks = 4096;  // grid-stride beyond that
+  const dim3 grid((unsigned)blocks, 6);  // y: (dim, side) of the plane
+  halo_write_kernel<E><<<grid, threads, 0, st>>>(static_cast<E*>(A), cfg, src);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// cfg: n0 n1 n2 s0 s1 s2 ol0 ol1 ol2 mode0 mode1 mode2 (0 NONE, 1 WRAP,
+// 2 EXT); planes: (dim, side) pointers of the EXT dims, null elsewhere.
+extern "C" int igg_halo_write(void* A, int elem_size, const int* cfg_in,
+                              void* const* planes, void* stream) {
+  Cfg cfg;
+  for (int d = 0; d < 3; ++d) {
+    cfg.n[d] = cfg_in[d];
+    cfg.s[d] = cfg_in[3 + d];
+    cfg.G[d] = cfg_in[d] * cfg_in[3 + d];
+    cfg.ol[d] = cfg_in[6 + d];
+    cfg.mode[d] = cfg_in[9 + d];
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (elem_size) {
+    case 2: return launch<uint16_t>(A, cfg, planes, st);
+    case 4: return launch<uint32_t>(A, cfg, planes, st);
+    case 8: return launch<uint64_t>(A, cfg, planes, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+"""
 FIRST_DESIGNS = {"stokes_chunk.cu": CHUNK_FIRST, "pack_planes.cu": PACK_FIRST,
                  "stokes_band.cu": STOKES_BAND_FIRST,
                  "hm3d_band.cu": HM3D_BAND_FIRST,
                  "hm3d_chunk.cu": HM3D_CHUNK_FIRST,
                  "diffusion_band.cu": DIFFUSION_BAND_FIRST,
                  "stokes_step.cu": STOKES_STEP_FIRST,
-                 "hm3d_step.cu": HM3D_STEP_FIRST}
+                 "hm3d_step.cu": HM3D_STEP_FIRST,
+                 "halo_write.cu": HALO_WRITE_FIRST}
 # The policies only the first designs use: stokes.cuh with its update of a
 # run of cells on the staggered walks (`cells`, the kernels' as-built
 # stokes.cuh keeps the fields' layout alone), and hm3d.cuh, the HM3D update
@@ -970,16 +1139,477 @@ Hm3d<T> make_hm3d(const void* Pe, const void* phi, const double* coef,
 
 }  // namespace igg
 """
+# The staggered band walk (the first designs of the Stokes band kernel and
+# of the generated rank-3 band entry), and that entry's launch on it: the
+# band section of a generated source before the march
+# (spec_band_first_source).
+STAGGER_BAND_WALK3_FIRST = """// One iteration of the streaming banded K-step chunk over STAGGERED 3-D
+// fields, the walk of the first designs of the Stokes band kernel and of
+// the band entry generated for a rank-3 igg_torch.stencil spec (both left
+// it for x-marches: the Stokes march's band mode, stokes_march.cuh, and
+// stagger_band_march3.cuh): one launch
+// advances every extended block of block-stacked EXTENDED buffers by one
+// iteration of every field of a policy P of the 3-D staggered walk
+// (stagger_walk3.cuh), sweeping each block in x-row bands of depth B (the
+// function of igg/ops/chunk_engine.py: _streaming_kernel and of its plain
+// version, igg_torch/ops/chunk_engine.py: banded_window_plain).
+// band_walk.cuh's design carried to fields of their own shapes.
+//
+// The policy adds to the staggered walk's interface:
+//   - `NS`, `staged(k)`, `restage(k, p)`: the arrays the walk stages (the
+//     NF fields, then constant arrays laid out like field 0, which the
+//     policy reads at field 0's offsets) and a way to point them elsewhere;
+//   - `RADIUS`: the largest index offset, along any dim, of any value its
+//     `cells` reads (1 for Stokes).
+//
+// A thread block takes one band (rows [a, a+B) of the base x extent of one
+// extended block) over a BAND_TY x BAND_TZ tile of y/z cells.  It stages, in
+// shared memory, rows [a - lo, a + B + extra[k]) of each staged array k over
+// the tile plus RADIUS plus the array's own stagger, clamped to the BLOCK's
+// first and last rows of that array (igg's rolling window of one device's
+// buffer: a field one row longer in x is clamped at its own last row) and,
+// in y and z, to the array's extents (values never read).  Each thread then
+// computes its cell of every field in the B rows with the policy's own
+// `cells<1>`, run on the staged windows: the policy sees the band's window
+// as its block along x (row lo + r of a window of lo + B + lo base rows, the
+// realization's band core applied to the window) and the block itself along
+// y and z, so its interior tests are those of the plain band core.
+//
+// The band halo is resolved per field in the order of chunk_engine.band_halo
+// (later dims win): z first, then y at the z-resolved cell, then x:
+//   - a WRAP dim's edge cells of field f (0 and its own size - 1) take the
+//     value of the inner cell they alias (size - ol, ol - 1, f's own
+//     overlap) as resolved so far;
+//   - an open dim's rows == lo and == hi + st(f, d) on the edge blocks take
+//     the chunk-entry values F of the fields that freeze on that dim
+//     (exactly those rows, not the shoulders beyond them).
+// A wrap alias lies in another tile, computed by another thread block in the
+// same launch: its update is recomputed here from the source buffers, on a
+// (2 RADIUS + 1)^3 copy of its neighbourhood clamped the same way, never
+// read from the destination.  Cells outside the base block (a staggered
+// field's outer face rows along y and z) take no update: their source value
+// plus an exact +0, as the 3-D walk writes them.  The rows beyond the base
+// x extent (an x-staggered field's last row, which no band covers) keep
+// their source values, so every launch writes every cell of its targets.
+// A thread whose cell is a block's last y (z) row also takes the face row
+// at y = s1 (z = s2) of the fields staggered along y (z).
+//
+// The last launch of a chunk writes only each block's central window,
+// straight into the unextended outputs (the walk's target window).
+#pragma once
+
+#include "band_walk.cuh"
+#include "stagger_walk3.cuh"
+
+namespace igg {
+
+struct StagBand {
+  Stag3 g;           // make_stag3's layout: extended base block, targets
+  int B;             // band depth (rows of a band)
+  int lo;            // rows read below a band
+  int extra[MAXF];   // rows each staged array reads above a band
+  int tiles[3];      // bands per block along x, tiles per block along y, z
+};
+
+// Stagger of staged array k along d: a field's own, or field 0's for a
+// constant array.
+template <class P>
+__host__ __device__ constexpr int sst(int k, int d) {
+  return k < P::NF ? P::st(k, d) : P::st(0, d);
+}
+
+// cfg: the layout of make_stag3 (24 + 3 * MAXF ints), then B, lo and
+// extra[MAXF].  Returns false where the layout does not suit the walk: the
+// band depth does not divide the base x extent, or a read margin is below
+// the window the policy's x tests assume (extra >= lo + stagger).
+template <class P>
+inline bool make_stag_band(const int* cfg, StagBand& b) {
+  if (!make_stag3(cfg, b.g)) return false;
+  constexpr int at = 24 + 3 * MAXF;
+  b.B = cfg[at];
+  b.lo = cfg[at + 1];
+  for (int k = 0; k < MAXF; ++k) b.extra[k] = cfg[at + 2 + k];
+  const Stag3& g = b.g;
+  if (b.B < 1 || g.s[0] % b.B != 0 || b.lo < P::RADIUS) return false;
+  for (int k = 0; k < P::NS; ++k)
+    if (b.extra[k] < b.lo + sst<P>(k, 0)) return false;
+  b.tiles[0] = g.s[0] / b.B;
+  b.tiles[1] = (g.s[1] + BAND_TY - 1) / BAND_TY;
+  b.tiles[2] = (g.s[2] + BAND_TZ - 1) / BAND_TZ;
+  return true;
+}
+
+// The y and z extents of staged array k's window.
+template <class P>
+__host__ __device__ constexpr int band_wy(int k) {
+  return BAND_TY + 2 * P::RADIUS + sst<P>(k, 1);
+}
+template <class P>
+__host__ __device__ constexpr int band_wz(int k) {
+  return BAND_TZ + 2 * P::RADIUS + sst<P>(k, 2);
+}
+
+// Bytes of shared memory one thread block stages (igg_torch/ops/_smem.py:
+// banded_smem).
+template <class P>
+inline long long stag_band_smem_bytes(const StagBand& b) {
+  long long n = 0;
+  for (int k = 0; k < P::NS; ++k)
+    n += (long long)(b.lo + b.B + b.extra[k]) * band_wy<P>(k) * band_wz<P>(k);
+  return n * (long long)sizeof(typename P::T);
+}
+
+// Whether row c of block bl along d is field f's exact freeze row there.
+template <class P>
+__device__ __forceinline__ bool band_row_frozen(const Stag3& g, int f, int d,
+                                                int bl, int c) {
+  return P::freezes(f, d) && g.frz[d] &&
+         ((bl == 0 && c == g.lo[d]) ||
+          (bl == g.n[d] - 1 && c == g.hi[d] + P::st(f, d)));
+}
+
+// Stacked offset of cell (x, y, z) of block b in staged array k's source.
+template <class P>
+__device__ __forceinline__ long long band_src_at(const Stag3& g, int k,
+                                                 const int* b, int x, int y,
+                                                 int z) {
+  return at3(g.s, g.n, sst<P>(k, 0), sst<P>(k, 1), sst<P>(k, 2), b[0], x,
+             b[1], y, b[2], z);
+}
+
+// The update of every field at cell (x, y, z), interior to the base block,
+// of block b, recomputed from the source buffers alone: the policy run on
+// a (2 RADIUS + 1)^3 copy of each staged array's neighbourhood, rows
+// clamped to the block's, at window row i of the window layout gw.
+template <class P>
+__device__ __noinline__ void band_recompute(const P& ph, const Stag3& gw,
+                                            const Stag3& g, const int* b,
+                                            int x, int i, int y, int z,
+                                            typename P::T* res) {
+  using T = typename P::T;
+  constexpr int NF = P::NF, NS = P::NS, R = P::RADIUS, W = 2 * R + 1;
+  T nb[NS][W * W * W];
+  P loc = ph;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const T* p = ph.staged(k);
+    const int e0 = g.s[0] + sst<P>(k, 0) - 1, e1 = g.s[1] + sst<P>(k, 1) - 1,
+              e2 = g.s[2] + sst<P>(k, 2) - 1;
+    for (int u = 0; u < W; ++u)
+      for (int v = 0; v < W; ++v)
+        for (int w = 0; w < W; ++w)
+          nb[k][(u * W + v) * W + w] = ld(
+              p + band_src_at<P>(g, k, b, clampi(x - R + u, 0, e0),
+                                 clampi(y - R + v, 0, e1),
+                                 clampi(z - R + w, 0, e2)));
+    loc.restage(k, nb[k]);
+  }
+  long long at[NF], sx[NF], sy[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    at[f] = (long long)R * (W * W + W + 1);
+    sx[f] = W * W;
+    sy[f] = W;
+  }
+  T got[NF][1];
+  loc.template cells<1>(gw, i, y, z, at, sx, sy, got);
+#pragma unroll
+  for (int f = 0; f < NF; ++f) res[f] = got[f][0];
+}
+
+// Window and target geometry of one thread: its block, band and tile.
+struct BandAt {
+  int b[3];    // the extended block
+  int a;       // the band's first row
+  int y0, z0;  // the tile's first y and z cells
+  int y, z;    // the thread's own cell of the base block
+};
+
+// Write field f's value v at cell (x, y, z) of block p.b of the targets
+// (the whole extended blocks, or each block's central window), if the
+// target holds it.
+template <class P>
+__device__ __forceinline__ void band_store(
+    const Stag3& g, const BandAt& p, int f, int x, int y, int z,
+    typename P::T v, const Fields<typename P::T, P::NF>& out) {
+  const int t0 = x - g.off[0], t1 = y - g.off[1], t2 = z - g.off[2];
+  if (t0 < 0 || t0 >= g.o[0] + P::st(f, 0) || t1 < 0 ||
+      t1 >= g.o[1] + P::st(f, 1) || t2 < 0 || t2 >= g.o[2] + P::st(f, 2))
+    return;
+  out.p[f][at3(g.o, g.n, P::st(f, 0), P::st(f, 1), P::st(f, 2), p.b[0], t0,
+               p.b[1], t1, p.b[2], t2)] = v;
+}
+
+// Every field's cell (x, yv, zv) of band row r (x = a + r), for the fields
+// that have it: the band halo resolved per field (header), the updates at
+// the thread's own cell taken from the staged windows, the others
+// recomputed from the sources, fields of one resolved cell together.
+template <class P>
+__device__ __forceinline__ void band_cells(
+    const P& ph, const P& sm, const Stag3& gw, const StagBand& bd,
+    const BandAt& p, int r, int yv, int zv,
+    const Fields<const typename P::T, P::NF>& F,
+    const Fields<typename P::T, P::NF>& out) {
+  using T = typename P::T;
+  constexpr int NF = P::NF, R = P::RADIUS;
+  const Stag3& g = bd.g;
+  const int x = p.a + r, s1 = g.s[1], s2 = g.s[2];
+  int ty[NF], tz[NF];
+  bool want[NF], done[NF];
+  T v[NF];
+  bool own = false;
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    const int n1 = s1 + P::st(f, 1), n2 = s2 + P::st(f, 2);
+    want[f] = yv < n1 && zv < n2;
+    done[f] = !want[f];
+    int yy = yv, zz = zv;
+    bool frozen = false;
+    if (g.wrap[2] && (zv == 0 || zv == n2 - 1))
+      zz = wrap_alias(zv, n2, g.ol[f][2]);
+    else
+      frozen = band_row_frozen<P>(g, f, 2, p.b[2], zv);
+    if (!frozen) {
+      if (g.wrap[1] && (yv == 0 || yv == n1 - 1))
+        yy = wrap_alias(yv, n1, g.ol[f][1]);
+      else
+        frozen = band_row_frozen<P>(g, f, 1, p.b[1], yv);
+    }
+    if (!frozen) frozen = band_row_frozen<P>(g, f, 0, p.b[0], x);
+    ty[f] = yy;
+    tz[f] = zz;
+    if (done[f]) continue;
+    if (frozen) {
+      v[f] = ld(F.p[f] + band_src_at<P>(g, f, p.b, x, yy, zz));
+      done[f] = true;
+    } else if (yy >= s1 || zz >= s2) {  // an outer face: no update
+      v[f] = ld(ph.src[f] + band_src_at<P>(g, f, p.b, x, yy, zz)) + T(0);
+      done[f] = true;
+    } else {
+      own = own || (yy == p.y && zz == p.z);
+    }
+  }
+  if (own) {
+    long long at[NF], sx[NF], sy[NF];
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      sy[f] = band_wz<P>(f);
+      sx[f] = (long long)band_wy<P>(f) * sy[f];
+      at[f] = (long long)(bd.lo + r) * sx[f] + (p.y - p.y0 + R) * sy[f] +
+              (p.z - p.z0 + R);
+    }
+    T got[NF][1];
+    sm.template cells<1>(gw, bd.lo + r, p.y, p.z, at, sx, sy, got);
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+      if (!done[f] && ty[f] == p.y && tz[f] == p.z) {
+        v[f] = got[f][0];
+        done[f] = true;
+      }
+  }
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    if (done[f]) continue;
+    T got[NF];
+    band_recompute(ph, gw, g, p.b, x, bd.lo + r, ty[f], tz[f], got);
+#pragma unroll
+    for (int h = 0; h < NF; ++h)
+      if (!done[h] && ty[h] == ty[f] && tz[h] == tz[f]) {
+        v[h] = got[h];
+        done[h] = true;
+      }
+  }
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+    if (want[f]) band_store<P>(g, p, f, x, yv, zv, v[f], out);
+}
+
+// The rows beyond the base x extent (an x-staggered field's last row) at
+// (yv, zv): their source values.
+template <class P>
+__device__ __forceinline__ void band_tail(
+    const P& ph, const Stag3& g, const BandAt& p, int yv, int zv,
+    const Fields<typename P::T, P::NF>& out) {
+#pragma unroll
+  for (int f = 0; f < P::NF; ++f) {
+    if (!P::st(f, 0) || yv >= g.s[1] + P::st(f, 1) ||
+        zv >= g.s[2] + P::st(f, 2))
+      continue;
+    const int x = g.s[0];
+    band_store<P>(g, p, f, x, yv, zv,
+                  ld(ph.src[f] + band_src_at<P>(g, f, p.b, x, yv, zv)), out);
+  }
+}
+
+// Two thread blocks an SM in float32, where the windows allow it (Stokes:
+// 71 KB each): the register bound that takes (128 a thread, from 156) made
+// the Stokes band kernel 1.53 times as fast on an H100
+// (kernel_variants.py: band_bounds_1).  A float64 window of Stokes (142
+// KB) leaves room for one, so float64 keeps its registers.
+template <class P>
+__global__ void __launch_bounds__(BAND_TY * BAND_TZ,
+                                  8 / sizeof(typename P::T))
+    stag_band_kernel(P ph, StagBand bd, Fields<const typename P::T, P::NF> F,
+                     Fields<typename P::T, P::NF> out) {
+  using T = typename P::T;
+  constexpr int NS = P::NS, R = P::RADIUS;
+  extern __shared__ __align__(16) unsigned char stag_band_smem[];
+  const Stag3& g = bd.g;
+  const int s0 = g.s[0], s1 = g.s[1], s2 = g.s[2];
+  BandAt p;
+  p.b[0] = blockIdx.z / bd.tiles[0];
+  p.b[1] = blockIdx.y / bd.tiles[1];
+  p.b[2] = blockIdx.x / bd.tiles[2];
+  p.a = (blockIdx.z % bd.tiles[0]) * bd.B;
+  p.y0 = (blockIdx.y % bd.tiles[1]) * BAND_TY;
+  p.z0 = (blockIdx.x % bd.tiles[2]) * BAND_TZ;
+  p.y = p.y0 + threadIdx.y;
+  p.z = p.z0 + threadIdx.x;
+
+  // Stage each array's window: rows [a - lo, a + B + extra[k]) over the
+  // tile, its radius and its stagger, clamped to the block; the threads
+  // take consecutive elements, so a warp's loads run along z.
+  T* win[NS];
+  T* next = reinterpret_cast<T*>(stag_band_smem);
+  const int tid = threadIdx.y * BAND_TZ + threadIdx.x;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) {
+    const int wy = band_wy<P>(k), wz = band_wz<P>(k), plane = wy * wz;
+    const int n = (bd.lo + bd.B + bd.extra[k]) * plane;
+    const int e0 = s0 + sst<P>(k, 0) - 1, e1 = s1 + sst<P>(k, 1) - 1,
+              e2 = s2 + sst<P>(k, 2) - 1;
+    const T* src = ph.staged(k);
+    win[k] = next;
+    next += n;
+    for (int e = tid; e < n; e += BAND_TY * BAND_TZ) {
+      const int j = e / plane, q = e - j * plane;
+      win[k][e] = ld(src + band_src_at<P>(
+                               g, k, p.b, clampi(p.a - bd.lo + j, 0, e0),
+                               clampi(p.y0 - R + q / wz, 0, e1),
+                               clampi(p.z0 - R + q % wz, 0, e2)));
+    }
+  }
+  __syncthreads();
+
+  if (p.y >= s1 || p.z >= s2) return;
+  P sm = ph;
+#pragma unroll
+  for (int k = 0; k < NS; ++k) sm.restage(k, win[k]);
+  // The policy's view: the band's window along x, the block along y, z.
+  Stag3 gw = g;
+  gw.s[0] = 2 * bd.lo + bd.B;
+  const bool ylast = p.y == s1 - 1, zlast = p.z == s2 - 1;
+  for (int r = 0; r < bd.B; ++r) {
+    band_cells(ph, sm, gw, bd, p, r, p.y, p.z, F, out);
+    if (ylast) band_cells(ph, sm, gw, bd, p, r, s1, p.z, F, out);
+    if (zlast) band_cells(ph, sm, gw, bd, p, r, p.y, s2, F, out);
+    if (ylast && zlast) band_cells(ph, sm, gw, bd, p, r, s1, s2, F, out);
+  }
+  if (p.a + bd.B == s0) {
+    band_tail(ph, g, p, p.y, p.z, out);
+    if (ylast) band_tail(ph, g, p, s1, p.z, out);
+    if (zlast) band_tail(ph, g, p, p.y, s2, out);
+    if (ylast && zlast) band_tail(ph, g, p, s1, s2, out);
+  }
+}
+
+// Launch one iteration: thread blocks of BAND_TZ x BAND_TY threads, one per
+// band and tile; dynamic shared memory above 48 KB is opted into first.
+template <class P>
+int launch_stag_band(const P& ph, const StagBand& bd,
+                     const Fields<const typename P::T, P::NF>& F,
+                     const Fields<typename P::T, P::NF>& out,
+                     cudaStream_t stream) {
+  static_assert(P::NF <= MAXF && P::NS <= MAXF, "more arrays than the walk takes");
+  const long long smem = stag_band_smem_bytes<P>(bd);
+  if (smem > BAND_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const Stag3& g = bd.g;
+  const dim3 block(BAND_TZ, BAND_TY);
+  const dim3 grid(g.n[2] * bd.tiles[2], g.n[1] * bd.tiles[1],
+                  g.n[0] * bd.tiles[0]);
+  if (grid.y > 65535 || grid.z > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  if (smem > BAND_SMEM_DEFAULT) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stag_band_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const size_t bytes = (size_t)smem;
+  stag_band_kernel<P><<<grid, block, bytes, stream>>>(ph, bd, F, out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace igg
+"""
+SPEC_BAND_FIRST = """
+namespace igg {{
+
+template <typename T>
+int launch_generated_band(void* const* src, void* const* entry,
+                          void* const* out, const int* cfg,
+                          const double* coef, cudaStream_t s) {{
+  StagBand b;
+  if (!make_stag_band<{name}<T>>(cfg, b)) return (int)cudaErrorInvalidValue;
+  {name}<T> ph;
+  Fields<const T, {nf}> fr;
+  Fields<T, {nf}> o;
+  for (int f = 0; f < {nf}; ++f) {{
+    ph.src[f] = static_cast<const T*>(src[f]);
+    fr.p[f] = static_cast<const T*>(entry[f]);
+    o.p[f] = static_cast<T*>(out[f]);
+  }}
+  for (int k = 0; k < {nc}; ++k) ph.c[k] = (T)coef[k];
+  return launch_stag_band(ph, b, fr, o, s);
+}}
+
+}}  // namespace igg
+
+// One banded iteration: src, entry, out as above (entry: the chunk-entry
+// buffers), cfg: the layout of igg::make_stag_band
+// (igg_torch.ops.chunk_engine.stagger_band_cfg).
+extern "C" int {entry}(void* const* src, void* const* entry,
+                              void* const* out, int dtype, const int* cfg,
+                              const double* coef, void* stream) {{
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return igg::launch_generated_band<float>(src, entry, out, cfg, coef, s);
+  if (dtype == 1)
+    return igg::launch_generated_band<double>(src, entry, out, cfg, coef, s);
+  return (int)cudaErrorInvalidValue;
+}}
+"""
 FIRST_HEADERS = {"stokes.cuh": STOKES_POLICY_FIRST,
-                 "hm3d.cuh": HM3D_POLICY_FIRST}
+                 "hm3d.cuh": HM3D_POLICY_FIRST,
+                 "stagger_band_walk3.cuh": STAGGER_BAND_WALK3_FIRST}
+
+
+def spec_band_first_source(gen):
+    """The source generated for a rank-3 spec (`gen`: its SpecKernels) with
+    its band entry on the first design, the band walk
+    (`stagger_band_walk3.cuh` of FIRST_HEADERS): the step entry and the
+    policy as generated, the band section SPEC_BAND_FIRST's."""
+    from igg_torch.stencil import cuda
+
+    kw = dict(name=f"Spec_{gen.tag}", nf=len(gen.spec.fields),
+              nc=len(gen.coef), entry=cuda.BAND_ENTRY)
+    band = cuda._BAND_SOURCE.format(**kw)
+    include = f'#include "{cuda.BAND_MARCH}"'
+    if gen.source.count(band) != 1 or gen.source.count(include) != 1:
+        raise RuntimeError(f"the band section of {gen.tag} is not the "
+                           f"generator's")
+    return (gen.source.replace(band, SPEC_BAND_FIRST.format(**kw))
+            .replace(include, '#include "stagger_band_walk3.cuh"'))
 
 
 class first_design:
     """The first designs' sources in place of the kernels' (FIRST_DESIGNS)
     and their policies' headers (FIRST_HEADERS: `stokes.cuh` in place of
-    the layout alone, `hm3d.cuh` added)."""
+    the layout alone, `hm3d.cuh` and the staggered band walk added); the
+    generated library's band entry on that walk."""
 
     added = FIRST_HEADERS
+    generated = staticmethod(spec_band_first_source)
 
     def __call__(self, name, text):
         return FIRST_DESIGNS.get(name, FIRST_HEADERS.get(name, text))
@@ -1121,9 +1751,37 @@ VARIANTS = {
     "ldg_loads": (ldg_loads, []),
     "vec_8B": (vec_8b, []),
     "approx_div": (lambda name, text: text, ["-prec-div=false"]),
-    "band_row_staging": (stokes_edit(band(FLAT_STAGING, ROW_STAGING)), []),
-    "band_bounds_1": (stokes_edit(band(
-        BAND_BOUNDS, "__launch_bounds__(BAND_TY * BAND_TZ)")), []),
+    "hw_rows_2": (stokes_edit(("halo_write.cu", "constexpr int TR = 4; ",
+                               "constexpr int TR = 2; ")), []),
+    "hw_rows_8": (stokes_edit(("halo_write.cu", "constexpr int TR = 4; ",
+                               "constexpr int TR = 8; ")), []),
+    "hw_zjoint": (stokes_edit(("halo_write.cu", "constexpr int ZS = 2;",
+                               "constexpr int ZS = 1;")), []),
+    "sb_cpt_one_1": (sb_const("SB_CPT_ONE", 2, 1), []),
+    "sb_cpt_one_4": (sb_const("SB_CPT_ONE", 2, 4), []),
+    "sb_cpt_many_2": (sb_const("SB_CPT_MANY", 1, 2), []),
+    "sb_cpt_many_2_bounds_3_2": (stokes_edit(
+        sb("constexpr int SB_CPT_MANY = 1;", "constexpr int SB_CPT_MANY = 2;"),
+        sb("constexpr int SB_MIN_BLOCKS_F32 = 4;",
+           "constexpr int SB_MIN_BLOCKS_F32 = 3;"),
+        sb("constexpr int SB_MIN_BLOCKS_F64 = 3;",
+           "constexpr int SB_MIN_BLOCKS_F64 = 2;")), []),
+    "sb_tz_32": (sb_const("SB_TZ", 16, 32), []),
+    "sb_tz_64": (sb_const("SB_TZ", 16, 64), []),
+    "sb_ahead_0": (sb_const("SB_AHEAD", 1, 0), []),
+    "sb_ahead_2": (sb_const("SB_AHEAD", 1, 2), []),
+    "sb_blocks_2048": (sb_const("SB_BLOCKS", 8192, 2048), []),
+    "sb_blocks_32768": (sb_const("SB_BLOCKS", 8192, 32768), []),
+    "sb_no_segments": (sb_const("SB_BLOCKS", 8192, 1), []),
+    "sb_min_seg_16": (sb_const("SB_MIN_SEG", 8, 16), []),
+    "sb_min_seg_32": (sb_const("SB_MIN_SEG", 8, 32), []),
+    "sb_bounds_f32_2": (sb_const("SB_MIN_BLOCKS_F32", 4, 2), []),
+    "sb_bounds_f32_3": (sb_const("SB_MIN_BLOCKS_F32", 4, 3), []),
+    "sb_bounds_f32_6": (sb_const("SB_MIN_BLOCKS_F32", 4, 6), []),
+    "sb_bounds_f32_8": (sb_const("SB_MIN_BLOCKS_F32", 4, 8), []),
+    "sb_bounds_f64_2": (sb_const("SB_MIN_BLOCKS_F64", 3, 2), []),
+    "sb_bounds_f64_4": (sb_const("SB_MIN_BLOCKS_F64", 3, 4), []),
+    "sb_bounds_f64_6": (sb_const("SB_MIN_BLOCKS_F64", 3, 6), []),
     "march_div_ieee": (march_div("  return x / q.d;"), []),
     "march_div_vote": (march_div(
         "  const bool nz = x != T(0);\n"
@@ -1249,34 +1907,36 @@ VARIANTS = {
         "constexpr int kThreads = 128;")), []),
 }
 # The libraries a variant means to change, where the headers its edit
-# touches reach more of them than its kernels (`RELAX3D`: the generated
-# library of relax3d); the others change every library whose sources
+# touches reach more of them than its kernels (`SPEC_BAND`: the generated
+# libraries of GENERATED); the others change every library whose sources
 # include an edited file.  `build` raises where a named library's sources
 # do not.
-RELAX3D = "relax3d"
+SPEC_BAND = ("gen_relax3d", "gen_acoustic3d")
 MARCH = ("stokes_chunk", "stokes_band")
 TARGETS = {v: MARCH for v in VARIANTS if v.startswith("march_")}
 TARGETS.update(
     {v: ("stokes_step",) for v in VARIANTS if v.startswith("ss_")},
     **{v: ("hm3d_step",) for v in VARIANTS if v.startswith("hm_step_")},
     vec_8B=("diffusion_step", "diffusion_chunk"),
-    band_row_staging=(RELAX3D,), band_bounds_1=(RELAX3D,),
+    **{v: SPEC_BAND for v in VARIANTS if v.startswith("sb_")},
     march_sync_staging=MARCH + ("hm3d_band", "hm3d_chunk", "diffusion_band",
                                 "hm3d_step", "stokes_step"),
     **{v: MARCH + ("hm3d_band", "hm3d_chunk")
        for v in ("march_div_ieee", "march_div_vote", "march_div_mul")})
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
         "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
-        "stokes_band", "pack_planes", "diffusion_band", "hm3d_band")
-# The generated library of this spec case is built per variant too.
-GENERATED = "relax3d"
+        "stokes_band", "pack_planes", "diffusion_band", "hm3d_band",
+        "halo_write")
+# The generated libraries of these spec cases are built per variant too
+# (`gen_<tag>`).
+GENERATED = ("relax3d", "acoustic3d")
 
 
-def relax3d_kernels():
+def spec_kernels(name):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_spec_cases
 
-    return torch_spec_cases.kernels(GENERATED)
+    return torch_spec_cases.kernels(name)
 
 
 INCLUDE = re.compile(r'^#include "([^"]+)"', re.M)
@@ -1296,6 +1956,16 @@ def affected(texts, changed):
 
     return {f[:-len(".cu")] for f in texts if f.endswith(".cu")
             and reach(f, set()) & changed}
+
+
+def generated_at(root, name):
+    """The source that the generator of the checkout at `root` writes for
+    the spec case `name` (its own tests/torch_spec_cases.py)."""
+    code = ("import sys; sys.path[:0] = ['.', 'tests']; "
+            "import torch_spec_cases as c; "
+            f"sys.stdout.write(c.kernels({name!r}).source)")
+    return subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+                          capture_output=True, text=True).stdout
 
 
 def variant_sources(variant):
@@ -1342,16 +2012,23 @@ def build(variant):
     if variant != "as_built" and not changed and not flags and \
             not variant.startswith("sources:"):
         raise RuntimeError(f"variant {variant} changes no source")
-    gen = relax3d_kernels()
-    texts[f"gen_{gen.tag}.cu"] = gen.source
-    with open(os.path.join(out, f"gen_{gen.tag}.cu"), "w") as dst:
-        dst.write(gen.source)
-    touched = (set(LIBS) | {f"gen_{gen.tag}"}
+    gens = tuple(f"gen_{spec_kernels(name).tag}" for name in GENERATED)
+    for name in GENERATED:
+        gen = spec_kernels(name)
+        if variant.startswith("sources:"):
+            source = generated_at(variant[len("sources:"):], name)
+        else:
+            source = getattr(edit, "generated", lambda g: g.source)(gen)
+        texts[f"gen_{gen.tag}.cu"] = source
+        if source != gen.source:
+            changed.add(f"gen_{gen.tag}.cu")
+        with open(os.path.join(out, f"gen_{gen.tag}.cu"), "w") as dst:
+            dst.write(source)
+    touched = (set(LIBS) | set(gens)
                if flags or variant.startswith("sources:")
                or variant == "as_built" else affected(texts, changed))
     if variant in TARGETS:
-        named = {f"gen_{gen.tag}" if lib == RELAX3D else lib
-                 for lib in TARGETS[variant]}
+        named = set(TARGETS[variant])
         if named - touched:
             raise RuntimeError(f"variant {variant}: its edit no longer "
                                f"reaches {sorted(named - touched)}")
@@ -1360,7 +2037,7 @@ def build(variant):
         [_build.nvcc(), *_build.FLAGS, *flags, "-Xptxas", "-v", "-o",
          os.path.join(out, f"{lib}.so"), os.path.join(out, f"{lib}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for lib in LIBS + (f"gen_{gen.tag}",) if lib in touched}
+        for lib in LIBS + gens if lib in touched}
     libs = {}
     for lib, proc in procs.items():
         log, _ = proc.communicate()
@@ -1422,24 +2099,28 @@ def event_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
-def profiled_ms(fn, n, kernel):
+def profiled_ms(fn, n, kernel, tries=3):
     """Mean device ms per launch of the kernel whose name contains `kernel`
     over `n` calls of `fn()` (`torch.profiler`): for kernels shorter than
-    the host's time to launch them, where events would time the host."""
+    the host's time to launch them, where events would time the host.  A
+    trace that holds none of its launches (the profiler now and then
+    loses a trace) is taken again, up to `tries` times."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    for evt in prof.key_averages():
-        if kernel in evt.key and evt.count:
-            total = getattr(evt, "device_time_total",
-                            getattr(evt, "cuda_time_total", 0.0))
-            return total / evt.count / 1e3
-    raise RuntimeError(f"no device time for {kernel} in the trace")
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            if kernel in evt.key and evt.count:
+                total = getattr(evt, "device_time_total",
+                                getattr(evt, "cuda_time_total", 0.0))
+                if total:
+                    return total / evt.count / 1e3
+    raise RuntimeError(f"no device time for {kernel} in {tries} traces")
 
 
 def cases(dev):
@@ -1666,23 +2347,75 @@ def cases(dev):
                                          modes=modes, grid=g, sc=sc), K
         return setup
 
-    def relax3d_band():
-        """One K = 8 banded chunk (B = 8) of relax3d's generated band kernel
-        on one periodic block of 256^3 (272 x 256 x 256 extended)."""
-        from igg_torch.stencil import lower
+    def spec_band(name, dtype=torch.float32):
+        """One K = 8 banded chunk (B = 8) of a rank-3 spec's generated band
+        kernel on one periodic block of 256^3 (relax3d: 272 x 256 x 256
+        extended), random fields in (-1, 1)."""
+        def setup():
+            from igg_torch.stencil import lower
 
-        g = grid(**one_block)
-        gen = relax3d_kernels()
-        shapes = lower.field_shapes(gen.spec, g.nxyz)
-        E = gen.analysis.margin_after(K)
-        modes = ce.dim_modes(g)
-        ols = ce.field_ols(g, shapes)
-        exts = ce.extend_fields([2 * torch.rand((n,) * 3, device=dev) - 1],
-                                ols, E, g, modes)
-        return lambda: lower.band_call(gen, exts, shapes, K=K, B=8, E=E,
-                                       modes=modes, grid=g, ols=ols), K
+            g = grid(**one_block)
+            gen = spec_kernels(name)
+            shapes = lower.field_shapes(gen.spec, g.nxyz)
+            E = gen.analysis.margin_after(K)
+            modes = ce.dim_modes(g)
+            ols = ce.field_ols(g, shapes)
+            exts = ce.extend_fields(
+                [(2 * torch.rand(it.stacked_shape(s), device=dev,
+                                 dtype=torch.float64) - 1).to(dtype)
+                 for s in shapes], ols, E, g, modes)
+            return lambda: lower.band_call(gen, exts, shapes, K=K, B=8, E=E,
+                                           modes=modes, grid=g,
+                                           ols=ols), K
+        return setup
 
-    gen = f"gen_{relax3d_kernels().tag}"
+    def spec_walk(name, chunk):
+        """relax3d's generated step (one launch) or K = 8 chunk step (K
+        launches, 272 x 256 x 256 extended) on one periodic block of 256^3:
+        the one entry of stagger_walk3.cuh that the march leaves as it
+        was."""
+        def setup():
+            from igg_torch.stencil import lower
+
+            g = grid(**one_block)
+            gen = spec_kernels(name)
+            shapes = lower.field_shapes(gen.spec, g.nxyz)
+            S = [2 * torch.rand(it.stacked_shape(s), device=dev) - 1
+                 for s in shapes]
+            if not chunk:
+                return lambda: lower.step_kernel(gen, S, g.dims), 1
+            E = gen.analysis.margin_after(K)
+            modes = ce.dim_modes(g)
+            ols = ce.field_ols(g, shapes)
+            exts = ce.extend_fields(S, ols, E, g, modes)
+            return lambda: lower.chunk_call(gen, exts, shapes, K=K, E=E,
+                                            modes=modes, grid=g,
+                                            ols=ols), K
+        return setup
+
+    def halo(blocks, dtype=torch.float32):
+        """One halo_write launch on a 256^3 f32 field: one periodic block
+        (every dim WRAP, phases 1 and 5) or 2x2x2 blocks of 256^3 (every
+        dim EXT, phase 7's writes)."""
+        from igg_torch.ops import halo_write as hw
+
+        def setup():
+            g = grid(**(one_block if blocks == 1 else
+                        dict(dimx=2, dimy=2, dimz=2)))
+            shp = it.stacked_shape(g.nxyz)
+            F = torch.rand(shp, device=dev).to(dtype)
+            specs = []
+            for d in range(3):
+                if blocks == 1:
+                    specs.append((d, "wrap", 2))
+                    continue
+                plane = list(shp)
+                plane[d] = g.dims[d]
+                specs.append((d, "ext") + tuple(
+                    torch.rand(plane, device=dev).to(dtype) for _ in (0, 1)))
+            return lambda: hw.halo_write(F, specs, g.dims), 1
+        return setup
+
     f64 = torch.float64
     # (name, setup, the library whose kernel it times)
     return [("diffusion_step_256", diffusion_step, "diffusion_step"),
@@ -1749,7 +2482,22 @@ def cases(dev):
              stokes_band("init_fields"), "stokes_band"),
             ("stokes_band_2x2x2_256_open_f64", stokes_band(dtype=f64),
              "stokes_band"),
-            ("relax3d_band_256_periodic", relax3d_band, gen)]
+            ("relax3d_step_256_periodic", spec_walk("relax3d", False),
+             "gen_relax3d"),
+            ("relax3d_chunk_256_periodic", spec_walk("relax3d", True),
+             "gen_relax3d"),
+            ("relax3d_band_256_periodic", spec_band("relax3d"),
+             "gen_relax3d"),
+            ("relax3d_band_256_periodic_f64", spec_band("relax3d", f64),
+             "gen_relax3d"),
+            ("acoustic3d_band_256_periodic", spec_band("acoustic3d"),
+             "gen_acoustic3d"),
+            ("acoustic3d_band_256_periodic_f64",
+             spec_band("acoustic3d", f64), "gen_acoustic3d"),
+            ("halo_write_256_periodic", halo(1), "halo_write"),
+            ("halo_write_256_periodic_f64", halo(1, f64), "halo_write"),
+            ("halo_write_2x2x2_256_ext", halo(2), "halo_write"),
+            ("halo_write_2x2x2_256_ext_f64", halo(2, f64), "halo_write")]
 
 
 def main() -> int:
@@ -1759,14 +2507,14 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     from igg_torch.ops import (diffusion_pallas, diffusion_trapezoid,
-                               hm3d_pallas, hm3d_trapezoid, pack,
+                               halo_write, hm3d_pallas, hm3d_trapezoid, pack,
                                stokes_pallas, stokes_trapezoid, wave2d_pallas,
                                wave2d_trapezoid)
     from igg_torch.stencil import lower
 
     wrappers = (diffusion_pallas, diffusion_trapezoid, hm3d_pallas,
                 hm3d_trapezoid, wave2d_pallas, wave2d_trapezoid,
-                stokes_pallas, stokes_trapezoid, pack)
+                stokes_pallas, stokes_trapezoid, pack, halo_write)
     named = [a for a in sys.argv[1:] if not a.startswith("case:")]
     keep = [a[len("case:"):] for a in sys.argv[1:] if a.startswith("case:")]
     for v in named:
@@ -1779,7 +2527,6 @@ def main() -> int:
     built = {v: done[v][0] for v in variants}
     touched = {v: done[v][1] for v in variants}
     times = {v: {} for v in variants}
-    tag = relax3d_kernels().tag
     for name, setup, lib in cases(torch.device("cuda")):
         if keep and not any(k in name for k in keep):
             continue
@@ -1793,10 +2540,12 @@ def main() -> int:
             for m in wrappers:
                 m.library = built[v].__getitem__
             lower.generated_library = (
-                lambda source, t, v=v: built[v][f"gen_{tag}"])
+                lambda source, t, v=v: built[v][f"gen_{t}"])
             times[v].setdefault(name, []).append(
                 profiled_ms(run, 200, "pack_kernel")
                 if name.startswith("pack") else
+                profiled_ms(run, 200, "halo_write_kernel")
+                if name.startswith("halo") else
                 event_ms(run, max(2, 40 // launches)) / launches)
         del run
     for v in variants:

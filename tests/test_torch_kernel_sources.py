@@ -26,8 +26,13 @@ staged planes: each thread block's threads run as fibers that switch at
 `csrc/hm3d_march.cuh` with the band's and the chunk's edge rules,
 `csrc/march_layout.cuh`), the Stokes band kernel (the Stokes march's band
 mode) and the generated band entry of `relax3d` and the staggered
-`acoustic3d` (`csrc/stagger_band_walk3.cuh`) in every window mode, on
-their whole evolved buffers; the four marches also in their edge cases:
+`acoustic3d` (its x-march, `csrc/stagger_band_march3.cuh`) in every
+window mode, at B = 8 and 16 in two and three bands, on their whole
+evolved buffers; the in-place halo writer (`csrc/halo_write.cu`) in every
+WRAP/EXT/NONE mix on ranks 1-3, 2-, 4- and 8-byte elements, with its
+thread blocks run in both orders (`EMU_REVERSE`: a kind of plane that
+reads or writes what another writes shows in one of them); the five
+marches also in their edge cases:
 segments that cross the bands (built with shorter segments), tiles that
 cross the blocks' last y and z rows, and fields at rest (the HM3D chunk
 and diffusion band marches in every layout of the chunk and band
@@ -51,11 +56,13 @@ import pytest
 import torch
 
 import igg_torch as it
+import torch_halo_cases as halo_cases
 import torch_spec_cases as cases
 from igg_torch.ops import _build
 from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import diffusion_trapezoid as dtz
+from igg_torch.ops import halo_write as hw
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
 from igg_torch.ops import pack as pk
@@ -88,6 +95,9 @@ struct dim3 {
 struct uint3 { unsigned x, y, z; };
 struct alignas(16) uint4 { unsigned x, y, z, w; };
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
 inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 inline long long __double_as_longlong(double x) {
@@ -122,6 +132,9 @@ typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
                    cudaErrorInvalidConfiguration = 9 };
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+// Built with EMU_REVERSE, the thread blocks run last to first: a kernel
+// whose thread blocks race (one reads or writes what another writes) then
+// shows what the other order hides.
 inline void emu_launch(dim3 g, dim3 b, const std::function<void()>& body) {
   gridDim = g;
   blockDim = b;
@@ -131,7 +144,11 @@ inline void emu_launch(dim3 g, dim3 b, const std::function<void()>& body) {
         for (unsigned tz = 0; tz < b.z; ++tz)
           for (unsigned ty = 0; ty < b.y; ++ty)
             for (unsigned tx = 0; tx < b.x; ++tx) {
+#ifdef EMU_REVERSE
+              blockIdx = {g.x - 1 - bx, g.y - 1 - by, g.z - 1 - bz};
+#else
               blockIdx = {bx, by, bz};
+#endif
               threadIdx = {tx, ty, tz};
               body();
             }
@@ -199,7 +216,8 @@ LAUNCH_SMEM = re.compile(
 SHARED = re.compile(r"extern __shared__ [^;]*?(\w+)\[\];")
 LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
         "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
-        "diffusion_band", "hm3d_band", "stokes_band", "pack_planes")
+        "diffusion_band", "hm3d_band", "stokes_band", "pack_planes",
+        "halo_write")
 
 
 def _rewrite(text):
@@ -209,14 +227,14 @@ def _rewrite(text):
     return SHARED.sub(r"unsigned char* \1 = emu_smem;", text)
 
 
-def _gxx(out, src, so, first=None):
+def _gxx(out, src, so, first=None, defines=()):
     """Build `src` into `so` against the headers in `out` (those in `first`,
-    where given, found before them)."""
+    where given, found before them), with the macros `defines`."""
     inc = ([f"-I{first}"] if first else []) + [f"-I{out}"]
     proc = subprocess.run(
         [shutil.which("g++"), "-std=c++17", "-O1", "-ffp-contract=off",
-         "-fPIC", "-shared", *inc, "-x", "c++", str(src), "-o",
-         str(so)], capture_output=True, text=True)
+         "-fPIC", "-shared", *inc, *(f"-D{d}" for d in defines), "-x", "c++",
+         str(src), "-o", str(so)], capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     return ctypes.CDLL(str(so))
 
@@ -274,7 +292,7 @@ def generated(csrc):
 
 @pytest.fixture
 def emulated(libs, generated, monkeypatch):
-    for module in (dp, dtz, hp, htz, wp, wtz, sp, stz, pk):
+    for module in (dp, dtz, hp, htz, wp, wtz, sp, stz, pk, hw):
         monkeypatch.setattr(module, "library", libs.__getitem__)
     monkeypatch.setattr(lower, "generated_library", generated)
     yield
@@ -366,6 +384,51 @@ def test_pack_kernel_matches_plain(emulated, dims, local, dtype, offset):
         pk._launch(A, some, dims, local, outs, 0)
         for got, want in zip(outs, pk.pack_planes_plain(A, some, dims)):
             same(got, want)
+
+
+@pytest.fixture(scope="module")
+def halo_reversed(csrc):
+    """The halo writer built with EMU_REVERSE: its thread blocks run last
+    to first."""
+    out = csrc / "reversed"
+    out.mkdir()
+    lib = _gxx(csrc, csrc / "halo_write.cu", out / "halo_write.so",
+               defines=("EMU_REVERSE",))
+    fn_name, argtypes = _build.SIGNATURES["halo_write"]
+    fn = getattr(lib, fn_name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return lib
+
+
+# Ranks 1-3; blocks (1,1,1), (2,2,2), (4,2,1); overlaps 2 and 3; 2-, 4- and
+# 8-byte elements; the field at offset 0 and 1 of its storage (rows on and
+# off 16 bytes); every WRAP/EXT/NONE mix; the thread blocks in both orders
+# (a plane's kind that reads or writes a cell another kind writes shows in
+# one of them).
+@pytest.mark.parametrize("ol", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32,
+                                   torch.float64, torch.int64])
+@pytest.mark.parametrize("blocks,local", halo_cases.LAYOUTS)
+def test_halo_write_kernel_matches_plain(emulated, halo_reversed, blocks,
+                                         local, dtype, ol, monkeypatch):
+    """The halo writer against `halo_write_plain`, bitwise, every mode mix
+    on every layout."""
+    shape = [b * s for b, s in zip(blocks, local)]
+    n = int(np.prod(shape))
+    ran = 0
+    for lib in (hw.library("halo_write"), halo_reversed):
+        monkeypatch.setattr(hw, "library", lambda name, lib=lib: lib)
+        for modes in halo_cases.mixes(blocks):
+            for off in (0, 1):
+                A = halo_cases.field(shape, dtype, off, 3 + off)
+                specs = halo_cases.specs(A, modes, blocks, ol, 11)
+                want = hw.halo_write_plain(A.clone(), specs, blocks)
+                got = A.clone() if off == 0 else A
+                b3, l3 = hw._check(got, specs, blocks)
+                hw._launch(got, specs, b3, l3, 0)
+                same(got, want)
+                ran += 1
+    assert ran >= 4
 
 
 CHUNK_GRIDS = {
@@ -739,7 +802,9 @@ SHORT_SEGMENTS = (("stokes_march.cuh", "constexpr int MARCH_MIN_SEG = 8;",
                   ("stokes_step.cu", "constexpr int SS_MIN_SEG = 8;",
                    "constexpr int SS_MIN_SEG = 3;"),
                   ("hm3d_march.cuh", "constexpr int HM_STEP_MIN_SEG = 16;",
-                   "constexpr int HM_STEP_MIN_SEG = 3;"))
+                   "constexpr int HM_STEP_MIN_SEG = 3;"),
+                  ("stagger_band_march3.cuh", "constexpr int SB_MIN_SEG = 8;",
+                   "constexpr int SB_MIN_SEG = 3;"))
 SHORT_SEGMENT_LIBS = ("stokes_band", "hm3d_band", "hm3d_chunk",
                       "diffusion_band", "hm3d_step", "stokes_step")
 
@@ -1068,21 +1133,34 @@ def first_designs(csrc):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name", ["diffusion_band", "hm3d_band", "hm3d_chunk",
-                                  "hm3d_step", "pack_planes", "stokes_band",
-                                  "stokes_chunk", "stokes_step"])
+@pytest.mark.parametrize("name", ["diffusion_band", "halo_write", "hm3d_band",
+                                  "hm3d_chunk", "hm3d_step", "pack_planes",
+                                  "stokes_band", "stokes_chunk",
+                                  "stokes_step"])
 def test_first_designs_match_plain(emulated, first_designs, name, dtype,
                                    monkeypatch):
     """The redesigned kernels' first designs, kept as text to be timed
     beside them, still build against the headers and equal the plain
-    versions: the band kernels on 2x2x2 blocks (diffusion periodic in z,
-    HM3D periodic in y, Stokes open), the Stokes chunk step on one periodic
+    versions: the halo writer on 2x2x2 blocks (EXT sources on every dim,
+    and on y and z alone), the band kernels on 2x2x2 blocks (diffusion
+    periodic in z, HM3D periodic in y, Stokes open), the Stokes chunk step
+    on one periodic
     block, the HM3D chunk step on 2x2x1 blocks (y and z periodic), the
     packer on 2x2x2 blocks, the HM3D step on 1x2x2 blocks (x periodic: a
     wrap and received planes) and the Stokes step on 2x2x2 open blocks."""
-    for module in (dtz, htz, stz, pk, hp, sp):
+    for module in (dtz, htz, stz, pk, hp, sp, hw):
         monkeypatch.setattr(module, "library", first_designs.__getitem__)
-    if name == "diffusion_band":
+    if name == "halo_write":
+        blocks, local = (2, 2, 2), (5, 7, 19)
+        got, want = [], []
+        for modes in (("ext", "ext", "ext"), ("none", "ext", "ext")):
+            A = halo_cases.field([b * s for b, s in zip(blocks, local)],
+                                 dtype, 0, 13)
+            specs = halo_cases.specs(A, modes, blocks, 2, 17)
+            want.append(hw.halo_write_plain(A.clone(), specs, blocks))
+            hw._launch(A, specs, blocks, local, 0)
+            got.append(A)
+    elif name == "diffusion_band":
         it.init_global_grid(18, 10, 40, quiet=True, device="cpu", dimx=2,
                             dimy=2, dimz=2, periodz=1)
         g = it.get_global_grid()
@@ -1308,3 +1386,118 @@ def test_spec_band_kernel_matches_plain(emulated, name, case, dtype, bands):
                                grid=g, ols=ols, central=central)
         for a, b in zip(got, want):
             same(a, b)
+
+
+# -- the generated band entry's x-march (csrc/stagger_band_march3.cuh) ------
+
+def _spec_band_check(name, case, dtype, B, bands, yz, K=3, fields=None):
+    """The generated band entry of spec `name` on grid `case` (blocks of yz
+    along y and z, an extended x span of `bands` bands of B;
+    torch_spec_cases.band_setup) against `banded_window_plain` (the band
+    core derived from the evaluator), tolerance 0: K launches' whole
+    evolved buffers (NaN-filled targets, so an unwritten cell shows) and
+    central windows."""
+    gen, g, shapes, E, modes, ols, exts = cases.band_setup(
+        it, name, case, B, bands, yz, K, dtype, fields=fields)
+    lo, extras = lower.band_margins(gen.spec, gen.analysis)
+    for central in (False, True):
+        got = _run_stag_band(
+            lambda src, dst, cfg: lower._band_launch(gen, src, exts, dst, cfg,
+                                                     0),
+            exts, shapes, g.nxyz, E, K, B, lo, extras, modes, g, ols,
+            central)
+        want = lower.band_call(gen, exts, shapes, K=K, B=B, E=E, modes=modes,
+                               grid=g, ols=ols, central=central)
+        for a, b in zip(got, want):
+            same(a, b)
+
+
+# B = 8 and 16 in two and three bands, every window mode, y and z extents
+# of one tile along z and two along y (the face rows of Vy and Vz in the
+# last tiles).
+@pytest.mark.parametrize("B,bands", [(8, 2), (8, 3), (16, 2), (16, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_band_march_matches_plain(emulated, name, case, dtype, B,
+                                       bands):
+    """The generated band entry's x-march against `banded_window_plain`
+    at band depths 8 and 16, two and three bands, in every window mode."""
+    _spec_band_check(name, case, dtype, B, bands, (9, 20))
+
+
+@pytest.fixture(scope="module")
+def short_generated(csrc, short_segments):
+    """`generated_library` through g++ on the SHORT_SEGMENTS headers."""
+    out = csrc / "short_segments"
+    built = {}
+
+    def library(source, tag):
+        if source not in built:
+            src = out / f"gen_{tag}_{len(built)}.cu"
+            src.write_text(_rewrite(source))
+            lib = _gxx(out, src, src.with_suffix(".so"))
+            for name in (cuda.ENTRY, cuda.BAND_ENTRY):
+                fn = getattr(lib, name, None)
+                if fn is not None:
+                    fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
+            built[source] = lib
+        return built[source]
+
+    return library
+
+
+# The march's edge cases: segments of 3 rows that cross the bands of 8
+# (SHORT_SEGMENTS), y and z extents whose tiles end in ragged ones across
+# the blocks' last rows (y 13, z 37: with the face rows 14 and 38, tiles of
+# 8 x 32), and fields at rest.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
+@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_band_march_edge_cases(emulated, short_generated, name, case,
+                                    kind, dtype, monkeypatch):
+    """The generated band entry's x-march against `banded_window_plain`
+    in its edge cases, every window mode, B = 8 in three bands."""
+    if kind == "short_segments":
+        monkeypatch.setattr(lower, "generated_library", short_generated)
+    _spec_band_check(name, case, dtype, 8, 3,
+                     (13, 37) if kind == "ragged_tiles" else (9, 20),
+                     fields=cases.at_rest if kind == "at_rest" else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["1x1x1_periodic", "2x2x2_open"])
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_band_first_design_matches_plain(emulated, first_designs, name,
+                                              case, dtype, monkeypatch):
+    """The generated band entry's first design (the band walk,
+    kernel_variants.py: spec_band_first_source), kept to be timed beside
+    the march, still builds against the headers and equals
+    `banded_window_plain`."""
+    first = _build_first_generated(first_designs, name)
+    monkeypatch.setattr(lower, "generated_library",
+                        lambda source, tag: first)
+    _spec_band_check(name, case, dtype, 8, 3, (9, 20))
+
+
+_FIRST_GENERATED = {}
+
+
+def _build_first_generated(first_designs, name):
+    """The library of spec `name`'s source with its band entry on the first
+    design, built with g++ beside the first designs' headers."""
+    import kernel_variants
+
+    if name not in _FIRST_GENERATED:
+        lib0 = next(iter(first_designs.values()))
+        first = os.path.dirname(lib0._name)
+        src = os.path.join(first, f"first_gen_{name}.cu")
+        with open(src, "w") as f:
+            f.write(_rewrite(kernel_variants.spec_band_first_source(
+                cases.kernels(name))))
+        lib = _gxx(os.path.dirname(first), src, src[:-3] + ".so", first)
+        fn = getattr(lib, cuda.BAND_ENTRY)
+        fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
+        _FIRST_GENERATED[name] = lib
+    return _FIRST_GENERATED[name]

@@ -1,7 +1,9 @@
 """The port's CUDA kernels held against their plain PyTorch versions on a
 card: the fused diffusion step (wrap/recv/frozen halo modes), as a new
 tensor and, for the K-step loop (wrap/frozen), into a preallocated one, the
-in-place halo writer (wrap/ext sources, 2/4/8-byte elements), the trapezoid
+in-place halo writer (wrap/ext sources, 2/4/8-byte elements; every
+WRAP/EXT/NONE mix on ranks 1-3, blocks (1,1,1), (2,2,2) and (4,2,1),
+overlaps 2 and 3, rows on and off 16 bytes), the trapezoid
 chunk step (ext/wrap/oext/frozen window modes, f32/f64), the plane packer
 (2/4/8-byte elements, rows that are not 16-byte aligned, z requests
 adjacent and apart), the HM3D step (as a new pair and, for the
@@ -20,7 +22,10 @@ spec-wave2d also against the hand wave2d kernels), and the diffusion and
 HM3D band kernels (every window mode, two and three bands, whole evolved
 buffers and central windows), and the staggered band kernels: Stokes
 (igg's trapezoid matrix and one-block grids) and the generated band entry
-of the rank-3 specs (`relax3d`, the staggered `acoustic3d`), the same way;
+of the rank-3 specs (`relax3d`, the staggered `acoustic3d`), the same way,
+and its x-march at B = 8 and 16 in two and three bands in every window
+mode of torch_spec_cases.BAND_GRIDS, with tiles across the blocks' last
+y and z rows and with fields at rest;
 the HM3D and Stokes band marches, the HM3D chunk march and the diffusion
 band march in their edge cases (segments across the bands, tiles across
 the blocks' last y and z rows, fields at rest, y one periodic block over
@@ -40,6 +45,7 @@ import pytest
 import torch
 
 import igg_torch as it
+import torch_halo_cases as halo_cases
 import torch_spec_cases as cases
 from igg_torch import halo
 from igg_torch.ops import chunk_engine as ce
@@ -161,6 +167,29 @@ def test_halo_writer_matches_plain(card, case, dtype):
         halo._update_field(ref, g, hw.halo_write_plain)
         halo._update_field(A, g, hw.halo_write)
         torch.testing.assert_close(A, ref, rtol=0, atol=0)
+
+
+# Ranks 1-3; blocks (1,1,1), (2,2,2), (4,2,1); overlaps 2 and 3; 2-, 4- and
+# 8-byte elements; the field at offset 0 and 1 of its storage (rows on and
+# off 16 bytes); every WRAP/EXT/NONE mix (tests/torch_halo_cases.py).
+@pytest.mark.parametrize("ol", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32,
+                                   torch.float64, torch.int64])
+@pytest.mark.parametrize("blocks,local", halo_cases.LAYOUTS)
+def test_halo_write_mixes_match_plain(card, blocks, local, dtype, ol):
+    """The halo writer against `halo_write_plain`, bitwise, every mode mix
+    on every layout."""
+    shape = [b * s for b, s in zip(blocks, local)]
+    for modes in halo_cases.mixes(blocks):
+        for off in (0, 1):
+            A = halo_cases.field(shape, dtype, off, 3 + off, card)
+            specs = halo_cases.specs(A, modes, blocks, ol, 11)
+            want = hw.halo_write_plain(A.clone(), specs, blocks)
+            before = hw.halo_write.launches
+            hw.halo_write(A, specs, blocks)
+            torch.cuda.synchronize()
+            assert hw.halo_write.launches == before + 1
+            torch.testing.assert_close(A, want, rtol=0, atol=0)
 
 
 # Meshes of the trapezoid chunk: every window mode (ext, wrap, oext, frozen).
@@ -1008,3 +1037,48 @@ def test_banded_rank2_raises_on_the_card(card):
                            banded=False)(*S)
     for a, b in zip(out, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def _spec_band_check(card, name, case, dtype, B, bands, yz, K=3,
+                     fields=None):
+    """The generated band entry's x-march against `banded_window_plain` on
+    the card (torch_spec_cases.band_setup's layout), tolerance 0: whole
+    evolved buffers and central windows, K launches a call."""
+    gen, g, shapes, E, modes, ols, exts = cases.band_setup(
+        it, name, case, B, bands, yz, K, dtype, card, fields=fields)
+    lo, extras = lower.band_margins(gen.spec, gen.analysis)
+    want = ce.banded_window_plain(
+        list(exts), K=K, B=B, lo=lo, modes=modes, grid=g, ols=ols,
+        shapes=shapes, E=E, band_update=lower.band_core(gen), extras=extras,
+        n_up=len(exts), freeze_fields=gen.analysis.freeze)
+    for central in (False, True):
+        before = lower.band_call.launches
+        got = lower.band_call(gen, exts, shapes, K=K, B=B, E=E, modes=modes,
+                              grid=g, ols=ols, central=central)
+        torch.cuda.synchronize()
+        assert lower.band_call.launches == before + K
+        for a, b, s in zip(got, want, shapes):
+            b = ce.central_window(b, s, E, modes) if central else b
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+# B = 8 and 16 in two and three bands, every window mode of the band
+# entry (torch_spec_cases.BAND_GRIDS).
+@pytest.mark.parametrize("B,bands", [(8, 2), (8, 3), (16, 2), (16, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_band_march_matches_plain(card, name, case, dtype, B, bands):
+    _spec_band_check(card, name, case, dtype, B, bands, (9, 20))
+
+
+# Tiles that cross the blocks' last y and z rows (y 13, z 37, and the face
+# rows) and fields at rest, B = 8 in three bands.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["ragged_tiles", "at_rest"])
+@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_band_march_edge_cases(card, name, case, kind, dtype):
+    _spec_band_check(card, name, case, dtype, 8, 3,
+                     (13, 37) if kind == "ragged_tiles" else (9, 20),
+                     fields=cases.at_rest if kind == "at_rest" else None)

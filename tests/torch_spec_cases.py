@@ -105,6 +105,13 @@ GRIDS_3D = {
     "2x2x2_open": dict(dimx=2, dimy=2, dimz=2),
     "2x1x1_periods010": dict(dimx=2, dimy=1, dimz=1, periody=1),
 }
+# The band entry's window modes: GRIDS_3D (one periodic block, 2x2x2 open
+# blocks, y one periodic block over an open x), one open block (every dim
+# frozen) and y and z one periodic block over an open x of two blocks (the
+# wraps' targets beside an x freeze row).
+BAND_GRIDS = dict(GRIDS_3D, **{
+    "1x1x1_open": dict(dimx=1, dimy=1, dimz=1),
+    "2x1x1_wrap_yz": dict(dimx=2, dimy=1, dimz=1, periody=1, periodz=1)})
 # Local shapes: (12, 10) and (16, 13) (odd y extents: the element path);
 # rank 3 (12, 10, 9) and (10, 9, 8) (16-byte z rows).
 LOCALS_2D = [(12, 10), (16, 13)]
@@ -141,6 +148,40 @@ def state(it, gen, grid, dtype, seed, device="cpu"):
     return [torch.from_numpy(rng.uniform(-1, 1, it.stacked_shape(s)))
             .to(dtype).to(device)
             for s in lower.field_shapes(gen.spec, grid.nxyz[:nd])]
+
+
+def band_setup(it, name, case, B, bands, yz, K, dtype, device="cpu",
+               fields=None):
+    """The generated band entry of spec `name` on the BAND_GRIDS layout
+    `case`, blocks of `yz` along y and z and an extended x span of `bands`
+    bands of B, at depth K: (gen, grid, shapes, E, modes, ols, extended
+    buffers).  `fields(it, gen, grid, dtype, device)` makes the fields
+    (random ones in (-1, 1) where None)."""
+    gen = kernels(name)
+    E = gen.analysis.margin_after(K)
+    kw = BAND_GRIDS[case]
+    it.init_global_grid(10, *yz, quiet=True, device=device, **kw)
+    extra = ce.ext_shape((10,) + tuple(yz), E,
+                         ce.dim_modes(it.get_global_grid()))[0] - 10
+    it.finalize_global_grid()
+    it.init_global_grid(B * bands - extra, *yz, quiet=True, device=device,
+                        **kw)
+    g = it.get_global_grid()
+    shapes = lower.field_shapes(gen.spec, g.nxyz)
+    modes = ce.dim_modes(g)
+    ols = ce.field_ols(g, shapes)
+    assert lower.banded_refusal(gen.spec, gen.analysis, g, shapes[0], K, K,
+                                dtype, B=B) is None
+    S = (state(it, gen, g, dtype, 67, device) if fields is None
+         else fields(it, gen, g, dtype, device))
+    return gen, g, shapes, E, modes, ols, ce.extend_fields(S, ols, E, g,
+                                                           modes)
+
+
+def at_rest(it, gen, g, dtype, device="cpu"):
+    """Every field zero (fields at rest)."""
+    return [torch.zeros(it.stacked_shape(s), dtype=dtype, device=device)
+            for s in lower.field_shapes(gen.spec, g.nxyz)]
 
 
 def chunk_setup(gen, grid, S, K):
