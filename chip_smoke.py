@@ -118,12 +118,15 @@ buffers and the central windows, then times them at 2x2x2 blocks of 256^3
 (the Stokes band step, the generated band entry of the rank-3 specs
 relax3d and acoustic3d) the same way, then the Stokes one at 2x2x2 blocks
 of 256^3 open (f32 and f64) and the generated band entry of relax3d and
-acoustic3d at one 256^3 periodic block (K = 8, B = 8), f32 and f64.  The
+acoustic3d at one 256^3 periodic block (K = 8, B = 8), f32 and f64, and
+their generated step and K = 8 chunk step (igg_spec_step on the same
+x-march's step and chunk modes) at that block, f32 and f64.  The
 redesigned kernels are timed beside their first designs too
-(kernel_variants.py: FIRST_DESIGNS and spec_band_first_source, built with
+(kernel_variants.py: FIRST_DESIGNS and spec_first_source, built with
 the sources), each by the profiler's device time of the kernel it names:
 the Stokes and HM3D band kernels in f32, the HM3D chunk and diffusion
-band kernels, the generated band entries and the halo writer (at 256^3
+band kernels, the generated band, step and chunk entries and the halo
+writer (at 256^3
 periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
@@ -254,7 +257,8 @@ KERNEL_INFO = {
         source="igg_torch/stencil/cuda.py", counter="spec_chunk_step",
         phases="not 20", replaces="igg/ops/chunk_engine.py:648"),
     # The generated rank-3 step and chunk step of relax3d (both launch the
-    # one entry of csrc/stagger_walk3.cuh), phase 20's.
+    # one entry igg_spec_step, on the x-march of
+    # csrc/stagger_band_march3.cuh), phase 20's.
     "spec_step[relax3d]": dict(
         source="igg_torch/stencil/cuda.py", counter="spec_step",
         phases="20", replaces="igg/stencil/lower.py:234"),
@@ -2729,12 +2733,13 @@ class Smoke:
             f"{json.dumps(divs)}")
 
     def spec_kernel_checks_full(self):
-        """The generated kernels at full width, f32, checked against their
-        plain versions, then timed beside their bounds and their hand
+        """The generated kernels at full width, checked against their plain
+        versions, then timed beside their bounds and their hand
         counterparts: the shallow-water step on one n_wave^2 periodic block,
         its K=8 chunk step on wave_blocks x 1 blocks of n_wave^2 (config 3:
-        x periodic, y open), and the relax3d step on one n_stokes^3
-        periodic block."""
+        x periodic, y open), in f32; and the rank-3 specs' step and chunk
+        step on one n_stokes^3 periodic block, f32 and f64, beside their
+        first design (spec_entry_full)."""
         ce, sl = self.ce, self.sl
         n, k, K = self.n_wave, self.time_iters, K_CHUNK
         gen = self.spec_gen("shallow_water")
@@ -2785,57 +2790,100 @@ class Smoke:
         chunk["events_ms"] /= K
         self.perf["spec_chunk_step[shallow_water]"] = chunk
         del exts, S
-        m = self.n_stokes
-        gen3 = self.spec_gen("relax3d")
-        g = self.grid((m, m, m), **SINGLE, **PERIODIC)
-        S = self.spec_state(gen3, g, torch.float32, 95)
-        self.note("spec_step[relax3d]", check(
-            f"spec_step[relax3d] {m}^3", sl.step_kernel(gen3, S, g.dims)[0],
-            sl.step_plain(gen3, S, g.dims)[0], 0.0))
-        cells = float(S[0].numel())
-        relax = dict(
-            kernel_time(lambda: sl.step_kernel(gen3, S, g.dims), k,
-                        "Spec_relax3d"),
-            plain_ms=event_ms(lambda: sl.step_plain(gen3, S, g.dims), 3),
-            bound=bound_ms(2 * cells * 4, RELAX3D_FLOPS * cells, F32_FLOPS))
-        self.perf["spec_step[relax3d]"] = relax
-        # Its K=8 chunk step on the same block (phase 20's chunk route:
-        # 272 x 256 x 256 extended), timed a launch beside a pass's bound.
-        exts, modes, shapes, ols, out, ref = self.spec_chunk(gen3, g, S, K)
-        self.note("spec_chunk_step[relax3d]", check(
-            f"spec_chunk_step[relax3d] {m}^3 K={K}", out[0], ref[0], 0.0))
-        del out, ref
-        E = gen3.analysis.margin_after(K)
-        ext_cells = float(exts[0].numel())
-        flags = ce.edge_flags(modes, g)
-        relax_chunk = dict(
-            kernel_time(lambda: sl.chunk_call(
-                gen3, exts, shapes, K=K, E=E, modes=modes, grid=g, ols=ols),
-                max(k // 5, 4), "Spec_relax3d"),
-            plain_ms=event_ms(lambda: ce.window_step_plain(
-                exts, exts, E=E, modes=modes, grid=g,
-                core=sl.window_core(gen3, g), flags=flags,
-                freeze_fields=gen3.analysis.freeze, ols=ols), 3),
-            # A pass: the extended block read once and written once.
-            bound=bound_ms(2 * ext_cells * 4, RELAX3D_FLOPS * ext_cells,
-                           F32_FLOPS))
-        relax_chunk["events_ms"] /= K
-        self.perf["spec_chunk_step[relax3d]"] = relax_chunk
-        del S, exts
+        for name in self.cases.SPECS_3D:
+            for dtype in (torch.float32, torch.float64):
+                self.spec_entry_full(name, dtype)
         for name, p, beside in (
                 ("spec_step[shallow_water]", self.perf[
                     "spec_step[shallow_water]"], "wave2d_step"),
                 ("spec_chunk_step[shallow_water] K=8 (E=8)", chunk,
-                 "wave2d_chunk_step"),
-                ("spec_step[relax3d]", relax, "diffusion_step"),
-                (f"spec_chunk_step[relax3d] K={K} (E={E})", relax_chunk,
-                 "diffusion_chunk_step")):
+                 "wave2d_chunk_step")):
             log(f"[phase 1] {name}: {p['ms']:.4f} ms device per launch "
                 f"({p['ms_from']}), {p['events_ms']:.4f} ms per launch back "
                 f"to back (events), plain {p['plain_ms']:.4f} ms"
                 f"{' (one window step)' if 'chunk' in name else ''}, bound "
                 f"{p['bound'][0]:.4f} ms ({p['bound'][1]}); hand {beside} "
                 f"{self.perf[beside]['ms']:.4f} ms")
+
+    def spec_entry_full(self, name, dtype):
+        """The generated step and K=8 chunk step of the rank-3 spec `name`
+        (igg_spec_step on the x-march's step and chunk modes) on one
+        n_stokes^3 periodic block (the chunk 272 x 256 x 256 extended, y
+        and z wrapped), in `dtype`: checked against their plain versions,
+        then timed beside one plain step (the chunk: one window step), a
+        pass's bound of compulsory bytes (every field read once and written
+        once) and their first design in the same run (the walk,
+        kernel_variants.py: spec_first_source)."""
+        ce, sl = self.ce, self.sl
+        m, k, K = self.n_stokes, self.time_iters, K_CHUNK
+        f64 = dtype == torch.float64
+        sfx = "_f64" if f64 else ""
+        gen = self.spec_gen(name)
+        g = self.grid((m, m, m), **SINGLE, **PERIODIC)
+        S = self.spec_state(gen, g, dtype, 95)
+        tag = f"{m}^3 {'f64' if f64 else 'f32'} periodic"
+        exts, modes, shapes, ols, _, ref = self.spec_chunk(gen, g, S, K)
+        E = gen.analysis.margin_after(K)
+        want = sl.step_plain(gen, S, g.dims)
+        step = lambda: sl.step_kernel(gen, S, g.dims)
+        chunk = lambda: sl.chunk_call(gen, exts, shapes, K=K, E=E,
+                                      modes=modes, grid=g, ols=ols)
+        keys = (f"spec_step[{name}]{sfx}", f"spec_chunk_step[{name}]{sfx}")
+
+        def checked(design):
+            for f, a, b in zip(gen.spec.fields, step(), want):
+                err = check(f"{keys[0]}{design} {f.name} {tag}", a, b, 0.0)
+                if name == "relax3d":
+                    self.note("spec_step[relax3d]", err)
+            for f, a, b in zip(gen.spec.fields, chunk(), ref):
+                err = check(f"{keys[1]}{design} {f.name} {tag} K={K}", a, b,
+                            0.0)
+                if name == "relax3d":
+                    self.note("spec_chunk_step[relax3d]", err)
+
+        checked("")
+        size = 8 if f64 else 4
+        rate = F64_FLOPS if f64 else F32_FLOPS
+        cells, ext_cells = float(S[0].numel()), float(exts[0].numel())
+        nbytes = 2.0 * size * sum(A.numel() for A in S)
+        ext_bytes = 2.0 * size * sum(X.numel() for X in exts)
+        flags = ce.edge_flags(modes, g)
+        n_chunk = max(k // 5, 4)
+        self.perf[keys[0]] = dict(
+            kernel_time(step, k, "stag_xmarch_kernel"),
+            plain_ms=event_ms(lambda: sl.step_plain(gen, S, g.dims), 3),
+            bound=bound_ms(nbytes, SPEC_FLOPS[name] * cells, rate))
+        self.perf[keys[1]] = dict(
+            kernel_time(chunk, n_chunk, "stag_xmarch_kernel", launches=K),
+            plain_ms=event_ms(lambda: ce.window_step_plain(
+                exts, exts, E=E, modes=modes, grid=g,
+                core=sl.window_core(gen, g), flags=flags,
+                freeze_fields=gen.analysis.freeze, ols=ols), 3),
+            # A pass: the extended blocks read once and written once.
+            bound=bound_ms(ext_bytes, SPEC_FLOPS[name] * ext_cells, rate))
+        self.perf[keys[1]]["events_ms"] /= K
+        real = sl.generated_library
+        sl.generated_library = lambda source, t: self.first_gen[name]
+        try:
+            checked(" first design")
+            self.perf[f"{keys[0]}_first_design"] = kernel_time(
+                step, k, "stagger_xyz_kernel")
+            q = self.perf[f"{keys[1]}_first_design"] = kernel_time(
+                chunk, n_chunk, "stagger_xyz_kernel", launches=K)
+            q["events_ms"] /= K
+        finally:
+            sl.generated_library = real
+        for key, what in zip(keys, ("", f" K={K} (E={E})")):
+            p, q = self.perf[key], self.perf[f"{key}_first_design"]
+            log(f"[phase 1] {key}{what} at {tag}: {p['ms']:.4f} ms device "
+                f"per launch ({p['ms_from']}), {p['events_ms']:.4f} ms per "
+                f"launch back to back (events); its first design (the walk) "
+                f"{q['ms']:.4f} ms in the same run, {q['ms'] / p['ms']:.2f} "
+                f"times the march's; plain {p['plain_ms']:.4f} ms"
+                f"{' (one window step)' if 'chunk' in key else ''}; bound "
+                f"{p['bound'][0]:.4f} ms ({p['bound'][1]}; "
+                f"{p['bound'][0] / p['ms']:.2f} of it reached)")
+        del S, exts, ref, want
 
     def spec_plain_route(self, gen, S, steps, K):
         """The chunk route of the spec's dispatch on the kernels' plain
@@ -3275,8 +3323,8 @@ FIRST_DESIGN_LIBS = ("stokes_band", "hm3d_band", "hm3d_chunk",
 
 def start_first_designs(gens=()):
     """Start one nvcc for each first design of FIRST_DESIGN_LIBS and for the
-    band entry's first design of each generated rank-3 library in `gens`
-    (kernel_variants.py: spec_band_first_source, keyed `gen:<tag>`), its
+    first designs of both entries of each generated rank-3 library in
+    `gens` (kernel_variants.py: spec_first_source, keyed `gen:<tag>`), its
     text written beside the first designs' policies (kernel_variants.py:
     FIRST_HEADERS, which the sources' quoted includes find before the
     kernels' headers) under igg_torch/_build/first/<key>/, keyed by the
@@ -3294,7 +3342,7 @@ def start_first_designs(gens=()):
             f.write(text)
     texts = {lib: kernel_variants.FIRST_DESIGNS[f"{lib}.cu"]
              for lib in FIRST_DESIGN_LIBS}
-    texts.update({f"gen:{g.tag}": kernel_variants.spec_band_first_source(g)
+    texts.update({f"gen:{g.tag}": kernel_variants.spec_first_source(g)
                   for g in gens})
     jobs = {}
     for lib, text in texts.items():

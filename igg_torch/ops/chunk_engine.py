@@ -26,9 +26,10 @@ The plain window realization (:func:`window_chunk_plain`, igg's
 `window_chunk_xla`) is the plain version of every family's chunk kernel
 (`csrc/chunk_walk.cuh` for diffusion, the HM3D x-march
 `csrc/hm3d_march.cuh` with the chunk's edge rules, `csrc/stagger_walk.cuh` for
-wave2d and rank-2 specs, `csrc/stagger_walk3.cuh` for Stokes and rank-3
-specs); :func:`chunk_cfg` and :func:`stagger_cfg` give the walks' kernels
-the layout.
+wave2d and rank-2 specs, the x-marches on `csrc/stagger_walk3.cuh`'s
+layout for Stokes (`csrc/stokes_march.cuh`) and rank-3 specs
+(`csrc/stagger_band_march3.cuh`, its chunk mode)); :func:`chunk_cfg` and
+:func:`stagger_cfg` give the kernels the layout.
 
 The one function that moves data between blocks is :func:`exchange_slabs`
 (as :func:`igg_torch.halo.exchange_planes` is for the halo engine): here

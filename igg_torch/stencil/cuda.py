@@ -1,22 +1,27 @@
 """The CUDA generator: a spec's update chain as a physics policy of the
-staggered walks, compiled at first use.
+staggered kernels, compiled at first use.
 
 From a :class:`~igg_torch.stencil.spec.StencilSpec` and its bound
-coefficients, :func:`generate` emits one C++ source: a policy for the
-rank's walk (`csrc/stagger_walk.cuh` for rank 2, `csrc/stagger_walk3.cuh`
-for rank 3) and one extern "C" entry point, `igg_spec_step`, which both
-the per-step kernel (table row 13, igg's `_step_kernel`) and the chunk
-step (row 12's spec instances, igg's `_whole_window_kernel`) launch: the
-walk's layout says whether the targets are whole blocks or a chunk's
-windows, and which dims wrap or freeze.  At rank 3 the same policy also
-runs on the x-march of the staggered band (`csrc/stagger_band_march3.cuh`)
-through a second entry point, `igg_spec_band_step`: one iteration of the
-streaming banded chunk (row 6's spec instance, igg's `_streaming_kernel`),
-the policy's `mcells` computing on the planes the march stages in shared
-memory (its first design, a band walk, is kept as text in
-kernel_variants.py); rank 2 gets none, as igg compiles its streaming
-kernel for 3-D fields only.  It is the counterpart of the body that
-Pallas traces from `apply_updates`.
+coefficients, :func:`generate` emits one C++ source: a policy and one
+extern "C" entry point, `igg_spec_step`, which both the per-step kernel
+(table row 13, igg's `_step_kernel`) and the chunk step (row 12's spec
+instances, igg's `_whole_window_kernel`) launch: the layout says whether
+the targets are whole blocks or a chunk's windows, and which dims wrap or
+freeze.  At rank 2 it runs on the walk `csrc/stagger_walk.cuh` (a thread
+a run of cells, the policy's `cell` and `cells<VEC>`).  At rank 3 it runs
+on the x-march `csrc/stagger_band_march3.cuh` in its step mode (no wrap
+and no freeze: the fused step, and chunk steps extended on every dim) or
+its chunk mode (wraps and freezes), and a second entry point,
+`igg_spec_band_step`, runs the same march in its band mode: one iteration
+of the streaming banded chunk (row 6's spec instance, igg's
+`_streaming_kernel`).  The three modes compute through the policy's
+`mcells`, on the planes the march stages in shared memory; rank 2 gets no
+band entry, as igg compiles its streaming kernel for 3-D fields only.  At
+rank 3 the generator still emits the walk's per-cell functions and
+`cells<VEC>`: only the first design of the step and chunk entry (the walk
+of `stagger_walk3_first.cuh`, kept as text in kernel_variants.py with the
+band entry's first design) calls them.  It is the counterpart of the body
+that Pallas traces from `apply_updates`.
 
 The policy computes, at one cell, the value every field takes after the
 whole chain, exactly as :func:`igg_torch.stencil.lower.apply_updates`
@@ -40,9 +45,9 @@ What the generator refuses (`GridError`): a `pow` whose exponent is not
 the constant 2 or 3 (`x*x`, `x*x*x`, PyTorch's own special cases), a
 comparison used anywhere but as a `where` condition, more than
 :data:`igg_torch.ops.chunk_engine.MAXF` fields, and, at rank 3, a
-staggered field whose outer face row the walk cannot write (a constant
+staggered field whose outer face row the kernels cannot write (a constant
 staggered field, or an update whose pad leaves that row in its region:
-the 3-D walk keeps outer face rows at `old + T(0)`).
+the 3-D kernels keep outer face rows at `old + T(0)`).
 
 Two paths compute the same values with the same operations: on a run of
 cells inside every update's write region (almost every run of a block),
@@ -51,10 +56,9 @@ once and loads each source element once, a run of VEC cells as one
 16-byte load where aligned, as `wave2d.cuh`'s run design does; the cells
 of a block's edges and wrap aliases go through per-cell functions that
 re-evaluate earlier updates inline (:func:`divisions_per_cell` counts
-what either costs).  The band march's `mcells` and `mu<k>` are the same
-two paths over its staged planes (one cell at a time, the x offset of a
-read a template argument), emitted after the others, so the step and
-chunk entries compile as before.
+what either costs).  The march's `mcells` and `mu<k>` are the same two
+paths over its staged planes (one cell at a time, the x offset of a read
+a template argument), emitted after the others.
 """
 
 from __future__ import annotations
@@ -515,13 +519,13 @@ class _Emitter:
                           for f in range(nf)) + "    }\n  }\n")
             launch = ("  Stag3 g;\n  if (!make_stag3(cfg, g)) return "
                       "(int)cudaErrorInvalidValue;\n")
-            walk, launcher = "stagger_walk3.cuh", "launch_stagger3"
+            walk, launcher = "stagger_walk3.cuh", "launch_stag_xmarch"
         name = f"Spec_{tag}"
         radius = band_radius(spec)
         band = "" if nd == 2 else _BAND_SOURCE.format(name=name, nf=nf,
                                                        nc=nc, entry=BAND_ENTRY)
         march = "" if nd == 2 else "\n" + self.march_cells()
-        walks = walk if nd == 2 else f"{walk} and {BAND_MARCH}"
+        walks = walk if nd == 2 else f"{BAND_MARCH}'s x-march"
         return f"""\
 // Generated by igg_torch/stencil/cuda.py from the spec {spec.name!r}: its
 // update chain as a policy of {walks}

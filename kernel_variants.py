@@ -118,14 +118,17 @@ contains it.  The variants are the design choices the sources record:
   update), the HM3D and diffusion band steps (the same on `band_walk.cuh`
   with hm3d.cuh's and diffusion.cuh's), the HM3D chunk step (the chunk
   walk, `chunk_walk.cuh`, with hm3d.cuh's), the Stokes step (the 2-cell
-  runs on `stagger_walk3.cuh`) and the HM3D step (`step_walk.cuh` with
-  hm3d.cuh's), the halo writer (a thread a halo cell, its plane's cells
-  found by divisions) and the generated rank-3 band entries (the band
-  walk, `stagger_band_walk3.cuh`: a thread block per band and tile, wrap
-  aliases recomputed), rebuilt from the text kept here (`FIRST_DESIGNS`,
-  with the policies and the walk only they use, `FIRST_HEADERS`:
-  stokes.cuh's `cells`, hm3d.cuh and the staggered band walk; the band
-  entries' source by `spec_band_first_source`);
+  runs on the staggered 3-D walk, `stagger_walk3_first.cuh`) and the HM3D
+  step (`step_walk.cuh` with hm3d.cuh's), the halo writer (a thread a halo
+  cell, its plane's cells found by divisions), the generated rank-3 band
+  entries (the band walk, `stagger_band_walk3.cuh`: a thread block per
+  band and tile, wrap aliases recomputed) and the generated rank-3 step
+  and chunk entries (the staggered 3-D walk: a thread a run of 8 bytes of
+  every block's bounding box, wrap cells recomputed one by one), rebuilt
+  from the text kept here (`FIRST_DESIGNS`, with the policies and the
+  walks only they use, `FIRST_HEADERS`: stokes.cuh's `cells`, hm3d.cuh,
+  the staggered walk and the staggered band walk; the generated entries'
+  source by `spec_first_source`);
 - the generated rank-3 band entries' x-march
   (`stagger_band_march3.cuh`; each variant times relax3d's and
   acoustic3d's, f32 and f64): `sb_cpt_one_1` and `sb_cpt_one_4`: one or
@@ -141,6 +144,32 @@ contains it.  The variants are the design choices the sources record:
   (8 as built); `sb_bounds_f32_2`, `_f32_3`, `_f32_6`, `_f32_8`,
   `_f64_2`, `_f64_4` and `_f64_6`: registers bounded for other numbers of
   thread blocks an SM (4 in float32 and 3 in float64 as built);
+- the generated rank-3 step and chunk entries on the same header's step
+  and chunk modes (`stagger_band_march3.cuh`, `SX_*`; each variant times
+  relax3d's and acoustic3d's step and K = 8 chunk step, f32 and f64):
+  `sx_cpt_one_2` and `sx_cpt_one_8`: two or eight cells a thread where
+  the policy stages one array in float32 (four as built),
+  `sx_cpt_one_f64_1` and `sx_cpt_one_f64_4`: one or four in float64 (two
+  as built), `sx_cpt_many_1` and `sx_cpt_many_4`: one or four where it
+  stages more (two as built); `sx_tz_16` and `sx_tz_64`: tile rows of 16
+  or 64 z cells (32 as built); `sx_ahead_0` and `sx_ahead_2`: the rings a
+  plane shallower or deeper; `sx_blocks_1024`, `sx_blocks_4096`,
+  `sx_blocks_8192` and `sx_no_segments`: segments cut until a launch has
+  that many thread blocks (2048 as built) or none, `sx_min_seg_4` and
+  `sx_min_seg_16` segments of at least 4 or 16 rows (8 as built);
+  `sx_bounds_f32_2`, `_f32_3`, `_f32_6`, `_f64_2` and `_f64_4`: registers
+  bounded for other numbers of thread blocks an SM where one array is
+  staged (4 in float32 and 3 in float64 as built),
+  `sx_bounds_many_f32_2`, `_f32_3`, `_f32_5`, `_f64_1` and `_f64_3`:
+  where more are (4 in float32, 2 in float64 as built), and
+  `sx_bounds_many_chunk_f32_1` and `_3` for the chunk mode's float32 (2
+  as built); `sx_put_noinline`: the writes to a wrap's edge rows a called
+  function; and two diagnostics, not bitwise, never shipped:
+  `sx_no_wrap_writes` (no edge row of a wrap written: what the edge
+  blocks cost) and `sx_step_for_chunk` (the step mode on every layout: no
+  edge row and no freeze written, what the chunk mode costs); and the
+  control `walk_vec16`: the entries' first design, the walk, with runs of
+  16 bytes instead of 8;
 - the halo writer (`halo_write.cu`; timed at 256^3 periodic and 2x2x2
   blocks of 256^3 EXT, f32 and f64): `hw_rows_2` and `hw_rows_8`: thread
   blocks of 2 or 8 rows (4 as built); `hw_zjoint`: a thread both sides of
@@ -232,6 +261,11 @@ def sb(old, new):
 def sb_const(name, old, new):
     return stokes_edit(sb(f"constexpr int {name} = {old};",
                           f"constexpr int {name} = {new};"))
+
+
+def sx_const(name, old, new):
+    """A knob of the step and chunk modes (`SX_*`, stagger_band_march3.cuh)."""
+    return sb_const(name, old, new)
 
 
 # The first designs of the kernels redesigned since, rebuilt for side-by-side
@@ -745,9 +779,10 @@ FIRST_DESIGNS = {"stokes_chunk.cu": CHUNK_FIRST, "pack_planes.cu": PACK_FIRST,
 # run of cells on the staggered walks (`cells`, the kernels' as-built
 # stokes.cuh keeps the fields' layout alone), and hm3d.cuh, the HM3D update
 # of the unstaggered walks (step_walk.cuh, chunk_walk.cuh, band_walk.cuh).
-STOKES_POLICY_FIRST = """// The stokes3d physics of the 3-D staggered walk (stagger_walk3.cuh): the
-// pressure P (field 0) and the face velocities Vx (field 1, one cell longer
-// in x), Vy (field 2, in y) and Vz (field 3, in z), with the constant
+STOKES_POLICY_FIRST = """// The stokes3d physics of the 3-D staggered walk
+// (stagger_walk3_first.cuh): the pressure P (field 0) and the face
+// velocities Vx (field 1, one cell longer in x), Vy (field 2, in y) and Vz
+// (field 3, in z), with the constant
 // buoyancy Rho laid out like P, updated as
 // igg_torch.models.stokes3d.iteration_core updates every block:
 //   gx = (Vx[i+1] - Vx[i]) / dx, gy, gz alike      at every cell
@@ -775,7 +810,7 @@ STOKES_POLICY_FIRST = """// The stokes3d physics of the 3-D staggered walk (stag
 // or by 3, so the zeros are harmless.
 #pragma once
 
-#include "stagger_walk3.cuh"
+#include "stagger_walk3_first.cuh"
 
 namespace igg {
 
@@ -1135,6 +1170,223 @@ Hm3d<T> make_hm3d(const void* Pe, const void* phi, const double* coef,
   return Hm3d<T>{{static_cast<const T*>(Pe), static_cast<const T*>(phi)},
                  (T)coef[0], (T)coef[1], (T)coef[2], (T)coef[3],
                  (T)coef[4], (T)coef[5], npow};
+}
+
+}  // namespace igg
+"""
+# The staggered 3-D walk (csrc/stagger_walk3.cuh's kernel before the
+# marches): the first design of the generated rank-3 step and chunk entry
+# (spec_first_source) and the walk that stokes.cuh's `cells` ran on (the
+# Stokes step's and chunk step's first designs).
+STAGGER_WALK3_FIRST = """// The walk of a step over STAGGERED 3-D fields of a block-stacked grid,
+// the first design of the kernels generated for a rank-3 igg_torch.stencil
+// spec (igg_spec_step; they left it for the x-march of
+// stagger_band_march3.cuh, its step and chunk modes) and of the stokes3d
+// step and chunk kernels (stokes.cuh's `cells` of the first designs; they
+// left it for stokes_step.cu's and stokes_march.cuh's x-marches): one
+// launch writes every cell of every field of a policy P from the source
+// tensors alone, into targets that are the whole blocks (a step, or a
+// chunk step on extended buffers) or a window of each block (the last step
+// of a chunk).  The 3-D sibling of stagger_walk.cuh: it adds a third dim
+// and wraps on y and z; its layout (Stag3, make_stag3, at3, frozen3) is
+// csrc/stagger_walk3.cuh's.
+//
+// The policy (generated, or the first designs' stokes.cuh, kept in
+// kernel_variants.py) provides:
+//   - `using T`, `static constexpr int NF` (<= MAXF): element type, fields;
+//   - `st(f, d)` (constexpr): 1 where field f is one cell longer along d
+//     than the base (unstaggered) block, else 0;
+//   - `freezes(f, d)` (constexpr): whether field f re-freezes on dim d
+//     where a chunk's open dim freezes;
+//   - `const T* src[NF]`: the source fields;
+//   - `cells<VEC>(g, i, j, k, at, sx, sy, out)`: the updated values of every
+//     field at the VEC cells (i, j, k .. k+VEC-1) of a source block, all of
+//     which lie inside the base block, given each field's offset of cell
+//     (i, j, k) in its source tensor (`at`) and its x and y strides.
+//
+// Layout: field f is a C-ordered (n0*(e0+st(f,0)), n1*(e1+st(f,1)),
+// n2*(e2+st(f,2))) tensor of n0 x n1 x n2 blocks, where (e0, e1, e2) is the
+// base block of the sources (s) or of the targets (o); dim 2 is contiguous.
+// Offsets are 64-bit.
+//
+// A thread takes VEC cells (i, j, k .. k+VEC-1) of a block's bounding box
+// (o0+1) x (o1+1) x (o2+1) and writes the fields that have them, computing
+// them at source index (i + off0, j + off1, k + off2); the thread whose run
+// reaches o2 also takes the face row k = o2, which only the z-staggered
+// field has.  Per dim:
+//   - where y or z is one periodic block (`wrap`), each field's edges 0 and
+//     size-1 take the updated values at the inner cells they alias,
+//     size-ol and ol-1, with the field's own overlap ol (the staggered
+//     self-wrap of chunk_engine.wrap_edges, y then z): fields whose aliases
+//     agree are computed together, the others on their own;
+//   - where a dim freezes (`frz`, a chunk's open dims), the fields that
+//     freeze on it take the chunk-entry values F on the blocks of the global
+//     edges: rows <= lo on the first block, rows >= hi + st(f, d) on the
+//     last (each field's own staggered high plane).  The freeze wins the
+//     cells it shares with a wrap (chunk_engine.window_step_plain).
+// A cell outside the base block (a staggered field's outer face row) keeps
+// its source value (+0): no update reaches an outer face.  Threads run along
+// z, so every access is coalesced.
+#pragma once
+
+#include "stagger_walk3.cuh"
+
+namespace igg {
+
+// Source offsets and x/y strides of cell (si, sj, sk) of block b in every
+// field.
+template <class P>
+__device__ __forceinline__ void source_at(const Stag3& g, const int* b,
+                                          int si, int sj, int sk,
+                                          long long* at, long long* sx,
+                                          long long* sy) {
+#pragma unroll
+  for (int f = 0; f < P::NF; ++f) {
+    at[f] = at3(g.s, g.n, P::st(f, 0), P::st(f, 1), P::st(f, 2), b[0], si,
+                b[1], sj, b[2], sk);
+    sy[f] = (long long)g.n[2] * (g.s[2] + P::st(f, 2));
+    sx[f] = (long long)g.n[1] * (g.s[1] + P::st(f, 1)) * sy[f];
+  }
+}
+
+// One cell (i, j, k) of the bounding box of block b: every field that has
+// it, resolved through the per-field wrap aliases, then frozen.
+template <class P>
+__device__ __forceinline__ void walk_cell3(
+    const P& ph, const Stag3& g, const int* b, int i, int j, int k,
+    const Fields<const typename P::T, P::NF>& F,
+    const Fields<typename P::T, P::NF>& out) {
+  using T = typename P::T;
+  constexpr int NF = P::NF;
+  const int c[3] = {i + g.off[0], j + g.off[1], k + g.off[2]};
+  bool want[NF], done[NF];
+  int jf[NF], kf[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    want[f] = i < g.o[0] + P::st(f, 0) && j < g.o[1] + P::st(f, 1) &&
+              k < g.o[2] + P::st(f, 2);
+    done[f] = !want[f];
+    jf[f] = g.wrap[1] ? wrap_alias(c[1], g.s[1] + P::st(f, 1), g.ol[f][1])
+                      : c[1];
+    kf[f] = g.wrap[2] ? wrap_alias(c[2], g.s[2] + P::st(f, 2), g.ol[f][2])
+                      : c[2];
+  }
+  T v[NF];
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    if (done[f]) continue;
+    bool w[NF];
+#pragma unroll
+    for (int h = 0; h < NF; ++h)
+      w[h] = !done[h] && jf[h] == jf[f] && kf[h] == kf[f];
+    long long at[NF], sx[NF], sy[NF];
+    source_at<P>(g, b, c[0], jf[f], kf[f], at, sx, sy);
+    T got[NF][1];
+    if (c[0] < g.s[0] && jf[f] < g.s[1] && kf[f] < g.s[2]) {
+      ph.template cells<1>(g, c[0], jf[f], kf[f], at, sx, sy, got);
+    } else {
+      // An outer face row of the staggered fields: no update reaches it.
+#pragma unroll
+      for (int h = 0; h < NF; ++h)
+        if (w[h]) got[h][0] = ld(ph.src[h] + at[h]) + T(0);
+    }
+#pragma unroll
+    for (int h = 0; h < NF; ++h)
+      if (w[h]) {
+        v[h] = got[h][0];
+        done[h] = true;
+      }
+  }
+  long long at[NF], sx[NF], sy[NF];
+  source_at<P>(g, b, c[0], c[1], c[2], at, sx, sy);
+#pragma unroll
+  for (int f = 0; f < NF; ++f) {
+    if (!want[f]) continue;
+    if (frozen3<P>(g, f, b, c)) v[f] = ld(F.p[f] + at[f]);
+    out.p[f][at3(g.o, g.n, P::st(f, 0), P::st(f, 1), P::st(f, 2), b[0], i,
+                 b[1], j, b[2], k)] = v[f];
+  }
+}
+
+// Block (32, 8): a warp takes 32 runs of VEC cells of one z row, the 8
+// warps 8 rows along y.  Grid: x = the z tiles of every block along dim 2,
+// y = the y tiles of every block along dim 1, z = the x rows of every block
+// along dim 0 (so a thread finds its block and cells with a few divisions
+// per thread block).  A run whose VEC cells lie in the base block and on
+// no wrap alias takes the policy's `cells<VEC>`, with vector loads and
+// stores where the rows allow them; the others go cell by cell.
+template <class P, int VEC>
+__global__ void __launch_bounds__(256)
+    stagger_xyz_kernel(P ph, Stag3 g, Fields<const typename P::T, P::NF> F,
+                    Fields<typename P::T, P::NF> out) {
+  using T = typename P::T;
+  constexpr int NF = P::NF;
+  const int h0 = g.o[0] + 1, h1 = g.o[1] + 1, h2 = g.o[2] + 1;
+  const int tz = (g.o[2] + 32 * VEC - 1) / (32 * VEC);
+  const int ty = (h1 + 7) / 8;
+  const int b[3] = {(int)blockIdx.z / h0, (int)blockIdx.y / ty,
+                    (int)blockIdx.x / tz};
+  const int i = blockIdx.z - b[0] * h0;
+  const int j = (blockIdx.y - b[1] * ty) * 8 + threadIdx.y;
+  const int k0 = (blockIdx.x - b[2] * tz) * 32 * VEC + threadIdx.x * VEC;
+  if (k0 >= g.o[2] || j >= h1) return;
+  // The run that reaches o2 also takes the face row k = o2.
+  const int kend = k0 + VEC >= g.o[2] ? h2 : k0 + VEC;
+  int k = k0;
+  const int c[3] = {i + g.off[0], j + g.off[1], k0 + g.off[2]};
+  if (i < g.o[0] && j < g.o[1] && k0 + VEC <= g.o[2] &&
+      (!g.wrap[1] || (c[1] >= 1 && c[1] <= g.s[1] - 2)) &&
+      (!g.wrap[2] || (c[2] >= 1 && c[2] + VEC <= g.s[2] - 1))) {
+    long long at[NF], sx[NF], sy[NF];
+    source_at<P>(g, b, c[0], c[1], c[2], at, sx, sy);
+    T v[NF][VEC];
+    ph.template cells<VEC>(g, c[0], c[1], c[2], at, sx, sy, v);
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+#pragma unroll
+      for (int m = 0; m < VEC; ++m) {
+        const int cm[3] = {c[0], c[1], c[2] + m};
+        if (frozen3<P>(g, f, b, cm)) v[f][m] = ld(F.p[f] + at[f] + m);
+      }
+      store_run<T, VEC>(out.p[f] + at3(g.o, g.n, P::st(f, 0), P::st(f, 1),
+                                       P::st(f, 2), b[0], i, b[1], j, b[2],
+                                       k0),
+                        v[f]);
+    }
+    k = k0 + VEC;
+  }
+  for (; k < kend; ++k) walk_cell3(ph, g, b, i, j, k, F, out);
+}
+
+template <class P, int VEC>
+int launch_stagger3_vec(const P& ph, const Stag3& g,
+                        const Fields<const typename P::T, P::NF>& F,
+                        const Fields<typename P::T, P::NF>& out,
+                        cudaStream_t stream) {
+  const long long tz = (g.o[2] + 32 * VEC - 1) / (32 * VEC);
+  const long long gx = tz * g.n[2], gy = (long long)(g.o[1] + 8) / 8 * g.n[1];
+  const long long gz = (long long)(g.o[0] + 1) * g.n[0];
+  if (gx > 0x7fffffffLL || gy > 65535 || gz > 65535)
+    return (int)cudaErrorInvalidConfiguration;
+  const dim3 block(32, 8);
+  const dim3 grid((unsigned)gx, (unsigned)gy, (unsigned)gz);
+  stagger_xyz_kernel<P, VEC><<<grid, block, 0, stream>>>(ph, g, F, out);
+  return (int)cudaGetLastError();
+}
+
+// Runs of 8 bytes (2 cells in f32, 1 in f64): the Stokes policy holds
+// some 25 values a cell, so a run of 16 bytes took 180 registers a thread
+// and one thread block an SM, and ran 1.5 times (one 256^3 block) to 2
+// times (8 extended blocks of 288^3) as long on an H100
+// (kernel_variants.py).
+template <class P>
+int launch_stagger3(const P& ph, const Stag3& g,
+                    const Fields<const typename P::T, P::NF>& F,
+                    const Fields<typename P::T, P::NF>& out,
+                    cudaStream_t stream) {
+  static_assert(P::NF <= MAXF, "more fields than the walk takes");
+  return launch_stagger3_vec<P, 8 / sizeof(typename P::T)>(ph, g, F, out,
+                                                           stream);
 }
 
 }  // namespace igg
@@ -1581,7 +1833,8 @@ extern "C" int {entry}(void* const* src, void* const* entry,
 """
 FIRST_HEADERS = {"stokes.cuh": STOKES_POLICY_FIRST,
                  "hm3d.cuh": HM3D_POLICY_FIRST,
-                 "stagger_band_walk3.cuh": STAGGER_BAND_WALK3_FIRST}
+                 "stagger_band_walk3.cuh": STAGGER_BAND_WALK3_FIRST,
+                 "stagger_walk3_first.cuh": STAGGER_WALK3_FIRST}
 
 
 def spec_band_first_source(gen):
@@ -1599,17 +1852,62 @@ def spec_band_first_source(gen):
         raise RuntimeError(f"the band section of {gen.tag} is not the "
                            f"generator's")
     return (gen.source.replace(band, SPEC_BAND_FIRST.format(**kw))
-            .replace(include, '#include "stagger_band_walk3.cuh"'))
+            .replace(include, include + '\n#include "stagger_band_walk3.cuh"'))
+
+
+# igg_spec_step's launch in a generated rank-3 source, on the march and on
+# its first design, the walk.
+SPEC_STEP_MARCH = "return launch_stag_xmarch(ph, g, fr, o, s);"
+SPEC_STEP_WALK = "return launch_stagger3(ph, g, fr, o, s);"
+
+
+def spec_step_walk_source(gen, text=None, launch=SPEC_STEP_WALK):
+    """The source generated for a rank-3 spec (`gen`: its SpecKernels; or
+    `text`, an edit of it) with `igg_spec_step` (the step and the chunk
+    step) on the walk (`stagger_walk3_first.cuh` of FIRST_HEADERS, through
+    the policy's `cells<VEC>` and per-cell functions, which the generator
+    still emits for it), launched by `launch`."""
+    text = gen.source if text is None else text
+    include = '#include "stagger_walk3.cuh"'
+    if text.count(SPEC_STEP_MARCH) != 1 or text.count(include) != 1:
+        raise RuntimeError(f"the step entry of {gen.tag} is not the "
+                           f"generator's")
+    return (text.replace(SPEC_STEP_MARCH, launch)
+            .replace(include, include + '\n#include "stagger_walk3_first.cuh"'))
+
+
+def spec_first_source(gen):
+    """The source generated for a rank-3 spec with both entries on their
+    first designs: `igg_spec_step` on the walk (spec_step_walk_source) and
+    `igg_spec_band_step` on the band walk (spec_band_first_source)."""
+    return spec_step_walk_source(gen, spec_band_first_source(gen))
+
+
+class spec_walk_vec16:
+    """The control of the step and chunk entry's redesign: its first design,
+    the walk, with runs of 16 bytes (4 cells in float32, 2 in float64)
+    instead of 8, the band entry as built."""
+
+    added = {"stagger_walk3_first.cuh": STAGGER_WALK3_FIRST}
+
+    def __call__(self, name, text):
+        return self.added.get(name, text)
+
+    @staticmethod
+    def generated(gen):
+        return spec_step_walk_source(
+            gen, launch=f"return launch_stagger3_vec<Spec_{gen.tag}<T>, 16 / "
+                        f"sizeof(T)>(ph, g, fr, o, s);")
 
 
 class first_design:
     """The first designs' sources in place of the kernels' (FIRST_DESIGNS)
     and their policies' headers (FIRST_HEADERS: `stokes.cuh` in place of
-    the layout alone, `hm3d.cuh` and the staggered band walk added); the
-    generated library's band entry on that walk."""
+    the layout alone, `hm3d.cuh`, the staggered walk and the staggered band
+    walk added); the generated libraries' entries on those walks."""
 
     added = FIRST_HEADERS
-    generated = staticmethod(spec_band_first_source)
+    generated = staticmethod(spec_first_source)
 
     def __call__(self, name, text):
         return FIRST_DESIGNS.get(name, FIRST_HEADERS.get(name, text))
@@ -1645,8 +1943,8 @@ def march_plain_staging(name, text):
     if name != "async_copy.cuh":
         return text
     guard = "#if defined(__CUDA_ARCH__)\n"
-    if text.count(guard) != 3:
-        raise RuntimeError("async_copy.cuh no longer has its three "
+    if text.count(guard) != 4:
+        raise RuntimeError("async_copy.cuh no longer has its four "
                            "cp.async guards")
     return text.replace(guard, "#if 0\n")
 
@@ -1757,6 +2055,45 @@ VARIANTS = {
                                "constexpr int TR = 8; ")), []),
     "hw_zjoint": (stokes_edit(("halo_write.cu", "constexpr int ZS = 2;",
                                "constexpr int ZS = 1;")), []),
+    "sx_cpt_one_2": (sx_const("SX_CPT_ONE", 4, 2), []),
+    "sx_cpt_one_8": (sx_const("SX_CPT_ONE", 4, 8), []),
+    "sx_cpt_one_f64_1": (sx_const("SX_CPT_ONE_F64", 2, 1), []),
+    "sx_cpt_one_f64_4": (sx_const("SX_CPT_ONE_F64", 2, 4), []),
+    "sx_cpt_many_1": (sx_const("SX_CPT_MANY", 2, 1), []),
+    "sx_cpt_many_4": (sx_const("SX_CPT_MANY", 2, 4), []),
+    "sx_tz_16": (sx_const("SX_TZ", 32, 16), []),
+    "sx_tz_64": (sx_const("SX_TZ", 32, 64), []),
+    "sx_ahead_0": (sx_const("SX_AHEAD", 1, 0), []),
+    "sx_ahead_2": (sx_const("SX_AHEAD", 1, 2), []),
+    "sx_blocks_1024": (sx_const("SX_BLOCKS", 2048, 1024), []),
+    "sx_blocks_8192": (sx_const("SX_BLOCKS", 2048, 8192), []),
+    "sx_no_segments": (sx_const("SX_BLOCKS", 2048, 1), []),
+    "sx_min_seg_4": (sx_const("SX_MIN_SEG", 8, 4), []),
+    "sx_min_seg_16": (sx_const("SX_MIN_SEG", 8, 16), []),
+    "sx_blocks_4096": (sx_const("SX_BLOCKS", 2048, 4096), []),
+    "sx_bounds_f32_2": (sx_const("SX_MIN_BLOCKS_F32", 4, 2), []),
+    "sx_bounds_f32_3": (sx_const("SX_MIN_BLOCKS_F32", 4, 3), []),
+    "sx_bounds_f32_6": (sx_const("SX_MIN_BLOCKS_F32", 4, 6), []),
+    "sx_bounds_f64_2": (sx_const("SX_MIN_BLOCKS_F64", 3, 2), []),
+    "sx_bounds_f64_4": (sx_const("SX_MIN_BLOCKS_F64", 3, 4), []),
+    "sx_bounds_many_f32_2": (sx_const("SX_MIN_BLOCKS_MANY_F32", 4, 2), []),
+    "sx_bounds_many_f32_3": (sx_const("SX_MIN_BLOCKS_MANY_F32", 4, 3), []),
+    "sx_bounds_many_f32_5": (sx_const("SX_MIN_BLOCKS_MANY_F32", 4, 5), []),
+    "sx_bounds_many_f64_1": (sx_const("SX_MIN_BLOCKS_MANY_F64", 2, 1), []),
+    "sx_bounds_many_f64_3": (sx_const("SX_MIN_BLOCKS_MANY_F64", 2, 3), []),
+    "sx_bounds_many_chunk_f32_1": (sx_const("SX_MIN_BLOCKS_MANY_CHUNK_F32", 2,
+                                            1), []),
+    "sx_bounds_many_chunk_f32_3": (sx_const("SX_MIN_BLOCKS_MANY_CHUNK_F32", 2,
+                                            3), []),
+    "sx_put_noinline": (stokes_edit(sb(
+        "__device__ __forceinline__ void sx_put(",
+        "__device__ __noinline__ void sx_put(")), []),
+    "sx_step_for_chunk": (stokes_edit(sb(
+        "    if (g.wrap[d] || g.frz[d]) step = false;\n", "")), []),
+    "sx_no_wrap_writes": (stokes_edit(sb(
+        "if (!STEP) sx_edges<P, Bits>(ph, ly, F, out);",
+        "if (false) sx_edges<P, Bits>(ph, ly, F, out);")), []),
+    "walk_vec16": (spec_walk_vec16(), []),
     "sb_cpt_one_1": (sb_const("SB_CPT_ONE", 2, 1), []),
     "sb_cpt_one_4": (sb_const("SB_CPT_ONE", 2, 4), []),
     "sb_cpt_many_2": (sb_const("SB_CPT_MANY", 1, 2), []),
@@ -1918,7 +2255,8 @@ TARGETS.update(
     {v: ("stokes_step",) for v in VARIANTS if v.startswith("ss_")},
     **{v: ("hm3d_step",) for v in VARIANTS if v.startswith("hm_step_")},
     vec_8B=("diffusion_step", "diffusion_chunk"),
-    **{v: SPEC_BAND for v in VARIANTS if v.startswith("sb_")},
+    **{v: SPEC_BAND for v in VARIANTS if v.startswith(("sb_", "sx_"))},
+    walk_vec16=SPEC_BAND,
     march_sync_staging=MARCH + ("hm3d_band", "hm3d_chunk", "diffusion_band",
                                 "hm3d_step", "stokes_step"),
     **{v: MARCH + ("hm3d_band", "hm3d_chunk")
@@ -2369,21 +2707,23 @@ def cases(dev):
                                            ols=ols), K
         return setup
 
-    def spec_walk(name, chunk):
-        """relax3d's generated step (one launch) or K = 8 chunk step (K
-        launches, 272 x 256 x 256 extended) on one periodic block of 256^3:
-        the one entry of stagger_walk3.cuh that the march leaves as it
-        was."""
+    def spec_entry(name, chunk, dtype=torch.float32):
+        """A rank-3 spec's generated step (one launch) or K = 8 chunk step
+        (K launches; relax3d 272 x 256 x 256 extended) on one periodic
+        block of 256^3, random fields in (-1, 1): igg_spec_step on the
+        march's step and chunk modes (the chunk wraps y and z)."""
         def setup():
             from igg_torch.stencil import lower
 
             g = grid(**one_block)
             gen = spec_kernels(name)
             shapes = lower.field_shapes(gen.spec, g.nxyz)
-            S = [2 * torch.rand(it.stacked_shape(s), device=dev) - 1
+            S = [(2 * torch.rand(it.stacked_shape(s), device=dev,
+                                 dtype=torch.float64) - 1).to(dtype)
                  for s in shapes]
             if not chunk:
-                return lambda: lower.step_kernel(gen, S, g.dims), 1
+                out = [torch.empty_like(A) for A in S]
+                return lambda: lower.launch_step(gen, S, g.dims, out=out), 1
             E = gen.analysis.margin_after(K)
             modes = ce.dim_modes(g)
             ols = ce.field_ols(g, shapes)
@@ -2482,10 +2822,10 @@ def cases(dev):
              stokes_band("init_fields"), "stokes_band"),
             ("stokes_band_2x2x2_256_open_f64", stokes_band(dtype=f64),
              "stokes_band"),
-            ("relax3d_step_256_periodic", spec_walk("relax3d", False),
-             "gen_relax3d"),
-            ("relax3d_chunk_256_periodic", spec_walk("relax3d", True),
-             "gen_relax3d"),
+            *[(f"{name}_{kind}_256_periodic{suffix}",
+               spec_entry(name, kind == "chunk", dtype), f"gen_{name}")
+              for name in GENERATED for kind in ("step", "chunk")
+              for suffix, dtype in (("", torch.float32), ("_f64", f64))],
             ("relax3d_band_256_periodic", spec_band("relax3d"),
              "gen_relax3d"),
             ("relax3d_band_256_periodic_f64", spec_band("relax3d", f64),

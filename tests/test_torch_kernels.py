@@ -25,7 +25,11 @@ buffers and central windows), and the staggered band kernels: Stokes
 of the rank-3 specs (`relax3d`, the staggered `acoustic3d`), the same way,
 and its x-march at B = 8 and 16 in two and three bands in every window
 mode of torch_spec_cases.BAND_GRIDS, with tiles across the blocks' last
-y and z rows and with fields at rest;
+y and z rows and with fields at rest; the generated rank-3 step and chunk
+step (igg_spec_step on the same march's step and chunk modes) in every
+layout of torch_spec_cases.BAND_GRIDS, whole extended buffers and central
+windows, with tiles across the blocks' last rows, x extents of several
+segments and fields at rest, and at phase 20's 256^3 periodic block;
 the HM3D and Stokes band marches, the HM3D chunk march and the diffusion
 band march in their edge cases (segments across the bands, tiles across
 the blocks' last y and z rows, fields at rest, y one periodic block over
@@ -1082,3 +1086,70 @@ def test_spec_band_march_edge_cases(card, name, case, kind, dtype):
     _spec_band_check(card, name, case, dtype, 8, 3,
                      (13, 37) if kind == "ragged_tiles" else (9, 20),
                      fields=cases.at_rest if kind == "at_rest" else None)
+
+
+# -- igg_spec_step on the x-march (stagger_band_march3.cuh: its step and
+# chunk modes) -----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("local", cases.MARCH_LOCALS)
+@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_march_matches_plain(card, name, case, local, dtype):
+    """The step (the march's step mode) against `step_plain` and the K = 2
+    and 3 chunk steps (its chunk mode where a dim wraps or freezes) against
+    `window_step_plain`, whole extended buffers and central windows, in
+    every window mode of torch_spec_cases.BAND_GRIDS, with tiles across
+    the blocks' last y and z rows."""
+    gen = cases.kernels(name)
+    g = cases.march_grid(it, case, local, card)
+    S = cases.state(it, gen, g, dtype, 75, card)
+    cases.march_step_check(gen, g, S)
+    for K in (2, 3):
+        assert cases.march_chunk_check(it, gen, g, S, K)
+
+
+# Tiles ragged across the blocks' last rows with odd z extents, x extents
+# of several segments, fields at rest.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["ragged_tiles", "segments", "at_rest"])
+@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_march_edge_cases(card, name, case, kind, dtype):
+    gen = cases.kernels(name)
+    g = cases.march_grid(it, case, cases.MARCH_EDGE_LOCALS.get(
+        kind, (10, 9, 8)), card)
+    S = (cases.at_rest(it, gen, g, dtype, card) if kind == "at_rest"
+         else cases.state(it, gen, g, dtype, 76, card))
+    cases.march_step_check(gen, g, S)
+    assert cases.march_chunk_check(it, gen, g, S, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_march_at_main_path_shapes(card, name, dtype):
+    """The step and the K = 8 chunk step of the rank-3 specs on one 256^3
+    periodic block (phase 20's relax3d shape: the chunk 272 x 256 x 256
+    extended, y and z wrapped), through the counted wrappers."""
+    n, K = 256, 8
+    gen = cases.kernels(name)
+    g = cases.march_grid(it, "1x1x1_periodic", (n, n, n), card)
+    S = cases.state(it, gen, g, dtype, 77, card)
+    before = lower.step_kernel.launches
+    out = lower.step_kernel(gen, S, g.dims)
+    torch.cuda.synchronize()
+    assert lower.step_kernel.launches == before + 1
+    for a, b in zip(out, lower.step_plain(gen, S, g.dims)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    del out
+    E, modes, shapes, ols, exts = cases.chunk_setup(gen, g, S, K)
+    before = lower.chunk_call.launches
+    out = lower.chunk_call(gen, exts, shapes, K=K, E=E, modes=modes, grid=g,
+                           ols=ols)
+    torch.cuda.synchronize()
+    assert lower.chunk_call.launches == before + K
+    want = lower.chunk_plain(gen, exts, K=K, E=E, modes=modes, grid=g,
+                             ols=ols)
+    for a, b, s in zip(out, want, shapes):
+        torch.testing.assert_close(a, ce.central_window(b, s, E, modes),
+                                   rtol=0, atol=0)

@@ -196,3 +196,86 @@ def chunk_setup(gen, grid, S, K):
     modes = ce.dim_modes(grid)[:nd]
     ols = ce.field_ols(grid, shapes)
     return E, modes, shapes, ols, ce.extend_fields(S, ols, E, grid, modes)
+
+
+# -- igg_spec_step's x-march (csrc/stagger_band_march3.cuh: its step and
+# chunk modes), held against the plain versions on the CPU rehearsal
+# (tests/test_torch_spec_march.py) and on a card (tests/test_torch_kernels.py)
+
+# Local blocks of the march's checks: LOCALS_3D ((12, 10, 9): odd z, rows
+# copied element by element; (10, 9, 8): 16-byte rows in float32 and
+# float64) and blocks whose y and z rows cross the tiles (relax3d's 16 x
+# 32, acoustic3d's 8 x 32) and end in ragged ones (21 and 37 rows, with
+# the extension and the face rows more).
+MARCH_LOCALS = list(LOCALS_3D) + [(9, 21, 37)]
+# Its edge cases' blocks: tiles ragged across the blocks' last rows with
+# odd z extents, and an x extent of several segments.
+MARCH_EDGE_LOCALS = {"ragged_tiles": (11, 19, 35), "segments": (40, 9, 12)}
+
+
+def march_grid(it, case, local, device="cpu"):
+    """A BAND_GRIDS layout of blocks `local`."""
+    if it.grid_is_initialized():
+        it.finalize_global_grid()
+    it.init_global_grid(*local, quiet=True, device=device, **BAND_GRIDS[case])
+    return it.get_global_grid()
+
+
+def _same(got, want):
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def _stream(X):
+    return (torch.cuda.current_stream(X.device).cuda_stream
+            if X.device.type == "cuda" else 0)
+
+
+def march_step_check(gen, g, S):
+    """igg_spec_step on whole blocks (no wrap, no freeze: the march's step
+    mode) into NaN-filled targets against `step_plain`, tolerance 0."""
+    out = [torch.full_like(A, float("nan")) for A in S]
+    lower._launch(gen, S, S, out, ce.stagger_cfg(g.nxyz, 0, ("ext",) * 3,
+                                                 g.dims, [], False),
+                  _stream(S[0]))
+    for a, b in zip(out, lower.step_plain(gen, S, g.dims)):
+        _same(a, b)
+
+
+def march_chunk_check(it, gen, g, S, K):
+    """K launches of igg_spec_step on the extended buffers of a depth-K
+    chunk: every launch into NaN-filled whole extended targets against
+    `chunk_plain` (K window steps), then the chunk as `chunk_call` runs it
+    (the last launch into the central windows) against the plain chunk's
+    central windows; tolerance 0.  Returns False where the chunk refuses
+    the layout."""
+    setup = chunk_setup(gen, g, S, K)
+    if setup is None:
+        return False
+    E, modes, shapes, ols, exts = setup
+    want = lower.chunk_plain(gen, exts, K=K, E=E, modes=modes, grid=g,
+                             ols=ols)
+    stream = _stream(S[0])
+    src = list(exts)
+    for _ in range(K):
+        dst = [torch.full_like(X, float("nan")) for X in exts]
+        lower._launch(gen, src, exts, dst,
+                      ce.stagger_cfg(g.nxyz, E, modes, g.dims, ols, False),
+                      stream)
+        src = dst
+    for a, b in zip(src, want):
+        _same(a, b)
+    bufs = [[torch.full_like(X, float("nan")) for X in exts]
+            for _ in range(2)]
+    out = [torch.full(it.stacked_shape(s), float("nan"), dtype=S[0].dtype,
+                      device=S[0].device) for s in shapes]
+    src = list(exts)
+    for k in range(K):
+        last = k == K - 1
+        dst = out if last else bufs[k % 2]
+        lower._launch(gen, src, exts, dst,
+                      ce.stagger_cfg(g.nxyz, E, modes, g.dims, ols, last),
+                      stream)
+        src = dst
+    for a, b, s in zip(out, want, shapes):
+        _same(a, ce.central_window(b, s, E, modes))
+    return True
