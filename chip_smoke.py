@@ -99,6 +99,24 @@ the script exits non-zero without printing a result:
    block, `igg_torch.stencil.compile(n_inner=17, banded=True, K=8,
    band=8)` bitwise the spec chunk route; ms/step of both, launches and
    device time per call.
+21. Observability and verified dispatch, inside one `igg_torch.telemetry`
+   session and one `igg_torch.profiling.trace`: phase 2's
+   `make_multi_step(100, verify="first_use")` verifies `diffusion3d.cuda`
+   against `diffusion3d.plain` in one span, bitwise the unverified route,
+   with the dispatch counter and `igg_halo_plane_bytes_total` against
+   their counts; one verified call of every other family's main route at
+   its one-block shape (HM3D 256^3, wave2d and shallow water 4096^2,
+   Stokes 256^3, relax3d 256^3 on its chunk and banded routes); a tier of
+   the diffusion kernel route with one cell changed after it must raise
+   GridError and serve nothing; ten calls under
+   `torch.cuda.set_sync_debug_mode("warn")` with the session and spans
+   on give as many sync warnings as ten with telemetry off; the
+   profiler's trace holds the spans beside the step kernel's launches.
+   Then phase 2's ms/step without and with the session, in turns,
+   `make_step`'s wall per call through the ladder and through its kernel
+   tier's callable, in turns, the halo byte counter's host time per
+   `update_halo` call, and the first verified call's wall time beside a
+   warm call's.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -131,7 +149,7 @@ periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
 Stokes and HM3D divisors.  Launch counters are set to 0 before each
-main-path phase (2 to 20) and read after it; each of the twenty kernels
+main-path phase (2 to 21) and read after it; each of the twenty kernels
 must have launched on that main path (the generated relax3d step and
 chunk step are phase 20's launches of the spec counters, shallow water's
 the others').  The last lines are the run's seconds, the
@@ -622,6 +640,9 @@ class Smoke:
         # {spec name: CDLL} (main()).
         self.first, self.first_gen = {}, {}
         self.launches = None
+        # The card's name and power limit (main()), beside phase 21's
+        # numbers.
+        self.card = ""
 
     def grid(self, n, **kw):
         if self.it.grid_is_initialized():
@@ -3242,8 +3263,320 @@ class Smoke:
             chunk_route_ms_per_step=sec_c / steps * 1e3,
             device_ms_per_call=split, launches_per_call=n_call)
 
+    # -- phase 21 ---------------------------------------------------------
+    def verified(self, tag, factory, S, tier):
+        """One call of `factory(verify="first_use")` on `S`: exactly one
+        verification span, the output bitwise `factory()`'s, `tier`
+        serving; returns (wall s of the verified call, of a warm one)."""
+        from igg_torch import degrade, telemetry as tel
+
+        def spans():
+            return sum(1 for r in tel.flight_recorder() if r.kind == "span"
+                       and r.payload.get("name") == "degrade.verify_first_use"
+                       and r.payload.get("tier") == tier)
+
+        before = spans()
+        step = factory(verify="first_use")
+        sync(self.dev)
+        t0 = time.perf_counter()
+        got = step(*S)
+        sync(self.dev)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        step(*S)
+        sync(self.dev)
+        warm = time.perf_counter() - t0
+        if spans() - before != 1:
+            raise SmokeFailure(f"{tag}: {spans() - before} verification "
+                               f"spans of {tier}, not 1")
+        family = tier.rsplit(".", 1)[0]
+        if degrade.active().get(family) != tier:
+            raise SmokeFailure(f"{tag}: {degrade.active().get(family)} "
+                               f"served, not {tier}")
+        want = factory()(*S)
+        outs = got if isinstance(got, tuple) else (got,)
+        wants = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(outs, wants):
+            check(f"{tag}: verified route vs unverified route", a, b, 0.0)
+            if not bool(torch.isfinite(a).all()):
+                raise SmokeFailure(f"{tag}: non-finite output")
+        return first, warm
+
+    def observability(self):
+        """Phase 21: telemetry, the profiler and the verified tier ladder
+        on the card, inside one `Telemetry` session and one
+        `profiling.trace`: diffusion at phase 2's shape through
+        `make_multi_step(n_inner, verify="first_use")` (one verification
+        span, the output bitwise the unverified route's, the dispatch and
+        halo byte counters against their counts), one verified call of
+        every other family's main route at its one-block phase shape, a
+        corrupted tier that must raise, the sync warnings of ten calls
+        with telemetry on against ten with it off, and the spans in the
+        profiler's trace beside the kernel's launches.  Then, outside the
+        trace, phase 2's ms/step with and without the session,
+        `make_step`'s wall per call through the ladder and through its
+        kernel tier's callable, and the first verified call's wall time
+        beside a warm call's."""
+        import shutil
+        import tempfile
+        import warnings
+
+        from igg_torch import degrade, profiling, telemetry as tel
+
+        it, t3 = self.it, self.t3
+        n, steps = self.n_head, self.n_inner
+        tag = f"diffusion {n}^3 periodic"
+        work = tempfile.mkdtemp(prefix="igg_phase21_")
+        trace_dir = os.path.join(work, "trace")
+        degrade.reset()
+        tel.reset_metrics()
+        g = self.grid((n, n, n), **SINGLE, **PERIODIC)
+        p = t3.Params()
+        T, Cp = t3.init_fields(p)
+        halo_per_call = 2 * 3 * n * n * 4     # three periodic dims, f32
+
+        def counter(name, **labels):
+            key = name + ("{" + ",".join(f'{k}="{v}"' for k, v in
+                                         sorted(labels.items())) + "}"
+                          if labels else "")
+            return tel.snapshot().get(key, {}).get("value", 0.0)
+
+        try:
+            with tel.Telemetry(os.path.join(work, "session")) as session, \
+                    profiling.trace(trace_dir):
+                # 1. diffusion, verified on its first call.
+                halo0 = counter("igg_halo_plane_bytes_total")
+                first, warm = self.verified(
+                    tag, lambda **kw: t3.make_multi_step(steps, p, **kw),
+                    (T, Cp), "diffusion3d.cuda")
+                halo = counter("igg_halo_plane_bytes_total") - halo0
+                # The verification's plain route makes `steps` update_halo
+                # calls; the kernel routes make none.
+                if halo != steps * halo_per_call or counter(
+                        "igg_halo_plane_bytes_total", dim="z",
+                        mode="local_grouped") != steps * halo_per_call / 3:
+                    raise SmokeFailure(f"{tag}: halo plane bytes {halo} != "
+                                       f"{steps} x {halo_per_call}")
+                calls = counter("igg_tier_dispatch_total",
+                                family="diffusion3d", tier="diffusion3d.cuda")
+                if calls != 3:      # verified, warm, and the unverified one
+                    raise SmokeFailure(f"{tag}: {calls} dispatches counted")
+                log(f"[phase 21] {tag}: make_multi_step({steps}, verify="
+                    f"'first_use') verified diffusion3d.cuda against "
+                    f"diffusion3d.plain in one span, output bitwise the "
+                    f"unverified route's; {calls:.0f} dispatches counted; "
+                    f"halo plane bytes {halo:.0f} = {steps} plain-route "
+                    f"update_halo calls x {halo_per_call}; in the trace: "
+                    f"first call {first * 1e3:.3f} ms, warm call "
+                    f"{warm * 1e3:.3f} ms [{self.card}]")
+                del T, Cp
+
+                # 2. every other family's main route, verified once.
+                m = self.n_wave
+                hp, wp = self.h3.Params(), self.w2.Params()
+                sp, swp = self.st3.Params(), self.sw.Params()
+                for ftag, grid, make, state, tier in (
+                        (f"HM3D {n}^3 periodic", ((n, n, n), PERIODIC),
+                         lambda **kw: self.h3.make_multi_step(10, hp, **kw),
+                         lambda: self.h3.init_fields(hp), "hm3d.cuda"),
+                        (f"wave2d {m}^2 periodic",
+                         ((m, m, 1), dict(periodx=1, periody=1)),
+                         lambda **kw: self.w2.make_multi_step(9, wp, **kw),
+                         lambda: self.wave_fresh(wp), "wave2d.chunk"),
+                        (f"Stokes {n}^3 periodic",
+                         ((n, n, n), dict(PERIODIC, **OL3)),
+                         lambda **kw: self.st3.make_iteration(
+                             sp, n_inner=9, **kw),
+                         lambda: it.update_halo(*self.st3.init_fields(sp)),
+                         "stokes3d.trapezoid"),
+                        (f"shallow_water {m}^2 periodic",
+                         ((m, m, 1), dict(periodx=1, periody=1)),
+                         lambda **kw: self.sw.make_step(swp, n_inner=9, **kw),
+                         lambda: self.sw_fresh(swp), "shallow_water.chunk")):
+                    self.grid(grid[0], **SINGLE, **grid[1])
+                    S = state()
+                    first, warm = self.verified(ftag, make, S, tier)
+                    log(f"[phase 21] {ftag}: {tier} verified against the "
+                        f"plain tier, output bitwise the unverified route's; "
+                        f"first call {first * 1e3:.3f} ms, warm call "
+                        f"{warm * 1e3:.3f} ms [{self.card}]")
+                    del S
+                gen = self.spec_gen("relax3d")
+                self.spec_grid("relax3d", "1x1x1_periodic", (n, n, n))
+                S = (it.update_halo(self.spec_state(
+                    gen, it.get_global_grid(), torch.float32, 97)[0]),)
+                for route, kw in (("chunk", {}),
+                                  ("banded", dict(banded=True, K=K_CHUNK,
+                                                  band=8))):
+                    first, warm = self.verified(
+                        f"relax3d {n}^3 periodic {route}",
+                        lambda kw=kw, **v: it.stencil.compile(
+                            gen.spec, coeffs=gen.coeffs, n_inner=9, **kw,
+                            **v), S, f"relax3d.{route}")
+                    log(f"[phase 21] relax3d {n}^3 periodic: relax3d.{route} "
+                        f"verified against the plain tier, output bitwise "
+                        f"the unverified route's; first call "
+                        f"{first * 1e3:.3f} ms, warm call {warm * 1e3:.3f} "
+                        f"ms [{self.card}]")
+                del S
+
+                # 3. a corrupted tier raises and serves nothing.
+                self.grid((n, n, n), **SINGLE, **PERIODIC)
+                T, Cp = t3.init_fields(p)
+                kernel = t3.make_multi_step(10, p)
+                served = []
+
+                def corrupted(T, Cp):
+                    out = kernel(T, Cp)
+                    out[n // 2, n // 2, n // 2] += 1.0
+                    served.append(1)
+                    return out
+
+                ladder = degrade.Ladder("smoke_corrupt", [
+                    degrade.Tier("smoke_corrupt.cuda", 0,
+                                 build=lambda: corrupted),
+                    degrade.Tier("smoke_corrupt.plain", 1, truth=True,
+                                 build=lambda: t3.make_multi_step(
+                                     10, p, use_kernels=False))],
+                    verify="first_use")
+                try:
+                    ladder.dispatch(T, Cp)
+                except self.it.GridError as e:
+                    why = str(e)
+                else:
+                    raise SmokeFailure("a corrupted tier passed verification")
+                if len(served) != 1 or "smoke_corrupt" in degrade.active():
+                    raise SmokeFailure("the corrupted tier served a call")
+                log(f"[phase 21] corrupted tier raised GridError: {why}")
+
+                # 4. telemetry adds no device sync.
+                step = t3.make_multi_step(steps, p)
+                step(T, Cp)
+
+                def sync_warnings(spans):
+                    torch.cuda.synchronize()
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        torch.cuda.set_sync_debug_mode("warn")
+                        try:
+                            for i in range(10):
+                                if spans:
+                                    with tel.span("phase21.call", step=i):
+                                        step(T, Cp)
+                                else:
+                                    step(T, Cp)
+                        finally:
+                            torch.cuda.set_sync_debug_mode("default")
+                    torch.cuda.synchronize()
+                    return [f"{os.path.basename(w.filename)}:{w.lineno}: "
+                            f"{str(w.message)[:120]}" for w in caught
+                            if "called a synchronizing CUDA operation"
+                            in str(w.message)]
+
+                on = sync_warnings(True)
+                session.detach()
+                os.environ["IGG_TELEMETRY_SPANS"] = "0"
+                try:
+                    off = sync_warnings(False)
+                finally:
+                    del os.environ["IGG_TELEMETRY_SPANS"]
+                session.attach()
+                if len(on) != len(off):
+                    raise SmokeFailure(f"sync warnings with telemetry on "
+                                       f"{on}, off {off}")
+                on, off = len(on), len(off)
+                log(f"[phase 21] ten make_multi_step({steps}) calls under "
+                    f"set_sync_debug_mode('warn'): {on} sync warnings with "
+                    f"the session and spans on, {off} with telemetry off")
+                torch.cuda.synchronize()
+
+            # 5. the profiler's trace holds the spans beside the launches.
+            with open(profiling.trace_file(trace_dir)) as f:
+                events = json.load(f)["traceEvents"]
+            names = {e.get("name") for e in events}
+            launches = sum(1 for e in events if e.get("cat") == "kernel"
+                           and "step_kernel" in str(e.get("name")))
+            missing = {"degrade.verify_first_use", "phase21.call"} - names
+            if missing or not launches:
+                raise SmokeFailure(f"profiler trace: spans {missing} missing "
+                                   f"or no step_kernel launch ({launches})")
+            with open(session.trace_path) as f:
+                spans = json.load(f)["traceEvents"]
+            log(f"[phase 21] profiler trace: {len(events)} events, "
+                f"{launches} step_kernel launches beside the spans "
+                f"degrade.verify_first_use and phase21.call; the session's "
+                f"trace holds {len(spans)} spans; "
+                f"{sorted(os.listdir(os.path.join(work, 'session')))}")
+
+            # 6. times outside the trace: phase 2's make_multi_step with
+            # and without the session, the ladder's and the halo byte
+            # counter's host time, and the first verified call.
+            g = self.grid((n, n, n), **SINGLE, **PERIODIC)
+            T, Cp = t3.init_fields(p)
+            step = t3.make_multi_step(steps, p)
+            n1, n2 = self.nt_multi // 4, self.nt_multi
+
+            def timed(attached):
+                if not attached:
+                    _, sec = it.time_steps(lambda T, Cp: (step(T, Cp), Cp),
+                                           (T, Cp), n1=n1, n2=n2, warmup=1)
+                    return sec / steps
+
+                def spanned(T, Cp):
+                    with tel.span("phase21.call"):
+                        return step(T, Cp), Cp
+                with tel.Telemetry(os.path.join(work, "timed")):
+                    _, sec = it.time_steps(spanned, (T, Cp), n1=n1, n2=n2,
+                                           warmup=1)
+                return sec / steps
+
+            bare = [timed(False)]
+            attached = [timed(True), timed(True)]
+            bare.append(timed(False))
+            # The ladder's own walk (admission, the dispatch counter, the
+            # active-tier record) on make_step's host-bound call: the
+            # factory against its kernel tier's callable, in turns.
+            one = t3.make_step(p)
+            tier = one.ladder._fn(one.ladder.tier("diffusion3d.cuda"))
+            walls = {}
+            for name in ("tier", "ladder", "ladder", "tier"):
+                fn = one if name == "ladder" else tier
+                _, sec = it.time_steps(lambda T, Cp: (fn(T, Cp), Cp),
+                                       (T, Cp), n1=10, n2=40, warmup=2)
+                walls.setdefault(name, []).append(sec * 1e3)
+            log(f"[phase 21] {tag} make_step wall per call through the "
+                f"ladder {walls['ladder']} ms, through its kernel tier's "
+                f"callable {walls['tier']} ms (in turns: tier, ladder, "
+                f"ladder, tier) [{self.card}]")
+            # The halo byte counter's host cost in one update_halo call of
+            # phase 5's field.
+            t0 = time.perf_counter()
+            for _ in range(2000):
+                self.halo.count_plane_bytes([g.nxyz], [torch.float32], g)
+            count_us = (time.perf_counter() - t0) / 2000 * 1e6
+            log(f"[phase 21] igg_halo_plane_bytes_total's count for one "
+                f"{n}^3 f32 field: {count_us:.2f} us of host time per "
+                f"update_halo call [{self.card}]")
+            degrade.reset()
+            first, warm = self.verified(
+                tag, lambda **kw: t3.make_multi_step(steps, p, **kw),
+                (T, Cp), "diffusion3d.cuda")
+            log(f"[phase 21] {tag} make_multi_step({steps}) in turns without/"
+                f"with/with/without the session (each call in a span): "
+                f"{bare[0] * 1e3:.5f}, {attached[0] * 1e3:.5f}, "
+                f"{attached[1] * 1e3:.5f}, {bare[1] * 1e3:.5f} ms/step; first "
+                f"verified call {first * 1e3:.3f} ms, warm call "
+                f"{warm * 1e3:.3f} ms [{self.card}]")
+            self.perf["observability"] = dict(
+                ms_per_step_without_session=[v * 1e3 for v in bare],
+                ms_per_step_with_session=[v * 1e3 for v in attached],
+                first_verified_call_ms=first * 1e3, warm_call_ms=warm * 1e3,
+                make_step_wall_ms=walls, halo_count_us=count_us)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+
     def main_path(self):
-        """Phases 2 to 20, each with the launch counters set to 0 just
+        """Phases 2 to 21, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -3264,7 +3597,7 @@ class Smoke:
             ("16", self.diffusion_banded), ("17", self.hm3d_banded),
             ("18", lambda: self.stokes_banded(18, one_block=True)),
             ("19", lambda: self.stokes_banded(19, one_block=False)),
-            ("20", self.relax3d_banded)]
+            ("20", self.relax3d_banded), ("21", self.observability)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()
@@ -3418,6 +3751,7 @@ def main() -> int:
                 log(f"[ptxas {name}] {line.strip()}")
 
     smoke = Smoke(torch.device("cuda"))
+    smoke.card = card
     smoke.first = first
     smoke.first_gen = {n: first[f"gen:{cases.kernels(n).tag}"]
                        for n in cases.SPECS_3D}

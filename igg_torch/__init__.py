@@ -10,7 +10,10 @@ CUDA kernels for the fused diffusion, HM3D and wave2d steps and Stokes
 iteration (the first two also the K-step loop of a one-block grid), the
 in-place halo writer, the y/z plane packer and the diffusion, HM3D, wave2d
 and Stokes steps of a K-step chunk, and CUDA kernels generated from a
-stencil spec for its fused step and its K-step chunk step.  Grid arrays are
+stencil spec for its fused step and its K-step chunk step; `telemetry`
+(event bus, metrics, spans, sessions), `profiling` (`torch.profiler`
+traces) and `degrade` (the tier ladder every factory dispatches through,
+with `verify=`).  Grid arrays are
 block-stacked tensors on one device; entry points use the card unless the
 caller passes `device="cpu"`.  Imports neither JAX nor `igg`.
 """
@@ -21,7 +24,8 @@ from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import stencil
+from . import degrade, profiling, stencil, telemetry
+from .telemetry import Telemetry
 from .init import init_global_grid
 from .parallel import local_coords, sharded
 from .shared import (NDIMS, PROC_NULL, GlobalGrid, GridError, check_initialized,
@@ -33,14 +37,15 @@ from .tools import (barrier, coord_fields, nx_g, ny_g, nz_g, spacing, tic, toc,
                     x_g, x_g_field, y_g, y_g_field, z_g, z_g_field)
 
 __all__ = [
-    "NDIMS", "PROC_NULL", "GlobalGrid", "GridError", "barrier",
-    "check_initialized", "coord_fields", "finalize_global_grid",
+    "NDIMS", "PROC_NULL", "GlobalGrid", "GridError", "Telemetry", "barrier",
+    "check_initialized", "coord_fields", "degrade", "finalize_global_grid",
     "from_local_blocks", "full", "gather", "gather_interior",
     "get_global_grid", "global_grid", "grid_epoch", "grid_is_initialized",
     "has_neighbor", "init_global_grid", "local_block", "local_blocks",
     "local_coords", "me", "memory_stats", "neighbor", "neighbors", "nx_g",
-    "ny_g", "nz_g", "ol", "ones", "select_device", "sharded", "spacing",
-    "stacked_shape", "stencil", "tic", "time_steps", "toc", "update_halo",
+    "ny_g", "nz_g", "ol", "ones", "profiling", "select_device", "sharded",
+    "spacing", "stacked_shape", "stencil", "telemetry", "tic", "time_steps",
+    "toc", "update_halo",
     "update_halo_local", "x_g", "x_g_field", "y_g", "y_g_field", "z_g",
     "z_g_field", "zeros",
 ]

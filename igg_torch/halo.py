@@ -35,7 +35,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from . import shared
+from . import shared, telemetry
 from .shared import NDIMS, GridError
 
 
@@ -273,6 +273,50 @@ def send_planes(A, dims, grid, wraps=frozenset()):
     return sends, stales
 
 
+def plane_bytes_by_mode(local_shapes, dtypes, grid
+                        ) -> Dict[Tuple[str, str], int]:
+    """The `igg_halo_plane_bytes_total` accounting of one `update_halo`
+    call (igg's `plane_bytes_by_mode`), by ``(dim, mode)``: per field and
+    per moving dim, two boundary planes per block, summed over the blocks.
+    `mode` is ``wire_grouped`` where the dim has several blocks (the planes
+    cross blocks: :func:`exchange_planes`) and ``local_grouped`` where one
+    periodic block wraps onto itself; the port has no stacked lane
+    program, so no field is ``*_stacked`` (igg's classification on the
+    CPU).  Host arithmetic only."""
+    out: Dict[Tuple[str, str], int] = {}
+    for ls, dtype in zip(local_shapes, dtypes):
+        elems = 1
+        for v in ls:
+            elems *= int(v)
+        for d, _ in moving_dims(active_dims(ls, grid), grid):
+            transport = "wire" if grid.dims[d] > 1 else "local"
+            key = ("xyz"[d] if d < 3 else str(d), f"{transport}_grouped")
+            out[key] = out.get(key, 0) + (2 * (elems // int(ls[d]))
+                                          * dtype.itemsize * grid.nprocs)
+    return out
+
+
+# {(grid epoch, local shapes, dtypes): (total, sorted (dim, mode) bytes)}:
+# the accounting of a call signature, formed once.
+_PLANE_BYTES: Dict = {}
+
+
+def count_plane_bytes(local_shapes, dtypes, grid) -> None:
+    """Add one call's plane bytes to `igg_halo_plane_bytes_total`,
+    unlabeled and by ``(dim, mode)``, as igg's `update_halo` does."""
+    key = (shared.grid_epoch(), tuple(local_shapes), tuple(dtypes))
+    got = _PLANE_BYTES.get(key)
+    if got is None:
+        by_mode = plane_bytes_by_mode(local_shapes, dtypes, grid)
+        got = _PLANE_BYTES[key] = (sum(by_mode.values()),
+                                   sorted(by_mode.items()))
+    total, items = got
+    telemetry.counter("igg_halo_plane_bytes_total").inc(total)
+    for (dim, mode), nbytes in items:
+        telemetry.counter("igg_halo_plane_bytes_total", dim=dim,
+                          mode=mode).inc(nbytes)
+
+
 def _update_field(A, grid, write) -> None:
     s = grid.local_shape(A)
     dims = moving_dims(active_dims(s, grid), grid)
@@ -296,10 +340,13 @@ def update_halo(*fields, plain: bool = False):
     it (them).  Several fields in one call are checked together (no
     duplicates, one dtype) and updated one after the other.  On a CUDA
     tensor each field costs one launch of the halo-writer kernel;
-    `plain=True` asks for the writer's plain PyTorch version instead."""
+    `plain=True` asks for the writer's plain PyTorch version instead.
+    Each call adds its plane bytes to `igg_halo_plane_bytes_total`
+    (:func:`count_plane_bytes`)."""
     grid = shared.global_grid()
     local_shapes = [grid.local_shape(A) for A in fields]
     check_fields(grid, fields, local_shapes)
+    count_plane_bytes(local_shapes, [A.dtype for A in fields], grid)
     write = _writer(plain)
     for A in fields:
         _update_field(A, grid, write)

@@ -1,13 +1,28 @@
-"""Route resolution shared by the models (`igg/models/_dispatch.py`).
+"""Route resolution and the tier ladder shared by the models
+(`igg/models/_dispatch.py`).
 
-Only the banded tier's rules are ported: `resolve_band` and the
-`banded="auto"|True|False` decision of the diffusion and HM3D models; the
-tier ladder, its `verify=`/`tune=` arguments and the autotuner's cache are
-later work.
+:func:`auto_dispatch` builds a family's :class:`igg_torch.degrade.Ladder`:
+one tier per kernel route, then the plain truth tier.  Tier names follow
+igg's `<family>.<route>`:
+
+| igg | port |
+| --- | --- |
+| `<family>.trapezoid`, `.chunk`, `.banded` | the same name, the same route |
+| `<family>.mosaic` (the fused kernel) | `<family>.cuda` |
+| `<family>.xla` (the truth rung) | `<family>.plain` |
+
+The route rules themselves are each family's (its `_kernel_path`, the
+banded tier's `band_config` here and the chunk fits of `igg_torch.ops`):
+a family's `plan` names the one route that serves a call, and each tier
+admits the calls its route is named for.  So the ladder changes no route
+and no output, and `verify=` adds the check of the route against the
+plain version.  `resolve_band` and `band_config` are the banded tier's
+rules; the autotuner's cache and `tune=` are later work.
 """
 
 from __future__ import annotations
 
+from .. import shared
 from ..shared import GridError
 
 
@@ -48,3 +63,64 @@ def band_config(banded, K, band, n_inner: int, *, resident, supported, fit,
         raise GridError(f"{requirement}; none admits n_inner={n_inner}, "
                         f"K={K}, band={band}")
     return kb
+
+
+def required_routes(use_kernels, banded="auto", chunk="auto") -> tuple:
+    """The routes a factory's knobs require: "cuda" with
+    `use_kernels=True`, "banded" with `banded=True`, "chunk" with
+    `chunk=True`."""
+    return tuple(r for r, knob in (("cuda", use_kernels), ("banded", banded),
+                                   ("chunk", chunk)) if knob is True)
+
+
+def auto_dispatch(*, family: str, plan, routes, plain, required=(),
+                  verify=None):
+    """The dispatcher of a model factory: a :class:`igg_torch.degrade.
+    Ladder` for `family` whose tiers are `routes` (`{route: run}`, in
+    ladder order; tier `<family>.<route>`), then `<family>.plain`, the
+    truth tier serving `plain(*args)`.
+
+    `plan(*args)` names the route of a call, `(route, cfg)`: "plain" or a
+    key of `routes`, and the configuration `run(cfg, *args)` takes; it
+    raises where the family's route rules raise.  It reads only the
+    arguments' shapes, dtypes and devices and the grid, so its verdict is
+    kept per argument signature and grid epoch.  The tiers named in
+    `required` raise when refused (`use_kernels=True` names "cuda",
+    `banded=True` "banded").  `verify` is the ladder's (None:
+    `IGG_VERIFY_KERNELS` decides).  The returned callable exposes the
+    ladder as `.ladder`."""
+    from ..degrade import Admission, Ladder, Tier
+
+    verdicts = {}
+
+    def planned(args):
+        key = (shared.grid_epoch(),) + tuple(
+            (tuple(a.shape), a.dtype, a.device) for a in args)
+        got = verdicts.get(key)
+        if got is None:
+            got = verdicts[key] = plan(*args)
+        return got
+
+    def tier(rung, route, run):
+        def admit(args):
+            got = planned(args)[0]
+            return (Admission.yes() if got == route else Admission.no(
+                f"the route rules give {family}.{got}"))
+
+        def build():
+            return lambda *args: run(planned(args)[1], *args)
+
+        return Tier(name=f"{family}.{route}", rung=rung, build=build,
+                    admit=admit, required=route in required)
+
+    tiers = [tier(i, route, run)
+             for i, (route, run) in enumerate(routes.items())]
+    tiers.append(Tier(name=f"{family}.plain", rung=len(tiers),
+                      build=lambda: plain, truth=True))
+    ladder = Ladder(family, tiers, verify=verify)
+
+    def dispatch(*args):
+        return ladder.dispatch(*args)
+
+    dispatch.ladder = ladder
+    return dispatch

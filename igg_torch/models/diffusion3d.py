@@ -49,7 +49,7 @@ from ..ops import chunk_engine, diffusion_pallas
 from ..ops import diffusion_trapezoid as dtz
 from ..shared import GridError
 from ..timing import time_steps
-from ._dispatch import band_config
+from ._dispatch import auto_dispatch, band_config, required_routes
 
 _BANDED_REQ = ("banded=True needs the fused kernels (use_kernels 'auto' or "
                "True, on a grid they serve) and an admissible banded config "
@@ -113,9 +113,10 @@ def local_step(T, Cp, *, dx, dy, dz, dt, lam):
         compute_step(T, Cp, dx=dx, dy=dy, dz=dz, dt=dt, lam=lam))
 
 
-def make_step(params: Params = Params(), *, use_kernels="auto"):
+def make_step(params: Params = Params(), *, use_kernels="auto",
+              verify=None):
     """`(T, Cp) -> T` advancing one step (see :func:`make_multi_step`)."""
-    return make_multi_step(1, params, use_kernels=use_kernels)
+    return make_multi_step(1, params, use_kernels=use_kernels, verify=verify)
 
 
 def _kernel_path(use_kernels, T) -> bool:
@@ -135,11 +136,19 @@ def _kernel_path(use_kernels, T) -> bool:
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
                     use_kernels="auto", banded="auto", K: int = None,
-                    band: int = None):
+                    band: int = None, verify=None):
     """`(T, Cp) -> T` advancing `n_inner` steps; returns a new tensor and
     leaves `T` as it was.  `use_kernels` picks the path, `banded`, `K` and
     `band` the banded tier (module docstring).  The returned function
-    keeps `A = dt*lam/Cp` of the last `Cp` it was given."""
+    keeps `A = dt*lam/Cp` of the last `Cp` it was given.
+
+    The call runs through the family's tier ladder
+    (:func:`igg_torch.models._dispatch.auto_dispatch`): `diffusion3d.banded`
+    (the banded tier), `diffusion3d.cuda` (the other kernel routes) and
+    `diffusion3d.plain` (the plain composition).  `verify="first_use"`
+    (igg's argument; None: `IGG_VERIFY_KERNELS` decides) checks a kernel
+    tier against the plain composition once per argument signature before
+    it serves, and raises where they disagree."""
     if n_inner < 1:
         raise GridError(f"n_inner must be >= 1, got {n_inner}")
     if banded not in ("auto", True, False):
@@ -161,19 +170,16 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
             last.update(Cp=Cp, version=Cp._version, A=dt_lam / Cp)
         return last["A"]
 
-    def step(T, Cp):
+    def plan(T, Cp):
+        """The route of a call: ("plain", None), ("banded", (K, B)) or
+        ("cuda", bx)."""
         grid = shared.global_grid()
-        A = coefficient(Cp)
-        local = grid.local_shape(T)
         if not _kernel_path(use_kernels, T):
             if banded is True:
                 raise GridError(f"{_BANDED_REQ}; the plain composition "
                                 f"serves this field")
-            for _ in range(n_inner):
-                T = halo.update_halo(
-                    diffusion_pallas.block_diffusion_compute(T, A, local, **sc),
-                    plain=True)
-            return T
+            return "plain", None
+        local = grid.local_shape(T)
         bx = chunk_engine.default_K(grid.nxyz[0])
         kb = band_config(
             banded, K, band, n_inner, requirement=_BANDED_REQ,
@@ -184,17 +190,35 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
                 grid, local, k, n_inner - 1, T.dtype, B=b) is None,
             fit=lambda bands: dtz.fit_diffusion_band(
                 grid, local, n_inner - 1, T.dtype, bands=bands))
-        if kb is None:
-            return diffusion_pallas.fused_diffusion_steps(
-                T, A, n_inner=n_inner, bx=bx, **sc)
+        return ("banded", kb) if kb else ("cuda", bx)
+
+    def plain(T, Cp):
+        A = coefficient(Cp)
+        local = shared.global_grid().local_shape(T)
+        for _ in range(n_inner):
+            T = halo.update_halo(
+                diffusion_pallas.block_diffusion_compute(T, A, local, **sc),
+                plain=True)
+        return T
+
+    def kernels(bx, T, Cp):
+        return diffusion_pallas.fused_diffusion_steps(
+            T, coefficient(Cp), n_inner=n_inner, bx=bx, **sc)
+
+    def banded_steps(kb, T, Cp):
+        A = coefficient(Cp)
         T = diffusion_pallas.fused_diffusion_step(T, A, **sc)
         T, done = dtz.fused_diffusion_banded_steps(
-            T, A, n_inner=n_inner - 1, K=kb[0], B=kb[1], grid=grid, **sc)
+            T, A, n_inner=n_inner - 1, K=kb[0], B=kb[1],
+            grid=shared.global_grid(), **sc)
         for _ in range(n_inner - 1 - done):
             T = diffusion_pallas.fused_diffusion_step(T, A, **sc)
         return T
 
-    return step
+    return auto_dispatch(
+        family="diffusion3d", plan=plan,
+        routes={"banded": banded_steps, "cuda": kernels}, plain=plain,
+        required=required_routes(use_kernels, banded), verify=verify)
 
 
 def run(nt: int, params: Params = Params(), dtype=torch.float32,

@@ -54,7 +54,7 @@ from .. import fields, halo, shared, tools
 from ..ops.stencil import block_boundary_mask, divisor, interior_add
 from ..shared import GridError
 from ..timing import time_steps
-from ._dispatch import band_config
+from ._dispatch import auto_dispatch, band_config, required_routes
 
 _BANDED_REQ = ("banded=True needs the fused kernels (use_kernels 'auto' or "
                "True, on a grid they serve) and an admissible banded config "
@@ -175,10 +175,11 @@ def local_step(Pe, phi, *, dx, dy, dz, dt, phi0, npow, eta):
         Pe, phi, dx=dx, dy=dy, dz=dz, dt=dt, phi0=phi0, npow=npow, eta=eta))
 
 
-def make_step(params: Params = Params(), *, use_kernels="auto"):
+def make_step(params: Params = Params(), *, use_kernels="auto",
+              verify=None):
     """`(Pe, phi) -> (Pe, phi)` advancing one step (see
     :func:`make_multi_step`)."""
-    return make_multi_step(1, params, use_kernels=use_kernels)
+    return make_multi_step(1, params, use_kernels=use_kernels, verify=verify)
 
 
 def _kernel_path(use_kernels, Pe, phi) -> bool:
@@ -200,14 +201,21 @@ def _kernel_path(use_kernels, Pe, phi) -> bool:
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
                     use_kernels="auto", K: int = None, banded="auto",
-                    band: int = None):
+                    band: int = None, verify=None):
     """`(Pe, phi) -> (Pe, phi)` advancing `n_inner` steps; returns new
     tensors and leaves its inputs as they were.  `use_kernels` picks the
     path, `banded` and `band` the banded tier (module docstring); `K` is
     the chunk depth of the chunk route or the banded tier (default: 8
     where it divides the block's x extent,
     :func:`igg_torch.ops.chunk_engine.default_K`, and the banded tier's
-    fit)."""
+    fit).
+
+    The call runs through the family's tier ladder
+    (:func:`igg_torch.models._dispatch.auto_dispatch`): `hm3d.trapezoid`
+    (the chunk route of several blocks), `hm3d.banded`, `hm3d.cuda` (the
+    K-step loop and the per-step kernel) and `hm3d.plain`.
+    `verify="first_use"` checks a kernel tier against the plain
+    composition before it serves and raises where they disagree."""
     from ..ops import chunk_engine
 
     if n_inner < 1:
@@ -221,40 +229,65 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
                         f"composition")
     kw = params.step_kwargs()
 
-    def step(Pe, phi):
-        from ..ops import hm3d_pallas, hm3d_trapezoid as htz
+    def plan(Pe, phi):
+        """The route of a call: ("plain", None), ("banded", (K, B)),
+        ("trapezoid", K) or ("cuda", K)."""
+        from ..ops import hm3d_trapezoid as htz
 
         grid = shared.global_grid()
-        local = grid.local_shape(Pe)
         if not _kernel_path(use_kernels, Pe, phi):
             if banded is True:
                 raise GridError(f"{_BANDED_REQ}; the plain composition "
                                 f"serves these fields")
-            for _ in range(n_inner):
-                Pe, phi = block_compute(Pe, phi, local, **kw)
-                halo.update_halo(Pe, phi, plain=True)
-            return Pe, phi
+            return "plain", None
+        local = grid.local_shape(Pe)
         Kc = K or chunk_engine.default_K(grid.nxyz[0])
+        loop = grid.dims == (1, 1, 1) and n_inner >= 2
+        chunked = not loop and htz.hm3d_trapezoid_refusal(
+            grid, local, Kc, n_inner - 1, Pe.dtype) is None
         kb = band_config(
             banded, K, band, n_inner, requirement=_BANDED_REQ,
-            resident=lambda: (grid.dims == (1, 1, 1) and n_inner >= 2) or
-            htz.hm3d_trapezoid_refusal(grid, local, Kc, n_inner - 1,
-                                       Pe.dtype) is None,
+            resident=lambda: loop or chunked,
             supported=lambda k, b: htz.hm3d_banded_refusal(
                 grid, local, k, n_inner - 1, Pe.dtype, B=b) is None,
             fit=lambda bands: htz.fit_hm3d_band(
                 grid, local, n_inner - 1, Pe.dtype, bands=bands))
-        if kb is None:
-            return hm3d_pallas.fused_hm3d_steps(Pe, phi, n_inner=n_inner,
-                                                K=Kc, **kw)
+        if kb:
+            return "banded", kb
+        return ("trapezoid" if chunked else "cuda"), Kc
+
+    def plain(Pe, phi):
+        local = shared.global_grid().local_shape(Pe)
+        for _ in range(n_inner):
+            Pe, phi = block_compute(Pe, phi, local, **kw)
+            halo.update_halo(Pe, phi, plain=True)
+        return Pe, phi
+
+    def kernels(Kc, Pe, phi):
+        """The K-step loop, the chunk route or the per-step kernel, as
+        `fused_hm3d_steps` dispatches them."""
+        from ..ops import hm3d_pallas
+
+        return hm3d_pallas.fused_hm3d_steps(Pe, phi, n_inner=n_inner, K=Kc,
+                                            **kw)
+
+    def banded_steps(kb, Pe, phi):
+        from ..ops import hm3d_pallas, hm3d_trapezoid as htz
+
         Pe, phi = hm3d_pallas.fused_hm3d_step(Pe, phi, **kw)
         Pe, phi, done = htz.fused_hm3d_banded_steps(
-            Pe, phi, n_inner=n_inner - 1, K=kb[0], B=kb[1], grid=grid, **kw)
+            Pe, phi, n_inner=n_inner - 1, K=kb[0], B=kb[1],
+            grid=shared.global_grid(), **kw)
         for _ in range(n_inner - 1 - done):
             Pe, phi = hm3d_pallas.fused_hm3d_step(Pe, phi, **kw)
         return Pe, phi
 
-    return step
+    return auto_dispatch(
+        family="hm3d", plan=plan,
+        routes={"trapezoid": kernels, "banded": banded_steps,
+                "cuda": kernels},
+        plain=plain, required=required_routes(use_kernels, banded),
+        verify=verify)
 
 
 def run(nt: int, params: Params = Params(), dtype=torch.float32,

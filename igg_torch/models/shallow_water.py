@@ -12,7 +12,7 @@ local shapes `(nx, ny)`, `(nx+1, ny)`, `(nx, ny+1)` on a 2-D grid
 (`init_global_grid(nx, ny, 1, ...)`).
 
 Not ported here: the integrity invariant's registration (the spec carries
-its `total_mass` declaration), `verify=` and `tune=`.
+its `total_mass` declaration) and `tune=`.
 """
 
 from __future__ import annotations
@@ -70,15 +70,16 @@ def init_fields(params: Params = Params(), dtype=torch.float32):
 
 
 def make_step(params: Params = Params(), *, n_inner: int = 1,
-              use_kernels="auto", chunk="auto", K: int = None):
+              use_kernels="auto", chunk="auto", K: int = None, verify=None):
     """`(h, hu, hv) -> (h, hu, hv)` advancing `n_inner` steps:
     :func:`igg_torch.stencil.compile` with this family's spec and coeffs
-    (`use_kernels`, `chunk` and `K` as there)."""
+    (`use_kernels`, `chunk`, `K` and `verify` as there; the ladder's
+    family is the spec's name, "shallow_water")."""
     from .. import stencil
 
     return stencil.compile(spec(params), coeffs=params.coeffs(),
                            n_inner=n_inner, use_kernels=use_kernels,
-                           chunk=chunk, K=K)
+                           chunk=chunk, K=K, verify=verify)
 
 
 def mass(h) -> float:

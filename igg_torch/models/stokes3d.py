@@ -62,7 +62,7 @@ refuses, True takes it or raises a GridError naming "banded" (also with
 the band kernel's plain version runs.
 
 Not ported here: `local_iteration(overlap=True)` (`igg.hide_communication`)
-and the tier ladder's `verify=`/`tune=` arguments.
+and the autotuner's `tune=` argument.
 """
 
 from __future__ import annotations
@@ -76,6 +76,7 @@ from .. import fields, halo, shared, tools
 from ..ops.stencil import divisor, interior_add
 from ..shared import GridError
 from ..timing import time_steps
+from ._dispatch import auto_dispatch, required_routes
 
 @dataclasses.dataclass(frozen=True)
 class Params:
@@ -221,13 +222,20 @@ def _kernel_path(use_kernels, P, Vx, Vy, Vz, Rho) -> bool:
 
 def make_iteration(params: Params = Params(), *, n_inner: int = 1,
                    use_kernels="auto", K: int = None, banded="auto",
-                   band: int = None):
+                   band: int = None, verify=None):
     """`(P, Vx, Vy, Vz, Rho) -> (P, Vx, Vy, Vz)` advancing `n_inner`
     iterations; returns new tensors and leaves its inputs as they were.
     `use_kernels` picks the path (module docstring); `K` is the chunk depth
     of the chunk route, which serves only where the chunk admits it
     (default: the largest of 8, 4, 2 it admits, igg's `fit_stokes_K`);
-    `banded` and `band` the banded tier (module docstring)."""
+    `banded` and `band` the banded tier (module docstring).
+
+    The call runs through the family's tier ladder
+    (:func:`igg_torch.models._dispatch.auto_dispatch`):
+    `stokes3d.trapezoid` (the chunk route), `stokes3d.banded`,
+    `stokes3d.cuda` (the per-iteration kernel) and `stokes3d.plain`.
+    `verify="first_use"` checks a kernel tier against the plain
+    composition before it serves and raises where they disagree."""
     from ..ops.stokes_pallas import BANDED_REQ
 
     if n_inner < 1:
@@ -239,24 +247,39 @@ def make_iteration(params: Params = Params(), *, n_inner: int = 1,
                         f"composition")
     kw = _pseudo_steps(params)
 
-    def iterate(P, Vx, Vy, Vz, Rho):
+    def plan(P, Vx, Vy, Vz, Rho):
+        """The route of a call and its `(Kf, kb)`
+        (:func:`igg_torch.ops.stokes_pallas.stokes_route`)."""
         from ..ops import stokes_pallas
 
         if not _kernel_path(use_kernels, P, Vx, Vy, Vz, Rho):
             if banded is True:
                 raise GridError(f"{BANDED_REQ}; the plain composition "
                                 f"serves these fields")
-            blocks = shared.global_grid().dims
-            for _ in range(n_inner):
-                P, Vx, Vy, Vz = block_compute(P, Vx, Vy, Vz, Rho, blocks,
-                                              **kw)
-                halo.update_halo(P, Vx, Vy, Vz, plain=True)
-            return P, Vx, Vy, Vz
-        return stokes_pallas.fused_stokes_iterations(
-            P, Vx, Vy, Vz, Rho, n_inner=n_inner, K=K, banded=banded,
-            band=band, **kw)
+            return "plain", None
+        Kf, kb = stokes_pallas.stokes_route(
+            shared.global_grid(), P, n_inner=n_inner, K=K, banded=banded,
+            band=band)
+        return ("trapezoid" if Kf else "banded" if kb else "cuda"), (Kf, kb)
 
-    return iterate
+    def plain(P, Vx, Vy, Vz, Rho):
+        blocks = shared.global_grid().dims
+        for _ in range(n_inner):
+            P, Vx, Vy, Vz = block_compute(P, Vx, Vy, Vz, Rho, blocks, **kw)
+            halo.update_halo(P, Vx, Vy, Vz, plain=True)
+        return P, Vx, Vy, Vz
+
+    def kernels(route, P, Vx, Vy, Vz, Rho):
+        from ..ops import stokes_pallas
+
+        return stokes_pallas.fused_stokes_iterations(
+            P, Vx, Vy, Vz, Rho, n_inner=n_inner, route=route, **kw)
+
+    return auto_dispatch(
+        family="stokes3d", plan=plan,
+        routes={"trapezoid": kernels, "banded": kernels, "cuda": kernels},
+        plain=plain, required=required_routes(use_kernels, banded),
+        verify=verify)
 
 
 def run(n_iters: int, params: Params = Params(), dtype=torch.float32,

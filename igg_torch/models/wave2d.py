@@ -57,6 +57,7 @@ from .. import fields, halo, shared, tools
 from ..ops.stencil import divisor
 from ..shared import GridError
 from ..timing import time_steps
+from ._dispatch import auto_dispatch, required_routes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,10 +139,11 @@ def local_step(P, Vx, Vy, *, dx, dy, dt, rho, K):
         P, Vx, Vy, dx=dx, dy=dy, dt=dt, rho=rho, K=K))
 
 
-def make_step(params: Params = Params(), *, use_kernels="auto"):
+def make_step(params: Params = Params(), *, use_kernels="auto",
+              verify=None):
     """`(P, Vx, Vy) -> (P, Vx, Vy)` advancing one step (see
     :func:`make_multi_step`)."""
-    return make_multi_step(1, params, use_kernels=use_kernels)
+    return make_multi_step(1, params, use_kernels=use_kernels, verify=verify)
 
 
 def _kernel_path(use_kernels, P, Vx, Vy) -> bool:
@@ -164,13 +166,19 @@ def _kernel_path(use_kernels, P, Vx, Vy) -> bool:
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
                     use_kernels="auto", K: int = None, banded="auto",
-                    band: int = None):
+                    band: int = None, verify=None):
     """`(P, Vx, Vy) -> (P, Vx, Vy)` advancing `n_inner` steps; returns new
     tensors and leaves its inputs as they were.  `use_kernels` picks the
     path (module docstring); `K` is the chunk depth of the chunk route,
     which serves only where the chunk admits it (default: the largest of 8,
     4, 2 it admits, igg's `fit_wave2d_K`); `banded` and `band` the banded
-    tier (module docstring)."""
+    tier (module docstring).
+
+    The call runs through the family's tier ladder
+    (:func:`igg_torch.models._dispatch.auto_dispatch`): `wave2d.chunk`,
+    `wave2d.banded`, `wave2d.cuda` (the per-step kernel) and
+    `wave2d.plain`.  `verify="first_use"` checks a kernel tier against the
+    plain composition before it serves and raises where they disagree."""
     from ..ops.wave2d_pallas import BANDED_REQ
 
     if n_inner < 1:
@@ -182,22 +190,39 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
                         f"composition")
     kw = params.step_kwargs()
 
-    def step(P, Vx, Vy):
+    def plan(P, Vx, Vy):
+        """The route of a call and its `(Kf, kb)`
+        (:func:`igg_torch.ops.wave2d_pallas.wave2d_route`)."""
         from ..ops import wave2d_pallas
 
         if not _kernel_path(use_kernels, P, Vx, Vy):
             if banded is True:
                 raise GridError(f"{BANDED_REQ}; the plain composition "
                                 f"serves these fields")
-            blocks = shared.global_grid().dims[:2]
-            for _ in range(n_inner):
-                P, Vx, Vy = block_compute(P, Vx, Vy, blocks, **kw)
-                halo.update_halo(P, Vx, Vy, plain=True)
-            return P, Vx, Vy
-        return wave2d_pallas.fused_wave2d_steps(
-            P, Vx, Vy, n_inner=n_inner, K=K, banded=banded, band=band, **kw)
+            return "plain", None
+        Kf, kb = wave2d_pallas.wave2d_route(
+            shared.global_grid(), P, n_inner=n_inner, K=K, banded=banded,
+            band=band)
+        return ("chunk" if Kf else "banded" if kb else "cuda"), (Kf, kb)
 
-    return step
+    def plain(P, Vx, Vy):
+        blocks = shared.global_grid().dims[:2]
+        for _ in range(n_inner):
+            P, Vx, Vy = block_compute(P, Vx, Vy, blocks, **kw)
+            halo.update_halo(P, Vx, Vy, plain=True)
+        return P, Vx, Vy
+
+    def kernels(route, P, Vx, Vy):
+        from ..ops import wave2d_pallas
+
+        return wave2d_pallas.fused_wave2d_steps(
+            P, Vx, Vy, n_inner=n_inner, route=route, **kw)
+
+    return auto_dispatch(
+        family="wave2d", plan=plan,
+        routes={"chunk": kernels, "banded": kernels, "cuda": kernels},
+        plain=plain, required=required_routes(use_kernels, banded),
+        verify=verify)
 
 
 def energy(P, Vx, Vy) -> float:

@@ -187,10 +187,33 @@ BANDED_REQ = ("banded=True needs the Stokes kernels (use_kernels 'auto' or "
               "stokes_banded_refusal)")
 
 
+def stokes_route(grid, P, *, n_inner: int, K: Optional[int] = None,
+                 banded="auto", band: Optional[int] = None):
+    """The route of :func:`fused_stokes_iterations` for fields whose
+    pressure is `P`: `(Kf, kb)`, the chunk depth of the chunk route (0
+    where it does not serve) and the banded tier's `(K, B)` (None where it
+    does not serve); both falsy means the per-iteration route.  Raises
+    where `banded=True` finds no `(K, B)`."""
+    from ..models._dispatch import band_config
+    from . import stokes_trapezoid as stz
+
+    shape = grid.local_shape(P)
+    Kf = (stz.fit_stokes_K(grid, shape, n_inner - 1, P.dtype, K=K)
+          if n_inner >= 3 and banded is not True else 0)
+    kb = band_config(
+        banded, K, band, n_inner, requirement=BANDED_REQ,
+        resident=lambda: bool(Kf),
+        supported=lambda k, b: stz.stokes_banded_refusal(
+            grid, shape, k, n_inner - 1, P.dtype, B=b) is None,
+        fit=lambda bands: stz.fit_stokes_band(grid, shape, n_inner - 1,
+                                              P.dtype, bands=bands))
+    return Kf, kb
+
+
 def fused_stokes_iterations(P, Vx, Vy, Vz, Rho, *, n_inner: int,
                             K: Optional[int] = None, banded="auto",
-                            band: Optional[int] = None, dx, dy, dz, mu, dtP,
-                            dtV):
+                            band: Optional[int] = None, route=None, dx, dy,
+                            dz, mu, dtP, dtV):
     """`n_inner` Stokes iterations of `(P, Vx, Vy, Vz)`; returns new tensors.
     The dispatch of `igg/models/stokes3d.py:make_iteration`:
 
@@ -207,23 +230,16 @@ def fused_stokes_iterations(P, Vx, Vy, Vz, Rho, *, n_inner: int,
       (:func:`~igg_torch.ops.stokes_trapezoid.fused_stokes_banded_iters`),
       the remainder; `banded=True` raises a GridError where no `(K, B)`
       admits;
-    - otherwise one fused iteration per iteration."""
-    from ..models._dispatch import band_config
+    - otherwise one fused iteration per iteration.
+
+    `route` is :func:`stokes_route`'s verdict where the caller has it."""
     from . import stokes_trapezoid as stz
 
     grid = shared.global_grid()
     kw = dict(dx=dx, dy=dy, dz=dz, mu=mu, dtP=dtP, dtV=dtV)
     S = (P, Vx, Vy, Vz)
-    shape = grid.local_shape(P)
-    Kf = (stz.fit_stokes_K(grid, shape, n_inner - 1, P.dtype, K=K)
-          if n_inner >= 3 and banded is not True else 0)
-    kb = band_config(
-        banded, K, band, n_inner, requirement=BANDED_REQ,
-        resident=lambda: bool(Kf),
-        supported=lambda k, b: stz.stokes_banded_refusal(
-            grid, shape, k, n_inner - 1, P.dtype, B=b) is None,
-        fit=lambda bands: stz.fit_stokes_band(grid, shape, n_inner - 1,
-                                              P.dtype, bands=bands))
+    Kf, kb = route or stokes_route(grid, P, n_inner=n_inner, K=K,
+                                   banded=banded, band=band)
     if kb or Kf:
         S = fused_stokes_iteration(*S, Rho, **kw)
         if kb:

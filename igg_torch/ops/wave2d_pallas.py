@@ -177,31 +177,16 @@ BANDED_REQ = ("banded=True needs the wave2d kernels' plain versions (CPU "
               "wave2d_banded_refusal)")
 
 
-def fused_wave2d_steps(P, Vx, Vy, *, n_inner: int, K: Optional[int] = None,
-                       banded="auto", band: Optional[int] = None, dx, dy,
-                       dt, rho, bulk):
-    """`n_inner` wave2d steps of `(P, Vx, Vy)`; returns new tensors.  The
-    dispatch of `igg/models/wave2d.py:make_step`:
-
-    - where `n_inner >= 3`, `banded` is not True and the chunk admits
-      `n_inner - 1` steps at a depth K (`K`, or the largest of 8, 4, 2 it
-      admits: :func:`igg_torch.ops.wave2d_trapezoid.fit_wave2d_K`): one
-      per-step step (which makes the state exchange-fresh, the chunk's
-      entry condition), then `(n_inner - 1) // K` chunks, then the
-      remainder as per-step steps;
-    - on CPU tensors, where the banded tier takes the call (`banded=True`,
-      or "auto" where the chunk refuses; `models._dispatch.band_config`):
-      the warm-up step, the banded chunks
-      (:func:`~igg_torch.ops.wave2d_trapezoid.fused_wave2d_banded_steps`),
-      the remainder; on the card `banded=True` raises igg's refusal (its
-      streaming kernel is 3-D only) and "auto" never takes the tier;
-    - otherwise one per-step step per step."""
+def wave2d_route(grid, P, *, n_inner: int, K: Optional[int] = None,
+                 banded="auto", band: Optional[int] = None):
+    """The route of :func:`fused_wave2d_steps` for fields whose pressure
+    is `P`: `(Kf, kb)`, the chunk depth of the chunk route (0 where it does
+    not serve) and the banded tier's `(K, B)` (None where it does not
+    serve); both falsy means the per-step route.  Raises where
+    `banded=True` cannot be served."""
     from ..models._dispatch import band_config
     from . import wave2d_trapezoid as wtz
 
-    grid = shared.global_grid()
-    kw = dict(dx=dx, dy=dy, dt=dt, rho=rho, bulk=bulk)
-    S = (P, Vx, Vy)
     shape = grid.local_shape(P)
     Kf = (wtz.fit_wave2d_K(grid, shape, n_inner - 1, P.dtype, K=K)
           if n_inner >= 3 and banded is not True else 0)
@@ -219,6 +204,37 @@ def fused_wave2d_steps(P, Vx, Vy, *, n_inner: int, K: Optional[int] = None,
                 grid, shape, k, n_inner - 1, P.dtype, B=b) is None,
             fit=lambda bands: wtz.fit_wave2d_band(grid, shape, n_inner - 1,
                                                   P.dtype, bands=bands))
+    return Kf, kb
+
+
+def fused_wave2d_steps(P, Vx, Vy, *, n_inner: int, K: Optional[int] = None,
+                       banded="auto", band: Optional[int] = None, route=None,
+                       dx, dy, dt, rho, bulk):
+    """`n_inner` wave2d steps of `(P, Vx, Vy)`; returns new tensors.  The
+    dispatch of `igg/models/wave2d.py:make_step`:
+
+    - where `n_inner >= 3`, `banded` is not True and the chunk admits
+      `n_inner - 1` steps at a depth K (`K`, or the largest of 8, 4, 2 it
+      admits: :func:`igg_torch.ops.wave2d_trapezoid.fit_wave2d_K`): one
+      per-step step (which makes the state exchange-fresh, the chunk's
+      entry condition), then `(n_inner - 1) // K` chunks, then the
+      remainder as per-step steps;
+    - on CPU tensors, where the banded tier takes the call (`banded=True`,
+      or "auto" where the chunk refuses; `models._dispatch.band_config`):
+      the warm-up step, the banded chunks
+      (:func:`~igg_torch.ops.wave2d_trapezoid.fused_wave2d_banded_steps`),
+      the remainder; on the card `banded=True` raises igg's refusal (its
+      streaming kernel is 3-D only) and "auto" never takes the tier;
+    - otherwise one per-step step per step.
+
+    `route` is :func:`wave2d_route`'s verdict where the caller has it."""
+    from . import wave2d_trapezoid as wtz
+
+    grid = shared.global_grid()
+    kw = dict(dx=dx, dy=dy, dt=dt, rho=rho, bulk=bulk)
+    S = (P, Vx, Vy)
+    Kf, kb = route or wave2d_route(grid, P, n_inner=n_inner, K=K,
+                                   banded=banded, band=band)
     if kb or Kf:
         S = fused_wave2d_step(*S, **kw)
         if kb:

@@ -23,9 +23,11 @@ Dispatch (`use_kernels`, the idiom of :mod:`igg_torch.models.wave2d`):
   `banded=True` raises igg's refusal and "auto" skips the route; on the
   CPU both ranks run its plain realization.
 
-Not ported: igg's tier ladder (`verify=`, quarantine), `tune=`, the
-overlapped composition (`overlap=`) and the family registration with
-perf, autotune and integrity (`_register_family`).
+The call runs through the spec's tier ladder (`verify=`, igg's; no
+quarantine: a kernel tier that disagrees with the plain composition
+raises).  Not ported: `tune=`, the overlapped composition (`overlap=`)
+and the family registration with perf, autotune and integrity
+(`_register_family`).
 """
 
 from __future__ import annotations
@@ -63,7 +65,7 @@ def _kernel_path(spec, cf, use_kernels, fields) -> bool:
 def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
             n_inner: int = 1, use_kernels="auto", chunk="auto",
             K: Optional[int] = None, banded="auto",
-            band: Optional[int] = None):
+            band: Optional[int] = None, verify=None):
     """`(*fields) -> (*fields)` advancing `n_inner` steps of the spec (new
     tensors; the inputs stay as they were).  `coeffs` binds the spec's
     scalar Params (declared defaults fill the rest); `use_kernels` picks
@@ -73,7 +75,15 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
     True, False), `K` and `band` the streaming banded route.  Needs an
     initialized grid: the analyzer's truth-level gate (boundary
     conditions, reads, read radius against the overlap) runs here and
-    raises `GridError` with its reason."""
+    raises `GridError` with its reason.
+
+    The call runs through the spec's tier ladder
+    (:func:`igg_torch.models._dispatch.auto_dispatch`, family `spec.name`):
+    `<spec>.chunk`, `<spec>.banded`, `<spec>.cuda` (the generated per-step
+    kernel) and `<spec>.plain`.  `verify="first_use"` checks a kernel tier
+    against the plain composition before it serves and raises where they
+    disagree."""
+    from ..models._dispatch import auto_dispatch, required_routes
     from . import lower
     from .cuda import kernels_for
 
@@ -100,19 +110,37 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
     local = lower.local_step_fn(spec, cf, plain=True)
     nf = len(spec.fields)
 
-    def step(*fields):
+    def check(fields):
         if len(fields) != nf:
             raise GridError(f"spec {spec.name!r} steps {nf} fields, got "
                             f"{len(fields)}")
+
+    def plan(*fields):
+        """The route of a call and its `(Kf, kb)`
+        (:func:`igg_torch.stencil.lower.spec_route`)."""
+        check(fields)
         if not _kernel_path(spec, cf, use_kernels, fields):
             if banded is True:
                 raise GridError(f"{lower.banded_requirement(spec)}; the "
                                 f"plain composition serves these fields")
-            for _ in range(n_inner):
-                fields = local(*fields)
-            return tuple(fields)
-        return lower.fused_spec_steps(kernels_for(spec, cf), fields,
-                                      n_inner=n_inner, K=K, chunk=chunk,
-                                      banded=banded, band=band)
+            return "plain", None
+        Kf, kb = lower.spec_route(kernels_for(spec, cf), fields,
+                                  n_inner=n_inner, K=K, chunk=chunk,
+                                  banded=banded, band=band)
+        return ("chunk" if Kf else "banded" if kb else "cuda"), (Kf, kb)
 
-    return step
+    def plain(*fields):
+        check(fields)
+        for _ in range(n_inner):
+            fields = local(*fields)
+        return tuple(fields)
+
+    def kernels(route, *fields):
+        return lower.fused_spec_steps(kernels_for(spec, cf), fields,
+                                      n_inner=n_inner, route=route)
+
+    return auto_dispatch(
+        family=spec.name, plan=plan,
+        routes={"chunk": kernels, "banded": kernels, "cuda": kernels},
+        plain=plain, required=required_routes(use_kernels, banded, chunk),
+        verify=verify)

@@ -67,6 +67,7 @@ from .spec import BinOp, Const, Expr, ParamRef, Read, StencilSpec, UnOp, Where
 
 __all__ = ["apply_updates", "local_step_fn", "kernel_refusal",
            "step_plain", "step_kernel", "fused_spec_step", "fused_spec_steps",
+           "spec_route",
            "chunk_refusal", "fit_spec_K", "window_core", "chunk_plain",
            "chunk_call", "spec_chunk_steps", "field_shapes", "band_margins",
            "banded_refusal", "fit_spec_band", "band_core", "band_call",
@@ -344,8 +345,54 @@ def banded_requirement(spec: StencilSpec) -> str:
             f"fields")
 
 
+def spec_route(gen, fields, *, n_inner: int, K: Optional[int] = None,
+               chunk="auto", banded="auto", band: Optional[int] = None):
+    """The route of :func:`fused_spec_steps` for `fields`: `(Kf, kb)`, the
+    chunk depth of the chunk route (0 where it does not serve) and the
+    banded route's `(K, B)` (None where it does not serve); both falsy
+    means the per-step route.  Raises where `chunk=True` or `banded=True`
+    cannot be served."""
+    from ..models._dispatch import band_config
+
+    spec = gen.spec
+    grid = shared.global_grid()
+    S0 = fields[0]
+    shape = grid.local_shape(S0)
+    Kf = 0
+    if chunk is not False and banded is not True and n_inner >= 3:
+        Kf = fit_spec_K(spec, gen.analysis, grid, shape, n_inner - 1,
+                        S0.dtype, K=K)
+    if chunk is True and not Kf:
+        why = ("n_inner < 3: no warm-up step plus a full chunk" if n_inner < 3
+               else chunk_refusal(spec, gen.analysis, grid, shape, K or 2,
+                                  n_inner - 1, S0.dtype))
+        raise GridError(f"chunk=True: the K-step {spec.name!r} spec chunk "
+                        f"route cannot serve n_inner={n_inner}: {why}")
+    kb = None
+    if not Kf and banded is not False:
+        if S0.device.type != "cpu" and spec.ndim != 3:
+            if banded is True:
+                raise GridError(
+                    f"{banded_requirement(spec)}: the streaming band kernel "
+                    f"is 3-D only ({spec.ndim}-D x-row bands; "
+                    f"banded_window_plain serves them on the CPU)")
+        else:
+            kb = band_config(
+                banded, K, band, n_inner,
+                requirement=banded_requirement(spec),
+                resident=lambda: chunk is False,
+                supported=lambda k, b: banded_refusal(
+                    spec, gen.analysis, grid, shape, k, n_inner - 1,
+                    S0.dtype, B=b) is None,
+                fit=lambda bands: fit_spec_band(
+                    spec, gen.analysis, grid, shape, n_inner - 1, S0.dtype,
+                    bands=bands))
+    return Kf, kb
+
+
 def fused_spec_steps(gen, fields, *, n_inner: int, K: Optional[int] = None,
-                     chunk="auto", banded="auto", band: Optional[int] = None):
+                     chunk="auto", banded="auto", band: Optional[int] = None,
+                     route=None):
     """`n_inner` steps of `fields` on the generated kernels; returns new
     tensors.  The dispatch of igg's `compile` (its tiers `<spec>.chunk`,
     `<spec>.banded`, the per-step kernel):
@@ -363,42 +410,12 @@ def fused_spec_steps(gen, fields, *, n_inner: int, K: Optional[int] = None,
       remainder; `banded=True` raises where no `(K, B)` admits, and on the
       card for a rank-2 spec (igg's refusal: the streaming kernel is 3-D
       only), where "auto" skips the route;
-    - otherwise one per-step step per step."""
-    from ..models._dispatch import band_config
+    - otherwise one per-step step per step.
 
-    spec = gen.spec
-    grid = shared.global_grid()
+    `route` is :func:`spec_route`'s verdict where the caller has it."""
     S = tuple(fields)
-    shape = grid.local_shape(S[0])
-    Kf = 0
-    if chunk is not False and banded is not True and n_inner >= 3:
-        Kf = fit_spec_K(spec, gen.analysis, grid, shape, n_inner - 1,
-                        S[0].dtype, K=K)
-    if chunk is True and not Kf:
-        why = ("n_inner < 3: no warm-up step plus a full chunk" if n_inner < 3
-               else chunk_refusal(spec, gen.analysis, grid, shape, K or 2,
-                                  n_inner - 1, S[0].dtype))
-        raise GridError(f"chunk=True: the K-step {spec.name!r} spec chunk "
-                        f"route cannot serve n_inner={n_inner}: {why}")
-    kb = None
-    if not Kf and banded is not False:
-        if S[0].device.type != "cpu" and spec.ndim != 3:
-            if banded is True:
-                raise GridError(
-                    f"{banded_requirement(spec)}: the streaming band kernel "
-                    f"is 3-D only ({spec.ndim}-D x-row bands; "
-                    f"banded_window_plain serves them on the CPU)")
-        else:
-            kb = band_config(
-                banded, K, band, n_inner,
-                requirement=banded_requirement(spec),
-                resident=lambda: chunk is False,
-                supported=lambda k, b: banded_refusal(
-                    spec, gen.analysis, grid, shape, k, n_inner - 1,
-                    S[0].dtype, B=b) is None,
-                fit=lambda bands: fit_spec_band(
-                    spec, gen.analysis, grid, shape, n_inner - 1, S[0].dtype,
-                    bands=bands))
+    Kf, kb = route or spec_route(gen, S, n_inner=n_inner, K=K, chunk=chunk,
+                                 banded=banded, band=band)
     if Kf or kb:
         S = fused_spec_step(gen, S)
         if kb:

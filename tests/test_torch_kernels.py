@@ -37,7 +37,9 @@ an open x; the last two marches in every layout of the chunk and band
 meshes) and the HM3D marches' divisors against `x / d`; the diffusion and
 Stokes gates refuse a window beyond the budget, which the marches (their
 shared memory independent of B) still compute; a 2-D spec and wave2d
-with `banded=True` raise on the card.
+with `banded=True` raise on the card; under `verify="first_use"` the
+diffusion K-step loop serves bitwise its plain composition and a
+corrupted kernel tier raises.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1153,3 +1155,44 @@ def test_spec_march_at_main_path_shapes(card, name, dtype):
     for a, b, s in zip(out, want, shapes):
         torch.testing.assert_close(a, ce.central_window(b, s, E, modes),
                                    rtol=0, atol=0)
+
+
+def test_verified_kernel_tier(card):
+    """`verify="first_use"` on the card: the diffusion K-step loop,
+    verified against the plain composition, serves bitwise the plain
+    composition's output; the same kernel route with one cell changed
+    after it raises GridError and serves nothing."""
+    from igg_torch import degrade
+    from igg_torch.models import diffusion3d as t3
+
+    it.init_global_grid(32, 32, 64, dimx=1, dimy=1, dimz=1, periodx=1,
+                        periody=1, periodz=1, device=card, quiet=True)
+    degrade.reset()
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    before = dm.mega_step_kernel.launches
+    got = t3.make_multi_step(10, p, verify="first_use")(T, Cp)
+    torch.cuda.synchronize()
+    assert dm.mega_step_kernel.launches - before == 20   # verify + serve
+    assert degrade.active() == {"diffusion3d": "diffusion3d.cuda"}
+    torch.testing.assert_close(
+        got, t3.make_multi_step(10, p, use_kernels=False)(T, Cp),
+        rtol=0, atol=0)
+    kernel = t3.make_multi_step(10, p)
+    served = []
+
+    def corrupted(T, Cp):
+        out = kernel(T, Cp)
+        out[5, 6, 7] += 1.0
+        served.append(out)
+        return out
+
+    ladder = degrade.Ladder("corrupt", [
+        degrade.Tier("corrupt.cuda", 0, build=lambda: corrupted),
+        degrade.Tier("corrupt.plain", 1, truth=True,
+                     build=lambda: t3.make_multi_step(10, p,
+                                                      use_kernels=False))],
+        verify="first_use")
+    with pytest.raises(it.GridError, match="corrupt.cuda"):
+        ladder.dispatch(T, Cp)
+    assert len(served) == 1 and "corrupt" not in degrade.active()
