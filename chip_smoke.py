@@ -117,6 +117,31 @@ the script exits non-zero without printing a result:
    tier's callable, in turns, the halo byte counter's host time per
    `update_halo` call, and the first verified call's wall time beside a
    warm call's.
+22. Checkpoint at the 510^3 headline (phase 6's grid): two calls of
+   `make_multi_step(17)`, `save_checkpoint_sharded` of T and Cp (1.07 GB)
+   into a `tempfile.TemporaryDirectory()`, two calls launched right after
+   it; `load_checkpoint` gives the saved state in fresh tensors on the
+   card and two calls from it equal the uninterrupted run bitwise;
+   `verify_checkpoint` passes, and refuses a copy with one byte of a
+   shard flipped, which `latest_checkpoint` skips; the flat format
+   round-trips bitwise; then the generation restored onto (1, 2, 4)
+   blocks of 510 x 256 x 129 (`redistribute=True`) and run two calls has
+   the uninterrupted run's `gather_interior` bitwise, and each grid's
+   serving tier is logged.  Printed: the save's wall and GB/s split into
+   device-to-host copy, deep stats and CRC32, and file writes, beside one
+   `copy_` of the payload into pinned memory; load, elastic load, verify,
+   flat save and load; the host's traced peak during the save and the
+   elastic load beside one block set (and the pinned buffer), which
+   bound it with a slab; the device's memory above the fields during the
+   save beside one block.  Then, on phase 2's 256^3 periodic block, a
+   `igg_torch.vis.BackgroundRenderer` gets T after every call of
+   `make_multi_step(17)` and reduces each frame to a CRC32 on its thread:
+   every frame equals the synchronous frame of the same step.  Printed:
+   one frame's host time alone, and ms a call in turns without frames,
+   with the frames taken in series (the synchronous loop) and with the
+   worker; then the same with a frame every k calls, k the frame's time
+   over a call's, where overlap shows as the worker's run near the
+   larger of the two and the series' near their sum.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -138,7 +163,11 @@ relax3d and acoustic3d) the same way, then the Stokes one at 2x2x2 blocks
 of 256^3 open (f32 and f64) and the generated band entry of relax3d and
 acoustic3d at one 256^3 periodic block (K = 8, B = 8), f32 and f64, and
 their generated step and K = 8 chunk step (igg_spec_step on the same
-x-march's step and chunk modes) at that block, f32 and f64.  The
+x-march's step and chunk modes) at that block, f32 and f64, and the
+same march's no-ring path (every read from device memory; the generated
+sources built against the march with no shared memory for rings,
+tests/torch_spec_cases.py: start_no_ring) against the plain versions in
+every window mode, f32 and f64.  The
 redesigned kernels are timed beside their first designs too
 (kernel_variants.py: FIRST_DESIGNS and spec_first_source, built with
 the sources), each by the profiler's device time of the kernel it names:
@@ -149,7 +178,7 @@ periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
 Stokes and HM3D divisors.  Launch counters are set to 0 before each
-main-path phase (2 to 21) and read after it; each of the twenty kernels
+main-path phase (2 to 22) and read after it; each of the twenty kernels
 must have launched on that main path (the generated relax3d step and
 chunk step are phase 20's launches of the spec counters, shallow water's
 the others').  The last lines are the run's seconds, the
@@ -639,6 +668,9 @@ class Smoke:
         # generated rank-3 libraries' with the band entry's first design,
         # {spec name: CDLL} (main()).
         self.first, self.first_gen = {}, {}
+        # The generated rank-3 libraries built for the march's no-ring path,
+        # {spec name: CDLL} (main()).
+        self.no_ring = {}
         self.launches = None
         # The card's name and power limit (main()), beside phase 21's
         # numbers.
@@ -715,6 +747,7 @@ class Smoke:
         self.stokes_kernel_checks()
         self.stokes_kernel_checks_full()
         self.spec_kernel_checks()
+        self.spec_no_ring_checks()
         self.spec_kernel_checks_full()
         self.band_kernel_checks()
         self.band_kernel_checks_full()
@@ -2753,6 +2786,43 @@ class Smoke:
             f"divisions a cell (per-cell path, 4-cell run): "
             f"{json.dumps(divs)}")
 
+    def spec_no_ring_checks(self):
+        """The rank-3 march's no-ring path (every read from device memory,
+        forced by building the generated sources with no shared memory for
+        rings: torch_spec_cases.start_no_ring): the step and the K = 2, 3
+        chunk steps of relax3d and acoustic3d against their plain versions
+        in every window mode, f32 and f64, tiles ragged across the blocks'
+        last rows included, tolerance 0."""
+        sl, cases = self.sl, self.cases
+        real = sl.generated_library
+        n = 0
+        try:
+            for name in cases.SPECS_3D:
+                sl.generated_library = (lambda source, tag, lib=
+                                        self.no_ring[name]: lib)
+                gen = self.spec_gen(name)
+                for case in sorted(cases.BAND_GRIDS):
+                    for local in ((10, 9, 8), (11, 19, 35)):
+                        g = cases.march_grid(self.it, case, local, self.dev)
+                        for dtype in (torch.float32, torch.float64):
+                            S = cases.state(self.it, gen, g, dtype, 78,
+                                            self.dev)
+                            cases.march_step_check(gen, g, S)
+                            for K in (2, 3):
+                                if not cases.march_chunk_check(self.it, gen,
+                                                               g, S, K):
+                                    raise SmokeFailure(
+                                        f"no-ring chunk {name} {case} "
+                                        f"{local}: refused")
+                            n += 1
+        finally:
+            sl.generated_library = real
+        for key in ("spec_step[relax3d]", "spec_chunk_step[relax3d]"):
+            self.note(key, 0.0)
+        log(f"[phase 1] the rank-3 march's no-ring path: {n} layouts of "
+            f"relax3d and acoustic3d, step and K = 2, 3 chunk steps, "
+            f"bitwise their plain versions (tolerance 0)")
+
     def spec_kernel_checks_full(self):
         """The generated kernels at full width, checked against their plain
         versions, then timed beside their bounds and their hand
@@ -3575,8 +3645,311 @@ class Smoke:
         finally:
             shutil.rmtree(work, ignore_errors=True)
 
+    # -- phase 22 ---------------------------------------------------------
+    def checkpoint_phase(self):
+        """Save, resume and elastic resume at the 510^3 headline, the flat
+        format, and the background worker (module docstring, phase 22)."""
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            gen, want = self.checkpoint_save_resume(tmp)
+            self.checkpoint_elastic(gen, want)
+        self.worker_frames()
+
+    def host_peak(self, fn):
+        """(fn's result, seconds, the peak of traced host allocations during
+        it in bytes); the device's work is waited for inside the timing."""
+        import tracemalloc
+
+        tracemalloc.start()
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            sync(self.dev)
+            sec = time.perf_counter() - t0
+            peak = tracemalloc.get_traced_memory()[1]
+        finally:
+            tracemalloc.stop()
+        return out, sec, peak
+
+    def checkpoint_save_resume(self, tmp):
+        """(a) and (c): two calls of make_multi_step(steps_multi) on 2x2x2
+        open blocks of n_multi^3, a sharded save of T and Cp, two calls
+        launched right after it (T_ref); the loaded generation holds the
+        saved state and continues to T_ref bitwise; a byte flipped in one
+        shard of a copy is refused and skipped by the scan; the flat format
+        round-trips bitwise.  Returns the generation and T_ref's interior."""
+        import shutil
+
+        from igg_torch import degrade
+        from igg_torch import telemetry as tel
+
+        it, t3, n, steps = self.it, self.t3, self.n_multi, self.steps_multi
+        gather = sys.modules["igg_torch.gather"]
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        tag = f"{it.nx_g()}^3 open (2x2x2 x {n}^3)"
+        p = t3.Params()
+        T, Cp = t3.init_fields(p)
+        step = t3.make_multi_step(steps, p)
+        T = step(step(T, Cp), Cp)
+        tiers = dict(degrade.active())
+        saved = T.clone()
+        payload = 2 * T.numel() * T.element_size()
+        block = payload // 16                 # one block of one field
+        gen = os.path.join(tmp, "ckpt_000000034")
+        sync(self.dev)
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        records = []
+
+        def saved_record(rec):
+            if rec.kind == "checkpoint_write":
+                records.append(rec.payload)
+
+        tel.subscribe(saved_record)
+        try:
+            _, t_save, host_save = self.host_peak(
+                lambda: it.save_checkpoint_sharded(gen, T=T, Cp=Cp))
+        finally:
+            tel.unsubscribe(saved_record)
+        dev_save = torch.cuda.max_memory_allocated() - held
+        if len(records) != 1 or records[0]["format"] != "sharded":
+            raise SmokeFailure(f"{tag}: the save emitted {records} as its "
+                               f"checkpoint_write records")
+        split = {k: records[0][f"{k}_seconds"]
+                 for k in ("fetch", "stamp", "write")}
+        pinned = 0 if gather._pinned is None else gather._pinned.numel()
+        T_ref = step(step(T, Cp), Cp)          # launched right after the save
+        T_ref = T_ref.clone()
+        got, t_load, _ = self.host_peak(lambda: it.load_checkpoint(gen))
+        if got["T"].device != T.device or got["T"].data_ptr() == T.data_ptr():
+            raise SmokeFailure(f"{tag}: load did not give fresh tensors on "
+                               f"{T.device}")
+        check(f"{tag}: loaded T vs the state at the save", got["T"], saved,
+              0.0)
+        check(f"{tag}: loaded Cp vs Cp", got["Cp"], Cp, 0.0)
+        check(f"{tag}: resumed run vs the uninterrupted run",
+              step(step(got["T"], got["Cp"]), got["Cp"]), T_ref, 0.0)
+        del got
+        ok, t_verify, _ = self.host_peak(lambda: it.verify_checkpoint(gen))
+        if not ok:
+            raise SmokeFailure(f"{tag}: verify_checkpoint refused the save")
+        bad = os.path.join(tmp, "ckpt_000000051")
+        shutil.copytree(gen, bad)
+        shard = os.path.join(bad, "shard_00003.npz")
+        with open(shard, "r+b") as f:
+            f.seek(os.path.getsize(shard) // 2)
+            byte = f.read(1)
+            f.seek(-1, os.SEEK_CUR)
+            f.write(bytes([byte[0] ^ 0x01]))
+        if it.verify_checkpoint(bad):
+            raise SmokeFailure(f"{tag}: a flipped byte in a shard verified")
+        found = it.latest_checkpoint(tmp)
+        if found is None or str(found) != gen:
+            raise SmokeFailure(f"{tag}: latest_checkpoint gave {found}")
+        shutil.rmtree(bad)
+        want = it.gather_interior(T_ref)
+        # (c) the flat format, the same state.
+        flat = os.path.join(tmp, "flat.npz")
+        _, t_fsave, _ = self.host_peak(
+            lambda: it.save_checkpoint(flat, T=saved, Cp=Cp))
+        fl, t_fload, _ = self.host_peak(lambda: it.load_checkpoint(flat))
+        check(f"{tag}: flat round trip T", fl["T"], saved, 0.0)
+        check(f"{tag}: flat round trip Cp", fl["Cp"], Cp, 0.0)
+        del fl, saved
+        os.unlink(flat)
+        # The yardstick: one copy_ of the same bytes into pinned memory.
+        copy_ms = self.pinned_copy_ms([T, Cp])
+        gb = payload / 1e9
+        log(f"[phase 22] {tag}: sharded save of T and Cp ({gb:.3f} GB, 16 "
+            f"blocks of {block / 1e6:.1f} MB) {t_save:.3f} s = "
+            f"{gb / t_save:.3f} GB/s: device-to-host copy "
+            f"{split['fetch']:.3f} s, deep stats and CRC32 "
+            f"{split['stamp']:.3f} s, file writes {split['write']:.3f} s; "
+            f"one copy_ of the payload into pinned memory {copy_ms:.3f} ms "
+            f"({gb / copy_ms * 1e3:.2f} GB/s) [{self.card}]")
+        log(f"[phase 22] {tag}: load {t_load:.3f} s, verify {t_verify:.3f} "
+            f"s, flat save {t_fsave:.3f} s, flat load {t_fload:.3f} s; "
+            f"resumed run bitwise the uninterrupted one; a flipped shard "
+            f"byte refused and skipped by latest_checkpoint [{self.card}]")
+        log(f"[phase 22] {tag}: host peak of traced allocations during the "
+            f"sharded save {host_save / 1e6:.1f} MB (one block set "
+            f"{2 * block / 1e6:.1f} MB; the pinned buffer "
+            f"{pinned / 1e6:.1f} MB besides), device memory above the fields "
+            f"during the save {dev_save / 1e6:.1f} MB (one block "
+            f"{block / 1e6:.1f} MB); tiers {json.dumps(tiers)} [{self.card}]")
+        # One block set plus one slab (a block is below the slab limit, so
+        # its slab is the whole block), and 1 MB for the zip and JSON
+        # bookkeeping.
+        if host_save > 3 * block + (1 << 20):
+            raise SmokeFailure(f"{tag}: save staged {host_save} host bytes, "
+                               f"above one block set and a slab")
+        self.perf["checkpoint_510^3"] = dict(
+            save_s=t_save, save_gb_per_s=gb / t_save, save_split_s=split,
+            pinned_copy_ms=copy_ms, load_s=t_load, verify_s=t_verify,
+            flat_save_s=t_fsave, flat_load_s=t_fload,
+            host_peak_save_bytes=host_save, pinned_bytes=pinned,
+            device_extra_save_bytes=dev_save, block_bytes=block, tiers=tiers)
+        return gen, want
+
+    def checkpoint_elastic(self, gen, want):
+        """(b): the generation restored onto (1, 2, 4) blocks of the same
+        global grid, two calls of make_multi_step(steps_multi): the interior
+        equals T_ref's, bitwise."""
+        from igg_torch import degrade
+
+        it, t3, n, steps = self.it, self.t3, self.n_multi, self.steps_multi
+        size = 2 * (n - 2) + 2
+        self.grid((size, n, (size - 2) // 4 + 2), dimx=1, dimy=2, dimz=4)
+        tag = (f"{it.nx_g()}x{it.ny_g()}x{it.nz_g()} open (1x2x4 x "
+               f"{it.get_global_grid().nxyz})")
+        got, t_load, host_load = self.host_peak(
+            lambda: it.load_checkpoint(gen, redistribute=True))
+        step = t3.make_multi_step(steps, t3.Params())
+        T = step(step(got["T"], got["Cp"]), got["Cp"])
+        sync(self.dev)
+        tiers = dict(degrade.active())
+        block = got["T"].numel() * got["T"].element_size() // 8
+        if not np.array_equal(it.gather_interior(T), want):
+            raise SmokeFailure(f"{tag}: elastic resume differs from the "
+                               f"uninterrupted run")
+        log(f"[phase 22] {tag}: elastic load {t_load:.3f} s, host peak of "
+            f"traced allocations {host_load / 1e6:.1f} MB (one block set "
+            f"{2 * block / 1e6:.1f} MB, a target block {block / 1e6:.1f} "
+            f"MB); two calls of make_multi_step({steps}) "
+            f"on tiers {json.dumps(tiers)}: interior bitwise the "
+            f"uninterrupted run's [{self.card}]")
+        if host_load > 3 * block + (1 << 20):
+            raise SmokeFailure(f"{tag}: elastic load staged {host_load} host "
+                               f"bytes, above one block set and a slab")
+        self.perf["checkpoint_510^3"].update(
+            elastic_load_s=t_load, host_peak_elastic_bytes=host_load,
+            elastic_tiers=tiers)
+
+    def pinned_copy_ms(self, tensors) -> float:
+        """ms of copying `tensors` into one pinned host buffer, each with
+        one copy_ (the best of three)."""
+        nbytes = sum(t.numel() * t.element_size() for t in tensors)
+        host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+        best = float("inf")
+        for _ in range(3):
+            sync(self.dev)
+            t0 = time.perf_counter()
+            off = 0
+            for t in tensors:
+                size = t.numel() * t.element_size()
+                host[off:off + size].view(t.dtype).view(t.shape).copy_(
+                    t, non_blocking=True)
+                off += size
+            sync(self.dev)
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3
+
+    def worker_frames(self):
+        """(d): on one n_head^3 periodic block, a BackgroundRenderer gets T
+        after every call of make_multi_step(steps_multi) and reduces each
+        frame to a CRC32 on its thread; every frame equals the synchronous
+        frame of the same step.  Timed in turns: the solver alone, the
+        frames in series with it (the synchronous loop) and on the worker;
+        one frame alone; then the same with a frame every k calls, k the
+        frame's time over a call's, so that the two are of one size and
+        overlap shows (the worker near the larger, the series near the
+        sum)."""
+        import zlib
+
+        from igg_torch import vis
+
+        it, t3, n, steps = self.it, self.t3, self.n_head, self.steps_multi
+        self.grid((n, n, n), **SINGLE, **PERIODIC)
+        tag = f"{n}^3 periodic"
+        p = t3.Params()
+        T0, Cp = t3.init_fields(p)
+        step = t3.make_multi_step(steps, p)
+
+        def crc(X):
+            return zlib.crc32(X.cpu().numpy())
+
+        def run(mode: str, calls: int, every: int):
+            """(ms a call, {call: frame CRC32}); `mode` is "without" (no
+            frames), "series" (each frame taken on this thread after its
+            call) or "worker"."""
+            frames = {}
+
+            def consume(batch):
+                k, X = batch
+                frames[k] = crc(X)
+
+            T = T0.clone()
+            sync(self.dev)
+            t0 = time.perf_counter()
+            if mode == "worker":
+                with vis.BackgroundRenderer(consume, maxsize=3) as r:
+                    for k in range(calls):
+                        T = step(T, Cp)
+                        if (k + 1) % every == 0:
+                            r.submit((k, T))
+                if r.errors:
+                    raise SmokeFailure(f"{tag}: worker errors {r.errors}")
+            else:
+                for k in range(calls):
+                    T = step(T, Cp)
+                    if mode == "series" and (k + 1) % every == 0:
+                        frames[k] = crc(T)
+            sync(self.dev)
+            return (time.perf_counter() - t0) / calls * 1e3, frames
+
+        def frame_ms():
+            X = step(T0.clone(), Cp)
+            sync(self.dev)
+            best = float("inf")
+            for _ in range(5):
+                t0 = time.perf_counter()
+                crc(X)
+                best = min(best, time.perf_counter() - t0)
+            return best * 1e3
+
+        def turns(calls: int, every: int):
+            order = ("without", "series", "worker", "worker", "series",
+                     "without")
+            ms, frames = {}, {}
+            for mode in order:
+                t, f = run(mode, calls, every)
+                ms.setdefault(mode, []).append(t)
+                frames.setdefault(mode, []).append(f)
+            want = frames["series"][0]
+            if len(want) != calls // every or any(
+                    f != want for f in frames["series"] + frames["worker"]):
+                raise SmokeFailure(f"{tag}: a worker frame differs from its "
+                                   f"synchronous frame (a frame every "
+                                   f"{every} calls)")
+            return ms
+
+        frame = frame_ms()
+        each = turns(20, 1)
+        solver = min(each["without"])
+        every = max(1, round(frame / solver))
+        spaced = turns(4 * every, every)
+        frame_after = frame_ms()
+        fmt = lambda ms: {m: [round(v, 4) for v in t] for m, t in ms.items()}
+        log(f"[phase 22] {tag}: make_multi_step({steps}), a frame (the "
+            f"capture's fetch and CRC32) after every call, 20 calls: every "
+            f"worker frame's CRC32 equals the synchronous frame's; one "
+            f"frame alone {frame:.3f} ms (after the turns "
+            f"{frame_after:.3f}); ms a call in turns {fmt(each)} (the "
+            f"worker's drain at close included) [{self.card}]")
+        log(f"[phase 22] {tag}: a frame every {every} calls "
+            f"({4 * every} calls): ms a call in turns {fmt(spaced)}; overlap "
+            f"would put the worker near max(solver, frame / {every}) = "
+            f"{max(min(spaced['without']), frame / every):.4f} and the "
+            f"series near their sum "
+            f"{min(spaced['without']) + frame / every:.4f} [{self.card}]")
+        self.perf["worker_frames"] = dict(
+            steps_per_call=steps, frame_ms=[frame, frame_after],
+            ms_per_call_every_call=each, every=every,
+            ms_per_call_spaced=spaced)
+
     def main_path(self):
-        """Phases 2 to 21, each with the launch counters set to 0 just
+        """Phases 2 to 22, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -3597,7 +3970,8 @@ class Smoke:
             ("16", self.diffusion_banded), ("17", self.hm3d_banded),
             ("18", lambda: self.stokes_banded(18, one_block=True)),
             ("19", lambda: self.stokes_banded(19, one_block=False)),
-            ("20", self.relax3d_banded), ("21", self.observability)]
+            ("20", self.relax3d_banded), ("21", self.observability),
+            ("22", self.checkpoint_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()
@@ -3740,9 +4114,11 @@ def main() -> int:
     # checks, one nvcc each, all started together.
     generated = [cases.kernels(name) for name in cases.SPECS]
     first = start_first_designs([cases.kernels(n) for n in cases.SPECS_3D])
+    no_ring = cases.start_no_ring(cases.SPECS_3D)
     reports = _build.build_all(generated=[(g.source, g.tag)
                                           for g in generated])
     first = finish_first_designs(first)
+    no_ring = cases.finish_no_ring(no_ring)
     log(f"[setup] kernels built in {time.perf_counter() - t0:.1f} s "
         f"(and the first designs of {sorted(first)})")
     for name, rep in reports.items():
@@ -3755,6 +4131,7 @@ def main() -> int:
     smoke.first = first
     smoke.first_gen = {n: first[f"gen:{cases.kernels(n).tag}"]
                        for n in cases.SPECS_3D}
+    smoke.no_ring = no_ring
     t0 = time.perf_counter()
     smoke.kernel_checks()
     log(f"[phase 1] done in {time.perf_counter() - t0:.1f} s")

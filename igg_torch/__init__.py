@@ -12,19 +12,23 @@ in-place halo writer, the y/z plane packer and the diffusion, HM3D, wave2d
 and Stokes steps of a K-step chunk, and CUDA kernels generated from a
 stencil spec for its fused step and its K-step chunk step; `telemetry`
 (event bus, metrics, spans, sessions), `profiling` (`torch.profiler`
-traces) and `degrade` (the tier ladder every factory dispatches through,
-with `verify=`).  Grid arrays are
+traces), `degrade` (the tier ladder every factory dispatches through,
+with `verify=`), `checkpoint` (igg's flat and sharded formats, elastic
+restore) and `vis` (the background render/IO worker).  Grid arrays are
 block-stacked tensors on one device; entry points use the card unless the
 caller passes `device="cpu"`.  Imports neither JAX nor `igg`.
 """
 
+from .checkpoint import (latest_checkpoint, load_checkpoint, save_checkpoint,
+                         save_checkpoint_sharded, verify_checkpoint,
+                         verify_checkpoint_distributed)
 from .device import memory_stats, select_device
 from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
                      stacked_shape, zeros)
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import degrade, profiling, stencil, telemetry
+from . import checkpoint, degrade, profiling, stencil, telemetry, vis
 from .telemetry import Telemetry
 from .init import init_global_grid
 from .parallel import local_coords, sharded
@@ -38,14 +42,16 @@ from .tools import (barrier, coord_fields, nx_g, ny_g, nz_g, spacing, tic, toc,
 
 __all__ = [
     "NDIMS", "PROC_NULL", "GlobalGrid", "GridError", "Telemetry", "barrier",
-    "check_initialized", "coord_fields", "degrade", "finalize_global_grid",
-    "from_local_blocks", "full", "gather", "gather_interior",
-    "get_global_grid", "global_grid", "grid_epoch", "grid_is_initialized",
-    "has_neighbor", "init_global_grid", "local_block", "local_blocks",
+    "check_initialized", "checkpoint", "coord_fields", "degrade",
+    "finalize_global_grid", "from_local_blocks", "full", "gather",
+    "gather_interior", "get_global_grid", "global_grid", "grid_epoch",
+    "grid_is_initialized", "has_neighbor", "init_global_grid",
+    "latest_checkpoint", "load_checkpoint", "local_block", "local_blocks",
     "local_coords", "me", "memory_stats", "neighbor", "neighbors", "nx_g",
-    "ny_g", "nz_g", "ol", "ones", "profiling", "select_device", "sharded",
-    "spacing", "stacked_shape", "stencil", "telemetry", "tic", "time_steps",
-    "toc", "update_halo",
-    "update_halo_local", "x_g", "x_g_field", "y_g", "y_g_field", "z_g",
-    "z_g_field", "zeros",
+    "ny_g", "nz_g", "ol", "ones", "profiling", "save_checkpoint",
+    "save_checkpoint_sharded", "select_device", "sharded", "spacing",
+    "stacked_shape", "stencil", "telemetry", "tic", "time_steps", "toc",
+    "update_halo", "update_halo_local", "verify_checkpoint",
+    "verify_checkpoint_distributed", "vis", "x_g", "x_g_field", "y_g",
+    "y_g_field", "z_g", "z_g_field", "zeros",
 ]

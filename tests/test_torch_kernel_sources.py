@@ -42,14 +42,17 @@ too.  This
 checks the kernels' indexing, walks and arithmetic, not their
 CUDA-specific parts (vector loads, alignment, the launch), which
 `tests/test_torch_kernels.py` checks on a card.  Skips without g++.
-"""
 
-import concurrent.futures
-import ctypes
-import os
-import re
-import shutil
-import subprocess
+The rehearsal runs in several files, so that no one file is the test
+run's critical path under `--dist loadfile`: this one (the step kernels,
+the packer, the halo writer, the diffusion and HM3D band kernels, wave2d,
+the Stokes step kernel and divisions, the first designs),
+`_chunk.py` (the diffusion and HM3D chunk kernels), `_stokes.py` (the
+Stokes chunk kernel), `_stokes_band.py` (the Stokes band kernel and its
+edge cases), `_edges.py` (the HM3D, diffusion and Stokes step marches'
+edge cases) and `_spec.py` (the generated kernels); the stand-in runtime,
+fixtures and case tables are in tests/torch_kernel_emulation.py.
+"""
 
 import numpy as np
 import pytest
@@ -57,8 +60,6 @@ import torch
 
 import igg_torch as it
 import torch_halo_cases as halo_cases
-import torch_spec_cases as cases
-from igg_torch.ops import _build
 from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import diffusion_trapezoid as dtz
@@ -70,258 +71,11 @@ from igg_torch.ops import stokes_pallas as sp
 from igg_torch.ops import stokes_trapezoid as stz
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.ops import wave2d_trapezoid as wtz
-from igg_torch.stencil import cuda
-from igg_torch.stencil import lower
-
-RUNTIME = r"""
-#pragma once
-#include <ucontext.h>
-#include <cmath>
-#include <cstddef>
-#include <cstring>
-#include <cstdint>
-#include <functional>
-#include <vector>
-#define __global__
-#define __device__
-#define __host__
-#define __forceinline__ inline
-#define __noinline__ __attribute__((noinline))
-#define __launch_bounds__(...)
-struct dim3 {
-  unsigned x, y, z;
-  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
-};
-struct uint3 { unsigned x, y, z; };
-struct alignas(16) uint4 { unsigned x, y, z, w; };
-inline int __ffs(int x) { return __builtin_ffs(x); }
-inline unsigned __umulhi(unsigned a, unsigned b) {
-  return (unsigned)(((unsigned long long)a * b) >> 32);
-}
-inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
-inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
-inline long long __double_as_longlong(double x) {
-  long long u;
-  std::memcpy(&u, &x, sizeof u);
-  return u;
-}
-inline double __longlong_as_double(long long u) {
-  double x;
-  std::memcpy(&x, &u, sizeof x);
-  return x;
-}
-inline float __uint_as_float(unsigned u) {
-  float f;
-  std::memcpy(&f, &u, sizeof f);
-  return f;
-}
-inline unsigned __float_as_uint(float f) {
-  unsigned u;
-  std::memcpy(&u, &f, sizeof u);
-  return u;
-}
-inline unsigned long long atomicAdd(unsigned long long* p,
-                                    unsigned long long v) {
-  const unsigned long long old = *p;
-  *p += v;
-  return old;
-}
-inline uint3 blockIdx, threadIdx;
-inline dim3 blockDim, gridDim;
-typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-                   cudaErrorInvalidConfiguration = 9 };
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
-// Built with EMU_REVERSE, the thread blocks run last to first: a kernel
-// whose thread blocks race (one reads or writes what another writes) then
-// shows what the other order hides.
-inline void emu_launch(dim3 g, dim3 b, const std::function<void()>& body) {
-  gridDim = g;
-  blockDim = b;
-  for (unsigned bz = 0; bz < g.z; ++bz)
-    for (unsigned by = 0; by < g.y; ++by)
-      for (unsigned bx = 0; bx < g.x; ++bx)
-        for (unsigned tz = 0; tz < b.z; ++tz)
-          for (unsigned ty = 0; ty < b.y; ++ty)
-            for (unsigned tx = 0; tx < b.x; ++tx) {
-#ifdef EMU_REVERSE
-              blockIdx = {g.x - 1 - bx, g.y - 1 - by, g.z - 1 - bz};
-#else
-              blockIdx = {bx, by, bz};
-#endif
-              threadIdx = {tx, ty, tz};
-              body();
-            }
-}
-// Kernels with dynamic shared memory and __syncthreads: the threads of a
-// block run as fibers (ucontext), each up to its next barrier in turn, so
-// every thread's writes before a barrier precede every read after it.
-enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-template <class F>
-inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
-  return cudaSuccess;
-}
-inline unsigned char* emu_smem;
-inline ucontext_t emu_main;
-inline std::vector<ucontext_t> emu_ctx;
-inline std::vector<int> emu_done;
-inline unsigned emu_cur;
-inline const std::function<void()>* emu_body;
-inline void __syncthreads() { swapcontext(&emu_ctx[emu_cur], &emu_main); }
-inline void emu_fiber() {
-  (*emu_body)();
-  emu_done[emu_cur] = 1;
-}
-inline void emu_launch_sync(dim3 g, dim3 b, size_t smem,
-                            const std::function<void()>& body) {
-  gridDim = g;
-  blockDim = b;
-  const unsigned n = b.x * b.y * b.z;
-  std::vector<double> mem(smem / sizeof(double) + 1);
-  emu_smem = reinterpret_cast<unsigned char*>(mem.data());
-  std::vector<std::vector<char>> stacks(n, std::vector<char>(1 << 16));
-  emu_ctx.assign(n, ucontext_t{});
-  emu_done.assign(n, 0);
-  emu_body = &body;
-  for (unsigned bz = 0; bz < g.z; ++bz)
-    for (unsigned by = 0; by < g.y; ++by)
-      for (unsigned bx = 0; bx < g.x; ++bx) {
-        blockIdx = {bx, by, bz};
-        for (unsigned t = 0; t < n; ++t) {
-          getcontext(&emu_ctx[t]);
-          emu_ctx[t].uc_stack.ss_sp = stacks[t].data();
-          emu_ctx[t].uc_stack.ss_size = stacks[t].size();
-          emu_ctx[t].uc_link = &emu_main;
-          makecontext(&emu_ctx[t], emu_fiber, 0);
-          emu_done[t] = 0;
-        }
-        for (bool left = true; left;) {
-          left = false;
-          for (unsigned t = 0; t < n; ++t) {
-            if (emu_done[t]) continue;
-            emu_cur = t;
-            threadIdx = {t % b.x, (t / b.x) % b.y, t / (b.x * b.y)};
-            swapcontext(&emu_main, &emu_ctx[t]);
-            left = left || !emu_done[t];
-          }
-        }
-      }
-}
-"""
-LAUNCH = re.compile(r"([A-Za-z_]+<[^<>]*>)<<<([^>]*), 0, [a-z]+>>>\((.*)\);")
-# A launch with dynamic shared memory, `k<...><<<grid, block, bytes, s>>>`.
-LAUNCH_SMEM = re.compile(
-    r"([A-Za-z_]+<[^<>]*>)<<<([^,>]*), ([^,>]*), ([a-z_]+), [a-z]+>>>"
-    r"\((.*)\);")
-SHARED = re.compile(r"extern __shared__ [^;]*?(\w+)\[\];")
-LIBS = ("diffusion_step", "diffusion_chunk", "hm3d_step", "hm3d_chunk",
-        "wave2d_step", "wave2d_chunk", "stokes_step", "stokes_chunk",
-        "diffusion_band", "hm3d_band", "stokes_band", "pack_planes",
-        "halo_write")
-
-
-def _rewrite(text):
-    text = LAUNCH.sub(r"emu_launch(\2, [&]{ \1(\3); });", text)
-    text = LAUNCH_SMEM.sub(r"emu_launch_sync(\2, \3, \4, [&]{ \1(\5); });",
-                           text)
-    return SHARED.sub(r"unsigned char* \1 = emu_smem;", text)
-
-
-def _gxx(out, src, so, first=None, defines=()):
-    """Build `src` into `so` against the headers in `out` (those in `first`,
-    where given, found before them), with the macros `defines`."""
-    inc = ([f"-I{first}"] if first else []) + [f"-I{out}"]
-    proc = subprocess.run(
-        [shutil.which("g++"), "-std=c++17", "-O1", "-ffp-contract=off",
-         "-fPIC", "-shared", *inc, *(f"-D{d}" for d in defines), "-x", "c++",
-         str(src), "-o", str(so)], capture_output=True, text=True)
-    assert proc.returncode == 0, proc.stderr
-    return ctypes.CDLL(str(so))
-
-
-@pytest.fixture(scope="module")
-def csrc(tmp_path_factory):
-    """The repo's kernel sources, launches rewritten, and the stand-in
-    runtime, in one directory."""
-    if shutil.which("g++") is None:
-        pytest.skip("needs g++ to compile the kernels' sources for the CPU")
-    out = tmp_path_factory.mktemp("kernel_sources")
-    (out / "cuda_runtime.h").write_text(RUNTIME)
-    for f in os.listdir(_build.CSRC):
-        if f.endswith((".cu", ".cuh")):
-            (out / f).write_text(
-                _rewrite(open(os.path.join(_build.CSRC, f)).read()))
-    return out
-
-
-@pytest.fixture(scope="module")
-def libs(csrc):
-    """The eight libraries, built with g++ from the repo's sources."""
-
-    def build(name):
-        lib = _gxx(csrc, csrc / f"{name}.cu", csrc / f"{name}.so")
-        fn_name, argtypes = _build.SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        return name, lib
-
-    with concurrent.futures.ThreadPoolExecutor(len(LIBS)) as pool:
-        return dict(pool.map(build, LIBS))
-
-
-@pytest.fixture(scope="module")
-def generated(csrc):
-    """`generated_library` through g++: each generated source (launches
-    rewritten) built once, beside the rewritten headers."""
-    built = {}
-
-    def library(source, tag):
-        if source not in built:
-            src = csrc / f"gen_{tag}_{len(built)}.cu"
-            src.write_text(_rewrite(source))
-            lib = _gxx(csrc, src, src.with_suffix(".so"))
-            for name in (cuda.ENTRY, cuda.BAND_ENTRY):
-                fn = getattr(lib, name, None)
-                if fn is not None:
-                    fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
-            built[source] = lib
-        return built[source]
-
-    return library
-
-
-@pytest.fixture
-def emulated(libs, generated, monkeypatch):
-    for module in (dp, dtz, hp, htz, wp, wtz, sp, stz, pk, hw):
-        monkeypatch.setattr(module, "library", libs.__getitem__)
-    monkeypatch.setattr(lower, "generated_library", generated)
-    yield
-    if it.grid_is_initialized():
-        it.finalize_global_grid()
-
-
-def _random(shape, dtype, lo, hi, seed):
-    rng = np.random.default_rng(seed)
-    return torch.from_numpy(rng.uniform(lo, hi, shape)).to(dtype)
-
-
-def same(got, want):
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-
-
-SC = dp.scal(0.3, 0.4, 0.5)
-HM3D_KW = dict(dx=0.31, dy=0.27, dz=0.43, dt=5e-4, phi0=0.1, npow=3, eta=1.3)
-
-GRIDS = {
-    "wrap": dict(dimx=1, dimy=1, dimz=1, periodx=1, periody=1, periodz=1),
-    "frozen": dict(dimx=1, dimy=1, dimz=1),
-    "wrap_y_frozen_xz": dict(dimx=1, dimy=1, dimz=1, periody=1),
-    "recv_2x2x1_open": dict(dimx=2, dimy=2, dimz=1),
-    "recv_2x2x2_periodic": dict(dimx=2, dimy=2, dimz=2, periodx=1, periody=1,
-                                periodz=1),
-    "recv_x_wrap_yz": dict(dimx=2, dimy=1, dimz=1, periody=1, periodz=1),
-    "recv_yz_wrap_x": dict(dimx=1, dimy=2, dimz=2, periodx=1),
-}
+from torch_kernel_emulation import (  # noqa: F401
+    BAND_GRIDS, GRIDS, HM3D_KW, SC, STOKES_KW, WAVE_GRIDS, WAVE_KW, _random,
+    _run_band, _run_chunk, _run_stag_band, _stokes_grid, _stokes_state,
+    _wave_grid, _wave_state, csrc, emulated, first_designs, generated,
+    halo_reversed, libs, same)
 
 
 # (12, 10, 33): odd z extents, the element path; (10, 12, 8): whole 16-byte
@@ -386,20 +140,6 @@ def test_pack_kernel_matches_plain(emulated, dims, local, dtype, offset):
             same(got, want)
 
 
-@pytest.fixture(scope="module")
-def halo_reversed(csrc):
-    """The halo writer built with EMU_REVERSE: its thread blocks run last
-    to first."""
-    out = csrc / "reversed"
-    out.mkdir()
-    lib = _gxx(csrc, csrc / "halo_write.cu", out / "halo_write.so",
-               defines=("EMU_REVERSE",))
-    fn_name, argtypes = _build.SIGNATURES["halo_write"]
-    fn = getattr(lib, fn_name)
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return lib
-
-
 # Ranks 1-3; blocks (1,1,1), (2,2,2), (4,2,1); overlaps 2 and 3; 2-, 4- and
 # 8-byte elements; the field at offset 0 and 1 of its storage (rows on and
 # off 16 bytes); every WRAP/EXT/NONE mix; the thread blocks in both orders
@@ -429,84 +169,6 @@ def test_halo_write_kernel_matches_plain(emulated, halo_reversed, blocks,
                 same(got, want)
                 ran += 1
     assert ran >= 4
-
-
-CHUNK_GRIDS = {
-    "ring_periodic": ((8, 1, 1), (1, 1, 1)),
-    "ring_open": ((8, 1, 1), (0, 0, 0)),
-    "2x2x2_periodic": ((2, 2, 2), (1, 1, 1)),
-    "2x2x2_periods010": ((2, 2, 2), (0, 1, 0)),
-    "2x2x2_periods101": ((2, 2, 2), (1, 0, 1)),
-    "1x2x2_open": ((1, 2, 2), (0, 0, 0)),
-    "2x1x1_wrap_y_frozen_z": ((2, 1, 1), (0, 1, 0)),
-    "1x1x1_open": ((1, 1, 1), (0, 0, 0)),
-}
-
-
-def _run_chunk(launch, exts, out, K):
-    """K launches ping-ponging two sets of buffers, as the wrappers do."""
-    bufs = [[torch.empty_like(X) for X in exts] for _ in range(2)]
-    src = list(exts)
-    for k in range(K):
-        dst = out if k == K - 1 else bufs[k % 2]
-        launch(src, dst, k == K - 1)
-        src = dst
-    return out
-
-
-# (16, 16, 16): whole vectors; (16, 12, 13): odd z, the element path.
-@pytest.mark.parametrize("local", [(16, 16, 16), (16, 12, 13)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", sorted(CHUNK_GRIDS))
-def test_chunk_kernels_match_plain(emulated, case, dtype, local):
-    (dims, per), K = CHUNK_GRIDS[case], 8
-    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
-                        dimy=dims[1], dimz=dims[2], periodx=per[0],
-                        periody=per[1], periodz=per[2])
-    g = it.get_global_grid()
-    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
-    ols = ce.field_ols(g, [g.nxyz]) * 2
-
-    T, A = _random(shp, dtype, -10, 10, 7), _random(shp, dtype, 0.001, 0.1, 8)
-    Text, A_ext = ce.extend_fields([T, A], ols, K, g, modes)
-    got = _run_chunk(
-        lambda src, dst, last: dtz._launch(src[0], A_ext, Text, dst[0],
-                                           g.nxyz, K, modes, g, SC, last, 0),
-        [Text], [torch.empty_like(T)], K)[0]
-    same(got, ce.central_window(dtz.window_steps_plain(
-        Text, A_ext, K=K, modes=modes, grid=g, sc=SC), g.nxyz, K, modes))
-
-    Pe, phi = (_random(shp, dtype, -0.5, 0, 9),
-               _random(shp, dtype, 0.05, 0.25, 10))
-    exts = ce.extend_fields([Pe, phi], ols, K, g, modes)
-    got = _run_chunk(
-        lambda src, dst, last: htz._launch(src, exts, dst, g.nxyz, K, modes,
-                                           g, HM3D_KW, last, 0),
-        exts, [torch.empty_like(Pe), torch.empty_like(phi)], K)
-    for a, b in zip(got, htz.window_steps_plain(*exts, K=K, modes=modes,
-                                                grid=g, kw=HM3D_KW)):
-        same(a, ce.central_window(b, g.nxyz, K, modes))
-
-
-# The band kernels' layouts: the chunk matrix and one periodic block (x
-# extended, y and z wrapped).
-BAND_GRIDS = dict(CHUNK_GRIDS, **{"1x1x1_periodic": ((1, 1, 1), (1, 1, 1))})
-
-
-def _run_band(launch, exts, local, K, B, modes, g, central):
-    """K launches of a band kernel ping-ponging two sets of buffers, as
-    `chunk_engine.streaming_chunk_call` runs them; the last one writes the
-    central windows when `central`."""
-    bufs = [[torch.empty_like(X) for X in exts] for _ in range(2)]
-    src = list(exts)
-    for k in range(K):
-        last = central and k == K - 1
-        dst = ([torch.empty(it.stacked_shape(local), dtype=X.dtype)
-                for X in exts] if last else bufs[k % 2])
-        launch(src, dst, ce.band_cfg(exts[0].shape, local, K, modes, g, last,
-                                     B=B, lo=1, extra=1, ols=(2, 2, 2)))
-        src = dst
-    return src
 
 
 # Blocks of 18x10x40 and K = 3: an extended x span of 24 rows (18 on a
@@ -544,33 +206,6 @@ def test_band_kernels_match_plain(emulated, case, dtype, bands):
                                            grid=g, kw=HM3D_KW,
                                            central=central)):
             same(a, b)
-
-
-WAVE_KW = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
-# Layouts of the wave2d checks, as (dims, periods).
-WAVE_GRIDS = {
-    "1x1_periodic": ((1, 1), (1, 1)),
-    "4x2_periodic": ((4, 2), (1, 1)),
-    "8x1_periodic": ((8, 1), (1, 1)),
-    "2x1_periodic": ((2, 1), (1, 1)),
-    "2x2_periodic": ((2, 2), (1, 1)),
-    "1x1_open": ((1, 1), (0, 0)),
-    "4x2_open": ((4, 2), (0, 0)),
-    "8x1_open": ((8, 1), (0, 0)),
-    "2x1_open": ((2, 1), (0, 0)),
-}
-
-
-def _wave_grid(case, local):
-    (dims, per) = WAVE_GRIDS[case]
-    it.init_global_grid(*local, 1, quiet=True, device="cpu", dimx=dims[0],
-                        dimy=dims[1], dimz=1, periodx=per[0], periody=per[1])
-    return it.get_global_grid()
-
-
-def _wave_state(g, dtype, seed):
-    return [_random(it.stacked_shape(s), dtype, -1, 1, seed + f)
-            for f, s in enumerate(wp.field_shapes(g.nxyz[:2]))]
 
 
 @pytest.mark.parametrize("local", [(12, 10), (16, 13)])
@@ -613,44 +248,6 @@ def test_wave2d_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
             same(a, ce.central_window(b, s, 2 * K, modes))
 
 
-STOKES_KW = dict(dx=0.31, dy=0.27, dz=0.43, mu=1.3, dtP=0.07, dtV=0.011)
-# Layouts of the Stokes checks (overlap 3), as (dims, periods): igg's
-# trapezoid matrix (tests/test_stokes_trapezoid.py) plus one-block grids.
-STOKES_GRIDS = {
-    "ring_periodic": ((8, 1, 1), (1, 1, 1)),
-    "ring_open": ((8, 1, 1), (0, 0, 0)),
-    "2x2x2_periodic": ((2, 2, 2), (1, 1, 1)),
-    "2x2x2_open": ((2, 2, 2), (0, 0, 0)),
-    "2x2x2_periods010": ((2, 2, 2), (0, 1, 0)),
-    "4x2x1_periods101": ((4, 2, 1), (1, 0, 1)),
-    "1x1x1_periodic": ((1, 1, 1), (1, 1, 1)),
-    "1x1x1_open": ((1, 1, 1), (0, 0, 0)),
-    "1x1x1_periods101": ((1, 1, 1), (1, 0, 1)),
-}
-
-
-# y one periodic block over an open x, which only the band marches' edge
-# cases take: an x freeze row's value then comes from the source's row of a
-# y wrap, not the target's.
-STOKES_EDGE_GRIDS = dict(STOKES_GRIDS, **{
-    "2x1x1_wrap_y_open_xz": ((2, 1, 1), (0, 1, 0))})
-
-
-def _stokes_grid(case, local):
-    dims, per = STOKES_EDGE_GRIDS[case]
-    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
-                        dimy=dims[1], dimz=dims[2], periodx=per[0],
-                        periody=per[1], periodz=per[2], overlapx=3,
-                        overlapy=3, overlapz=3)
-    return it.get_global_grid()
-
-
-def _stokes_state(g, dtype, seed):
-    """Random (P, Vx, Vy, Vz, Rho) on the grid `g`."""
-    return [_random(it.stacked_shape(s), dtype, -1, 1, seed + f)
-            for f, s in enumerate(sp.field_shapes(g.nxyz))]
-
-
 # (8, 9, 12): 16-byte P, Vx and Vy rows (the vector path; Vz's rows of 13
 # are scalar); (7, 6, 11): odd z extents, the element path.
 @pytest.mark.parametrize("local", [(8, 9, 12), (7, 6, 11)])
@@ -664,50 +261,6 @@ def test_stokes_step_kernel_matches_plain(emulated, case, dtype, local):
     sp._launch(srcs, Rho, out, g.dims, g.nxyz, STOKES_KW, 0)
     for a, b in zip(out, sp.step_plain(*srcs, Rho, g.dims, STOKES_KW)):
         same(a, b)
-
-
-# Extents that cross the march's (y, z) tiles (8 x 32 cells) and end in a
-# ragged one, extended (E = 2K) or not: y 12 and 13 (13 to 26 rows with
-# the face row: 2 to 4 tiles), z 33 (34 to 46: 2 tiles), x 12 and 13 (two
-# segments of x rows); K = 2 and 3.
-@pytest.mark.parametrize("local,Ks", [((12, 12, 33), (2,)),
-                                      ((13, 13, 33), (2, 3))])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
-def test_stokes_chunk_kernel_matches_plain(emulated, case, dtype, local, Ks):
-    """The chunk step against `window_iters_plain`: K launches into whole
-    extended buffers (NaN-filled, so a cell left unwritten shows) against
-    the plain version's evolved buffers, and the chain whose last launch
-    writes the central windows against their windows."""
-    g = _stokes_grid(case, local)
-    modes = ce.dim_modes(g)
-    shapes = sp.field_shapes(g.nxyz)
-    ols = ce.field_ols(g, shapes)
-    *state, Rho = _stokes_state(g, dtype, 41)
-    for K in Ks:
-        assert stz.stokes_chunk_refusal(g, g.nxyz, K, K, dtype) is None
-        exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
-        Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
-        want = stz.window_iters_plain(exts, Rho_ext, K=K, modes=modes,
-                                      grid=g, kw=STOKES_KW, ols=ols)
-        src = list(exts)
-        for _ in range(K):
-            dst = [torch.full_like(X, float("nan")) for X in exts]
-            stz._launch(src, exts, Rho_ext, dst,
-                        stz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, False),
-                        STOKES_KW, 0)
-            src = dst
-        for a, b in zip(src, want):
-            same(a, b)
-        got = _run_chunk(
-            lambda src, dst, last: stz._launch(
-                src, exts, Rho_ext, dst,
-                stz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, last),
-                STOKES_KW, 0),
-            exts, [torch.full(it.stacked_shape(s), float("nan"), dtype=dtype)
-                   for s in shapes[:4]], K)
-        for a, b, s in zip(got, want, shapes):
-            same(a, ce.central_window(b, s, 2 * K, modes))
 
 
 # The spacings of the Stokes checks and of config 5 at 256^3 and 509^3, 3,
@@ -739,341 +292,6 @@ def test_stokes_division_matches_ieee(emulated, d):
                                            n=1024, step=1, device="cpu") == 0
 
 
-def _run_stag_band(launch, exts, shapes, local, E, K, B, lo, extras, modes, g,
-                   ols, central):
-    """K launches of a staggered band kernel ping-ponging two sets of
-    buffers (NaN-filled, so a cell a launch leaves unwritten shows), as
-    `chunk_engine.streaming_chunk_call` runs them; the last one writes the
-    central windows when `central`."""
-    bufs = [[torch.full_like(X, float("nan")) for X in exts]
-            for _ in range(2)]
-    src = list(exts)
-    for k in range(K):
-        last = central and k == K - 1
-        dst = ([torch.full(it.stacked_shape(s), float("nan"), dtype=X.dtype)
-                for X, s in zip(exts, shapes)] if last else bufs[k % 2])
-        launch(src, dst, ce.stagger_band_cfg(
-            local, E, modes, g.dims, ols[:len(exts)], last, B=B, lo=lo,
-            extras=extras))
-        src = dst
-    return src
-
-
-# Blocks of 12x12x36 at K = 3 (E = 6): an extended x span of 24 rows (12 on a
-# frozen x) cut into 2 or 3 bands; y in 2 or 3 tiles and z in 2 (the face
-# rows of Vy and Vz in the last tile), so wraps, freezes and tiles cross.
-@pytest.mark.parametrize("bands", [2, 3])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", sorted(STOKES_GRIDS))
-def test_stokes_band_kernel_matches_plain(emulated, case, dtype, bands):
-    """The Stokes band kernel against `banded_window_plain` with the port
-    of igg's `_band_update`: the whole evolved extended buffers (tail rows
-    and shoulders included) and the central windows of the last launch."""
-    K, local = 3, (12, 12, 36)
-    g = _stokes_grid(case, local)
-    modes = ce.dim_modes(g)
-    shapes = sp.field_shapes(g.nxyz)
-    ols = ce.field_ols(g, shapes)
-    B = ce.ext_shape(local, 2 * K, modes)[0] // bands
-    assert stz.stokes_banded_refusal(g, local, K, K, dtype, B=B) is None
-    *state, Rho = _stokes_state(g, dtype, 43)
-    exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
-    Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
-    for central in (False, True):
-        got = _run_stag_band(
-            lambda src, dst, cfg: stz._band_launch(src, exts, Rho_ext, dst,
-                                                   cfg, STOKES_KW, 0),
-            exts, shapes, local, 2 * K, K, B, 1, stz.EXTRAS, modes, g, ols,
-            central)
-        want = stz.band_call(exts, Rho_ext, shapes, K=K, B=B, modes=modes,
-                             grid=g, kw=STOKES_KW, ols=ols, central=central)
-        for a, b in zip(got, want):
-            same(a, b)
-
-
-# The marches with segments of at least 3 x rows instead of 8, so that
-# the small blocks here are cut into segments that cross the bands.
-SHORT_SEGMENTS = (("stokes_march.cuh", "constexpr int MARCH_MIN_SEG = 8;",
-                   "constexpr int MARCH_MIN_SEG = 3;"),
-                  ("hm3d_march.cuh", "constexpr int HM_MIN_SEG = 8;",
-                   "constexpr int HM_MIN_SEG = 3;"),
-                  ("diffusion_march.cuh", "constexpr int DM_MIN_SEG = 8;",
-                   "constexpr int DM_MIN_SEG = 3;"),
-                  ("stokes_step.cu", "constexpr int SS_MIN_SEG = 8;",
-                   "constexpr int SS_MIN_SEG = 3;"),
-                  ("hm3d_march.cuh", "constexpr int HM_STEP_MIN_SEG = 16;",
-                   "constexpr int HM_STEP_MIN_SEG = 3;"),
-                  ("stagger_band_march3.cuh", "constexpr int SB_MIN_SEG = 8;",
-                   "constexpr int SB_MIN_SEG = 3;"))
-SHORT_SEGMENT_LIBS = ("stokes_band", "hm3d_band", "hm3d_chunk",
-                      "diffusion_band", "hm3d_step", "stokes_step")
-
-
-@pytest.fixture(scope="module")
-def short_segments(csrc):
-    """The marches' libraries built with SHORT_SEGMENTS."""
-    out = csrc / "short_segments"
-    out.mkdir()
-    for f in os.listdir(csrc):
-        if f.endswith((".cu", ".cuh", ".h")):
-            text = (csrc / f).read_text()
-            for name, old, new in SHORT_SEGMENTS:
-                if f == name:
-                    assert text.count(old) == 1, (f, old)
-                    text = text.replace(old, new)
-            (out / f).write_text(text)
-
-    def build(name):
-        lib = _gxx(out, out / f"{name}.cu", out / f"{name}.so")
-        fn_name, argtypes = _build.SIGNATURES[name]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        return name, lib
-
-    with concurrent.futures.ThreadPoolExecutor(len(SHORT_SEGMENT_LIBS)) as pool:
-        return dict(pool.map(build, SHORT_SEGMENT_LIBS))
-
-
-# The marches' edge cases, each beside the plain version: segments
-# that do not line up with the bands (SHORT_SEGMENTS), tiles that cross the
-# blocks' last y and z rows (y 13 and z 35 or 37: 19 to 26 rows with the
-# extension and the face row, tiles of 8 x 32 ending in 2 to 16 of them),
-# and fields at rest (`init_fields`: zero velocities and pressures, the
-# zero dividends that const_div.cuh sends to `x * r`).
-BAND_EDGE_CASES = ("short_segments", "ragged_tiles", "at_rest")
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
-@pytest.mark.parametrize("case", ["1x1x1_periodic", "2x2x2_open",
-                                  "4x2x1_periods101", "2x1x1_wrap_y_open_xz"])
-def test_stokes_band_march_edge_cases(emulated, short_segments, case, kind,
-                                      dtype, monkeypatch):
-    """The Stokes band kernel against `banded_window_plain` in the march's
-    edge cases: the whole evolved extended buffers and the central
-    windows, two bands."""
-    from igg_torch.models import stokes3d as st3
-
-    K = 3
-    local = (12, 13, 35) if kind == "ragged_tiles" else (12, 12, 36)
-    if kind == "short_segments":
-        monkeypatch.setattr(stz, "library", short_segments.__getitem__)
-    g = _stokes_grid(case, local)
-    modes = ce.dim_modes(g)
-    shapes = sp.field_shapes(g.nxyz)
-    ols = ce.field_ols(g, shapes)
-    B = ce.ext_shape(local, 2 * K, modes)[0] // 2
-    assert stz.stokes_banded_refusal(g, local, K, K, dtype, B=B) is None
-    if kind == "at_rest":
-        *state, Rho = st3.init_fields(st3.Params(), dtype=dtype)
-    else:
-        *state, Rho = _stokes_state(g, dtype, 45)
-    exts = ce.extend_fields(state, ols[:4], 2 * K, g, modes)
-    Rho_ext = ce.extend_fields([Rho], [ols[4]], 2 * K, g, modes)[0]
-    for central in (False, True):
-        got = _run_stag_band(
-            lambda src, dst, cfg: stz._band_launch(src, exts, Rho_ext, dst,
-                                                   cfg, STOKES_KW, 0),
-            exts, shapes, local, 2 * K, K, B, 1, stz.EXTRAS, modes, g, ols,
-            central)
-        want = stz.band_call(exts, Rho_ext, shapes, K=K, B=B, modes=modes,
-                             grid=g, kw=STOKES_KW, ols=ols, central=central)
-        for a, b in zip(got, want):
-            same(a, b)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
-@pytest.mark.parametrize("case", ["1x1x1_periodic", "2x2x2_periods010",
-                                  "1x2x2_open"])
-def test_hm3d_band_march_edge_cases(emulated, short_segments, case, kind,
-                                    dtype, monkeypatch):
-    """The HM3D band kernel against `banded_window_plain` in the march's
-    edge cases: the whole evolved extended buffers and the central
-    windows, two bands."""
-    from igg_torch.models import hm3d as h3
-
-    (dims, per), K = BAND_GRIDS[case], 3
-    local = (18, 13, 37) if kind == "ragged_tiles" else (18, 10, 40)
-    if kind == "short_segments":
-        monkeypatch.setattr(htz, "library", short_segments.__getitem__)
-    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
-                        dimy=dims[1], dimz=dims[2], periodx=per[0],
-                        periody=per[1], periodz=per[2])
-    g = it.get_global_grid()
-    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
-    ols = ce.field_ols(g, [g.nxyz]) * 2
-    B = ce.ext_shape(local, K, modes)[0] // 2
-    if kind == "at_rest":
-        state = h3.init_fields(h3.Params(), dtype=dtype)
-    else:
-        state = (_random(shp, dtype, -0.5, 0, 21),
-                 _random(shp, dtype, 0.05, 0.25, 22))
-    exts = ce.extend_fields(list(state), ols, K, g, modes)
-    for central in (False, True):
-        got = _run_band(lambda src, dst, cfg: htz._band_launch(
-            src, exts, dst, cfg, HM3D_KW, 0), exts, local=local, K=K, B=B,
-            modes=modes, g=g, central=central)
-        for a, b in zip(got, htz.band_call(exts, local, K=K, B=B, modes=modes,
-                                           grid=g, kw=HM3D_KW,
-                                           central=central)):
-            same(a, b)
-
-
-# The chunk meshes and z one periodic block over an open x and y, where
-# a wrapped z row takes F at its target's z, not at its source's.
-CHUNK_EDGE_GRIDS = dict(CHUNK_GRIDS, **{
-    "2x1x1_wrap_z_open_xy": ((2, 1, 1), (0, 0, 1))})
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
-@pytest.mark.parametrize("case", sorted(CHUNK_EDGE_GRIDS))
-def test_hm3d_chunk_march_edge_cases(emulated, short_segments, case, kind,
-                                     dtype, monkeypatch):
-    """The HM3D chunk kernel (the HM3D march with the chunk's edge rules)
-    against `window_steps_plain` in the march's edge cases, every layout
-    of the chunk meshes: the whole evolved extended buffers of K = 3
-    launches (the shoulders show the freeze rows beyond lo and hi and the
-    outermost rows kept) and the central windows of a K = 3 chunk."""
-    from igg_torch.models import hm3d as h3
-
-    (dims, per), K = CHUNK_EDGE_GRIDS[case], 3
-    local = (18, 13, 37) if kind == "ragged_tiles" else (18, 10, 40)
-    if kind == "short_segments":
-        monkeypatch.setattr(htz, "library", short_segments.__getitem__)
-    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
-                        dimy=dims[1], dimz=dims[2], periodx=per[0],
-                        periody=per[1], periodz=per[2])
-    g = it.get_global_grid()
-    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
-    if kind == "at_rest":
-        state = h3.init_fields(h3.Params(), dtype=dtype)
-    else:
-        state = (_random(shp, dtype, -0.5, 0, 29),
-                 _random(shp, dtype, 0.05, 0.25, 30))
-    exts = ce.extend_fields(list(state), ce.field_ols(g, [g.nxyz]) * 2, K, g,
-                            modes)
-    want = htz.window_steps_plain(*exts, K=K, modes=modes, grid=g,
-                                  kw=HM3D_KW)
-    whole = _run_chunk(lambda src, dst, last: htz._launch(
-        src, exts, dst, g.nxyz, K, modes, g, HM3D_KW, False, 0), exts,
-        [torch.empty_like(X) for X in exts], K)
-    got = _run_chunk(lambda src, dst, last: htz._launch(
-        src, exts, dst, g.nxyz, K, modes, g, HM3D_KW, last, 0), exts,
-        [torch.empty(shp, dtype=dtype) for _ in range(2)], K)
-    for a, w, b in zip(got, whole, want):
-        same(w, b)
-        same(a, ce.central_window(b, g.nxyz, K, modes))
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
-@pytest.mark.parametrize("case", sorted(BAND_GRIDS))
-def test_diffusion_band_march_edge_cases(emulated, short_segments, case, kind,
-                                         dtype, monkeypatch):
-    """The diffusion band kernel against `banded_window_plain` in the
-    march's edge cases, every layout of the band meshes: the whole evolved
-    extended buffer and the central window, two bands.  Its at-rest state
-    is the diffusion model's `init_fields` (T's anomalies in a field at
-    rest, A = 0.05 / Cp)."""
-    from igg_torch.models import diffusion3d as d3
-
-    (dims, per), K = BAND_GRIDS[case], 3
-    local = (18, 13, 37) if kind == "ragged_tiles" else (18, 10, 40)
-    if kind == "short_segments":
-        monkeypatch.setattr(dtz, "library", short_segments.__getitem__)
-    it.init_global_grid(*local, quiet=True, device="cpu", dimx=dims[0],
-                        dimy=dims[1], dimz=dims[2], periodx=per[0],
-                        periody=per[1], periodz=per[2])
-    g = it.get_global_grid()
-    shp, modes = it.stacked_shape(g.nxyz), ce.dim_modes(g)
-    if kind == "at_rest":
-        T, Cp = d3.init_fields(d3.Params(), dtype=dtype)
-        A = 0.05 / Cp
-    else:
-        T, A = (_random(shp, dtype, -10, 10, 31),
-                _random(shp, dtype, 0.001, 0.1, 32))
-    Text, A_ext = ce.extend_fields([T, A], ce.field_ols(g, [g.nxyz]) * 2, K,
-                                   g, modes)
-    B = ce.ext_shape(local, K, modes)[0] // 2
-    for central in (False, True):
-        got = _run_band(lambda src, dst, cfg: dtz._band_launch(
-            src[0], A_ext, Text, dst[0], cfg, SC, 0), [Text], local=local,
-            K=K, B=B, modes=modes, g=g, central=central)[0]
-        same(got, dtz.band_call(Text, A_ext, local, K=K, B=B, modes=modes,
-                                grid=g, sc=SC, central=central))
-
-
-# The step marches' layouts: GRIDS (every halo mode, x wraps among them)
-# and y received over a wrapped x and z, where a received y halo cell takes
-# the y plane at its wrap source's z, not its own.
-STEP_GRIDS = dict(GRIDS, recv_y_wrap_xz=dict(dimx=1, dimy=2, dimz=1,
-                                             periodx=1, periodz=1))
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
-@pytest.mark.parametrize("case", sorted(STEP_GRIDS))
-def test_hm3d_step_march_edge_cases(emulated, short_segments, case, kind,
-                                    dtype, monkeypatch):
-    """The HM3D step kernel (the HM3D march with the fused step's edge
-    rules) against `step_plain` in the march's edge cases, npow 0, 1, 2 and
-    5: x segments of 3 rows (SHORT_SEGMENTS; 13 rows: 4 segments), extents
-    that cross its 16 x 16 tiles and end in a ragged one (y 18, z 35), and
-    fields at rest."""
-    from igg_torch.models import hm3d as h3
-
-    local = (19, 18, 35) if kind == "ragged_tiles" else (13, 10, 12)
-    if kind == "short_segments":
-        monkeypatch.setattr(hp, "library", short_segments.__getitem__)
-    it.init_global_grid(*local, quiet=True, device="cpu", **STEP_GRIDS[case])
-    g = it.get_global_grid()
-    shp, modes = it.stacked_shape(g.nxyz), dp.step_modes(g)
-    if kind == "at_rest":
-        Pe, phi = h3.init_fields(h3.Params(), dtype=dtype)
-    else:
-        Pe, phi = (_random(shp, dtype, -0.5, 0, 41),
-                   _random(shp, dtype, 0.05, 0.25, 42))
-    for npow in (0, 1, 2, 5):
-        kw = dict(HM3D_KW, npow=npow)
-        recv = hp.step_recv_planes(Pe, phi, g, modes, kw)
-        out = (torch.empty_like(Pe), torch.empty_like(phi))
-        hp._launch(Pe, phi, out, modes, recv, g.dims, g.nxyz, kw, 0)
-        for a, b in zip(out, hp.step_plain(Pe, phi, modes, recv, g.dims, kw)):
-            same(a, b)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", BAND_EDGE_CASES + ("tiny",))
-@pytest.mark.parametrize("case", ["ring_periodic", "2x2x2_open",
-                                  "4x2x1_periods101", "1x1x1_periodic"])
-def test_stokes_step_march_edge_cases(emulated, short_segments, case, kind,
-                                      dtype, monkeypatch):
-    """The Stokes step kernel's x-march against `step_plain` in its edge
-    cases: x segments of 3 rows (SHORT_SEGMENTS; 13 rows: 4 segments),
-    extents that cross its tiles (8 rows by 32 columns) and end in a
-    ragged one (y 19, z 35; x 17: 2 segments), fields at rest, and tiny
-    fields (about 1e-37: dividends below the reciprocal path's range,
-    subnormal ones among them in float32)."""
-    from igg_torch.models import stokes3d as st3
-
-    local = (17, 19, 35) if kind == "ragged_tiles" else (13, 9, 12)
-    if kind == "short_segments":
-        monkeypatch.setattr(sp, "library", short_segments.__getitem__)
-    g = _stokes_grid(case, local)
-    if kind == "at_rest":
-        *srcs, Rho = st3.init_fields(st3.Params(), dtype=dtype)
-    else:
-        *srcs, Rho = _stokes_state(g, dtype, 51)
-    if kind == "tiny":
-        srcs, Rho = [A * 1e-37 for A in srcs], Rho * 1e-37
-    out = [torch.empty_like(A) for A in srcs]
-    sp._launch(srcs, Rho, out, g.dims, g.nxyz, STOKES_KW, 0)
-    for a, b in zip(out, sp.step_plain(*srcs, Rho, g.dims, STOKES_KW)):
-        same(a, b)
-
-
 # HM3D's divisors: phi0 and eta of its parameters, the checks' 1.3, and the
 # spacings 10 / (n_g - 1) of its phases (n_g 254 on one periodic 256^3
 # block, 508 on 2x2x2 periodic blocks of 256^3, 510 on open ones) and of
@@ -1100,36 +318,6 @@ def test_hm3d_band_divisors_divide_as_ieee(emulated, d):
     assert stz.division_mismatches(d, dtype=f64, n=1 << 18,
                                    step=0x9E3779B97F4A7C15,
                                    device="cpu") == 0
-
-
-@pytest.fixture(scope="module")
-def first_designs(csrc):
-    """The first designs of the redesigned kernels (kernel_variants.py:
-    FIRST_DESIGNS), built with g++ beside the rewritten headers and the
-    first designs' policies (FIRST_HEADERS, found first), as the card's
-    timing runs build them with nvcc."""
-    import sys
-
-    sys.path.insert(0, os.path.dirname(_build._ROOT))
-    import kernel_variants
-
-    first = csrc / "first"
-    first.mkdir()
-    for name, text in kernel_variants.FIRST_HEADERS.items():
-        (first / name).write_text(_rewrite(text))
-
-    def build(name):
-        src = first / f"first_{name}"
-        src.write_text(_rewrite(kernel_variants.FIRST_DESIGNS[name]))
-        lib = _gxx(csrc, src, first / f"first_{name}.so", first)
-        fn_name, argtypes = _build.SIGNATURES[name[:-len(".cu")]]
-        fn = getattr(lib, fn_name)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
-        return name[:-len(".cu")], lib
-
-    names = sorted(kernel_variants.FIRST_DESIGNS)
-    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
-        return dict(pool.map(build, names))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -1264,240 +452,3 @@ def test_first_designs_match_plain(emulated, first_designs, name, dtype,
     for a, b in zip(got, want):
         same(a, b)
 
-
-# -- kernels generated from stencil specs ------------------------------------
-
-def _spec_params():
-    return [(name, case, local) for name in sorted(cases.SPECS)
-            for case in sorted(cases.grids(name))
-            for local in cases.locals_of(name)]
-
-
-def _step_cfg(g, nd):
-    return ce.stagger_cfg(g.nxyz[:nd], 0, ("ext",) * nd, g.dims, [], False)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name,case,local", _spec_params())
-def test_spec_step_kernel_matches_plain(emulated, name, case, local, dtype):
-    g = cases.init(it, name, case, local, "cpu")
-    gen = cases.kernels(name)
-    nd = gen.spec.ndim
-    S = cases.state(it, gen, g, dtype, 51)
-    out = [torch.empty_like(A) for A in S]
-    lower._launch(gen, S, S, out, _step_cfg(g, nd), 0)
-    for a, b in zip(out, lower.step_plain(gen, S, g.dims[:nd])):
-        same(a, b)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name,case,local", _spec_params())
-def test_spec_chunk_kernel_matches_plain(emulated, name, case, local, dtype):
-    g = cases.init(it, name, case, local, "cpu")
-    gen = cases.kernels(name)
-    S = cases.state(it, gen, g, dtype, 61)
-    ran = 0
-    for K in (2, 3):
-        setup = cases.chunk_setup(gen, g, S, K)
-        if setup is None:
-            continue
-        E, modes, shapes, ols, exts = setup
-        got = _run_chunk(
-            lambda src, dst, last: lower._launch(
-                gen, src, exts, dst,
-                ce.stagger_cfg(g.nxyz[:len(shapes[0])], E, modes, g.dims, ols,
-                               last), 0),
-            exts, [torch.empty(it.stacked_shape(s), dtype=dtype)
-                   for s in shapes], K)
-        want = lower.chunk_plain(gen, exts, K=K, E=E, modes=modes, grid=g,
-                                 ols=ols)
-        for a, b, s in zip(got, want, shapes):
-            same(a, ce.central_window(b, s, E, modes))
-        ran += 1
-    # The chunk refuses only `mixed` on open dims (its analyzer's
-    # boundary-validity recurrence).
-    assert ran or name == "mixed", (name, case)
-
-
-@pytest.mark.parametrize("local", cases.LOCALS_2D)
-@pytest.mark.parametrize("case", sorted(cases.GRIDS_2D))
-def test_spec_wave2d_matches_hand_kernels(emulated, case, local):
-    """The generated spec-wave2d step equals the hand-written wave2d step
-    kernel bitwise; its chunk step (E = K) the hand chunk (E = 2K) on
-    periodic grids, on the central windows."""
-    g = cases.init(it, "wave2d_spec", case, local, "cpu")
-    gen = cases.kernels("wave2d_spec")
-    kw = dict(dx=0.31, dy=0.27, dt=0.05, rho=1.3, bulk=0.7)
-    S = cases.state(it, gen, g, torch.float32, 71)
-    hand = [torch.empty_like(A) for A in S]
-    wp._launch(S, hand, g.dims[:2], g.nxyz[:2], kw, 0)
-    out = [torch.empty_like(A) for A in S]
-    lower._launch(gen, S, S, out, _step_cfg(g, 2), 0)
-    for a, b in zip(out, hand):
-        same(a, b)
-    modes = ce.dim_modes(g)[:2]
-    if any(m not in ("ext", "wrap") for m in modes):
-        return
-    K = 2
-    E, modes, shapes, ols, exts = cases.chunk_setup(gen, g, S, K)
-    got = _run_chunk(
-        lambda src, dst, last: lower._launch(
-            gen, src, exts, dst,
-            ce.stagger_cfg(g.nxyz[:2], E, modes, g.dims, ols, last), 0),
-        exts, [torch.empty_like(A) for A in S], K)
-    wexts = ce.extend_fields(S, ols, 2 * K, g, modes)
-    want = _run_chunk(
-        lambda src, dst, last: wtz._launch(
-            src, dst, wtz.chunk_cfg(shapes[0], 2 * K, modes, g, ols, last),
-            kw, 0),
-        wexts, [torch.empty_like(A) for A in S], K)
-    for a, b in zip(got, want):
-        same(a, b)
-
-
-@pytest.mark.parametrize("bands", [2, 3])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("name,case", [(n, c) for n in cases.SPECS_3D
-                                       for c in sorted(cases.GRIDS_3D)])
-def test_spec_band_kernel_matches_plain(emulated, name, case, dtype, bands):
-    """The generated band entry of the rank-3 specs against
-    `banded_window_plain` with the band core derived from the evaluator:
-    whole evolved buffers and central windows, blocks of 18x12x36, K = 3,
-    an extended x span of 24 rows (18 on a frozen x) in 2 or 3 bands."""
-    K, local = 3, (18, 12, 36)
-    g = cases.init(it, name, case, local, "cpu")
-    gen = cases.kernels(name)
-    shapes = lower.field_shapes(gen.spec, g.nxyz)
-    E = gen.analysis.margin_after(K)
-    modes = ce.dim_modes(g)
-    ols = ce.field_ols(g, shapes)
-    B = ce.ext_shape(local, E, modes)[0] // bands
-    assert lower.banded_refusal(gen.spec, gen.analysis, g, shapes[0], K, K,
-                                dtype, B=B) is None
-    lo, extras = lower.band_margins(gen.spec, gen.analysis)
-    exts = ce.extend_fields(cases.state(it, gen, g, dtype, 65), ols, E, g,
-                            modes)
-    for central in (False, True):
-        got = _run_stag_band(
-            lambda src, dst, cfg: lower._band_launch(gen, src, exts, dst, cfg,
-                                                     0),
-            exts, shapes, local, E, K, B, lo, extras, modes, g, ols, central)
-        want = lower.band_call(gen, exts, shapes, K=K, B=B, E=E, modes=modes,
-                               grid=g, ols=ols, central=central)
-        for a, b in zip(got, want):
-            same(a, b)
-
-
-# -- the generated band entry's x-march (csrc/stagger_band_march3.cuh) ------
-
-def _spec_band_check(name, case, dtype, B, bands, yz, K=3, fields=None):
-    """The generated band entry of spec `name` on grid `case` (blocks of yz
-    along y and z, an extended x span of `bands` bands of B;
-    torch_spec_cases.band_setup) against `banded_window_plain` (the band
-    core derived from the evaluator), tolerance 0: K launches' whole
-    evolved buffers (NaN-filled targets, so an unwritten cell shows) and
-    central windows."""
-    gen, g, shapes, E, modes, ols, exts = cases.band_setup(
-        it, name, case, B, bands, yz, K, dtype, fields=fields)
-    lo, extras = lower.band_margins(gen.spec, gen.analysis)
-    for central in (False, True):
-        got = _run_stag_band(
-            lambda src, dst, cfg: lower._band_launch(gen, src, exts, dst, cfg,
-                                                     0),
-            exts, shapes, g.nxyz, E, K, B, lo, extras, modes, g, ols,
-            central)
-        want = lower.band_call(gen, exts, shapes, K=K, B=B, E=E, modes=modes,
-                               grid=g, ols=ols, central=central)
-        for a, b in zip(got, want):
-            same(a, b)
-
-
-# B = 8 and 16 in two and three bands, every window mode, y and z extents
-# of one tile along z and two along y (the face rows of Vy and Vz in the
-# last tiles).
-@pytest.mark.parametrize("B,bands", [(8, 2), (8, 3), (16, 2), (16, 3)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
-@pytest.mark.parametrize("name", cases.SPECS_3D)
-def test_spec_band_march_matches_plain(emulated, name, case, dtype, B,
-                                       bands):
-    """The generated band entry's x-march against `banded_window_plain`
-    at band depths 8 and 16, two and three bands, in every window mode."""
-    _spec_band_check(name, case, dtype, B, bands, (9, 20))
-
-
-@pytest.fixture(scope="module")
-def short_generated(csrc, short_segments):
-    """`generated_library` through g++ on the SHORT_SEGMENTS headers."""
-    out = csrc / "short_segments"
-    built = {}
-
-    def library(source, tag):
-        if source not in built:
-            src = out / f"gen_{tag}_{len(built)}.cu"
-            src.write_text(_rewrite(source))
-            lib = _gxx(out, src, src.with_suffix(".so"))
-            for name in (cuda.ENTRY, cuda.BAND_ENTRY):
-                fn = getattr(lib, name, None)
-                if fn is not None:
-                    fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
-            built[source] = lib
-        return built[source]
-
-    return library
-
-
-# The march's edge cases: segments of 3 rows that cross the bands of 8
-# (SHORT_SEGMENTS), y and z extents whose tiles end in ragged ones across
-# the blocks' last rows (y 13, z 37: with the face rows 14 and 38, tiles of
-# 8 x 32), and fields at rest.
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", BAND_EDGE_CASES)
-@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
-@pytest.mark.parametrize("name", cases.SPECS_3D)
-def test_spec_band_march_edge_cases(emulated, short_generated, name, case,
-                                    kind, dtype, monkeypatch):
-    """The generated band entry's x-march against `banded_window_plain`
-    in its edge cases, every window mode, B = 8 in three bands."""
-    if kind == "short_segments":
-        monkeypatch.setattr(lower, "generated_library", short_generated)
-    _spec_band_check(name, case, dtype, 8, 3,
-                     (13, 37) if kind == "ragged_tiles" else (9, 20),
-                     fields=cases.at_rest if kind == "at_rest" else None)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", ["1x1x1_periodic", "2x2x2_open"])
-@pytest.mark.parametrize("name", cases.SPECS_3D)
-def test_spec_band_first_design_matches_plain(emulated, first_designs, name,
-                                              case, dtype, monkeypatch):
-    """The generated band entry's first design (the band walk,
-    kernel_variants.py: spec_band_first_source), kept to be timed beside
-    the march, still builds against the headers and equals
-    `banded_window_plain`."""
-    first = _build_first_generated(first_designs, name)
-    monkeypatch.setattr(lower, "generated_library",
-                        lambda source, tag: first)
-    _spec_band_check(name, case, dtype, 8, 3, (9, 20))
-
-
-_FIRST_GENERATED = {}
-
-
-def _build_first_generated(first_designs, name):
-    """The library of spec `name`'s source with its band entry on the first
-    design, built with g++ beside the first designs' headers."""
-    import kernel_variants
-
-    if name not in _FIRST_GENERATED:
-        lib0 = next(iter(first_designs.values()))
-        first = os.path.dirname(lib0._name)
-        src = os.path.join(first, f"first_gen_{name}.cu")
-        with open(src, "w") as f:
-            f.write(_rewrite(kernel_variants.spec_band_first_source(
-                cases.kernels(name))))
-        lib = _gxx(os.path.dirname(first), src, src[:-3] + ".so", first)
-        fn = getattr(lib, cuda.BAND_ENTRY)
-        fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
-        _FIRST_GENERATED[name] = lib
-    return _FIRST_GENERATED[name]

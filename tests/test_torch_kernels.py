@@ -39,7 +39,12 @@ Stokes gates refuse a window beyond the budget, which the marches (their
 shared memory independent of B) still compute; a 2-D spec and wave2d
 with `banded=True` raise on the card; under `verify="first_use"` the
 diffusion K-step loop serves bitwise its plain composition and a
-corrupted kernel tier raises.
+corrupted kernel tier raises; the generated rank-3 step and chunk step on
+the march's no-ring path (built with no shared memory for rings) in every
+layout; and chip_smoke.py's phase 22 at 2x2x2 blocks of 64^3: a sharded
+save between kernel launches, the resumed and the elastically resumed
+(1, 2, 4) runs bitwise the uninterrupted one, a flipped shard byte
+refused, and the background worker's frames bitwise the synchronous ones.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1196,3 +1201,118 @@ def test_verified_kernel_tier(card):
     with pytest.raises(it.GridError, match="corrupt.cuda"):
         ladder.dispatch(T, Cp)
     assert len(served) == 1 and "corrupt" not in degrade.active()
+
+
+# -- the rank-3 march's no-ring path ---------------------------------------
+
+@pytest.fixture(scope="module")
+def no_ring_libs():
+    """The generated rank-3 sources built with no shared memory for rings
+    (torch_spec_cases.start_no_ring), so every layout takes the march's
+    no-ring path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (torch.cuda.is_available() is False)")
+    return cases.finish_no_ring(cases.start_no_ring(cases.SPECS_3D))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("local", [(10, 9, 8), (11, 19, 35)])
+@pytest.mark.parametrize("case", sorted(cases.BAND_GRIDS))
+@pytest.mark.parametrize("name", cases.SPECS_3D)
+def test_spec_march_no_ring(card, no_ring_libs, monkeypatch, name, case,
+                            local, dtype):
+    """The step and the K = 2, 3 chunk steps on the march's no-ring path
+    (every read from device memory) against their plain versions,
+    tolerance 0, in every window mode, tiles ragged across the blocks'
+    last rows included."""
+    monkeypatch.setattr(lower, "generated_library",
+                        lambda source, tag: no_ring_libs[name])
+    gen = cases.kernels(name)
+    g = cases.march_grid(it, case, local, card)
+    S = cases.state(it, gen, g, dtype, 78, card)
+    cases.march_step_check(gen, g, S)
+    for K in (2, 3):
+        assert cases.march_chunk_check(it, gen, g, S, K)
+
+
+# -- checkpoint, resume, elastic resume and the worker on the card ---------
+
+def test_checkpoint_resume_and_elastic_resume(card, tmp_path):
+    """chip_smoke.py phase 22 at 2x2x2 open blocks of 64^3: a sharded save
+    between two calls of `make_multi_step(17)` and two launched right after
+    it; the loaded generation (fresh tensors on the card, the state of the
+    save) continues bitwise; a flipped byte in one shard is refused and
+    skipped by the scan; the generation restored onto (1, 2, 4) blocks of
+    the same global grid continues to the same interior, bitwise; the flat
+    format round-trips bitwise."""
+    import shutil
+
+    from igg_torch.models import diffusion3d as t3
+
+    it.init_global_grid(64, 64, 64, dimx=2, dimy=2, dimz=2, device=card,
+                        quiet=True)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    step = t3.make_multi_step(17, p)
+    T = step(step(T, Cp), Cp)
+    saved = T.clone()
+    gen = tmp_path / "ckpt_000000034"
+    it.save_checkpoint_sharded(gen, T=T, Cp=Cp)
+    T_ref = step(step(T, Cp), Cp).clone()     # launched right after the save
+    got = it.load_checkpoint(gen)
+    assert got["T"].device.type == "cuda" and got["T"].data_ptr() != \
+        T.data_ptr()
+    torch.testing.assert_close(got["T"], saved, rtol=0, atol=0)
+    torch.testing.assert_close(step(step(got["T"], got["Cp"]), got["Cp"]),
+                               T_ref, rtol=0, atol=0)
+    assert it.verify_checkpoint(gen)
+    bad = tmp_path / "ckpt_000000051"
+    shutil.copytree(gen, bad)
+    shard = bad / "shard_00003.npz"
+    data = bytearray(shard.read_bytes())
+    data[len(data) // 2] ^= 0x01
+    shard.write_bytes(bytes(data))
+    assert not it.verify_checkpoint(bad)
+    assert it.latest_checkpoint(tmp_path) == gen
+    it.save_checkpoint(tmp_path / "flat.npz", T=saved, Cp=Cp)
+    flat = it.load_checkpoint(tmp_path / "flat.npz")
+    torch.testing.assert_close(flat["T"], saved, rtol=0, atol=0)
+    want = it.gather_interior(T_ref)
+    it.finalize_global_grid()
+    it.init_global_grid(126, 64, 33, dimx=1, dimy=2, dimz=4, device=card,
+                        quiet=True)
+    got = it.load_checkpoint(gen, redistribute=True)
+    step = t3.make_multi_step(17, p)
+    T_e = step(step(got["T"], got["Cp"]), got["Cp"])
+    np.testing.assert_array_equal(it.gather_interior(T_e), want)
+
+
+def test_worker_frames_equal_synchronous_frames(card):
+    """A `BackgroundRenderer` gets T after every call of
+    `make_multi_step(17)` (64^3 periodic, one block); its frames, each
+    fetched on the worker and reduced to a CRC32, equal the synchronous
+    frames of the same steps."""
+    import zlib
+
+    from igg_torch import vis
+    from igg_torch.models import diffusion3d as t3
+
+    it.init_global_grid(64, 64, 64, dimx=1, dimy=1, dimz=1, periodx=1,
+                        periody=1, periodz=1, device=card, quiet=True)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    step = t3.make_multi_step(17, p)
+    frames, sync = {}, {}
+
+    def consume(batch):
+        k, X = batch
+        frames[k] = zlib.crc32(X.cpu().numpy().tobytes())
+
+    with vis.BackgroundRenderer(consume, maxsize=2) as r:
+        for k in range(6):
+            T = step(T, Cp)
+            r.submit((k, T))
+            sync[k] = T.clone()
+    assert not r.errors
+    assert frames == {k: zlib.crc32(X.cpu().numpy().tobytes())
+                      for k, X in sync.items()}

@@ -3,7 +3,7 @@ of `igg_torch/csrc/stagger_band_march3.cuh`, run on the CPU.
 
 The sources generated for the rank-3 specs of tests/torch_spec_cases.py
 (`relax3d` and the staggered `acoustic3d`) are compiled with g++ against
-the stand-in CUDA runtime of tests/test_torch_kernel_sources.py (its
+the stand-in CUDA runtime of tests/torch_kernel_emulation.py (its
 rewrite of the launches; each thread block's threads run as fibers that
 switch at `__syncthreads`, the `cp.async` staging as plain copies), and
 the entry is held against its plain versions, tolerance 0, f32 and f64:
@@ -38,7 +38,7 @@ import torch_spec_cases as cases
 from igg_torch.ops import _build
 from igg_torch.stencil import cuda
 from igg_torch.stencil import lower
-from test_torch_kernel_sources import _gxx, _rewrite, csrc  # noqa: F401
+from torch_kernel_emulation import _gxx, _rewrite, csrc  # noqa: F401
 
 # Builds of the march, each an edit of stagger_band_march3.cuh's knobs
 # (None: as it is).

@@ -279,3 +279,62 @@ def march_chunk_check(it, gen, g, S, K):
     for a, b, s in zip(out, want, shapes):
         _same(a, ce.central_window(b, s, E, modes))
     return True
+
+
+# The march's no-ring path (every read from device memory: the launcher's
+# path where a policy's ring would exceed shared memory), forced on every
+# layout by building the generated sources against the march's header with
+# no shared memory for rings (the edit tests/test_torch_spec_march.py
+# rehearses on the CPU); the card tests and chip_smoke.py phase 1 hold it
+# to the plain versions.
+NO_RING_EDIT = ("constexpr int SX_SMEM_MAX = SB_SMEM_MAX;",
+                "constexpr int SX_SMEM_MAX = 0;")
+
+
+def start_no_ring(names):
+    """Start one nvcc for each rank-3 spec in `names`: its generated source
+    written beside the edited `stagger_band_march3.cuh` (which its quoted
+    include finds first) under igg_torch/_build/no_ring/<key>/; returns
+    {name: (job, library path)}."""
+    import os
+
+    from igg_torch.ops import _build
+
+    header = "stagger_band_march3.cuh"
+    with open(os.path.join(_build.CSRC, header)) as f:
+        text = f.read()
+    assert text.count(NO_RING_EDIT[0]) == 1, NO_RING_EDIT[0]
+    text = text.replace(*NO_RING_EDIT)
+    key = _build._key([text.encode()]
+                      + [_build._read(h) for h in _build._headers()])
+    where = os.path.join(_build.BUILD_DIR, "no_ring", key)
+    os.makedirs(where, exist_ok=True)
+    with open(os.path.join(where, header), "w") as f:
+        f.write(text)
+    jobs = {}
+    for name in names:
+        gen = kernels(name)
+        src = os.path.join(where, f"{gen.tag}.cu")
+        with open(src, "w") as f:
+            f.write(gen.source)
+        so = src[:-len(".cu")] + ".so"
+        jobs[name] = (_build._start_nvcc(src, so), so)
+    return jobs
+
+
+def finish_no_ring(jobs):
+    """Wait for :func:`start_no_ring`'s builds; returns {name: CDLL} with
+    the generated entry points typed."""
+    import ctypes
+
+    from igg_torch.ops import _build
+    from igg_torch.stencil import cuda
+
+    libs = {}
+    for name, (job, so) in jobs.items():
+        _build._finish(f"{name} (no ring)", job)
+        lib = libs[name] = ctypes.CDLL(so)
+        for entry in (cuda.ENTRY, cuda.BAND_ENTRY):
+            fn = getattr(lib, entry)
+            fn.argtypes, fn.restype = cuda.ARGTYPES, ctypes.c_int
+    return libs
