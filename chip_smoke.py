@@ -142,6 +142,36 @@ the script exits non-zero without printing a result:
    worker; then the same with a frame every k calls, k the frame's time
    over a call's, where overlap shows as the worker's run near the
    larger of the two and the series' near their sum.
+23. The resilient loop and chaos (`igg_torch.run_resilient`,
+   `igg_torch.chaos`), each run's events logged: (a) phase 6's grid from
+   `update_halo(*init_fields())`, `make_multi_step(17)` (the chunk route)
+   over a dict of T and Cp, 340 steps, `steps_per_call=17`,
+   `watch_every=34`, `checkpoint_every=102`, `ring=2`, sharded and
+   asynchronous generations in a `tempfile.TemporaryDirectory()`, against
+   an uninterrupted run kept on the card: `ChaosPlan(nan_at=[(120,
+   "T")])` gives one detection at a probe step in (120, 290], one
+   rollback to a step at or below 102, one retry, the end bitwise the
+   reference; `ChaosPlan(preempt_at=238)` preempts at 238 and a fresh
+   `run_resilient(resume=True)` ends bitwise the reference; every call is
+   served by `diffusion3d.cuda`.  (b) Phase 4's open (2,2,1) grid,
+   `make_step`, 30 steps: `chaos.halo_corruption()`, disarmed by the
+   recovery policy, is detected, rolled back once and ends bitwise the
+   clean run.  (c) Phase 2's 256^3 periodic block:
+   `chaos.kernel_corrupt("diffusion3d.cuda")` recurs at the same step
+   after the rollback and raises `ResilienceError` naming the tier and
+   `diffusion3d.plain`; nothing is quarantined.  Quarantined by hand, the
+   tier's next dispatch raises `GridError` naming it instead of serving
+   `diffusion3d.plain`.  (d) Printed with the
+   card's name and power limit: the watchdog probe's device time at 510^3
+   and 256^3 (profiler); ms/step of the bare loop against
+   `run_resilient` with no ring, in turns, at 256^3 (`make_multi_step`,
+   `watch_every=340`) and 128^3 (`make_step`, `watch_every=50`, T
+   watched: igg's < 2% contract row); at 510^3 each cadence submit's hold
+   on the loop beside a synchronous generation (igg's < 10% contract);
+   sync warnings of `run_resilient` under `set_sync_debug_mode("warn")`
+   over 10 and 20 watch windows.  A missed contract is printed, not
+   raised.  Phase 23 must launch rows 1, 3, 4 and 5 of PERF.md's table
+   (the fused step, the halo writer, the plane packer, the chunk step).
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -178,7 +208,7 @@ periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
 Stokes and HM3D divisors.  Launch counters are set to 0 before each
-main-path phase (2 to 22) and read after it; each of the twenty kernels
+main-path phase (2 to 23) and read after it; each of the twenty kernels
 must have launched on that main path (the generated relax3d step and
 chunk step are phase 20's launches of the spec counters, shallow water's
 the others').  The last lines are the run's seconds, the
@@ -363,6 +393,7 @@ CHUNK_GRIDS = {
 # element path).
 CHUNK_SHAPES = ((16, 16, 16), (16, 12, 13))
 K_CHUNK = 8
+N_OVERHEAD = 128   # igg's resilience_overhead contract row: one 128^3 block
 OL3 = dict(overlapx=3, overlapy=3, overlapz=3)
 # Layouts of the small Stokes checks (overlap 3): igg's trapezoid matrix
 # (every window mode: ext, wrap, oext, frozen) and one-block grids.
@@ -540,6 +571,10 @@ def kernel_time(fn, n: int, kernel: str, launches=None) -> dict:
     return dict(ms=events if device is None else device,
                 ms_from="events" if device is None else "profiler",
                 events_ms=events)
+
+
+def fmt_list(values) -> str:
+    return "[" + ", ".join(f"{v:.4f}" for v in values) + "]"
 
 
 def sync(dev) -> None:
@@ -3948,8 +3983,368 @@ class Smoke:
             ms_per_call_every_call=each, every=every,
             ms_per_call_spaced=spaced)
 
+    # -- phase 23 ---------------------------------------------------------
+    def resilience_phase(self):
+        """The resilient loop and chaos (module docstring, phase 23)."""
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            self.resilient_headline(os.path.join(tmp, "a"))
+            self.resilient_halo(os.path.join(tmp, "b"))
+            self.resilient_recurrence(os.path.join(tmp, "c"))
+        self.resilient_overhead()
+        # The loop ran over rows 1, 3, 4 and 5 of PERF.md's kernel table.
+        counts = self.ops.launch_counts()
+        idle = [k for k in ("diffusion_step", "halo_write", "pack_planes",
+                            "diffusion_chunk_step") if not counts[k]]
+        if idle:
+            raise SmokeFailure(f"phase 23 did not launch {idle}")
+
+    def resilient_state(self, multi: bool):
+        """(T, Cp) from `update_halo(*init_fields())` on the current grid
+        and the step over a dict state: `make_multi_step(steps_multi)` or
+        `make_step`; the second item of the step is the set of tiers that
+        served its calls."""
+        from igg_torch import degrade
+
+        it, t3 = self.it, self.t3
+        p = t3.Params()
+        T, Cp = t3.init_fields(p)
+        T = it.update_halo(T)
+        step = t3.make_multi_step(self.steps_multi, p) if multi else \
+            t3.make_step(p)
+        tiers = set()
+
+        def fn(s):
+            out = {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}
+            tiers.add(degrade.active()["diffusion3d"])
+            return out
+
+        return T, Cp, fn, tiers
+
+    @staticmethod
+    def run_calls(fn, state, calls):
+        for _ in range(calls):
+            state = fn(state)
+        return state
+
+    def resilient_headline(self, tmp):
+        """(a) The 510^3 headline under chaos: a NaN at step 120 and a
+        preemption at step 238 with its resume, each bitwise the
+        uninterrupted run; the probe's device time; each cadence submit's
+        hold on the loop beside a synchronous generation."""
+        import threading
+
+        from igg_torch import chaos, resilience
+        from igg_torch import telemetry as tel
+
+        it, n, steps = self.it, self.n_multi, self.steps_multi
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        tag = f"{it.nx_g()}^3 open (2x2x2 x {n}^3)"
+        T, Cp, fn, tiers = self.resilient_state(multi=True)
+        calls = 20
+        n_steps = calls * steps                         # 340
+        watch, every, pending = 2 * steps, 6 * steps, 4   # 34, 102
+        t0 = time.perf_counter()
+        ref = self.run_calls(fn, {"T": T, "Cp": Cp}, calls)["T"]
+        sync(self.dev)
+        bare = time.perf_counter() - t0
+        kw = dict(steps_per_call=steps, watch_every=watch,
+                  checkpoint_every=every, ring=2,
+                  max_pending_probes=pending)
+        holds, spans = [], []
+        main = threading.get_ident()
+        real_submit = resilience._AsyncCheckpointWriter.submit
+
+        def timed_submit(writer, step, fields, last_good):
+            t1 = time.perf_counter()
+            real_submit(writer, step, fields, last_good)
+            holds.append(time.perf_counter() - t1)
+
+        def on_record(rec):
+            if rec.kind == "span" and rec.payload["name"] in (
+                    "checkpoint.generation", "checkpoint.drain"):
+                spans.append((rec.payload["name"], rec.step,
+                              rec.payload["dur_s"],
+                              rec.payload["tid"] == main))
+
+        walls = {}
+        resilience._AsyncCheckpointWriter.submit = timed_submit
+        tel.subscribe(on_record)
+        try:
+            t0 = time.perf_counter()
+            res = it.run_resilient(
+                fn, {"T": T, "Cp": Cp}, n_steps,
+                checkpoint_dir=os.path.join(tmp, "nan"),
+                chaos=chaos.ChaosPlan(nan_at=[(120, "T")]), **kw)
+            walls["nan"] = time.perf_counter() - t0
+            det = [e.step for e in res.events if e.kind == "nan_detected"]
+            rb = [e.step for e in res.events if e.kind == "rollback"]
+            if (len(det) != 1 or not 120 < det[0] <= 120 + watch * (
+                    1 + pending) or len(rb) != 1 or rb[0] > every
+                    or res.retries != 1 or res.steps_done != n_steps):
+                raise SmokeFailure(
+                    f"{tag}: NaN at 120 gave detections {det}, rollbacks "
+                    f"{rb}, {res.retries} retries, {res.steps_done} steps")
+            err_nan = check(f"{tag}: NaN rollback run vs the uninterrupted "
+                            f"run", res.state["T"], ref, 0.0)
+            kinds_nan = [(e.kind, e.step) for e in res.events]
+            del res
+            pre = os.path.join(tmp, "preempt")
+            t0 = time.perf_counter()
+            res = it.run_resilient(fn, {"T": T, "Cp": Cp}, n_steps,
+                                   checkpoint_dir=pre,
+                                   chaos=chaos.ChaosPlan(preempt_at=238),
+                                   **kw)
+            walls["preempt"] = time.perf_counter() - t0
+            if not res.preempted or res.steps_done != 238:
+                raise SmokeFailure(f"{tag}: preemption at 238 gave "
+                                   f"{res.preempted}, {res.steps_done}")
+            kinds_pre = [(e.kind, e.step) for e in res.events]
+            del res
+            t0 = time.perf_counter()
+            res = it.run_resilient(fn, {"T": T, "Cp": Cp}, n_steps,
+                                   checkpoint_dir=pre, resume=True, **kw)
+            walls["resume"] = time.perf_counter() - t0
+            if (res.events[0].kind, res.events[0].step) != ("resume", 238) \
+                    or res.steps_done != n_steps or res.preempted:
+                raise SmokeFailure(f"{tag}: resume gave {res.events[:1]}, "
+                                   f"{res.steps_done}")
+            err_res = check(f"{tag}: resumed run vs the uninterrupted run",
+                            res.state["T"], ref, 0.0)
+            kinds_res = [(e.kind, e.step) for e in res.events]
+            del res
+        finally:
+            resilience._AsyncCheckpointWriter.submit = real_submit
+            tel.unsubscribe(on_record)
+        if tiers != {"diffusion3d.cuda"}:
+            raise SmokeFailure(f"{tag}: the calls were served by {tiers}")
+        gens_sync = [d for name, _, d, on_main in spans
+                     if name == "checkpoint.generation" and on_main]
+        gens_async = [d for name, _, d, on_main in spans
+                      if name == "checkpoint.generation" and not on_main]
+        drains = [d for name, _, d, _ in spans if name == "checkpoint.drain"]
+        step_ms = bare / n_steps * 1e3
+        split, n_probe = device_ms_by_kernel(
+            lambda: resilience.probe_counts(T, Cp), 10)
+        probe_ms = sum(split.values())
+        probe_bound = bound_ms(2 * T.numel() * T.element_size(), 0,
+                               F32_FLOPS)
+        log(f"[phase 23] (a) {tag}, make_multi_step({steps}) x {calls}: NaN "
+            f"at 120 -> {kinds_nan}; vs the uninterrupted run {err_nan:.3e} "
+            f"(tolerance 0)")
+        log(f"[phase 23] (a) {tag}: preempt at 238 -> {kinds_pre}; resume "
+            f"-> {kinds_res}; vs the uninterrupted run {err_res:.3e} "
+            f"(tolerance 0); tiers served {sorted(tiers)}")
+        log(f"[phase 23] (a) {tag}: wall s: bare {calls} calls {bare:.3f}, "
+            f"NaN run {walls['nan']:.3f}, preempted run "
+            f"{walls['preempt']:.3f}, resume {walls['resume']:.3f}; sync "
+            f"generations s {fmt_list(gens_sync)}, background generations "
+            f"s {fmt_list(gens_async)}, drains s {fmt_list(drains)} "
+            f"[{self.card}]")
+        ratio = max(holds) / min(gens_sync) if holds and gens_sync else None
+        log(f"[phase 23] (d) {tag}: each cadence submit held the loop ms "
+            f"{fmt_list([h * 1e3 for h in holds])} against a synchronous "
+            f"generation's {min(gens_sync) * 1e3:.1f} ms: the largest "
+            f"{ratio * 100:.3f}% of it, igg's contract < 10% "
+            f"{'met' if ratio < 0.1 else 'MISSED'} [{self.card}]")
+        log(f"[phase 23] (d) {tag}: the watchdog probe over T and Cp "
+            f"(2 x {T.numel() * T.element_size() / 1e6:.1f} MB): device "
+            f"{probe_ms:.4f} ms, {n_probe:.0f} launches "
+            f"{json.dumps(split)}; a read of both fields "
+            f"{probe_bound[0]:.4f} ms; {100 * probe_ms / (watch * step_ms):.2f}"
+            f"% of a {watch}-step window at the bare loop's {step_ms:.4f} "
+            f"ms/step [{self.card}]")
+        self.perf["resilience_510"] = dict(
+            walls_s=walls, bare_s=bare, sync_generation_s=gens_sync,
+            background_generation_s=gens_async, drain_s=drains,
+            submit_hold_s=holds, submit_over_sync=ratio,
+            probe_device_ms=probe_ms, probe_launches=n_probe,
+            probe_split=split, probe_bound_ms=probe_bound[0])
+
+    def resilient_halo(self, tmp):
+        """(b) Halo corruption on phase 4's (2,2,1) grid, disarmed by the
+        recovery policy: detected, rolled back, bitwise the clean run."""
+        from igg_torch import chaos
+
+        nx, ny, nz = self.recv_local
+        self.grid((nx, ny, nz), dimx=2, dimy=2, dimz=1)
+        tag = f"dims (2,2,1) {nx}x{ny}x{nz}/block open"
+        T, Cp, fn, tiers = self.resilient_state(multi=False)
+        n_steps = 30
+        ref = self.run_calls(fn, {"T": T, "Cp": Cp}, n_steps)["T"]
+        fault, seen = chaos.halo_corruption(), []
+
+        def policy(attempt, state, ev):
+            seen.append((attempt, ev.kind))
+            fault.disarm()
+
+        with fault:
+            res = self.it.run_resilient(
+                fn, {"T": T, "Cp": Cp}, n_steps, watch_every=10,
+                checkpoint_every=10, checkpoint_dir=tmp,
+                recovery_policy=policy)
+        kinds = [(e.kind, e.step) for e in res.events]
+        if seen != [(1, "nan_detected")] or res.retries != 1 or \
+                [k for k, _ in kinds].count("rollback") != 1:
+            raise SmokeFailure(f"{tag}: halo corruption gave {kinds}, "
+                               f"policy calls {seen}")
+        err = check(f"{tag}: halo-corrupted run vs the clean run",
+                    res.state["T"], ref, 0.0)
+        log(f"[phase 23] (b) {tag}, make_step x {n_steps}: halo corruption "
+            f"-> {kinds}; vs the clean run {err:.3e} (tolerance 0); tiers "
+            f"served {sorted(tiers)}")
+
+    def resilient_recurrence(self, tmp):
+        """(c) A kernel tier corrupted at every dispatch on phase 2's block:
+        the recurrence raises ResilienceError naming the tier; nothing is
+        quarantined and diffusion3d.plain never serves.  Quarantined by
+        hand, the tier's dispatch raises GridError naming it."""
+        from igg_torch import chaos, degrade
+
+        it, n, steps = self.it, self.n_head, self.steps_multi
+        self.grid((n, n, n), **SINGLE, **PERIODIC)
+        tag = f"{n}^3 periodic"
+        T, Cp, fn, tiers = self.resilient_state(multi=True)
+        with chaos.kernel_corrupt("diffusion3d.cuda"):
+            try:
+                it.run_resilient(fn, {"T": T, "Cp": Cp}, 20 * steps,
+                                 steps_per_call=steps, watch_every=2 * steps,
+                                 checkpoint_every=2 * steps, ring=2,
+                                 checkpoint_dir=tmp)
+            except it.ResilienceError as e:
+                err = e
+            else:
+                raise SmokeFailure(f"{tag}: a corrupted kernel tier ran to "
+                                   f"the end")
+        kinds = [(e.kind, e.step) for e in err.events]
+        if ("diffusion3d.cuda" not in str(err)
+                or "diffusion3d.plain" not in str(err)
+                or [k for k, _ in kinds].count("nan_detected") != 2
+                or degrade.status() or tiers != {"diffusion3d.cuda"}):
+            raise SmokeFailure(f"{tag}: recurrence gave {err!r}, events "
+                               f"{kinds}, quarantine {degrade.status()}, "
+                               f"tiers {tiers}")
+        log(f"[phase 23] (c) {tag}: kernel_corrupt('diffusion3d.cuda') -> "
+            f"{kinds}, then ResilienceError: {err}; quarantined "
+            f"{sorted(degrade.status())}, tiers served {sorted(tiers)}")
+        # The ladder's own guard: a quarantined kernel tier is not replaced
+        # by diffusion3d.plain on the card; the dispatch raises.
+        degrade.quarantine("diffusion3d.cuda", 1, "nan_recurrence")
+        try:
+            fn({"T": T, "Cp": Cp})
+        except it.GridError as e:
+            guard = e
+        else:
+            raise SmokeFailure(f"{tag}: a quarantined diffusion3d.cuda "
+                               f"was served by {sorted(tiers)}")
+        finally:
+            degrade.reset("diffusion3d.cuda")
+        if "diffusion3d.cuda is quarantined" not in str(guard) \
+                or tiers != {"diffusion3d.cuda"}:
+            raise SmokeFailure(f"{tag}: quarantined dispatch gave {guard!r}, "
+                               f"tiers {tiers}")
+        log(f"[phase 23] (c) {tag}: diffusion3d.cuda quarantined by hand -> "
+            f"GridError: {guard}")
+
+    def resilient_overhead(self):
+        """(d) The probe at 256^3; the bare loop against run_resilient with
+        no ring, in turns, at 256^3 (make_multi_step, watch_every=340) and
+        at 128^3 (make_step, watch_every=50, igg's contract row); sync
+        warnings over 10 and 20 watch windows."""
+        import warnings
+
+        from igg_torch import resilience
+
+        it, n, steps = self.it, self.n_head, self.steps_multi
+        out = {}
+        for size, multi, watch, n_steps in ((n, True, 20 * steps,
+                                             100 * steps),
+                                            (N_OVERHEAD, False, 50,
+                                             300)):
+            self.grid((size, size, size), **SINGLE, **PERIODIC)
+            tag = f"{size}^3 periodic"
+            T, Cp, fn, _ = self.resilient_state(multi=multi)
+            spc = steps if multi else 1
+            state = {"T": T, "Cp": Cp}
+            # Watched: every float field (T, Cp), or T alone as in igg's
+            # benchmarks/resilience_overhead.py.
+            watched_fields = (T, Cp) if multi else (T,)
+            split, _ = device_ms_by_kernel(
+                lambda: resilience.probe_counts(*watched_fields), 10)
+            probe_ms = sum(split.values())
+            route = f"make_multi_step({steps})" if multi else "make_step"
+
+            def bare():
+                t0 = time.perf_counter()
+                self.run_calls(fn, state, n_steps // spc)
+                sync(self.dev)
+                return (time.perf_counter() - t0) / n_steps * 1e3
+
+            def watched():
+                t0 = time.perf_counter()
+                res = it.run_resilient(
+                    fn, state, n_steps, steps_per_call=spc,
+                    watch_every=watch, install_sigterm=False,
+                    watch_fields=None if multi else ["T"])
+                sync(self.dev)
+                if res.steps_done != n_steps:
+                    raise SmokeFailure(f"{tag}: {res.steps_done} steps")
+                return (time.perf_counter() - t0) / n_steps * 1e3
+
+            bare(), watched()
+            turns = {"bare": [], "resilient": []}
+            for _ in range(3):
+                turns["bare"].append(bare())
+                turns["resilient"].append(watched())
+            b, w = min(turns["bare"]), min(turns["resilient"])
+            component = probe_ms / (watch * b) * 100
+            log(f"[phase 23] (d) {tag}, {route}, watch_every={watch}, no ring: ms/step in turns bare "
+                f"{fmt_list(turns['bare'])}, run_resilient "
+                f"{fmt_list(turns['resilient'])}: wall delta "
+                f"{(w - b) / b * 100:+.2f}%; the probe {probe_ms:.4f} ms "
+                f"device, {component:.3f}% of a window (igg's contract, "
+                f"< 2%: {'met' if component < 2 else 'MISSED'}) "
+                f"[{self.card}]")
+            out[tag] = dict(turns_ms_per_step=turns, probe_device_ms=probe_ms,
+                            probe_split=split, probe_over_window=component,
+                            wall_delta=(w - b) / b)
+        # Sync warnings over 10 and 20 watch windows (256^3, no ring).
+        self.grid((n, n, n), **SINGLE, **PERIODIC)
+        T, Cp, fn, _ = self.resilient_state(multi=True)
+        counts = {}
+        for windows in (10, 20):
+            it.run_resilient(fn, {"T": T, "Cp": Cp}, 2 * steps,
+                             steps_per_call=steps, watch_every=steps,
+                             install_sigterm=False)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    it.run_resilient(fn, {"T": T, "Cp": Cp},
+                                     windows * 2 * steps,
+                                     steps_per_call=steps,
+                                     watch_every=2 * steps,
+                                     install_sigterm=False)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            counts[windows] = [
+                f"{os.path.basename(w.filename)}:{w.lineno}"
+                for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+        flat = len(counts[20]) <= len(counts[10])
+        log(f"[phase 23] (d) {n}^3 periodic, run_resilient over 10 and 20 "
+            f"watch windows of {2 * steps} steps under "
+            f"set_sync_debug_mode('warn'): {len(counts[10])} and "
+            f"{len(counts[20])} sync warnings ({'flat' if flat else 'GROWS'}"
+            f"; {sorted(set(counts[10] + counts[20]))}) [{self.card}]")
+        out["sync_warnings"] = {k: len(v) for k, v in counts.items()}
+        self.perf["resilience_overhead"] = out
+
     def main_path(self):
-        """Phases 2 to 22, each with the launch counters set to 0 just
+        """Phases 2 to 23, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -3971,7 +4366,7 @@ class Smoke:
             ("18", lambda: self.stokes_banded(18, one_block=True)),
             ("19", lambda: self.stokes_banded(19, one_block=False)),
             ("20", self.relax3d_banded), ("21", self.observability),
-            ("22", self.checkpoint_phase)]
+            ("22", self.checkpoint_phase), ("23", self.resilience_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

@@ -14,9 +14,13 @@ stencil spec for its fused step and its K-step chunk step; `telemetry`
 (event bus, metrics, spans, sessions), `profiling` (`torch.profiler`
 traces), `degrade` (the tier ladder every factory dispatches through,
 with `verify=`), `checkpoint` (igg's flat and sharded formats, elastic
-restore) and `vis` (the background render/IO worker).  Grid arrays are
-block-stacked tensors on one device; entry points use the card unless the
-caller passes `device="cpu"`.  Imports neither JAX nor `igg`.
+restore), `vis` (the background render/IO worker), `resilience`
+(`run_resilient`: the NaN watchdog on CUDA events, the checkpoint ring
+with its background writer, rollback, demotion on CPU tensors,
+preemption and resume) and `chaos` (its deterministic fault injectors).
+Grid arrays are block-stacked tensors on one device; entry points use the
+card unless the caller passes `device="cpu"`.  Imports neither JAX nor
+`igg`.
 """
 
 from .checkpoint import (latest_checkpoint, load_checkpoint, save_checkpoint,
@@ -28,7 +32,9 @@ from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import checkpoint, degrade, profiling, stencil, telemetry, vis
+from . import (chaos, checkpoint, degrade, profiling, resilience,
+               stencil, telemetry, vis)
+from .resilience import ResilienceError, RunResult, run_resilient
 from .telemetry import Telemetry
 from .init import init_global_grid
 from .parallel import local_coords, sharded
@@ -41,14 +47,16 @@ from .tools import (barrier, coord_fields, nx_g, ny_g, nz_g, spacing, tic, toc,
                     x_g, x_g_field, y_g, y_g_field, z_g, z_g_field)
 
 __all__ = [
-    "NDIMS", "PROC_NULL", "GlobalGrid", "GridError", "Telemetry", "barrier",
-    "check_initialized", "checkpoint", "coord_fields", "degrade",
+    "NDIMS", "PROC_NULL", "GlobalGrid", "GridError", "ResilienceError",
+    "RunResult", "Telemetry", "barrier", "chaos", "check_initialized",
+    "checkpoint", "coord_fields", "degrade",
     "finalize_global_grid", "from_local_blocks", "full", "gather",
     "gather_interior", "get_global_grid", "global_grid", "grid_epoch",
     "grid_is_initialized", "has_neighbor", "init_global_grid",
     "latest_checkpoint", "load_checkpoint", "local_block", "local_blocks",
     "local_coords", "me", "memory_stats", "neighbor", "neighbors", "nx_g",
-    "ny_g", "nz_g", "ol", "ones", "profiling", "save_checkpoint",
+    "ny_g", "nz_g", "ol", "ones", "profiling", "resilience",
+    "run_resilient", "save_checkpoint",
     "save_checkpoint_sharded", "select_device", "sharded", "spacing",
     "stacked_shape", "stencil", "telemetry", "tic", "time_steps", "toc",
     "update_halo", "update_halo_local", "verify_checkpoint",

@@ -1,0 +1,443 @@
+"""Deterministic fault injection for :mod:`igg_torch.resilience` (the port
+of the parts of `igg/chaos.py` the ported layers use).
+
+Every detection and recovery path of the resilient loop is shown, not
+argued, by injectors that are deterministic and, for the in-loop ones,
+one-shot, so a rolled-back replay passes the same step clean:
+
+- :class:`ChaosPlan`: NaN written into a named field at step k, a
+  simulated preemption (the flag SIGTERM sets) at step k, and a wedge of
+  the loop's thread for some seconds at step k; consumed by
+  ``run_resilient(..., chaos=plan)``.
+- :func:`corrupt_checkpoint`: damage a checkpoint on disk.  A flat
+  `.npz`: `truncate` (a writer that died mid-file) or `bitflip` (one
+  payload byte flipped with the zip container rewritten consistently, so
+  only the CRC32 manifest can catch it).  A sharded generation directory:
+  the same two on one shard, and `missing_shard`, `partial_commit` (no
+  manifest) and `preempt_mid_write` (no manifest, back under its `.tmp`
+  staging name).  `verify_checkpoint` and `latest_checkpoint` must skip
+  every one.
+- :func:`poison_checkpoint`: finite corruption written consistently
+  through the CRC layer; only `verify_checkpoint(deep=True)` refuses it.
+- :func:`halo_corruption`: every received halo plane replaced through
+  the `igg_torch.halo._CHAOS_PLANE_TAP` seam (the planes
+  `exchange_planes` returns).  The tap is read at every call, so arming
+  clears no cache; a recovery policy that calls ``disarm()`` models a
+  transient fault that heals on retry.
+- :func:`kernel_compile_fail` / :func:`kernel_corrupt`: the tier
+  ladder's failure shapes, through `igg_torch.degrade._CHAOS_TIER_TAP`:
+  the build of a named tier raises `InjectedCompileError`, or every
+  dispatch of the tier perturbs one interior output element (a
+  deterministic miscompile, which rollback cannot heal).
+
+Every injector is a context manager that disarms on the way out, also
+when the body raises; :func:`armed` composes several.  Not ported yet
+(ROADMAP Queue A): `collective_stall` and `straggler` (item 5),
+`stale_calibration` (item 4), `silent_corruption` (item 7),
+`throughput_collapse`, `scheduler_fault` and `job_preempt_at` (item 6),
+`arrival_storm` and `malformed_submission` (item 8), and ChaosPlan's
+member-targeted `nan_at` entries (item 6, ensembles).
+
+This is a test surface: nothing here is imported by the port's hot paths.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import pathlib
+import zipfile
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+from .shared import GridError
+
+__all__ = ["ChaosPlan", "corrupt_checkpoint", "poison_checkpoint",
+           "halo_corruption", "HaloCorruption", "kernel_compile_fail",
+           "kernel_corrupt", "KernelChaos", "armed"]
+
+
+class ChaosPlan:
+    """Deterministic in-loop fault plan for
+    :func:`igg_torch.run_resilient`.
+
+    `nan_at`: `(step, field)` or `(step, field, index)` entries: before
+    the dispatch that advances past `step`, write NaN into `state[field]`
+    at `index` (default `(1, 1, ...)`, an interior cell of the first block:
+    a halo cell would be healed by the next exchange).  igg's
+    member-targeted entries `(step, member, field[, index])` raise
+    `GridError` until the port has ensembles.
+    `preempt_at`: request preemption when the loop reaches that step.
+    `hold_at`: `(step, seconds)` entries: hold the loop's thread that long
+    at the dispatch boundary (a `chaos_hold` event).
+    Each injection fires once; `reset()` re-arms them."""
+
+    def __init__(self, nan_at: Sequence = (),
+                 preempt_at: Optional[int] = None,
+                 hold_at: Sequence = ()):
+        entries = []
+        for e in nan_at:
+            if len(e) >= 2 and isinstance(e[1], (int, np.integer)):
+                if len(e) < 3 or not isinstance(e[2], str):
+                    raise GridError(
+                        f"ChaosPlan: member-targeted nan_at entry {e!r} "
+                        f"must be (step, member, field) or "
+                        f"(step, member, field, index).")
+                raise GridError(
+                    f"ChaosPlan: member-targeted nan_at entry {e!r}: the "
+                    f"port has no ensembles yet (ROADMAP Queue A item 6).")
+            entries.append((int(e[0]), None, e[1],
+                            tuple(e[2]) if len(e) > 2 and e[2] is not None
+                            else None))
+        self.nan_at: Tuple = tuple(entries)
+        self.preempt_at = preempt_at
+        holds = []
+        for h in hold_at:
+            if len(h) != 2 or float(h[1]) < 0:
+                raise GridError(
+                    f"ChaosPlan: hold_at entry {h!r} must be "
+                    f"(step, seconds >= 0).")
+            holds.append((int(h[0]), float(h[1])))
+        self.hold_at: Tuple = tuple(holds)
+        self._fired = set()
+
+    def reset(self) -> None:
+        self._fired.clear()
+
+    def apply(self, state: dict, step: int, emit, span: int = 1) -> dict:
+        """Called by the loop before each dispatch with the state and the
+        step count; returns the (possibly corrupted) state.  An injection
+        step anywhere in the coming dispatch window `[step, step + span)`
+        fires at this boundary; `emit(kind, step, **detail)` logs it."""
+        for k, member, field, index in self.nan_at:
+            key = ("nan", k, member, field, index)
+            if step <= k < step + span and key not in self._fired:
+                self._fired.add(key)
+                if field not in state:
+                    raise GridError(f"ChaosPlan: field {field!r} not in "
+                                    f"state {sorted(state)}.")
+                state = dict(state)
+                state[field] = _poison(state[field], index)
+                emit("chaos_nan", step, field=field)
+        for k, seconds in self.hold_at:
+            key = ("hold", k)
+            if step <= k < step + span and key not in self._fired:
+                self._fired.add(key)
+                emit("chaos_hold", step, seconds=seconds)
+                import time
+
+                time.sleep(seconds)
+        if (self.preempt_at is not None
+                and step <= self.preempt_at < step + span
+                and ("preempt", self.preempt_at) not in self._fired):
+            self._fired.add(("preempt", self.preempt_at))
+            emit("chaos_preempt", step)
+            from .resilience import request_preemption
+
+            request_preemption()
+        return state
+
+
+def _poison(A, index=None):
+    """A copy of grid tensor `A` with NaN in one element (`index`, default
+    `(1, 1, ...)`); `A` itself is left as it was."""
+    if not (A.is_floating_point() or A.is_complex()):
+        raise GridError(f"ChaosPlan: cannot seed NaN into dtype "
+                        f"{str(A.dtype).replace('torch.', '')}.")
+    idx = (tuple(index) if index is not None
+           else tuple(min(1, s - 1) for s in A.shape))
+    out = A.clone()
+    out[idx] = float("nan")
+    return out
+
+
+def corrupt_checkpoint(path, mode: str = "truncate", *,
+                       field: Optional[str] = None, seed: int = 0,
+                       shard: int = 0) -> None:
+    """Damage a checkpoint in place, deterministically: a flat `.npz` file
+    or a sharded generation directory (detected).
+
+    `mode="truncate"` cuts the file to half its bytes; `mode="bitflip"`
+    XORs one byte of one array's payload (`field`, default the first
+    array by name; `seed` picks the byte) and rewrites the zip container
+    consistently, so only the CRC32 manifest can catch it.  On a
+    directory these hit `shard_<shard>.npz`, and three more modes apply:
+    `missing_shard` deletes that shard, `partial_commit` the manifest, and
+    `preempt_mid_write` also renames the directory back to its `.tmp`
+    staging name (igg's `corrupt_checkpoint`)."""
+    path = pathlib.Path(path)
+    if path.is_dir():
+        return _corrupt_sharded(path, mode, field=field, seed=seed,
+                                shard=shard)
+    if mode in ("missing_shard", "partial_commit", "preempt_mid_write"):
+        raise GridError(f"corrupt_checkpoint: mode {mode!r} applies to "
+                        f"sharded generation directories; {path} is a flat "
+                        f"file.")
+    if mode == "truncate":
+        data = path.read_bytes()
+        path.write_bytes(data[:max(1, len(data) // 2)])
+        return
+    if mode != "bitflip":
+        raise GridError(f"corrupt_checkpoint: unknown mode {mode!r} "
+                        f"(expected 'truncate' or 'bitflip').")
+    with zipfile.ZipFile(path) as zf:
+        entries = {n: zf.read(n) for n in zf.namelist()}
+    victims = sorted(n for n in entries if n != "__igg_meta__.npy")
+    name = (f"{field}.npy" if field is not None else victims[0])
+    if name not in entries:
+        raise GridError(f"corrupt_checkpoint: no member {name!r} in {path} "
+                        f"(has {sorted(entries)}).")
+    buf = bytearray(entries[name])
+    # A byte of the data, past the npy header, so the descriptor parses.
+    lo = min(128, len(buf) - 1)
+    span = max(1, len(buf) - lo)
+    pos = min(len(buf) - 1,
+              lo + int(np.random.default_rng(seed).integers(0, span)))
+    buf[pos] ^= 0x01
+    entries[name] = bytes(buf)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as zf:
+        for n, data in entries.items():
+            zf.writestr(n, data)
+
+
+def _corrupt_sharded(path: pathlib.Path, mode: str, *, field, seed,
+                     shard: int) -> None:
+    """Directory branch of :func:`corrupt_checkpoint`."""
+    from .checkpoint import _MANIFEST, _shard_name
+
+    if mode == "partial_commit":
+        (path / _MANIFEST).unlink()
+        return
+    if mode == "preempt_mid_write":
+        (path / _MANIFEST).unlink()
+        path.rename(path.with_name(path.name + ".tmp"))
+        return
+    sp = path / _shard_name(shard)
+    if not sp.exists():
+        raise GridError(f"corrupt_checkpoint: generation {path} has no "
+                        f"{sp.name}.")
+    if mode == "missing_shard":
+        sp.unlink()
+        return
+    if mode not in ("truncate", "bitflip"):
+        raise GridError(f"corrupt_checkpoint: unknown mode {mode!r} "
+                        f"(expected 'truncate', 'bitflip', 'missing_shard', "
+                        f"'partial_commit', or 'preempt_mid_write').")
+    corrupt_checkpoint(sp, mode, field=field, seed=seed)
+
+
+def poison_checkpoint(path, *, field: Optional[str] = None,
+                      magnitude: float = 1.0, seed: int = 0,
+                      shard: int = 0) -> None:
+    """Poison a checkpoint with finite corruption written consistently
+    through the CRC layer: one owned element of one array (`field`,
+    default the first by name; `seed` picks it) changes by `magnitude` in
+    its own dtype, its CRC32 (and on a sharded generation the manifest's
+    shard summary) is rewritten, the deep stamps are left alone.
+    Structural verification and `check_finite` pass; only
+    `verify_checkpoint(deep=True)` refuses it (igg's
+    `poison_checkpoint`)."""
+    import json
+
+    from .checkpoint import (_MANIFEST, _shard_name, _summary_crc,
+                             _write_atomic_text)
+
+    path = pathlib.Path(path)
+    if path.is_dir():
+        sp = path / _shard_name(shard)
+        if not sp.exists():
+            raise GridError(f"poison_checkpoint: generation {path} has no "
+                            f"{sp.name}.")
+        mp = path / _MANIFEST
+        man = json.loads(mp.read_text())
+        new_crcs = _poison_npz(sp, field, magnitude, seed, geom=man)
+        man["shards"][sp.name] = _summary_crc(new_crcs)
+        _write_atomic_text(mp, json.dumps(man))
+        return
+    _poison_npz(path, field, magnitude, seed)
+
+
+def _poison_npz(path, field, magnitude, seed, geom=None) -> dict:
+    """Perturb one owned element of one array of an igg npz (a flat file,
+    or a shard file whose generation manifest is `geom`) and rewrite its
+    CRC32 entry; returns the new per-array CRC map."""
+    import json
+
+    import torch
+
+    from .checkpoint import (_META_KEY, _crc32, _decode, _encode, _ext,
+                             _meta_array, _owned_slice, _write_npz)
+
+    with np.load(path) as z:
+        meta = json.loads(bytes(z[_META_KEY].tobytes()).decode())
+        arrays = {k: z[k] for k in z.files if k != _META_KEY}
+    victims = sorted(n for n in arrays)
+    name = field if field is not None else victims[0]
+    if name not in arrays:
+        raise GridError(f"poison_checkpoint: no array {name!r} in {path} "
+                        f"(has {victims}).")
+    dname = meta.get("dtypes", {}).get(name)
+    ext = _ext(dname)
+    dec = np.array(_decode(arrays[name], dname, path, name))
+    if ext is None and dec.dtype.kind in "biu":
+        raise GridError(f"poison_checkpoint: array {name!r} has integral "
+                        f"dtype {dec.dtype}; pick a floating field.")
+    if geom is not None:
+        sl = _owned_slice(dec.shape, meta.get("coords", [0, 0, 0]), geom)
+    else:
+        # Flat stacked array: block (0, ..) sits at offset 0.
+        local = [dec.shape[d] // meta["dims"][d]
+                 for d in range(min(dec.ndim, 3))]
+        sl = _owned_slice(local, (0,) * len(local), meta) \
+            + (slice(None),) * (dec.ndim - len(local))
+    owned = np.zeros(dec.shape, dtype=bool)
+    owned[sl] = True
+    idxs = np.flatnonzero(owned)
+    pos = int(idxs[np.random.default_rng(seed).integers(0, idxs.size)])
+    if ext is not None:
+        # Bits of an extension dtype: the sum in that dtype, through torch.
+        vals = torch.from_numpy(dec.reshape(-1)).view(ext)
+        vals[pos] = vals[pos] + torch.tensor(magnitude, dtype=ext)
+        value = float(vals[pos])
+    else:
+        flat = dec.reshape(-1)
+        flat[pos] = flat[pos] + np.asarray(magnitude, dec.dtype)
+        value = np.float64(flat[pos])
+    if not np.isfinite(value):
+        raise GridError("poison_checkpoint: the perturbation overflowed to "
+                        "non-finite — pick a smaller magnitude (the point "
+                        "is corruption check_finite cannot see).")
+    enc = _encode(np.ascontiguousarray(dec), dname)
+    arrays[name] = enc
+    meta.setdefault("crc32", {})[name] = _crc32(enc)
+    _write_npz(path, {**arrays, _META_KEY: _meta_array(meta)})
+    return {k: int(v) for k, v in meta.get("crc32", {}).items()}
+
+
+class HaloCorruption:
+    """Armed halo-plane corruption (see :func:`halo_corruption`)."""
+
+    def __init__(self, value: float = float("nan")):
+        self._value = value
+
+    def _tap(self, d, first, last):
+        def hit(P):
+            if P is None or not (P.is_floating_point() or P.is_complex()):
+                return P
+            import torch
+
+            return torch.full_like(P, self._value)
+
+        return hit(first), hit(last)
+
+    def arm(self) -> "HaloCorruption":
+        from . import halo
+
+        halo._CHAOS_PLANE_TAP = self._tap
+        return self
+
+    def disarm(self) -> None:
+        from . import halo
+
+        halo._CHAOS_PLANE_TAP = None
+
+    def __enter__(self) -> "HaloCorruption":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+
+def halo_corruption(value: float = float("nan")) -> HaloCorruption:
+    """Context manager replacing every RECEIVED halo plane by `value`
+    (default NaN) through the `igg_torch.halo._CHAOS_PLANE_TAP` seam, the
+    stand-in for a corrupted transfer; `disarm()` from a recovery policy
+    models a transient fault that heals on retry::
+
+        fault = igg_torch.chaos.halo_corruption()
+        with fault:
+            result = igg_torch.run_resilient(
+                step, state, n,
+                recovery_policy=lambda k, s, ev: (fault.disarm(), None)[1],
+                ...)
+    """
+    return HaloCorruption(value)
+
+
+class KernelChaos:
+    """Armed tier-dispatch fault (see :func:`kernel_compile_fail` /
+    :func:`kernel_corrupt`): merges its entry into
+    `igg_torch.degrade._CHAOS_TIER_TAP` on `arm()` and removes exactly it
+    on `disarm()`, so several can be armed at once."""
+
+    def __init__(self, kind: str, tier: str, payload):
+        self._kind = kind          # "compile_fail" | "corrupt"
+        self._tier = tier
+        self._payload = payload
+
+    def arm(self) -> "KernelChaos":
+        from . import degrade
+
+        tap = degrade._CHAOS_TIER_TAP or {}
+        tap.setdefault(self._kind, {})[self._tier] = self._payload
+        degrade._CHAOS_TIER_TAP = tap
+        return self
+
+    def disarm(self) -> None:
+        from . import degrade
+
+        tap = degrade._CHAOS_TIER_TAP
+        if not tap:
+            return
+        tap.get(self._kind, {}).pop(self._tier, None)
+        if not any(tap.get(k) for k in tap):
+            degrade._CHAOS_TIER_TAP = None
+
+    def __enter__(self) -> "KernelChaos":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+
+def kernel_compile_fail(tier: str, message: Optional[str] = None) \
+        -> KernelChaos:
+    """Context manager making the build of ladder tier `tier` (e.g.
+    ``"diffusion3d.cuda"``) raise `igg_torch.degrade.InjectedCompileError`
+    carrying `message`.  Where igg quarantines the tier and serves the
+    next rung, the port's ladder lets the error out (a kernel that fails
+    to build raises), and so does `run_resilient`."""
+    return KernelChaos("compile_fail", tier, message)
+
+
+def kernel_corrupt(tier: str, magnitude: float = float("nan")) \
+        -> KernelChaos:
+    """Context manager corrupting every dispatch of ladder tier `tier`:
+    one interior element of its first floating output changes by
+    `magnitude` (default NaN, the blowup the watchdog detects).  It does
+    not heal on rollback: on CPU tensors `run_resilient` demotes the tier,
+    on the card it raises naming it."""
+    return KernelChaos("corrupt", tier, magnitude)
+
+
+@contextlib.contextmanager
+def armed(*injectors):
+    """Arm several injectors for a scope and disarm all of them (in
+    reverse order) on the way out, also when the body or a later `arm()`
+    raises.  A :class:`ChaosPlan` is `reset()` on entry and exit.  Yields
+    the injectors (the one, when one was passed)."""
+    entered = []
+    try:
+        for inj in injectors:
+            if isinstance(inj, ChaosPlan):
+                inj.reset()
+            else:
+                inj.arm()
+            entered.append(inj)
+        yield injectors[0] if len(injectors) == 1 else injectors
+    finally:
+        for inj in reversed(entered):
+            if isinstance(inj, ChaosPlan):
+                inj.reset()
+            else:
+                inj.disarm()

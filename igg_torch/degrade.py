@@ -14,32 +14,54 @@ serves.
   verification per (tier, argument signature), inside the trace span
   `degrade.verify_first_use`.
 
-- **No quarantine, no fall to the truth tier.**  Where igg quarantines a
-  tier and serves the next one, the port raises: a verify mismatch raises
+- **Verification raises; only demotion quarantines.**  Where igg
+  quarantines a tier that fails verification or its first build and
+  serves the next one, the port raises: a verify mismatch raises
   `GridError` naming the tier, the output and the figures
   (`max|tier-truth|` against `tol`), emits `tier_degraded` and serves
-  nothing; a kernel that fails to build or launch raises as it is.  So
-  :func:`is_quarantined` is always False and :func:`status` is empty.
+  nothing; a kernel that fails to build or launch raises as it is (so
+  does an armed `InjectedCompileError`).  The one path to quarantine is
+  :func:`demote_active`, the resilient loop's answer to a failure that
+  recurs at the same step after a rollback (igg's): :func:`quarantine`
+  pulls the tier out of dispatch, :func:`is_quarantined` and
+  :func:`status` report it, :func:`reset` re-admits it.  The resilient
+  loop demotes only on CPU tensors: on the card the next rung is the
+  truth tier, which the port does not serve there.  Both guards live
+  here: :func:`demote_active` refuses (`GridError`, nothing quarantined)
+  a tier whose last dispatch served CUDA tensors, and a dispatch of CUDA
+  tensors that a quarantined tier would have served raises `GridError`
+  naming it instead of falling to the truth tier.
+
+- **Chaos seam.**  `_CHAOS_TIER_TAP` (`igg_torch.chaos.kernel_compile_fail`
+  and `kernel_corrupt`): ``{"compile_fail": {tier: message}, "corrupt":
+  {tier: magnitude}}``, read at a tier's build and after each of its
+  dispatches.  With nothing armed or quarantined each check is one read
+  of a module global per dispatch.
 
 - **Observable.**  :func:`active` names the tier that served each family's
   last dispatch, :func:`events` the `tier_degraded` log,
   :func:`admission_log` the last refusal reason of each tier; the counter
   `igg_tier_dispatch_total{family,tier}` counts dispatches.
-  :func:`reset` clears this state (`finalize_global_grid` does).
+  :func:`reset` clears this state (`finalize_global_grid` does);
+  :func:`dispatch_stamp` is the monotone dispatch counter that scopes a
+  run's demotion to the families it dispatched.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import warnings
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from . import _env
 from . import telemetry as _telemetry
 from .shared import GridError
 
-__all__ = ["Admission", "Tier", "Ladder", "status", "events", "active",
-           "active_records", "admission_log", "is_quarantined", "reset"]
+__all__ = ["Admission", "Tier", "Ladder", "Quarantine", "status", "events",
+           "active", "active_records", "admission_log", "is_quarantined",
+           "reset", "quarantine", "dispatch_stamp", "demotable",
+           "demote_active", "InjectedCompileError"]
 
 
 class Admission:
@@ -68,27 +90,108 @@ class Admission:
         return cls(False, reason)
 
 
+@dataclasses.dataclass(frozen=True)
+class Quarantine:
+    """One quarantined tier: its rung, why it was pulled (the port's one
+    reason is 'nan_recurrence', from :func:`demote_active`) and the
+    captured error text."""
+    tier: str
+    rung: int
+    reason: str
+    error: Optional[str] = None
+
+
 # Process-wide ladder state, keyed by tier name so every ladder of a family
 # (factories are cheap and recreated freely) shares one verification
-# memory.
+# memory and one quarantine verdict.
 _lock = threading.Lock()
-_ACTIVE: Dict[str, str] = {}            # family -> tier serving last dispatch
-_ACTIVE_STAMP: Dict[str, int] = {}      # family -> dispatch counter at that
+_QUARANTINE: Dict[str, Quarantine] = {}
+# family -> (tier, rung, truth, on the card, dispatch counter) of the
+# family's last dispatch: what active() reports and demote_active() pulls.
+_ACTIVE: Dict[str, Tuple[str, int, bool, bool, int]] = {}
 _DISPATCHES = 0                         # monotone dispatch counter
 _VERIFIED: set = set()                  # (tier name, argument signature)
 _ADMISSION_LOG: Dict[str, str] = {}     # tier -> last refusal reason
 _EVENTS: List[dict] = []                # tier_degraded event log
+_warned: set = set()                    # tiers already warned about
+
+# Fault-injection seam (igg_torch.chaos.kernel_compile_fail /
+# kernel_corrupt): {"compile_fail": {tier: message}, "corrupt": {tier:
+# magnitude}}, consulted at a tier's build and after each of its
+# dispatches; None when nothing is armed.
+_CHAOS_TIER_TAP: Optional[dict] = None
+
+
+class InjectedCompileError(RuntimeError):
+    """The chaos stand-in for a kernel that fails to build."""
+
+
+def _chaos_compile_check(tier: str) -> None:
+    tap = _CHAOS_TIER_TAP
+    if tap and tier in tap.get("compile_fail", {}):
+        raise InjectedCompileError(
+            tap["compile_fail"][tier]
+            or f"kernel build failed (chaos-injected) for tier {tier}")
+
+
+def _chaos_corrupt(tier: str, out):
+    """An armed output corruption of `tier`, the stand-in for a miscompiled
+    kernel: one interior element (index 1 along every dim) of the first
+    floating output tensor is perturbed by `magnitude`, in a copy (an
+    output may alias an input)."""
+    tap = _CHAOS_TIER_TAP
+    if not tap or tier not in tap.get("corrupt", {}):
+        return out
+    magnitude = tap["corrupt"][tier]
+    done = []
+
+    def hit(o):
+        if isinstance(o, (tuple, list)):
+            return type(o)(hit(x) for x in o)
+        if done or not hasattr(o, "is_floating_point") or not (
+                o.is_floating_point() or o.is_complex()):
+            return o
+        done.append(True)
+        bad = o.clone()
+        bad[tuple(min(1, s - 1) for s in bad.shape)] += magnitude
+        return bad
+
+    return hit(out)
+
+
+def quarantine(tier: str, rung: int, reason: str,
+               error_text: Optional[str] = None) -> Quarantine:
+    """Pull `tier` out of dispatch for the process: record the verdict,
+    append a `tier_degraded` event, and warn once naming the tier and the
+    captured error text."""
+    q = Quarantine(tier=tier, rung=rung, reason=reason, error=error_text)
+    with _lock:
+        _QUARANTINE[tier] = q
+        _EVENTS.append({"kind": "tier_degraded", "tier": tier, "rung": rung,
+                        "reason": reason, "error": error_text})
+        warn = tier not in _warned
+        _warned.add(tier)
+    _telemetry.emit("tier_degraded", tier=tier, rung=rung, reason=reason,
+                    error=error_text)
+    _telemetry.counter("igg_tier_quarantined_total", tier=tier).inc()
+    if warn:
+        warnings.warn(
+            f"igg_torch.degrade: tier {tier!r} (rung {rung}) quarantined "
+            f"({reason}); dispatch falls to the next rung.  Captured: "
+            f"{error_text or '<none>'}.  igg_torch.degrade.status() queries, "
+            f"igg_torch.degrade.reset({tier!r}) re-admits.", stacklevel=2)
+    return q
 
 
 def is_quarantined(tier: str) -> bool:
-    """Always False: the port quarantines nothing (a failing tier
-    raises)."""
-    return False
+    return tier in _QUARANTINE
 
 
-def status() -> Dict[str, object]:
-    """The quarantined tiers: always empty in the port."""
-    return {}
+def status() -> Dict[str, Quarantine]:
+    """The quarantined tiers: `{tier: Quarantine(tier, rung, reason,
+    error)}` (empty when every tier is healthy)."""
+    with _lock:
+        return dict(_QUARANTINE)
 
 
 def events() -> List[dict]:
@@ -101,14 +204,14 @@ def events() -> List[dict]:
 def active() -> Dict[str, str]:
     """Which tier served each family's most recent dispatch."""
     with _lock:
-        return dict(_ACTIVE)
+        return {f: r[0] for f, r in _ACTIVE.items()}
 
 
 def active_records() -> List[Tuple[str, str, int]]:
     """`[(family, serving tier, dispatch stamp)]`: :func:`active` with the
     monotone dispatch counter at each family's last dispatch."""
     with _lock:
-        return [(f, t, _ACTIVE_STAMP.get(f, 0)) for f, t in _ACTIVE.items()]
+        return [(f, r[0], r[4]) for f, r in _ACTIVE.items()]
 
 
 def admission_log() -> Dict[str, str]:
@@ -118,20 +221,71 @@ def admission_log() -> Dict[str, str]:
 
 
 def reset(tier: Optional[str] = None) -> None:
-    """Forget `tier`'s verifications and refusal (or, with no argument,
-    clear all ladder state: verification memory, active-tier records,
-    refusals and the event log)."""
+    """Re-admit `tier`: forget its quarantine, verifications and refusal
+    (or, with no argument, clear all ladder state: quarantine,
+    verification memory, active-tier records, refusals, the event log,
+    and the one-time warnings)."""
     with _lock:
         if tier is not None:
+            _QUARANTINE.pop(tier, None)
+            _warned.discard(tier)
             for key in [k for k in _VERIFIED if k[0] == tier]:
                 _VERIFIED.discard(key)
             _ADMISSION_LOG.pop(tier, None)
             return
+        _QUARANTINE.clear()
         _ACTIVE.clear()
-        _ACTIVE_STAMP.clear()
         _VERIFIED.clear()
         _ADMISSION_LOG.clear()
         _EVENTS.clear()
+        _warned.clear()
+
+
+def dispatch_stamp() -> int:
+    """The monotone ladder-dispatch counter: snapshot it before a run and
+    pass it to :func:`demote_active` as `since` to scope demotion to the
+    families that dispatched during that run."""
+    return _DISPATCHES
+
+
+def demotable(since: Optional[int] = None
+              ) -> List[Tuple[str, str, int, bool]]:
+    """`[(family, tier, rung, on_card)]`: the non-truth, unquarantined
+    tier that served each family's most recent dispatch (with `since`,
+    only families that dispatched strictly after that
+    :func:`dispatch_stamp`), whether that dispatch served CUDA tensors:
+    what :func:`demote_active` would quarantine."""
+    with _lock:
+        records = list(_ACTIVE.items())
+    return [(family, tname, rung, card)
+            for family, (tname, rung, truth, card, stamp) in records
+            if not truth and not (since is not None and stamp <= since)
+            and not is_quarantined(tname)]
+
+
+def demote_active(reason: str = "nan_recurrence",
+                  error_text: Optional[str] = None,
+                  since: Optional[int] = None) -> List[str]:
+    """Quarantine the non-truth tier(s) that served each family's most
+    recent dispatch (igg's recovery rung for a deterministic kernel
+    blowup: a NaN recurring at the same step after a bit-exact rollback);
+    `since` as in :func:`demotable`.  Returns the quarantined tier names
+    (empty when nothing is left to demote).  Where such a tier last served
+    CUDA tensors it raises `GridError` naming it and quarantines nothing:
+    the rung below it is the truth tier, which the port does not serve on
+    the card."""
+    tiers = demotable(since)
+    card = [(f, t) for f, t, _, on_card in tiers if on_card]
+    if card:
+        raise GridError(
+            f"degrade: demoting the tier(s) ({', '.join(t for _, t in card)})"
+            f" would serve {', '.join(f'{f}.plain' for f, _ in card)}, which "
+            f"the port does not serve on the card; nothing was quarantined.")
+    demoted = []
+    for _, tname, rung, _ in tiers:
+        quarantine(tname, rung, reason, error_text=error_text)
+        demoted.append(tname)
+    return demoted
 
 
 @dataclasses.dataclass
@@ -163,6 +317,14 @@ _TOLERANCES = {
     4: (1e-4, 1e-5),     # f32
     8: (1e-9, 1e-12),    # f64
 }
+
+
+def _on_card(args) -> bool:
+    """Whether any argument is a CUDA tensor."""
+    for a in args:
+        if getattr(a, "is_cuda", False):
+            return True
+    return False
 
 
 def _dtype_name(dtype) -> str:
@@ -259,8 +421,14 @@ class Ladder:
     def _fn(self, t: Tier) -> Callable:
         fn = self._built.get(t.name)
         if fn is None:
+            if not t.truth:
+                _chaos_compile_check(t.name)
             fn = self._built[t.name] = t.build()
         return fn
+
+    def _call(self, t: Tier, fn: Callable, args: tuple):
+        out = fn(*args)
+        return out if t.truth else _chaos_corrupt(t.name, out)
 
     @staticmethod
     def _signature(args) -> tuple:
@@ -288,7 +456,7 @@ class Ladder:
                          for a in args)
         with _telemetry.span("degrade.verify_first_use", tier=t.name,
                              family=self.family):
-            got = fn(*scratch())
+            got = self._call(t, fn, scratch())
             want = truth_fn(*scratch())
             detail = _compare_outputs(got, want)
         if detail is not None:
@@ -305,21 +473,41 @@ class Ladder:
         with _lock:
             _VERIFIED.add((t.name, sig))
 
-    def _record_active(self, tier_name: str) -> None:
+    def _record_active(self, t: Tier, args: tuple) -> None:
         global _DISPATCHES
+        card = _on_card(args)
         with _lock:
             _DISPATCHES += 1
-            _ACTIVE[self.family] = tier_name
-            _ACTIVE_STAMP[self.family] = _DISPATCHES
+            _ACTIVE[self.family] = (t.name, t.rung, t.truth, card,
+                                    _DISPATCHES)
         _telemetry.counter("igg_tier_dispatch_total", family=self.family,
-                           tier=tier_name).inc()
+                           tier=t.name).inc()
 
     def dispatch(self, *args):
+        skipped = None   # a quarantined tier that would have served
         for t in self.tiers:
             if t.truth:
+                if skipped is not None and _on_card(args):
+                    raise GridError(
+                        f"tier {skipped.tier} is quarantined "
+                        f"({skipped.reason}) and the rung below it is "
+                        f"{t.name}, which the port does not serve on the "
+                        f"card; nothing was served.  igg_torch.degrade."
+                        f"reset({skipped.tier!r}) re-admits it.")
                 out = self._fn(t)(*args)
-                self._record_active(t.name)
+                self._record_active(t, args)
                 return out
+            q = _QUARANTINE.get(t.name) if _QUARANTINE else None
+            if q is not None:
+                if t.required:
+                    raise GridError(
+                        f"tier {t.name} is required but quarantined "
+                        f"({q.reason}): {q.error or '<no capture>'}.  "
+                        f"igg_torch.degrade.reset({t.name!r}) re-admits "
+                        f"it.")
+                if skipped is None and (t.admit is None or t.admit(args)):
+                    skipped = q
+                continue
             adm = t.admit(args) if t.admit is not None else True
             if not adm:
                 reason = getattr(adm, "reason", "") or "not admitted"
@@ -332,8 +520,8 @@ class Ladder:
             fn = self._fn(t)
             if self._verify_enabled():
                 self._verify_first_use(t, fn, args)
-            out = fn(*args)
-            self._record_active(t.name)
+            out = self._call(t, fn, args)
+            self._record_active(t, args)
             return out
         raise GridError(   # unreachable: the truth rung always serves
             f"degrade: no tier of {self.family} could serve the dispatch.")

@@ -103,6 +103,14 @@ def planes(A, d: int, n: int, pos: int) -> torch.Tensor:
 # Exchange
 # ---------------------------------------------------------------------------
 
+# Fault-injection seam (igg_torch.chaos.halo_corruption, igg's
+# `_CHAOS_PLANE_TAP`): a callable `(d, first, last) -> (first, last)`
+# applied to the planes `exchange_planes` returns, the one primitive every
+# `update_halo` path goes through.  Read at every call (nothing is
+# compiled), so arming it clears no cache.
+_CHAOS_PLANE_TAP = None
+
+
 def exchange_planes(left_send, right_send, stale_first, stale_last,
                     d: int, n: int, periodic: bool, disp: int = 1):
     """Plane-level neighbor shift along dimension `d` over `n` blocks:
@@ -113,7 +121,17 @@ def exchange_planes(left_send, right_send, stale_first, stale_last,
     of the block `disp` to its right.  Where an open boundary leaves no
     partner, the stale planes come back (the no-write semantics).  This is
     the only function of the halo engine that moves data between blocks
-    (the K-step chunk's is `igg_torch.ops.chunk_engine.exchange_slabs`)."""
+    (the K-step chunk's is `igg_torch.ops.chunk_engine.exchange_slabs`).
+    An armed `_CHAOS_PLANE_TAP` gets `(d, new_first, new_last)` and
+    returns the planes handed on."""
+    first, last = _shift_planes(left_send, right_send, stale_first,
+                                stale_last, d, n, periodic, disp)
+    tap = _CHAOS_PLANE_TAP
+    return (first, last) if tap is None else tap(d, first, last)
+
+
+def _shift_planes(left_send, right_send, stale_first, stale_last,
+                  d: int, n: int, periodic: bool, disp: int):
     if periodic and disp % n == 0:
         return right_send, left_send
     if not periodic and disp >= n:

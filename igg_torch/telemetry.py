@@ -26,8 +26,15 @@ alike).
   session exports both at detach (`metrics_r<rank>.jsonl`,
   `metrics_r<rank>.prom`) and every `IGG_TELEMETRY_METRICS_EVERY` seconds
   where a caller asks (:meth:`Telemetry.maybe_export_metrics`).  The port
-  maintains `igg_halo_plane_bytes_total` (`igg_torch.update_halo`) and
-  `igg_tier_dispatch_total{family,tier}` (the tier ladder).
+  maintains `igg_halo_plane_bytes_total` (`igg_torch.update_halo`),
+  `igg_tier_dispatch_total{family,tier}` and `igg_tier_quarantined_total`
+  (the tier ladder), and the resilient loop's `igg_steps_total`,
+  `igg_rollbacks_total` and the :class:`StepStats` gauges.
+
+- **Run-loop hooks.**  :class:`StepStats` turns the watchdog's probe
+  fetches into `step_stats` records and step-rate gauges;
+  :func:`_auto_dump` dumps the flight recorder where a sink is
+  configured when a run fails or is preempted.
 
 - **Trace spans.**  :func:`span` records a named host-side region as a
   `span` record and mirrors it onto the profiler's timeline as a
@@ -68,7 +75,7 @@ __all__ = [
     "snapshot", "metric_samples", "prometheus_text", "reset_metrics",
     "flight_recorder", "dump_flight_recorder", "flight_dumps", "run_id",
     "export_chrome_trace", "as_session", "merge_streams", "subscribe",
-    "unsubscribe",
+    "unsubscribe", "StepStats",
 ]
 
 
@@ -249,6 +256,18 @@ def dump_flight_recorder(reason: str = "requested",
     return out
 
 
+def _auto_dump(reason: str) -> List[pathlib.Path]:
+    """The run loop's fault hook: dump the flight recorder wherever a sink
+    is configured (an attached session or `IGG_TELEMETRY_DIR`); a no-op
+    when telemetry is unconfigured.  Returns the paths written, so a
+    :class:`igg_torch.resilience.ResilienceError` can name them."""
+    with _lock:
+        have_session = bool(_SESSIONS)
+    if have_session or _env.text("IGG_TELEMETRY_DIR"):
+        return dump_flight_recorder(reason)
+    return []
+
+
 # ---------------------------------------------------------------------------
 # Metrics registry
 # ---------------------------------------------------------------------------
@@ -261,11 +280,21 @@ _KIND_BY_NAME: Dict[str, type] = {}
 # names the port maintains second (igg's texts for igg's names).
 _HELP_BY_NAME: Dict[str, str] = {}
 _BUILTIN_HELP: Dict[str, str] = {
+    "igg_steps_total": "Steps completed by a run loop.",
+    "igg_rollbacks_total": "Checkpoint rollbacks taken by a run loop.",
+    "igg_steps_per_s": "Live step rate of the last watchdog window.",
+    "igg_watchdog_fetch_lag_steps": "Steps between the last fetched "
+                                    "watchdog probe and the loop's "
+                                    "current step.",
+    "igg_rank_window_ms": "This rank's last watchdog-window ms/step "
+                          "(the live straggler signal).",
     "igg_halo_plane_bytes_total": "Halo plane bytes moved by "
                                   "update_halo (per dim and wire/local "
                                   "mode when labelled).",
     "igg_tier_dispatch_total": "Dispatches served per (family, tier) by "
                                "the degradation ladder.",
+    "igg_tier_quarantined_total": "Kernel tiers quarantined by the "
+                                  "degradation ladder.",
 }
 
 
@@ -716,6 +745,67 @@ def as_session(telemetry) -> Optional[Telemetry]:
     raise GridError(
         f"telemetry={telemetry!r}: expected None, False, True, a "
         f"directory path, or an igg_torch.telemetry.Telemetry session.")
+
+
+# ---------------------------------------------------------------------------
+# The step-stats meter (rides the watchdog's fetches)
+# ---------------------------------------------------------------------------
+
+class StepStats:
+    """Per-window step rate with no host synchronization of its own.
+
+    The resilient loop fetches its watchdog probes when they are ready;
+    this meter timestamps each healthy fetch on the host and derives the
+    rate from consecutive fetches (igg's `StepStats`).  A drain that
+    fetches several probes back to back gives near-zero deltas; those
+    windows are skipped (`_MIN_DT`).  Gauges `igg_steps_per_s`,
+    `igg_watchdog_fetch_lag_steps` and `igg_rank_window_ms` (labelled
+    `run`), and a `step_stats` record per window.  `perf` is igg's perf
+    ledger context and must be None: the ledger is not ported yet."""
+
+    _MIN_DT = 1e-4
+
+    def __init__(self, run: str, members: Optional[int] = None,
+                 perf: Optional[dict] = None):
+        if perf is not None:
+            raise GridError("StepStats(perf=...): the perf ledger is not "
+                            "ported yet; pass None.")
+        self.run = run
+        self.members = members
+        self._anchor: Optional[Tuple[int, float]] = None
+        self._sps = gauge("igg_steps_per_s", run=run)
+        self._lag = gauge("igg_watchdog_fetch_lag_steps", run=run)
+        self._win = gauge("igg_rank_window_ms", run=run)
+        self._msps = gauge("igg_member_steps_per_s") if members else None
+
+    def fetched(self, probe_step: int, current_step: int,
+                active_members: Optional[int] = None) -> None:
+        """One healthy probe was fetched (host side, after it was
+        ready)."""
+        now = time.monotonic()
+        lag = max(0, current_step - probe_step)
+        self._lag.set(lag)
+        anchor = self._anchor
+        self._anchor = (probe_step, now)
+        if anchor is None:
+            return
+        dsteps = probe_step - anchor[0]
+        dt = now - anchor[1]
+        if dsteps <= 0 or dt < self._MIN_DT:
+            return
+        sps = dsteps / dt
+        self._sps.set(sps)
+        self._win.set(1e3 / sps)
+        payload = {"run": self.run, "steps_per_s": sps,
+                   "ms_per_step": 1e3 / sps, "window_steps": dsteps,
+                   "fetch_lag_steps": lag}
+        if active_members is not None:
+            msps = sps * active_members
+            payload["members_active"] = active_members
+            payload["member_steps_per_s"] = msps
+            if self._msps is not None:
+                self._msps.set(msps)
+        emit("step_stats", step=probe_step, **payload)
 
 
 # ---------------------------------------------------------------------------

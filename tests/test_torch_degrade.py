@@ -200,6 +200,38 @@ def test_invalid_verify_and_refused_required_tier():
     assert degrade.active() == {"toy": "toy.plain"}
 
 
+class _CardArg:
+    """An argument the ladder takes for a CUDA tensor (`is_cuda`), so the
+    card rules run here."""
+    is_cuda = True
+
+
+def test_card_dispatch_never_falls_to_the_truth_tier():
+    """On CUDA arguments the ladder serves no plain version: demoting a
+    tier that last served the card is refused and quarantines nothing,
+    and a quarantined tier that would have served a card dispatch raises
+    naming it; CPU arguments still fall to the truth tier."""
+    served = []
+    tiers = [degrade.Tier("toy.cuda", 0,
+                          build=lambda: lambda x: served.append("cuda")),
+             degrade.Tier("toy.plain", 1, truth=True,
+                          build=lambda: lambda x: served.append("plain"))]
+    ladder = degrade.Ladder("toy", tiers, verify=False)
+    ladder.dispatch(_CardArg())
+    assert degrade.demotable() == [("toy", "toy.cuda", 0, True)]
+    with pytest.raises(it.GridError, match=r"\(toy\.cuda\).*toy\.plain"):
+        degrade.demote_active()
+    assert degrade.status() == {} and degrade.events() == []
+    degrade.quarantine("toy.cuda", 0, "nan_recurrence")
+    with pytest.raises(it.GridError, match=r"toy\.cuda is quarantined "
+                       r"\(nan_recurrence\).*toy\.plain"):
+        ladder.dispatch(_CardArg())
+    assert served == ["cuda"]
+    ladder.dispatch(torch.ones(2))
+    assert served == ["cuda", "plain"]
+    assert degrade.active() == {"toy": "toy.plain"}
+
+
 def test_finalize_resets_the_ladder():
     it.init_global_grid(8, 8, 8, device="cpu", quiet=True)
     ladder, _ = _ladder(lambda x: x * 2.0)

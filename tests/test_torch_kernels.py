@@ -44,7 +44,11 @@ the march's no-ring path (built with no shared memory for rings) in every
 layout; and chip_smoke.py's phase 22 at 2x2x2 blocks of 64^3: a sharded
 save between kernel launches, the resumed and the elastically resumed
 (1, 2, 4) runs bitwise the uninterrupted one, a flipped shard byte
-refused, and the background worker's frames bitwise the synchronous ones.
+refused, and the background worker's frames bitwise the synchronous ones;
+and phase 23's resilient loop at the same blocks: a NaN rollback under the
+background writer and a preemption with its resume bitwise the
+uninterrupted run, the watchdog probe's counts equal the CPU's, a
+recurring kernel blowup raises naming its tier.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1316,3 +1320,112 @@ def test_worker_frames_equal_synchronous_frames(card):
     assert not r.errors
     assert frames == {k: zlib.crc32(X.cpu().numpy().tobytes())
                       for k, X in sync.items()}
+
+
+# -- the resilient loop on the card -----------------------------------------
+
+def _resilient_setup(card):
+    """2x2x2 open blocks of 64^3 (chip_smoke.py phase 23 (a)'s layout),
+    `make_multi_step(17)` over a dict state: the chunk route."""
+    from igg_torch.models import diffusion3d as t3
+
+    it.init_global_grid(64, 64, 64, dimx=2, dimy=2, dimz=2, device=card,
+                        quiet=True)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    step = t3.make_multi_step(17, p)
+    return {"T": T, "Cp": Cp}, \
+        lambda s: {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}
+
+
+def test_resilient_nan_rollback_bitwise(card, tmp_path):
+    """A NaN at step 40 under the background writer: one detection, one
+    rollback, the run's end bitwise the uninterrupted run's; a preemption
+    at step 68 and `resume=True` end there too."""
+    state, fn = _resilient_setup(card)
+    ref = dict(state)
+    for _ in range(8):
+        ref = fn(ref)
+    kw = dict(steps_per_call=17, watch_every=34, checkpoint_every=34,
+              checkpoint_dir=tmp_path, ring=2)
+    res = it.run_resilient(fn, dict(state), 136,
+                           chaos=it.chaos.ChaosPlan(nan_at=[(40, "T")]),
+                           **kw)
+    kinds = [e.kind for e in res.events]
+    assert kinds.count("nan_detected") == 1 and res.retries == 1
+    assert any(e.detail.get("background") for e in res.events
+               if e.kind == "checkpoint")
+    torch.testing.assert_close(res.state["T"], ref["T"], rtol=0, atol=0)
+    res = it.run_resilient(fn, dict(state), 136,
+                           chaos=it.chaos.ChaosPlan(preempt_at=68), **kw)
+    assert res.preempted and res.steps_done == 68
+    res = it.run_resilient(fn, dict(state), 136, resume=True, **kw)
+    assert res.events[0].kind == "resume" and res.steps_done == 136
+    torch.testing.assert_close(res.state["T"], ref["T"], rtol=0, atol=0)
+
+
+def test_resilient_probe_counts_equal_cpu(card):
+    """The probe's counts on the card equal the same fields' on the CPU,
+    and a probe's host copy becomes ready without blocking the loop."""
+    from igg_torch import resilience
+
+    gen = torch.Generator().manual_seed(4)
+    A = torch.randn(64, 48, 40, generator=gen, dtype=torch.float64)
+    B = torch.randn(2 * (1 << 24) + 12345, generator=gen)   # 3 slabs
+    A[3, 4, 5] = float("nan")
+    A[0, 0, 0] = float("inf")
+    B[::100003] = float("-inf")
+    H = B.to(torch.bfloat16)
+    H[7] = float("nan")
+    want = resilience.probe_counts(A, B, H)
+    got = resilience.probe_counts(A.to(card), B.to(card), H.to(card))
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    pr = resilience._Probe(got)
+    torch.cuda.synchronize()
+    assert resilience._is_ready(pr)
+    np.testing.assert_array_equal(pr.result(), want.numpy())
+
+
+def test_quarantined_tier_is_not_served_plain_on_the_card(card):
+    """A quarantined `diffusion3d.cuda` under `use_kernels="auto"`: the
+    card dispatch raises naming the tier instead of serving
+    `diffusion3d.plain`."""
+    from igg_torch import degrade
+    from igg_torch.models import diffusion3d as t3
+
+    it.init_global_grid(64, 64, 64, device=card, quiet=True)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    step = t3.make_step(p)
+    step(T, Cp)
+    assert degrade.active()["diffusion3d"] == "diffusion3d.cuda"
+    degrade.quarantine("diffusion3d.cuda", 1, "nan_recurrence")
+    try:
+        with pytest.raises(it.GridError,
+                           match=r"diffusion3d\.cuda is quarantined.*"
+                                 r"diffusion3d\.plain"):
+            step(T, Cp)
+        assert degrade.active()["diffusion3d"] == "diffusion3d.cuda"
+    finally:
+        degrade.reset("diffusion3d.cuda")
+
+
+def test_resilient_recurrence_raises_on_the_card(card, tmp_path):
+    """A kernel tier corrupted at every dispatch: the recurrence at the
+    same step raises `ResilienceError` naming the tier; nothing is
+    quarantined and nothing served `diffusion3d.plain`."""
+    from igg_torch import degrade
+
+    state, fn = _resilient_setup(card)
+    with it.chaos.kernel_corrupt("diffusion3d.cuda"):
+        with pytest.raises(it.ResilienceError,
+                           match=r"\(diffusion3d\.cuda\).*diffusion3d\.plain"
+                           ) as ei:
+            it.run_resilient(fn, dict(state), 136, steps_per_call=17,
+                             watch_every=34, checkpoint_every=34,
+                             checkpoint_dir=tmp_path)
+    kinds = [e.kind for e in ei.value.events]
+    assert kinds.count("nan_detected") == 2 and "rollback" in kinds
+    assert degrade.status() == {}
+    assert degrade.active()["diffusion3d"] == "diffusion3d.cuda"
