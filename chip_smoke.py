@@ -172,6 +172,28 @@ the script exits non-zero without printing a result:
    over 10 and 20 watch windows.  A missed contract is printed, not
    raised.  Phase 23 must launch rows 1, 3, 4 and 5 of PERF.md's table
    (the fused step, the halo writer, the plane packer, the chunk step).
+24. Comm/compute overlap (`igg_torch.hide_communication`: the boundary
+   slabs, their plane extraction and the exchange on a side CUDA stream,
+   the full compute on the caller's stream, the halo writer's assembly):
+   (a) BASELINE config 5, phase 13's grid (stokes3d 509^3 open on 2x2x2
+   blocks of 256^3, overlap 3, f32, from `update_halo(*init_fields())`):
+   `make_iteration(n_inner=17, use_kernels=False, overlap=True)` bitwise
+   `overlap=False`, served by `stokes3d.overlap`, with the halo writer's
+   and the packer's launches counted; (b) phase 6's grid (diffusion 510^3
+   open): `make_multi_step(17, use_kernels=False, overlap=True)` bitwise
+   `overlap=False`, served by `diffusion3d.overlap`, beside phase 6's
+   kernel routes; each with ms per iteration or step of both, in turns,
+   and (c) from `torch.profiler`'s kernel events with their stream ids,
+   the side stream's kernel time, the share of it that ran while a kernel
+   of the caller's stream ran, and the time the caller's stream waited at
+   the joins; (d) at (b)'s grid ten overlapped one-step calls under
+   `set_sync_debug_mode("warn")` give as many sync warnings as ten
+   sequential ones, and twenty chained overlapped calls whose results
+   are dropped at once equal twenty whose results are kept; with
+   `IGG_OVERLAP=1` and `overlap="auto"` on phase 2's one block, the
+   admission log holds igg's "single-device mesh" reason and
+   `diffusion3d.plain` serves.  Every number beside the card's name and
+   power limit.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -208,7 +230,7 @@ periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
 Stokes and HM3D divisors.  Launch counters are set to 0 before each
-main-path phase (2 to 23) and read after it; each of the twenty kernels
+main-path phase (2 to 24) and read after it; each of the twenty kernels
 must have launched on that main path (the generated relax3d step and
 chunk step are phase 20's launches of the spec counters, shallow water's
 the others').  The last lines are the run's seconds, the
@@ -643,6 +665,65 @@ def uniform(shape, lo, hi, dtype, dev, seed):
     g.manual_seed(seed)
     return (torch.rand(shape, generator=g, dtype=torch.float64, device=dev)
             * (hi - lo) + lo).to(dtype)
+
+
+def stream_split(kernels, writer="halo_write_kernel") -> dict:
+    """The side stream's share of a profiler trace's kernel events
+    (`cat == "kernel"`, with `args.stream`): the caller's stream is the one
+    that launches the halo writer, every other one is the side stream's.
+    Returns the side stream's kernel ms and launches, the share of its
+    kernel time that ran while a kernel of the caller's stream ran, the
+    caller's kernel ms, and the time the caller's stream waited at the
+    joins: before each run of writer launches, from the end of its last
+    other kernel to the end of the side stream's last kernel before the
+    writer, where that is later."""
+    import bisect
+
+    streams = {e["args"]["stream"] for e in kernels}
+    mains = {e["args"]["stream"] for e in kernels
+             if writer in e.get("name", "")}
+    if len(mains) != 1 or len(streams) < 2:
+        raise SmokeFailure(f"profiler trace: {len(kernels)} kernel events "
+                           f"on streams {sorted(streams)}, the halo writer "
+                           f"on {sorted(mains)}: no side stream")
+    main_stream = mains.pop()
+
+    def span(e):
+        return float(e["ts"]), float(e["ts"]) + float(e["dur"])
+
+    main = sorted(span(e) + (writer in e["name"],) for e in kernels
+                  if e["args"]["stream"] == main_stream)
+    side = sorted(span(e) for e in kernels
+                  if e["args"]["stream"] != main_stream)
+    union = []
+    for a, b, _ in main:
+        if union and a <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], b)
+        else:
+            union.append([a, b])
+    starts = [u[0] for u in union]
+    concurrent = 0.0
+    for a, b in side:
+        k = max(0, bisect.bisect_right(starts, a) - 1)
+        while k < len(union) and union[k][0] < b:
+            concurrent += max(0.0, min(b, union[k][1]) - max(a, union[k][0]))
+            k += 1
+    side_us = sum(b - a for a, b in side)
+    wait, joins, last_other = 0.0, 0, None
+    for k, (a, b, is_writer) in enumerate(main):
+        if not is_writer:
+            last_other = b
+            continue
+        if k and main[k - 1][2]:
+            continue                # the same run of writer launches
+        joins += 1
+        done = [e for s, e in side if s < a]
+        if done and last_other is not None:
+            wait += max(0.0, min(max(done), a) - last_other)
+    return dict(side_ms=side_us / 1e3, side_kernels=len(side),
+                main_ms=sum(b - a for a, b, _ in main) / 1e3,
+                concurrent_share=concurrent / side_us if side_us else 0.0,
+                join_wait_ms=wait / 1e3, joins=joins)
 
 
 class Smoke:
@@ -4343,8 +4424,200 @@ class Smoke:
         out["sync_warnings"] = {k: len(v) for k, v in counts.items()}
         self.perf["resilience_overhead"] = out
 
+    # -- phase 24: comm/compute overlap ----------------------------------
+    def overlap_phase(self):
+        """Phase 24: the overlapped plain composition
+        (`igg_torch.hide_communication` on its side stream) at config 5's
+        509^3 Stokes grid and at the 510^3 diffusion headline, each bitwise
+        its sequential composition and timed beside it in turns, with the
+        side stream's concurrency from the profiler's kernel events; then
+        the contracts: sync warnings, admission on one block, and a loop
+        that drops every result."""
+        import warnings
+
+        from igg_torch import degrade
+
+        it, st3, t3 = self.it, self.st3, self.t3
+        n, steps = self.n_multi, self.steps_multi
+        out = {}
+        # (a) BASELINE config 5: Stokes, 2x2x2 blocks of n^3, open.
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2, **OL3)
+        size = it.nx_g()
+        p = st3.Params()
+        S = it.update_halo(*st3.init_fields(p))
+        out["stokes"] = self.overlap_case(
+            f"(a) Stokes {size}^3 open (2x2x2 x {n}^3)", "stokes3d", S,
+            lambda ov: st3.make_iteration(p, n_inner=steps, use_kernels=False,
+                                          overlap=ov), steps, "iteration")
+        del S
+        # (b) The diffusion headline, 2x2x2 blocks of n^3, open.
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        size = it.nx_g()
+        p = t3.Params()
+        T, Cp = t3.init_fields(p)
+        out["diffusion"] = self.overlap_case(
+            f"(b) diffusion {size}^3 open (2x2x2 x {n}^3)", "diffusion3d",
+            (T, Cp), lambda ov: t3.make_multi_step(steps, p, use_kernels=False,
+                                                   overlap=ov), steps, "step")
+        head = self.perf.get("headline_510^3_open_2x2x2")
+        if head:
+            log(f"[phase 24] (b) beside phase 6's kernel routes at {size}^3: "
+                f"chunk route {head['chunk_route_ms_per_step']:.4f} ms/step, "
+                f"per-step route {head['per_step_route_ms_per_step']:.4f} "
+                f"ms/step [{self.card}]")
+        # (d) The contracts at (b)'s grid: sync warnings of ten one-step
+        # calls each way, and twenty chained overlapped calls whose results
+        # are dropped at once against twenty whose results are kept.
+        one = {ov: t3.make_multi_step(1, p, use_kernels=False, overlap=ov)
+               for ov in (False, True)}
+        warned = {}
+        for ov in (False, True):
+            one[ov](T, Cp)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    for _ in range(10):
+                        one[ov](T, Cp)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            warned[ov] = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                          for w in caught if "called a synchronizing CUDA "
+                          "operation" in str(w.message)]
+        if len(warned[True]) != len(warned[False]):
+            raise SmokeFailure(f"sync warnings: overlapped {warned[True]}, "
+                               f"sequential {warned[False]}")
+        log(f"[phase 24] (d) ten make_multi_step(1) calls at {size}^3 under "
+            f"set_sync_debug_mode('warn'): {len(warned[True])} sync warnings "
+            f"overlapped, {len(warned[False])} sequential")
+        kept, X = [], T
+        for _ in range(20):
+            X = one[True](X, Cp)
+            kept.append(X)
+        store = torch.empty((20,) + tuple(T.shape), dtype=T.dtype,
+                            device=T.device)
+        X = T
+        for i in range(20):
+            r = one[True](X, Cp)
+            store[i].copy_(r)
+            del r
+            X = store[i]
+        torch.cuda.synchronize()
+        err = max(check(f"drop-every-result loop, call {i}", store[i],
+                        kept[i], 0.0) for i in range(20))
+        del kept, store, X
+        log(f"[phase 24] (d) twenty chained overlapped calls at {size}^3 "
+            f"with every result dropped at once equal the loop that keeps "
+            f"them: max abs err {err:.1e} (tolerance 0)")
+        del T, Cp
+        # (d) IGG_OVERLAP=1 and overlap="auto" on phase 2's one block.
+        self.grid((self.n_head,) * 3, **SINGLE, **PERIODIC)
+        T, Cp = t3.init_fields(p)
+        os.environ["IGG_OVERLAP"] = "1"
+        try:
+            t3.make_multi_step(1, p, use_kernels=False, overlap="auto")(T, Cp)
+        finally:
+            del os.environ["IGG_OVERLAP"]
+        reason = degrade.admission_log().get("diffusion3d.overlap", "")
+        served = degrade.active()["diffusion3d"]
+        if not reason.startswith("single-device mesh") or \
+                served != "diffusion3d.plain":
+            raise SmokeFailure(f"IGG_OVERLAP=1 on one block: {served} served, "
+                               f"admission log {reason!r}")
+        log(f"[phase 24] (d) IGG_OVERLAP=1, overlap='auto' on one "
+            f"{self.n_head}^3 block: {served} served; admission log "
+            f"diffusion3d.overlap: {reason!r}")
+        out["sync_warnings"] = {"overlapped": len(warned[True]),
+                                "sequential": len(warned[False])}
+        self.perf["overlap"] = out
+
+    def overlap_case(self, tag, family, args, make, iters, unit):
+        """One overlapped plain route (`make(True)`) against its sequential
+        composition (`make(False)`) on `args`: bitwise, served by
+        `<family>.overlap`, the halo writer's launches counted; ms per
+        `unit` of both, in turns; the side stream's concurrency."""
+        from igg_torch import degrade
+
+        ops = self.ops
+        seq, ovl = make(False), make(True)
+        before = ops.launch_counts()
+        got = ovl(*args)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items()
+                    if v != before[k]}
+        served = degrade.active()[family]
+        want = seq(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(check(f"{tag}: overlapped vs sequential", a, b, 0.0)
+                  for a, b in zip(got, want))
+        if not all(bool(torch.isfinite(a).all()) for a in got):
+            raise SmokeFailure(f"{tag}: non-finite values")
+        del got, want
+        if served != f"{family}.overlap":
+            raise SmokeFailure(f"{tag}: {served} served the overlapped call")
+        if launched.get("halo_write", 0) <= 0:
+            raise SmokeFailure(f"{tag}: no halo writer launch ({launched})")
+        log(f"[phase 24] {tag}: make(n_inner={iters}, use_kernels=False, "
+            f"overlap=True) served by {served}, bitwise overlap=False (max "
+            f"abs err {err:.1e}); launches a call {json.dumps(launched)}")
+        wall = {False: [], True: []}
+        for ov in (False, True, True, False, False, True, True, False):
+            fn = ovl if ov else seq
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            wall[ov].append((time.perf_counter() - t0) * 1e3 / iters)
+        ms = {ov: sum(v) / len(v) for ov, v in wall.items()}
+        conc = self.stream_concurrency(lambda: ovl(*args))
+        log(f"[phase 24] {tag}: ms/{unit} in turns, sequential "
+            f"{fmt_list(wall[False])} (mean {ms[False]:.4f}), overlapped "
+            f"{fmt_list(wall[True])} (mean {ms[True]:.4f}), "
+            f"{100 * (ms[True] / ms[False] - 1):+.2f}% [{self.card}]")
+        log(f"[phase 24] {tag}: one overlapped call: side stream "
+            f"{conc['side_ms']:.4f} ms of kernels in {conc['side_kernels']} "
+            f"launches, {100 * conc['concurrent_share']:.1f}% of it while a "
+            f"kernel of the caller's stream ran; the caller's stream "
+            f"{conc['main_ms']:.4f} ms of kernels, waited "
+            f"{conc['join_wait_ms']:.4f} ms at the joins ({conc['joins']}) "
+            f"[{self.card}]")
+        return dict(sequential_ms_per_unit=wall[False],
+                    overlapped_ms_per_unit=wall[True], unit=unit,
+                    launches_per_call=launched, **conc)
+
+    def stream_concurrency(self, fn, tries=3):
+        """:func:`stream_split` of `torch.profiler`'s kernel events of one
+        call of `fn()`, its trace taken again (up to `tries` times) where it
+        holds no kernel on a stream beside the halo writer's."""
+        import tempfile
+
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        for left in range(tries - 1, -1, -1):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "trace.json")
+                prof.export_chrome_trace(path)
+                with open(path) as f:
+                    events = json.load(f)["traceEvents"]
+            kernels = [e for e in events if e.get("cat") == "kernel"
+                       and "stream" in e.get("args", {})]
+            try:
+                return stream_split(kernels)
+            except SmokeFailure:
+                if not left:
+                    raise
+
     def main_path(self):
-        """Phases 2 to 23, each with the launch counters set to 0 just
+        """Phases 2 to 24, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -4366,7 +4639,8 @@ class Smoke:
             ("18", lambda: self.stokes_banded(18, one_block=True)),
             ("19", lambda: self.stokes_banded(19, one_block=False)),
             ("20", self.relax3d_banded), ("21", self.observability),
-            ("22", self.checkpoint_phase), ("23", self.resilience_phase)]
+            ("22", self.checkpoint_phase), ("23", self.resilience_phase),
+            ("24", self.overlap_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

@@ -17,7 +17,10 @@ with `verify=`), `checkpoint` (igg's flat and sharded formats, elastic
 restore), `vis` (the background render/IO worker), `resilience`
 (`run_resilient`: the NaN watchdog on CUDA events, the checkpoint ring
 with its background writer, rollback, demotion on CPU tensors,
-preemption and resume) and `chaos` (its deterministic fault injectors).
+preemption and resume), `chaos` (its deterministic fault injectors) and
+`overlap` (`hide_communication`: the boundary slabs and their exchange on
+a side CUDA stream beside the full-domain compute, and the factories'
+`overlap=` admission).
 Grid arrays are block-stacked tensors on one device; entry points use the
 card unless the caller passes `device="cpu"`.  Imports neither JAX nor
 `igg`.
@@ -32,8 +35,9 @@ from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import (chaos, checkpoint, degrade, profiling, resilience,
+from . import (chaos, checkpoint, degrade, overlap, profiling, resilience,
                stencil, telemetry, vis)
+from .overlap import hide_communication
 from .resilience import ResilienceError, RunResult, run_resilient
 from .telemetry import Telemetry
 from .init import init_global_grid
@@ -52,10 +56,11 @@ __all__ = [
     "checkpoint", "coord_fields", "degrade",
     "finalize_global_grid", "from_local_blocks", "full", "gather",
     "gather_interior", "get_global_grid", "global_grid", "grid_epoch",
-    "grid_is_initialized", "has_neighbor", "init_global_grid",
+    "grid_is_initialized", "has_neighbor", "hide_communication",
+    "init_global_grid",
     "latest_checkpoint", "load_checkpoint", "local_block", "local_blocks",
     "local_coords", "me", "memory_stats", "neighbor", "neighbors", "nx_g",
-    "ny_g", "nz_g", "ol", "ones", "profiling", "resilience",
+    "ny_g", "nz_g", "ol", "ones", "overlap", "profiling", "resilience",
     "run_resilient", "save_checkpoint",
     "save_checkpoint_sharded", "select_device", "sharded", "spacing",
     "stacked_shape", "stencil", "telemetry", "tic", "time_steps", "toc",

@@ -78,8 +78,9 @@ _KNOWN: Dict[str, str] = {
     "IGG_NATIVE": "0 disables the native (C++) host-side runtime",
     "IGG_OVERLAP":
         "force (1/on) or pin off (0/off) the overlap='auto' knobs of the "
-        "model factories and igg.stencil.compile; unset defers to the "
-        "autotuner's cached winner (igg.overlap.resolve_overlap)",
+        "model factories and igg_torch.stencil.compile; unset defers to "
+        "the "
+        "autotuner's cached winner (igg_torch.overlap.resolve_overlap)",
     "IGG_NATIVE_THREADS": "thread count for the native re-tile/memcopy",
     "IGG_PERF": "0 disables perf-ledger recording (igg.perf)",
     "IGG_PERF_DRIFT_TOL":

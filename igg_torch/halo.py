@@ -255,20 +255,22 @@ def _sl(d: int, i: int):
     return (slice(None),) * d + (slice(i, i + 1),)
 
 
-def extract_planes(A, reqs: Dict, grid) -> Dict:
-    """`{key: (d, pos)}` -> `{key: every block's plane pos along d}`.
-    Where a 3-D field needs at least two y/z planes, they come from one
-    pass of the plane packer (`igg_torch.ops.pack`), the rule of
-    `igg/halo.py`; the others are `index_select` calls."""
+def extract_planes(A, reqs: Dict, grid, blocks=None) -> Dict:
+    """`{key: (d, pos)}` -> `{key: every block's plane pos along d}`, `A`
+    laid out as `blocks` blocks (the grid's when None).  Where a 3-D field
+    needs at least two y/z planes, they come from one pass of the plane
+    packer (`igg_torch.ops.pack`), the rule of `igg/halo.py`; the others
+    are `index_select` calls."""
     from .ops.pack import pack_planes
+    blocks = tuple(grid.dims) if blocks is None else tuple(blocks)
     minor = [k for k, (d, _) in reqs.items() if d >= 1 and A.ndim == 3]
     out = {}
     if len(minor) >= 2:
         out.update(zip(minor, pack_planes(A, [reqs[k] for k in minor],
-                                          grid.dims)))
+                                          blocks)))
     for k, (d, pos) in reqs.items():
         if k not in out:
-            out[k] = planes(A, d, grid.dims[d], pos)
+            out[k] = planes(A, d, blocks[d], pos)
     return out
 
 

@@ -74,11 +74,14 @@ def required_routes(use_kernels, banded="auto", chunk="auto") -> tuple:
 
 
 def auto_dispatch(*, family: str, plan, routes, plain, required=(),
-                  verify=None):
+                  verify=None, overlap=None):
     """The dispatcher of a model factory: a :class:`igg_torch.degrade.
     Ladder` for `family` whose tiers are `routes` (`{route: run}`, in
-    ladder order; tier `<family>.<route>`), then `<family>.plain`, the
-    truth tier serving `plain(*args)`.
+    ladder order; tier `<family>.<route>`), then, where `overlap` is given,
+    `<family>.overlap` serving `overlap(*args)` (the overlapped plain
+    composition, :func:`igg_torch.overlap.hide_communication`) on the
+    calls the plan gives to the plain composition, then `<family>.plain`,
+    the truth tier serving `plain(*args)`.
 
     `plan(*args)` names the route of a call, `(route, cfg)`: "plain" or a
     key of `routes`, and the configuration `run(cfg, *args)` takes; it
@@ -101,11 +104,11 @@ def auto_dispatch(*, family: str, plan, routes, plain, required=(),
             got = verdicts[key] = plan(*args)
         return got
 
-    def tier(rung, route, run):
+    def tier(rung, route, run, serves=None):
         def admit(args):
             got = planned(args)[0]
-            return (Admission.yes() if got == route else Admission.no(
-                f"the route rules give {family}.{got}"))
+            return (Admission.yes() if got == (serves or route) else
+                    Admission.no(f"the route rules give {family}.{got}"))
 
         def build():
             return lambda *args: run(planned(args)[1], *args)
@@ -115,6 +118,9 @@ def auto_dispatch(*, family: str, plan, routes, plain, required=(),
 
     tiers = [tier(i, route, run)
              for i, (route, run) in enumerate(routes.items())]
+    if overlap is not None:
+        tiers.append(tier(len(tiers), "overlap",
+                          lambda _cfg, *args: overlap(*args), serves="plain"))
     tiers.append(Tier(name=f"{family}.plain", rung=len(tiers),
                       build=lambda: plain, truth=True))
     ladder = Ladder(family, tiers, verify=verify)

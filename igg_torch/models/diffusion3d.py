@@ -35,6 +35,17 @@ refuse and some `(K, B)` is admissible; ``True`` requires it and raises a
 (:func:`igg_torch.models._dispatch.resolve_band`): a pinned pair that is
 inadmissible is never refitted (``True`` raises, ``"auto"`` leaves the
 tier to the other routes), as in igg.
+
+The overlapped composition (`overlap`, igg's `hide_communication`): where
+the plain composition serves a call and `overlap` resolves True
+(:func:`igg_torch.overlap.resolve_overlap`: True, or "auto" with
+`IGG_OVERLAP=1` on an admissible grid, one of several blocks with no
+`banded=True`), the tier `diffusion3d.overlap` serves it: each step's send
+planes come from slabs of the step's input on a side stream, the full
+step runs on the caller's stream, and the halo writer assembles the two
+(:func:`igg_torch.overlap.hide_communication`, radius 1), bitwise the plain
+composition.  The kernel routes ignore `overlap`: their send planes are
+already slab-computed.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ import torch
 
 from .. import fields, halo, shared, tools
 from ..ops import chunk_engine, diffusion_pallas
+from ..overlap import hide_communication, resolve_overlap
 from ..ops import diffusion_trapezoid as dtz
 from ..shared import GridError
 from ..timing import time_steps
@@ -105,18 +117,24 @@ def compute_step(T, Cp, *, dx, dy, dz, dt, lam):
         **diffusion_pallas.scal(dx, dy, dz))
 
 
-def local_step(T, Cp, *, dx, dy, dz, dt, lam):
+def local_step(T, Cp, *, dx, dy, dz, dt, lam, overlap: bool = False):
     """One step of the plain composition: the stencil, then the halo update
     (inside :func:`igg_torch.sharded` on local blocks, or on a stacked
-    array)."""
-    return halo.update_halo_local(
-        compute_step(T, Cp, dx=dx, dy=dy, dz=dz, dt=dt, lam=lam))
+    array).  `overlap=True` restructures it with
+    :func:`igg_torch.overlap.hide_communication` (radius 1): the same
+    values, the exchange independent of the full-domain stencil."""
+    kw = dict(dx=dx, dy=dy, dz=dz, dt=dt, lam=lam)
+    if overlap:
+        return hide_communication(
+            T, lambda Tb, Cpb: compute_step(Tb, Cpb, **kw), Cp)
+    return halo.update_halo_local(compute_step(T, Cp, **kw))
 
 
 def make_step(params: Params = Params(), *, use_kernels="auto",
-              verify=None):
+              overlap="auto", verify=None):
     """`(T, Cp) -> T` advancing one step (see :func:`make_multi_step`)."""
-    return make_multi_step(1, params, use_kernels=use_kernels, verify=verify)
+    return make_multi_step(1, params, use_kernels=use_kernels,
+                           overlap=overlap, verify=verify)
 
 
 def _kernel_path(use_kernels, T) -> bool:
@@ -136,15 +154,17 @@ def _kernel_path(use_kernels, T) -> bool:
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
                     use_kernels="auto", banded="auto", K: int = None,
-                    band: int = None, verify=None):
+                    band: int = None, overlap="auto", verify=None):
     """`(T, Cp) -> T` advancing `n_inner` steps; returns a new tensor and
     leaves `T` as it was.  `use_kernels` picks the path, `banded`, `K` and
-    `band` the banded tier (module docstring).  The returned function
-    keeps `A = dt*lam/Cp` of the last `Cp` it was given.
+    `band` the banded tier, `overlap` ("auto", True, False) the overlapped
+    composition (module docstring).  The returned function keeps `A =
+    dt*lam/Cp` of the last `Cp` it was given.
 
     The call runs through the family's tier ladder
     (:func:`igg_torch.models._dispatch.auto_dispatch`): `diffusion3d.banded`
-    (the banded tier), `diffusion3d.cuda` (the other kernel routes) and
+    (the banded tier), `diffusion3d.cuda` (the other kernel routes),
+    `diffusion3d.overlap` (where `overlap` resolves True) and
     `diffusion3d.plain` (the plain composition).  `verify="first_use"`
     (igg's argument; None: `IGG_VERIFY_KERNELS` decides) checks a kernel
     tier against the plain composition once per argument signature before
@@ -156,6 +176,8 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     if banded is True and use_kernels is False:
         raise GridError(f"{_BANDED_REQ}; use_kernels=False pins the plain "
                         f"composition")
+    overlap = resolve_overlap(overlap, family="diffusion3d", radius=1,
+                              chunk_active=banded is True)
     dx, dy, dz = params.spacing()
     dt = params.timestep()
     lam = params.lam
@@ -201,6 +223,16 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
                 plain=True)
         return T
 
+    def slab_step(T, A):
+        return diffusion_pallas.block_diffusion_compute(
+            T, A, shared.global_grid().local_shape(T), **sc)
+
+    def overlapped(T, Cp):
+        A = coefficient(Cp)
+        for _ in range(n_inner):
+            T = hide_communication(T, slab_step, A)
+        return T
+
     def kernels(bx, T, Cp):
         return diffusion_pallas.fused_diffusion_steps(
             T, coefficient(Cp), n_inner=n_inner, bx=bx, **sc)
@@ -218,6 +250,7 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     return auto_dispatch(
         family="diffusion3d", plan=plan,
         routes={"banded": banded_steps, "cuda": kernels}, plain=plain,
+        overlap=overlapped if overlap else None,
         required=required_routes(use_kernels, banded), verify=verify)
 
 

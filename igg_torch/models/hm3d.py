@@ -41,6 +41,13 @@ requires it (a `GridError` where none is admissible or with
 `use_kernels=False`); ``False`` never takes it.  `K` pins the depth of
 whichever chunk route runs, `band` the band depth; a pinned pair the tier
 refuses is never refitted.
+
+The overlapped composition (`overlap`, igg's multi-field
+`hide_communication`, radius 1): where the plain composition serves a call
+and `overlap` resolves True (:func:`igg_torch.overlap.resolve_overlap`),
+the tier `hm3d.overlap` serves it, bitwise the plain composition.  The
+kernel routes ignore `overlap`: their send planes are already
+slab-computed.
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import torch
 
 from .. import fields, halo, shared, tools
 from ..ops.stencil import block_boundary_mask, divisor, interior_add
+from ..overlap import hide_communication, resolve_overlap
 from ..shared import GridError
 from ..timing import time_steps
 from ._dispatch import auto_dispatch, band_config, required_routes
@@ -168,18 +176,44 @@ def compute_step(Pe, phi, *, dx, dy, dz, dt, phi0, npow, eta):
                          eta=eta)
 
 
-def local_step(Pe, phi, *, dx, dy, dz, dt, phi0, npow, eta):
+def local_step(Pe, phi, *, dx, dy, dz, dt, phi0, npow, eta,
+               overlap: bool = False, use_kernels: bool = False):
     """One step of the plain composition: the coupled update, then one halo
-    update of both fields."""
-    return halo.update_halo_local(*compute_step(
-        Pe, phi, dx=dx, dy=dy, dz=dz, dt=dt, phi0=phi0, npow=npow, eta=eta))
+    update of both fields (inside :func:`igg_torch.sharded` on local
+    blocks, or on stacked arrays).  `overlap=True` restructures it with the
+    multi-field :func:`igg_torch.overlap.hide_communication` (radius 1).
+    `use_kernels=True` runs the fused step instead
+    (:func:`igg_torch.ops.hm3d_pallas.fused_hm3d_step`, on stacked arrays)
+    or raises `GridError` where the kernels cannot serve the fields."""
+    kw = dict(dx=dx, dy=dy, dz=dz, dt=dt, phi0=phi0, npow=npow, eta=eta)
+    if use_kernels:
+        from ..ops import hm3d_pallas
+
+        if overlap:
+            raise GridError(
+                "the fused HM3D step has overlap (hide_communication) "
+                "semantics built in; drop overlap=True when passing "
+                "use_kernels.")
+        why = ("the fused step runs on stacked grid arrays, not inside "
+               "igg_torch.sharded" if shared.block_coords() is not None
+               else hm3d_pallas.kernel_refusal(shared.global_grid(), Pe,
+                                               phi))
+        if why is not None:
+            raise GridError(f"the HM3D kernels cannot serve these fields: "
+                            f"{why}")
+        return hm3d_pallas.fused_hm3d_step(Pe, phi, **kw)
+    if overlap:
+        return hide_communication(
+            (Pe, phi), lambda Pe, phi: compute_step(Pe, phi, **kw))
+    return halo.update_halo_local(*compute_step(Pe, phi, **kw))
 
 
 def make_step(params: Params = Params(), *, use_kernels="auto",
-              verify=None):
+              overlap="auto", verify=None):
     """`(Pe, phi) -> (Pe, phi)` advancing one step (see
     :func:`make_multi_step`)."""
-    return make_multi_step(1, params, use_kernels=use_kernels, verify=verify)
+    return make_multi_step(1, params, use_kernels=use_kernels,
+                           overlap=overlap, verify=verify)
 
 
 def _kernel_path(use_kernels, Pe, phi) -> bool:
@@ -201,10 +235,11 @@ def _kernel_path(use_kernels, Pe, phi) -> bool:
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
                     use_kernels="auto", K: int = None, banded="auto",
-                    band: int = None, verify=None):
+                    band: int = None, overlap="auto", verify=None):
     """`(Pe, phi) -> (Pe, phi)` advancing `n_inner` steps; returns new
     tensors and leaves its inputs as they were.  `use_kernels` picks the
-    path, `banded` and `band` the banded tier (module docstring); `K` is
+    path, `banded` and `band` the banded tier, `overlap` ("auto", True,
+    False) the overlapped composition (module docstring); `K` is
     the chunk depth of the chunk route or the banded tier (default: 8
     where it divides the block's x extent,
     :func:`igg_torch.ops.chunk_engine.default_K`, and the banded tier's
@@ -213,7 +248,8 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     The call runs through the family's tier ladder
     (:func:`igg_torch.models._dispatch.auto_dispatch`): `hm3d.trapezoid`
     (the chunk route of several blocks), `hm3d.banded`, `hm3d.cuda` (the
-    K-step loop and the per-step kernel) and `hm3d.plain`.
+    K-step loop and the per-step kernel), `hm3d.overlap` (where `overlap`
+    resolves True) and `hm3d.plain`.
     `verify="first_use"` checks a kernel tier against the plain
     composition before it serves and raises where they disagree."""
     from ..ops import chunk_engine
@@ -227,6 +263,8 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     if banded is True and use_kernels is False:
         raise GridError(f"{_BANDED_REQ}; use_kernels=False pins the plain "
                         f"composition")
+    overlap = resolve_overlap(overlap, family="hm3d", radius=1,
+                              chunk_active=banded is True)
     kw = params.step_kwargs()
 
     def plan(Pe, phi):
@@ -263,6 +301,15 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
             halo.update_halo(Pe, phi, plain=True)
         return Pe, phi
 
+    def slab_step(Pe, phi):
+        return block_compute(Pe, phi, shared.global_grid().local_shape(Pe),
+                             **kw)
+
+    def overlapped(Pe, phi):
+        for _ in range(n_inner):
+            Pe, phi = hide_communication((Pe, phi), slab_step)
+        return Pe, phi
+
     def kernels(Kc, Pe, phi):
         """The K-step loop, the chunk route or the per-step kernel, as
         `fused_hm3d_steps` dispatches them."""
@@ -286,8 +333,8 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
         family="hm3d", plan=plan,
         routes={"trapezoid": kernels, "banded": banded_steps,
                 "cuda": kernels},
-        plain=plain, required=required_routes(use_kernels, banded),
-        verify=verify)
+        plain=plain, overlap=overlapped if overlap else None,
+        required=required_routes(use_kernels, banded), verify=verify)
 
 
 def run(nt: int, params: Params = Params(), dtype=torch.float32,

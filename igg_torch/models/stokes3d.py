@@ -61,8 +61,18 @@ refuses, True takes it or raises a GridError naming "banded" (also with
 `use_kernels=False` or where the plain composition serves).  On the CPU
 the band kernel's plain version runs.
 
-Not ported here: `local_iteration(overlap=True)` (`igg.hide_communication`)
-and the autotuner's `tune=` argument.
+The overlapped composition (`overlap`, BASELINE config 5's
+`@hide_communication`): where the plain composition serves a call and
+`overlap` resolves True (:func:`igg_torch.overlap.resolve_overlap`, radius
+2, so admission needs an overlap-3 grid of several blocks), the tier
+`stokes3d.overlap` serves it: each iteration's send planes of the four
+fields come from slabs of the iteration's input (`Rho` as an aux field)
+on a side stream, the full iteration runs on the caller's stream, and the
+halo writer assembles the two (:func:`igg_torch.overlap.
+hide_communication`), bitwise the plain composition.  The kernel routes
+ignore `overlap`: their send planes are already slab-computed.
+
+Not ported here: the autotuner's `tune=` argument.
 """
 
 from __future__ import annotations
@@ -74,6 +84,7 @@ import torch
 
 from .. import fields, halo, shared, tools
 from ..ops.stencil import divisor, interior_add
+from ..overlap import hide_communication, resolve_overlap
 from ..shared import GridError
 from ..timing import time_steps
 from ._dispatch import auto_dispatch, required_routes
@@ -184,11 +195,42 @@ def compute_iteration(P, Vx, Vy, Vz, Rho, *, dx, dy, dz, mu, dtP, dtV):
                          mu=mu, dtP=dtP, dtV=dtV)
 
 
-def local_iteration(P, Vx, Vy, Vz, Rho, *, dx, dy, dz, mu, dtP, dtV):
+def local_iteration(P, Vx, Vy, Vz, Rho, *, dx, dy, dz, mu, dtP, dtV,
+                    overlap: bool = False, use_kernels: bool = False):
     """One pseudo-transient iteration of the plain composition: the
-    coupled update, then one grouped halo update of the four fields."""
-    return halo.update_halo_local(*compute_iteration(
-        P, Vx, Vy, Vz, Rho, dx=dx, dy=dy, dz=dz, mu=mu, dtP=dtP, dtV=dtV))
+    coupled update, then one grouped halo update of the four fields
+    (inside :func:`igg_torch.sharded` on local blocks, or on stacked
+    arrays).  `overlap=True` restructures it with the multi-field
+    :func:`igg_torch.overlap.hide_communication` (radius 2, `Rho` an aux
+    field; the grid needs overlap >= 3).  `use_kernels=True` runs the
+    fused iteration instead (:func:`igg_torch.ops.stokes_pallas.
+    fused_stokes_iteration`, on stacked arrays) or raises `GridError`
+    where the kernels cannot serve the fields."""
+    kw = dict(dx=dx, dy=dy, dz=dz, mu=mu, dtP=dtP, dtV=dtV)
+    if use_kernels:
+        from ..ops import stokes_pallas
+
+        if overlap:
+            raise GridError(
+                "the fused Stokes iteration has overlap "
+                "(hide_communication) semantics built in; drop "
+                "overlap=True when passing use_kernels.")
+        why = ("the fused iteration runs on stacked grid arrays, not "
+               "inside igg_torch.sharded" if shared.block_coords() is not None
+               else stokes_pallas.kernel_refusal(shared.global_grid(), P, Vx,
+                                                 Vy, Vz, Rho))
+        if why is not None:
+            raise GridError(f"the Stokes kernels cannot serve these fields: "
+                            f"{why}")
+        return stokes_pallas.fused_stokes_iteration(P, Vx, Vy, Vz, Rho, **kw)
+    if overlap:
+        return hide_communication(
+            (P, Vx, Vy, Vz),
+            lambda P, Vx, Vy, Vz, Rho: compute_iteration(P, Vx, Vy, Vz, Rho,
+                                                         **kw),
+            Rho, radius=2)
+    return halo.update_halo_local(*compute_iteration(P, Vx, Vy, Vz, Rho,
+                                                     **kw))
 
 
 def _pseudo_steps(params: Params) -> dict:
@@ -222,18 +264,20 @@ def _kernel_path(use_kernels, P, Vx, Vy, Vz, Rho) -> bool:
 
 def make_iteration(params: Params = Params(), *, n_inner: int = 1,
                    use_kernels="auto", K: int = None, banded="auto",
-                   band: int = None, verify=None):
+                   band: int = None, overlap="auto", verify=None):
     """`(P, Vx, Vy, Vz, Rho) -> (P, Vx, Vy, Vz)` advancing `n_inner`
     iterations; returns new tensors and leaves its inputs as they were.
     `use_kernels` picks the path (module docstring); `K` is the chunk depth
     of the chunk route, which serves only where the chunk admits it
     (default: the largest of 8, 4, 2 it admits, igg's `fit_stokes_K`);
-    `banded` and `band` the banded tier (module docstring).
+    `banded` and `band` the banded tier, `overlap` ("auto", True, False)
+    the overlapped composition (module docstring).
 
     The call runs through the family's tier ladder
     (:func:`igg_torch.models._dispatch.auto_dispatch`):
     `stokes3d.trapezoid` (the chunk route), `stokes3d.banded`,
-    `stokes3d.cuda` (the per-iteration kernel) and `stokes3d.plain`.
+    `stokes3d.cuda` (the per-iteration kernel), `stokes3d.overlap` (where
+    `overlap` resolves True) and `stokes3d.plain`.
     `verify="first_use"` checks a kernel tier against the plain
     composition before it serves and raises where they disagree."""
     from ..ops.stokes_pallas import BANDED_REQ
@@ -245,6 +289,8 @@ def make_iteration(params: Params = Params(), *, n_inner: int = 1,
     if banded is True and use_kernels is False:
         raise GridError(f"{BANDED_REQ}; use_kernels=False pins the plain "
                         f"composition")
+    overlap = resolve_overlap(overlap, family="stokes3d", radius=2,
+                              chunk_active=banded is True)
     kw = _pseudo_steps(params)
 
     def plan(P, Vx, Vy, Vz, Rho):
@@ -269,6 +315,16 @@ def make_iteration(params: Params = Params(), *, n_inner: int = 1,
             halo.update_halo(P, Vx, Vy, Vz, plain=True)
         return P, Vx, Vy, Vz
 
+    def slab_iteration(P, Vx, Vy, Vz, Rho):
+        return block_compute(P, Vx, Vy, Vz, Rho, shared.global_grid().dims,
+                             **kw)
+
+    def overlapped(P, Vx, Vy, Vz, Rho):
+        S = (P, Vx, Vy, Vz)
+        for _ in range(n_inner):
+            S = hide_communication(S, slab_iteration, Rho, radius=2)
+        return S
+
     def kernels(route, P, Vx, Vy, Vz, Rho):
         from ..ops import stokes_pallas
 
@@ -278,8 +334,8 @@ def make_iteration(params: Params = Params(), *, n_inner: int = 1,
     return auto_dispatch(
         family="stokes3d", plan=plan,
         routes={"trapezoid": kernels, "banded": kernels, "cuda": kernels},
-        plain=plain, required=required_routes(use_kernels, banded),
-        verify=verify)
+        plain=plain, overlap=overlapped if overlap else None,
+        required=required_routes(use_kernels, banded), verify=verify)
 
 
 def run(n_iters: int, params: Params = Params(), dtype=torch.float32,

@@ -41,8 +41,15 @@ plain realization (a warm-up step, K-step chunks of x-row bands of depth
 B, the remainder per step; :mod:`igg_torch.ops.wave2d_trapezoid`), on the
 card `banded=True` raises igg's refusal and "auto" never takes it.
 
-Not ported here: `local_step(overlap=True)` (`igg.hide_communication`) and
-the integrity invariant's registration.
+The overlapped composition (`overlap`, igg's `hide_communication` of the
+three fields, radius 2: the velocity-pressure chain, so the grid needs
+overlap >= 3 along the exchanged dims): where the plain composition
+serves a call and `overlap` resolves True
+(:func:`igg_torch.overlap.resolve_overlap`, `ndim=2`), the tier
+`wave2d.overlap` serves it, bitwise the plain composition.  The kernel
+routes ignore `overlap`.
+
+Not ported here: the integrity invariant's registration.
 """
 
 from __future__ import annotations
@@ -55,6 +62,7 @@ import torch.nn.functional as F
 
 from .. import fields, halo, shared, tools
 from ..ops.stencil import divisor
+from ..overlap import hide_communication, resolve_overlap
 from ..shared import GridError
 from ..timing import time_steps
 from ._dispatch import auto_dispatch, required_routes
@@ -132,18 +140,25 @@ def compute_step(P, Vx, Vy, *, dx, dy, dt, rho, K):
                          dx=dx, dy=dy, dt=dt, rho=rho, bulk=K)
 
 
-def local_step(P, Vx, Vy, *, dx, dy, dt, rho, K):
+def local_step(P, Vx, Vy, *, dx, dy, dt, rho, K, overlap: bool = False):
     """One step of the plain composition: the coupled update, then one halo
-    update of the three fields."""
-    return halo.update_halo_local(*compute_step(
-        P, Vx, Vy, dx=dx, dy=dy, dt=dt, rho=rho, K=K))
+    update of the three fields.  `overlap=True` restructures it with
+    :func:`igg_torch.overlap.hide_communication` (radius 2: the grid needs
+    overlap >= 3 along the exchanged dims)."""
+    kw = dict(dx=dx, dy=dy, dt=dt, rho=rho, K=K)
+    if overlap:
+        return hide_communication(
+            (P, Vx, Vy), lambda Pb, Vxb, Vyb: compute_step(Pb, Vxb, Vyb, **kw),
+            radius=2)
+    return halo.update_halo_local(*compute_step(P, Vx, Vy, **kw))
 
 
 def make_step(params: Params = Params(), *, use_kernels="auto",
-              verify=None):
+              overlap="auto", verify=None):
     """`(P, Vx, Vy) -> (P, Vx, Vy)` advancing one step (see
     :func:`make_multi_step`)."""
-    return make_multi_step(1, params, use_kernels=use_kernels, verify=verify)
+    return make_multi_step(1, params, use_kernels=use_kernels,
+                           overlap=overlap, verify=verify)
 
 
 def _kernel_path(use_kernels, P, Vx, Vy) -> bool:
@@ -166,18 +181,19 @@ def _kernel_path(use_kernels, P, Vx, Vy) -> bool:
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
                     use_kernels="auto", K: int = None, banded="auto",
-                    band: int = None, verify=None):
+                    band: int = None, overlap="auto", verify=None):
     """`(P, Vx, Vy) -> (P, Vx, Vy)` advancing `n_inner` steps; returns new
     tensors and leaves its inputs as they were.  `use_kernels` picks the
     path (module docstring); `K` is the chunk depth of the chunk route,
     which serves only where the chunk admits it (default: the largest of 8,
     4, 2 it admits, igg's `fit_wave2d_K`); `banded` and `band` the banded
-    tier (module docstring).
+    tier, `overlap` ("auto", True, False) the overlapped composition
+    (module docstring).
 
     The call runs through the family's tier ladder
     (:func:`igg_torch.models._dispatch.auto_dispatch`): `wave2d.chunk`,
-    `wave2d.banded`, `wave2d.cuda` (the per-step kernel) and
-    `wave2d.plain`.  `verify="first_use"` checks a kernel tier against the
+    `wave2d.banded`, `wave2d.cuda` (the per-step kernel), `wave2d.overlap`
+    (where `overlap` resolves True) and `wave2d.plain`.  `verify="first_use"` checks a kernel tier against the
     plain composition before it serves and raises where they disagree."""
     from ..ops.wave2d_pallas import BANDED_REQ
 
@@ -188,6 +204,8 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     if banded is True and use_kernels is False:
         raise GridError(f"{BANDED_REQ}; use_kernels=False pins the plain "
                         f"composition")
+    overlap = resolve_overlap(overlap, family="wave2d", radius=2, ndim=2,
+                              chunk_active=banded is True)
     kw = params.step_kwargs()
 
     def plan(P, Vx, Vy):
@@ -212,6 +230,14 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
             halo.update_halo(P, Vx, Vy, plain=True)
         return P, Vx, Vy
 
+    def slab_step(P, Vx, Vy):
+        return block_compute(P, Vx, Vy, shared.global_grid().dims[:2], **kw)
+
+    def overlapped(P, Vx, Vy):
+        for _ in range(n_inner):
+            P, Vx, Vy = hide_communication((P, Vx, Vy), slab_step, radius=2)
+        return P, Vx, Vy
+
     def kernels(route, P, Vx, Vy):
         from ..ops import wave2d_pallas
 
@@ -221,8 +247,8 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     return auto_dispatch(
         family="wave2d", plan=plan,
         routes={"chunk": kernels, "banded": kernels, "cuda": kernels},
-        plain=plain, required=required_routes(use_kernels, banded),
-        verify=verify)
+        plain=plain, overlap=overlapped if overlap else None,
+        required=required_routes(use_kernels, banded), verify=verify)
 
 
 def energy(P, Vx, Vy) -> float:

@@ -52,6 +52,31 @@ class _Context:
         g.barrier.wait()
         return fields[0] if len(fields) == 1 else fields
 
+    def exchange_grouped(self, sends, stales, dims, local_shapes, wraps):
+        """The collective of `hide_communication` on local blocks: every
+        block's send and stale planes (`{(d, side): plane}` per field) are
+        stacked, exchanged once (`halo.exchange_all_dims_grouped`), and
+        each block gets its own received planes back, `recv[d] = (first,
+        last)` per field."""
+        from .halo import exchange_all_dims_grouped
+        g = self.group
+        g.slots[self.rank] = (sends, stales)
+        if g.barrier.wait() == 0:
+            grid, ranks = g.grid, range(g.grid.nprocs)
+
+            def stacked(store, i):
+                return {k: _stack([g.slots[r][store][i][k] for r in ranks],
+                                  grid)
+                        for k in g.slots[0][store][i]}
+
+            nf = len(sends)
+            g.result = exchange_all_dims_grouped(
+                [stacked(0, i) for i in range(nf)], dims, grid, local_shapes,
+                [stacked(1, i) for i in range(nf)], wraps)
+        g.barrier.wait()
+        return [{d: tuple(_block(P, g.grid, self.coords) for P in pair)
+                 for d, pair in recv.items()} for recv in g.result]
+
 
 def _block_context() -> Optional[_Context]:
     return getattr(shared.block, "ctx", None)

@@ -23,11 +23,18 @@ Dispatch (`use_kernels`, the idiom of :mod:`igg_torch.models.wave2d`):
   `banded=True` raises igg's refusal and "auto" skips the route; on the
   CPU both ranks run its plain realization.
 
+The overlapped composition (`overlap`, "auto", True or False): where the
+plain composition serves a call and `overlap` resolves True
+(:func:`igg_torch.overlap.resolve_overlap`, admission from the analyzer's
+read-set radius, `max(analysis.halo_radius)`, with no per-spec code), the
+tier `<spec>.overlap` serves it: the update chain under
+:func:`igg_torch.overlap.hide_communication`, bitwise the plain
+composition.  The generated kernel routes ignore `overlap`.
+
 The call runs through the spec's tier ladder (`verify=`, igg's; no
 quarantine: a kernel tier that disagrees with the plain composition
-raises).  Not ported: `tune=`, the overlapped composition (`overlap=`)
-and the family registration with perf, autotune and integrity
-(`_register_family`).
+raises).  Not ported: `tune=` and the family registration with perf,
+autotune and integrity (`_register_family`).
 """
 
 from __future__ import annotations
@@ -35,8 +42,9 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 from .. import shared
+from ..overlap import hide_communication, resolve_overlap
 from ..shared import GridError
-from .analyze import admissible
+from .analyze import admissible, analyze
 from .spec import StencilSpec
 
 __all__ = ["compile"]
@@ -65,14 +73,15 @@ def _kernel_path(spec, cf, use_kernels, fields) -> bool:
 def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
             n_inner: int = 1, use_kernels="auto", chunk="auto",
             K: Optional[int] = None, banded="auto",
-            band: Optional[int] = None, verify=None):
+            band: Optional[int] = None, overlap="auto", verify=None):
     """`(*fields) -> (*fields)` advancing `n_inner` steps of the spec (new
     tensors; the inputs stay as they were).  `coeffs` binds the spec's
     scalar Params (declared defaults fill the rest); `use_kernels` picks
     the path (module docstring); `chunk` ("auto", True, False) and `K` the
     K-step chunk route, which serves only where the chunk admits it
     (default depth: the largest of 8, 4, 2 it admits); `banded` ("auto",
-    True, False), `K` and `band` the streaming banded route.  Needs an
+    True, False), `K` and `band` the streaming banded route; `overlap`
+    ("auto", True, False) the overlapped composition.  Needs an
     initialized grid: the analyzer's truth-level gate (boundary
     conditions, reads, read radius against the overlap) runs here and
     raises `GridError` with its reason.
@@ -80,7 +89,8 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
     The call runs through the spec's tier ladder
     (:func:`igg_torch.models._dispatch.auto_dispatch`, family `spec.name`):
     `<spec>.chunk`, `<spec>.banded`, `<spec>.cuda` (the generated per-step
-    kernel) and `<spec>.plain`.  `verify="first_use"` checks a kernel tier
+    kernel), `<spec>.overlap` (where `overlap` resolves True) and
+    `<spec>.plain`.  `verify="first_use"` checks a kernel tier
     against the plain composition before it serves and raises where they
     disagree."""
     from ..models._dispatch import auto_dispatch, required_routes
@@ -109,6 +119,11 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
     cf = spec.coeffs(coeffs)
     local = lower.local_step_fn(spec, cf, plain=True)
     nf = len(spec.fields)
+    halo_radius = analyze(spec).halo_radius
+    radius = max(halo_radius) if halo_radius else 1
+    overlap = resolve_overlap(overlap, family=spec.name, radius=radius,
+                              ndim=spec.ndim,
+                              chunk_active=chunk is True or banded is True)
 
     def check(fields):
         if len(fields) != nf:
@@ -135,6 +150,15 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
             fields = local(*fields)
         return tuple(fields)
 
+    def updates(*fields):
+        return lower.apply_updates(spec, fields, cf)
+
+    def overlapped(*fields):
+        check(fields)
+        for _ in range(n_inner):
+            fields = hide_communication(tuple(fields), updates, radius=radius)
+        return tuple(fields)
+
     def kernels(route, *fields):
         return lower.fused_spec_steps(kernels_for(spec, cf), fields,
                                       n_inner=n_inner, route=route)
@@ -142,5 +166,5 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
     return auto_dispatch(
         family=spec.name, plan=plan,
         routes={"chunk": kernels, "banded": kernels, "cuda": kernels},
-        plain=plain, required=required_routes(use_kernels, banded, chunk),
-        verify=verify)
+        plain=plain, overlap=overlapped if overlap else None,
+        required=required_routes(use_kernels, banded, chunk), verify=verify)

@@ -291,6 +291,8 @@ _BUILTIN_HELP: Dict[str, str] = {
     "igg_halo_plane_bytes_total": "Halo plane bytes moved by "
                                   "update_halo (per dim and wire/local "
                                   "mode when labelled).",
+    "igg_hide_communication_traces_total": "hide_communication overlap "
+                                           "schedules traced.",
     "igg_tier_dispatch_total": "Dispatches served per (family, tier) by "
                                "the degradation ladder.",
     "igg_tier_quarantined_total": "Kernel tiers quarantined by the "

@@ -48,7 +48,12 @@ refused, and the background worker's frames bitwise the synchronous ones;
 and phase 23's resilient loop at the same blocks: a NaN rollback under the
 background writer and a preemption with its resume bitwise the
 uninterrupted run, the watchdog probe's counts equal the CPU's, a
-recurring kernel blowup raises naming its tier.
+recurring kernel blowup raises naming its tier; and the overlapped plain
+routes (`hide_communication` on its side stream, diffusion and Stokes at
+2x2x2 open blocks of 32^3, f32 and f64) bitwise their sequential
+composition with as many sync warnings, twenty overlapped calls whose
+results are dropped at once equal to twenty whose results are kept, and
+an in-place `compute` refused.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1429,3 +1434,106 @@ def test_resilient_recurrence_raises_on_the_card(card, tmp_path):
     assert kinds.count("nan_detected") == 2 and "rollback" in kinds
     assert degrade.status() == {}
     assert degrade.active()["diffusion3d"] == "diffusion3d.cuda"
+
+
+# -- comm/compute overlap on the card ---------------------------------------
+
+def _overlap_family(card, family, dtype):
+    """2x2x2 open blocks (diffusion 32^3, Stokes 32^3 at overlap 3): the
+    family's state and its factory `make(overlap)` on the plain routes."""
+    from igg_torch.models import diffusion3d as t3
+    from igg_torch.models import stokes3d as st3
+
+    if family == "stokes3d":
+        it.init_global_grid(32, 32, 32, dimx=2, dimy=2, dimz=2, overlapx=3,
+                            overlapy=3, overlapz=3, device=card, quiet=True)
+        p = st3.Params()
+        S = it.update_halo(*st3.init_fields(p, dtype=dtype))
+        return S, lambda ov: st3.make_iteration(p, n_inner=3,
+                                                use_kernels=False, overlap=ov)
+    it.init_global_grid(32, 32, 32, dimx=2, dimy=2, dimz=2, device=card,
+                        quiet=True)
+    p = t3.Params()
+    return t3.init_fields(p, dtype=dtype), \
+        lambda ov: t3.make_multi_step(3, p, use_kernels=False, overlap=ov)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("family", ["diffusion3d", "stokes3d"])
+def test_overlap_side_stream_bitwise_sequential(card, family, dtype):
+    """The side-stream schedule equals the sequential composition bitwise,
+    is served by `<family>.overlap`, assembles through the halo writer and
+    takes the open grid's y/z planes through the packer, with as many sync
+    warnings as the sequential calls (none expected)."""
+    import warnings
+
+    from igg_torch import degrade, overlap
+
+    S, make = _overlap_family(card, family, dtype)
+    seq, ovl = make(False), make(True)
+    w0, p0 = hw.halo_write.launches, pk.pack_planes.launches
+    got = ovl(*S)
+    assert degrade.active()[family] == f"{family}.overlap"
+    assert hw.halo_write.launches > w0 and pk.pack_planes.launches > p0
+    assert overlap._SIDE           # the side stream was made
+    want = seq(*S)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    counts = {}
+    for ov, fn in ((False, seq), (True, ovl)):
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                for _ in range(3):
+                    fn(*S)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts[ov] = [f"{w.filename}:{w.lineno}: {str(w.message)[:160]}"
+                      for w in caught if "called a synchronizing CUDA "
+                      "operation" in str(w.message)]
+    assert len(counts[True]) == len(counts[False]), counts
+
+
+def test_overlap_results_dropped_at_once(card):
+    """Twenty chained overlapped calls whose results are dropped at once
+    (each copied into a preallocated store, then freed) equal twenty whose
+    results are kept: the received planes' memory is not reused while the
+    halo writer reads it."""
+    S, make = _overlap_family(card, "diffusion3d", torch.float32)
+    T, Cp = S
+    step = make(True)
+    kept, X = [], T
+    for _ in range(20):
+        X = step(X, Cp)
+        kept.append(X)
+    store = torch.empty((20,) + tuple(T.shape), dtype=T.dtype, device=card)
+    X = T
+    for i in range(20):
+        r = step(X, Cp)
+        store[i].copy_(r)
+        del r
+        X = store[i]
+    torch.cuda.synchronize()
+    for i in range(20):
+        torch.testing.assert_close(store[i], kept[i], rtol=0, atol=0)
+
+
+def test_overlap_in_place_compute_raises_on_the_card(card):
+    it.init_global_grid(16, 16, 16, dimx=2, dimy=2, dimz=2, device=card,
+                        quiet=True)
+    A = torch.rand(32, 32, 32, device=card)
+    A0 = A.clone()
+
+    def in_place(B):
+        B.mul_(2.0)
+        return B
+
+    with pytest.raises(it.GridError, match="in place"):
+        it.hide_communication(A, in_place)
+    torch.cuda.synchronize()
+    # Refused after the full compute, before any slab work is enqueued.
+    torch.testing.assert_close(A, 2.0 * A0, rtol=0, atol=0)
