@@ -194,6 +194,25 @@ the script exits non-zero without printing a result:
    admission log holds igg's "single-device mesh" reason and
    `diffusion3d.plain` serves.  Every number beside the card's name and
    power limit.
+25. The perf ledger and the autotuner (`igg_torch.perf`,
+   `igg_torch.autotune`), with the ledger and the tuning cache in a
+   temporary directory, last so no earlier phase sees a winner: (a)
+   `autotune.search(n_inner=17)` on phase 6's 510^3 grid, phase 12's
+   256^3 periodic Stokes block, phase 15's shallow-water grid and phase
+   10's 4096^2 wave2d block, every candidate's label, quick sample,
+   slope-timed ms/step and cutoff logged, and the winner; (b) the cache
+   saved, `reset()`, loaded: each factory built with `tune="auto"` serves
+   the winner's tier with no search dispatch, bitwise the factory pinned
+   to the winner with `tune=False`, and `tune=False` serves today's rule;
+   (c) `perf.best` of each family, `igg_achieved_gbps` and
+   `igg_pct_hbm_peak` of each non-chunk winner (above 100% fails), the
+   Stokes winner and today's rule timed again from the state after 1100
+   iterations (the search times from the state at rest), one
+   `cost_model_drift` from a second `calibrate` under
+   `chaos.stale_calibration` at ten times the first one's measurement,
+   and a 20-window `run_resilient` over
+   phase 6's chunk route whose windows the ledger credits to
+   `diffusion3d.cuda`, with no more sync warnings than with `IGG_PERF=0`.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -4616,8 +4635,335 @@ class Smoke:
                 if not left:
                     raise
 
+    # -- phase 25: the perf ledger and the autotuner ---------------------
+    def tune_cases(self):
+        """Phase 25's four grids: (tag, family, grid kwargs, fields,
+        factory(**knobs) at n_inner=steps_multi, today's tier)."""
+        it, t3, st3, w2, sw = self.it, self.t3, self.st3, self.w2, self.sw
+        n, ns, nw, steps = (self.n_multi, self.n_stokes, self.n_wave,
+                            self.steps_multi)
+        pd, ps, pw, pq = t3.Params(), st3.Params(), w2.Params(), sw.Params()
+        return [
+            (f"diffusion 510^3 open (2x2x2 x {n}^3)", "diffusion3d",
+             ((n, n, n), dict(dimx=2, dimy=2, dimz=2)),
+             lambda: t3.init_fields(pd),
+             lambda **kw: (lambda f: lambda T, Cp: (f(T, Cp), Cp))(
+                 t3.make_multi_step(steps, pd, **kw)),
+             "diffusion3d.cuda"),
+            (f"Stokes {ns}^3 periodic", "stokes3d",
+             ((ns, ns, ns), dict(**SINGLE, **PERIODIC, **OL3)),
+             lambda: it.update_halo(*st3.init_fields(ps)),
+             lambda **kw: (lambda f: lambda P, Vx, Vy, Vz, Rho: f(
+                 P, Vx, Vy, Vz, Rho) + (Rho,))(
+                 st3.make_iteration(ps, n_inner=steps, **kw)),
+             "stokes3d.trapezoid"),
+            (f"shallow water config 3 ({self.wave_blocks}x1 x {nw}^2, x "
+             f"periodic)", "shallow_water",
+             ((nw, nw, 1), dict(dimx=self.wave_blocks, dimy=1, dimz=1,
+                                periodx=1)),
+             lambda: it.update_halo(*sw.init_fields(pq)),
+             lambda **kw: self.sw_pinned(pq, steps, **kw), "shallow_water.chunk"),
+            (f"wave2d {nw}^2 periodic", "wave2d",
+             ((nw, nw, 1), dict(**SINGLE, periodx=1, periody=1)),
+             lambda: it.update_halo(*w2.init_fields(pw)),
+             lambda **kw: w2.make_multi_step(steps, pw, **kw), "wave2d.chunk"),
+        ]
+
+    def sw_pinned(self, p, steps, **kw):
+        """Shallow water's factory (`stencil.compile` of its spec) with the
+        knobs the autotuner pins."""
+        from igg_torch import stencil
+
+        return stencil.compile(self.sw.spec(p), coeffs=p.coeffs(),
+                               n_inner=steps, **kw)
+
+    def tune_relaxed(self, tag, S, tuned, rule, w, today):
+        """Phase 25 (c), Stokes: the search times its candidates from the
+        state at rest (`init_fields`), where the Stokes division meets
+        tiny dividends; the winner and today's rule timed again from the
+        state after 1100 iterations (phase 12's timed span), in turns."""
+        it, steps = self.it, self.steps_multi
+        X = tuple(a.clone() for a in S)
+        for _ in range(-(-1100 // steps)):
+            X = tuned(*X)
+        ms = {}
+        for name, fn in (("winner", tuned), ("today", rule),
+                         ("winner", tuned), ("today", rule)):
+            _, sec = it.time_steps(fn, tuple(a.clone() for a in X), n1=2,
+                                   n2=6, warmup=1)
+            ms.setdefault(name, []).append(sec * 1e3 / steps)
+        log(f"[phase 25] (c) {tag}: from the state after 1100 iterations, "
+            f"{w['tier']} {fmt_list(ms['winner'])} ms/iteration, "
+            f"{today} {fmt_list(ms['today'])} (in turns) [{self.card}]")
+        return ms
+
+    def tune_phase(self):
+        """Phase 25: the perf ledger and the autotuner, with the ledger and
+        the tuning cache in a temporary directory.  (a) `autotune.search`
+        at n_inner = steps_multi on phase 6's, 12's, 15's and 10's grids,
+        every candidate logged; (b) the cache saved, `reset()`, loaded,
+        and each factory built with `tune="auto"`: no search dispatch, the
+        winner's tier served, one call bitwise the factory pinned to the
+        winner with `tune=False`, and `tune=False` serving today's rule;
+        (c) `perf.best` of each family, the roofline gauges of each
+        non-chunk winner (at most 100% of the card's peak), one
+        `cost_model_drift` from `calibrate` under `stale_calibration`, and
+        a 20-window `run_resilient` over phase 6's chunk route whose
+        windows the ledger credits to the serving tier, with no sync
+        warning beyond the same run with `IGG_PERF=0`.  `perf.reset()` and
+        `autotune.reset()` at the end, so nothing later sees a winner."""
+        import shutil
+        import tempfile
+        import warnings
+
+        from igg_torch import autotune, chaos, degrade, perf
+        from igg_torch import telemetry as tel
+
+        it, t3 = self.it, self.t3
+        steps = self.steps_multi
+        tmp = tempfile.mkdtemp(prefix="igg_tune_")
+        saved = {k: os.environ.get(k) for k in ("IGG_PERF_LEDGER",
+                                                "IGG_TUNE_CACHE", "IGG_PERF")}
+        os.environ["IGG_PERF_LEDGER"] = os.path.join(tmp, "ledger.json")
+        os.environ["IGG_TUNE_CACHE"] = os.path.join(tmp, "tune.json")
+        os.environ.pop("IGG_PERF", None)
+        perf.reset()
+        autotune.reset()
+        out = {"search": {}, "served": {}, "gauges": {}}
+        t_phase = time.perf_counter()
+        try:
+            cases = self.tune_cases()
+            winners = {}
+            # (a) The search on each grid.
+            for tag, fam, (n, kw), fields, make, today in cases:
+                self.grid(n, **kw)
+                if fam == "shallow_water":
+                    make()      # registers the spec's family
+                tel._ring().clear()
+                t0 = time.perf_counter()
+                w = autotune.search(fam, n_inner=steps)
+                secs = time.perf_counter() - t0
+                recs = [r for r in tel.flight_recorder() if r.kind in (
+                    "autotune_sample", "autotune_candidate_failed",
+                    "overlap_demoted")]
+                failed = [r.payload for r in recs
+                          if r.kind == "autotune_candidate_failed"]
+                if failed or w is None:
+                    raise SmokeFailure(f"[phase 25] {tag}: search failed: "
+                                       f"{failed}")
+                rows = []
+                for r in recs:
+                    p = r.payload
+                    if r.kind == "autotune_sample":
+                        rows.append(dict(candidate=p["candidate"],
+                                         quick_ms=p["quick_ms_per_step"],
+                                         ms=p["ms_per_step"],
+                                         cutoff=p["cutoff"]))
+                        log(f"[phase 25] (a) {tag}: {p['candidate']} quick "
+                            f"{p['quick_ms_per_step']:.4f}, slope "
+                            f"{p['ms_per_step']:.4f} ms/step"
+                            f"{' (cut off)' if p['cutoff'] else ''}")
+                    else:
+                        log(f"[phase 25] (a) {tag}: overlap_demoted "
+                            f"{json.dumps(p)}")
+                label = autotune._cand_label(w)
+                log(f"[phase 25] (a) {tag}: winner {label} at "
+                    f"{w['ms']:.4f} ms/step (today's rule serves {today}); "
+                    f"search {secs:.1f} s, {autotune.search_dispatches()} "
+                    f"search dispatches so far [{self.card}]")
+                winners[fam] = w
+                out["search"][fam] = dict(candidates=rows, winner=label,
+                                          winner_ms=w["ms"], seconds=secs,
+                                          today=today)
+            # (b) Serve from the loaded cache.
+            if autotune.save() is None:
+                raise SmokeFailure("[phase 25] (b) the cache was not saved")
+            autotune.reset()
+            n_loaded = autotune.load()
+            if n_loaded != len(cases):
+                raise SmokeFailure(f"[phase 25] (b) {n_loaded} cache entries "
+                                   f"loaded, expected {len(cases)}")
+            for tag, fam, (n, kw), fields, make, today in cases:
+                self.grid(n, **kw)
+                S = fields()
+                tuned = make(tune="auto")
+                got = tuned(*(a.clone() for a in S))
+                if autotune.search_dispatches() != 0:
+                    raise SmokeFailure(f"[phase 25] (b) {tag}: "
+                                       f"{autotune.search_dispatches()} "
+                                       f"search dispatches from the cache")
+                w = winners[fam]
+                served = degrade.active()[fam]
+                if served != w["tier"]:
+                    raise SmokeFailure(f"[phase 25] (b) {tag}: {served} "
+                                       f"served, the winner is {w['tier']}")
+                want = make(**autotune._knobs(fam, w))(
+                    *(a.clone() for a in S))
+                torch.cuda.synchronize()
+                err = max(check(f"{tag}: tuned vs pinned {k}", a, b, 0.0)
+                          for k, (a, b) in enumerate(zip(got, want)))
+                make(tune=False)(*(a.clone() for a in S))
+                rule = degrade.active()[fam]
+                if rule != today:
+                    raise SmokeFailure(f"[phase 25] (b) {tag}: tune=False "
+                                       f"served {rule}, today's rule {today}")
+                log(f"[phase 25] (b) {tag}: tune='auto' from the loaded "
+                    f"cache served {served} with 0 search dispatches, "
+                    f"bitwise the factory pinned to {autotune._cand_label(w)} "
+                    f"(max abs err {err:.1e}); tune=False served {rule}")
+                out["served"][fam] = dict(tier=served, today=rule)
+                # (c) The gauges of a non-chunk winner: one slope-timed
+                # sample of the served factory, per step, sets them.
+                if perf.bytes_per_step(fam, w["tier"], (1,),
+                                       "float32") is not None:
+                    tel.reset_metrics()
+                    _, sec = it.time_steps(tuned, tuple(a.clone() for a in S),
+                                           n1=2, n2=6, warmup=1)
+                    ctx = autotune._context(fam)     # the search's key
+                    perf.record(fam, w["tier"], sec * 1e3 / steps,
+                                source="calibrate",
+                                local_shape=ctx["local_shape"],
+                                dtype="float32", dims=ctx["dims"],
+                                backend=ctx["backend"],
+                                device_kind=ctx["device_kind"])
+                    snap = tel.snapshot()
+                    lab = f'{{family="{fam}",tier="{w["tier"]}"}}'
+                    gbps = snap[f"igg_achieved_gbps{lab}"]["value"]
+                    pct = snap.get(f"igg_pct_hbm_peak{lab}", {}).get("value")
+                    log(f"[phase 25] (c) {tag}: {w['tier']} at "
+                        f"{sec * 1e3 / steps:.4f} ms/step: igg_achieved_gbps "
+                        f"{gbps:.1f} GB/s, igg_pct_hbm_peak {pct} % "
+                        f"[{self.card}]")
+                    if pct is None and self.dev.type != "cuda":
+                        pct = 0.0    # a CPU has no peak (the rehearsal)
+                    elif pct is None or not 0 < pct <= 100:
+                        raise SmokeFailure(f"[phase 25] (c) {tag}: "
+                                           f"{pct:.2f}% of the card's peak")
+                    out["gauges"][fam] = dict(gbps=gbps, pct=pct)
+                if fam == "stokes3d":
+                    out["stokes_relaxed"] = self.tune_relaxed(
+                        tag, S, tuned, make(tune=False), w, today)
+                del S, got, want
+            # (c) The ledger's best entry of each family.
+            for fam in winners:
+                b = perf.best(fam, backend=self.dev.type)
+                log(f"[phase 25] (c) perf.best({fam!r}): {b['tier']} "
+                    f"{'x'.join(map(str, b['local_shape']))} best "
+                    f"{b['best_ms']:.4f} ms, {b['count']} samples "
+                    f"{b['sources']}")
+            # (c) Stale calibration: `calibrate` measures the family's
+            # default step (one step a call), then, under a prediction ten
+            # times that, one more `calibrate` emits one cost_model_drift.
+            tag, fam, (n, kw), *_ = cases[0]
+            self.grid(n, **kw)
+            true_s = perf.calibrate(fam, nt=2)
+            tel._ring().clear()
+            with chaos.stale_calibration(fam, 10 * true_s):
+                perf.calibrate(fam, nt=2)
+            drifts = [r.payload for r in tel.flight_recorder()
+                      if r.kind == "cost_model_drift"]
+            if len(drifts) != 1:
+                raise SmokeFailure(f"[phase 25] (c) {len(drifts)} "
+                                   f"cost_model_drift events: {drifts}")
+            log(f"[phase 25] (c) calibrate({fam!r}) {true_s * 1e3:.4f} ms "
+                f"a call, then stale_calibration({fam!r}, 10 x that) and "
+                f"calibrate: one "
+                f"cost_model_drift ({drifts[0]['tier']}, rel_error "
+                f"{drifts[0]['rel_error']:+.3f}, tol {drifts[0]['tol']})")
+            out["drift"] = drifts[0]
+            # (c) run_resilient over phase 6's chunk route, 20 windows,
+            # with and without the ledger.
+            T, Cp = t3.init_fields(t3.Params())
+            step = t3.make_multi_step(steps, t3.Params(), tune=False)
+
+            def fn(s):
+                return {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}
+
+            def resilient(windows):
+                torch.cuda.synchronize()
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        it.run_resilient(fn, {"T": T, "Cp": Cp},
+                                         windows * steps,
+                                         steps_per_call=steps,
+                                         watch_every=steps,
+                                         install_sigterm=False)
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                return [f"{os.path.basename(w.filename)}:{w.lineno}"
+                        for w in caught if "called a synchronizing CUDA "
+                        "operation" in str(w.message)]
+
+            def watchdog_samples():
+                e = perf.best("diffusion3d", tier="diffusion3d.cuda",
+                              local_shape=(self.n_multi,) * 3,
+                              backend=self.dev.type)
+                return e["sources"].get("watchdog", 0) if e else 0
+
+            windows = 20
+            resilient(2)
+            before = watchdog_samples()
+            tel._ring().clear()
+            on = resilient(windows)
+            credited = watchdog_samples() - before
+            # The windows the ledger must credit: each `step_stats` window
+            # (a rate between two fetches) in which a step was dispatched
+            # since the window before it.  The first fetch only anchors,
+            # probes drained back to back give no rate, and a drained
+            # probe after the last dispatch has no tier to credit: at most
+            # 1 + max_pending_probes (4) windows go uncredited.
+            rated = [r.step + r.payload["fetch_lag_steps"]
+                     for r in tel.flight_recorder() if r.kind == "step_stats"]
+            due = sum(1 for i, cur in enumerate(rated)
+                      if i == 0 or cur > rated[i - 1])
+            os.environ["IGG_PERF"] = "0"
+            try:
+                off = resilient(windows)
+            finally:
+                os.environ.pop("IGG_PERF")
+            if (credited != due or credited < windows - 5
+                    or degrade.active()["diffusion3d"] != "diffusion3d.cuda"):
+                raise SmokeFailure(
+                    f"[phase 25] (c) run_resilient: {credited} of {windows} "
+                    f"windows credited to diffusion3d.cuda, {due} due "
+                    f"({len(rated)} rated windows)")
+            if len(on) > len(off):
+                raise SmokeFailure(f"[phase 25] (c) sync warnings with the "
+                                   f"ledger {on}, without {off}")
+            log(f"[phase 25] (c) run_resilient, {windows} windows of {steps} "
+                f"steps over phase 6's chunk route: {credited} windows "
+                f"credited to diffusion3d.cuda (source watchdog), all "
+                f"{due} due; skipped {windows - len(rated)} with no rate "
+                f"(the first fetch anchors, drained fetches under 0.1 ms "
+                f"apart) and {len(rated) - due} drained after the last "
+                f"dispatch; sync warnings {len(on)} with the ledger, "
+                f"{len(off)} with IGG_PERF=0")
+            out["resilient"] = dict(windows=windows, rated=len(rated),
+                                    due=due, credited=credited,
+                                    sync_on=len(on), sync_off=len(off))
+            del T, Cp
+            perf.save()
+            ledger = perf._read_ledger_file(os.environ["IGG_PERF_LEDGER"])
+            out["ledger_entries"] = len(ledger)
+        finally:
+            perf.reset()
+            autotune.reset()
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            shutil.rmtree(tmp, ignore_errors=True)
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"[phase 25] done in {out['seconds']:.1f} s; the ledger file held "
+            f"{out['ledger_entries']} entries [{self.card}]")
+        self.perf["autotune"] = out
+
     def main_path(self):
-        """Phases 2 to 24, each with the launch counters set to 0 just
+        """Phases 2 to 25, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -4640,7 +4986,7 @@ class Smoke:
             ("19", lambda: self.stokes_banded(19, one_block=False)),
             ("20", self.relax3d_banded), ("21", self.observability),
             ("22", self.checkpoint_phase), ("23", self.resilience_phase),
-            ("24", self.overlap_phase)]
+            ("24", self.overlap_phase), ("25", self.tune_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

@@ -20,7 +20,10 @@ with its background writer, rollback, demotion on CPU tensors,
 preemption and resume), `chaos` (its deterministic fault injectors) and
 `overlap` (`hide_communication`: the boundary slabs and their exchange on
 a side CUDA stream beside the full-domain compute, and the factories'
-`overlap=` admission).
+`overlap=` admission), `perf` (the perf ledger of measured step times,
+its roofline and drift gauges, the regression gate) and `autotune` (the
+measured route search and its tuning cache behind every factory's
+`tune=`).
 Grid arrays are block-stacked tensors on one device; entry points use the
 card unless the caller passes `device="cpu"`.  Imports neither JAX nor
 `igg`.
@@ -35,8 +38,8 @@ from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import (chaos, checkpoint, degrade, overlap, profiling, resilience,
-               stencil, telemetry, vis)
+from . import (autotune, chaos, checkpoint, degrade, overlap, perf,
+               profiling, resilience, stencil, telemetry, vis)
 from .overlap import hide_communication
 from .resilience import ResilienceError, RunResult, run_resilient
 from .telemetry import Telemetry
@@ -52,7 +55,8 @@ from .tools import (barrier, coord_fields, nx_g, ny_g, nz_g, spacing, tic, toc,
 
 __all__ = [
     "NDIMS", "PROC_NULL", "GlobalGrid", "GridError", "ResilienceError",
-    "RunResult", "Telemetry", "barrier", "chaos", "check_initialized",
+    "RunResult", "Telemetry", "autotune", "barrier", "chaos",
+    "check_initialized",
     "checkpoint", "coord_fields", "degrade",
     "finalize_global_grid", "from_local_blocks", "full", "gather",
     "gather_interior", "get_global_grid", "global_grid", "grid_epoch",
@@ -60,7 +64,8 @@ __all__ = [
     "init_global_grid",
     "latest_checkpoint", "load_checkpoint", "local_block", "local_blocks",
     "local_coords", "me", "memory_stats", "neighbor", "neighbors", "nx_g",
-    "ny_g", "nz_g", "ol", "ones", "overlap", "profiling", "resilience",
+    "ny_g", "nz_g", "ol", "ones", "overlap", "perf", "profiling",
+    "resilience",
     "run_resilient", "save_checkpoint",
     "save_checkpoint_sharded", "select_device", "sharded", "spacing",
     "stacked_shape", "stencil", "telemetry", "tic", "time_steps", "toc",

@@ -29,11 +29,14 @@ one-shot, so a rolled-back replay passes the same step clean:
   the build of a named tier raises `InjectedCompileError`, or every
   dispatch of the tier perturbs one interior output element (a
   deterministic miscompile, which rollback cannot heal).
+- :func:`stale_calibration`: a wrong cost-model prediction for a family
+  in the perf ledger (`igg_torch.perf.predict`), so the next measured
+  sample fires ``cost_model_drift``.
 
 Every injector is a context manager that disarms on the way out, also
 when the body raises; :func:`armed` composes several.  Not ported yet
 (ROADMAP Queue A): `collective_stall` and `straggler` (item 5),
-`stale_calibration` (item 4), `silent_corruption` (item 7),
+`silent_corruption` (item 7),
 `throughput_collapse`, `scheduler_fault` and `job_preempt_at` (item 6),
 `arrival_storm` and `malformed_submission` (item 8), and ChaosPlan's
 member-targeted `nan_at` entries (item 6, ensembles).
@@ -54,7 +57,8 @@ from .shared import GridError
 
 __all__ = ["ChaosPlan", "corrupt_checkpoint", "poison_checkpoint",
            "halo_corruption", "HaloCorruption", "kernel_compile_fail",
-           "kernel_corrupt", "KernelChaos", "armed"]
+           "kernel_corrupt", "KernelChaos", "stale_calibration",
+           "StaleCalibration", "armed"]
 
 
 class ChaosPlan:
@@ -418,6 +422,53 @@ def kernel_corrupt(tier: str, magnitude: float = float("nan")) \
     not heal on rollback: on CPU tensors `run_resilient` demotes the tier,
     on the card it raises naming it."""
     return KernelChaos("corrupt", tier, magnitude)
+
+
+class StaleCalibration:
+    """Armed stale-calibration injection (see :func:`stale_calibration`):
+    `arm()` registers a wrong cost-model prediction for a family, and
+    `disarm()` restores the one before it, unless a recalibration has
+    replaced the injection since."""
+
+    def __init__(self, family: str, s_per_step: float):
+        self._family = family
+        self._s = float(s_per_step)
+        self._prev = None
+
+    def arm(self) -> "StaleCalibration":
+        from . import perf
+
+        with perf._lock:
+            self._prev = perf._PREDICTIONS.get(self._family)
+        perf.predict(self._family, self._s, source="chaos")
+        return self
+
+    def disarm(self) -> None:
+        from . import perf
+
+        with perf._lock:
+            cur = perf._PREDICTIONS.get(self._family)
+            if cur is None or cur.get("source") != "chaos":
+                return   # a recalibration replaced the injection: keep it
+            if self._prev is None:
+                perf._PREDICTIONS.pop(self._family, None)
+            else:
+                perf._PREDICTIONS[self._family] = self._prev
+
+    def __enter__(self) -> "StaleCalibration":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+
+def stale_calibration(family: str, s_per_step: float) -> StaleCalibration:
+    """Context manager installing a wrong cost-model prediction for
+    `family` (say ten times the true seconds per step): the next measured
+    sample of the family is past ``IGG_PERF_DRIFT_TOL`` and fires
+    ``cost_model_drift`` once per (family, tier), the trigger of igg's
+    drift -> recalibrate loop."""
+    return StaleCalibration(family, s_per_step)
 
 
 @contextlib.contextmanager

@@ -44,7 +44,12 @@ serves.
   `igg_tier_dispatch_total{family,tier}` counts dispatches.
   :func:`reset` clears this state (`finalize_global_grid` does);
   :func:`dispatch_stamp` is the monotone dispatch counter that scopes a
-  run's demotion to the families it dispatched.
+  run's demotion to the families it dispatched (and the perf ledger's
+  window attribution, `igg_torch.perf.observe_window`).
+
+- **Perf samples.**  A tier that passes verification gets one more warm
+  dispatch on clones, timed (CUDA events on the card) into the perf
+  ledger (`igg_torch.perf`, source ``verify_first_use``).
 """
 
 from __future__ import annotations
@@ -472,6 +477,44 @@ class Ladder:
                 f"does not fall back to {truth.name}).")
         with _lock:
             _VERIFIED.add((t.name, sig))
+        self._perf_sample(t, fn, scratch)
+
+    def _perf_sample(self, t: Tier, fn: Callable, scratch) -> None:
+        """One warm timed dispatch of a tier that just passed its check,
+        recorded in the perf ledger (source ``verify_first_use``; ms per
+        dispatch): CUDA events on the card, the host clock on the CPU.  It
+        runs inside the one-time verification, which has already
+        synchronized, so an unverified dispatch gains no synchronization.
+        Bookkeeping only: never fails the verified dispatch."""
+        import time
+
+        import torch
+
+        from . import perf as _perf
+
+        if not _perf.enabled():
+            return
+        try:
+            args = scratch()
+            if _on_card(args):
+                ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"]
+                ev[0].record()
+                self._call(t, fn, args)
+                ev[1].record()
+                ev[1].synchronize()
+                ms = ev[0].elapsed_time(ev[1])
+            else:
+                t0 = time.perf_counter()
+                self._call(t, fn, args)
+                ms = (time.perf_counter() - t0) * 1e3
+            ctx = _perf.sample_context(args[0] if args else None)
+            _perf.record(self.family, t.name, ms, source="verify_first_use",
+                         local_shape=ctx.get("local_shape", ()),
+                         dtype=ctx.get("dtype", "-"), dims=ctx.get("dims"),
+                         backend=ctx.get("backend"),
+                         device_kind=ctx.get("device_kind"))
+        except Exception:   # bookkeeping never fails a verified dispatch
+            pass
 
     def _record_active(self, t: Tier, args: tuple) -> None:
         global _DISPATCHES

@@ -46,6 +46,16 @@ step runs on the caller's stream, and the halo writer assembles the two
 (:func:`igg_torch.overlap.hide_communication`, radius 1), bitwise the plain
 composition.  The kernel routes ignore `overlap`: their send planes are
 already slab-computed.
+
+`tune` ("auto", True, False; None: the `IGG_TUNE` knob) applies the
+autotuner's cached winner for the grid's signature
+(:func:`igg_torch.models._dispatch.apply_tuned`, igg's rules): its `bx`,
+`K` and `band` fill what the caller left unset, its tier pins the route
+where the caller left the knobs at "auto", and its `overlap` resolves
+`overlap="auto"`; True searches on a miss (:mod:`igg_torch.autotune`).
+`bx` is the chunk route's depth on several blocks (default 8 where it
+divides the block's x extent, :func:`igg_torch.ops.chunk_engine.
+default_K`).
 """
 
 from __future__ import annotations
@@ -61,7 +71,8 @@ from ..overlap import hide_communication, resolve_overlap
 from ..ops import diffusion_trapezoid as dtz
 from ..shared import GridError
 from ..timing import time_steps
-from ._dispatch import auto_dispatch, band_config, required_routes
+from ._dispatch import (apply_tuned, auto_dispatch, band_config,
+                        required_routes)
 
 _BANDED_REQ = ("banded=True needs the fused kernels (use_kernels 'auto' or "
                "True, on a grid they serve) and an admissible banded config "
@@ -131,10 +142,10 @@ def local_step(T, Cp, *, dx, dy, dz, dt, lam, overlap: bool = False):
 
 
 def make_step(params: Params = Params(), *, use_kernels="auto",
-              overlap="auto", verify=None):
+              overlap="auto", verify=None, tune=None):
     """`(T, Cp) -> T` advancing one step (see :func:`make_multi_step`)."""
     return make_multi_step(1, params, use_kernels=use_kernels,
-                           overlap=overlap, verify=verify)
+                           overlap=overlap, verify=verify, tune=tune)
 
 
 def _kernel_path(use_kernels, T) -> bool:
@@ -154,11 +165,13 @@ def _kernel_path(use_kernels, T) -> bool:
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
                     use_kernels="auto", banded="auto", K: int = None,
-                    band: int = None, overlap="auto", verify=None):
+                    band: int = None, bx: int = None, overlap="auto",
+                    verify=None, tune=None):
     """`(T, Cp) -> T` advancing `n_inner` steps; returns a new tensor and
     leaves `T` as it was.  `use_kernels` picks the path, `banded`, `K` and
-    `band` the banded tier, `overlap` ("auto", True, False) the overlapped
-    composition (module docstring).  The returned function keeps `A =
+    `band` the banded tier, `bx` the chunk route's depth, `overlap`
+    ("auto", True, False) the overlapped composition, `tune` the
+    autotuner's cached winner (module docstring).  The returned function keeps `A =
     dt*lam/Cp` of the last `Cp` it was given.
 
     The call runs through the family's tier ladder
@@ -176,8 +189,14 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     if banded is True and use_kernels is False:
         raise GridError(f"{_BANDED_REQ}; use_kernels=False pins the plain "
                         f"composition")
-    overlap = resolve_overlap(overlap, family="diffusion3d", radius=1,
-                              chunk_active=banded is True)
+    (K, K_cached, band, band_cached, _, banded, use_kernels,
+     tuned) = apply_tuned("diffusion3d", tune, n_inner=n_inner, K=K,
+                          chunk_knob="auto", use_kernels=use_kernels,
+                          band=band, banded_knob=banded, params=params)
+    if bx is None and tuned and tuned.get("bx"):
+        bx = int(tuned["bx"])
+    overlap = resolve_overlap(overlap, family="diffusion3d", tuned=tuned,
+                              radius=1, chunk_active=banded is True)
     dx, dy, dz = params.spacing()
     dt = params.timestep()
     lam = params.lam
@@ -202,17 +221,18 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
                                 f"serves this field")
             return "plain", None
         local = grid.local_shape(T)
-        bx = chunk_engine.default_K(grid.nxyz[0])
+        depth = bx or chunk_engine.default_K(grid.nxyz[0])
         kb = band_config(
             banded, K, band, n_inner, requirement=_BANDED_REQ,
+            from_cache=K_cached or band_cached,
             resident=lambda: (grid.dims == (1, 1, 1) and n_inner >= 2) or
-            dtz.trapezoid_refusal(grid, local, bx, n_inner - 1,
+            dtz.trapezoid_refusal(grid, local, depth, n_inner - 1,
                                   T.dtype) is None,
             supported=lambda k, b: dtz.banded_refusal(
                 grid, local, k, n_inner - 1, T.dtype, B=b) is None,
             fit=lambda bands: dtz.fit_diffusion_band(
                 grid, local, n_inner - 1, T.dtype, bands=bands))
-        return ("banded", kb) if kb else ("cuda", bx)
+        return ("banded", kb) if kb else ("cuda", depth)
 
     def plain(T, Cp):
         A = coefficient(Cp)

@@ -48,6 +48,17 @@ and `overlap` resolves True (:func:`igg_torch.overlap.resolve_overlap`),
 the tier `hm3d.overlap` serves it, bitwise the plain composition.  The
 kernel routes ignore `overlap`: their send planes are already
 slab-computed.
+
+`trapezoid` (igg's knob: "auto", True, False) admits the chunk route of
+several blocks: False pins the per-step kernel there, True requires the
+chunk route and raises where it refuses.  `tune` ("auto", True, False;
+None: the `IGG_TUNE` knob) applies the autotuner's cached winner for the
+grid's signature (:func:`igg_torch.models._dispatch.apply_tuned`, igg's
+rules): its `K` and `band` fill what the caller left unset (a cached K
+the chunk refuses falls back to the largest of 8, 4, 2 it admits), its
+tier pins the route where the caller left the knobs at "auto", and its
+`overlap` resolves `overlap="auto"`; True searches on a miss
+(:mod:`igg_torch.autotune`).
 """
 
 from __future__ import annotations
@@ -62,7 +73,8 @@ from ..ops.stencil import block_boundary_mask, divisor, interior_add
 from ..overlap import hide_communication, resolve_overlap
 from ..shared import GridError
 from ..timing import time_steps
-from ._dispatch import auto_dispatch, band_config, required_routes
+from ._dispatch import (apply_tuned, auto_dispatch, band_config,
+                        required_routes)
 
 _BANDED_REQ = ("banded=True needs the fused kernels (use_kernels 'auto' or "
                "True, on a grid they serve) and an admissible banded config "
@@ -70,6 +82,12 @@ _BANDED_REQ = ("banded=True needs the fused kernels (use_kernels 'auto' or "
                "extended x span of >= 2 bands of B, K-deep send slabs inside "
                "every extended dimension's block (igg_torch.ops."
                "hm3d_trapezoid.hm3d_banded_refusal)")
+_TRAPEZOID_REQ = ("trapezoid=True needs the fused kernels (use_kernels "
+                  "'auto' or True, on a grid of several blocks they serve) "
+                  "and an admissible chunk depth K: n_inner >= K + 1 >= 3, "
+                  "an overlap-2 grid, K-deep send slabs inside every "
+                  "extended dimension's block (igg_torch.ops.hm3d_trapezoid."
+                  "hm3d_trapezoid_refusal); the chunk tier refuses")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,11 +227,11 @@ def local_step(Pe, phi, *, dx, dy, dz, dt, phi0, npow, eta,
 
 
 def make_step(params: Params = Params(), *, use_kernels="auto",
-              overlap="auto", verify=None):
+              overlap="auto", verify=None, tune=None):
     """`(Pe, phi) -> (Pe, phi)` advancing one step (see
     :func:`make_multi_step`)."""
     return make_multi_step(1, params, use_kernels=use_kernels,
-                           overlap=overlap, verify=verify)
+                           overlap=overlap, verify=verify, tune=tune)
 
 
 def _kernel_path(use_kernels, Pe, phi) -> bool:
@@ -234,12 +252,14 @@ def _kernel_path(use_kernels, Pe, phi) -> bool:
 
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
-                    use_kernels="auto", K: int = None, banded="auto",
-                    band: int = None, overlap="auto", verify=None):
+                    use_kernels="auto", trapezoid="auto", K: int = None,
+                    banded="auto", band: int = None, overlap="auto",
+                    verify=None, tune=None):
     """`(Pe, phi) -> (Pe, phi)` advancing `n_inner` steps; returns new
     tensors and leaves its inputs as they were.  `use_kernels` picks the
-    path, `banded` and `band` the banded tier, `overlap` ("auto", True,
-    False) the overlapped composition (module docstring); `K` is
+    path, `trapezoid` the chunk route, `banded` and `band` the banded
+    tier, `overlap` ("auto", True, False) the overlapped composition,
+    `tune` the autotuner's cached winner (module docstring); `K` is
     the chunk depth of the chunk route or the banded tier (default: 8
     where it divides the block's x extent,
     :func:`igg_torch.ops.chunk_engine.default_K`, and the banded tier's
@@ -258,13 +278,21 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
         raise GridError(f"n_inner must be >= 1, got {n_inner}")
     if not isinstance(params.npow, int) or params.npow < 0:
         raise GridError(f"npow must be an int >= 0, got {params.npow!r}")
-    if banded not in ("auto", True, False):
-        raise GridError(f"banded={banded!r}: expected 'auto', True or False")
-    if banded is True and use_kernels is False:
-        raise GridError(f"{_BANDED_REQ}; use_kernels=False pins the plain "
-                        f"composition")
-    overlap = resolve_overlap(overlap, family="hm3d", radius=1,
-                              chunk_active=banded is True)
+    for name, knob in (("banded", banded), ("trapezoid", trapezoid)):
+        if knob not in ("auto", True, False):
+            raise GridError(f"{name}={knob!r}: expected 'auto', True or "
+                            f"False")
+    for knob, req in ((banded, _BANDED_REQ), (trapezoid, _TRAPEZOID_REQ)):
+        if knob is True and use_kernels is False:
+            raise GridError(f"{req}; use_kernels=False pins the plain "
+                            f"composition")
+    (K, K_cached, band, band_cached, trapezoid, banded, use_kernels,
+     tuned) = apply_tuned("hm3d", tune, n_inner=n_inner, K=K,
+                          chunk_knob=trapezoid, use_kernels=use_kernels,
+                          band=band, banded_knob=banded, params=params)
+    overlap = resolve_overlap(overlap, family="hm3d", tuned=tuned, radius=1,
+                              chunk_active=(trapezoid is True
+                                            or banded is True))
     kw = params.step_kwargs()
 
     def plan(Pe, phi):
@@ -274,17 +302,30 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
 
         grid = shared.global_grid()
         if not _kernel_path(use_kernels, Pe, phi):
-            if banded is True:
-                raise GridError(f"{_BANDED_REQ}; the plain composition "
-                                f"serves these fields")
+            for knob, req in ((banded, _BANDED_REQ),
+                              (trapezoid, _TRAPEZOID_REQ)):
+                if knob is True:
+                    raise GridError(f"{req}; the plain composition serves "
+                                    f"these fields")
             return "plain", None
         local = grid.local_shape(Pe)
+
+        def chunks(k):
+            return htz.hm3d_trapezoid_refusal(grid, local, k, n_inner - 1,
+                                              Pe.dtype) is None
+
         Kc = K or chunk_engine.default_K(grid.nxyz[0])
         loop = grid.dims == (1, 1, 1) and n_inner >= 2
-        chunked = not loop and htz.hm3d_trapezoid_refusal(
-            grid, local, Kc, n_inner - 1, Pe.dtype) is None
+        chunked = not loop and trapezoid is not False and chunks(Kc)
+        if not (loop or chunked or trapezoid is False) and K_cached:
+            Kc = next((k for k in (8, 4, 2) if chunks(k)), Kc)
+            chunked = chunks(Kc)
+        if trapezoid is True and banded is not True and not chunked:
+            raise GridError(f"{_TRAPEZOID_REQ} at n_inner={n_inner}, "
+                            f"K={Kc}")
         kb = band_config(
             banded, K, band, n_inner, requirement=_BANDED_REQ,
+            from_cache=K_cached or band_cached,
             resident=lambda: loop or chunked,
             supported=lambda k, b: htz.hm3d_banded_refusal(
                 grid, local, k, n_inner - 1, Pe.dtype, B=b) is None,
@@ -310,13 +351,13 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
             Pe, phi = hide_communication((Pe, phi), slab_step)
         return Pe, phi
 
-    def kernels(Kc, Pe, phi):
-        """The K-step loop, the chunk route or the per-step kernel, as
-        `fused_hm3d_steps` dispatches them."""
+    def kernels(Kc, Pe, phi, chunk=False):
+        """The K-step loop, the chunk route (`chunk`) or the per-step
+        kernel, as `fused_hm3d_steps` dispatches them."""
         from ..ops import hm3d_pallas
 
         return hm3d_pallas.fused_hm3d_steps(Pe, phi, n_inner=n_inner, K=Kc,
-                                            **kw)
+                                            chunk=chunk, **kw)
 
     def banded_steps(kb, Pe, phi):
         from ..ops import hm3d_pallas, hm3d_trapezoid as htz
@@ -331,10 +372,11 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
 
     return auto_dispatch(
         family="hm3d", plan=plan,
-        routes={"trapezoid": kernels, "banded": banded_steps,
-                "cuda": kernels},
+        routes={"trapezoid": lambda Kc, Pe, phi: kernels(Kc, Pe, phi, True),
+                "banded": banded_steps, "cuda": kernels},
         plain=plain, overlap=overlapped if overlap else None,
-        required=required_routes(use_kernels, banded), verify=verify)
+        required=required_routes(use_kernels, banded, trapezoid,
+                                 chunk_route="trapezoid"), verify=verify)
 
 
 def run(nt: int, params: Params = Params(), dtype=torch.float32,

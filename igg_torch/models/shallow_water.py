@@ -11,8 +11,9 @@ dataclass, `init_fields`, `make_step`, `run`.  Fields `(h, hu, hv)` of
 local shapes `(nx, ny)`, `(nx+1, ny)`, `(nx, ny+1)` on a 2-D grid
 (`init_global_grid(nx, ny, 1, ...)`).
 
-Not ported here: the integrity invariant's registration (the spec carries
-its `total_mass` declaration) and `tune=`.
+`make_step(tune=...)` is `compile`'s (the autotuner's cached winner for
+the family "shallow_water").  Not ported here: the integrity invariant's
+registration (the spec carries its `total_mass` declaration).
 """
 
 from __future__ import annotations
@@ -70,16 +71,17 @@ def init_fields(params: Params = Params(), dtype=torch.float32):
 
 
 def make_step(params: Params = Params(), *, n_inner: int = 1,
-              use_kernels="auto", chunk="auto", K: int = None, verify=None):
+              use_kernels="auto", chunk="auto", K: int = None, verify=None,
+              tune=None):
     """`(h, hu, hv) -> (h, hu, hv)` advancing `n_inner` steps:
     :func:`igg_torch.stencil.compile` with this family's spec and coeffs
-    (`use_kernels`, `chunk`, `K` and `verify` as there; the ladder's
-    family is the spec's name, "shallow_water")."""
+    (`use_kernels`, `chunk`, `K`, `verify` and `tune` as there; the
+    ladder's family is the spec's name, "shallow_water")."""
     from .. import stencil
 
     return stencil.compile(spec(params), coeffs=params.coeffs(),
                            n_inner=n_inner, use_kernels=use_kernels,
-                           chunk=chunk, K=K, verify=verify)
+                           chunk=chunk, K=K, verify=verify, tune=tune)
 
 
 def mass(h) -> float:

@@ -72,7 +72,15 @@ halo writer assembles the two (:func:`igg_torch.overlap.
 hide_communication`), bitwise the plain composition.  The kernel routes
 ignore `overlap`: their send planes are already slab-computed.
 
-Not ported here: the autotuner's `tune=` argument.
+`trapezoid` (igg's knob: "auto", True, False) admits the chunk route:
+False pins the per-iteration route, True requires the chunk route and
+raises where it refuses.  `tune` ("auto", True, False; None: the
+`IGG_TUNE` knob) applies the autotuner's cached winner for the grid's
+signature (:func:`igg_torch.models._dispatch.apply_tuned`, igg's rules):
+its `K` and `band` fill what the caller left unset, its tier pins the
+route where the caller left the knobs at "auto", and its `overlap`
+resolves `overlap="auto"`; True searches on a miss
+(:mod:`igg_torch.autotune`).
 """
 
 from __future__ import annotations
@@ -87,7 +95,7 @@ from ..ops.stencil import divisor, interior_add
 from ..overlap import hide_communication, resolve_overlap
 from ..shared import GridError
 from ..timing import time_steps
-from ._dispatch import auto_dispatch, required_routes
+from ._dispatch import apply_tuned, auto_dispatch, required_routes
 
 @dataclasses.dataclass(frozen=True)
 class Params:
@@ -263,15 +271,17 @@ def _kernel_path(use_kernels, P, Vx, Vy, Vz, Rho) -> bool:
 
 
 def make_iteration(params: Params = Params(), *, n_inner: int = 1,
-                   use_kernels="auto", K: int = None, banded="auto",
-                   band: int = None, overlap="auto", verify=None):
+                   use_kernels="auto", trapezoid="auto", K: int = None,
+                   banded="auto", band: int = None, overlap="auto",
+                   verify=None, tune=None):
     """`(P, Vx, Vy, Vz, Rho) -> (P, Vx, Vy, Vz)` advancing `n_inner`
     iterations; returns new tensors and leaves its inputs as they were.
     `use_kernels` picks the path (module docstring); `K` is the chunk depth
     of the chunk route, which serves only where the chunk admits it
     (default: the largest of 8, 4, 2 it admits, igg's `fit_stokes_K`);
-    `banded` and `band` the banded tier, `overlap` ("auto", True, False)
-    the overlapped composition (module docstring).
+    `trapezoid` ("auto", True, False) the chunk route, `banded` and `band`
+    the banded tier, `overlap` ("auto", True, False) the overlapped
+    composition, `tune` the autotuner's cached winner (module docstring).
 
     The call runs through the family's tier ladder
     (:func:`igg_torch.models._dispatch.auto_dispatch`):
@@ -280,17 +290,27 @@ def make_iteration(params: Params = Params(), *, n_inner: int = 1,
     `overlap` resolves True) and `stokes3d.plain`.
     `verify="first_use"` checks a kernel tier against the plain
     composition before it serves and raises where they disagree."""
-    from ..ops.stokes_pallas import BANDED_REQ
+    from ..ops.stokes_pallas import BANDED_REQ, TRAPEZOID_REQ
 
     if n_inner < 1:
         raise GridError(f"n_inner must be >= 1, got {n_inner}")
-    if banded not in ("auto", True, False):
-        raise GridError(f"banded={banded!r}: expected 'auto', True or False")
+    for name, knob in (("banded", banded), ("trapezoid", trapezoid)):
+        if knob not in ("auto", True, False):
+            raise GridError(f"{name}={knob!r}: expected 'auto', True or "
+                            f"False")
     if banded is True and use_kernels is False:
         raise GridError(f"{BANDED_REQ}; use_kernels=False pins the plain "
                         f"composition")
-    overlap = resolve_overlap(overlap, family="stokes3d", radius=2,
-                              chunk_active=banded is True)
+    if trapezoid is True and use_kernels is False:
+        raise GridError(f"{TRAPEZOID_REQ}; use_kernels=False pins the plain "
+                        f"composition")
+    (K, K_cached, band, band_cached, trapezoid, banded, use_kernels,
+     tuned) = apply_tuned("stokes3d", tune, n_inner=n_inner, K=K,
+                          chunk_knob=trapezoid, use_kernels=use_kernels,
+                          band=band, banded_knob=banded, params=params)
+    overlap = resolve_overlap(overlap, family="stokes3d", tuned=tuned,
+                              radius=2, chunk_active=(trapezoid is True
+                                                      or banded is True))
     kw = _pseudo_steps(params)
 
     def plan(P, Vx, Vy, Vz, Rho):
@@ -299,13 +319,16 @@ def make_iteration(params: Params = Params(), *, n_inner: int = 1,
         from ..ops import stokes_pallas
 
         if not _kernel_path(use_kernels, P, Vx, Vy, Vz, Rho):
-            if banded is True:
-                raise GridError(f"{BANDED_REQ}; the plain composition "
-                                f"serves these fields")
+            for knob, req in ((banded, BANDED_REQ),
+                              (trapezoid, TRAPEZOID_REQ)):
+                if knob is True:
+                    raise GridError(f"{req}; the plain composition serves "
+                                    f"these fields")
             return "plain", None
         Kf, kb = stokes_pallas.stokes_route(
             shared.global_grid(), P, n_inner=n_inner, K=K, banded=banded,
-            band=band)
+            band=band, chunk=trapezoid, K_from_cache=K_cached,
+            band_from_cache=band_cached)
         return ("trapezoid" if Kf else "banded" if kb else "cuda"), (Kf, kb)
 
     def plain(P, Vx, Vy, Vz, Rho):
@@ -335,7 +358,8 @@ def make_iteration(params: Params = Params(), *, n_inner: int = 1,
         family="stokes3d", plan=plan,
         routes={"trapezoid": kernels, "banded": kernels, "cuda": kernels},
         plain=plain, overlap=overlapped if overlap else None,
-        required=required_routes(use_kernels, banded), verify=verify)
+        required=required_routes(use_kernels, banded, trapezoid,
+                                 chunk_route="trapezoid"), verify=verify)
 
 
 def run(n_iters: int, params: Params = Params(), dtype=torch.float32,

@@ -49,6 +49,15 @@ serves a call and `overlap` resolves True
 `wave2d.overlap` serves it, bitwise the plain composition.  The kernel
 routes ignore `overlap`.
 
+`chunk` (igg's knob: "auto", True, False) admits the chunk route: False
+pins the per-step route, True requires the chunk route and raises where
+it refuses.  `tune` ("auto", True, False; None: the `IGG_TUNE` knob)
+applies the autotuner's cached winner for the grid's signature
+(:func:`igg_torch.models._dispatch.apply_tuned`, igg's rules): its `K` and
+`band` fill what the caller left unset, its tier pins the route where the
+caller left the knobs at "auto", and its `overlap` resolves
+`overlap="auto"`; True searches on a miss (:mod:`igg_torch.autotune`).
+
 Not ported here: the integrity invariant's registration.
 """
 
@@ -65,7 +74,7 @@ from ..ops.stencil import divisor
 from ..overlap import hide_communication, resolve_overlap
 from ..shared import GridError
 from ..timing import time_steps
-from ._dispatch import auto_dispatch, required_routes
+from ._dispatch import apply_tuned, auto_dispatch, required_routes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,11 +163,11 @@ def local_step(P, Vx, Vy, *, dx, dy, dt, rho, K, overlap: bool = False):
 
 
 def make_step(params: Params = Params(), *, use_kernels="auto",
-              overlap="auto", verify=None):
+              overlap="auto", verify=None, tune=None):
     """`(P, Vx, Vy) -> (P, Vx, Vy)` advancing one step (see
     :func:`make_multi_step`)."""
     return make_multi_step(1, params, use_kernels=use_kernels,
-                           overlap=overlap, verify=verify)
+                           overlap=overlap, verify=verify, tune=tune)
 
 
 def _kernel_path(use_kernels, P, Vx, Vy) -> bool:
@@ -180,11 +189,13 @@ def _kernel_path(use_kernels, P, Vx, Vy) -> bool:
 
 
 def make_multi_step(n_inner: int, params: Params = Params(), *,
-                    use_kernels="auto", K: int = None, banded="auto",
-                    band: int = None, overlap="auto", verify=None):
+                    use_kernels="auto", chunk="auto", K: int = None,
+                    banded="auto", band: int = None, overlap="auto",
+                    verify=None, tune=None):
     """`(P, Vx, Vy) -> (P, Vx, Vy)` advancing `n_inner` steps; returns new
     tensors and leaves its inputs as they were.  `use_kernels` picks the
-    path (module docstring); `K` is the chunk depth of the chunk route,
+    path, `chunk` the chunk route, `tune` the autotuner's cached winner
+    (module docstring); `K` is the chunk depth of the chunk route,
     which serves only where the chunk admits it (default: the largest of 8,
     4, 2 it admits, igg's `fit_wave2d_K`); `banded` and `band` the banded
     tier, `overlap` ("auto", True, False) the overlapped composition
@@ -195,17 +206,25 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
     `wave2d.banded`, `wave2d.cuda` (the per-step kernel), `wave2d.overlap`
     (where `overlap` resolves True) and `wave2d.plain`.  `verify="first_use"` checks a kernel tier against the
     plain composition before it serves and raises where they disagree."""
-    from ..ops.wave2d_pallas import BANDED_REQ
+    from ..ops.wave2d_pallas import BANDED_REQ, CHUNK_REQ
 
     if n_inner < 1:
         raise GridError(f"n_inner must be >= 1, got {n_inner}")
-    if banded not in ("auto", True, False):
-        raise GridError(f"banded={banded!r}: expected 'auto', True or False")
-    if banded is True and use_kernels is False:
-        raise GridError(f"{BANDED_REQ}; use_kernels=False pins the plain "
-                        f"composition")
-    overlap = resolve_overlap(overlap, family="wave2d", radius=2, ndim=2,
-                              chunk_active=banded is True)
+    for name, knob in (("banded", banded), ("chunk", chunk)):
+        if knob not in ("auto", True, False):
+            raise GridError(f"{name}={knob!r}: expected 'auto', True or "
+                            f"False")
+    for knob, req in ((banded, BANDED_REQ), (chunk, CHUNK_REQ)):
+        if knob is True and use_kernels is False:
+            raise GridError(f"{req}; use_kernels=False pins the plain "
+                            f"composition")
+    (K, K_cached, band, band_cached, chunk, banded, use_kernels,
+     tuned) = apply_tuned("wave2d", tune, n_inner=n_inner, K=K,
+                          chunk_knob=chunk, use_kernels=use_kernels,
+                          band=band, banded_knob=banded, params=params)
+    overlap = resolve_overlap(overlap, family="wave2d", tuned=tuned,
+                              radius=2, ndim=2,
+                              chunk_active=chunk is True or banded is True)
     kw = params.step_kwargs()
 
     def plan(P, Vx, Vy):
@@ -214,13 +233,15 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
         from ..ops import wave2d_pallas
 
         if not _kernel_path(use_kernels, P, Vx, Vy):
-            if banded is True:
-                raise GridError(f"{BANDED_REQ}; the plain composition "
-                                f"serves these fields")
+            for knob, req in ((banded, BANDED_REQ), (chunk, CHUNK_REQ)):
+                if knob is True:
+                    raise GridError(f"{req}; the plain composition serves "
+                                    f"these fields")
             return "plain", None
         Kf, kb = wave2d_pallas.wave2d_route(
             shared.global_grid(), P, n_inner=n_inner, K=K, banded=banded,
-            band=band)
+            band=band, chunk=chunk, K_from_cache=K_cached,
+            band_from_cache=band_cached)
         return ("chunk" if Kf else "banded" if kb else "cuda"), (Kf, kb)
 
     def plain(P, Vx, Vy):
@@ -248,7 +269,7 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
         family="wave2d", plan=plan,
         routes={"chunk": kernels, "banded": kernels, "cuda": kernels},
         plain=plain, overlap=overlapped if overlap else None,
-        required=required_routes(use_kernels, banded), verify=verify)
+        required=required_routes(use_kernels, banded, chunk), verify=verify)
 
 
 def energy(P, Vx, Vy) -> float:

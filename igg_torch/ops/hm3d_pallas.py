@@ -195,7 +195,7 @@ def fused_hm3d_step(Pe, phi, *, dx, dy, dz, dt, phi0, npow, eta):
 
 
 def fused_hm3d_steps(Pe, phi, *, n_inner: int, K: int, dx, dy, dz, dt, phi0,
-                     npow, eta):
+                     npow, eta, chunk: bool = True):
     """`n_inner` HM3D steps of `(Pe, phi)`; returns new tensors.  The
     dispatch of `igg/ops/hm3d_pallas.py:fused_hm3d_steps` and
     `igg/models/hm3d.py:make_step`:
@@ -206,7 +206,7 @@ def fused_hm3d_steps(Pe, phi, *, n_inner: int, K: int, dx, dy, dz, dt, phi0,
       `K` (:func:`igg_torch.ops.hm3d_trapezoid.hm3d_trapezoid_refusal`):
       one per-step step (which makes the halos exchange-fresh, the chunk's
       entry condition), then `(n_inner - 1) // K` chunks, then the
-      remainder as per-step steps;
+      remainder as per-step steps (`chunk=False`: never);
     - otherwise one per-step kernel step per step."""
     from . import hm3d_mega, hm3d_trapezoid as htz
 
@@ -216,8 +216,8 @@ def fused_hm3d_steps(Pe, phi, *, n_inner: int, K: int, dx, dy, dz, dt, phi0,
         modes = tuple("wrap" if p else "frozen" for p in grid.periods)
         return hm3d_mega.fused_hm3d_megasteps(Pe, phi, n_inner=n_inner,
                                               modes=modes, **kw)
-    if htz.hm3d_trapezoid_refusal(grid, grid.local_shape(Pe), K, n_inner - 1,
-                                  Pe.dtype) is None:
+    if chunk and htz.hm3d_trapezoid_refusal(
+            grid, grid.local_shape(Pe), K, n_inner - 1, Pe.dtype) is None:
         Pe, phi = fused_hm3d_step(Pe, phi, **kw)
         Pe, phi, done = htz.fused_hm3d_trapezoid_steps(
             Pe, phi, n_inner=n_inner - 1, K=K, grid=grid, **kw)

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 
 from .. import halo, shared
+from ..shared import GridError
 from ..models import stokes3d as model
 from ._build import library
 from .diffusion_pallas import _DTYPE
@@ -187,21 +188,41 @@ BANDED_REQ = ("banded=True needs the Stokes kernels (use_kernels 'auto' or "
               "stokes_banded_refusal)")
 
 
+TRAPEZOID_REQ = ("trapezoid=True needs the Stokes kernels (use_kernels "
+                 "'auto' or True, on fields they serve) and an admissible "
+                 "chunk depth K: n_inner >= K + 1 >= 3, an overlap-3 grid, "
+                 "2K-deep send slabs inside every extended dimension's block "
+                 "(igg_torch.ops.stokes_trapezoid.stokes_chunk_refusal); the "
+                 "chunk tier refuses")
+
+
 def stokes_route(grid, P, *, n_inner: int, K: Optional[int] = None,
-                 banded="auto", band: Optional[int] = None):
+                 banded="auto", band: Optional[int] = None, chunk="auto",
+                 K_from_cache: bool = False, band_from_cache: bool = False):
     """The route of :func:`fused_stokes_iterations` for fields whose
     pressure is `P`: `(Kf, kb)`, the chunk depth of the chunk route (0
     where it does not serve) and the banded tier's `(K, B)` (None where it
-    does not serve); both falsy means the per-iteration route.  Raises
-    where `banded=True` finds no `(K, B)`."""
-    from ..models._dispatch import band_config
+    does not serve); both falsy means the per-iteration route.  `chunk`
+    (igg's `trapezoid`): False pins the chunk route off, True requires it.
+    `K_from_cache`/`band_from_cache` mark `K`/`band` as an autotuner's
+    winner's (:func:`igg_torch.models._dispatch.resolve_chunk_K`).  Raises
+    where `banded=True` finds no `(K, B)` or `chunk=True` no K."""
+    from ..models._dispatch import band_config, resolve_chunk_K
     from . import stokes_trapezoid as stz
 
     shape = grid.local_shape(P)
-    Kf = (stz.fit_stokes_K(grid, shape, n_inner - 1, P.dtype, K=K)
-          if n_inner >= 3 and banded is not True else 0)
+    Kf = 0
+    if n_inner >= 3 and banded is not True and chunk is not False:
+        Kf = resolve_chunk_K(
+            K, K_from_cache,
+            lambda k: stz.stokes_chunk_refusal(grid, shape, k, n_inner - 1,
+                                               P.dtype) is None,
+            lambda: stz.fit_stokes_K(grid, shape, n_inner - 1, P.dtype))
+    if chunk is True and not Kf:
+        raise GridError(f"{TRAPEZOID_REQ} at n_inner={n_inner}, K={K}")
     kb = band_config(
         banded, K, band, n_inner, requirement=BANDED_REQ,
+        from_cache=K_from_cache or band_from_cache,
         resident=lambda: bool(Kf),
         supported=lambda k, b: stz.stokes_banded_refusal(
             grid, shape, k, n_inner - 1, P.dtype, B=b) is None,

@@ -177,19 +177,38 @@ BANDED_REQ = ("banded=True needs the wave2d kernels' plain versions (CPU "
               "wave2d_banded_refusal)")
 
 
+CHUNK_REQ = ("chunk=True needs the wave2d kernels (use_kernels 'auto' or "
+             "True, on fields they serve) and an admissible chunk depth K: "
+             "n_inner >= K + 1 >= 3, a periodic overlap-2 2-D grid, 2K-deep "
+             "send slabs inside every extended dimension's block "
+             "(igg_torch.ops.wave2d_trapezoid.wave2d_chunk_refusal); the "
+             "chunk tier refuses")
+
+
 def wave2d_route(grid, P, *, n_inner: int, K: Optional[int] = None,
-                 banded="auto", band: Optional[int] = None):
+                 banded="auto", band: Optional[int] = None, chunk="auto",
+                 K_from_cache: bool = False, band_from_cache: bool = False):
     """The route of :func:`fused_wave2d_steps` for fields whose pressure
     is `P`: `(Kf, kb)`, the chunk depth of the chunk route (0 where it does
     not serve) and the banded tier's `(K, B)` (None where it does not
-    serve); both falsy means the per-step route.  Raises where
-    `banded=True` cannot be served."""
-    from ..models._dispatch import band_config
+    serve); both falsy means the per-step route.  `chunk` False pins the
+    chunk route off, True requires it; `K_from_cache`/`band_from_cache`
+    mark `K`/`band` as an autotuner's winner's
+    (:func:`igg_torch.models._dispatch.resolve_chunk_K`).  Raises where
+    `banded=True` or `chunk=True` cannot be served."""
+    from ..models._dispatch import band_config, resolve_chunk_K
     from . import wave2d_trapezoid as wtz
 
     shape = grid.local_shape(P)
-    Kf = (wtz.fit_wave2d_K(grid, shape, n_inner - 1, P.dtype, K=K)
-          if n_inner >= 3 and banded is not True else 0)
+    Kf = 0
+    if n_inner >= 3 and banded is not True and chunk is not False:
+        Kf = resolve_chunk_K(
+            K, K_from_cache,
+            lambda k: wtz.wave2d_chunk_refusal(grid, shape, k, n_inner - 1,
+                                               P.dtype) is None,
+            lambda: wtz.fit_wave2d_K(grid, shape, n_inner - 1, P.dtype))
+    if chunk is True and not Kf:
+        raise GridError(f"{CHUNK_REQ} at n_inner={n_inner}, K={K}")
     kb = None
     if P.device.type != "cpu":
         if banded is True:
@@ -199,6 +218,7 @@ def wave2d_route(grid, P, *, n_inner: int, K: Optional[int] = None,
     else:
         kb = band_config(
             banded, K, band, n_inner, requirement=BANDED_REQ,
+            from_cache=K_from_cache or band_from_cache,
             resident=lambda: bool(Kf),
             supported=lambda k, b: wtz.wave2d_banded_refusal(
                 grid, shape, k, n_inner - 1, P.dtype, B=b) is None,

@@ -403,8 +403,8 @@ def resolve_overlap(overlap, *, family: str, tuned=None, radius: int = 1,
 
     1. the ``IGG_OVERLAP`` knob: a set value forces on (1/true/on) or pins
        off (0/false/off) every "auto" in the process;
-    2. the autotuner's cached winner's ``overlap`` axis (`tuned`; None
-       until the port has an autotuner);
+    2. the autotuner's cached winner's ``overlap`` axis (`tuned`, from
+       :func:`igg_torch.models._dispatch.apply_tuned`);
     3. off: the sequential composition.
 
     A resolved True is gated by :func:`overlap_admission`: a refusal

@@ -53,8 +53,10 @@ that loop, with igg's signature, defaults, validation and event stream:
 
 The fault injectors of :mod:`igg_torch.chaos` drive every path.  Not
 ported yet: `heal=`, `integrity=`, `comm=` and `serve=` (each raises
-`GridError`), igg's perf ledger attribution, and the multi-process
-branches (more than one process raises `GridError`).
+`GridError`) and the multi-process branches (more than one process raises
+`GridError`).  With the perf ledger on (`IGG_PERF`, default on), each
+watchdog window's ms/step is recorded for the tier that served it
+(`igg_torch.perf.observe_window`).
 """
 
 from __future__ import annotations
@@ -521,7 +523,14 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
         tel.attach()
     _telemetry.emit("run_started", run="resilient", n_steps=n_steps,
                     watch_every=watch_every, steps_per_call=steps_per_call)
-    stats = _telemetry.StepStats("resilient")
+    # The perf ledger (igg_torch.perf): window rates are credited to the
+    # serving tier, on the watchdog's own fetch timestamps.
+    from . import perf as _perf
+
+    stats = _telemetry.StepStats(
+        "resilient",
+        perf=(_perf.sample_context(state[watch[0]])
+              if watch and _perf.enabled() else None))
     m_steps = _telemetry.counter("igg_steps_total", run="resilient")
     m_rollbacks = _telemetry.counter("igg_rollbacks_total", run="resilient")
 

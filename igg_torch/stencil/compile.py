@@ -33,8 +33,14 @@ composition.  The generated kernel routes ignore `overlap`.
 
 The call runs through the spec's tier ladder (`verify=`, igg's; no
 quarantine: a kernel tier that disagrees with the plain composition
-raises).  Not ported: `tune=` and the family registration with perf,
-autotune and integrity (`_register_family`).
+raises).  `tune` ("auto", True, False; None: the `IGG_TUNE` knob) applies
+the autotuner's cached winner for the spec's family on the grid's
+signature (:func:`igg_torch.models._dispatch.apply_tuned`, igg's rules).
+Every compile registers the spec as a family with :mod:`igg_torch.perf`
+(its analytic accesses, and a calibration step where the spec has an
+`init`) and :mod:`igg_torch.autotune` (its candidate routes, each a
+`compile` pinned to it), igg's `_register_family`; the integrity half of
+that registration is not ported.
 """
 
 from __future__ import annotations
@@ -70,10 +76,73 @@ def _kernel_path(spec, cf, use_kernels, fields) -> bool:
                     f"fields: {why or 'use_kernels=True needs CUDA tensors'}")
 
 
+def _register_family(spec: StencilSpec, analysis, cf: Dict) -> None:
+    """Hook the spec's family into :mod:`igg_torch.perf` (accesses, and a
+    calibration step where the spec has an `init`) and
+    :mod:`igg_torch.autotune` (the candidate routes and how each is built),
+    with this compile's resolved coeffs.  Idempotent."""
+    from .. import autotune, perf
+
+    def steps(dtype):
+        fields = spec.init(cf, dtype)
+        step = compile(spec, coeffs=cf)
+        return (lambda *fs: step(*fs)), tuple(fields)
+
+    perf.register_family(spec.name, accesses=analysis.accesses,
+                         steps=steps if spec.init is not None else None)
+    if spec.init is None:
+        return
+
+    def candidates(grid, *, n_inner):
+        import torch
+
+        from ..overlap import overlap_admission
+        from . import lower
+
+        nd = spec.ndim
+        # The block shape of the first field, as `lower.spec_route` reads.
+        shape = tuple(grid.nxyz[d] + spec.fields[0].stagger[d]
+                      for d in range(nd))
+        dtype = torch.float32
+
+        def cand(route, K=None, **kw):
+            return {"tier": f"{spec.name}.{route}", "K": K, "bx": None,
+                    "vmem_mb": None, **kw}
+
+        out = [cand("plain"), cand("cuda")]
+        r = max(analysis.halo_radius) if analysis.halo_radius else 1
+        if overlap_admission(r, grid=grid, ndim=nd):
+            out.append(cand("overlap", overlap=True))
+        if n_inner >= 3:
+            out += [cand("chunk", K) for K in (4, 8)
+                    if lower.chunk_refusal(spec, analysis, grid, shape, K,
+                                           n_inner - 1, dtype) is None]
+            # The streaming band kernel is 3-D only: rank-2 specs take the
+            # banded route on CPU tensors alone.
+            if nd == 3 or grid.device.type == "cpu":
+                out += [cand("banded", K, band=B)
+                        for K in (4, 8) for B in (8, 16)
+                        if lower.banded_refusal(spec, analysis, grid, shape,
+                                                K, n_inner - 1, dtype,
+                                                B=B) is None]
+        return out
+
+    def build(cand, *, n_inner, params):
+        import torch
+
+        fields = spec.init(cf, torch.float32)
+        step = compile(spec, coeffs=cf, n_inner=n_inner,
+                       **autotune._knobs(spec.name, cand))
+        return (lambda *fs: step(*fs)), tuple(fields)
+
+    autotune.register_family(spec.name, candidates=candidates, build=build)
+
+
 def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
             n_inner: int = 1, use_kernels="auto", chunk="auto",
             K: Optional[int] = None, banded="auto",
-            band: Optional[int] = None, overlap="auto", verify=None):
+            band: Optional[int] = None, overlap="auto", verify=None,
+            tune=None):
     """`(*fields) -> (*fields)` advancing `n_inner` steps of the spec (new
     tensors; the inputs stay as they were).  `coeffs` binds the spec's
     scalar Params (declared defaults fill the rest); `use_kernels` picks
@@ -81,7 +150,8 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
     K-step chunk route, which serves only where the chunk admits it
     (default depth: the largest of 8, 4, 2 it admits); `banded` ("auto",
     True, False), `K` and `band` the streaming banded route; `overlap`
-    ("auto", True, False) the overlapped composition.  Needs an
+    ("auto", True, False) the overlapped composition; `tune` the
+    autotuner's cached winner (module docstring).  Needs an
     initialized grid: the analyzer's truth-level gate (boundary
     conditions, reads, read radius against the overlap) runs here and
     raises `GridError` with its reason.
@@ -93,7 +163,8 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
     `<spec>.plain`.  `verify="first_use"` checks a kernel tier
     against the plain composition before it serves and raises where they
     disagree."""
-    from ..models._dispatch import auto_dispatch, required_routes
+    from ..models._dispatch import (apply_tuned, auto_dispatch,
+                                    required_routes)
     from . import lower
     from .cuda import kernels_for
 
@@ -117,12 +188,18 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
         raise GridError(f"{lower.banded_requirement(spec)}; {pin} pins "
                         f"another route")
     cf = spec.coeffs(coeffs)
+    analysis = analyze(spec)
+    _register_family(spec, analysis, cf)
+    (K, K_cached, band, band_cached, chunk, banded, use_kernels,
+     tuned) = apply_tuned(spec.name, tune, n_inner=n_inner, K=K,
+                          chunk_knob=chunk, use_kernels=use_kernels,
+                          band=band, banded_knob=banded)
     local = lower.local_step_fn(spec, cf, plain=True)
     nf = len(spec.fields)
-    halo_radius = analyze(spec).halo_radius
+    halo_radius = analysis.halo_radius
     radius = max(halo_radius) if halo_radius else 1
-    overlap = resolve_overlap(overlap, family=spec.name, radius=radius,
-                              ndim=spec.ndim,
+    overlap = resolve_overlap(overlap, family=spec.name, tuned=tuned,
+                              radius=radius, ndim=spec.ndim,
                               chunk_active=chunk is True or banded is True)
 
     def check(fields):
@@ -141,7 +218,9 @@ def compile(spec: StencilSpec, *, coeffs: Optional[Dict] = None,
             return "plain", None
         Kf, kb = lower.spec_route(kernels_for(spec, cf), fields,
                                   n_inner=n_inner, K=K, chunk=chunk,
-                                  banded=banded, band=band)
+                                  banded=banded, band=band,
+                                  K_from_cache=K_cached,
+                                  band_from_cache=band_cached)
         return ("chunk" if Kf else "banded" if kb else "cuda"), (Kf, kb)
 
     def plain(*fields):

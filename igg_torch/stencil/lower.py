@@ -346,13 +346,16 @@ def banded_requirement(spec: StencilSpec) -> str:
 
 
 def spec_route(gen, fields, *, n_inner: int, K: Optional[int] = None,
-               chunk="auto", banded="auto", band: Optional[int] = None):
+               chunk="auto", banded="auto", band: Optional[int] = None,
+               K_from_cache: bool = False, band_from_cache: bool = False):
     """The route of :func:`fused_spec_steps` for `fields`: `(Kf, kb)`, the
     chunk depth of the chunk route (0 where it does not serve) and the
     banded route's `(K, B)` (None where it does not serve); both falsy
-    means the per-step route.  Raises where `chunk=True` or `banded=True`
-    cannot be served."""
-    from ..models._dispatch import band_config
+    means the per-step route.  `K_from_cache`/`band_from_cache` mark
+    `K`/`band` as an autotuner's winner's
+    (:func:`igg_torch.models._dispatch.resolve_chunk_K`).  Raises where
+    `chunk=True` or `banded=True` cannot be served."""
+    from ..models._dispatch import band_config, resolve_chunk_K
 
     spec = gen.spec
     grid = shared.global_grid()
@@ -360,8 +363,12 @@ def spec_route(gen, fields, *, n_inner: int, K: Optional[int] = None,
     shape = grid.local_shape(S0)
     Kf = 0
     if chunk is not False and banded is not True and n_inner >= 3:
-        Kf = fit_spec_K(spec, gen.analysis, grid, shape, n_inner - 1,
-                        S0.dtype, K=K)
+        Kf = resolve_chunk_K(
+            K, K_from_cache,
+            lambda k: chunk_refusal(spec, gen.analysis, grid, shape, k,
+                                    n_inner - 1, S0.dtype) is None,
+            lambda: fit_spec_K(spec, gen.analysis, grid, shape, n_inner - 1,
+                               S0.dtype))
     if chunk is True and not Kf:
         why = ("n_inner < 3: no warm-up step plus a full chunk" if n_inner < 3
                else chunk_refusal(spec, gen.analysis, grid, shape, K or 2,
@@ -380,6 +387,7 @@ def spec_route(gen, fields, *, n_inner: int, K: Optional[int] = None,
             kb = band_config(
                 banded, K, band, n_inner,
                 requirement=banded_requirement(spec),
+                from_cache=K_from_cache or band_from_cache,
                 resident=lambda: chunk is False,
                 supported=lambda k, b: banded_refusal(
                     spec, gen.analysis, grid, shape, k, n_inner - 1,

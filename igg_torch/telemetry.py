@@ -762,16 +762,16 @@ class StepStats:
     fetches several probes back to back gives near-zero deltas; those
     windows are skipped (`_MIN_DT`).  Gauges `igg_steps_per_s`,
     `igg_watchdog_fetch_lag_steps` and `igg_rank_window_ms` (labelled
-    `run`), and a `step_stats` record per window.  `perf` is igg's perf
-    ledger context and must be None: the ledger is not ported yet."""
+    `run`), and a `step_stats` record per window.  `perf` (an
+    :func:`igg_torch.perf.sample_context` dict) also feeds each window's
+    ms/step into the perf ledger, credited to the tiers that served a
+    dispatch during the window (:func:`igg_torch.perf.observe_window`):
+    host-side ladder bookkeeping on the same timestamps."""
 
     _MIN_DT = 1e-4
 
     def __init__(self, run: str, members: Optional[int] = None,
                  perf: Optional[dict] = None):
-        if perf is not None:
-            raise GridError("StepStats(perf=...): the perf ledger is not "
-                            "ported yet; pass None.")
         self.run = run
         self.members = members
         self._anchor: Optional[Tuple[int, float]] = None
@@ -779,6 +779,12 @@ class StepStats:
         self._lag = gauge("igg_watchdog_fetch_lag_steps", run=run)
         self._win = gauge("igg_rank_window_ms", run=run)
         self._msps = gauge("igg_member_steps_per_s") if members else None
+        self._perf_ctx = perf
+        self._perf_state: Optional[dict] = None
+        if perf is not None:
+            from . import perf as _perf
+
+            self._perf_state = _perf.window_state()
 
     def fetched(self, probe_step: int, current_step: int,
                 active_members: Optional[int] = None) -> None:
@@ -808,6 +814,11 @@ class StepStats:
             if self._msps is not None:
                 self._msps.set(msps)
         emit("step_stats", step=probe_step, **payload)
+        if self._perf_ctx is not None:
+            from . import perf as _perf
+
+            _perf.observe_window(self.run, 1e3 / sps, dsteps,
+                                 self._perf_ctx, self._perf_state)
 
 
 # ---------------------------------------------------------------------------

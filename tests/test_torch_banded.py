@@ -47,6 +47,7 @@ from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import diffusion_trapezoid as dtz
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-6, 2e-5
 REL = 2e-5

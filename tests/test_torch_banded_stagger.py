@@ -35,6 +35,7 @@ from jax.sharding import PartitionSpec as PS
 import igg
 import igg_torch as it
 import torch_spec_cases as cases
+from torch_threads import one_torch_thread  # noqa: F401
 from igg import stencil as ist
 from igg.models import stokes3d as ism
 from igg.models import wave2d as iw2

@@ -21,6 +21,7 @@ import igg
 import igg_torch as it
 from igg.fields import sharding_for
 from igg_torch import degrade, halo
+from torch_threads import one_torch_thread  # noqa: F401
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 CHAOS = {"igg": igg.chaos, "port": it.chaos}

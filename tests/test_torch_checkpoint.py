@@ -32,6 +32,7 @@ from igg.fields import sharding_for
 from igg_torch import checkpoint as ck
 from igg_torch import telemetry as tel
 from igg_torch.models import diffusion3d as t3
+from torch_threads import one_torch_thread  # noqa: F401
 
 PERIODS = {"periodic": dict(periodx=1, periody=1, periodz=1),
            "mixed": dict(periodx=1), "open": {}}

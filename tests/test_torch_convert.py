@@ -11,6 +11,7 @@ import igg_torch as it
 from igg.models import diffusion3d as d3
 from igg_torch import convert
 from igg_torch.models import diffusion3d as t3
+from torch_threads import one_torch_thread  # noqa: F401
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 

@@ -22,6 +22,7 @@ from igg.models import diffusion3d as d3
 from igg.ops import fused_diffusion_step
 from igg_torch import convert
 from igg_torch.models import diffusion3d as t3
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-6, 2e-5          # float32, as in tests/test_models.py
 PERIODIC = dict(periodx=1, periody=1, periodz=1)

@@ -19,6 +19,7 @@ from igg.fields import sharding_for
 from igg.gather import _stream_axis as igg_stream_axis
 from igg_torch import halo as thalo
 from igg_torch import telemetry as tel
+from torch_threads import one_torch_thread  # noqa: F401
 
 tgather = importlib.import_module("igg_torch.gather")
 

@@ -19,6 +19,7 @@ from igg_torch import shared as tshared
 from igg_torch.topology import dims_create
 
 from helpers import encoded_field
+from torch_threads import one_torch_thread  # noqa: F401
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 

@@ -17,6 +17,7 @@ from igg_torch import halo as thalo
 from igg_torch.ops import halo_write
 
 from helpers import encoded_field, expected_after_update, zero_halo_blocks
+from torch_threads import one_torch_thread  # noqa: F401
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 SINGLE = dict(dimx=1, dimy=1, dimz=1)

@@ -24,6 +24,7 @@ from igg_torch import convert, halo
 from igg_torch.models import hm3d as th
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
+from torch_threads import one_torch_thread  # noqa: F401
 
 REL = {np.float64: 1e-12, np.float32: 2e-5}
 PERIODIC = dict(periodx=1, periody=1, periodz=1)

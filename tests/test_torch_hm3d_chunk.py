@@ -22,6 +22,7 @@ from igg_torch import convert
 from igg_torch.models import hm3d as th
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
+from torch_threads import one_torch_thread  # noqa: F401
 
 PARAMS = ih.Params(lx=4.0, ly=4.0, lz=4.0)
 REL = {np.float32: 2e-5, np.float64: 1e-12}

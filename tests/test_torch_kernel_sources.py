@@ -71,6 +71,7 @@ from igg_torch.ops import stokes_pallas as sp
 from igg_torch.ops import stokes_trapezoid as stz
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.ops import wave2d_trapezoid as wtz
+from torch_threads import one_torch_thread  # noqa: F401
 from torch_kernel_emulation import (  # noqa: F401
     BAND_GRIDS, GRIDS, HM3D_KW, SC, STOKES_KW, WAVE_GRIDS, WAVE_KW, _random,
     _run_band, _run_chunk, _run_stag_band, _stokes_grid, _stokes_state,

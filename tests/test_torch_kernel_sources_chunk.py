@@ -13,6 +13,7 @@ import igg_torch as it
 from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import diffusion_trapezoid as dtz
 from igg_torch.ops import hm3d_trapezoid as htz
+from torch_threads import one_torch_thread  # noqa: F401
 from torch_kernel_emulation import (  # noqa: F401
     CHUNK_GRIDS, HM3D_KW, SC, _random, _run_chunk, csrc, emulated, generated,
     libs, same)

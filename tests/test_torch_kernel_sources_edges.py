@@ -18,6 +18,7 @@ from igg_torch.ops import diffusion_trapezoid as dtz
 from igg_torch.ops import hm3d_pallas as hp
 from igg_torch.ops import hm3d_trapezoid as htz
 from igg_torch.ops import stokes_pallas as sp
+from torch_threads import one_torch_thread  # noqa: F401
 from torch_kernel_emulation import (  # noqa: F401
     BAND_EDGE_CASES, BAND_GRIDS, CHUNK_EDGE_GRIDS, HM3D_KW, SC, STEP_GRIDS,
     STOKES_KW, _random, _run_band, _run_chunk, _stokes_grid, _stokes_state,

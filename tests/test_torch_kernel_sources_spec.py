@@ -18,6 +18,7 @@ from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.ops import wave2d_trapezoid as wtz
 from igg_torch.stencil import lower
+from torch_threads import one_torch_thread  # noqa: F401
 from torch_kernel_emulation import (  # noqa: F401
     BAND_EDGE_CASES, _build_first_generated, _run_chunk, _run_stag_band,
     _spec_band_check, _spec_params, _step_cfg, csrc, emulated, first_designs,

@@ -13,6 +13,7 @@ import torch
 from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import stokes_pallas as sp
 from igg_torch.ops import stokes_trapezoid as stz
+from torch_threads import one_torch_thread  # noqa: F401
 from torch_kernel_emulation import (  # noqa: F401
     BAND_EDGE_CASES, STOKES_GRIDS, STOKES_KW, _run_stag_band, _stokes_grid,
     _stokes_state, csrc, emulated, generated, libs, same, short_segments)

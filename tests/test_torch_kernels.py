@@ -53,7 +53,10 @@ routes (`hide_communication` on its side stream, diffusion and Stokes at
 2x2x2 open blocks of 32^3, f32 and f64) bitwise their sequential
 composition with as many sync warnings, twenty overlapped calls whose
 results are dropped at once equal to twenty whose results are kept, and
-an in-place `compute` refused.
+an in-place `compute` refused; and the autotuner's route search on small
+grids of diffusion, Stokes, wave2d and shallow water (every candidate
+served by its own tier, the loaded winner served by `tune="auto"` with
+no search dispatch, bitwise the factory pinned to it).
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1187,7 +1190,8 @@ def test_verified_kernel_tier(card):
     before = dm.mega_step_kernel.launches
     got = t3.make_multi_step(10, p, verify="first_use")(T, Cp)
     torch.cuda.synchronize()
-    assert dm.mega_step_kernel.launches - before == 20   # verify + serve
+    # The verification, its timed perf-ledger sample, the served call.
+    assert dm.mega_step_kernel.launches - before == 30
     assert degrade.active() == {"diffusion3d": "diffusion3d.cuda"}
     torch.testing.assert_close(
         got, t3.make_multi_step(10, p, use_kernels=False)(T, Cp),
@@ -1537,3 +1541,112 @@ def test_overlap_in_place_compute_raises_on_the_card(card):
     torch.cuda.synchronize()
     # Refused after the full compute, before any slab work is enqueued.
     torch.testing.assert_close(A, 2.0 * A0, rtol=0, atol=0)
+
+
+def _tune_case(card, family):
+    """A small grid per family on the card, its fields and its factory at
+    n_inner 9 (a warm-up step and one K = 8 chunk where a chunk serves)."""
+    from igg_torch.models import diffusion3d as t3
+    from igg_torch.models import shallow_water as sw
+    from igg_torch.models import stokes3d as st3
+    from igg_torch.models import wave2d as w2
+    from igg_torch import stencil
+
+    if family == "diffusion3d":
+        it.init_global_grid(32, 32, 32, dimx=2, dimy=2, dimz=2, device=card,
+                            quiet=True)
+        p = t3.Params()
+        return t3.init_fields(p), lambda **kw: (
+            lambda f: lambda T, Cp: (f(T, Cp), Cp))(
+                t3.make_multi_step(9, p, **kw))
+    if family == "stokes3d":
+        it.init_global_grid(32, 32, 32, device=card, quiet=True, periodx=1,
+                            periody=1, periodz=1, overlapx=3, overlapy=3,
+                            overlapz=3)
+        p = st3.Params()
+        return it.update_halo(*st3.init_fields(p)), lambda **kw: (
+            lambda f: lambda *S: f(*S) + (S[-1],))(
+                st3.make_iteration(p, n_inner=9, **kw))
+    if family == "wave2d":
+        it.init_global_grid(128, 128, 1, device=card, quiet=True, periodx=1,
+                            periody=1)
+        p = w2.Params()
+        return it.update_halo(*w2.init_fields(p)), lambda **kw: (
+            w2.make_multi_step(9, p, **kw))
+    it.init_global_grid(128, 128, 1, dimx=2, dimy=1, dimz=1, device=card,
+                        quiet=True, periodx=1)
+    p = sw.Params()
+    return it.update_halo(*sw.init_fields(p)), lambda **kw: stencil.compile(
+        sw.spec(p), coeffs=p.coeffs(), n_inner=9, **kw)
+
+
+@pytest.mark.parametrize("family", ["diffusion3d", "shallow_water",
+                                    "stokes3d", "wave2d"])
+def test_autotune_search_and_served_winner(card, family, tmp_path,
+                                           monkeypatch):
+    """The route search on the card: every candidate builds and is served
+    by its own tier; the winner, saved and loaded into fresh memory, is
+    served by `tune="auto"` with no search dispatch, bitwise the factory
+    pinned to it; `tune=False` serves today's rule."""
+    from igg_torch import autotune, degrade, perf
+    from igg_torch import telemetry as tel
+
+    monkeypatch.setenv("IGG_TUNE_CACHE", str(tmp_path / "tune.json"))
+    monkeypatch.setenv("IGG_PERF_LEDGER", str(tmp_path / "ledger.json"))
+    perf.reset()
+    autotune.reset()
+    tel._ring().clear()
+    try:
+        S, make = _tune_case(card, family)
+        make(tune=False)(*(a.clone() for a in S))       # registers a spec
+        today = degrade.active()[family]
+        w = autotune.search(family, n_inner=9, nt=1)
+        assert not [r for r in tel.flight_recorder()
+                    if r.kind == "autotune_candidate_failed"]
+        n = len([r for r in tel.flight_recorder()
+                 if r.kind == "autotune_sample"])
+        assert n == len(autotune.candidates_for(family, n_inner=9)) >= 3
+        assert perf.best(family, backend=card.type)["device_kind"] == (
+            torch.cuda.get_device_name(card) if card.type == "cuda"
+            else "cpu")
+        autotune.reset()
+        got = make(tune="auto")(*(a.clone() for a in S))
+        assert autotune.search_dispatches() == 0
+        assert degrade.active()[family] == w["tier"]
+        want = make(**autotune._knobs(family, w))(*(a.clone() for a in S))
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        make(tune=False)(*(a.clone() for a in S))
+        assert degrade.active()[family] == today
+    finally:
+        perf.reset()
+        autotune.reset()
+
+
+def test_autotune_search_raises_on_a_failed_kernel_candidate(card, tmp_path,
+                                                             monkeypatch):
+    """A kernel candidate that fails to build during the card search
+    raises `GridError` naming it, and no winner is cached: the search never
+    hands the signature to the plain route because a kernel failed."""
+    from igg_torch import autotune, chaos, perf
+    from igg_torch import telemetry as tel
+
+    cache = tmp_path / "tune.json"
+    monkeypatch.setenv("IGG_TUNE_CACHE", str(cache))
+    monkeypatch.setenv("IGG_PERF_LEDGER", str(tmp_path / "ledger.json"))
+    perf.reset()
+    autotune.reset()
+    tel._ring().clear()
+    try:
+        _tune_case(card, "diffusion3d")
+        with chaos.kernel_compile_fail("diffusion3d.cuda"):
+            with pytest.raises(it.GridError, match=r"diffusion3d\.cuda"):
+                autotune.search("diffusion3d", n_inner=9, nt=1)
+        (failed,) = [r.payload for r in tel.flight_recorder()
+                     if r.kind == "autotune_candidate_failed"]
+        assert "InjectedCompileError" in failed["error"]
+        assert autotune.get("diffusion3d") is None
+        assert not cache.exists()
+    finally:
+        perf.reset()
+        autotune.reset()

@@ -35,6 +35,7 @@ from igg_torch.models import diffusion3d as td3
 from igg_torch.models import hm3d as th3
 from igg_torch.models import stokes3d as tst3
 from igg_torch.models import wave2d as tw2
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-12, atol=1e-9)      # igg's, tests/test_overlap.py:60
 PERIODS = [(1, 1, 1), (0, 0, 0), (1, 0, 1)]

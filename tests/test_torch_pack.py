@@ -20,6 +20,7 @@ from igg.halo import _plane
 from igg_torch import convert
 from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import pack
+from torch_threads import one_torch_thread  # noqa: F401
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 

@@ -33,6 +33,7 @@ from igg_torch import checkpoint as ck
 from igg_torch import convert, degrade
 from igg_torch import telemetry as tel
 from igg_torch.models import diffusion3d as t3
+from torch_threads import one_torch_thread  # noqa: F401
 
 PERIODIC = dict(periodx=1, periody=1, periodz=1)
 LOCAL = (6, 6, 6)

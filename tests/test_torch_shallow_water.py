@@ -26,6 +26,7 @@ from igg_torch import convert
 from igg_torch.models import shallow_water as tsw
 from igg_torch.stencil import cuda
 from igg_torch.stencil import lower
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("h", "hu", "hv")
 

@@ -39,6 +39,7 @@ from igg_torch.ops import _build
 from igg_torch.stencil import cuda
 from igg_torch.stencil import lower
 from torch_kernel_emulation import _gxx, _rewrite, csrc  # noqa: F401
+from torch_threads import one_torch_thread  # noqa: F401
 
 # Builds of the march, each an edit of stagger_band_march3.cuh's knobs
 # (None: as it is).

@@ -37,6 +37,7 @@ from igg_torch.ops import stencil as tops
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.stencil import cuda
 from igg_torch.stencil import lower as tlower
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

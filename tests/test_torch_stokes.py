@@ -26,6 +26,7 @@ from igg.models import stokes3d as ist
 from igg_torch import convert
 from igg_torch.models import stokes3d as tst
 from igg_torch.ops import stokes_pallas as sp
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("P", "Vx", "Vy", "Vz", "Rho")
 OL3 = dict(overlapx=3, overlapy=3, overlapz=3)

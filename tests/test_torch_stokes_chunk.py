@@ -33,6 +33,7 @@ from igg_torch.models import stokes3d as tst
 from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import stokes_pallas as sp
 from igg_torch.ops import stokes_trapezoid as stz
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("P", "Vx", "Vy", "Vz", "Rho")
 OL3 = dict(overlapx=3, overlapy=3, overlapz=3)

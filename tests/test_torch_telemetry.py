@@ -27,6 +27,7 @@ from igg_torch import _env as t_env
 from igg_torch import profiling
 from igg_torch import telemetry as tel
 from igg_torch.models import diffusion3d as t3
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

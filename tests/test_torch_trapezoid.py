@@ -29,6 +29,7 @@ from igg_torch.ops import diffusion_pallas as dp
 from igg_torch.ops import diffusion_trapezoid as dtz
 
 from helpers import encoded_block
+from torch_threads import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-6, 2e-5          # float32, as in tests/test_torch_diffusion.py
 SCAL = dict(rdx2=0.3, rdy2=0.25, rdz2=0.2)

@@ -14,6 +14,7 @@ import torch
 
 from igg import vis as igg_vis
 from igg_torch import vis as tvis
+from torch_threads import one_torch_thread  # noqa: F401
 
 PACKAGES = {"igg": igg_vis.BackgroundRenderer,
             "port": tvis.BackgroundRenderer}

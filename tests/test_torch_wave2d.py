@@ -27,6 +27,7 @@ from igg_torch.models import wave2d as tw
 from igg_torch.ops import chunk_engine as ce
 from igg_torch.ops import wave2d_pallas as wp
 from igg_torch.ops import wave2d_trapezoid as wtz
+from torch_threads import one_torch_thread  # noqa: F401
 
 NAMES = ("P", "Vx", "Vy")
 
