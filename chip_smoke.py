@@ -213,6 +213,41 @@ the script exits non-zero without printing a result:
    and a 20-window `run_resilient` over
    phase 6's chunk route whose windows the ledger credits to
    `diffusion3d.cuda`, with no more sync warnings than with `IGG_PERF=0`.
+   An overlapped winner is kept only where the in-search decomposition
+   confirms it; every `overlap_demoted` record is logged with its times.
+26. Comm observability (`igg_torch.comm`), each number beside the card's
+   name and power limit: (a) `calibrate_comm` on a seeded field of phase
+   7's grid (2x2x2 blocks of 256^3) and of phase 5's 256^3 periodic
+   block, f32 and f64: us per update and `igg_halo_gbps` beside phases 5
+   and 7's `update_halo` us, the counter's delta over one `update_halo`
+   equal to `plane_bytes_model`, no `igg_pct_link_peak` (no byte crosses
+   a process), and the calibrated field bitwise `update_halo(plain=True)`
+   of the same input; (b) `decompose` of diffusion at phase 6's 510^3
+   grid and of Stokes at phase 13's 509^3 grid (config 5): the three
+   variant times, the exposed fraction and the overlap efficiency beside
+   phase 24's sequential and overlapped ms, after one iteration of each
+   variant checked bitwise (exchange = compute and `update_halo(plain=
+   True)`, hidden = exchange); (c) `autotune._overlap_confirmed(
+   "diffusion3d")` at 510^3: its verdict and its
+   `overlap.diffusion3d.overlap.*` ledger entries, and phase 25's
+   demotions; (d) `run_resilient` over phase 23's 256^3 chunk route with
+   and without `comm=StepDecomposition(...)`, in turns: the final states
+   bitwise equal, at least 3 `comm_stats` windows, ms/step of each; ten
+   windows each way under `set_sync_debug_mode("warn")` with equal
+   sync-warning counts; (e) with `IGG_COMM_STALL_TIMEOUT=0.5` under
+   `chaos.collective_stall()`, exactly one `collective_stall`, a
+   `stall_r0.json` and a flight dump, the run bitwise the uninterrupted
+   one; a healthy run at the default timeout without a stall; ms/step of
+   `run_resilient` at 128^3 `make_step`, `watch_every=50`, with the
+   heartbeat off and on, in turns, and the heartbeat's own host work
+   timed alone (a watch and a fetch a probe, a thread start and join a
+   run) as a share of a window (igg's < 1% `comm_overhead` row, printed,
+   not raised); (f) `chaos.straggler(factor=4, after=16)` over
+   a watched run: the `step_stats` windows read after the 16th grant
+   (a granted poll of a probe the card has not finished reads it not
+   ready, so about two grants go to a healthy fetch) against those
+   before.  Phase 26 must launch rows 3 and 4 (the halo writer and
+   the plane packer).
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -4748,6 +4783,8 @@ class Smoke:
                     "overlap_demoted")]
                 failed = [r.payload for r in recs
                           if r.kind == "autotune_candidate_failed"]
+                demoted = [r.payload for r in recs
+                           if r.kind == "overlap_demoted"]
                 if failed or w is None:
                     raise SmokeFailure(f"[phase 25] {tag}: search failed: "
                                        f"{failed}")
@@ -4774,7 +4811,7 @@ class Smoke:
                 winners[fam] = w
                 out["search"][fam] = dict(candidates=rows, winner=label,
                                           winner_ms=w["ms"], seconds=secs,
-                                          today=today)
+                                          today=today, demoted=demoted)
             # (b) Serve from the loaded cache.
             if autotune.save() is None:
                 raise SmokeFailure("[phase 25] (b) the cache was not saved")
@@ -4962,8 +4999,437 @@ class Smoke:
             f"{out['ledger_entries']} entries [{self.card}]")
         self.perf["autotune"] = out
 
+    # -- phase 26: comm observability ------------------------------------
+    def comm_phase(self):
+        """Phase 26 (module docstring): `igg_torch.comm` on the card."""
+        import tempfile
+
+        t_phase = time.perf_counter()
+        out = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            out["calibrate"] = self.comm_calibrate()
+            out["decompose"] = self.comm_decompose()
+            out["confirm"] = self.comm_confirm()
+            out["monitor"] = self.comm_monitor()
+            out["heartbeat"] = self.comm_heartbeat(tmp)
+            out["straggler"] = self.comm_straggler()
+        counts = self.ops.launch_counts()
+        idle = [k for k in ("halo_write", "pack_planes") if not counts[k]]
+        if idle:
+            raise SmokeFailure(f"phase 26 did not launch {idle}")
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"[phase 26] done in {out['seconds']:.1f} s [{self.card}]")
+        self.perf["comm"] = out
+
+    def comm_calibrate(self):
+        """(a) `calibrate_comm` on a seeded field of phase 7's and phase
+        5's grids, f32 and f64."""
+        from igg_torch import comm
+        from igg_torch import telemetry as tel
+
+        it, m, n = self.it, self.n_multi, self.n_head
+        out = {}
+        for phase, local, kw in ((7, (m, m, m), dict(dimx=2, dimy=2, dimz=2)),
+                                 (5, (n, n, n), dict(**SINGLE, **PERIODIC))):
+            for dtype in (torch.float32, torch.float64):
+                g = self.grid(local, **kw)
+                tag = f"{'x'.join(map(str, local))} {kw} {dtype}"
+                X = uniform(it.stacked_shape(g.nxyz), -1, 1, dtype, self.dev,
+                            26)
+                want = it.update_halo(X.clone(), plain=True)
+                total, by_mode = comm.plane_bytes_model(g.nxyz, dtype)
+                name = "igg_halo_plane_bytes_total"
+                before = tel.snapshot().get(name, {}).get("value", 0.0)
+                it.update_halo(X.clone())
+                delta = tel.snapshot()[name]["value"] - before
+                if delta != total:
+                    raise SmokeFailure(f"[phase 26] (a) {tag}: the counter "
+                                       f"moved {delta}, the model {total}")
+                s = comm.calibrate_comm(fields=(X,), n_inner=10, nt=4)
+                sync(self.dev)
+                err = check(f"[phase 26] (a) {tag}: calibrated field", X,
+                            want, 0.0)
+                pct = [k for k in tel.snapshot()
+                       if k.startswith("igg_pct_link_peak")]
+                if s["pct_link_peak"] is not None or pct:
+                    raise SmokeFailure(f"[phase 26] (a) {tag}: a link-peak "
+                                       f"percentage with no wire byte")
+                key = "" if g.dims == (1, 1, 1) else \
+                    "_" + "x".join(map(str, g.dims))
+                prior = self.perf.get(f"update_halo{key}_{dtype}", {})
+                us = s["seconds_per_update"] * 1e6
+                log(f"[phase 26] (a) {tag}: calibrate_comm {us:.2f} us per "
+                    f"update (phase {phase}'s update_halo "
+                    f"{prior.get('us_per_call', float('nan')):.2f} us/call), "
+                    f"igg_halo_gbps {s['gbps']:.2f} over "
+                    f"{s['bytes_per_update']} logical bytes a block "
+                    f"({s['gbps'] * g.nprocs:.2f} GB/s over the card's "
+                    f"{g.nprocs} blocks), tier "
+                    f"{s['tier']}; the counter's delta over one update_halo "
+                    f"{int(delta)} = plane_bytes_model {dict(by_mode)}; "
+                    f"link peak {s['link_peak_gbps']} GB/s, wire bytes "
+                    f"{s['wire_bytes_per_update']}, no igg_pct_link_peak; "
+                    f"calibrated field vs update_halo(plain=True) "
+                    f"{err:.1e} (tolerance 0) [{self.card}]")
+                out[tag] = dict(us_per_update=us, gbps=s["gbps"],
+                                bytes_per_update=s["bytes_per_update"],
+                                counter_delta=delta,
+                                update_halo_us=prior.get("us_per_call"))
+                del X, want
+        return out
+
+    def comm_decompose(self):
+        """(b) `decompose` of diffusion at 510^3 and of Stokes at 509^3,
+        one iteration of each variant checked bitwise first."""
+        from igg_torch import comm
+
+        it, m = self.it, self.n_multi
+        blocks = dict(dimx=2, dimy=2, dimz=2)
+        ovl = self.perf.get("overlap", {})
+        out = {}
+        for key, family, unit in (("diffusion", "diffusion3d", "step"),
+                                  ("stokes", "stokes3d", "iteration")):
+            mv = comm.model_step_variants(family)
+            self.grid((m, m, m), **blocks, **mv["grid_kwargs"])
+            tag = f"{family} {it.nx_g()}^3 open (2x2x2 x {m}^3)"
+            S = it.update_halo(*mv["init"](torch.float32))
+            nf, r = mv["nf"], mv["radius"]
+            outs = {v: comm._build_variant(mv["compute"], nf, v, 1, r)(*S)
+                    for v in comm._VARIANTS}
+            X = mv["compute"](*S)
+            X = tuple(X) if isinstance(X, (tuple, list)) else (X,)
+            it.update_halo(*X, plain=True)
+            sync(self.dev)
+            err = max(max(check(f"[phase 26] (b) {tag}: exchange", a, b, 0.0),
+                          check(f"[phase 26] (b) {tag}: hidden", c, a, 0.0))
+                      for a, b, c in zip(outs["exchange"], X, outs["hidden"]))
+            del outs, X
+            d = comm.decompose(mv["compute"], S[:nf], aux=S[nf:], radius=r,
+                               nt=2, n_inner=2)
+            p24 = ovl.get(key)
+            beside = ("phase 24 did not run" if not p24 else
+                      f"phase 24's {unit}: sequential "
+                      f"{fmt_list(p24['sequential_ms_per_unit'])}, "
+                      f"overlapped {fmt_list(p24['overlapped_ms_per_unit'])}")
+            eff = d.get("overlap_efficiency")
+            log(f"[phase 26] (b) {tag}: decompose ms per {unit}: compute "
+                f"{d['compute_ms']:.4f}, exchange {d['exchange_ms']:.4f}, "
+                f"hidden {d['hidden_ms']:.4f}; exposed-comm fraction "
+                f"{d['exposed_comm_fraction']:.4f}, overlap efficiency "
+                f"{'-' if eff is None else format(eff, '.4f')} ({beside}); "
+                f"one iteration of each variant: exchange vs compute + "
+                f"update_halo(plain=True), hidden vs exchange, max abs err "
+                f"{err:.1e} (tolerance 0) [{self.card}]")
+            out[key] = dict(d, bitwise_err=err)
+            del S
+        return out
+
+    def comm_confirm(self):
+        """(c) The search's overlap confirmation at 510^3, and phase 25's
+        demotions."""
+        from igg_torch import autotune, perf
+
+        m = self.n_multi
+        self.grid((m, m, m), dimx=2, dimy=2, dimz=2)
+        kept, d = autotune._overlap_confirmed("diffusion3d", None,
+                                              self.steps_multi)
+        stem = "overlap.diffusion3d.overlap."
+        entries = sorted((e["tier"], e["best_ms"]) for e in perf.query("comm")
+                         if e["tier"].startswith(stem))
+        if len(entries) != 3 or d is None:
+            raise SmokeFailure(f"[phase 26] (c) ledger entries {entries}")
+        log(f"[phase 26] (c) autotune._overlap_confirmed('diffusion3d') at "
+            f"{self.it.nx_g()}^3: {'kept' if kept else 'demoted'} (hidden "
+            f"{d['hidden_ms']:.4f} against exchange {d['exchange_ms']:.4f} "
+            f"ms per step); ledger "
+            f"{', '.join(f'{t} {ms:.4f} ms' for t, ms in entries)} "
+            f"[{self.card}]")
+        search = self.perf.get("autotune", {}).get("search", {})
+        for fam, row in search.items():
+            demoted = (json.dumps(row["demoted"]) if row.get("demoted")
+                       else "none (no overlapped winner)")
+            log(f"[phase 26] (c) phase 25's search of {fam}: winner "
+                f"{row['winner']}; overlap_demoted {demoted}")
+        return dict(kept=kept, entries=entries,
+                    demoted={f: r.get("demoted") for f, r in search.items()})
+
+    def comm_monitor(self):
+        """(d) `run_resilient` over phase 23's 256^3 chunk route with and
+        without a StepDecomposition, in turns; sync warnings."""
+        import warnings
+
+        from igg_torch import comm
+        from igg_torch import telemetry as tel
+
+        it, n, steps = self.it, self.n_head, self.steps_multi
+        self.grid((n, n, n), **SINGLE, **PERIODIC)
+        T, Cp, fn, _ = self.resilient_state(multi=True)
+        mv = comm.model_step_variants("diffusion3d")
+        watch = 2 * steps
+
+        def run(monitored, windows):
+            mon = (comm.StepDecomposition(mv["compute"], (T,), aux=(Cp,),
+                                          reps=1) if monitored else None)
+            tel._ring().clear()
+            sync(self.dev)
+            t0 = time.perf_counter()
+            res = it.run_resilient(fn, {"T": T, "Cp": Cp}, windows * watch,
+                                   steps_per_call=steps, watch_every=watch,
+                                   comm=mon, install_sigterm=False)
+            sync(self.dev)
+            ms = (time.perf_counter() - t0) / (windows * watch) * 1e3
+            stats = [r.payload for r in tel.flight_recorder()
+                     if r.kind == "comm_stats"]
+            if mon is not None and len(stats) != mon.windows:
+                raise SmokeFailure(f"[phase 26] (d) {len(stats)} comm_stats "
+                                   f"records, {mon.windows} windows")
+            return res.state["T"], ms, stats
+
+        windows = 120
+        run(False, 4)
+        run(True, 4)
+        turns = {False: [], True: []}
+        finals, stats = [], []
+        for monitored in (False, True, True, False):
+            Tn, ms, st = run(monitored, windows)
+            turns[monitored].append(ms)
+            finals.append(Tn)
+            if monitored:
+                stats.append(st)
+        err = max(check(f"[phase 26] (d) final T, run {i}", a, finals[0], 0.0)
+                  for i, a in enumerate(finals))
+        got = min(len(st) for st in stats)
+        if got < 3:
+            raise SmokeFailure(f"[phase 26] (d) {got} comm_stats windows")
+        last = stats[-1][-1]
+        eff = last.get("overlap_efficiency")
+        log(f"[phase 26] (d) {n}^3 periodic, make_multi_step({steps}), "
+            f"watch_every={watch}, {windows} windows: ms/step in turns bare "
+            f"loop {fmt_list(turns[False])}, with comm=StepDecomposition "
+            f"{fmt_list(turns[True])} "
+            f"({(min(turns[True]) / min(turns[False]) - 1) * 100:+.2f}%); "
+            f"comm_stats windows {[len(st) for st in stats]}; the last: "
+            f"compute {last['compute_ms']:.4f}, exchange "
+            f"{last['exchange_ms']:.4f}, hidden {last['hidden_ms']:.4f} ms "
+            f"a step, exposed {last['exposed_comm_fraction']:.4f}, "
+            f"efficiency {'-' if eff is None else format(eff, '.4f')}, "
+            f"config {last.get('config')}; final T with and without the "
+            f"monitor max abs err {err:.1e} (tolerance 0) [{self.card}]")
+        warned = {}
+        for monitored in (False, True):
+            mon = (comm.StepDecomposition(mv["compute"], (T,), aux=(Cp,),
+                                          reps=1) if monitored else None)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    it.run_resilient(fn, {"T": T, "Cp": Cp}, 10 * watch,
+                                     steps_per_call=steps, watch_every=watch,
+                                     comm=mon, install_sigterm=False)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            warned[monitored] = [
+                f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+        if len(warned[True]) != len(warned[False]):
+            raise SmokeFailure(f"[phase 26] (d) sync warnings with the "
+                               f"monitor {warned[True]}, without "
+                               f"{warned[False]}")
+        log(f"[phase 26] (d) ten windows under set_sync_debug_mode('warn'): "
+            f"{len(warned[True])} sync warnings with the monitor, "
+            f"{len(warned[False])} without ({sorted(set(warned[True]))})")
+        return dict(ms_per_step=turns, windows=[len(st) for st in stats],
+                    last=last, sync_warnings={k: len(v) for k, v in
+                                              warned.items()})
+
+    def comm_heartbeat(self, tmp):
+        """(e) The stall heartbeat under `chaos.collective_stall()` with a
+        0.5 s timeout; a healthy run at the default timeout; its overhead
+        at 128^3 `make_step`."""
+        from igg_torch import chaos
+        from igg_torch import telemetry as tel
+
+        it, n, steps = self.it, self.n_head, self.steps_multi
+        self.grid((n, n, n), **SINGLE, **PERIODIC)
+        T, Cp, fn, _ = self.resilient_state(multi=True)
+        calls = 60
+        ref = self.run_calls(fn, {"T": T, "Cp": Cp}, calls)["T"]
+
+        def slow(s):
+            time.sleep(0.02)
+            return fn(s)
+
+        def events(d):
+            with open(os.path.join(d, "events_r0.jsonl")) as f:
+                return [json.loads(line) for line in f]
+
+        out = {}
+        stalled_dir = os.path.join(tmp, "stall")
+        os.environ["IGG_COMM_STALL_TIMEOUT"] = "0.5"
+        try:
+            with chaos.collective_stall():
+                res = it.run_resilient(slow, {"T": T, "Cp": Cp},
+                                       calls * steps, steps_per_call=steps,
+                                       watch_every=steps,
+                                       max_pending_probes=100,
+                                       telemetry=stalled_dir,
+                                       install_sigterm=False)
+        finally:
+            del os.environ["IGG_COMM_STALL_TIMEOUT"]
+        err = check("[phase 26] (e) the stalled run's T", res.state["T"], ref,
+                    0.0)
+        stalls = [r for r in events(stalled_dir)
+                  if r["kind"] == "collective_stall"]
+        report = os.path.join(stalled_dir, "stall_r0.json")
+        dumps = tel.flight_dumps(stalled_dir, rank=0)
+        if len(stalls) != 1 or not os.path.exists(report) or not dumps:
+            raise SmokeFailure(f"[phase 26] (e) {len(stalls)} stalls, report "
+                               f"{os.path.exists(report)}, dumps {dumps}")
+        p = stalls[0]["payload"]
+        log(f"[phase 26] (e) IGG_COMM_STALL_TIMEOUT=0.5 under "
+            f"chaos.collective_stall(), {calls} calls of 20 ms sleep + "
+            f"make_multi_step({steps}): one collective_stall at step "
+            f"{stalls[0]['step']} ({p['in_flight']}, age {p['age_s']} s, "
+            f"{p['pending']} pending), stall_r0.json, "
+            f"{os.path.basename(str(dumps[0]))}; final T vs the "
+            f"uninterrupted run {err:.1e} (tolerance 0)")
+        out["stall"] = dict(step=stalls[0]["step"], age_s=p["age_s"],
+                            pending=p["pending"])
+        healthy_dir = os.path.join(tmp, "healthy")
+        it.run_resilient(fn, {"T": T, "Cp": Cp}, calls * steps,
+                         steps_per_call=steps, watch_every=steps,
+                         telemetry=healthy_dir, install_sigterm=False)
+        quiet = not [r for r in events(healthy_dir)
+                     if r["kind"] == "collective_stall"]
+        if not quiet or os.path.exists(os.path.join(healthy_dir,
+                                                    "stall_r0.json")):
+            raise SmokeFailure("[phase 26] (e) a healthy run reported a stall")
+        log("[phase 26] (e) a healthy run at the default timeout (120 s): "
+            "no collective_stall, no stall_r0.json")
+        # The heartbeat's cost on the host-bound loop.
+        self.grid((N_OVERHEAD,) * 3, **SINGLE, **PERIODIC)
+        T, Cp, fn, _ = self.resilient_state(multi=False)
+        n_steps = 3000
+
+        def timed(heartbeat):
+            if not heartbeat:
+                os.environ["IGG_COMM_STALL_TIMEOUT"] = "0"
+            try:
+                sync(self.dev)
+                t0 = time.perf_counter()
+                it.run_resilient(fn, {"T": T, "Cp": Cp}, n_steps,
+                                 watch_every=50, watch_fields=["T"],
+                                 install_sigterm=False)
+                sync(self.dev)
+            finally:
+                os.environ.pop("IGG_COMM_STALL_TIMEOUT", None)
+            return (time.perf_counter() - t0) / n_steps * 1e3
+
+        timed(False), timed(True)
+        turns = {False: [], True: []}
+        for hb in (False, True) * 5:
+            turns[hb].append(timed(hb))
+        best = {hb: min(v) for hb, v in turns.items()}
+        mid = {hb: float(np.median(v)) for hb, v in turns.items()}
+        delta = (best[True] - best[False]) / best[False]
+        # The heartbeat's own host work, timed alone: a watch and a fetch
+        # a probe, a thread start and join a run.
+        from igg_torch import comm
+
+        sw = comm.StallWatchdog(120.0, run="cost")
+        t0 = time.perf_counter()
+        for i in range(2000):
+            sw.watch(("probe", i), i, "cost probe")
+            sw.fetched(("probe", i), i)
+        per_probe = (time.perf_counter() - t0) / 2000
+        sw.close()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            sw = comm.StallWatchdog(120.0, run="cost")
+            sw.watch(("probe", 0), 0, "cost probe")
+            sw.close()
+        per_run = (time.perf_counter() - t0) / 20
+        share = (per_probe + per_run / (n_steps // 50)) / \
+            (50 * best[False] * 1e-3)
+        log(f"[phase 26] (e) {N_OVERHEAD}^3 make_step, watch_every=50, "
+            f"{n_steps} steps: ms/step in turns, heartbeat off "
+            f"{fmt_list(turns[False])}, on {fmt_list(turns[True])}: "
+            f"fastest {delta * 100:+.2f}%, median "
+            f"{(mid[True] / mid[False] - 1) * 100:+.2f}%; the heartbeat's "
+            f"own host work {per_probe * 1e6:.2f} us a probe and "
+            f"{per_run * 1e6:.1f} us a run (thread start and join), "
+            f"{share * 100:.3f}% of a 50-step window at the fastest "
+            f"(igg's comm_overhead contract < 1%: "
+            f"{'met' if share < 0.01 else 'MISSED'}) [{self.card}]")
+        out["overhead"] = dict(ms_per_step=turns, delta=delta,
+                               us_per_probe=per_probe * 1e6,
+                               us_per_run=per_run * 1e6, share=share)
+        return out
+
+    def comm_straggler(self):
+        """(f) `chaos.straggler(factor=4, after=k)` over a watched run: the
+        windows read in the loop after the k-th grant against those
+        before.  A grant is a readiness poll the rate limit lets through;
+        on the card a granted poll of a probe the device has not finished
+        reads it not ready, so grants are timed here (a wrap of the seam's
+        predicate), not counted in windows."""
+        from igg_torch import chaos, resilience
+        from igg_torch import telemetry as tel
+
+        it, n, steps = self.it, self.n_head, self.steps_multi
+        self.grid((n, n, n), **SINGLE, **PERIODIC)
+        T, Cp, fn, _ = self.resilient_state(multi=True)
+        k, calls, base = 16, 60, 0.02
+        last, grants = [0.0], []
+
+        def slow(s):
+            time.sleep(base)
+            out = fn(s)
+            last[0] = time.monotonic()
+            return out
+
+        tel._ring().clear()
+        with chaos.straggler(factor=4.0, base_window_s=base, after=k):
+            tap = resilience._CHAOS_FETCH_TAP
+
+            def timed_tap(obj):
+                granted = tap(obj)
+                if granted:
+                    grants.append(time.monotonic())
+                return granted
+
+            resilience._CHAOS_FETCH_TAP = timed_tap
+            it.run_resilient(slow, {"T": T, "Cp": Cp}, calls * steps,
+                             steps_per_call=steps, watch_every=steps,
+                             max_pending_probes=100, install_sigterm=False)
+        # The first rate-limited grant: windows read before it came through
+        # the k free grants.
+        t_k = grants[k]
+        wins = [(r.t, r.payload["ms_per_step"]) for r in
+                tel.flight_recorder()
+                if r.kind == "step_stats" and r.t <= last[0]]
+        before = [ms for t, ms in wins if t < t_k]
+        after = [ms for t, ms in wins if t >= t_k]
+        if not before or not after:
+            raise SmokeFailure(f"[phase 26] (f) windows {wins}, grant "
+                               f"{k + 1} at {t_k}")
+        ratio = float(np.median(after)) / float(np.median(before))
+        if ratio < 2:
+            raise SmokeFailure(f"[phase 26] (f) windows after the grants "
+                               f"{after}, before {before}")
+        log(f"[phase 26] (f) chaos.straggler(factor=4, base_window_s={base}, "
+            f"after={k}) over {calls} calls of {base * 1e3:.0f} ms sleep + "
+            f"make_multi_step({steps}), watch_every={steps}: ms/step of the "
+            f"windows read in the loop, up to the {k}th grant "
+            f"{fmt_list(before)}, after it {fmt_list(after)}; median ratio "
+            f"{ratio:.2f}; {len(grants)} grants [{self.card}]")
+        return dict(before=before, after=after, ratio=ratio,
+                    grants=len(grants))
+
     def main_path(self):
-        """Phases 2 to 25, each with the launch counters set to 0 just
+        """Phases 2 to 26, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -4986,7 +5452,8 @@ class Smoke:
             ("19", lambda: self.stokes_banded(19, one_block=False)),
             ("20", self.relax3d_banded), ("21", self.observability),
             ("22", self.checkpoint_phase), ("23", self.resilience_phase),
-            ("24", self.overlap_phase), ("25", self.tune_phase)]
+            ("24", self.overlap_phase), ("25", self.tune_phase),
+            ("26", self.comm_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

@@ -23,7 +23,8 @@ a side CUDA stream beside the full-domain compute, and the factories'
 `overlap=` admission), `perf` (the perf ledger of measured step times,
 its roofline and drift gauges, the regression gate) and `autotune` (the
 measured route search and its tuning cache behind every factory's
-`tune=`).
+`tune=`) and `comm` (the comm ledger, the step-time decomposition, rank
+skew and the collective-stall heartbeat behind `run_resilient(comm=)`).
 Grid arrays are block-stacked tensors on one device; entry points use the
 card unless the caller passes `device="cpu"`.  Imports neither JAX nor
 `igg`.
@@ -38,7 +39,7 @@ from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import (autotune, chaos, checkpoint, degrade, overlap, perf,
+from . import (autotune, chaos, checkpoint, comm, degrade, overlap, perf,
                profiling, resilience, stencil, telemetry, vis)
 from .overlap import hide_communication
 from .resilience import ResilienceError, RunResult, run_resilient
@@ -57,7 +58,7 @@ __all__ = [
     "NDIMS", "PROC_NULL", "GlobalGrid", "GridError", "ResilienceError",
     "RunResult", "Telemetry", "autotune", "barrier", "chaos",
     "check_initialized",
-    "checkpoint", "coord_fields", "degrade",
+    "checkpoint", "comm", "coord_fields", "degrade",
     "finalize_global_grid", "from_local_blocks", "full", "gather",
     "gather_interior", "get_global_grid", "global_grid", "grid_epoch",
     "grid_is_initialized", "has_neighbor", "hide_communication",

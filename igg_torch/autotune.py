@@ -36,10 +36,10 @@ Deliberate differences from igg: the tier names are the port's (igg's
 map onto them through :func:`igg_torch.perf.port_tier` when a winner is
 served); there is no VMEM axis (the kernels' shared memory is fixed per
 design, `igg_torch/ops/_smem.py`), so ``vmem_mb`` is None in every entry
-the port writes and :func:`applied` installs no cap; and an overlapped
-candidate that wins the timing is demoted to the best sequential one
-with an ``overlap_demoted`` record, because the exposed-communication
-check that confirms it in igg (`igg.comm.decompose`) is not ported yet.
+the port writes and :func:`applied` installs no cap; and the overlapped
+winner's confirmation (:func:`_overlap_confirmed`) records its
+decomposition under the port's tier, ``overlap.<family>.overlap.*``,
+where igg writes ``overlap.<family>.xla+overlap.*``.
 """
 
 from __future__ import annotations
@@ -62,11 +62,6 @@ __all__ = ["TUNE_FORMAT", "applied", "cache_path", "candidates_for", "get",
            "search_dispatches"]
 
 TUNE_FORMAT = "igg-tune-cache-v1"
-
-# Why an overlapped winner is demoted (module docstring).
-OVERLAP_DEMOTED_REASON = (
-    "the exposed-communication check that confirms an overlapped winner "
-    "(igg.comm.decompose) is ROADMAP Queue A item 5, not ported yet")
 
 _lock = threading.RLock()
 _CACHE: Dict[Tuple, Dict] = {}
@@ -624,11 +619,57 @@ def search(family: str, *, n_inner: int = 8, params=None,
     results.sort(key=lambda r: r[0] if math.isfinite(r[0]) else math.inf)
     ms, best = results[0]
     if best.get("overlap"):
-        seq = next((r for r in results if not r[1].get("overlap")), None)
-        _telemetry.emit("overlap_demoted", family=family, overlapped_ms=ms,
-                        demoted_to=_cand_label(seq[1]) if seq else None,
-                        reason=OVERLAP_DEMOTED_REASON)
-        if seq is not None:
-            ms, best = seq
+        confirmed, d = _overlap_confirmed(family, params, n_inner)
+        if not confirmed:
+            # The overlapped route won the timing, but the measured
+            # decomposition shows no exposed communication hidden (hidden
+            # >= exchange): demote it to the best sequential candidate.
+            # The decomposition is in the ledger (family "comm").
+            seq = next((r for r in results if not r[1].get("overlap")),
+                       None)
+            _telemetry.emit(
+                "overlap_demoted", family=family, overlapped_ms=ms,
+                demoted_to=_cand_label(seq[1]) if seq else None,
+                **{k: d[k] for k in ("compute_ms", "exchange_ms",
+                                     "hidden_ms")})
+            if seq is not None:
+                ms, best = seq
     winner = dict(best, ms=ms)
     return record_winner(family, winner, local_shape=ctx["local_shape"])
+
+
+def _overlap_confirmed(family: str, params, n_inner: int
+                       ) -> Tuple[bool, Optional[Dict]]:
+    """Whether an overlapped winner is kept: an in-search
+    :func:`igg_torch.comm.decompose` must show the hidden variant beating
+    the plain exchange, attributed to the ``"<family>.overlap"`` serving
+    configuration in the comm ledger.  Returns ``(verdict, decomposition
+    or None)``.  A family with no step-variant recipe (a spec family)
+    passes on the timing alone.  A decomposition that fails emits
+    ``overlap_confirm_failed``: on CPU tensors the winner then stays, as
+    in igg; on the card it raises `GridError` naming the family."""
+    import torch
+
+    from . import comm, shared
+
+    try:
+        mv = comm.model_step_variants(family, params)
+    except GridError:
+        return True, None
+    try:
+        fields = mv["init"](torch.float32)
+        d = comm.decompose(mv["compute"], fields[:mv["nf"]],
+                           aux=fields[mv["nf"]:], radius=mv["radius"],
+                           nt=2, n_inner=max(2, int(n_inner) // 2),
+                           config=f"{family}.overlap")
+    except Exception as e:
+        _telemetry.emit("overlap_confirm_failed", family=family,
+                        error=f"{type(e).__name__}: {e}")
+        if shared.global_grid().device.type == "cuda":
+            raise GridError(
+                f"igg_torch.autotune: the overlap confirmation of "
+                f"{family} failed on the card ({type(e).__name__}: {e}); "
+                f"a card search never keeps a winner it could not "
+                f"measure") from e
+        return True, None
+    return d["hidden_ms"] < d["exchange_ms"], d

@@ -32,11 +32,16 @@ one-shot, so a rolled-back replay passes the same step clean:
 - :func:`stale_calibration`: a wrong cost-model prediction for a family
   in the perf ledger (`igg_torch.perf.predict`), so the next measured
   sample fires ``cost_model_drift``.
+- :func:`collective_stall` / :func:`straggler`: the watchdog's readiness
+  channel (`igg_torch.resilience._CHAOS_FETCH_TAP`, read at every
+  readiness poll) reports not ready while armed, or grants readiness at
+  most once per window: a hung exchange, which the stall heartbeat
+  (`igg_torch.comm.StallWatchdog`) must report, and a slow rank, whose
+  inflated `step_stats` windows show it.
 
 Every injector is a context manager that disarms on the way out, also
 when the body raises; :func:`armed` composes several.  Not ported yet
-(ROADMAP Queue A): `collective_stall` and `straggler` (item 5),
-`silent_corruption` (item 7),
+(ROADMAP Queue A): `silent_corruption` (item 7),
 `throughput_collapse`, `scheduler_fault` and `job_preempt_at` (item 6),
 `arrival_storm` and `malformed_submission` (item 8), and ChaosPlan's
 member-targeted `nan_at` entries (item 6, ensembles).
@@ -58,7 +63,8 @@ from .shared import GridError
 __all__ = ["ChaosPlan", "corrupt_checkpoint", "poison_checkpoint",
            "halo_corruption", "HaloCorruption", "kernel_compile_fail",
            "kernel_corrupt", "KernelChaos", "stale_calibration",
-           "StaleCalibration", "armed"]
+           "StaleCalibration", "collective_stall", "FetchStall",
+           "straggler", "FetchDelay", "armed"]
 
 
 class ChaosPlan:
@@ -469,6 +475,159 @@ def stale_calibration(family: str, s_per_step: float) -> StaleCalibration:
     ``cost_model_drift`` once per (family, tier), the trigger of igg's
     drift -> recalibrate loop."""
     return StaleCalibration(family, s_per_step)
+
+
+class FetchStall:
+    """Armed collective-stall injection (see :func:`collective_stall`): a
+    never-ready predicate in the `igg_torch.resilience._CHAOS_FETCH_TAP`
+    seam, the readiness primitive of the watchdog's probes, the comm
+    decomposition probes and the stall heartbeat, so every readiness poll
+    reports not ready while armed.  Read at poll time, so arming clears
+    nothing.  Forced reads (at the pending-depth bound, at the end-of-run
+    drain) still complete, because the data is there: only the readiness
+    channel stalls, which is how the host sees a hung exchange.
+
+    With `device` (a `torch.device` or a CUDA index), the stall is tied to
+    that device: polls report not ready only while the live grid's device
+    is that device, so a grid re-initialized elsewhere no longer sees it
+    (igg's sick-chip shape)."""
+
+    def __init__(self, device=None):
+        self._device = device
+
+    def _sick_in_grid(self) -> bool:
+        import torch
+
+        from . import shared
+
+        if not shared.grid_is_initialized():
+            return True            # no grid to have fenced it yet
+        dev = self._device
+        if isinstance(dev, (int, np.integer)):
+            dev = torch.device("cuda", int(dev))
+        return _same_device(torch.device(dev),
+                            torch.device(shared.global_grid().device))
+
+    def _tap(self, obj) -> bool:
+        if self._device is None:
+            return False           # unconditionally stalled
+        return not self._sick_in_grid()
+
+    def arm(self) -> "FetchStall":
+        from . import resilience
+
+        resilience._CHAOS_FETCH_TAP = self._tap
+        return self
+
+    def disarm(self) -> None:
+        from . import resilience
+
+        resilience._CHAOS_FETCH_TAP = None
+
+    def __enter__(self) -> "FetchStall":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+
+def _same_device(a, b) -> bool:
+    """Device equality with an index-less CUDA device read as the current
+    one."""
+    import torch
+
+    def norm(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    if a.type != b.type:
+        return False
+    return norm(a) == norm(b)
+
+
+def collective_stall(device=None) -> FetchStall:
+    """Context manager making every probe's readiness poll report not
+    ready: the stand-in for an exchange hung between devices.  The stall
+    heartbeat (`igg_torch.comm.StallWatchdog`, ``IGG_COMM_STALL_TIMEOUT``)
+    must report the probe over age with a ``collective_stall`` record, a
+    ``stall_r<rank>.json`` report and a flight dump::
+
+        with igg_torch.chaos.collective_stall():
+            res = igg_torch.run_resilient(step, state, n, watch_every=5,
+                                          max_pending_probes=100, ...)
+
+    `max_pending_probes` is raised so that the loop's forced reads do not
+    retire the probe before the deadline; the run still completes (the
+    end-of-run drain reads every probe).  `device` ties the stall to one
+    device (:class:`FetchStall`)."""
+    return FetchStall(device=device)
+
+
+class FetchDelay:
+    """Armed straggler injection (see :func:`straggler`): a rate limit on
+    the readiness channel, at most one grant per `delay_s` seconds after
+    `after` free grants (the healthy baseline), through the
+    `igg_torch.resilience._CHAOS_FETCH_TAP` seam.  Probe reads then trickle
+    at the slow rank's pace and every watchdog window that
+    :class:`igg_torch.telemetry.StepStats` measures inflates.  Forced reads
+    still complete, so the run always finishes; raise `max_pending_probes`
+    so the windows stay readiness-gated.  `rank` limits it to one process
+    (`telemetry._process()`; a one-process run is rank 0)."""
+
+    def __init__(self, delay_s: float, *, rank: Optional[int] = None,
+                 after: int = 0):
+        self._delay = float(delay_s)
+        self._rank = rank
+        self._free = int(after)
+        self._last_grant: Optional[float] = None
+
+    def _tap(self, obj) -> bool:
+        import time
+
+        from . import telemetry
+
+        if self._rank is not None and \
+                int(telemetry._process()) != int(self._rank):
+            return True
+        now = time.monotonic()
+        if self._free > 0:
+            self._free -= 1
+            self._last_grant = now
+            return True
+        if self._last_grant is None or now - self._last_grant >= self._delay:
+            self._last_grant = now
+            return True
+        return False
+
+    def arm(self) -> "FetchDelay":
+        from . import resilience
+
+        resilience._CHAOS_FETCH_TAP = self._tap
+        return self
+
+    def disarm(self) -> None:
+        from . import resilience
+
+        resilience._CHAOS_FETCH_TAP = None
+
+    def __enter__(self) -> "FetchDelay":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+
+def straggler(rank: int = 0, factor: float = 4.0, *,
+              base_window_s: float = 0.05, after: int = 0) -> FetchDelay:
+    """Context manager making process `rank` a straggler: readiness grants
+    are limited to one per ``factor * base_window_s`` seconds
+    (`base_window_s` approximates the healthy watch window), so measured
+    watchdog windows inflate by about `factor`.  `after` grants pass
+    first, so the run sets its healthy baseline before the slowdown (a
+    card degrading mid-run).  Rides the readiness seam
+    (:class:`FetchDelay`)."""
+    return FetchDelay(factor * base_window_s, rank=rank, after=after)
 
 
 @contextlib.contextmanager

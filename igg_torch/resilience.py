@@ -51,9 +51,18 @@ that loop, with igg's signature, defaults, validation and event stream:
   `preempted=True`.  `resume=True` continues from the newest healthy
   generation, elastically onto another decomposition of the same grid.
 
+- **Communication observability** (:mod:`igg_torch.comm`).  Whenever the
+  loop watches, every probe is registered with a collective-stall
+  heartbeat (`comm.StallWatchdog`, ``IGG_COMM_STALL_TIMEOUT``) and retired
+  when read; a probe over age that still reports not ready becomes a
+  ``collective_stall`` record, a ``stall_r<rank>.json`` report and a
+  flight dump.  `comm=` takes a :class:`igg_torch.comm.StepDecomposition`,
+  which dispatches one decomposition probe a watch window beside the
+  watchdog's and polls it once a loop iteration.
+
 The fault injectors of :mod:`igg_torch.chaos` drive every path.  Not
-ported yet: `heal=`, `integrity=`, `comm=` and `serve=` (each raises
-`GridError`) and the multi-process branches (more than one process raises
+ported yet: `heal=`, `integrity=` and `serve=` (each raises `GridError`)
+and the multi-process branches (more than one process raises
 `GridError`).  With the perf ledger on (`IGG_PERF`, default on), each
 watchdog window's ms/step is recorded for the tier that served it
 (`igg_torch.perf.observe_window`).
@@ -387,7 +396,6 @@ class _AsyncCheckpointWriter:
 # ROADMAP Queue A item that brings each.
 _UNPORTED = {
     "serve": ("igg.statusd", "item 8, ops plane and service"),
-    "comm": ("igg.comm", "item 5, comm observability"),
     "heal": ("igg.heal", "item 7, integrity and heal"),
     "integrity": ("igg.integrity", "item 7, integrity and heal"),
 }
@@ -449,8 +457,16 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
       False.  Events also go to the telemetry bus; with a session the
       loop emits `step_stats` per window and dumps the flight recorder on
       `ResilienceError`, on preemption and on any other escape.
-    - `serve`, `comm`, `heal`, `integrity`: not ported yet; anything but
-      None raises `GridError`.
+    - `comm`: an :class:`igg_torch.comm.StepDecomposition` (per-window
+      ``comm_stats`` records; needs `watch_every` > 0).  Independently of
+      it, every probe is watched by the collective-stall heartbeat
+      (module docstring; ``IGG_COMM_STALL_TIMEOUT=0`` turns it off).  On
+      the card a failure of the monitor's end-of-run drain raises once
+      the run's own outcome is settled (the run's own error wins, and
+      carries it as a note); on CPU tensors it is dropped, as igg drops
+      it.
+    - `serve`, `heal`, `integrity`: not ported yet; anything but None
+      raises `GridError`.
     - `chaos`: an :class:`igg_torch.chaos.ChaosPlan` (testing only).
 
     Runs in one process (more raise `GridError`)."""
@@ -458,7 +474,7 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
     from . import degrade as _degrade
 
     shared.check_initialized()
-    for name, value in (("serve", serve), ("comm", comm), ("heal", heal),
+    for name, value in (("serve", serve), ("heal", heal),
                         ("integrity", integrity)):
         if value is not None:
             mod, item = _UNPORTED[name]
@@ -503,6 +519,16 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
     if missing:
         raise GridError(f"run_resilient: watch_fields {missing} not in "
                         f"state {sorted(state)}.")
+    if comm is not None:
+        if not (hasattr(comm, "maybe_dispatch") and hasattr(comm, "poll")):
+            raise GridError(
+                f"run_resilient: comm={comm!r}: expected an "
+                f"igg_torch.comm.StepDecomposition monitor (or None).")
+        if not (watch and watch_every):
+            raise GridError(
+                "run_resilient: the comm= decomposition probes ride the "
+                "watch cadence; set watch_every > 0 (with watched "
+                "fields).")
 
     events: List[Event] = []
 
@@ -563,6 +589,12 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
         raise
     probing = bool(watch and watch_every)
     pending: deque = deque()   # (probe step, _Probe)
+    # The collective-stall heartbeat watches every probe in flight; the
+    # comm monitor rides the watch cadence (igg_torch.comm).
+    from . import comm as _comm
+
+    stall = _comm.make_stall_watchdog("resilient") if probing else None
+    run_error: Optional[BaseException] = None
     retries = 0
     last_fail = None           # (kind, step) of the previous rollback cause
     # Demotion scope: only families that dispatch after this stamp belong
@@ -650,17 +682,27 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 return None
             pending.popleft()
             host = pr.result()
+            if stall is not None:
+                stall.fetched(("probe", step_p), step_p)
             bad = {n: int(c) for n, c in zip(watch, host) if c != 0}
             if bad:
                 pending.clear()   # younger probes are post-failure noise
+                if stall is not None:
+                    stall.clear()
                 return _emit("nan_detected", step_p, counts=bad)
             last_good = max(last_good, step_p)
             stats.fetched(step_p, steps_done)
         return None
 
     def _dispatch_probe() -> None:
-        pending.append((steps_done,
-                        _Probe(probe_counts(*[state[n] for n in watch]))))
+        """One watchdog probe, registered with the stall heartbeat (the
+        entry a hung exchange is reported against)."""
+        pr = _Probe(probe_counts(*[state[n] for n in watch]))
+        pending.append((steps_done, pr))
+        if stall is not None:
+            stall.watch(("probe", steps_done), steps_done,
+                        "watchdog probe (non-finite counts of the watched "
+                        "fields)", pr)
 
     def _rollback(ev: Event) -> None:
         nonlocal state, steps_done, retries, step_fn, final_probe_done, \
@@ -715,6 +757,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 f"checkpoint generation exists under {cdir} to roll back "
                 f"to.", events)
         pending.clear()
+        if stall is not None:
+            stall.clear()
         m_rollbacks.inc()
         with _telemetry.span("resilience.rollback", step=ev.step,
                              target_step=ckpt.checkpoint_step(found)):
@@ -786,6 +830,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 fail = None
                 if probing and steps_done % watch_every == 0:
                     _dispatch_probe()
+                    if comm is not None:
+                        comm.maybe_dispatch(steps_done, stall)
                 if (divergence_fn is not None and watch_every
                         and steps_done % watch_every == 0
                         and divergence_fn(state)):
@@ -801,6 +847,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                     _save_gen(steps_done, sync=False)
                 if writer is not None:
                     _merge_writer()   # a deque pop, never blocks
+                if comm is not None:
+                    comm.poll(steps_done, stall)   # readiness only
                 if tel is not None:
                     tel.maybe_export_metrics()
             if preempted:
@@ -833,12 +881,29 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                   path=str(last_ckpt) if last_ckpt else None)
             _telemetry._auto_dump(f"preempt at step {steps_done}")
     except BaseException as e:
+        run_error = e
         paths = _telemetry._auto_dump(f"run_resilient: "
                                       f"{type(e).__name__}: {e}")
         if isinstance(e, ResilienceError):
             e.dump_paths.extend(p for p in paths if p not in e.dump_paths)
         raise
     finally:
+        comm_error = None
+        if comm is not None:
+            try:
+                comm.finalize(steps_done)
+            except Exception as e:
+                # igg drops it (a broken probe must not mask the run's
+                # outcome); on the card it is raised after the run's own
+                # outcome is settled, or noted on the run's own error.
+                if getattr(comm, "on_card", False):
+                    comm_error = GridError(
+                        f"run_resilient: the comm monitor's end-of-run "
+                        f"drain failed on the card ({type(e).__name__}: "
+                        f"{e})")
+                    comm_error.__cause__ = e
+        if stall is not None:
+            stall.close()
         if writer is not None:
             try:
                 _merge_writer(drain=True)
@@ -854,6 +919,10 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 tel.detach()
             else:
                 tel.export_metrics()
+        if comm_error is not None:
+            if run_error is None:
+                raise comm_error
+            run_error.add_note(str(comm_error))
 
     return RunResult(state=state, steps_done=steps_done, retries=retries,
                      preempted=preempted, events=events, checkpoint=last_ckpt)

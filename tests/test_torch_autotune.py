@@ -285,11 +285,19 @@ def test_cutoff_and_failed_candidates(monkeypatch):
 
 
 def test_overlapped_winner_is_demoted(monkeypatch):
-    """The exposed-communication check that confirms an overlapped winner
-    is not ported: the port demotes it to the best sequential candidate."""
+    """An overlapped winner whose measured decomposition shows no hidden
+    communication (hidden >= exchange, `comm.decompose` stubbed to say so)
+    is demoted to the best sequential candidate, with the measured times
+    in the `overlap_demoted` record."""
     import time
 
+    from igg_torch import comm
+
     grid((8, 8, 8))
+    times = dict(compute=1.0, exchange=2.0, hidden=2.5)
+    seen = []
+    monkeypatch.setattr(comm, "decompose", lambda *a, **kw: (
+        seen.append(kw["config"]), comm._fractions(times))[1])
     real = autotune._build_candidate
 
     def slowed(family, cand, n_inner, params):
@@ -307,7 +315,9 @@ def test_overlapped_winner_is_demoted(monkeypatch):
         {"tier": "diffusion3d.overlap", "overlap": True},
         {"tier": "diffusion3d.plain"}])
     (d,) = events("overlap_demoted")
-    assert d["demoted_to"] == "[diffusion3d.plain]" and "item 5" in d["reason"]
+    assert d["demoted_to"] == "[diffusion3d.plain]"
+    assert (d["exchange_ms"], d["hidden_ms"]) == (2.0, 2.5)
+    assert seen == ["diffusion3d.overlap"]
     assert w["tier"] == "diffusion3d.plain" and not w["overlap"]
 
 

@@ -56,7 +56,12 @@ results are dropped at once equal to twenty whose results are kept, and
 an in-place `compute` refused; and the autotuner's route search on small
 grids of diffusion, Stokes, wave2d and shallow water (every candidate
 served by its own tier, the loaded winner served by `tune="auto"` with
-no search dispatch, bitwise the factory pinned to it).
+no search dispatch, bitwise the factory pinned to it); and the comm
+decomposition's variants (diffusion and Stokes at 2x2x2 open blocks of
+32^3: the exchange variant bitwise the compute and the plain halo update,
+the hidden variant bitwise the exchange variant, a monitor's rotation
+timed by CUDA events) and the stall heartbeat over the card's probes
+under the chaos stall.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1541,6 +1546,94 @@ def test_overlap_in_place_compute_raises_on_the_card(card):
     torch.cuda.synchronize()
     # Refused after the full compute, before any slab work is enqueued.
     torch.testing.assert_close(A, 2.0 * A0, rtol=0, atol=0)
+
+
+# -- comm observability on the card -----------------------------------------
+
+@pytest.mark.parametrize("family", ["diffusion3d", "stokes3d"])
+def test_comm_variants_bitwise_on_the_card(card, family):
+    """`igg_torch.comm`'s decomposition variants on CUDA tensors (2x2x2
+    open blocks of 32^3, Stokes at overlap 3): after two iterations the
+    exchange variant equals the compute followed by `update_halo(plain=
+    True)` bitwise and the hidden variant the exchange variant;
+    `decompose` launches the halo writer and the packer; a
+    `StepDecomposition` rotation of three pairs, timed by CUDA events,
+    gives one window."""
+    from igg_torch import comm
+
+    mv = comm.model_step_variants(family)
+    it.init_global_grid(32, 32, 32, dimx=2, dimy=2, dimz=2, device=card,
+                        quiet=True, **mv["grid_kwargs"])
+    S = it.update_halo(*mv["init"](torch.float32))
+    nf, r = mv["nf"], mv["radius"]
+    outs = {v: comm._build_variant(mv["compute"], nf, v, 2, r)(*S)
+            for v in comm._VARIANTS}
+    X = S[:nf]
+    for _ in range(2):
+        X = mv["compute"](*X, *S[nf:])
+        X = tuple(X) if isinstance(X, (tuple, list)) else (X,)
+        it.update_halo(*X, plain=True)
+    torch.cuda.synchronize()
+    for a, b, c in zip(outs["exchange"], X, outs["hidden"]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(c, a, rtol=0, atol=0)
+    w0, p0 = hw.halo_write.launches, pk.pack_planes.launches
+    d = comm.decompose(mv["compute"], S[:nf], aux=S[nf:], radius=r, nt=1,
+                       n_inner=2, record=False)
+    assert hw.halo_write.launches > w0 and pk.pack_planes.launches > p0
+    assert min(d["compute_ms"], d["exchange_ms"], d["hidden_ms"]) > 0
+    mon = comm.StepDecomposition(mv["compute"], S[:nf], aux=S[nf:],
+                                 radius=r, reps=1, config="test")
+    assert mon.on_card
+    for step in range(3):
+        assert mon.maybe_dispatch(step)
+        mon.finalize(step)
+    assert mon.windows == 1
+
+
+def test_comm_stall_heartbeat_on_the_card(card, tmp_path, monkeypatch):
+    """The chaos stall over the card's probes (their CUDA events polled
+    from the heartbeat thread): one `collective_stall`, its report and a
+    flight dump; the run ends bitwise the uninterrupted one.  Without the
+    stall, and with a monitor attached, the same run emits `comm_stats`
+    windows and no stall."""
+    import json
+    import time
+
+    from igg_torch import comm
+    from igg_torch import telemetry as tel
+
+    monkeypatch.setenv("IGG_COMM_STALL_TIMEOUT", "0.2")
+    state, fn = _resilient_setup(card)
+    ref = dict(state)
+    for _ in range(8):
+        ref = fn(ref)
+    mv = comm.model_step_variants("diffusion3d")
+
+    def run(path, stalled):
+        mon = comm.StepDecomposition(mv["compute"], (state["T"],),
+                                     aux=(state["Cp"],), reps=1)
+        slow = lambda s: (time.sleep(0.1), fn(s))[1]   # noqa: E731
+        with (it.chaos.collective_stall() if stalled
+              else it.chaos.armed()):
+            res = it.run_resilient(slow, dict(state), 136,
+                                   steps_per_call=17, watch_every=17,
+                                   max_pending_probes=100, telemetry=path,
+                                   comm=None if stalled else mon,
+                                   install_sigterm=False)
+        torch.testing.assert_close(res.state["T"], ref["T"], rtol=0, atol=0)
+        return [json.loads(line) for line in
+                (path / "events_r0.jsonl").read_text().splitlines()]
+
+    recs = run(tmp_path / "stalled", True)
+    stalls = [r for r in recs if r["kind"] == "collective_stall"]
+    assert len(stalls) == 1 and stalls[0]["payload"]["pending"] >= 1
+    report = json.loads((tmp_path / "stalled" / "stall_r0.json").read_text())
+    assert report["step"] == stalls[0]["step"]
+    assert tel.flight_dumps(tmp_path / "stalled", rank=0)
+    recs = run(tmp_path / "healthy", False)
+    assert not [r for r in recs if r["kind"] == "collective_stall"]
+    assert [r for r in recs if r["kind"] == "comm_stats"]
 
 
 def _tune_case(card, family):

@@ -669,7 +669,9 @@ def test_unported_arguments_raise(tmp_path, arg):
         with pytest.raises(it.GridError, match="item 6"):
             it.chaos.ChaosPlan(nan_at=[(3, 0, "T")])
         return
-    item = {"serve": "item 8", "comm": "item 5", "heal": "item 7",
+    # comm= is ported (igg_torch.comm): a value that is no monitor raises
+    # igg's check, naming StepDecomposition.
+    item = {"serve": "item 8", "comm": "StepDecomposition", "heal": "item 7",
             "integrity": "item 7"}[arg]
     with pytest.raises(it.GridError, match=f"{arg}=True: .*{item}"):
         _run(port_step(), tmp_path, **{arg: True})

@@ -330,6 +330,51 @@ def test_telemetry_adds_no_host_syncs(tmp_path, monkeypatch):
     assert sum(1 for r in tel.flight_recorder() if r.kind == "span") >= 4
 
 
+def test_comm_monitor_and_heartbeat_add_no_host_syncs(tmp_path,
+                                                      monkeypatch):
+    """The sentinel over `run_resilient`, as igg's extended one: with a
+    `StepDecomposition` attached and the stall heartbeat on (a 0.05 s
+    timeout, so its thread polls the probes while the loop runs), the
+    calls that read a tensor on the host equal the bare loop's (no
+    monitor, heartbeat off), and so does the final state."""
+    from igg_torch import comm
+
+    it.init_global_grid(8, 8, 8, dimx=2, dimy=2, dimz=2, periodz=1,
+                        device="cpu", nprocs=8, quiet=True)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    step = t3.make_step(p)
+    fn = lambda s: {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}  # noqa: E731
+    mv = comm.model_step_variants("diffusion3d", p)
+    monitor = comm.StepDecomposition(mv["compute"], (T,), aux=(Cp,), reps=1)
+    calls = []
+    for name in ("item", "tolist", "cpu", "numpy"):
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(self, *a, **kw)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **kw: calls.append("synchronize"))
+
+    def run(observed):
+        calls.clear()
+        monkeypatch.setenv("IGG_COMM_STALL_TIMEOUT",
+                           "0.05" if observed else "0")
+        res = it.run_resilient(fn, {"T": T, "Cp": Cp}, 40, watch_every=4,
+                               comm=monitor if observed else None,
+                               install_sigterm=False)
+        return list(calls), res.state["T"]
+
+    bare, S0 = run(False)
+    with tel.Telemetry(tmp_path):
+        observed, S1 = run(True)
+    assert observed == bare and bare
+    assert torch.equal(S0, S1)
+    assert monitor.windows >= 1
+
+
 def test_modules_import_neither_jax_nor_igg():
     """`igg_torch` with its telemetry, profiling, knob and ladder modules
     imports neither JAX nor anything of igg."""
