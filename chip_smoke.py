@@ -248,6 +248,31 @@ the script exits non-zero without printing a result:
    ready, so about two grants go to a healthy fetch) against those
    before.  Phase 26 must launch rows 3 and 4 (the halo writer and
    the plane packer).
+27. Numeric integrity (`igg_torch.integrity`, `run_resilient(integrity=)`,
+   `chaos.silent_corruption`), each number beside the card's name and
+   power limit: (a) diffusion on 2x2x2 blocks of 256^3, periodic (508^3),
+   uniform heat capacity, `make_multi_step(17)` (the route it picks
+   there), 170 steps, `watch_every=34`, `checkpoint_every=102`, `ring=2`,
+   `IntegrityConfig(check_every=0)`: `silent_corruption("T", step=80,
+   rank=3)` by 1e-2 of sum|T| gives no `nan_detected`, one
+   `integrity_violation` on `total_heat` at the probe of step 102 naming
+   block 3, a rollback to the newest deep-verified generation older than
+   102, `integrity_resolved`, and the whole T bitwise the uninterrupted
+   run; the plain, steady and anchor probes' device time; sum(T)'s own
+   drift with `init_fields`' non-uniform Cp. (b) The same at 510^3 open,
+   where no invariant matches, with `check_every=1`: caught with
+   `source="shadow"`; the wide probe's device time. The launch counters
+   are read after (a) and (b): the phase raises if no row of PERF.md's
+   table launched and prints the rows that did (3-5 expected). (c) The
+   newest generation of (a)'s ring, poisoned: `verify_checkpoint` passes
+   it, `deep=True` refuses it, `latest_checkpoint(deep=True)` takes the
+   older one; the deep verify's seconds. (d) At 128^3 `make_step`,
+   `watch_every=50`: igg's `integrity_overhead` row ((steady fused probe
+   - plain probe + decode) a window over 50 bare steps), the bare loop
+   against `run_resilient` without integrity, with invariant probes and
+   with shadows every 4 windows, in turns, and sync warnings over 10
+   windows with shadows on and with integrity off (equal, or it raises);
+   the rest printed, not raised.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -284,7 +309,7 @@ periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
 Stokes and HM3D divisors.  Launch counters are set to 0 before each
-main-path phase (2 to 24) and read after it; each of the twenty kernels
+main-path phase (2 to 27) and read after it; each of the twenty kernels
 must have launched on that main path (the generated relax3d step and
 chunk step are phase 20's launches of the spec counters, shallow water's
 the others').  The last lines are the run's seconds, the
@@ -5428,8 +5453,350 @@ class Smoke:
         return dict(before=before, after=after, ratio=ratio,
                     grants=len(grants))
 
+    # -- phase 27: numeric integrity -------------------------------------
+    def integrity_phase(self):
+        """Phase 27 (module docstring): `igg_torch.integrity` on the card."""
+        import tempfile
+
+        t_phase = time.perf_counter()
+        out = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            ring = os.path.join(tmp, "a")
+            out["invariant"] = self.integrity_run(ring, periodic=True)
+            log(f"[phase 27] (a) {time.perf_counter() - t_phase:.1f} s")
+            out["shadow"] = self.integrity_run(os.path.join(tmp, "b"),
+                                               periodic=False)
+            log(f"[phase 27] (b) {time.perf_counter() - t_phase:.1f} s")
+            # PERF.md's table: row 1 the step kernel, 3 the halo writer, 4
+            # the plane packer, 5 the chunk step (3-5 expected here).
+            counts = self.ops.launch_counts()
+            ran = {k: v for k, v in counts.items() if v}
+            if not ran:
+                raise SmokeFailure("[phase 27] (a), (b) launched no kernel "
+                                   "of PERF.md's table")
+            log(f"[phase 27] (a), (b) launches {json.dumps(ran)}; rows 3-5 "
+                f"(halo_write, pack_planes, diffusion_chunk_step) "
+                f"{'all' if all(ran.get(k) for k in ('halo_write', 'pack_planes', 'diffusion_chunk_step')) else 'NOT all'} "
+                f"launched")
+            out["launches"] = ran
+            out["poisoned"] = self.integrity_poisoned(
+                ring, out["invariant"]["tag"])
+            log(f"[phase 27] (c) {time.perf_counter() - t_phase:.1f} s")
+        out["overhead"] = self.integrity_overhead()
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"[phase 27] done in {out['seconds']:.1f} s [{self.card}]")
+        self.perf["integrity"] = out
+
+    def integrity_state(self, multi: bool):
+        """Phase 23's state with a uniform heat capacity (cp_min): total
+        heat is then conserved, igg's `total_heat` invariant exact; the
+        step closes over Cp, so the state (and each generation) is T."""
+        from igg_torch import degrade
+
+        it, t3 = self.it, self.t3
+        p = t3.Params()
+        T, Cp = t3.init_fields(p)
+        T = it.update_halo(T)
+        Cp = torch.full_like(Cp, p.cp_min)
+        step = t3.make_multi_step(self.steps_multi, p) if multi else \
+            t3.make_step(p)
+        tiers = set()
+
+        def fn(s):
+            out = {"T": step(s["T"], Cp)}
+            tiers.add(degrade.active()["diffusion3d"])
+            return out
+
+        return T, Cp, fn, tiers
+
+    def integrity_run(self, tmp, periodic: bool):
+        """(a) periodic, 508^3: `silent_corruption` at step 80 on block 3
+        caught by the `total_heat` invariant at the next probe (102), where
+        a cadence generation may hold the corrupted state; (b)
+        open, 510^3, no invariant: caught by the shadow re-execution
+        (`check_every=1`).  Each rolls back to a deep-verified generation
+        older than the violation and ends bitwise the uninterrupted run."""
+        from igg_torch import chaos, integrity, resilience
+        from igg_torch import checkpoint as ck
+
+        it, n, steps = self.it, self.n_multi, self.steps_multi
+        part = "(a)" if periodic else "(b)"
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2,
+                  **(PERIODIC if periodic else {}))
+        g = it.get_global_grid()
+        tag = (f"{it.nx_g()}^3 {'periodic' if periodic else 'open'} "
+               f"(2x2x2 x {n}^3)")
+        T, Cp, fn, tiers = self.integrity_state(multi=True)
+        calls, watch, every, hit = 10, 2 * steps, 6 * steps, 80
+        n_steps = calls * steps                          # 170
+        scale = float(integrity._moment_sums(T, 1, g, absolute=True).sum())
+        magnitude = 1e-2 * scale                         # 10x the tolerance
+        t0 = time.perf_counter()
+        ref = self.run_calls(fn, {"T": T}, calls)["T"]
+        sync(self.dev)
+        bare = time.perf_counter() - t0
+        cfg = integrity.IntegrityConfig(check_every=0 if periodic else 1)
+        scans = []
+        real_latest = ck.latest_checkpoint
+
+        def latest(*a, **kw):
+            found = real_latest(*a, **kw)
+            scans.append((kw.get("deep", False), kw.get("max_step"), found))
+            return found
+
+        ck.latest_checkpoint = latest
+        try:
+            with chaos.silent_corruption("T", step=hit, magnitude=magnitude,
+                                         rank=3):
+                t0 = time.perf_counter()
+                res = it.run_resilient(
+                    fn, {"T": T}, n_steps, steps_per_call=steps,
+                    watch_every=watch, checkpoint_dir=tmp,
+                    checkpoint_every=every, ring=2, integrity=cfg,
+                    install_sigterm=False)
+                sync(self.dev)
+                wall = time.perf_counter() - t0
+        finally:
+            ck.latest_checkpoint = real_latest
+        kinds = [(e.kind, e.step) for e in res.events
+                 if e.kind != "checkpoint"]
+        viol = [e for e in res.events if e.kind == "integrity_violation"]
+        rb = [e for e in res.events if e.kind == "rollback"]
+        want_step = (hit // watch + 1) * watch            # 102
+        want = ("invariant", "total_heat") if periodic else ("shadow", "T")
+        got = [(v.detail["source"], v.detail.get("invariant",
+                                                 v.detail.get("field")),
+                v.detail["rank"]) for v in viol]
+        deep_hit = [f for deep, _, f in scans if deep and f is not None]
+        if ("nan_detected" in [k for k, _ in kinds] or len(viol) != 1
+                or viol[0].step != want_step or got != [want + (3,)]
+                or len(rb) != 1 or not rb[0].step < viol[0].step
+                or "integrity_resolved" not in [k for k, _ in kinds]
+                or not deep_hit
+                or str(deep_hit[0]) != rb[0].detail["path"]
+                or res.steps_done != n_steps):
+            raise SmokeFailure(f"[phase 27] {part} {tag}: silent corruption "
+                               f"at {hit} gave {kinds}, violations {got}, "
+                               f"scans {scans}")
+        if self.dev.type == "cuda" and any(t.endswith(".plain")
+                                           for t in tiers):
+            raise SmokeFailure(f"[phase 27] {part} {tag}: the calls were "
+                               f"served by {tiers}")
+        err = check(f"[phase 27] {part} {tag}: the run vs the "
+                    f"uninterrupted run", res.state["T"], ref, 0.0)
+        v = viol[0].detail
+        log(f"[phase 27] {part} {tag}, make_multi_step({steps}) x {calls}, "
+            f"watch_every={watch}, checkpoint_every={every}, "
+            f"integrity=IntegrityConfig(check_every={cfg.check_every}): "
+            f"silent_corruption('T', step={hit}, magnitude={magnitude:.4g} "
+            f"= 1e-2 x sum|T|, rank=3) -> {kinds}; the violation: source "
+            f"{v['source']}, {want[1]}, rank {v['rank']} ({v['device']}), "
+            f"{'drift %.4g against tol x scale %.4g' % (v['drift'], v['tol'] * v['scale']) if periodic else 'diff %.4g against tol x scale %.4g' % (v['diff'], v['tol'] * v['scale'])}; "
+            f"the rollback's scans (deep, max_step, found) "
+            f"{[(d, m, os.path.basename(str(f)) if f else None) for d, m, f in scans]}; "
+            f"the whole stacked T vs the uninterrupted run {err:.1e} "
+            f"(tolerance 0: its gather_interior too); tiers served "
+            f"{sorted(tiers)}; wall s: bare {bare:.3f}, integrity run "
+            f"{wall:.3f} [{self.card}]")
+        out = dict(tag=tag, events=kinds, violation={k: v[k] for k in v
+                                            if k != "partials"},
+                   partials=v["partials"], bare_s=bare, wall_s=wall,
+                   scans=[(d, m, str(f)) for d, m, f in scans])
+        # The probes' device time on this grid's T, beside the plain one.
+        probes = ({"plain": lambda: resilience.probe_counts(T)} if periodic
+                  else {})
+        invs = integrity.match_invariants({"T": T}, g)
+        for kind in ("steady", "anchor") if invs else ():
+            probes[kind] = (lambda f: lambda: f(T))(
+                integrity._build_probe(["T"], [], invs, kind))
+        if not periodic:
+            probes["wide"] = (lambda f: lambda: f(T, ref))(
+                integrity._build_probe(["T"], [], [], "wide"))
+        split = {k: device_ms_by_kernel(f, 10) for k, f in probes.items()}
+        log(f"[phase 27] {part} {tag}: probe device ms (launches) "
+            + ", ".join(f"{k} {sum(v[0].values()):.4f} ({v[1]:.0f})"
+                        for k, v in split.items())
+            + f"; a read of T {bound_ms(T.numel() * 4, 0, F32_FLOPS)[0]:.4f}"
+            f" ms [{self.card}]")
+        out["probe_ms"] = {k: sum(v[0].values()) for k, v in split.items()}
+        if periodic:
+            # The default heat capacity is not uniform: sum(T) then drifts
+            # by itself (the flux form conserves sum(Cp * T) only).
+            T0, Cp0 = self.t3.init_fields(self.t3.Params())
+            T0 = it.update_halo(T0)
+            step = self.t3.make_multi_step(steps, self.t3.Params())
+            s0 = float(integrity._moment_sums(T0, 1, g).sum())
+            Tn = T0
+            for _ in range(calls):
+                Tn = step(Tn, Cp0)
+            drift = (float(integrity._moment_sums(Tn, 1, g).sum()) - s0) \
+                / float(integrity._moment_sums(T0, 1, g, absolute=True).sum())
+            log(f"[phase 27] (a) {tag} with init_fields' own (non-uniform) "
+                f"Cp: sum(T) drifts {drift:.4g} of sum|T| over {n_steps} "
+                f"steps (tolerance 1e-3)")
+            out["default_cp_drift"] = drift
+        return out
+
+    def integrity_poisoned(self, ring, tag):
+        """(c) The newest 508^3 generation of (a)'s ring (T, stamped with
+        the run's `total_heat` reference), poisoned: `verify_checkpoint`
+        passes it, `deep=True` refuses it, `latest_checkpoint(deep=True)`
+        takes the older one."""
+        from igg_torch import chaos
+        from igg_torch import checkpoint as ck
+
+        gens = ck.list_generations(ring, "ckpt")
+        if len(gens) < 2:
+            raise SmokeFailure(f"[phase 27] (c) generations {gens}")
+        (_, older), (_, newest) = gens[-2], gens[-1]
+        stamp = json.loads((newest / "manifest.json").read_text())[
+            "deep"].get("invariants")
+        t0 = time.perf_counter()
+        clean = ck.verify_checkpoint(newest, deep=True)
+        t_clean = time.perf_counter() - t0
+        chaos.poison_checkpoint(newest, field="T", magnitude=1e3, shard=3)
+        t0 = time.perf_counter()
+        plain = ck.verify_checkpoint(newest, check_finite=True)
+        t_plain = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        deep = ck.verify_checkpoint(newest, deep=True)
+        t_deep = time.perf_counter() - t0
+        found = ck.latest_checkpoint(ring, "ckpt", check_finite=True,
+                                     deep=True)
+        if not (clean and plain and not deep and found == older
+                and stamp and stamp[0]["ref"] is not None):
+            raise SmokeFailure(f"[phase 27] (c) clean {clean}, plain {plain}"
+                               f", deep {deep}, latest {found}, stamp "
+                               f"{stamp}")
+        nbytes = sum(f.stat().st_size for f in newest.iterdir())
+        log(f"[phase 27] (c) {tag}: generation {newest.name} "
+            f"({nbytes / 1e9:.3f} GB, stamp {stamp[0]['name']} ref "
+            f"{stamp[0]['ref']:.6g} scale {stamp[0]['scale']:.6g}): deep "
+            f"verify before the poison {clean} in {t_clean:.3f} s; "
+            f"poison_checkpoint(field='T', magnitude=1e3, shard=3): "
+            f"verify_checkpoint(check_finite=True) {plain} in "
+            f"{t_plain:.3f} s, deep=True {deep} in {t_deep:.3f} s; "
+            f"latest_checkpoint(deep=True) -> {found.name} [{self.card}]")
+        return dict(deep_verify_s=t_deep, clean_deep_verify_s=t_clean,
+                    verify_s=t_plain, bytes=nbytes)
+
+    def integrity_overhead(self):
+        """(d) igg's `integrity_overhead` row at 128^3 `make_step`,
+        `watch_every=50` (benchmarks/resilience_overhead.py): (steady fused
+        probe - plain probe + decode) a window over 50 bare steps; the bare
+        loop against `run_resilient` without and with integrity, and with
+        shadows every 4 windows, in turns; sync warnings with shadows on.
+        Printed, not raised."""
+        import warnings
+
+        from igg_torch import integrity, resilience
+
+        it = self.it
+        self.grid((N_OVERHEAD,) * 3, **SINGLE, **PERIODIC)
+        g = it.get_global_grid()
+        T, Cp, fn, _ = self.integrity_state(multi=False)
+        watch, n_steps = 50, 300
+        inv = integrity.Invariant("total_heat", ("T",), moment=1,
+                                  kind="conserved")
+        fused = integrity._build_probe(["T"], [], [inv], "steady")
+        split_p, _ = device_ms_by_kernel(lambda: resilience.probe_counts(T),
+                                         10)
+        split_f, launches_f = device_ms_by_kernel(lambda: fused(T), 10)
+        probe_ms, fused_ms = sum(split_p.values()), sum(split_f.values())
+        mon = integrity.Monitor(
+            integrity.IntegrityConfig(invariants=[inv], check_every=4),
+            {"T": T}, ["T"], watch, 1)
+        anchor = integrity._build_probe(["T"], [], [inv], "anchor")(T)
+        mon.decode(anchor.cpu().numpy(), ("anchor", g.nprocs), 0)
+        vec = fused(T).cpu().numpy()
+        t0 = time.perf_counter()
+        for i in range(2000):
+            mon.decode(vec, ("steady", g.nprocs), i * watch)
+        decode_ms = (time.perf_counter() - t0) / 2000 * 1e3
+        mon.close()
+
+        def bare():
+            sync(self.dev)
+            t0 = time.perf_counter()
+            self.run_calls(fn, {"T": T}, n_steps)
+            sync(self.dev)
+            return (time.perf_counter() - t0) / n_steps * 1e3
+
+        def watched(check_every):
+            cfg = (False if check_every is None else
+                   integrity.IntegrityConfig(invariants=[inv],
+                                             check_every=check_every))
+            sync(self.dev)
+            t0 = time.perf_counter()
+            res = it.run_resilient(fn, {"T": T}, n_steps, watch_every=watch,
+                                   integrity=cfg, install_sigterm=False)
+            sync(self.dev)
+            if res.steps_done != n_steps or [e for e in res.events
+                                             if e.kind != "checkpoint"]:
+                raise SmokeFailure(f"[phase 27] (d) {res.events}")
+            return (time.perf_counter() - t0) / n_steps * 1e3
+
+        runs = {"bare": bare, "off": lambda: watched(None),
+                "invariant": lambda: watched(0),
+                "shadow_4": lambda: watched(4)}
+        for f in runs.values():
+            f()
+        turns = {k: [] for k in runs}
+        for _ in range(3):
+            for k, f in runs.items():
+                turns[k].append(f())
+        best = {k: min(v) for k, v in turns.items()}
+        pct = (max(0.0, fused_ms - probe_ms) + decode_ms) / \
+            (watch * best["bare"]) * 100
+        warned = {}
+        for on in (False, True):
+            cfg = (integrity.IntegrityConfig(invariants=[inv], check_every=1)
+                   if on else False)
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    it.run_resilient(fn, {"T": T}, 10 * watch,
+                                     watch_every=watch, integrity=cfg,
+                                     install_sigterm=False)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            warned[on] = [
+                f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+                if "called a synchronizing CUDA operation" in str(w.message)]
+        log(f"[phase 27] (d) {N_OVERHEAD}^3 periodic make_step, "
+            f"watch_every={watch}: the plain probe {probe_ms:.4f} ms device, "
+            f"the steady fused probe (count + total_heat partials) "
+            f"{fused_ms:.4f} ms device, {launches_f:.0f} launches "
+            f"{json.dumps(split_f)}; decode {decode_ms * 1e3:.2f} us; "
+            f"(fused - plain + decode) / (50 bare steps of "
+            f"{best['bare']:.4f} ms) = {pct:.3f}% (igg's integrity_overhead "
+            f"contract < 1%: {'met' if pct < 1 else 'MISSED'}) "
+            f"[{self.card}]")
+        log(f"[phase 27] (d) ms/step in turns over {n_steps} steps: bare "
+            f"{fmt_list(turns['bare'])}, run_resilient integrity off "
+            f"{fmt_list(turns['off'])}, invariant probes "
+            f"{fmt_list(turns['invariant'])}, with shadows every 4 windows "
+            f"{fmt_list(turns['shadow_4'])}: invariants "
+            f"{(best['invariant'] / best['off'] - 1) * 100:+.2f}% and "
+            f"shadows {(best['shadow_4'] / best['off'] - 1) * 100:+.2f}% "
+            f"over the watched loop (igg's shadow_amortized_pct 25% = 1 / "
+            f"check_every); sync warnings over 10 windows with shadows every "
+            f"window {len(warned[True])}, without integrity "
+            f"{len(warned[False])} ({sorted(set(warned[True]))}) "
+            f"[{self.card}]")
+        if len(warned[True]) != len(warned[False]):
+            raise SmokeFailure(f"[phase 27] (d) sync warnings with integrity "
+                               f"{warned[True]}, without {warned[False]}")
+        return dict(plain_probe_ms=probe_ms, fused_probe_ms=fused_ms,
+                    fused_split=split_f, decode_ms=decode_ms, pct=pct,
+                    ms_per_step=turns,
+                    sync_warnings={k: len(v) for k, v in warned.items()})
+
     def main_path(self):
-        """Phases 2 to 26, each with the launch counters set to 0 just
+        """Phases 2 to 27, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -5453,7 +5820,7 @@ class Smoke:
             ("20", self.relax3d_banded), ("21", self.observability),
             ("22", self.checkpoint_phase), ("23", self.resilience_phase),
             ("24", self.overlap_phase), ("25", self.tune_phase),
-            ("26", self.comm_phase)]
+            ("26", self.comm_phase), ("27", self.integrity_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

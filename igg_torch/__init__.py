@@ -23,8 +23,11 @@ a side CUDA stream beside the full-domain compute, and the factories'
 `overlap=` admission), `perf` (the perf ledger of measured step times,
 its roofline and drift gauges, the regression gate) and `autotune` (the
 measured route search and its tuning cache behind every factory's
-`tune=`) and `comm` (the comm ledger, the step-time decomposition, rank
-skew and the collective-stall heartbeat behind `run_resilient(comm=)`).
+`tune=`), `comm` (the comm ledger, the step-time decomposition, rank
+skew and the collective-stall heartbeat behind `run_resilient(comm=)`)
+and `integrity` (invariant probes fused into the watchdog's probe,
+shadow re-execution and deep-stamped generations behind
+`run_resilient(integrity=)`).
 Grid arrays are block-stacked tensors on one device; entry points use the
 card unless the caller passes `device="cpu"`.  Imports neither JAX nor
 `igg`.
@@ -39,30 +42,32 @@ from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import (autotune, chaos, checkpoint, comm, degrade, overlap, perf,
-               profiling, resilience, stencil, telemetry, vis)
+from . import (autotune, chaos, checkpoint, comm, degrade, integrity,
+               overlap, perf, profiling, resilience, stencil, telemetry, vis)
 from .overlap import hide_communication
 from .resilience import ResilienceError, RunResult, run_resilient
 from .telemetry import Telemetry
 from .init import init_global_grid
 from .parallel import local_coords, sharded
-from .shared import (NDIMS, PROC_NULL, GlobalGrid, GridError, check_initialized,
-                     get_global_grid, global_grid, grid_epoch,
-                     grid_is_initialized, has_neighbor, me, neighbor, neighbors,
-                     ol)
+from .shared import (NDIMS, NNEIGHBORS_PER_DIM, PROC_NULL, GlobalGrid,
+                     GridError, check_initialized, get_global_grid,
+                     global_grid, grid_epoch, grid_is_initialized,
+                     has_neighbor, me, neighbor, neighbors, ol)
 from .timing import time_steps
 from .tools import (barrier, coord_fields, nx_g, ny_g, nz_g, spacing, tic, toc,
                     x_g, x_g_field, y_g, y_g_field, z_g, z_g_field)
 
+__version__ = "0.1.0"
+
 __all__ = [
-    "NDIMS", "PROC_NULL", "GlobalGrid", "GridError", "ResilienceError",
+    "NDIMS", "NNEIGHBORS_PER_DIM", "PROC_NULL", "GlobalGrid", "GridError", "ResilienceError",
     "RunResult", "Telemetry", "autotune", "barrier", "chaos",
     "check_initialized",
     "checkpoint", "comm", "coord_fields", "degrade",
     "finalize_global_grid", "from_local_blocks", "full", "gather",
     "gather_interior", "get_global_grid", "global_grid", "grid_epoch",
     "grid_is_initialized", "has_neighbor", "hide_communication",
-    "init_global_grid",
+    "init_global_grid", "integrity",
     "latest_checkpoint", "load_checkpoint", "local_block", "local_blocks",
     "local_coords", "me", "memory_stats", "neighbor", "neighbors", "nx_g",
     "ny_g", "nz_g", "ol", "ones", "overlap", "perf", "profiling",

@@ -19,6 +19,10 @@ one-shot, so a rolled-back replay passes the same step clean:
   every one.
 - :func:`poison_checkpoint`: finite corruption written consistently
   through the CRC layer; only `verify_checkpoint(deep=True)` refuses it.
+- :func:`silent_corruption`: one element of a live field inside one
+  block perturbed by a finite amount at a step, through the
+  `igg_torch.resilience._CHAOS_STATE_TAP` seam: the fault the NaN
+  watchdog cannot see, which :mod:`igg_torch.integrity` must.
 - :func:`halo_corruption`: every received halo plane replaced through
   the `igg_torch.halo._CHAOS_PLANE_TAP` seam (the planes
   `exchange_planes` returns).  The tap is read at every call, so arming
@@ -41,10 +45,11 @@ one-shot, so a rolled-back replay passes the same step clean:
 
 Every injector is a context manager that disarms on the way out, also
 when the body raises; :func:`armed` composes several.  Not ported yet
-(ROADMAP Queue A): `silent_corruption` (item 7),
-`throughput_collapse`, `scheduler_fault` and `job_preempt_at` (item 6),
-`arrival_storm` and `malformed_submission` (item 8), and ChaosPlan's
-member-targeted `nan_at` entries (item 6, ensembles).
+(ROADMAP Queue A): `throughput_collapse`, `scheduler_fault` and
+`job_preempt_at` (item 8, fleet), `arrival_storm` and
+`malformed_submission` (item 11, service), and the member-targeted
+shapes of ensembles (item 7): ChaosPlan's member `nan_at` entries and
+`silent_corruption(member=)`.
 
 This is a test surface: nothing here is imported by the port's hot paths.
 """
@@ -61,7 +66,7 @@ import numpy as np
 from .shared import GridError
 
 __all__ = ["ChaosPlan", "corrupt_checkpoint", "poison_checkpoint",
-           "halo_corruption", "HaloCorruption", "kernel_compile_fail",
+           "silent_corruption", "SilentCorruption", "halo_corruption", "HaloCorruption", "kernel_compile_fail",
            "kernel_corrupt", "KernelChaos", "stale_calibration",
            "StaleCalibration", "collective_stall", "FetchStall",
            "straggler", "FetchDelay", "armed"]
@@ -95,7 +100,7 @@ class ChaosPlan:
                         f"(step, member, field, index).")
                 raise GridError(
                     f"ChaosPlan: member-targeted nan_at entry {e!r}: the "
-                    f"port has no ensembles yet (ROADMAP Queue A item 6).")
+                    f"port has no ensembles yet (ROADMAP Queue A item 7).")
             entries.append((int(e[0]), None, e[1],
                             tuple(e[2]) if len(e) > 2 and e[2] is not None
                             else None))
@@ -322,6 +327,106 @@ def _poison_npz(path, field, magnitude, seed, geom=None) -> dict:
     meta.setdefault("crc32", {})[name] = _crc32(enc)
     _write_npz(path, {**arrays, _META_KEY: _meta_array(meta)})
     return {k: int(v) for k, v in meta.get("crc32", {}).items()}
+
+
+class SilentCorruption:
+    """Armed silent corruption (:func:`silent_corruption`): a one-shot
+    state transform in the `igg_torch.resilience._CHAOS_STATE_TAP` seam.
+    When the loop crosses `step`, one element of `state[field]` inside the
+    block of `rank` is perturbed by the finite `magnitude` in a copy of
+    the field (the caller's tensor is never written), added on the device
+    with no read back.  Every value stays finite; one-shot, so the
+    rolled-back replay passes the same step clean."""
+
+    def __init__(self, field: str, step: int, magnitude: float = 1.0,
+                 rank: int = 0, index=None, member: Optional[int] = None):
+        if not np.isfinite(magnitude) or magnitude == 0:
+            raise GridError("silent_corruption: magnitude must be a "
+                            "non-zero FINITE perturbation (NaN injection "
+                            "is ChaosPlan's job — the point here is a "
+                            "fault the NaN watchdog cannot see).")
+        if member is not None:
+            raise GridError(
+                f"silent_corruption(member={member!r}): the port has no "
+                f"ensembles yet (ROADMAP Queue A item 7).")
+        self.field = str(field)
+        self.step = int(step)
+        self.magnitude = float(magnitude)
+        self.rank = int(rank)
+        self.index = tuple(index) if index is not None else None
+        self._fired = False
+
+    def reset(self) -> None:
+        self._fired = False
+
+    def _tap(self, state: dict, step: int, emit, span: int = 1):
+        from . import shared
+
+        if self._fired or not step <= self.step < step + span:
+            return state
+        self._fired = True
+        if self.field not in state:
+            raise GridError(f"silent_corruption: field {self.field!r} not "
+                            f"in state {sorted(state)}.")
+        A = state[self.field]
+        if not (A.is_floating_point() or A.is_complex()):
+            raise GridError(f"silent_corruption: cannot perturb dtype "
+                            f"{A.dtype}.")
+        grid = shared.global_grid()
+        coords = grid.cart_coords(self.rank)
+        local = grid.local_shape(A)
+        off = (self.index if self.index is not None
+               else tuple(min(1, s - 1) for s in local))
+        nd = min(A.ndim, 3)
+        idx = tuple(coords[d] * local[d] + off[d] for d in range(nd)) \
+            + tuple(off[nd:])
+        out = A.clone()
+        out[idx].add_(self.magnitude)
+        state = dict(state)
+        state[self.field] = out
+        emit("chaos_silent_corruption", step, field=self.field,
+             magnitude=self.magnitude, index=[int(i) for i in idx],
+             rank=self.rank)
+        return state
+
+    def arm(self) -> "SilentCorruption":
+        from . import resilience
+
+        self._fired = False
+        resilience._CHAOS_STATE_TAP = self._tap
+        return self
+
+    def disarm(self) -> None:
+        from . import resilience
+
+        resilience._CHAOS_STATE_TAP = None
+
+    def __enter__(self) -> "SilentCorruption":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+
+def silent_corruption(field: str, step: int, magnitude: float = 1.0,
+                      rank: int = 0, index=None,
+                      member: Optional[int] = None) -> SilentCorruption:
+    """Context manager injecting silent data corruption: at step `step`,
+    one element of `state[field]` inside block `rank`'s region of the
+    stacked tensor (index `coords(rank) * local + index`, default an
+    interior cell `(1, 1, ...)`) is perturbed by the finite `magnitude`
+    (igg's injector).  The NaN watchdog stays silent; detection belongs
+    to :mod:`igg_torch.integrity`::
+
+        with it.chaos.silent_corruption("T", step=40, magnitude=50.0,
+                                        rank=3):
+            res = it.run_resilient(step, state, n, watch_every=10,
+                                   integrity=True, ...)
+
+    `member=` (a lane of an ensemble) raises `GridError` until the port
+    has ensembles."""
+    return SilentCorruption(field, step, magnitude, rank=rank, index=index,
+                            member=member)
 
 
 class HaloCorruption:

@@ -45,9 +45,13 @@ Where the port's route is not igg's, and why:
 - **Extension dtypes.**  bfloat16 and float8 live on the host as raw bits
   of their width (numpy has no type for them); the stored bytes and the
   `dtypes` names are igg's.
-- **Integrity stamps.**  `_stamp_invariants` returns None until
-  `igg.integrity` is ported; a generation igg stamped with invariants
-  still verifies here (:func:`_invariants_ok`).
+- **Integrity stamps.**  A generation written during an
+  integrity-enabled run carries the run's invariant entries (name,
+  fields, moment, kind, tol and the reference `ref`/`scale`,
+  :func:`igg_torch.integrity.stamp_entries`) in its deep stamp, igg's
+  `deep["invariants"]`; `verify_checkpoint(deep=True)` holds each to its
+  tolerance (:func:`_invariants_ok`), on the port's generations and on
+  igg's.
 
 Imports torch, numpy and the stdlib only.
 """
@@ -424,9 +428,13 @@ def _deep_sums_stacked(arr: np.ndarray, meta: dict,
 
 
 def _stamp_invariants() -> Optional[list]:
-    """The active run's invariant stamp entries: None until the port has
-    igg's integrity module (ROADMAP Queue A item 7)."""
-    return None
+    """The active run's invariant stamp entries
+    (:func:`igg_torch.integrity.stamp_entries`; None outside an
+    integrity-enabled run).  Imported at the call: the checkpoint layer
+    neither pays for nor cycles with the integrity module."""
+    from . import integrity
+
+    return integrity.stamp_entries()
 
 
 def _deep_meta(sums: Dict[str, list]) -> dict:

@@ -640,7 +640,7 @@ class StepDecomposition:
 # ---------------------------------------------------------------------------
 
 # The live watchdogs (the readiness source of the ops plane, ROADMAP Queue A
-# item 8): each registers at construction and leaves on close(); a WeakSet,
+# item 10): each registers at construction and leaves on close(); a WeakSet,
 # so an abandoned instance cannot pin a "stalled" verdict forever.
 _live_lock = threading.Lock()
 _LIVE_WATCHDOGS: "weakref.WeakSet" = weakref.WeakSet()
@@ -840,7 +840,7 @@ def rank_skew(records: Sequence[dict], *, publish: bool = False) -> Dict:
     ``igg_rank_skew_ms`` gauge to the maximum.  Window times are per-rank
     durations, so host clock offsets cannot skew this number.
     `publish=True` also emits a ``rank_skew`` record (the live straggler
-    feed of a heal engine, ROADMAP Queue A item 7); off by default, since
+    feed of a heal engine, ROADMAP Queue A item 9); off by default, since
     this is also the offline analysis of ``python -m igg_torch.comm
     report``."""
     by_step: Dict[int, Dict[int, float]] = {}

@@ -45,7 +45,9 @@ serves.
   :func:`reset` clears this state (`finalize_global_grid` does);
   :func:`dispatch_stamp` is the monotone dispatch counter that scopes a
   run's demotion to the families it dispatched (and the perf ledger's
-  window attribution, `igg_torch.perf.observe_window`).
+  window attribution, `igg_torch.perf.observe_window`);
+  :func:`diagnostic_dispatches` keeps a diagnostic replay (the integrity
+  layer's shadow re-execution) out of the active-tier records.
 
 - **Perf samples.**  A tier that passes verification gets one more warm
   dispatch on clones, timed (CUDA events on the card) into the perf
@@ -54,6 +56,7 @@ serves.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import warnings
@@ -65,8 +68,8 @@ from .shared import GridError
 
 __all__ = ["Admission", "Tier", "Ladder", "Quarantine", "status", "events",
            "active", "active_records", "admission_log", "is_quarantined",
-           "reset", "quarantine", "dispatch_stamp", "demotable",
-           "demote_active", "InjectedCompileError"]
+           "reset", "quarantine", "dispatch_stamp", "diagnostic_dispatches",
+           "demotable", "demote_active", "InjectedCompileError"]
 
 
 class Admission:
@@ -251,6 +254,24 @@ def dispatch_stamp() -> int:
     pass it to :func:`demote_active` as `since` to scope demotion to the
     families that dispatched during that run."""
     return _DISPATCHES
+
+
+@contextlib.contextmanager
+def diagnostic_dispatches():
+    """Dispatches inside this block leave the per-family active-tier
+    records as they were (snapshotted on entry, restored on exit): the
+    :mod:`igg_torch.integrity` shadow replay runs the truth step between
+    two serving dispatches, and without this guard the replay's tier would
+    look like the serving one to :func:`demote_active` and to the perf
+    ledger's window attribution."""
+    with _lock:
+        saved = dict(_ACTIVE)
+    try:
+        yield
+    finally:
+        with _lock:
+            _ACTIVE.clear()
+            _ACTIVE.update(saved)
 
 
 def demotable(since: Optional[int] = None

@@ -289,3 +289,15 @@ def run(nt: int, params: Params = Params(), dtype=torch.float32,
                               n1=n1, n2=max(nt - n1, n1 + 1),
                               warmup=max(warmup, 1))
     return T, sec / n_inner
+
+
+# Numeric integrity (igg_torch.integrity): where every dim is periodic and
+# the heat capacity uniform, the flux-form update keeps the sum of T over
+# owned cells (up to roundoff); state dicts with this family's "T" field
+# opt in.
+from .. import integrity as _integrity
+
+_integrity.register_invariants("diffusion3d", [
+    _integrity.Invariant("total_heat", ("T",), moment=1, kind="conserved",
+                         requires_periodic=True),
+])

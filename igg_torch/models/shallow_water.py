@@ -12,8 +12,9 @@ local shapes `(nx, ny)`, `(nx+1, ny)`, `(nx, ny+1)` on a 2-D grid
 (`init_global_grid(nx, ny, 1, ...)`).
 
 `make_step(tune=...)` is `compile`'s (the autotuner's cached winner for
-the family "shallow_water").  Not ported here: the integrity invariant's
-registration (the spec carries its `total_mass` declaration).
+the family "shallow_water").  Importing the module registers igg's
+`total_mass` invariant with :mod:`igg_torch.integrity` (the spec carries
+the same declaration).
 """
 
 from __future__ import annotations
@@ -104,3 +105,14 @@ def run(nt: int, params: Params = Params(), dtype=torch.float32,
     state, sec = time_steps(step, state, n1=n1, n2=max(nt - n1, n1 + 1),
                             warmup=1)
     return state, sec / n_inner
+
+
+# Importing the family registers its integrity invariant before the first
+# compile (the spec carries the same declaration; compile registers it
+# again, identically).
+from .. import integrity as _integrity
+
+_integrity.register_invariants("shallow_water", [
+    _integrity.Invariant("total_mass", ("h",), moment=1, kind="conserved",
+                         requires_periodic=True),
+])

@@ -60,11 +60,19 @@ that loop, with igg's signature, defaults, validation and event stream:
   which dispatches one decomposition probe a watch window beside the
   watchdog's and polls it once a loop iteration.
 
+- **Numeric integrity** (:mod:`igg_torch.integrity`).  `integrity=`
+  fuses the families' invariant sums and, every `check_every` windows,
+  a shadow re-execution's diffs into the watchdog's probe (one vector,
+  one pinned copy a window); finite but wrong state is an
+  ``integrity_violation``, rolled back to the newest deep-verified
+  generation OLDER than the violating probe, then
+  ``integrity_resolved``; generations carry the invariants' stamps.
+
 The fault injectors of :mod:`igg_torch.chaos` drive every path.  Not
-ported yet: `heal=`, `integrity=` and `serve=` (each raises `GridError`)
-and the multi-process branches (more than one process raises
-`GridError`).  With the perf ledger on (`IGG_PERF`, default on), each
-watchdog window's ms/step is recorded for the tier that served it
+ported yet: `heal=` and `serve=` (each raises `GridError`) and the
+multi-process branches (more than one process raises `GridError`).  With
+the perf ledger on (`IGG_PERF`, default on), each watchdog window's
+ms/step is recorded for the tier that served it
 (`igg_torch.perf.observe_window`).
 """
 
@@ -199,8 +207,12 @@ class Event:
     """One incident of the loop (also passed to `on_event`): `kind` is
     'resume', 'checkpoint' (detail `background: True` when the writer
     committed it), 'checkpoint_failed', 'nan_detected' (`step` is the
-    probe's step, detail `counts`), 'divergence', 'rollback',
-    'tier_degraded', 'preempt' or an injector's 'chaos_*'."""
+    probe's step, detail `counts`), 'divergence', 'integrity_violation'
+    (finite but wrong state, from :mod:`igg_torch.integrity`: the
+    drifted invariant or the shadow's field, the drift, the suspect block
+    `rank` and `device`), 'integrity_resolved' (the violation's rollback
+    landed on a verified generation), 'rollback', 'tier_degraded',
+    'preempt' or an injector's 'chaos_*'."""
     kind: str
     step: int
     detail: dict = dataclasses.field(default_factory=dict)
@@ -272,12 +284,15 @@ def probe_counts(*arrays) -> torch.Tensor:
 
 
 class _Probe:
-    """One probe in flight: its counts copied without blocking into pinned
-    host memory (on the card) and the event recorded after the copy."""
+    """One probe in flight: its vector (the counts, or the integrity
+    monitor's fused vector, decoded by `tag`) copied without blocking into
+    pinned host memory (on the card) and the event recorded after the
+    copy."""
 
-    __slots__ = ("host", "event")
+    __slots__ = ("host", "event", "tag")
 
-    def __init__(self, counts: torch.Tensor):
+    def __init__(self, counts: torch.Tensor, tag=None):
+        self.tag = tag
         if counts.device.type == "cuda":
             self.host = torch.empty(counts.shape, dtype=counts.dtype,
                                     pin_memory=True)
@@ -395,9 +410,8 @@ class _AsyncCheckpointWriter:
 # The layers igg's loop calls that the port does not have yet, and the
 # ROADMAP Queue A item that brings each.
 _UNPORTED = {
-    "serve": ("igg.statusd", "item 8, ops plane and service"),
-    "heal": ("igg.heal", "item 7, integrity and heal"),
-    "integrity": ("igg.integrity", "item 7, integrity and heal"),
+    "serve": ("igg.statusd", "item 10, the ops plane"),
+    "heal": ("igg.heal", "item 9, heal"),
 }
 
 
@@ -465,8 +479,17 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
       the run's own outcome is settled (the run's own error wins, and
       carries it as a note); on CPU tensors it is dropped, as igg drops
       it.
-    - `serve`, `heal`, `integrity`: not ported yet; anything but None
-      raises `GridError`.
+    - `integrity`: :mod:`igg_torch.integrity` (None: on only where
+      ``IGG_INTEGRITY=1``; True: the environment's config; an
+      :class:`igg_torch.integrity.IntegrityConfig`; False: off).  Needs
+      `watch_every` > 0.  Invariant sums and shadow diffs ride the
+      watchdog's probe; a violation rolls back to the newest generation
+      older than the probe that deep-verifies (the plain scan where none
+      does); a violation that recurs at the same step after a rollback
+      demotes as a recurring NaN does; resume scans prefer deep-verified
+      generations.
+    - `serve`, `heal`: not ported yet; anything but None raises
+      `GridError`.
     - `chaos`: an :class:`igg_torch.chaos.ChaosPlan` (testing only).
 
     Runs in one process (more raise `GridError`)."""
@@ -474,8 +497,7 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
     from . import degrade as _degrade
 
     shared.check_initialized()
-    for name, value in (("serve", serve), ("heal", heal),
-                        ("integrity", integrity)):
+    for name, value in (("serve", serve), ("heal", heal)):
         if value is not None:
             mod, item = _UNPORTED[name]
             raise GridError(
@@ -519,6 +541,17 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
     if missing:
         raise GridError(f"run_resilient: watch_fields {missing} not in "
                         f"state {sorted(state)}.")
+    # Numeric integrity: the knob is checked here, the monitor is built
+    # after a resume has settled the state it checks.
+    from . import integrity as _integrity
+
+    int_cfg = _integrity.as_config(integrity)
+    if int_cfg is not None and not (watch and watch_every):
+        raise GridError(
+            "run_resilient: the integrity= probes ride the watch cadence; "
+            "set watch_every > 0 (with watched fields).")
+    deep_pref = int_cfg is not None and int_cfg.resolved_deep()
+    mon: Optional[_integrity.Monitor] = None
     if comm is not None:
         if not (hasattr(comm, "maybe_dispatch") and hasattr(comm, "poll")):
             raise GridError(
@@ -564,7 +597,15 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
     resumed_step = None
     try:
         if resume and cdir is not None:
-            found = ckpt.latest_checkpoint(cdir, prefix, check_finite=True)
+            found = None
+            if deep_pref:
+                # Prefer the newest deep-verified generation; unstamped or
+                # poisoned ones fall through to the plain scan.
+                found = ckpt.latest_checkpoint(cdir, prefix,
+                                               check_finite=True, deep=True)
+            if found is None:
+                found = ckpt.latest_checkpoint(cdir, prefix,
+                                               check_finite=True)
             if found is not None:
                 # Elastic: a generation of another decomposition of the
                 # same grid is re-tiled onto the live one.
@@ -579,11 +620,16 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                         f"boundary and overshoot n_steps.  Resume with the "
                         f"steps_per_call the checkpoint was written under.")
                 _emit("resume", steps_done, path=str(found))
+        if int_cfg is not None:
+            mon = _integrity.Monitor(int_cfg, state, watch, watch_every,
+                                     steps_per_call)
     except BaseException as e:
         paths = _telemetry._auto_dump(f"run_resilient: "
                                       f"{type(e).__name__}: {e}")
         if isinstance(e, ResilienceError):
             e.dump_paths.extend(p for p in paths if p not in e.dump_paths)
+        if mon is not None:
+            mon.close()
         if tel_owns:
             tel.detach()
         raise
@@ -684,20 +730,36 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
             host = pr.result()
             if stall is not None:
                 stall.fetched(("probe", step_p), step_p)
+            viol = None
+            if mon is not None:
+                host, viol = mon.decode(host, pr.tag, step_p)
             bad = {n: int(c) for n, c in zip(watch, host) if c != 0}
             if bad:
                 pending.clear()   # younger probes are post-failure noise
                 if stall is not None:
                     stall.clear()
                 return _emit("nan_detected", step_p, counts=bad)
+            if viol is not None:
+                # Finite but wrong state: an invariant drifted or a shadow
+                # re-execution disagreed.
+                pending.clear()
+                if stall is not None:
+                    stall.clear()
+                return _emit("integrity_violation", step_p, **viol)
             last_good = max(last_good, step_p)
             stats.fetched(step_p, steps_done)
         return None
 
     def _dispatch_probe() -> None:
         """One watchdog probe, registered with the stall heartbeat (the
-        entry a hung exchange is reported against)."""
-        pr = _Probe(probe_counts(*[state[n] for n in watch]))
+        entry a hung exchange is reported against).  With integrity on,
+        the monitor's fused probe serves: counts, invariant partials and
+        (on the check cadence) shadow diffs in one vector."""
+        if mon is not None:
+            vec, tag = mon.dispatch(state, steps_done, step_fn)
+            pr = _Probe(vec, tag)
+        else:
+            pr = _Probe(probe_counts(*[state[n] for n in watch]))
         pending.append((steps_done, pr))
         if stall is not None:
             stall.watch(("probe", steps_done), steps_done,
@@ -731,6 +793,10 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 # per-run view's step-anchored copy.
                 _emit("tier_degraded", ev.step, _bus=False, tier=tname,
                       reason="nan_recurrence")
+            if demoted and mon is not None:
+                # References anchored on the demoted tier's trajectory
+                # would flag the healthy replay: re-anchor.
+                mon.reset_reference()
         last_fail = (ev.kind, ev.step)
         if not demoted:
             retries += 1
@@ -749,8 +815,22 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
         # generation is no candidate, and the newest healthy one may still
         # be queued.
         _merge_writer(drain=True)
-        found = ckpt.latest_checkpoint(cdir, prefix, check_finite=True,
-                                       max_step=ev.step)
+        # A violation's generation at the probe step may already hold the
+        # finite but wrong state (a shadow catch leaves its deep stamp
+        # consistent): only older generations are candidates.  A NaN's
+        # generation at its step fails check_finite.
+        max_step = (ev.step - 1 if ev.kind == "integrity_violation"
+                    else ev.step)
+        found = None
+        if mon is not None and mon.deep_verify:
+            # A finite but poisoned generation passes check_finite and
+            # fails its deep stamp: prefer the newest that deep-verifies,
+            # the plain scan only where none does.
+            found = ckpt.latest_checkpoint(cdir, prefix, check_finite=True,
+                                           max_step=max_step, deep=True)
+        if found is None:
+            found = ckpt.latest_checkpoint(cdir, prefix, check_finite=True,
+                                           max_step=max_step)
         if found is None:
             raise ResilienceError(
                 f"run_resilient: {ev.kind} at step {ev.step} and no healthy "
@@ -775,6 +855,11 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 ckpt.remove_generation(p)
         _emit("rollback", steps_done, from_step=ev.step,
               attempt=retries, path=str(found))
+        if mon is not None:
+            mon.on_rollback(state, steps_done)
+            if ev.kind == "integrity_violation":
+                _emit("integrity_resolved", steps_done, from_step=ev.step,
+                      path=str(found), deep_verified=bool(mon.deep_verify))
         if recovery_policy is not None:
             out = recovery_policy(retries, state, ev)
             if isinstance(out, tuple):
@@ -807,6 +892,9 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
         # Entry generation, so a rollback target exists from the start.
         if checkpoint_every and steps_done != resumed_step:
             _save_gen(steps_done)
+        if mon is not None:
+            # The first window is shadow-checked from the entry state.
+            mon.arm_entry(state, steps_done)
 
         final_probe_done = False
         while True:
@@ -888,6 +976,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
             e.dump_paths.extend(p for p in paths if p not in e.dump_paths)
         raise
     finally:
+        if mon is not None:
+            mon.close()   # clears the checkpoint stamp context
         comm_error = None
         if comm is not None:
             try:

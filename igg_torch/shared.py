@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 NDIMS = 3
+# Left and right neighbor per dimension.
+NNEIGHBORS_PER_DIM = 2
 # "No neighbor" (open boundary at the edge of the grid), MPI_PROC_NULL's role.
 PROC_NULL = -1
 

@@ -39,8 +39,8 @@ signature (:func:`igg_torch.models._dispatch.apply_tuned`, igg's rules).
 Every compile registers the spec as a family with :mod:`igg_torch.perf`
 (its analytic accesses, and a calibration step where the spec has an
 `init`) and :mod:`igg_torch.autotune` (its candidate routes, each a
-`compile` pinned to it), igg's `_register_family`; the integrity half of
-that registration is not ported.
+`compile` pinned to it) and, where the spec declares invariants,
+:mod:`igg_torch.integrity`: igg's `_register_family`.
 """
 
 from __future__ import annotations
@@ -90,6 +90,12 @@ def _register_family(spec: StencilSpec, analysis, cf: Dict) -> None:
 
     perf.register_family(spec.name, accesses=analysis.accesses,
                          steps=steps if spec.init is not None else None)
+    if spec.invariants:
+        # The spec's conserved or bounded quantities join the integrity
+        # probes, keyed by its field names.
+        from .. import integrity
+
+        integrity.register_invariants(spec.name, spec.invariants)
     if spec.init is None:
         return
 

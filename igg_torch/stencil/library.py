@@ -13,36 +13,10 @@ from the spec.
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Optional, Tuple
-
-from ..shared import GridError
+from ..integrity import Invariant
 from .spec import Field, Param, StencilSpec, Update
 
 __all__ = ["Invariant", "wave2d_spec", "wave2d_coeffs", "shallow_water_spec"]
-
-
-@dataclasses.dataclass(frozen=True)
-class Invariant:
-    """A conserved or bounded quantity a spec declares (the fields of
-    `igg.integrity.Invariant`): `value = sum over fields of sum over owned
-    cells of f^moment`, conserved (`moment=1`) or bounded (`moment=2`),
-    where `requires_periodic` says the law needs periodic dims.  A record
-    only: the port has no integrity probes yet."""
-    name: str
-    fields: Tuple[str, ...]
-    moment: int = 1
-    kind: str = "conserved"           # "conserved" | "bounded"
-    tol: Optional[float] = None
-    requires_periodic: bool = True
-
-    def __post_init__(self):
-        if self.moment not in (1, 2):
-            raise GridError(f"Invariant {self.name!r}: moment must be 1 "
-                            f"(sum) or 2 (sum of squares).")
-        if self.kind not in ("conserved", "bounded"):
-            raise GridError(f"Invariant {self.name!r}: kind must be "
-                            f"'conserved' or 'bounded'.")
 
 
 def wave2d_spec() -> StencilSpec:

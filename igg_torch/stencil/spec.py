@@ -283,7 +283,7 @@ class StencilSpec:
     grid at compile time (``"any"`` serves both halo-engine modes);
     `init` an optional `(coeffs, dtype) -> state tuple` function on the
     live grid; `invariants` the spec's conserved or bounded quantities
-    (:class:`igg_torch.stencil.library.Invariant` records)."""
+    (:class:`igg_torch.integrity.Invariant` records)."""
 
     def __init__(self, name: str, *, fields: Sequence[Field],
                  updates: Sequence[Update],
@@ -295,8 +295,8 @@ class StencilSpec:
         self.updates = list(updates)
         self.params = list(params)
         self.init = init
-        # Conserved/bounded quantities (declarations only: the port has
-        # no integrity probes yet).
+        # Conserved/bounded quantities: `compile` registers them with
+        # igg_torch.integrity.
         self.invariants = tuple(invariants)
         for inv in self.invariants:
             if not {f for f in inv.fields} <= {f.name for f in fields}:

@@ -28,8 +28,13 @@ alike).
   where a caller asks (:meth:`Telemetry.maybe_export_metrics`).  The port
   maintains `igg_halo_plane_bytes_total` (`igg_torch.update_halo`),
   `igg_tier_dispatch_total{family,tier}` and `igg_tier_quarantined_total`
-  (the tier ladder), and the resilient loop's `igg_steps_total`,
-  `igg_rollbacks_total` and the :class:`StepStats` gauges.
+  (the tier ladder), the resilient loop's `igg_steps_total`,
+  `igg_rollbacks_total` and the :class:`StepStats` gauges, and the
+  integrity monitor's `igg_integrity_checks_total`,
+  `igg_integrity_shadow_checks_total` and
+  `igg_integrity_violations_total` (:mod:`igg_torch.integrity`, whose
+  events are `integrity_config`, `integrity_degraded`,
+  `integrity_violation` and `integrity_resolved`).
 
 - **Run-loop hooks.**  :class:`StepStats` turns the watchdog's probe
   fetches into `step_stats` records and step-rate gauges;
@@ -297,6 +302,14 @@ _BUILTIN_HELP: Dict[str, str] = {
                                "the degradation ladder.",
     "igg_tier_quarantined_total": "Kernel tiers quarantined by the "
                                   "degradation ladder.",
+    "igg_integrity_checks_total": "Clean integrity verdicts decoded from "
+                                  "fetched watchdog probes "
+                                  "(igg.integrity).",
+    "igg_integrity_shadow_checks_total": "Shadow re-execution comparisons "
+                                         "completed (igg.integrity).",
+    "igg_integrity_violations_total": "Silent-data-corruption verdicts "
+                                      "raised (invariant drift or shadow "
+                                      "mismatch; igg.integrity).",
 }
 
 

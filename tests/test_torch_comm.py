@@ -626,7 +626,7 @@ def test_run_resilient_comm_checks_equal_iggs():
                        match=r"igg_torch\.comm\.StepDecomposition monitor"):
         it.run_resilient(loop_step(), st, 4, watch_every=2,
                          comm="not-a-monitor", install_sigterm=False)
-    for arg in ("heal", "integrity", "serve"):
+    for arg in ("heal", "serve"):
         with pytest.raises(it.GridError, match="not ported|Queue A"):
             it.run_resilient(loop_step(), st, 4, install_sigterm=False,
                              **{arg: True})

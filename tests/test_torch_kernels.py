@@ -1378,6 +1378,45 @@ def test_resilient_nan_rollback_bitwise(card, tmp_path):
     torch.testing.assert_close(res.state["T"], ref["T"], rtol=0, atol=0)
 
 
+def test_integrity_probe_and_shadow_on_the_card(card, tmp_path):
+    """The fused integrity probe on the card equals the same fields' on the
+    CPU within 2e-5 (float32 sums of up to 63^3 terms in two orders: the
+    CPU's accumulation of some blocks is a few 1e-6 off their float64
+    sums, the card's tree less); a silent corruption on block 5 is caught
+    by the shadow re-execution at the next probe and the run ends bitwise
+    the uninterrupted one."""
+    from igg_torch import integrity
+
+    state, fn = _resilient_setup(card)
+    invs = [integrity.Invariant("heat", ("T",)),
+            integrity.Invariant("energy", ("T", "Cp"), moment=2,
+                                kind="bounded")]
+    T, Cp = state["T"], state["Cp"]
+    truth = T + 0.5
+    for kind in ("steady", "anchor", "wide"):
+        probe = integrity._build_probe(["T"], ["Cp"], invs, kind)
+        args = (T, Cp) + ((truth,) if kind == "wide" else ())
+        got = probe(*args)
+        want = probe(*[a.cpu() for a in args])
+        assert got.device == T.device and got.dtype == torch.float32
+        torch.testing.assert_close(got.cpu(), want, rtol=2e-5,
+                                   atol=2e-5 * float(want.abs().max()))
+    ref = dict(state)
+    for _ in range(8):
+        ref = fn(ref)
+    with it.chaos.silent_corruption("T", step=40, magnitude=1e6, rank=5):
+        res = it.run_resilient(
+            fn, dict(state), 136, steps_per_call=17, watch_every=34,
+            checkpoint_every=34, checkpoint_dir=tmp_path, ring=2,
+            integrity=integrity.IntegrityConfig(check_every=1))
+    viol = [e for e in res.events if e.kind == "integrity_violation"]
+    assert len(viol) == 1 and viol[0].step == 68
+    assert viol[0].detail["source"] == "shadow"
+    assert viol[0].detail["rank"] == 5
+    assert "integrity_resolved" in [e.kind for e in res.events]
+    torch.testing.assert_close(res.state["T"], ref["T"], rtol=0, atol=0)
+
+
 def test_resilient_probe_counts_equal_cpu(card):
     """The probe's counts on the card equal the same fields' on the CPU,
     and a probe's host copy becomes ready without blocking the loop."""

@@ -666,13 +666,20 @@ def test_kernel_compile_fail_raises(tmp_path):
 def test_unported_arguments_raise(tmp_path, arg):
     _grid()
     if arg == "member_nan":
-        with pytest.raises(it.GridError, match="item 6"):
+        with pytest.raises(it.GridError, match="item 7"):
             it.chaos.ChaosPlan(nan_at=[(3, 0, "T")])
+        return
+    if arg == "integrity":
+        # integrity= is ported (igg_torch.integrity): without a watch
+        # cadence it raises igg's check.
+        with pytest.raises(it.GridError, match="watch cadence"):
+            _run(port_step(), tmp_path, watch_every=0, checkpoint_every=0,
+                 checkpoint_dir=None, integrity=True)
         return
     # comm= is ported (igg_torch.comm): a value that is no monitor raises
     # igg's check, naming StepDecomposition.
-    item = {"serve": "item 8", "comm": "StepDecomposition", "heal": "item 7",
-            "integrity": "item 7"}[arg]
+    item = {"serve": "item 10", "comm": "StepDecomposition",
+            "heal": "item 9"}[arg]
     with pytest.raises(it.GridError, match=f"{arg}=True: .*{item}"):
         _run(port_step(), tmp_path, **{arg: True})
 

@@ -375,6 +375,54 @@ def test_comm_monitor_and_heartbeat_add_no_host_syncs(tmp_path,
     assert monitor.windows >= 1
 
 
+def test_integrity_probes_and_shadows_add_no_host_syncs(monkeypatch):
+    """The sentinel over `run_resilient` with the integrity layer on, its
+    invariant sums and a shadow re-execution every window fused into the
+    watchdog's probe: the calls that read a tensor on the host equal the
+    bare loop's (the probe's one copy a window), and so does the final
+    state."""
+    from igg_torch import integrity
+
+    it.init_global_grid(8, 8, 8, dimx=2, dimy=2, dimz=2, periodz=1,
+                        device="cpu", nprocs=8, quiet=True)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    step = t3.make_step(p)
+    fn = lambda s: {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}  # noqa: E731
+    cfg = integrity.IntegrityConfig(
+        invariants=[integrity.Invariant("total_heat", ("T",)),
+                    integrity.Invariant("energy", ("T",), moment=2,
+                                        kind="bounded")],
+        check_every=1, tol=1.0)
+    calls = []
+    for name in ("item", "tolist", "cpu", "numpy"):
+        real = getattr(torch.Tensor, name)
+
+        def counted(self, *a, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(self, *a, **kw)
+        monkeypatch.setattr(torch.Tensor, name, counted)
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda *a, **kw: calls.append("synchronize"))
+
+    def run(checked):
+        calls.clear()
+        res = it.run_resilient(fn, {"T": T, "Cp": Cp}, 40, watch_every=4,
+                               integrity=cfg if checked else False,
+                               install_sigterm=False)
+        return list(calls), res
+
+    shadows = tel.counter("igg_integrity_shadow_checks_total",
+                          run="resilient")
+    before = shadows.value
+    bare, r0 = run(False)
+    observed, r1 = run(True)
+    assert observed == bare and bare
+    assert torch.equal(r0.state["T"], r1.state["T"])
+    assert [e.kind for e in r1.events] == []
+    assert shadows.value - before == 10          # every window shadowed
+
+
 def test_modules_import_neither_jax_nor_igg():
     """`igg_torch` with its telemetry, profiling, knob and ladder modules
     imports neither JAX nor anything of igg."""
