@@ -273,6 +273,28 @@ the script exits non-zero without printing a result:
    with shadows every 4 windows, in turns, and sync warnings over 10
    windows with shadows on and with integrity off (equal, or it raises);
    the rest printed, not raised.
+28. Ensembles (`igg_torch.run_ensemble`,
+   `diffusion3d.make_member_step`), each number beside the card's name
+   and power limit: (a) 8 lanes of diffusion at 256^3 periodic on one
+   block (config 1's block), `dt_scale` swept over 0.50-1.00, 200 steps,
+   `watch_every=50`, no ring: 1600 launches of the step kernel served by
+   `diffusion3d.cuda`, each lane bitwise its own solo run of the member
+   step; member-steps/s against 8 `make_step` loops in turns, device ms
+   per member-step (profiler) against row 1's, the probe's device ms and
+   launches, host us per lane dispatch. (b) 8 lanes on 2x2x2 open blocks
+   of 64^3, 40 steps, `watch_every=10`, `checkpoint_every=20`: a NaN at
+   step 30 in member 5 rolls back lane 5 alone and every lane ends bitwise
+   the uninterrupted run; a NaN recurring in member 3 quarantines it and
+   the other lanes end bitwise; a preemption at 30 and `resume=True` onto
+   (1, 2, 4) blocks of the same grid end bitwise; one generation's size
+   and seconds. (c) 4 lanes at 128^3 periodic, uniform Cp,
+   `checkpoint_every=10` as `watch_every`: `silent_corruption(member=2)`
+   at step 25 is an `integrity_violation` on lane 2 at the probe of step
+   30, rolled back to 20 (older than the probe: the generation at 30 may
+   hold the corrupted lane), and the run ends bitwise. (a) also times the
+   member-step checks' host cost a call and raises on any sync warning
+   of 200 steps with probes and integrity rows. Every check raises; rows
+   1 and 4 of PERF.md's table must launch.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -309,7 +331,7 @@ periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
 Stokes and HM3D divisors.  Launch counters are set to 0 before each
-main-path phase (2 to 27) and read after it; each of the twenty kernels
+main-path phase (2 to 28) and read after it; each of the twenty kernels
 must have launched on that main path (the generated relax3d step and
 chunk step are phase 20's launches of the spec counters, shallow water's
 the others').  The last lines are the run's seconds, the
@@ -323,6 +345,7 @@ from __future__ import annotations
 import ctypes
 import json
 import os
+import pathlib
 import re
 import subprocess
 import sys
@@ -495,6 +518,9 @@ CHUNK_GRIDS = {
 CHUNK_SHAPES = ((16, 16, 16), (16, 12, 13))
 K_CHUNK = 8
 N_OVERHEAD = 128   # igg's resilience_overhead contract row: one 128^3 block
+# Phase 28: the sweep's block (config 1's), the isolation run's blocks
+# (2x2x2 of them) and the integrity run's block.
+N_SWEEP, ISO_LOCAL, INT_N = 256, 64, 128
 OL3 = dict(overlapx=3, overlapy=3, overlapz=3)
 # Layouts of the small Stokes checks (overlap 3): igg's trapezoid matrix
 # (every window mode: ext, wrap, oext, frozen) and one-block grids.
@@ -3801,11 +3827,14 @@ class Smoke:
             # The ladder's own walk (admission, the dispatch counter, the
             # active-tier record) on make_step's host-bound call: the
             # factory against its kernel tier's callable, in turns.
+            # The tier's callable takes the coefficient the factory forms.
             one = t3.make_step(p)
             tier = one.ladder._fn(one.ladder.tier("diffusion3d.cuda"))
+            A = float(p.timestep() * p.lam) / Cp
             walls = {}
             for name in ("tier", "ladder", "ladder", "tier"):
-                fn = one if name == "ladder" else tier
+                fn = one if name == "ladder" else (
+                    lambda T, Cp: tier(T, A))
                 _, sec = it.time_steps(lambda T, Cp: (fn(T, Cp), Cp),
                                        (T, Cp), n1=10, n2=40, warmup=2)
                 walls.setdefault(name, []).append(sec * 1e3)
@@ -5795,8 +5824,364 @@ class Smoke:
                     ms_per_step=turns,
                     sync_warnings={k: len(v) for k, v in warned.items()})
 
+    # -- phase 28 ---------------------------------------------------------
+    def ensemble_phase(self):
+        """Phase 28 (module docstring): `igg_torch.run_ensemble` on the
+        card."""
+        import tempfile
+
+        t_phase = time.perf_counter()
+        out = {"sweep": self.ensemble_sweep()}
+        log(f"[phase 28] (a) {time.perf_counter() - t_phase:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            out["isolation"] = self.ensemble_isolation(tmp)
+        log(f"[phase 28] (b) {time.perf_counter() - t_phase:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            out["integrity"] = self.ensemble_integrity(tmp)
+        # PERF.md's table: row 1 the step kernel, 3 the halo writer, 4 the
+        # plane packer (4 from the recv planes of (b)'s blocks).
+        counts = self.ops.launch_counts()
+        ran = {k: v for k, v in counts.items() if v}
+        idle = [k for k in ("diffusion_step", "pack_planes") if not ran.get(k)]
+        if idle:
+            raise SmokeFailure(f"[phase 28] did not launch {idle}")
+        log(f"[phase 28] launches {json.dumps(ran)}")
+        out["launches"] = ran
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"[phase 28] done in {out['seconds']:.1f} s [{self.card}]")
+        self.perf["ensemble"] = out
+
+    def member_lanes(self, scales, uniform_cp: bool = False):
+        """Diffusion members on the current grid, one per `dt_scale` in
+        `scales`: T from `update_halo(*init_fields())` (one tensor, never
+        written: a member step returns new ones), one heat capacity for
+        every lane (uniform at cp_min with `uniform_cp`), `dt_scale` a 0-d
+        tensor in T's dtype."""
+        it, t3 = self.it, self.t3
+        p = t3.Params()
+        T, Cp = t3.init_fields(p)
+        T = it.update_halo(T)
+        if uniform_cp:
+            Cp = torch.full_like(Cp, p.cp_min)
+        return [{"T": T, "Cp": Cp,
+                 "dt_scale": torch.tensor(s, dtype=T.dtype, device=T.device)}
+                for s in scales]
+
+    def ensemble_sweep(self):
+        """(a) 8 lanes at N_SWEEP^3 periodic on one block, dt_scale swept
+        over 0.50-1.00, 200 steps, `watch_every=50`, no ring."""
+        import warnings
+
+        from igg_torch import degrade, integrity
+        from igg_torch import ensemble as ens
+
+        it, t3 = self.it, self.t3
+        n, M, n_steps, watch = N_SWEEP, 8, 200, 50
+        self.grid((n, n, n), **SINGLE, **PERIODIC)
+        scales = [0.5 + 0.5 * m / (M - 1) for m in range(M)]
+        lanes = self.member_lanes(scales)
+        p = t3.Params()
+        step = t3.make_member_step(p)
+
+        def ensemble(steps, **kw):
+            return it.run_ensemble(step, lanes, steps, install_sigterm=False,
+                                   **kw)
+
+        c0 = self.ops.launch_counts()["diffusion_step"]
+        res = ensemble(n_steps, watch_every=watch)
+        sync(self.dev)
+        launched = self.ops.launch_counts()["diffusion_step"] - c0
+        tier = degrade.active().get("diffusion3d")
+        if launched != M * n_steps or tier != "diffusion3d.cuda":
+            raise SmokeFailure(f"[phase 28] (a) {launched} launches of the "
+                               f"step kernel for {M * n_steps} member-steps, "
+                               f"served by {tier}")
+        if res.events or res.steps_done != n_steps or res.quarantined:
+            raise SmokeFailure(f"[phase 28] (a) {res.events}")
+        # Each lane bitwise its own solo run of the member step.
+        for m, lane in enumerate(lanes):
+            st = dict(lane)
+            for _ in range(n_steps):
+                st = step(st)
+            if not torch.equal(st["T"], res.state["T"][m]):
+                raise SmokeFailure(f"[phase 28] (a) lane {m} != its solo run")
+        T_out = res.state["T"]
+        if not bool(torch.isfinite(T_out).all()) or torch.equal(T_out[0],
+                                                                 T_out[-1]):
+            raise SmokeFailure("[phase 28] (a) lanes not finite, or the "
+                               "sweep's ends equal")
+        del res, T_out, st
+        # Member-steps per second against 8 independent make_step loops
+        # (step-major, as the ensemble dispatches), in turns.
+        base = [t3.make_step(p) for _ in range(M)]
+        T0, Cp = lanes[0]["T"], lanes[0]["Cp"]
+
+        def loops():
+            Ts = [T0] * M
+            sync(self.dev)
+            t0 = time.perf_counter()
+            for _ in range(n_steps):
+                Ts = [f(T, Cp) for f, T in zip(base, Ts)]
+            sync(self.dev)
+            return M * n_steps / (time.perf_counter() - t0)
+
+        def swept():
+            sync(self.dev)
+            t0 = time.perf_counter()
+            ensemble(n_steps, watch_every=watch)
+            sync(self.dev)
+            return M * n_steps / (time.perf_counter() - t0)
+
+        swept()
+        loops()
+        turns = {"ensemble": [], "make_step": []}
+        for _ in range(2):
+            for name, f in (("ensemble", swept), ("make_step", loops),
+                            ("make_step", loops), ("ensemble", swept)):
+                turns[name].append(f())
+        # Device time per member-step (profiler), the probe's, and the
+        # host's enqueue time per lane dispatch (no watch: 50 steps of
+        # 8 lanes, shorter than the card's work, timed before the sync).
+        # A member-step is one launch of the step kernel: its mean device
+        # time a launch (the profiler now and then drops a launch, which a
+        # per-call sum would count as time not spent), then the run's
+        # other kernels (the result's stacking) a member-step.
+        k = 20
+        member_ms = profiled_device_ms(lambda: ensemble(k, watch_every=0), 2,
+                                       "step_kernel")
+        if member_ms is None:      # no device time in the trace: events
+            member_ms = event_ms(lambda: ensemble(k, watch_every=0),
+                                 2) / (M * k)
+        split, launches = device_ms_by_kernel(
+            lambda: ensemble(k, watch_every=0), 2)
+        total_ms = member_ms + sum(
+            v for key, v in split.items() if "step_kernel" not in key) / (M * k)
+        watch_fields = ["Cp", "T"]
+        probe = lambda: ens.probe_matrix(lanes, watch_fields, watch_fields,
+                                         (), it.get_global_grid())
+        split_p, launches_p = device_ms_by_kernel(probe, 5)
+        probe_ms = sum(split_p.values())
+        host = {}
+        for name, f in (("ensemble", lambda: ensemble(50, watch_every=0)),
+                        ("make_step", None)):
+            sync(self.dev)
+            t0 = time.perf_counter()
+            if f is not None:
+                f()
+            else:
+                Ts = [T0] * M
+                for _ in range(50):
+                    Ts = [g(T, Cp) for g, T in zip(base, Ts)]
+            host[name] = (time.perf_counter() - t0) / (M * 50) * 1e6
+            sync(self.dev)
+        # The member-step contract's checks (`ensemble._checked_step`, run
+        # on each lane's first dispatch of a run): their host cost a call,
+        # as the checked call of a step that only copies the dict against
+        # the bare call, in turns.
+        def copy_step(st):
+            return dict(st)
+
+        lane, lane_keys = dict(lanes[0]), sorted(lanes[0])
+        chk = {"checked": [], "bare": []}
+        for name in ("checked", "bare", "bare", "checked") * 2:
+            t0 = time.perf_counter()
+            for _ in range(20000):
+                if name == "checked":
+                    ens._checked_step(copy_step, lane, lane_keys)
+                else:
+                    copy_step(lane)
+            chk[name].append((time.perf_counter() - t0) / 20000 * 1e6)
+        check_us = min(chk["checked"]) - min(chk["bare"])
+        # No sync in the loop: sync warnings over 200 steps with a probe
+        # every 50 carrying integrity rows (a tolerance no lane reaches).
+        inv = integrity.Invariant("total_heat", ("T",))
+        cfg = integrity.IntegrityConfig(check_every=0, tol=1.0,
+                                        invariants=[inv])
+        sync(self.dev)
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                res = ensemble(n_steps, watch_every=watch, integrity=cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        sync(self.dev)
+        warned = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                  for w in caught
+                  if "called a synchronizing CUDA operation" in str(w.message)]
+        if warned or res.events:
+            raise SmokeFailure(f"[phase 28] (a) sync warnings in the loop "
+                               f"{warned}, events {res.events}")
+        del res
+        best = {name: max(v) for name, v in turns.items()}
+        log(f"[phase 28] (a) 8 lanes of diffusion {n}^3 periodic, dt_scale "
+            f"{scales[0]:.2f}-{scales[-1]:.2f}, {n_steps} steps, "
+            f"watch_every={watch}: {launched} launches of row 1 "
+            f"({tier}), every lane bitwise its solo run; member-steps/s in "
+            f"turns: run_ensemble {fmt_list(turns['ensemble'])}, 8 "
+            f"make_step loops {fmt_list(turns['make_step'])} (best "
+            f"{best['ensemble'] / best['make_step'] * 100:.1f}% of the "
+            f"loops'); device ms per member-step {member_ms:.4f} (row 1's "
+            f"kernel, a launch; {total_ms:.4f} with the run's other "
+            f"kernels, {launches / (M * k):.2f} launches a member-step in "
+            f"the profiler's count) against row "
+            f"1's 0.0782 (PERF.md); the probe over T and Cp of 8 lanes "
+            f"{probe_ms:.4f} ms device, {launches_p:.0f} launches; host us "
+            f"per lane dispatch: run_ensemble {host['ensemble']:.1f}, "
+            f"make_step {host['make_step']:.1f}; the member-step checks "
+            f"{check_us:.2f} us a call (checked {fmt_list(chk['checked'])}, "
+            f"bare {fmt_list(chk['bare'])} us, in turns), run on a lane's "
+            f"first dispatch only; 0 sync warnings over {n_steps} steps "
+            f"with probes and integrity rows [{self.card}]")
+        return dict(member_steps_per_s=turns, device_ms_per_member_step=
+                    member_ms, device_ms_per_member_step_all=total_ms,
+                    split=split, probe_ms=probe_ms, probe_launches=launches_p,
+                    host_us_per_dispatch=host, launches=launched,
+                    check_us=check_us, sync_warnings=0)
+
+    def ensemble_isolation(self, tmp):
+        """(b) 8 lanes on 2x2x2 open blocks of ISO_LOCAL^3, 40 steps,
+        `watch_every=10`, `checkpoint_every=20`: a NaN, a recurring NaN, a
+        preemption with an elastic resume onto (1, 2, 4)."""
+        from igg_torch import chaos, resilience
+        from igg_torch import ensemble as ens
+
+        it, t3 = self.it, self.t3
+        n, M, n_steps = ISO_LOCAL, 8, 40
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        tag = f"{it.nx_g()}^3 open (2x2x2 x {n}^3)"
+        scales = [0.5 + 0.5 * m / (M - 1) for m in range(M)]
+        lanes = self.member_lanes(scales)
+        step = t3.make_member_step(t3.Params())
+        kw = dict(watch_every=10, checkpoint_every=20, install_sigterm=False)
+        t0 = time.perf_counter()
+        clean = it.run_ensemble(step, lanes, n_steps, watch_every=0,
+                                install_sigterm=False)
+        sync(self.dev)
+        bare = time.perf_counter() - t0
+        want = clean.state["T"]
+
+        def summary(res):
+            return [(e.kind, e.step, e.detail.get("members",
+                                                  e.detail.get("member")))
+                    for e in res.events if e.kind != "checkpoint"]
+
+        # A NaN at step 30 in member 5: only lane 5 rolls back.
+        t0 = time.perf_counter()
+        res = it.run_ensemble(step, lanes, n_steps,
+                              checkpoint_dir=os.path.join(tmp, "a"),
+                              chaos=chaos.ChaosPlan(nan_at=[(30, 5, "T")]),
+                              **kw)
+        sync(self.dev)
+        wall_nan = time.perf_counter() - t0
+        rb = [e for e in res.events if e.kind == "member_rollback"]
+        if ([e.detail["members"] for e in rb] != [[5]] or res.quarantined
+                or not torch.equal(res.state["T"], want)):
+            raise SmokeFailure(f"[phase 28] (b) NaN: {summary(res)}")
+        log(f"[phase 28] (b) {tag}, 8 lanes: NaN at 30 in member 5: "
+            f"{summary(res)}; every lane bitwise the uninterrupted run "
+            f"({wall_nan:.2f} s; uninterrupted {bare:.2f} s) [{self.card}]")
+        # A member whose NaN recurs is quarantined; the batch completes.
+        plan = chaos.ChaosPlan(nan_at=[(s, 3, "T") for s in range(12, 40, 3)])
+        res = it.run_ensemble(step, lanes, n_steps, member_retries=2,
+                              checkpoint_dir=os.path.join(tmp, "b"),
+                              chaos=plan, **kw)
+        sync(self.dev)
+        if (res.quarantined != [3] or res.steps_done != n_steps
+                or not all(torch.equal(res.state["T"][m], want[m])
+                           for m in range(M) if m != 3)):
+            raise SmokeFailure(f"[phase 28] (b) recurrence: {summary(res)}")
+        log(f"[phase 28] (b) NaN recurring in member 3: {summary(res)}; "
+            f"the other lanes bitwise")
+        # Generation size and seconds: one generation of the 8 lanes.
+        gen = os.path.join(tmp, "gen")
+        members = [ens.member_state(clean.state, m) for m in range(M)]
+        sync(self.dev)
+        t0 = time.perf_counter()
+        ens._save_generation(pathlib.Path(gen), members, ["Cp", "T"],
+                             ["dt_scale"], {"members": M, "step": 0,
+                                            "quarantined": [], "retries": {}})
+        gen_s = time.perf_counter() - t0
+        gen_bytes = sum(os.path.getsize(os.path.join(gen, f))
+                        for f in os.listdir(gen))
+        # Preemption, then resume=True onto (1, 2, 4) of the same grid.
+        want_int = [it.gather_interior(want[m]) for m in range(M)]
+        ring = os.path.join(tmp, "c")
+        res = it.run_ensemble(step, lanes, n_steps, checkpoint_dir=ring,
+                              chaos=chaos.ChaosPlan(preempt_at=30), **kw)
+        if not res.preempted or res.steps_done != 30:
+            raise SmokeFailure(f"[phase 28] (b) preempt: {summary(res)}")
+        # With install_sigterm=False the caller owns the preemption flag.
+        resilience.clear_preemption()
+        del res, clean, want, members
+        nx = it.nx_g()
+        self.grid((nx, n, (nx - 2) // 4 + 2), dimx=1, dimy=2, dimz=4)
+        t0 = time.perf_counter()
+        res = it.run_ensemble(step, self.member_lanes(scales), n_steps,
+                              checkpoint_dir=ring, resume=True, **kw)
+        sync(self.dev)
+        wall_resume = time.perf_counter() - t0
+        got = [it.gather_interior(res.state["T"][m]) for m in range(M)]
+        if (res.events[0].kind != "resume" or res.events[0].step != 30
+                or res.steps_done != n_steps
+                or not all(np.array_equal(a, b)
+                           for a, b in zip(got, want_int))):
+            raise SmokeFailure(f"[phase 28] (b) elastic resume: "
+                               f"{summary(res)}")
+        log(f"[phase 28] (b) preempted at 30, resumed onto (1, 2, 4) "
+            f"({wall_resume:.2f} s): every lane's interior bitwise the "
+            f"uninterrupted run; one generation of 8 lanes (T, Cp and the "
+            f"sidecar) {gen_bytes / 1e6:.1f} MB in {gen_s:.3f} s "
+            f"({gen_bytes / gen_s / 1e9:.2f} GB/s) [{self.card}]")
+        return dict(bare_s=bare, nan_s=wall_nan, resume_s=wall_resume,
+                    generation_bytes=gen_bytes, generation_s=gen_s)
+
+    def ensemble_integrity(self, tmp):
+        """(c) 4 lanes at INT_N^3 periodic, uniform Cp, 60 steps,
+        `watch_every=10`, `checkpoint_every=10`: `silent_corruption(
+        member=2)` at step 25; the generation at the violating probe's
+        step may hold the corrupted lane (probes are read late), so the
+        rollback must take an older one."""
+        from igg_torch import chaos, integrity
+
+        it, t3 = self.it, self.t3
+        n, n_steps = INT_N, 60
+        g = self.grid((n, n, n), **SINGLE, **PERIODIC)
+        lanes = self.member_lanes([1.0, 0.9, 0.8, 0.7], uniform_cp=True)
+        step = t3.make_member_step(t3.Params())
+        clean = it.run_ensemble(step, lanes, n_steps, watch_every=0,
+                                install_sigterm=False)
+        scale = float(integrity._moment_sums(lanes[2]["T"], 1, g,
+                                             absolute=True).sum())
+        with chaos.silent_corruption("T", step=25, magnitude=1e-2 * scale,
+                                     member=2):
+            res = it.run_ensemble(
+                step, lanes, n_steps, watch_every=10, checkpoint_every=10,
+                checkpoint_dir=tmp, install_sigterm=False,
+                integrity=integrity.IntegrityConfig(check_every=0))
+        sync(self.dev)
+        kinds = [e.kind for e in res.events]
+        viol = [e for e in res.events if e.kind == "integrity_violation"]
+        rb = [e for e in res.events if e.kind == "member_rollback"]
+        if (len(viol) != 1 or viol[0].step != 30
+                or viol[0].detail["members"] != [2]
+                or [(e.step, e.detail["members"]) for e in rb] != [(20, [2])]
+                or "integrity_resolved" not in kinds
+                or "member_diverged" in kinds or res.quarantined
+                or not torch.equal(res.state["T"], clean.state["T"])):
+            raise SmokeFailure(f"[phase 28] (c) " + str(
+                [(e.kind, e.step, e.detail) for e in res.events
+                 if e.kind != "checkpoint"]))
+        log(f"[phase 28] (c) 4 lanes {n}^3 periodic, uniform Cp: "
+            f"silent_corruption(member=2) at 25 by 1e-2 of sum|T|: "
+            f"integrity_violation at {viol[0].step} on lane 2 "
+            f"({viol[0].detail['invariants']}), rollback to {rb[0].step}, "
+            f"integrity_resolved, every lane bitwise the clean run "
+            f"[{self.card}]")
+        return dict(violation_step=viol[0].step, rollback_step=rb[0].step)
+
     def main_path(self):
-        """Phases 2 to 27, each with the launch counters set to 0 just
+        """Phases 2 to 28, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -5820,7 +6205,8 @@ class Smoke:
             ("20", self.relax3d_banded), ("21", self.observability),
             ("22", self.checkpoint_phase), ("23", self.resilience_phase),
             ("24", self.overlap_phase), ("25", self.tune_phase),
-            ("26", self.comm_phase), ("27", self.integrity_phase)]
+            ("26", self.comm_phase), ("27", self.integrity_phase),
+            ("28", self.ensemble_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

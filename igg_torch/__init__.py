@@ -25,9 +25,11 @@ its roofline and drift gauges, the regression gate) and `autotune` (the
 measured route search and its tuning cache behind every factory's
 `tune=`), `comm` (the comm ledger, the step-time decomposition, rank
 skew and the collective-stall heartbeat behind `run_resilient(comm=)`)
-and `integrity` (invariant probes fused into the watchdog's probe,
+`integrity` (invariant probes fused into the watchdog's probe,
 shadow re-execution and deep-stamped generations behind
-`run_resilient(integrity=)`).
+`run_resilient(integrity=)`) and `ensemble` (`run_ensemble`: M
+independent members with a per-member watchdog, lane rollback,
+quarantine, preemption and elastic resume).
 Grid arrays are block-stacked tensors on one device; entry points use the
 card unless the caller passes `device="cpu"`.  Imports neither JAX nor
 `igg`.
@@ -42,8 +44,11 @@ from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import (autotune, chaos, checkpoint, comm, degrade, integrity,
-               overlap, perf, profiling, resilience, stencil, telemetry, vis)
+from . import (autotune, chaos, checkpoint, comm, degrade, ensemble,
+               integrity, overlap, perf, profiling, resilience, stencil,
+               telemetry, vis)
+from .ensemble import (EnsembleResult, member_state, run_ensemble,
+                       stack_members)
 from .overlap import hide_communication
 from .resilience import ResilienceError, RunResult, run_resilient
 from .telemetry import Telemetry
@@ -60,21 +65,23 @@ from .tools import (barrier, coord_fields, nx_g, ny_g, nz_g, spacing, tic, toc,
 __version__ = "0.1.0"
 
 __all__ = [
-    "NDIMS", "NNEIGHBORS_PER_DIM", "PROC_NULL", "GlobalGrid", "GridError", "ResilienceError",
+    "NDIMS", "NNEIGHBORS_PER_DIM", "PROC_NULL", "EnsembleResult", "GlobalGrid",
+    "GridError", "ResilienceError",
     "RunResult", "Telemetry", "autotune", "barrier", "chaos",
     "check_initialized",
-    "checkpoint", "comm", "coord_fields", "degrade",
+    "checkpoint", "comm", "coord_fields", "degrade", "ensemble",
     "finalize_global_grid", "from_local_blocks", "full", "gather",
     "gather_interior", "get_global_grid", "global_grid", "grid_epoch",
     "grid_is_initialized", "has_neighbor", "hide_communication",
     "init_global_grid", "integrity",
     "latest_checkpoint", "load_checkpoint", "local_block", "local_blocks",
-    "local_coords", "me", "memory_stats", "neighbor", "neighbors", "nx_g",
+    "local_coords", "me", "member_state", "memory_stats", "neighbor",
+    "neighbors", "nx_g",
     "ny_g", "nz_g", "ol", "ones", "overlap", "perf", "profiling",
     "resilience",
-    "run_resilient", "save_checkpoint",
+    "run_ensemble", "run_resilient", "save_checkpoint",
     "save_checkpoint_sharded", "select_device", "sharded", "spacing",
-    "stacked_shape", "stencil", "telemetry", "tic", "time_steps", "toc",
+    "stack_members", "stacked_shape", "stencil", "telemetry", "tic", "time_steps", "toc",
     "update_halo", "update_halo_local", "verify_checkpoint",
     "verify_checkpoint_distributed", "vis", "x_g", "x_g_field", "y_g",
     "y_g_field", "z_g", "z_g_field", "zeros",

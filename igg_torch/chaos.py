@@ -43,13 +43,17 @@ one-shot, so a rolled-back replay passes the same step clean:
   (`igg_torch.comm.StallWatchdog`) must report, and a slow rank, whose
   inflated `step_stats` windows show it.
 
+The member-targeted shapes poison one lane of an ensemble
+(:func:`igg_torch.run_ensemble`): ChaosPlan's `(step, member, field[,
+index])` entries and `silent_corruption(member=)`.  They take the
+ensemble's lane form, a field's list of its M lane tensors, and replace
+the lane with a copy.
+
 Every injector is a context manager that disarms on the way out, also
 when the body raises; :func:`armed` composes several.  Not ported yet
 (ROADMAP Queue A): `throughput_collapse`, `scheduler_fault` and
 `job_preempt_at` (item 8, fleet), `arrival_storm` and
-`malformed_submission` (item 11, service), and the member-targeted
-shapes of ensembles (item 7): ChaosPlan's member `nan_at` entries and
-`silent_corruption(member=)`.
+`malformed_submission` (item 11, service).
 
 This is a test surface: nothing here is imported by the port's hot paths.
 """
@@ -74,14 +78,15 @@ __all__ = ["ChaosPlan", "corrupt_checkpoint", "poison_checkpoint",
 
 class ChaosPlan:
     """Deterministic in-loop fault plan for
-    :func:`igg_torch.run_resilient`.
+    :func:`igg_torch.run_resilient` and :func:`igg_torch.run_ensemble`.
 
     `nan_at`: `(step, field)` or `(step, field, index)` entries: before
     the dispatch that advances past `step`, write NaN into `state[field]`
     at `index` (default `(1, 1, ...)`, an interior cell of the first block:
-    a halo cell would be healed by the next exchange).  igg's
-    member-targeted entries `(step, member, field[, index])` raise
-    `GridError` until the port has ensembles.
+    a halo cell would be healed by the next exchange).  Member-targeted
+    entries `(step, member, field)` or `(step, member, field, index)` (the
+    second element an int) poison only that member's lane of an ensemble
+    state, `index` then within the member's lane (its block-stacked field).
     `preempt_at`: request preemption when the loop reaches that step.
     `hold_at`: `(step, seconds)` entries: hold the loop's thread that long
     at the dispatch boundary (a `chaos_hold` event).
@@ -98,12 +103,13 @@ class ChaosPlan:
                         f"ChaosPlan: member-targeted nan_at entry {e!r} "
                         f"must be (step, member, field) or "
                         f"(step, member, field, index).")
-                raise GridError(
-                    f"ChaosPlan: member-targeted nan_at entry {e!r}: the "
-                    f"port has no ensembles yet (ROADMAP Queue A item 7).")
-            entries.append((int(e[0]), None, e[1],
-                            tuple(e[2]) if len(e) > 2 and e[2] is not None
-                            else None))
+                entries.append((int(e[0]), int(e[1]), e[2],
+                                tuple(e[3]) if len(e) > 3 and e[3] is not None
+                                else None))
+            else:
+                entries.append((int(e[0]), None, e[1],
+                                tuple(e[2]) if len(e) > 2 and e[2] is not None
+                                else None))
         self.nan_at: Tuple = tuple(entries)
         self.preempt_at = preempt_at
         holds = []
@@ -132,8 +138,11 @@ class ChaosPlan:
                     raise GridError(f"ChaosPlan: field {field!r} not in "
                                     f"state {sorted(state)}.")
                 state = dict(state)
-                state[field] = _poison(state[field], index)
-                emit("chaos_nan", step, field=field)
+                state[field] = _poison(state[field], index, member=member)
+                detail = {"field": field}
+                if member is not None:
+                    detail["member"] = member
+                emit("chaos_nan", step, **detail)
         for k, seconds in self.hold_at:
             key = ("hold", k)
             if step <= k < step + span and key not in self._fired:
@@ -153,17 +162,54 @@ class ChaosPlan:
         return state
 
 
-def _poison(A, index=None):
+def _poison(A, index=None, member=None):
     """A copy of grid tensor `A` with NaN in one element (`index`, default
-    `(1, 1, ...)`); `A` itself is left as it was."""
-    if not (A.is_floating_point() or A.is_complex()):
-        raise GridError(f"ChaosPlan: cannot seed NaN into dtype "
-                        f"{str(A.dtype).replace('torch.', '')}.")
+    `(1, 1, ...)`); `A` itself is left as it was.  An ensemble field comes
+    in lane form, the list of its lane tensors (:func:`igg_torch.
+    run_ensemble`'s seam): only lane `member` is copied and poisoned
+    (`index` within the lane; default an interior cell of the lane's first
+    block), or with `member` None the lane and cell of igg's full stacked
+    `index`."""
+    if isinstance(A, (list, tuple)):
+        lanes = list(A)
+        _check_floating(lanes[0], "ChaosPlan: cannot seed NaN into dtype")
+        m, idx = _lane_index(len(lanes), lanes[0].shape, index, member,
+                             "ChaosPlan", "member(s)")
+        lanes[m] = lanes[m].clone()
+        lanes[m][idx] = float("nan")
+        return lanes
+    if member is not None:
+        raise GridError(f"ChaosPlan: member {member} targets a lane of an "
+                        f"ensemble (igg_torch.run_ensemble); the state "
+                        f"holds one tensor.")
+    _check_floating(A, "ChaosPlan: cannot seed NaN into dtype")
     idx = (tuple(index) if index is not None
            else tuple(min(1, s - 1) for s in A.shape))
     out = A.clone()
     out[idx] = float("nan")
     return out
+
+
+def _check_floating(A, what: str) -> None:
+    if not (A.is_floating_point() or A.is_complex()):
+        raise GridError(f"{what} {str(A.dtype).replace('torch.', '')}.")
+
+
+def _lane_index(members: int, lane_shape, index, member, who: str,
+                noun: str):
+    """`(member, index within the lane)` in an ensemble field of `members`
+    lanes of `lane_shape`; `member` None takes both from igg's full
+    stacked `index` (default `(1, 1, ...)`)."""
+    if member is None:
+        full = (tuple(index) if index is not None
+                else (min(1, members - 1),)
+                + tuple(min(1, s - 1) for s in lane_shape))
+        return int(full[0]), tuple(full[1:])
+    if not 0 <= member < members:
+        raise GridError(f"{who}: member {member} out of range for a stacked "
+                        f"array of {members} {noun}.")
+    return int(member), (tuple(index) if index is not None
+                         else tuple(min(1, s - 1) for s in lane_shape))
 
 
 def corrupt_checkpoint(path, mode: str = "truncate", *,
@@ -333,9 +379,10 @@ class SilentCorruption:
     """Armed silent corruption (:func:`silent_corruption`): a one-shot
     state transform in the `igg_torch.resilience._CHAOS_STATE_TAP` seam.
     When the loop crosses `step`, one element of `state[field]` inside the
-    block of `rank` is perturbed by the finite `magnitude` in a copy of
-    the field (the caller's tensor is never written), added on the device
-    with no read back.  Every value stays finite; one-shot, so the
+    block of `rank` (or of member lane `member` of an ensemble state) is
+    perturbed by the finite `magnitude` in a copy of the field or lane
+    (the caller's tensor is never written), added on the device with no
+    read back.  Every value stays finite; one-shot, so the
     rolled-back replay passes the same step clean."""
 
     def __init__(self, field: str, step: int, magnitude: float = 1.0,
@@ -345,15 +392,12 @@ class SilentCorruption:
                             "non-zero FINITE perturbation (NaN injection "
                             "is ChaosPlan's job — the point here is a "
                             "fault the NaN watchdog cannot see).")
-        if member is not None:
-            raise GridError(
-                f"silent_corruption(member={member!r}): the port has no "
-                f"ensembles yet (ROADMAP Queue A item 7).")
         self.field = str(field)
         self.step = int(step)
         self.magnitude = float(magnitude)
         self.rank = int(rank)
         self.index = tuple(index) if index is not None else None
+        self.member = int(member) if member is not None else None
         self._fired = False
 
     def reset(self) -> None:
@@ -369,24 +413,44 @@ class SilentCorruption:
             raise GridError(f"silent_corruption: field {self.field!r} not "
                             f"in state {sorted(state)}.")
         A = state[self.field]
-        if not (A.is_floating_point() or A.is_complex()):
-            raise GridError(f"silent_corruption: cannot perturb dtype "
-                            f"{A.dtype}.")
-        grid = shared.global_grid()
-        coords = grid.cart_coords(self.rank)
-        local = grid.local_shape(A)
-        off = (self.index if self.index is not None
-               else tuple(min(1, s - 1) for s in local))
-        nd = min(A.ndim, 3)
-        idx = tuple(coords[d] * local[d] + off[d] for d in range(nd)) \
-            + tuple(off[nd:])
-        out = A.clone()
-        out[idx].add_(self.magnitude)
+        if self.member is not None:
+            if not isinstance(A, (list, tuple)):
+                raise GridError(
+                    f"silent_corruption(member={self.member}) corrupts one "
+                    f"lane of an ensemble (igg_torch.run_ensemble); the "
+                    f"state holds one tensor.")
+            out = list(A)
+            _check_floating(out[0], "silent_corruption: cannot perturb dtype")
+            m, off = _lane_index(len(out), out[0].shape, self.index,
+                                 self.member, "silent_corruption", "lane(s)")
+            idx = (m,) + off
+            out[m] = out[m].clone()
+            out[m][off].add_(self.magnitude)
+        else:
+            if isinstance(A, (list, tuple)):
+                raise GridError(
+                    "silent_corruption: an ensemble state is corrupted per "
+                    "lane; pass member=.")
+            _check_floating(A, "silent_corruption: cannot perturb dtype")
+            grid = shared.global_grid()
+            coords = grid.cart_coords(self.rank)
+            local = grid.local_shape(A)
+            off = (self.index if self.index is not None
+                   else tuple(min(1, s - 1) for s in local))
+            nd = min(A.ndim, 3)
+            idx = tuple(coords[d] * local[d] + off[d] for d in range(nd)) \
+                + tuple(off[nd:])
+            out = A.clone()
+            out[idx].add_(self.magnitude)
         state = dict(state)
         state[self.field] = out
-        emit("chaos_silent_corruption", step, field=self.field,
-             magnitude=self.magnitude, index=[int(i) for i in idx],
-             rank=self.rank)
+        detail = {"field": self.field, "magnitude": self.magnitude,
+                  "index": [int(i) for i in idx]}
+        if self.member is not None:
+            detail["member"] = self.member
+        else:
+            detail["rank"] = self.rank
+        emit("chaos_silent_corruption", step, **detail)
         return state
 
     def arm(self) -> "SilentCorruption":
@@ -423,8 +487,9 @@ def silent_corruption(field: str, step: int, magnitude: float = 1.0,
             res = it.run_resilient(step, state, n, watch_every=10,
                                    integrity=True, ...)
 
-    `member=` (a lane of an ensemble) raises `GridError` until the port
-    has ensembles."""
+    `member` targets one lane of an ensemble state instead (`index` then
+    within the lane), the per-member shape of
+    :func:`igg_torch.run_ensemble`."""
     return SilentCorruption(field, step, magnitude, rank=rank, index=index,
                             member=member)
 

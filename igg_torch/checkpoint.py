@@ -912,7 +912,10 @@ def _local_block_refs(grid, fields) -> Dict[int, Dict[str, torch.Tensor]]:
     """{shard rank: {field: block view}} for every block of the grid (all
     live in this process): views of the stacked tensors, no copy and no
     transfer.  A field of rank < 3 gives the blocks of its leading dims,
-    under the trailing-0 ranks."""
+    under the trailing-0 ranks.  A field that is not a tensor (the
+    ensemble's member lanes, `igg_torch.ensemble._LaneStack`) gives, for
+    its block slices, a callable that makes the block when its turn
+    comes."""
     refs: Dict[int, Dict[str, torch.Tensor]] = {}
     for name, A in fields.items():
         local = grid.local_shape(A)
@@ -1033,7 +1036,10 @@ def save_checkpoint_sharded(path, /, **fields) -> None:
             for name in sorted(refs[rank]):
                 block = refs[rank][name]
                 t0 = time.monotonic()
+                if callable(block):
+                    block = block()
                 raw = _slabbed_get(block, _CHUNK_BYTES)
+                del block
                 t1 = time.monotonic()
                 deep[name] = _deep_stats(
                     raw[_owned_slice(raw.shape, coords, gmeta)],

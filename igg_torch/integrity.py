@@ -47,8 +47,12 @@ is the field itself (moment 1 of a float32 field), else slabs of at most
 Wiring: ``run_resilient(integrity=)`` (None: on when ``IGG_INTEGRITY=1``;
 True: the environment's config; an :class:`IntegrityConfig`; False: off).
 Chaos: :func:`igg_torch.chaos.silent_corruption` (live state) and
-:func:`igg_torch.chaos.poison_checkpoint` (a generation on disk).  The
-ensemble half of igg's module (per-member rows) comes with ensembles.
+:func:`igg_torch.chaos.poison_checkpoint` (a generation on disk).
+
+The ensemble half (:func:`igg_torch.run_ensemble`):
+:func:`member_invariant_rows` gives each invariant's per-member value and
+scale sums, rows of the ensemble's probe matrix, and :class:`MemberRefs`
+anchors them per member and names the members whose invariant drifted.
 """
 
 from __future__ import annotations
@@ -68,7 +72,8 @@ from .shared import NDIMS, GridError
 
 __all__ = ["Invariant", "IntegrityConfig", "register_invariants",
            "invariants_for", "registered_families", "match_invariants",
-           "as_config", "stamp_entries", "Monitor", "DEFAULT_TOL"]
+           "as_config", "stamp_entries", "Monitor", "DEFAULT_TOL",
+           "member_invariant_rows", "MemberRefs"]
 
 # Relative drift tolerance default (IGG_INTEGRITY_TOL): the probe sums in
 # float32 and the deep stamp in float64, so the floor absorbs ~1e-6 of
@@ -718,3 +723,80 @@ class Monitor:
             detail["device"] = (torch.cuda.get_device_name(dev)
                                 if dev.type == "cuda" else str(dev))
         return detail
+
+
+# ---------------------------------------------------------------------------
+# Ensemble support: per-member rows and references
+# ---------------------------------------------------------------------------
+
+def member_invariant_rows(invariants: Sequence[Invariant], arrays_by_field,
+                          grid) -> List[torch.Tensor]:
+    """The ensemble probe's invariant rows: per invariant, an `(M,)` value
+    row `Σ_owned f^m` and an `(M,)` scale row `Σ_owned |f|^m` over the
+    owned cells of each member's lane, in float32 (igg's
+    `member_invariant_rows` under grid packing).  `arrays_by_field[f]` is
+    a field's lanes: a stacked tensor (leading member axis) or the
+    sequence of its M lane tensors.  A lane's sum is its per-block sums
+    (:func:`_block_sums`) added over the blocks; several fields add."""
+    rows = []
+    for inv in invariants:
+        val = sca = None
+        for f in inv.fields:
+            v = torch.stack([_moment_sums(a, inv.moment, grid).sum()
+                             for a in arrays_by_field[f]])
+            c = torch.stack([_moment_sums(a, inv.moment, grid,
+                                          absolute=True).sum()
+                             for a in arrays_by_field[f]])
+            val = v if val is None else val + v
+            sca = c if sca is None else sca + c
+        rows.append(val)
+        rows.append(sca)
+    return rows
+
+
+class MemberRefs:
+    """The per-member reference and verdict bookkeeping behind
+    :func:`igg_torch.run_ensemble`'s integrity rows (igg's class, on the
+    host): decode a `(2·n_inv, M)` block of per-member (value, scale)
+    rows, anchor references per member at the first clean fetch, and name
+    the members whose invariant drifted."""
+
+    def __init__(self, invariants: Sequence[Invariant], members: int,
+                 tol: float):
+        self.invariants = tuple(invariants)
+        self.members = members
+        self.tol = tol
+        self._ref: Optional[np.ndarray] = None       # (n_inv, M) values
+        self._ref_scale: Optional[np.ndarray] = None
+
+    def rows(self) -> int:
+        return 2 * len(self.invariants)
+
+    def check(self, block: np.ndarray, lanes: np.ndarray) -> dict:
+        """`block` is the probe matrix's invariant rows ((2·n_inv, M):
+        value, scale per invariant); returns `{member: [names]}` of the
+        accountable lanes whose invariants drifted."""
+        vals = block[0::2].astype(np.float64)
+        scas = block[1::2].astype(np.float64)
+        if self._ref is None:
+            # The first clean fetch anchors, per lane, so a quarantined
+            # lane's NaN rows never block the healthy ones.
+            self._ref, self._ref_scale = vals.copy(), scas.copy()
+            return {}
+        fill = ~np.isfinite(self._ref) & np.isfinite(vals)
+        if fill.any():
+            self._ref[fill] = vals[fill]
+            self._ref_scale[fill] = scas[fill]
+        bad: Dict[int, List[str]] = {}
+        for i, inv in enumerate(self.invariants):
+            tol = inv.tol if inv.tol is not None else self.tol
+            drift = vals[i] - self._ref[i]
+            bound = tol * np.maximum(self._ref_scale[i], _TINY)
+            hit = (drift > bound if inv.kind == "bounded"
+                   else np.abs(drift) > bound)
+            # A non-finite value (or an unanchored reference) is the NaN
+            # watchdog's case, not drift.
+            hit &= np.isfinite(vals[i]) & np.isfinite(self._ref[i])
+            for m in np.nonzero(hit & lanes)[0]:
+                bad.setdefault(int(m), []).append(inv.name)
+        return bad

@@ -61,6 +61,7 @@ default_K`).
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Tuple
 
 import torch
@@ -141,6 +142,75 @@ def local_step(T, Cp, *, dx, dy, dz, dt, lam, overlap: bool = False):
     return halo.update_halo_local(compute_step(T, Cp, **kw))
 
 
+def make_member_step(params: Params = Params(), *, use_kernels="auto",
+                     overlap="auto"):
+    """The member step of :func:`igg_torch.run_ensemble` over the `{"T",
+    "Cp"}` state dict (igg's `make_member_step`): one step of the member's
+    whole grid, a new `T`, `Cp` passed through.  A member state may carry
+    a per-member scalar `"dt_scale"` (a swept parameter, a 0-d tensor in
+    T's dtype): that member's timestep is `dt * dt_scale`.
+
+    The coefficient keeps igg's association, `coeff = dt*lam`, then `coeff
+    * dt_scale`, then `A = coeff / Cp` (a true division), and is formed
+    once per lane: it is reused while the lane's `Cp` tensor, its
+    `_version` and its `dt_scale` tensor are unchanged (a second pass over
+    `Cp` each step otherwise).  (:func:`make_step`'s `dt*lam / Cp` is
+    PyTorch's reflected division, a reciprocal times the scalar: not
+    igg's association.)
+
+    The step is :func:`make_step`'s route ladder (`use_kernels` and
+    `overlap` as in :func:`make_multi_step`): on a CUDA tensor one launch
+    of the fused step kernel (`csrc/diffusion_step.cu`, :func:`igg_torch.
+    ops.diffusion_pallas.fused_diffusion_step`; on several blocks the
+    received planes come from the plane packer); a field the kernel
+    refuses raises, never a quiet plain fallback.  On CPU tensors "auto"
+    runs the kernel's plain version where the kernel would serve, else the
+    plain composition; True raises where the kernel refuses.  The plain
+    composition with `overlap` resolving True is the `hide_communication`
+    restructuring, bitwise the sequential member step."""
+    overlap = resolve_overlap(overlap, family="diffusion3d", radius=1)
+    dt, lam = params.timestep(), params.lam
+    step = _ladder(1, params, use_kernels=use_kernels, overlap=overlap)
+    # (id(Cp), id(dt_scale)) -> (weak Cp, Cp._version, weak dt_scale, its
+    # _version, A); an entry goes when its Cp or its dt_scale does.
+    cache = {}
+
+    def coefficient(Cp, ds):
+        key = (id(Cp), id(ds))
+        hit = cache.get(key)
+        if hit is not None:
+            ref_cp, v_cp, ref_ds, v_ds, A = hit
+            if ref_cp() is Cp and v_cp == Cp._version and (
+                    ds is None or (ref_ds() is ds and v_ds == ds._version)):
+                return A
+        if ds is not None and ds.dtype != Cp.dtype:
+            raise GridError(f"make_member_step: dt_scale is {ds.dtype}, Cp "
+                            f"{Cp.dtype}: give the member scalars in the "
+                            f"fields' dtype")
+        coeff = dt * lam
+        coeff = Cp.new_full((), coeff) if ds is None else coeff * ds
+        A = coeff / Cp
+
+        def drop(_, k=key):
+            cache.pop(k, None)
+
+        cache[key] = (weakref.ref(Cp, drop), Cp._version,
+                      None if ds is None else weakref.ref(ds, drop),
+                      None if ds is None else ds._version, A)
+        return A
+
+    def member_step(st):
+        T = st["T"]
+        if st["Cp"].dtype != T.dtype:
+            raise GridError(f"make_member_step: Cp is {st['Cp'].dtype}, T "
+                            f"{T.dtype}: give the fields one dtype")
+        out = dict(st)
+        out["T"] = step(T, coefficient(st["Cp"], st.get("dt_scale")))
+        return out
+
+    return member_step
+
+
 def make_step(params: Params = Params(), *, use_kernels="auto",
               overlap="auto", verify=None, tune=None):
     """`(T, Cp) -> T` advancing one step (see :func:`make_multi_step`)."""
@@ -197,11 +267,11 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
         bx = int(tuned["bx"])
     overlap = resolve_overlap(overlap, family="diffusion3d", tuned=tuned,
                               radius=1, chunk_active=banded is True)
-    dx, dy, dz = params.spacing()
-    dt = params.timestep()
-    lam = params.lam
-    sc = diffusion_pallas.scal(dx, dy, dz)
-    dt_lam = float(dt * lam)
+    ladder = _ladder(n_inner, params, use_kernels=use_kernels,
+                     banded=banded, K=K, band=band, bx=bx,
+                     from_cache=K_cached or band_cached, overlap=overlap,
+                     verify=verify)
+    dt_lam = float(params.timestep() * params.lam)
     last = {}
 
     def coefficient(Cp):
@@ -211,7 +281,24 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
             last.update(Cp=Cp, version=Cp._version, A=dt_lam / Cp)
         return last["A"]
 
-    def plan(T, Cp):
+    def step(T, Cp):
+        return ladder(T, coefficient(Cp))
+
+    step.ladder = ladder.ladder
+    return step
+
+
+def _ladder(n_inner: int, params: Params, *, use_kernels="auto",
+            banded=False, K: int = None, band: int = None, bx: int = None,
+            from_cache: bool = False, overlap: bool = False, verify=None):
+    """The family's route ladder over `(T, A)` advancing `n_inner` steps
+    with coefficient `A` (:func:`make_multi_step`'s routes, knobs already
+    resolved), shared by :func:`make_multi_step` and
+    :func:`make_member_step`, which differ only in how they form `A`."""
+    dx, dy, dz = params.spacing()
+    sc = diffusion_pallas.scal(dx, dy, dz)
+
+    def plan(T, A):
         """The route of a call: ("plain", None), ("banded", (K, B)) or
         ("cuda", bx)."""
         grid = shared.global_grid()
@@ -224,7 +311,7 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
         depth = bx or chunk_engine.default_K(grid.nxyz[0])
         kb = band_config(
             banded, K, band, n_inner, requirement=_BANDED_REQ,
-            from_cache=K_cached or band_cached,
+            from_cache=from_cache,
             resident=lambda: (grid.dims == (1, 1, 1) and n_inner >= 2) or
             dtz.trapezoid_refusal(grid, local, depth, n_inner - 1,
                                   T.dtype) is None,
@@ -234,31 +321,25 @@ def make_multi_step(n_inner: int, params: Params = Params(), *,
                 grid, local, n_inner - 1, T.dtype, bands=bands))
         return ("banded", kb) if kb else ("cuda", depth)
 
-    def plain(T, Cp):
-        A = coefficient(Cp)
-        local = shared.global_grid().local_shape(T)
-        for _ in range(n_inner):
-            T = halo.update_halo(
-                diffusion_pallas.block_diffusion_compute(T, A, local, **sc),
-                plain=True)
-        return T
-
     def slab_step(T, A):
         return diffusion_pallas.block_diffusion_compute(
             T, A, shared.global_grid().local_shape(T), **sc)
 
-    def overlapped(T, Cp):
-        A = coefficient(Cp)
+    def plain(T, A):
+        for _ in range(n_inner):
+            T = halo.update_halo(slab_step(T, A), plain=True)
+        return T
+
+    def overlapped(T, A):
         for _ in range(n_inner):
             T = hide_communication(T, slab_step, A)
         return T
 
-    def kernels(bx, T, Cp):
+    def kernels(bx, T, A):
         return diffusion_pallas.fused_diffusion_steps(
-            T, coefficient(Cp), n_inner=n_inner, bx=bx, **sc)
+            T, A, n_inner=n_inner, bx=bx, **sc)
 
-    def banded_steps(kb, T, Cp):
-        A = coefficient(Cp)
+    def banded_steps(kb, T, A):
         T = diffusion_pallas.fused_diffusion_step(T, A, **sc)
         T, done = dtz.fused_diffusion_banded_steps(
             T, A, n_inner=n_inner - 1, K=kb[0], B=kb[1],

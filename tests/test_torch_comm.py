@@ -373,7 +373,13 @@ def test_decompose_records_and_stats(igg_variants):
     assert torch.equal(S[0], T0)
     (got,) = [r.payload for r in tel.flight_recorder()
               if r.kind == "comm_stats"]
-    assert set(got) == set(want)
+    # `overlap_efficiency` is recorded only where the exchange variant
+    # timed slower than the compute variant (igg's `_fractions`), which
+    # each side's timer decides on its own.
+    eff = "overlap_efficiency"
+    assert set(got) - {eff} == set(want) - {eff}
+    for rec in (got, want):
+        assert (eff in rec) == (rec["exchange_ms"] > rec["compute_ms"])
     assert (got["source"], got["config"]) == ("calibrate",
                                               "diffusion3d.overlap")
     assert d["compute_ms"] > 0 and 0.0 <= d["exposed_comm_fraction"] <= 1.0

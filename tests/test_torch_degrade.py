@@ -127,9 +127,24 @@ def _ladder(fast, verify="first_use", required=False, admit=None):
     return degrade.Ladder("toy", tiers, verify=verify), calls
 
 
-def _spans(name="degrade.verify_first_use"):
-    return sum(1 for r in tel.flight_recorder()
-               if r.kind == "span" and r.payload.get("name") == name)
+class _Spans:
+    """Counts the spans named `name` emitted while it is subscribed (the
+    flight-recorder ring is bounded, so counting its contents loses old
+    spans once the ring is full)."""
+
+    def __init__(self, name="degrade.verify_first_use"):
+        self.name, self.n = name, 0
+
+    def _seen(self, r):
+        if r.kind == "span" and r.payload.get("name") == self.name:
+            self.n += 1
+
+    def __enter__(self):
+        tel.subscribe(self._seen)
+        return self
+
+    def __exit__(self, *exc):
+        tel.unsubscribe(self._seen)
 
 
 def _dispatches():
@@ -162,11 +177,11 @@ def test_corrupted_tier_raises_and_serves_nothing():
 
 def test_healthy_tier_verifies_once_per_signature():
     ladder, calls = _ladder(lambda x: x * 2.0)
-    before = _spans()
-    for n in (8, 8, 8, 5):
-        out = ladder.dispatch(torch.ones(n))
-        assert torch.equal(out, torch.full((n,), 2.0))
-    assert _spans() - before == 2
+    with _Spans() as spans:
+        for n in (8, 8, 8, 5):
+            out = ladder.dispatch(torch.ones(n))
+            assert torch.equal(out, torch.full((n,), 2.0))
+    assert spans.n == 2
     # Four served calls, two verifications and, after each, the one warm
     # dispatch timed into the perf ledger (igg's `_perf_sample`).
     assert calls == {"fast": 8, "truth": 2}
@@ -335,11 +350,11 @@ def test_factory_verify_is_bitwise(family):
     it.init_global_grid(*n, device="cpu", quiet=True, **kw)
     factory, state = make()
     want = factory()(*state)
-    before = _spans()
-    step = factory(verify="first_use")
-    got = step(*state)
-    step(*state)
-    assert _spans() - before == 1
+    with _Spans() as spans:
+        step = factory(verify="first_use")
+        got = step(*state)
+        step(*state)
+    assert spans.n == 1
     for a, b in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(a, b)

@@ -61,7 +61,10 @@ decomposition's variants (diffusion and Stokes at 2x2x2 open blocks of
 32^3: the exchange variant bitwise the compute and the plain halo update,
 the hidden variant bitwise the exchange variant, a monitor's rotation
 timed by CUDA events) and the stall heartbeat over the card's probes
-under the chaos stall.
+under the chaos stall; and `diffusion3d.make_member_step` in
+`run_ensemble` (one block periodic, 2x2x2 open blocks): one step-kernel
+launch a lane step, bitwise the plain member step, a build failure out of
+the run.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1438,6 +1441,45 @@ def test_resilient_probe_counts_equal_cpu(card):
     torch.cuda.synchronize()
     assert resilience._is_ready(pr)
     np.testing.assert_array_equal(pr.result(), want.numpy())
+
+
+@pytest.mark.parametrize("grid", [
+    dict(local=(64, 64, 64), dimx=1, dimy=1, dimz=1, periodx=1, periody=1,
+         periodz=1),
+    dict(local=(32, 32, 32), dimx=2, dimy=2, dimz=2)],
+    ids=["one_block_periodic", "2x2x2_open"])
+def test_member_step_on_the_card(card, grid):
+    """`diffusion3d.make_member_step` in an ensemble on the card: each lane
+    step is one launch of the fused step kernel, and the swept lanes equal
+    the member step's plain composition bitwise; with
+    `chaos.kernel_compile_fail("diffusion3d.cuda")` armed, the build error
+    comes out of `run_ensemble`."""
+    from igg_torch import degrade
+    from igg_torch.models import diffusion3d as t3
+
+    grid = dict(grid)
+    it.init_global_grid(*grid.pop("local"), device=card, quiet=True, **grid)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    T = it.update_halo(T)
+    lanes = [{"T": T, "Cp": Cp, "dt_scale": torch.tensor(s, device=card)}
+             for s in (0.5, 0.75, 1.0)]
+    kw = dict(install_sigterm=False)
+    c0 = dp.step_kernel.launches
+    res = it.run_ensemble(t3.make_member_step(p), lanes, 10, watch_every=5,
+                          **kw)
+    assert dp.step_kernel.launches - c0 == 30
+    assert res.events == [] and res.state["T"].device.type == "cuda"
+    plain = it.run_ensemble(t3.make_member_step(p, use_kernels=False), lanes,
+                            10, watch_every=0, **kw)
+    torch.testing.assert_close(res.state["T"], plain.state["T"], rtol=0,
+                               atol=0)
+    assert not torch.equal(res.state["T"][0], res.state["T"][2])
+    degrade.reset()
+    with it.chaos.kernel_compile_fail("diffusion3d.cuda", "no nvcc today"):
+        with pytest.raises(degrade.InjectedCompileError, match="no nvcc"):
+            it.run_ensemble(t3.make_member_step(p), lanes, 4, **kw)
+    assert degrade.status() == {}
 
 
 def test_quarantined_tier_is_not_served_plain_on_the_card(card):
