@@ -295,6 +295,34 @@ the script exits non-zero without printing a result:
    member-step checks' host cost a call and raises on any sync warning
    of 200 steps with probes and integrity rows. Every check raises; rows
    1 and 4 of PERF.md's table must launch.
+29. The fleet and the heal loops (`igg_torch.run_fleet`, `igg_torch.heal`,
+   `heal=` on `run_resilient` and `run_fleet`), on diffusion member
+   steps of row 1 (`make_member_step`, built on each job's grid), each
+   number beside the card's name and power limit: (a) one drain of three
+   jobs over 8 block slots of the card: `sweep-254p` (8 lanes, 254^3
+   periodic capped at one slot, one 256^3 block, 200 steps),
+   `sweep-510` (2 lanes, 510^3 open, 2x2x2 blocks of 256^3, 34 steps) and
+   `flaky` (2 lanes on one 256^3 block, `scheduler_fault(times=2)`,
+   backoff 0.05 s); the journal `done`/`done`/`done` with `flaky` at
+   attempt 3, every lane bitwise its solo `run_ensemble` on the same
+   grid, member-steps/s of each job in the drain and solo beside phase 28
+   (a)'s, the scheduler's own seconds (grid init, the fsync'd journal
+   writes, the results' stacking); no ring cadence. (b) 4 lanes at 254^3
+   open (2x2x2 blocks of 128^3), 60 steps: `job_preempt_at(20)` gives a
+   preempted drain and journal, `resume=True` on 4 slots re-plans onto
+   (2, 2, 1) blocks of 128x128x254 with `job_resumed`, every lane's
+   interior bitwise the uninterrupted 8-slot drain. (c) (b)'s job under
+   `throughput_collapse` (a grant per three clean windows) with (b)'s
+   clean rate expected: one `heal_repack` from 8 slots to 4, done at
+   attempt 2, bitwise; `run_resilient(make_step)` at 2x2x2 blocks of
+   128^3 under `straggler(factor=4)` (its delay 1.5 clean windows) with
+   `HealPolicy(sustain=2, cooldown_s=0, max_actions=1, escalation=())`:
+   one re-tile from (2, 2, 2) onto (7, 1, 1) (7 slots), the straggler
+   disarmed with the fenced slot, bitwise the uninterrupted run;
+   `stale_calibration("diffusion3d", 10 s)` at 256^3: one `recalibrated`
+   record with the card's measured s/step, the run bitwise;
+   `run_resilient(heal=True)` against `heal=False` at 256^3 in turns
+   (printed, not raised).  Rows 1, 3 and 4 must launch.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -331,7 +359,7 @@ periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
 Stokes and HM3D divisors.  Launch counters are set to 0 before each
-main-path phase (2 to 28) and read after it; each of the twenty kernels
+main-path phase (2 to 29) and read after it; each of the twenty kernels
 must have launched on that main path (the generated relax3d step and
 chunk step are phase 20's launches of the spec counters, shallow water's
 the others').  The last lines are the run's seconds, the
@@ -521,6 +549,11 @@ N_OVERHEAD = 128   # igg's resilience_overhead contract row: one 128^3 block
 # Phase 28: the sweep's block (config 1's), the isolation run's blocks
 # (2x2x2 of them) and the integrity run's block.
 N_SWEEP, ISO_LOCAL, INT_N = 256, 64, 128
+# Phase 29: the one-slot jobs' periodic interior (one 256^3 block), the
+# headline job's open interior (2x2x2 blocks of 256^3), the elastic and
+# heal jobs' open interior (2x2x2 blocks of 128^3; 252 = 7 * 36 divides,
+# so a re-tile onto 7 slots fits), the recalibrated and idle runs' block.
+FLEET_SWEEP, FLEET_HEADLINE, FLEET_ELASTIC, HEAL_BLOCK = 254, 510, 254, 256
 OL3 = dict(overlapx=3, overlapy=3, overlapz=3)
 # Layouts of the small Stokes checks (overlap 3): igg's trapezoid matrix
 # (every window mode: ext, wrap, oext, frozen) and one-block grids.
@@ -893,6 +926,8 @@ class Smoke:
         # {spec name: CDLL} (main()).
         self.no_ring = {}
         self.launches = None
+        # Phase 29: the seconds of each fleet job's states' build.
+        self.states_s = []
         # The card's name and power limit (main()), beside phase 21's
         # numbers.
         self.card = ""
@@ -6180,8 +6215,499 @@ class Smoke:
             f"[{self.card}]")
         return dict(violation_step=viol[0].step, rollback_step=rb[0].step)
 
+    # -- phase 29 ---------------------------------------------------------
+    def fleet_phase(self):
+        """Phase 29 (module docstring): `igg_torch.run_fleet` and the heal
+        loops on the card."""
+        import tempfile
+
+        t_phase = time.perf_counter()
+        out = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            out["drain"] = self.fleet_drain(pathlib.Path(tmp))
+        log(f"[phase 29] (a) {time.perf_counter() - t_phase:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            elastic = self.fleet_elastic(pathlib.Path(tmp))
+            log(f"[phase 29] (b) {time.perf_counter() - t_phase:.1f} s")
+            out["repack"] = self.heal_repack(pathlib.Path(tmp), elastic)
+        # The clean drain's interiors are (c)'s reference, not a result.
+        out["elastic"] = {k: v for k, v in elastic.items() if k != "want"}
+        with tempfile.TemporaryDirectory() as tmp:
+            out["retile"] = self.heal_retile(pathlib.Path(tmp))
+        out["recalibrate"] = self.heal_recalibrate()
+        out["idle"] = self.heal_idle_cost()
+        log(f"[phase 29] (c) {time.perf_counter() - t_phase:.1f} s")
+        # PERF.md's table: row 1 the step kernel, 3 the halo writer, 4 the
+        # plane packer (the recv planes of the multi-block jobs).
+        counts = self.ops.launch_counts()
+        ran = {k: v for k, v in counts.items() if v}
+        idle = [k for k in ("diffusion_step", "halo_write", "pack_planes")
+                if not ran.get(k)]
+        if idle:
+            raise SmokeFailure(f"[phase 29] did not launch {idle}")
+        log(f"[phase 29] launches {json.dumps(ran)}")
+        out["launches"] = ran
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"[phase 29] done in {out['seconds']:.1f} s [{self.card}]")
+        self.perf["fleet"] = out
+
+    def fleet_job(self, name, interior, members, n_steps, periodic,
+                  **kw):
+        """A diffusion ensemble job: `members` lanes of `member_lanes`
+        (dt_scale swept over 0.50-1.00) on whatever grid the scheduler
+        plans, row 1's member step built on it, no ring cadence."""
+        it, t3 = self.it, self.t3
+        scales = [0.5 + 0.5 * m / max(members - 1, 1)
+                  for m in range(members)]
+
+        def make_states(grid):
+            sync(self.dev)
+            t0 = time.perf_counter()
+            lanes = self.member_lanes(scales)
+            sync(self.dev)
+            self.states_s.append(time.perf_counter() - t0)
+            return lanes
+
+        args = dict(name=name, global_interior=(interior,) * 3,
+                    members=members, n_steps=n_steps,
+                    make_states=make_states,
+                    # The step's spacing reads the live grid.
+                    make_step=lambda grid: t3.make_member_step(t3.Params()),
+                    periods=(1, 1, 1) if periodic else (0, 0, 0),
+                    watch_every=10, checkpoint_every=0)
+        args.update(kw)
+        return it.Job(**args)
+
+    @staticmethod
+    def job_local(job, dims):
+        """The local sizes of a job's plan of `dims`."""
+        return tuple((g - (0 if p else o)) // d + o for g, p, o, d in zip(
+            job.global_interior, job.periods, job.overlaps, dims))
+
+    def job_grid(self, job, dims):
+        """Initialize the grid a job of `dims` ran on."""
+        per = dict(zip(("periodx", "periody", "periodz"), job.periods))
+        return self.grid(self.job_local(job, dims), dimx=dims[0],
+                         dimy=dims[1], dimz=dims[2], **per)
+
+    def job_interiors(self, job, outcome):
+        """Each lane's gathered interior (numpy) of a finished job."""
+        self.job_grid(job, outcome.dims)
+        T = outcome.result.state["T"]
+        got = [self.it.gather_interior(T[m]) for m in range(T.shape[0])]
+        self.it.finalize_global_grid()
+        return got
+
+    @staticmethod
+    def timed_wrappers():
+        """Wrap what the scheduler calls (`ensemble.run_ensemble`,
+        `init.init_global_grid`, `fleet._write_journal`) with timers
+        (the ensemble synchronized at its end); returns the timings and a
+        function that restores the originals."""
+        from igg_torch import ensemble, fleet, init
+
+        took = {"ensemble": [], "init": [], "journal": []}
+        origs = [(ensemble, "run_ensemble"), (init, "init_global_grid"),
+                 (fleet, "_write_journal")]
+        saved = [(mod, name, getattr(mod, name)) for mod, name in origs]
+
+        def wrap(key, fn, synced=False):
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if synced:
+                        torch.cuda.synchronize()
+                    took[key].append(time.perf_counter() - t0)
+            return timed
+
+        ensemble.run_ensemble = wrap("ensemble", saved[0][2], synced=True)
+        init.init_global_grid = wrap("init", saved[1][2])
+        fleet._write_journal = wrap("journal", saved[2][2])
+
+        def restore():
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        return took, restore
+
+    def fleet_drain(self, tmp):
+        """(a) One drain of three jobs over 8 block slots of the card:
+        `sweep-254p` (8 lanes, 254^3 periodic on one slot: one 256^3
+        block, 200 steps), `sweep-510` (2 lanes, 510^3 open on 8 slots:
+        2x2x2 blocks of 256^3, 34 steps) and `flaky` (2 lanes on one 256^3
+        block, 20 steps, two injected launcher faults, backoff 0.05 s)."""
+        from igg_torch import chaos
+
+        it = self.it
+        if it.grid_is_initialized():
+            it.finalize_global_grid()
+        jobs = [self.fleet_job("sweep-254p", FLEET_SWEEP, 8, 200, True,
+                               n_devices=1, watch_every=50),
+                self.fleet_job("sweep-510", FLEET_HEADLINE, 2, 34, False,
+                               watch_every=17),
+                self.fleet_job("flaky", FLEET_SWEEP, 2, 20, True,
+                               n_devices=1)]
+        took, restore = self.timed_wrappers()
+        self.states_s = []
+        try:
+            sync(self.dev)
+            t0 = time.perf_counter()
+            with chaos.scheduler_fault("flaky", times=2):
+                res = it.run_fleet(jobs, tmp, devices=[self.dev] * 8,
+                                   backoff=0.05)
+            sync(self.dev)
+            wall = time.perf_counter() - t0
+        finally:
+            restore()
+        journal = json.loads(res.journal.read_text())
+        status = {n: (r["status"], r["attempts"], r["dims"])
+                  for n, r in journal["jobs"].items()}
+        want = {"sweep-254p": ("done", 1, [1, 1, 1]),
+                "sweep-510": ("done", 1, [2, 2, 2]),
+                "flaky": ("done", 3, [1, 1, 1])}
+        if status != want or res.preempted:
+            raise SmokeFailure(f"[phase 29] (a) journal {status}")
+        fails = [e for e in res.jobs["flaky"].events
+                 if e.kind == "job_failed"]
+        if len(fails) != 2 or "InjectedSchedulerFault" not in \
+                fails[0].detail["error"]:
+            raise SmokeFailure(f"[phase 29] (a) flaky {fails}")
+        # The results' stacking (run_ensemble's last step), timed alone on
+        # lanes of the same shapes.
+        stack_s = {}
+        for name, o in res.jobs.items():
+            sync(self.dev)
+            t1 = time.perf_counter()
+            for v in o.result.state.values():
+                torch.stack(list(v.unbind(0)))
+            sync(self.dev)
+            stack_s[name] = time.perf_counter() - t1
+        # Each lane bitwise its solo run_ensemble of the same job on the
+        # same grid; the member-steps/s of each (a launcher fault never
+        # reaches run_ensemble: one call a job).
+        rates = {}
+        ens_s = dict(zip((j.name for j in jobs), took["ensemble"]))
+        for job in jobs:
+            o = res.jobs[job.name]
+            g = self.job_grid(job, o.dims)
+            states, step = job.make_states(g), job.make_step(g)
+            sync(self.dev)
+            t1 = time.perf_counter()
+            solo = it.run_ensemble(step, states, job.n_steps,
+                                   watch_every=job.watch_every,
+                                   install_sigterm=False)
+            sync(self.dev)
+            solo_s = time.perf_counter() - t1
+            got = o.result.state["T"]
+            for m in range(job.members):
+                if not torch.equal(got[m], solo.state["T"][m]):
+                    raise SmokeFailure(f"[phase 29] (a) {job.name} lane {m} "
+                                       f"!= its solo run_ensemble")
+            ms = job.members * job.n_steps
+            rates[job.name] = {"fleet": ms / ens_s[job.name],
+                               "solo": ms / solo_s}
+            del solo, states, got
+            it.finalize_global_grid()
+        base = self.perf.get("ensemble", {}).get("sweep", {}).get(
+            "member_steps_per_s", {}).get("ensemble")
+        ens_total = sum(took["ensemble"])
+        own = {"init_s": sum(took["init"]), "inits": len(took["init"]),
+               "journal_s": sum(took["journal"]),
+               "journal_writes": len(took["journal"]),
+               "stack_s": stack_s,
+               "states_s": sum(self.states_s[:len(jobs)])}
+        # Beyond run_ensemble, the states' build (the job's own callable)
+        # and the backoff's two sleeps: the scheduler's own wall.
+        rest = wall - ens_total - own["states_s"] - 0.15
+        log(f"[phase 29] (a) drain of 3 jobs over 8 slots in {wall:.2f} s "
+            f"(run_ensemble {ens_total:.2f} s): journal {status}, flaky "
+            f"done at attempt 3 after 2 InjectedSchedulerFaults; every lane "
+            f"bitwise its solo run_ensemble; member-steps/s (in the drain, "
+            f"solo): " + ", ".join(
+                f"{n} {r['fleet']:.1f}, {r['solo']:.1f}"
+                for n, r in rates.items())
+            + f" (phase 28 (a)'s bare run_ensemble "
+            f"{fmt_list(base) if base else 'not run'}); the scheduler's "
+            f"own: grid init {own['init_s'] * 1e3:.1f} ms over "
+            f"{own['inits']} inits, {own['journal_writes']} fsync'd "
+            f"journal writes {own['journal_s'] * 1e3:.1f} ms, the results' "
+            f"stacking " + ", ".join(f"{n} {v * 1e3:.1f} ms"
+                                     for n, v in stack_s.items())
+            + f"; the drain's wall beyond run_ensemble, the states' build "
+            f"({own['states_s']:.3f} s) and the backoff {rest:.3f} s "
+            f"[{self.card}]")
+        del res
+        return dict(wall_s=wall, ensemble_s=ens_total, rates=rates,
+                    own=own, beyond_s=rest)
+
+    def elastic_job(self, **kw):
+        """(b)'s job: 4 lanes, 254^3 open (2x2x2 blocks of 128^3 on 8
+        slots), 60 steps, a probe every 5 steps."""
+        return self.fleet_job("elastic", FLEET_ELASTIC, 4, 60, False,
+                              watch_every=5, **kw)
+
+    def fleet_elastic(self, tmp):
+        """(b) Preemption at step 20 and an elastic resume onto 4 slots,
+        against the uninterrupted 8-slot drain."""
+        from igg_torch import chaos
+
+        it = self.it
+        if it.grid_is_initialized():
+            it.finalize_global_grid()
+        took, restore = self.timed_wrappers()
+        try:
+            clean = it.run_fleet([self.elastic_job()], tmp / "clean",
+                                 devices=[self.dev] * 8)
+        finally:
+            restore()
+        clean_s = took["ensemble"][0]
+        rate = 4 * 60 / clean_s
+        want = self.job_interiors(self.elastic_job(), clean.jobs["elastic"])
+        del clean
+        ring = tmp / "ring"
+        with chaos.job_preempt_at("elastic", 20):
+            pre = it.run_fleet([self.elastic_job()], ring,
+                               devices=[self.dev] * 8)
+        journal = json.loads(pre.journal.read_text())
+        o = pre.jobs["elastic"]
+        if (not pre.preempted or o.status != "preempted"
+                or o.result.steps_done != 20
+                or journal["jobs"]["elastic"]["status"] != "preempted"):
+            raise SmokeFailure(f"[phase 29] (b) preempt: {o.status} "
+                               f"{journal['jobs']}")
+        gen = next(e for e in o.events if e.kind == "checkpoint")
+        gen_bytes = sum(f.stat().st_size for f in
+                        pathlib.Path(gen.detail["path"]).iterdir())
+        del pre, o
+        took, restore = self.timed_wrappers()
+        try:
+            sync(self.dev)
+            t0 = time.perf_counter()
+            res = it.run_fleet([self.elastic_job()], ring,
+                               devices=[self.dev] * 4, resume=True)
+            sync(self.dev)
+            resume_s = time.perf_counter() - t0
+        finally:
+            restore()
+        o = res.jobs["elastic"]
+        kinds = [e.kind for e in o.events]
+        got = self.job_interiors(self.elastic_job(), o)
+        if (o.status != "done" or o.dims != (2, 2, 1)
+                or "job_resumed" not in kinds
+                or not all(np.array_equal(a, b) for a, b in zip(got, want))):
+            raise SmokeFailure(f"[phase 29] (b) resume: {o.status} {o.dims} "
+                               f"{kinds}")
+        log(f"[phase 29] (b) {FLEET_ELASTIC}^3 open, 4 lanes, 60 steps: "
+            f"clean 8-slot "
+            f"drain {clean_s:.2f} s ({rate:.1f} member-steps/s, "
+            f"{1e3 / rate:.2f} ms a member-step); job_preempt_at(20): "
+            f"preempted, journal 'preempted', one generation of "
+            f"{gen_bytes / 1e6:.1f} MB; resume on 4 slots onto {o.dims} of "
+            f"{self.job_local(self.elastic_job(), o.dims)} in "
+            f"{resume_s:.2f} s (load, 40 steps), job_resumed; every lane's "
+            f"interior bitwise the uninterrupted drain [{self.card}]")
+        return dict(clean_s=clean_s, rate=rate, want=want,
+                    generation_bytes=gen_bytes, resume_s=resume_s)
+
+    def heal_repack(self, tmp, elastic):
+        """(c) The lagging job: (b)'s job under `throughput_collapse`, one
+        readiness grant per three of its clean windows, expected at (b)'s
+        clean rate: preempted, re-admitted on 4 slots, bitwise."""
+        from igg_torch import chaos, heal
+
+        it = self.it
+        window = 5 * 4 / elastic["rate"]
+        eng = heal.HealEngine(heal.HealPolicy(max_actions=1, cooldown_s=0.0,
+                                              sustain=1), run="fleet")
+        old = os.environ.get("IGG_ENSEMBLE_MAX_PENDING_PROBES")
+        os.environ["IGG_ENSEMBLE_MAX_PENDING_PROBES"] = "1000"
+        try:
+            t0 = time.perf_counter()
+            with chaos.throughput_collapse("elastic", delay_s=3 * window):
+                res = it.run_fleet(
+                    [self.elastic_job(
+                        expected_member_steps_per_s=elastic["rate"])],
+                    tmp / "heal", devices=[self.dev] * 8, heal=eng)
+            wall = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("IGG_ENSEMBLE_MAX_PENDING_PROBES", None)
+            else:
+                os.environ["IGG_ENSEMBLE_MAX_PENDING_PROBES"] = old
+        o = res.jobs["elastic"]
+        rp = [e for e in o.events if e.kind == "heal_repack"]
+        journal = json.loads(res.journal.read_text())["jobs"]["elastic"]
+        got = self.job_interiors(self.elastic_job(), o) if o.result else []
+        if (len(rp) != 1 or rp[0].detail["from_devices"] != 8
+                or rp[0].detail["devices"] != 4 or o.status != "done"
+                or journal["attempts"] != 2 or o.dims != (2, 2, 1)
+                or [a["action"] for a in eng.actions] != ["repack"]
+                or not all(np.array_equal(a, b)
+                           for a, b in zip(got, elastic["want"]))):
+            raise SmokeFailure(f"[phase 29] (c) repack: {o.status} "
+                               f"{[(e.kind, e.step) for e in o.events]}")
+        log(f"[phase 29] (c) lagging job: throughput_collapse at one grant "
+            f"per {3 * window:.3f} s (3 clean windows), expected "
+            f"{elastic['rate']:.1f} member-steps/s: heal_repack at step "
+            f"{rp[0].step} from 8 slots to 4, done at attempt 2 on "
+            f"{o.dims}, every lane bitwise the clean drain ({wall:.2f} s) "
+            f"[{self.card}]")
+        return dict(repack_step=rp[0].step, wall_s=wall)
+
+    def heal_retile(self, tmp):
+        """(c) The straggler: `run_resilient(make_step)` on 2x2x2 open
+        blocks of 128^3, `straggler(factor=4)` whose delay is 1.5 of the
+        clean window (so an inflated window reads about 6 of them), the
+        engine re-tiles onto the plan for 7 slots, the straggler leaves
+        with the fenced slot, and the run ends bitwise."""
+        from igg_torch import chaos, heal
+
+        it, t3 = self.it, self.t3
+        n_steps, watch = 400, 10
+        n = (FLEET_ELASTIC - 2) // 2 + 2
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        p = t3.Params()
+        step = t3.make_step(p)
+        T0, Cp = t3.init_fields(p)
+
+        def fn(s):
+            return {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}
+
+        sync(self.dev)
+        t0 = time.perf_counter()
+        clean = it.run_resilient(fn, {"T": T0, "Cp": Cp}, n_steps,
+                                 watch_every=watch, install_sigterm=False)
+        sync(self.dev)
+        clean_s = time.perf_counter() - t0
+        want = it.gather_interior(clean.state["T"])
+        del clean
+        window = watch * clean_s / n_steps
+        strag = chaos.straggler(rank=0, factor=4.0,
+                                base_window_s=1.5 * window, after=12)
+
+        def on_event(ev):
+            if ev.kind == "heal_retile":
+                strag.disarm()      # the slow slot was fenced
+
+        eng = heal.HealEngine(heal.HealPolicy(sustain=2, cooldown_s=0.0,
+                                              max_actions=1, escalation=()))
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        T0, Cp = t3.init_fields(p)
+        t0 = time.perf_counter()
+        with strag:
+            res = it.run_resilient(fn, {"T": T0, "Cp": Cp}, n_steps,
+                                   watch_every=watch, checkpoint_dir=tmp,
+                                   max_pending_probes=1000, heal=eng,
+                                   on_event=on_event, install_sigterm=False)
+        sync(self.dev)
+        wall = time.perf_counter() - t0
+        ev = [e for e in res.events if e.kind == "heal_retile"]
+        g = it.get_global_grid()
+        got = it.gather_interior(res.state["T"])
+        if (len(ev) != 1 or ev[0].detail["from_dims"] != [2, 2, 2]
+                or tuple(ev[0].detail["dims"]) != (7, 1, 1)
+                or g.dims != (7, 1, 1) or res.steps_done != n_steps
+                or not np.array_equal(got, want)):
+            raise SmokeFailure(f"[phase 29] (c) retile: "
+                               f"{[(e.kind, e.step, e.detail) for e in res.events]}")
+        plan = next(a for a in eng.actions if a["action"] == "retile")
+        log(f"[phase 29] (c) straggler at 2x2x2 blocks of {n}^3 open "
+            f"(clean {clean_s / n_steps * 1e3:.2f} ms/step, window "
+            f"{window * 1e3:.1f} ms): re-tiled at step {ev[0].step} from "
+            f"(2, 2, 2) onto {g.dims} of {g.nxyz} ({plan['devices']} "
+            f"slots), bitwise the uninterrupted run ({wall:.2f} s with the "
+            f"seal and the reload) [{self.card}]")
+        it.finalize_global_grid()
+        return dict(retile_step=ev[0].step, clean_ms_per_step=clean_s /
+                    n_steps * 1e3, wall_s=wall)
+
+    def heal_recalibrate(self):
+        """(c) The drift: `stale_calibration("diffusion3d", 10 s)` over a
+        healed `run_resilient` at 256^3 one block: one `recalibrated`
+        record with the card's measured s/step; the run bitwise."""
+        from igg_torch import chaos, heal, telemetry
+
+        it, t3 = self.it, self.t3
+        p = t3.Params()
+
+        def run(**kw):
+            self.grid((HEAL_BLOCK,) * 3, **SINGLE, **PERIODIC)
+            T0, Cp = t3.init_fields(p)
+            step = t3.make_step(p)
+            res = it.run_resilient(
+                lambda s: {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]},
+                {"T": T0, "Cp": Cp}, 60, watch_every=10,
+                install_sigterm=False, **kw)
+            return res
+
+        want = run().state["T"]
+        recs = []
+
+        def take(rec):
+            if rec.kind in ("cost_model_drift", "recalibrated"):
+                recs.append((rec.kind, dict(rec.payload)))
+
+        eng = heal.HealEngine(heal.HealPolicy(max_actions=3, cooldown_s=0.0))
+        telemetry.subscribe(take)
+        try:
+            with chaos.stale_calibration("diffusion3d", 10.0):
+                res = run(heal=eng)
+        finally:
+            telemetry.unsubscribe(take)
+        recal = [r for k, r in recs if k == "recalibrated"]
+        if (len(recal) != 1 or not torch.equal(res.state["T"], want)
+                or not recal[0]["measured_s_per_step"]):
+            raise SmokeFailure(f"[phase 29] (c) recalibrate: {recs}")
+        sec = recal[0]["measured_s_per_step"]
+        log(f"[phase 29] (c) stale calibration (10 s/step): "
+            f"{[k for k, _ in recs]}, re-measured {sec * 1e3:.4f} ms a step "
+            f"at {HEAL_BLOCK}^3 ({recal[0]['tier']}), the run bitwise "
+            f"[{self.card}]")
+        del res, want
+        it.finalize_global_grid()
+        return dict(measured_ms=sec * 1e3)
+
+    def heal_idle_cost(self):
+        """(c) The engine's idle cost: `run_resilient(heal=True)` against
+        `heal=False` at 256^3 one block, 200 steps, `watch_every=50`,
+        interleaved turns."""
+        it, t3 = self.it, self.t3
+        p = t3.Params()
+        self.grid((HEAL_BLOCK,) * 3, **SINGLE, **PERIODIC)
+        T0, Cp = t3.init_fields(p)
+        step = t3.make_step(p)
+
+        def fn(s):
+            return {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}
+
+        def timed(heal):
+            sync(self.dev)
+            t0 = time.perf_counter()
+            it.run_resilient(fn, {"T": T0, "Cp": Cp}, 200, watch_every=50,
+                             heal=heal, install_sigterm=False)
+            sync(self.dev)
+            return (time.perf_counter() - t0) / 200 * 1e3
+
+        timed(False)
+        timed(True)
+        turns = {False: [], True: []}
+        for _ in range(3):
+            for heal in (False, True, True, False):
+                turns[heal].append(timed(heal))
+        off, on = min(turns[False]), min(turns[True])
+        log(f"[phase 29] (c) heal=True against heal=False at {HEAL_BLOCK}^3 "
+            f"one "
+            f"block, 200 steps, watch_every=50, ms/step in turns: on "
+            f"{fmt_list(turns[True])}, off {fmt_list(turns[False])} (best "
+            f"{(on / off - 1) * 100:+.2f}%; the turns spread "
+            f"{(max(turns[False]) / off - 1) * 100:.1f}% off, "
+            f"{(max(turns[True]) / on - 1) * 100:.1f}% on) [{self.card}]")
+        it.finalize_global_grid()
+        return dict(on=turns[True], off=turns[False])
+
     def main_path(self):
-        """Phases 2 to 28, each with the launch counters set to 0 just
+        """Phases 2 to 29, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -6206,7 +6732,7 @@ class Smoke:
             ("22", self.checkpoint_phase), ("23", self.resilience_phase),
             ("24", self.overlap_phase), ("25", self.tune_phase),
             ("26", self.comm_phase), ("27", self.integrity_phase),
-            ("28", self.ensemble_phase)]
+            ("28", self.ensemble_phase), ("29", self.fleet_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

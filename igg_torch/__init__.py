@@ -27,9 +27,12 @@ measured route search and its tuning cache behind every factory's
 skew and the collective-stall heartbeat behind `run_resilient(comm=)`)
 `integrity` (invariant probes fused into the watchdog's probe,
 shadow re-execution and deep-stamped generations behind
-`run_resilient(integrity=)`) and `ensemble` (`run_ensemble`: M
+`run_resilient(integrity=)`), `ensemble` (`run_ensemble`: M
 independent members with a per-member watchdog, lane rollback,
-quarantine, preemption and elastic resume).
+quarantine, preemption and elastic resume), `fleet` (`run_fleet`: a
+queue of ensemble jobs over block slots, with its journal, retries,
+preemption and elastic resume) and `heal` (the self-healing engine
+behind `heal=` on `run_resilient` and `run_fleet`).
 Grid arrays are block-stacked tensors on one device; entry points use the
 card unless the caller passes `device="cpu"`.  Imports neither JAX nor
 `igg`.
@@ -44,11 +47,12 @@ from .fields import (from_local_blocks, full, local_block, local_blocks, ones,
 from .finalize import finalize_global_grid
 from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
-from . import (autotune, chaos, checkpoint, comm, degrade, ensemble,
-               integrity, overlap, perf, profiling, resilience, stencil,
-               telemetry, vis)
+from . import (autotune, chaos, checkpoint, comm, degrade, ensemble, fleet,
+               heal, integrity, overlap, perf, profiling, resilience,
+               stencil, telemetry, vis)
 from .ensemble import (EnsembleResult, member_state, run_ensemble,
                        stack_members)
+from .fleet import FleetResult, Job, JobOutcome, run_fleet
 from .overlap import hide_communication
 from .resilience import ResilienceError, RunResult, run_resilient
 from .telemetry import Telemetry
@@ -65,21 +69,22 @@ from .tools import (barrier, coord_fields, nx_g, ny_g, nz_g, spacing, tic, toc,
 __version__ = "0.1.0"
 
 __all__ = [
-    "NDIMS", "NNEIGHBORS_PER_DIM", "PROC_NULL", "EnsembleResult", "GlobalGrid",
-    "GridError", "ResilienceError",
+    "NDIMS", "NNEIGHBORS_PER_DIM", "PROC_NULL", "EnsembleResult",
+    "FleetResult", "GlobalGrid", "GridError", "Job", "JobOutcome",
+    "ResilienceError",
     "RunResult", "Telemetry", "autotune", "barrier", "chaos",
     "check_initialized",
     "checkpoint", "comm", "coord_fields", "degrade", "ensemble",
-    "finalize_global_grid", "from_local_blocks", "full", "gather",
+    "finalize_global_grid", "fleet", "from_local_blocks", "full", "gather",
     "gather_interior", "get_global_grid", "global_grid", "grid_epoch",
-    "grid_is_initialized", "has_neighbor", "hide_communication",
+    "grid_is_initialized", "has_neighbor", "heal", "hide_communication",
     "init_global_grid", "integrity",
     "latest_checkpoint", "load_checkpoint", "local_block", "local_blocks",
     "local_coords", "me", "member_state", "memory_stats", "neighbor",
     "neighbors", "nx_g",
     "ny_g", "nz_g", "ol", "ones", "overlap", "perf", "profiling",
     "resilience",
-    "run_ensemble", "run_resilient", "save_checkpoint",
+    "run_ensemble", "run_fleet", "run_resilient", "save_checkpoint",
     "save_checkpoint_sharded", "select_device", "sharded", "spacing",
     "stack_members", "stacked_shape", "stencil", "telemetry", "tic", "time_steps", "toc",
     "update_halo", "update_halo_local", "verify_checkpoint",

@@ -50,10 +50,15 @@ ensemble's lane form, a field's list of its M lane tensors, and replace
 the lane with a copy.
 
 Every injector is a context manager that disarms on the way out, also
-when the body raises; :func:`armed` composes several.  Not ported yet
-(ROADMAP Queue A): `throughput_collapse`, `scheduler_fault` and
-`job_preempt_at` (item 8, fleet), `arrival_storm` and
-`malformed_submission` (item 11, service).
+when the body raises; :func:`armed` composes several.
+
+The fleet's shapes (:func:`igg_torch.run_fleet`), through the
+`igg_torch.fleet._CHAOS_JOB_TAP` seam and consumed one-shot at a job's
+launch: :func:`scheduler_fault` (a launcher fault the scheduler retries),
+:func:`job_preempt_at` (a preemption the journal persists) and
+:func:`throughput_collapse` (a lagging job for the heal engine).  Not
+ported yet: `arrival_storm` and `malformed_submission` (ROADMAP Queue A
+item 11, the service).
 
 This is a test surface: nothing here is imported by the port's hot paths.
 """
@@ -73,7 +78,9 @@ __all__ = ["ChaosPlan", "corrupt_checkpoint", "poison_checkpoint",
            "silent_corruption", "SilentCorruption", "halo_corruption", "HaloCorruption", "kernel_compile_fail",
            "kernel_corrupt", "KernelChaos", "stale_calibration",
            "StaleCalibration", "collective_stall", "FetchStall",
-           "straggler", "FetchDelay", "armed"]
+           "straggler", "FetchDelay", "JobChaos", "InjectedSchedulerFault",
+           "scheduler_fault", "job_preempt_at", "throughput_collapse",
+           "armed"]
 
 
 class ChaosPlan:
@@ -669,14 +676,14 @@ class FetchStall:
         import torch
 
         from . import shared
+        from .device import same_device
 
         if not shared.grid_is_initialized():
             return True            # no grid to have fenced it yet
         dev = self._device
         if isinstance(dev, (int, np.integer)):
             dev = torch.device("cuda", int(dev))
-        return _same_device(torch.device(dev),
-                            torch.device(shared.global_grid().device))
+        return same_device(dev, shared.global_grid().device)
 
     def _tap(self, obj) -> bool:
         if self._device is None:
@@ -699,21 +706,6 @@ class FetchStall:
 
     def __exit__(self, *exc) -> None:
         self.disarm()
-
-
-def _same_device(a, b) -> bool:
-    """Device equality with an index-less CUDA device read as the current
-    one."""
-    import torch
-
-    def norm(d):
-        if d.type == "cuda" and d.index is None:
-            return torch.device("cuda", torch.cuda.current_device())
-        return d
-
-    if a.type != b.type:
-        return False
-    return norm(a) == norm(b)
 
 
 def collective_stall(device=None) -> FetchStall:
@@ -798,6 +790,84 @@ def straggler(rank: int = 0, factor: float = 4.0, *,
     card degrading mid-run).  Rides the readiness seam
     (:class:`FetchDelay`)."""
     return FetchDelay(factor * base_window_s, rank=rank, after=after)
+
+
+class JobChaos:
+    """Armed fleet-queue fault (see :func:`scheduler_fault`,
+    :func:`job_preempt_at`, :func:`throughput_collapse`): `arm()` merges
+    its entry into the `igg_torch.fleet._CHAOS_JOB_TAP` seam and
+    `disarm()` removes exactly that entry.  Read at job launch, so arming
+    clears no cache.  Entries are one-shot: the scheduler consumes them as
+    they fire, so a retried, resumed or re-admitted job launches clean."""
+
+    def __init__(self, kind: str, job: str, payload):
+        self._kind = kind          # "fault" | "preempt" | "collapse"
+        self._job = job
+        self._payload = payload
+
+    def arm(self) -> "JobChaos":
+        from . import fleet
+
+        tap = fleet._CHAOS_JOB_TAP or {}
+        tap.setdefault(self._kind, {})[self._job] = self._payload
+        fleet._CHAOS_JOB_TAP = tap
+        return self
+
+    def disarm(self) -> None:
+        from . import fleet
+
+        tap = fleet._CHAOS_JOB_TAP
+        if not tap:
+            return
+        tap.get(self._kind, {}).pop(self._job, None)
+        if not any(tap.get(k) for k in tap):
+            fleet._CHAOS_JOB_TAP = None
+
+    def __enter__(self) -> "JobChaos":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+
+class InjectedSchedulerFault(RuntimeError):
+    """The launcher fault :func:`scheduler_fault` raises: the job-setup
+    failure shape (a device grab race, a transient file error while the
+    states are built)."""
+
+
+def scheduler_fault(job: str, times: int = 1,
+                    message: Optional[str] = None) -> JobChaos:
+    """Context manager making the next `times` launches of fleet job `job`
+    raise :class:`InjectedSchedulerFault` before any step runs, the
+    transient launcher fault the scheduler retries with backoff::
+
+        with igg_torch.chaos.scheduler_fault("sweep-03", times=2):
+            res = igg_torch.run_fleet(jobs, workdir)   # retried, then runs
+    """
+    return JobChaos("fault", job, {"times": int(times),
+                                   "message": message})
+
+
+def job_preempt_at(job: str, step: int) -> JobChaos:
+    """Context manager preempting fleet job `job` at `step` (a
+    `ChaosPlan(preempt_at=step)` merged into its run): the job writes its
+    final generation, the journal says `preempted`, and
+    `run_fleet(..., resume=True)` resumes it elastically; one-shot, so the
+    resumed run completes."""
+    return JobChaos("preempt", job, {"step": int(step)})
+
+
+def throughput_collapse(job: str, *, delay_s: float = 0.25) -> JobChaos:
+    """Context manager collapsing fleet job `job`'s measured throughput:
+    consumed at the job's launch, the scheduler arms a :class:`FetchDelay`
+    of one readiness grant per `delay_s` for that launch only, so the
+    measured ``member_steps_per_s`` collapses while the simulation stays
+    healthy (the lagging job that :mod:`igg_torch.heal` preempts and
+    re-admits); the re-admission runs clean.  Raise
+    ``IGG_ENSEMBLE_MAX_PENDING_PROBES`` so the collapsed windows stay
+    readiness-gated."""
+    return JobChaos("collapse", job, {"delay_s": float(delay_s)})
 
 
 @contextlib.contextmanager

@@ -32,6 +32,19 @@ def select_device(local_rank: Optional[int] = None) -> int:
     return local_rank
 
 
+def same_device(a, b) -> bool:
+    """Whether two `torch.device`s name one device, an index-less CUDA
+    device read as the current one."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type == "cuda" and (a.index is None) != (b.index is None):
+        cur = torch.cuda.current_device()
+        a = a if a.index is not None else torch.device("cuda", cur)
+        b = b if b.index is not None else torch.device("cuda", cur)
+    return a == b
+
+
 def memory_stats(device=None) -> List[dict]:
     """Allocator statistics of the card(s): one entry per CUDA device of
     `device` (default: every visible card).  A CPU device reports nothing:

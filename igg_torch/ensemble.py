@@ -195,7 +195,9 @@ def _choose_packing(grid, members: int, packing: str, devices) -> str:
     """igg's `_choose_packing` with the port's device list: `devices` is
     None or names only the grid's device, so batch packing (the member
     axis over more than one device) never applies."""
-    if devices is not None and any(torch.device(d) != grid.device
+    from .device import same_device
+
+    if devices is not None and any(not same_device(d, grid.device)
                                    for d in devices):
         raise GridError(
             f"run_ensemble: devices={list(devices)!r}: every block of the "

@@ -68,9 +68,16 @@ that loop, with igg's signature, defaults, validation and event stream:
   generation OLDER than the violating probe, then
   ``integrity_resolved``; generations carry the invariants' stamps.
 
+- **Self-healing** (:mod:`igg_torch.heal`).  `heal=` attaches an engine
+  to the bus for the run; the actions it plans run at the next dispatch
+  boundary: an elastic re-tile over the device's block slots (seal a
+  generation, re-initialize on the planned dims, resume with
+  `load_checkpoint(redistribute=True)`), a recalibration, or the
+  escalation ladder's demotion and failure.
+
 The fault injectors of :mod:`igg_torch.chaos` drive every path.  Not
-ported yet: `heal=` and `serve=` (each raises `GridError`) and the
-multi-process branches (more than one process raises `GridError`).  With
+ported yet: `serve=` (raises `GridError`) and the multi-process branches
+(more than one process raises `GridError`).  With
 the perf ledger on (`IGG_PERF`, default on), each watchdog window's
 ms/step is recorded for the tier that served it
 (`igg_torch.perf.observe_window`).
@@ -407,14 +414,6 @@ class _AsyncCheckpointWriter:
         self._r.close()
 
 
-# The layers igg's loop calls that the port does not have yet, and the
-# ROADMAP Queue A item that brings each.
-_UNPORTED = {
-    "serve": ("igg.statusd", "item 10, the ops plane"),
-    "heal": ("igg.heal", "item 9, heal"),
-}
-
-
 def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                   *,
                   watch_every: int = 50,
@@ -488,8 +487,17 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
       does); a violation that recurs at the same step after a rollback
       demotes as a recurring NaN does; resume scans prefer deep-verified
       generations.
-    - `serve`, `heal`: not ported yet; anything but None raises
-      `GridError`.
+    - `heal`: :mod:`igg_torch.heal` (None: on only where ``IGG_HEAL=1``;
+      True: the environment's policy; a :class:`igg_torch.heal.HealPolicy`
+      or :class:`igg_torch.heal.HealEngine`; False: off).  A stall, a
+      straggler or an attributed corruption re-tiles the grid over its
+      block slots (needs `checkpoint_dir`; without it the action is
+      skipped with a ``heal_skipped`` record), a cost-model drift
+      recalibrates, a persistent signal past the budget walks the
+      escalation ladder (``demote`` raises :class:`igg_torch.heal.
+      HealEscalation` where the tier served CUDA tensors; ``fail``
+      raises it).
+    - `serve`: not ported yet; anything but None raises `GridError`.
     - `chaos`: an :class:`igg_torch.chaos.ChaosPlan` (testing only).
 
     Runs in one process (more raise `GridError`)."""
@@ -497,12 +505,10 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
     from . import degrade as _degrade
 
     shared.check_initialized()
-    for name, value in (("serve", serve), ("heal", heal)):
-        if value is not None:
-            mod, item = _UNPORTED[name]
-            raise GridError(
-                f"run_resilient: {name}={value!r}: the port has no "
-                f"{mod} yet (ROADMAP Queue A {item}); pass None.")
+    if serve is not None:
+        raise GridError(
+            f"run_resilient: serve={serve!r}: the port has no igg.statusd "
+            f"yet (ROADMAP Queue A item 10, the ops plane); pass None.")
     if ckpt._process_count() > 1:
         raise GridError(
             "run_resilient: the port's resilient loop runs in one process "
@@ -562,6 +568,12 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 "run_resilient: the comm= decomposition probes ride the "
                 "watch cadence; set watch_every > 0 (with watched "
                 "fields).")
+    comm_mon = comm
+    # The self-healing engine subscribes to the bus for the run; its
+    # actions run at dispatch boundaries (`_heal_act`).
+    from . import heal as _heal
+
+    heal_eng = _heal.as_engine(heal, run="resilient")
 
     events: List[Event] = []
 
@@ -592,6 +604,9 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
               if watch and _perf.enabled() else None))
     m_steps = _telemetry.counter("igg_steps_total", run="resilient")
     m_rollbacks = _telemetry.counter("igg_rollbacks_total", run="resilient")
+    # Subscribed after every argument check: none can leak it.
+    if heal_eng is not None:
+        heal_eng.attach()
 
     steps_done = 0
     resumed_step = None
@@ -630,6 +645,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
             e.dump_paths.extend(p for p in paths if p not in e.dump_paths)
         if mon is not None:
             mon.close()
+        if heal_eng is not None:
+            heal_eng.detach()
         if tel_owns:
             tel.detach()
         raise
@@ -867,6 +884,155 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
             elif out is not None:
                 state = out
 
+    def _heal_retile(act) -> bool:
+        """The re-tile action: seal a generation, fence the suspect
+        slot(s), re-initialize the grid on the planned dims and resume
+        elastically from the sealed generation.  True when the loop must
+        `continue` (state and decomposition changed)."""
+        nonlocal state, steps_done, last_good, last_ckpt, last_ckpt_step, \
+            comm_mon, stats, run_stamp
+        if cdir is None:
+            # Unactionable for the whole run: refunded, never escalated.
+            heal_eng.record_skipped("retile", reason="no_checkpoint_ring")
+            _telemetry.emit("heal_skipped", step=steps_done,
+                            run="resilient", action="retile",
+                            why="no checkpoint ring to seal/resume from")
+            return False
+        from .finalize import finalize_global_grid
+        from .init import init_global_grid
+
+        grid = shared.global_grid()
+        old_dims, old_ndev = tuple(grid.dims), grid.nprocs
+        try:
+            devs, new_dims, new_local = heal_eng.plan_retile(
+                grid, suspects=act.get("suspects"))
+        except GridError as e:
+            heal_eng.record_skipped("retile", reason=str(e))
+            _telemetry.emit("heal_skipped", step=steps_done,
+                            run="resilient", action="retile",
+                            why=f"no decomposition fits the survivors: {e}")
+            return False
+        # The handoff generation: every background write settled, then a
+        # synchronous one unless a generation at this step holds this
+        # state.
+        _merge_writer(drain=True)
+        if steps_done not in synced:
+            _save_gen(steps_done)
+        pending.clear()
+        if stall is not None:
+            stall.clear()
+        periods, overlaps = tuple(grid.periods), tuple(grid.overlaps)
+        with _telemetry.span("heal.retile", step=steps_done,
+                             from_dims=list(old_dims),
+                             dims=list(new_dims)):
+            finalize_global_grid()
+            init_global_grid(
+                *new_local, dimx=new_dims[0], dimy=new_dims[1],
+                dimz=new_dims[2], periodx=periods[0], periody=periods[1],
+                periodz=periods[2], overlapx=overlaps[0],
+                overlapy=overlaps[1], overlapz=overlaps[2],
+                nprocs=len(devs), device=devs[0], quiet=True)
+            found = None
+            if mon is not None and mon.deep_verify:
+                # Never resume from the generation a violation poisoned.
+                found = ckpt.latest_checkpoint(cdir, prefix,
+                                               check_finite=True, deep=True)
+            if found is None:
+                found = ckpt.latest_checkpoint(cdir, prefix,
+                                               check_finite=True)
+            if found is None:
+                raise ResilienceError(
+                    f"igg_torch.heal: elastic re-tile at step {steps_done} "
+                    f"found no healthy generation under {cdir} to resume "
+                    f"from.", events)
+            state = ckpt.load_checkpoint(found, redistribute=True)
+            steps_done = ckpt.checkpoint_step(found) or 0
+        # The factories' plans key on the grid epoch and re-plan lazily;
+        # the run's bookkeeping is re-anchored here (finalize reset the
+        # ladder, so the demotion scope restarts too).
+        run_stamp = _degrade.dispatch_stamp()
+        synced.clear()
+        synced.add(steps_done)
+        last_good = steps_done
+        last_ckpt, last_ckpt_step = found, steps_done
+        if mon is not None:
+            mon.on_retile(state, steps_done)
+        stats = _telemetry.StepStats(
+            "resilient",
+            perf=(_perf.sample_context(state[watch[0]])
+                  if watch and _perf.enabled() else None))
+        if comm_mon is not None:
+            # Its probes were built for the grid re-tiled away, and the
+            # caller's compute cannot be rebuilt here.
+            try:
+                comm_mon.finalize(steps_done)
+            except Exception:
+                pass
+            comm_mon = None
+            _telemetry.emit("heal_skipped", step=steps_done,
+                            run="resilient", action="comm_monitor",
+                            why="decomposition probes were built on the "
+                                "retiled-away mesh; monitor detached")
+        heal_eng.record_done("retile", from_dims=list(old_dims),
+                             dims=list(new_dims), devices=len(devs),
+                             step=steps_done)
+        heal_eng.reset_baseline()
+        _emit("heal_retile", steps_done, from_dims=list(old_dims),
+              from_devices=old_ndev, dims=list(new_dims),
+              devices=len(devs), path=str(found),
+              reason=act.get("reason"))
+        return True
+
+    def _heal_act() -> bool:
+        """Run the engine's next planned action at this dispatch boundary;
+        True when the loop must `continue` (state changed)."""
+        act = heal_eng.pop()
+        if act is None:
+            return False
+        kind = act["action"]
+        if kind == "retile":
+            return _heal_retile(act)
+        if kind == "recalibrate":
+            fam = act.get("family")
+            if fam:
+                with _telemetry.span("heal.recalibrate", step=steps_done,
+                                     family=fam):
+                    sec = _heal.recalibrate(fam, tier=act.get("tier"))
+                heal_eng.record_done("recalibrate", family=fam,
+                                     measured_s_per_step=sec)
+                # `recalibrated` is on the bus already: the run's view only.
+                _emit("heal_recalibrate", steps_done, _bus=False,
+                      family=fam, measured_s_per_step=sec)
+            return False
+        fail = (f"igg_torch.heal: the action budget "
+                f"(max_actions={heal_eng.policy.max_actions}) is "
+                f"exhausted, the escalation ladder is walked, and the "
+                f"failure signal ({act.get('escalated_from')}: "
+                f"{act.get('signal_reason')}) persists at step "
+                f"{steps_done}.")
+        if kind == "demote":
+            try:
+                demoted = _degrade.demote_active(
+                    reason="heal_escalation",
+                    error_text=f"heal escalation: "
+                               f"{act.get('escalated_from')} budget "
+                               f"exhausted and the failure signal persists",
+                    since=run_stamp)
+            except GridError as e:
+                # The card: the rung below is the truth tier, which the
+                # port does not serve there.  Nothing is served quietly.
+                err = _heal.HealEscalation(f"{fail}  {e}", events)
+                err.add_note(f"the ladder's demote step was refused: {e}")
+                raise err from e
+            heal_eng.record_done("demote", tiers=demoted)
+            for tname in demoted:
+                _emit("tier_degraded", steps_done, _bus=False, tier=tname,
+                      reason="heal_escalation")
+            return False
+        if kind == "fail":
+            raise _heal.HealEscalation(fail, events)
+        return False
+
     # The loop's thread and scope stay the same for the whole run: look the
     # scope's cell up once (preemption_requested() per dispatch, cheaper).
     cell = _preempt_cell()
@@ -902,6 +1068,11 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 if _preempt_asked():
                     preempted = True
                     break
+                # Heal actions run at dispatch boundaries (a deque check
+                # when idle).
+                if heal_eng is not None and heal_eng.has_pending():
+                    if _heal_act():
+                        continue
                 if chaos is not None:
                     state = chaos.apply(state, steps_done, _emit,
                                         span=steps_per_call)
@@ -918,8 +1089,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                 fail = None
                 if probing and steps_done % watch_every == 0:
                     _dispatch_probe()
-                    if comm is not None:
-                        comm.maybe_dispatch(steps_done, stall)
+                    if comm_mon is not None:
+                        comm_mon.maybe_dispatch(steps_done, stall)
                 if (divergence_fn is not None and watch_every
                         and steps_done % watch_every == 0
                         and divergence_fn(state)):
@@ -935,8 +1106,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
                     _save_gen(steps_done, sync=False)
                 if writer is not None:
                     _merge_writer()   # a deque pop, never blocks
-                if comm is not None:
-                    comm.poll(steps_done, stall)   # readiness only
+                if comm_mon is not None:
+                    comm_mon.poll(steps_done, stall)   # readiness only
                 if tel is not None:
                     tel.maybe_export_metrics()
             if preempted:
@@ -978,15 +1149,17 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
     finally:
         if mon is not None:
             mon.close()   # clears the checkpoint stamp context
+        if heal_eng is not None:
+            heal_eng.detach()
         comm_error = None
-        if comm is not None:
+        if comm_mon is not None:
             try:
-                comm.finalize(steps_done)
+                comm_mon.finalize(steps_done)
             except Exception as e:
                 # igg drops it (a broken probe must not mask the run's
                 # outcome); on the card it is raised after the run's own
                 # outcome is settled, or noted on the run's own error.
-                if getattr(comm, "on_card", False):
+                if getattr(comm_mon, "on_card", False):
                     comm_error = GridError(
                         f"run_resilient: the comm monitor's end-of-run "
                         f"drain failed on the card ({type(e).__name__}: "

@@ -275,3 +275,54 @@ def test_kernel_corrupt_taps_the_serving_tier():
             t3.make_step(verify="first_use")(T, Cp)
     diff = (bad - clean).abs()
     assert int((diff > 0).sum()) == 1 and float(diff[1, 1, 1]) == 5.0
+
+
+def _fleet_taps(pkg):
+    """Arm the fleet's three shapes in `pkg`, fire them, and record the
+    seam after each step."""
+    import copy
+
+    ch, fl = CHAOS[pkg], (igg if pkg == "igg" else it).fleet
+    out = {}
+    with ch.armed(ch.scheduler_fault("a", times=2, message="no device"),
+                  ch.job_preempt_at("b", 5),
+                  ch.throughput_collapse("c", delay_s=0.1)):
+        out["armed"] = copy.deepcopy(fl._CHAOS_JOB_TAP)
+        out["fired"] = [copy.deepcopy(fl._consume_tap(kind, job))
+                        for kind, job in (("fault", "a"), ("fault", "a"),
+                                          ("fault", "a"), ("preempt", "b"),
+                                          ("preempt", "b"), ("collapse", "c"),
+                                          ("collapse", "x"))]
+        out["spent"] = copy.deepcopy(fl._CHAOS_JOB_TAP)
+    out["after"] = fl._CHAOS_JOB_TAP
+    keep = ch.scheduler_fault("a")
+    with ch.armed(keep):
+        with ch.job_preempt_at("a", 3), ch.throughput_collapse("d"):
+            out["nested"] = copy.deepcopy(fl._CHAOS_JOB_TAP)
+        out["outer"] = copy.deepcopy(fl._CHAOS_JOB_TAP)
+    out["done"] = fl._CHAOS_JOB_TAP
+    return out
+
+
+def test_fleet_injectors_arm_fire_once_and_disarm_their_own_entry():
+    """`scheduler_fault`, `job_preempt_at` and `throughput_collapse` arm
+    igg's entries in the fleet seam, fire one-shot (a fault `times`
+    launches), and each disarms exactly its own entry; the seam is None
+    when nothing is armed.  `JobChaos` composes under `armed`; an
+    `InjectedSchedulerFault` is a launcher fault (retried), not a
+    `GridError` (terminal)."""
+    want, got = _fleet_taps("igg"), _fleet_taps("port")
+    assert got == want
+    assert got["armed"] == {
+        "fault": {"a": {"times": 2, "message": "no device"}},
+        "preempt": {"b": {"step": 5}}, "collapse": {"c": {"delay_s": 0.1}}}
+    assert [f is not None for f in got["fired"]] == [True, True, False,
+                                                     True, False, True,
+                                                     False]
+    assert got["spent"] is None and got["after"] is None
+    assert got["outer"] == {"fault": {"a": {"times": 1, "message": None}},
+                            "preempt": {}, "collapse": {}}
+    assert got["done"] is None
+    assert isinstance(it.chaos.scheduler_fault("a"), it.chaos.JobChaos)
+    assert issubclass(it.chaos.InjectedSchedulerFault, RuntimeError)
+    assert not issubclass(it.chaos.InjectedSchedulerFault, it.GridError)

@@ -632,10 +632,14 @@ def test_run_resilient_comm_checks_equal_iggs():
                        match=r"igg_torch\.comm\.StepDecomposition monitor"):
         it.run_resilient(loop_step(), st, 4, watch_every=2,
                          comm="not-a-monitor", install_sigterm=False)
-    for arg in ("heal", "serve"):
-        with pytest.raises(it.GridError, match="not ported|Queue A"):
-            it.run_resilient(loop_step(), st, 4, install_sigterm=False,
-                             **{arg: True})
+    # heal= is ported (igg_torch.heal): a value that is no policy raises
+    # igg's coercion; serve= is not ported yet.
+    with pytest.raises(it.GridError, match="heal='bogus': expected None"):
+        it.run_resilient(loop_step(), st, 4, install_sigterm=False,
+                         heal="bogus")
+    with pytest.raises(it.GridError, match="not ported|Queue A"):
+        it.run_resilient(loop_step(), st, 4, install_sigterm=False,
+                         serve=True)
 
 
 def test_run_resilient_comm_windows_match_iggs(igg_comm_run, tmp_path):

@@ -64,7 +64,10 @@ timed by CUDA events) and the stall heartbeat over the card's probes
 under the chaos stall; and `diffusion3d.make_member_step` in
 `run_ensemble` (one block periodic, 2x2x2 open blocks): one step-kernel
 launch a lane step, bitwise the plain member step, a build failure out of
-the run.
+the run; a `run_fleet` drain of two jobs over 8 block slots of the card
+(one launch a lane step, a lane bitwise its solo `run_ensemble`); a heal
+escalation's `demote` step on CUDA tensors raising `HealEscalation`
+naming the tier, with nothing quarantined.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1480,6 +1483,88 @@ def test_member_step_on_the_card(card, grid):
         with pytest.raises(degrade.InjectedCompileError, match="no nvcc"):
             it.run_ensemble(t3.make_member_step(p), lanes, 4, **kw)
     assert degrade.status() == {}
+
+
+def test_fleet_drain_on_the_card(card, tmp_path):
+    """Two diffusion ensemble jobs drained over 8 block slots of the card
+    (62^3 periodic on 2x2x2 blocks of 33^3, and open on 2x2x2 blocks of
+    32^3): each lane step one launch of the step kernel, the journal
+    `done`/`done`, and the first job's lanes bitwise their solo
+    `run_ensemble` on the same grid."""
+    import json
+
+    from igg_torch.models import diffusion3d as t3
+
+    p = t3.Params()
+
+    def make_states(grid):
+        T, Cp = t3.init_fields(p)
+        T = it.update_halo(T)
+        return [{"T": T, "Cp": Cp,
+                 "dt_scale": torch.tensor(s, device=T.device)}
+                for s in (0.5, 1.0)]
+
+    jobs = [it.Job(name=name, global_interior=(62, 62, 62), members=2,
+                   n_steps=10, make_states=make_states,
+                   make_step=lambda grid: t3.make_member_step(p),
+                   periods=periods, watch_every=5, checkpoint_every=0)
+            for name, periods in (("periodic", (1, 1, 1)),
+                                  ("open", (0, 0, 0)))]
+    c0 = dp.step_kernel.launches
+    res = it.run_fleet(jobs, tmp_path, devices=["cuda"] * 8,
+                       install_sigterm=False)
+    assert dp.step_kernel.launches - c0 == 2 * 2 * 10
+    assert [o.status for o in res.jobs.values()] == ["done", "done"]
+    assert all(o.dims == (2, 2, 2) for o in res.jobs.values())
+    journal = json.loads(res.journal.read_text())
+    assert {n: r["status"] for n, r in journal["jobs"].items()} == {
+        "periodic": "done", "open": "done"}
+    got = res.jobs["periodic"].result.state["T"]
+    assert got.device.type == "cuda"
+    it.init_global_grid(33, 33, 33, dimx=2, dimy=2, dimz=2, periodx=1,
+                        periody=1, periodz=1, device=card, quiet=True)
+    solo = it.run_ensemble(t3.make_member_step(p),
+                           make_states(it.get_global_grid()), 10,
+                           watch_every=5, install_sigterm=False)
+    torch.testing.assert_close(got, solo.state["T"], rtol=0, atol=0)
+    assert not torch.equal(got[0], got[1])
+
+
+def test_heal_demote_raises_on_the_card(card):
+    """The heal ladder's `demote` step where `diffusion3d.cuda` served
+    CUDA tensors: `demote_active` refuses (the rung below is the truth
+    tier, which the port does not serve on the card), so the run raises
+    `HealEscalation` naming the tier, with the refusal as a note; nothing
+    is quarantined and nothing is served plain."""
+    from igg_torch import degrade
+    from igg_torch import heal
+    from igg_torch.models import diffusion3d as t3
+
+    it.init_global_grid(64, 64, 64, periodx=1, periody=1, periodz=1,
+                        device=card, quiet=True)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    step = t3.make_step(p)
+    calls = []
+
+    def fn(s):
+        calls.append(1)
+        if len(calls) == 3:     # a stall after the kernel tier served
+            it.telemetry.emit("collective_stall", step=3, run="resilient",
+                              in_flight="probe")
+        return {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}
+
+    eng = heal.HealEngine(heal.HealPolicy(max_actions=0, cooldown_s=0.0,
+                                          escalation=("demote", "fail")))
+    with pytest.raises(heal.HealEscalation) as ei:
+        it.run_resilient(fn, {"T": T, "Cp": Cp}, 20, watch_every=5,
+                         heal=eng, install_sigterm=False)
+    err = ei.value
+    assert "diffusion3d.cuda" in str(err) and "max_actions=0" in str(err)
+    assert any("demote step was refused" in n for n in err.__notes__)
+    assert len(calls) == 3 and eng.actions == []
+    assert degrade.status() == {}
+    assert degrade.active()["diffusion3d"] == "diffusion3d.cuda"
 
 
 def test_quarantined_tier_is_not_served_plain_on_the_card(card):
