@@ -323,6 +323,37 @@ the script exits non-zero without printing a result:
    record with the card's measured s/step, the run bitwise;
    `run_resilient(heal=True)` against `heal=False` at 256^3 in turns
    (printed, not raised).  Rows 1, 3 and 4 must launch.
+30. The ops plane and the service (`igg_torch.statusd`, `igg_torch.top`,
+   `serve=` on the run loops, `igg_torch.serve_fleet`), each number beside
+   the card's name and power limit: (a) the 510^3 headline (2x2x2 open
+   blocks of 256^3, `make_multi_step(17)`, 1020 steps) through
+   `run_resilient(serve=0)` under `chaos.collective_stall()` with a client
+   thread scraping `/healthz`, `/metrics` and `/status` every 0.1 s and
+   the loop held at its 10th call: `/healthz` 200, then 503 naming
+   `collective_stall`, then 200 once the stall is disarmed and the probes
+   drain; `igg_hbm_bytes_in_use` at or above T and Cp's bytes and
+   `igg_hbm_bytes_limit` the card's `total_memory`; `/status` naming
+   `diffusion3d.cuda`; the state bitwise the `serve=False` run; the port
+   released; then the endpoint's cost at 128^3 `make_step`
+   (`watch_every=50`, 3000 steps), `serve=False` against a started
+   endpoint passed as `serve=` and scraped every 0.1 s, in turns
+   ("unresolved" inside the turns' spread), and an owned endpoint's start
+   and stop (once a run). (b) `python -m igg_torch.top <url> --once --plain` against
+   (a)'s live endpoint while the loop is held, and against its telemetry
+   directory after the run: readiness, the tier and the HBM line. (c)
+   `serve_fleet` over `["cuda"] * 8` slots, `max_concurrent=2`,
+   `queue_bound=3`, the jobs submitted by `POST /jobs`: phase 28 (a)'s 8
+   lanes at 254^3 periodic on one slot and 4 lanes at 254^3 open on 4
+   slots (2x2x1 blocks) running side by side (each held at a gate in its
+   member step until both run); `arrival_storm(6)`: 3 admitted, 3 shed
+   with 429 `queue_saturated`, `/healthz` 503 until the queue drains; a
+   `malformed_submission` and a malformed `POST` answered 400; a fence of
+   one of the open job's slots: it seals, re-plans on slots without it and
+   ends bitwise; a 2-lane 126^3 job drained mid-run and finished by
+   `serve_fleet(resume=True)`; every lane bitwise its solo
+   `run_ensemble`; jobs/hour, p50 and p99 turnaround, each job's
+   member-steps/s beside its solo run, the scheduler's own seconds. Rows
+   1, 3, 4 and 5 must launch.
 
 Phase 1 also holds the HM3D kernels (the fused two-field step, its use as
 the one-block K-step loop, the chunk step, timed at 2x2x2 blocks of
@@ -359,7 +390,7 @@ periodic and at 2x2x2 blocks of 256^3 EXT, beside its 32-byte-sector
 bound and its event time a launch) in f32 and f64; and the march division
 (const_div.cuh) is held to `x / d` over all 2^32 float32 dividends for the
 Stokes and HM3D divisors.  Launch counters are set to 0 before each
-main-path phase (2 to 29) and read after it; each of the twenty kernels
+main-path phase (2 to 30) and read after it; each of the twenty kernels
 must have launched on that main path (the generated relax3d step and
 chunk step are phase 20's launches of the spec counters, shallow water's
 the others').  The last lines are the run's seconds, the
@@ -554,6 +585,10 @@ N_SWEEP, ISO_LOCAL, INT_N = 256, 64, 128
 # heal jobs' open interior (2x2x2 blocks of 128^3; 252 = 7 * 36 divides,
 # so a re-tile onto 7 slots fits), the recalibrated and idle runs' block.
 FLEET_SWEEP, FLEET_HEADLINE, FLEET_ELASTIC, HEAL_BLOCK = 254, 510, 254, 256
+# Phase 30: the service's jobs' interiors (the sweep's one 256^3 block, the
+# open job's 2x2x1 blocks of 128x128x254, the drained job's 128^3 block)
+# and the steps of each run of the endpoint's cost.
+SERVE_SWEEP, SERVE_OPEN, SERVE_DRAIN, N_SERVE_STEPS = 254, 254, 126, 3000
 OL3 = dict(overlapx=3, overlapy=3, overlapz=3)
 # Layouts of the small Stokes checks (overlap 3): igg's trapezoid matrix
 # (every window mode: ext, wrap, oext, frozen) and one-block grids.
@@ -6706,8 +6741,665 @@ class Smoke:
         it.finalize_global_grid()
         return dict(on=turns[True], off=turns[False])
 
+    # -- phase 30: the ops plane and the service --------------------------
+    def serve_phase(self):
+        """Phase 30 (module docstring): `igg_torch.statusd`, `igg_torch.top`
+        and `igg_torch.serve_fleet` on the card."""
+        import tempfile
+
+        t_phase = time.perf_counter()
+        out = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            tmp = pathlib.Path(tmp)
+            out["endpoint"] = self.serve_endpoint(tmp)
+            log(f"[phase 30] (a) {time.perf_counter() - t_phase:.1f} s")
+            out["top"] = dict(live=out["endpoint"].pop("top_live"),
+                              offline=self.serve_top(str(tmp / "tel"),
+                                                     self.serve_tier,
+                                                     offline=True))
+        out["overhead"] = self.serve_overhead()
+        log(f"[phase 30] (a, b) {time.perf_counter() - t_phase:.1f} s")
+        with tempfile.TemporaryDirectory() as tmp:
+            out["service"] = self.serve_service(pathlib.Path(tmp))
+        log(f"[phase 30] (c) {time.perf_counter() - t_phase:.1f} s")
+        # PERF.md's table: row 1 the step kernel, 3 the halo writer, 4 the
+        # plane packer (the multi-block jobs), 5 the chunk step ((a)'s
+        # make_multi_step(17) at 510^3).
+        counts = self.ops.launch_counts()
+        ran = {k: v for k, v in counts.items() if v}
+        idle = [k for k in ("diffusion_step", "halo_write", "pack_planes",
+                            "diffusion_chunk_step") if not ran.get(k)]
+        if idle:
+            raise SmokeFailure(f"[phase 30] did not launch {idle}")
+        log(f"[phase 30] launches {json.dumps(ran)}")
+        out["launches"] = ran
+        out["seconds"] = time.perf_counter() - t_phase
+        log(f"[phase 30] done in {out['seconds']:.1f} s [{self.card}]")
+        self.perf["serve"] = out
+
+    @staticmethod
+    def http(url, data=None):
+        """(status, body) of one request to the endpoint: the parsed JSON
+        body, or the text of `/metrics`."""
+        import urllib.error
+        import urllib.request
+
+        req = urllib.request.Request(url, data=data,
+                                     method="POST" if data else "GET")
+        try:
+            with urllib.request.urlopen(req, timeout=10) as r:
+                code, raw = r.status, r.read().decode()
+        except urllib.error.HTTPError as e:
+            code, raw = e.code, e.read().decode()
+        if url.endswith("/metrics"):
+            return code, raw
+        return code, json.loads(raw)
+
+    @staticmethod
+    def scrape_port(tel):
+        """Subscribe to the bus for the port an owned endpoint binds;
+        returns (the port box, its event, the subscriber)."""
+        import threading
+
+        box, ev = {}, threading.Event()
+
+        def on_record(rec):
+            if rec.kind == "statusd_started" and rec.payload.get("port"):
+                box["port"] = rec.payload["port"]
+                ev.set()
+
+        tel.subscribe(on_record)
+        return box, ev, on_record
+
+    def serve_top(self, target, tier, offline=False):
+        """`python -m igg_torch.top <target> --once --plain` in a process
+        of its own; its frame must show readiness, the tier and the HBM
+        line."""
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "igg_torch.top", target, "--once",
+             "--plain"], cwd=ROOT, capture_output=True, text=True,
+            timeout=300, env={**os.environ, "PYTHONPATH": ROOT})
+        took = time.perf_counter() - t0
+        frame = r.stdout
+        head = "OFFLINE VIEW" if offline else "NOT READY (collective_stall)"
+        need = [head, f"diffusion3d->{tier}", "HBM "]
+        if r.returncode != 0 or any(s not in frame for s in need) or \
+                "HBM: n/a" in frame:
+            raise SmokeFailure(f"[phase 30] (b) top on {target}: rc "
+                               f"{r.returncode}, frame {frame!r}, stderr "
+                               f"{r.stderr[-2000:]!r}")
+        hbm = next(ln for ln in frame.splitlines() if "HBM " in ln)
+        log(f"[phase 30] (b) python -m igg_torch.top {'<dir>' if offline else '<url>'} "
+            f"--once --plain: {frame.splitlines()[0]!r}; {hbm.strip()!r} "
+            f"({took:.1f} s with the interpreter's start) [{self.card}]")
+        return dict(seconds=took, frame=frame)
+
+    def serve_endpoint(self, tmp):
+        """(a) The 510^3 headline (2x2x2 open blocks of 256^3, the chunk
+        route `make_multi_step(17)`) through `run_resilient(serve=0)`
+        under `collective_stall()`, its loop held at one dispatch while a
+        client thread scrapes `/healthz`, `/metrics` and `/status` every
+        0.1 s; top runs against the live endpoint while the loop is held;
+        the stall is disarmed and the loop released; bitwise
+        `serve=False`."""
+        import threading
+
+        from igg_torch import chaos
+        from igg_torch import telemetry as tel
+
+        it, n, steps = self.it, self.n_multi, self.steps_multi
+        self.grid((n, n, n), dimx=2, dimy=2, dimz=2)
+        tag = f"{it.nx_g()}^3 open (2x2x2 x {n}^3)"
+        T, Cp, fn, tiers = self.resilient_state(multi=True)
+        field_bytes = T.numel() * T.element_size() + \
+            Cp.numel() * Cp.element_size()
+        calls, hold_at = 60, 10
+        n_steps = calls * steps
+        kw = dict(steps_per_call=steps, watch_every=2 * steps,
+                  max_pending_probes=100, install_sigterm=False)
+        ref = it.run_resilient(fn, {"T": T, "Cp": Cp}, n_steps, serve=False,
+                               **kw).state["T"]
+        sync(self.dev)
+        held = {"reached": threading.Event(), "release": threading.Event(),
+                "calls": 0}
+
+        def gated(s):
+            held["calls"] += 1
+            if held["calls"] == hold_at:
+                held["reached"].set()
+                if not held["release"].wait(300):
+                    raise SmokeFailure("[phase 30] (a) the hold never ended")
+            out = fn(s)
+            if held["calls"] >= hold_at:
+                # After the hold the step waits for its device work, so the
+                # host no longer runs ahead of the card and the watchdog's
+                # channel drains between two probes (an episode ends only
+                # when nothing is in flight).
+                sync(self.dev)
+            return out
+
+        stall = chaos.collective_stall()
+        box, got_port, sub = self.scrape_port(tel)
+        seen, done, top_live = [], threading.Event(), {}
+        errors = []
+
+        def scraper():
+            try:
+                if not got_port.wait(120):
+                    raise SmokeFailure("[phase 30] (a) no endpoint started")
+                url = f"http://127.0.0.1:{box['port']}"
+                stalled = 0
+                while not done.is_set():
+                    t = time.perf_counter()
+                    try:
+                        code, h = self.http(url + "/healthz")
+                        _, text = self.http(url + "/metrics")
+                        _, st = self.http(url + "/status")
+                    except OSError:
+                        break       # the run ended and stopped its server
+                    reasons = [r["reason"] for r in h["reasons"]]
+                    seen.append(dict(t=t, code=code, reasons=reasons,
+                                     metrics=text, tiers=st["tiers"],
+                                     hbm=st["hbm"], held=not
+                                     held["release"].is_set()))
+                    stalled += code == 503 and "collective_stall" in reasons
+                    if stalled >= 2 and not top_live:
+                        # top against the live endpoint, the loop held.
+                        top_live.update(self.serve_top(
+                            url, next(iter(tiers))))
+                        stall.disarm()
+                        held["release"].set()
+                    time.sleep(max(0.0, 0.1 - (time.perf_counter() - t)))
+            except BaseException as e:
+                errors.append(e)
+                held["release"].set()
+
+        old = os.environ.get("IGG_COMM_STALL_TIMEOUT")
+        os.environ["IGG_COMM_STALL_TIMEOUT"] = "0.3"
+        th = threading.Thread(target=scraper, daemon=True)
+        th.start()
+        try:
+            stall.arm()
+            t0 = time.perf_counter()
+            res = it.run_resilient(gated, {"T": T, "Cp": Cp}, n_steps,
+                                   serve=0, telemetry=tmp / "tel", **kw)
+            sync(self.dev)
+            wall = time.perf_counter() - t0
+        finally:
+            stall.disarm()
+            held["release"].set()
+            done.set()
+            th.join(60)
+            tel.unsubscribe(sub)
+            if old is None:
+                os.environ.pop("IGG_COMM_STALL_TIMEOUT", None)
+            else:
+                os.environ["IGG_COMM_STALL_TIMEOUT"] = old
+        if errors:
+            raise errors[0]
+        if res.steps_done != n_steps or not torch.equal(res.state["T"], ref):
+            raise SmokeFailure(f"[phase 30] (a) {tag}: serve=0 run "
+                               f"({res.steps_done} steps) != serve=False")
+        codes = [s["code"] for s in seen]
+        first_503 = codes.index(503) if 503 in codes else None
+        if (first_503 is None or 200 not in codes[:first_503]
+                or 200 not in codes[first_503:]
+                or codes[-1] != 200 or not top_live):
+            raise SmokeFailure(f"[phase 30] (a) /healthz codes {codes}")
+        bad = [s["reasons"] for s in seen
+               if s["code"] == 503 and s["reasons"] != ["collective_stall"]]
+        if bad:
+            raise SmokeFailure(f"[phase 30] (a) 503 reasons {bad}")
+        recovered = next(s["t"] for s in seen[first_503:]
+                         if s["code"] == 200)
+        released = [s["t"] for s in seen if not s["held"]]
+
+        def gauge(text, name):
+            m = re.search(rf'^{name}{{device="cuda:0"}} (\S+)$', text, re.M)
+            return float(m.group(1)) if m else None
+
+        in_use = gauge(seen[0]["metrics"], "igg_hbm_bytes_in_use")
+        limit = gauge(seen[0]["metrics"], "igg_hbm_bytes_limit")
+        total = torch.cuda.get_device_properties(0).total_memory
+        if in_use is None or not field_bytes <= in_use <= total or \
+                limit != total:
+            raise SmokeFailure(f"[phase 30] (a) HBM gauges in use {in_use}, "
+                               f"limit {limit} (fields {field_bytes}, card "
+                               f"{total})")
+        served = {s["tiers"].get("diffusion3d") for s in seen} - {None}
+        if served != tiers or len(tiers) != 1 or (
+                self.dev.type == "cuda" and tiers != {"diffusion3d.cuda"}):
+            raise SmokeFailure(f"[phase 30] (a) /status tiers {served}, the "
+                               f"calls served by {tiers}")
+        # The owned endpoint released its port when the run returned.
+        from igg_torch import statusd
+
+        statusd.StatusServer(port=box["port"]).start().stop()
+        log(f"[phase 30] (a) {tag}, make_multi_step({steps}), "
+            f"run_resilient(serve=0) {n_steps} steps in {wall:.2f} s, held "
+            f"at call {hold_at} while top ran: {len(seen)} scrapes, "
+            f"/healthz {first_503}x200, then {codes.count(503)}x503 "
+            f"collective_stall, then {len(codes) - first_503 - codes.count(503)}"
+            f"x200 from "
+            f"{(recovered - released[0]) * 1e3 if released else 0:.0f} ms "
+            f"after the release; igg_hbm_bytes_in_use {in_use:.0f} B "
+            f"(T and Cp {field_bytes} B), igg_hbm_bytes_limit {limit:.0f} "
+            f"= total_memory; /status tier {next(iter(tiers))}; bitwise "
+            f"serve=False; the port released [{self.card}]")
+        self.serve_tier = next(iter(tiers))
+        return dict(wall_s=wall, scrapes=len(seen), codes=codes,
+                    hbm_in_use=in_use, hbm_limit=limit,
+                    field_bytes=field_bytes, top_live=dict(top_live),
+                    recovery_ms=(recovered - released[0]) * 1e3
+                    if released else None)
+
+    def serve_overhead(self):
+        """(a) The endpoint's cost: the 128^3 `make_step` loop of phase 23
+        (watch_every=50, T watched) through run_resilient with serve=False
+        and with a started endpoint passed as `serve=` and scraped every
+        0.1 s, in turns; then an owned endpoint's start and stop."""
+        import threading
+
+        from igg_torch import statusd
+
+        it, n_steps = self.it, N_SERVE_STEPS
+        self.grid((N_OVERHEAD,) * 3, **SINGLE, **PERIODIC)
+        T, Cp, fn, _ = self.resilient_state(multi=False)
+        state = {"T": T, "Cp": Cp}
+        srv = statusd.StatusServer(port=0).start()
+
+        def run(serve):
+            scrapes = []
+            done = threading.Event()
+
+            def scraper():
+                while not done.is_set():
+                    t = time.perf_counter()
+                    scrapes.append(self.http(srv.url + "/metrics")[0])
+                    scrapes.append(self.http(srv.url + "/healthz")[0])
+                    time.sleep(max(0.0, 0.1 - (time.perf_counter() - t)))
+
+            th = threading.Thread(target=scraper, daemon=True)
+            if serve:
+                th.start()
+            try:
+                sync(self.dev)
+                t0 = time.perf_counter()
+                res = it.run_resilient(fn, state, n_steps, watch_every=50,
+                                       watch_fields=["T"],
+                                       install_sigterm=False,
+                                       serve=srv if serve else False)
+                sync(self.dev)
+                ms = (time.perf_counter() - t0) / n_steps * 1e3
+            finally:
+                done.set()
+                if serve:
+                    th.join(30)
+            if res.steps_done != n_steps:
+                raise SmokeFailure(f"[phase 30] (a) {res.steps_done} steps")
+            return ms, len(scrapes)
+
+        try:
+            run(False), run(True)
+            turns = {"bare": [], "served": []}
+            scrapes = []
+            for order in (("bare", "served"), ("served", "bare")) * 2:
+                for name in order:
+                    ms, k = run(name == "served")
+                    turns[name].append(ms)
+                    if name == "served":
+                        scrapes.append(k)
+        finally:
+            srv.stop()
+        # An owned endpoint (serve=<port>) binds and starts its thread at
+        # the run's start and joins it at the end, once a run.
+        life = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            statusd.StatusServer(port=0).start().stop()
+            life.append((time.perf_counter() - t0) * 1e3)
+        b, s = min(turns["bare"]), min(turns["served"])
+        lo = max(min(turns["bare"]), min(turns["served"]))
+        hi = min(max(turns["bare"]), max(turns["served"]))
+        verdict = ("unresolved (inside the turns' spread)" if lo <= hi
+                   else f"{(s - b) / b * 100:+.2f}%")
+        log(f"[phase 30] (a) {N_OVERHEAD}^3 periodic make_step, "
+            f"watch_every=50, {n_steps} steps: ms/step in turns "
+            f"serve=False {fmt_list(turns['bare'])}, a started endpoint "
+            f"scraped every 0.1 s {fmt_list(turns['served'])} ({scrapes} "
+            f"requests a run): best {b:.4f} against {s:.4f}, endpoint cost "
+            f"{verdict} (igg's statusd_overhead < 1%); an owned endpoint's "
+            f"start and stop {fmt_list(life)} ms, once a run [{self.card}]")
+        return dict(turns_ms_per_step=turns, requests=scrapes,
+                    delta=(s - b) / b, verdict=verdict, lifecycle_ms=life)
+
+    def serve_job(self, spec):
+        """(c)'s job factory: a spec's `kind` picks the job (`sweep`: phase
+        28 (a)'s 8 lanes on one 256^3 block, `open4`: 4 lanes at 254^3
+        open on 4 slots, `drainee`: 2 lanes on one 128^3 block, `tiny`: one
+        lane on one 64^3 block); its member step holds at the gate named
+        by `gate`."""
+        t3 = self.t3
+        watch = {"sweep": 50, "open4": 10, "drainee": 10}.get(
+            spec.get("kind"), 0)
+        job = self.fleet_job(spec["name"], spec["global_interior"][0],
+                             spec["members"], spec["n_steps"],
+                             spec["periods"][0] == 1, watch_every=watch)
+        if spec.get("gate"):
+            name = spec["gate"]
+            job.make_step = lambda grid: self.gated(
+                t3.make_member_step(t3.Params()), name)
+        return job
+
+    def gated(self, step, name):
+        """`step` holding at the call `self.gates[name]["at"]` until its
+        release; the seconds held are kept."""
+        g, calls = self.gates[name], [0]
+
+        def member_step(st):
+            calls[0] += 1
+            if calls[0] == g["at"]:
+                t0 = time.perf_counter()
+                g["reached"].set()
+                if not g["release"].wait(300):
+                    raise SmokeFailure(f"[phase 30] gate {name} never "
+                                       f"released")
+                g["held_s"] += time.perf_counter() - t0
+            return step(st)
+
+        return member_step
+
+    def serve_service(self, tmp):
+        """(c) `serve_fleet` over `["cuda"] * 8` slots, `max_concurrent=2`,
+        `queue_bound=3`, the jobs submitted by `POST /jobs` on a shared
+        endpoint: `sweep` and `open4` side by side; an `arrival_storm`
+        shed with 429 and `queue_saturated`; a `malformed_submission` and a
+        malformed body answered 400; a fence of one of `open4`'s slots; a
+        drain while `drainee` runs and `serve_fleet(resume=True)`; every
+        lane bitwise its solo `run_ensemble`."""
+        import threading
+
+        from igg_torch import chaos, ensemble, fleet, serve, statusd
+
+        it = self.it
+        if it.grid_is_initialized():
+            it.finalize_global_grid()
+        srv = statusd.StatusServer(port=0).start()
+        url = srv.url
+        self.gates = {name: dict(at=at, reached=threading.Event(),
+                                 release=threading.Event(), held_s=0.0)
+                      for name, at in (("sweep", 8 * 10 + 1),
+                                       ("open4", 4 * 10 + 1),
+                                       ("drainee", 2 * 10 + 1))}
+        specs = {
+            "sweep": dict(global_interior=[SERVE_SWEEP] * 3, members=8,
+                          n_steps=200, periods=[1, 1, 1], n_devices=1),
+            "open4": dict(global_interior=[SERVE_OPEN] * 3, members=4,
+                          n_steps=60, periods=[0, 0, 0], n_devices=4),
+            "drainee": dict(global_interior=[SERVE_DRAIN] * 3, members=2,
+                            n_steps=40, periods=[1, 1, 1], n_devices=1)}
+        tiny = dict(kind="tiny", global_interior=[62, 62, 62], members=1,
+                    n_steps=4, n_devices=1)
+        events = []
+        took = {"ensemble": [], "journal": [], "submit": []}
+        saved = [(ensemble, "run_ensemble", ensemble.run_ensemble),
+                 (fleet, "_write_journal", fleet._write_journal),
+                 (serve._ServeState, "submit", serve._ServeState.submit)]
+
+        def timed(key, fn, synced=False):
+            def wrapper(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    if synced:
+                        torch.cuda.synchronize()
+                    took[key].append((threading.current_thread().name,
+                                      time.perf_counter() - t0))
+            return wrapper
+
+        ensemble.run_ensemble = timed("ensemble", saved[0][2], synced=True)
+        fleet._write_journal = timed("journal", saved[1][2])
+        serve._ServeState.submit = timed("submit", saved[2][2])
+
+        def session(resume, ctl):
+            out = {}
+
+            def run():
+                try:
+                    out["res"] = it.serve_fleet(
+                        tmp, self.serve_job, devices=[self.dev.type] * 8,
+                        max_concurrent=2, queue_bound=3,
+                        tenant_queue_bound=8, poll_s=0.01, backoff=0.05,
+                        stop_when_idle_s=0.5 if resume else None,
+                        install_sigterm=False, resume=resume, serve=srv,
+                        control=ctl,
+                        on_event=lambda e: events.append((time.time(), e)))
+                except BaseException as e:
+                    out["err"] = e
+            th = threading.Thread(target=run, name="phase30-serve")
+            th.start()
+            if not ctl.wait_ready(60):
+                raise SmokeFailure("[phase 30] (c) serve_fleet never bound")
+            return th, out
+
+        def wait_for(pred, what, timeout=300):
+            t0 = time.monotonic()
+            while not pred():
+                if time.monotonic() - t0 > timeout:
+                    raise SmokeFailure(f"[phase 30] (c) timed out: {what}")
+                time.sleep(0.005)
+
+        def post(doc):
+            return self.http(url + "/jobs", json.dumps(doc).encode())
+
+        def kinds(kind):
+            return [e for _, e in list(events) if e.kind == kind]
+
+        def res_rejected(ctl):
+            with ctl._state.lock:
+                return list(ctl._state.rejected)
+
+        try:
+            ctl = serve.ServeControl()
+            t_start = time.perf_counter()
+            th, out = session(False, ctl)
+            for name in ("sweep", "open4"):
+                code, body = post(dict(name=name, kind=name, gate=name,
+                                       tenant="phase30", **specs[name]))
+                if code != 201:
+                    raise SmokeFailure(f"[phase 30] (c) POST {name}: {code} "
+                                       f"{body}")
+            for name in ("sweep", "open4"):
+                if not self.gates[name]["reached"].wait(300):
+                    raise SmokeFailure(f"[phase 30] (c) {name} never ran")
+            running = dict(ctl._state.running)
+            side = sorted(running) == ["open4", "sweep"] and set(
+                running["open4"].slots).isdisjoint(running["sweep"].slots)
+            if not side:
+                raise SmokeFailure(f"[phase 30] (c) running {sorted(running)}")
+            slots0 = list(running["open4"].slots)
+            # Hostile intake while both jobs hold: the storm fills the queue
+            # to its bound and the rest sheds; a malformed body is refused.
+            n_storm = 6
+            with chaos.armed(chaos.arrival_storm(n_storm, tenant="storm",
+                                                 spec=tiny),
+                             chaos.malformed_submission(1)):
+                wait_for(lambda: len(kinds("job_shed")) == n_storm - 3
+                         and len(res_rejected(ctl)) == 1, "the storm's tick")
+            code_h, health = self.http(url + "/healthz")
+            sat = [r for r in health["reasons"]
+                   if r["reason"] == "queue_saturated"]
+            code_bad, bad = self.http(url + "/jobs", b'{"name": ... not json')
+            shed = [e for e in kinds("job_shed")
+                    if e.detail.get("source") == "storm"]
+            if (code_h != 503 or not sat or code_bad != 400
+                    or len(shed) != n_storm - 3
+                    or any(e.detail["reason"] != "queue_saturated"
+                           for e in shed)):
+                raise SmokeFailure(f"[phase 30] (c) storm: /healthz {code_h} "
+                                   f"{health}, malformed {code_bad} {bad}, "
+                                   f"{len(shed)} shed")
+            # Fence one of open4's slots: only open4 seals and re-plans.
+            ctl.fence_device(slots0[0])
+            wait_for(lambda: ctl._state.running["open4"].preempt_reason
+                     == "fence", "the fence")
+            if ctl._state.running["sweep"].preempt_reason is not None:
+                raise SmokeFailure("[phase 30] (c) the fence hit sweep")
+            for name in ("sweep", "open4"):
+                self.gates[name]["release"].set()
+            relaunched = {}
+
+            def open4_again():
+                w = ctl._state.running.get("open4")
+                if w is not None and w.slots != slots0:
+                    relaunched["slots"] = list(w.slots)
+                return bool(relaunched)
+
+            wait_for(open4_again, "open4's relaunch")
+            wait_for(lambda: not ctl.stats()["running"]
+                     and not ctl.stats()["queue_depth"], "the queue's drain")
+            code_h2, _ = self.http(url + "/healthz")
+            if code_h2 != 200:
+                raise SmokeFailure(f"[phase 30] (c) /healthz {code_h2} after "
+                                   f"the queue drained")
+            # The drain: drainee holds mid-run, the service drains.
+            code, body = post(dict(name="drainee", kind="drainee",
+                                   gate="drainee", tenant="phase30",
+                                   **specs["drainee"]))
+            if code != 201 or not self.gates["drainee"]["reached"].wait(300):
+                raise SmokeFailure(f"[phase 30] (c) drainee {code} {body}")
+            ctl.drain()
+            self.gates["drainee"]["release"].set()
+            th.join(300)
+            wall1 = time.perf_counter() - t_start
+            if th.is_alive() or "err" in out:
+                raise SmokeFailure(f"[phase 30] (c) session 1: {out}")
+            res1 = out["res"]
+            if not res1.drained or res1.jobs["drainee"].status != "preempted":
+                raise SmokeFailure(f"[phase 30] (c) drain {res1.drained} "
+                                   f"{res1.jobs.get('drainee')}")
+            t1 = time.perf_counter()
+            th2, out2 = session(True, serve.ServeControl())
+            th2.join(300)
+            wall2 = time.perf_counter() - t1
+            if th2.is_alive() or "err" in out2:
+                raise SmokeFailure(f"[phase 30] (c) resume: {out2}")
+            res2 = out2["res"]
+        finally:
+            for g in self.gates.values():
+                g["release"].set()
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+            srv.stop()
+        outcomes = {**res1.jobs, **res2.jobs}
+        status = {n: o.status for n, o in outcomes.items()}
+        if any(s != "done" for s in status.values()) or len(status) != 6:
+            raise SmokeFailure(f"[phase 30] (c) outcomes {status}")
+        requeued = [e.detail for e in kinds("job_requeued")]
+        fenced = [e.detail for e in kinds("device_fenced")]
+        if (requeued != [{"job": "open4", "tenant": "phase30",
+                          "reason": "fence"}]
+                or fenced != [{"device": slots0[0], "jobs": ["open4"]}]
+                or slots0[0] in relaunched["slots"]):
+            raise SmokeFailure(f"[phase 30] (c) fence: {fenced} {requeued} "
+                               f"{relaunched}")
+        rejected = [x["source"] for x in res1.rejected]
+        if sorted(rejected) != ["api", "chaos"]:
+            raise SmokeFailure(f"[phase 30] (c) rejected {res1.rejected}")
+        # Every lane bitwise its solo run_ensemble on the grid it ended on.
+        rates = {}
+        ens_s = {}
+        for thread, s in took["ensemble"]:
+            ens_s[thread] = ens_s.get(thread, 0.0) + s
+        for name in ("sweep", "open4", "drainee"):
+            o = outcomes[name]
+            job = self.serve_job(dict(name=name, kind=name, **specs[name]))
+            g = self.job_grid(job, o.dims)
+            states, step = job.make_states(g), job.make_step(g)
+            sync(self.dev)
+            t0 = time.perf_counter()
+            solo = it.run_ensemble(step, states, job.n_steps,
+                                   watch_every=job.watch_every,
+                                   install_sigterm=False)
+            sync(self.dev)
+            solo_s = time.perf_counter() - t0
+            for m in range(job.members):
+                if not torch.equal(o.result.state["T"][m],
+                                   solo.state["T"][m]):
+                    raise SmokeFailure(f"[phase 30] (c) {name} lane {m} != "
+                                       f"its solo run_ensemble")
+            ms = job.members * job.n_steps
+            served = ens_s.get(f"igg-serve-{name}", 0.0) - \
+                self.gates[name]["held_s"]
+            rates[name] = {"served": ms / served if served > 0 else None,
+                           "solo": ms / solo_s, "dims": list(o.dims)}
+            del solo, states
+            it.finalize_global_grid()
+        # Turnaround: admission to done, per job, over both sessions.
+        admitted, finished = {}, {}
+        for wall, e in events:
+            job = e.detail.get("job")
+            if e.kind == "job_admitted" and job not in admitted:
+                admitted[job] = wall
+            if e.kind == "job_done":
+                finished[job] = wall
+        turn = sorted(finished[j] - admitted[j] for j in finished)
+        p50 = float(np.percentile(turn, 50))
+        p99 = float(np.percentile(turn, 99))
+        jobs_h = len(finished) / ((wall1 + wall2) / 3600)
+        own = {k: (len(took[k]), sum(s for _, s in took[k]))
+               for k in ("submit", "journal")}
+        overlap = self.job_overlap(events, "sweep", "open4")
+        log(f"[phase 30] (c) serve_fleet over [{self.dev.type!r}] * 8 "
+            f"slots, max_concurrent=2: sweep (8 lanes, {SERVE_SWEEP}^3 "
+            f"periodic, 1 slot) and open4 (4 lanes, {SERVE_OPEN}^3 open, "
+            f"slots {slots0}) running side by "
+            f"side ({overlap:.2f} s of overlap), arrival_storm({n_storm}) "
+            f"3 admitted and {len(shed)} shed 429 queue_saturated (/healthz "
+            f"503, then 200 after the queue drained), malformed answered "
+            f"400 (HTTP and chaos), fence of slot {slots0[0]} re-planned "
+            f"open4 onto slots {relaunched['slots']} (dims "
+            f"{list(outcomes['open4'].dims)}), drain mid-run and "
+            f"resume=True; every lane bitwise its solo run_ensemble; "
+            f"{len(finished)} jobs in {wall1 + wall2:.2f} s = "
+            f"{jobs_h:.0f} jobs/hour, turnaround p50 {p50:.2f} s p99 "
+            f"{p99:.2f} s (the held jobs' holds included); member-steps/s "
+            f"(served: run_ensemble's wall less its gate hold, with its "
+            f"closing device-wide sync; solo): " + ", ".join(
+                f"{n} {r['served']:.1f}, {r['solo']:.1f}"
+                for n, r in rates.items())
+            + f"; the scheduler's own: {own['submit'][0]} admissions "
+            f"{own['submit'][1] * 1e3:.1f} ms, {own['journal'][0]} fsync'd "
+            f"journal writes {own['journal'][1] * 1e3:.1f} ms [{self.card}]")
+        return dict(wall_s=wall1 + wall2, jobs=len(finished),
+                    jobs_per_hour=jobs_h, turnaround_p50_s=p50,
+                    turnaround_p99_s=p99, rates=rates, own=own,
+                    overlap_s=overlap, shed=len(shed),
+                    fence=dict(slot=slots0[0], before=slots0,
+                               after=relaunched["slots"]))
+
+    @staticmethod
+    def job_overlap(events, a, b) -> float:
+        """Seconds two jobs' first launches ran side by side (job_started
+        to job_done or job_preempted, by the events' walls)."""
+        spans = {}
+        for wall, e in events:
+            job = e.detail.get("job")
+            if job in (a, b):
+                if e.kind == "job_started" and job not in spans:
+                    spans[job] = [wall, None]
+                elif e.kind in ("job_done", "job_preempted") and \
+                        job in spans and spans[job][1] is None:
+                    spans[job][1] = wall
+        if any(s[1] is None for s in spans.values()) or len(spans) < 2:
+            return 0.0
+        return max(0.0, min(spans[a][1], spans[b][1])
+                   - max(spans[a][0], spans[b][0]))
+
     def main_path(self):
-        """Phases 2 to 29, each with the launch counters set to 0 just
+        """Phases 2 to 30, each with the launch counters set to 0 just
         before it and read just after it; the counts add up over the
         phases."""
         n, m = self.n_head, self.n_multi
@@ -6732,7 +7424,8 @@ class Smoke:
             ("22", self.checkpoint_phase), ("23", self.resilience_phase),
             ("24", self.overlap_phase), ("25", self.tune_phase),
             ("26", self.comm_phase), ("27", self.integrity_phase),
-            ("28", self.ensemble_phase), ("29", self.fleet_phase)]
+            ("28", self.ensemble_phase), ("29", self.fleet_phase),
+            ("30", self.serve_phase)]
         self.launches, self.phase_launches = {}, {}
         for phase, run in phases:
             self.ops.reset_launch_counts()

@@ -31,8 +31,11 @@ shadow re-execution and deep-stamped generations behind
 independent members with a per-member watchdog, lane rollback,
 quarantine, preemption and elastic resume), `fleet` (`run_fleet`: a
 queue of ensemble jobs over block slots, with its journal, retries,
-preemption and elastic resume) and `heal` (the self-healing engine
-behind `heal=` on `run_resilient` and `run_fleet`).
+preemption and elastic resume), `heal` (the self-healing engine
+behind `heal=` on `run_resilient` and `run_fleet`), `statusd` (the live
+ops endpoint behind `serve=` on the three run loops), `top` (its
+terminal dashboard, `python -m igg_torch.top`) and `serve` (`serve_fleet`:
+the always-on multi-tenant scheduler over block slots).
 Grid arrays are block-stacked tensors on one device; entry points use the
 card unless the caller passes `device="cpu"`.  Imports neither JAX nor
 `igg`.
@@ -49,12 +52,13 @@ from .gather import gather, gather_interior
 from .halo import update_halo, update_halo_local
 from . import (autotune, chaos, checkpoint, comm, degrade, ensemble, fleet,
                heal, integrity, overlap, perf, profiling, resilience,
-               stencil, telemetry, vis)
+               serve, statusd, stencil, telemetry, vis)
 from .ensemble import (EnsembleResult, member_state, run_ensemble,
                        stack_members)
 from .fleet import FleetResult, Job, JobOutcome, run_fleet
 from .overlap import hide_communication
 from .resilience import ResilienceError, RunResult, run_resilient
+from .serve import ServeControl, ServeResult, serve_fleet
 from .telemetry import Telemetry
 from .init import init_global_grid
 from .parallel import local_coords, sharded
@@ -68,11 +72,22 @@ from .tools import (barrier, coord_fields, nx_g, ny_g, nz_g, spacing, tic, toc,
 
 __version__ = "0.1.0"
 
+
+def __getattr__(name):
+    # `top` is imported on first access, so `python -m igg_torch.top` does
+    # not find it already imported by the package (runpy warns then).
+    if name == "top":
+        import importlib
+
+        return importlib.import_module(".top", __name__)
+    raise AttributeError(f"module 'igg_torch' has no attribute {name!r}")
+
 __all__ = [
     "NDIMS", "NNEIGHBORS_PER_DIM", "PROC_NULL", "EnsembleResult",
     "FleetResult", "GlobalGrid", "GridError", "Job", "JobOutcome",
     "ResilienceError",
-    "RunResult", "Telemetry", "autotune", "barrier", "chaos",
+    "RunResult", "ServeControl", "ServeResult", "Telemetry", "autotune",
+    "barrier", "chaos",
     "check_initialized",
     "checkpoint", "comm", "coord_fields", "degrade", "ensemble",
     "finalize_global_grid", "fleet", "from_local_blocks", "full", "gather",
@@ -85,8 +100,9 @@ __all__ = [
     "ny_g", "nz_g", "ol", "ones", "overlap", "perf", "profiling",
     "resilience",
     "run_ensemble", "run_fleet", "run_resilient", "save_checkpoint",
-    "save_checkpoint_sharded", "select_device", "sharded", "spacing",
-    "stack_members", "stacked_shape", "stencil", "telemetry", "tic", "time_steps", "toc",
+    "save_checkpoint_sharded", "select_device", "serve", "serve_fleet",
+    "sharded", "spacing", "stack_members", "stacked_shape", "statusd",
+    "stencil", "telemetry", "tic", "time_steps", "toc", "top",
     "update_halo", "update_halo_local", "verify_checkpoint",
     "verify_checkpoint_distributed", "vis", "x_g", "x_g_field", "y_g",
     "y_g_field", "z_g", "z_g_field", "zeros",

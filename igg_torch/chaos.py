@@ -56,9 +56,12 @@ The fleet's shapes (:func:`igg_torch.run_fleet`), through the
 `igg_torch.fleet._CHAOS_JOB_TAP` seam and consumed one-shot at a job's
 launch: :func:`scheduler_fault` (a launcher fault the scheduler retries),
 :func:`job_preempt_at` (a preemption the journal persists) and
-:func:`throughput_collapse` (a lagging job for the heal engine).  Not
-ported yet: `arrival_storm` and `malformed_submission` (ROADMAP Queue A
-item 11, the service).
+:func:`throughput_collapse` (a lagging job for the heal engine).  The
+service's intake shapes (:func:`igg_torch.serve_fleet`), through the
+`igg_torch.serve._CHAOS_SUBMIT_TAP` seam and consumed one-shot at the
+scheduler's next tick: :func:`arrival_storm` (a burst of submissions
+admission must shed) and :func:`malformed_submission` (bodies admission
+must reject).
 
 This is a test surface: nothing here is imported by the port's hot paths.
 """
@@ -868,6 +871,75 @@ def throughput_collapse(job: str, *, delay_s: float = 0.25) -> JobChaos:
     ``IGG_ENSEMBLE_MAX_PENDING_PROBES`` so the collapsed windows stay
     readiness-gated."""
     return JobChaos("collapse", job, {"delay_s": float(delay_s)})
+
+
+class SubmitChaos:
+    """Armed hostile-intake injection (see :func:`arrival_storm` /
+    :func:`malformed_submission`): appends its entries to the
+    `igg_torch.serve._CHAOS_SUBMIT_TAP` seam on `arm()` and removes exactly
+    them on `disarm()` — the :class:`JobChaos` pattern applied to the
+    service's submission plane.  The scheduler loop consumes entries
+    one-shot at its next tick, so a storm fires once per arming and a
+    drained queue stays drained."""
+
+    def __init__(self, kind: str, entry: dict):
+        self._kind = kind          # "storm" | "malformed"
+        self._entry = entry
+
+    def arm(self) -> "SubmitChaos":
+        from . import serve
+
+        tap = serve._CHAOS_SUBMIT_TAP or {}
+        tap.setdefault(self._kind, []).append(self._entry)
+        serve._CHAOS_SUBMIT_TAP = tap
+        return self
+
+    def disarm(self) -> None:
+        from . import serve
+
+        tap = serve._CHAOS_SUBMIT_TAP
+        if not tap:
+            return
+        entries = tap.get(self._kind)
+        if entries and self._entry in entries:
+            entries.remove(self._entry)
+        if not any(tap.get(k) for k in tap):
+            serve._CHAOS_SUBMIT_TAP = None
+
+    def __enter__(self) -> "SubmitChaos":
+        return self.arm()
+
+    def __exit__(self, *exc) -> None:
+        self.disarm()
+
+
+def arrival_storm(n: int, tenant: str = "default",
+                  spec: Optional[dict] = None) -> SubmitChaos:
+    """Context manager firing `n` job submissions at the live
+    :func:`igg_torch.serve.serve_fleet` loop in ONE scheduler tick — the
+    thundering-herd arrival shape admission control must shed, not
+    absorb.  Each synthetic submission clones `spec` (a plain job-spec
+    template; default: a minimal 8³ single-member config) under `tenant`
+    with a unique ``storm-{tenant}-{seq}`` name, and runs the FULL
+    admission pipeline: the queue fills to its bound and the rest shed
+    with 429/``job_shed`` (reason ``queue_saturated`` — the statusd
+    readiness reason pins until the drain)::
+
+        with igg_torch.chaos.armed(
+                igg_torch.chaos.arrival_storm(50, tenant="noisy")):
+            ...   # next tick: 50 arrivals, bounded admission, the rest shed
+    """
+    return SubmitChaos("storm", {"n": int(n), "tenant": tenant,
+                                 "spec": dict(spec) if spec else None})
+
+
+def malformed_submission(times: int = 1) -> SubmitChaos:
+    """Context manager injecting `times` MALFORMED submission bodies
+    (truncated JSON) through the serve intake — the hostile-client shape
+    admission must reject at the door (400, a ``job_rejected`` event
+    with the parse reason) without disturbing any queued or running
+    job."""
+    return SubmitChaos("malformed", {"times": int(times)})
 
 
 @contextlib.contextmanager

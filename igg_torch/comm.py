@@ -639,9 +639,10 @@ class StepDecomposition:
 # Collective-stall detection
 # ---------------------------------------------------------------------------
 
-# The live watchdogs (the readiness source of the ops plane, ROADMAP Queue A
-# item 10): each registers at construction and leaves on close(); a WeakSet,
-# so an abandoned instance cannot pin a "stalled" verdict forever.
+# The live watchdogs (the readiness source of the ops plane,
+# igg_torch.statusd): each registers at construction and leaves on
+# close(); a WeakSet, so an abandoned instance cannot pin a "stalled"
+# verdict forever.
 _live_lock = threading.Lock()
 _LIVE_WATCHDOGS: "weakref.WeakSet" = weakref.WeakSet()
 

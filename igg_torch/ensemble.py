@@ -70,8 +70,9 @@ quarantined (`member_quarantined`) instead of failing the batch.  Preemption (SI
 quarantine state of the sidecar.  The member-targeted injectors of
 :mod:`igg_torch.chaos` drive every path.
 
-`serve=` (igg's ops endpoint) is not ported yet: anything but None or
-False raises `GridError` (ROADMAP Queue A item 10).  Runs in one process.
+`serve=` attaches the live ops endpoint (:mod:`igg_torch.statusd`), whose
+readiness turns false when every member is quarantined.  Runs in one
+process.
 """
 
 from __future__ import annotations
@@ -477,7 +478,11 @@ def run_ensemble(step_fn: Callable[[Dict], Dict], states, n_steps: int, *,
       lane whose invariant drifts past tolerance is an
       ``integrity_violation`` attributed to the lane, rolled back or
       quarantined like a divergence.
-    - `serve`: None or False (module docstring).
+    - `serve`: the live ops endpoint (:mod:`igg_torch.statusd`, the
+      :func:`igg_torch.run_resilient` contract: None is
+      ``IGG_STATUSD_PORT``-driven, an int port, True, a shared server, or
+      False).  `/healthz` readiness turns false when EVERY member is
+      quarantined.
     - `chaos`: an :class:`igg_torch.chaos.ChaosPlan`; member-targeted
       entries `(step, member, field)` poison one lane.
 
@@ -487,10 +492,6 @@ def run_ensemble(step_fn: Callable[[Dict], Dict], states, n_steps: int, *,
 
     shared.check_initialized()
     grid = shared.global_grid()
-    if serve is not None and serve is not False:
-        raise GridError(
-            f"run_ensemble: serve={serve!r}: the port has no igg.statusd "
-            f"yet (ROADMAP Queue A item 10, the ops plane); pass None.")
     if ckpt._process_count() > 1:
         raise GridError(
             "run_ensemble: the ensemble tier is single-controller in this "
@@ -589,6 +590,19 @@ def run_ensemble(step_fn: Callable[[Dict], Dict], states, n_steps: int, *,
     tel_owns = tel is not None and not tel.attached
     if tel_owns:
         tel.attach()
+    # The live ops endpoint (igg_torch.statusd): the run_resilient
+    # contract; a bind failure must not leak the run-owned session.
+    from . import statusd as _statusd
+
+    try:
+        srv = _statusd.as_server(serve)
+        srv_owns = srv is not None and not srv.started
+        if srv_owns:
+            srv.start()
+    except BaseException:
+        if tel_owns:
+            tel.detach()
+        raise
     _telemetry.emit("run_started", run="ensemble", n_steps=n_steps,
                     members=members, packing=pk_name,
                     watch_every=watch_every, steps_per_call=steps_per_call)
@@ -670,6 +684,8 @@ def run_ensemble(step_fn: Callable[[Dict], Dict], states, n_steps: int, *,
         probing = bool(watch and watch_every)
     except BaseException as e:
         _telemetry._auto_dump(f"run_ensemble: {type(e).__name__}: {e}")
+        if srv_owns:
+            srv.stop()
         if tel_owns:
             tel.detach()
         raise
@@ -1006,6 +1022,8 @@ def run_ensemble(step_fn: Callable[[Dict], Dict], states, n_steps: int, *,
                         preempted=preempted,
                         quarantined=sorted(int(m)
                                            for m in np.nonzero(~valid)[0]))
+        if srv_owns:
+            srv.stop()
         if tel is not None:
             if tel_owns:
                 tel.detach()

@@ -6,10 +6,12 @@ from . import shared
 
 
 def finalize_global_grid() -> None:
-    """Finalize the global grid: the ambient handle is cleared, so every
-    grid function raises until the next `init_global_grid`, and the tier
-    ladder's state (verifications, active tiers, events) is reset, as in
-    igg; the halo byte accounting's cache, kept per grid, is emptied."""
+    """Finalize the global grid: the ambient handle is cleared (inside
+    `shared.thread_grid_scope`, the thread's own), so every grid function
+    raises until the next `init_global_grid`, and the tier ladder's state
+    (verifications, active tiers, events) is reset for every thread, as
+    in igg; the halo byte accounting's cache, kept per grid epoch, is
+    emptied."""
     shared.check_initialized()
     from . import degrade, halo, tools
     tools.reset_timer()

@@ -40,8 +40,9 @@ device raises `GridError`.  :func:`plan_dims` weighs every axis 1 (igg's
 weights where devices expose no physical coordinates): the card has none.
 Batch packing never applies (one device), so a job asking for it fails
 at its first launch with :func:`igg_torch.run_ensemble`'s refusal, and a
-heal repack always halves the slot pool.  `serve=` (igg's ops endpoint)
-raises until ROADMAP Queue A item 10.
+heal repack always halves the slot pool.  `serve=` attaches igg's ops
+endpoint (:mod:`igg_torch.statusd`) for the whole drain, its `/status`
+counting this drain's journal by status.
 
 Chaos: :func:`igg_torch.chaos.scheduler_fault`,
 :func:`igg_torch.chaos.job_preempt_at` and
@@ -383,7 +384,7 @@ def _consume_tap(kind: str, job: str):
     return entry
 
 
-def _slots(devices) -> List[torch.device]:
+def _slots(devices, caller: str = "run_fleet") -> List[torch.device]:
     """The slot list: every entry a `torch.device`, all naming one device
     (None: one slot on the card; no card raises)."""
     from .device import same_device
@@ -394,7 +395,7 @@ def _slots(devices) -> List[torch.device]:
     devs = [resolve_device(d) for d in devices]
     if any(not same_device(d, devs[0]) for d in devs):
         raise GridError(
-            f"run_fleet: devices={[str(d) for d in devs]} names more than "
+            f"{caller}: devices={[str(d) for d in devs]} names more than "
             f"one device; the port's grid lives on one device, so its "
             f"devices are block slots of one device until the multi-GPU "
             f"backend (ROADMAP, the NCCL item).")
@@ -424,8 +425,11 @@ def run_fleet(jobs: Sequence[Job], workdir, *, devices=None,
     own healthy baseline) for `sustain` windows is preempted at the next
     dispatch, writes its final generation, and is re-admitted at once on
     half the slots, resuming elastically (a ``heal_repack`` event).
-    `serve`: None or False (igg's ops endpoint is ROADMAP Queue A item
-    10)."""
+    `serve` attaches the live ops endpoint (:mod:`igg_torch.statusd`, the
+    :func:`igg_torch.run_resilient` contract: None is
+    ``IGG_STATUSD_PORT``-driven, an int port, True, a shared server, or
+    False) for the WHOLE drain; its `/status` also counts this drain's
+    queue journal by status."""
     if shared.grid_is_initialized():
         raise GridError(
             "run_fleet: finalize the global grid first — the scheduler "
@@ -438,10 +442,6 @@ def run_fleet(jobs: Sequence[Job], workdir, *, devices=None,
                                      and j.make_step is None):
             raise GridError(f"run_fleet: job {j.name!r} needs make_states "
                             f"and step_fn (or make_step).")
-    if serve is not None and serve is not False:
-        raise GridError(
-            f"run_fleet: serve={serve!r}: the port has no igg.statusd yet "
-            f"(ROADMAP Queue A item 10, the ops plane); pass None.")
     if max_job_retries is None:
         max_job_retries = _fleet_retries_default()
     if backoff is None:
@@ -476,6 +476,23 @@ def run_fleet(jobs: Sequence[Job], workdir, *, devices=None,
         tel.attach()
     _telemetry.emit("run_started", run="fleet", jobs=len(jobs),
                     resume=resume)
+    # The live ops endpoint (igg_torch.statusd) for the whole drain; its
+    # /status reads this drain's journal.  Started after the heal=
+    # coercion (a GridError there must not leak a bound server); a bind
+    # failure must not leak the drain-owned session.
+    from . import statusd as _statusd
+
+    try:
+        srv = _statusd.as_server(serve)
+        srv_owns = srv is not None and not srv.started
+        if srv_owns:
+            srv.start()
+    except BaseException:
+        if tel_owns:
+            tel.detach()
+        raise
+    if srv is not None:
+        srv.watch_fleet(jpath)
     if heal_eng is not None:
         heal_eng.attach()
     m_queue = _telemetry.gauge("igg_fleet_queue_depth")
@@ -565,6 +582,8 @@ def run_fleet(jobs: Sequence[Job], workdir, *, devices=None,
             clear_preemption()
         _telemetry.emit("run_finished", run="fleet",
                         preempted=fleet_preempted)
+        if srv_owns:
+            srv.stop()
         if tel is not None:
             if tel_owns:
                 tel.detach()

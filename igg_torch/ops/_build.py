@@ -86,6 +86,15 @@ SIGNATURES: Dict[str, tuple] = {
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 _generated: Dict[str, ctypes.CDLL] = {}   # generated source -> library
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to `wrapper.launches`.  The counters are process-wide and
+    the service's worker threads launch side by side, where a bare `+= 1`
+    can lose a count."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def nvcc() -> str:

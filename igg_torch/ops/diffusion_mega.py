@@ -27,6 +27,7 @@ from typing import Sequence
 
 import torch
 
+from ._build import count_launch
 from .diffusion_pallas import launch_step, step_plain
 
 _BLOCKS = (1, 1, 1)
@@ -51,7 +52,7 @@ def mega_step_kernel(src, A, dst, modes, sc):
         return mega_step_plain(src, A, dst, modes, sc)
     _check_modes(modes)
     launch_step(src, A, tuple(modes), {}, _BLOCKS, sc, out=dst)
-    mega_step_kernel.launches += 1
+    count_launch(mega_step_kernel)
     return dst
 
 

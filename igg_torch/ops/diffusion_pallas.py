@@ -29,7 +29,7 @@ import torch
 
 from .. import shared
 from ..halo import block_rows, exchange_all_dims, extract_planes
-from ._build import library
+from ._build import count_launch, library
 from .halo_write import halo_write_plain
 from .stencil import block_boundary_mask, interior_add
 
@@ -134,7 +134,7 @@ def step_kernel(T, A, modes, recv, blocks, sc, out=None):
         U = step_plain(T, A, modes, recv, blocks, sc)
         return U if out is None else out.copy_(U)
     out = launch_step(T, A, modes, recv, blocks, sc, out)
-    step_kernel.launches += 1
+    count_launch(step_kernel)
     return out
 
 

@@ -34,7 +34,7 @@ from typing import Optional
 
 import torch
 
-from ._build import library
+from ._build import count_launch, library
 from ._smem import fit_banded
 # `banded_refusal` (igg's `diffusion_banded_supported` for T and A) is the
 # chunk engine's gate of the banded tier.
@@ -128,7 +128,7 @@ def chunk_call(Text, A_ext, local, *, K, modes, grid, sc):
         dst = out if k == K - 1 else bufs[k % 2]
         _launch(src, A_ext, Text, dst, local, K, modes, grid, sc,
                 k == K - 1, stream)
-        chunk_call.launches += 1
+        count_launch(chunk_call)
         src = dst
     return out
 
@@ -214,7 +214,7 @@ def band_call(Text, A_ext, local, *, K, B, modes, grid, sc,
     def launch(src, dst, cfg):
         _band_launch(src[0], A_ext, Text, dst[0], cfg, sc,
                      torch.cuda.current_stream(Text.device).cuda_stream)
-        band_call.launches += 1
+        count_launch(band_call)
 
     return streaming_chunk_call(
         [Text], [A_ext], K=K, B=B, modes=modes, grid=grid,

@@ -23,7 +23,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from ._build import library
+from ._build import count_launch, library
 
 _MODE = {"none": 0, "wrap": 1, "ext": 2}
 
@@ -111,7 +111,7 @@ def halo_write(A, specs: Sequence[Tuple], blocks):
         _call(A, esize, cfg, _NO_PLANES, stream)
     else:
         _launch(A, specs, *_check(A, specs, blocks), stream)
-    halo_write.launches += 1
+    count_launch(halo_write)
     return A
 
 

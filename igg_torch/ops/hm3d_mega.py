@@ -22,6 +22,7 @@ from typing import Sequence
 
 import torch
 
+from ._build import count_launch
 from .hm3d_pallas import launch_step, step_plain
 
 _BLOCKS = (1, 1, 1)
@@ -50,7 +51,7 @@ def mega_step_kernel(Pe, phi, dst, modes, kw):
         return mega_step_plain(Pe, phi, dst, modes, kw)
     _check_modes(modes)
     out = launch_step(Pe, phi, tuple(modes), _NO_PLANES, _BLOCKS, kw, out=dst)
-    mega_step_kernel.launches += 1
+    count_launch(mega_step_kernel)
     return out
 
 

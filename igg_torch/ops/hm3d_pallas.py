@@ -33,7 +33,7 @@ import torch
 from .. import shared
 from ..halo import block_rows, exchange_all_dims_grouped, extract_planes
 from ..models import hm3d as model
-from ._build import library
+from ._build import count_launch, library
 from .diffusion_pallas import (_DTYPE, _MODE, check_step, halo_specs,
                                kernel_refusal as _field_refusal, step_modes)
 from .halo_write import halo_write_plain
@@ -79,7 +79,7 @@ def step_kernel(Pe, phi, modes, recv, blocks, kw, out=None):
         return new if out is None else tuple(o.copy_(n)
                                              for o, n in zip(out, new))
     out = launch_step(Pe, phi, modes, recv, blocks, kw, out)
-    step_kernel.launches += 1
+    count_launch(step_kernel)
     return out
 
 

@@ -41,7 +41,7 @@ from typing import Optional
 import torch
 
 from ..models import hm3d as model
-from ._build import library
+from ._build import count_launch, library
 from ._smem import fit_banded
 from .chunk_engine import (admit_chunk_common, admit_send_slabs,
                            banded_refusal, central_window,
@@ -114,7 +114,7 @@ def chunk_call(exts, local, *, K, modes, grid, kw):
     for k in range(K):
         dst = out if k == K - 1 else bufs[k % 2]
         _launch(src, exts, dst, local, K, modes, grid, kw, k == K - 1, stream)
-        chunk_call.launches += 1
+        count_launch(chunk_call)
         src = dst
     return out
 
@@ -212,7 +212,7 @@ def band_call(exts, local, *, K, B, modes, grid, kw, central: bool = True):
     def launch(src, dst, cfg):
         _band_launch(src, exts, dst, cfg, kw,
                      torch.cuda.current_stream(exts[0].device).cuda_stream)
-        band_call.launches += 1
+        count_launch(band_call)
 
     return streaming_chunk_call(
         list(exts), [], K=K, B=B, modes=modes, grid=grid,

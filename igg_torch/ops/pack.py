@@ -20,7 +20,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from ._build import library
+from ._build import count_launch, library
 
 MAX_PLANES = 8   # requests one launch takes (y and z, send and stale, 2 sides)
 
@@ -75,7 +75,7 @@ def pack_planes(A, reqs: Sequence[Tuple[int, int]], blocks) -> List:
                         device=A.device) for d, _ in reqs]
     _launch(A, reqs, blocks, local, outs,
             torch.cuda.current_stream(A.device).cuda_stream)
-    pack_planes.launches += 1
+    count_launch(pack_planes)
     return outs
 
 

@@ -32,7 +32,7 @@ import torch
 from .. import halo, shared
 from ..shared import GridError
 from ..models import stokes3d as model
-from ._build import library
+from ._build import count_launch, library
 from .diffusion_pallas import _DTYPE
 
 
@@ -120,7 +120,7 @@ def step_kernel(P, Vx, Vy, Vz, Rho, blocks, kw):
     if P.device.type == "cpu":
         return step_plain(P, Vx, Vy, Vz, Rho, blocks, kw)
     out = launch_step(P, Vx, Vy, Vz, Rho, blocks, kw)
-    step_kernel.launches += 1
+    count_launch(step_kernel)
     return out
 
 

@@ -51,7 +51,7 @@ from typing import Optional
 import torch
 
 from ..models import stokes3d as model
-from ._build import library
+from ._build import count_launch, library
 from ._smem import banded_smem, chunk_budget, fit_banded
 from .chunk_engine import (admit_banded_geometry, admit_chunk_common,
                            admit_send_slabs, central_window,
@@ -149,7 +149,7 @@ def chunk_call(exts, Rho_ext, shapes, *, K, modes, grid, kw, ols):
         dst = out if last else bufs[k % 2]
         _launch(src, exts, Rho_ext, dst,
                 chunk_cfg(shapes[0], E, modes, grid, ols, last), kw, stream)
-        chunk_call.launches += 1
+        count_launch(chunk_call)
         src = dst
     return out
 
@@ -312,7 +312,7 @@ def band_call(exts, Rho_ext, shapes, *, K, B, modes, grid, kw, ols,
     def launch(src, dst, cfg):
         _band_launch(src, exts, Rho_ext, dst, cfg, kw,
                      torch.cuda.current_stream(exts[0].device).cuda_stream)
-        band_call.launches += 1
+        count_launch(band_call)
 
     return streaming_chunk_call(
         list(exts), [Rho_ext], K=K, B=B, modes=modes, grid=grid, ols=ols,

@@ -27,7 +27,7 @@ import torch
 from .. import halo, shared
 from ..models import wave2d as model
 from ..shared import GridError
-from ._build import library
+from ._build import count_launch, library
 from .diffusion_pallas import _DTYPE
 
 
@@ -112,7 +112,7 @@ def step_kernel(P, Vx, Vy, blocks, kw):
     if P.device.type == "cpu":
         return step_plain(P, Vx, Vy, blocks, kw)
     out = launch_step(P, Vx, Vy, blocks, kw)
-    step_kernel.launches += 1
+    count_launch(step_kernel)
     return out
 
 

@@ -43,7 +43,7 @@ from typing import Optional
 import torch
 
 from ..models import wave2d as model
-from ._build import library
+from ._build import count_launch, library
 from ._smem import fit_banded
 from .chunk_engine import (admit_banded_geometry, admit_chunk_common,
                            admit_send_slabs, band_core_from_window,
@@ -141,7 +141,7 @@ def chunk_call(exts, shapes, *, K, modes, grid, kw, ols):
         dst = out if last else bufs[k % 2]
         _launch(src, dst, chunk_cfg(shapes[0], E, modes, grid, ols, last),
                 kw, stream)
-        chunk_call.launches += 1
+        count_launch(chunk_call)
         src = dst
     return out
 

@@ -120,6 +120,9 @@ def sharded(fn=None):
             group = _Group(grid)
             outs: List = [None] * grid.nprocs
             errors: List = []
+            # The blocks run in the caller's grid scope (a serve worker's
+            # thread-scoped grid): their collectives read the grid.
+            scope = shared.scope_of_caller()
 
             def run(rank):
                 ctx = _Context(group, rank)
@@ -128,7 +131,8 @@ def sharded(fn=None):
                     local = [(_block(a, grid, ctx.coords).clone()
                               if isinstance(a, torch.Tensor) and a.ndim else a)
                              for a in args]
-                    outs[rank] = f(*local)
+                    with shared.in_scope(scope):
+                        outs[rank] = f(*local)
                 except threading.BrokenBarrierError as e:
                     errors.append(e)
                 except Exception as e:     # re-raised below; free the others

@@ -75,9 +75,13 @@ that loop, with igg's signature, defaults, validation and event stream:
   `load_checkpoint(redistribute=True)`), a recalibration, or the
   escalation ladder's demotion and failure.
 
+- **The ops endpoint** (:mod:`igg_torch.statusd`).  `serve=` runs
+  `/metrics`, `/healthz`, `/status` and `/events` on the endpoint's own
+  threads for the run.
+
 The fault injectors of :mod:`igg_torch.chaos` drive every path.  Not
-ported yet: `serve=` (raises `GridError`) and the multi-process branches
-(more than one process raises `GridError`).  With
+ported yet: the multi-process branches (more than one process raises
+`GridError`).  With
 the perf ledger on (`IGG_PERF`, default on), each watchdog window's
 ms/step is recorded for the tier that served it
 (`igg_torch.perf.observe_window`).
@@ -497,7 +501,15 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
       escalation ladder (``demote`` raises :class:`igg_torch.heal.
       HealEscalation` where the tier served CUDA tensors; ``fail``
       raises it).
-    - `serve`: not ported yet; anything but None raises `GridError`.
+    - `serve`: the live ops endpoint (:mod:`igg_torch.statusd`): None
+      (on only where ``IGG_STATUSD_PORT`` is set non-zero), an int TCP
+      port (0: ephemeral), True (the env port, else ephemeral), a shared
+      :class:`igg_torch.statusd.StatusServer`, or False.  It serves
+      `/metrics`, `/healthz`, `/status` and `/events` from its own threads
+      for the run (an already-started shared server is left running);
+      readiness turns false on a collective-stall episode, a heal
+      escalation, a live integrity violation or a watchdog fetch lag
+      beyond ``IGG_STATUSD_MAX_FETCH_LAG``.
     - `chaos`: an :class:`igg_torch.chaos.ChaosPlan` (testing only).
 
     Runs in one process (more raise `GridError`)."""
@@ -505,10 +517,6 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
     from . import degrade as _degrade
 
     shared.check_initialized()
-    if serve is not None:
-        raise GridError(
-            f"run_resilient: serve={serve!r}: the port has no igg.statusd "
-            f"yet (ROADMAP Queue A item 10, the ops plane); pass None.")
     if ckpt._process_count() > 1:
         raise GridError(
             "run_resilient: the port's resilient loop runs in one process "
@@ -604,6 +612,22 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
               if watch and _perf.enabled() else None))
     m_steps = _telemetry.counter("igg_steps_total", run="resilient")
     m_rollbacks = _telemetry.counter("igg_rollbacks_total", run="resilient")
+    # The live ops endpoint (igg_torch.statusd), started after every
+    # argument check: none can leak a bound server, and a bind failure
+    # must not leak the run-owned session.  The health tracker backfills
+    # run_started from the flight ring on attach; the pre-loop except and
+    # the main finally stop an owned server.
+    from . import statusd as _statusd
+
+    try:
+        srv = _statusd.as_server(serve)
+        srv_owns = srv is not None and not srv.started
+        if srv_owns:
+            srv.start()
+    except BaseException:
+        if tel_owns:
+            tel.detach()
+        raise
     # Subscribed after every argument check: none can leak it.
     if heal_eng is not None:
         heal_eng.attach()
@@ -647,6 +671,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
             mon.close()
         if heal_eng is not None:
             heal_eng.detach()
+        if srv_owns:
+            srv.stop()
         if tel_owns:
             tel.detach()
         raise
@@ -1177,6 +1203,8 @@ def run_resilient(step_fn: Callable[[Dict], Dict], state: Dict, n_steps: int,
         clear_preemption()
         _telemetry.emit("run_finished", step=steps_done, run="resilient",
                         preempted=preempted, retries=retries)
+        if srv_owns:
+            srv.stop()
         if tel is not None:
             if tel_owns:
                 tel.detach()

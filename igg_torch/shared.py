@@ -14,6 +14,7 @@ backend with one rank per GPU replaces those two functions.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 from typing import Optional, Tuple
@@ -134,12 +135,72 @@ def block_coords() -> Optional[Tuple[int, int, int]]:
 
 # Module-level handle: the reference's five-verb API is implicitly stateful.
 _global_grid: Optional[GlobalGrid] = None
-# Bumped at every init/finalize so caches keyed on it cannot leak across
-# grid lifetimes.
+# Monotonic epoch, bumped at every init/finalize so caches keyed on it
+# cannot leak across grid lifetimes.  One counter allocates the epochs of
+# EVERY handle, process-wide and thread-scoped alike, so two grids alive at
+# once never share a cache key.
 _grid_epoch: int = 0
+_epoch_lock = threading.Lock()
+# Epoch of the process-wide handle: scoped setters draw from the same
+# counter but must not move the epoch that unscoped readers key on.
+_GLOBAL_EPOCH = [0]
+
+# Thread-scoped grid handles (igg_torch.serve): a thread inside
+# :func:`thread_grid_scope` sees ITS OWN grid through every ambient
+# accessor, so concurrent jobs on disjoint block slots each run a full
+# grid lifecycle without touching the process-wide handle or each other.
+# Threads outside a scope keep the module-global handle.
+_grid_tls = threading.local()
+
+
+def _next_epoch() -> int:
+    global _grid_epoch
+    with _epoch_lock:
+        _grid_epoch += 1
+        return _grid_epoch
+
+
+def scope_of_caller() -> Optional[dict]:
+    """The calling thread's grid scope (None outside one), to hand to a
+    helper thread through :func:`in_scope`."""
+    return getattr(_grid_tls, "scope", None)
+
+
+@contextlib.contextmanager
+def thread_grid_scope():
+    """Make the ambient grid handle THREAD-LOCAL inside this context: the
+    calling thread starts with no grid, `init_global_grid` installs into
+    the scope, `finalize_global_grid` clears it, and no other thread sees
+    it.  :mod:`igg_torch.serve` runs each concurrent job's worker in one.
+    Scopes nest (the previous scope is restored on exit); a grid still
+    installed at exit is discarded with the scope.  The threads the port
+    starts on a scoped thread's behalf (`sharded`'s blocks, the background
+    checkpoint writer) run in the scope they were started from
+    (:func:`scope_of_caller`, :func:`in_scope`)."""
+    prev = scope_of_caller()
+    _grid_tls.scope = {"grid": None, "epoch": _next_epoch()}
+    try:
+        yield
+    finally:
+        _grid_tls.scope = prev
+
+
+@contextlib.contextmanager
+def in_scope(scope: Optional[dict]):
+    """Run the body in `scope` (a value of :func:`scope_of_caller`; None:
+    the process-wide handle), restoring this thread's own on exit."""
+    prev = scope_of_caller()
+    _grid_tls.scope = scope
+    try:
+        yield
+    finally:
+        _grid_tls.scope = prev
 
 
 def grid_is_initialized() -> bool:
+    sc = scope_of_caller()
+    if sc is not None:
+        return sc["grid"] is not None
     return _global_grid is not None
 
 
@@ -152,6 +213,9 @@ def check_initialized() -> None:
 
 def global_grid() -> GlobalGrid:
     check_initialized()
+    sc = scope_of_caller()
+    if sc is not None:
+        return sc["grid"]
     return _global_grid
 
 
@@ -161,13 +225,22 @@ def get_global_grid() -> GlobalGrid:
 
 
 def set_global_grid(gg: Optional[GlobalGrid]) -> None:
-    global _global_grid, _grid_epoch
+    global _global_grid
+    sc = scope_of_caller()
+    epoch = _next_epoch()
+    if sc is not None:
+        sc["grid"] = gg
+        sc["epoch"] = epoch
+        return
     _global_grid = gg
-    _grid_epoch += 1
+    _GLOBAL_EPOCH[0] = epoch
 
 
 def grid_epoch() -> int:
-    return _grid_epoch
+    sc = scope_of_caller()
+    if sc is not None:
+        return sc["epoch"]
+    return _GLOBAL_EPOCH[0]
 
 
 def me() -> int:

@@ -51,7 +51,7 @@ from typing import Dict, Optional, Sequence
 import torch
 
 from .. import halo, shared
-from ..ops._build import generated_library
+from ..ops._build import count_launch, generated_library
 from ..ops._smem import banded_smem, chunk_budget, fit_banded
 from ..ops.chunk_engine import (admit_banded_geometry, admit_chunk_common,
                                 admit_send_slabs, band_core_from_window,
@@ -259,7 +259,7 @@ def step_kernel(gen, fields, blocks):
     if fields[0].device.type == "cpu":
         return step_plain(gen, fields, blocks)
     out = launch_step(gen, fields, blocks)
-    step_kernel.launches += 1
+    count_launch(step_kernel)
     return out
 
 
@@ -533,7 +533,7 @@ def chunk_call(gen, exts, shapes, *, K, E, modes, grid, ols):
         dst = out if last else bufs[k % 2]
         _launch(gen, src, exts, dst,
                 stagger_cfg(base, E, modes, grid.dims, ols, last), stream)
-        chunk_call.launches += 1
+        count_launch(chunk_call)
         src = dst
     return out
 
@@ -647,7 +647,7 @@ def band_call(gen, exts, shapes, *, K, B, E, modes, grid, ols,
     def launch(src, dst, cfg):
         _band_launch(gen, src, exts, dst, cfg,
                      torch.cuda.current_stream(exts[0].device).cuda_stream)
-        band_call.launches += 1
+        count_launch(band_call)
 
     return streaming_chunk_call(
         list(exts), [], K=K, B=B, modes=modes, grid=grid, ols=ols,

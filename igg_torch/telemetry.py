@@ -310,6 +310,45 @@ _BUILTIN_HELP: Dict[str, str] = {
     "igg_integrity_violations_total": "Silent-data-corruption verdicts "
                                       "raised (invariant drift or shadow "
                                       "mismatch; igg.integrity).",
+    "igg_member_steps_total": "Member-steps completed by run_ensemble (steps"
+                              " times active members).",
+    "igg_member_steps_per_s": "Live aggregate member-step rate of the last "
+                              "ensemble watchdog window.",
+    "igg_rank_skew_ms": "Worst-vs-median window time across ranks "
+                        "(igg.comm.rank_skew).",
+    "igg_checkpoint_bytes_total": "Bytes written into checkpoint generations.",
+    "igg_checkpoint_write_seconds": "Checkpoint generation write latency.",
+    "igg_halo_gbps": "Measured halo-exchange bandwidth over the logical halo"
+                     " bytes.",
+    "igg_pct_link_peak": "Measured wire-crossing halo bandwidth as a "
+                         "percentage of the chip's published ICI peak.",
+    "igg_achieved_gbps": "Achieved HBM bandwidth of the serving kernel tier "
+                         "(igg.perf).",
+    "igg_pct_hbm_peak": "Achieved HBM bandwidth as a percentage of the "
+                        "chip's published peak (igg.perf).",
+    "igg_cost_model_rel_error": "Relative error of the registered cost-model"
+                                " prediction vs measured step time.",
+    "igg_exposed_comm_fraction": "Exposed communication fraction (exchange -"
+                                 " compute) / exchange of the last "
+                                 "decomposition window.",
+    "igg_overlap_efficiency": "Overlap efficiency (exchange - hidden) / "
+                              "(exchange - compute) of the last "
+                              "decomposition window.",
+    "igg_member_quarantined_total": "Ensemble members quarantined after "
+                                    "retry-budget exhaustion.",
+    "igg_fleet_queue_depth": "Fleet jobs not yet terminal this drain.",
+    "igg_fleet_jobs_total": "Fleet jobs finished, by outcome status.",
+    "igg_hbm_bytes_in_use": "Device memory currently allocated "
+                            "(device.memory_stats; absent when the backend "
+                            "exposes no allocator stats).",
+    "igg_hbm_bytes_limit": "Device memory capacity visible to the allocator "
+                           "(absent when the backend exposes no allocator "
+                           "stats).",
+    "igg_hbm_watermark_bytes": "Peak device memory allocated since process "
+                               "start (absent when the backend exposes no "
+                               "allocator stats).",
+    "igg_statusd_requests_total": "HTTP requests served by igg.statusd, by "
+                                  "route.",
 }
 
 

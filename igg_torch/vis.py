@@ -65,8 +65,18 @@ class BackgroundRenderer:
         self._q: "queue.Queue" = queue.Queue(maxsize=maxsize)
         self._errors: List[BaseException] = []
         self._closed = False
+        # The worker runs in the grid scope of the thread that made the
+        # renderer (a serve worker's thread-scoped grid), so a `consume`
+        # that reads the grid (a checkpoint save) sees the caller's.
+        from . import shared
+
+        scope = shared.scope_of_caller()
 
         def loop():
+            with shared.in_scope(scope):
+                work()
+
+        def work():
             streams: Dict[torch.device, torch.cuda.Stream] = {}
             while True:
                 item = self._q.get()

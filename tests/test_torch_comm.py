@@ -632,14 +632,14 @@ def test_run_resilient_comm_checks_equal_iggs():
                        match=r"igg_torch\.comm\.StepDecomposition monitor"):
         it.run_resilient(loop_step(), st, 4, watch_every=2,
                          comm="not-a-monitor", install_sigterm=False)
-    # heal= is ported (igg_torch.heal): a value that is no policy raises
-    # igg's coercion; serve= is not ported yet.
+    # heal= and serve= are ported (igg_torch.heal, igg_torch.statusd): a
+    # value that is no policy, port or server raises igg's coercion.
     with pytest.raises(it.GridError, match="heal='bogus': expected None"):
         it.run_resilient(loop_step(), st, 4, install_sigterm=False,
                          heal="bogus")
-    with pytest.raises(it.GridError, match="not ported|Queue A"):
+    with pytest.raises(it.GridError, match="serve='bogus': expected None"):
         it.run_resilient(loop_step(), st, 4, install_sigterm=False,
-                         serve=True)
+                         serve="bogus")
 
 
 def test_run_resilient_comm_windows_match_iggs(igg_comm_run, tmp_path):
@@ -790,6 +790,10 @@ def test_search_confirms_or_demotes_an_overlapped_winner(monkeypatch,
     (stubbed) measures hidden < exchange; else `overlap_demoted` carries
     the measured times."""
     port_grid((8, 8, 8), **PERIODIC)
+    # The search's winner goes to a cache of this test's own: left in the
+    # process-wide one, it would pin the route of every later "auto"
+    # factory at this signature in the same worker.
+    monkeypatch.setattr(autotune, "_CACHE", {})
     times = dict(compute=1.0, exchange=2.0, hidden=hidden)
     calls = []
     monkeypatch.setattr(comm, "decompose", lambda *a, **kw: (
@@ -800,7 +804,9 @@ def test_search_confirms_or_demotes_an_overlapped_winner(monkeypatch,
         fn, args = real(family, cand, n_inner, params)
         if cand.get("overlap"):
             return fn, args
-        return (lambda *a: (time.sleep(0.02), fn(*a))[1]), args
+        # 0.2 s a call: the overlapped candidate must win even on a loaded
+        # machine, where 0.02 s was at times not enough.
+        return (lambda *a: (time.sleep(0.2), fn(*a))[1]), args
 
     monkeypatch.setattr(autotune, "_build_candidate", slowed)
     w = autotune.search("diffusion3d", n_inner=3, nt=1, candidates=[

@@ -26,7 +26,7 @@ import igg_torch as it
 from igg import degrade as igg_degrade
 from igg import telemetry as igg_tel
 from igg.halo import plane_bytes_by_mode
-from igg_torch import convert, degrade, telemetry as tel
+from igg_torch import autotune, convert, degrade, telemetry as tel
 from igg_torch.models import diffusion3d as t3
 from igg_torch.models import hm3d as th3
 from igg_torch.models import shallow_water as tsw
@@ -41,6 +41,9 @@ from torch_threads import one_torch_thread  # noqa: F401
 @pytest.fixture(autouse=True)
 def _clean_state(monkeypatch):
     monkeypatch.delenv("IGG_VERIFY_KERNELS", raising=False)
+    # No tuning winner cached by an earlier module of this process: the
+    # factories here serve their "auto" routes.
+    monkeypatch.setattr(autotune, "_CACHE", {})
     if it.grid_is_initialized():
         it.finalize_global_grid()
     degrade.reset()

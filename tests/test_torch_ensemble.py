@@ -584,10 +584,13 @@ def test_argument_validation_equals_igg():
 
 
 def test_serve_and_more_processes_refused():
+    """serve= is ported (igg_torch.statusd): a value that is no port or
+    server raises igg's coercion; an ephemeral endpoint and none run."""
     pkg = Pkg("port")
     pkg.init()
-    with pytest.raises(it.GridError, match="serve=8000: .*item 10"):
-        pkg.run(pkg.states(2), 2, serve=8000)
+    with pytest.raises(it.GridError, match="serve='bogus': expected None"):
+        pkg.run(pkg.states(2), 2, serve="bogus")
+    assert pkg.run(pkg.states(2), 2, serve=0).steps_done == 2
     assert pkg.run(pkg.states(2), 2, serve=False).steps_done == 2
 
 

@@ -556,15 +556,16 @@ def test_repack_choice_halves_the_slot_pool():
 
 def test_devices_are_slots_of_one_device(tmp_path, monkeypatch):
     """`devices=None` is one slot on the card, which raises without one; a
-    list naming two devices raises; `serve=` raises naming item 10; a live
-    grid and duplicate names are refused as igg refuses them."""
+    list naming two devices raises; a `serve=` that is no port or server
+    raises igg's coercion; a live grid and duplicate names are refused as
+    igg refuses them."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(it.GridError, match="torch.cuda.is_available"):
         it.run_fleet([job("port", "a")], tmp_path)
     with pytest.raises(it.GridError, match="more than one device"):
         it.run_fleet([job("port", "a")], tmp_path, devices=["cpu", "meta"])
-    for serve in (True, 8080):
-        with pytest.raises(it.GridError, match="serve=.*item 10"):
+    for serve in ("bogus", 1.5):
+        with pytest.raises(it.GridError, match="serve=.*expected None"):
             fleet("port", [job("port", "a")], tmp_path, serve=serve)
     it.init_global_grid(6, 6, 6, device="cpu", quiet=True)
     with pytest.raises(it.GridError, match="finalize"):

@@ -67,7 +67,11 @@ launch a lane step, bitwise the plain member step, a build failure out of
 the run; a `run_fleet` drain of two jobs over 8 block slots of the card
 (one launch a lane step, a lane bitwise its solo `run_ensemble`); a heal
 escalation's `demote` step on CUDA tensors raising `HealEscalation`
-naming the tier, with nothing quarantined.
+naming the tier, with nothing quarantined; `run_resilient(serve=0)` at a
+256^3 block scraped mid-run (`/healthz` 200, device-memory gauges within
+the card's memory, bitwise `serve=False`) and `serve_fleet` running two
+jobs side by side on disjoint slots of the card, each lane bitwise its
+solo `run_ensemble`.
 Tolerance 0 throughout.  Every test needs an
 NVIDIA card and skips without one; `chip_smoke.py` runs the same
 comparisons as its first phase."""
@@ -1909,3 +1913,160 @@ def test_autotune_search_raises_on_a_failed_kernel_candidate(card, tmp_path,
     finally:
         perf.reset()
         autotune.reset()
+
+
+def test_serve_endpoint_on_the_card(card):
+    """`run_resilient(serve=0)` at a 256^3 block on the card: a client
+    scraping the owned endpoint reads `/healthz` 200 and non-zero
+    `igg_hbm_*` gauges bounded by the card's memory, `/status` names
+    `diffusion3d.cuda`, and the state is bitwise the `serve=False` run."""
+    import json
+    import re
+    import threading
+    import urllib.request
+
+    from igg_torch import telemetry
+    from igg_torch.models import diffusion3d as t3
+
+    it.init_global_grid(256, 256, 256, periodx=1, periody=1, periodz=1,
+                        device=card, quiet=True)
+    p = t3.Params()
+    T, Cp = t3.init_fields(p)
+    T = it.update_halo(T)
+    step = t3.make_step(p)
+    calls = []
+    held = threading.Event()
+
+    def fn(s):
+        calls.append(1)
+        if len(calls) == 20:          # the loop waits for one scrape
+            held.wait(60)
+        return {"T": step(s["T"], s["Cp"]), "Cp": s["Cp"]}
+
+    got, bound = {}, threading.Event()
+
+    def on_record(rec):
+        if rec.kind == "statusd_started":
+            got["port"] = rec.payload["port"]
+            bound.set()
+
+    def scrape():
+        assert bound.wait(60)
+        url = f"http://127.0.0.1:{got['port']}"
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+            got["metrics"] = r.read().decode()
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            got["healthz"] = r.status
+        with urllib.request.urlopen(url + "/status", timeout=10) as r:
+            got["status"] = json.loads(r.read())
+        held.set()
+
+    kw = dict(watch_every=10, install_sigterm=False)
+    want = it.run_resilient(fn, {"T": T, "Cp": Cp}, 40, serve=False, **kw)
+    calls.clear()
+    telemetry.subscribe(on_record)
+    th = threading.Thread(target=scrape, daemon=True)
+    th.start()
+    try:
+        res = it.run_resilient(fn, {"T": T, "Cp": Cp}, 40, serve=0, **kw)
+    finally:
+        held.set()
+        telemetry.unsubscribe(on_record)
+        th.join(30)
+    assert torch.equal(res.state["T"], want.state["T"])
+    assert got["healthz"] == 200
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def gauge(name):
+        m = re.search(rf'^{name}{{device="cuda:0"}} (\S+)$', got["metrics"],
+                      re.M)
+        return float(m.group(1))
+
+    assert 2 * T.numel() * 4 <= gauge("igg_hbm_bytes_in_use") <= total
+    assert gauge("igg_hbm_bytes_limit") == total
+    assert 0 < gauge("igg_hbm_watermark_bytes") <= total
+    assert got["status"]["tiers"]["diffusion3d"] == "diffusion3d.cuda"
+    assert got["status"]["hbm"]["devices"] == torch.cuda.device_count()
+
+
+def test_serve_fleet_on_the_card(card, tmp_path):
+    """`serve_fleet` over 8 block slots of the card, `max_concurrent=2`:
+    two diffusion ensemble jobs held until both run on disjoint slots, then
+    released side by side; each lane bitwise its solo `run_ensemble` on
+    the same grid."""
+    import threading
+
+    from igg_torch.models import diffusion3d as t3
+
+    p = t3.Params()
+    gates = {n: (threading.Event(), threading.Event()) for n in "ab"}
+
+    def factory(spec):
+        name = spec["name"]
+
+        def make_states(grid):
+            T, Cp = t3.init_fields(p)
+            T = it.update_halo(T)
+            return [{"T": T, "Cp": Cp,
+                     "dt_scale": torch.tensor(s, device=T.device)}
+                    for s in (0.5, 1.0)]
+
+        def make_step(grid):
+            step, calls = t3.make_member_step(p), [0]
+
+            def gated(st):
+                calls[0] += 1
+                if calls[0] == 5 and name in gates:
+                    gates[name][0].set()
+                    gates[name][1].wait(60)
+                return step(st)
+            return gated
+
+        return it.Job(name=name, global_interior=(62, 62, 62), members=2,
+                      n_steps=10, make_states=make_states,
+                      make_step=make_step, periods=tuple(spec["periods"]),
+                      watch_every=5, checkpoint_every=0)
+
+    ctl = it.ServeControl()
+    out = {}
+
+    def run():
+        out["res"] = it.serve_fleet(tmp_path, factory, devices=["cuda"] * 8,
+                                    max_concurrent=2, stop_when_idle_s=0.5,
+                                    poll_s=0.01, install_sigterm=False,
+                                    control=ctl)
+
+    th = threading.Thread(target=run)
+    th.start()
+    try:
+        assert ctl.wait_ready(60)
+        for name, per in (("a", [1, 1, 1]), ("b", [0, 0, 0])):
+            assert ctl.submit({"name": name, "global_interior": [62] * 3,
+                               "members": 2, "n_steps": 10, "periods": per,
+                               "n_devices": 4}).code == 201
+        assert gates["a"][0].wait(60) and gates["b"][0].wait(60)
+        running = ctl._state.running
+        assert sorted(running) == ["a", "b"]
+        assert set(running["a"].slots).isdisjoint(running["b"].slots)
+    finally:
+        for reached, release in gates.values():
+            release.set()
+        th.join(120)
+    res = out["res"]
+    assert {n: o.status for n, o in res.jobs.items()} == {"a": "done",
+                                                          "b": "done"}
+    gates.clear()
+    for name, per in (("a", (1, 1, 1)), ("b", (0, 0, 0))):
+        o = res.jobs[name]
+        local = [(62 - (0 if q else 2)) // d + 2 for q, d in zip(per, o.dims)]
+        it.init_global_grid(*local, dimx=o.dims[0], dimy=o.dims[1],
+                            dimz=o.dims[2], periodx=per[0], periody=per[1],
+                            periodz=per[2], device=card, quiet=True)
+        job = factory({"name": name, "periods": list(per)})
+        solo = it.run_ensemble(job.make_step(it.get_global_grid()),
+                               job.make_states(it.get_global_grid()), 10,
+                               watch_every=5, install_sigterm=False)
+        got = o.result.state["T"]
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got, solo.state["T"], rtol=0, atol=0)
+        it.finalize_global_grid()
